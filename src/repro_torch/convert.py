@@ -1,0 +1,60 @@
+"""State carried across from the reference package.
+
+The system has no weights: a run's state is its plan and its prepared
+operand.  ``plan_from_reference`` rebuilds the port's plan from a reference
+``ExecutionPlan.spec_dict()`` (a plain dict, as the reference writes it into
+its checkpoint sidecars); ``operand_from_reference`` takes the reference's
+prepared operand as a numpy array (``np.asarray(plan.prepare(x))``).  Both
+packages then compute the same tiles from the same operand.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.allpairs import resolve_device
+from repro_torch.core.plan import ExecutionPlan
+
+# spec_dict fields that select modes later slices bring, with the only
+# values this slice runs
+_SLICE_ONE = {"tile_kernel": None, "workload": "TriangularWorkload",
+              "symmetric_grid": False, "compute_dtype": None, "p": 1,
+              "replicas": 0}
+
+
+def plan_from_reference(spec: dict) -> ExecutionPlan:
+    """The port's ExecutionPlan for a reference plan's ``spec_dict()``.
+
+    Raises NotImplementedError for modes this slice does not run and
+    ValueError when the rebuilt plan's spec_dict() differs from `spec`.
+    """
+    for key, want in _SLICE_ONE.items():
+        if spec.get(key) != want:
+            raise NotImplementedError(
+                f"reference plan has {key}={spec.get(key)!r}; the port runs "
+                f"{key}={want!r} in this slice (see ROADMAP queue A)")
+    if spec["n_rows"] != spec["n_cols"]:
+        raise NotImplementedError("rectangular plans are ROADMAP slice 2")
+    plan = ExecutionPlan.create(
+        spec["n_rows"], spec["l"], t=spec["t"], l_blk=spec["l_blk"],
+        measure=spec["measure"],
+        max_tiles_per_pass=spec["max_tiles_per_pass"], clip=spec["clip"],
+        fuse_epilogue=spec["fused"])
+    if plan.spec_dict() != spec:
+        raise ValueError(f"rebuilt plan {plan.spec_dict()} differs from the "
+                         f"reference spec {spec}")
+    return plan
+
+
+def operand_from_reference(u_pad, device=None) -> torch.Tensor:
+    """The reference's prepared (n_pad, l_pad) operand as a contiguous
+    float32 tensor on `device` (None means "cuda")."""
+    u = np.array(u_pad, order="C")
+    if u.ndim != 2 or u.dtype != np.float32:
+        raise ValueError(f"expected a 2-D float32 operand, got {u.dtype} "
+                         f"{u.shape}")
+    return torch.from_numpy(u).to(resolve_device(device))
+
+
+__all__ = ["plan_from_reference", "operand_from_reference"]

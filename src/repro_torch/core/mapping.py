@@ -1,0 +1,116 @@
+"""Bijective tile-id <-> upper-triangle coordinate mapping (paper SSIII-B).
+
+Port of ``repro/core/mapping.py`` (the host-side, exact-integer part).  For
+symmetric all-pairs work only the upper triangle (incl. the diagonal) of the
+m x m job matrix is computed.  Jobs are numbered row-major in the triangle:
+
+    J_m(y, x) = F_m(y) + x - y,        0 <= y <= x < m          (Eq. 9)
+    F_m(y)    = y * (2m - y + 1) / 2                            (Eq. 10)
+
+and inverted in closed form (Eq. 14/15) with an exact integer repair.  The
+CUDA tile kernel (kernels/csrc/pcc_tile.cu) inverts ids with the same
+double-sqrt-then-int64-repair scheme as :func:`job_coord_batch`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+
+
+def tri_count(n: int) -> int:
+    """Total number of jobs in the upper triangle incl. diagonal: n(n+1)/2."""
+    return n * (n + 1) // 2
+
+
+def f_n(n: int, y: int) -> int:
+    """F_n(y): number of upper-triangle cells strictly before row y (Eq. 10)."""
+    return y * (2 * n - y + 1) // 2
+
+
+def job_id(n: int, y: int, x: int) -> int:
+    """Job identifier for coordinate (y, x) in the upper triangle (Eq. 9)."""
+    if not (0 <= y <= x < n):
+        raise ValueError(f"(y={y}, x={x}) not in upper triangle of n={n}")
+    return f_n(n, y) + x - y
+
+
+def job_coord(n: int, j: int) -> Tuple[int, int]:
+    """Inverse mapping: job identifier -> (y, x) (Eq. 14/15), exact.
+
+    ``math.isqrt`` keeps it integral at any n: y is the smallest integer
+    with F_n(y + 1) > j, i.e. ceil(((2n - 1) - sqrt(disc)) / 2) with the
+    radicand scaled by 4, disc = 4n^2 + 4n + 1 - 8(j + 1).
+    """
+    if not (0 <= j < tri_count(n)):
+        raise ValueError(f"job id {j} out of range for n={n}")
+    disc = 4 * n * n + 4 * n + 1 - 8 * (j + 1)
+    s = math.isqrt(disc)
+    y = ((2 * n - 1) - s + 1) // 2
+    while f_n(n, y + 1) <= j:
+        y += 1
+    while f_n(n, y) > j:
+        y -= 1
+    return y, j + y - f_n(n, y)
+
+
+def job_coord_batch(n: int, ids) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorised exact inverse mapping: job ids -> (ys, xs), host numpy.
+
+    One float64 sqrt over the batch, then integer clamp loops that repair
+    any rounding until s^2 <= disc < (s+1)^2 and F_n(y) <= j < F_n(y+1)
+    hold for every element — exact wherever the int64 radicand does not
+    overflow, not only where the float64 sqrt is (~2^52).
+    """
+    j = np.asarray(ids, dtype=np.int64)
+    if j.size and (j.min() < 0 or j.max() >= tri_count(n)):
+        bad = j[(j < 0) | (j >= tri_count(n))][0]
+        raise ValueError(f"job id {bad} out of range for n={n}")
+    disc = 4 * n * n + 4 * n + 1 - 8 * (j + 1)
+    s = np.floor(np.sqrt(disc.astype(np.float64))).astype(np.int64)
+    while np.any(over := s * s > disc):
+        s = np.where(over, s - 1, s)
+    while np.any(under := (s + 1) * (s + 1) <= disc):
+        s = np.where(under, s + 1, s)
+    y = ((2 * n - 1) - s + 1) // 2
+    y = np.clip(y, 0, n - 1)
+
+    def f(yy):
+        return yy * (2 * n - yy + 1) // 2
+
+    while np.any(low := f(y + 1) <= j):
+        y = np.where(low, y + 1, y)
+    while np.any(high := f(y) > j):
+        y = np.where(high, y - 1, y)
+    return y, j + y - f(y)
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangularWorkload:
+    """Upper-triangle (incl. diagonal) tile jobs of a symmetric m x m grid."""
+
+    m: int
+
+    needs_symmetrize = True
+
+    @property
+    def m_rows(self) -> int:
+        return self.m
+
+    @property
+    def m_cols(self) -> int:
+        return self.m
+
+    @property
+    def job_count(self) -> int:
+        return tri_count(self.m)
+
+    def job_coord_batch(self, ids) -> Tuple[np.ndarray, np.ndarray]:
+        return job_coord_batch(self.m, ids)
+
+
+__all__ = ["tri_count", "f_n", "job_id", "job_coord", "job_coord_batch",
+           "TriangularWorkload"]

@@ -1,0 +1,153 @@
+"""ExecutionPlan: every static decision of an all-pairs run, computed once.
+
+Port of ``repro/core/plan.py`` for one device and the triangular workload:
+measure resolution, epilogue fusion, padding and the pass split (paper
+Alg. 2, C4) are decided here, host-side in exact ints; the executor
+(core/allpairs.py) and the sink (core/sinks.py) consume the plan.
+
+The defaults t = 256 and l_blk = 512 are the reference's, so tile ids,
+launch sizes and :meth:`ExecutionPlan.spec_dict` match its plans key for
+key.  The CUDA kernel chooses its own CTA block inside a tile.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import mapping, measures, tiling
+from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
+                                          EpilogueSpec)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """All static decisions of one single-device symmetric run."""
+
+    measure: measures.Measure
+    tile: tiling.TilePlan
+    l_blk: int
+    clip: bool
+    fused: bool                          # epilogue runs inside the kernel
+    epilogue_spec: Optional[EpilogueSpec]
+    per_dev: int                         # tiles of the one device (p = 1)
+    max_tiles_per_pass: int              # pass bound (C4)
+    workload: mapping.TriangularWorkload
+
+    @property
+    def n(self) -> int:
+        return self.tile.n
+
+    @property
+    def l(self) -> int:
+        return self.tile.l
+
+    @property
+    def t(self) -> int:
+        return self.tile.t
+
+    @property
+    def m(self) -> int:
+        return self.tile.m
+
+    @property
+    def n_pad(self) -> int:
+        return self.tile.n_pad
+
+    @property
+    def n_rows(self) -> int:
+        return self.tile.n
+
+    @property
+    def n_cols(self) -> int:
+        return self.tile.n
+
+    @property
+    def total_tiles(self) -> int:
+        return self.workload.job_count
+
+    @classmethod
+    def create(cls, n: int, l: int, *, t: int = DEFAULT_TILE,
+               l_blk: int = DEFAULT_LBLK,
+               measure: measures.MeasureLike = "pearson",
+               max_tiles_per_pass: Optional[int] = None,
+               clip: bool = True,
+               fuse_epilogue: bool = True) -> "ExecutionPlan":
+        """Resolve measure, fusion, padding and the pass split."""
+        meas = measures.get(measure)
+        tile = tiling.TilePlan.create(n, l, t)
+        if l_blk <= 0:
+            raise ValueError(f"l_blk must be positive, got {l_blk}")
+        workload = mapping.TriangularWorkload(tile.m)
+        spec, fused = measures.resolve_fusion(meas, fuse_epilogue, tile.l,
+                                              clip=clip)
+        per_dev = workload.job_count
+        if max_tiles_per_pass is not None and max_tiles_per_pass <= 0:
+            raise ValueError(
+                f"max_tiles_per_pass must be positive, got {max_tiles_per_pass}")
+        mtp = min(per_dev, max_tiles_per_pass or per_dev)
+        return cls(measure=meas, tile=tile, l_blk=l_blk, clip=clip,
+                   fused=fused, epilogue_spec=spec, per_dev=per_dev,
+                   max_tiles_per_pass=mtp, workload=workload)
+
+    def prepare(self, x: torch.Tensor) -> torch.Tensor:
+        """Row-transform x at >= float32 and zero-pad to kernel alignment."""
+        if tuple(x.shape) != (self.n, self.l):
+            raise ValueError(f"x shape {tuple(x.shape)} does not match plan "
+                             f"(n={self.n}, l={self.l})")
+        u = self.measure.transform(x, dtype=torch.float32)
+        return pad_operands(u, self.t, self.l_blk)
+
+    @property
+    def n_pass(self) -> int:
+        return -(-self.per_dev // self.max_tiles_per_pass)
+
+    @property
+    def launch_sizes(self) -> Tuple[int, ...]:
+        """Kernel launch size of each pass: max_tiles_per_pass, then the
+        actual remainder."""
+        return tiling.pass_launch_sizes(self.per_dev, self.max_tiles_per_pass)
+
+    def pass_offset(self, k: int) -> int:
+        """Tile id at which pass k starts."""
+        return k * self.max_tiles_per_pass
+
+    def spec_dict(self) -> dict:
+        """JSON-serialisable identity of this plan, key for key the
+        reference's ``ExecutionPlan.spec_dict()``; the fields of modes
+        later slices bring hold their single-device, plain-operand,
+        triangular values."""
+        return {
+            "n_rows": self.n_rows, "n_cols": self.n_cols, "l": self.l,
+            "t": self.t, "l_blk": self.l_blk,
+            "measure": self.measure.name,
+            "tile_kernel": None,
+            "workload": type(self.workload).__name__,
+            "symmetric_grid": False,
+            "compute_dtype": None,
+            "clip": self.clip, "fused": self.fused,
+            "p": 1, "max_tiles_per_pass": self.max_tiles_per_pass,
+            "total_tiles": self.total_tiles, "n_pass": self.n_pass,
+            "replicas": 0,
+        }
+
+    def spec_key(self) -> tuple:
+        """Hashable form of :meth:`spec_dict`."""
+        return tuple(sorted(self.spec_dict().items()))
+
+
+def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
+    """Zero-pad transformed variables to (n_pad, l_pad) kernel alignment.
+    Zero rows correlate to 0 with everything, so padding is inert."""
+    n, l = u.shape
+    n_pad = -(-n // t) * t
+    l_pad = -(-l // l_blk) * l_blk
+    if (n_pad, l_pad) == (n, l):
+        return u.contiguous()
+    return F.pad(u, (0, l_pad - l, 0, n_pad - n))
+
+
+__all__ = ["ExecutionPlan", "pad_operands"]
