@@ -15,7 +15,28 @@ Phases, each fatal on failure:
      64 sampled rows against float64, and bit-identity across pass splits;
   4. time the kernel, its bound, its plain version, one PyTorch library
      call for the same product, and corr end to end (CUDA events / host
-     clock after torch.cuda.synchronize()).
+     clock after torch.cuda.synchronize());
+  5. the top-k kernel (select + merge) and the tile kernel's rectangular
+     grid against their plain versions at small ragged shapes: values
+     within tolerance, columns equal except at printed near-ties, and the
+     top-k values bitwise those of pcc_tiles;
+  6. symmetric top-k, corr(x, sink=DeviceTopKSink(10)) at the Table II
+     shape: launch counts (the CUDA kernels, never a plain version),
+     bit-identity with TopKSink(10) fed by pcc_tiles (one pass and
+     300-tile passes), time, peak memory, host merge time per pass;
+  7. symmetric top-k at Table I's largest shape (n = 64,000, l = 5,000,
+     k = 10), once, with 16 sampled rows against a float64 top-k and the
+     kernels against their plain version on the whole pass;
+  8. rectangular X-vs-Y: 1,639 rows (the human transcription factors of
+     Lambert et al., Cell 2018) against the 17,555 Table II rows, dense
+     corr(x, y) (16 rows against float64) and DeviceTopKSink(10)
+     (bit-identical to TopKSink(10)), launch counts, times, peak memory;
+  9. hold the top-k kernels against their plain version on the passes the
+     driven paths launch (Table II one pass and 300-tile passes, the
+     rectangular grid; phase 7 does the same for its n = 64,000 pass), then
+     time them (select, merge, both), their plain version and a library
+     yardstick at the Table II shape, and the grid mode of pcc_tiles at the
+     rectangular shape, each with its bound.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -48,6 +69,10 @@ TOL_SMALL = 3e-6
 TOL_FULL = 1e-5
 # corr at float32 against float64 statistics and products on 64 rows.
 TOL_F64 = 1e-5
+K_TOP = 10                         # examples/coexpression_network.py --topk 10
+N_TF = 1_639                       # human TFs (Lambert et al., Cell 2018)
+N_64K, L_64K = 64_000, 5_000       # paper Table I, configs ARTIFICIAL_64K
+CHECK_ROWS = 16
 
 
 def gpu_info() -> str:
@@ -58,17 +83,99 @@ def gpu_info() -> str:
     return out.splitlines()[0]
 
 
+def amax(x) -> float:
+    """Largest element of a tensor as a float, 0 for an empty one."""
+    return float(x.max()) if x.numel() else 0.0
+
+
+def lookup64(u64, v64, rows, cols, spec, chunk=16_384):
+    """float64 values (with the epilogue) of the pairs (rows[i], cols[i])
+    of the padded operands, in chunks."""
+    import torch
+    out = torch.empty(rows.numel(), dtype=torch.float64, device=u64.device)
+    for i in range(0, rows.numel(), chunk):
+        r, c = rows[i:i + chunk], cols[i:i + chunk]
+        out[i:i + chunk] = (u64[r] * v64[c]).sum(dim=1)
+    return spec.apply(out) if spec is not None else out
+
+
+def check_topk_state(got, want, u64, v64, spec, tol, label):
+    """Hold one (vals, cols) state side of the kernel against the plain
+    version's: the same empty slots, every value within `tol` of float64 at
+    its own column, the |v| sequence within `tol` slot by slot, and the
+    columns equal except where the two candidates' float64 |v| lie within
+    2 * tol.  Returns (max |kernel - plain| where the columns agree, number
+    of near-ties)."""
+    import torch
+    gv, gc = got
+    wv, wc = want
+    if not torch.equal(gc < 0, wc < 0):
+        raise AssertionError(f"{label}: empty slots differ")
+    ok = gc >= 0
+    m, t, kk = gv.shape
+    rows = (torch.arange(m * t, device=gv.device).view(m, t, 1)
+            .expand(m, t, kk))[ok]
+    d_got = lookup64(u64, v64, rows, gc[ok].long(), spec)
+    d_want = lookup64(u64, v64, rows, wc[ok].long(), spec)
+    errs = [amax((gv[ok].double() - d_got).abs()),
+            amax((wv[ok].double() - d_want).abs()),
+            amax((gv[ok].abs() - wv[ok].abs()).abs())]
+    if not max(errs) <= tol:
+        raise AssertionError(f"{label}: values off by {errs} (tol {tol:g})")
+    differ = gc[ok] != wc[ok]
+    gap = amax((d_got[differ].abs() - d_want[differ].abs()).abs())
+    if not gap <= 2 * tol:
+        raise AssertionError(f"{label}: columns differ beyond a near-tie "
+                             f"(|v| gap {gap:.3e})")
+    same = ok & (gc == wc)
+    return amax((gv[same] - wv[same]).abs()), int(differ.sum())
+
+
+def check_rows_topk(res, rows, u64, v64, k, self_pairs, tol, label):
+    """The port's top-k of `rows` against a float64 top-k of those rows:
+    values within tol of float64 at their columns, the |v| sequence within
+    tol, columns equal except at near-ties (|v| within 2 * tol).  Returns
+    (max error, near-ties)."""
+    import torch
+    r64 = torch.clamp(u64[rows] @ v64.T, -1.0, 1.0)
+    n_c = v64.shape[0]
+    key = r64.abs()
+    if self_pairs:
+        key[torch.arange(len(rows)), rows] = -1.0
+    want_c = torch.topk(key, k, dim=1).indices
+    got_c = torch.as_tensor(res["indices"], device=u64.device)[rows]
+    got_v = torch.as_tensor(res["values"], device=u64.device)[rows].double()
+    if bool((got_c < 0).any()) or bool((got_c >= n_c).any()):
+        raise AssertionError(f"{label}: empty or bad slots in sampled rows")
+    at_got = torch.take_along_dim(r64, got_c, dim=1)
+    at_want = torch.take_along_dim(r64, want_c, dim=1)
+    err = max(float((got_v - at_got).abs().max()),
+              float((got_v.abs() - at_want.abs()).abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"{label}: values off by {err:.3e} (tol {tol:g})")
+    differ = got_c != want_c
+    gap = amax((at_got.abs() - at_want.abs())[differ].abs())
+    if not gap <= 2 * tol:
+        raise AssertionError(f"{label}: columns differ beyond a near-tie")
+    return err, int(differ.sum())
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
 
     from repro_torch.core import pcc
     from repro_torch.core.api import corr
+    from repro_torch.core.mapping import job_coord_batch
     from repro_torch.core.plan import ExecutionPlan, pad_operands
     from repro_torch.data.expression import ExpressionSpec, artificial
+    from repro_torch.core.sinks import DeviceTopKSink, TopKSink
     from repro_torch.kernels import _build
-    from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
-                                              pcc_tiles_plain)
+    from repro_torch.kernels import pcc_tile as kmod
+    from repro_torch.kernels.pcc_tile import (
+        EpilogueSpec, pcc_tiles, pcc_tiles_plain, pcc_topk_tiles,
+        pcc_topk_tiles_plain, topk_fold_plain, topk_merge,
+        topk_scratch_bytes, topk_select)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -263,13 +370,438 @@ def main() -> int:
     print(f"  corr end to end, x as host numpy: {corr_np_ms:.3f} ms "
           f"(runs {[round(v, 3) for v in corr_np_all]})")
 
-    record = {"kernels": [{
-        "name": "pcc_tiles", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pcc_tile.cu",
-        "replaces": "src/repro/kernels/pcc_tile.py:299",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms}]}
+    # -- 5. top-k and grid kernels against plain ---------------------------
+    def bound(flop, nbytes):
+        f_ms = flop / FP32_FLOPS * 1e3
+        b_ms = nbytes / HBM_BYTES_S * 1e3
+        return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+
+    def dense_from_tiles(tiles, m, t, cols, grid_cols):
+        ids = np.arange(tiles.shape[0])
+        ys, xs = (divmod(ids, grid_cols) if grid_cols
+                  else job_coord_batch(m, ids))
+        r_pad = torch.zeros(m * t, cols, device=dev)
+        r_pad.view(m, t, -1, t)[torch.as_tensor(ys, device=dev), :,
+                                torch.as_tensor(xs, device=dev), :] = tiles
+        if grid_cols is None:
+            upper = torch.ones_like(r_pad, dtype=torch.bool).triu()
+            r_pad = torch.where(upper, r_pad, r_pad.T)
+        return r_pad
+
+    clip = EpilogueSpec(clip=(-1.0, 1.0))
+    topk_err = grid_err = 0.0
+    near_ties = 0
+    print("top-k and grid kernels vs plain, small ragged shapes "
+          f"(tol {TOL_SMALL:g}):")
+    for n, n_cols, l, t, l_blk in [(1000, 700, 300, 64, 64),
+                                   (1000, 700, 300, 256, 512)]:
+        xs_ = torch.from_numpy(rng.standard_normal((n, l)).astype(
+            np.float32)).to(dev)
+        ys_ = torch.from_numpy(rng.standard_normal((n_cols, l)).astype(
+            np.float32)).to(dev)
+        u, v = operand(xs_, t, l_blk), operand(ys_, t, l_blk)
+        m = u.shape[0] // t
+        for grid in (False, True):
+            gc = v.shape[0] // t if grid else None
+            cols = v if grid else u
+            total_s = m * gc if grid else m * (m + 1) // 2
+            exact = dense_from_tiles(
+                pcc_tiles(u, 0, t=t, l_blk=l_blk, pass_tiles=total_s,
+                          epilogue=clip, v_pad=v if grid else None,
+                          grid_cols=gc), m, t, cols.shape[0], gc)
+            third = -(-total_s // 3)
+            ties_here = 0
+            for j0, pt, short in [(0, third, 0), (third, third, 0),
+                                  (2 * third, total_s - 2 * third, 1)]:
+                if grid:
+                    gkw = dict(t=t, l_blk=l_blk, pass_tiles=pt,
+                               epilogue=clip, v_pad=v, grid_cols=gc)
+                    err = float((pcc_tiles(u, j0, **gkw)
+                                 - pcc_tiles_plain(u, j0, **gkw))
+                                .abs().max())
+                    if not err <= TOL_SMALL:
+                        raise AssertionError("grid kernel disagrees with "
+                                             "plain")
+                    grid_err = max(grid_err, err)
+                for kk in (1, 10, 64):
+                    kw = dict(t=t, l_blk=l_blk, pass_tiles=pt, kk=kk,
+                              n_cols_valid=n_cols if grid else n,
+                              symmetric_problem=not grid, epilogue=clip,
+                              v_pad=v if grid else None, grid_cols=gc)
+                    got = pcc_topk_tiles(u, j0, j0 + pt - short, **kw)
+                    want = pcc_topk_tiles_plain(u, j0, j0 + pt - short,
+                                                **kw)
+                    torch.cuda.synchronize()
+                    label = (f"{'grid' if grid else 'triangle'} n={n} "
+                             f"t={t} j0={j0} tiles={pt} kk={kk}")
+                    for side in range(len(got) // 2):
+                        pair = got[2 * side:2 * side + 2]
+                        err, ties = check_topk_state(
+                            pair, want[2 * side:2 * side + 2], u.double(),
+                            cols.double(), clip, TOL_SMALL, label)
+                        topk_err = max(topk_err, err)
+                        ties_here += ties
+                        vals, cc = pair
+                        ok = cc >= 0
+                        rows = (torch.arange(vals.shape[0] * t, device=dev)
+                                .view(-1, t, 1).expand_as(cc))
+                        ref = (exact if side == 0 else exact.T)[
+                            rows[ok], cc[ok].long()]
+                        if not torch.equal(vals[ok], ref):
+                            raise AssertionError(f"{label}: top-k values "
+                                                 f"are not pcc_tiles' bits")
+            near_ties += ties_here
+            print(f"  {'grid' if grid else 'triangle'} n={n} "
+                  f"n_cols={n_cols if grid else n} l={l} t={t}: "
+                  f"{total_s} tiles in 3 passes (last dev_hi short by 1), "
+                  f"kk 1/10/64 ok, {ties_here} near-tie column swaps")
+    print(f"  top-k max|kernel - plain| = {topk_err:.3e}, grid max|kernel "
+          f"- plain| = {grid_err:.3e}, near-ties allowed: {near_ties}; "
+          f"top-k values bitwise equal to pcc_tiles")
+
+    # -- 6. symmetric top-k at Table II --------------------------------------
+    plain_calls = {"pcc_tiles_plain": 0, "pcc_topk_tiles_plain": 0}
+
+    def counted(name):
+        fn = getattr(kmod, name)
+
+        def wrapper(*args, **kwargs):
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        setattr(kmod, name, wrapper)
+
+    for name in plain_calls:
+        counted(name)
+
+    def reset_counts():
+        pcc_tiles.launches = 0
+        pcc_topk_tiles.launches = {"select": 0, "merge": 0}
+        for name in plain_calls:
+            plain_calls[name] = 0
+
+    def check_launches(label, want_tiles, want_topk):
+        got = (pcc_tiles.launches, dict(pcc_topk_tiles.launches))
+        print(f"  {label}: pcc_tiles launches {got[0]}, pcc_topk_tiles "
+              f"launches {got[1]}, plain calls {plain_calls}")
+        if got != (want_tiles, {"select": want_topk, "merge": want_topk}) \
+                or any(plain_calls.values()):
+            raise AssertionError(f"{label}: did not run through the CUDA "
+                                 f"kernels as planned")
+
+    def same_topk(a, b, label):
+        if not (np.array_equal(a["indices"], b["indices"])
+                and a["values"].tobytes() == b["values"].tobytes()):
+            raise AssertionError(f"{label}: DeviceTopKSink differs from "
+                                 f"TopKSink")
+
+    def topk_vs_plain(u, j0, pt, dev_hi, *, t, l_blk, kk, n_cols_valid,
+                      spec, v=None, gc=None, chunk=None):
+        """pcc_topk_tiles against pcc_topk_tiles_plain on one pass at
+        TOL_FULL; returns (max |kernel - plain|, near-ties).  With `chunk`,
+        the plain version's two halves run as pcc_topk_tiles_plain runs
+        them, pcc_tiles_plain then topk_fold_plain, with the tiles computed
+        `chunk` at a time so that its batched gathers fit on the card."""
+        kw = dict(t=t, l_blk=l_blk, pass_tiles=pt, kk=kk,
+                  n_cols_valid=n_cols_valid, symmetric_problem=gc is None,
+                  epilogue=spec, v_pad=v, grid_cols=gc)
+        got = pcc_topk_tiles(u, j0, dev_hi, **kw)
+        if chunk is None:
+            want = pcc_topk_tiles_plain(u, j0, dev_hi, **kw)
+        else:
+            n_valid = min(pt, dev_hi - j0)
+            tiles = torch.cat([pcc_tiles_plain(
+                u, j0 + i, t=t, l_blk=l_blk,
+                pass_tiles=min(chunk, n_valid - i), epilogue=spec, v_pad=v,
+                grid_cols=gc) for i in range(0, n_valid, chunk)])
+            want = topk_fold_plain(
+                tiles, j0, m=u.shape[0] // t, t=t, kk=kk,
+                n_cols_valid=n_cols_valid, symmetric_problem=gc is None,
+                grid_cols=gc, device=dev)
+            del tiles
+        torch.cuda.synchronize()
+        u64 = u.double()
+        v64 = u64 if v is None else v.double()
+        err = ties = 0
+        for side in range(len(got) // 2):
+            e, n_t = check_topk_state(
+                got[2 * side:2 * side + 2], want[2 * side:2 * side + 2],
+                u64, v64, spec, TOL_FULL,
+                f"top-k kernel vs plain {tuple(u.shape)} j0={j0} tiles={pt}")
+            err, ties = max(err, e), ties + n_t
+        return err, ties
+
+    class TimedDeviceTopKSink(DeviceTopKSink):
+        """Times the host merge of each pass's state (after the device has
+        delivered it)."""
+
+        def __init__(self, k):
+            super().__init__(k)
+            self.merge_ms = []
+
+        def consume(self, ids, state):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            super().consume(ids, state)
+            self.merge_ms.append((time.perf_counter() - t1) * 1e3)
+
+    print(f"symmetric top-k: corr(x, sink=DeviceTopKSink({K_TOP})) at "
+          f"n={N_SEEK} l={L_SEEK}")
+    reset_counts()
+    res = corr(x_seek, sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    check_launches("one pass", 0, plan.n_pass)
+    topk_launches = dict(pcc_topk_tiles.launches)
+    if res["indices"].shape != (N_SEEK, K_TOP) or \
+            (res["indices"] < 0).any() or \
+            not np.isfinite(res["values"]).all():
+        raise AssertionError("bad top-k result")
+    same_topk(res, corr(x_seek, sink=TopKSink(K_TOP)), "one pass")
+    reset_counts()
+    res_split = corr(x_seek, sink=DeviceTopKSink(K_TOP),
+                     max_tiles_per_pass=SPLIT)
+    check_launches(f"max_tiles_per_pass={SPLIT}", 0, split_plan.n_pass)
+    same_topk(res_split, corr(x_seek, sink=TopKSink(K_TOP),
+                              max_tiles_per_pass=SPLIT), "split")
+    same_topk(res, res_split, "pass split")
+    print(f"  bit-identical to TopKSink({K_TOP}) fed by pcc_tiles, one pass "
+          f"and {SPLIT}-tile passes")
+    u64 = pcc.transform(x_dev.double())
+    rows16 = torch.as_tensor(np.sort(rng.choice(N_SEEK, CHECK_ROWS,
+                                                replace=False)), device=dev)
+    err, ties = check_rows_topk(res, rows16, u64, u64, K_TOP, True, TOL_F64,
+                                "Table II top-k")
+    print(f"  {CHECK_ROWS} rows vs float64 top-k: max|d| = {err:.3e} "
+          f"(tol {TOL_F64:g}), {ties} near-tie column swaps")
+    del res_split
+    scratch_b = topk_scratch_bytes(total, plan.t, K_TOP, True)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    topk_corr_ms, topk_corr_all = host_ms(
+        lambda: corr(x_dev, sink=DeviceTopKSink(K_TOP)), 3)
+    topk_peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    merge_pass = {}
+    for mtp in (None, SPLIT):
+        snk = TimedDeviceTopKSink(K_TOP)
+        corr(x_dev, sink=snk, max_tiles_per_pass=mtp)
+        merge_pass[mtp] = snk.merge_ms
+    print(f"  corr with DeviceTopKSink({K_TOP}), x on the card: "
+          f"{topk_corr_ms:.3f} ms (runs {[round(v, 3) for v in topk_corr_all]})"
+          f", peak {topk_peak_gb:.3f} GB above the {base_mem / 1e9:.3f} GB "
+          f"held (dense corr: {peak_gb:.3f} GB); pass scratch "
+          f"{scratch_b} B ({scratch_b / total:.0f} B per tile, tile "
+          f"{plan.t * plan.t * 4} B)")
+    print(f"  host merge (DeviceTopKSink.consume) per pass: one pass "
+          f"{[round(v, 3) for v in merge_pass[None]]} ms; {SPLIT}-tile "
+          f"passes {[round(v, 3) for v in merge_pass[SPLIT]]} ms")
+
+    # -- 7. symmetric top-k at n = 64,000 ------------------------------------
+    x64k = torch.from_numpy(artificial(ExpressionSpec(
+        n=N_64K, l=L_64K, seed=0))).to(dev)
+    plan64 = ExecutionPlan.create(N_64K, L_64K)
+    print(f"symmetric top-k at n={N_64K} l={L_64K}, k={K_TOP}: "
+          f"{plan64.total_tiles} tiles, {plan64.n_pass} pass(es), scratch "
+          f"{topk_scratch_bytes(plan64.max_tiles_per_pass, plan64.t, K_TOP, True)} B")
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    res64 = corr(x64k, sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    ms_64k = (time.perf_counter() - t1) * 1e3
+    peak_64k = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    check_launches("n=64,000", 0, plan64.n_pass)
+    rows64 = torch.as_tensor(np.sort(rng.choice(N_64K, CHECK_ROWS,
+                                                replace=False)), device=dev)
+    del u64
+    u64k = pcc.transform(x64k.double())
+    err, ties = check_rows_topk(res64, rows64, u64k, u64k, K_TOP, True,
+                                TOL_F64, "n=64,000 top-k")
+    del u64k
+    u_pad64 = plan64.prepare(x64k)
+    del x64k
+    err64k, ties64k = topk_vs_plain(
+        u_pad64, 0, plan64.total_tiles, plan64.total_tiles, t=plan64.t,
+        l_blk=plan64.l_blk, kk=K_TOP, n_cols_valid=N_64K,
+        spec=plan64.epilogue_spec, chunk=4_000)
+    topk_err = max(topk_err, err64k)
+    del u_pad64
+    print(f"  top-k kernel vs plain on the whole {plan64.total_tiles}-tile "
+          f"pass: max|kernel - plain| = {err64k:.3e} (tol {TOL_FULL:g}), "
+          f"{ties64k} near-tie column swaps")
+    flop_64k = 2 * L_64K * plan64.t ** 2 * plan64.total_tiles
+    print(f"  {ms_64k:.3f} ms (one run, first at this shape, x on the card; "
+          f"{flop_64k / ms_64k / 1e9:.1f} TFLOP/s), peak {peak_64k:.3f} GB "
+          f"above the {base_mem / 1e9:.3f} GB held (the dense result alone "
+          f"would be {N_64K ** 2 * 4 / 1e9:.1f} GB); {CHECK_ROWS} rows vs "
+          f"float64 top-k: max|d| = {err:.3e} (tol {TOL_F64:g}), {ties} "
+          f"near-tie column swaps")
+
+    # -- 8. rectangular X-vs-Y -----------------------------------------------
+    x_tf = torch.from_numpy(artificial(ExpressionSpec(
+        n=N_TF, l=L_SEEK, seed=1))).to(dev)
+    rplan = ExecutionPlan.create(N_TF, L_SEEK, n_cols=N_SEEK)
+    print(f"rectangular: corr(x, y) with x {N_TF} x {L_SEEK}, y {N_SEEK} x "
+          f"{L_SEEK}: {rplan.total_tiles} tiles ({rplan.m} x "
+          f"{rplan.workload.grid_cols}), {rplan.n_pass} pass(es)")
+    reset_counts()
+    rr = corr(x_tf, x_dev)
+    torch.cuda.synchronize()
+    check_launches("dense", rplan.n_pass, 0)
+    grid_launches = pcc_tiles.launches
+    if rr.shape != (N_TF, N_SEEK) or not bool(torch.isfinite(rr).all()):
+        raise AssertionError("bad rectangular result")
+    rows_tf = torch.as_tensor(np.sort(rng.choice(N_TF, CHECK_ROWS,
+                                                 replace=False)), device=dev)
+    ux64 = pcc.transform(x_tf.double())
+    uy64 = pcc.transform(x_dev.double())
+    err = float((rr[rows_tf].double()
+                 - torch.clamp(ux64[rows_tf] @ uy64.T, -1.0, 1.0))
+                .abs().max())
+    print(f"  {CHECK_ROWS} rows vs float64: max|d| = {err:.3e} "
+          f"(tol {TOL_F64:g})")
+    if not err <= TOL_F64:
+        raise AssertionError("rectangular corr disagrees with float64")
+    del rr
+    reset_counts()
+    rtk = corr(x_tf, x_dev, sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    check_launches(f"DeviceTopKSink({K_TOP})", 0, rplan.n_pass)
+    same_topk(rtk, corr(x_tf, x_dev, sink=TopKSink(K_TOP)), "rectangular")
+    err, ties = check_rows_topk(rtk, rows_tf, ux64, uy64, K_TOP, False,
+                                TOL_F64, "rectangular top-k")
+    print(f"  bit-identical to TopKSink({K_TOP}); {CHECK_ROWS} rows vs "
+          f"float64 top-k: max|d| = {err:.3e}, {ties} near-tie swaps")
+    del ux64, uy64
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    rect_ms, rect_all = host_ms(lambda: corr(x_tf, x_dev), 3)
+    rect_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    rtk_ms, rtk_all = host_ms(
+        lambda: corr(x_tf, x_dev, sink=DeviceTopKSink(K_TOP)), 3)
+    rtk_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"  dense corr(x, y), x and y on the card: {rect_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in rect_all]}), peak {rect_peak:.3f} GB; "
+          f"with DeviceTopKSink({K_TOP}): {rtk_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in rtk_all]}), peak {rtk_peak:.3f} GB "
+          f"above the {base_mem / 1e9:.3f} GB held")
+
+    # -- 9. kernel times: top-k at Table II, grid at the rectangular shape ---
+    u_tf, v_sk = rplan.prepare_pair(x_tf, x_dev)
+    rtotal = rplan.total_tiles
+    print(f"top-k kernel vs plain at the passes the driven paths launch "
+          f"(tol {TOL_FULL:g}):")
+    for label, args, kws in [
+            ("Table II, one pass", (u_seek, 0, total, total), {}),
+            (f"Table II, {SPLIT}-tile pass 5", (u_seek, 4 * SPLIT, SPLIT,
+                                              total), {}),
+            (f"Table II, last {SPLIT}-tile pass", (
+                u_seek, sum(split_plan.launch_sizes[:-1]),
+                split_plan.launch_sizes[-1], total), {}),
+            ("rectangular, one pass", (u_tf, 0, rtotal, rtotal), dict(
+                v=v_sk, gc=rplan.workload.grid_cols))]:
+        p_ = rplan if kws else plan
+        err, ties = topk_vs_plain(
+            *args, t=p_.t, l_blk=p_.l_blk, kk=K_TOP,
+            n_cols_valid=N_SEEK, spec=p_.epilogue_spec, **kws)
+        topk_err = max(topk_err, err)
+        print(f"  {label}: max|kernel - plain| = {err:.3e}, {ties} near-tie "
+              f"column swaps")
+    kw = dict(t=plan.t, l_blk=plan.l_blk, pass_tiles=total, kk=K_TOP,
+              n_cols_valid=N_SEEK, symmetric_problem=True, epilogue=spec)
+    sel_ms, sel_all = event_ms(lambda: topk_select(u_seek, 0, total, **kw), 5)
+    scratch = topk_select(u_seek, 0, total, **kw)
+    merge_ms, merge_all = event_ms(lambda: topk_merge(
+        scratch, 0, total, m=plan.m, t=plan.t, pass_tiles=total, kk=K_TOP),
+        5)
+    del scratch
+    both_ms, both_all = event_ms(
+        lambda: pcc_topk_tiles(u_seek, 0, total, **kw), 5)
+    ptk_ms, ptk_all = event_ms(
+        lambda: pcc_topk_tiles_plain(u_seek, 0, total, **kw), 3)
+    tiles_plain = pcc_tiles_plain(u_seek, 0, t=plan.t, l_blk=plan.l_blk,
+                                  pass_tiles=total, epilogue=spec)
+    fold_ms, fold_all = event_ms(lambda: topk_fold_plain(
+        tiles_plain, 0, m=plan.m, t=plan.t, kk=K_TOP, n_cols_valid=N_SEEK,
+        symmetric_problem=True, grid_cols=None, device=dev), 3)
+    del tiles_plain
+    libk_ms, libk_all = event_ms(lambda: torch.topk(
+        torch.matmul(u_seek, u_seek.T).abs(), K_TOP, dim=1), 3)
+    state_b = 4 * plan.m * plan.t * K_TOP * 4
+    sel_bound, sel_by = bound(flop, u_seek.numel() * 4 + scratch_b)
+    merge_bound, merge_by = bound(0, scratch_b + state_b)
+    both_bound, both_by = bound(flop, u_seek.numel() * 4 + state_b)
+    print(f"top-k times at Table II shape, one pass, kk={K_TOP} {tag}:")
+    print(f"  select kernel: {sel_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in sel_all]}), bound {sel_bound:.3f} ms by "
+          f"{sel_by}")
+    print(f"  merge kernel: {merge_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in merge_all]}), bound {merge_bound:.3f} ms "
+          f"by {merge_by} ({scratch_b + state_b:.4g} B)")
+    print(f"  pcc_topk_tiles (both): {both_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in both_all]}), bound {both_bound:.3f} ms by "
+          f"{both_by}")
+    print(f"  pcc_topk_tiles_plain: {ptk_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in ptk_all]}), bound {both_bound:.3f} ms; "
+          f"its fold alone (topk_fold_plain): {fold_ms:.3f} ms, bound "
+          f"{merge_bound:.3f} ms")
+    print(f"  library torch.topk(torch.matmul(u, u.T).abs(), {K_TOP}) "
+          f"{tuple(u_seek.shape)}, full square, no canonical tie order, "
+          f"self-pairs kept: {libk_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in libk_all]}), bound {both_bound:.3f} ms")
+
+    gkw = dict(t=rplan.t, l_blk=rplan.l_blk, pass_tiles=rtotal,
+               epilogue=rplan.epilogue_spec, v_pad=v_sk,
+               grid_cols=rplan.workload.grid_cols)
+    err = float((pcc_tiles(u_tf, 0, **gkw) - pcc_tiles_plain(u_tf, 0, **gkw))
+                .abs().max())
+    if not err <= TOL_FULL:
+        raise AssertionError("grid kernel disagrees with plain at full shape")
+    grid_err = max(grid_err, err)
+    grid_ms, grid_all = event_ms(lambda: pcc_tiles(u_tf, 0, **gkw), 5)
+    gplain_ms, gplain_all = event_ms(lambda: pcc_tiles_plain(u_tf, 0, **gkw),
+                                     3)
+    glib_ms, glib_all = event_ms(lambda: torch.matmul(u_tf, v_sk.T), 5)
+    gflop = 2 * L_SEEK * rplan.t ** 2 * rtotal
+    grid_bound, grid_by = bound(gflop, (u_tf.numel() + v_sk.numel()) * 4
+                                + rtotal * rplan.t ** 2 * 4)
+    print(f"grid times at {N_TF} x {N_SEEK} x {L_SEEK}, one pass of {rtotal} "
+          f"tiles {tag}:")
+    print(f"  pcc_tiles grid: {grid_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in grid_all]}), {gflop / grid_ms / 1e9:.1f} "
+          f"TFLOP/s, bound {grid_bound:.3f} ms by {grid_by}; max|kernel - "
+          f"plain| {err:.3e} (tol {TOL_FULL:g})")
+    print(f"  pcc_tiles_plain grid: {gplain_ms:.3f} ms; library "
+          f"torch.matmul(u, v.T) {tuple(u_tf.shape)} x {tuple(v_sk.shape)}: "
+          f"{glib_ms:.3f} ms; bound {grid_bound:.3f} ms")
+
+    source = "src/repro_torch/kernels/csrc/"
+    record = {"kernels": [
+        {"name": "pcc_tiles", "route": "cuda", "source": source + "pcc_tile.cu",
+         "replaces": "src/repro/kernels/pcc_tile.py:299",
+         "launches": launches, "max_abs_err": max_err,
+         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": lib_ms},
+        {"name": "pcc_tiles (grid)", "route": "cuda",
+         "source": source + "pcc_tile.cu",
+         "replaces": "src/repro/kernels/pcc_tile.py:299",
+         "launches": grid_launches, "max_abs_err": grid_err,
+         "ms": grid_ms, "plain_ms": gplain_ms, "bound_ms": grid_bound,
+         "bound_by": grid_by, "library_ms": glib_ms},
+        {"name": "pcc_topk_select", "route": "cuda",
+         "source": source + "pcc_topk.cu",
+         "replaces": "src/repro/kernels/pcc_tile.py:612",
+         "launches": topk_launches["select"], "max_abs_err": topk_err,
+         "ms": sel_ms, "plain_ms": ptk_ms, "bound_ms": sel_bound,
+         "bound_by": sel_by, "library_ms": libk_ms},
+        {"name": "pcc_topk_merge", "route": "cuda",
+         "source": source + "pcc_topk.cu",
+         "replaces": "src/repro/kernels/pcc_tile.py:612",
+         "launches": topk_launches["merge"], "max_abs_err": topk_err,
+         "ms": merge_ms, "plain_ms": fold_ms, "bound_ms": merge_bound,
+         "bound_by": merge_by, "library_ms": None},
+    ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

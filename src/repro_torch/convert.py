@@ -17,27 +17,34 @@ from repro_torch.core.allpairs import resolve_device
 from repro_torch.core.plan import ExecutionPlan
 
 # spec_dict fields that select modes later slices bring, with the only
-# values this slice runs
-_SLICE_ONE = {"tile_kernel": None, "workload": "TriangularWorkload",
-              "symmetric_grid": False, "compute_dtype": None, "p": 1,
-              "replicas": 0}
+# values the port runs so far
+_PORTED = {"tile_kernel": None, "symmetric_grid": False,
+           "compute_dtype": None, "p": 1, "replicas": 0}
+_WORKLOADS = ("TriangularWorkload", "GridWorkload")
 
 
 def plan_from_reference(spec: dict) -> ExecutionPlan:
-    """The port's ExecutionPlan for a reference plan's ``spec_dict()``.
+    """The port's ExecutionPlan for a reference plan's ``spec_dict()``
+    (triangular or rectangular grid).
 
-    Raises NotImplementedError for modes this slice does not run and
+    Raises NotImplementedError for modes the port does not run yet and
     ValueError when the rebuilt plan's spec_dict() differs from `spec`.
     """
-    for key, want in _SLICE_ONE.items():
+    for key, want in _PORTED.items():
         if spec.get(key) != want:
             raise NotImplementedError(
                 f"reference plan has {key}={spec.get(key)!r}; the port runs "
-                f"{key}={want!r} in this slice (see ROADMAP queue A)")
-    if spec["n_rows"] != spec["n_cols"]:
-        raise NotImplementedError("rectangular plans are ROADMAP slice 2")
+                f"{key}={want!r} so far (see ROADMAP queue A)")
+    if spec.get("workload") not in _WORKLOADS:
+        raise NotImplementedError(
+            f"reference plan has workload={spec.get('workload')!r}; the "
+            f"port runs {_WORKLOADS}")
+    grid = spec["workload"] == "GridWorkload"
+    if not grid and spec["n_rows"] != spec["n_cols"]:
+        raise ValueError(f"a triangular spec has n_rows == n_cols, got {spec}")
     plan = ExecutionPlan.create(
-        spec["n_rows"], spec["l"], t=spec["t"], l_blk=spec["l_blk"],
+        spec["n_rows"], spec["l"], n_cols=spec["n_cols"] if grid else None,
+        t=spec["t"], l_blk=spec["l_blk"],
         measure=spec["measure"],
         max_tiles_per_pass=spec["max_tiles_per_pass"], clip=spec["clip"],
         fuse_epilogue=spec["fused"])
@@ -48,8 +55,9 @@ def plan_from_reference(spec: dict) -> ExecutionPlan:
 
 
 def operand_from_reference(u_pad, device=None) -> torch.Tensor:
-    """The reference's prepared (n_pad, l_pad) operand as a contiguous
-    float32 tensor on `device` (None means "cuda")."""
+    """The reference's prepared (n_pad, l_pad) operand — the row operand,
+    or a rectangular plan's column operand v_pad — as a contiguous float32
+    tensor on `device` (None means "cuda")."""
     u = np.array(u_pad, order="C")
     if u.ndim != 2 or u.dtype != np.float32:
         raise ValueError(f"expected a 2-D float32 operand, got {u.dtype} "

@@ -1,4 +1,4 @@
-"""The plan-driven all-pairs executor (one device).
+"""The plan-driven all-pairs executor (one device, symmetric or X-vs-Y).
 
 Port of the single-device path of ``repro/core/allpairs.py``:
 
@@ -24,34 +24,66 @@ import torch
 from repro_torch.core import measures
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.sinks import DenseSink, TileSink
-from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE, pcc_tiles
+from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
+                                          pcc_tiles, pcc_topk_tiles)
 
 
 def launch_tiles(plan: ExecutionPlan, u_pad: torch.Tensor, j0: int,
-                 launch: int) -> torch.Tensor:
-    """THE kernel-launch seam: one pass launch of the plan's tile kernel."""
+                 launch: int, v_pad: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """THE kernel-launch seam: one pass launch of the plan's tile kernel
+    (v_pad is the column operand of a rectangular plan)."""
     return pcc_tiles(u_pad, j0, t=plan.t, l_blk=plan.l_blk,
-                     pass_tiles=launch, epilogue=plan.epilogue_spec)
+                     pass_tiles=launch, epilogue=plan.epilogue_spec,
+                     v_pad=v_pad, grid_cols=plan.workload.grid_cols)
 
 
-def _local_launches(plan: ExecutionPlan, u_pad: torch.Tensor
-                    ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor]]:
+def launch_topk_tiles(plan: ExecutionPlan, u_pad: torch.Tensor, j0: int,
+                      dev_hi: int, launch: int, kk: int,
+                      v_pad: Optional[torch.Tensor] = None):
+    """Launch seam of the device-side top-k epilogue
+    (kernels/pcc_tile.pcc_topk_tiles): one pass's tiles are computed and
+    folded into per-row top-k state on the card, so only O(n * kk) state
+    leaves it.  j0 is the raw pass start and dev_hi the exclusive tile
+    bound, the kernel's validity guard."""
+    return pcc_topk_tiles(u_pad, j0, dev_hi, t=plan.t, l_blk=plan.l_blk,
+                          pass_tiles=launch, kk=kk,
+                          n_cols_valid=plan.n_cols,
+                          symmetric_problem=plan.symmetric_problem,
+                          epilogue=plan.epilogue_spec, v_pad=v_pad,
+                          grid_cols=plan.workload.grid_cols)
+
+
+def _local_launches(plan: ExecutionPlan, u_pad: torch.Tensor,
+                    v_pad: Optional[torch.Tensor] = None,
+                    state_k: Optional[int] = None
+                    ) -> Iterator[Tuple[int, np.ndarray, object]]:
     """Single-device pass launches: consecutive spans of the tile-id range,
-    each kernel sized to its actual tile count (every slot is valid)."""
+    each kernel sized to its actual tile count (every slot is valid).
+    state_k switches to the device top-k epilogue: the buffer becomes the
+    kernel's per-row state tuple instead of tiles."""
     for k, launch in enumerate(plan.launch_sizes):
         lo = plan.pass_offset(k)
-        buf = launch_tiles(plan, u_pad, lo, launch)
+        ids = np.arange(lo, lo + launch, dtype=np.int64)
+        if state_k is not None:
+            yield k, ids, launch_topk_tiles(plan, u_pad, lo, plan.total_tiles,
+                                            launch, state_k, v_pad=v_pad)
+            continue
+        buf = launch_tiles(plan, u_pad, lo, launch, v_pad=v_pad)
         if not plan.fused and plan.measure.epilogue is not None:
             buf = plan.measure.epilogue(buf, plan.l)
-        yield k, np.arange(lo, lo + launch, dtype=np.int64), buf
+        yield k, ids, buf
 
 
-def _stream(plan: ExecutionPlan, u_pad: torch.Tensor
-            ) -> Iterator[Tuple[int, np.ndarray, torch.Tensor]]:
-    """Double-buffered pass stream of (k, ids, tiles): launches pass k+1
-    before yielding pass k, so the sink's work on pass k overlaps it."""
+def _stream(plan: ExecutionPlan, u_pad: torch.Tensor,
+            v_pad: Optional[torch.Tensor] = None,
+            state_k: Optional[int] = None
+            ) -> Iterator[Tuple[int, np.ndarray, object]]:
+    """Double-buffered pass stream of (k, ids, tiles or state): launches
+    pass k+1 before yielding pass k, so the sink's work on pass k overlaps
+    it."""
     pending = None
-    for item in _local_launches(plan, u_pad):
+    for item in _local_launches(plan, u_pad, v_pad, state_k):
         if pending is not None:
             yield pending
         pending = item
@@ -70,22 +102,44 @@ def run_sink(plan: ExecutionPlan, sink: Optional[TileSink],
     return snk.result()
 
 
-def execute_plan(plan: ExecutionPlan, u_pad: torch.Tensor, *,
+def execute_plan(plan: ExecutionPlan, u_pad: torch.Tensor,
+                 v_pad: Optional[torch.Tensor] = None, *,
                  sink: Optional[TileSink] = None, device=None):
-    """Run a prepared plan end to end on the device that holds ``u_pad``.
+    """Run a prepared plan end to end on the device that holds ``u_pad``
+    (and ``v_pad``, the column operand a rectangular plan needs).
 
-    ``device`` (None means "cuda") must match ``u_pad``'s device; it is
+    ``device`` (None means "cuda") must match the operands' device; it is
     explicit so a CPU run is always asked for.
     """
     dev = resolve_device(device)
-    if u_pad.device.type != dev.type or dev.index not in (
-            None, u_pad.device.index):
-        raise ValueError(f"u_pad lies on {u_pad.device}, not on {dev}")
     l_pad = -(-plan.l // plan.l_blk) * plan.l_blk
-    if tuple(u_pad.shape) != (plan.n_pad, l_pad):
-        raise ValueError(f"u_pad shape {tuple(u_pad.shape)} does not match "
-                         f"the plan's ({plan.n_pad}, {l_pad})")
-    return run_sink(plan, sink, u_pad.device, _stream(plan, u_pad))
+    operands = [("u_pad", u_pad, plan.n_pad)]
+    if plan.workload.needs_symmetrize:
+        if v_pad is not None:
+            raise ValueError("a symmetric plan takes one operand; "
+                             "create(..., n_cols=) for X-vs-Y")
+    else:
+        if v_pad is None:
+            raise ValueError("a rectangular plan needs v_pad, the prepared "
+                             "column operand")
+        operands.append(("v_pad", v_pad, plan.col_pad))
+    for name, op, rows in operands:
+        if op.device.type != dev.type or dev.index not in (
+                None, op.device.index):
+            raise ValueError(f"{name} lies on {op.device}, not on {dev}")
+        if tuple(op.shape) != (rows, l_pad):
+            raise ValueError(f"{name} shape {tuple(op.shape)} does not match "
+                             f"the plan's ({rows}, {l_pad})")
+    return run_sink(plan, sink, u_pad.device,
+                    _stream(plan, u_pad, v_pad, _sink_state_k(sink)))
+
+
+def _sink_state_k(sink: Optional[TileSink]) -> Optional[int]:
+    """State capacity for sinks that want the device top-k stream
+    (core/sinks.DeviceTopKSink), else None (the tile stream)."""
+    if sink is not None and getattr(sink, "wants_device_state", False):
+        return int(sink.k)
+    return None
 
 
 def resolve_device(device) -> torch.device:
@@ -114,5 +168,5 @@ def allpairs(x, *, measure: measures.MeasureLike = "pearson",
                 fuse_epilogue=fuse_epilogue, device=device)
 
 
-__all__ = ["launch_tiles", "run_sink", "execute_plan", "allpairs",
-           "resolve_device"]
+__all__ = ["launch_tiles", "launch_topk_tiles", "run_sink", "execute_plan",
+           "allpairs", "resolve_device"]

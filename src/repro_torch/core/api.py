@@ -1,11 +1,11 @@
-"""`corr()`: the problem-centric facade, symmetric workload.
+"""`corr()`: the problem-centric facade.
 
-Port of ``repro/core/api.py`` for the paper's own workload: symmetric
-all-pairs similarity of one (n, l) operand on one device into a dense n x n
-result.  A frozen :class:`PairwiseProblem` captures what is asked;
-:func:`corr` resolves it onto plan -> executor -> sink.  The reference's
-other workloads and knobs raise ``NotImplementedError`` naming the ROADMAP
-slice that brings them.
+Port of ``repro/core/api.py`` for the paper's own workload — symmetric
+all-pairs similarity of one (n, l) operand — and the rectangular X-vs-Y
+workload, on one device.  A frozen :class:`PairwiseProblem` captures what is
+asked; :func:`corr` resolves it onto plan -> executor -> sink.  The
+reference's other workloads and knobs raise ``NotImplementedError`` naming
+the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -23,9 +23,8 @@ from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
-    "y": "slice 2 (rectangular X-vs-Y)",
-    "compute_dtype": "slice 2 (bf16/int8 operands) and slice 6 (quantized)",
-    "resume_from": "slice 3 (HostSink checkpoints)",
+    "compute_dtype": "slice 3 (bf16/int8 operands) and slice 6 (quantized)",
+    "resume_from": "slice 4 (HostSink checkpoints)",
     "where": "slice 5 (masked measures)",
     "pvalues": "slice 8 (significance)",
     "recovery": "slice 10 (recovery)",
@@ -36,33 +35,43 @@ _LATER_SLICES = {
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PairwiseProblem:
-    """What is being asked: the symmetric all-pairs workload over x (n, l)
-    under a resolved measure."""
+    """What is being asked: x (n_rows, l) and optional y (n_cols, l) under a
+    resolved measure; y=None is the symmetric all-pairs workload over x."""
 
     x: torch.Tensor
+    y: Optional[torch.Tensor]
     measure: measures.Measure
 
     @property
     def symmetric(self) -> bool:
-        return True
+        return self.y is None
 
     @property
     def n_rows(self) -> int:
         return self.x.shape[0]
 
     @property
+    def n_cols(self) -> int:
+        return (self.x if self.y is None else self.y).shape[0]
+
+    @property
     def l(self) -> int:
         return self.x.shape[1]
 
     @classmethod
-    def create(cls, x, *, measure: measures.MeasureLike = "pearson",
+    def create(cls, x, y=None, *, measure: measures.MeasureLike = "pearson",
                device=None) -> "PairwiseProblem":
-        """x may be a numpy array or a tensor; it moves to `device`."""
+        """x and y may be numpy arrays or tensors; they move to `device`."""
         dev = resolve_device(device)
         x = torch.as_tensor(x, device=dev)
         if x.ndim != 2:
             raise ValueError(f"x must be (n, l), got shape {tuple(x.shape)}")
-        return cls(x=x, measure=measures.get(measure))
+        if y is not None:
+            y = torch.as_tensor(y, device=dev)
+            if y.ndim != 2 or y.shape[1] != x.shape[1]:
+                raise ValueError(f"y must be (n_cols, l={x.shape[1]}), got "
+                                 f"shape {tuple(y.shape)}")
+        return cls(x=x, y=y, measure=measures.get(measure))
 
 
 def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
@@ -71,21 +80,26 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
          clip: bool = True, fuse_epilogue: bool = True, device=None,
          where=None, mesh=None, shard_u: bool = False, compute_dtype=None,
          resume_from: Optional[str] = None, pvalues=None, recovery=None):
-    """Symmetric all-pairs similarity of x's rows: plan -> executor -> sink.
+    """All-pairs similarity: plan -> executor -> sink.
 
     x:       (n, l) variables, numpy array or tensor.
-    measure: "pearson" (the other measures are ROADMAP slice 2).
+    y:       optional (n_cols, l) second operand: the rectangular X-vs-Y
+             workload, every x row against every y row.
+    measure: "pearson" (the other measures are ROADMAP slice 3).
     sink:    output handling; the default DenseSink returns the (n, n)
-             float32 matrix on `device`, exactly symmetric.
+             float32 matrix on `device`, exactly symmetric (or the
+             (n, n_cols) cross matrix when y is given).  TopKSink(k) and
+             DeviceTopKSink(k) keep each row's k strongest partners, the
+             latter through the top-k kernel.
     t / l_blk / max_tiles_per_pass / clip / fuse_epilogue keep their
              ExecutionPlan semantics; the result does not depend on
              max_tiles_per_pass or fuse_epilogue, bit for bit.
     device:  None means "cuda", which raises on a machine without a card;
              pass device="cpu" to run the kernels' plain versions.
-    y, where, mesh, shard_u, compute_dtype, resume_from, pvalues and
+    where, mesh, shard_u, compute_dtype, resume_from, pvalues and
     recovery are the reference's and raise NotImplementedError here.
     """
-    given = {"y": y is not None, "where": where is not None,
+    given = {"where": where is not None,
              "mesh": mesh is not None, "shard_u": bool(shard_u),
              "compute_dtype": compute_dtype is not None,
              "resume_from": resume_from is not None,
@@ -95,12 +109,18 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
             raise NotImplementedError(
                 f"corr({name}=...) is not ported yet: ROADMAP "
                 f"{_LATER_SLICES[name]}")
-    problem = PairwiseProblem.create(x, measure=measure, device=device)
+    problem = PairwiseProblem.create(x, y, measure=measure, device=device)
     plan = ExecutionPlan.create(
-        problem.n_rows, problem.l, t=t, l_blk=l_blk, measure=problem.measure,
+        problem.n_rows, problem.l,
+        n_cols=None if problem.symmetric else problem.n_cols, t=t,
+        l_blk=l_blk, measure=problem.measure,
         max_tiles_per_pass=max_tiles_per_pass, clip=clip,
         fuse_epilogue=fuse_epilogue)
-    return execute_plan(plan, plan.prepare(problem.x), sink=sink,
+    if problem.symmetric:
+        return execute_plan(plan, plan.prepare(problem.x), sink=sink,
+                            device=problem.x.device)
+    u_pad, v_pad = plan.prepare_pair(problem.x, problem.y)
+    return execute_plan(plan, u_pad, v_pad, sink=sink,
                         device=problem.x.device)
 
 

@@ -1,4 +1,4 @@
-"""Bijective tile-id <-> upper-triangle coordinate mapping (paper SSIII-B).
+"""Bijective tile-id <-> tile-coordinate mappings (paper SSIII-B).
 
 Port of ``repro/core/mapping.py`` (the host-side, exact-integer part).  For
 symmetric all-pairs work only the upper triangle (incl. the diagonal) of the
@@ -10,6 +10,9 @@ m x m job matrix is computed.  Jobs are numbered row-major in the triangle:
 and inverted in closed form (Eq. 14/15) with an exact integer repair.  The
 CUDA tile kernel (kernels/csrc/pcc_tile.cu) inverts ids with the same
 double-sqrt-then-int64-repair scheme as :func:`job_coord_batch`.
+
+Rectangular X-vs-Y work covers the whole m_rows x m_cols tile grid, numbered
+row-major (J = y * m_cols + x, inverted by one integer division).
 """
 
 from __future__ import annotations
@@ -88,6 +91,30 @@ def job_coord_batch(n: int, ids) -> Tuple[np.ndarray, np.ndarray]:
     return y, j + y - f(y)
 
 
+def grid_job_id(rows: int, cols: int, y: int, x: int) -> int:
+    """Row-major job id in an r x c rectangular job matrix (Eq. 7 family)."""
+    if not (0 <= y < rows and 0 <= x < cols):
+        raise ValueError(f"(y={y}, x={x}) outside {rows}x{cols} job matrix")
+    return y * cols + x
+
+
+def grid_job_coord(rows: int, cols: int, j: int) -> Tuple[int, int]:
+    """Inverse row-major rectangular mapping (Eq. 8 family)."""
+    if not (0 <= j < rows * cols):
+        raise ValueError(f"job id {j} out of range for {rows}x{cols}")
+    return j // cols, j % cols
+
+
+def grid_job_coord_batch(rows: int, cols: int, ids) -> Tuple[np.ndarray,
+                                                             np.ndarray]:
+    """Vectorised exact inverse of the rectangular mapping, host numpy."""
+    j = np.asarray(ids, dtype=np.int64)
+    if j.size and (j.min() < 0 or j.max() >= rows * cols):
+        bad = j[(j < 0) | (j >= rows * cols)][0]
+        raise ValueError(f"job id {bad} out of range for {rows}x{cols}")
+    return j // cols, j % cols
+
+
 @dataclasses.dataclass(frozen=True)
 class TriangularWorkload:
     """Upper-triangle (incl. diagonal) tile jobs of a symmetric m x m grid."""
@@ -108,9 +135,38 @@ class TriangularWorkload:
     def job_count(self) -> int:
         return tri_count(self.m)
 
+    @property
+    def grid_cols(self):
+        """Kernel hookup: None selects the triangular tile-id inversion."""
+        return None
+
     def job_coord_batch(self, ids) -> Tuple[np.ndarray, np.ndarray]:
         return job_coord_batch(self.m, ids)
 
 
+@dataclasses.dataclass(frozen=True)
+class GridWorkload:
+    """All m_rows x m_cols tile jobs of a rectangular X-vs-Y grid, numbered
+    row-major; every cell is computed once, so nothing is mirrored."""
+
+    m_rows: int
+    m_cols: int
+
+    needs_symmetrize = False
+
+    @property
+    def job_count(self) -> int:
+        return self.m_rows * self.m_cols
+
+    @property
+    def grid_cols(self) -> int:
+        """Kernel hookup: the column count of the grid's tile-id inversion."""
+        return self.m_cols
+
+    def job_coord_batch(self, ids) -> Tuple[np.ndarray, np.ndarray]:
+        return grid_job_coord_batch(self.m_rows, self.m_cols, ids)
+
+
 __all__ = ["tri_count", "f_n", "job_id", "job_coord", "job_coord_batch",
-           "TriangularWorkload"]
+           "grid_job_id", "grid_job_coord", "grid_job_coord_batch",
+           "TriangularWorkload", "GridWorkload"]

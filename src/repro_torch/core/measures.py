@@ -6,7 +6,7 @@ a row transform plus an elementwise epilogue around the shared tile kernel:
     S(X_i, X_j) = epilogue(<row_transform(X)_i, row_transform(X)_j>, l)
 
 This slice carries Pearson (center + L2-normalise, identity epilogue, clip
-to [-1, 1]).  The other measures of the reference come with ROADMAP slice 2.
+to [-1, 1]).  The other measures of the reference come with ROADMAP slice 3.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def get(measure: MeasureLike) -> Measure:
         return _REGISTRY[measure]
     if measure in _LATER:
         raise NotImplementedError(
-            f"measure {measure!r} is not ported yet (ROADMAP slice 2); "
+            f"measure {measure!r} is not ported yet (ROADMAP slice 3); "
             f"this slice carries 'pearson'")
     raise ValueError(f"unknown measure {measure!r}; available: ('pearson',)")
 

@@ -1,9 +1,10 @@
 """ExecutionPlan: every static decision of an all-pairs run, computed once.
 
-Port of ``repro/core/plan.py`` for one device and the triangular workload:
-measure resolution, epilogue fusion, padding and the pass split (paper
+Port of ``repro/core/plan.py`` for one device: measure resolution, epilogue
+fusion, padding, the workload (the symmetric triangle, or the rectangular
+X-vs-Y grid when ``create`` is given ``n_cols``) and the pass split (paper
 Alg. 2, C4) are decided here, host-side in exact ints; the executor
-(core/allpairs.py) and the sink (core/sinks.py) consume the plan.
+(core/allpairs.py) and the sinks (core/sinks.py) consume the plan.
 
 The defaults t = 256 and l_blk = 512 are the reference's, so tile ids,
 launch sizes and :meth:`ExecutionPlan.spec_dict` match its plans key for
@@ -13,7 +14,7 @@ key.  The CUDA kernel chooses its own CTA block inside a tile.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +26,7 @@ from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """All static decisions of one single-device symmetric run."""
+    """All static decisions of one single-device run."""
 
     measure: measures.Measure
     tile: tiling.TilePlan
@@ -35,7 +36,8 @@ class ExecutionPlan:
     epilogue_spec: Optional[EpilogueSpec]
     per_dev: int                         # tiles of the one device (p = 1)
     max_tiles_per_pass: int              # pass bound (C4)
-    workload: mapping.TriangularWorkload
+    workload: Union[mapping.TriangularWorkload, mapping.GridWorkload]
+    tile_c: Optional[tiling.TilePlan] = None  # column operand (rectangular)
 
     @property
     def n(self) -> int:
@@ -63,25 +65,45 @@ class ExecutionPlan:
 
     @property
     def n_cols(self) -> int:
-        return self.tile.n
+        """n for the symmetric workload, the second operand's row count for
+        the rectangular one."""
+        return (self.tile if self.tile_c is None else self.tile_c).n
+
+    @property
+    def col_pad(self) -> int:
+        return (self.tile if self.tile_c is None else self.tile_c).n_pad
+
+    @property
+    def symmetric_problem(self) -> bool:
+        """Whether row i and column i of the output are the same variable
+        (self-pairs on the diagonal): the triangular workload."""
+        return self.workload.needs_symmetrize
 
     @property
     def total_tiles(self) -> int:
         return self.workload.job_count
 
     @classmethod
-    def create(cls, n: int, l: int, *, t: int = DEFAULT_TILE,
-               l_blk: int = DEFAULT_LBLK,
+    def create(cls, n: int, l: int, *, n_cols: Optional[int] = None,
+               t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
                measure: measures.MeasureLike = "pearson",
                max_tiles_per_pass: Optional[int] = None,
                clip: bool = True,
                fuse_epilogue: bool = True) -> "ExecutionPlan":
-        """Resolve measure, fusion, padding and the pass split."""
+        """Resolve measure, fusion, padding and the pass split.
+
+        n_cols selects the rectangular workload: jobs cover the whole
+        ceil(n/t) x ceil(n_cols/t) tile grid of an X-vs-Y product, and the
+        executor takes a second operand holding the n_cols variables.
+        """
         meas = measures.get(measure)
         tile = tiling.TilePlan.create(n, l, t)
+        tile_c = (None if n_cols is None
+                  else tiling.TilePlan.create(n_cols, l, t))
         if l_blk <= 0:
             raise ValueError(f"l_blk must be positive, got {l_blk}")
-        workload = mapping.TriangularWorkload(tile.m)
+        workload = (mapping.TriangularWorkload(tile.m) if tile_c is None
+                    else mapping.GridWorkload(tile.m, tile_c.m))
         spec, fused = measures.resolve_fusion(meas, fuse_epilogue, tile.l,
                                               clip=clip)
         per_dev = workload.job_count
@@ -91,15 +113,33 @@ class ExecutionPlan:
         mtp = min(per_dev, max_tiles_per_pass or per_dev)
         return cls(measure=meas, tile=tile, l_blk=l_blk, clip=clip,
                    fused=fused, epilogue_spec=spec, per_dev=per_dev,
-                   max_tiles_per_pass=mtp, workload=workload)
+                   max_tiles_per_pass=mtp, workload=workload, tile_c=tile_c)
+
+    def _prepare_one(self, x: torch.Tensor) -> torch.Tensor:
+        u = self.measure.transform(x, dtype=torch.float32)
+        return pad_operands(u, self.t, self.l_blk)
 
     def prepare(self, x: torch.Tensor) -> torch.Tensor:
         """Row-transform x at >= float32 and zero-pad to kernel alignment."""
         if tuple(x.shape) != (self.n, self.l):
             raise ValueError(f"x shape {tuple(x.shape)} does not match plan "
                              f"(n={self.n}, l={self.l})")
-        u = self.measure.transform(x, dtype=torch.float32)
-        return pad_operands(u, self.t, self.l_blk)
+        return self._prepare_one(x)
+
+    def prepare_pair(self, x: torch.Tensor, y: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Rectangular operands: transform x and y independently (the row
+        transform is a per-row map) and pad each to kernel alignment."""
+        if self.tile_c is None:
+            raise ValueError("prepare_pair requires a rectangular plan "
+                             "(create(..., n_cols=))")
+        if tuple(x.shape) != (self.n_rows, self.l):
+            raise ValueError(f"x shape {tuple(x.shape)} does not match plan "
+                             f"(n_rows={self.n_rows}, l={self.l})")
+        if tuple(y.shape) != (self.n_cols, self.l):
+            raise ValueError(f"y shape {tuple(y.shape)} does not match plan "
+                             f"(n_cols={self.n_cols}, l={self.l})")
+        return self._prepare_one(x), self._prepare_one(y)
 
     @property
     def n_pass(self) -> int:
@@ -118,8 +158,8 @@ class ExecutionPlan:
     def spec_dict(self) -> dict:
         """JSON-serialisable identity of this plan, key for key the
         reference's ``ExecutionPlan.spec_dict()``; the fields of modes
-        later slices bring hold their single-device, plain-operand,
-        triangular values."""
+        later slices bring hold their single-device, plain-operand
+        values."""
         return {
             "n_rows": self.n_rows, "n_cols": self.n_cols, "l": self.l,
             "t": self.t, "l_blk": self.l_blk,

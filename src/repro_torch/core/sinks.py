@@ -1,12 +1,21 @@
 """Tile sinks: what becomes of the executor's per-pass tile stream.
 
-Port of ``TileSink`` / ``DenseSink`` of ``repro/core/sinks.py``.  Contract:
+Port of ``TileSink``, ``DenseSink``, ``TopKSink``, ``DeviceTopKSink`` and
+``topk_merge_rows`` of ``repro/core/sinks.py``.  Contract:
 ``open(plan, device)`` once, ``consume(ids, tiles)`` per pass with the
 pass's unique global tile ids while the next pass is already launched
 (double buffering), ``result()`` to close the run.  Tiles arrive with the
 measure's epilogue applied; bounded measures are clipped in the kernel
 (fused) or by the sink (unfused) — clipping is idempotent, so both agree
 bit for bit.
+
+  DenseSink       the (n, n) matrix (mirrored) or the (n_rows, n_cols)
+                  cross matrix of a rectangular run, on the device.
+  TopKSink        the k strongest-|r| partners of every row, O(n_rows * k)
+                  host state, fed by the tile stream.
+  DeviceTopKSink  the same result fed by the top-k kernel's per-pass state
+                  (kernels/pcc_tile.pcc_topk_tiles): O(n * k) per pass
+                  leaves the card instead of the tiles.
 
 Unlike the reference's functional scatter and ``where``-mirror, DenseSink
 scatters and mirrors in place on its padded device matrix: no second and
@@ -16,6 +25,7 @@ third (n_pad, n_pad) buffer, which keeps n = 64K inside 80 GB.
 from __future__ import annotations
 
 import abc
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -81,19 +91,24 @@ def symmetrize(r_pad: torch.Tensor, n: int) -> torch.Tensor:
 
 class DenseSink(TileSink):
     """Accumulate tiles into a padded device matrix; result() is the
-    symmetrised (n, n) similarity."""
+    symmetrised (n, n) similarity for the triangular workload, or the
+    cropped (n_rows, n_cols) cross-similarity for the rectangular one
+    (nothing to mirror)."""
 
     def open(self, plan: ExecutionPlan, device: torch.device) -> None:
         super().open(plan, device)
-        self.r_pad = torch.zeros((plan.n_pad, plan.n_pad), dtype=torch.float32,
-                                 device=device)
+        self.r_pad = torch.zeros((plan.n_pad, plan.col_pad),
+                                 dtype=torch.float32, device=device)
 
     def consume(self, ids: np.ndarray, tiles: torch.Tensor) -> None:
         ys, xs = self.plan.workload.job_coord_batch(np.asarray(ids))
         scatter_tiles_at(self.r_pad, tiles, ys, xs, self.plan.t)
 
     def result(self) -> torch.Tensor:
-        r = symmetrize(self.r_pad, self.plan.n)
+        if self.plan.workload.needs_symmetrize:
+            r = symmetrize(self.r_pad, self.plan.n)
+        else:
+            r = self.r_pad[:self.plan.n_rows, :self.plan.n_cols].contiguous()
         self.r_pad = None
         # Unfused runs leave only the bounded-measure clip, elementwise, so
         # clipping after the mirror equals clipping each tile.
@@ -103,4 +118,208 @@ class DenseSink(TileSink):
         return r
 
 
-__all__ = ["TileSink", "DenseSink", "scatter_tiles_at", "symmetrize"]
+def topk_merge_rows(vals: np.ndarray, idx: np.ndarray, r_ids: np.ndarray,
+                    c_ids: np.ndarray, v: np.ndarray, k: int,
+                    dedup: bool = False) -> None:
+    """THE canonical per-row top-k merge, in place.
+
+    ``vals``/``idx`` are (n_rows, k) running state (index -1 = empty slot);
+    (r_ids, c_ids, v) are candidate triples.  Candidates merge under the
+    canonical total order — |value| desc, then column asc — so the kept
+    top-k is a set function of the candidates seen: independent of pass
+    partitioning, merge order and state capacity >= k, ties included.  A
+    row's candidate columns must be unique and must not repeat columns it
+    already holds; ``dedup=True`` drops exact (column, value) duplicates
+    (adjacent under the order) before truncation.
+
+    The reference sorts row by row in Python; here every touched row is
+    one line of a fixed-width (rows, k + max candidates) array — its state,
+    then its candidates in arrival order, then padding that sorts after
+    everything (key NaN, column int64 max) — and one row-wise
+    ``np.lexsort`` orders them all.  lexsort is stable, so each row's order
+    is the reference's ``np.lexsort((cand_i, -key))`` bit for bit.
+    """
+    r_ids = np.asarray(r_ids)
+    if r_ids.size == 0:
+        return
+    order = np.argsort(r_ids, kind="stable")
+    r_s = r_ids[order]
+    c_s = np.asarray(c_ids)[order]
+    v_s = np.asarray(v)[order]
+    uniq, starts, counts = np.unique(r_s, return_index=True,
+                                     return_counts=True)
+    width = k + int(counts.max())
+    rows = len(uniq)
+    cand_v = np.zeros((rows, width), dtype=vals.dtype)
+    cand_i = np.full((rows, width), np.iinfo(np.int64).max, dtype=np.int64)
+    cand_v[:, :k] = vals[uniq]
+    cand_i[:, :k] = idx[uniq]
+    line = np.repeat(np.arange(rows), counts)
+    slot = k + np.arange(len(r_s)) - np.repeat(starts, counts)
+    cand_v[line, slot] = v_s
+    cand_i[line, slot] = c_s
+    key = np.abs(cand_v)
+    key[cand_i < 0] = -np.inf               # empty slots lose to any candidate
+    neg = -key
+    pad = np.arange(width)[None, :] >= (k + counts)[:, None]
+    neg[pad] = np.nan                       # after every real entry
+    sel = np.lexsort((cand_i, neg), axis=1)
+    if dedup:
+        ci = np.take_along_axis(cand_i, sel, axis=1)
+        cv = np.take_along_axis(cand_v, sel, axis=1)
+        keep = np.ones(sel.shape, bool)
+        keep[:, 1:] = ~((ci[:, 1:] == ci[:, :-1]) & (ci[:, 1:] >= 0)
+                        & (cv[:, 1:] == cv[:, :-1]))
+        first = np.argsort(~keep, axis=1, kind="stable")
+        sel = np.take_along_axis(sel, first, axis=1)
+    sel = sel[:, :k]
+    vals[uniq] = np.take_along_axis(cand_v, sel, axis=1)
+    idx[uniq] = np.take_along_axis(cand_i, sel, axis=1)
+
+
+def _tile_row_topk(vals: torch.Tensor, cols: torch.Tensor,
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per line of (..., t) candidates with ascending columns (-1 masked):
+    the first min(k, t) under the canonical order.  A stable descending
+    sort of |v| keeps equal keys in column order; masked entries sort
+    last.  Only candidates of one line reach the line's merged top-k, so
+    this pre-selection changes no result."""
+    key = torch.where(cols < 0, -1.0, vals.abs())
+    order = torch.sort(key, dim=-1, descending=True,
+                       stable=True).indices[..., :k]
+    return (torch.take_along_dim(vals, order, dim=-1),
+            torch.take_along_dim(cols, order, dim=-1))
+
+
+class TopKSink(TileSink):
+    """Streaming per-row top-k neighbours: keep the k strongest-|r| partners
+    of every row without materialising the matrix — O(n_rows * k) state.
+
+    For the triangle a tile (y, x) contributes its entries to the rows of
+    block y *and* (mirrored) to the rows of block x, and self-pairs are
+    excluded; rectangular workloads rank each X row's neighbours among the
+    Y rows.  Each pass merges its candidates into the running top-k under
+    the canonical order (|v| desc, then column asc), so the kept set does
+    not depend on the pass split.
+
+    Each tile line is first cut to its own top-k on the device (the line's
+    columns are unique and ascending, so this drops only candidates that
+    cannot be kept), and only those cross to the host.
+
+    result() is {"indices": (n_rows, k) int64, "values": (n_rows, k) f32};
+    rows with fewer than k valid partners pad with index -1 / value 0.
+    """
+
+    def __init__(self, k: int):
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        self.k = int(k)
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        self.vals = np.zeros((plan.n_rows, self.k), np.float32)
+        self.idx = np.full((plan.n_rows, self.k), -1, np.int64)
+
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor) -> None:
+        plan = self.plan
+        t, n_r, n_c = plan.t, plan.n_rows, plan.n_cols
+        ys, xs = plan.workload.job_coord_batch(np.asarray(ids))
+        dev = tiles.device
+        span = torch.arange(t, device=dev)
+        ys_t = torch.as_tensor(ys, device=dev)
+        xs_t = torch.as_tensor(xs, device=dev)
+        # side 0: tile rows ranked over the tile's columns; side 1 (the
+        # triangle's off-diagonal tiles): tile columns over the tile's rows
+        sides = [(tiles, ys_t, xs_t, plan.symmetric_problem)]
+        if plan.workload.needs_symmetrize:
+            off = torch.as_tensor(np.nonzero(ys != xs)[0], device=dev)
+            sides.append((tiles[off].transpose(1, 2), xs_t[off], ys_t[off],
+                          False))
+        for vals, by, bx, self_mask in sides:
+            rows = by[:, None] * t + span                    # (P, t)
+            cols = (bx[:, None] * t + span)[:, None, :]      # (P, 1, t)
+            bad = (cols >= n_c) | (rows[:, :, None] >= n_r)
+            if self_mask:
+                bad = bad | (cols == rows[:, :, None])
+            cols = torch.where(bad, -1, cols.expand_as(vals))
+            tv, tc = _tile_row_topk(vals, cols, self.k)
+            ok = tc >= 0
+            r_ids = rows[:, :, None].expand_as(tc)[ok]
+            self._merge(r_ids.cpu().numpy(), tc[ok].cpu().numpy(),
+                        tv[ok].cpu().numpy())
+
+    def _merge(self, r_ids: np.ndarray, c_ids: np.ndarray,
+               v: np.ndarray) -> None:
+        topk_merge_rows(self.vals, self.idx, r_ids, c_ids, v, self.k)
+
+    def result(self) -> dict:
+        self.vals[self.idx < 0] = 0.0
+        return {"indices": self.idx, "values": self.vals}
+
+
+class DeviceTopKSink(TopKSink):
+    """TopKSink fed by the device-side top-k epilogue
+    (kernels/pcc_tile.pcc_topk_tiles): the executor streams per-row-block
+    top-k *state* instead of tiles, so only O(n * k) crosses from the card
+    per pass and no pass buffer of tiles is ever allocated.
+
+    ``wants_device_state`` routes the executor to the top-k kernel;
+    ``merge_dedups`` says the canonical merge drops exact duplicates, as a
+    recovering executor that re-delivers a pass needs.
+
+    The kernel's tile values are bitwise those of the tile kernel, and its
+    selection follows the canonical order, so result() is bit-identical to
+    plain TopKSink(k) on the same plan.
+    """
+
+    wants_device_state = True
+    merge_dedups = True
+
+    @staticmethod
+    def supports(plan: ExecutionPlan) -> bool:
+        """Whether this plan can take the device-side top-k path (the
+        predicate ``open()`` enforces).  The port has no quantized operands
+        yet, so no scale check is needed."""
+        return (plan.fused and getattr(plan.measure, "tile_kernel", None)
+                is None and not getattr(plan, "replicas", 0))
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        if not plan.fused:
+            raise ValueError(
+                "DeviceTopKSink needs the fused epilogue: the in-kernel "
+                "merge ranks *finalised* values (post div/clip), so an "
+                "unfused plan would rank unscaled accumulator sums")
+        if getattr(plan.measure, "tile_kernel", None) is not None:
+            raise ValueError(
+                f"DeviceTopKSink cannot run measure {plan.measure.name!r}: "
+                f"custom tile kernels bypass the top-k epilogue — use "
+                f"TopKSink")
+        if getattr(plan, "replicas", 0):
+            raise ValueError("DeviceTopKSink does not support replica "
+                             "(significance) runs")
+
+    def consume(self, ids: np.ndarray, state) -> None:
+        """One pass's state: (row_vals, row_cols[, col_vals, col_cols]),
+        each (m, t, kk).  `ids` is the pass's valid tile set, unused for
+        content (the kernel's validity guard already excluded clamped
+        slots)."""
+        del ids
+        plan = self.plan
+        t, n_r = plan.t, plan.n_rows
+        for sv, sc in zip(state[0::2], state[1::2]):
+            sv = sv.reshape(-1, t, sv.shape[-1]).cpu().numpy()
+            sc = sc.reshape(sv.shape).cpu().numpy()
+            blocks = np.arange(sv.shape[0])
+            rows = np.broadcast_to(
+                (blocks[:, None] * t + np.arange(t))[:, :, None], sv.shape)
+            ok = (sc >= 0) & (rows < n_r)
+            if not ok.any():
+                continue
+            topk_merge_rows(self.vals, self.idx, rows[ok],
+                            sc[ok].astype(np.int64), sv[ok], self.k,
+                            dedup=True)
+
+
+__all__ = ["TileSink", "DenseSink", "TopKSink", "DeviceTopKSink",
+           "scatter_tiles_at", "symmetrize", "topk_merge_rows"]

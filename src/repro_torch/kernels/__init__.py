@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-  pcc_tile.py      the triangular all-pairs tile kernel's wrapper, its plain
-                   version and the fused EpilogueSpec
-  csrc/pcc_tile.cu the CUDA C++ kernel (sm_90a)
-  _build.py        nvcc build at first use, ctypes binding
+  pcc_tile.py         the tile kernel's and the top-k kernel's wrappers,
+                      their plain versions and the fused EpilogueSpec
+  csrc/pcc_accum.cuh  the tile accumulation both CUDA kernels share
+  csrc/pcc_tile.cu    the all-pairs tile kernel, triangle and grid (sm_90a)
+  csrc/pcc_topk.cu    the per-row top-k kernels, select and merge (sm_90a)
+  _build.py           nvcc build at first use, ctypes binding
 """

@@ -7,8 +7,8 @@ C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
 Libraries land in ``kernels/_build/`` (ignored by git), named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads from disk.  :func:`build_all` starts one nvcc per source, all at once.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one loads from disk.  :func:`build_all` starts one nvcc per source, all at once.
 Importing this module builds nothing.
 """
 
@@ -29,14 +29,29 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the EpilogueSpec arguments: has_div, recip, has_clip, lo, hi
+_EPI = [_I, _F, _I, _F, _F]
 # source name -> {C function: (restype, argtypes)}
 SIGNATURES = {
     "pcc_tile": {
-        # (u, out, j_start, pass_tiles, m, t, l_pad,
-        #  has_div, recip, has_clip, lo, hi, stream) -> cudaError_t
-        "pcc_tiles_f32_tri": (_I, [_P, _P, _LL, _I, _I, _I, _I,
-                                   _I, _F, _I, _F, _F, _P]),
+        # (u, v, out, j_start, pass_tiles, m, grid_cols, t, l_pad,
+        #  *epilogue, stream) -> cudaError_t
+        "pcc_tiles_f32": (_I, [_P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                               *_EPI, _P]),
         "pcc_tile_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "pcc_topk": {
+        # (u, v, prv, prc, pcv, pcc, j_start, dev_hi, pass_tiles, m,
+        #  grid_cols, t, l_pad, kk, n_cols_valid, symmetric, *epilogue,
+        #  stream) -> cudaError_t
+        "pcc_topk_select_f32": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, *_EPI,
+                                     _P]),
+        # (prv, prc, pcv, pcc, rv, rc, cv, cc, j_start, hi_eff, m,
+        #  grid_cols, t, kk, stream) -> cudaError_t
+        "pcc_topk_merge": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                _I, _I, _I, _I, _P]),
+        "pcc_topk_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
@@ -58,6 +73,8 @@ def _nvcc() -> str:
 def _paths(name: str):
     src = _HERE / "csrc" / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    for header in sorted((_HERE / "csrc").glob("*.cuh")):
+        key.update(header.read_bytes())
     stem = BUILD_DIR / f"{name}_{key.hexdigest()[:16]}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 

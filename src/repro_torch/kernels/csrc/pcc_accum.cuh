@@ -1,0 +1,144 @@
+// The tile accumulation shared by pcc_tile.cu and pcc_topk.cu (sm_90a).
+//
+// Both kernels compute a 64 x 64 block of one (t, t) tile of U V^T with the
+// same code, so a finished value of the top-k kernel is bitwise the value
+// pcc_tiles writes for the same tile and epilogue: each output is one
+// sequential fmaf chain over k = 0 .. l_pad-1 in a 4 x 4 register block,
+// then the EpilogueSpec (multiply by the host-rounded float32 reciprocal,
+// then clip) in registers.
+//
+// Tile ids: the triangle (grid_cols == 0) numbers the upper triangle of the
+// m x m tile grid row-major (paper Eq. 9) and is inverted with exact integer
+// math (a float64 sqrt estimate, then the int64 repair of core/mapping.py
+// job_coord_batch); the rectangular grid (grid_cols > 0) numbers the
+// m x grid_cols grid row-major, y = jt / grid_cols, x = jt % grid_cols.
+//
+// Operands are staged through shared memory in BK = 16-wide sample chunks,
+// stored k-major (As[k][row]) so each thread reads its 4 rows and 4 columns
+// as two float4 loads per k; the next chunk's global loads are issued into
+// registers before the current chunk's FMAs (register double buffering).
+// Rows past the tile's edge (t not a multiple of 64) and samples past l_pad
+// read as zero.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace pcc {
+
+constexpr int BM = 64;          // output rows per CTA (== output columns)
+constexpr int BK = 16;          // sample chunk staged in shared memory
+constexpr int TM = 4;           // outputs per thread along each axis
+constexpr int THREADS = (BM / TM) * (BM / TM);   // 256
+constexpr int LOADS = BM * BK / THREADS;         // 4 elements per operand
+constexpr int PAD = 4;          // keeps rows 16-byte aligned, cuts conflicts
+
+struct Stage {
+  float a[BK][BM + PAD];
+  float b[BK][BM + PAD];
+};
+
+__device__ __forceinline__ long long tri_before(long long m, long long y) {
+  return y * (2 * m - y + 1) / 2;  // F_m(y); y(2m-y+1) is always even
+}
+
+// Exact inverse of the upper-triangle numbering (paper Eq. 14/15).
+__device__ __forceinline__ void tri_coord(long long m, long long j, int* yo,
+                                          int* xo) {
+  const long long disc = 4 * m * m + 4 * m + 1 - 8 * (j + 1);  // >= 1
+  long long s = (long long)floor(sqrt((double)disc));
+  while (s * s > disc) --s;
+  while ((s + 1) * (s + 1) <= disc) ++s;
+  long long y = ((2 * m - 1) - s + 1) / 2;  // numerator >= 0: floor == trunc
+  if (y < 0) y = 0;
+  if (y > m - 1) y = m - 1;
+  while (tri_before(m, y + 1) <= j) ++y;
+  while (tri_before(m, y) > j) --y;
+  *yo = (int)y;
+  *xo = (int)(j + y - tri_before(m, y));
+}
+
+__device__ __forceinline__ long long tile_total(int m, int grid_cols) {
+  return grid_cols > 0 ? (long long)m * grid_cols
+                       : (long long)m * (m + 1) / 2;
+}
+
+// Tile coordinate of (already clamped) tile id jt.
+__device__ __forceinline__ void tile_coord(int m, int grid_cols, long long jt,
+                                           int* yt, int* xt) {
+  if (grid_cols > 0) {
+    *yt = (int)(jt / grid_cols);
+    *xt = (int)(jt % grid_cols);
+  } else {
+    tri_coord(m, jt, yt, xt);
+  }
+}
+
+// acc = the (64, 64) block a_base[0:64] . b_base[0:64]^T over l_pad samples,
+// rows a_rows.. and b_rows.. of the block reading as zero.  Thread (ty, tx)
+// holds rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.
+__device__ __forceinline__ void accumulate_block(
+    const float* __restrict__ a_base, const float* __restrict__ b_base,
+    int a_rows, int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % (BM / TM);
+  const int ty = tid / (BM / TM);
+
+  // Global -> register staging: element e of this thread is row idx / BK,
+  // sample idx % BK of the chunk, so 16 neighbouring threads read 64
+  // contiguous bytes of one row.
+  float a_ld[LOADS], b_ld[LOADS];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < LOADS; ++e) {
+      const int idx = tid + e * THREADS;
+      const int row = idx / BK;
+      const int k = k0 + idx % BK;
+      const bool kin = k < l_pad;
+      a_ld[e] = (kin && row < a_rows) ? a_base[(size_t)row * l_pad + k] : 0.f;
+      b_ld[e] = (kin && row < b_rows) ? b_base[(size_t)row * l_pad + k] : 0.f;
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  for (int k0 = 0; k0 < l_pad; k0 += BK) {
+#pragma unroll
+    for (int e = 0; e < LOADS; ++e) {
+      const int idx = tid + e * THREADS;
+      st.a[idx % BK][idx / BK] = a_ld[e];
+      st.b[idx % BK][idx / BK] = b_ld[e];
+    }
+    __syncthreads();
+    if (k0 + BK < l_pad) fetch(k0 + BK);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&st.a[k][ty * TM]);
+      const float4 bv = *reinterpret_cast<const float4*>(&st.b[k][tx * TM]);
+      const float a[TM] = {av.x, av.y, av.z, av.w};
+      const float b[TM] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// EpilogueSpec.apply: v * recip, then clip; the clip keeps NaN like
+// torch.clamp.
+__device__ __forceinline__ float epilogue(float v, int has_div, float recip,
+                                          int has_clip, float lo, float hi) {
+  if (has_div) v = __fmul_rn(v, recip);
+  if (has_clip) v = v < lo ? lo : (v > hi ? hi : v);
+  return v;
+}
+
+}  // namespace pcc

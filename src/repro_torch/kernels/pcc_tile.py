@@ -1,17 +1,28 @@
-"""Triangular all-pairs correlation tiles: wrapper, plain version, epilogue.
+"""All-pairs correlation tiles and their per-row top-k: wrappers and plain
+versions.
 
-Port of ``repro/kernels/pcc_tile.py::pcc_tiles`` (Pallas body ``_kernel``)
-in its triangular, float32, fused-epilogue mode.  ``pass_tiles`` consecutive
-(t, t) tiles of U U^T start at the runtime tile id ``j_start``; each id is
-inverted to its (y, x) tile coordinate by the upper-triangle bijection, the
-tile accumulates over the whole sample axis in IEEE float32, and the fused
-:class:`EpilogueSpec` (x 1/div, then clip) runs before the single store.
-Ids past the end clamp to the last tile.
+Port of ``repro/kernels/pcc_tile.py`` in its float32, fused-epilogue modes:
 
-Dispatch is by the operand's device: a CUDA tensor launches the CUDA kernel
-(kernels/csrc/pcc_tile.cu) or raises; a CPU tensor runs
-:func:`pcc_tiles_plain`, a direct PyTorch transcription of the same
-semantics that is also the kernel's reference on the card.
+``pcc_tiles`` (Pallas body ``_kernel``): ``pass_tiles`` consecutive (t, t)
+tiles from the runtime tile id ``j_start``.  On the triangle (``grid_cols``
+None) each id is inverted to its (y, x) upper-triangle coordinate and the
+tile is U U^T; on the rectangular grid (``grid_cols`` an int) ids number the
+m x grid_cols grid row-major and the tile is U V^T with columns from the
+second operand ``v_pad``.  Each tile accumulates over the whole sample axis
+in IEEE float32, and the fused :class:`EpilogueSpec` (x 1/div, then clip)
+runs before the single store.  Ids past the end clamp to the last tile.
+
+``pcc_topk_tiles`` (Pallas bodies ``_topk_kernel``/``_topk_select``): the
+same tiles, folded into per-row (value, column) top-kk state under the
+canonical order (|v| descending, then column ascending) instead of being
+returned; triangles also rank the transposed off-diagonal tiles into a
+mirrored column state.
+
+Dispatch is by the operand's device: a CUDA tensor launches the CUDA kernels
+(kernels/csrc/pcc_tile.cu, kernels/csrc/pcc_topk.cu) or raises; a CPU tensor
+runs the plain version (:func:`pcc_tiles_plain`, :func:`pcc_topk_tiles_plain`),
+a direct PyTorch transcription of the same semantics that is also the
+kernels' reference on the card.
 """
 
 from __future__ import annotations
@@ -23,10 +34,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.mapping import job_coord_batch
+from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 
 DEFAULT_TILE = 256
 DEFAULT_LBLK = 512
+# The CUDA kernels' CTA block and the top-k state capacity they take
+# (csrc/pcc_accum.cuh BM, csrc/pcc_topk.cu KK_MAX).
+CTA_BLOCK = 64
+KK_MAX = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +82,10 @@ class EpilogueSpec:
 
 
 def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
-           pass_tiles: int) -> Tuple[int, int]:
-    """Validate a launch; returns (m, total)."""
+           pass_tiles: int, v_pad: Optional[torch.Tensor] = None,
+           grid_cols: Optional[int] = None
+           ) -> Tuple[int, int, torch.Tensor]:
+    """Validate a launch; returns (m, total, column operand)."""
     if not isinstance(u_pad, torch.Tensor) or u_pad.ndim != 2:
         raise ValueError("u_pad must be a 2-D torch tensor")
     if u_pad.device.type not in ("cuda", "cpu"):
@@ -88,41 +105,79 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
     if j_start < 0:
         raise ValueError(f"j_start must be non-negative, got {j_start}")
     m = n_pad // t
-    return m, m * (m + 1) // 2
+    if grid_cols is None:
+        if v_pad is not None:
+            raise NotImplementedError(
+                "a second operand on the triangle (the masked measures' "
+                "composite GEMMs) is not ported yet: ROADMAP slice 5")
+        return m, m * (m + 1) // 2, u_pad
+    if v_pad is None:
+        raise NotImplementedError(
+            "the grid of U against itself (the reference's symmetric_grid "
+            "mode) is not ported: pass v_pad with grid_cols")
+    v = v_pad
+    if not isinstance(v, torch.Tensor) or v.ndim != 2:
+        raise ValueError("v_pad must be a 2-D torch tensor (replica stacks "
+                         "are a later slice)")
+    if v.device != u_pad.device or v.dtype != torch.float32 or \
+            not v.is_contiguous():
+        raise ValueError(f"v_pad must be a contiguous float32 tensor on "
+                         f"{u_pad.device}, got {v.dtype} on {v.device}")
+    if grid_cols <= 0 or v.shape[-1] != l_pad or v.shape[-2] != grid_cols * t:
+        raise ValueError(
+            f"column operand {tuple(v.shape)} does not match grid_cols="
+            f"{grid_cols} tiles of t={t} over l_pad={l_pad}")
+    return m, m * grid_cols, v
+
+
+def _coords(m: int, grid_cols: Optional[int], ids: np.ndarray):
+    if grid_cols is None:
+        return job_coord_batch(m, ids)
+    return grid_job_coord_batch(m, grid_cols, ids)
+
+
+def _launch_error(lib, err: int, what: str, prefix: str) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg}")
 
 
 def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
               l_blk: int = DEFAULT_LBLK, pass_tiles: int,
-              epilogue: Optional[EpilogueSpec] = None) -> torch.Tensor:
+              epilogue: Optional[EpilogueSpec] = None,
+              v_pad: Optional[torch.Tensor] = None,
+              grid_cols: Optional[int] = None) -> torch.Tensor:
     """Compute `pass_tiles` consecutive tiles from tile id `j_start`.
 
     u_pad: (n_pad, l_pad) float32 transformed variables (Eq. 4), zero-padded
            so n_pad % t == 0 and l_pad % l_blk == 0, contiguous.
     epilogue: optional EpilogueSpec applied before the store.
+    v_pad / grid_cols: grid_cols=None runs the triangle of U against itself;
+           an int selects the rectangular grid, rows from U and columns from
+           v_pad (grid_cols * t, l_pad), which the grid requires.
     Returns (pass_tiles, t, t) float32.  ``pcc_tiles.launches`` counts the
     CUDA kernel's launches.
     """
     j_start = int(j_start)
-    m, _ = _check(u_pad, j_start, t, l_blk, pass_tiles)
+    m, _, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad, grid_cols)
     if u_pad.device.type == "cpu":
         return pcc_tiles_plain(u_pad, j_start, t=t, l_blk=l_blk,
-                               pass_tiles=pass_tiles, epilogue=epilogue)
+                               pass_tiles=pass_tiles, epilogue=epilogue,
+                               v_pad=v_pad, grid_cols=grid_cols)
     from repro_torch.kernels import _build
 
     lib = _build.load("pcc_tile")
     spec = epilogue if epilogue is not None else EpilogueSpec()
-    has_div, recip, has_clip, lo, hi = spec.kernel_args()
     out = torch.empty((pass_tiles, t, t), dtype=torch.float32,
                       device=u_pad.device)
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
-        err = lib.pcc_tiles_f32_tri(
-            ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            j_start, pass_tiles, m, t, u_pad.shape[1],
-            has_div, recip, has_clip, lo, hi, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"pcc_tiles launch failed: "
-                           f"{lib.pcc_tile_error_string(err).decode()}")
+        err = lib.pcc_tiles_f32(
+            ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), j_start, pass_tiles, m,
+            grid_cols or 0, t, u_pad.shape[1], *spec.kernel_args(),
+            ctypes.c_void_p(stream))
+    _launch_error(lib, err, "pcc_tiles", "pcc_tile")
     pcc_tiles.launches += 1
     return out
 
@@ -133,33 +188,260 @@ pcc_tiles.launches = 0
 def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
                     t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
                     pass_tiles: int,
-                    epilogue: Optional[EpilogueSpec] = None) -> torch.Tensor:
+                    epilogue: Optional[EpilogueSpec] = None,
+                    v_pad: Optional[torch.Tensor] = None,
+                    grid_cols: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`pcc_tiles`, on any device.
 
     Transcribes the Pallas grid: tile ids invert on the host with the exact
-    ``job_coord_batch``, each (t, l_blk) row and column block pair adds its
-    float32 product into the tile, then the epilogue runs.  On the card,
-    callers set ``torch.backends.cuda.matmul.allow_tf32 = False`` (the
-    default) so the products stay IEEE float32.
+    ``job_coord_batch`` (or the grid's division), each (t, l_blk) row and
+    column block pair adds its float32 product into the tile, then the
+    epilogue runs.  On the card, callers set
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) so the
+    products stay IEEE float32.
     """
     j_start = int(j_start)
-    m, total = _check(u_pad, j_start, t, l_blk, pass_tiles)
+    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                         grid_cols)
     ids = np.minimum(j_start + np.arange(pass_tiles, dtype=np.int64),
                      total - 1)
-    ys, xs = job_coord_batch(m, ids)
+    ys, xs = _coords(m, grid_cols, ids)
     dev = u_pad.device
     ys = torch.as_tensor(ys, device=dev)
     xs = torch.as_tensor(xs, device=dev)
-    u3 = u_pad.view(m, t, u_pad.shape[1])
+    l_pad = u_pad.shape[1]
+    u3 = u_pad.view(m, t, l_pad)
+    v3 = v.view(v.shape[0] // t, t, l_pad)
     acc = torch.zeros((pass_tiles, t, t), dtype=torch.float32, device=dev)
-    for k0 in range(0, u_pad.shape[1], l_blk):
+    for k0 in range(0, l_pad, l_blk):
         rows = u3[ys, :, k0:k0 + l_blk]
-        cols = u3[xs, :, k0:k0 + l_blk]
+        cols = v3[xs, :, k0:k0 + l_blk]
         acc += torch.bmm(rows, cols.transpose(1, 2))
     if epilogue is not None and not epilogue.is_identity():
         acc = epilogue.apply(acc)
     return acc
 
 
-__all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "EpilogueSpec", "pcc_tiles",
-           "pcc_tiles_plain"]
+def _check_topk(kk: int, dev_hi: int, total: int, n_cols_valid: int,
+                v: torch.Tensor) -> None:
+    if not 0 < kk <= KK_MAX:
+        raise ValueError(f"kk must be in [1, {KK_MAX}], got {kk}")
+    if not 0 <= dev_hi <= total:
+        raise ValueError(f"dev_hi must be in [0, total={total}], got "
+                         f"{dev_hi}")
+    if not 0 < n_cols_valid <= v.shape[0]:
+        raise ValueError(f"n_cols_valid must be in [1, {v.shape[0]}], got "
+                         f"{n_cols_valid}")
+
+
+def topk_scratch_bytes(pass_tiles: int, t: int, kk: int,
+                       mirror: bool) -> int:
+    """Bytes of the pass scratch :func:`pcc_topk_tiles` allocates on the
+    card: per side (rows; columns too on the triangle), a (value, column)
+    pair for each of min(kk, 64) entries of each row of each 64-column
+    block of each tile."""
+    nb = -(-t // CTA_BLOCK)
+    return (2 if mirror else 1) * pass_tiles * t * nb * min(kk, CTA_BLOCK) * 8
+
+
+def pcc_topk_tiles(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
+                   t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
+                   pass_tiles: int, kk: int, n_cols_valid: int,
+                   symmetric_problem: bool = True,
+                   epilogue: Optional[EpilogueSpec] = None,
+                   v_pad: Optional[torch.Tensor] = None,
+                   grid_cols: Optional[int] = None):
+    """pcc_tiles with the per-row top-k epilogue: the `pass_tiles` tiles
+    from raw start `j_start` are folded into per-row-block top-kk state
+    instead of being returned.
+
+    dev_hi: exclusive tile bound (<= the workload's tile count); slots at
+           or past it contribute nothing.
+    kk: state capacity per row (1 <= kk <= KK_MAX); n_cols_valid masks
+           padding columns; symmetric_problem also masks self-pairs.
+    Returns (row_vals, row_cols) on the grid, plus (col_vals, col_cols) on
+    the triangle, each (m, t, kk) (values float32, columns int32; empty
+    slots hold value 0 and column -1).  ``pcc_topk_tiles.launches`` counts
+    the launches of each of its two CUDA kernels.
+    """
+    j_start, dev_hi = int(j_start), int(dev_hi)
+    args = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, kk=kk,
+                n_cols_valid=n_cols_valid,
+                symmetric_problem=symmetric_problem, epilogue=epilogue,
+                v_pad=v_pad, grid_cols=grid_cols)
+    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                         grid_cols)
+    _check_topk(kk, dev_hi, total, n_cols_valid, v)
+    if u_pad.device.type == "cpu":
+        return pcc_topk_tiles_plain(u_pad, j_start, dev_hi, **args)
+    scratch = topk_select(u_pad, j_start, dev_hi, **args)
+    return topk_merge(scratch, j_start, dev_hi, m=m, t=t,
+                      pass_tiles=pass_tiles, kk=kk, grid_cols=grid_cols)
+
+
+pcc_topk_tiles.launches = {"select": 0, "merge": 0}
+
+
+def _ptrs(tensors, count: int):
+    flat = list(tensors) + [None] * (count - len(tensors))
+    return [ctypes.c_void_p(0 if x is None else x.data_ptr()) for x in flat]
+
+
+def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
+                l_blk: int, pass_tiles: int, kk: int, n_cols_valid: int,
+                symmetric_problem: bool,
+                epilogue: Optional[EpilogueSpec] = None,
+                v_pad: Optional[torch.Tensor] = None,
+                grid_cols: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """Launch the first CUDA kernel of :func:`pcc_topk_tiles` (CUDA tensors
+    only): each tile line's top-min(kk, 64) per 64-wide block, into a pass
+    scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) (value, column)
+    pairs per side (rows; columns too on the triangle)."""
+    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                         grid_cols)
+    _check_topk(kk, dev_hi, total, n_cols_valid, v)
+    if u_pad.device.type != "cuda":
+        raise ValueError("topk_select launches the CUDA kernel; CPU tensors "
+                         "take pcc_topk_tiles_plain")
+    from repro_torch.kernels import _build
+
+    lib = _build.load("pcc_topk")
+    dev = u_pad.device
+    spec = epilogue if epilogue is not None else EpilogueSpec()
+    part = (pass_tiles, t, -(-t // CTA_BLOCK), min(kk, CTA_BLOCK))
+    scratch = []
+    for _side in range(1 if grid_cols is not None else 2):
+        scratch += [torch.empty(part, dtype=torch.float32, device=dev),
+                    torch.empty(part, dtype=torch.int32, device=dev)]
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.pcc_topk_select_f32(
+            ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
+            *_ptrs(scratch, 4), j_start, dev_hi, pass_tiles, m,
+            grid_cols or 0, t, u_pad.shape[1], kk, n_cols_valid,
+            int(symmetric_problem), *spec.kernel_args(), stream)
+    _launch_error(lib, err, "pcc_topk_tiles (select)", "pcc_topk")
+    pcc_topk_tiles.launches["select"] += 1
+    return tuple(scratch)
+
+
+def topk_merge(scratch: Tuple[torch.Tensor, ...], j_start: int, dev_hi: int,
+               *, m: int, t: int, pass_tiles: int, kk: int,
+               grid_cols: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """Launch the second CUDA kernel of :func:`pcc_topk_tiles`: merge the
+    pass scratch of :func:`topk_select` into the (m, t, kk) state
+    outputs."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("pcc_topk")
+    dev = scratch[0].device
+    state = []
+    for _side in range(len(scratch) // 2):
+        state += [torch.empty((m, t, kk), dtype=torch.float32, device=dev),
+                  torch.empty((m, t, kk), dtype=torch.int32, device=dev)]
+    hi_eff = min(j_start + pass_tiles, dev_hi)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.pcc_topk_merge(*_ptrs(scratch, 4), *_ptrs(state, 4),
+                                 j_start, hi_eff, m, grid_cols or 0, t, kk,
+                                 stream)
+    _launch_error(lib, err, "pcc_topk_tiles (merge)", "pcc_topk")
+    pcc_topk_tiles.launches["merge"] += 1
+    return tuple(state)
+
+
+def _topk_select(cand_v: torch.Tensor, cand_c: torch.Tensor,
+                 kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of (t, c) candidates -> (t, kk) top-kk under the canonical
+    order, as the reference's ``_topk_select`` folds a tile into empty
+    state: masked candidates (column -1) carry value 0 and key -inf, and
+    two stable sorts, secondary key (column) first, give the order."""
+    t = cand_v.shape[0]
+    dev = cand_v.device
+    cand_v = torch.cat([torch.zeros((t, kk), dtype=torch.float32, device=dev),
+                        torch.where(cand_c < 0, 0.0, cand_v)], dim=1)
+    cand_c = torch.cat([torch.full((t, kk), -1, dtype=cand_c.dtype,
+                                   device=dev), cand_c], dim=1)
+    key = torch.where(cand_c < 0, -torch.inf, cand_v.abs())
+    p1 = torch.argsort(cand_c, dim=1, stable=True)
+    key1 = torch.take_along_dim(-key, p1, dim=1)
+    p2 = torch.argsort(key1, dim=1, stable=True)
+    sel = torch.take_along_dim(p1, p2, dim=1)[:, :kk]
+    return (torch.take_along_dim(cand_v, sel, dim=1),
+            torch.take_along_dim(cand_c, sel, dim=1).to(torch.int32))
+
+
+def pcc_topk_tiles_plain(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
+                         t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
+                         pass_tiles: int, kk: int, n_cols_valid: int,
+                         symmetric_problem: bool = True,
+                         epilogue: Optional[EpilogueSpec] = None,
+                         v_pad: Optional[torch.Tensor] = None,
+                         grid_cols: Optional[int] = None):
+    """Plain PyTorch version of :func:`pcc_topk_tiles`, on any device.
+
+    The pass's valid slots (a prefix: j_start + i < dev_hi) are computed
+    with :func:`pcc_tiles_plain`; each row block then takes the top-kk of
+    all its candidates at once with :func:`_topk_select`.  The canonical
+    order is total over a row's unique columns, so this equals the
+    reference's tile-by-tile fold.
+    """
+    j_start, dev_hi = int(j_start), int(dev_hi)
+    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                         grid_cols)
+    _check_topk(kk, dev_hi, total, n_cols_valid, v)
+    n_valid = min(pass_tiles, dev_hi - j_start)
+    tiles = None
+    if n_valid > 0:
+        tiles = pcc_tiles_plain(u_pad, j_start, t=t, l_blk=l_blk,
+                                pass_tiles=n_valid, epilogue=epilogue,
+                                v_pad=v_pad, grid_cols=grid_cols)
+    return topk_fold_plain(tiles, j_start, m=m, t=t, kk=kk,
+                           n_cols_valid=n_cols_valid,
+                           symmetric_problem=symmetric_problem,
+                           grid_cols=grid_cols, device=u_pad.device)
+
+
+def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
+                    t: int, kk: int, n_cols_valid: int,
+                    symmetric_problem: bool, grid_cols: Optional[int],
+                    device) -> Tuple[torch.Tensor, ...]:
+    """The ranking half of :func:`pcc_topk_tiles_plain`: fold the finished
+    tiles of ids j_start, j_start + 1, ... (None for no valid slot) into the
+    (m, t, kk) state outputs."""
+    dev = torch.device(device)
+    mirror = grid_cols is None
+    state = [(torch.zeros((m, t, kk), dtype=torch.float32, device=dev),
+              torch.full((m, t, kk), -1, dtype=torch.int32, device=dev))
+             for _ in range(2 if mirror else 1)]
+    if tiles is not None:
+        ys, xs = _coords(m, grid_cols, j_start + np.arange(tiles.shape[0]))
+        span = torch.arange(t, device=dev)
+        for y in np.unique(ys):
+            sel = torch.as_tensor(np.nonzero(ys == y)[0], device=dev)
+            vals = tiles[sel].permute(1, 0, 2).reshape(t, -1)
+            cols = (torch.as_tensor(xs, device=dev)[sel, None] * t
+                    + span).reshape(1, -1).expand(t, -1)
+            bad = cols >= n_cols_valid
+            if symmetric_problem:
+                bad = bad | (cols == int(y) * t + span[:, None])
+            rv, rc = _topk_select(vals, torch.where(bad, -1, cols), kk)
+            state[0][0][y], state[0][1][y] = rv, rc
+        if mirror:
+            off = ys != xs
+            for x in np.unique(xs[off]):
+                sel = torch.as_tensor(np.nonzero(off & (xs == x))[0],
+                                      device=dev)
+                vals = tiles[sel].permute(2, 0, 1).reshape(t, -1)
+                cols = (torch.as_tensor(ys, device=dev)[sel, None] * t
+                        + span).reshape(1, -1).expand(t, -1)
+                cv, cc = _topk_select(
+                    vals, torch.where(cols >= n_cols_valid, -1, cols), kk)
+                state[1][0][x], state[1][1][x] = cv, cc
+    return tuple(x for pair in state for x in pair)
+
+
+__all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
+           "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
+           "pcc_topk_tiles_plain", "topk_select", "topk_merge",
+           "topk_fold_plain", "topk_scratch_bytes"]

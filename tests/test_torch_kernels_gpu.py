@@ -1,7 +1,7 @@
-"""The CUDA kernel on the card: held against its plain version and the
-main path against its CPU run.  Every test here needs an NVIDIA GPU (marker
-``gpu``) and skips without one; this file imports no JAX, so it runs on a
-GPU host with only the port's dependencies:
+"""The CUDA kernels on the card: each held against its plain version, and
+the main paths against their CPU runs.  Every test here needs an NVIDIA GPU
+(marker ``gpu``) and skips without one; this file imports no JAX, so it runs
+on a GPU host with only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from repro_torch.core.api import corr
+from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 from repro_torch.core.pcc import transform
 from repro_torch.core.plan import pad_operands
+from repro_torch.core.sinks import DeviceTopKSink, TopKSink
 from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
-                                          pcc_tiles_plain)
+                                          pcc_tiles_plain, pcc_topk_tiles,
+                                          pcc_topk_tiles_plain)
 
 # same products, two float32 summation orders, l <= 300: the reference's
 # own Pearson bound
@@ -66,4 +69,133 @@ def test_corr_on_card_matches_cpu_and_is_split_invariant(cuda):
     assert torch.equal(r, corr(x, t=32, l_blk=32, max_tiles_per_pass=4,
                                device=cuda))
     torch.testing.assert_close(r.cpu(), corr(x, t=32, l_blk=32, device="cpu"),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,n_cols,l,t,l_blk,j_start,pass_tiles", [
+    (37, 21, 29, 8, 8, 0, 15),
+    (37, 21, 29, 8, 8, 13, 6),       # clamped ids past the end
+    (300, 170, 300, 96, 64, 1, 5),   # t not a multiple of the CTA block
+    (600, 300, 300, 256, 512, 2, 4),
+])
+def test_grid_kernel_matches_plain(cuda, n, n_cols, l, t, l_blk, j_start,
+                                   pass_tiles):
+    u = _operand(n, l, t, l_blk, cuda)
+    v = _operand(n_cols, l, t, l_blk, cuda, seed=1)
+    gc = v.shape[0] // t
+    spec = EpilogueSpec(clip=(-1.0, 1.0))
+    before = pcc_tiles.launches
+    got = pcc_tiles(u, j_start, t=t, l_blk=l_blk, pass_tiles=pass_tiles,
+                    epilogue=spec, v_pad=v, grid_cols=gc)
+    want = pcc_tiles_plain(u, j_start, t=t, l_blk=l_blk,
+                           pass_tiles=pass_tiles, epilogue=spec, v_pad=v,
+                           grid_cols=gc)
+    torch.cuda.synchronize()
+    assert pcc_tiles.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+def _dense(u, v, t, grid_cols, spec):
+    """The padded (rows, cols) float64 matrix the tiles cut up."""
+    r = u.double() @ v.double().T
+    return spec.apply(r) if spec is not None else r
+
+
+def check_topk_state(got, want, dense, t, tol):
+    """Hold one (vals, cols) state side of the kernel against the plain
+    version's: the same masked slots, each value within `tol` of the
+    float64 value at its own column, the |v| sequence within `tol`
+    position by position, and the columns equal except where the two
+    candidates' float64 |v| lie within 2 * tol (a near-tie).  Returns the
+    number of near-ties."""
+    gv, gc = got
+    wv, wc = want
+    assert torch.equal(gc < 0, wc < 0)
+    ok = gc >= 0
+    m, tt, kk = gv.shape
+    rows = (torch.arange(m * tt, device=gv.device).view(m, tt, 1)
+            .expand(m, tt, kk))
+    d_got = dense[rows[ok], gc[ok].long()]
+    d_want = dense[rows[ok], wc[ok].long()]
+    assert float((gv[ok].double() - d_got).abs().max()) <= tol
+    assert float((wv[ok].double() - d_want).abs().max()) <= tol
+    assert float((gv[ok].abs() - wv[ok].abs()).abs().max()) <= tol
+    differ = gc[ok] != wc[ok]
+    gap = (d_got[differ].abs() - d_want[differ].abs()).abs()
+    assert float(gap.max()) <= 2 * tol if gap.numel() else True
+    return int(differ.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("kk", [1, 10, 64])
+@pytest.mark.parametrize("n,n_cols,l,t,l_blk,j_start,pass_tiles,short", [
+    (70, 45, 29, 8, 8, 0, 200, 0),    # whole workload, one pass
+    (70, 45, 29, 8, 8, 7, 11, 3),     # mid range, dev_hi below the end
+    (300, 170, 300, 64, 64, 2, 9, 0),
+    (600, 330, 300, 256, 512, 1, 5, 1),
+])
+def test_topk_kernel_matches_plain(cuda, grid, kk, n, n_cols, l, t, l_blk,
+                                   j_start, pass_tiles, short):
+    u = _operand(n, l, t, l_blk, cuda)
+    v = _operand(n_cols, l, t, l_blk, cuda, seed=1) if grid else u
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    pass_tiles = min(pass_tiles, total - j_start)
+    dev_hi = j_start + pass_tiles - short
+    spec = EpilogueSpec(clip=(-1.0, 1.0))
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, kk=kk,
+              n_cols_valid=n_cols if grid else n, symmetric_problem=not grid,
+              epilogue=spec, v_pad=v if grid else None, grid_cols=gc)
+    before = dict(pcc_topk_tiles.launches)
+    got = pcc_topk_tiles(u, j_start, dev_hi, **kw)
+    want = pcc_topk_tiles_plain(u, j_start, dev_hi, **kw)
+    torch.cuda.synchronize()
+    assert pcc_topk_tiles.launches == {k: c + 1 for k, c in before.items()}
+    assert len(got) == (2 if grid else 4)
+    dense = _dense(u, v, t, gc, spec)
+    for side in range(len(got) // 2):
+        check_topk_state(got[2 * side:2 * side + 2],
+                         want[2 * side:2 * side + 2],
+                         dense if side == 0 else dense.T, t, ATOL)
+    # the kernel's values are bitwise those of pcc_tiles for the same tiles
+    tiles = pcc_tiles(u, 0, t=t, l_blk=l_blk, pass_tiles=total,
+                      epilogue=spec, v_pad=v if grid else None, grid_cols=gc)
+    ids = np.arange(total)
+    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+              else job_coord_batch(m, ids))
+    r = torch.zeros(u.shape[0], v.shape[0], device=cuda)
+    r.view(m, t, -1, t)[torch.as_tensor(ys, device=cuda), :,
+                        torch.as_tensor(xs, device=cuda), :] = tiles
+    if not grid:
+        r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(), r, r.T)
+    for side in range(len(got) // 2):
+        vals, cols = got[2 * side], got[2 * side + 1]
+        ok = cols >= 0
+        rows = (torch.arange(vals.shape[0] * t, device=cuda)
+                .view(-1, t, 1).expand_as(cols))
+        ref = (r if side == 0 else r.T)[rows[ok], cols[ok].long()]
+        assert torch.equal(vals[ok], ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [None, 150])
+def test_device_topk_sink_bit_identical_to_topk_sink_on_card(cuda, n_cols):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((200, 90)).astype(np.float32)
+    y = (None if n_cols is None
+         else rng.standard_normal((n_cols, 90)).astype(np.float32))
+    for mtp in (None, 3):
+        kw = dict(t=32, l_blk=32, max_tiles_per_pass=mtp, device=cuda)
+        before = dict(pcc_topk_tiles.launches)
+        got = corr(x, y, sink=DeviceTopKSink(7), **kw)
+        assert pcc_topk_tiles.launches["select"] > before["select"]
+        want = corr(x, y, sink=TopKSink(7), **kw)
+        np.testing.assert_array_equal(got["indices"], want["indices"])
+        np.testing.assert_array_equal(got["values"], want["values"])
+    r = corr(x, y, t=32, l_blk=32, device=cuda)
+    torch.testing.assert_close(r.cpu(), corr(x, y, t=32, l_blk=32,
+                                              device="cpu"),
                                rtol=0, atol=ATOL)

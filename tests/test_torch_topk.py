@@ -1,0 +1,259 @@
+"""Port parity of the per-row top-k path: the canonical merge, the top-k
+kernel's plain version, TopKSink and DeviceTopKSink, against ``repro``.
+
+Tolerances: values within 3e-6, the reference's own Pearson parity bound
+(tests/test_distributed.py; both compute in float32 in different orders).
+Column indices are compared exactly on data drawn so that no two |r| of a
+row lie within 1e-4 (asserted below), so the float32 differences cannot
+reorder them.  The merge itself does no arithmetic and is bit-identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.api import corr as ref_corr
+from repro.core.plan import ExecutionPlan as RefPlan
+from repro.core.sinks import DeviceTopKSink as RefDeviceTopKSink
+from repro.core.sinks import TopKSink as RefTopKSink
+from repro.core.sinks import topk_merge_rows as ref_merge
+from repro.kernels.pcc_tile import pcc_topk_tiles as ref_topk_tiles
+from repro_torch import convert
+from repro_torch.core.allpairs import execute_plan
+from repro_torch.core.api import corr
+from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.sinks import DeviceTopKSink, TopKSink, topk_merge_rows
+from repro_torch.kernels.pcc_tile import (KK_MAX, pcc_topk_tiles,
+                                          pcc_topk_tiles_plain)
+
+ATOL = 3e-6
+GAP = 1e-4
+N, N_COLS, L = 30, 21, 20     # n not a multiple of t = 8 or 16
+
+
+def _data(seed=36):
+    """Rows on three shared latent factors, which spreads |r| over [0, 1];
+    seed 36 leaves every row's |r| at least GAP apart (checked below)."""
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((3, L))
+    x = (rng.normal(scale=2.0, size=(N, 3)) @ z
+         + rng.standard_normal((N, L))).astype(np.float32)
+    y = (rng.normal(scale=2.0, size=(N_COLS, 3)) @ z
+         + rng.standard_normal((N_COLS, L))).astype(np.float32)
+    return x, y
+
+
+def _min_gap(a, b, self_pairs):
+    def unit(m):
+        m = m.astype(np.float64) - m.mean(axis=1, keepdims=True)
+        return m / np.linalg.norm(m, axis=1, keepdims=True)
+    r = np.abs(unit(a) @ unit(b).T)
+    if self_pairs:
+        np.fill_diagonal(r, np.inf)
+    s = np.sort(r, axis=1)[:, :-1 if self_pairs else None]
+    return float(np.diff(s, axis=1).min())
+
+
+def test_data_keeps_correlations_apart():
+    x, y = _data()
+    assert _min_gap(x, x, True) > GAP
+    assert _min_gap(x, y, False) > GAP
+
+
+# -- the canonical merge -----------------------------------------------------
+
+
+def _candidates(rng, rows, cols, count, exact_ties):
+    r_ids = rng.integers(0, rows, count)
+    c_ids = np.empty(count, np.int64)
+    for r in np.unique(r_ids):         # unique columns within a row
+        at = np.nonzero(r_ids == r)[0]
+        c_ids[at] = rng.choice(cols, at.size, replace=False)
+    v = rng.standard_normal(count).astype(np.float32)
+    if exact_ties:   # few distinct |v|, both signs: exact ties everywhere
+        v = (rng.integers(-3, 4, count) / 4).astype(np.float32)
+    return r_ids, c_ids, v
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+@pytest.mark.parametrize("exact_ties", [False, True])
+def test_topk_merge_rows_bit_identical_to_reference(k, exact_ties):
+    rng = np.random.default_rng(k + 10 * exact_ties)
+    rows, cols = 12, 40
+    ours = (np.zeros((rows, k), np.float32), np.full((rows, k), -1, np.int64))
+    ref = (ours[0].copy(), ours[1].copy())
+    seen = [set() for _ in range(rows)]
+    for _round in range(4):
+        r_ids, c_ids, v = _candidates(rng, rows, cols, 60, exact_ties)
+        # the contract: no column a row already holds
+        fresh = np.array([c not in seen[r] for r, c in zip(r_ids, c_ids)])
+        r_ids, c_ids, v = r_ids[fresh], c_ids[fresh], v[fresh]
+        for r, c in zip(r_ids, c_ids):
+            seen[r].add(c)
+        topk_merge_rows(*ours, r_ids, c_ids, v, k)
+        ref_merge(*ref, r_ids, c_ids, v, k)
+        np.testing.assert_array_equal(ours[1], ref[1])
+        assert ours[0].tobytes() == ref[0].tobytes()
+
+
+@pytest.mark.parametrize("exact_ties", [False, True])
+def test_topk_merge_rows_dedup_bit_identical_to_reference(exact_ties):
+    rng = np.random.default_rng(3 + exact_ties)
+    k, rows, cols = 5, 9, 30
+    ours = (np.zeros((rows, k), np.float32), np.full((rows, k), -1, np.int64))
+    ref = (ours[0].copy(), ours[1].copy())
+    r_ids, c_ids, v = _candidates(rng, rows, cols, 50, exact_ties)
+    for _round in range(3):   # re-delivered candidates: exact duplicates
+        topk_merge_rows(*ours, r_ids, c_ids, v, k, dedup=True)
+        ref_merge(*ref, r_ids, c_ids, v, k, dedup=True)
+        np.testing.assert_array_equal(ours[1], ref[1])
+        assert ours[0].tobytes() == ref[0].tobytes()
+    # a duplicated column with the opposite sign is not an exact duplicate
+    both = (np.array([0, 0]), np.array([7, 7]),
+            np.array([0.5, -0.5], np.float32))
+    topk_merge_rows(*ours, *both, k, dedup=True)
+    ref_merge(*ref, *both, k, dedup=True)
+    np.testing.assert_array_equal(ours[1], ref[1])
+    assert ours[0].tobytes() == ref[0].tobytes()
+    topk_merge_rows(*ours, np.array([], np.int64), np.array([], np.int64),
+                    np.array([], np.float32), k)   # nothing to merge
+    np.testing.assert_array_equal(ours[1], ref[1])
+
+
+# -- the kernel's plain version -----------------------------------------------
+
+
+def _ref_operands(grid, t, l_blk):
+    x, y = _data()
+    plan = RefPlan.create(N, L, n_cols=N_COLS if grid else None, t=t,
+                          l_blk=l_blk, interpret=True)
+    if grid:
+        u, v = plan.prepare_pair(jnp.asarray(x), jnp.asarray(y))
+    else:
+        u, v = plan.prepare(jnp.asarray(x)), None
+    return plan, u, v
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("t,l_blk,j_start,pass_tiles,short,kk", [
+    (8, 8, 0, 10 ** 6, 0, 4),     # the whole workload in one launch
+    (8, 8, 3, 5, 0, 3),           # j_start > 0, mid range
+    (8, 8, 2, 6, 2, 6),           # dev_hi below the launch's end
+    (16, 16, 0, 10 ** 6, 0, 40),  # kk above every row's valid partners
+    (16, 8, 1, 4, 1, 2),          # clamped slots past the end
+])
+def test_topk_plain_matches_interpret_pallas(grid, t, l_blk, j_start,
+                                             pass_tiles, short, kk):
+    ref_plan, ru, rv = _ref_operands(grid, t, l_blk)
+    total = ref_plan.total_tiles
+    pass_tiles = min(pass_tiles, total - j_start + (2 if short else 0))
+    dev_hi = min(total, j_start + pass_tiles - short)
+    n_valid = N_COLS if grid else N
+    gc = ref_plan.workload.grid_cols
+    want = ref_topk_tiles(ru, j_start, dev_hi, t=t, l_blk=l_blk,
+                          pass_tiles=pass_tiles, kk=kk,
+                          n_cols_valid=n_valid, symmetric_problem=not grid,
+                          interpret=True, epilogue=ref_plan.epilogue_spec,
+                          v_pad=rv, grid_cols=gc)
+    plan = convert.plan_from_reference(ref_plan.spec_dict())
+    u = convert.operand_from_reference(np.asarray(ru), device="cpu")
+    v = (None if rv is None
+         else convert.operand_from_reference(np.asarray(rv), device="cpu"))
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, kk=kk,
+              n_cols_valid=n_valid, symmetric_problem=not grid,
+              epilogue=plan.epilogue_spec, v_pad=v, grid_cols=gc)
+    got = pcc_topk_tiles_plain(u, j_start, dev_hi, **kw)
+    assert len(got) == len(want) == (2 if grid else 4)
+    for ours, theirs in zip(got, want):
+        theirs = np.asarray(theirs)
+        assert tuple(ours.shape) == theirs.shape
+        if ours.dtype == torch.int32:
+            np.testing.assert_array_equal(ours.numpy(), theirs)
+        else:
+            np.testing.assert_allclose(ours.numpy(), theirs, rtol=0,
+                                       atol=ATOL)
+    # on a CPU tensor the wrapper runs exactly the plain version
+    for a, b in zip(pcc_topk_tiles(u, j_start, dev_hi, **kw), got):
+        assert torch.equal(a, b)
+
+
+def test_topk_wrapper_checks_its_arguments():
+    u = torch.zeros(32, 8)
+    kw = dict(t=8, l_blk=8, pass_tiles=3, n_cols_valid=30)
+    with pytest.raises(ValueError, match="kk"):
+        pcc_topk_tiles(u, 0, 10, kk=0, **kw)
+    with pytest.raises(ValueError, match="kk"):
+        pcc_topk_tiles(u, 0, 10, kk=KK_MAX + 1, **kw)
+    with pytest.raises(ValueError, match="dev_hi"):
+        pcc_topk_tiles(u, 0, 11, kk=3, **kw)     # 10 tiles in the triangle
+    with pytest.raises(ValueError, match="n_cols_valid"):
+        pcc_topk_tiles(u, 0, 10, kk=3, **{**kw, "n_cols_valid": 33})
+    with pytest.raises(ValueError, match="float32"):
+        pcc_topk_tiles(u.double(), 0, 10, kk=3, **kw)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        pcc_topk_tiles(u, 0, 10, kk=3, v_pad=u, **kw)
+
+
+# -- the sinks ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("k,t,l_blk,mtp", [(3, 8, 8, 4), (7, 16, 8, 1),
+                                           (25, 8, 16, None)])
+def test_topk_sinks_match_reference(grid, k, t, l_blk, mtp):
+    x, y = _data()
+    kw = dict(t=t, l_blk=l_blk, max_tiles_per_pass=mtp)
+    yy = y if grid else None
+    got = corr(x, yy, sink=DeviceTopKSink(k), device="cpu", **kw)
+    want = ref_corr(jnp.asarray(x), None if yy is None else jnp.asarray(yy),
+                    sink=RefDeviceTopKSink(k), **kw)
+    np.testing.assert_array_equal(got["indices"], np.asarray(want["indices"]))
+    np.testing.assert_allclose(got["values"], np.asarray(want["values"]),
+                               rtol=0, atol=ATOL)
+    host = corr(x, yy, sink=TopKSink(k), device="cpu", **kw)
+    ref_host = ref_corr(jnp.asarray(x),
+                        None if yy is None else jnp.asarray(yy),
+                        sink=RefTopKSink(k), **kw)
+    np.testing.assert_array_equal(host["indices"],
+                                  np.asarray(ref_host["indices"]))
+    # inside the port the two sinks agree bit for bit
+    np.testing.assert_array_equal(got["indices"], host["indices"])
+    assert got["values"].tobytes() == host["values"].tobytes()
+    assert got["indices"].dtype == np.int64 and got["values"].dtype == \
+        np.float32
+    assert got["indices"].shape == (N, k)
+    rows_short = (got["indices"] < 0).any(axis=1)
+    assert rows_short.any() == (k > (N_COLS if grid else N - 1))
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_device_topk_result_independent_of_pass_split(grid):
+    x, y = _data()
+    yy = y if grid else None
+    base = corr(x, yy, sink=DeviceTopKSink(5), t=8, l_blk=8, device="cpu")
+    for mtp in (1, 2, 7, 1000):
+        got = corr(x, yy, sink=DeviceTopKSink(5), t=8, l_blk=8,
+                   max_tiles_per_pass=mtp, device="cpu")
+        np.testing.assert_array_equal(got["indices"], base["indices"])
+        assert got["values"].tobytes() == base["values"].tobytes()
+
+
+def test_device_topk_supports_predicate_and_refusals():
+    x, _ = _data()
+    plan = ExecutionPlan.create(N, L, t=8, l_blk=8)
+    assert DeviceTopKSink.supports(plan)
+    unfused = ExecutionPlan.create(N, L, t=8, l_blk=8, fuse_epilogue=False)
+    assert not DeviceTopKSink.supports(unfused)
+    with pytest.raises(ValueError, match="fused epilogue"):
+        DeviceTopKSink(3).open(unfused, torch.device("cpu"))
+    u = unfused.prepare(torch.from_numpy(x))
+    with pytest.raises(ValueError, match="fused epilogue"):
+        execute_plan(unfused, u, sink=DeviceTopKSink(3), device="cpu")
+    # TopKSink ranks the finalised tiles of an unfused run as well
+    got = execute_plan(unfused, u, sink=TopKSink(3), device="cpu")
+    want = corr(x, sink=TopKSink(3), t=8, l_blk=8, device="cpu")
+    np.testing.assert_array_equal(got["indices"], want["indices"])
+    with pytest.raises(ValueError):
+        TopKSink(0)
+    assert DeviceTopKSink.wants_device_state and DeviceTopKSink.merge_dedups
