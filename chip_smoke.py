@@ -36,7 +36,23 @@ Phases, each fatal on failure:
      rectangular grid; phase 7 does the same for its n = 64,000 pass), then
      time them (select, merge, both), their plain version and a library
      yardstick at the Table II shape, and the grid mode of pcc_tiles at the
-     rectangular shape, each with its bound.
+     rectangular shape, each with its bound;
+ 10. the bf16 and int8 operand modes of both kernels at phase 2's shapes,
+     triangle and grid: bf16 tiles bitwise the float32 kernel's on the
+     widened operand, int8 tiles (Kendall pair signs) and int8 top-k states
+     bitwise the plain version's, top-k values bitwise pcc_tiles';
+ 11. Spearman at Table II: dense corr (launches, exact symmetry, 16 rows
+     against float64 ranks then Pearson) and DeviceTopKSink(10),
+     bit-identical to TopKSink(10); times, and the rank transform alone;
+ 12. bf16 Pearson at Table II, dense and DeviceTopKSink(10): the bf16
+     kernels' launches, 16 rows against float64 within the reference's bf16
+     bound, top-k bit-identical to TopKSink(10); times, peak memory;
+ 13. int8 Kendall tau-a over the 17,555 Table II genes and their first 64
+     samples (below the reference's 96-sample merge crossover): the int8
+     kernels' launches, bitwise the float32 sign-GEMM, 16 rows against a
+     float64 direct count, top-k bit-identical to TopKSink(10); times;
+ 14. the bf16 and int8 kernels at those shapes against their plain versions,
+     timed with their bounds and a library yardstick each.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -69,6 +85,17 @@ TOL_SMALL = 3e-6
 TOL_FULL = 1e-5
 # corr at float32 against float64 statistics and products on 64 rows.
 TOL_F64 = 1e-5
+# bf16 operands against float64: the reference's own bf16 bound
+# (tests/test_fused_epilogue.py).
+TOL_BF16 = 3e-2
+# int8 Kendall against a float64 direct count: integer counts, one float32
+# division, so only the division's rounding remains.
+TOL_KENDALL = 1e-6
+L_KENDALL = 64      # below the reference's 96-sample merge crossover
+# Card peaks for the narrow modes' bounds (H100 SXM data sheet, dense, at
+# 700 W): bf16 tensor cores, int8 tensor cores.
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 K_TOP = 10                         # examples/coexpression_network.py --topk 10
 N_TF = 1_639                       # human TFs (Lambert et al., Cell 2018)
 N_64K, L_64K = 64_000, 5_000       # paper Table I, configs ARTIFICIAL_64K
@@ -164,7 +191,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
 
-    from repro_torch.core import pcc
+    from repro_torch.core import measures, pcc
     from repro_torch.core.api import corr
     from repro_torch.core.mapping import job_coord_batch
     from repro_torch.core.plan import ExecutionPlan, pad_operands
@@ -476,17 +503,30 @@ def main() -> int:
     def reset_counts():
         pcc_tiles.launches = 0
         pcc_topk_tiles.launches = {"select": 0, "merge": 0}
+        pcc_tiles.launches_by_dtype = {k: 0 for k in
+                                       pcc_tiles.launches_by_dtype}
+        pcc_topk_tiles.select_by_dtype = {k: 0 for k in
+                                          pcc_topk_tiles.select_by_dtype}
         for name in plain_calls:
             plain_calls[name] = 0
 
-    def check_launches(label, want_tiles, want_topk):
-        got = (pcc_tiles.launches, dict(pcc_topk_tiles.launches))
-        print(f"  {label}: pcc_tiles launches {got[0]}, pcc_topk_tiles "
-              f"launches {got[1]}, plain calls {plain_calls}")
-        if got != (want_tiles, {"select": want_topk, "merge": want_topk}) \
-                or any(plain_calls.values()):
-            raise AssertionError(f"{label}: did not run through the CUDA "
-                                 f"kernels as planned")
+    def check_launches(label, want_tiles, want_topk, dtype="float32"):
+        """Since reset_counts(), the CUDA kernels of operand type `dtype`
+        ran as planned, no kernel of another type ran, and no plain
+        version did."""
+        got = (pcc_tiles.launches, dict(pcc_tiles.launches_by_dtype),
+               dict(pcc_topk_tiles.launches),
+               dict(pcc_topk_tiles.select_by_dtype))
+        print(f"  {label}: pcc_tiles launches {got[1]}, pcc_topk_tiles "
+              f"launches {got[2]}, select by dtype {got[3]}, plain calls "
+              f"{plain_calls}")
+        want = (want_tiles,
+                {k: want_tiles if k == dtype else 0 for k in got[1]},
+                {"select": want_topk, "merge": want_topk},
+                {k: want_topk if k == dtype else 0 for k in got[3]})
+        if got != want or any(plain_calls.values()):
+            raise AssertionError(f"{label}: did not run through the {dtype} "
+                                 f"CUDA kernels as planned")
 
     def same_topk(a, b, label):
         if not (np.array_equal(a["indices"], b["indices"])
@@ -776,7 +816,346 @@ def main() -> int:
           f"torch.matmul(u, v.T) {tuple(u_tf.shape)} x {tuple(v_sk.shape)}: "
           f"{glib_ms:.3f} ms; bound {grid_bound:.3f} ms")
 
+    # -- 10. bf16 / int8 operand modes against float32 and plain -------------
+    def kendall_operand(x, t, l_blk):
+        return pad_operands(measures.pair_sign_transform(
+            x[:, :L_KENDALL], dtype=torch.int8), t, l_blk)
+
+    print("bf16 / int8 kernels at the phase 2 shapes: bf16 bitwise the f32 "
+          "kernel on the widened operand, int8 (Kendall signs) bitwise the "
+          "plain version, top-k values bitwise pcc_tiles':")
+    narrow_err = {"bfloat16": 0.0, "int8": 0.0}
+    narrow_ties = 0
+    for n, l, t, l_blk, j0, tiles in small:
+        n_cols = n // 2 + 3
+        xs_ = torch.from_numpy(rng.standard_normal((n, l)).astype(
+            np.float32)).to(dev)
+        ys_ = torch.from_numpy(rng.standard_normal((n_cols, l)).astype(
+            np.float32)).to(dev)
+        ops = {"bfloat16": (operand(xs_, t, l_blk).to(torch.bfloat16),
+                            operand(ys_, t, l_blk).to(torch.bfloat16)),
+               "int8": (kendall_operand(xs_, t, l_blk),
+                        kendall_operand(ys_, t, l_blk))}
+        for dname, (u, v) in ops.items():
+            m = u.shape[0] // t
+            for grid in (False, True):
+                gc = v.shape[0] // t if grid else None
+                vv = v if grid else None
+                total_s = m * gc if grid else m * (m + 1) // 2
+                label = (f"{dname} {'grid' if grid else 'triangle'} n={n} "
+                         f"width={u.shape[1]} t={t} l_blk={l_blk} j0={j0} "
+                         f"tiles={tiles}")
+                for spec in epilogues.values():
+                    kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
+                              epilogue=spec, v_pad=vv, grid_cols=gc)
+                    got = pcc_tiles(u, j0, **kw)
+                    want = pcc_tiles_plain(u, j0, **kw)
+                    if dname == "bfloat16":
+                        f32 = pcc_tiles(u.float(), j0, **{
+                            **kw, "v_pad": None if vv is None else vv.float()})
+                        if not torch.equal(got, f32):
+                            raise AssertionError(f"{label}: bf16 tile != f32 "
+                                                 f"tile of the widened operand")
+                    elif not torch.equal(got, want):
+                        raise AssertionError(f"{label}: int8 kernel != plain")
+                    err = float((got - want).abs().max())
+                    if not err <= TOL_SMALL:
+                        raise AssertionError(f"{label}: kernel disagrees "
+                                             f"with plain ({err:.3e})")
+                    narrow_err[dname] = max(narrow_err[dname], err)
+                exact = dense_from_tiles(
+                    pcc_tiles(u, 0, t=t, l_blk=l_blk, pass_tiles=total_s,
+                              epilogue=clip, v_pad=vv, grid_cols=gc),
+                    m, t, (v if grid else u).shape[0], gc)
+                dev_hi = min(j0 + tiles, total_s)
+                for kk in (1, 10, 64):
+                    kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles, kk=kk,
+                              n_cols_valid=n_cols if grid else n,
+                              symmetric_problem=not grid, epilogue=clip,
+                              v_pad=vv, grid_cols=gc)
+                    got = pcc_topk_tiles(u, j0, dev_hi, **kw)
+                    want = pcc_topk_tiles_plain(u, j0, dev_hi, **kw)
+                    torch.cuda.synchronize()
+                    if dname == "int8" and not all(
+                            torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"{label} kk={kk}: int8 top-k "
+                                             f"state != plain")
+                    for side in range(len(got) // 2):
+                        pair = got[2 * side:2 * side + 2]
+                        if dname == "bfloat16":
+                            cols_op = (v if grid else u).double()
+                            err, ties = check_topk_state(
+                                pair, want[2 * side:2 * side + 2],
+                                u.double(), cols_op, clip, TOL_SMALL,
+                                f"{label} kk={kk}")
+                            narrow_err[dname] = max(narrow_err[dname], err)
+                            narrow_ties += ties
+                        vals, cc = pair
+                        ok = cc >= 0
+                        rows = (torch.arange(vals.shape[0] * t, device=dev)
+                                .view(-1, t, 1).expand_as(cc))
+                        ref = (exact if side == 0 else exact.T)[
+                            rows[ok], cc[ok].long()]
+                        if not torch.equal(vals[ok], ref):
+                            raise AssertionError(f"{label} kk={kk}: top-k "
+                                                 f"values are not pcc_tiles' "
+                                                 f"bits")
+    print(f"  {len(small)} shapes x (bf16, int8) x (triangle, grid): all "
+          f"bitwise checks hold; max|kernel - plain| bf16 "
+          f"{narrow_err['bfloat16']:.3e}, int8 {narrow_err['int8']:.3e}; "
+          f"bf16 top-k near-tie column swaps {narrow_ties}, int8 top-k "
+          f"states equal to plain")
+
+    def rows_err(r, ref64, rows):
+        return float((r[rows].double() - ref64).abs().max())
+
+    # -- 11. Spearman at Table II -------------------------------------------
+    splan = ExecutionPlan.create(N_SEEK, L_SEEK, measure="spearman")
+    print(f"Spearman: corr(x, measure='spearman') at n={N_SEEK} l={L_SEEK}, "
+          f"{splan.n_pass} pass(es)")
+    reset_counts()
+    rsp = corr(x_dev, measure="spearman")
+    torch.cuda.synchronize()
+    check_launches("dense", splan.n_pass, 0)
+    if rsp.shape != (N_SEEK, N_SEEK) or not bool(torch.isfinite(rsp).all()):
+        raise AssertionError("bad Spearman result")
+    if not torch.equal(rsp, rsp.T):
+        raise AssertionError("Spearman result is not exactly symmetric")
+    u64 = pcc.transform(measures.rank_rows(x_dev.double()))
+    err_sp = rows_err(rsp, torch.clamp(u64[rows16] @ u64.T, -1.0, 1.0),
+                      rows16)
+    print(f"  {CHECK_ROWS} rows vs float64 Spearman (ranks, then Pearson): "
+          f"max|d| = {err_sp:.3e} (tol {TOL_F64:g})")
+    if not err_sp <= TOL_F64:
+        raise AssertionError("Spearman disagrees with float64")
+    del u64, rsp
+    reset_counts()
+    res_sp = corr(x_dev, measure="spearman", sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    check_launches(f"DeviceTopKSink({K_TOP})", 0, splan.n_pass)
+    same_topk(res_sp, corr(x_dev, measure="spearman", sink=TopKSink(K_TOP)),
+              "Spearman")
+    print(f"  DeviceTopKSink({K_TOP}) bit-identical to TopKSink({K_TOP})")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    sp_ms, sp_all = host_ms(lambda: corr(x_dev, measure="spearman"), 3)
+    sp_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    sptk_ms, sptk_all = host_ms(lambda: corr(
+        x_dev, measure="spearman", sink=DeviceTopKSink(K_TOP)), 3)
+    sptr_ms, sptr_all = host_ms(lambda: splan.prepare(x_dev), 3)
+    print(f"  dense {sp_ms:.3f} ms (runs {[round(v, 3) for v in sp_all]}), "
+          f"peak {sp_peak:.3f} GB; top-k {sptk_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in sptk_all]}); the rank transform alone "
+          f"(plan.prepare) {sptr_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in sptr_all]}) {tag}")
+
+    # -- 12. bf16 Pearson at Table II -----------------------------------------
+    bplan = ExecutionPlan.create(N_SEEK, L_SEEK, compute_dtype=torch.bfloat16)
+    u_bf = bplan.prepare(x_dev)
+    print(f"bf16 Pearson: corr(x, compute_dtype=torch.bfloat16) at "
+          f"n={N_SEEK} l={L_SEEK}: operand {u_bf.numel() * 2 / 1e6:.1f} MB "
+          f"(float32 {u_seek.numel() * 4 / 1e6:.1f} MB)")
+    reset_counts()
+    rbf = corr(x_dev, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    check_launches("dense", bplan.n_pass, 0, "bfloat16")
+    bf_tiles_launches = pcc_tiles.launches_by_dtype["bfloat16"]
+    if not bool(torch.isfinite(rbf).all()) or not torch.equal(rbf, rbf.T):
+        raise AssertionError("bad bf16 result")
+    u64 = pcc.transform(x_dev.double())
+    err_bf = rows_err(rbf, torch.clamp(u64[rows16] @ u64.T, -1.0, 1.0),
+                      rows16)
+    print(f"  {CHECK_ROWS} rows vs float64 Pearson: max|d| = {err_bf:.3e} "
+          f"(the reference's bf16 bound {TOL_BF16:g})")
+    if not err_bf <= TOL_BF16:
+        raise AssertionError("bf16 corr disagrees with float64")
+    del u64, rbf
+    reset_counts()
+    res_bf = corr(x_dev, compute_dtype=torch.bfloat16,
+                  sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    check_launches(f"DeviceTopKSink({K_TOP})", 0, bplan.n_pass, "bfloat16")
+    bf_select_launches = pcc_topk_tiles.select_by_dtype["bfloat16"]
+    same_topk(res_bf, corr(x_dev, compute_dtype=torch.bfloat16,
+                           sink=TopKSink(K_TOP)), "bf16")
+    print(f"  DeviceTopKSink({K_TOP}) bit-identical to TopKSink({K_TOP}) "
+          f"in bf16")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    bf_ms, bf_all = host_ms(lambda: corr(x_dev, compute_dtype=torch.bfloat16),
+                            3)
+    bf_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    bftk_ms, bftk_all = host_ms(lambda: corr(
+        x_dev, compute_dtype=torch.bfloat16, sink=DeviceTopKSink(K_TOP)), 3)
+    bftk_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"  dense {bf_ms:.3f} ms (runs {[round(v, 3) for v in bf_all]}), "
+          f"peak {bf_peak:.3f} GB; top-k {bftk_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in bftk_all]}), peak {bftk_peak:.3f} GB above "
+          f"the {base_mem / 1e9:.3f} GB held {tag}")
+
+    # -- 13. int8 Kendall tau-a, n = 17,555 genes x l = 64 samples ------------
+    x_k = x_dev[:, :L_KENDALL].contiguous()
+    kplan = ExecutionPlan.create(N_SEEK, L_KENDALL, measure="kendall",
+                                 compute_dtype=torch.int8)
+    u_k = kplan.prepare(x_k)
+    n_pairs = L_KENDALL * (L_KENDALL - 1) // 2
+    print(f"int8 Kendall tau-a: corr(x[:, :{L_KENDALL}], measure='kendall', "
+          f"compute_dtype=torch.int8): {n_pairs} pair columns, operand "
+          f"{tuple(u_k.shape)} int8 ({u_k.numel() / 1e6:.1f} MB)")
+    reset_counts()
+    rk8 = corr(x_k, measure="kendall", compute_dtype=torch.int8)
+    torch.cuda.synchronize()
+    check_launches("dense", kplan.n_pass, 0, "int8")
+    k_tiles_launches = pcc_tiles.launches_by_dtype["int8"]
+    rk32 = corr(x_k, measure="kendall")
+    if not torch.equal(rk8, rk32):
+        raise AssertionError("int8 Kendall != float32 sign-GEMM")
+    ia, ib = np.triu_indices(L_KENDALL, 1)
+    xk64 = x_k.double()
+    sgn = torch.sign(xk64[:, ia] - xk64[:, ib])
+    tau64 = torch.empty((CHECK_ROWS, N_SEEK), dtype=torch.float64,
+                        device=dev)
+    for i, r_ in enumerate(rows16.tolist()):
+        prod = sgn[r_] * sgn            # +1 concordant, -1 discordant pair
+        tau64[i] = ((prod > 0).sum(-1) - (prod < 0).sum(-1)).double() \
+            / n_pairs
+    err_k = rows_err(rk8, tau64, rows16)
+    print(f"  bitwise the float32 sign-GEMM; {CHECK_ROWS} rows vs float64 "
+          f"tau-a by a direct count of concordant and discordant pairs: "
+          f"max|d| = {err_k:.3e} (tol {TOL_KENDALL:g})")
+    if not err_k <= TOL_KENDALL:
+        raise AssertionError("int8 Kendall disagrees with the direct count")
+    del rk8, rk32, sgn, prod, xk64
+    reset_counts()
+    res_k = corr(x_k, measure="kendall", compute_dtype=torch.int8,
+                 sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    check_launches(f"DeviceTopKSink({K_TOP})", 0, kplan.n_pass, "int8")
+    k_select_launches = pcc_topk_tiles.select_by_dtype["int8"]
+    same_topk(res_k, corr(x_k, measure="kendall", compute_dtype=torch.int8,
+                          sink=TopKSink(K_TOP)), "int8 Kendall")
+    same_topk(res_k, corr(x_k, measure="kendall", sink=DeviceTopKSink(K_TOP)),
+              "int8 vs float32 Kendall")
+    print(f"  DeviceTopKSink({K_TOP}) bit-identical to TopKSink({K_TOP}) in "
+          f"int8 and to the float32 sign-GEMM's")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    k8_ms, k8_all = host_ms(lambda: corr(x_k, measure="kendall",
+                                         compute_dtype=torch.int8), 3)
+    k8_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    k32_ms, k32_all = host_ms(lambda: corr(x_k, measure="kendall"), 3)
+    k8tk_ms, k8tk_all = host_ms(lambda: corr(
+        x_k, measure="kendall", compute_dtype=torch.int8,
+        sink=DeviceTopKSink(K_TOP)), 3)
+    print(f"  dense int8 {k8_ms:.3f} ms (runs {[round(v, 3) for v in k8_all]})"
+          f", peak {k8_peak:.3f} GB; dense float32 sign-GEMM {k32_ms:.3f} ms "
+          f"(runs {[round(v, 3) for v in k32_all]}); int8 top-k "
+          f"{k8tk_ms:.3f} ms (runs {[round(v, 3) for v in k8tk_all]}) {tag}")
+
+    # -- 14. the bf16 and int8 kernel modes at those shapes -------------------
+    # Bounds: operations at the tensor-core peak of the operand type (989
+    # TFLOP/s bf16, 1,979 TOP/s int8), bytes at 3.35 TB/s (each operand byte
+    # read once, each output byte written once); the larger one bounds.
+    def narrow_bound(ops_, nbytes, peak):
+        o_ms = ops_ / peak * 1e3
+        b_ms = nbytes / HBM_BYTES_S * 1e3
+        return max(o_ms, b_ms), ("operations" if o_ms >= b_ms else "bytes")
+
+    ktotal = kplan.total_tiles
+    full = {}
+    for dname, u, p_, width, peak in [
+            ("bfloat16", u_bf, bplan, L_SEEK, BF16_FLOPS),
+            ("int8", u_k, kplan, n_pairs, INT8_OPS)]:
+        tot = p_.total_tiles
+        spec_ = p_.epilogue_spec
+        kw = dict(t=p_.t, l_blk=p_.l_blk, pass_tiles=tot, epilogue=spec_)
+        got = pcc_tiles(u, 0, **kw)
+        want = pcc_tiles_plain(u, 0, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if dname == "bfloat16":
+            if not torch.equal(got, pcc_tiles(u.float(), 0, **kw)):
+                raise AssertionError("bf16 tiles != f32 tiles of the widened "
+                                     "operand at the full shape")
+            if not err <= TOL_FULL:
+                raise AssertionError("bf16 kernel disagrees with plain")
+        elif not torch.equal(got, want):
+            raise AssertionError("int8 kernel != plain at the full shape")
+        del got, want
+        tkw = dict(t=p_.t, l_blk=p_.l_blk, pass_tiles=tot, kk=K_TOP,
+                   n_cols_valid=N_SEEK, symmetric_problem=True,
+                   epilogue=spec_)
+        if dname == "int8":
+            if not all(torch.equal(a, b) for a, b in zip(
+                    pcc_topk_tiles(u, 0, tot, **tkw),
+                    pcc_topk_tiles_plain(u, 0, tot, **tkw))):
+                raise AssertionError("int8 top-k != plain at the full shape")
+        else:
+            e2, ties = topk_vs_plain(u, 0, tot, tot, t=p_.t, l_blk=p_.l_blk,
+                                     kk=K_TOP, n_cols_valid=N_SEEK,
+                                     spec=spec_)
+            err = max(err, e2)
+            print(f"  bf16 top-k vs plain at the full pass: max|kernel - "
+                  f"plain| = {e2:.3e}, {ties} near-tie column swaps")
+        narrow_err[dname] = max(narrow_err[dname], err)
+        ops_ = 2 * width * p_.t ** 2 * tot
+        op_b = u.numel() * u.element_size()
+        k_ms, k_all = event_ms(lambda: pcc_tiles(u, 0, **kw), 5)
+        p_ms, _ = event_ms(lambda: pcc_tiles_plain(u, 0, **kw), 3)
+        # the library yardstick: one full-square product of the same type
+        if dname == "int8":
+            mm, ut = torch._int_mm, u.T.contiguous()
+            lib_label = "torch._int_mm(u, u.T) (int32 out)"
+        else:
+            mm, ut = torch.matmul, u.T
+            lib_label = "torch.matmul(u, u.T) (bf16 out)"
+        l_ms, _ = event_ms(lambda: mm(u, ut), 5)
+        t_bound = narrow_bound(ops_, op_b + tot * p_.t ** 2 * 4, peak)
+        s_ms, s_all = event_ms(lambda: topk_select(u, 0, tot, **tkw), 5)
+        sp_ms_, _ = event_ms(lambda: pcc_topk_tiles_plain(u, 0, tot, **tkw),
+                             3)
+        sl_ms, _ = event_ms(lambda: torch.topk(mm(u, ut).abs(), K_TOP, dim=1),
+                            3)
+        s_bound = narrow_bound(
+            ops_, op_b + topk_scratch_bytes(tot, p_.t, K_TOP, True), peak)
+        full[dname] = dict(ms=k_ms, plain=p_ms, lib=l_ms, bound=t_bound,
+                           sel=s_ms, sel_plain=sp_ms_, sel_lib=sl_ms,
+                           sel_bound=s_bound)
+        print(f"{dname} kernels, one pass of {tot} tiles over {tuple(u.shape)} "
+              f"({width} real columns) {tag}:")
+        print(f"  pcc_tiles {k_ms:.3f} ms (runs {[round(v, 3) for v in k_all]})"
+              f", {ops_ / k_ms / 1e9:.1f} T ops/s, bound {t_bound[0]:.3f} ms "
+              f"by {t_bound[1]} ({ops_:.4g} ops at {peak / 1e12:g} T/s; "
+              f"{op_b:.4g} B operand); plain {p_ms:.3f} ms; library "
+              f"{lib_label} {l_ms:.3f} ms; max|kernel - plain| {err:.3e}")
+        print(f"  pcc_topk_select {s_ms:.3f} ms (runs "
+              f"{[round(v, 3) for v in s_all]}), bound {s_bound[0]:.3f} ms by "
+              f"{s_bound[1]}; plain pcc_topk_tiles_plain {sp_ms_:.3f} ms; "
+              f"library torch.topk({lib_label}.abs(), {K_TOP}) (full square, "
+              f"no canonical tie order, self-pairs kept) {sl_ms:.3f} ms")
+    del u_k, ut
+
     source = "src/repro_torch/kernels/csrc/"
+    narrow_records = []
+    for dname, short, tiles_l, sel_l in [
+            ("bfloat16", "bf16", bf_tiles_launches, bf_select_launches),
+            ("int8", "int8", k_tiles_launches, k_select_launches)]:
+        f = full[dname]
+        narrow_records += [
+            {"name": f"pcc_tiles ({short})", "route": "cuda",
+             "source": source + "pcc_tile.cu",
+             "replaces": "src/repro/kernels/pcc_tile.py:299",
+             "launches": tiles_l, "max_abs_err": narrow_err[dname],
+             "ms": f["ms"], "plain_ms": f["plain"], "bound_ms": f["bound"][0],
+             "bound_by": f["bound"][1], "library_ms": f["lib"]},
+            {"name": f"pcc_topk_select ({short})", "route": "cuda",
+             "source": source + "pcc_topk.cu",
+             "replaces": "src/repro/kernels/pcc_tile.py:612",
+             "launches": sel_l, "max_abs_err": narrow_err[dname],
+             "ms": f["sel"], "plain_ms": f["sel_plain"],
+             "bound_ms": f["sel_bound"][0], "bound_by": f["sel_bound"][1],
+             "library_ms": f["sel_lib"]}]
     record = {"kernels": [
         {"name": "pcc_tiles", "route": "cuda", "source": source + "pcc_tile.cu",
          "replaces": "src/repro/kernels/pcc_tile.py:299",
@@ -801,6 +1180,7 @@ def main() -> int:
          "launches": topk_launches["merge"], "max_abs_err": topk_err,
          "ms": merge_ms, "plain_ms": fold_ms, "bound_ms": merge_bound,
          "bound_by": merge_by, "library_ms": None},
+        *narrow_records,
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

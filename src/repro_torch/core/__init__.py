@@ -1,10 +1,11 @@
-"""repro_torch.core — all-pairs Pearson, symmetric or X-vs-Y: plan -> executor -> sink.
+"""repro_torch.core — all-pairs similarity, symmetric or X-vs-Y: plan ->
+executor -> sink.
 
   api       corr(): the facade — THE entry point
   mapping   the tile-id <-> upper-triangle and rectangular-grid bijections
   tiling    tile geometry and pass partitioning
   pcc       the Eq. 4 row transform and dense oracles
-  measures  the Measure record (Pearson)
+  measures  the Measure record, the row transforms and the registry
   plan      ExecutionPlan: every static decision of a run
   allpairs  the double-buffered pass executor
   sinks     DenseSink, TopKSink, DeviceTopKSink and the canonical top-k merge

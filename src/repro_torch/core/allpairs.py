@@ -112,7 +112,8 @@ def execute_plan(plan: ExecutionPlan, u_pad: torch.Tensor,
     explicit so a CPU run is always asked for.
     """
     dev = resolve_device(device)
-    l_pad = -(-plan.l // plan.l_blk) * plan.l_blk
+    l_pad = plan.l_pad
+    dtype = plan.compute_dtype or torch.float32
     operands = [("u_pad", u_pad, plan.n_pad)]
     if plan.workload.needs_symmetrize:
         if v_pad is not None:
@@ -130,6 +131,8 @@ def execute_plan(plan: ExecutionPlan, u_pad: torch.Tensor,
         if tuple(op.shape) != (rows, l_pad):
             raise ValueError(f"{name} shape {tuple(op.shape)} does not match "
                              f"the plan's ({rows}, {l_pad})")
+        if op.dtype != dtype:
+            raise ValueError(f"{name} is {op.dtype}; the plan stores {dtype}")
     return run_sink(plan, sink, u_pad.device,
                     _stream(plan, u_pad, v_pad, _sink_state_k(sink)))
 
@@ -159,13 +162,14 @@ def allpairs(x, *, measure: measures.MeasureLike = "pearson",
              sink: Optional[TileSink] = None, t: int = DEFAULT_TILE,
              l_blk: int = DEFAULT_LBLK,
              max_tiles_per_pass: Optional[int] = None, clip: bool = True,
-             fuse_epilogue: bool = True, device=None):
+             fuse_epilogue: bool = True, compute_dtype=None, device=None):
     """Symmetric all-pairs similarity: the spelling of ``corr(x, ...)``
     kept from the reference."""
     from repro_torch.core.api import corr  # api builds on this module
     return corr(x, measure=measure, sink=sink, t=t, l_blk=l_blk,
                 max_tiles_per_pass=max_tiles_per_pass, clip=clip,
-                fuse_epilogue=fuse_epilogue, device=device)
+                fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
+                device=device)
 
 
 __all__ = ["launch_tiles", "launch_topk_tiles", "run_sink", "execute_plan",

@@ -2,10 +2,11 @@
 
 Port of ``repro/core/api.py`` for the paper's own workload — symmetric
 all-pairs similarity of one (n, l) operand — and the rectangular X-vs-Y
-workload, on one device.  A frozen :class:`PairwiseProblem` captures what is
-asked; :func:`corr` resolves it onto plan -> executor -> sink.  The
-reference's other workloads and knobs raise ``NotImplementedError`` naming
-the ROADMAP slice that brings them.
+workload, on one device, under every inner-product measure and with
+float32, bfloat16 or int8 stored operands.  A frozen
+:class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
+onto plan -> executor -> sink.  The reference's other workloads and knobs
+raise ``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
-    "compute_dtype": "slice 3 (bf16/int8 operands) and slice 6 (quantized)",
     "resume_from": "slice 4 (HostSink checkpoints)",
     "where": "slice 5 (masked measures)",
     "pvalues": "slice 8 (significance)",
@@ -85,7 +85,20 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
     x:       (n, l) variables, numpy array or tensor.
     y:       optional (n_cols, l) second operand: the rectangular X-vs-Y
              workload, every x row against every y row.
-    measure: "pearson" (the other measures are ROADMAP slice 3).
+    measure: a registered name or Measure (core/measures.py): "pearson"
+             ("pcc"), "spearman", "cosine", "covariance" ("cov"), "dot",
+             "kendall" ("kendall_tau_a"), "kendall_tau_b" ("kendall_b"),
+             "kendall_sign_gemm", "kendall_tau_b_sign_gemm", or one added
+             with measures.register.  kendall / kendall_tau_b at l >= 96
+             without compute_dtype take the reference's merge-sort kernel
+             and raise NotImplementedError (ROADMAP slice 7).
+    compute_dtype: None keeps the transform's float32 operands;
+             torch.bfloat16 / "bfloat16" stores them in bf16 (float32
+             accumulation), torch.int8 / "int8" in int8 for measures whose
+             transform is integer-valued (kendall: int32 accumulation,
+             bitwise the float32 result).  int8 on other measures and fp8
+             are the reference's quantized path and raise
+             NotImplementedError (ROADMAP slice 6).
     sink:    output handling; the default DenseSink returns the (n, n)
              float32 matrix on `device`, exactly symmetric (or the
              (n, n_cols) cross matrix when y is given).  TopKSink(k) and
@@ -96,12 +109,11 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
              max_tiles_per_pass or fuse_epilogue, bit for bit.
     device:  None means "cuda", which raises on a machine without a card;
              pass device="cpu" to run the kernels' plain versions.
-    where, mesh, shard_u, compute_dtype, resume_from, pvalues and
-    recovery are the reference's and raise NotImplementedError here.
+    where, mesh, shard_u, resume_from, pvalues and recovery are the
+    reference's and raise NotImplementedError here.
     """
     given = {"where": where is not None,
              "mesh": mesh is not None, "shard_u": bool(shard_u),
-             "compute_dtype": compute_dtype is not None,
              "resume_from": resume_from is not None,
              "pvalues": pvalues is not None, "recovery": recovery is not None}
     for name, on in given.items():
@@ -115,7 +127,7 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
         n_cols=None if problem.symmetric else problem.n_cols, t=t,
         l_blk=l_blk, measure=problem.measure,
         max_tiles_per_pass=max_tiles_per_pass, clip=clip,
-        fuse_epilogue=fuse_epilogue)
+        fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype)
     if problem.symmetric:
         return execute_plan(plan, plan.prepare(problem.x), sink=sink,
                             device=problem.x.device)

@@ -1,23 +1,150 @@
-"""Similarity measures for the triangular all-pairs engine (Pearson).
+"""Pluggable similarity measures for the tiled all-pairs engine.
 
-Port of the ``Measure`` record of ``repro/core/measures.py``.  A measure is
-a row transform plus an elementwise epilogue around the shared tile kernel:
+Port of ``repro/core/measures.py``.  A measure is a row transform plus an
+elementwise epilogue around the shared tile kernel:
 
     S(X_i, X_j) = epilogue(<row_transform(X)_i, row_transform(X)_j>, l)
 
-This slice carries Pearson (center + L2-normalise, identity epilogue, clip
-to [-1, 1]).  The other measures of the reference come with ROADMAP slice 3.
+  measure        row_transform (X -> U)                 epilogue(v, l)  clip
+  -------------  -------------------------------------  --------------  ------
+  pearson        center + L2-normalise (Eq. 4)          identity        [-1,1]
+  spearman       average-tie rank, then Eq. 4           identity        [-1,1]
+  cosine         L2-normalise only                      identity        [-1,1]
+  covariance     center only                            v / (l - 1)     none
+  kendall        sign(X[a] - X[b]) over pairs a < b     v / C(l, 2)     [-1,1]
+  kendall_tau_b  pair signs scaled per row by           identity        [-1,1]
+                 1/sqrt(#non-tied pairs)
+  dot            identity                               identity        none
+
+Kendall's pair-sign rows are exactly +/-1/0 (``exact_int8``), so they may
+be stored as int8 operands.  The reference's merge-sort Kendall variants
+(``kendall_merge``, ``kendall_tau_b_merge``, and the substitution
+:func:`resolve_tile_kernel` makes at l >= 96) are ROADMAP slice 7 and
+raise ``NotImplementedError`` here; nothing computes in their place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import pcc
 from repro_torch.kernels.pcc_tile import EpilogueSpec
+
+# The reference's sample count at and above which kendall / kendall_tau_b
+# switch to the merge-sort tile kernel (repro/kernels/kendall_merge.py).
+KENDALL_MERGE_CROSSOVER_L = 96
+_MERGE_SLICE = "the merge-sort Kendall kernel is ROADMAP slice 7"
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _check_2d(x: torch.Tensor) -> None:
+    if x.ndim != 2:
+        raise ValueError(f"expected (n, l) matrix, got shape {tuple(x.shape)}")
+
+
+# -- row transforms -------------------------------------------------------------
+
+
+def rank_rows(x: torch.Tensor) -> torch.Tensor:
+    """Average-tie (fractional) ranks of each row, 1-based, float.
+
+    One sort plus two binary searches per row: rank(v) = (#less +
+    #less_or_equal + 1) / 2, so ties get the mean of the ranks they span
+    (scipy.stats.rankdata's convention), bitwise as in the reference.
+    """
+    _check_2d(x)
+    xa = x.to(_acc_dtype(x))
+    s = torch.sort(xa, dim=1).values
+    lo = torch.searchsorted(s, xa, side="left")
+    hi = torch.searchsorted(s, xa, side="right")
+    return 0.5 * (lo + hi + 1).to(xa.dtype)
+
+
+def spearman_transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Spearman(X) == Pearson(rank(X)): rank each row, then Eq. 4."""
+    return pcc.transform(rank_rows(x), dtype=dtype or x.dtype)
+
+
+def l2_normalize_rows(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """U_i = X_i / ||X_i||_2 (cosine); all-zero rows map to zeros."""
+    _check_2d(x)
+    xa = x.to(_acc_dtype(x))
+    norm = torch.sqrt((xa * xa).sum(dim=1, keepdim=True))
+    u = torch.where(norm > 0, xa / torch.where(norm > 0, norm, 1.0), 0.0)
+    return u.to(dtype or x.dtype)
+
+
+def center_rows(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """U_i = X_i - mean(X_i): <U_i, U_j> / (l - 1) is the covariance."""
+    _check_2d(x)
+    xa = x.to(_acc_dtype(x))
+    return (xa - xa.mean(dim=1, keepdim=True)).to(dtype or x.dtype)
+
+
+def pair_sign_transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Kendall tau-a row transform: sign(X[a] - X[b]) over all C(l, 2)
+    sample pairs a < b, in ``np.triu_indices(l, 1)`` order.
+
+    <U_i, U_j> counts concordant minus discordant pairs, so tau-a is
+    <U_i, U_j> / C(l, 2).  The output is (n, l(l-1)/2): small l only.
+    """
+    _check_2d(x)
+    l = x.shape[1]
+    if l < 2:
+        raise ValueError(f"kendall needs at least 2 samples, got l={l}")
+    ia, ib = torch.triu_indices(l, l, 1, device=x.device)
+    xa = x.to(_acc_dtype(x))
+    return torch.sign(xa[:, ia] - xa[:, ib]).to(dtype or x.dtype)
+
+
+def pair_sign_tie_scaled_transform(x: torch.Tensor, *,
+                                   dtype=None) -> torch.Tensor:
+    """Kendall tau-b row transform: pair signs scaled per row by
+    1/sqrt(n0 - n1_i), row i's count of non-zero signs, so the plain inner
+    product is tau-b.  Fully tied rows map to zero rows (score 0)."""
+    s = pair_sign_transform(x, dtype=torch.float32)
+    nz = (s != 0.0).sum(dim=1).to(torch.float32)
+    scale = torch.where(nz > 0, 1.0 / torch.sqrt(torch.clamp(nz, min=1.0)),
+                        0.0)
+    return (s * scale[:, None]).to(dtype or x.dtype)
+
+
+def identity_transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Pass-through row transform: the kernel computes raw inner products
+    (the "dot" measure)."""
+    _check_2d(x)
+    return x.to(dtype or x.dtype)
+
+
+# -- epilogues ------------------------------------------------------------------
+# Built-in epilogues are static divisions; fused (EpilogueSpec in the kernel)
+# and unfused (EpilogueSpec.apply on the pass stream) share one reciprocal
+# multiply, so both give the same bits.
+
+
+def _cov_div(l: int) -> float:
+    return float(max(l - 1, 1))
+
+
+def _kendall_div(l: int) -> float:
+    return float(max(l * (l - 1) // 2, 1))
+
+
+def _cov_epilogue(vals: torch.Tensor, l: int) -> torch.Tensor:
+    return EpilogueSpec(div=_cov_div(l)).apply(vals)
+
+
+def _kendall_epilogue(vals: torch.Tensor, l: int) -> torch.Tensor:
+    return EpilogueSpec(div=_kendall_div(l)).apply(vals)
+
+
+# -- the Measure record ---------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +159,14 @@ class Measure:
     epilogue_div: static denominator given l, for epilogues v -> v / div —
                   the kernel-inlinable description of `epilogue`.  When set
                   (or when epilogue is None) the measure is fusable.
+    exact_int8:   the transform's output is exactly representable in int8
+                  (Kendall's pair signs), which allows int8 operands.
+    permute_gather: the transform commutes with sample permutation (the
+                  significance runs of ROADMAP slice 8 read it; carried as
+                  data only here).
+    tile_kernel:  None rides the shared tile kernel.  The reference's
+                  merge-sort Kendall sets a custom per-tile kernel; that is
+                  slice 7, so no port measure sets it yet.
     """
 
     name: str
@@ -39,6 +174,9 @@ class Measure:
     epilogue: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
     clip: Optional[Tuple[float, float]] = None
     epilogue_div: Optional[Callable[[int], float]] = None
+    exact_int8: bool = False
+    permute_gather: bool = False
+    tile_kernel: Optional[Callable[..., torch.Tensor]] = None
 
     @property
     def fusable(self) -> bool:
@@ -64,13 +202,42 @@ class Measure:
         return vals
 
 
-PEARSON = Measure("pearson", pcc.transform, None, (-1.0, 1.0))
+PEARSON = Measure("pearson", pcc.transform, None, (-1.0, 1.0),
+                  permute_gather=True)
+SPEARMAN = Measure("spearman", spearman_transform, None, (-1.0, 1.0),
+                   permute_gather=True)
+COSINE = Measure("cosine", l2_normalize_rows, None, (-1.0, 1.0),
+                 permute_gather=True)
+COVARIANCE = Measure("covariance", center_rows, _cov_epilogue, None,
+                     epilogue_div=_cov_div, permute_gather=True)
+KENDALL = Measure("kendall", pair_sign_transform, _kendall_epilogue,
+                  (-1.0, 1.0), epilogue_div=_kendall_div, exact_int8=True)
+KENDALL_B = Measure("kendall_tau_b", pair_sign_tie_scaled_transform, None,
+                    (-1.0, 1.0))
+DOT = Measure("dot", identity_transform, None, None, permute_gather=True)
+# Distinct objects that pin the sign-GEMM path at any l: the merge
+# substitution is by identity (`meas is KENDALL`), so these never switch.
+KENDALL_SIGN = dataclasses.replace(KENDALL, name="kendall_sign_gemm")
+KENDALL_B_SIGN = dataclasses.replace(KENDALL_B,
+                                     name="kendall_tau_b_sign_gemm")
 
-_REGISTRY = {"pearson": PEARSON, "pcc": PEARSON}
-_LATER = ("spearman", "cosine", "covariance", "cov", "kendall",
-          "kendall_tau_a", "kendall_tau_b", "kendall_b", "kendall_merge",
-          "kendall_tau_b_merge", "kendall_sign_gemm",
-          "kendall_tau_b_sign_gemm", "dot")
+_REGISTRY: Dict[str, Measure] = {
+    "pearson": PEARSON,
+    "pcc": PEARSON,
+    "spearman": SPEARMAN,
+    "cosine": COSINE,
+    "covariance": COVARIANCE,
+    "cov": COVARIANCE,
+    "kendall": KENDALL,
+    "kendall_tau_a": KENDALL,
+    "kendall_tau_b": KENDALL_B,
+    "kendall_b": KENDALL_B,
+    "kendall_sign_gemm": KENDALL_SIGN,
+    "kendall_tau_b_sign_gemm": KENDALL_B_SIGN,
+    "dot": DOT,
+}
+# reference measures whose tile kernel is not ported yet
+_MERGE_NAMES = ("kendall_merge", "kendall_tau_b_merge")
 
 MeasureLike = Union[str, Measure]
 
@@ -79,13 +246,24 @@ def get(measure: MeasureLike) -> Measure:
     """Resolve a measure name (or pass a Measure through)."""
     if isinstance(measure, Measure):
         return measure
-    if measure in _REGISTRY:
+    if measure in _MERGE_NAMES:
+        raise NotImplementedError(f"measure {measure!r}: {_MERGE_SLICE}")
+    try:
         return _REGISTRY[measure]
-    if measure in _LATER:
-        raise NotImplementedError(
-            f"measure {measure!r} is not ported yet (ROADMAP slice 3); "
-            f"this slice carries 'pearson'")
-    raise ValueError(f"unknown measure {measure!r}; available: ('pearson',)")
+    except KeyError:
+        raise ValueError(
+            f"unknown measure {measure!r}; available: {available()}") from None
+
+
+def register(measure: Measure, *aliases: str) -> Measure:
+    """Register a user-defined measure (and optional aliases)."""
+    for key in (measure.name, *aliases):
+        _REGISTRY[key] = measure
+    return measure
+
+
+def available() -> Tuple[str, ...]:
+    return tuple(sorted(set(m.name for m in _REGISTRY.values())))
 
 
 def resolve_fusion(meas: Measure, fuse_epilogue: bool, l: int, *,
@@ -100,4 +278,58 @@ def resolve_fusion(meas: Measure, fuse_epilogue: bool, l: int, *,
     return spec, fused
 
 
-__all__ = ["Measure", "MeasureLike", "PEARSON", "get", "resolve_fusion"]
+def resolve_tile_kernel(meas: Measure, *, l: int, compute_dtype=None,
+                        replicas: int = 0) -> Measure:
+    """The reference's Kendall auto-dispatch, at plan creation.
+
+    At l >= KENDALL_MERGE_CROSSOVER_L, with no compute_dtype and no replica
+    axis, the reference substitutes the canonical KENDALL / KENDALL_B (by
+    identity) with its merge-sort variants.  That kernel is slice 7, so the
+    port raises there; every other measure passes through.
+    """
+    if compute_dtype is not None or replicas:
+        return meas
+    if l < KENDALL_MERGE_CROSSOVER_L:
+        return meas
+    if meas is KENDALL or meas is KENDALL_B:
+        raise NotImplementedError(
+            f"measure {meas.name!r} at l={l} >= {KENDALL_MERGE_CROSSOVER_L} "
+            f"takes the reference's merge-sort path; {_MERGE_SLICE} (pass "
+            f"compute_dtype='int8' or measure='kendall_sign_gemm' for the "
+            f"sign-GEMM)")
+    return meas
+
+
+# -- dense references (oracles) -------------------------------------------------
+
+
+def dense_reference(x: torch.Tensor, measure: MeasureLike = "pearson", *,
+                    clip: bool = True) -> torch.Tensor:
+    """Full (n, n) similarity via dense U U^T: the oracle of the tiled
+    paths for any measure."""
+    return dense_reference_pair(x, x, measure, clip=clip)
+
+
+def dense_reference_pair(x: torch.Tensor, y: torch.Tensor,
+                         measure: MeasureLike = "pearson", *,
+                         clip: bool = True) -> torch.Tensor:
+    """Rectangular (n_rows, n_cols) cross-similarity via dense U V^T; the
+    row transforms are per-row maps, so x and y transform independently."""
+    meas = get(measure)
+    l = x.shape[1]
+    if y.shape[1] != l:
+        raise ValueError(f"sample counts differ: x has l={l}, y has "
+                         f"l={y.shape[1]}")
+    u = meas.transform(x, dtype=_acc_dtype(x))
+    v = u if y is x else meas.transform(y, dtype=_acc_dtype(y))
+    return meas.finalize(u @ v.T, l, clip=clip)
+
+
+__all__ = ["Measure", "MeasureLike", "PEARSON", "SPEARMAN", "COSINE",
+           "COVARIANCE", "KENDALL", "KENDALL_B", "DOT", "KENDALL_SIGN",
+           "KENDALL_B_SIGN", "KENDALL_MERGE_CROSSOVER_L", "get", "register",
+           "available", "resolve_fusion", "resolve_tile_kernel",
+           "rank_rows", "spearman_transform", "l2_normalize_rows",
+           "center_rows", "pair_sign_transform",
+           "pair_sign_tie_scaled_transform", "identity_transform",
+           "dense_reference", "dense_reference_pair"]

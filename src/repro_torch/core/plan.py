@@ -1,10 +1,11 @@
 """ExecutionPlan: every static decision of an all-pairs run, computed once.
 
 Port of ``repro/core/plan.py`` for one device: measure resolution, epilogue
-fusion, padding, the workload (the symmetric triangle, or the rectangular
-X-vs-Y grid when ``create`` is given ``n_cols``) and the pass split (paper
-Alg. 2, C4) are decided here, host-side in exact ints; the executor
-(core/allpairs.py) and the sinks (core/sinks.py) consume the plan.
+fusion, the stored operand type (``compute_dtype``), padding, the workload
+(the symmetric triangle, or the rectangular X-vs-Y grid when ``create`` is
+given ``n_cols``) and the pass split (paper Alg. 2, C4) are decided here,
+host-side in exact ints; the executor (core/allpairs.py) and the sinks
+(core/sinks.py) consume the plan.
 
 The defaults t = 256 and l_blk = 512 are the reference's, so tile ids,
 launch sizes and :meth:`ExecutionPlan.spec_dict` match its plans key for
@@ -14,6 +15,7 @@ key.  The CUDA kernel chooses its own CTA block inside a tile.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import mapping, measures, tiling
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
-                                          EpilogueSpec)
+                                          EpilogueSpec, dtype_name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,7 @@ class ExecutionPlan:
     max_tiles_per_pass: int              # pass bound (C4)
     workload: Union[mapping.TriangularWorkload, mapping.GridWorkload]
     tile_c: Optional[tiling.TilePlan] = None  # column operand (rectangular)
+    compute_dtype: Optional[torch.dtype] = None  # stored operand type
 
     @property
     def n(self) -> int:
@@ -73,6 +76,14 @@ class ExecutionPlan:
     def col_pad(self) -> int:
         return (self.tile if self.tile_c is None else self.tile_c).n_pad
 
+    @functools.cached_property
+    def l_pad(self) -> int:
+        """Width of the prepared operands: the transform's output width
+        (l, or Kendall's C(l, 2) sample pairs) padded to l_blk."""
+        width = self.measure.transform(
+            torch.zeros((1, self.l)), dtype=torch.float32).shape[1]
+        return -(-width // self.l_blk) * self.l_blk
+
     @property
     def symmetric_problem(self) -> bool:
         """Whether row i and column i of the output are the same variable
@@ -89,14 +100,24 @@ class ExecutionPlan:
                measure: measures.MeasureLike = "pearson",
                max_tiles_per_pass: Optional[int] = None,
                clip: bool = True,
-               fuse_epilogue: bool = True) -> "ExecutionPlan":
-        """Resolve measure, fusion, padding and the pass split.
+               fuse_epilogue: bool = True,
+               compute_dtype=None) -> "ExecutionPlan":
+        """Resolve measure, fusion, operand type, padding and the pass split.
 
         n_cols selects the rectangular workload: jobs cover the whole
         ceil(n/t) x ceil(n_cols/t) tile grid of an X-vs-Y product, and the
         executor takes a second operand holding the n_cols variables.
+        compute_dtype narrows the stored operands after the float32
+        transform: torch.bfloat16 / "bfloat16" for any measure, torch.int8 /
+        "int8" for exact_int8 measures (Kendall's pair signs).
         """
         meas = measures.get(measure)
+        cd = resolve_compute_dtype(meas, compute_dtype)
+        meas = measures.resolve_tile_kernel(meas, l=l, compute_dtype=cd)
+        if meas.tile_kernel is not None:
+            raise NotImplementedError(
+                f"measure {meas.name!r} has a custom tile kernel; custom "
+                f"tile kernels come with ROADMAP slice 7")
         tile = tiling.TilePlan.create(n, l, t)
         tile_c = (None if n_cols is None
                   else tiling.TilePlan.create(n_cols, l, t))
@@ -113,14 +134,19 @@ class ExecutionPlan:
         mtp = min(per_dev, max_tiles_per_pass or per_dev)
         return cls(measure=meas, tile=tile, l_blk=l_blk, clip=clip,
                    fused=fused, epilogue_spec=spec, per_dev=per_dev,
-                   max_tiles_per_pass=mtp, workload=workload, tile_c=tile_c)
+                   max_tiles_per_pass=mtp, workload=workload, tile_c=tile_c,
+                   compute_dtype=cd)
 
     def _prepare_one(self, x: torch.Tensor) -> torch.Tensor:
         u = self.measure.transform(x, dtype=torch.float32)
+        if self.compute_dtype is not None:
+            u = u.to(self.compute_dtype)
         return pad_operands(u, self.t, self.l_blk)
 
     def prepare(self, x: torch.Tensor) -> torch.Tensor:
-        """Row-transform x at >= float32 and zero-pad to kernel alignment."""
+        """Row-transform x at >= float32, narrow to the compute dtype (the
+        stored operand only; the kernel accumulates in float32, or int32
+        for int8) and zero-pad to kernel alignment."""
         if tuple(x.shape) != (self.n, self.l):
             raise ValueError(f"x shape {tuple(x.shape)} does not match plan "
                              f"(n={self.n}, l={self.l})")
@@ -158,8 +184,7 @@ class ExecutionPlan:
     def spec_dict(self) -> dict:
         """JSON-serialisable identity of this plan, key for key the
         reference's ``ExecutionPlan.spec_dict()``; the fields of modes
-        later slices bring hold their single-device, plain-operand
-        values."""
+        later slices bring hold their single-device values."""
         return {
             "n_rows": self.n_rows, "n_cols": self.n_cols, "l": self.l,
             "t": self.t, "l_blk": self.l_blk,
@@ -167,7 +192,8 @@ class ExecutionPlan:
             "tile_kernel": None,
             "workload": type(self.workload).__name__,
             "symmetric_grid": False,
-            "compute_dtype": None,
+            "compute_dtype": (None if self.compute_dtype is None
+                              else dtype_name(self.compute_dtype)),
             "clip": self.clip, "fused": self.fused,
             "p": 1, "max_tiles_per_pass": self.max_tiles_per_pass,
             "total_tiles": self.total_tiles, "n_pass": self.n_pass,
@@ -177,6 +203,41 @@ class ExecutionPlan:
     def spec_key(self) -> tuple:
         """Hashable form of :meth:`spec_dict`."""
         return tuple(sorted(self.spec_dict().items()))
+
+
+# compute dtypes the port stores operands in, by the reference's names
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+_INT_NAMES = ("int8", "int16", "int32", "int64", "uint8", "uint16",
+              "uint32", "uint64")
+
+
+def resolve_compute_dtype(meas: measures.Measure,
+                          compute_dtype) -> Optional[torch.dtype]:
+    """The stored operand type of (meas, compute_dtype), or None for the
+    transform's float32.
+
+    Where the reference would quantize with per-row absmax scales (its
+    ``needs_row_scales``: every fp8 dtype, and integer dtypes on measures
+    that are not exact_int8) the port raises NotImplementedError naming
+    ROADMAP slice 6; it never narrows without the scales instead.
+    """
+    if compute_dtype is None:
+        return None
+    name = dtype_name(compute_dtype)
+    if name.startswith("float8"):
+        raise NotImplementedError(
+            f"compute_dtype={name}: fp8 operands are absmax-quantized with "
+            f"per-row scales in the reference; ROADMAP slice 6")
+    if name in _INT_NAMES and not meas.exact_int8:
+        raise NotImplementedError(
+            f"compute_dtype={name} on measure {meas.name!r}, whose transform "
+            f"is not integer-valued, takes the reference's absmax-quantized "
+            f"path; ROADMAP slice 6")
+    if name not in _COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={name} is not ported; the port narrows operands "
+            f"to {tuple(_COMPUTE_DTYPES)} only (None keeps float32)")
+    return _COMPUTE_DTYPES[name]
 
 
 def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
@@ -190,4 +251,4 @@ def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
     return F.pad(u, (0, l_pad - l, 0, n_pad - n))
 
 
-__all__ = ["ExecutionPlan", "pad_operands"]
+__all__ = ["ExecutionPlan", "pad_operands", "resolve_compute_dtype"]

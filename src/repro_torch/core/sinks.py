@@ -278,8 +278,9 @@ class DeviceTopKSink(TopKSink):
     @staticmethod
     def supports(plan: ExecutionPlan) -> bool:
         """Whether this plan can take the device-side top-k path (the
-        predicate ``open()`` enforces).  The port has no quantized operands
-        yet, so no scale check is needed."""
+        predicate ``open()`` enforces).  Any stored operand type the plan
+        takes (float32, bfloat16, int8) can; the reference's scaled
+        (quantized) operands are not ported, so no scale check is needed."""
         return (plan.fused and getattr(plan.measure, "tile_kernel", None)
                 is None and not getattr(plan, "replicas", 0))
 

@@ -31,22 +31,24 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the EpilogueSpec arguments: has_div, recip, has_clip, lo, hi
 _EPI = [_I, _F, _I, _F, _F]
+# operand dtype suffixes of the entry points (kernels/pcc_tile.py
+# OPERAND_DTYPES): float32, bfloat16, int8
+_SUFFIXES = ("f32", "bf16", "i8")
+# (u, v, out, j_start, pass_tiles, m, grid_cols, t, l_pad, *epilogue,
+#  stream) -> cudaError_t
+_TILES = (_I, [_P, _P, _P, _LL, _I, _I, _I, _I, _I, *_EPI, _P])
+# (u, v, prv, prc, pcv, pcc, j_start, dev_hi, pass_tiles, m, grid_cols, t,
+#  l_pad, kk, n_cols_valid, symmetric, *epilogue, stream) -> cudaError_t
+_SELECT = (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                _I, _I, *_EPI, _P])
 # source name -> {C function: (restype, argtypes)}
 SIGNATURES = {
     "pcc_tile": {
-        # (u, v, out, j_start, pass_tiles, m, grid_cols, t, l_pad,
-        #  *epilogue, stream) -> cudaError_t
-        "pcc_tiles_f32": (_I, [_P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                               *_EPI, _P]),
+        **{f"pcc_tiles_{s}": _TILES for s in _SUFFIXES},
         "pcc_tile_error_string": (ctypes.c_char_p, [_I]),
     },
     "pcc_topk": {
-        # (u, v, prv, prc, pcv, pcc, j_start, dev_hi, pass_tiles, m,
-        #  grid_cols, t, l_pad, kk, n_cols_valid, symmetric, *epilogue,
-        #  stream) -> cudaError_t
-        "pcc_topk_select_f32": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I,
-                                     _I, _I, _I, _I, _I, _I, _I, *_EPI,
-                                     _P]),
+        **{f"pcc_topk_select_{s}": _SELECT for s in _SUFFIXES},
         # (prv, prc, pcv, pcc, rv, rc, cv, cc, j_start, hi_eff, m,
         #  grid_cols, t, kk, stream) -> cudaError_t
         "pcc_topk_merge": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,

@@ -19,12 +19,28 @@
 // registers before the current chunk's FMAs (register double buffering).
 // Rows past the tile's edge (t not a multiple of 64) and samples past l_pad
 // read as zero.
+//
+// One routine per operand type, shared by both kernels:
+//   float          the fmaf chain above;
+//   __nv_bfloat16  widened to float at the global -> register fetch, then
+//                  the same Stage and fmaf chain: a bf16 x bf16 product is
+//                  exact in float32, so a bf16 block is bitwise the float
+//                  block of the widened operands;
+//   int8_t         packed 4 samples to a 32-bit word (BK words = 64 samples
+//                  per chunk, the same Stage reinterpreted as int), summed
+//                  with __dp4a into int32, converted to float once at the
+//                  end.  Integer sums are exact in any order (the wrapper
+//                  keeps l_pad * 128^2 below 2^31), and the conversion
+//                  equals the reference's per-block float32 sums whenever
+//                  |partial sums| < 2^24 (always, for Kendall pair signs).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace pcc {
 
@@ -34,10 +50,14 @@ constexpr int TM = 4;           // outputs per thread along each axis
 constexpr int THREADS = (BM / TM) * (BM / TM);   // 256
 constexpr int LOADS = BM * BK / THREADS;         // 4 elements per operand
 constexpr int PAD = 4;          // keeps rows 16-byte aligned, cuts conflicts
+constexpr int KPW = 4;          // int8 samples packed into one 32-bit word
 
+// One chunk of both operands, k-major: float samples, or packed int8 words.
 struct Stage {
-  float a[BK][BM + PAD];
-  float b[BK][BM + PAD];
+  union Plane {
+    float f[BK][BM + PAD];
+    int i[BK][BM + PAD];
+  } a, b;
 };
 
 __device__ __forceinline__ long long tri_before(long long m, long long y) {
@@ -76,19 +96,26 @@ __device__ __forceinline__ void tile_coord(int m, int grid_cols, long long jt,
   }
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // acc = the (64, 64) block a_base[0:64] . b_base[0:64]^T over l_pad samples,
 // rows a_rows.. and b_rows.. of the block reading as zero.  Thread (ty, tx)
-// holds rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.
+// holds rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.  T is float or
+// __nv_bfloat16 (int8_t has its own overload below).
+template <typename T>
 __device__ __forceinline__ void accumulate_block(
-    const float* __restrict__ a_base, const float* __restrict__ b_base,
-    int a_rows, int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {
+    const T* __restrict__ a_base, const T* __restrict__ b_base, int a_rows,
+    int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {
   const int tid = threadIdx.x;
   const int tx = tid % (BM / TM);
   const int ty = tid / (BM / TM);
 
   // Global -> register staging: element e of this thread is row idx / BK,
-  // sample idx % BK of the chunk, so 16 neighbouring threads read 64
-  // contiguous bytes of one row.
+  // sample idx % BK of the chunk, so 16 neighbouring threads read 16
+  // contiguous elements of one row.
   float a_ld[LOADS], b_ld[LOADS];
   auto fetch = [&](int k0) {
 #pragma unroll
@@ -97,8 +124,10 @@ __device__ __forceinline__ void accumulate_block(
       const int row = idx / BK;
       const int k = k0 + idx % BK;
       const bool kin = k < l_pad;
-      a_ld[e] = (kin && row < a_rows) ? a_base[(size_t)row * l_pad + k] : 0.f;
-      b_ld[e] = (kin && row < b_rows) ? b_base[(size_t)row * l_pad + k] : 0.f;
+      a_ld[e] = (kin && row < a_rows) ? widen(a_base[(size_t)row * l_pad + k])
+                                      : 0.f;
+      b_ld[e] = (kin && row < b_rows) ? widen(b_base[(size_t)row * l_pad + k])
+                                      : 0.f;
     }
   };
 
@@ -112,15 +141,15 @@ __device__ __forceinline__ void accumulate_block(
 #pragma unroll
     for (int e = 0; e < LOADS; ++e) {
       const int idx = tid + e * THREADS;
-      st.a[idx % BK][idx / BK] = a_ld[e];
-      st.b[idx % BK][idx / BK] = b_ld[e];
+      st.a.f[idx % BK][idx / BK] = a_ld[e];
+      st.b.f[idx % BK][idx / BK] = b_ld[e];
     }
     __syncthreads();
     if (k0 + BK < l_pad) fetch(k0 + BK);
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&st.a[k][ty * TM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&st.b[k][tx * TM]);
+      const float4 av = *reinterpret_cast<const float4*>(&st.a.f[k][ty * TM]);
+      const float4 bv = *reinterpret_cast<const float4*>(&st.b.f[k][tx * TM]);
       const float a[TM] = {av.x, av.y, av.z, av.w};
       const float b[TM] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
@@ -130,6 +159,85 @@ __device__ __forceinline__ void accumulate_block(
     }
     __syncthreads();
   }
+}
+
+// Samples k .. k+3 of an int8 row as one word, byte j = sample k + j (the
+// order __dp4a pairs bytes in); samples past l_pad read as zero.  `vec`:
+// the row and l_pad are 4-byte aligned, so k < l_pad implies the whole word
+// is inside the row and one 32-bit load reads it.
+__device__ __forceinline__ int load_word(const int8_t* __restrict__ row,
+                                         int k, int l_pad, bool vec) {
+  if (vec) return k < l_pad ? *reinterpret_cast<const int*>(row + k) : 0;
+  unsigned w = 0;
+#pragma unroll
+  for (int j = 0; j < KPW; ++j)
+    if (k + j < l_pad) w |= (unsigned)(uint8_t)row[k + j] << (8 * j);
+  return (int)w;
+}
+
+// The int8 block: chunks of BK words (BK * KPW = 64 samples), one __dp4a
+// per (row, column, word) into int32, converted to float once.
+__device__ __forceinline__ void accumulate_block(
+    const int8_t* __restrict__ a_base, const int8_t* __restrict__ b_base,
+    int a_rows, int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % (BM / TM);
+  const int ty = tid / (BM / TM);
+  const bool vec = ((reinterpret_cast<uintptr_t>(a_base) |
+                     reinterpret_cast<uintptr_t>(b_base) |
+                     (uintptr_t)l_pad) & 3) == 0;
+
+  // element e of this thread is row idx / BK, word idx % BK of the chunk:
+  // 16 neighbouring threads read 64 contiguous bytes of one row
+  int a_ld[LOADS], b_ld[LOADS];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < LOADS; ++e) {
+      const int idx = tid + e * THREADS;
+      const int row = idx / BK;
+      const int k = k0 + (idx % BK) * KPW;
+      a_ld[e] = row < a_rows
+                    ? load_word(a_base + (size_t)row * l_pad, k, l_pad, vec)
+                    : 0;
+      b_ld[e] = row < b_rows
+                    ? load_word(b_base + (size_t)row * l_pad, k, l_pad, vec)
+                    : 0;
+    }
+  };
+
+  int iacc[TM][TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) iacc[i][j] = 0;
+
+  fetch(0);
+  for (int k0 = 0; k0 < l_pad; k0 += BK * KPW) {
+#pragma unroll
+    for (int e = 0; e < LOADS; ++e) {
+      const int idx = tid + e * THREADS;
+      st.a.i[idx % BK][idx / BK] = a_ld[e];
+      st.b.i[idx % BK][idx / BK] = b_ld[e];
+    }
+    __syncthreads();
+    if (k0 + BK * KPW < l_pad) fetch(k0 + BK * KPW);
+#pragma unroll
+    for (int w = 0; w < BK; ++w) {
+      const int4 av = *reinterpret_cast<const int4*>(&st.a.i[w][ty * TM]);
+      const int4 bv = *reinterpret_cast<const int4*>(&st.b.i[w][tx * TM]);
+      const int a[TM] = {av.x, av.y, av.z, av.w};
+      const int b[TM] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j) iacc[i][j] = __dp4a(a[i], b[j], iacc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) acc[i][j] = __int2float_rn(iacc[i][j]);
 }
 
 // EpilogueSpec.apply: v * recip, then clip; the clip keeps NaN like

@@ -1,8 +1,10 @@
 // All-pairs correlation tiles for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_tiles (body
-// _kernel) in its float32, unscaled mode with the fused EpilogueSpec, for
-// both tile-id families:
+// _kernel) in its unscaled mode with the fused EpilogueSpec, with float32,
+// bfloat16 or int8 operands (entry points pcc_tiles_f32 / _bf16 / _i8; the
+// int8 and bf16 operand modes of _kernel, pcc_tile.py:136-149), for both
+// tile-id families:
 //   * the triangle (index maps _row_map/_col_map, grid_cols == 0): tiles of
 //     U U^T over the upper triangle of the m x m tile grid (paper Eq. 9);
 //   * the rectangular grid (_grid_row_map/_grid_col_map, grid_cols > 0):
@@ -10,14 +12,21 @@
 //     columns from the second operand V (the X-vs-Y workload).
 // Output slot i of a launch holds tile jt = min(j_start + i, total - 1);
 // U = u_pad (n_pad, l_pad) and V = v_pad (grid_cols * t, l_pad) are
-// row-major float32 (V is U on the triangle).
+// row-major, both of one operand type (V is U on the triangle); the output
+// is float32.
 //
-// What bounds it: the work is IEEE float32 FMA.  Hopper's tensor cores have
-// no IEEE-f32 mode (TF32 keeps 10 mantissa bits), so the kernel runs on the
-// SIMT FP32 pipes, 67 TFLOP/s on an H100 SXM at 700 W.  At the paper's
-// Table II shape (n = 17,555, l = 5,072, t = 256: 2,415 tiles) one pass is
-// 2 * 5,072 * 256^2 * 2,415 = 1.61e12 FLOP, so >= 24 ms, against ~1 GB of
-// operand plus tile bytes (~0.3 ms at 3.35 TB/s): compute-bound by ~80x.
+// What bounds it: the float32 work is IEEE float32 FMA.  Hopper's tensor
+// cores have no IEEE-f32 mode (TF32 keeps 10 mantissa bits), so the kernel
+// runs on the SIMT FP32 pipes, 67 TFLOP/s on an H100 SXM at 700 W.  At the
+// paper's Table II shape (n = 17,555, l = 5,072, t = 256: 2,415 tiles) one
+// pass is 2 * 5,072 * 256^2 * 2,415 = 1.61e12 FLOP, so >= 24 ms, against
+// ~1 GB of operand plus tile bytes (~0.3 ms at 3.35 TB/s): compute-bound by
+// ~80x.  bf16 operands take the same SIMT FMA chain (widened at the load, so
+// a bf16 tile is bitwise the f32 tile of the widened operand); their bound
+// is the bf16 tensor-core peak (989 TFLOP/s, ~1.6 ms at Table II), which
+// this kernel does not reach: a tensor-core (wgmma) redesign is later work.
+// int8 operands take __dp4a (4 products per instruction) into int32; their
+// bound is the int8 tensor-core peak (1,979 TOP/s).
 //
 // Design: a register-blocked SIMT SGEMM (pcc_accum.cuh, shared with the
 // top-k kernel).  Each CTA of 256 threads computes a 64 x 64 block of one
@@ -35,11 +44,12 @@ namespace {
 
 using namespace pcc;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-pcc_tiles_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                     float* __restrict__ out, long long j_start, int m,
-                     int grid_cols, int t, int l_pad, int nb, int has_div,
-                     float recip, int has_clip, float lo, float hi) {
+pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                 float* __restrict__ out, long long j_start, int m,
+                 int grid_cols, int t, int l_pad, int nb, int has_div,
+                 float recip, int has_clip, float lo, float hi) {
   __shared__ __align__(16) Stage st;
 
   long long jt = j_start + (long long)blockIdx.x;
@@ -72,25 +82,38 @@ pcc_tiles_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-}  // namespace
-
-// grid_cols == 0 selects the triangle (v must then be u).
-extern "C" int pcc_tiles_f32(const float* u, const float* v, float* out,
-                             long long j_start, int pass_tiles, int m,
-                             int grid_cols, int t, int l_pad, int has_div,
-                             float recip, int has_clip, float lo, float hi,
-                             void* stream) {
+template <typename T>
+int launch(const T* u, const T* v, float* out, long long j_start,
+           int pass_tiles, int m, int grid_cols, int t, int l_pad,
+           int has_div, float recip, int has_clip, float lo, float hi,
+           void* stream) {
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
       j_start < 0)
     return (int)cudaErrorInvalidValue;
   const int nb = (t + BM - 1) / BM;
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb));
-  pcc_tiles_f32_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  pcc_tiles_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       u, v, out, j_start, m, grid_cols, t, l_pad, nb, has_div, recip,
       has_clip, lo, hi);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// grid_cols == 0 selects the triangle (v must then be u).
+#define PCC_TILES_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const T* u, const T* v, float* out, long long j_start, \
+                      int pass_tiles, int m, int grid_cols, int t, int l_pad, \
+                      int has_div, float recip, int has_clip, float lo,       \
+                      float hi, void* stream) {                               \
+    return launch<T>(u, v, out, j_start, pass_tiles, m, grid_cols, t, l_pad,  \
+                     has_div, recip, has_clip, lo, hi, stream);               \
+  }
+
+PCC_TILES_ENTRY(pcc_tiles_f32, float)
+PCC_TILES_ENTRY(pcc_tiles_bf16, __nv_bfloat16)
+PCC_TILES_ENTRY(pcc_tiles_i8, int8_t)
 
 extern "C" const char* pcc_tile_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

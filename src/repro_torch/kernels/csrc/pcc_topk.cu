@@ -1,8 +1,10 @@
 // Per-row top-k of all-pairs correlation tiles for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_topk_tiles
-// (bodies _topk_kernel and _topk_select) in its float32 mode, triangle and
-// rectangular grid.  A launch covers the tiles jt = min(j_start + i,
+// (bodies _topk_kernel and _topk_select) with float32, bfloat16 or int8
+// operands (select entry points pcc_topk_select_f32 / _bf16 / _i8; the
+// narrow-operand accumulation of _topk_kernel, pcc_tile.py:550-559),
+// triangle and rectangular grid.  A launch covers the tiles jt = min(j_start + i,
 // total - 1), i < pass_tiles, of which only slots with j_start + i < dev_hi
 // count.  Each finished (t, t) tile is folded into per-row top-kk state
 // under the canonical order (|v| descending, then column ascending) without
@@ -35,8 +37,10 @@
 // The canonical order is total over a row's unique columns, so any merge
 // order gives the reference's set and order.
 //
-// What bounds it: the same IEEE float32 FMA work as pcc_tiles (2 l t^2 per
-// tile; 1.61e12 FLOP, >= 24 ms at 67 TFLOP/s, for the Table II pass).  The
+// What bounds it: the same work as pcc_tiles (2 l t^2 per tile; in float32
+// 1.61e12 FLOP, >= 24 ms at 67 TFLOP/s, for the Table II pass; bf16 and int8
+// operands are bound by the tensor-core peaks, which this SIMT kernel does
+// not use).  The merge kernel reads float32 values whatever the operands.  The
 // selection adds O(64) comparisons per candidate in the CTA (about 2 x 64^3
 // per 64 x 64 block against 2 x 64^2 x l_pad FLOP) and the merge reads the
 // scratch once (~0.4 GB at Table II, ~0.12 ms at 3.35 TB/s).
@@ -52,9 +56,10 @@ constexpr int KK_MAX = 256;       // state capacity cap (the wrapper checks)
 constexpr int MERGE_WARPS = 8;    // output rows per merge CTA
 
 // Select: one CTA per 64 x 64 block of each valid tile.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-pcc_topk_select_kernel(const float* __restrict__ u,
-                       const float* __restrict__ v, float* __restrict__ prv,
+pcc_topk_select_kernel(const T* __restrict__ u,
+                       const T* __restrict__ v, float* __restrict__ prv,
                        int* __restrict__ prc, float* __restrict__ pcv,
                        int* __restrict__ pcc_, long long j_start,
                        long long dev_hi, int m, int grid_cols, int t,
@@ -303,17 +308,13 @@ pcc_topk_merge_kernel(const float* __restrict__ prv,
   }
 }
 
-}  // namespace
-
-// Kernel 1.  pcv/pcc are unused (may be null) on the grid.
-extern "C" int pcc_topk_select_f32(const float* u, const float* v, float* prv,
-                                   int* prc, float* pcv, int* pcc_,
-                                   long long j_start, long long dev_hi,
-                                   int pass_tiles, int m, int grid_cols,
-                                   int t, int l_pad, int kk,
-                                   int n_cols_valid, int symmetric,
-                                   int has_div, float recip, int has_clip,
-                                   float lo, float hi, void* stream) {
+template <typename T>
+int launch_select(const T* u, const T* v, float* prv, int* prc, float* pcv,
+                  int* pcc_, long long j_start, long long dev_hi,
+                  int pass_tiles, int m, int grid_cols, int t, int l_pad,
+                  int kk, int n_cols_valid, int symmetric, int has_div,
+                  float recip, int has_clip, float lo, float hi,
+                  void* stream) {
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
       j_start < 0 || kk <= 0 || kk > KK_MAX)
     return (int)cudaErrorInvalidValue;
@@ -321,11 +322,32 @@ extern "C" int pcc_topk_select_f32(const float* u, const float* v, float* prv,
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
   const int kc = kk < KC_MAX ? kk : KC_MAX;
   const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb));
-  pcc_topk_select_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  pcc_topk_select_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       u, v, prv, prc, pcv, pcc_, j_start, dev_hi, m, grid_cols, t, l_pad, nb,
       kc, n_cols_valid, symmetric, has_div, recip, has_clip, lo, hi);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Kernel 1, one entry point per operand type.  pcv/pcc are unused (may be
+// null) on the grid.
+#define PCC_TOPK_SELECT_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(const T* u, const T* v, float* prv, int* prc,          \
+                      float* pcv, int* pcc_, long long j_start,               \
+                      long long dev_hi, int pass_tiles, int m, int grid_cols, \
+                      int t, int l_pad, int kk, int n_cols_valid,             \
+                      int symmetric, int has_div, float recip, int has_clip,  \
+                      float lo, float hi, void* stream) {                     \
+    return launch_select<T>(u, v, prv, prc, pcv, pcc_, j_start, dev_hi,       \
+                            pass_tiles, m, grid_cols, t, l_pad, kk,           \
+                            n_cols_valid, symmetric, has_div, recip,          \
+                            has_clip, lo, hi, stream);                        \
+  }
+
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_f32, float)
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_bf16, __nv_bfloat16)
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_i8, int8_t)
 
 // Kernel 2.  hi_eff = min(j_start + pass_tiles, dev_hi); cv/cc (and
 // pcv/pcc) are unused on the grid.

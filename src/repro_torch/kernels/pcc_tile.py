@@ -1,7 +1,12 @@
 """All-pairs correlation tiles and their per-row top-k: wrappers and plain
 versions.
 
-Port of ``repro/kernels/pcc_tile.py`` in its float32, fused-epilogue modes:
+Port of ``repro/kernels/pcc_tile.py`` in its unscaled, fused-epilogue
+modes, with float32, bfloat16 or int8 operands (both operands of one
+dtype).  bfloat16 operands widen to float32 as they are loaded and take the
+float32 arithmetic, so a bf16 tile is bitwise the float32 tile of the
+widened operand; int8 operands (Kendall's exact pair signs) accumulate in
+int32 and convert to float32 once before the epilogue:
 
 ``pcc_tiles`` (Pallas body ``_kernel``): ``pass_tiles`` consecutive (t, t)
 tiles from the runtime tile id ``j_start``.  On the triangle (``grid_cols``
@@ -42,6 +47,26 @@ DEFAULT_LBLK = 512
 # (csrc/pcc_accum.cuh BM, csrc/pcc_topk.cu KK_MAX).
 CTA_BLOCK = 64
 KK_MAX = 256
+# Operand dtypes the kernels take -> suffix of their C entry points.
+OPERAND_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.int8: "i8"}
+# int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
+INT8_MAX_L_PAD = (2**31 - 1) // 128**2
+
+
+def dtype_name(dtype) -> str:
+    """The numpy-style name ("float32", "bfloat16", "int8", ...) of a torch
+    dtype, a numpy dtype or a name."""
+    if isinstance(dtype, str):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(getattr(dtype, "name", dtype))
+
+
+def _dtype_counts() -> dict:
+    """A launch count per operand dtype, keyed by its name."""
+    return {dtype_name(d): 0 for d in OPERAND_DTYPES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +115,9 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
         raise ValueError("u_pad must be a 2-D torch tensor")
     if u_pad.device.type not in ("cuda", "cpu"):
         raise ValueError(f"u_pad on unsupported device {u_pad.device}")
-    if u_pad.dtype != torch.float32:
-        raise ValueError(f"u_pad must be float32, got {u_pad.dtype} "
-                         f"(narrower operands are a later slice)")
+    if u_pad.dtype not in OPERAND_DTYPES:
+        raise ValueError(f"u_pad must be float32, bfloat16 or int8, got "
+                         f"{u_pad.dtype}")
     if not u_pad.is_contiguous():
         raise ValueError("u_pad must be contiguous")
     n_pad, l_pad = u_pad.shape
@@ -104,6 +129,9 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
                          f"(remainder launches must be sized, not empty)")
     if j_start < 0:
         raise ValueError(f"j_start must be non-negative, got {j_start}")
+    if u_pad.dtype == torch.int8 and l_pad > INT8_MAX_L_PAD:
+        raise ValueError(f"int8 operands with l_pad={l_pad} > "
+                         f"{INT8_MAX_L_PAD} could overflow the int32 sums")
     m = n_pad // t
     if grid_cols is None:
         if v_pad is not None:
@@ -119,9 +147,10 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
     if not isinstance(v, torch.Tensor) or v.ndim != 2:
         raise ValueError("v_pad must be a 2-D torch tensor (replica stacks "
                          "are a later slice)")
-    if v.device != u_pad.device or v.dtype != torch.float32 or \
+    if v.device != u_pad.device or v.dtype != u_pad.dtype or \
             not v.is_contiguous():
-        raise ValueError(f"v_pad must be a contiguous float32 tensor on "
+        raise ValueError(f"v_pad must be a contiguous tensor of u_pad's dtype "
+                         f"({u_pad.dtype}; float32, bfloat16 or int8) on "
                          f"{u_pad.device}, got {v.dtype} on {v.device}")
     if grid_cols <= 0 or v.shape[-1] != l_pad or v.shape[-2] != grid_cols * t:
         raise ValueError(
@@ -149,14 +178,17 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
               grid_cols: Optional[int] = None) -> torch.Tensor:
     """Compute `pass_tiles` consecutive tiles from tile id `j_start`.
 
-    u_pad: (n_pad, l_pad) float32 transformed variables (Eq. 4), zero-padded
-           so n_pad % t == 0 and l_pad % l_blk == 0, contiguous.
+    u_pad: (n_pad, l_pad) transformed variables (Eq. 4), zero-padded so
+           n_pad % t == 0 and l_pad % l_blk == 0, contiguous; float32,
+           bfloat16, or int8 (integer-valued transforms, l_pad <=
+           INT8_MAX_L_PAD).
     epilogue: optional EpilogueSpec applied before the store.
     v_pad / grid_cols: grid_cols=None runs the triangle of U against itself;
            an int selects the rectangular grid, rows from U and columns from
            v_pad (grid_cols * t, l_pad), which the grid requires.
     Returns (pass_tiles, t, t) float32.  ``pcc_tiles.launches`` counts the
-    CUDA kernel's launches.
+    CUDA kernel's launches, ``pcc_tiles.launches_by_dtype`` per operand
+    dtype.
     """
     j_start = int(j_start)
     m, _, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad, grid_cols)
@@ -172,17 +204,20 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
                       device=u_pad.device)
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
-        err = lib.pcc_tiles_f32(
+        fn = getattr(lib, "pcc_tiles_" + OPERAND_DTYPES[u_pad.dtype])
+        err = fn(
             ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), j_start, pass_tiles, m,
             grid_cols or 0, t, u_pad.shape[1], *spec.kernel_args(),
             ctypes.c_void_p(stream))
     _launch_error(lib, err, "pcc_tiles", "pcc_tile")
     pcc_tiles.launches += 1
+    pcc_tiles.launches_by_dtype[dtype_name(u_pad.dtype)] += 1
     return out
 
 
 pcc_tiles.launches = 0
+pcc_tiles.launches_by_dtype = _dtype_counts()
 
 
 def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
@@ -199,6 +234,10 @@ def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
     epilogue runs.  On the card, callers set
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) so the
     products stay IEEE float32.
+
+    bfloat16 operands widen to float32 first.  int8 operands widen to
+    float64, where every integer sum up to 2^53 is exact in any order, and
+    round once to float32: bitwise the kernel's int32 sum converted.
     """
     j_start = int(j_start)
     m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
@@ -210,13 +249,15 @@ def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
     ys = torch.as_tensor(ys, device=dev)
     xs = torch.as_tensor(xs, device=dev)
     l_pad = u_pad.shape[1]
+    wide = torch.float64 if u_pad.dtype == torch.int8 else torch.float32
     u3 = u_pad.view(m, t, l_pad)
     v3 = v.view(v.shape[0] // t, t, l_pad)
-    acc = torch.zeros((pass_tiles, t, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((pass_tiles, t, t), dtype=wide, device=dev)
     for k0 in range(0, l_pad, l_blk):
-        rows = u3[ys, :, k0:k0 + l_blk]
-        cols = v3[xs, :, k0:k0 + l_blk]
+        rows = u3[ys, :, k0:k0 + l_blk].to(wide)
+        cols = v3[xs, :, k0:k0 + l_blk].to(wide)
         acc += torch.bmm(rows, cols.transpose(1, 2))
+    acc = acc.to(torch.float32)
     if epilogue is not None and not epilogue.is_identity():
         acc = epilogue.apply(acc)
     return acc
@@ -262,7 +303,9 @@ def pcc_topk_tiles(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
     Returns (row_vals, row_cols) on the grid, plus (col_vals, col_cols) on
     the triangle, each (m, t, kk) (values float32, columns int32; empty
     slots hold value 0 and column -1).  ``pcc_topk_tiles.launches`` counts
-    the launches of each of its two CUDA kernels.
+    the launches of each of its two CUDA kernels,
+    ``pcc_topk_tiles.select_by_dtype`` the select kernel's per operand
+    dtype (the merge kernel reads float32 values whatever the operands).
     """
     j_start, dev_hi = int(j_start), int(dev_hi)
     args = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, kk=kk,
@@ -280,6 +323,7 @@ def pcc_topk_tiles(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
 
 
 pcc_topk_tiles.launches = {"select": 0, "merge": 0}
+pcc_topk_tiles.select_by_dtype = _dtype_counts()
 
 
 def _ptrs(tensors, count: int):
@@ -315,13 +359,15 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
                     torch.empty(part, dtype=torch.int32, device=dev)]
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        err = lib.pcc_topk_select_f32(
+        fn = getattr(lib, "pcc_topk_select_" + OPERAND_DTYPES[u_pad.dtype])
+        err = fn(
             ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
             *_ptrs(scratch, 4), j_start, dev_hi, pass_tiles, m,
             grid_cols or 0, t, u_pad.shape[1], kk, n_cols_valid,
             int(symmetric_problem), *spec.kernel_args(), stream)
     _launch_error(lib, err, "pcc_topk_tiles (select)", "pcc_topk")
     pcc_topk_tiles.launches["select"] += 1
+    pcc_topk_tiles.select_by_dtype[dtype_name(u_pad.dtype)] += 1
     return tuple(scratch)
 
 
@@ -442,6 +488,7 @@ def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
 
 
 __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
+           "OPERAND_DTYPES", "INT8_MAX_L_PAD", "dtype_name",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
            "topk_fold_plain", "topk_scratch_bytes"]

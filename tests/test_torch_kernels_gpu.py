@@ -199,3 +199,135 @@ def test_device_topk_sink_bit_identical_to_topk_sink_on_card(cuda, n_cols):
     torch.testing.assert_close(r.cpu(), corr(x, y, t=32, l_blk=32,
                                               device="cpu"),
                                rtol=0, atol=ATOL)
+
+
+def _signs(n, width, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-1, 2, size=(n, width)).astype(
+        np.int8)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("n,l,t,l_blk,j_start,pass_tiles", [
+    (37, 29, 8, 8, 0, 15),
+    (37, 20, 8, 4, 13, 6),       # l_pad not a multiple of 8
+    (300, 300, 96, 64, 1, 5),
+    (600, 300, 256, 512, 2, 5),
+])
+def test_bf16_kernel_bitwise_equals_f32_kernel_on_widened(
+        cuda, grid, n, l, t, l_blk, j_start, pass_tiles):
+    u = _operand(n, l, t, l_blk, cuda).to(torch.bfloat16)
+    v = _operand(170, l, t, l_blk, cuda, seed=1).to(torch.bfloat16) \
+        if grid else None
+    gc = v.shape[0] // t if grid else None
+    spec = EpilogueSpec(clip=(-1.0, 1.0))
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
+              grid_cols=gc)
+    before = dict(pcc_tiles.launches_by_dtype)
+    got = pcc_tiles(u, j_start, v_pad=v, **kw)
+    want = pcc_tiles(u.float(), j_start,
+                     v_pad=None if v is None else v.float(), **kw)
+    torch.cuda.synchronize()
+    assert pcc_tiles.launches_by_dtype["bfloat16"] == before["bfloat16"] + 1
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, pcc_tiles_plain(u, j_start, v_pad=v,
+                                                    **kw), rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("n,width,t,l_blk,j_start,pass_tiles", [
+    (37, 28, 8, 4, 0, 15),
+    (37, 13, 8, 13, 13, 6),      # l_pad not a multiple of 4: byte loads
+    (300, 2016, 96, 64, 1, 5),
+    (600, 2016, 256, 512, 2, 5),
+])
+def test_int8_kernel_bitwise_equals_plain(cuda, grid, n, width, t, l_blk,
+                                          j_start, pass_tiles):
+    u = pad_operands(_signs(n, width, cuda), t, l_blk)
+    v = pad_operands(_signs(170, width, cuda, seed=1), t, l_blk) \
+        if grid else None
+    gc = v.shape[0] // t if grid else None
+    for spec in (None, EpilogueSpec(div=float(width), clip=(-1.0, 1.0))):
+        kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
+                  grid_cols=gc)
+        before = dict(pcc_tiles.launches_by_dtype)
+        got = pcc_tiles(u, j_start, v_pad=v, **kw)
+        want = pcc_tiles_plain(u, j_start, v_pad=v, **kw)
+        torch.cuda.synchronize()
+        assert pcc_tiles.launches_by_dtype["int8"] == before["int8"] + 1
+        assert torch.equal(got, want)
+    # full-range bytes: the int32 sums, converted once
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.integers(-128, 128, size=(64, 1024),
+                                      dtype=np.int8)).to(cuda)
+    assert torch.equal(pcc_tiles(w, 0, t=32, l_blk=64, pass_tiles=3),
+                       pcc_tiles_plain(w, 0, t=32, l_blk=64, pass_tiles=3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("grid", [False, True])
+def test_narrow_topk_values_are_pcc_tiles_bits(cuda, dtype, grid):
+    if dtype == "int8":
+        u = pad_operands(_signs(300, 120, cuda), 64, 64)
+        v = pad_operands(_signs(170, 120, cuda, seed=1), 64, 64)
+    else:
+        u = _operand(300, 120, 64, 64, cuda).to(torch.bfloat16)
+        v = _operand(170, 120, 64, 64, cuda, seed=1).to(torch.bfloat16)
+    if not grid:
+        v = None
+    t, m = 64, u.shape[0] // 64
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    spec = EpilogueSpec(div=7.0, clip=(-1.0, 1.0))
+    kw = dict(t=t, l_blk=64, pass_tiles=total, kk=10,
+              n_cols_valid=170 if grid else 300, symmetric_problem=not grid,
+              epilogue=spec, v_pad=v, grid_cols=gc)
+    before = dict(pcc_topk_tiles.select_by_dtype)
+    got = pcc_topk_tiles(u, 0, total, **kw)
+    want = pcc_topk_tiles_plain(u, 0, total, **kw)
+    torch.cuda.synchronize()
+    assert pcc_topk_tiles.select_by_dtype[dtype] == before[dtype] + 1
+    if dtype == "int8":
+        # exact values: ties are exact and resolve by column, as in plain
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tiles = pcc_tiles(u, 0, t=t, l_blk=64, pass_tiles=total, epilogue=spec,
+                      v_pad=v, grid_cols=gc)
+    ids = np.arange(total)
+    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+              else job_coord_batch(m, ids))
+    r = torch.zeros(u.shape[0], (u if v is None else v).shape[0],
+                    device=cuda)
+    r.view(m, t, -1, t)[torch.as_tensor(ys, device=cuda), :,
+                        torch.as_tensor(xs, device=cuda), :] = tiles
+    if not grid:
+        r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(), r, r.T)
+    for side in range(len(got) // 2):
+        vals, cols = got[2 * side], got[2 * side + 1]
+        ok = cols >= 0
+        rows = (torch.arange(vals.shape[0] * t, device=cuda)
+                .view(-1, t, 1).expand_as(cols))
+        ref = (r if side == 0 else r.T)[rows[ok], cols[ok].long()]
+        assert torch.equal(vals[ok], ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("measure,dtype", [
+    ("spearman", None), ("covariance", None), ("kendall", "int8"),
+    ("pearson", "bfloat16"), ("kendall_tau_b", "bfloat16")])
+def test_measures_on_card_match_cpu(cuda, measure, dtype):
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((200, 40)) / np.sqrt(40)).astype(np.float32)
+    kw = dict(measure=measure, compute_dtype=dtype, t=32, l_blk=32)
+    r = corr(x, device=cuda, **kw)
+    want = corr(x, device="cpu", **kw)
+    if dtype == "int8":
+        assert torch.equal(r.cpu(), want)
+    else:
+        torch.testing.assert_close(r.cpu(), want, rtol=0, atol=ATOL)
+    got = corr(x, sink=DeviceTopKSink(7), device=cuda, **kw)
+    want = corr(x, sink=TopKSink(7), device=cuda, **kw)
+    np.testing.assert_array_equal(got["indices"], want["indices"])
+    np.testing.assert_array_equal(got["values"], want["values"])
