@@ -52,6 +52,23 @@ Phases, each fatal on failure:
      kernels' launches, bitwise the float32 sign-GEMM, 16 rows against a
      float64 direct count, top-k bit-identical to TopKSink(10); times;
  14. the bf16 and int8 kernels at those shapes against their plain versions,
+     timed with their bounds and a library yardstick each;
+ 15. the scaled (int8, fp8 e4m3 and e5m2) and triangle second-operand modes
+     of pcc_tiles at phase 2's shapes, triangle and grid: scaled int8 tiles
+     bitwise the plain version's, fp8 tiles bitwise the float32 kernel's on
+     the widened codes times the scale product then the epilogue, triangle
+     tiles with a second operand bitwise the grid tiles at the same (y, x);
+ 16. masked Pearson at Table II (5 % of x missing at random, seed 2):
+     corr(x, where="nan") with its six component launches per pass, exact
+     symmetry, 16 rows against a float64 pairwise-complete Pearson, the same
+     bits with 300-tile passes, TopKSink(10) (DeviceTopKSink refuses),
+     times and peak memory; the 1,639 x 17,555 scan with where=(None,
+     None); the triangle second-operand mode timed with its bound, plain
+     version and library yardstick;
+ 17. int8- and fp8 (e4m3)-quantized Pearson at Table II: launches per dtype
+     and with scales, 16 rows against float64 within the reference's
+     budgets, TopKSink(10) (DeviceTopKSink refuses), times, peak memory;
+     the scaled kernel modes at that shape against their plain versions,
      timed with their bounds and a library yardstick each.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
@@ -96,6 +113,19 @@ L_KENDALL = 64      # below the reference's 96-sample merge crossover
 # 700 W): bf16 tensor cores, int8 tensor cores.
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+# Masked Pearson against a float64 pairwise-complete computation: the
+# combine cancels n * sxy - sx * sy.  With ~4,580 common samples of U[0, 1)
+# values, sxy ~ 1.1e3 carries a float32 summation error of ~2e-6 relative
+# (a sequential sum over 5,072 samples), n * sxy and sx * sy ~ 5e6 cancel to
+# a covariance term of ~r * 1.7e6, so r moves by ~1e-5 per pair, a few
+# times that in the tail of 16 x 17,555 pairs.  2e-4 is the reference's own
+# bound for its masked path against its oracle (tests/test_api.py).
+TOL_MASKED = 2e-4
+MISSING = 0.05                     # share of entries missing at random
+# Quantized Pearson against float64: the reference's error budgets
+# (tests/test_quantized.py).
+TOL_Q_INT8 = 8e-3
+TOL_Q_FP8 = 5e-2
 K_TOP = 10                         # examples/coexpression_network.py --topk 10
 N_TF = 1_639                       # human TFs (Lambert et al., Cell 2018)
 N_64K, L_64K = 64_000, 5_000       # paper Table I, configs ARTIFICIAL_64K
@@ -194,7 +224,8 @@ def main() -> int:
     from repro_torch.core import measures, pcc
     from repro_torch.core.api import corr
     from repro_torch.core.mapping import job_coord_batch
-    from repro_torch.core.plan import ExecutionPlan, pad_operands
+    from repro_torch.core.plan import ExecutionPlan, pad_operands, pad_scales
+    from repro_torch.core.quantize import quantize_rows
     from repro_torch.data.expression import ExpressionSpec, artificial
     from repro_torch.core.sinks import DeviceTopKSink, TopKSink
     from repro_torch.kernels import _build
@@ -502,6 +533,8 @@ def main() -> int:
 
     def reset_counts():
         pcc_tiles.launches = 0
+        pcc_tiles.scaled_launches = 0
+        pcc_tiles.triangle_pair_launches = 0
         pcc_topk_tiles.launches = {"select": 0, "merge": 0}
         pcc_tiles.launches_by_dtype = {k: 0 for k in
                                        pcc_tiles.launches_by_dtype}
@@ -1136,6 +1169,375 @@ def main() -> int:
               f"no canonical tie order, self-pairs kept) {sl_ms:.3f} ms")
     del u_k, ut
 
+    # -- 15. the scaled, fp8 and triangle-pair modes at phase 2's shapes ------
+    print("scaled int8 / fp8 and triangle second-operand tiles at the phase "
+          "2 shapes: scaled int8 bitwise the plain version, fp8 bitwise the "
+          "f32 kernel on the widened codes times the scale product then the "
+          "epilogue, triangle tiles bitwise the grid tiles:")
+    new_err = {"int8": 0.0, "float8_e4m3fn": 0.0, "float8_e5m2": 0.0,
+               "pair": 0.0}
+    for n, l, t, l_blk, j0, tiles in small:
+        xs_ = torch.from_numpy(rng.standard_normal((n, l)).astype(
+            np.float32)).to(dev)
+        ys_ = torch.from_numpy(rng.standard_normal((n // 2 + 3, l)).astype(
+            np.float32)).to(dev)
+        ws_ = torch.from_numpy(rng.standard_normal((n, l)).astype(
+            np.float32)).to(dev)
+        ux, uy = pcc.transform(xs_), pcc.transform(ys_)
+        m = -(-n // t)
+        for qname in ("int8", "float8_e4m3fn", "float8_e5m2"):
+            (qx, sx_), (qy, sy_) = (quantize_rows(z, qname) for z in (ux, uy))
+            u, su = pad_operands(qx, t, l_blk), pad_scales(sx_, t)
+            v_, sv_ = pad_operands(qy, t, l_blk), pad_scales(sy_, t)
+            for grid in (False, True):
+                gc = v_.shape[0] // t if grid else None
+                vv, sc = (v_, sv_) if grid else (None, su)
+                total_s = m * gc if grid else m * (m + 1) // 2
+                ids = np.minimum(j0 + np.arange(tiles), total_s - 1)
+                yc, xc = (divmod(ids, gc) if grid else job_coord_batch(m, ids))
+                prod = (su.view(m, t)[torch.as_tensor(yc, device=dev)][
+                    :, :, None] * sc.view(-1, t)[torch.as_tensor(
+                        xc, device=dev)][:, None, :])
+                label = (f"{qname} {'grid' if grid else 'triangle'} n={n} "
+                         f"l={l} t={t} l_blk={l_blk} j0={j0} tiles={tiles}")
+                for spec in epilogues.values():
+                    kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
+                              epilogue=spec, v_pad=vv, grid_cols=gc,
+                              row_scale=su, col_scale=sc)
+                    got = pcc_tiles(u, j0, **kw)
+                    want = pcc_tiles_plain(u, j0, **kw)
+                    if qname == "int8":
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{label}: scaled int8 "
+                                                 f"kernel != plain")
+                    else:
+                        ref = pcc_tiles(u.float(), j0, t=t, l_blk=l_blk,
+                                        pass_tiles=tiles, v_pad=None
+                                        if vv is None else vv.float(),
+                                        grid_cols=gc) * prod
+                        if spec is not None:
+                            ref = spec.apply(ref)
+                        if not torch.equal(got, ref):
+                            raise AssertionError(
+                                f"{label}: fp8 tile != f32 kernel on the "
+                                f"widened codes, scaled")
+                    err = float((got - want).abs().max())
+                    if not err <= TOL_SMALL:
+                        raise AssertionError(f"{label}: kernel disagrees "
+                                             f"with plain ({err:.3e})")
+                    new_err[qname] = max(new_err[qname], err)
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            u = operand(xs_, t, l_blk).to(dt)
+            w = operand(ws_, t, l_blk).to(dt)
+            total_s = m * (m + 1) // 2
+            kw = dict(t=t, l_blk=l_blk, epilogue=clip, v_pad=w)
+            got = pcc_tiles(u, j0, pass_tiles=tiles, **kw)
+            yc, xc = job_coord_batch(m, np.minimum(j0 + np.arange(tiles),
+                                                   total_s - 1))
+            grid_t = pcc_tiles(u, 0, pass_tiles=m * m, grid_cols=m, **kw)
+            if not torch.equal(got, grid_t[torch.as_tensor(yc * m + xc,
+                                                           device=dev)]):
+                raise AssertionError(f"{dname} n={n} t={t}: triangle tile "
+                                     f"with v_pad != grid tile")
+            err = float((got - pcc_tiles_plain(u, j0, pass_tiles=tiles, **kw))
+                        .abs().max())
+            if not err <= TOL_SMALL:
+                raise AssertionError(f"{dname} n={n} t={t}: triangle v_pad "
+                                     f"kernel disagrees with plain")
+            new_err["pair"] = max(new_err["pair"], err)
+    print(f"  {len(small)} shapes x (int8, e4m3, e5m2) x (triangle, grid) "
+          f"and (f32, bf16) triangle pairs: all bitwise checks hold; "
+          f"max|kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in new_err.items()))
+
+    # -- 16. masked (pairwise-complete) Pearson at Table II ------------------
+    # 5 % of the entries missing completely at random (seed 2).
+    x_nan = x_seek.copy()
+    x_nan[np.random.default_rng(2).random(x_seek.shape) < MISSING] = np.nan
+    xn_dev = torch.from_numpy(x_nan).to(dev)
+    del x_nan
+    print(f"masked Pearson: corr(x, where='nan') at n={N_SEEK} l={L_SEEK}, "
+          f"{int(torch.isnan(xn_dev).sum())} entries missing "
+          f"({MISSING:.0%} at random, seed 2), {plan.n_pass} pass(es), "
+          f"6 component streams")
+
+    def masked_rows64(xr, y):
+        """float64 pairwise-complete Pearson of rows xr against every row
+        of y: each pair centred on its own common support (two passes),
+        NaN = missing; fewer than 2 common samples or zero variance give
+        0."""
+        ym = ~torch.isnan(y)
+        y0 = torch.where(ym, y, 0.0).double()
+        ymd = ym.double()
+        out = torch.empty((xr.shape[0], y.shape[0]), dtype=torch.float64,
+                          device=y.device)
+        for i in range(xr.shape[0]):
+            mi = ~torch.isnan(xr[i])
+            xi = torch.where(mi, xr[i], 0.0).double()
+            cm = ymd * mi.double()
+            n_c = cm.sum(1)
+            safe = torch.clamp(n_c, min=1.0)
+            dx = (xi[None, :] - ((cm * xi).sum(1) / safe)[:, None]) * cm
+            dy = (y0 - ((cm * y0).sum(1) / safe)[:, None]) * cm
+            den = torch.sqrt((dx * dx).sum(1) * (dy * dy).sum(1))
+            ok = (n_c >= 2) & (den > 0)
+            out[i] = torch.where(ok, (dx * dy).sum(1)
+                                 / torch.where(ok, den, 1.0), 0.0)
+            del cm, dx, dy
+        return torch.clamp(out, -1.0, 1.0)
+
+    reset_counts()
+    rm = corr(xn_dev, where="nan")
+    torch.cuda.synchronize()
+    check_launches("dense", 6 * plan.n_pass, 0)
+    pair_launches = pcc_tiles.triangle_pair_launches
+    if pair_launches != 4 * plan.n_pass:
+        raise AssertionError(f"masked run: {pair_launches} triangle launches "
+                             f"with a second operand, want 4 per pass")
+    if rm.shape != (N_SEEK, N_SEEK) or not bool(torch.isfinite(rm).all()):
+        raise AssertionError("bad masked result")
+    if not torch.equal(rm, rm.T):
+        raise AssertionError("masked result is not exactly symmetric")
+    err_m = rows_err(rm, masked_rows64(xn_dev[rows16], xn_dev), rows16)
+    print(f"  {CHECK_ROWS} rows vs float64 pairwise-complete Pearson (each "
+          f"pair centred on its common samples): max|d| = {err_m:.3e} (tol "
+          f"{TOL_MASKED:g})")
+    if not err_m <= TOL_MASKED:
+        raise AssertionError("masked corr disagrees with float64")
+    reset_counts()
+    if not torch.equal(rm, corr(xn_dev, where="nan",
+                                max_tiles_per_pass=SPLIT)):
+        raise AssertionError("masked result depends on the pass split")
+    check_launches(f"max_tiles_per_pass={SPLIT}", 6 * split_plan.n_pass, 0)
+    class TimedTopKSink(TopKSink):
+        """Times the host merge (topk_merge_rows) of each pass's candidates;
+        the rest of consume() is the device pre-selection and the copy."""
+
+        def __init__(self, k):
+            super().__init__(k)
+            self.merge_ms = 0.0
+
+        def _merge(self, r_ids, c_ids, v):
+            t1 = time.perf_counter()
+            super()._merge(r_ids, c_ids, v)
+            self.merge_ms += (time.perf_counter() - t1) * 1e3
+
+    def timed_topk(fn):
+        """(result, call ms, host merge ms) of one top-k corr, warm."""
+        snk = TimedTopKSink(K_TOP)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res_ = fn(snk)
+        torch.cuda.synchronize()
+        return res_, (time.perf_counter() - t1) * 1e3, snk.merge_ms
+
+    reset_counts()
+    tkm, mktk_ms, mktk_merge = timed_topk(
+        lambda snk: corr(xn_dev, where="nan", sink=snk))
+    check_launches(f"TopKSink({K_TOP})", 6 * plan.n_pass, 0)
+    idx = torch.as_tensor(tkm["indices"], device=dev)
+    if bool((idx < 0).any()) or bool((idx == torch.arange(
+            N_SEEK, device=dev)[:, None]).any()):
+        raise AssertionError("masked top-k: empty slot or self-pair")
+    if not torch.equal(torch.as_tensor(tkm["values"], device=dev),
+                       torch.take_along_dim(rm, idx, dim=1)):
+        raise AssertionError("masked top-k values are not the dense bits")
+    key = rm[rows16].abs()
+    key[torch.arange(CHECK_ROWS, device=dev), rows16] = -1.0
+    kth = torch.topk(key, K_TOP + 1, dim=1).values
+    got_min = torch.take_along_dim(key, idx[rows16], dim=1).min(dim=1).values
+    if not bool((got_min >= kth[:, K_TOP - 1]).all()):
+        raise AssertionError("masked top-k misses a stronger partner")
+    try:
+        corr(xn_dev, where="nan", sink=DeviceTopKSink(K_TOP))
+    except ValueError as exc:
+        print(f"  TopKSink({K_TOP}): no self-pairs, values the dense "
+              f"result's bits, {CHECK_ROWS} rows hold their top {K_TOP}; "
+              f"DeviceTopKSink({K_TOP}) refuses: {exc}")
+    else:
+        raise AssertionError("DeviceTopKSink accepted a masked run")
+    del tkm, idx, key, rm
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    mk_ms, mk_all = host_ms(lambda: corr(xn_dev, where="nan"), 3)
+    mk_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"  dense {mk_ms:.3f} ms (runs {[round(v, 3) for v in mk_all]}), "
+          f"peak {mk_peak:.3f} GB above the {base_mem / 1e9:.3f} GB held; "
+          f"TopKSink({K_TOP}) {mktk_ms:.3f} ms (one warm run), of which the "
+          f"host merge "
+          f"(topk_merge_rows) {mktk_merge:.3f} ms {tag}")
+    # rectangular: the 1,639 TF rows (fully observed) against the masked
+    # Table II rows, masks from NaNs on both sides
+    mrplan = ExecutionPlan.create(N_TF, L_SEEK, n_cols=N_SEEK)
+    reset_counts()
+    rmr = corr(x_tf, xn_dev, where=(None, None))
+    torch.cuda.synchronize()
+    check_launches("rectangular dense", 6 * mrplan.n_pass, 0)
+    if rmr.shape != (N_TF, N_SEEK) or not bool(torch.isfinite(rmr).all()):
+        raise AssertionError("bad masked rectangular result")
+    err_mr = rows_err(rmr, masked_rows64(x_tf[rows_tf], xn_dev), rows_tf)
+    if not err_mr <= TOL_MASKED:
+        raise AssertionError("masked rectangular corr disagrees with "
+                             "float64")
+    del rmr
+    mr_ms, mr_all = host_ms(lambda: corr(x_tf, xn_dev, where=(None, None)), 3)
+    print(f"  rectangular corr(x_tf, x, where=(None, None)), {N_TF} x "
+          f"{N_SEEK}: {CHECK_ROWS} rows vs float64 max|d| = {err_mr:.3e}; "
+          f"{mr_ms:.3f} ms (runs {[round(v, 3) for v in mr_all]})")
+    # the triangle-pair mode alone: the sx = A M^T component's pass
+    mops = measures.masked_operands(xn_dev, ~torch.isnan(xn_dev))
+    a_pad = pad_operands(mops["a"], plan.t, plan.l_blk)
+    m_pad = pad_operands(mops["m"], plan.t, plan.l_blk)
+    del mops
+    pkw = dict(t=plan.t, l_blk=plan.l_blk, pass_tiles=total, v_pad=m_pad)
+    got = pcc_tiles(a_pad, 0, **pkw)
+    err = float((got - pcc_tiles_plain(a_pad, 0, **pkw)).abs().max())
+    del got
+    # raw sums of up to ~4,800 values in [0, 1): TOL_FULL relative to L_SEEK
+    if not err <= TOL_FULL * L_SEEK:
+        raise AssertionError("triangle-pair kernel disagrees with plain")
+    new_err["pair"] = max(new_err["pair"], err)
+    pr_ms, pr_all = event_ms(lambda: pcc_tiles(a_pad, 0, **pkw), 5)
+    pr_plain, _ = event_ms(lambda: pcc_tiles_plain(a_pad, 0, **pkw), 3)
+    pr_lib, _ = event_ms(lambda: torch.matmul(a_pad, m_pad.T), 5)
+    pr_bound = narrow_bound(2 * L_SEEK * plan.t ** 2 * total,
+                            (a_pad.numel() + m_pad.numel()) * 4
+                            + total * plan.t ** 2 * 4, FP32_FLOPS)
+    print(f"  pcc_tiles triangle with a second operand (A M^T, one pass of "
+          f"{total} tiles): {pr_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in pr_all]}), bound {pr_bound[0]:.3f} ms by "
+          f"{pr_bound[1]}; plain {pr_plain:.3f} ms; library "
+          f"torch.matmul(a, m.T) (full square) {pr_lib:.3f} ms; "
+          f"max|kernel - plain| {err:.3e} on sums up to {L_SEEK} {tag}")
+    del a_pad, m_pad, xn_dev
+
+    # -- 17. int8- and fp8-quantized Pearson at Table II ----------------------
+    quant = {}
+    u64 = pcc.transform(x_dev.double())
+    ref16 = torch.clamp(u64[rows16] @ u64.T, -1.0, 1.0)
+    del u64
+    for qname, budget in (("int8", TOL_Q_INT8),
+                          ("float8_e4m3fn", TOL_Q_FP8)):
+        qd = getattr(torch, qname)
+        qplan = ExecutionPlan.create(N_SEEK, L_SEEK, compute_dtype=qd)
+        uq = qplan.prepare(x_dev)
+        print(f"{qname}-quantized Pearson: corr(x, compute_dtype="
+              f"torch.{qname}) at n={N_SEEK} l={L_SEEK}: operand "
+              f"{uq.data.numel() / 1e6:.1f} MB + {uq.scale.numel() * 4} B of "
+              f"row scales")
+        reset_counts()
+        rq_ = corr(x_dev, compute_dtype=qd)
+        torch.cuda.synchronize()
+        check_launches("dense", qplan.n_pass, 0, qname)
+        q_launches = pcc_tiles.launches_by_dtype[qname]
+        if pcc_tiles.scaled_launches != qplan.n_pass:
+            raise AssertionError(f"{qname}: launches without scales")
+        if not bool(torch.isfinite(rq_).all()) or not torch.equal(rq_, rq_.T):
+            raise AssertionError(f"bad {qname} result")
+        err_q = rows_err(rq_, ref16, rows16)
+        print(f"  {CHECK_ROWS} rows vs float64 Pearson: max|d| = "
+              f"{err_q:.3e} (the reference's {qname} budget {budget:g})")
+        if not err_q <= budget:
+            raise AssertionError(f"{qname} corr outside the budget")
+        reset_counts()
+        tkq, qtk_ms, qtk_merge = timed_topk(
+            lambda snk: corr(x_dev, compute_dtype=qd, sink=snk))
+        check_launches(f"TopKSink({K_TOP})", qplan.n_pass, 0, qname)
+        idx = torch.as_tensor(tkq["indices"], device=dev)
+        if not torch.equal(torch.as_tensor(tkq["values"], device=dev),
+                           torch.take_along_dim(rq_, idx, dim=1)):
+            raise AssertionError(f"{qname} top-k values are not the dense "
+                                 f"bits")
+        try:
+            corr(x_dev, compute_dtype=qd, sink=DeviceTopKSink(K_TOP))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"DeviceTopKSink accepted {qname}")
+        del rq_, tkq, idx
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        q_ms, q_all = host_ms(lambda: corr(x_dev, compute_dtype=qd), 3)
+        q_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        qp_ms, qp_all = host_ms(lambda: qplan.prepare(x_dev), 3)
+        print(f"  TopKSink({K_TOP}) values the dense bits; DeviceTopKSink "
+              f"refuses; dense {q_ms:.3f} ms (runs "
+              f"{[round(v, 3) for v in q_all]}), peak {q_peak:.3f} GB above "
+              f"the {base_mem / 1e9:.3f} GB held; TopKSink({K_TOP}) "
+              f"{qtk_ms:.3f} ms (one run), of which the host merge "
+              f"{qtk_merge:.3f} ms; transform and quantization (plan.prepare) "
+              f"{qp_ms:.3f} ms (runs {[round(v, 3) for v in qp_all]}) {tag}")
+        # the scaled kernel mode at this shape
+        qkw = dict(t=qplan.t, l_blk=qplan.l_blk, pass_tiles=total,
+                   epilogue=qplan.epilogue_spec, row_scale=uq.scale,
+                   col_scale=uq.scale)
+        got = pcc_tiles(uq.data, 0, **qkw)
+        want = pcc_tiles_plain(uq.data, 0, **qkw)
+        torch.cuda.synchronize()
+        if qname == "int8":
+            if not torch.equal(got, want):
+                raise AssertionError("scaled int8 != plain at the full shape")
+        else:
+            raw = pcc_tiles(uq.data.float(), 0, t=qplan.t,
+                            l_blk=qplan.l_blk, pass_tiles=total)
+            yc, xc = job_coord_batch(qplan.m, np.arange(total))
+            sv = uq.scale.view(qplan.m, qplan.t)
+            ref = qplan.epilogue_spec.apply(raw * (
+                sv[torch.as_tensor(yc, device=dev)][:, :, None]
+                * sv[torch.as_tensor(xc, device=dev)][:, None, :]))
+            if not torch.equal(got, ref):
+                raise AssertionError("fp8 tiles != f32 kernel on the widened "
+                                     "codes at the full shape")
+            del raw, ref
+        err = float((got - want).abs().max())
+        if not err <= TOL_FULL:
+            raise AssertionError(f"{qname} kernel disagrees with plain")
+        new_err[qname] = max(new_err[qname], err)
+        del got, want
+        k_ms, k_all = event_ms(lambda: pcc_tiles(uq.data, 0, **qkw), 5)
+        p_ms, _ = event_ms(lambda: pcc_tiles_plain(uq.data, 0, **qkw), 3)
+        s_ = uq.scale
+        if qname == "int8":
+            ut = uq.data.T.contiguous()
+            lib_label = "torch._int_mm(u, u.T) * (s s^T)"
+
+            def lib():
+                return torch._int_mm(uq.data, ut) * (s_[:, None] * s_[None, :])
+        else:
+            lib_label = None
+            for out_dt in (torch.float32, torch.bfloat16):
+                def lib(out_dt=out_dt):
+                    return torch._scaled_mm(
+                        uq.data, uq.data.T, scale_a=s_[:, None].contiguous(),
+                        scale_b=s_[None, :].contiguous(), out_dtype=out_dt)
+                try:
+                    lib()
+                    lib_label = (f"torch._scaled_mm(u, u.T), row-wise scales,"
+                                 f" {str(out_dt).removeprefix('torch.')} out")
+                    break
+                except Exception as exc:   # version- and shape-dependent
+                    print(f"  torch._scaled_mm with row-wise scales, "
+                          f"{out_dt} out: not supported here ({exc})")
+        l_ms = event_ms(lib, 5)[0] if lib_label else None
+        q_bound = narrow_bound(2 * L_SEEK * qplan.t ** 2 * total,
+                               uq.data.numel() + 2 * uq.scale.numel() * 4
+                               + total * qplan.t ** 2 * 4, INT8_OPS)
+        quant[qname] = dict(launches=q_launches, ms=k_ms, plain=p_ms,
+                            lib=l_ms, bound=q_bound)
+        print(f"  pcc_tiles {qname} with scales, one pass of {total} tiles "
+              f"over {tuple(uq.shape)}: {k_ms:.3f} ms (runs "
+              f"{[round(v, 3) for v in k_all]}), "
+              f"{2 * L_SEEK * qplan.t ** 2 * total / k_ms / 1e9:.1f} T ops/s, "
+              f"bound {q_bound[0]:.3f} ms by {q_bound[1]} (at "
+              f"{INT8_OPS / 1e12:g} T ops/s); plain {p_ms:.3f} ms; library "
+              f"{lib_label or 'none'} "
+              f"{'not measured' if l_ms is None else f'{l_ms:.3f} ms'}; "
+              f"max|kernel - plain| {err:.3e} {tag}")
+        del uq
+    quant["pair"] = dict(launches=pair_launches, ms=pr_ms, plain=pr_plain,
+                         lib=pr_lib, bound=pr_bound)
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
@@ -1181,6 +1583,17 @@ def main() -> int:
          "ms": merge_ms, "plain_ms": fold_ms, "bound_ms": merge_bound,
          "bound_by": merge_by, "library_ms": None},
         *narrow_records,
+        *[{"name": name, "route": "cuda", "source": source + "pcc_tile.cu",
+           "replaces": "src/repro/kernels/pcc_tile.py:299",
+           "launches": quant[key]["launches"], "max_abs_err": new_err[key],
+           "ms": quant[key]["ms"], "plain_ms": quant[key]["plain"],
+           "bound_ms": quant[key]["bound"][0],
+           "bound_by": quant[key]["bound"][1],
+           "library_ms": quant[key]["lib"]}
+          for name, key in (("pcc_tiles (scaled int8)", "int8"),
+                            ("pcc_tiles (scaled fp8 e4m3)", "float8_e4m3fn"),
+                            ("pcc_tiles (triangle, second operand)",
+                             "pair"))],
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

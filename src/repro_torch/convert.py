@@ -4,8 +4,9 @@ The system has no weights: a run's state is its plan and its prepared
 operand.  ``plan_from_reference`` rebuilds the port's plan from a reference
 ``ExecutionPlan.spec_dict()`` (a plain dict, as the reference writes it into
 its checkpoint sidecars); ``operand_from_reference`` takes the reference's
-prepared operand as a numpy array (``np.asarray(plan.prepare(x))``).  Both
-packages then compute the same tiles from the same operand.
+prepared operand: an array (``np.asarray(plan.prepare(x))``) or its
+quantized ``Operand`` of data and per-row scales.  Both packages then
+compute the same tiles from the same operand.
 """
 
 from __future__ import annotations
@@ -14,19 +15,30 @@ import numpy as np
 import torch
 
 from repro_torch.core.allpairs import resolve_device
+from repro_torch.core.api import masked_sink_plan
+from repro_torch.core.measures import MASKED_NAMES, get_masked
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.quantize import Operand
 
 # spec_dict fields that select modes later slices bring, with the values
 # the port runs so far
 _PORTED = {"tile_kernel": (None,), "symmetric_grid": (False,),
-           "compute_dtype": (None, "bfloat16", "int8"),
+           "compute_dtype": (None, "bfloat16", "int8", "float8_e4m3fn",
+                             "float8_e5m2"),
            "p": (1,), "replicas": (0,)}
 _WORKLOADS = ("TriangularWorkload", "GridWorkload")
+# numpy (ml_dtypes) narrow floats torch.from_numpy refuses: carried over as
+# their bit patterns and viewed as the torch type
+_VIEWED = {"bfloat16": (np.uint16, torch.bfloat16),
+           "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+           "float8_e5m2": (np.uint8, torch.float8_e5m2)}
 
 
 def plan_from_reference(spec: dict) -> ExecutionPlan:
     """The port's ExecutionPlan for a reference plan's ``spec_dict()``
-    (triangular or rectangular grid).
+    (triangular or rectangular grid; float32, bf16, int8 or fp8 operands,
+    quantized where the reference quantizes; a masked run's sink plan,
+    whose measure is a pairwise-complete name such as "pearson_complete").
 
     Raises NotImplementedError for modes the port does not run yet and
     ValueError when the rebuilt plan's spec_dict() differs from `spec`.
@@ -43,35 +55,53 @@ def plan_from_reference(spec: dict) -> ExecutionPlan:
     grid = spec["workload"] == "GridWorkload"
     if not grid and spec["n_rows"] != spec["n_cols"]:
         raise ValueError(f"a triangular spec has n_rows == n_cols, got {spec}")
+    masked = spec["measure"] in MASKED_NAMES
     plan = ExecutionPlan.create(
         spec["n_rows"], spec["l"], n_cols=spec["n_cols"] if grid else None,
         t=spec["t"], l_blk=spec["l_blk"],
-        measure=spec["measure"],
-        max_tiles_per_pass=spec["max_tiles_per_pass"], clip=spec["clip"],
+        measure="dot" if masked else spec["measure"],
+        max_tiles_per_pass=spec["max_tiles_per_pass"],
+        clip=False if masked else spec["clip"],
         fuse_epilogue=spec["fused"], compute_dtype=spec["compute_dtype"])
+    if masked:
+        # a masked run's sink plan: the component plan under the masked
+        # measure's identity (core/api._run_masked)
+        plan = masked_sink_plan(plan, get_masked(spec["measure"]),
+                                spec["clip"])
     if plan.spec_dict() != spec:
         raise ValueError(f"rebuilt plan {plan.spec_dict()} differs from the "
                          f"reference spec {spec}")
     return plan
 
 
-def operand_from_reference(u_pad, device=None) -> torch.Tensor:
+def operand_from_reference(u_pad, device=None):
     """The reference's prepared (n_pad, l_pad) operand — the row operand,
-    or a rectangular plan's column operand v_pad — as a contiguous tensor
-    of the same type on `device` (None means "cuda"): float32, int8, or
-    bfloat16.  numpy holds the reference's bfloat16 as an ``ml_dtypes``
-    array, which ``torch.from_numpy`` refuses, so its 16-bit patterns are
-    carried over as uint16 and viewed as torch.bfloat16."""
+    or a rectangular plan's column operand v_pad — on `device` (None means
+    "cuda"), of the same type: a contiguous float32, int8, bfloat16 or fp8
+    tensor, or, for the reference's quantized ``Operand`` (anything with
+    ``data`` and ``scale``), the port's :class:`Operand` of that data and
+    its float32 scales.  numpy holds bfloat16 and fp8 as ``ml_dtypes``
+    arrays, which ``torch.from_numpy`` refuses, so their bit patterns are
+    carried over as uint16 / uint8 and viewed as the torch type."""
+    if hasattr(u_pad, "scale") and hasattr(u_pad, "data"):
+        scale = np.array(u_pad.scale, dtype=np.float32, order="C")
+        data = operand_from_reference(u_pad.data, device)
+        if scale.shape != (data.shape[0],):
+            raise ValueError(f"scales {scale.shape} do not match the "
+                             f"operand's {data.shape[0]} rows")
+        return Operand(data, torch.from_numpy(scale).to(data.device))
     u = np.array(u_pad, order="C")
     if u.ndim != 2:
         raise ValueError(f"expected a 2-D operand, got shape {u.shape}")
     if u.dtype in (np.float32, np.int8):
         t = torch.from_numpy(u)
-    elif u.dtype.name == "bfloat16" and u.dtype.itemsize == 2:
-        t = torch.from_numpy(u.view(np.uint16)).view(torch.bfloat16)
+    elif u.dtype.name in _VIEWED and \
+            u.dtype.itemsize == np.dtype(_VIEWED[u.dtype.name][0]).itemsize:
+        bits, dtype = _VIEWED[u.dtype.name]
+        t = torch.from_numpy(u.view(bits)).view(dtype)
     else:
-        raise ValueError(f"expected a float32, bfloat16 or int8 operand, got "
-                         f"{u.dtype}")
+        raise ValueError(f"expected a float32, bfloat16, int8 or fp8 "
+                         f"operand, got {u.dtype}")
     return t.to(resolve_device(device))
 
 

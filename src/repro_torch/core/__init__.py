@@ -5,7 +5,9 @@ executor -> sink.
   mapping   the tile-id <-> upper-triangle and rectangular-grid bijections
   tiling    tile geometry and pass partitioning
   pcc       the Eq. 4 row transform and dense oracles
-  measures  the Measure record, the row transforms and the registry
+  measures  the Measure record, the row transforms, the registry and the
+            masked (pairwise-complete) measures
+  quantize  per-row absmax int8 / fp8 quantization and the Operand record
   plan      ExecutionPlan: every static decision of a run
   allpairs  the double-buffered pass executor
   sinks     DenseSink, TopKSink, DeviceTopKSink and the canonical top-k merge

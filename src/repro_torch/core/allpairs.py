@@ -23,39 +23,58 @@ import torch
 
 from repro_torch.core import measures
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.quantize import Operand, operand_data, operand_parts
 from repro_torch.core.sinks import DenseSink, TileSink
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
                                           pcc_tiles, pcc_topk_tiles)
 
 
-def launch_tiles(plan: ExecutionPlan, u_pad: torch.Tensor, j0: int,
-                 launch: int, v_pad: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+def launch_tiles(plan: ExecutionPlan, u, j0: int, launch: int,
+                 v=None) -> torch.Tensor:
     """THE kernel-launch seam: one pass launch of the plan's tile kernel
-    (v_pad is the column operand of a rectangular plan)."""
-    return pcc_tiles(u_pad, j0, t=plan.t, l_blk=plan.l_blk,
+    (v is the column operand of a rectangular plan, or a same-shape second
+    operand on the triangle).  Unwraps quantized :class:`Operand`s and
+    threads their per-row scales to the kernel: the row scales from u, the
+    column scales from v, or from u when there is no v."""
+    u_data, u_scale = operand_parts(u)
+    v_data, v_scale = operand_parts(v) if v is not None else (None, None)
+    row_scale = col_scale = None
+    if u_scale is not None:
+        row_scale = u_scale
+        col_scale = u_scale if v is None else v_scale
+        if col_scale is None:
+            raise ValueError("quantized row operand paired with an "
+                             "unquantized column operand: both sides must "
+                             "be prepared by the same plan")
+    return pcc_tiles(u_data, j0, t=plan.t, l_blk=plan.l_blk,
                      pass_tiles=launch, epilogue=plan.epilogue_spec,
-                     v_pad=v_pad, grid_cols=plan.workload.grid_cols)
+                     v_pad=v_data, grid_cols=plan.workload.grid_cols,
+                     row_scale=row_scale, col_scale=col_scale)
 
 
-def launch_topk_tiles(plan: ExecutionPlan, u_pad: torch.Tensor, j0: int,
-                      dev_hi: int, launch: int, kk: int,
-                      v_pad: Optional[torch.Tensor] = None):
+def launch_topk_tiles(plan: ExecutionPlan, u, j0: int, dev_hi: int,
+                      launch: int, kk: int, v=None):
     """Launch seam of the device-side top-k epilogue
     (kernels/pcc_tile.pcc_topk_tiles): one pass's tiles are computed and
     folded into per-row top-k state on the card, so only O(n * kk) state
     leaves it.  j0 is the raw pass start and dev_hi the exclusive tile
-    bound, the kernel's validity guard."""
-    return pcc_topk_tiles(u_pad, j0, dev_hi, t=plan.t, l_blk=plan.l_blk,
+    bound, the kernel's validity guard.  Quantized operands are refused:
+    the scale product is not fused into the top-k kernel."""
+    u_data, u_scale = operand_parts(u)
+    v_data, _ = operand_parts(v) if v is not None else (None, None)
+    if u_scale is not None:
+        raise ValueError(
+            "device top-k epilogue supports unscaled operands only (no "
+            "quantized scales): DeviceTopKSink.open validates this")
+    return pcc_topk_tiles(u_data, j0, dev_hi, t=plan.t, l_blk=plan.l_blk,
                           pass_tiles=launch, kk=kk,
                           n_cols_valid=plan.n_cols,
                           symmetric_problem=plan.symmetric_problem,
-                          epilogue=plan.epilogue_spec, v_pad=v_pad,
+                          epilogue=plan.epilogue_spec, v_pad=v_data,
                           grid_cols=plan.workload.grid_cols)
 
 
-def _local_launches(plan: ExecutionPlan, u_pad: torch.Tensor,
-                    v_pad: Optional[torch.Tensor] = None,
+def _local_launches(plan: ExecutionPlan, u_pad, v_pad=None,
                     state_k: Optional[int] = None
                     ) -> Iterator[Tuple[int, np.ndarray, object]]:
     """Single-device pass launches: consecutive spans of the tile-id range,
@@ -67,21 +86,22 @@ def _local_launches(plan: ExecutionPlan, u_pad: torch.Tensor,
         ids = np.arange(lo, lo + launch, dtype=np.int64)
         if state_k is not None:
             yield k, ids, launch_topk_tiles(plan, u_pad, lo, plan.total_tiles,
-                                            launch, state_k, v_pad=v_pad)
+                                            launch, state_k, v=v_pad)
             continue
-        buf = launch_tiles(plan, u_pad, lo, launch, v_pad=v_pad)
+        buf = launch_tiles(plan, u_pad, lo, launch, v=v_pad)
         if not plan.fused and plan.measure.epilogue is not None:
             buf = plan.measure.epilogue(buf, plan.l)
         yield k, ids, buf
 
 
-def _stream(plan: ExecutionPlan, u_pad: torch.Tensor,
-            v_pad: Optional[torch.Tensor] = None,
+def _stream(plan: ExecutionPlan, u_pad, v_pad=None,
             state_k: Optional[int] = None
             ) -> Iterator[Tuple[int, np.ndarray, object]]:
     """Double-buffered pass stream of (k, ids, tiles or state): launches
     pass k+1 before yielding pass k, so the sink's work on pass k overlaps
-    it."""
+    it.  u_pad and v_pad are prepared operands (tensors or quantized
+    :class:`Operand`s); on a triangular plan v_pad may be a second operand
+    of u_pad's shape (the masked measures' cross components)."""
     pending = None
     for item in _local_launches(plan, u_pad, v_pad, state_k):
         if pending is not None:
@@ -102,11 +122,12 @@ def run_sink(plan: ExecutionPlan, sink: Optional[TileSink],
     return snk.result()
 
 
-def execute_plan(plan: ExecutionPlan, u_pad: torch.Tensor,
-                 v_pad: Optional[torch.Tensor] = None, *,
+def execute_plan(plan: ExecutionPlan, u_pad, v_pad=None, *,
                  sink: Optional[TileSink] = None, device=None):
     """Run a prepared plan end to end on the device that holds ``u_pad``
-    (and ``v_pad``, the column operand a rectangular plan needs).
+    (and ``v_pad``, the column operand a rectangular plan needs).  Operands
+    are tensors, or :class:`Operand`s of data and per-row scales when the
+    plan quantizes (``plan.scaled``).
 
     ``device`` (None means "cuda") must match the operands' device; it is
     explicit so a CPU run is always asked for.
@@ -125,15 +146,24 @@ def execute_plan(plan: ExecutionPlan, u_pad: torch.Tensor,
                              "column operand")
         operands.append(("v_pad", v_pad, plan.col_pad))
     for name, op, rows in operands:
-        if op.device.type != dev.type or dev.index not in (
-                None, op.device.index):
-            raise ValueError(f"{name} lies on {op.device}, not on {dev}")
-        if tuple(op.shape) != (rows, l_pad):
-            raise ValueError(f"{name} shape {tuple(op.shape)} does not match "
-                             f"the plan's ({rows}, {l_pad})")
-        if op.dtype != dtype:
-            raise ValueError(f"{name} is {op.dtype}; the plan stores {dtype}")
-    return run_sink(plan, sink, u_pad.device,
+        if isinstance(op, Operand) != plan.scaled:
+            raise ValueError(
+                f"{name} must be {'an' if plan.scaled else 'no'} Operand of "
+                f"quantized data and row scales for this plan")
+        data, scale = operand_parts(op)
+        if data.device.type != dev.type or dev.index not in (
+                None, data.device.index):
+            raise ValueError(f"{name} lies on {data.device}, not on {dev}")
+        if tuple(data.shape) != (rows, l_pad):
+            raise ValueError(f"{name} shape {tuple(data.shape)} does not "
+                             f"match the plan's ({rows}, {l_pad})")
+        if data.dtype != dtype:
+            raise ValueError(f"{name} is {data.dtype}; the plan stores "
+                             f"{dtype}")
+        if scale is not None and tuple(scale.shape) != (rows,):
+            raise ValueError(f"{name} scales {tuple(scale.shape)} do not "
+                             f"match its {rows} rows")
+    return run_sink(plan, sink, operand_data(u_pad).device,
                     _stream(plan, u_pad, v_pad, _sink_state_k(sink)))
 
 

@@ -1,12 +1,13 @@
 """`corr()`: the problem-centric facade.
 
-Port of ``repro/core/api.py`` for the paper's own workload — symmetric
-all-pairs similarity of one (n, l) operand — and the rectangular X-vs-Y
-workload, on one device, under every inner-product measure and with
-float32, bfloat16 or int8 stored operands.  A frozen
+Port of ``repro/core/api.py`` for one device: symmetric all-pairs
+similarity of one (n, l) operand and the rectangular X-vs-Y workload,
+under every inner-product measure, with float32, bfloat16, int8 or fp8
+stored operands (int8 on non-Kendall measures and fp8 quantized with
+per-row scales), and pairwise-complete masked runs (``where=``).  A frozen
 :class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
-onto plan -> executor -> sink.  The reference's other workloads and knobs
-raise ``NotImplementedError`` naming the ROADMAP slice that brings them.
+onto plan -> executor -> sink.  The reference's other knobs raise
+``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -17,15 +18,15 @@ from typing import Optional
 import torch
 
 from repro_torch.core import measures
-from repro_torch.core.allpairs import execute_plan, resolve_device
-from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.allpairs import _stream, execute_plan, resolve_device, \
+    run_sink
+from repro_torch.core.plan import ExecutionPlan, pad_operands
 from repro_torch.core.sinks import TileSink
 from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
     "resume_from": "slice 4 (HostSink checkpoints)",
-    "where": "slice 5 (masked measures)",
     "pvalues": "slice 8 (significance)",
     "recovery": "slice 10 (recovery)",
     "mesh": "slice 11 (multi-GPU)",
@@ -33,18 +34,35 @@ _LATER_SLICES = {
 }
 
 
+def _as_mask(mask, data: torch.Tensor, side: str) -> torch.Tensor:
+    m = torch.as_tensor(mask, device=data.device)
+    if tuple(m.shape) != tuple(data.shape):
+        raise ValueError(
+            f"where mask for {side} has shape {tuple(m.shape)}, expected "
+            f"{tuple(data.shape)}")
+    return m.to(torch.bool)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class PairwiseProblem:
     """What is being asked: x (n_rows, l) and optional y (n_cols, l) under a
-    resolved measure; y=None is the symmetric all-pairs workload over x."""
+    resolved measure; y=None is the symmetric all-pairs workload over x.
+    mask_x / mask_y are boolean validity masks (True = sample present), or
+    None for fully observed data."""
 
     x: torch.Tensor
     y: Optional[torch.Tensor]
     measure: measures.Measure
+    mask_x: Optional[torch.Tensor] = None
+    mask_y: Optional[torch.Tensor] = None
 
     @property
     def symmetric(self) -> bool:
         return self.y is None
+
+    @property
+    def masked(self) -> bool:
+        return self.mask_x is not None
 
     @property
     def n_rows(self) -> int:
@@ -60,8 +78,13 @@ class PairwiseProblem:
 
     @classmethod
     def create(cls, x, y=None, *, measure: measures.MeasureLike = "pearson",
-               device=None) -> "PairwiseProblem":
-        """x and y may be numpy arrays or tensors; they move to `device`."""
+               where=None, device=None) -> "PairwiseProblem":
+        """x and y may be numpy arrays or tensors; they move to `device`.
+
+        where: None (unmasked), "nan" (validity from NaNs), a boolean array
+        or tensor masking x (symmetric problems), or an (x_mask, y_mask)
+        tuple for rectangular ones (either None to infer from NaNs).
+        """
         dev = resolve_device(device)
         x = torch.as_tensor(x, device=dev)
         if x.ndim != 2:
@@ -71,7 +94,38 @@ class PairwiseProblem:
             if y.ndim != 2 or y.shape[1] != x.shape[1]:
                 raise ValueError(f"y must be (n_cols, l={x.shape[1]}), got "
                                  f"shape {tuple(y.shape)}")
-        return cls(x=x, y=y, measure=measures.get(measure))
+        meas = measures.get(measure)
+        mask_x = mask_y = None
+        if where is not None:
+            # fails fast for measures with no pairwise-complete form
+            measures.get_masked(meas)
+            if isinstance(where, str):
+                if where != "nan":
+                    raise ValueError(
+                        f"where={where!r} not understood; pass a boolean "
+                        f"mask, an (x_mask, y_mask) tuple, or 'nan'")
+                mask_x = ~torch.isnan(x)
+                mask_y = None if y is None else ~torch.isnan(y)
+            elif isinstance(where, tuple):
+                wx, wy = where
+                mask_x = (~torch.isnan(x) if wx is None
+                          else _as_mask(wx, x, "x"))
+                if y is None:
+                    if wy is not None:
+                        raise ValueError(
+                            "symmetric problem (y=None) takes a single "
+                            "mask, not an (x_mask, y_mask) tuple")
+                else:
+                    mask_y = (~torch.isnan(y) if wy is None
+                              else _as_mask(wy, y, "y"))
+            else:
+                if y is not None:
+                    raise ValueError(
+                        "rectangular masked problems need masks for both "
+                        "sides: pass where=(x_mask, y_mask) (either may be "
+                        "None to infer from NaNs)")
+                mask_x = _as_mask(where, x, "x")
+        return cls(x=x, y=y, measure=meas, mask_x=mask_x, mask_y=mask_y)
 
 
 def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
@@ -92,28 +146,37 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
              with measures.register.  kendall / kendall_tau_b at l >= 96
              without compute_dtype take the reference's merge-sort kernel
              and raise NotImplementedError (ROADMAP slice 7).
+    where:   pairwise-complete scoring of missing data: "nan" takes
+             validity from NaNs; a boolean array or tensor masks x
+             (symmetric problems); an (x_mask, y_mask) tuple masks both
+             sides of a rectangular problem (either None: from NaNs).  Each
+             pair is scored over its common valid samples through the
+             measure's component products (pearson, cosine, covariance);
+             pairs with fewer than 2 common samples or zero variance on
+             them score 0.  Not with compute_dtype.
     compute_dtype: None keeps the transform's float32 operands;
              torch.bfloat16 / "bfloat16" stores them in bf16 (float32
-             accumulation), torch.int8 / "int8" in int8 for measures whose
-             transform is integer-valued (kendall: int32 accumulation,
-             bitwise the float32 result).  int8 on other measures and fp8
-             are the reference's quantized path and raise
-             NotImplementedError (ROADMAP slice 6).
+             accumulation); torch.int8 / "int8" stores kendall's integer
+             pair signs as they are (int32 accumulation, bitwise the
+             float32 result) and quantizes every other measure's rows with
+             per-row absmax scales, as torch.float8_e4m3fn and
+             torch.float8_e5m2 do for every measure (core/quantize.py; the
+             kernel multiplies each tile by the scale product).
     sink:    output handling; the default DenseSink returns the (n, n)
              float32 matrix on `device`, exactly symmetric (or the
              (n, n_cols) cross matrix when y is given).  TopKSink(k) and
              DeviceTopKSink(k) keep each row's k strongest partners, the
-             latter through the top-k kernel.
+             latter through the top-k kernel (not for masked or quantized
+             runs).
     t / l_blk / max_tiles_per_pass / clip / fuse_epilogue keep their
              ExecutionPlan semantics; the result does not depend on
              max_tiles_per_pass or fuse_epilogue, bit for bit.
     device:  None means "cuda", which raises on a machine without a card;
              pass device="cpu" to run the kernels' plain versions.
-    where, mesh, shard_u, resume_from, pvalues and recovery are the
-    reference's and raise NotImplementedError here.
+    mesh, shard_u, resume_from, pvalues and recovery are the reference's
+    and raise NotImplementedError here.
     """
-    given = {"where": where is not None,
-             "mesh": mesh is not None, "shard_u": bool(shard_u),
+    given = {"mesh": mesh is not None, "shard_u": bool(shard_u),
              "resume_from": resume_from is not None,
              "pvalues": pvalues is not None, "recovery": recovery is not None}
     for name, on in given.items():
@@ -121,7 +184,16 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
             raise NotImplementedError(
                 f"corr({name}=...) is not ported yet: ROADMAP "
                 f"{_LATER_SLICES[name]}")
-    problem = PairwiseProblem.create(x, y, measure=measure, device=device)
+    problem = PairwiseProblem.create(x, y, measure=measure, where=where,
+                                     device=device)
+    if problem.masked:
+        if compute_dtype is not None:
+            raise ValueError(
+                "compute_dtype narrowing is not supported with where= "
+                "(component GEMMs accumulate counts and sums that must "
+                "stay exact f32)")
+        return _run_masked(problem, sink=sink, t=t, l_blk=l_blk,
+                           max_tiles_per_pass=max_tiles_per_pass, clip=clip)
     plan = ExecutionPlan.create(
         problem.n_rows, problem.l,
         n_cols=None if problem.symmetric else problem.n_cols, t=t,
@@ -136,4 +208,59 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
                         device=problem.x.device)
 
 
-__all__ = ["PairwiseProblem", "corr"]
+def masked_sink_plan(plan: ExecutionPlan, mm: measures.MaskedMeasure,
+                     clip: bool) -> ExecutionPlan:
+    """The plan a masked run's sink sees: the component plan under the
+    masked measure's identity (name and clip), unfused, because the combine
+    leaves values unclipped and the sink clips iff asked."""
+    sink_measure = measures.Measure(mm.name, measures.identity_transform,
+                                    None, mm.clip)
+    return dataclasses.replace(plan, measure=sink_measure, fused=False,
+                               clip=clip)
+
+
+def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
+                max_tiles_per_pass, clip):
+    """Masked execution: one stream of pass launches per component
+    product, combined elementwise pass by pass on the device.
+
+    All components share one plan (measure "dot", the same geometry), so
+    their pass boundaries and tile ids line up and zipping the streams keeps
+    device memory at two pass buffers per component.  Symmetric problems
+    run every component on the triangle: sxy and n take the single-operand
+    path; the cross terms come in transpose pairs (sy(i, j) = sx(j, i),
+    qy(i, j) = qx(j, i)) that ride the triangle with a same-shape second
+    operand, and every combine uses them only through commutative products,
+    so the combined tile at (x, y) is the transpose of the one at (y, x) and
+    the sink's mirror completes the matrix.
+    """
+    mm = measures.get_masked(problem.measure)
+    ops_x = measures.masked_operands(problem.x, problem.mask_x)
+    ops_y = (ops_x if problem.symmetric
+             else measures.masked_operands(problem.y, problem.mask_y))
+    plan = ExecutionPlan.create(
+        problem.n_rows, problem.l,
+        n_cols=None if problem.symmetric else problem.n_cols, t=t,
+        l_blk=l_blk, measure="dot", max_tiles_per_pass=max_tiles_per_pass,
+        clip=False)
+    pad_x = {k: pad_operands(v, t, l_blk) for k, v in ops_x.items()}
+    pad_y = (pad_x if ops_y is ops_x
+             else {k: pad_operands(v, t, l_blk) for k, v in ops_y.items()})
+    sink_plan = masked_sink_plan(plan, mm, clip)
+    streams = []
+    for comp in mm.components:
+        rk, ck = measures.MASKED_COMPONENT_OPERANDS[comp]
+        same = pad_y is pad_x and rk == ck
+        streams.append(_stream(plan, pad_x[rk],
+                               None if same else pad_y[ck]))
+
+    def combined():
+        for items in zip(*streams):
+            k, ids, _ = items[0]
+            parts = {c: buf for c, (_, _, buf) in zip(mm.components, items)}
+            yield k, ids, mm.combine(parts)
+
+    return run_sink(sink_plan, sink, problem.x.device, combined())
+
+
+__all__ = ["PairwiseProblem", "corr", "masked_sink_plan"]

@@ -17,7 +17,9 @@ elementwise epilogue around the shared tile kernel:
   dot            identity                               identity        none
 
 Kendall's pair-sign rows are exactly +/-1/0 (``exact_int8``), so they may
-be stored as int8 operands.  The reference's merge-sort Kendall variants
+be stored as int8 operands.  Pearson, cosine and covariance also have
+pairwise-complete variants for missing data (:class:`MaskedMeasure`,
+``corr(..., where=)``).  The reference's merge-sort Kendall variants
 (``kendall_merge``, ``kendall_tau_b_merge``, and the substitution
 :func:`resolve_tile_kernel` makes at l >= 96) are ROADMAP slice 7 and
 raise ``NotImplementedError`` here; nothing computes in their place.
@@ -325,7 +327,144 @@ def dense_reference_pair(x: torch.Tensor, y: torch.Tensor,
     return meas.finalize(u @ v.T, l, clip=clip)
 
 
-__all__ = ["Measure", "MeasureLike", "PEARSON", "SPEARMAN", "COSINE",
+# -- pairwise-complete (masked) measures ------------------------------------------
+# With missing values each pair is scored over its common observed samples.
+# With A the values zeroed where missing, M the 0/1 mask and A2 = A * A, the
+# per-pair sums are six products of the same engine:
+#   sxy = A A'^T, n = M M'^T, sx = A M'^T, sy = M A'^T, qx = A2 M'^T,
+#   qy = M A2'^T,
+# and a MaskedMeasure combines the finished tiles elementwise.  Degenerate
+# pairs (fewer than 2 common samples, or zero variance / norm on the common
+# support) score 0.  Combines return unclipped values; the sink clips iff
+# the caller asked for it, as on any unfused run.
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskedMeasure:
+    """A pairwise-complete similarity as component products plus an
+    elementwise combine.  `components` is a subset of {sxy, n, sx, sy, qx,
+    qy}; `combine` maps the per-tile component dict to finished values."""
+
+    name: str
+    base: str                      # unmasked counterpart (registry name)
+    components: Tuple[str, ...]
+    combine: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
+    clip: Optional[Tuple[float, float]] = None
+
+
+def _masked_pearson_combine(p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    n, sxy, sx, sy = p["n"], p["sxy"], p["sx"], p["sy"]
+    cov = n * sxy - sx * sy
+    vx = n * p["qx"] - sx * sx
+    vy = n * p["qy"] - sy * sy
+    den = torch.sqrt(torch.clamp(vx, min=0.0) * torch.clamp(vy, min=0.0))
+    ok = (n >= 2.0) & (den > 0.0)
+    return torch.where(ok, cov / torch.where(ok, den, 1.0), 0.0)
+
+
+def _masked_cosine_combine(p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    den = torch.sqrt(torch.clamp(p["qx"], min=0.0)
+                     * torch.clamp(p["qy"], min=0.0))
+    ok = den > 0.0
+    return torch.where(ok, p["sxy"] / torch.where(ok, den, 1.0), 0.0)
+
+
+def _masked_cov_combine(p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    n = p["n"]
+    ok = n >= 2.0
+    safe_n = torch.where(ok, n, 1.0)
+    c = (p["sxy"] - p["sx"] * p["sy"] / safe_n) / torch.clamp(safe_n - 1.0,
+                                                              min=1.0)
+    return torch.where(ok, c, 0.0)
+
+
+MASKED_PEARSON = MaskedMeasure(
+    "pearson_complete", "pearson", ("sxy", "n", "sx", "sy", "qx", "qy"),
+    _masked_pearson_combine, (-1.0, 1.0))
+MASKED_COSINE = MaskedMeasure(
+    "cosine_complete", "cosine", ("sxy", "qx", "qy"),
+    _masked_cosine_combine, (-1.0, 1.0))
+MASKED_COVARIANCE = MaskedMeasure(
+    "covariance_complete", "covariance", ("sxy", "n", "sx", "sy"),
+    _masked_cov_combine, None)
+
+_MASKED_REGISTRY: Dict[str, MaskedMeasure] = {
+    "pearson": MASKED_PEARSON,
+    "pcc": MASKED_PEARSON,
+    "pearson_complete": MASKED_PEARSON,
+    "cosine": MASKED_COSINE,
+    "cosine_complete": MASKED_COSINE,
+    "covariance": MASKED_COVARIANCE,
+    "cov": MASKED_COVARIANCE,
+    "covariance_complete": MASKED_COVARIANCE,
+}
+
+
+# the masked measures' own names, as a masked run's plan carries them
+MASKED_NAMES = tuple(sorted(set(m.name for m in _MASKED_REGISTRY.values())))
+
+
+def get_masked(measure) -> MaskedMeasure:
+    """Resolve the pairwise-complete variant of a measure for masked runs
+    (``corr(..., where=)``)."""
+    if isinstance(measure, MaskedMeasure):
+        return measure
+    name = measure.name if isinstance(measure, Measure) else measure
+    try:
+        return _MASKED_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"measure {name!r} has no pairwise-complete (masked) variant; "
+            f"available: {MASKED_NAMES} "
+            f"(rank-based measures need joint re-ranking per pair, which "
+            f"does not factor into per-row GEMM operands)") from None
+
+
+def masked_operands(x: torch.Tensor,
+                    mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Derived row operands of one masked side: zeroed values A, the 0/1
+    mask M, and the zeroed squares A2 (float32)."""
+    m = torch.as_tensor(mask, device=x.device).to(torch.float32)
+    a = torch.where(m > 0, torch.nan_to_num(x.to(torch.float32)), 0.0)
+    return {"a": a, "m": m, "a2": a * a}
+
+
+# component name -> (row-side operand key, col-side operand key)
+MASKED_COMPONENT_OPERANDS: Dict[str, Tuple[str, str]] = {
+    "sxy": ("a", "a"),
+    "n": ("m", "m"),
+    "sx": ("a", "m"),
+    "sy": ("m", "a"),
+    "qx": ("a2", "m"),
+    "qy": ("m", "a2"),
+}
+
+
+def masked_dense_reference(x: torch.Tensor, mask_x: torch.Tensor,
+                           y: Optional[torch.Tensor] = None,
+                           mask_y: Optional[torch.Tensor] = None,
+                           measure="pearson", *,
+                           clip: bool = True) -> torch.Tensor:
+    """Dense pairwise-complete oracle: the same component products as the
+    tiled masked path, each one float32 matmul.  y=None scores x against
+    itself (the full square)."""
+    mm = get_masked(measure)
+    ox = masked_operands(x, mask_x)
+    oy = ox if y is None else masked_operands(y, mask_y)
+    parts = {}
+    for comp in mm.components:
+        rk, ck = MASKED_COMPONENT_OPERANDS[comp]
+        parts[comp] = ox[rk] @ oy[ck].T
+    r = mm.combine(parts)
+    if clip and mm.clip is not None:
+        r = torch.clamp(r, *mm.clip)
+    return r
+
+
+__all__ = ["Measure", "MeasureLike", "MaskedMeasure", "MASKED_PEARSON",
+           "MASKED_COSINE", "MASKED_COVARIANCE",
+           "MASKED_COMPONENT_OPERANDS", "MASKED_NAMES", "get_masked", "masked_operands",
+           "masked_dense_reference", "PEARSON", "SPEARMAN", "COSINE",
            "COVARIANCE", "KENDALL", "KENDALL_B", "DOT", "KENDALL_SIGN",
            "KENDALL_B_SIGN", "KENDALL_MERGE_CROSSOVER_L", "get", "register",
            "available", "resolve_fusion", "resolve_tile_kernel",

@@ -21,7 +21,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import mapping, measures, tiling
+from repro_torch.core import mapping, measures, quantize, tiling
+from repro_torch.core.quantize import Operand
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
                                           EpilogueSpec, dtype_name)
 
@@ -108,8 +109,11 @@ class ExecutionPlan:
         ceil(n/t) x ceil(n_cols/t) tile grid of an X-vs-Y product, and the
         executor takes a second operand holding the n_cols variables.
         compute_dtype narrows the stored operands after the float32
-        transform: torch.bfloat16 / "bfloat16" for any measure, torch.int8 /
-        "int8" for exact_int8 measures (Kendall's pair signs).
+        transform: torch.bfloat16 / "bfloat16" for any measure; torch.int8 /
+        "int8" stores exact_int8 measures' values (Kendall's pair signs) as
+        they are and quantizes every other measure's rows with absmax
+        scales, as torch.float8_e4m3fn / torch.float8_e5m2 do for every
+        measure (:func:`needs_row_scales`).
         """
         meas = measures.get(measure)
         cd = resolve_compute_dtype(meas, compute_dtype)
@@ -137,23 +141,36 @@ class ExecutionPlan:
                    max_tiles_per_pass=mtp, workload=workload, tile_c=tile_c,
                    compute_dtype=cd)
 
-    def _prepare_one(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def scaled(self) -> bool:
+        """Whether the prepared operands are quantized :class:`Operand`s
+        carrying per-row scales."""
+        return needs_row_scales(self.measure, self.compute_dtype)
+
+    def _prepare_one(self, x: torch.Tensor):
+        """The reference's ``prepare_operand_raw``: transform at float32,
+        then quantize with row scales, narrow, or keep float32; zero-pad."""
         u = self.measure.transform(x, dtype=torch.float32)
+        if self.scaled:
+            q, scale = quantize.quantize_rows(u, self.compute_dtype)
+            return Operand(pad_operands(q, self.t, self.l_blk),
+                           pad_scales(scale, self.t))
         if self.compute_dtype is not None:
             u = u.to(self.compute_dtype)
         return pad_operands(u, self.t, self.l_blk)
 
-    def prepare(self, x: torch.Tensor) -> torch.Tensor:
+    def prepare(self, x: torch.Tensor):
         """Row-transform x at >= float32, narrow to the compute dtype (the
         stored operand only; the kernel accumulates in float32, or int32
-        for int8) and zero-pad to kernel alignment."""
+        for int8) and zero-pad to kernel alignment.  Quantizing compute
+        dtypes return an :class:`Operand` of padded data and padded
+        scales."""
         if tuple(x.shape) != (self.n, self.l):
             raise ValueError(f"x shape {tuple(x.shape)} does not match plan "
                              f"(n={self.n}, l={self.l})")
         return self._prepare_one(x)
 
-    def prepare_pair(self, x: torch.Tensor, y: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def prepare_pair(self, x: torch.Tensor, y: torch.Tensor) -> Tuple:
         """Rectangular operands: transform x and y independently (the row
         transform is a per-row map) and pad each to kernel alignment."""
         if self.tile_c is None:
@@ -206,9 +223,9 @@ class ExecutionPlan:
 
 
 # compute dtypes the port stores operands in, by the reference's names
-_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
-_INT_NAMES = ("int8", "int16", "int32", "int64", "uint8", "uint16",
-              "uint32", "uint64")
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8,
+                   "float8_e4m3fn": torch.float8_e4m3fn,
+                   "float8_e5m2": torch.float8_e5m2}
 
 
 def resolve_compute_dtype(meas: measures.Measure,
@@ -216,28 +233,46 @@ def resolve_compute_dtype(meas: measures.Measure,
     """The stored operand type of (meas, compute_dtype), or None for the
     transform's float32.
 
-    Where the reference would quantize with per-row absmax scales (its
-    ``needs_row_scales``: every fp8 dtype, and integer dtypes on measures
-    that are not exact_int8) the port raises NotImplementedError naming
-    ROADMAP slice 6; it never narrows without the scales instead.
+    An fp8 type this torch cannot hold raises ValueError, as the reference
+    does: support is probed (:func:`quantize.fp8_supported`), never
+    assumed.  float16 and integer types other than int8 are not ported.
     """
     if compute_dtype is None:
         return None
     name = dtype_name(compute_dtype)
-    if name.startswith("float8"):
-        raise NotImplementedError(
-            f"compute_dtype={name}: fp8 operands are absmax-quantized with "
-            f"per-row scales in the reference; ROADMAP slice 6")
-    if name in _INT_NAMES and not meas.exact_int8:
-        raise NotImplementedError(
-            f"compute_dtype={name} on measure {meas.name!r}, whose transform "
-            f"is not integer-valued, takes the reference's absmax-quantized "
-            f"path; ROADMAP slice 6")
+    if quantize.is_fp8(name) and not quantize.fp8_supported(name):
+        raise ValueError(
+            f"compute_dtype={name} is not supported by this torch (probed, "
+            f"not assumed: see core/quantize.fp8_supported); use int8 or "
+            f"bfloat16")
     if name not in _COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"compute_dtype={name} is not ported; the port narrows operands "
-            f"to {tuple(_COMPUTE_DTYPES)} only (None keeps float32)")
+            f"compute_dtype={name} is not ported; the port stores operands "
+            f"as {tuple(_COMPUTE_DTYPES)} only (None keeps float32)")
     return _COMPUTE_DTYPES[name]
+
+
+def needs_row_scales(measure: measures.Measure, compute_dtype) -> bool:
+    """Whether (measure, compute_dtype) takes the quantized path (per-row
+    absmax scales, dequantized in the kernel) rather than a plain cast:
+    every fp8 type, and int8 on measures whose transform is not exactly
+    integer-valued.  exact_int8 measures keep their unscaled int8."""
+    if compute_dtype is None:
+        return False
+    name = dtype_name(compute_dtype)
+    if quantize.is_fp8(name):
+        return True
+    return name == "int8" and not measure.exact_int8
+
+
+def pad_scales(scale: torch.Tensor, t: int) -> torch.Tensor:
+    """Zero-pad per-row scales (n,) to the (n_pad,) row alignment: padding
+    rows dequantize to exact zeros."""
+    n = scale.shape[0]
+    n_pad = -(-n // t) * t
+    if n_pad == n:
+        return scale.contiguous()
+    return F.pad(scale, (0, n_pad - n))
 
 
 def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
@@ -251,4 +286,5 @@ def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
     return F.pad(u, (0, l_pad - l, 0, n_pad - n))
 
 
-__all__ = ["ExecutionPlan", "pad_operands", "resolve_compute_dtype"]
+__all__ = ["ExecutionPlan", "needs_row_scales", "pad_operands", "pad_scales",
+           "resolve_compute_dtype"]

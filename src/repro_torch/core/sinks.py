@@ -30,7 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.plan import ExecutionPlan, needs_row_scales
 
 # Rows per band of the in-place mirror: bounds the temporary of a diagonal
 # block at _BAND^2 floats.
@@ -278,11 +278,13 @@ class DeviceTopKSink(TopKSink):
     @staticmethod
     def supports(plan: ExecutionPlan) -> bool:
         """Whether this plan can take the device-side top-k path (the
-        predicate ``open()`` enforces).  Any stored operand type the plan
-        takes (float32, bfloat16, int8) can; the reference's scaled
-        (quantized) operands are not ported, so no scale check is needed."""
+        predicate ``open()`` enforces): a fused plan of unscaled float32,
+        bfloat16 or int8 operands.  Quantized operands (int8 with row scales
+        on non-exact_int8 measures, fp8) cannot: the scale product is not
+        fused into the top-k kernel."""
         return (plan.fused and getattr(plan.measure, "tile_kernel", None)
-                is None and not getattr(plan, "replicas", 0))
+                is None and not getattr(plan, "replicas", 0)
+                and not needs_row_scales(plan.measure, plan.compute_dtype))
 
     def open(self, plan: ExecutionPlan, device: torch.device) -> None:
         super().open(plan, device)
@@ -299,6 +301,11 @@ class DeviceTopKSink(TopKSink):
         if getattr(plan, "replicas", 0):
             raise ValueError("DeviceTopKSink does not support replica "
                              "(significance) runs")
+        if needs_row_scales(plan.measure, plan.compute_dtype):
+            raise ValueError(
+                "DeviceTopKSink does not support quantized scaled operands "
+                "— the dequant outer product is not fused into the top-k "
+                "merge; use TopKSink")
 
     def consume(self, ids: np.ndarray, state) -> None:
         """One pass's state: (row_vals, row_cols[, col_vals, col_cols]),

@@ -3,8 +3,9 @@
   pcc_tile.py         the tile kernel's and the top-k kernel's wrappers,
                       their plain versions and the fused EpilogueSpec
   csrc/pcc_accum.cuh  the tile accumulation both CUDA kernels share, one
-                      routine per operand type (float32, bf16, int8)
-  csrc/pcc_tile.cu    the all-pairs tile kernel, triangle and grid (sm_90a)
+                      routine per operand type (float32, bf16, fp8, int8)
+  csrc/pcc_tile.cu    the all-pairs tile kernel, triangle and grid, with
+                      per-row scales for quantized operands (sm_90a)
   csrc/pcc_topk.cu    the per-row top-k kernels, select and merge (sm_90a)
   _build.py           nvcc build at first use, ctypes binding
 """

@@ -32,11 +32,13 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # the EpilogueSpec arguments: has_div, recip, has_clip, lo, hi
 _EPI = [_I, _F, _I, _F, _F]
 # operand dtype suffixes of the entry points (kernels/pcc_tile.py
-# OPERAND_DTYPES): float32, bfloat16, int8
+# OPERAND_DTYPES): float32, bfloat16, int8, and for the tile kernel alone
+# float8_e4m3fn, float8_e5m2
 _SUFFIXES = ("f32", "bf16", "i8")
-# (u, v, out, j_start, pass_tiles, m, grid_cols, t, l_pad, *epilogue,
-#  stream) -> cudaError_t
-_TILES = (_I, [_P, _P, _P, _LL, _I, _I, _I, _I, _I, *_EPI, _P])
+_TILE_SUFFIXES = _SUFFIXES + ("e4m3", "e5m2")
+# (u, v, srow, scol, out, j_start, pass_tiles, m, grid_cols, t, l_pad,
+#  *epilogue, stream) -> cudaError_t
+_TILES = (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, *_EPI, _P])
 # (u, v, prv, prc, pcv, pcc, j_start, dev_hi, pass_tiles, m, grid_cols, t,
 #  l_pad, kk, n_cols_valid, symmetric, *epilogue, stream) -> cudaError_t
 _SELECT = (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
@@ -44,7 +46,7 @@ _SELECT = (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
 # source name -> {C function: (restype, argtypes)}
 SIGNATURES = {
     "pcc_tile": {
-        **{f"pcc_tiles_{s}": _TILES for s in _SUFFIXES},
+        **{f"pcc_tiles_{s}": _TILES for s in _TILE_SUFFIXES},
         "pcc_tile_error_string": (ctypes.c_char_p, [_I]),
     },
     "pcc_topk": {

@@ -1,19 +1,24 @@
 // All-pairs correlation tiles for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_tiles (body
-// _kernel) in its unscaled mode with the fused EpilogueSpec, with float32,
-// bfloat16 or int8 operands (entry points pcc_tiles_f32 / _bf16 / _i8; the
-// int8 and bf16 operand modes of _kernel, pcc_tile.py:136-149), for both
-// tile-id families:
+// _kernel) in every mode but the replica axis, with the fused EpilogueSpec,
+// for float32, bfloat16, int8, float8_e4m3fn and float8_e5m2 operands (entry
+// points pcc_tiles_f32 / _bf16 / _i8 / _e4m3 / _e5m2; the operand modes of
+// _kernel, pcc_tile.py:136-149), for both tile-id families:
 //   * the triangle (index maps _row_map/_col_map, grid_cols == 0): tiles of
-//     U U^T over the upper triangle of the m x m tile grid (paper Eq. 9);
+//     U V^T over the upper triangle of the m x m tile grid (paper Eq. 9),
+//     where V is U itself or a second operand of U's exact shape (the
+//     masked measures' cross components, pcc_tile.py:360-365);
 //   * the rectangular grid (_grid_row_map/_grid_col_map, grid_cols > 0):
 //     tiles of U V^T over the m x grid_cols grid, row-major, rows from U and
 //     columns from the second operand V (the X-vs-Y workload).
 // Output slot i of a launch holds tile jt = min(j_start + i, total - 1);
-// U = u_pad (n_pad, l_pad) and V = v_pad (grid_cols * t, l_pad) are
-// row-major, both of one operand type (V is U on the triangle); the output
-// is float32.
+// U = u_pad (n_pad, l_pad) and V = v_pad (grid_cols * t or n_pad rows,
+// l_pad) are row-major, both of one operand type; the output is float32.
+// Quantized operands (row_scale/col_scale, pcc_tile.py:152-165) bring
+// per-row float32 scales srow (U's rows) and scol (V's rows): the finished
+// value is multiplied by srow[y] * scol[x], the product first, before the
+// epilogue; both are null for unscaled launches.
 //
 // What bounds it: the float32 work is IEEE float32 FMA.  Hopper's tensor
 // cores have no IEEE-f32 mode (TF32 keeps 10 mantissa bits), so the kernel
@@ -26,7 +31,10 @@
 // is the bf16 tensor-core peak (989 TFLOP/s, ~1.6 ms at Table II), which
 // this kernel does not reach: a tensor-core (wgmma) redesign is later work.
 // int8 operands take __dp4a (4 products per instruction) into int32; their
-// bound is the int8 tensor-core peak (1,979 TOP/s).
+// bound is the int8 tensor-core peak (1,979 TOP/s).  fp8 operands widen at
+// the load like bf16 and take the SIMT FMA chain; their bound is the fp8
+// tensor-core peak (1,979 TFLOP/s).  The scale product is one multiply per
+// output, after the accumulation.
 //
 // Design: a register-blocked SIMT SGEMM (pcc_accum.cuh, shared with the
 // top-k kernel).  Each CTA of 256 threads computes a 64 x 64 block of one
@@ -35,8 +43,8 @@
 // (exact integer math on the triangle, one division on the grid), so any m
 // works, unlike the f32-only job_coord_f32 of the TPU kernel.  Every output
 // accumulates over k = 0 .. l_pad-1 in one sequential fmaf chain, so a
-// tile's bits do not depend on the pass it was launched in, and the epilogue
-// runs in registers before the single store.
+// tile's bits do not depend on the pass it was launched in, and the scale
+// product and the epilogue run in registers before the single store.
 
 #include "pcc_accum.cuh"
 
@@ -44,12 +52,27 @@ namespace {
 
 using namespace pcc;
 
-template <typename T>
+// The finished value of output (r, c) of the padded matrix: the scale
+// product (quantized operands), then the epilogue.  One routine for every
+// operand type, so the order is the same in all of them; unscaled launches
+// compile without the scale loads.
+template <bool SCALED>
+__device__ __forceinline__ float finalize(float v, const float* srow,
+                                          const float* scol, size_t r,
+                                          size_t c, int has_div, float recip,
+                                          int has_clip, float lo, float hi) {
+  if (SCALED) v = __fmul_rn(v, __fmul_rn(srow[r], scol[c]));
+  return epilogue(v, has_div, recip, has_clip, lo, hi);
+}
+
+template <typename T, bool SCALED>
 __global__ void __launch_bounds__(THREADS)
 pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                 float* __restrict__ out, long long j_start, int m,
-                 int grid_cols, int t, int l_pad, int nb, int has_div,
-                 float recip, int has_clip, float lo, float hi) {
+                 const float* __restrict__ srow,
+                 const float* __restrict__ scol, float* __restrict__ out,
+                 long long j_start, int m, int grid_cols, int t, int l_pad,
+                 int nb, int has_div, float recip, int has_clip, float lo,
+                 float hi) {
   __shared__ __align__(16) Stage st;
 
   long long jt = j_start + (long long)blockIdx.x;
@@ -77,43 +100,54 @@ pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
       const int cc = c_in + tx * TM + j;
       if (cc >= t) continue;
       tile[(size_t)rr * t + cc] =
-          epilogue(acc[i][j], has_div, recip, has_clip, lo, hi);
+          finalize<SCALED>(acc[i][j], srow, scol, (size_t)yt * t + rr,
+                   (size_t)xt * t + cc, has_div, recip, has_clip, lo, hi);
     }
   }
 }
 
 template <typename T>
-int launch(const T* u, const T* v, float* out, long long j_start,
-           int pass_tiles, int m, int grid_cols, int t, int l_pad,
-           int has_div, float recip, int has_clip, float lo, float hi,
-           void* stream) {
+int launch(const T* u, const T* v, const float* srow, const float* scol,
+           float* out, long long j_start, int pass_tiles, int m,
+           int grid_cols, int t, int l_pad, int has_div, float recip,
+           int has_clip, float lo, float hi, void* stream) {
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
-      j_start < 0)
+      j_start < 0 || (srow == nullptr) != (scol == nullptr))
     return (int)cudaErrorInvalidValue;
   const int nb = (t + BM - 1) / BM;
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb));
-  pcc_tiles_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      u, v, out, j_start, m, grid_cols, t, l_pad, nb, has_div, recip,
-      has_clip, lo, hi);
+  if (srow != nullptr)
+    pcc_tiles_kernel<T, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, has_div,
+        recip, has_clip, lo, hi);
+  else
+    pcc_tiles_kernel<T, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, has_div,
+        recip, has_clip, lo, hi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// grid_cols == 0 selects the triangle (v must then be u).
+// grid_cols == 0 selects the triangle (v is u, or a second operand of u's
+// shape); srow and scol are both null (unscaled) or both given.
 #define PCC_TILES_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const T* u, const T* v, float* out, long long j_start, \
+  extern "C" int NAME(const T* u, const T* v, const float* srow,              \
+                      const float* scol, float* out, long long j_start,       \
                       int pass_tiles, int m, int grid_cols, int t, int l_pad, \
                       int has_div, float recip, int has_clip, float lo,       \
                       float hi, void* stream) {                               \
-    return launch<T>(u, v, out, j_start, pass_tiles, m, grid_cols, t, l_pad,  \
-                     has_div, recip, has_clip, lo, hi, stream);               \
+    return launch<T>(u, v, srow, scol, out, j_start, pass_tiles, m,           \
+                     grid_cols, t, l_pad, has_div, recip, has_clip, lo, hi,   \
+                     stream);                                                 \
   }
 
 PCC_TILES_ENTRY(pcc_tiles_f32, float)
 PCC_TILES_ENTRY(pcc_tiles_bf16, __nv_bfloat16)
 PCC_TILES_ENTRY(pcc_tiles_i8, int8_t)
+PCC_TILES_ENTRY(pcc_tiles_e4m3, fp8_e4m3)
+PCC_TILES_ENTRY(pcc_tiles_e5m2, fp8_e5m2)
 
 extern "C" const char* pcc_tile_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

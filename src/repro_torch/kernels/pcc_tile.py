@@ -1,27 +1,33 @@
 """All-pairs correlation tiles and their per-row top-k: wrappers and plain
 versions.
 
-Port of ``repro/kernels/pcc_tile.py`` in its unscaled, fused-epilogue
-modes, with float32, bfloat16 or int8 operands (both operands of one
-dtype).  bfloat16 operands widen to float32 as they are loaded and take the
-float32 arithmetic, so a bf16 tile is bitwise the float32 tile of the
-widened operand; int8 operands (Kendall's exact pair signs) accumulate in
-int32 and convert to float32 once before the epilogue:
+Port of ``repro/kernels/pcc_tile.py`` in its single-operand-stack modes,
+with float32, bfloat16, int8 or fp8 (``float8_e4m3fn``, ``float8_e5m2``)
+operands (both operands of one dtype).  bfloat16 and fp8 operands widen to
+float32 as they are loaded (exactly) and take the float32 arithmetic, so
+such a tile is bitwise the float32 tile of the widened operand; int8
+operands accumulate in int32 and convert to float32 once.  Quantized
+operands (core/quantize.py) bring per-row scales: the finished tile is
+multiplied by the scale product ``row_scale[y] * col_scale[x]`` before the
+epilogue.
 
 ``pcc_tiles`` (Pallas body ``_kernel``): ``pass_tiles`` consecutive (t, t)
 tiles from the runtime tile id ``j_start``.  On the triangle (``grid_cols``
 None) each id is inverted to its (y, x) upper-triangle coordinate and the
-tile is U U^T; on the rectangular grid (``grid_cols`` an int) ids number the
-m x grid_cols grid row-major and the tile is U V^T with columns from the
-second operand ``v_pad``.  Each tile accumulates over the whole sample axis
-in IEEE float32, and the fused :class:`EpilogueSpec` (x 1/div, then clip)
-runs before the single store.  Ids past the end clamp to the last tile.
+tile is U U^T, or U V^T with columns from a second operand ``v_pad`` of
+U's exact shape (the masked measures' cross components); on the
+rectangular grid (``grid_cols`` an int) ids number the m x grid_cols grid
+row-major and the tile is U V^T with columns from ``v_pad``.  Each tile
+accumulates over the whole sample axis in IEEE float32, then the scale
+product (if any) and the fused :class:`EpilogueSpec` (x 1/div, then clip)
+run before the single store.  Ids past the end clamp to the last tile.
 
 ``pcc_topk_tiles`` (Pallas bodies ``_topk_kernel``/``_topk_select``): the
 same tiles, folded into per-row (value, column) top-kk state under the
 canonical order (|v| descending, then column ascending) instead of being
 returned; triangles also rank the transposed off-diagonal tiles into a
-mirrored column state.
+mirrored column state.  It takes unscaled float32, bfloat16 or int8
+operands, and no second operand on the triangle.
 
 Dispatch is by the operand's device: a CUDA tensor launches the CUDA kernels
 (kernels/csrc/pcc_tile.cu, kernels/csrc/pcc_topk.cu) or raises; a CPU tensor
@@ -47,9 +53,13 @@ DEFAULT_LBLK = 512
 # (csrc/pcc_accum.cuh BM, csrc/pcc_topk.cu KK_MAX).
 CTA_BLOCK = 64
 KK_MAX = 256
-# Operand dtypes the kernels take -> suffix of their C entry points.
+# Operand dtypes the tile kernel takes -> suffix of its C entry points; the
+# top-k kernel takes the first three.
 OPERAND_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
-                  torch.int8: "i8"}
+                  torch.int8: "i8", torch.float8_e4m3fn: "e4m3",
+                  torch.float8_e5m2: "e5m2"}
+TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 # int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
 INT8_MAX_L_PAD = (2**31 - 1) // 128**2
 
@@ -64,9 +74,9 @@ def dtype_name(dtype) -> str:
     return str(getattr(dtype, "name", dtype))
 
 
-def _dtype_counts() -> dict:
+def _dtype_counts(dtypes=tuple(OPERAND_DTYPES)) -> dict:
     """A launch count per operand dtype, keyed by its name."""
-    return {dtype_name(d): 0 for d in OPERAND_DTYPES}
+    return {dtype_name(d): 0 for d in dtypes}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +126,8 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
     if u_pad.device.type not in ("cuda", "cpu"):
         raise ValueError(f"u_pad on unsupported device {u_pad.device}")
     if u_pad.dtype not in OPERAND_DTYPES:
-        raise ValueError(f"u_pad must be float32, bfloat16 or int8, got "
-                         f"{u_pad.dtype}")
+        raise ValueError(f"u_pad must be float32, bfloat16 or int8, or "
+                         f"float8_e4m3fn / float8_e5m2, got {u_pad.dtype}")
     if not u_pad.is_contiguous():
         raise ValueError("u_pad must be contiguous")
     n_pad, l_pad = u_pad.shape
@@ -133,13 +143,9 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
         raise ValueError(f"int8 operands with l_pad={l_pad} > "
                          f"{INT8_MAX_L_PAD} could overflow the int32 sums")
     m = n_pad // t
-    if grid_cols is None:
-        if v_pad is not None:
-            raise NotImplementedError(
-                "a second operand on the triangle (the masked measures' "
-                "composite GEMMs) is not ported yet: ROADMAP slice 5")
+    if grid_cols is None and v_pad is None:
         return m, m * (m + 1) // 2, u_pad
-    if v_pad is None:
+    if grid_cols is not None and v_pad is None:
         raise NotImplementedError(
             "the grid of U against itself (the reference's symmetric_grid "
             "mode) is not ported: pass v_pad with grid_cols")
@@ -150,13 +156,43 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
     if v.device != u_pad.device or v.dtype != u_pad.dtype or \
             not v.is_contiguous():
         raise ValueError(f"v_pad must be a contiguous tensor of u_pad's dtype "
-                         f"({u_pad.dtype}; float32, bfloat16 or int8) on "
-                         f"{u_pad.device}, got {v.dtype} on {v.device}")
+                         f"({u_pad.dtype}) on {u_pad.device}, got {v.dtype} "
+                         f"on {v.device}")
+    if grid_cols is None:
+        if v.shape != u_pad.shape:
+            raise ValueError(
+                f"a 2-D second operand may ride the triangular bijection "
+                f"only when it matches u_pad exactly (symmetric composite "
+                f"GEMMs), got v_pad {tuple(v.shape)} vs u_pad "
+                f"{tuple(u_pad.shape)}")
+        return m, m * (m + 1) // 2, v
     if grid_cols <= 0 or v.shape[-1] != l_pad or v.shape[-2] != grid_cols * t:
         raise ValueError(
             f"column operand {tuple(v.shape)} does not match grid_cols="
             f"{grid_cols} tiles of t={t} over l_pad={l_pad}")
     return m, m * grid_cols, v
+
+
+def _check_scales(u_pad: torch.Tensor, v: torch.Tensor,
+                  row_scale: Optional[torch.Tensor],
+                  col_scale: Optional[torch.Tensor]) -> bool:
+    """Validate the per-row dequantization scales; returns whether the
+    launch is scaled."""
+    if (row_scale is None) != (col_scale is None):
+        raise ValueError("row_scale and col_scale must be given together "
+                         "(pass the same scales twice for symmetric runs)")
+    if row_scale is None:
+        return False
+    for name, s, rows in (("row_scale", row_scale, u_pad.shape[0]),
+                          ("col_scale", col_scale, v.shape[0])):
+        if not isinstance(s, torch.Tensor) or tuple(s.shape) != (rows,) or \
+                s.dtype != torch.float32 or s.device != u_pad.device or \
+                not s.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous ({rows},) float32 tensor on "
+                f"{u_pad.device}, got "
+                f"{getattr(s, 'dtype', type(s))} {tuple(getattr(s, 'shape', ()))}")
+    return True
 
 
 def _coords(m: int, grid_cols: Optional[int], ids: np.ndarray):
@@ -175,27 +211,39 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
               l_blk: int = DEFAULT_LBLK, pass_tiles: int,
               epilogue: Optional[EpilogueSpec] = None,
               v_pad: Optional[torch.Tensor] = None,
-              grid_cols: Optional[int] = None) -> torch.Tensor:
+              grid_cols: Optional[int] = None,
+              row_scale: Optional[torch.Tensor] = None,
+              col_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Compute `pass_tiles` consecutive tiles from tile id `j_start`.
 
     u_pad: (n_pad, l_pad) transformed variables (Eq. 4), zero-padded so
            n_pad % t == 0 and l_pad % l_blk == 0, contiguous; float32,
-           bfloat16, or int8 (integer-valued transforms, l_pad <=
-           INT8_MAX_L_PAD).
+           bfloat16, int8 (l_pad <= INT8_MAX_L_PAD), float8_e4m3fn or
+           float8_e5m2.
     epilogue: optional EpilogueSpec applied before the store.
-    v_pad / grid_cols: grid_cols=None runs the triangle of U against itself;
-           an int selects the rectangular grid, rows from U and columns from
-           v_pad (grid_cols * t, l_pad), which the grid requires.
+    v_pad / grid_cols: grid_cols=None runs the triangle, columns from U or
+           from a v_pad of U's exact shape and dtype; an int selects the
+           rectangular grid, rows from U and columns from v_pad
+           (grid_cols * t, l_pad), which the grid requires.
+    row_scale / col_scale: optional (n_pad,) and (column rows,) float32
+           per-row dequantization scales of quantized operands, given
+           together; each finished tile is multiplied by
+           row_scale[y] * col_scale[x] (the product first) before the
+           epilogue.
     Returns (pass_tiles, t, t) float32.  ``pcc_tiles.launches`` counts the
     CUDA kernel's launches, ``pcc_tiles.launches_by_dtype`` per operand
-    dtype.
+    dtype, ``pcc_tiles.scaled_launches`` those with scales and
+    ``pcc_tiles.triangle_pair_launches`` those on the triangle with a second
+    operand.
     """
     j_start = int(j_start)
     m, _, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad, grid_cols)
+    scaled = _check_scales(u_pad, v, row_scale, col_scale)
     if u_pad.device.type == "cpu":
         return pcc_tiles_plain(u_pad, j_start, t=t, l_blk=l_blk,
                                pass_tiles=pass_tiles, epilogue=epilogue,
-                               v_pad=v_pad, grid_cols=grid_cols)
+                               v_pad=v_pad, grid_cols=grid_cols,
+                               row_scale=row_scale, col_scale=col_scale)
     from repro_torch.kernels import _build
 
     lib = _build.load("pcc_tile")
@@ -207,17 +255,23 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
         fn = getattr(lib, "pcc_tiles_" + OPERAND_DTYPES[u_pad.dtype])
         err = fn(
             ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
+            *_ptrs([row_scale, col_scale] if scaled else [], 2),
             ctypes.c_void_p(out.data_ptr()), j_start, pass_tiles, m,
             grid_cols or 0, t, u_pad.shape[1], *spec.kernel_args(),
             ctypes.c_void_p(stream))
     _launch_error(lib, err, "pcc_tiles", "pcc_tile")
     pcc_tiles.launches += 1
     pcc_tiles.launches_by_dtype[dtype_name(u_pad.dtype)] += 1
+    pcc_tiles.scaled_launches += int(scaled)
+    pcc_tiles.triangle_pair_launches += int(grid_cols is None
+                                            and v_pad is not None)
     return out
 
 
 pcc_tiles.launches = 0
 pcc_tiles.launches_by_dtype = _dtype_counts()
+pcc_tiles.scaled_launches = 0
+pcc_tiles.triangle_pair_launches = 0
 
 
 def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
@@ -225,23 +279,29 @@ def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
                     pass_tiles: int,
                     epilogue: Optional[EpilogueSpec] = None,
                     v_pad: Optional[torch.Tensor] = None,
-                    grid_cols: Optional[int] = None) -> torch.Tensor:
+                    grid_cols: Optional[int] = None,
+                    row_scale: Optional[torch.Tensor] = None,
+                    col_scale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Plain PyTorch version of :func:`pcc_tiles`, on any device.
 
     Transcribes the Pallas grid: tile ids invert on the host with the exact
     ``job_coord_batch`` (or the grid's division), each (t, l_blk) row and
     column block pair adds its float32 product into the tile, then the
-    epilogue runs.  On the card, callers set
+    scale product and the epilogue run.  On the card, callers set
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) so the
     products stay IEEE float32.
 
-    bfloat16 operands widen to float32 first.  int8 operands widen to
-    float64, where every integer sum up to 2^53 is exact in any order, and
-    round once to float32: bitwise the kernel's int32 sum converted.
+    bfloat16 and fp8 operands widen to float32 first (exactly).  int8
+    operands widen to float64, where every integer sum up to 2^53 is exact
+    in any order, and round once to float32: bitwise the kernel's int32 sum
+    converted.  Scales multiply as ``tile * (row_scale[y] * col_scale[x])``
+    in float32, as the kernel does.
     """
     j_start = int(j_start)
     m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                          grid_cols)
+    scaled = _check_scales(u_pad, v, row_scale, col_scale)
     ids = np.minimum(j_start + np.arange(pass_tiles, dtype=np.int64),
                      total - 1)
     ys, xs = _coords(m, grid_cols, ids)
@@ -250,21 +310,42 @@ def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
     xs = torch.as_tensor(xs, device=dev)
     l_pad = u_pad.shape[1]
     wide = torch.float64 if u_pad.dtype == torch.int8 else torch.float32
-    u3 = u_pad.view(m, t, l_pad)
-    v3 = v.view(v.shape[0] // t, t, l_pad)
+    # fp8 blocks are gathered as their bytes (indexing kernels need not
+    # take fp8 types), then viewed back and widened
+    raw = torch.uint8 if u_pad.dtype in _FP8 else u_pad.dtype
+    u3 = u_pad.view(raw).view(m, t, l_pad)
+    v3 = v.view(raw).view(v.shape[0] // t, t, l_pad)
     acc = torch.zeros((pass_tiles, t, t), dtype=wide, device=dev)
     for k0 in range(0, l_pad, l_blk):
-        rows = u3[ys, :, k0:k0 + l_blk].to(wide)
-        cols = v3[xs, :, k0:k0 + l_blk].to(wide)
+        rows = u3[ys, :, k0:k0 + l_blk].view(u_pad.dtype).to(wide)
+        cols = v3[xs, :, k0:k0 + l_blk].view(u_pad.dtype).to(wide)
         acc += torch.bmm(rows, cols.transpose(1, 2))
     acc = acc.to(torch.float32)
+    if scaled:
+        srow = row_scale.view(m, t)[ys]
+        scol = col_scale.view(-1, t)[xs]
+        acc = acc * (srow[:, :, None] * scol[:, None, :])
     if epilogue is not None and not epilogue.is_identity():
         acc = epilogue.apply(acc)
     return acc
 
 
-def _check_topk(kk: int, dev_hi: int, total: int, n_cols_valid: int,
-                v: torch.Tensor) -> None:
+def _check_topk(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
+                pass_tiles: int, v_pad: Optional[torch.Tensor],
+                grid_cols: Optional[int], kk: int, dev_hi: int,
+                n_cols_valid: int) -> Tuple[int, int, torch.Tensor]:
+    """Validate a top-k launch; returns (m, total, column operand)."""
+    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                         grid_cols)
+    if u_pad.dtype not in TOPK_DTYPES:
+        raise ValueError(f"pcc_topk_tiles takes float32, bfloat16 or int8 "
+                         f"operands, got {u_pad.dtype} (fp8 operands carry "
+                         f"row scales, which the top-k kernel does not take)")
+    if grid_cols is None and v_pad is not None:
+        raise NotImplementedError(
+            "pcc_topk_tiles takes no second operand on the triangle: the "
+            "masked runs of ROADMAP slice 5 that pass one stream tiles "
+            "(DeviceTopKSink refuses them), so no caller needs it")
     if not 0 < kk <= KK_MAX:
         raise ValueError(f"kk must be in [1, {KK_MAX}], got {kk}")
     if not 0 <= dev_hi <= total:
@@ -273,6 +354,7 @@ def _check_topk(kk: int, dev_hi: int, total: int, n_cols_valid: int,
     if not 0 < n_cols_valid <= v.shape[0]:
         raise ValueError(f"n_cols_valid must be in [1, {v.shape[0]}], got "
                          f"{n_cols_valid}")
+    return m, total, v
 
 
 def topk_scratch_bytes(pass_tiles: int, t: int, kk: int,
@@ -312,9 +394,8 @@ def pcc_topk_tiles(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
                 n_cols_valid=n_cols_valid,
                 symmetric_problem=symmetric_problem, epilogue=epilogue,
                 v_pad=v_pad, grid_cols=grid_cols)
-    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
-                         grid_cols)
-    _check_topk(kk, dev_hi, total, n_cols_valid, v)
+    m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                              grid_cols, kk, dev_hi, n_cols_valid)
     if u_pad.device.type == "cpu":
         return pcc_topk_tiles_plain(u_pad, j_start, dev_hi, **args)
     scratch = topk_select(u_pad, j_start, dev_hi, **args)
@@ -323,7 +404,7 @@ def pcc_topk_tiles(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
 
 
 pcc_topk_tiles.launches = {"select": 0, "merge": 0}
-pcc_topk_tiles.select_by_dtype = _dtype_counts()
+pcc_topk_tiles.select_by_dtype = _dtype_counts(TOPK_DTYPES)
 
 
 def _ptrs(tensors, count: int):
@@ -341,9 +422,8 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     only): each tile line's top-min(kk, 64) per 64-wide block, into a pass
     scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) (value, column)
     pairs per side (rows; columns too on the triangle)."""
-    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
-                         grid_cols)
-    _check_topk(kk, dev_hi, total, n_cols_valid, v)
+    m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                              grid_cols, kk, dev_hi, n_cols_valid)
     if u_pad.device.type != "cuda":
         raise ValueError("topk_select launches the CUDA kernel; CPU tensors "
                          "take pcc_topk_tiles_plain")
@@ -433,9 +513,8 @@ def pcc_topk_tiles_plain(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
     reference's tile-by-tile fold.
     """
     j_start, dev_hi = int(j_start), int(dev_hi)
-    m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
-                         grid_cols)
-    _check_topk(kk, dev_hi, total, n_cols_valid, v)
+    m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                              grid_cols, kk, dev_hi, n_cols_valid)
     n_valid = min(pass_tiles, dev_hi - j_start)
     tiles = None
     if n_valid > 0:
@@ -488,7 +567,7 @@ def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
 
 
 __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
-           "OPERAND_DTYPES", "INT8_MAX_L_PAD", "dtype_name",
+           "OPERAND_DTYPES", "TOPK_DTYPES", "INT8_MAX_L_PAD", "dtype_name",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
            "topk_fold_plain", "topk_scratch_bytes"]

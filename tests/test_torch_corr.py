@@ -148,7 +148,11 @@ def test_convert_reproduces_reference_tiles_and_result():
 
 def test_convert_refuses_modes_of_later_slices():
     spec = RefPlan.create(37, 29, t=8, l_blk=8).spec_dict()
-    for key, value in [("compute_dtype", "float8_e4m3fn"), ("p", 4),
+    # fp8 operands are ported: the spec converts, key for key
+    fp8 = {**spec, "compute_dtype": "float8_e4m3fn"}
+    plan = convert.plan_from_reference(fp8)
+    assert plan.spec_dict() == fp8 and plan.scaled
+    for key, value in [("compute_dtype", "float16"), ("p", 4),
                        ("symmetric_grid", True), ("replicas", 8)]:
         with pytest.raises(NotImplementedError):
             convert.plan_from_reference({**spec, key: value})
@@ -222,8 +226,18 @@ def test_corr_without_device_raises_on_a_machine_without_a_card():
     dict(resume_from="r.mm"), dict(pvalues=object()), dict(recovery=object()),
 ])
 def test_unported_corr_options_name_their_slice(kw):
+    x = _x(37, 29)
+    if set(kw) <= {"where", "compute_dtype"}:
+        # ported: masked runs (slice 5) and fp8 operands (slice 6) match
+        # the reference
+        got = corr(x, t=8, l_blk=8, max_tiles_per_pass=4, device="cpu", **kw)
+        want = ref_corr(jnp.asarray(x), t=8, l_blk=8, max_tiles_per_pass=4,
+                        **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        corr(_x(37, 29), device="cpu", **kw)
+        corr(x, device="cpu", **kw)
 
 
 def test_measures_of_later_slices_raise():

@@ -121,8 +121,13 @@ def test_grid_tiles_check_their_operands():
         pcc_tiles(u, 0, v_pad=v.double(), grid_cols=3, **kw)
     with pytest.raises(ValueError, match="2-D"):
         pcc_tiles(u, 0, v_pad=v[None], grid_cols=3, **kw)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pcc_tiles(u, 0, v_pad=u, **kw)     # a second operand on the triangle
+    # a second operand on the triangle: U's exact shape and dtype only
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (40, 8)).astype(np.float32))
+    assert torch.equal(pcc_tiles(w, 0, v_pad=w.clone(), **kw),
+                       pcc_tiles(w, 0, **kw))
+    with pytest.raises(ValueError, match="matches u_pad exactly"):
+        pcc_tiles(u, 0, v_pad=torch.zeros(48, 8), **kw)
     with pytest.raises(NotImplementedError, match="symmetric_grid"):
         pcc_tiles(u, 0, grid_cols=5, **kw)     # U against itself: not ported
 

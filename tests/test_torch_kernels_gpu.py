@@ -13,7 +13,8 @@ import torch
 from repro_torch.core.api import corr
 from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 from repro_torch.core.pcc import transform
-from repro_torch.core.plan import pad_operands
+from repro_torch.core.plan import pad_operands, pad_scales
+from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.sinks import DeviceTopKSink, TopKSink
 from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
                                           pcc_tiles_plain, pcc_topk_tiles,
@@ -331,3 +332,115 @@ def test_measures_on_card_match_cpu(cuda, measure, dtype):
     want = corr(x, sink=TopKSink(7), device=cuda, **kw)
     np.testing.assert_array_equal(got["indices"], want["indices"])
     np.testing.assert_array_equal(got["values"], want["values"])
+
+
+def _quantized(n, l, t, l_blk, device, qdtype, seed=0):
+    """A Pearson operand quantized with per-row scales, padded."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, l)).astype(np.float32))
+    q, s = quantize_rows(transform(x.to(device)), qdtype)
+    return pad_operands(q, t, l_blk), pad_scales(s, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["int8", "float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("n,l,t,l_blk,j_start,pass_tiles", [
+    (37, 29, 8, 8, 0, 15),
+    (37, 20, 8, 8, 12, 3),
+    (300, 700, 96, 64, 1, 5),
+    (600, 1000, 256, 512, 4, 5),
+])
+def test_scaled_kernel_bitwise_invariants(cuda, qdtype, grid, n, l, t, l_blk,
+                                          j_start, pass_tiles):
+    """Scaled int8 tiles are bitwise the plain version's; fp8 tiles are
+    bitwise the float32 kernel's on the widened codes, times the scale
+    product, then the epilogue."""
+    u, su = _quantized(n, l, t, l_blk, cuda, qdtype)
+    v, sv = (_quantized(n // 2 + 3, l, t, l_blk, cuda, qdtype, seed=1)
+             if grid else (None, su))
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    ids = np.minimum(j_start + np.arange(pass_tiles), total - 1)
+    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+              else job_coord_batch(m, ids))
+    prod = (su.view(m, t)[torch.as_tensor(ys, device=cuda)][:, :, None]
+            * sv.view(-1, t)[torch.as_tensor(xs, device=cuda)][:, None, :])
+    for spec in (None, EpilogueSpec(clip=(-1.0, 1.0)),
+                 EpilogueSpec(div=7.0, clip=(-0.05, 0.05))):
+        kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
+                  v_pad=v, grid_cols=gc, row_scale=su, col_scale=sv)
+        before = (dict(pcc_tiles.launches_by_dtype),
+                  pcc_tiles.scaled_launches)
+        got = pcc_tiles(u, j_start, **kw)
+        want = pcc_tiles_plain(u, j_start, **kw)
+        torch.cuda.synchronize()
+        assert pcc_tiles.launches_by_dtype[qdtype] == before[0][qdtype] + 1
+        assert pcc_tiles.scaled_launches == before[1] + 1
+        if qdtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            raw = pcc_tiles(u.float(), j_start, t=t, l_blk=l_blk,
+                            pass_tiles=pass_tiles,
+                            v_pad=None if v is None else v.float(),
+                            grid_cols=gc)
+            ref = raw * prod
+            assert torch.equal(got, spec.apply(ref) if spec else ref)
+            torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,l,t,l_blk,j_start,pass_tiles", [
+    (37, 29, 8, 8, 0, 15),
+    (37, 29, 8, 8, 13, 6),       # clamped ids past the end
+    (300, 700, 96, 64, 1, 5),
+    (600, 1000, 256, 512, 0, 6),
+])
+def test_triangle_second_operand_equals_grid_tiles(cuda, dtype, n, l, t,
+                                                   l_blk, j_start,
+                                                   pass_tiles):
+    """A triangle tile with a same-shape second operand is bitwise the grid
+    tile at the same (y, x) with that operand."""
+    u = _operand(n, l, t, l_blk, cuda).to(getattr(torch, dtype))
+    w = _operand(n, l, t, l_blk, cuda, seed=2).to(getattr(torch, dtype))
+    m = u.shape[0] // t
+    spec = EpilogueSpec(clip=(-1.0, 1.0))
+    before = pcc_tiles.triangle_pair_launches
+    got = pcc_tiles(u, j_start, t=t, l_blk=l_blk, pass_tiles=pass_tiles,
+                    epilogue=spec, v_pad=w)
+    assert pcc_tiles.triangle_pair_launches == before + 1
+    ys, xs = job_coord_batch(m, np.minimum(
+        j_start + np.arange(pass_tiles), m * (m + 1) // 2 - 1))
+    grid = pcc_tiles(u, 0, t=t, l_blk=l_blk, pass_tiles=m * m, epilogue=spec,
+                     v_pad=w, grid_cols=m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, grid[torch.as_tensor(ys * m + xs, device=cuda)])
+    torch.testing.assert_close(got, pcc_tiles_plain(
+        u, j_start, t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
+        v_pad=w), rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("measure", ["pearson", "cosine", "covariance"])
+@pytest.mark.parametrize("compute_dtype", [None, "int8", "float8_e4m3fn"])
+def test_masked_and_quantized_corr_on_card_match_cpu(cuda, measure,
+                                                     compute_dtype):
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((200, 40)) / np.sqrt(40)).astype(np.float32)
+    kw = dict(measure=measure, t=32, l_blk=32, max_tiles_per_pass=7)
+    if compute_dtype is None:     # masked: 20 % missing
+        x[rng.random(x.shape) < 0.2] = np.nan
+        kw["where"] = "nan"
+    else:
+        kw["compute_dtype"] = compute_dtype
+    r = corr(x, device=cuda, **kw)
+    assert torch.equal(r, r.T)
+    torch.testing.assert_close(r.cpu(), corr(x, device="cpu", **kw), rtol=0,
+                               atol=ATOL)
+    y = x[:70]
+    kw_y = {**kw, "where": (None, None)} if compute_dtype is None else kw
+    torch.testing.assert_close(corr(x, y, device=cuda, **kw_y).cpu(),
+                               corr(x, y, device="cpu", **kw_y), rtol=0,
+                               atol=ATOL)
