@@ -69,7 +69,22 @@ Phases, each fatal on failure:
      and with scales, 16 rows against float64 within the reference's
      budgets, TopKSink(10) (DeviceTopKSink refuses), times, peak memory;
      the scaled kernel modes at that shape against their plain versions,
-     timed with their bounds and a library yardstick each.
+     timed with their bounds and a library yardstick each;
+ 18. significance through the replica axis of pcc_tiles: the replica mode
+     at phase 2's shapes for every operand type (each replica bitwise the
+     2-D kernel's tiles; float32 within tolerance of plain, int8 and scaled
+     int8 bitwise plain, bf16 / fp8 bitwise the float32 replica kernel on
+     the widened stack); the headline, corr(x_tf, pvalues=PermutationSpec(
+     1000, key=0)) over phase 8's 1,639 TF rows (paper SSIV: >= 1,000
+     permutations): launch counts (B replicas per pass, only through the
+     kernel), r bitwise corr(x_tf), p exactly symmetric with 1/(B+1) on the
+     diagonal, 8 rows' counts against float64 replicas except at printed
+     near-ties, p bitwise at chunk 37 and at 5-tile passes (B = 200); the
+     replica kernel alone against its plain version and 2-D launches,
+     timed with its bound and a library yardstick, corr end to end and its
+     peak memory; then Table II at B = 8 (the replica mode at the main
+     path's full shape), TF x Table II at B = 32 with chunk 16 (the grid's
+     replica mode) and the int8-quantized headline at B = 200.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -130,6 +145,13 @@ K_TOP = 10                         # examples/coexpression_network.py --topk 10
 N_TF = 1_639                       # human TFs (Lambert et al., Cell 2018)
 N_64K, L_64K = 64_000, 5_000       # paper Table I, configs ARTIFICIAL_64K
 CHECK_ROWS = 16
+# Significance (phase 18): B permutations (paper SSIV: >= 1,000), key 0.
+B_SIG = 1_000
+SIG_ROWS = 8
+# A count compares two float32 values, each within ~TOL_F64 of its float64
+# value: where a replica's float64 |r| lies within 2 * TOL_F64 of the
+# observed one, the float32 comparison may go either way (a near-tie).
+TIE_SIG = 2 * TOL_F64
 
 
 def gpu_info() -> str:
@@ -218,6 +240,7 @@ def check_rows_topk(res, rows, u64, v64, k, self_pairs, tol, label):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
 
@@ -226,6 +249,9 @@ def main() -> int:
     from repro_torch.core.mapping import job_coord_batch
     from repro_torch.core.plan import ExecutionPlan, pad_operands, pad_scales
     from repro_torch.core.quantize import quantize_rows
+    from repro_torch.core.significance import (PermutationSpec,
+                                               iteration_indices,
+                                               replica_operand)
     from repro_torch.data.expression import ExpressionSpec, artificial
     from repro_torch.core.sinks import DeviceTopKSink, TopKSink
     from repro_torch.kernels import _build
@@ -535,6 +561,8 @@ def main() -> int:
         pcc_tiles.launches = 0
         pcc_tiles.scaled_launches = 0
         pcc_tiles.triangle_pair_launches = 0
+        pcc_tiles.replica_launches = 0
+        pcc_tiles.replicas_launched = 0
         pcc_topk_tiles.launches = {"select": 0, "merge": 0}
         pcc_tiles.launches_by_dtype = {k: 0 for k in
                                        pcc_tiles.launches_by_dtype}
@@ -1538,6 +1566,349 @@ def main() -> int:
     quant["pair"] = dict(launches=pair_launches, ms=pr_ms, plain=pr_plain,
                          lib=pr_lib, bound=pr_bound)
 
+    # -- 18. significance: the replica axis of pcc_tiles ---------------------
+    def replica_small(dname, n, l, t, l_blk, grid, reps):
+        """(u, stack, row scales, col scales) of the replica mode at a small
+        shape: `reps` column operands of type dname ("int8s": scaled int8,
+        "int8": Kendall pair signs)."""
+        rows = n // 2 + 3 if grid else n
+        xs_ = torch.from_numpy(rng.standard_normal((n, l)).astype(
+            np.float32)).to(dev)
+        cs_ = [torch.from_numpy(rng.standard_normal((rows, l)).astype(
+            np.float32)).to(dev) for _ in range(reps)]
+        if dname == "int8":
+            return (kendall_operand(xs_, t, l_blk),
+                    torch.stack([kendall_operand(c, t, l_blk) for c in cs_]),
+                    None, None)
+        if dname in ("int8s", "float8_e4m3fn", "float8_e5m2"):
+            qn = "int8" if dname == "int8s" else dname
+            qx, sx_ = quantize_rows(pcc.transform(xs_), qn)
+            qs = [quantize_rows(pcc.transform(c), qn) for c in cs_]
+            stack = torch.stack([pad_operands(q, t, l_blk).view(torch.uint8)
+                                 for q, _ in qs]).view(qx.dtype)
+            return (pad_operands(qx, t, l_blk), stack, pad_scales(sx_, t),
+                    torch.stack([pad_scales(s_, t) for _, s_ in qs]))
+        dt = getattr(torch, dname)
+        return (operand(xs_, t, l_blk).to(dt),
+                torch.stack([operand(c, t, l_blk).to(dt) for c in cs_]),
+                None, None)
+
+    print("replica mode at phase 2's shapes: each replica bitwise the 2-D "
+          "kernel's tiles; float32 within tolerance of plain, int8 and "
+          "scaled int8 bitwise plain, bf16 / fp8 bitwise the float32 replica "
+          "kernel on the widened stack:")
+    rep_err = 0.0
+    rep_cases = 0
+    for n, l, t, l_blk, j0, tiles in (small[1], small[3], small[6]):
+        for dname in ("float32", "bfloat16", "int8", "int8s",
+                      "float8_e4m3fn", "float8_e5m2"):
+            for grid in (False, True):
+                for reps in (1, 3, 5):
+                    u, stack, su, scol = replica_small(dname, n, l, t, l_blk,
+                                                       grid, reps)
+                    m = u.shape[0] // t
+                    gc = stack.shape[1] // t if grid else None
+                    label = (f"replica {dname} "
+                             f"{'grid' if grid else 'triangle'} R={reps} "
+                             f"n={n} l={l} t={t} j0={j0}")
+                    kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
+                              epilogue=epilogues["div_clip"], grid_cols=gc,
+                              row_scale=su)
+                    got = pcc_tiles(u, j0, v_pad=stack, col_scale=scol, **kw)
+                    for r_ in range(reps):
+                        if not torch.equal(got[r_], pcc_tiles(
+                                u, j0, v_pad=stack[r_].contiguous(),
+                                col_scale=None if scol is None else scol[r_],
+                                **kw)):
+                            raise AssertionError(f"{label}: replica {r_} != "
+                                                 f"the 2-D kernel's tiles")
+                    want = pcc_tiles_plain(u, j0, v_pad=stack,
+                                           col_scale=scol, **kw)
+                    torch.cuda.synchronize()
+                    if dname in ("int8", "int8s"):
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{label}: != plain")
+                    elif dname != "float32":
+                        wide = pcc_tiles(u.float(), j0, t=t, l_blk=l_blk,
+                                         pass_tiles=tiles, grid_cols=gc,
+                                         v_pad=stack.float())
+                        if scol is not None:
+                            total_s = m * gc if grid else m * (m + 1) // 2
+                            ids = np.minimum(j0 + np.arange(tiles),
+                                             total_s - 1)
+                            yc, xc = (divmod(ids, gc) if grid
+                                      else job_coord_batch(m, ids))
+                            srow = su.view(m, t)[torch.as_tensor(
+                                yc, device=dev)]
+                            sc = scol.view(reps, -1, t)[
+                                :, torch.as_tensor(xc, device=dev)]
+                            wide = wide * (srow[None, :, :, None]
+                                           * sc[:, :, None, :])
+                        if not torch.equal(got, epilogues["div_clip"].apply(
+                                wide)):
+                            raise AssertionError(f"{label}: != the float32 "
+                                                 f"replica kernel, widened")
+                    err = float((got - want).abs().max())
+                    if not err <= TOL_SMALL:
+                        raise AssertionError(f"{label}: kernel disagrees "
+                                             f"with plain ({err:.3e})")
+                    rep_err = max(rep_err, err)
+                    rep_cases += 1
+    print(f"  {rep_cases} cases (3 shapes x 6 operand types x triangle / grid"
+          f" x R 1, 3, 5): all bitwise checks hold; max|kernel - plain| "
+          f"{rep_err:.3e}")
+
+    def check_sig_launches(label, p_, dtype="float32"):
+        """Since reset_counts(), one observed launch and one replica launch
+        per chunk in each pass, B replicas per pass, all of them CUDA
+        launches of pcc_tiles in `dtype`, no plain version."""
+        chunks = len(p_.replica_chunk_sizes)
+        got = (pcc_tiles.launches, dict(pcc_tiles.launches_by_dtype),
+               pcc_tiles.replica_launches, pcc_tiles.replicas_launched,
+               pcc_tiles.scaled_launches, dict(pcc_topk_tiles.launches))
+        total_l = p_.n_pass * (1 + chunks)
+        want = (total_l, {k: total_l if k == dtype else 0 for k in got[1]},
+                p_.n_pass * chunks, p_.n_pass * p_.replicas,
+                total_l if p_.scaled else 0, {"select": 0, "merge": 0})
+        print(f"  {label}: pcc_tiles launches {got[0]} ({got[2]} replica "
+              f"launches, {got[3]} replicas, {got[4]} scaled), plain calls "
+              f"{plain_calls}")
+        if got != want or any(plain_calls.values()):
+            raise AssertionError(f"{label}: did not run through the CUDA "
+                                 f"replica kernel as planned ({got} != "
+                                 f"{want})")
+
+    def check_p(label, p, b, symmetric):
+        if not bool(torch.isfinite(p).all()) or \
+                not bool(((p > 0) & (p <= 1)).all()):
+            raise AssertionError(f"{label}: p outside (0, 1]")
+        if symmetric:
+            if not torch.equal(p, p.T):
+                raise AssertionError(f"{label}: p is not exactly symmetric")
+            floor = (torch.tensor(1.0, device=dev)
+                     / torch.tensor(float(b + 1), device=dev))
+            if not bool((p.diagonal() == floor).all()):
+                raise AssertionError(f"{label}: diagonal p != 1/(B+1)")
+
+    sig_plan = ExecutionPlan.create(N_TF, L_SEEK, replicas=B_SIG)
+    spec_sig = PermutationSpec(iterations=B_SIG, key=0)
+    print(f"significance: corr(x_tf, pvalues=PermutationSpec({B_SIG}, "
+          f"key=0)), {N_TF} TF rows x l={L_SEEK}: {sig_plan.total_tiles} "
+          f"tiles, {sig_plan.n_pass} pass(es), replica chunks of "
+          f"{sig_plan.replica_chunk} ({len(sig_plan.replica_chunk_sizes)} "
+          f"launches, last {sig_plan.replica_chunk_sizes[-1]})")
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r_sig, p_sig = corr(x_tf, pvalues=spec_sig)
+    torch.cuda.synchronize()
+    sig_first_ms = (time.perf_counter() - t1) * 1e3
+    check_sig_launches("headline", sig_plan)
+    sig_launches = pcc_tiles.replica_launches
+    if not torch.equal(r_sig, corr(x_tf)):
+        raise AssertionError("significance r is not corr(x)'s bits")
+    check_p("headline", p_sig, B_SIG, True)
+    idx_sig = iteration_indices(spec_sig, L_SEEK).to(dev)
+    inv_sig = torch.argsort(idx_sig, dim=1)
+    u64 = pcc.transform(x_tf.double())
+    rows8 = torch.as_tensor(np.sort(rng.choice(N_TF, SIG_ROWS,
+                                               replace=False)), device=dev)
+    ur = u64[rows8]
+    obs64 = torch.clamp(ur @ u64.T, -1.0, 1.0).abs()
+    upper = torch.arange(N_TF, device=dev)[None, :] >= rows8[:, None]
+    cnt64 = torch.zeros_like(obs64, dtype=torch.int64)
+    ties64 = torch.zeros_like(cnt64)
+    for b0 in range(0, B_SIG, 100):
+        # (i, j >= i): <u_i, pi(u_j)> = <u_i[inv], u_j>; (i, j < i), the
+        # mirrored entry (j, i): <u_j, pi(u_i)> = <u_i[idx], u_j>
+        a = torch.clamp(ur[:, inv_sig[b0:b0 + 100]] @ u64.T, -1.0, 1.0)
+        bm = torch.clamp(ur[:, idx_sig[b0:b0 + 100]] @ u64.T, -1.0, 1.0)
+        rep64 = torch.where(upper[:, None, :], a, bm).abs()
+        cnt64 += (rep64 >= obs64[:, None, :]).sum(1)
+        ties64 += ((rep64 - obs64[:, None, :]).abs() <= TIE_SIG).sum(1)
+    del a, bm, rep64, u64, ur
+    cnt = torch.round(p_sig[rows8].double() * (B_SIG + 1)).long() - 1
+    dcnt = (cnt - cnt64).abs()
+    if not bool((dcnt[ties64 == 0] == 0).all()) or \
+            not bool((dcnt <= ties64).all()):
+        raise AssertionError("significance counts disagree with float64 "
+                             "replicas beyond near-ties")
+    print(f"  r bitwise corr(x_tf); p exactly symmetric, diagonal 1/(B+1); "
+          f"{SIG_ROWS} rows' counts vs float64 replicas: "
+          f"{int((dcnt > 0).sum())} entries differ, by at most their "
+          f"near-ties ({int(ties64.sum())} replica values within "
+          f"{TIE_SIG:g} of the observed in these rows)")
+    reset_counts()
+    _, p200 = corr(x_tf, pvalues=PermutationSpec(200, key=0))
+    _, p200c = corr(x_tf, pvalues=PermutationSpec(200, key=0, chunk=37))
+    _, p200s = corr(x_tf, pvalues=PermutationSpec(200, key=0),
+                    max_tiles_per_pass=5)
+    if not (torch.equal(p200, p200c) and torch.equal(p200, p200s)):
+        raise AssertionError("p depends on the chunk or the pass split")
+    print(f"  B=200: p bitwise equal with chunk 64, chunk 37 and 5-tile "
+          f"passes ({pcc_tiles.replica_launches} replica launches)")
+    del p200, p200c, p200s
+
+    u_sig = sig_plan.prepare(x_tf)
+    stack = replica_operand(sig_plan, idx_sig[:sig_plan.replica_chunk].cpu(),
+                            method="permute", columns=x_tf,
+                            cols_prepared=u_sig)
+    tiles_sig = sig_plan.total_tiles
+    skw = dict(t=sig_plan.t, l_blk=sig_plan.l_blk, pass_tiles=tiles_sig)
+    got = pcc_tiles(u_sig, 0, v_pad=stack, **skw)
+    for r_ in range(stack.shape[0]):
+        if not torch.equal(got[r_], pcc_tiles(u_sig, 0, v_pad=stack[r_],
+                                              **skw)):
+            raise AssertionError(f"headline replica {r_} != the 2-D "
+                                 f"kernel's tiles")
+    err = float((got - pcc_tiles_plain(u_sig, 0, v_pad=stack, **skw))
+                .abs().max())
+    if not err <= TOL_FULL:
+        raise AssertionError(f"replica kernel disagrees with plain "
+                             f"({err:.3e})")
+    rep_err = max(rep_err, err)
+    # the other steps of one chunk, as run_significance runs them for
+    # Pearson: the host draw of all B index rows, the chunk's gather, and
+    # the replica-by-replica compare into int32 counts
+    abs_obs = torch.clamp(pcc_tiles(u_sig, 0, **skw), -1.0, 1.0).abs()
+    counts = torch.zeros(abs_obs.shape, dtype=torch.int32, device=dev)
+
+    def compare():
+        for r_ in range(got.shape[0]):
+            counts.add_(torch.clamp(got[r_], -1.0, 1.0).abs() >= abs_obs)
+
+    draw_ms, _ = host_ms(lambda: iteration_indices(spec_sig, L_SEEK), 3)
+    gather_ms, _ = event_ms(lambda: replica_operand(
+        sig_plan, idx_sig[:sig_plan.replica_chunk].cpu(), method="permute",
+        columns=x_tf, cols_prepared=u_sig), 3)
+    cmp_ms, _ = event_ms(compare, 3)
+    del got, abs_obs, counts
+    rk_ms, rk_all = event_ms(lambda: pcc_tiles(u_sig, 0, v_pad=stack, **skw),
+                             5)
+    rp_ms, _ = event_ms(lambda: pcc_tiles_plain(u_sig, 0, v_pad=stack,
+                                                **skw), 3)
+    rl_ms, _ = event_ms(lambda: torch.matmul(u_sig, stack.transpose(1, 2)),
+                        5)
+    reps_ = stack.shape[0]
+    rflop = 2 * L_SEEK * sig_plan.t ** 2 * tiles_sig * reps_
+    rbound = bound(rflop, (u_sig.numel() + stack.numel()) * 4
+                   + reps_ * tiles_sig * sig_plan.t ** 2 * 4)
+    stack_gb = stack.numel() * 4 / 1e9
+    del stack
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    sig_ms, sig_all = host_ms(lambda: corr(x_tf, pvalues=spec_sig), 3)
+    sig_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"significance times at {N_TF} x {L_SEEK}, B={B_SIG} {tag}:")
+    print(f"  pcc_tiles replica mode, {reps_} replicas x {tiles_sig} tiles: "
+          f"{rk_ms:.3f} ms (runs {[round(v, 3) for v in rk_all]}), "
+          f"{rflop / rk_ms / 1e9:.1f} TFLOP/s, bound {rbound[0]:.3f} ms by "
+          f"{rbound[1]}; plain {rp_ms:.3f} ms; library torch.matmul(u, "
+          f"stack.transpose(1, 2)) (full squares) {rl_ms:.3f} ms; "
+          f"max|kernel - plain| {err:.3e} (tol {TOL_FULL:g})")
+    print(f"  corr(x_tf, pvalues=...) end to end, x on the card: "
+          f"{sig_ms:.3f} ms (runs {[round(v, 3) for v in sig_all]}; first "
+          f"call {sig_first_ms:.3f} ms), {sig_launches} replica launches, "
+          f"peak {sig_peak:.3f} GB above the {base_mem / 1e9:.3f} GB held "
+          f"(one chunk's stack {stack_gb:.3f} GB)")
+    print(f"  its steps alone: host draw of {B_SIG} index rows "
+          f"{draw_ms:.3f} ms (host clock); per {reps_}-replica chunk: gather "
+          f"{gather_ms:.3f} ms, replica kernel {rk_ms:.3f} ms, compare into "
+          f"counts ({reps_} x 4 launches) {cmp_ms:.3f} ms (CUDA events)")
+
+    # Table II at B = 8: the replica mode at the main path's full shape
+    t2_plan = ExecutionPlan.create(N_SEEK, L_SEEK, replicas=8)
+    spec8 = PermutationSpec(8, key=0)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    r8, p8 = corr(x_dev, pvalues=spec8)
+    torch.cuda.synchronize()
+    t2_ms = (time.perf_counter() - t1) * 1e3
+    t2_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    check_sig_launches("Table II, B=8", t2_plan)
+    if not torch.equal(r8, corr(x_dev)):
+        raise AssertionError("Table II significance r is not corr(x)'s bits")
+    check_p("Table II, B=8", p8, 8, True)
+    del r8, p8
+    stack8 = replica_operand(
+        t2_plan, iteration_indices(spec8, L_SEEK), method="permute",
+        columns=x_dev, cols_prepared=u_seek)
+    got = pcc_tiles(u_seek, 0, v_pad=stack8, t=plan.t, l_blk=plan.l_blk,
+                    pass_tiles=total)
+    for r_ in (0, 7):
+        if not torch.equal(got[r_], pcc_tiles(
+                u_seek, 0, v_pad=stack8[r_], t=plan.t, l_blk=plan.l_blk,
+                pass_tiles=total)):
+            raise AssertionError(f"Table II replica {r_} != the 2-D "
+                                 f"kernel's tiles")
+    del got
+    t2k_ms, t2k_all = event_ms(lambda: pcc_tiles(
+        u_seek, 0, v_pad=stack8, t=plan.t, l_blk=plan.l_blk,
+        pass_tiles=total), 3)
+    del stack8
+    print(f"  Table II, B=8: corr {t2_ms:.3f} ms (one run), peak "
+          f"{t2_peak:.3f} GB above the {base_mem / 1e9:.3f} GB held; "
+          f"replica kernel, 8 x {total} tiles: {t2k_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in t2k_all]}); r bitwise corr(x), p "
+          f"symmetric, replicas 0 and 7 bitwise the 2-D kernel's {tag}")
+
+    # X-vs-Y at B = 32, chunk 16: the grid's replica mode
+    g_plan = ExecutionPlan.create(N_TF, L_SEEK, n_cols=N_SEEK, replicas=32,
+                                  replica_chunk=16)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    rg, pg = corr(x_tf, x_dev, pvalues=PermutationSpec(32, key=0, chunk=16))
+    torch.cuda.synchronize()
+    g_ms = (time.perf_counter() - t1) * 1e3
+    g_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    check_sig_launches("X-vs-Y, B=32, chunk 16", g_plan)
+    if not torch.equal(rg, corr(x_tf, x_dev)):
+        raise AssertionError("X-vs-Y significance r is not corr(x, y)'s bits")
+    check_p("X-vs-Y", pg, 32, False)
+    if pg.shape != (N_TF, N_SEEK):
+        raise AssertionError(f"X-vs-Y p has shape {tuple(pg.shape)}")
+    del rg, pg
+    print(f"  X-vs-Y {N_TF} x {N_SEEK}, B=32, chunk 16: corr {g_ms:.3f} ms "
+          f"(one run), peak {g_peak:.3f} GB above the {base_mem / 1e9:.3f} "
+          f"GB held; r bitwise corr(x, y) {tag}")
+
+    # int8-quantized headline at B = 200: gathered codes, one scale vector
+    q_plan = ExecutionPlan.create(N_TF, L_SEEK, compute_dtype=torch.int8,
+                                  replicas=200)
+    spec_q = PermutationSpec(200, key=0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rq8, pq8 = corr(x_tf, compute_dtype=torch.int8, pvalues=spec_q)
+    torch.cuda.synchronize()
+    q8_ms = (time.perf_counter() - t1) * 1e3
+    check_sig_launches("int8-quantized, B=200", q_plan, "int8")
+    if not torch.equal(rq8, corr(x_tf, compute_dtype=torch.int8)):
+        raise AssertionError("int8 significance r is not corr(x)'s bits")
+    check_p("int8-quantized", pq8, 200, True)
+    del rq8, pq8
+    uq8 = q_plan.prepare(x_tf)
+    sq = replica_operand(q_plan, iteration_indices(spec_q, L_SEEK)[:64],
+                         method="permute", columns=x_tf, cols_prepared=uq8)
+    qkw = dict(t=q_plan.t, l_blk=q_plan.l_blk, pass_tiles=tiles_sig,
+               v_pad=sq.data, row_scale=uq8.scale, col_scale=sq.scale)
+    if not torch.equal(pcc_tiles(uq8.data, 0, **qkw),
+                       pcc_tiles_plain(uq8.data, 0, **qkw)):
+        raise AssertionError("scaled int8 replica kernel != plain at the "
+                             "headline shape")
+    q8k_ms, _ = event_ms(lambda: pcc_tiles(uq8.data, 0, **qkw), 3)
+    del sq, uq8
+    print(f"  int8-quantized headline, B=200: corr {q8_ms:.3f} ms (one run);"
+          f" r bitwise corr(x, compute_dtype=int8); scaled int8 replica "
+          f"kernel (64 replicas, expanded scales) bitwise plain, "
+          f"{q8k_ms:.3f} ms {tag}")
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
@@ -1594,7 +1965,14 @@ def main() -> int:
                             ("pcc_tiles (scaled fp8 e4m3)", "float8_e4m3fn"),
                             ("pcc_tiles (triangle, second operand)",
                              "pair"))],
+        {"name": "pcc_tiles (replica)", "route": "cuda",
+         "source": source + "pcc_tile.cu",
+         "replaces": "src/repro/kernels/pcc_tile.py:299",
+         "launches": sig_launches, "max_abs_err": rep_err, "ms": rk_ms,
+         "plain_ms": rp_ms, "bound_ms": rbound[0], "bound_by": rbound[1],
+         "library_ms": rl_ms},
     ]}
+    print(f"script time {time.perf_counter() - t_script:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

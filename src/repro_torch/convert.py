@@ -21,11 +21,11 @@ from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.quantize import Operand
 
 # spec_dict fields that select modes later slices bring, with the values
-# the port runs so far
+# the port runs so far (any replica count: significance plans)
 _PORTED = {"tile_kernel": (None,), "symmetric_grid": (False,),
            "compute_dtype": (None, "bfloat16", "int8", "float8_e4m3fn",
                              "float8_e5m2"),
-           "p": (1,), "replicas": (0,)}
+           "p": (1,)}
 _WORKLOADS = ("TriangularWorkload", "GridWorkload")
 # numpy (ml_dtypes) narrow floats torch.from_numpy refuses: carried over as
 # their bit patterns and viewed as the torch type
@@ -38,7 +38,11 @@ def plan_from_reference(spec: dict) -> ExecutionPlan:
     """The port's ExecutionPlan for a reference plan's ``spec_dict()``
     (triangular or rectangular grid; float32, bf16, int8 or fp8 operands,
     quantized where the reference quantizes; a masked run's sink plan,
-    whose measure is a pairwise-complete name such as "pearson_complete").
+    whose measure is a pairwise-complete name such as "pearson_complete";
+    a significance plan with its replica count, whose replica_chunk, absent
+    from the spec, takes the default).  The reference's permutation indices
+    are not state of the plan: a caller carries them over as
+    ``PermutationSpec(indices=...)``.
 
     Raises NotImplementedError for modes the port does not run yet and
     ValueError when the rebuilt plan's spec_dict() differs from `spec`.
@@ -48,6 +52,9 @@ def plan_from_reference(spec: dict) -> ExecutionPlan:
             raise NotImplementedError(
                 f"reference plan has {key}={spec.get(key)!r}; the port runs "
                 f"{key} in {want} so far (see ROADMAP queue A)")
+    replicas = spec.get("replicas")
+    if not isinstance(replicas, int) or replicas < 0:
+        raise ValueError(f"replicas must be an int >= 0, got {replicas!r}")
     if spec.get("workload") not in _WORKLOADS:
         raise NotImplementedError(
             f"reference plan has workload={spec.get('workload')!r}; the "
@@ -62,7 +69,8 @@ def plan_from_reference(spec: dict) -> ExecutionPlan:
         measure="dot" if masked else spec["measure"],
         max_tiles_per_pass=spec["max_tiles_per_pass"],
         clip=False if masked else spec["clip"],
-        fuse_epilogue=spec["fused"], compute_dtype=spec["compute_dtype"])
+        fuse_epilogue=spec["fused"], compute_dtype=spec["compute_dtype"],
+        replicas=replicas)
     if masked:
         # a masked run's sink plan: the component plan under the masked
         # measure's identity (core/api._run_masked)

@@ -10,5 +10,9 @@ executor -> sink.
   quantize  per-row absmax int8 / fp8 quantization and the Operand record
   plan      ExecutionPlan: every static decision of a run
   allpairs  the double-buffered pass executor
-  sinks     DenseSink, TopKSink, DeviceTopKSink and the canonical top-k merge
+  sinks     DenseSink, TopKSink, DeviceTopKSink, ExceedanceSink and the
+            canonical top-k merge
+  significance  permutation / bootstrap p-values on the replica axis
+            (corr(pvalues=PermutationSpec(...)))
+  permutation   the deprecated permutation_pvalues wrapper
 """

@@ -4,7 +4,8 @@ Port of ``repro/core/api.py`` for one device: symmetric all-pairs
 similarity of one (n, l) operand and the rectangular X-vs-Y workload,
 under every inner-product measure, with float32, bfloat16, int8 or fp8
 stored operands (int8 on non-Kendall measures and fp8 quantized with
-per-row scales), and pairwise-complete masked runs (``where=``).  A frozen
+per-row scales), pairwise-complete masked runs (``where=``) and
+permutation / bootstrap p-values (``pvalues=``).  A frozen
 :class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
 onto plan -> executor -> sink.  The reference's other knobs raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
@@ -21,13 +22,13 @@ from repro_torch.core import measures
 from repro_torch.core.allpairs import _stream, execute_plan, resolve_device, \
     run_sink
 from repro_torch.core.plan import ExecutionPlan, pad_operands
+from repro_torch.core.significance import PermutationSpec, run_significance
 from repro_torch.core.sinks import TileSink
 from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
     "resume_from": "slice 4 (HostSink checkpoints)",
-    "pvalues": "slice 8 (significance)",
     "recovery": "slice 10 (recovery)",
     "mesh": "slice 11 (multi-GPU)",
     "shard_u": "slice 11 (multi-GPU)",
@@ -133,7 +134,8 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
          l_blk: int = DEFAULT_LBLK, max_tiles_per_pass: Optional[int] = None,
          clip: bool = True, fuse_epilogue: bool = True, device=None,
          where=None, mesh=None, shard_u: bool = False, compute_dtype=None,
-         resume_from: Optional[str] = None, pvalues=None, recovery=None):
+         resume_from: Optional[str] = None,
+         pvalues: Optional[PermutationSpec] = None, recovery=None):
     """All-pairs similarity: plan -> executor -> sink.
 
     x:       (n, l) variables, numpy array or tensor.
@@ -171,14 +173,20 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
     t / l_blk / max_tiles_per_pass / clip / fuse_epilogue keep their
              ExecutionPlan semantics; the result does not depend on
              max_tiles_per_pass or fuse_epilogue, bit for bit.
+    pvalues: a PermutationSpec (core/significance.py) turns the run into a
+             significance test: returns (r, p), r exactly what the call
+             without pvalues returns and p the add-one permutation (or
+             bootstrap) p-values over spec.iterations null replicas, in
+             the output layout of spec.sink (default dense).  Not with
+             where=.
     device:  None means "cuda", which raises on a machine without a card;
              pass device="cpu" to run the kernels' plain versions.
-    mesh, shard_u, resume_from, pvalues and recovery are the reference's
-    and raise NotImplementedError here.
+    mesh, shard_u, resume_from and recovery are the reference's and raise
+    NotImplementedError here.
     """
     given = {"mesh": mesh is not None, "shard_u": bool(shard_u),
              "resume_from": resume_from is not None,
-             "pvalues": pvalues is not None, "recovery": recovery is not None}
+             "recovery": recovery is not None}
     for name, on in given.items():
         if on:
             raise NotImplementedError(
@@ -187,6 +195,11 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
     problem = PairwiseProblem.create(x, y, measure=measure, where=where,
                                      device=device)
     if problem.masked:
+        if pvalues is not None:
+            raise ValueError(
+                "pvalues= is not supported with where=: a masked run has "
+                "no single observed GEMM to permute (each pair's statistic "
+                "combines several component GEMMs over its common support)")
         if compute_dtype is not None:
             raise ValueError(
                 "compute_dtype narrowing is not supported with where= "
@@ -199,11 +212,19 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
         n_cols=None if problem.symmetric else problem.n_cols, t=t,
         l_blk=l_blk, measure=problem.measure,
         max_tiles_per_pass=max_tiles_per_pass, clip=clip,
-        fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype)
+        fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
+        replicas=0 if pvalues is None else pvalues.iterations,
+        replica_chunk=None if pvalues is None else pvalues.chunk)
     if problem.symmetric:
-        return execute_plan(plan, plan.prepare(problem.x), sink=sink,
-                            device=problem.x.device)
+        u_pad = plan.prepare(problem.x)
+        if pvalues is not None:
+            return run_significance(plan, pvalues, u_pad, columns=problem.x,
+                                    sink=sink)
+        return execute_plan(plan, u_pad, sink=sink, device=problem.x.device)
     u_pad, v_pad = plan.prepare_pair(problem.x, problem.y)
+    if pvalues is not None:
+        return run_significance(plan, pvalues, u_pad, columns=problem.y,
+                                v_pad=v_pad, sink=sink)
     return execute_plan(plan, u_pad, v_pad, sink=sink,
                         device=problem.x.device)
 

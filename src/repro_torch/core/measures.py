@@ -163,9 +163,10 @@ class Measure:
                   (or when epilogue is None) the measure is fusable.
     exact_int8:   the transform's output is exactly representable in int8
                   (Kendall's pair signs), which allows int8 operands.
-    permute_gather: the transform commutes with sample permutation (the
-                  significance runs of ROADMAP slice 8 read it; carried as
-                  data only here).
+    permute_gather: the transform commutes with sample permutation, so a
+                  significance run builds its permutation replicas by
+                  gathering columns of the prepared operand
+                  (core/significance.replica_operand).
     tile_kernel:  None rides the shared tile kernel.  The reference's
                   merge-sort Kendall sets a custom per-tile kernel; that is
                   slice 7, so no port measure sets it yet.

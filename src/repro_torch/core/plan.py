@@ -3,7 +3,8 @@
 Port of ``repro/core/plan.py`` for one device: measure resolution, epilogue
 fusion, the stored operand type (``compute_dtype``), padding, the workload
 (the symmetric triangle, or the rectangular X-vs-Y grid when ``create`` is
-given ``n_cols``) and the pass split (paper Alg. 2, C4) are decided here,
+given ``n_cols``), the pass split (paper Alg. 2, C4) and a significance
+run's replica axis (``replicas``, ``replica_chunk``) are decided here,
 host-side in exact ints; the executor (core/allpairs.py) and the sinks
 (core/sinks.py) consume the plan.
 
@@ -26,6 +27,11 @@ from repro_torch.core.quantize import Operand
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
                                           EpilogueSpec, dtype_name)
 
+# Default replica-launch width of significance runs (ExecutionPlan.create
+# replica_chunk=None): bounds the stacked column operand at 64 x operand, as
+# the legacy permutation_pvalues chunk default does.
+DEFAULT_REPLICA_CHUNK = 64
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
@@ -42,6 +48,10 @@ class ExecutionPlan:
     workload: Union[mapping.TriangularWorkload, mapping.GridWorkload]
     tile_c: Optional[tiling.TilePlan] = None  # column operand (rectangular)
     compute_dtype: Optional[torch.dtype] = None  # stored operand type
+    # Significance runs (core/significance.py): null replicas B and the
+    # replicas per kernel launch; replicas == 0 is a plain run.
+    replicas: int = 0
+    replica_chunk: int = 0
 
     @property
     def n(self) -> int:
@@ -102,7 +112,8 @@ class ExecutionPlan:
                max_tiles_per_pass: Optional[int] = None,
                clip: bool = True,
                fuse_epilogue: bool = True,
-               compute_dtype=None) -> "ExecutionPlan":
+               compute_dtype=None, replicas: int = 0,
+               replica_chunk: Optional[int] = None) -> "ExecutionPlan":
         """Resolve measure, fusion, operand type, padding and the pass split.
 
         n_cols selects the rectangular workload: jobs cover the whole
@@ -114,10 +125,15 @@ class ExecutionPlan:
         they are and quantizes every other measure's rows with absmax
         scales, as torch.float8_e4m3fn / torch.float8_e5m2 do for every
         measure (:func:`needs_row_scales`).
+        replicas > 0 adds a significance run's replica axis: B null
+        replicas, launched replica_chunk (default DEFAULT_REPLICA_CHUNK) at a
+        time; Kendall then keeps its sign-GEMM at any l, as in the
+        reference.
         """
         meas = measures.get(measure)
         cd = resolve_compute_dtype(meas, compute_dtype)
-        meas = measures.resolve_tile_kernel(meas, l=l, compute_dtype=cd)
+        meas = measures.resolve_tile_kernel(meas, l=l, compute_dtype=cd,
+                                            replicas=replicas)
         if meas.tile_kernel is not None:
             raise NotImplementedError(
                 f"measure {meas.name!r} has a custom tile kernel; custom "
@@ -136,10 +152,17 @@ class ExecutionPlan:
             raise ValueError(
                 f"max_tiles_per_pass must be positive, got {max_tiles_per_pass}")
         mtp = min(per_dev, max_tiles_per_pass or per_dev)
+        if replicas < 0:
+            raise ValueError(f"replicas must be >= 0, got {replicas}")
+        if replica_chunk is not None and replica_chunk <= 0:
+            raise ValueError(
+                f"replica_chunk must be positive, got {replica_chunk}")
+        rc = 0 if replicas == 0 else min(
+            replicas, replica_chunk or DEFAULT_REPLICA_CHUNK)
         return cls(measure=meas, tile=tile, l_blk=l_blk, clip=clip,
                    fused=fused, epilogue_spec=spec, per_dev=per_dev,
                    max_tiles_per_pass=mtp, workload=workload, tile_c=tile_c,
-                   compute_dtype=cd)
+                   compute_dtype=cd, replicas=replicas, replica_chunk=rc)
 
     @property
     def scaled(self) -> bool:
@@ -198,10 +221,20 @@ class ExecutionPlan:
         """Tile id at which pass k starts."""
         return k * self.max_tiles_per_pass
 
+    @property
+    def replica_chunk_sizes(self) -> Tuple[int, ...]:
+        """Replica-launch sizes of a significance run: replica_chunk, then
+        the exact remainder, so no launch computes replicas past
+        `replicas`.  Empty for plain runs."""
+        if self.replicas == 0:
+            return ()
+        return tiling.pass_launch_sizes(self.replicas, self.replica_chunk)
+
     def spec_dict(self) -> dict:
         """JSON-serialisable identity of this plan, key for key the
         reference's ``ExecutionPlan.spec_dict()``; the fields of modes
-        later slices bring hold their single-device values."""
+        later slices bring hold their single-device values.  replica_chunk
+        stays out, as in the reference: p-values do not depend on it."""
         return {
             "n_rows": self.n_rows, "n_cols": self.n_cols, "l": self.l,
             "t": self.t, "l_blk": self.l_blk,
@@ -214,7 +247,7 @@ class ExecutionPlan:
             "clip": self.clip, "fused": self.fused,
             "p": 1, "max_tiles_per_pass": self.max_tiles_per_pass,
             "total_tiles": self.total_tiles, "n_pass": self.n_pass,
-            "replicas": 0,
+            "replicas": self.replicas,
         }
 
     def spec_key(self) -> tuple:
@@ -286,5 +319,5 @@ def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
     return F.pad(u, (0, l_pad - l, 0, n_pad - n))
 
 
-__all__ = ["ExecutionPlan", "needs_row_scales", "pad_operands", "pad_scales",
-           "resolve_compute_dtype"]
+__all__ = ["DEFAULT_REPLICA_CHUNK", "ExecutionPlan", "needs_row_scales",
+           "pad_operands", "pad_scales", "resolve_compute_dtype"]

@@ -1,7 +1,8 @@
 """Tile sinks: what becomes of the executor's per-pass tile stream.
 
-Port of ``TileSink``, ``DenseSink``, ``TopKSink``, ``DeviceTopKSink`` and
-``topk_merge_rows`` of ``repro/core/sinks.py``.  Contract:
+Port of ``TileSink``, ``DenseSink``, ``TopKSink``, ``DeviceTopKSink``,
+``ExceedanceSink`` and ``topk_merge_rows`` of ``repro/core/sinks.py``.
+Contract:
 ``open(plan, device)`` once, ``consume(ids, tiles)`` per pass with the
 pass's unique global tile ids while the next pass is already launched
 (double buffering), ``result()`` to close the run.  Tiles arrive with the
@@ -16,6 +17,8 @@ bit for bit.
   DeviceTopKSink  the same result fed by the top-k kernel's per-pass state
                   (kernels/pcc_tile.pcc_topk_tiles): O(n * k) per pass
                   leaves the card instead of the tiles.
+  ExceedanceSink  a significance run's p-value leg: per-pass null
+                  exceedance counts -> p-value tiles -> an inner sink.
 
 Unlike the reference's functional scatter and ``where``-mirror, DenseSink
 scatters and mirrors in place on its padded device matrix: no second and
@@ -25,7 +28,7 @@ third (n_pad, n_pad) buffer, which keeps n = 64K inside 80 GB.
 from __future__ import annotations
 
 import abc
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -283,7 +286,7 @@ class DeviceTopKSink(TopKSink):
         on non-exact_int8 measures, fp8) cannot: the scale product is not
         fused into the top-k kernel."""
         return (plan.fused and getattr(plan.measure, "tile_kernel", None)
-                is None and not getattr(plan, "replicas", 0)
+                is None and not plan.replicas
                 and not needs_row_scales(plan.measure, plan.compute_dtype))
 
     def open(self, plan: ExecutionPlan, device: torch.device) -> None:
@@ -298,7 +301,7 @@ class DeviceTopKSink(TopKSink):
                 f"DeviceTopKSink cannot run measure {plan.measure.name!r}: "
                 f"custom tile kernels bypass the top-k epilogue — use "
                 f"TopKSink")
-        if getattr(plan, "replicas", 0):
+        if plan.replicas:
             raise ValueError("DeviceTopKSink does not support replica "
                              "(significance) runs")
         if needs_row_scales(plan.measure, plan.compute_dtype):
@@ -329,5 +332,76 @@ class DeviceTopKSink(TopKSink):
                             dedup=True)
 
 
+class ExceedanceSink(TileSink):
+    """Turn per-pass null-exceedance *count* tiles into p-value tiles and
+    hand them to an inner TileSink: the significance workload's output leg
+    (core/significance.py, paper SSIV).
+
+    The significance executor accumulates, per pass, an int32 count tile
+    buffer ``#{b : |R_b| >= |R_obs|}`` on the device, chunk by chunk of
+    replicas.  This sink receives it once per pass, applies the add-one
+    estimator p = (1 + count) / (1 + B) in float32 on the device (B is
+    ``plan.replicas``), and delegates the p-value tiles to ``inner``
+    (default DenseSink; TopKSink too).
+
+    Symmetric workloads: a replica's diagonal tile is not symmetric (entry
+    (i, j) compares <U_i, pi(U_j)>, entry (j, i) <U_j, pi(U_i)>).  The
+    canonical output keeps the elementwise upper triangle, as DenseSink's
+    mirror does, so this sink mirrors each diagonal tile's upper half into
+    its lower half before delegating: every inner sink then agrees.
+
+    open() expects the p-value plan of the executor, whose measure names
+    the base measure, method, B and the null's fingerprint.  The checkpoint
+    hooks (resume_pass, skip_passes, pass_complete) pass through to the
+    inner sink where it has them.
+    """
+
+    def __init__(self, inner: Optional[TileSink] = None):
+        self._inner = inner if inner is not None else DenseSink()
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        if plan.replicas <= 0:
+            raise ValueError(
+                "ExceedanceSink needs the replica count: open it with a "
+                "significance plan (ExecutionPlan.create(replicas=B))")
+        self._inner.open(plan, device)
+
+    def resume_pass(self) -> int:
+        return getattr(self._inner, "resume_pass", lambda: 0)()
+
+    def skip_passes(self) -> set:
+        return getattr(self._inner, "skip_passes", set)()
+
+    def pass_complete(self, k: int) -> None:
+        getattr(self._inner, "pass_complete", lambda _k: None)(k)
+
+    def _pvalues(self, ids: np.ndarray, counts: torch.Tensor) -> torch.Tensor:
+        """p-value tiles of one pass's (P, t, t) int32 counts, on their
+        device; the division is by a float32 tensor (a host scalar divisor
+        becomes a reciprocal multiply on the card)."""
+        den = torch.tensor(1.0 + self.plan.replicas, dtype=torch.float32,
+                           device=counts.device)
+        p = (1.0 + counts.to(torch.float32)) / den
+        if self.plan.workload.needs_symmetrize:
+            ys, xs = self.plan.workload.job_coord_batch(np.asarray(ids))
+            diag = np.nonzero(ys == xs)[0]
+            if diag.size:
+                sel = torch.as_tensor(diag, device=p.device)
+                t = self.plan.t
+                upper = torch.ones((t, t), dtype=torch.bool,
+                                   device=p.device).triu_()
+                d = p[sel]
+                p[sel] = torch.where(upper, d, d.transpose(1, 2))
+        return p
+
+    def consume(self, ids: np.ndarray, counts: torch.Tensor) -> None:
+        self._inner.consume(ids, self._pvalues(ids, counts))
+
+    def result(self):
+        return self._inner.result()
+
+
 __all__ = ["TileSink", "DenseSink", "TopKSink", "DeviceTopKSink",
-           "scatter_tiles_at", "symmetrize", "topk_merge_rows"]
+           "ExceedanceSink", "scatter_tiles_at", "symmetrize",
+           "topk_merge_rows"]

@@ -37,8 +37,9 @@ _EPI = [_I, _F, _I, _F, _F]
 _SUFFIXES = ("f32", "bf16", "i8")
 _TILE_SUFFIXES = _SUFFIXES + ("e4m3", "e5m2")
 # (u, v, srow, scol, out, j_start, pass_tiles, m, grid_cols, t, l_pad,
-#  *epilogue, stream) -> cudaError_t
-_TILES = (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, *_EPI, _P])
+#  replicas, v_rstride, s_rstride, *epilogue, stream) -> cudaError_t
+_TILES = (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _LL,
+               *_EPI, _P])
 # (u, v, prv, prc, pcv, pcc, j_start, dev_hi, pass_tiles, m, grid_cols, t,
 #  l_pad, kk, n_cols_valid, symmetric, *epilogue, stream) -> cudaError_t
 _SELECT = (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,

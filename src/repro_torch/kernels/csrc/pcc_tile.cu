@@ -1,7 +1,7 @@
 // All-pairs correlation tiles for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_tiles (body
-// _kernel) in every mode but the replica axis, with the fused EpilogueSpec,
+// _kernel) in every mode, with the fused EpilogueSpec,
 // for float32, bfloat16, int8, float8_e4m3fn and float8_e5m2 operands (entry
 // points pcc_tiles_f32 / _bf16 / _i8 / _e4m3 / _e5m2; the operand modes of
 // _kernel, pcc_tile.py:136-149), for both tile-id families:
@@ -19,6 +19,18 @@
 // per-row float32 scales srow (U's rows) and scol (V's rows): the finished
 // value is multiplied by srow[y] * scol[x], the product first, before the
 // epilogue; both are null for unscaled launches.
+// The replica axis (significance runs, _kernel's `replica` branches and the
+// _rep_* index maps, pcc_tile.py:230-291): replicas > 0 makes V a stack of
+// R column operands, replica r at v + r * v_rstride with its scales at
+// scol + r * s_rstride (s_rstride may be 0: one scale vector for every
+// replica), and the output (R, pass_tiles, t, t).  The grid gains a z
+// dimension over replicas; each CTA offsets its pointers by blockIdx.z and
+// then runs the 2-D code unchanged, so replica r's tiles are bitwise those
+// of a 2-D launch with V = stack[r].  The row operand is read once per
+// replica (L2 serves the repeats).  Their bound is the float32 work of all R
+// replicas: at the significance headline (1,639 TF rows, l = 5,072, 28
+// tiles, 64 replicas) 1.19e12 FLOP, >= 17.8 ms at 67 TFLOP/s, against
+// 2.9 GB of stack, operand and output (0.85 ms at 3.35 TB/s).
 //
 // What bounds it: the float32 work is IEEE float32 FMA.  Hopper's tensor
 // cores have no IEEE-f32 mode (TF32 keeps 10 mantissa bits), so the kernel
@@ -65,15 +77,25 @@ __device__ __forceinline__ float finalize(float v, const float* srow,
   return epilogue(v, has_div, recip, has_clip, lo, hi);
 }
 
-template <typename T, bool SCALED>
+// REPLICA instantiations offset v, scol and out by the replica blockIdx.z;
+// the others compile without it.
+template <typename T, bool SCALED, bool REPLICA>
 __global__ void __launch_bounds__(THREADS)
 pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
                  const float* __restrict__ srow,
                  const float* __restrict__ scol, float* __restrict__ out,
                  long long j_start, int m, int grid_cols, int t, int l_pad,
-                 int nb, int has_div, float recip, int has_clip, float lo,
+                 int nb, long long v_rstride, long long s_rstride,
+                 int has_div, float recip, int has_clip, float lo,
                  float hi) {
   __shared__ __align__(16) Stage st;
+
+  if (REPLICA) {
+    const size_t r = blockIdx.z;
+    v += r * (size_t)v_rstride;
+    if (SCALED) scol += r * (size_t)s_rstride;
+    out += r * gridDim.x * (size_t)t * t;
+  }
 
   long long jt = j_start + (long long)blockIdx.x;
   const long long total = tile_total(m, grid_cols);
@@ -106,41 +128,67 @@ pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
   }
 }
 
+template <typename T, bool SCALED, bool REPLICA>
+void enqueue(dim3 grid, cudaStream_t stream, const T* u, const T* v,
+             const float* srow, const float* scol, float* out,
+             long long j_start, int m, int grid_cols, int t, int l_pad,
+             int nb, long long v_rstride, long long s_rstride, int has_div,
+             float recip, int has_clip, float lo, float hi) {
+  pcc_tiles_kernel<T, SCALED, REPLICA><<<grid, THREADS, 0, stream>>>(
+      u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, v_rstride,
+      s_rstride, has_div, recip, has_clip, lo, hi);
+}
+
 template <typename T>
 int launch(const T* u, const T* v, const float* srow, const float* scol,
            float* out, long long j_start, int pass_tiles, int m,
-           int grid_cols, int t, int l_pad, int has_div, float recip,
-           int has_clip, float lo, float hi, void* stream) {
+           int grid_cols, int t, int l_pad, int replicas,
+           long long v_rstride, long long s_rstride, int has_div,
+           float recip, int has_clip, float lo, float hi, void* stream) {
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
-      j_start < 0 || (srow == nullptr) != (scol == nullptr))
+      j_start < 0 || (srow == nullptr) != (scol == nullptr) ||
+      replicas < 0 || replicas > 65535 || v_rstride < 0 || s_rstride < 0)
     return (int)cudaErrorInvalidValue;
   const int nb = (t + BM - 1) / BM;
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb));
-  if (srow != nullptr)
-    pcc_tiles_kernel<T, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, has_div,
-        recip, has_clip, lo, hi);
+  const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb),
+                  (unsigned)(replicas > 0 ? replicas : 1));
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool scaled = srow != nullptr;
+  if (scaled && replicas > 0)
+    enqueue<T, true, true>(grid, s, u, v, srow, scol, out, j_start, m,
+                           grid_cols, t, l_pad, nb, v_rstride, s_rstride,
+                           has_div, recip, has_clip, lo, hi);
+  else if (scaled)
+    enqueue<T, true, false>(grid, s, u, v, srow, scol, out, j_start, m,
+                            grid_cols, t, l_pad, nb, v_rstride, s_rstride,
+                            has_div, recip, has_clip, lo, hi);
+  else if (replicas > 0)
+    enqueue<T, false, true>(grid, s, u, v, srow, scol, out, j_start, m,
+                            grid_cols, t, l_pad, nb, v_rstride, s_rstride,
+                            has_div, recip, has_clip, lo, hi);
   else
-    pcc_tiles_kernel<T, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, has_div,
-        recip, has_clip, lo, hi);
+    enqueue<T, false, false>(grid, s, u, v, srow, scol, out, j_start, m,
+                             grid_cols, t, l_pad, nb, v_rstride, s_rstride,
+                             has_div, recip, has_clip, lo, hi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // grid_cols == 0 selects the triangle (v is u, or a second operand of u's
-// shape); srow and scol are both null (unscaled) or both given.
+// shape); srow and scol are both null (unscaled) or both given; replicas == 0
+// is a 2-D launch, replicas > 0 a replica stack (strides in elements).
 #define PCC_TILES_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const T* u, const T* v, const float* srow,              \
                       const float* scol, float* out, long long j_start,       \
                       int pass_tiles, int m, int grid_cols, int t, int l_pad, \
+                      int replicas, long long v_rstride, long long s_rstride, \
                       int has_div, float recip, int has_clip, float lo,       \
                       float hi, void* stream) {                               \
     return launch<T>(u, v, srow, scol, out, j_start, pass_tiles, m,           \
-                     grid_cols, t, l_pad, has_div, recip, has_clip, lo, hi,   \
-                     stream);                                                 \
+                     grid_cols, t, l_pad, replicas, v_rstride, s_rstride,     \
+                     has_div, recip, has_clip, lo, hi, stream);               \
   }
 
 PCC_TILES_ENTRY(pcc_tiles_f32, float)

@@ -1,9 +1,10 @@
 """All-pairs correlation tiles and their per-row top-k: wrappers and plain
 versions.
 
-Port of ``repro/kernels/pcc_tile.py`` in its single-operand-stack modes,
-with float32, bfloat16, int8 or fp8 (``float8_e4m3fn``, ``float8_e5m2``)
-operands (both operands of one dtype).  bfloat16 and fp8 operands widen to
+Port of ``repro/kernels/pcc_tile.py`` in every mode, the replica axis of
+significance runs included, with float32, bfloat16, int8 or fp8
+(``float8_e4m3fn``, ``float8_e5m2``) operands (both operands of one
+dtype).  bfloat16 and fp8 operands widen to
 float32 as they are loaded (exactly) and take the float32 arithmetic, so
 such a tile is bitwise the float32 tile of the widened operand; int8
 operands accumulate in int32 and convert to float32 once.  Quantized
@@ -21,6 +22,10 @@ row-major and the tile is U V^T with columns from ``v_pad``.  Each tile
 accumulates over the whole sample axis in IEEE float32, then the scale
 product (if any) and the fused :class:`EpilogueSpec` (x 1/div, then clip)
 run before the single store.  Ids past the end clamp to the last tile.
+A 3-D ``v_pad`` of shape (R, cols_pad, l_pad) is a replica stack (the
+significance workload, core/significance.py): replica r's tiles are those
+of the 2-D launch with ``v_pad = stack[r]`` and ``col_scale[r]``, bit for
+bit, returned as (R, pass_tiles, t, t).
 
 ``pcc_topk_tiles`` (Pallas bodies ``_topk_kernel``/``_topk_select``): the
 same tiles, folded into per-row (value, column) top-kk state under the
@@ -62,6 +67,8 @@ TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 # int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
 INT8_MAX_L_PAD = (2**31 - 1) // 128**2
+# Replicas of one launch: the CUDA grid's z extent.
+MAX_REPLICAS = 65_535
 
 
 def dtype_name(dtype) -> str:
@@ -150,21 +157,24 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
             "the grid of U against itself (the reference's symmetric_grid "
             "mode) is not ported: pass v_pad with grid_cols")
     v = v_pad
-    if not isinstance(v, torch.Tensor) or v.ndim != 2:
-        raise ValueError("v_pad must be a 2-D torch tensor (replica stacks "
-                         "are a later slice)")
+    if not isinstance(v, torch.Tensor) or v.ndim not in (2, 3):
+        raise ValueError("v_pad must be a 2-D torch tensor, or a 3-D "
+                         "replica stack (R, cols_pad, l_pad)")
     if v.device != u_pad.device or v.dtype != u_pad.dtype or \
             not v.is_contiguous():
         raise ValueError(f"v_pad must be a contiguous tensor of u_pad's dtype "
                          f"({u_pad.dtype}) on {u_pad.device}, got {v.dtype} "
                          f"on {v.device}")
+    if v.ndim == 3 and not 0 < v.shape[0] <= MAX_REPLICAS:
+        raise ValueError(f"a replica stack holds 1 to {MAX_REPLICAS} "
+                         f"replicas, got {v.shape[0]}")
     if grid_cols is None:
-        if v.shape != u_pad.shape:
+        if v.shape[-2:] != u_pad.shape:
             raise ValueError(
-                f"a 2-D second operand may ride the triangular bijection "
-                f"only when it matches u_pad exactly (symmetric composite "
-                f"GEMMs), got v_pad {tuple(v.shape)} vs u_pad "
-                f"{tuple(u_pad.shape)}")
+                f"a second operand may ride the triangular bijection only "
+                f"when it (each replica of a stack) matches u_pad exactly "
+                f"(symmetric composite GEMMs, permutation replicas), got "
+                f"v_pad {tuple(v.shape)} vs u_pad {tuple(u_pad.shape)}")
         return m, m * (m + 1) // 2, v
     if grid_cols <= 0 or v.shape[-1] != l_pad or v.shape[-2] != grid_cols * t:
         raise ValueError(
@@ -183,14 +193,16 @@ def _check_scales(u_pad: torch.Tensor, v: torch.Tensor,
                          "(pass the same scales twice for symmetric runs)")
     if row_scale is None:
         return False
-    for name, s, rows in (("row_scale", row_scale, u_pad.shape[0]),
-                          ("col_scale", col_scale, v.shape[0])):
-        if not isinstance(s, torch.Tensor) or tuple(s.shape) != (rows,) or \
+    for name, s, shape in (("row_scale", row_scale, u_pad.shape[:1]),
+                           ("col_scale", col_scale, v.shape[:-1])):
+        # a replica stack's (R, cols_pad) scales may repeat one vector
+        # (stride 0 over R): only the rows must be contiguous
+        if not isinstance(s, torch.Tensor) or s.shape != shape or \
                 s.dtype != torch.float32 or s.device != u_pad.device or \
-                not s.is_contiguous():
+                s.stride(-1) != 1:
             raise ValueError(
-                f"{name} must be a contiguous ({rows},) float32 tensor on "
-                f"{u_pad.device}, got "
+                f"{name} must be a {tuple(shape)} float32 tensor with "
+                f"contiguous rows on {u_pad.device}, got "
                 f"{getattr(s, 'dtype', type(s))} {tuple(getattr(s, 'shape', ()))}")
     return True
 
@@ -224,21 +236,27 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
     v_pad / grid_cols: grid_cols=None runs the triangle, columns from U or
            from a v_pad of U's exact shape and dtype; an int selects the
            rectangular grid, rows from U and columns from v_pad
-           (grid_cols * t, l_pad), which the grid requires.
+           (grid_cols * t, l_pad), which the grid requires.  A 3-D v_pad
+           (R, ., l_pad) stacks R such column operands (the replica axis;
+           1 <= R <= MAX_REPLICAS).
     row_scale / col_scale: optional (n_pad,) and (column rows,) float32
            per-row dequantization scales of quantized operands, given
            together; each finished tile is multiplied by
            row_scale[y] * col_scale[x] (the product first) before the
-           epilogue.
-    Returns (pass_tiles, t, t) float32.  ``pcc_tiles.launches`` counts the
-    CUDA kernel's launches, ``pcc_tiles.launches_by_dtype`` per operand
-    dtype, ``pcc_tiles.scaled_launches`` those with scales and
-    ``pcc_tiles.triangle_pair_launches`` those on the triangle with a second
-    operand.
+           epilogue.  A replica stack takes col_scale (R, column rows),
+           whose replica stride may be 0 (one vector expanded over R).
+    Returns (pass_tiles, t, t) float32, or (R, pass_tiles, t, t) for a
+    replica stack.  ``pcc_tiles.launches`` counts the CUDA kernel's
+    launches, ``pcc_tiles.launches_by_dtype`` per operand dtype,
+    ``pcc_tiles.scaled_launches`` those with scales,
+    ``pcc_tiles.triangle_pair_launches`` those on the triangle with a 2-D
+    second operand, ``pcc_tiles.replica_launches`` those with a replica
+    stack and ``pcc_tiles.replicas_launched`` the sum of their R.
     """
     j_start = int(j_start)
     m, _, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad, grid_cols)
     scaled = _check_scales(u_pad, v, row_scale, col_scale)
+    replicas = v.shape[0] if v.ndim == 3 else 0
     if u_pad.device.type == "cpu":
         return pcc_tiles_plain(u_pad, j_start, t=t, l_blk=l_blk,
                                pass_tiles=pass_tiles, epilogue=epilogue,
@@ -248,8 +266,12 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
 
     lib = _build.load("pcc_tile")
     spec = epilogue if epilogue is not None else EpilogueSpec()
-    out = torch.empty((pass_tiles, t, t), dtype=torch.float32,
+    out = torch.empty((replicas, pass_tiles, t, t) if replicas
+                      else (pass_tiles, t, t), dtype=torch.float32,
                       device=u_pad.device)
+    # element strides between replicas of the stack and of its scales
+    v_rstride = v.stride(0) if replicas else 0
+    s_rstride = col_scale.stride(0) if replicas and scaled else 0
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
         fn = getattr(lib, "pcc_tiles_" + OPERAND_DTYPES[u_pad.dtype])
@@ -257,14 +279,17 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
             ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
             *_ptrs([row_scale, col_scale] if scaled else [], 2),
             ctypes.c_void_p(out.data_ptr()), j_start, pass_tiles, m,
-            grid_cols or 0, t, u_pad.shape[1], *spec.kernel_args(),
-            ctypes.c_void_p(stream))
+            grid_cols or 0, t, u_pad.shape[1], replicas, v_rstride,
+            s_rstride, *spec.kernel_args(), ctypes.c_void_p(stream))
     _launch_error(lib, err, "pcc_tiles", "pcc_tile")
     pcc_tiles.launches += 1
     pcc_tiles.launches_by_dtype[dtype_name(u_pad.dtype)] += 1
     pcc_tiles.scaled_launches += int(scaled)
     pcc_tiles.triangle_pair_launches += int(grid_cols is None
-                                            and v_pad is not None)
+                                            and v_pad is not None
+                                            and not replicas)
+    pcc_tiles.replica_launches += int(replicas > 0)
+    pcc_tiles.replicas_launched += replicas
     return out
 
 
@@ -272,6 +297,8 @@ pcc_tiles.launches = 0
 pcc_tiles.launches_by_dtype = _dtype_counts()
 pcc_tiles.scaled_launches = 0
 pcc_tiles.triangle_pair_launches = 0
+pcc_tiles.replica_launches = 0
+pcc_tiles.replicas_launched = 0
 
 
 def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
@@ -296,12 +323,24 @@ def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
     operands widen to float64, where every integer sum up to 2^53 is exact
     in any order, and round once to float32: bitwise the kernel's int32 sum
     converted.  Scales multiply as ``tile * (row_scale[y] * col_scale[x])``
-    in float32, as the kernel does.
+    in float32, as the kernel does.  A replica stack runs the 2-D version
+    once per replica, so replica r's tiles are bitwise those of
+    ``v_pad = stack[r]``, ``col_scale = col_scale[r]``.
     """
     j_start = int(j_start)
     m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                          grid_cols)
     scaled = _check_scales(u_pad, v, row_scale, col_scale)
+    if v.ndim == 3:
+        out = torch.empty((v.shape[0], pass_tiles, t, t),
+                          dtype=torch.float32, device=u_pad.device)
+        for r in range(v.shape[0]):
+            out[r] = pcc_tiles_plain(
+                u_pad, j_start, t=t, l_blk=l_blk, pass_tiles=pass_tiles,
+                epilogue=epilogue, v_pad=v[r], grid_cols=grid_cols,
+                row_scale=row_scale,
+                col_scale=col_scale[r] if scaled else None)
+        return out
     ids = np.minimum(j_start + np.arange(pass_tiles, dtype=np.int64),
                      total - 1)
     ys, xs = _coords(m, grid_cols, ids)
@@ -337,6 +376,9 @@ def _check_topk(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
     """Validate a top-k launch; returns (m, total, column operand)."""
     m, total, v = _check(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                          grid_cols)
+    if v.ndim == 3:
+        raise ValueError("pcc_topk_tiles takes no replica stack: "
+                         "significance runs rank p-values through TopKSink")
     if u_pad.dtype not in TOPK_DTYPES:
         raise ValueError(f"pcc_topk_tiles takes float32, bfloat16 or int8 "
                          f"operands, got {u_pad.dtype} (fp8 operands carry "
@@ -567,7 +609,8 @@ def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
 
 
 __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
-           "OPERAND_DTYPES", "TOPK_DTYPES", "INT8_MAX_L_PAD", "dtype_name",
+           "OPERAND_DTYPES", "TOPK_DTYPES", "INT8_MAX_L_PAD", "MAX_REPLICAS",
+           "dtype_name",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
            "topk_fold_plain", "topk_scratch_bytes"]

@@ -21,6 +21,7 @@ from repro.configs import lightpcc as ref_lightpcc
 from repro.core.api import corr as ref_corr
 from repro.core.pcc import transform as ref_transform
 from repro.core.plan import ExecutionPlan as RefPlan
+from repro.core.significance import PermutationSpec as RefPermutationSpec
 from repro.core.sinks import symmetrize as ref_symmetrize
 from repro.data import expression as ref_expression
 from repro.kernels.pcc_tile import pcc_tiles as ref_pcc_tiles
@@ -30,6 +31,7 @@ from repro_torch.core import measures, pcc, sinks
 from repro_torch.core.allpairs import allpairs, execute_plan
 from repro_torch.core.api import PairwiseProblem, corr
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.significance import PermutationSpec
 from repro_torch.data import expression
 from repro_torch.kernels.pcc_tile import pcc_tiles
 
@@ -152,10 +154,16 @@ def test_convert_refuses_modes_of_later_slices():
     fp8 = {**spec, "compute_dtype": "float8_e4m3fn"}
     plan = convert.plan_from_reference(fp8)
     assert plan.spec_dict() == fp8 and plan.scaled
+    # significance plans are ported: the replica count converts too
+    sig = RefPlan.create(37, 29, t=8, l_blk=8, replicas=8).spec_dict()
+    plan = convert.plan_from_reference(sig)
+    assert plan.spec_dict() == sig and plan.replicas == 8
     for key, value in [("compute_dtype", "float16"), ("p", 4),
-                       ("symmetric_grid", True), ("replicas", 8)]:
+                       ("symmetric_grid", True)]:
         with pytest.raises(NotImplementedError):
             convert.plan_from_reference({**spec, key: value})
+    with pytest.raises(ValueError):
+        convert.plan_from_reference({**spec, "replicas": -1})
     with pytest.raises(ValueError):
         convert.plan_from_reference({**spec, "total_tiles": 1})
     with pytest.raises(ValueError):
@@ -223,10 +231,20 @@ def test_corr_without_device_raises_on_a_machine_without_a_card():
     dict(where="nan"),
     dict(mesh=object()), dict(shard_u=True),
     dict(compute_dtype="float8_e4m3fn"),
-    dict(resume_from="r.mm"), dict(pvalues=object()), dict(recovery=object()),
+    dict(resume_from="r.mm"), dict(pvalues=3), dict(recovery=object()),
 ])
 def test_unported_corr_options_name_their_slice(kw):
     x = _x(37, 29)
+    if "pvalues" in kw:
+        # ported (slice 8): a significance run's r matches the reference's
+        got, _ = corr(x, t=8, l_blk=8, device="cpu", pvalues=PermutationSpec(
+            iterations=kw["pvalues"], key=0))
+        want, _ = ref_corr(jnp.asarray(x), t=8, l_blk=8,
+                           pvalues=RefPermutationSpec(
+                               iterations=kw["pvalues"], key=0))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+        return
     if set(kw) <= {"where", "compute_dtype"}:
         # ported: masked runs (slice 5) and fp8 operands (slice 6) match
         # the reference

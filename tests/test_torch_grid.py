@@ -120,7 +120,11 @@ def test_grid_tiles_check_their_operands():
     with pytest.raises(ValueError, match="float32"):
         pcc_tiles(u, 0, v_pad=v.double(), grid_cols=3, **kw)
     with pytest.raises(ValueError, match="2-D"):
-        pcc_tiles(u, 0, v_pad=v[None], grid_cols=3, **kw)
+        pcc_tiles(u, 0, v_pad=v[None, None], grid_cols=3, **kw)
+    # a 3-D column operand is a replica stack (significance runs): one
+    # replica of v gives v's tiles
+    assert torch.equal(pcc_tiles(u, 0, v_pad=v[None], grid_cols=3, **kw)[0],
+                       pcc_tiles(u, 0, v_pad=v, grid_cols=3, **kw))
     # a second operand on the triangle: U's exact shape and dtype only
     w = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (40, 8)).astype(np.float32))

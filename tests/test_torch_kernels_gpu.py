@@ -444,3 +444,143 @@ def test_masked_and_quantized_corr_on_card_match_cpu(cuda, measure,
     torch.testing.assert_close(corr(x, y, device=cuda, **kw_y).cpu(),
                                corr(x, y, device="cpu", **kw_y), rtol=0,
                                atol=ATOL)
+
+
+def _replica_stack(dtype, n, n_cols, l, t, l_blk, device, reps, grid):
+    """(u, stack, row_scale, col_scale) for the replica mode: `reps` column
+    operands of type `dtype` ("int8s": scaled int8; "int8": Kendall-like
+    signs), each u's shape on the triangle or (n_cols rows) on the grid."""
+    rows = n_cols if grid else n
+    if dtype in ("int8s", "float8_e4m3fn", "float8_e5m2"):
+        q = "int8" if dtype == "int8s" else dtype
+        u, su = _quantized(n, l, t, l_blk, device, q)
+        cols = [_quantized(rows, l, t, l_blk, device, q, seed=s)
+                for s in range(1, reps + 1)]
+        stack = torch.stack([c.view(torch.uint8) for c, _ in cols])
+        return (u, stack.view(u.dtype), su,
+                torch.stack([s for _, s in cols]))
+    if dtype == "int8":
+        u = pad_operands(_signs(n, l, device), t, l_blk)
+        stack = torch.stack([pad_operands(_signs(rows, l, device, seed=s), t,
+                                          l_blk) for s in range(1, reps + 1)])
+        return u, stack, None, None
+    dt = getattr(torch, dtype)
+    u = _operand(n, l, t, l_blk, device).to(dt)
+    stack = torch.stack([_operand(rows, l, t, l_blk, device, seed=s).to(dt)
+                         for s in range(1, reps + 1)])
+    return u, stack, None, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reps", [1, 3, 5])
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int8s",
+                                   "float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("n,n_cols,l,t,l_blk,j_start,pass_tiles", [
+    (37, 21, 29, 8, 8, 3, 12),        # ragged, clamped ids past the end
+    (300, 170, 700, 96, 64, 1, 5),    # t not a multiple of the CTA block
+])
+def test_replica_kernel_bitwise_invariants(cuda, dtype, grid, reps, n,
+                                           n_cols, l, t, l_blk, j_start,
+                                           pass_tiles):
+    """Replica r's tiles are bitwise the 2-D kernel's tiles with v_pad =
+    stack[r]; float32 within ATOL of the plain version; int8 and scaled
+    int8 bitwise the plain version; bf16 and fp8 bitwise the float32
+    replica kernel on the widened stack (fp8: times the scale product, then
+    the epilogue)."""
+    u, stack, su, scol = _replica_stack(dtype, n, n_cols, l, t, l_blk, cuda,
+                                        reps, grid)
+    m = u.shape[0] // t
+    gc = stack.shape[1] // t if grid else None
+    spec = EpilogueSpec(div=7.0, clip=(-0.05, 0.05))
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
+              grid_cols=gc, row_scale=su)
+    before = (pcc_tiles.replica_launches, pcc_tiles.replicas_launched,
+              pcc_tiles.triangle_pair_launches)
+    got = pcc_tiles(u, j_start, v_pad=stack, col_scale=scol, **kw)
+    torch.cuda.synchronize()
+    assert (pcc_tiles.replica_launches, pcc_tiles.replicas_launched,
+            pcc_tiles.triangle_pair_launches) == (before[0] + 1,
+                                                  before[1] + reps, before[2])
+    assert got.shape == (reps, pass_tiles, t, t)
+    for r in range(reps):
+        assert torch.equal(got[r], pcc_tiles(
+            u, j_start, v_pad=stack[r].contiguous(),
+            col_scale=None if scol is None else scol[r], **kw))
+    want = pcc_tiles_plain(u, j_start, v_pad=stack, col_scale=scol, **kw)
+    if dtype in ("int8", "int8s"):
+        assert torch.equal(got, want)
+    elif dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    else:
+        wide = pcc_tiles(u.float(), j_start, t=t, l_blk=l_blk,
+                         pass_tiles=pass_tiles, grid_cols=gc,
+                         v_pad=stack.float())
+        if scol is not None:
+            total = m * gc if grid else m * (m + 1) // 2
+            ids = np.minimum(j_start + np.arange(pass_tiles), total - 1)
+            ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+                      else job_coord_batch(m, ids))
+            srow = su.view(m, t)[torch.as_tensor(ys, device=cuda)]
+            sc = scol.view(reps, -1, t)[:, torch.as_tensor(xs, device=cuda)]
+            wide = wide * (srow[None, :, :, None] * sc[:, :, None, :])
+        assert torch.equal(got, spec.apply(wide))
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    if scol is not None:   # one scale vector expanded over the replicas
+        one = pcc_tiles(u, j_start, v_pad=stack,
+                        col_scale=scol[:1].expand(reps, -1), **kw)
+        assert torch.equal(one, pcc_tiles(
+            u, j_start, v_pad=stack,
+            col_scale=scol[:1].expand(reps, -1).contiguous(), **kw))
+
+
+def _pvalue_near_ties(x, y, idx, tie=1e-5):
+    """Per entry of a Pearson significance run, the replicas whose float64
+    |r| lies within `tie` of the observed float64 |r| (upper triangle
+    mirrored for symmetric runs)."""
+    u = transform(torch.from_numpy(x).double())
+    v = u if y is None else transform(torch.from_numpy(y).double())
+    obs = torch.clamp(u @ v.T, -1.0, 1.0).abs()
+    ties = torch.zeros(obs.shape, dtype=torch.int64)
+    for row in idx:
+        rep = torch.clamp(u @ v[:, row].T, -1.0, 1.0).abs()
+        ties += (rep - obs).abs() <= tie
+    if y is None:
+        ties = torch.where(torch.ones_like(ties, dtype=torch.bool).triu(),
+                           ties, ties.T)
+    return ties
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rect", [False, True])
+def test_significance_corr_on_card_matches_cpu(cuda, rect):
+    """corr(pvalues=) on the card: r within ATOL of the CPU run and bitwise
+    corr(x) on the card; p equal to the CPU's except at counted float64
+    near-ties (two summation orders); int8 Kendall bitwise the CPU's."""
+    from repro_torch.core.significance import (PermutationSpec,
+                                               iteration_indices)
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((200, 40)) / np.sqrt(40)).astype(np.float32)
+    y = x[:70] + 0.1 * rng.standard_normal((70, 40)).astype(np.float32) \
+        if rect else None
+    spec = PermutationSpec(iterations=37, key=3, chunk=16)
+    kw = dict(t=32, l_blk=32, max_tiles_per_pass=7, pvalues=spec)
+    before = pcc_tiles.replicas_launched
+    r, p = corr(x, y, device=cuda, **kw)
+    n_pass = -(-((7 * 3) if rect else 28) // 7)
+    assert pcc_tiles.replicas_launched == before + 37 * n_pass
+    assert torch.equal(r, corr(x, y, t=32, l_blk=32, device=cuda))
+    r_cpu, p_cpu = corr(x, y, device="cpu", **kw)
+    torch.testing.assert_close(r.cpu(), r_cpu, rtol=0, atol=ATOL)
+    ties = _pvalue_near_ties(x, y, iteration_indices(spec, 40))
+    d = torch.round((p.cpu().double() - p_cpu.double()).abs() * 38)
+    assert torch.equal(p.cpu()[ties == 0], p_cpu[ties == 0])
+    assert bool((d <= ties).all())
+    if not rect:
+        assert torch.equal(p, p.T)
+    xk = x[:, :12]
+    kk = dict(measure="kendall", compute_dtype="int8", t=32, l_blk=32,
+              pvalues=spec)
+    rk, pk = corr(xk, device=cuda, **kk)
+    rk_cpu, pk_cpu = corr(xk, device="cpu", **kk)
+    assert torch.equal(rk.cpu(), rk_cpu) and torch.equal(pk.cpu(), pk_cpu)
