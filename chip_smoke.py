@@ -84,7 +84,22 @@ Phases, each fatal on failure:
      timed with its bound and a library yardstick, corr end to end and its
      peak memory; then Table II at B = 8 (the replica mode at the main
      path's full shape), TF x Table II at B = 32 with chunk 16 (the grid's
-     replica mode) and the int8-quantized headline at B = 200.
+     replica mode) and the int8-quantized headline at B = 200;
+ 19. flash attention (kernels/ops.flash_mha): the kernel against its plain
+     version at small shapes (float32 within 2e-6; bf16 and fp16 bitwise
+     the float32 kernel on the widened inputs, rounded; the windows the
+     reference kernel drops also against mha_plain), then one layer at the
+     head shapes of llama-3.2-3B (S = 4,096 and 32,768, causal) and of
+     hymba-1.5B's sliding-window layers (S = 32,768, window 1,024), float32
+     and bf16: flash_mha's launches, every row against the plain version,
+     float32 rows against float64 mha_plain (all at 4,096, the first and
+     last 512 at 32,768), bf16 bitwise as above; the kernel timed with its
+     bound, its plain version and scaled_dot_product_attention;
+ 20. multi-pass top-k at Table II (300-tile passes): DeviceTopKSink(10) and
+     TopKSink(10) end to end against the sum and the larger of their
+     kernels' and their sinks' times.  With --overlap-only SRC the script
+     runs the build and this phase alone on the package under SRC (another
+     tree of this repository), for a before / after comparison.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -152,6 +167,43 @@ SIG_ROWS = 8
 # value: where a replica's float64 |r| lies within 2 * TOL_F64 of the
 # observed one, the float32 comparison may go either way (a near-tie).
 TIE_SIG = 2 * TOL_F64
+# Flash attention (phase 19): one layer's attention at the head shapes of
+# two shipped configurations (name, config, B, H, Hkv, D, window, S).
+FLASH_CASES = [
+    ("llama-4k", "src/repro/configs/llama3_2_3b.py", 1, 24, 8, 128, None,
+     4_096),     # train_4k
+    ("llama-32k", "src/repro/configs/llama3_2_3b.py", 1, 24, 8, 128, None,
+     32_768),    # prefill_32k
+    ("hymba-swa-32k", "src/repro/configs/hymba_1_5b.py", 1, 25, 5, 64,
+     1_024, 32_768),   # the sliding-window layers at prefill_32k
+]
+FLASH_SMALL = [  # B, H, Hkv, S, D, window: the reference's test shapes,
+    (1, 2, 2, 32, 16, None), (2, 4, 2, 70, 16, None),  # the windows it
+    (1, 8, 1, 64, 32, None), (2, 2, 2, 17, 8, None),   # drops, and the
+    (2, 4, 2, 96, 16, 16), (2, 4, 2, 96, 16, 32),      # model cases'
+    (2, 4, 2, 96, 16, 48), (1, 2, 1, 32, 16, 16),      # head tiles
+    (1, 2, 1, 96, 16, 80), (1, 2, 1, 40, 16, 32), (1, 3, 1, 300, 64, 64),
+    (1, 4, 2, 200, 128, None), (1, 2, 1, 150, 100, None),
+    (1, 1, 1, 130, 256, 128), (1, 2, 1, 257, 64, 16),
+]
+DROPPED_WINDOWS = {(32, 16), (96, 80), (40, 32)}   # (S, window), blk 16
+# Kernel against plain at the small shapes: the reference's own bound
+# (tests/test_kernels.py).
+TOL_ATTN_SMALL = 2e-6
+# float32 attention against float64 and against the plain version at the
+# full shapes: a logit is a float32 dot of D products (error ~1e-7 relative
+# at D = 128), exp turns it into a relative weight error of that size, and
+# an output row, a convex combination of v rows (|v| < 6), moves by at most
+# that times their spread: ~1e-6.  The plain version measured 8.3e-7
+# against float64 at S = 4,096, D = 128 on the CPU; 1e-5 leaves 10x.
+TOL_ATTN = 1e-5
+# Up to this S the plain version and the float64 check take every row at
+# once; above it the plain version runs in row chunks and float64 checks
+# ATTN_ROWS rows at each end (the whole logits of the 32k cases would not
+# fit: 24 x 32,768^2 float32 is 103 GB).
+ATTN_WHOLE = 4_096
+ATTN_CHUNK = 2_048
+ATTN_ROWS = 512
 
 
 def gpu_info() -> str:
@@ -239,9 +291,110 @@ def check_rows_topk(res, rows, u64, v64, k, self_pairs, tol, label):
     return err, int(differ.sum())
 
 
-def main() -> int:
+def event_ms(fn, reps):
+    """Median and all of `reps` CUDA-event times of fn() after one warm-up
+    call, in ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+def host_ms(fn, reps):
+    """Median and all of `reps` host-clock times of fn() followed by
+    torch.cuda.synchronize(), after one warm-up call, in ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(times), times
+
+
+def overlap_runs(x_dev, k_top, split):
+    """Multi-pass top-k at Table II (`split`-tile passes): each top-k sink's
+    corr end to end (median of 3), against the sum and the larger of its
+    passes' kernels (CUDA events, back to back) and its sink's work per pass
+    (consume() between two synchronisations: device pre-selection, copies,
+    host merge).  The sinks' copies overlap the next pass's kernel only if
+    they wait on their own pass."""
+    import torch
+    from repro_torch.core.allpairs import launch_tiles, launch_topk_tiles
+    from repro_torch.core.api import corr
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.core.sinks import DeviceTopKSink, TopKSink
+
+    plan = ExecutionPlan.create(N_SEEK, L_SEEK, max_tiles_per_pass=split)
+    u = plan.prepare(x_dev)
+
+    def kernels(device_state):
+        for k, launch in enumerate(plan.launch_sizes):
+            lo = plan.pass_offset(k)
+            if device_state:
+                launch_topk_tiles(plan, u, lo, plan.total_tiles, launch,
+                                  k_top)
+            else:
+                launch_tiles(plan, u, lo, launch)
+
+    out = {}
+    for cls in (DeviceTopKSink, TopKSink):
+        class Timed(cls):
+            def __init__(self, k):
+                super().__init__(k)
+                self.ms = []
+
+            def consume(self, ids, buf, *ready):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                super().consume(ids, buf, *ready)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t1) * 1e3)
+
+        wall, walls = host_ms(lambda: corr(x_dev, sink=cls(k_top),
+                                           max_tiles_per_pass=split), 3)
+        kern, _ = event_ms(lambda: kernels(cls is DeviceTopKSink), 3)
+        sink_all = []
+        for _ in range(3):
+            snk = Timed(k_top)
+            corr(x_dev, sink=snk, max_tiles_per_pass=split)
+            sink_all.append(sum(snk.ms))
+        sink = statistics.median(sink_all)
+        out[cls.__name__] = dict(
+            passes=plan.n_pass, corr_ms=wall, corr_runs=walls,
+            kernels_ms=kern, sink_ms=sink, sum_ms=kern + sink,
+            max_ms=max(kern, sink))
+        print(f"  {cls.__name__}({k_top}), {plan.n_pass} passes of <= "
+              f"{split} tiles: corr {wall:.3f} ms (runs "
+              f"{[round(v, 3) for v in walls]}); kernels {kern:.3f} ms, sink "
+              f"{sink:.3f} ms (runs {[round(v, 3) for v in sink_all]}): sum "
+              f"{kern + sink:.3f}, larger {max(kern, sink):.3f}")
+    return out
+
+
+def main(argv) -> int:
     t_script = time.perf_counter()
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    # --overlap-only SRC: phase 20 alone, on the package under SRC (an
+    # earlier tree of this repository, for a before / after comparison)
+    overlap_only = argv[:1] == ["--overlap-only"]
+    if overlap_only and len(argv) != 2:
+        print("usage: chip_smoke.py [--overlap-only SRC]", file=sys.stderr)
+        return 2
+    src = (Path(argv[1]) if overlap_only
+           else Path(__file__).resolve().parent / "src")
+    sys.path.insert(0, str(src.resolve()))
     import torch
 
     from repro_torch.core import measures, pcc
@@ -281,6 +434,14 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 print(f"  {name}: {line.strip()}")
+    if overlap_only:
+        x_dev = torch.from_numpy(artificial(ExpressionSpec(
+            n=N_SEEK, l=L_SEEK, seed=0))).to(dev)
+        print(f"multi-pass top-k at Table II, package {src} [{card}]:")
+        res = overlap_runs(x_dev, K_TOP, SPLIT)
+        print(f"script time {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"overlap": res, "src": str(src), "card": card}))
+        return 0
 
     # -- 2. kernel against plain --------------------------------------------
     def operand(x: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
@@ -390,31 +551,6 @@ def main() -> int:
         raise AssertionError("small corr disagrees with numpy")
 
     # -- 4. times -----------------------------------------------------------
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times), times
-
-    def host_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t1) * 1e3)
-        return statistics.median(times), times
-
     spec = plan.epilogue_spec
     kern_ms, kern_all = event_ms(lambda: pcc_tiles(
         u_seek, 0, t=plan.t, l_blk=plan.l_blk, pass_tiles=total,
@@ -639,10 +775,10 @@ def main() -> int:
             super().__init__(k)
             self.merge_ms = []
 
-        def consume(self, ids, state):
+        def consume(self, ids, state, *ready):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            super().consume(ids, state)
+            super().consume(ids, state, *ready)
             self.merge_ms.append((time.perf_counter() - t1) * 1e3)
 
     print(f"symmetric top-k: corr(x, sink=DeviceTopKSink({K_TOP})) at "
@@ -1909,6 +2045,196 @@ def main() -> int:
           f"kernel (64 replicas, expanded scales) bitwise plain, "
           f"{q8k_ms:.3f} ms {tag}")
 
+    # -- 19. flash attention -------------------------------------------------
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     mha_plain)
+    from repro_torch.kernels.ops import flash_mha
+
+    attn_plain_calls = [0]
+
+    def counted_attn_plain(*args, **kwargs):
+        attn_plain_calls[0] += 1
+        return flash_attention_plain(*args, **kwargs)
+    fmod.flash_attention_plain = counted_attn_plain   # the wrapper's route
+
+    def reset_flash():
+        flash_attention.launches = 0
+        flash_attention.launches_by_dtype = {
+            k: 0 for k in flash_attention.launches_by_dtype}
+        attn_plain_calls[0] = 0
+
+    def randn_qkv(b_, h_, hkv_, s_, d_, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(shape, generator=g, device=dev)
+                for shape in ((b_, h_, s_, d_), (b_, hkv_, s_, d_),
+                              (b_, hkv_, s_, d_))]
+
+    print(f"flash attention vs plain at small shapes: float32 within "
+          f"{TOL_ATTN_SMALL:g}; bf16 / fp16 bitwise the float32 kernel on the "
+          f"widened inputs, rounded; the windows the reference kernel drops "
+          f"also vs mha_plain:")
+    attn_small_err = 0.0
+    for b_, h_, hkv_, s_, d_, w_ in FLASH_SMALL:
+        q_, k_, v_ = randn_qkv(b_, h_, hkv_, s_, d_, s_ * 1_000 + d_)
+        label = f"B={b_} H={h_} Hkv={hkv_} S={s_} D={d_} window={w_}"
+        got = flash_attention(q_, k_, v_, window=w_, blk_q=16, blk_k=16)
+        err = amax((got - flash_attention_plain(q_, k_, v_, window=w_))
+                   .abs())
+        if (s_, w_) in DROPPED_WINDOWS:
+            err = max(err, amax((got - mha_plain(q_, k_, v_, window=w_))
+                                .abs()))
+        if not err <= TOL_ATTN_SMALL:
+            raise AssertionError(f"flash {label}: kernel disagrees with "
+                                 f"plain ({err:.3e})")
+        attn_small_err = max(attn_small_err, err)
+        for dt in (torch.bfloat16, torch.float16):
+            qn, kn, vn = q_.to(dt), k_.to(dt), v_.to(dt)
+            narrow = flash_attention(qn, kn, vn, window=w_, blk_q=16,
+                                     blk_k=16)
+            wide = flash_attention(qn.float(), kn.float(), vn.float(),
+                                   window=w_, blk_q=16, blk_k=16)
+            if not torch.equal(narrow, wide.to(dt)):
+                raise AssertionError(f"flash {label}: {dt} output is not "
+                                     f"the float32 kernel's, rounded")
+    print(f"  {len(FLASH_SMALL)} shapes: max|kernel - plain| "
+          f"{attn_small_err:.3e}; bf16 and fp16 bitwise")
+
+    def library_attn(q_, k_, v_, w_, out_, reps):
+        """(ms, label) of one PyTorch call that computes the same attention
+        (scaled_dot_product_attention; the port never calls it), or (None,
+        reason)."""
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if w_ is None:
+            kw, what = dict(is_causal=True), "is_causal=True"
+        else:
+            i = torch.arange(q_.shape[2], device=dev)
+            kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                      & (i[None, :] > i[:, None] - w_))
+            what = "attn_mask=<boolean band>"
+        tries = [(f"scaled_dot_product_attention({what}, enable_gqa=True)",
+                  lambda: sdpa(q_, k_, v_, enable_gqa=True, **kw))]
+        rep = q_.shape[1] // k_.shape[1]
+        tries.append((f"scaled_dot_product_attention({what}) on k, v "
+                      f"expanded to H heads beforehand (not timed)",
+                      lambda: sdpa(q_, ke, ve, **kw)))
+        ke = ve = None
+        fails = []
+        for label, fn in tries:
+            try:
+                if "expanded" in label:
+                    ke = k_.repeat_interleave(rep, dim=1)
+                    ve = v_.repeat_interleave(rep, dim=1)
+                got = fn()
+                torch.cuda.synchronize()
+            except Exception as exc:   # backend-, version- and size-dependent
+                fails.append(f"{label}: {str(exc).splitlines()[0][:160]}")
+                torch.cuda.empty_cache()
+                continue
+            diff = amax((got.float() - out_.float()).abs())
+            del got
+            ms = event_ms(fn, reps)[0]
+            return ms, (f"{label}, max|library - kernel| {diff:.3e}"
+                        + "".join(f"; refused first: {f}" for f in fails))
+        return None, "none: " + "; ".join(fails)
+
+    flash_rows = []
+    for name, cfg, b_, h_, hkv_, d_, w_, s_ in FLASH_CASES:
+        q_, k_, v_ = randn_qkv(b_, h_, hkv_, s_, d_, 0)
+        pairs = b_ * h_ * (s_ * (s_ + 1) // 2 if w_ is None
+                           else w_ * (w_ + 1) // 2 + (s_ - w_) * w_)
+        chunk = None if s_ <= ATTN_WHOLE else ATTN_CHUNK
+        reps = 5 if s_ <= ATTN_WHOLE else 3
+        print(f"flash attention, {name} ({cfg}): B={b_} H={h_} Hkv={hkv_} "
+              f"D={d_} S={s_} window={w_}: {pairs:.6g} visible pairs, "
+              f"{4 * d_ * pairs:.4g} FLOP {tag}")
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).removeprefix("torch.")
+            qd, kd, vd = (a.to(dt) for a in (q_, k_, v_))
+            reset_flash()
+            out = flash_mha(qd, kd, vd, window=w_)
+            torch.cuda.synchronize()
+            launches_f = flash_attention.launches
+            print(f"  {dname} flash_mha: flash_attention launches "
+                  f"{dict(flash_attention.launches_by_dtype)}, plain calls "
+                  f"{attn_plain_calls[0]}")
+            if launches_f != 1 or attn_plain_calls[0] or \
+                    flash_attention.launches_by_dtype[dname] != 1:
+                raise AssertionError(f"{name} {dname}: flash_mha did not run "
+                                     f"through the CUDA kernel")
+            if out.shape != qd.shape or out.dtype != dt or \
+                    not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {dname}: bad output")
+            want = flash_attention_plain(qd, kd, vd, window=w_, chunk=chunk)
+            err = amax((out.float() - want.float()).abs())
+            del want
+            if dt == torch.float32:
+                if not err <= TOL_ATTN:
+                    raise AssertionError(f"{name}: kernel disagrees with "
+                                         f"plain ({err:.3e})")
+                regions = ([(0, s_)] if s_ <= ATTN_WHOLE else
+                           [(0, ATTN_ROWS), (s_ - ATTN_ROWS, s_)])
+                err64 = 0.0
+                for r0, r1 in regions:
+                    ref64 = mha_plain(q_[:, :, r0:r1].double(),
+                                      k_[:, :, :r1].double(),
+                                      v_[:, :, :r1].double(), window=w_)
+                    err64 = max(err64, amax(
+                        (out[:, :, r0:r1].double() - ref64).abs()))
+                    del ref64
+                print(f"  float32: max|kernel - plain| {err:.3e} (every row);"
+                      f" rows {regions} vs float64 mha_plain: {err64:.3e} "
+                      f"(tol {TOL_ATTN:g})")
+                if not err64 <= TOL_ATTN:
+                    raise AssertionError(f"{name}: kernel disagrees with "
+                                         f"float64")
+            else:
+                wide = flash_attention(qd.float(), kd.float(), vd.float(),
+                                       window=w_)
+                if not torch.equal(out, wide.to(dt)):
+                    raise AssertionError(f"{name}: bf16 output is not the "
+                                         f"float32 kernel's on the widened "
+                                         f"inputs, rounded")
+                del wide
+                print(f"  bf16: bitwise the float32 kernel on the widened "
+                      f"inputs, rounded; max|kernel - plain| {err:.3e}")
+            k_ms, k_all = event_ms(lambda: flash_attention(
+                qd, kd, vd, window=w_), reps)
+            p_ms, _ = event_ms(lambda: flash_attention_plain(
+                qd, kd, vd, window=w_, chunk=chunk), 3 if chunk is None
+                else 1)
+            l_ms, l_label = library_attn(qd, kd, vd, w_, out, reps)
+            del out
+            peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+            a_bound = narrow_bound(
+                4 * d_ * pairs,
+                (2 * qd.numel() + 2 * kd.numel()) * qd.element_size(), peak)
+            print(f"  {dname} flash_attention: {k_ms:.3f} ms (runs "
+                  f"{[round(v, 3) for v in k_all]}), "
+                  f"{4 * d_ * pairs / k_ms / 1e9:.1f} TFLOP/s, bound "
+                  f"{a_bound[0]:.3f} ms by {a_bound[1]} (at "
+                  f"{peak / 1e12:g} TFLOP/s); plain "
+                  f"{'' if chunk is None else f'(rows in chunks of {chunk}) '}"
+                  f"{p_ms:.3f} ms; library "
+                  f"{'not measured' if l_ms is None else f'{l_ms:.3f} ms'} "
+                  f"({l_label})")
+            flash_rows.append({
+                "name": f"flash_attention ({name}"
+                        f"{'' if dt == torch.float32 else ', bf16'})",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:118",
+                "launches": launches_f, "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": a_bound[0],
+                "bound_by": a_bound[1], "library_ms": l_ms})
+        del q_, k_, v_, qd, kd, vd
+    fmod.flash_attention_plain = flash_attention_plain
+
+    # -- 20. multi-pass top-k: the sinks wait on their own pass only ---------
+    print(f"multi-pass top-k at Table II, {SPLIT}-tile passes {tag}:")
+    overlap_runs(x_dev, K_TOP, SPLIT)
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
@@ -1971,6 +2297,7 @@ def main() -> int:
          "launches": sig_launches, "max_abs_err": rep_err, "ms": rk_ms,
          "plain_ms": rp_ms, "bound_ms": rbound[0], "bound_by": rbound[1],
          "library_ms": rl_ms},
+        *flash_rows,
     ]}
     print(f"script time {time.perf_counter() - t_script:.1f} s")
     print(json.dumps(record))
@@ -1981,4 +2308,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

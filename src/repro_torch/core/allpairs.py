@@ -9,9 +9,11 @@ Port of the single-device path of ``repro/core/allpairs.py``:
         v                          touches pass k (paper Alg. 2)
     TileSink (core/sinks.py)       what becomes of the tiles
 
-Kernel launches are asynchronous on the current CUDA stream, so while the
-host inverts pass k's tile ids and queues its scatter, the card is already
-computing pass k+1; the scatter runs on the same stream after it.
+Kernel launches are asynchronous on the current CUDA stream.  Each pass
+carries the CUDA event recorded right after its launch; the sink waits on
+that event alone (its device work and host copies go to a side stream,
+core/sinks.PassStream), so while the host merges pass k the card is already
+computing pass k+1.
 """
 
 from __future__ import annotations
@@ -74,34 +76,48 @@ def launch_topk_tiles(plan: ExecutionPlan, u, j0: int, dev_hi: int,
                           grid_cols=plan.workload.grid_cols)
 
 
+PassItem = Tuple[int, np.ndarray, object, Optional["torch.cuda.Event"]]
+
+
+def _ready_event(device: torch.device):
+    """An event recorded now on the current stream of a CUDA device (the
+    point after a pass's launch), or None on the CPU."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 def _local_launches(plan: ExecutionPlan, u_pad, v_pad=None,
-                    state_k: Optional[int] = None
-                    ) -> Iterator[Tuple[int, np.ndarray, object]]:
+                    state_k: Optional[int] = None) -> Iterator[PassItem]:
     """Single-device pass launches: consecutive spans of the tile-id range,
     each kernel sized to its actual tile count (every slot is valid).
     state_k switches to the device top-k epilogue: the buffer becomes the
-    kernel's per-row state tuple instead of tiles."""
+    kernel's per-row state tuple instead of tiles.  Each item carries the
+    event recorded after its launch (None on the CPU)."""
+    device = operand_data(u_pad).device
     for k, launch in enumerate(plan.launch_sizes):
         lo = plan.pass_offset(k)
         ids = np.arange(lo, lo + launch, dtype=np.int64)
         if state_k is not None:
-            yield k, ids, launch_topk_tiles(plan, u_pad, lo, plan.total_tiles,
-                                            launch, state_k, v=v_pad)
-            continue
-        buf = launch_tiles(plan, u_pad, lo, launch, v=v_pad)
-        if not plan.fused and plan.measure.epilogue is not None:
-            buf = plan.measure.epilogue(buf, plan.l)
-        yield k, ids, buf
+            buf = launch_topk_tiles(plan, u_pad, lo, plan.total_tiles,
+                                    launch, state_k, v=v_pad)
+        else:
+            buf = launch_tiles(plan, u_pad, lo, launch, v=v_pad)
+            if not plan.fused and plan.measure.epilogue is not None:
+                buf = plan.measure.epilogue(buf, plan.l)
+        yield k, ids, buf, _ready_event(device)
 
 
 def _stream(plan: ExecutionPlan, u_pad, v_pad=None,
-            state_k: Optional[int] = None
-            ) -> Iterator[Tuple[int, np.ndarray, object]]:
-    """Double-buffered pass stream of (k, ids, tiles or state): launches
-    pass k+1 before yielding pass k, so the sink's work on pass k overlaps
-    it.  u_pad and v_pad are prepared operands (tensors or quantized
-    :class:`Operand`s); on a triangular plan v_pad may be a second operand
-    of u_pad's shape (the masked measures' cross components)."""
+            state_k: Optional[int] = None) -> Iterator[PassItem]:
+    """Double-buffered pass stream of (k, ids, tiles or state, ready):
+    launches pass k+1 before yielding pass k, so the sink's work on pass k
+    overlaps it.  u_pad and v_pad are prepared operands (tensors or
+    quantized :class:`Operand`s); on a triangular plan v_pad may be a
+    second operand of u_pad's shape (the masked measures' cross
+    components)."""
     pending = None
     for item in _local_launches(plan, u_pad, v_pad, state_k):
         if pending is not None:
@@ -117,8 +133,8 @@ def run_sink(plan: ExecutionPlan, sink: Optional[TileSink],
     it, and return its result."""
     snk = sink if sink is not None else DenseSink()
     snk.open(plan, device)
-    for _k, ids, buf in stream:
-        snk.consume(ids, buf)
+    for _k, ids, buf, ready in stream:
+        snk.consume(ids, buf, ready)
     return snk.result()
 
 

@@ -276,10 +276,13 @@ def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
                                None if same else pad_y[ck]))
 
     def combined():
+        # The combine queues on the compute stream behind the next pass's
+        # launches, so the sink waits on everything queued (ready None).
         for items in zip(*streams):
-            k, ids, _ = items[0]
-            parts = {c: buf for c, (_, _, buf) in zip(mm.components, items)}
-            yield k, ids, mm.combine(parts)
+            k, ids, _, _ = items[0]
+            parts = {c: buf for c, (_, _, buf, _) in zip(mm.components,
+                                                         items)}
+            yield k, ids, mm.combine(parts), None
 
     return run_sink(sink_plan, sink, problem.x.device, combined())
 

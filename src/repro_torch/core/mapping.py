@@ -13,6 +13,15 @@ double-sqrt-then-int64-repair scheme as :func:`job_coord_batch`.
 
 Rectangular X-vs-Y work covers the whole m_rows x m_cols tile grid, numbered
 row-major (J = y * m_cols + x, inverted by one integer division).
+
+Two banded and lower-triangle families number the (query block, key block)
+jobs of causal and sliding-window attention (kernels/flash_attention.py):
+the upper band {(y, x): y <= x < min(n, y + w)} in the order of Eq. 9, and
+the lower triangle {(y, x): x <= y} and its band {(y, x): max(0, y - w + 1)
+<= x <= y} row-major, so that each query row's jobs are consecutive.  All of
+them invert with exact integers (``math.isqrt`` and a repair), at any size:
+the reference's float32 inverse for its Pallas index maps holds only up to
+~2,000 blocks.
 """
 
 from __future__ import annotations
@@ -115,6 +124,85 @@ def grid_job_coord_batch(rows: int, cols: int, ids) -> Tuple[np.ndarray,
     return j // cols, j % cols
 
 
+def band_count(n: int, w: int) -> int:
+    """Jobs in the banded upper triangle {(y, x): y <= x < min(n, y + w)}:
+    rows 0 .. n - w hold w jobs each, the trailing w - 1 rows a triangle."""
+    if w >= n:
+        return tri_count(n)
+    return (n - w + 1) * w + tri_count(w - 1)
+
+
+def band_job_id(n: int, w: int, y: int, x: int) -> int:
+    """Job id within the banded upper triangle, rows numbered top down."""
+    if not (0 <= y <= x < min(n, y + w)):
+        raise ValueError(f"(y={y}, x={x}) outside band w={w} of n={n}")
+    if w >= n:
+        return job_id(n, y, x)
+    boundary = n - w + 1          # first row the edge of the matrix truncates
+    if y < boundary:
+        return y * w + (x - y)
+    return boundary * w + f_n(w - 1, y - boundary) + (x - y)
+
+
+def band_job_coord(n: int, w: int, j: int) -> Tuple[int, int]:
+    """Inverse of :func:`band_job_id`, exact."""
+    if not (0 <= j < band_count(n, w)):
+        raise ValueError(f"job id {j} out of range for band w={w}, n={n}")
+    if w >= n:
+        return job_coord(n, j)
+    boundary = n - w + 1
+    head = boundary * w
+    if j < head:
+        y, dx = divmod(j, w)
+        return y, y + dx
+    # the tail rows form an upper (w - 1)-triangle
+    ty, tx = job_coord(w - 1, j - head)
+    return boundary + ty, boundary + tx
+
+
+def lower_job_id(y: int, x: int) -> int:
+    """Row-major id in the lower triangle {(y, x): x <= y}: J = T(y) + x
+    with T(y) = y (y + 1) / 2, the transpose-order twin of Eq. 9, so that
+    the jobs of one row y are consecutive."""
+    if not (0 <= x <= y):
+        raise ValueError(f"(y={y}, x={x}) not in lower triangle")
+    return tri_count(y) + x
+
+
+def lower_job_coord(j: int) -> Tuple[int, int]:
+    """Exact inverse of :func:`lower_job_id`: y = floor((sqrt(8J + 1) - 1)
+    / 2) with an integer square root, then a repair."""
+    if j < 0:
+        raise ValueError("job id must be non-negative")
+    y = (math.isqrt(8 * j + 1) - 1) // 2
+    while tri_count(y + 1) <= j:
+        y += 1
+    while tri_count(y) > j:
+        y -= 1
+    return y, j - tri_count(y)
+
+
+def band_lower_count(m: int, w: int) -> int:
+    """Jobs in the banded lower triangle {(y, x): max(0, y - w + 1) <= x <=
+    y} of an m x m job matrix."""
+    if w >= m:
+        return tri_count(m)
+    return tri_count(w) + (m - w) * w
+
+
+def band_lower_job_coord(m: int, w: int, j: int) -> Tuple[int, int]:
+    """Job id -> (y, x) in the banded lower triangle numbered row-major (the
+    first w rows form a triangle, every later row holds w jobs), exact."""
+    if not (0 <= j < band_lower_count(m, w)):
+        raise ValueError(f"job id {j} out of range for band w={w}, m={m}")
+    head = tri_count(min(w, m))
+    if j < head:
+        return lower_job_coord(j)
+    q, r = divmod(j - head, w)
+    y = w + q
+    return y, (y - w + 1) + r
+
+
 @dataclasses.dataclass(frozen=True)
 class TriangularWorkload:
     """Upper-triangle (incl. diagonal) tile jobs of a symmetric m x m grid."""
@@ -169,4 +257,6 @@ class GridWorkload:
 
 __all__ = ["tri_count", "f_n", "job_id", "job_coord", "job_coord_batch",
            "grid_job_id", "grid_job_coord", "grid_job_coord_batch",
+           "band_count", "band_job_id", "band_job_coord", "lower_job_id",
+           "lower_job_coord", "band_lower_count", "band_lower_job_coord",
            "TriangularWorkload", "GridWorkload"]

@@ -3,12 +3,20 @@
 Port of ``TileSink``, ``DenseSink``, ``TopKSink``, ``DeviceTopKSink``,
 ``ExceedanceSink`` and ``topk_merge_rows`` of ``repro/core/sinks.py``.
 Contract:
-``open(plan, device)`` once, ``consume(ids, tiles)`` per pass with the
-pass's unique global tile ids while the next pass is already launched
+``open(plan, device)`` once, ``consume(ids, tiles[, ready])`` per pass with
+the pass's unique global tile ids while the next pass is already launched
 (double buffering), ``result()`` to close the run.  Tiles arrive with the
 measure's epilogue applied; bounded measures are clipped in the kernel
 (fused) or by the sink (unfused) — clipping is idempotent, so both agree
 bit for bit.
+
+On the card, ``ready`` is the CUDA event the executor recorded right after
+the pass's launch (None: everything queued so far).  A sink runs its own
+device work on the pass, and its copies to and from the host, on a side
+stream that waits on that event alone (:class:`PassStream`): it never waits
+for the next pass's kernel, which the executor has already queued on the
+compute stream, so the host's work on pass k overlaps the card's on pass
+k + 1.  On the CPU there is no event and no stream.
 
   DenseSink       the (n, n) matrix (mirrored) or the (n_rows, n_cols)
                   cross matrix of a rectangular run, on the device.
@@ -28,7 +36,8 @@ third (n_pad, n_pad) buffer, which keeps n = 64K inside 80 GB.
 from __future__ import annotations
 
 import abc
-from typing import Optional, Tuple
+import contextlib
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +47,71 @@ from repro_torch.core.plan import ExecutionPlan, needs_row_scales
 # Rows per band of the in-place mirror: bounds the temporary of a diagonal
 # block at _BAND^2 floats.
 _BAND = 2048
+
+
+class PassStream:
+    """Where a sink's work on one pass runs.
+
+    On the card: a side stream that waits on the pass's ``ready`` event
+    (recorded after its launch), so the sink's device work and copies queue
+    behind that pass alone and not behind the next pass's kernel on the
+    compute stream.  Host arrays reach the card as non-blocking copies from
+    pinned memory, and results reach the host through pinned buffers, the
+    host waiting on those copies only.  Every pass buffer used on the side
+    stream is kept alive for it (``record_stream``); :meth:`join` orders the
+    compute stream after the side stream's work.  On the CPU every method
+    is the plain operation.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    @contextlib.contextmanager
+    def pass_of(self, ready, *bufs: torch.Tensor):
+        """Run the block on the side stream, after ``ready`` (an event, or
+        None for everything queued so far on the current stream)."""
+        if self.stream is None:
+            yield
+            return
+        if ready is None:
+            ready = torch.cuda.Event()
+            ready.record()
+        self.stream.wait_event(ready)
+        for buf in bufs:
+            buf.record_stream(self.stream)
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def to_card(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device, copied without blocking the host
+        (inside :meth:`pass_of`)."""
+        host = torch.from_numpy(np.ascontiguousarray(a))
+        if self.stream is None:
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def to_host(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """The tensors as numpy arrays: on the card, copies on the side
+        stream into pinned buffers, and the host waits for those alone."""
+        if self.stream is None:
+            return [t.numpy() for t in tensors]
+        outs = []
+        with torch.cuda.stream(self.stream):
+            for t in tensors:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                outs.append(host)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        done.synchronize()
+        return [h.numpy() for h in outs]
+
+    def join(self) -> None:
+        """Order the current stream after the side stream's work."""
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
 
 class TileSink(abc.ABC):
@@ -50,20 +124,23 @@ class TileSink(abc.ABC):
         self.plan = plan
 
     @abc.abstractmethod
-    def consume(self, ids: np.ndarray, tiles: torch.Tensor) -> None:
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
         """One pass's tiles: ids (P,) unique global tile ids, tiles
-        (P, t, t) (epilogue applied; clipped iff fused)."""
+        (P, t, t) (epilogue applied; clipped iff fused); ready the CUDA
+        event recorded after the pass's launch, or None."""
 
     @abc.abstractmethod
     def result(self):
         """Finalise and return the run's output."""
 
 
-def scatter_tiles_at(r_pad: torch.Tensor, tiles: torch.Tensor,
-                     ys: np.ndarray, xs: np.ndarray, t: int) -> torch.Tensor:
-    """Write (P, t, t) tiles into r_pad at tile coordinates (ys, xs), in
-    place, with one indexed copy; returns r_pad.  Duplicate coordinates
-    carry identical tiles, so write order does not matter."""
+def scatter_tiles_at(r_pad: torch.Tensor, tiles: torch.Tensor, ys, xs,
+                     t: int) -> torch.Tensor:
+    """Write (P, t, t) tiles into r_pad at tile coordinates (ys, xs), host
+    arrays or index tensors, in place, with one indexed copy; returns
+    r_pad.  Duplicate coordinates carry identical tiles, so write order
+    does not matter."""
     m_r, m_c = r_pad.shape[0] // t, r_pad.shape[1] // t
     r4 = r_pad.view(m_r, t, m_c, t)
     dev = r_pad.device
@@ -102,12 +179,17 @@ class DenseSink(TileSink):
         super().open(plan, device)
         self.r_pad = torch.zeros((plan.n_pad, plan.col_pad),
                                  dtype=torch.float32, device=device)
+        self._side = PassStream(device)
 
-    def consume(self, ids: np.ndarray, tiles: torch.Tensor) -> None:
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
         ys, xs = self.plan.workload.job_coord_batch(np.asarray(ids))
-        scatter_tiles_at(self.r_pad, tiles, ys, xs, self.plan.t)
+        with self._side.pass_of(ready, tiles):
+            scatter_tiles_at(self.r_pad, tiles, self._side.to_card(ys),
+                             self._side.to_card(xs), self.plan.t)
 
     def result(self) -> torch.Tensor:
+        self._side.join()
         if self.plan.workload.needs_symmetrize:
             r = symmetrize(self.r_pad, self.plan.n)
         else:
@@ -222,34 +304,40 @@ class TopKSink(TileSink):
         super().open(plan, device)
         self.vals = np.zeros((plan.n_rows, self.k), np.float32)
         self.idx = np.full((plan.n_rows, self.k), -1, np.int64)
+        self._side = PassStream(device)
 
-    def consume(self, ids: np.ndarray, tiles: torch.Tensor) -> None:
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
         plan = self.plan
         t, n_r, n_c = plan.t, plan.n_rows, plan.n_cols
         ys, xs = plan.workload.job_coord_batch(np.asarray(ids))
-        dev = tiles.device
-        span = torch.arange(t, device=dev)
-        ys_t = torch.as_tensor(ys, device=dev)
-        xs_t = torch.as_tensor(xs, device=dev)
         # side 0: tile rows ranked over the tile's columns; side 1 (the
         # triangle's off-diagonal tiles): tile columns over the tile's rows
-        sides = [(tiles, ys_t, xs_t, plan.symmetric_problem)]
+        sides = [(slice(None), ys, xs, plan.symmetric_problem)]
         if plan.workload.needs_symmetrize:
-            off = torch.as_tensor(np.nonzero(ys != xs)[0], device=dev)
-            sides.append((tiles[off].transpose(1, 2), xs_t[off], ys_t[off],
-                          False))
-        for vals, by, bx, self_mask in sides:
-            rows = by[:, None] * t + span                    # (P, t)
-            cols = (bx[:, None] * t + span)[:, None, :]      # (P, 1, t)
-            bad = (cols >= n_c) | (rows[:, :, None] >= n_r)
-            if self_mask:
-                bad = bad | (cols == rows[:, :, None])
-            cols = torch.where(bad, -1, cols.expand_as(vals))
-            tv, tc = _tile_row_topk(vals, cols, self.k)
+            off = np.nonzero(ys != xs)[0]
+            sides.append((off, xs[off], ys[off], False))
+        picked = []
+        with self._side.pass_of(ready, tiles):
+            span = torch.arange(t, device=tiles.device)
+            for sel, by, bx, self_mask in sides:
+                vals = tiles if isinstance(sel, slice) else \
+                    tiles[self._side.to_card(sel)].transpose(1, 2)
+                rows = self._side.to_card(by)[:, None] * t + span  # (P, t)
+                cols = (self._side.to_card(bx)[:, None] * t
+                        + span)[:, None, :]                        # (P, 1, t)
+                bad = (cols >= n_c) | (rows[:, :, None] >= n_r)
+                if self_mask:
+                    bad = bad | (cols == rows[:, :, None])
+                cols = torch.where(bad, -1, cols.expand_as(vals))
+                tv, tc = _tile_row_topk(vals, cols, self.k)
+                picked += [tv, tc.to(torch.int32)]
+        host = self._side.to_host(*picked)
+        for (_sel, by, _bx, _m), tv, tc in zip(sides, host[0::2], host[1::2]):
             ok = tc >= 0
-            r_ids = rows[:, :, None].expand_as(tc)[ok]
-            self._merge(r_ids.cpu().numpy(), tc[ok].cpu().numpy(),
-                        tv[ok].cpu().numpy())
+            rows = by[:, None] * t + np.arange(t)                  # (P, t)
+            r_ids = np.broadcast_to(rows[:, :, None], tc.shape)[ok]
+            self._merge(r_ids, tc[ok].astype(np.int64), tv[ok])
 
     def _merge(self, r_ids: np.ndarray, c_ids: np.ndarray,
                v: np.ndarray) -> None:
@@ -310,7 +398,7 @@ class DeviceTopKSink(TopKSink):
                 "— the dequant outer product is not fused into the top-k "
                 "merge; use TopKSink")
 
-    def consume(self, ids: np.ndarray, state) -> None:
+    def consume(self, ids: np.ndarray, state, ready=None) -> None:
         """One pass's state: (row_vals, row_cols[, col_vals, col_cols]),
         each (m, t, kk).  `ids` is the pass's valid tile set, unused for
         content (the kernel's validity guard already excluded clamped
@@ -318,9 +406,11 @@ class DeviceTopKSink(TopKSink):
         del ids
         plan = self.plan
         t, n_r = plan.t, plan.n_rows
-        for sv, sc in zip(state[0::2], state[1::2]):
-            sv = sv.reshape(-1, t, sv.shape[-1]).cpu().numpy()
-            sc = sc.reshape(sv.shape).cpu().numpy()
+        with self._side.pass_of(ready, *state):
+            host = self._side.to_host(*state)
+        for sv, sc in zip(host[0::2], host[1::2]):
+            sv = sv.reshape(-1, t, sv.shape[-1])
+            sc = sc.reshape(sv.shape)
             blocks = np.arange(sv.shape[0])
             rows = np.broadcast_to(
                 (blocks[:, None] * t + np.arange(t))[:, :, None], sv.shape)
@@ -395,13 +485,16 @@ class ExceedanceSink(TileSink):
                 p[sel] = torch.where(upper, d, d.transpose(1, 2))
         return p
 
-    def consume(self, ids: np.ndarray, counts: torch.Tensor) -> None:
+    def consume(self, ids: np.ndarray, counts: torch.Tensor,
+                ready=None) -> None:
+        # the p-values queue on the current stream, behind the pass, and
+        # the inner sink waits on everything queued (ready None)
         self._inner.consume(ids, self._pvalues(ids, counts))
 
     def result(self):
         return self._inner.result()
 
 
-__all__ = ["TileSink", "DenseSink", "TopKSink", "DeviceTopKSink",
-           "ExceedanceSink", "scatter_tiles_at", "symmetrize",
+__all__ = ["PassStream", "TileSink", "DenseSink", "TopKSink",
+           "DeviceTopKSink", "ExceedanceSink", "scatter_tiles_at", "symmetrize",
            "topk_merge_rows"]

@@ -67,4 +67,15 @@ def pass_launch_sizes(span: int, max_tiles_per_pass: int) -> Tuple[int, ...]:
     return (max_tiles_per_pass,) * full + ((rem,) if rem else ())
 
 
-__all__ = ["TilePlan", "contiguous_ranges", "passes", "pass_launch_sizes"]
+def band_tile_count(m: int, w_tiles: int) -> int:
+    """Tiles in the band of width w_tiles of an m x m tile matrix (sliding
+    windows; core/mapping.band_count)."""
+    return mapping.band_count(m, w_tiles)
+
+
+def band_tile_coord(m: int, w_tiles: int, jt: int) -> Tuple[int, int]:
+    return mapping.band_job_coord(m, w_tiles, jt)
+
+
+__all__ = ["TilePlan", "contiguous_ranges", "passes", "pass_launch_sizes",
+           "band_tile_count", "band_tile_coord"]

@@ -58,6 +58,14 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _P]),
         "pcc_topk_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_attention": {
+        # (q, k, v, out, B, H, Hkv, S, D, has_window, window, scale,
+        #  stream) -> cudaError_t
+        **{f"flash_attention_{s}": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _I, _F, _P])
+           for s in ("f32", "bf16", "f16")},
+        "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

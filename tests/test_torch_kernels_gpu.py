@@ -584,3 +584,95 @@ def test_significance_corr_on_card_matches_cpu(cuda, rect):
     rk, pk = corr(xk, device=cuda, **kk)
     rk_cpu, pk_cpu = corr(xk, device="cpu", **kk)
     assert torch.equal(rk.cpu(), rk_cpu) and torch.equal(pk.cpu(), pk_cpu)
+
+
+# -- pass stream: the sinks' copies run off the compute stream ---------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rect", [False, True])
+def test_multipass_sinks_bitwise_equal_one_pass_on_card(cuda, rect):
+    """A multi-pass run (the sinks' copies and merges on a side stream,
+    overlapping the next pass's kernel) is bitwise its one-pass run, and
+    DeviceTopKSink is bitwise TopKSink, on the card."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((300, 70)).astype(np.float32)
+    y = rng.standard_normal((130, 70)).astype(np.float32) if rect else None
+    kw = dict(t=32, l_blk=32, device=cuda)
+    dense = corr(x, y, **kw)
+    assert torch.equal(dense, corr(x, y, max_tiles_per_pass=3, **kw))
+    for sink in (TopKSink, DeviceTopKSink):
+        one = corr(x, y, sink=sink(10), **kw)
+        split = corr(x, y, sink=sink(10), max_tiles_per_pass=3, **kw)
+        assert np.array_equal(one["indices"], split["indices"])
+        assert one["values"].tobytes() == split["values"].tobytes()
+        ref = corr(x, y, sink=TopKSink(10), **kw)
+        assert one["values"].tobytes() == ref["values"].tobytes()
+        assert np.array_equal(one["indices"], ref["indices"])
+
+
+# -- flash attention ---------------------------------------------------------
+
+FLASH_SHAPES = [  # b, h, hkv, s, d, window
+    (1, 2, 2, 32, 16, None), (2, 4, 2, 70, 16, None), (1, 8, 1, 64, 32, None),
+    (2, 2, 2, 17, 8, None), (2, 4, 2, 96, 16, 16), (2, 4, 2, 96, 16, 32),
+    (2, 4, 2, 96, 16, 48),
+    # the reference kernel drops these windows; the port keeps them
+    (1, 2, 1, 32, 16, 16), (1, 2, 1, 96, 16, 80), (1, 2, 1, 40, 16, 32),
+    # the head tiles of the model cases and the edges of the kernel
+    (1, 3, 1, 300, 64, 64), (1, 4, 2, 200, 128, None), (1, 2, 1, 150, 100,
+                                                        None),
+    (1, 1, 1, 130, 256, 128), (1, 2, 1, 257, 64, 16),
+]
+
+
+def _flash_inputs(b, h, hkv, s, d, device, seed=1):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device) for shape in ((b, h, s, d), (b, hkv, s, d),
+                                      (b, hkv, s, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,d,window", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, b, h, hkv, s, d, window):
+    """float32 within the reference's 2e-6 of the plain version; bf16 and
+    fp16 bitwise the float32 kernel on the widened inputs, rounded once."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _flash_inputs(b, h, hkv, s, d, cuda)
+    blk = 16
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, blk_q=blk, blk_k=blk)
+    want = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    for dt in (torch.bfloat16, torch.float16):
+        qn, kn, vn = q.to(dt), k.to(dt), v.to(dt)
+        narrow = flash_attention(qn, kn, vn, window=window, blk_q=blk,
+                                 blk_k=blk)
+        wide = flash_attention(qn.float(), kn.float(), vn.float(),
+                               window=window, blk_q=blk, blk_k=blk)
+        assert narrow.dtype == dt and torch.equal(narrow, wide.to(dt))
+
+
+@pytest.mark.gpu
+def test_flash_on_card_never_runs_plain(cuda, monkeypatch):
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    want = fmod.flash_attention_plain(*_flash_inputs(1, 4, 2, 80, 32, cuda),
+                                      window=32)
+    monkeypatch.setattr(fmod, "flash_attention_plain", refuse)
+    before = dict(fmod.flash_attention.launches_by_dtype)
+    got = ops.flash_mha(*_flash_inputs(1, 4, 2, 80, 32, cuda), window=32,
+                        blk=16)
+    assert fmod.flash_attention.launches_by_dtype["float32"] == \
+        before["float32"] + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    with pytest.raises(ValueError):
+        ops.flash_mha(*_flash_inputs(1, 4, 2, 80, 32, cuda), window=24,
+                      blk=16)

@@ -1,6 +1,8 @@
-"""Port parity: the tile-id bijection and the pass split of repro_torch equal
-repro's exactly (host ints, no tolerance)."""
+"""Port parity: the tile-id bijection, the pass split and the lower-triangle
+and band bijections of flash attention of repro_torch equal repro's exactly
+(host ints, no tolerance)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -73,3 +75,76 @@ def test_tile_plan_and_ranges_equal_reference():
         tiling.pass_launch_sizes(0, 4)
     with pytest.raises(ValueError):
         list(tiling.passes(0, 4, 0))
+
+
+# -- the lower-triangle and band bijections of flash attention ---------------
+
+M_SMALL = range(1, 41)
+
+
+def test_lower_triangle_equals_reference_exhaustively():
+    for j in range(0, 41 * 42 // 2):
+        y, x = mapping.lower_job_coord(j)
+        assert (y, x) == ref_mapping.lower_job_coord(j)
+        assert mapping.lower_job_id(y, x) == ref_mapping.lower_job_id(y, x)
+        assert mapping.lower_job_id(y, x) == j
+    for bad in [(0, 1), (3, 4), (-1, 0)]:
+        with pytest.raises(ValueError):
+            mapping.lower_job_id(*bad)
+    with pytest.raises(ValueError):
+        mapping.lower_job_coord(-1)
+
+
+@pytest.mark.parametrize("j", [10 ** 12, 10 ** 15 + 7, 2 ** 62 - 1])
+def test_lower_job_coord_exact_at_large_ids(j):
+    y, x = mapping.lower_job_coord(j)
+    assert (y, x) == ref_mapping.lower_job_coord(j)
+    assert 0 <= x <= y and mapping.lower_job_id(y, x) == j
+
+
+def test_lower_job_coord_equals_reference_f32_inverse_where_it_holds():
+    """The reference's float32 inverse for its Pallas index maps agrees with
+    the exact one up to its stated range (~2,000 block rows)."""
+    ids = np.unique(np.linspace(0, mapping.tri_count(1500) - 1, 4001)
+                    .astype(np.int64))
+    ys, xs = ref_mapping.lower_job_coord_f32(jnp.asarray(ids, jnp.int32))
+    want = [mapping.lower_job_coord(int(j)) for j in ids]
+    assert [tuple(p) for p in zip(np.asarray(ys).tolist(),
+                                  np.asarray(xs).tolist())] == want
+
+
+@pytest.mark.parametrize("m", M_SMALL)
+def test_band_lower_equals_reference_for_every_width_and_id(m):
+    for w in range(1, m + 2):
+        count = mapping.band_lower_count(m, w)
+        assert count == ref_mapping.band_lower_count(m, w)
+        seen = []
+        for j in range(count):
+            y, x = mapping.band_lower_job_coord(m, w, j)
+            assert (y, x) == ref_mapping.band_lower_job_coord(m, w, j)
+            seen.append((y, x))
+        # the band, row-major: each row's jobs consecutive
+        assert seen == [(y, x) for y in range(m)
+                        for x in range(max(0, y - w + 1), y + 1)]
+        for bad in (-1, count):
+            with pytest.raises(ValueError):
+                mapping.band_lower_job_coord(m, w, bad)
+
+
+@pytest.mark.parametrize("n", M_SMALL)
+def test_upper_band_equals_reference_for_every_width_and_id(n):
+    for w in range(1, n + 2):
+        count = mapping.band_count(n, w)
+        assert count == ref_mapping.band_count(n, w)
+        assert tiling.band_tile_count(n, w) == ref_tiling.band_tile_count(n, w)
+        for j in range(count):
+            y, x = mapping.band_job_coord(n, w, j)
+            assert (y, x) == ref_mapping.band_job_coord(n, w, j)
+            assert (y, x) == tiling.band_tile_coord(n, w, j)
+            assert mapping.band_job_id(n, w, y, x) == j
+            assert ref_mapping.band_job_id(n, w, y, x) == j
+        for bad in (-1, count):
+            with pytest.raises(ValueError):
+                mapping.band_job_coord(n, w, bad)
+    with pytest.raises(ValueError):
+        mapping.band_job_id(n, 1, 0, 1)     # outside a band of width 1
