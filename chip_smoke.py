@@ -85,16 +85,21 @@ Phases, each fatal on failure:
      peak memory; then Table II at B = 8 (the replica mode at the main
      path's full shape), TF x Table II at B = 32 with chunk 16 (the grid's
      replica mode) and the int8-quantized headline at B = 200;
- 19. flash attention (kernels/ops.flash_mha): the kernel against its plain
-     version at small shapes (float32 within 2e-6; bf16 and fp16 bitwise
-     the float32 kernel on the widened inputs, rounded; the windows the
-     reference kernel drops also against mha_plain), then one layer at the
-     head shapes of llama-3.2-3B (S = 4,096 and 32,768, causal) and of
-     hymba-1.5B's sliding-window layers (S = 32,768, window 1,024), float32
-     and bf16: flash_mha's launches, every row against the plain version,
-     float32 rows against float64 mha_plain (all at 4,096, the first and
-     last 512 at 32,768), bf16 bitwise as above; the kernel timed with its
-     bound, its plain version and scaled_dot_product_attention;
+ 19. flash attention (kernels/ops.flash_mha): the kernels against their
+     plain version at small shapes (float32, the SIMT kernel, within 2e-6;
+     bf16 and fp16, the tensor-core kernel, within a gate scaled to each
+     output row and never above the reference's atol = rtol = 3e-2; the
+     windows the reference kernel drops also against mha_plain), then one
+     layer at the head shapes of llama-3.2-3B (S = 4,096 and 32,768,
+     causal) and of hymba-1.5B's sliding-window layers (S = 32,768, window
+     1,024), float32 and bf16, and fp16 at S = 4,096: flash_mha's launches
+     by dtype, every row against the plain version, rows against float64
+     mha_plain (all at 4,096, the first and last 512 at 32,768), float32
+     within 1e-5, bf16 / fp16 within the row-scaled gate, which must also
+     fail the kernel's output with its rows past 3S/4 halved and with one
+     key block of v zeroed; each kernel timed with its
+     bound, TFLOP/s and share of the bf16 bound, its plain version and
+     scaled_dot_product_attention, in one run on one card;
  20. multi-pass top-k at Table II (300-tile passes): DeviceTopKSink(10) and
      TopKSink(10) end to end against the sum and the larger of their
      kernels' and their sinks' times.  With --overlap-only SRC the script
@@ -187,9 +192,27 @@ FLASH_SMALL = [  # B, H, Hkv, S, D, window: the reference's test shapes,
     (1, 1, 1, 130, 256, 128), (1, 2, 1, 257, 64, 16),
 ]
 DROPPED_WINDOWS = {(32, 16), (96, 80), (40, 32)}   # (S, window), blk 16
+FLASH_FP16 = ("llama-4k",)     # the cases also run in fp16
 # Kernel against plain at the small shapes: the reference's own bound
 # (tests/test_kernels.py).
 TOL_ATTN_SMALL = 2e-6
+# bf16 / fp16 (the tensor-core kernel) against the plain version on the
+# same inputs, and against float64 on them, on every element:
+#   |got - want| <= min(NARROW_ULP * |want| + NARROW_ROW * rms(want's row),
+#                       TOL_ATTN_NARROW * (1 + |want|)).
+# The second is the reference's own bf16 bound (tests/test_kernels.py).  At
+# long rows it is as large as the output itself (row i averages ~i / e v
+# rows, so its outputs are ~sqrt(e / i): 0.026 at row 4,096, 0.009 at row
+# 32,767), so the first, scaled to each row, is what holds those rows.  The
+# kernel rounds P to the input type before P V (unit roundoff u = 2^-8 in
+# bf16, 2^-11 in fp16) where the plain version keeps float32: each weight
+# moves by at most u of itself, so an output moves by ~u / sqrt(3) of its
+# row's rms, some 3.5 u at the largest of 10^8 elements; NARROW_ROW = 8 u.
+# Each output is rounded once to the dtype, so two of them may differ by an
+# ulp, at most 2^-7 (bf16) or 2^-10 (fp16) of |want|: NARROW_ULP.
+TOL_ATTN_NARROW = 3e-2
+NARROW_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+NARROW_ROW = {"bfloat16": 2.0 ** -5, "float16": 2.0 ** -8}
 # float32 attention against float64 and against the plain version at the
 # full shapes: a logit is a float32 dot of D products (error ~1e-7 relative
 # at D = 128), exp turns it into a relative weight error of that size, and
@@ -2071,11 +2094,37 @@ def main(argv) -> int:
                 for shape in ((b_, h_, s_, d_), (b_, hkv_, s_, d_),
                               (b_, hkv_, s_, d_))]
 
+    def narrow_shares(got, want, dname):
+        """(largest |got - want| / gate, the same over the reference's bound
+        TOL_ATTN_NARROW * (1 + |want|) alone, max |got - want|) for the bf16
+        / fp16 gate min(NARROW_ULP * |want| + NARROW_ROW * rms(want's row),
+        TOL_ATTN_NARROW * (1 + |want|)); the gate holds where the first is
+        <= 1."""
+        want = want.double()
+        diff = (got.double() - want).abs()
+        ref_bound = TOL_ATTN_NARROW * (1 + want.abs())
+        rms = want.square().mean(-1, keepdim=True).sqrt()
+        gate = torch.minimum(NARROW_ULP[dname] * want.abs()
+                             + NARROW_ROW[dname] * rms, ref_bound)
+        return amax(diff / gate), amax(diff / ref_bound), amax(diff)
+
+    def attn_narrow_err(got, want, dname, label):
+        """(max |got - want|, largest share of the gate) after the bf16 /
+        fp16 gate on every element."""
+        share, _, err = narrow_shares(got, want, dname)
+        if not share <= 1:
+            raise AssertionError(f"flash {label}: kernel outside the {dname}"
+                                 f" gate ({share:.3f} of it; max |diff| "
+                                 f"{err:.3e})")
+        return err, share
+
     print(f"flash attention vs plain at small shapes: float32 within "
-          f"{TOL_ATTN_SMALL:g}; bf16 / fp16 bitwise the float32 kernel on the "
-          f"widened inputs, rounded; the windows the reference kernel drops "
-          f"also vs mha_plain:")
+          f"{TOL_ATTN_SMALL:g}; bf16 / fp16 (tensor-core kernel) within "
+          f"min(ulp * |plain| + row * rms(plain's row), {TOL_ATTN_NARROW:g} "
+          f"* (1 + |plain|)), ulp {NARROW_ULP}, row {NARROW_ROW}; the "
+          f"windows the reference kernel drops also vs mha_plain:")
     attn_small_err = 0.0
+    small_narrow = {"bfloat16": (0.0, 0.0), "float16": (0.0, 0.0)}
     for b_, h_, hkv_, s_, d_, w_ in FLASH_SMALL:
         q_, k_, v_ = randn_qkv(b_, h_, hkv_, s_, d_, s_ * 1_000 + d_)
         label = f"B={b_} H={h_} Hkv={hkv_} S={s_} D={d_} window={w_}"
@@ -2090,16 +2139,27 @@ def main(argv) -> int:
                                  f"plain ({err:.3e})")
         attn_small_err = max(attn_small_err, err)
         for dt in (torch.bfloat16, torch.float16):
+            dname = str(dt).removeprefix("torch.")
             qn, kn, vn = q_.to(dt), k_.to(dt), v_.to(dt)
             narrow = flash_attention(qn, kn, vn, window=w_, blk_q=16,
                                      blk_k=16)
-            wide = flash_attention(qn.float(), kn.float(), vn.float(),
-                                   window=w_, blk_q=16, blk_k=16)
-            if not torch.equal(narrow, wide.to(dt)):
-                raise AssertionError(f"flash {label}: {dt} output is not "
-                                     f"the float32 kernel's, rounded")
-    print(f"  {len(FLASH_SMALL)} shapes: max|kernel - plain| "
-          f"{attn_small_err:.3e}; bf16 and fp16 bitwise")
+            if narrow.dtype != dt or narrow.shape != qn.shape:
+                raise AssertionError(f"flash {label}: bad {dt} output")
+            wants = [("", flash_attention_plain(qn, kn, vn, window=w_))]
+            if (s_, w_) in DROPPED_WINDOWS:
+                wants.append((" vs mha_plain", mha_plain(qn, kn, vn,
+                                                         window=w_)))
+            for what, want in wants:
+                e, sh = attn_narrow_err(narrow, want, dname,
+                                        f"{label} {dname}{what}")
+                small_narrow[dname] = (max(small_narrow[dname][0], e),
+                                       max(small_narrow[dname][1], sh))
+    print(f"  {len(FLASH_SMALL)} shapes: max|kernel - plain| float32 "
+          f"{attn_small_err:.3e} (gate {TOL_ATTN_SMALL:g}); bf16 "
+          f"{small_narrow['bfloat16'][0]:.3e}, at most "
+          f"{small_narrow['bfloat16'][1]:.3f} of the gate; fp16 "
+          f"{small_narrow['float16'][0]:.3e}, at most "
+          f"{small_narrow['float16'][1]:.3f} of the gate")
 
     def library_attn(q_, k_, v_, w_, out_, reps):
         """(ms, label) of one PyTorch call that computes the same attention
@@ -2140,6 +2200,7 @@ def main(argv) -> int:
         return None, "none: " + "; ".join(fails)
 
     flash_rows = []
+    dtype_tag = {"bfloat16": ", bf16", "float16": ", fp16"}
     for name, cfg, b_, h_, hkv_, d_, w_, s_ in FLASH_CASES:
         q_, k_, v_ = randn_qkv(b_, h_, hkv_, s_, d_, 0)
         pairs = b_ * h_ * (s_ * (s_ + 1) // 2 if w_ is None
@@ -2149,7 +2210,9 @@ def main(argv) -> int:
         print(f"flash attention, {name} ({cfg}): B={b_} H={h_} Hkv={hkv_} "
               f"D={d_} S={s_} window={w_}: {pairs:.6g} visible pairs, "
               f"{4 * d_ * pairs:.4g} FLOP {tag}")
-        for dt in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if name in FLASH_FP16 else ())
+        for dt in dtypes:
             dname = str(dt).removeprefix("torch.")
             qd, kd, vd = (a.to(dt) for a in (q_, k_, v_))
             reset_flash()
@@ -2167,38 +2230,69 @@ def main(argv) -> int:
                     not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"{name} {dname}: bad output")
             want = flash_attention_plain(qd, kd, vd, window=w_, chunk=chunk)
-            err = amax((out.float() - want.float()).abs())
-            del want
             if dt == torch.float32:
+                err = amax((out - want).abs())
                 if not err <= TOL_ATTN:
                     raise AssertionError(f"{name}: kernel disagrees with "
                                          f"plain ({err:.3e})")
-                regions = ([(0, s_)] if s_ <= ATTN_WHOLE else
-                           [(0, ATTN_ROWS), (s_ - ATTN_ROWS, s_)])
-                err64 = 0.0
-                for r0, r1 in regions:
-                    ref64 = mha_plain(q_[:, :, r0:r1].double(),
-                                      k_[:, :, :r1].double(),
-                                      v_[:, :, :r1].double(), window=w_)
+            else:
+                err, share = attn_narrow_err(out, want, dname,
+                                             f"{name} {dname}")
+                # Two faulty outputs the gate must refuse, and what the
+                # reference's bound alone makes of them: the rows past 3S/4
+                # halved, and the kernel run on v with the key block
+                # [S/2, S/2 + 128) zeroed, on the rows past that block.
+                r_half, j0 = 3 * s_ // 4, s_ // 2
+                halved = out.clone()
+                halved[:, :, r_half:] *= 0.5
+                v_hole = vd.clone()
+                v_hole[:, :, j0:j0 + 128] = 0
+                holed = flash_attention(qd, kd, v_hole, window=w_)
+                faults = [
+                    (f"rows >= {r_half} halved",
+                     narrow_shares(halved, want, dname)),
+                    (f"v keys {j0}-{j0 + 127} zeroed, rows >= {j0 + 128}",
+                     narrow_shares(holed[:, :, j0 + 128:],
+                                   want[:, :, j0 + 128:], dname))]
+                del halved, v_hole, holed
+                for what, (f_share, f_ref, f_err) in faults:
+                    verdict = "refused" if f_ref > 1 else "passed"
+                    print(f"  {dname} faulty output ({what}): max|diff| "
+                          f"{f_err:.3e}, {f_share:.2f} of the gate "
+                          f"(refused), {f_ref:.3f} of the reference's "
+                          f"bound alone ({verdict})")
+                    if not f_share > 1:
+                        raise AssertionError(f"{name} {dname}: the gate "
+                                             f"passed a faulty output "
+                                             f"({what})")
+            del want
+            regions = ([(0, s_)] if s_ <= ATTN_WHOLE else
+                       [(0, ATTN_ROWS), (s_ - ATTN_ROWS, s_)])
+            err64 = share64 = 0.0
+            for r0, r1 in regions:
+                ref64 = mha_plain(qd[:, :, r0:r1].double(),
+                                  kd[:, :, :r1].double(),
+                                  vd[:, :, :r1].double(), window=w_)
+                if dt == torch.float32:
                     err64 = max(err64, amax(
                         (out[:, :, r0:r1].double() - ref64).abs()))
-                    del ref64
-                print(f"  float32: max|kernel - plain| {err:.3e} (every row);"
-                      f" rows {regions} vs float64 mha_plain: {err64:.3e} "
-                      f"(tol {TOL_ATTN:g})")
-                if not err64 <= TOL_ATTN:
-                    raise AssertionError(f"{name}: kernel disagrees with "
-                                         f"float64")
+                else:
+                    e, sh = attn_narrow_err(
+                        out[:, :, r0:r1], ref64, dname,
+                        f"{name} {dname} rows {r0}-{r1} vs float64")
+                    err64, share64 = max(err64, e), max(share64, sh)
+                del ref64
+            if dt == torch.float32:
+                print(f"  {dname}: max|kernel - plain| {err:.3e} (every "
+                      f"row); rows {regions} vs float64 mha_plain: "
+                      f"{err64:.3e} (tol {TOL_ATTN:g})")
             else:
-                wide = flash_attention(qd.float(), kd.float(), vd.float(),
-                                       window=w_)
-                if not torch.equal(out, wide.to(dt)):
-                    raise AssertionError(f"{name}: bf16 output is not the "
-                                         f"float32 kernel's on the widened "
-                                         f"inputs, rounded")
-                del wide
-                print(f"  bf16: bitwise the float32 kernel on the widened "
-                      f"inputs, rounded; max|kernel - plain| {err:.3e}")
+                print(f"  {dname}: max|kernel - plain| {err:.3e}, {share:.3f}"
+                      f" of the gate (every row); rows {regions} vs float64 "
+                      f"mha_plain: {err64:.3e}, {share64:.3f} of the gate")
+            if dt == torch.float32 and not err64 <= TOL_ATTN:
+                raise AssertionError(f"{name}: kernel disagrees with "
+                                     f"float64")
             k_ms, k_all = event_ms(lambda: flash_attention(
                 qd, kd, vd, window=w_), reps)
             p_ms, _ = event_ms(lambda: flash_attention_plain(
@@ -2210,20 +2304,22 @@ def main(argv) -> int:
             a_bound = narrow_bound(
                 4 * d_ * pairs,
                 (2 * qd.numel() + 2 * kd.numel()) * qd.element_size(), peak)
+            bf16_ms = 4 * d_ * pairs / BF16_FLOPS * 1e3
             print(f"  {dname} flash_attention: {k_ms:.3f} ms (runs "
                   f"{[round(v, 3) for v in k_all]}), "
-                  f"{4 * d_ * pairs / k_ms / 1e9:.1f} TFLOP/s, bound "
-                  f"{a_bound[0]:.3f} ms by {a_bound[1]} (at "
-                  f"{peak / 1e12:g} TFLOP/s); plain "
+                  f"{4 * d_ * pairs / k_ms / 1e9:.1f} TFLOP/s, "
+                  f"{100 * bf16_ms / k_ms:.1f} % of the bf16 bound "
+                  f"({bf16_ms:.3f} ms); bound {a_bound[0]:.3f} ms by "
+                  f"{a_bound[1]} (at {peak / 1e12:g} TFLOP/s); plain "
                   f"{'' if chunk is None else f'(rows in chunks of {chunk}) '}"
                   f"{p_ms:.3f} ms; library "
                   f"{'not measured' if l_ms is None else f'{l_ms:.3f} ms'} "
                   f"({l_label})")
             flash_rows.append({
-                "name": f"flash_attention ({name}"
-                        f"{'' if dt == torch.float32 else ', bf16'})",
+                "name": f"flash_attention ({name}{dtype_tag.get(dname, '')})",
                 "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "source": "src/repro_torch/kernels/csrc/flash_attention"
+                          f"{'' if dt == torch.float32 else '_sm90'}.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:118",
                 "launches": launches_f, "max_abs_err": err, "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": a_bound[0],

@@ -11,6 +11,10 @@
   csrc/pcc_tile.cu    the all-pairs tile kernel, triangle and grid, with
                       per-row scales for quantized operands (sm_90a)
   csrc/pcc_topk.cu    the per-row top-k kernels, select and merge (sm_90a)
-  csrc/flash_attention.cu  the flash-attention forward kernel (sm_90a)
+  csrc/flash_attention.cu  the flash-attention forward kernel, float32 on
+                      the SIMT pipes (sm_90a)
+  csrc/flash_attention_sm90.cu  the flash-attention forward kernel, bf16
+                      and fp16 on the tensor cores: wgmma, TMA (sm_90a)
+  csrc/sm90.cuh       Hopper helpers: TMA tensor maps, mbarriers, wgmma
   _build.py           nvcc build at first use, ctypes binding
 """

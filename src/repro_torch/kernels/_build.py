@@ -44,6 +44,9 @@ _TILES = (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _LL,
 #  l_pad, kk, n_cols_valid, symmetric, *epilogue, stream) -> cudaError_t
 _SELECT = (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
                 _I, _I, *_EPI, _P])
+# (q, k, v, out, B, H, Hkv, S, D, has_window, window, scale, stream)
+#  -> cudaError_t
+_FLASH = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P])
 # source name -> {C function: (restype, argtypes)}
 SIGNATURES = {
     "pcc_tile": {
@@ -59,12 +62,12 @@ SIGNATURES = {
         "pcc_topk_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
-        # (q, k, v, out, B, H, Hkv, S, D, has_window, window, scale,
-        #  stream) -> cudaError_t
-        **{f"flash_attention_{s}": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         _I, _I, _F, _P])
-           for s in ("f32", "bf16", "f16")},
+        "flash_attention_f32": _FLASH,
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention_sm90": {
+        **{f"flash_attention_sm90_{s}": _FLASH for s in ("bf16", "f16")},
+        "flash_attention_sm90_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

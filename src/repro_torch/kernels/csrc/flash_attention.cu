@@ -1,9 +1,10 @@
 // Causal and sliding-window GQA flash attention, forward, for NVIDIA Hopper
-// (sm_90a).
+// (sm_90a), float32 operands on the SIMT pipes.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:118
-// flash_attention (body _attn_kernel, :58).  For q (B, H, S, D) and k, v
-// (B, Hkv, S, D), row-major and contiguous, each (b, h) gets
+// flash_attention (body _attn_kernel, :58) for float32 inputs; bf16 and
+// fp16 run on the tensor cores (flash_attention_sm90.cu).  For q (B, H, S,
+// D) and k, v (B, Hkv, S, D), row-major and contiguous, each (b, h) gets
 // out = softmax(q k^T / sqrt(D), masked) v with KV head h / (H / Hkv).
 // Query row i sees key j iff j <= i and j < S and, with a window,
 // j > i - window.  The window mask applies whenever a window is given; the
@@ -30,8 +31,7 @@
 // which is dead by then, for the P V product.
 //
 // Numerics:
-//  * every operand widens to float32 exactly at the load (bf16, fp16), and q
-//    is multiplied by the float32 scale 1 / sqrt(D) before the dot, as in
+//  * q is multiplied by the float32 scale 1 / sqrt(D) before the dot, as in
 //    _attn_kernel (:71);
 //  * each logit is one fmaf chain over d = 0 .. D - 1, IEEE float32 (no
 //    TF32);
@@ -40,27 +40,21 @@
 //    all masked (the far block of a band) keeps l = 0 and acc = 0, and no
 //    inf - inf arises;
 //  * exp is expf (not __expf), the final acc / max(l, 1e-30) an IEEE
-//    division;
-//  * a bf16 or fp16 output is the float32 result rounded once, to nearest
-//    even: bitwise the float32 kernel's output on the widened inputs,
-//    rounded.
+//    division.
 // S need not be a multiple of 64: keys j >= S load as zero and are masked,
 // query rows i >= S compute on zeros and are never stored.  Offsets are
 // 64-bit: B H S D passes 2^31 at S = 32,768 once B H D >= 65,536.
 //
 // What bounds it: 4 D FLOP per visible (query, key) pair (two dot products
-// of length D), on the SIMT FP32 pipes (67 TFLOP/s on an H100 SXM at 700 W).
+// of length D), on the SIMT FP32 pipes (67 TFLOP/s on an H100 SXM at 700 W):
+// IEEE float32 has no tensor-core path (TF32 keeps 10 mantissa bits).
 // Llama-3.2-3B's heads (H 24, Hkv 8, D 128) at S = 4,096, causal, are
 // 1.03e11 FLOP, >= 1.54 ms, against 134 MB of q, k, v and out (0.04 ms at
-// 3.35 TB/s): bound by operations.  bf16 inputs have the bf16 tensor-core
-// bound (989 TFLOP/s: 0.10 ms there), which this kernel does not approach.
-// Left for later: wgmma for bf16 and fp16 with float32 accumulation, TMA
+// 3.35 TB/s): bound by operations.  Left for later: TMA or cp.async
 // staging of the K and V blocks through an mbarrier ring so that loads
 // overlap the math (here a step's loads wait behind a barrier), and exp2
 // with log2(e) folded into the scale.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -77,20 +71,6 @@ constexpr int TK = BKV / LANES; // keys per thread (4)
 constexpr int PSTR = BKV + 4;   // row stride of the probabilities
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
-
-__device__ __forceinline__ void narrow(float x, float* out) { *out = x; }
-__device__ __forceinline__ void narrow(float x, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ void narrow(float x, __half* out) {
-  *out = __float2half_rn(x);
-}
-
 // Shared memory of a CTA at head tile DP, in floats: the Q stage, the K
 // stage (reused for the probabilities), the V stage.
 template <int DP>
@@ -105,7 +85,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
 
 // Stage 64 rows of a (., D) row-major operand as float32 into dst (row
 // stride DP + 4); rows >= rows_valid and columns >= D are zero.  SCALE
-// multiplies each value by `mul` (the query scale) after widening.
+// multiplies each value by `mul` (the query scale).
 template <typename T, int DP, bool SCALE>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       int rows_valid, int D, float mul) {
@@ -113,7 +93,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int r = idx / DP;
     const int d = idx % DP;
     float x = 0.0f;
-    if (r < rows_valid && d < D) x = widen(src[(size_t)r * D + d]);
+    if (r < rows_valid && d < D) x = src[(size_t)r * D + d];
     if (SCALE) x = __fmul_rn(x, mul);
     dst[r * (DP + 4) + d] = x;
   }
@@ -302,7 +282,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jd = 0; jd < CPT; ++jd) {
       const int col = out_col<DP>(tx, jd);
-      if (col < D) narrow(acc[i][jd] / den, orow + col);
+      if (col < D) orow[col] = acc[i][jd] / den;
     }
   }
 }
@@ -352,8 +332,8 @@ int launch(const T* q, const T* k, const T* v, T* out, int B, int H,
 
 }  // namespace
 
-// q, out (B, H, S, D); k, v (B, Hkv, S, D); all row-major, contiguous, of
-// one type.  has_window == 0 runs plain causal attention; scale is the
+// q, out (B, H, S, D); k, v (B, Hkv, S, D); all row-major, contiguous,
+// float32.  has_window == 0 runs plain causal attention; scale is the
 // float32 query scale (1 / sqrt(D)).  Returns the launch's cudaError_t.
 #define FLASH_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const T* q, const T* k, const T* v, T* out, int B,     \
@@ -364,8 +344,6 @@ int launch(const T* q, const T* k, const T* v, T* out, int B, int H,
   }
 
 FLASH_ENTRY(flash_attention_f32, float)
-FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
-FLASH_ENTRY(flash_attention_f16, __half)
 
 extern "C" const char* flash_attention_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -8,9 +8,8 @@ Port of ``repro/kernels/flash_attention.py`` (``flash_attention``, body
 ``flash_attention(q, k, v)`` computes, for every batch b and head h,
 ``softmax(q k^T / sqrt(D), masked) v`` with KV head ``h // (H / Hkv)``; q is
 (B, H, S, D), k and v are (B, Hkv, S, D).  Query row i sees key j iff
-``j <= i`` and, with a ``window``, ``j > i - window``.  q is scaled in
-float32 before the dot, every operand widens to float32, and the output row
-is ``acc / max(l, 1e-30)`` in ``q.dtype``.
+``j <= i`` and, with a ``window``, ``j > i - window``.  The softmax runs in
+float32 and the output row is ``acc / max(l, 1e-30)`` in ``q.dtype``.
 
 The reference kernel drops the window whenever ``window // blk + 1`` key
 blocks cover the whole triangle (``flash_attention.py:153-155``), so for
@@ -18,10 +17,15 @@ blocks cover the whole triangle (``flash_attention.py:153-155``), so for
 against its own oracle.  The port keeps the window mask whenever one is
 given, as ``mha_ref`` does; ``blk`` only validates the window.
 
-Dispatch is by the tensors' device: CUDA tensors launch the hand-written
-kernel (``csrc/flash_attention.cu``) or raise; CPU tensors run
-:func:`flash_attention_plain`, the plain PyTorch version of the same
-function, which is also the kernel's reference on the card.
+Dispatch is by the tensors' device, then dtype: CUDA tensors launch a
+hand-written kernel or raise, float32 the SIMT kernel of
+``csrc/flash_attention.cu`` (IEEE float32 products), bf16 and fp16 the
+tensor-core kernel of ``csrc/flash_attention_sm90.cu`` (wgmma with float32
+accumulation, K and V staged by TMA; P rounded to the input type before
+P V, so it agrees with the plain version within a gate scaled to each
+output row, tighter than the reference's bf16 bound 3e-2, not bitwise).  CPU tensors run :func:`flash_attention_plain`, the
+plain PyTorch version of the same function, which is also the kernels'
+reference on the card.
 """
 
 from __future__ import annotations
@@ -39,11 +43,30 @@ DEFAULT_BLK_K = 128
 # The reference's mask value: finite, so a row whose keys in a block are all
 # masked keeps a finite running max.
 NEG_INF = -1e30
-# The kernel's head tile: D pads up to the next of 16, 32, 64, 128, 256.
+# The kernels' widest head tile.
 MAX_HEAD_DIM = 256
-# Operand dtypes the kernel takes -> suffix of its C entry points.
-ATTN_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
-               torch.float16: "f16"}
+# Operand dtypes -> (kernel library, C entry point): float32 on the SIMT
+# kernel, the 16-bit types on the tensor-core kernel.
+ATTN_DTYPES = {
+    torch.float32: ("flash_attention", "flash_attention_f32"),
+    torch.bfloat16: ("flash_attention_sm90", "flash_attention_sm90_bf16"),
+    torch.float16: ("flash_attention_sm90", "flash_attention_sm90_f16"),
+}
+# The tensor-core kernel's TMA reads rows whose stride is a multiple of 16
+# bytes: 8 values of 16 bits.
+HEAD_DIM_MULTIPLE = 8
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v with the head dimension zero-padded to the next multiple of
+    HEAD_DIM_MULTIPLE, one copy each; the tensors themselves when D already
+    is one.  Zero columns add exact zeros to every logit and give zero
+    output columns, so slicing the first D columns of the padded result,
+    computed with the scale 1 / sqrt(D) of the true D, changes no value."""
+    pad = -q.shape[-1] % HEAD_DIM_MULTIPLE
+    if pad == 0:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(a, (0, pad)) for a in (q, k, v))
 
 
 def _check(q, k, v, window, blk_q, blk_k):
@@ -83,9 +106,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     float32, bfloat16 or float16, D <= MAX_HEAD_DIM.  Returns (B, H, S, D)
     in q.dtype.  window (in tokens) must be a multiple of blk_k when given;
     blk_q == blk_k as in the reference, where they size the job grid.  The
-    CUDA kernel's own query and key block is 64 rows, and S need not be a
-    multiple of any block.  ``flash_attention.launches`` counts the CUDA
-    kernel's launches, ``flash_attention.launches_by_dtype`` per dtype.
+    CUDA kernels' own blocks are theirs (64 query rows in float32, 128 in
+    bf16 / fp16), and S need not be a multiple of any block.
+    ``flash_attention.launches`` counts the CUDA kernels' launches,
+    ``flash_attention.launches_by_dtype`` per dtype.
     """
     _check(q, k, v, window, blk_q, blk_k)
     if q.device.type == "cpu":
@@ -93,22 +117,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels import _build
 
     b, h, s, d = q.shape
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    name, entry = ATTN_DTYPES[q.dtype]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype != torch.float32:
+        q, k, v = pad_head_dim(q, k, v)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("flash_attention")
+    lib = _build.load(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = getattr(lib, "flash_attention_" + ATTN_DTYPES[q.dtype])
-        err = fn(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-                 ctypes.c_void_p(v.data_ptr()),
-                 ctypes.c_void_p(out.data_ptr()), b, h, k.shape[1], s, d,
-                 int(window is not None), 0 if window is None else window,
-                 1.0 / math.sqrt(d), ctypes.c_void_p(stream))
+        err = getattr(lib, entry)(
+            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            b, h, k.shape[1], s, q.shape[-1], int(window is not None),
+            0 if window is None else window, 1.0 / math.sqrt(d),
+            ctypes.c_void_p(stream))
     if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg}")
+        msg = getattr(lib, name + "_error_string")(err).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg}")
+    if out.shape[-1] != d:
+        out = out[..., :d].contiguous()
     flash_attention.launches += 1
     flash_attention.launches_by_dtype[str(q.dtype).removeprefix("torch.")] \
         += 1
@@ -126,7 +155,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version of :func:`flash_attention`'s function, on any
     device: causal, Sq == Sk, q scaled in float32 before the dot, masked
     logits at NEG_INF and their weights at 0, every operand widened to
-    float32, output ``acc / max(l, 1e-30)`` in q.dtype.  On the card,
+    float32, the weights kept in float32 for P V as in the reference's
+    ``_attn_kernel``, output ``acc / max(l, 1e-30)`` in q.dtype.  On the card,
     callers keep ``torch.backends.cuda.matmul.allow_tf32 = False`` (the
     default).
 
@@ -206,4 +236,5 @@ def grid_savings(s: int, blk: int, window: Optional[int] = None) -> float:
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "mha_plain",
-           "grid_savings", "NEG_INF", "MAX_HEAD_DIM", "ATTN_DTYPES"]
+           "grid_savings", "pad_head_dim", "NEG_INF", "MAX_HEAD_DIM",
+           "ATTN_DTYPES"]

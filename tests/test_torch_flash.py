@@ -7,7 +7,8 @@ runs its plain version, so these tests hold that plain version (and the
 wrapper's checks) against the reference; the CUDA kernel is held against
 the plain version on the card (tests/test_torch_kernels_gpu.py).
 Tolerances are the reference's own (tests/test_kernels.py): 2e-6 in
-float32, 3e-2 in bfloat16.
+float32, 3e-2 in bfloat16 and float16.  The padding of the head dimension
+that the tensor-core kernel needs for D % 8 != 0 is host code, tested here.
 """
 
 import jax.numpy as jnp
@@ -22,7 +23,8 @@ from repro.kernels.flash_attention import grid_savings as ref_grid_savings
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
-                                                 grid_savings, mha_plain)
+                                                 grid_savings, mha_plain,
+                                                 pad_head_dim)
 
 TOL_F32 = 2e-6
 TOL_BF16 = 3e-2
@@ -76,6 +78,38 @@ def test_flash_attention_bf16_matches_reference_kernel():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=TOL_BF16, rtol=TOL_BF16)
+
+
+def test_flash_attention_fp16_matches_reference_kernel():
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 4, 2, 70, 16, 10),
+                                       jnp.float16, torch.float16)
+    want = ref_flash(jq, jk, jv, window=32, blk_q=16, blk_k=16,
+                     interpret=True)
+    got = flash_attention(tq, tk, tv, window=32, blk_q=16, blk_k=16)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL_BF16, rtol=TOL_BF16)
+
+
+@pytest.mark.parametrize("d", [100, 17])
+def test_head_dim_padding_changes_no_value(d):
+    """The tensor-core kernel's operands are padded to a multiple of 8
+    columns: with the true scale 1 / sqrt(D), the padded attention sliced
+    back is the unpadded one."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 40, d, 11))
+    pq, pk, pv = pad_head_dim(q, k, v)
+    assert pq.shape[-1] % 8 == 0 and pq.shape[-1] - d < 8
+    assert torch.equal(pq[..., :d], q) and not pq[..., d:].any()
+    got = mha_plain(pq, pk, pv, window=16, scale=1.0 / np.sqrt(d))[..., :d]
+    want = mha_plain(q, k, v, window=16)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-7)
+
+
+def test_head_dim_padding_leaves_multiples_of_8_alone():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 40, 24, 12))
+    got = pad_head_dim(q, k, v)
+    assert all(a is b for a, b in zip(got, (q, k, v)))
 
 
 @pytest.mark.parametrize("s,window", [(32, 16), (96, 80), (40, 32)])

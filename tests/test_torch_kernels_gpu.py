@@ -632,11 +632,55 @@ def _flash_inputs(b, h, hkv, s, d, device, seed=1):
                                       (b, hkv, s, d))]
 
 
+# bf16 / fp16 (the tensor-core kernel) against the plain version on the same
+# inputs, on every element:
+#   |got - want| <= min(ULP * |want| + ROW * rms(want's row),
+#                       TOL_NARROW * (1 + |want|)).
+# The second is the reference's own bf16 bound (tests/test_kernels.py); at
+# long rows it is as large as the output itself (row i's outputs are
+# ~sqrt(e / i)), so the first, scaled to each row, holds those rows.  The
+# kernel rounds P to the input type before P V (unit roundoff u = 2^-8 in
+# bf16, 2^-11 in fp16) where the plain version keeps float32, which moves
+# an output by ~u / sqrt(3) of its row's rms: ROW = 8 u.  Each output is
+# rounded once to the dtype, so two may differ by an ulp: ULP.
+TOL_NARROW = 3e-2
+NARROW_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+NARROW_ROW = {torch.bfloat16: 2.0 ** -5, torch.float16: 2.0 ** -8}
+
+
+def _narrow_gate_share(got, want):
+    """Largest |got - want| / gate over the elements (<= 1: within)."""
+    dt = want.dtype
+    want = want.double()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    gate = torch.minimum(NARROW_ULP[dt] * want.abs() + NARROW_ROW[dt] * rms,
+                         TOL_NARROW * (1 + want.abs()))
+    return float(((got.double() - want).abs() / gate).max())
+
+
+def _check_narrow_flash(cuda, b, h, hkv, s, d, window, blk):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _flash_inputs(b, h, hkv, s, d, cuda)
+    for dt in (torch.bfloat16, torch.float16):
+        qn, kn, vn = q.to(dt), k.to(dt), v.to(dt)
+        before = dict(flash_attention.launches_by_dtype)
+        got = flash_attention(qn, kn, vn, window=window, blk_q=blk,
+                              blk_k=blk)
+        want = flash_attention_plain(qn, kn, vn, window=window)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        assert flash_attention.launches_by_dtype[name] == before[name] + 1
+        assert got.dtype == dt and got.shape == qn.shape
+        assert _narrow_gate_share(got, want) <= 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,hkv,s,d,window", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, h, hkv, s, d, window):
-    """float32 within the reference's 2e-6 of the plain version; bf16 and
-    fp16 bitwise the float32 kernel on the widened inputs, rounded once."""
+    """float32 (the SIMT kernel) within the reference's 2e-6 of the plain
+    version; bf16 and fp16 (the tensor-core kernel) within the row-scaled
+    gate of it on the same inputs."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     q, k, v = _flash_inputs(b, h, hkv, s, d, cuda)
@@ -647,13 +691,28 @@ def test_flash_kernel_matches_plain(cuda, b, h, hkv, s, d, window):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
-    for dt in (torch.bfloat16, torch.float16):
-        qn, kn, vn = q.to(dt), k.to(dt), v.to(dt)
-        narrow = flash_attention(qn, kn, vn, window=window, blk_q=blk,
-                                 blk_k=blk)
-        wide = flash_attention(qn.float(), kn.float(), vn.float(),
-                               window=window, blk_q=blk, blk_k=blk)
-        assert narrow.dtype == dt and torch.equal(narrow, wide.to(dt))
+    _check_narrow_flash(cuda, b, h, hkv, s, d, window, blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (1, 24, 8, 1024, 128, None),    # llama-3.2-3B's heads
+    (1, 25, 5, 2048, 64, 1024),     # hymba-1.5B's sliding-window layers
+])
+def test_flash_narrow_kernel_at_model_widths(cuda, b, h, hkv, s, d, window):
+    _check_narrow_flash(cuda, b, h, hkv, s, d, window, 128)
+    # The gate refuses the kernel's output on v with one key block zeroed,
+    # on the rows past it, where the reference's bound alone is loose.
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = (a.to(torch.bfloat16)
+               for a in _flash_inputs(b, h, hkv, s, d, cuda))
+    j0 = s // 2
+    holed = v.clone()
+    holed[:, :, j0:j0 + 128] = 0
+    got = flash_attention(q, k, holed, window=window)[:, :, j0 + 128:]
+    want = flash_attention_plain(q, k, v, window=window)[:, :, j0 + 128:]
+    assert _narrow_gate_share(got, want) > 1
 
 
 @pytest.mark.gpu
@@ -664,15 +723,22 @@ def test_flash_on_card_never_runs_plain(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
-    want = fmod.flash_attention_plain(*_flash_inputs(1, 4, 2, 80, 32, cuda),
-                                      window=32)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    inputs = {dt: [a.to(dt) for a in _flash_inputs(1, 4, 2, 80, 32, cuda)]
+              for dt in dtypes}
+    want = {dt: fmod.flash_attention_plain(*inputs[dt], window=32)
+            for dt in dtypes}
     monkeypatch.setattr(fmod, "flash_attention_plain", refuse)
-    before = dict(fmod.flash_attention.launches_by_dtype)
-    got = ops.flash_mha(*_flash_inputs(1, 4, 2, 80, 32, cuda), window=32,
-                        blk=16)
-    assert fmod.flash_attention.launches_by_dtype["float32"] == \
-        before["float32"] + 1
-    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    for dt in dtypes:
+        name = str(dt).removeprefix("torch.")
+        before = dict(fmod.flash_attention.launches_by_dtype)
+        got = ops.flash_mha(*inputs[dt], window=32, blk=16)
+        assert fmod.flash_attention.launches_by_dtype[name] == \
+            before[name] + 1
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want[dt], rtol=0, atol=2e-6)
+        else:
+            assert _narrow_gate_share(got, want[dt]) <= 1
     with pytest.raises(ValueError):
         ops.flash_mha(*_flash_inputs(1, 4, 2, 80, 32, cuda), window=24,
                       blk=16)
