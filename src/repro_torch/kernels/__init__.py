@@ -2,19 +2,28 @@
 
   pcc_tile.py         the tile kernel's and the top-k kernel's wrappers,
                       their plain versions and the fused EpilogueSpec
+  narrow_gate.py      the gate holding the tensor-core tiles (bf16, fp8)
+                      against the plain version, and its planted faults
   flash_attention.py  causal / sliding-window GQA flash attention: the
                       wrapper, its plain version, the mha_ref oracle and
                       grid_savings
   ops.py              the public wrappers flash_mha and pcc_tiles
-  csrc/pcc_accum.cuh  the tile accumulation both CUDA kernels share, one
-                      routine per operand type (float32, bf16, fp8, int8)
+  csrc/pcc_accum.cuh  the SIMT tile accumulation both tile kernels share
+                      (float32, int8), tile ids, scales and the epilogue
+  csrc/pcc_mma.cuh    the tensor-core tile mainloop both tile kernels share
+                      (bf16, fp8): TMA ring, wgmma, fp8 promotion
   csrc/pcc_tile.cu    the all-pairs tile kernel, triangle and grid, with
-                      per-row scales for quantized operands (sm_90a)
-  csrc/pcc_topk.cu    the per-row top-k kernels, select and merge (sm_90a)
+                      per-row scales for quantized operands, float32 and
+                      int8 on the SIMT pipes (sm_90a)
+  csrc/pcc_tile_sm90.cu  the same, bf16 and fp8 on the tensor cores
+                      (persistent, wgmma, TMA; sm_90a)
+  csrc/pcc_topk.cu    the per-row top-k kernels, select and merge (sm_90a;
+                      the bf16 select on the tensor-core mainloop)
   csrc/flash_attention.cu  the flash-attention forward kernel, float32 on
                       the SIMT pipes (sm_90a)
   csrc/flash_attention_sm90.cu  the flash-attention forward kernel, bf16
                       and fp16 on the tensor cores: wgmma, TMA (sm_90a)
-  csrc/sm90.cuh       Hopper helpers: TMA tensor maps, mbarriers, wgmma
+  csrc/sm90.cuh       Hopper helpers: TMA tensor maps, mbarrier rings,
+                      wgmma (bf16, fp16, fp8)
   _build.py           nvcc build at first use, ctypes binding
 """

@@ -32,10 +32,12 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # the EpilogueSpec arguments: has_div, recip, has_clip, lo, hi
 _EPI = [_I, _F, _I, _F, _F]
 # operand dtype suffixes of the entry points (kernels/pcc_tile.py
-# OPERAND_DTYPES): float32, bfloat16, int8, and for the tile kernel alone
-# float8_e4m3fn, float8_e5m2
-_SUFFIXES = ("f32", "bf16", "i8")
-_TILE_SUFFIXES = _SUFFIXES + ("e4m3", "e5m2")
+# OPERAND_DTYPES): the SIMT tile kernel takes float32 and int8, the
+# tensor-core one bfloat16, float8_e4m3fn and float8_e5m2; the top-k select
+# float32, bfloat16 and int8
+_SIMT_SUFFIXES = ("f32", "i8")
+_SM90_SUFFIXES = ("bf16", "e4m3", "e5m2")
+_SELECT_SUFFIXES = ("f32", "bf16", "i8")
 # (u, v, srow, scol, out, j_start, pass_tiles, m, grid_cols, t, l_pad,
 #  replicas, v_rstride, s_rstride, *epilogue, stream) -> cudaError_t
 _TILES = (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _LL,
@@ -50,11 +52,15 @@ _FLASH = (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P])
 # source name -> {C function: (restype, argtypes)}
 SIGNATURES = {
     "pcc_tile": {
-        **{f"pcc_tiles_{s}": _TILES for s in _TILE_SUFFIXES},
+        **{f"pcc_tiles_{s}": _TILES for s in _SIMT_SUFFIXES},
         "pcc_tile_error_string": (ctypes.c_char_p, [_I]),
     },
+    "pcc_tile_sm90": {
+        **{f"pcc_tiles_sm90_{s}": _TILES for s in _SM90_SUFFIXES},
+        "pcc_tile_sm90_error_string": (ctypes.c_char_p, [_I]),
+    },
     "pcc_topk": {
-        **{f"pcc_topk_select_{s}": _SELECT for s in _SUFFIXES},
+        **{f"pcc_topk_select_{s}": _SELECT for s in _SELECT_SUFFIXES},
         # (prv, prc, pcv, pcc, rv, rc, cv, cc, j_start, hi_eff, m,
         #  grid_cols, t, kk, stream) -> cudaError_t
         "pcc_topk_merge": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,

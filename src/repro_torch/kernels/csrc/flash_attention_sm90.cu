@@ -118,23 +118,6 @@ struct Tile {
       Q_BYTES + STAGES * 2 * KV_BYTES + 1024;        // + alignment slack
 };
 
-// The ring of K (or V) blocks: slot i % STAGES, its full and empty
-// barriers, and the parity of round i / STAGES.
-template <int STAGES>
-struct Ring {
-  uint64_t* full;
-  uint64_t* empty;
-  __device__ __forceinline__ void wait_full(int i) const {
-    sm90::mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
-  }
-  __device__ __forceinline__ void wait_empty(int i) const {
-    sm90::mbar_wait(&empty[i % STAGES], ((i / STAGES) & 1) ^ 1);
-  }
-  __device__ __forceinline__ void release(int i) const {
-    sm90::mbar_arrive(&empty[i % STAGES]);
-  }
-};
-
 // 2^x on the special-function unit (2 ulp; 2^-inf = 0, subnormal results
 // flush to 0).
 __device__ __forceinline__ float ex2(float x) {
@@ -238,8 +221,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t q_empty;
   __shared__ __align__(8) uint64_t bars[4 * STAGES];
-  const Ring<STAGES> kring{bars, bars + STAGES};
-  const Ring<STAGES> vring{bars + 2 * STAGES, bars + 3 * STAGES};
+  const sm90::Ring<STAGES> kring{bars, bars + STAGES};
+  const sm90::Ring<STAGES> vring{bars + 2 * STAGES, bars + 3 * STAGES};
 
   // panels must start on the swizzle's 1024-byte period
   uint8_t* base = reinterpret_cast<uint8_t*>(

@@ -1,11 +1,14 @@
-// The tile accumulation shared by pcc_tile.cu and pcc_topk.cu (sm_90a).
+// The SIMT tile accumulation shared by pcc_tile.cu and pcc_topk.cu
+// (float32 and int8 operands; sm_90a), and what every tile kernel shares:
+// tile-id inversion, the scale product and the epilogue.
 //
 // Both kernels compute a 64 x 64 block of one (t, t) tile of U V^T with the
 // same code, so a finished value of the top-k kernel is bitwise the value
 // pcc_tiles writes for the same tile and epilogue: each output is one
 // sequential fmaf chain over k = 0 .. l_pad-1 in a 4 x 4 register block,
 // then the EpilogueSpec (multiply by the host-rounded float32 reciprocal,
-// then clip) in registers.
+// then clip) in registers.  bf16 and fp8 operands take the tensor cores
+// instead (pcc_mma.cuh).
 //
 // Tile ids: the triangle (grid_cols == 0) numbers the upper triangle of the
 // m x m tile grid row-major (paper Eq. 9) and is inverted with exact integer
@@ -22,13 +25,6 @@
 //
 // One routine per operand type, shared by both kernels:
 //   float          the fmaf chain above;
-//   __nv_bfloat16  widened to float at the global -> register fetch, then
-//                  the same Stage and fmaf chain: a bf16 x bf16 product is
-//                  exact in float32, so a bf16 block is bitwise the float
-//                  block of the widened operands;
-//   fp8_e4m3, fp8_e5m2  (torch.float8_e4m3fn / float8_e5m2 codes) the same:
-//                  widened to float at the fetch from their bits (every fp8
-//                  value and every fp8 x fp8 product is exact in float32);
 //   int8_t         packed 4 samples to a 32-bit word (BK words = 64 samples
 //                  per chunk, the same Stage reinterpreted as int), summed
 //                  with __dp4a into int32, converted to float once at the
@@ -39,12 +35,10 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace pcc {
 
@@ -100,71 +94,13 @@ __device__ __forceinline__ void tile_coord(int m, int grid_cols, long long jt,
   }
 }
 
-// One byte of an fp8 operand, as torch stores float8_e4m3fn (4 exponent
-// bits, bias 7, no infinities, NaN only at S.1111.111) and float8_e5m2
-// (5 exponent bits, bias 15, IEEE infinities and NaNs).
-struct fp8_e4m3 { uint8_t bits; };
-struct fp8_e5m2 { uint8_t bits; };
-
-__host__ __device__ __forceinline__ float f32_from_bits(uint32_t w) {
-#ifdef __CUDA_ARCH__
-  return __uint_as_float(w);
-#else
-  float f;
-  memcpy(&f, &w, sizeof f);
-  return f;
-#endif
-}
-
-__host__ __device__ __forceinline__ uint32_t f32_bits(float f) {
-#ifdef __CUDA_ARCH__
-  return __float_as_uint(f);
-#else
-  uint32_t w;
-  memcpy(&w, &f, sizeof w);
-  return w;
-#endif
-}
-
-// fp8 -> float32, exactly and without branches: the code's exponent and
-// mantissa bits, moved up to float32's exponent / mantissa boundary, read as
-// a float32 with the fp8 exponent still biased (an fp8 subnormal becomes a
-// float32 subnormal), times 2^(127 - bias): a power of two, so the product
-// is exact (no flush to zero: the build does not use fast math).  Then the
-// sign goes back on and the special codes are selected.
-__host__ __device__ __forceinline__ float fp8_e4m3_to_float(uint8_t b) {
-  const uint32_t mag = b & 0x7Fu;
-  uint32_t w = f32_bits(f32_from_bits(mag << 20) * 0x1p120f);
-  if (mag == 0x7Fu) w = 0x7FC00000u;  // the single NaN code of each sign
-  return f32_from_bits(w | ((uint32_t)(b & 0x80u) << 24));
-}
-
-__host__ __device__ __forceinline__ float fp8_e5m2_to_float(uint8_t b) {
-  const uint32_t mag = b & 0x7Fu;
-  uint32_t w = f32_bits(f32_from_bits(mag << 21) * 0x1p112f);
-  if (mag >= 0x7Cu)  // exponent all ones: infinity or NaN
-    w = (mag == 0x7Cu) ? 0x7F800000u : 0x7FC00000u;
-  return f32_from_bits(w | ((uint32_t)(b & 0x80u) << 24));
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(fp8_e4m3 v) {
-  return fp8_e4m3_to_float(v.bits);
-}
-__device__ __forceinline__ float widen(fp8_e5m2 v) {
-  return fp8_e5m2_to_float(v.bits);
-}
-
 // acc = the (64, 64) block a_base[0:64] . b_base[0:64]^T over l_pad samples,
 // rows a_rows.. and b_rows.. of the block reading as zero.  Thread (ty, tx)
-// holds rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.  T is float,
-// __nv_bfloat16, fp8_e4m3 or fp8_e5m2 (int8_t has its own overload below).
-template <typename T>
+// holds rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3 (int8_t has its own
+// overload below).
 __device__ __forceinline__ void accumulate_block(
-    const T* __restrict__ a_base, const T* __restrict__ b_base, int a_rows,
+    const float* __restrict__ a_base, const float* __restrict__ b_base,
+    int a_rows,
     int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {
   const int tid = threadIdx.x;
   const int tx = tid % (BM / TM);
@@ -181,10 +117,8 @@ __device__ __forceinline__ void accumulate_block(
       const int row = idx / BK;
       const int k = k0 + idx % BK;
       const bool kin = k < l_pad;
-      a_ld[e] = (kin && row < a_rows) ? widen(a_base[(size_t)row * l_pad + k])
-                                      : 0.f;
-      b_ld[e] = (kin && row < b_rows) ? widen(b_base[(size_t)row * l_pad + k])
-                                      : 0.f;
+      a_ld[e] = (kin && row < a_rows) ? a_base[(size_t)row * l_pad + k] : 0.f;
+      b_ld[e] = (kin && row < b_rows) ? b_base[(size_t)row * l_pad + k] : 0.f;
     }
   };
 
@@ -304,6 +238,18 @@ __device__ __forceinline__ float epilogue(float v, int has_div, float recip,
   if (has_div) v = __fmul_rn(v, recip);
   if (has_clip) v = v < lo ? lo : (v > hi ? hi : v);
   return v;
+}
+
+// The finished value of an output: the scale product of quantized operands
+// (srow of its row, scol of its column, the product first), then the
+// epilogue.  One routine for every operand type and kernel, so the order is
+// the same in all of them; unscaled launches compile without the scales.
+template <bool SCALED>
+__device__ __forceinline__ float finalize(float v, float srow, float scol,
+                                          int has_div, float recip,
+                                          int has_clip, float lo, float hi) {
+  if (SCALED) v = __fmul_rn(v, __fmul_rn(srow, scol));
+  return epilogue(v, has_div, recip, has_clip, lo, hi);
 }
 
 }  // namespace pcc

@@ -1,10 +1,10 @@
 // All-pairs correlation tiles for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_tiles (body
-// _kernel) in every mode, with the fused EpilogueSpec,
-// for float32, bfloat16, int8, float8_e4m3fn and float8_e5m2 operands (entry
-// points pcc_tiles_f32 / _bf16 / _i8 / _e4m3 / _e5m2; the operand modes of
-// _kernel, pcc_tile.py:136-149), for both tile-id families:
+// _kernel) in every mode, with the fused EpilogueSpec, for float32 and int8
+// operands (entry points pcc_tiles_f32 / _i8; the operand modes of _kernel,
+// pcc_tile.py:136-149); bfloat16 and fp8 operands take the tensor-core
+// kernel of pcc_tile_sm90.cu.  Both tile-id families:
 //   * the triangle (index maps _row_map/_col_map, grid_cols == 0): tiles of
 //     U V^T over the upper triangle of the m x m tile grid (paper Eq. 9),
 //     where V is U itself or a second operand of U's exact shape (the
@@ -38,15 +38,10 @@
 // paper's Table II shape (n = 17,555, l = 5,072, t = 256: 2,415 tiles) one
 // pass is 2 * 5,072 * 256^2 * 2,415 = 1.61e12 FLOP, so >= 24 ms, against
 // ~1 GB of operand plus tile bytes (~0.3 ms at 3.35 TB/s): compute-bound by
-// ~80x.  bf16 operands take the same SIMT FMA chain (widened at the load, so
-// a bf16 tile is bitwise the f32 tile of the widened operand); their bound
-// is the bf16 tensor-core peak (989 TFLOP/s, ~1.6 ms at Table II), which
-// this kernel does not reach: a tensor-core (wgmma) redesign is later work.
-// int8 operands take __dp4a (4 products per instruction) into int32; their
-// bound is the int8 tensor-core peak (1,979 TOP/s).  fp8 operands widen at
-// the load like bf16 and take the SIMT FMA chain; their bound is the fp8
-// tensor-core peak (1,979 TFLOP/s).  The scale product is one multiply per
-// output, after the accumulation.
+// ~80x.  int8 operands take __dp4a (4 products per instruction) into int32;
+// their bound is the int8 tensor-core peak (1,979 TOP/s), which this SIMT
+// kernel does not reach.  The scale product is one multiply per output,
+// after the accumulation.
 //
 // Design: a register-blocked SIMT SGEMM (pcc_accum.cuh, shared with the
 // top-k kernel).  Each CTA of 256 threads computes a 64 x 64 block of one
@@ -63,19 +58,6 @@
 namespace {
 
 using namespace pcc;
-
-// The finished value of output (r, c) of the padded matrix: the scale
-// product (quantized operands), then the epilogue.  One routine for every
-// operand type, so the order is the same in all of them; unscaled launches
-// compile without the scale loads.
-template <bool SCALED>
-__device__ __forceinline__ float finalize(float v, const float* srow,
-                                          const float* scol, size_t r,
-                                          size_t c, int has_div, float recip,
-                                          int has_clip, float lo, float hi) {
-  if (SCALED) v = __fmul_rn(v, __fmul_rn(srow[r], scol[c]));
-  return epilogue(v, has_div, recip, has_clip, lo, hi);
-}
 
 // REPLICA instantiations offset v, scol and out by the replica blockIdx.z;
 // the others compile without it.
@@ -121,9 +103,10 @@ pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
     for (int j = 0; j < TM; ++j) {
       const int cc = c_in + tx * TM + j;
       if (cc >= t) continue;
-      tile[(size_t)rr * t + cc] =
-          finalize<SCALED>(acc[i][j], srow, scol, (size_t)yt * t + rr,
-                   (size_t)xt * t + cc, has_div, recip, has_clip, lo, hi);
+      tile[(size_t)rr * t + cc] = finalize<SCALED>(
+          acc[i][j], SCALED ? srow[(size_t)yt * t + rr] : 0.f,
+          SCALED ? scol[(size_t)xt * t + cc] : 0.f, has_div, recip, has_clip,
+          lo, hi);
     }
   }
 }
@@ -192,10 +175,7 @@ int launch(const T* u, const T* v, const float* srow, const float* scol,
   }
 
 PCC_TILES_ENTRY(pcc_tiles_f32, float)
-PCC_TILES_ENTRY(pcc_tiles_bf16, __nv_bfloat16)
 PCC_TILES_ENTRY(pcc_tiles_i8, int8_t)
-PCC_TILES_ENTRY(pcc_tiles_e4m3, fp8_e4m3)
-PCC_TILES_ENTRY(pcc_tiles_e5m2, fp8_e5m2)
 
 extern "C" const char* pcc_tile_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

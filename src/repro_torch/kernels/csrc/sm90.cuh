@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: TMA
-// tensor maps and loads, mbarriers, wgmma shared-memory descriptors and the
-// wgmma instructions with their fence / commit / wait.
+// tensor maps and loads, mbarriers and their rings, wgmma shared-memory
+// descriptors and the wgmma instructions (bf16 / fp16 k16, fp8 e4m3 / e5m2
+// k32) with their fence / commit / wait.
 //
 // Layout these helpers assume.  A tile of 16-bit values with a head (or
-// depth) dimension DP is kept in shared memory as DP / 64 panels; panel p
+// depth) dimension DP is kept in shared memory as DP / 64 panels (8-bit
+// values: DP / 128 panels of 128 columns); panel p
 // holds columns 64 p .. 64 p + 63 of every row, one row per 128 bytes, in
 // the 128-byte swizzle that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B (the
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8)).  Every panel starts
@@ -11,8 +13,10 @@
 // 32 bytes (16 values of depth) into a row and the hardware still finds the
 // swizzled chunks by their absolute address.
 //   * K-major operand (rows = M or N, depth contiguous: Q and K of
-//     attention): descriptor at panel + 32 kk bytes for depth step kk, SBO =
-//     1024 (eight rows), LBO unused.
+//     attention, both operands of the correlation tiles): descriptor at
+//     panel + 32 kk bytes for depth step kk (16 values of 16 bits, or 32 of
+//     8 bits), SBO = 1024 (eight rows), LBO unused.  fp8 wgmma takes only
+//     K-major operands.
 //   * MN-major operand (rows = depth, N contiguous: V of attention, where
 //     the product runs over keys): descriptor at panel 0 + 2048 kk bytes for
 //     the 16-key step kk, SBO = 1024 (eight keys), LBO = the panel stride
@@ -30,6 +34,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,24 +68,34 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a row-major (d2, d1, d0) array of 16-bit values (d0
-// contiguous), read in boxes of 64 x box1 x 1 into the 128-byte swizzle;
-// elements outside the array read as zero.  d0 * 2 bytes must be a
-// multiple of 16 and base 16-byte aligned.  Returns the driver's CUresult,
-// or CUDA_ERROR_NOT_FOUND without the entry point.
-inline CUresult encode_3d_sw128(CUtensorMap* map, CUtensorMapDataType type,
-                                const void* base, uint64_t d0, uint64_t d1,
-                                uint64_t d2, uint32_t box1) {
+// A 3-D map over an array of `elem`-byte values, d0 contiguous, d1 rows
+// of d0 values, d2 planes `stride2` values apart, read in boxes of one
+// 128-byte swizzle row (128 / elem values) x box1 rows x 1 plane; elements
+// outside the array read as zero.  d0 * elem and stride2 * elem must be
+// multiples of 16 and base 16-byte aligned.  Returns the CUresult of
+// cuTensorMapEncodeTiled, or CUDA_ERROR_NOT_FOUND without the entry point.
+inline CUresult encode_3d(CUtensorMap* map, CUtensorMapDataType type,
+                          uint32_t elem, const void* base, uint64_t d0,
+                          uint64_t d1, uint64_t d2, uint64_t stride2,
+                          uint32_t box1) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {64, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+  const cuuint64_t strides[2] = {d0 * elem, stride2 * elem};
+  const cuuint32_t box[3] = {128 / elem, box1, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, one,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The same over a contiguous row-major (d2, d1, d0) array of 16-bit values,
+// in boxes of 64 x box1 x 1.
+inline CUresult encode_3d_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                                const void* base, uint64_t d0, uint64_t d1,
+                                uint64_t d2, uint32_t box1) {
+  return encode_3d(map, type, 2, base, d0, d1, d2, d0 * d1, box1);
 }
 
 template <typename T>
@@ -93,6 +108,15 @@ struct MapType<__nv_bfloat16> {
 template <>
 struct MapType<__half> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+// TMA moves fp8 codes as bytes; only wgmma reads them as e4m3 / e5m2.
+template <>
+struct MapType<__nv_fp8_e4m3> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+template <>
+struct MapType<__nv_fp8_e5m2> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
 
 // ---- device: mbarriers and TMA --------------------------------------------
@@ -161,6 +185,25 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
                    reinterpret_cast<uint64_t>(map))
                : "memory");
 }
+
+// A ring of STAGES shared-memory slots, each with a full barrier (the
+// producer's TMA bytes arrived) and an empty barrier (every consumer thread
+// released it): slot i % STAGES and the parity of round i / STAGES for the
+// i-th load.
+template <int STAGES>
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ void wait_full(int i) const {
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+  }
+  __device__ __forceinline__ void wait_empty(int i) const {
+    mbar_wait(&empty[i % STAGES], ((i / STAGES) & 1) ^ 1);
+  }
+  __device__ __forceinline__ void release(int i) const {
+    mbar_arrive(&empty[i % STAGES]);
+  }
+};
 
 // Named barrier `id` (1 .. 15; 0 is __syncthreads) over n threads: sync
 // waits for the phase to complete, arrive counts without waiting.
@@ -246,15 +289,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define SM90_F64(i) SM90_F32(i), SM90_F32(i + 32)
 #define SM90_F128(i) SM90_F64(i), SM90_F64(i + 64)
 
-// Wgmma<N, T>::ss: d (64 x N) (+)= A (64 x 16) B (16 x N), A and B from
-// shared memory, both K-major.  ::rs: the same with A from registers
-// (16-bit pairs, layout above) and B MN-major.  acc == 0 overwrites d.
+// Wgmma<N, T>::ss: d (64 x N) (+)= A (64 x K) B (K x N), A and B from
+// shared memory, both K-major; K = 16 for bf16 / fp16, 32 for fp8.  ::rs
+// (16-bit types): the same with A from registers (16-bit pairs, layout
+// above) and B MN-major.  acc == 0 overwrites d.
 template <int N, typename T>
 struct Wgmma;
 
 #define SM90_WGMMA(N, T, TY, DREGS, DCONS, SS_OPS, SS_P, RS_OPS, RS_P)       \
   template <>                                                              \
   struct Wgmma<N, T> {                                                     \
+    static constexpr int K = 16;                                           \
     __device__ __forceinline__ static void ss(float* d, uint64_t a,        \
                                               uint64_t b, int acc) {       \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_P ", 0;\n"       \
@@ -288,6 +333,29 @@ SM90_WGMMA(256, __half, "f16", SM90_D128, SM90_F128(0), "%128, %129",
            "%130", "{%128, %129, %130, %131}, %132", "%133")
 
 #undef SM90_WGMMA
+
+// fp8: k32, both operands K-major from shared memory (no transpose or
+// register-A form).
+#define SM90_WGMMA_F8(N, T, TY, DREGS, DCONS, SS_OPS, SS_P)                 \
+  template <>                                                              \
+  struct Wgmma<N, T> {                                                     \
+    static constexpr int K = 32;                                           \
+    __device__ __forceinline__ static void ss(float* d, uint64_t a,        \
+                                              uint64_t b, int acc) {       \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_P ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k32.f32." TY     \
+                   "." TY " " DREGS ", " SS_OPS ", p, 1, 1;\n}\n"           \
+                   : DCONS                                                 \
+                   : "l"(a), "l"(b), "r"(acc));                            \
+    }                                                                      \
+  };
+
+SM90_WGMMA_F8(128, __nv_fp8_e4m3, "e4m3", SM90_D64, SM90_F64(0), "%64, %65",
+              "%66")
+SM90_WGMMA_F8(128, __nv_fp8_e5m2, "e5m2", SM90_D64, SM90_F64(0), "%64, %65",
+              "%66")
+
+#undef SM90_WGMMA_F8
 
 // Two float32 values as one 32-bit pair of T, the first in the low half.
 __device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16) {

@@ -4,13 +4,15 @@ versions.
 Port of ``repro/kernels/pcc_tile.py`` in every mode, the replica axis of
 significance runs included, with float32, bfloat16, int8 or fp8
 (``float8_e4m3fn``, ``float8_e5m2``) operands (both operands of one
-dtype).  bfloat16 and fp8 operands widen to
-float32 as they are loaded (exactly) and take the float32 arithmetic, so
-such a tile is bitwise the float32 tile of the widened operand; int8
-operands accumulate in int32 and convert to float32 once.  Quantized
-operands (core/quantize.py) bring per-row scales: the finished tile is
-multiplied by the scale product ``row_scale[y] * col_scale[x]`` before the
-epilogue.
+dtype).  float32 operands take IEEE float32 FMA chains and int8 operands
+int32 sums converted to float32 once (the SIMT kernel,
+kernels/csrc/pcc_tile.cu); bfloat16 and fp8 operands take the tensor cores
+(kernels/csrc/pcc_tile_sm90.cu: wgmma with float32 accumulation, fp8
+partial sums promoted to float32 every 128 samples), whose tiles lie
+within the narrow gate of the plain version's (kernels/narrow_gate.py),
+not bitwise on them.  Quantized operands (core/quantize.py) bring per-row
+scales: the finished tile is multiplied by the scale product
+``row_scale[y] * col_scale[x]`` before the epilogue.
 
 ``pcc_tiles`` (Pallas body ``_kernel``): ``pass_tiles`` consecutive (t, t)
 tiles from the runtime tile id ``j_start``.  On the triangle (``grid_cols``
@@ -19,7 +21,7 @@ tile is U U^T, or U V^T with columns from a second operand ``v_pad`` of
 U's exact shape (the masked measures' cross components); on the
 rectangular grid (``grid_cols`` an int) ids number the m x grid_cols grid
 row-major and the tile is U V^T with columns from ``v_pad``.  Each tile
-accumulates over the whole sample axis in IEEE float32, then the scale
+accumulates over the whole sample axis in float32, then the scale
 product (if any) and the fused :class:`EpilogueSpec` (x 1/div, then clip)
 run before the single store.  Ids past the end clamp to the last tile.
 A 3-D ``v_pad`` of shape (R, cols_pad, l_pad) is a replica stack (the
@@ -35,16 +37,18 @@ mirrored column state.  It takes unscaled float32, bfloat16 or int8
 operands, and no second operand on the triangle.
 
 Dispatch is by the operand's device: a CUDA tensor launches the CUDA kernels
-(kernels/csrc/pcc_tile.cu, kernels/csrc/pcc_topk.cu) or raises; a CPU tensor
-runs the plain version (:func:`pcc_tiles_plain`, :func:`pcc_topk_tiles_plain`),
-a direct PyTorch transcription of the same semantics that is also the
-kernels' reference on the card.
+(kernels/csrc/pcc_tile.cu or pcc_tile_sm90.cu by operand dtype,
+kernels/csrc/pcc_topk.cu) or raises; a CPU tensor runs the plain version
+(:func:`pcc_tiles_plain`, :func:`pcc_topk_tiles_plain`), a direct PyTorch
+transcription of the same semantics that is also the kernels' reference on
+the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -65,6 +69,11 @@ OPERAND_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.float8_e5m2: "e5m2"}
 TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+# Operand dtypes of the tensor-core kernels (csrc/pcc_tile_sm90.cu, the bf16
+# select of csrc/pcc_topk.cu); the others take the SIMT kernels.
+SM90_DTYPES = (torch.bfloat16,) + _FP8
+# TMA reads rows whose byte stride and base are multiples of this.
+TMA_ALIGN = 16
 # int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
 INT8_MAX_L_PAD = (2**31 - 1) // 128**2
 # Replicas of one launch: the CUDA grid's z extent.
@@ -219,6 +228,36 @@ def _launch_error(lib, err: int, what: str, prefix: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg}")
 
 
+def tma_operand(x: torch.Tensor, l_blk: int) -> torch.Tensor:
+    """`x`, a contiguous operand (rows, l_pad) or replica stack (R, rows,
+    l_pad), as the tensor-core kernels read it: itself when its rows start
+    on TMA_ALIGN-byte boundaries, else a copy with the sample axis
+    zero-padded to a multiple of lcm(l_blk, TMA_ALIGN / itemsize).  Zero
+    samples add exactly zero to every product, and the copy is still an
+    operand of block l_blk, so tiles do not change."""
+    per = TMA_ALIGN // x.element_size()
+    width = x.shape[-1]
+    if width % per == 0 and x.data_ptr() % TMA_ALIGN == 0:
+        return x
+    step = math.lcm(l_blk, per)
+    out = torch.zeros(*x.shape[:-1], -(-width // step) * step,
+                      dtype=x.dtype, device=x.device)
+    # fp8 copies move as bytes (copy kernels need not take fp8 types)
+    raw = torch.uint8 if x.dtype in _FP8 else x.dtype
+    out.view(raw)[..., :width] = x.view(raw)
+    return out
+
+
+def _kernel_operands(u_pad: torch.Tensor, v: torch.Tensor, l_blk: int):
+    """(u, v) as the CUDA kernel of their dtype reads them: through
+    :func:`tma_operand` for the tensor-core kernels, as they are for the
+    SIMT ones; v stays u where it is u (the triangle)."""
+    if u_pad.dtype not in SM90_DTYPES:
+        return u_pad, v
+    u_k = tma_operand(u_pad, l_blk)
+    return u_k, (u_k if v is u_pad else tma_operand(v, l_blk))
+
+
 def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
               l_blk: int = DEFAULT_LBLK, pass_tiles: int,
               epilogue: Optional[EpilogueSpec] = None,
@@ -264,24 +303,28 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
                                row_scale=row_scale, col_scale=col_scale)
     from repro_torch.kernels import _build
 
-    lib = _build.load("pcc_tile")
+    u_k, v_k = _kernel_operands(u_pad, v, l_blk)
+    name = "pcc_tile_sm90" if u_pad.dtype in SM90_DTYPES else "pcc_tile"
+    lib = _build.load(name)
     spec = epilogue if epilogue is not None else EpilogueSpec()
     out = torch.empty((replicas, pass_tiles, t, t) if replicas
                       else (pass_tiles, t, t), dtype=torch.float32,
                       device=u_pad.device)
     # element strides between replicas of the stack and of its scales
-    v_rstride = v.stride(0) if replicas else 0
+    v_rstride = v_k.stride(0) if replicas else 0
     s_rstride = col_scale.stride(0) if replicas and scaled else 0
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
-        fn = getattr(lib, "pcc_tiles_" + OPERAND_DTYPES[u_pad.dtype])
+        # pcc_tiles_f32 / _i8, pcc_tiles_sm90_bf16 / _e4m3 / _e5m2
+        fn = getattr(lib, name.replace("pcc_tile", "pcc_tiles") + "_"
+                     + OPERAND_DTYPES[u_pad.dtype])
         err = fn(
-            ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
+            ctypes.c_void_p(u_k.data_ptr()), ctypes.c_void_p(v_k.data_ptr()),
             *_ptrs([row_scale, col_scale] if scaled else [], 2),
             ctypes.c_void_p(out.data_ptr()), j_start, pass_tiles, m,
-            grid_cols or 0, t, u_pad.shape[1], replicas, v_rstride,
+            grid_cols or 0, t, u_k.shape[1], replicas, v_rstride,
             s_rstride, *spec.kernel_args(), ctypes.c_void_p(stream))
-    _launch_error(lib, err, "pcc_tiles", "pcc_tile")
+    _launch_error(lib, err, "pcc_tiles", name)
     pcc_tiles.launches += 1
     pcc_tiles.launches_by_dtype[dtype_name(u_pad.dtype)] += 1
     pcc_tiles.scaled_launches += int(scaled)
@@ -463,7 +506,9 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     """Launch the first CUDA kernel of :func:`pcc_topk_tiles` (CUDA tensors
     only): each tile line's top-min(kk, 64) per 64-wide block, into a pass
     scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) (value, column)
-    pairs per side (rows; columns too on the triangle)."""
+    pairs per side (rows; columns too on the triangle).  bf16 operands take
+    the tensor-core mainloop of the bf16 tiles, so the values are bitwise
+    :func:`pcc_tiles`'."""
     m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                               grid_cols, kk, dev_hi, n_cols_valid)
     if u_pad.device.type != "cuda":
@@ -479,13 +524,14 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     for _side in range(1 if grid_cols is not None else 2):
         scratch += [torch.empty(part, dtype=torch.float32, device=dev),
                     torch.empty(part, dtype=torch.int32, device=dev)]
+    u_k, v_k = _kernel_operands(u_pad, v, l_blk)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         fn = getattr(lib, "pcc_topk_select_" + OPERAND_DTYPES[u_pad.dtype])
         err = fn(
-            ctypes.c_void_p(u_pad.data_ptr()), ctypes.c_void_p(v.data_ptr()),
+            ctypes.c_void_p(u_k.data_ptr()), ctypes.c_void_p(v_k.data_ptr()),
             *_ptrs(scratch, 4), j_start, dev_hi, pass_tiles, m,
-            grid_cols or 0, t, u_pad.shape[1], kk, n_cols_valid,
+            grid_cols or 0, t, u_k.shape[1], kk, n_cols_valid,
             int(symmetric_problem), *spec.kernel_args(), stream)
     _launch_error(lib, err, "pcc_topk_tiles (select)", "pcc_topk")
     pcc_topk_tiles.launches["select"] += 1
@@ -609,8 +655,8 @@ def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
 
 
 __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
-           "OPERAND_DTYPES", "TOPK_DTYPES", "INT8_MAX_L_PAD", "MAX_REPLICAS",
-           "dtype_name",
+           "OPERAND_DTYPES", "TOPK_DTYPES", "SM90_DTYPES", "TMA_ALIGN",
+           "INT8_MAX_L_PAD", "MAX_REPLICAS", "dtype_name", "tma_operand",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
            "topk_fold_plain", "topk_scratch_bytes"]

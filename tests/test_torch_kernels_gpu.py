@@ -16,6 +16,9 @@ from repro_torch.core.pcc import transform
 from repro_torch.core.plan import pad_operands, pad_scales
 from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.sinks import DeviceTopKSink, TopKSink
+from repro_torch.kernels.narrow_gate import (FAULT_SHARE, gate_share,
+                                             narrow_gate,
+                                             planted_fault_shares)
 from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
                                           pcc_tiles_plain, pcc_topk_tiles,
                                           pcc_topk_tiles_plain)
@@ -23,6 +26,22 @@ from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
 # same products, two float32 summation orders, l <= 300: the reference's
 # own Pearson bound
 ATOL = 3e-6
+
+
+def _within_narrow_gate(u, j_start, kw, faults=True):
+    """pcc_tiles' bf16 / fp8 tiles on (u, j_start, **kw) within the narrow
+    gate of the plain version's (kernels/narrow_gate.py), and the
+    gate refusing the planted faults by FAULT_SHARE; returns the tiles."""
+    got = pcc_tiles(u, j_start, **kw)
+    want = pcc_tiles_plain(u, j_start, **kw)
+    gate = narrow_gate(u, j_start, **kw)
+    torch.cuda.synchronize()
+    assert gate_share(got, want, gate) <= 1.0
+    if faults:
+        shares = planted_fault_shares(u, j_start, **kw)
+        assert len(shares) == 2
+        assert all(f >= FAULT_SHARE for f in shares.values()), shares
+    return got
 
 
 @pytest.fixture
@@ -218,22 +237,19 @@ def _signs(n, width, device, seed=0):
 ])
 def test_bf16_kernel_bitwise_equals_f32_kernel_on_widened(
         cuda, grid, n, l, t, l_blk, j_start, pass_tiles):
+    """bf16 tiles run on the tensor cores: within the narrow gate of the
+    plain version (no longer bitwise the float32 kernel on the widened
+    operand), the gate refusing the planted faults."""
     u = _operand(n, l, t, l_blk, cuda).to(torch.bfloat16)
     v = _operand(170, l, t, l_blk, cuda, seed=1).to(torch.bfloat16) \
         if grid else None
     gc = v.shape[0] // t if grid else None
     spec = EpilogueSpec(clip=(-1.0, 1.0))
     kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
-              grid_cols=gc)
+              grid_cols=gc, v_pad=v)
     before = dict(pcc_tiles.launches_by_dtype)
-    got = pcc_tiles(u, j_start, v_pad=v, **kw)
-    want = pcc_tiles(u.float(), j_start,
-                     v_pad=None if v is None else v.float(), **kw)
-    torch.cuda.synchronize()
-    assert pcc_tiles.launches_by_dtype["bfloat16"] == before["bfloat16"] + 1
-    assert torch.equal(got, want)
-    torch.testing.assert_close(got, pcc_tiles_plain(u, j_start, v_pad=v,
-                                                    **kw), rtol=0, atol=ATOL)
+    _within_narrow_gate(u, j_start, kw)
+    assert pcc_tiles.launches_by_dtype["bfloat16"] == before["bfloat16"] + 3
 
 
 @pytest.mark.gpu
@@ -354,40 +370,119 @@ def _quantized(n, l, t, l_blk, device, qdtype, seed=0):
 def test_scaled_kernel_bitwise_invariants(cuda, qdtype, grid, n, l, t, l_blk,
                                           j_start, pass_tiles):
     """Scaled int8 tiles are bitwise the plain version's; fp8 tiles are
-    bitwise the float32 kernel's on the widened codes, times the scale
-    product, then the epilogue."""
+    within the narrow gate of it, the gate refusing the planted faults."""
     u, su = _quantized(n, l, t, l_blk, cuda, qdtype)
     v, sv = (_quantized(n // 2 + 3, l, t, l_blk, cuda, qdtype, seed=1)
              if grid else (None, su))
-    m = u.shape[0] // t
     gc = v.shape[0] // t if grid else None
-    total = m * gc if grid else m * (m + 1) // 2
-    ids = np.minimum(j_start + np.arange(pass_tiles), total - 1)
-    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
-              else job_coord_batch(m, ids))
-    prod = (su.view(m, t)[torch.as_tensor(ys, device=cuda)][:, :, None]
-            * sv.view(-1, t)[torch.as_tensor(xs, device=cuda)][:, None, :])
     for spec in (None, EpilogueSpec(clip=(-1.0, 1.0)),
                  EpilogueSpec(div=7.0, clip=(-0.05, 0.05))):
         kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
                   v_pad=v, grid_cols=gc, row_scale=su, col_scale=sv)
         before = (dict(pcc_tiles.launches_by_dtype),
                   pcc_tiles.scaled_launches)
-        got = pcc_tiles(u, j_start, **kw)
-        want = pcc_tiles_plain(u, j_start, **kw)
-        torch.cuda.synchronize()
-        assert pcc_tiles.launches_by_dtype[qdtype] == before[0][qdtype] + 1
-        assert pcc_tiles.scaled_launches == before[1] + 1
         if qdtype == "int8":
+            got = pcc_tiles(u, j_start, **kw)
+            want = pcc_tiles_plain(u, j_start, **kw)
+            torch.cuda.synchronize()
             assert torch.equal(got, want)
-        else:
-            raw = pcc_tiles(u.float(), j_start, t=t, l_blk=l_blk,
-                            pass_tiles=pass_tiles,
-                            v_pad=None if v is None else v.float(),
-                            grid_cols=gc)
-            ref = raw * prod
-            assert torch.equal(got, spec.apply(ref) if spec else ref)
-            torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+            launches = 1
+        else:   # the tiles, then the two planted faults without a clip
+            faults = spec is None
+            _within_narrow_gate(u, j_start, kw, faults=faults)
+            launches = 3 if faults else 1
+        assert (pcc_tiles.launches_by_dtype[qdtype]
+                == before[0][qdtype] + launches)
+        assert pcc_tiles.scaled_launches == before[1] + launches
+
+
+def _narrow_operand(n, l, t, l_blk, device, dtype, seed=0):
+    """A bf16 Pearson operand (scales None) or an fp8-quantized one."""
+    if dtype == "bfloat16":
+        return _operand(n, l, t, l_blk, device, seed).to(torch.bfloat16), None
+    return _quantized(n, l, t, l_blk, device, dtype, seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float8_e4m3fn",
+                                   "float8_e5m2"])
+@pytest.mark.parametrize("n,l,t,l_blk", [
+    (300, 50, 96, 4),     # t below one 128-row block, l_pad 52
+    (260, 90, 130, 6),    # t one row past a block, l_pad 90
+    (300, 70, 200, 10),   # l_pad 70
+    (129, 33, 129, 3),    # odd t (scalar stores), odd l_pad
+])
+def test_narrow_ragged_tiles_and_unaligned_samples(cuda, dtype, n, l, t,
+                                                   l_blk):
+    """t not a multiple of the 128-row block, and sample axes whose rows
+    break TMA's 16-byte stride (the wrapper pads them with zero samples):
+    triangle, grid and replica tiles within the narrow gate, split- and
+    replica-invariant bitwise; bf16 top-k values bitwise pcc_tiles'."""
+    from repro_torch.kernels.pcc_tile import tma_operand
+    u, su = _narrow_operand(n, l, t, l_blk, cuda, dtype)
+    v, sv = _narrow_operand(n // 2 + 3, l, t, l_blk, cuda, dtype, seed=1)
+    assert tma_operand(u, l_blk) is not u        # the padded copy is used
+    m = u.shape[0] // t
+    spec = EpilogueSpec(div=3.0, clip=(-1.0, 1.0))
+    for gc, vv, sc in ((None, None, su), (v.shape[0] // t, v, sv)):
+        total = m * gc if gc else m * (m + 1) // 2
+        kw = dict(t=t, l_blk=l_blk, epilogue=spec, v_pad=vv, grid_cols=gc,
+                  row_scale=su, col_scale=sc)
+        got = _within_narrow_gate(u, 0, {**kw, "pass_tiles": total},
+                                  faults=False)
+        parts = torch.cat([pcc_tiles(u, j, pass_tiles=min(2, total - j),
+                                     **kw) for j in range(0, total, 2)])
+        assert torch.equal(got, parts)
+        if dtype == "bfloat16":
+            tk = pcc_topk_tiles(u, 0, total, pass_tiles=total, kk=5,
+                                n_cols_valid=(v if gc else u).shape[0],
+                                symmetric_problem=gc is None, **{
+                                    k_: kw[k_] for k_ in
+                                    ("t", "l_blk", "epilogue", "v_pad",
+                                     "grid_cols")})
+            ids = np.arange(total)
+            ys, xs = (grid_job_coord_batch(m, gc, ids) if gc
+                      else job_coord_batch(m, ids))
+            r = torch.zeros(u.shape[0], (v if gc else u).shape[0],
+                            device=cuda)
+            r.view(m, t, -1, t)[torch.as_tensor(ys, device=cuda), :,
+                                torch.as_tensor(xs, device=cuda), :] = got
+            if gc is None:
+                r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(),
+                                r, r.T)
+            for side in range(len(tk) // 2):
+                vals, cols = tk[2 * side], tk[2 * side + 1]
+                ok = cols >= 0
+                rows = (torch.arange(vals.shape[0] * t, device=cuda)
+                        .view(-1, t, 1).expand_as(cols))
+                assert torch.equal(vals[ok], (r if side == 0 else r.T)[
+                    rows[ok], cols[ok].long()])
+    # a replica stack of two column operands on the grid
+    stack = torch.stack([v.view(torch.uint8), _narrow_operand(
+        n // 2 + 3, l, t, l_blk, cuda, dtype, seed=2)[0].view(torch.uint8)])
+    stack = stack.view(u.dtype)
+    scol = None if su is None else torch.stack([sv, _narrow_operand(
+        n // 2 + 3, l, t, l_blk, cuda, dtype, seed=2)[1]])
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=3, epilogue=spec,
+              grid_cols=v.shape[0] // t, row_scale=su)
+    got = _within_narrow_gate(u, 1, {**kw, "v_pad": stack,
+                                     "col_scale": scol}, faults=False)
+    for r_ in range(2):
+        assert torch.equal(got[r_], pcc_tiles(
+            u, 1, v_pad=stack[r_], col_scale=None if scol is None
+            else scol[r_], **kw))
+
+
+@pytest.mark.gpu
+def test_narrow_tiles_run_only_on_the_tensor_core_kernel(cuda):
+    """The SIMT tile library keeps float32 and int8 only; bf16 and fp8 tiles
+    launch the tensor-core library's entry points."""
+    from repro_torch.kernels import _build
+    simt = _build.load("pcc_tile")
+    assert hasattr(simt, "pcc_tiles_f32") and hasattr(simt, "pcc_tiles_i8")
+    for sfx in ("bf16", "e4m3", "e5m2"):
+        assert not hasattr(simt, f"pcc_tiles_{sfx}")
+        assert hasattr(_build.load("pcc_tile_sm90"), f"pcc_tiles_sm90_{sfx}")
 
 
 @pytest.mark.gpu
@@ -417,9 +512,13 @@ def test_triangle_second_operand_equals_grid_tiles(cuda, dtype, n, l, t,
                      v_pad=w, grid_cols=m)
     torch.cuda.synchronize()
     assert torch.equal(got, grid[torch.as_tensor(ys * m + xs, device=cuda)])
-    torch.testing.assert_close(got, pcc_tiles_plain(
-        u, j_start, t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
-        v_pad=w), rtol=0, atol=ATOL)
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
+              v_pad=w)
+    want = pcc_tiles_plain(u, j_start, **kw)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    else:
+        assert gate_share(got, want, narrow_gate(u, j_start, **kw)) <= 1.0
 
 
 @pytest.mark.gpu
@@ -437,13 +536,36 @@ def test_masked_and_quantized_corr_on_card_match_cpu(cuda, measure,
         kw["compute_dtype"] = compute_dtype
     r = corr(x, device=cuda, **kw)
     assert torch.equal(r, r.T)
-    torch.testing.assert_close(r.cpu(), corr(x, device="cpu", **kw), rtol=0,
-                               atol=ATOL)
     y = x[:70]
     kw_y = {**kw, "where": (None, None)} if compute_dtype is None else kw
-    torch.testing.assert_close(corr(x, y, device=cuda, **kw_y).cpu(),
-                               corr(x, y, device="cpu", **kw_y), rtol=0,
-                               atol=ATOL)
+    for got, want, yy in ((r, corr(x, device="cpu", **kw), None),
+                          (corr(x, y, device=cuda, **kw_y),
+                           corr(x, y, device="cpu", **kw_y), y)):
+        if compute_dtype == "float8_e4m3fn":   # the tensor-core kernel
+            assert gate_share(got.cpu(), want, _dense_narrow_gate(
+                x, yy, measure, compute_dtype, 32, 32)) <= 1.0
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=ATOL)
+
+
+def _dense_narrow_gate(x, y, measure, compute_dtype, t, l_blk):
+    """The narrow gate (kernels/narrow_gate.py) on corr's dense result:
+    the gate of the grid launch over the plan's quantized operands (on the
+    CPU), its tiles laid out as the dense matrix."""
+    from repro_torch.core.plan import ExecutionPlan
+    kw = dict(t=t, l_blk=l_blk, measure=measure, compute_dtype=compute_dtype)
+    if y is None:
+        plan = ExecutionPlan.create(*x.shape, **kw)
+        a = b = plan.prepare(torch.from_numpy(x))
+    else:
+        plan = ExecutionPlan.create(*x.shape, n_cols=y.shape[0], **kw)
+        a, b = plan.prepare_pair(torch.from_numpy(x), torch.from_numpy(y))
+    m, gc = a.data.shape[0] // t, b.data.shape[0] // t
+    g = narrow_gate(a.data, 0, t=t, l_blk=l_blk, pass_tiles=m * gc,
+                    epilogue=plan.epilogue_spec, v_pad=b.data, grid_cols=gc,
+                    row_scale=a.scale, col_scale=b.scale)
+    g = g.view(m, gc, t, t).transpose(1, 2).reshape(m * t, gc * t)
+    return g[:x.shape[0], :(x if y is None else y).shape[0]]
 
 
 def _replica_stack(dtype, n, n_cols, l, t, l_blk, device, reps, grid):
@@ -485,12 +607,10 @@ def test_replica_kernel_bitwise_invariants(cuda, dtype, grid, reps, n,
                                            pass_tiles):
     """Replica r's tiles are bitwise the 2-D kernel's tiles with v_pad =
     stack[r]; float32 within ATOL of the plain version; int8 and scaled
-    int8 bitwise the plain version; bf16 and fp8 bitwise the float32
-    replica kernel on the widened stack (fp8: times the scale product, then
-    the epilogue)."""
+    int8 bitwise the plain version; bf16 and fp8 within the narrow gate of
+    it."""
     u, stack, su, scol = _replica_stack(dtype, n, n_cols, l, t, l_blk, cuda,
                                         reps, grid)
-    m = u.shape[0] // t
     gc = stack.shape[1] // t if grid else None
     spec = EpilogueSpec(div=7.0, clip=(-0.05, 0.05))
     kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, epilogue=spec,
@@ -513,19 +633,8 @@ def test_replica_kernel_bitwise_invariants(cuda, dtype, grid, reps, n,
     elif dtype == "float32":
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
     else:
-        wide = pcc_tiles(u.float(), j_start, t=t, l_blk=l_blk,
-                         pass_tiles=pass_tiles, grid_cols=gc,
-                         v_pad=stack.float())
-        if scol is not None:
-            total = m * gc if grid else m * (m + 1) // 2
-            ids = np.minimum(j_start + np.arange(pass_tiles), total - 1)
-            ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
-                      else job_coord_batch(m, ids))
-            srow = su.view(m, t)[torch.as_tensor(ys, device=cuda)]
-            sc = scol.view(reps, -1, t)[:, torch.as_tensor(xs, device=cuda)]
-            wide = wide * (srow[None, :, :, None] * sc[:, :, None, :])
-        assert torch.equal(got, spec.apply(wide))
-        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        assert gate_share(got, want, narrow_gate(
+            u, j_start, v_pad=stack, col_scale=scol, **kw)) <= 1.0
     if scol is not None:   # one scale vector expanded over the replicas
         one = pcc_tiles(u, j_start, v_pad=stack,
                         col_scale=scol[:1].expand(reps, -1), **kw)
