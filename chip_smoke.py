@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel from the sources in the checkout (nvcc, one
      process per source, all started together) and print ptxas' report
-     (registers, spills: the tensor-core tile kernels may not spill), and
+     (registers, spills: the tensor-core tile kernels, the float32 tile
+     kernel and the three top-k selects may not spill), and
      check that the SIMT tile library exports no bf16 / fp8 entry point;
   2. hold each kernel against its plain PyTorch version on the card, at
      small ragged shapes and at the main path's full shape;
@@ -527,6 +528,25 @@ def main(argv) -> int:
           f"python {sys.version.split()[0]}; allow_tf32=False (matmul, cudnn)")
 
     # -- 1. build -----------------------------------------------------------
+    def watched(entry):
+        """A readable name for the kernels redesigned on this path (the
+        float32 tile kernel's four instantiations, the three selects), None
+        for the others; `entry` is ptxas' "Compiling entry function" line."""
+        if entry is None:
+            return None
+        if "pcc_tiles_f32_kernel" in entry:
+            flags = entry.split("pcc_tiles_f32_kernel", 1)[1][:12]
+            return (f"pcc_tiles_f32_kernel<scaled={flags[3]}, "
+                    f"replica={flags[7]}>")
+        if "pcc_topk_select_kernel" in entry:
+            arg = entry.split("pcc_topk_select_kernel", 1)[1][:2]
+            return "pcc_topk_select_kernel<%s>" % (
+                "float" if arg == "If" else "int8_t")
+        if "pcc_topk_select_sm90" in entry:
+            return "pcc_topk_select_sm90<bf16>"
+        return None
+
+    report = {}
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -537,16 +557,24 @@ def main(argv) -> int:
                 print(f"  {name}: {line.strip()}")
             if "Compiling entry function" in line:
                 entry = line
+            if "Used" in line and "registers" in line and watched(entry):
+                regs = line.split("Used", 1)[1].split("registers")[0]
+                report[watched(entry)] = int(regs)
             if "spill stores" in line:
                 print(f"  {name}: {line.strip()}")
-                # the tensor-core kernels of this slice may not spill
-                new = (name == "pcc_tile_sm90"
-                       or "select_sm90" in (entry or ""))
+                # the tensor-core kernels, the float32 tile kernel and the
+                # selects may not spill
+                new = name == "pcc_tile_sm90" or watched(entry)
                 if new and not line.strip().startswith(
                         "0 bytes stack frame, 0 bytes spill stores, "
                         "0 bytes spill loads"):
-                    raise AssertionError(f"{name}: a tensor-core tile "
-                                         f"kernel spills: {line.strip()}")
+                    raise AssertionError(f"{name}: {entry.strip()} "
+                                         f"spills: {line.strip()}")
+    print("  registers, no spills: " + "; ".join(
+        f"{k} {v}" for k, v in sorted(report.items())))
+    if len(report) != 7:
+        raise AssertionError(f"ptxas reported {sorted(report)}: expected "
+                             f"the 4 float32 tile and the 3 select kernels")
     simt = _build.load("pcc_tile")
     gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2")]
     if any(hasattr(simt, fn) for fn in gone):
@@ -591,7 +619,7 @@ def main(argv) -> int:
         (37, 29, 8, 8, 0, 15),        # every tile
         (37, 20, 8, 8, 12, 3),        # ragged pass, l_pad not a multiple of 16
         (37, 29, 8, 8, 13, 6),        # clamped ids past the end
-        (300, 700, 96, 64, 1, 5),     # t not a multiple of the 64-row CTA
+        (300, 700, 96, 64, 1, 5),     # t not a multiple of a CTA's block
         (130, 300, 16, 64, 0, 45),
         (600, 1000, 256, 512, 0, 6),  # plan defaults, every tile
         (600, 1000, 256, 512, 4, 5),  # plan defaults, clamped
@@ -2604,6 +2632,18 @@ def main(argv) -> int:
                              "float8_e4m3fn"))],
         *flash_rows,
     ]}
+    # the header holding each pcc kernel's mainloop, beside its source
+    mainloops = {"pcc_tile.cu": "pcc_sgemm.cuh",
+                 "pcc_tile_sm90.cu": "pcc_mma.cuh"}
+    for rec in record["kernels"]:
+        if rec["name"].startswith("pcc_topk_select"):
+            rec["mainloop"] = source + ("pcc_mma.cuh" if "bf16" in rec["name"]
+                                        else "pcc_accum.cuh")
+        elif rec["name"].startswith("pcc_tiles"):
+            file_ = rec["source"].rsplit("/", 1)[1]
+            int8 = "int8" in rec["name"]
+            rec["mainloop"] = source + ("pcc_accum.cuh" if int8
+                                        else mainloops[file_])
     print(f"script time {time.perf_counter() - t_script:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
-// The SIMT tile accumulation shared by pcc_tile.cu and pcc_topk.cu
-// (float32 and int8 operands; sm_90a), and what every tile kernel shares:
-// tile-id inversion, the scale product and the epilogue.
+// The SIMT 64 x 64 tile accumulation (float32 and int8 operands; sm_90a)
+// and what every tile kernel shares: tile-id inversion, the scale product
+// and the epilogue.
 //
-// Both kernels compute a 64 x 64 block of one (t, t) tile of U V^T with the
-// same code, so a finished value of the top-k kernel is bitwise the value
-// pcc_tiles writes for the same tile and epilogue: each output is one
-// sequential fmaf chain over k = 0 .. l_pad-1 in a 4 x 4 register block,
-// then the EpilogueSpec (multiply by the host-rounded float32 reciprocal,
-// then clip) in registers.  bf16 and fp8 operands take the tensor cores
-// instead (pcc_mma.cuh).
+// Who runs the 64 x 64 blocks: the int8 tiles of pcc_tile.cu and the
+// float32 and int8 selects of pcc_topk.cu.  The float32 tiles of
+// pcc_tile.cu run the 128 x 128 cp.async mainloop of pcc_sgemm.cuh, and
+// bf16 / fp8 operands the tensor cores (pcc_mma.cuh).  Every float32
+// output, in either block shape, is one sequential fmaf chain over k = 0 ..
+// l_pad-1 from +0, then the EpilogueSpec (multiply by the host-rounded
+// float32 reciprocal, then clip) in registers, so a finished value of the
+// float32 select is bitwise the value pcc_tiles writes for the same tile
+// and epilogue; int8 sums are exact, so their values agree in any block.
 //
 // Tile ids: the triangle (grid_cols == 0) numbers the upper triangle of the
 // m x m tile grid row-major (paper Eq. 9) and is inverted with exact integer
@@ -23,7 +25,7 @@
 // Rows past the tile's edge (t not a multiple of 64) and samples past l_pad
 // read as zero.
 //
-// One routine per operand type, shared by both kernels:
+// One routine per operand type:
 //   float          the fmaf chain above;
 //   int8_t         packed 4 samples to a 32-bit word (BK words = 64 samples
 //                  per chunk, the same Stage reinterpreted as int), summed

@@ -43,24 +43,47 @@
 // kernel does not reach.  The scale product is one multiply per output,
 // after the accumulation.
 //
-// Design: a register-blocked SIMT SGEMM (pcc_accum.cuh, shared with the
-// top-k kernel).  Each CTA of 256 threads computes a 64 x 64 block of one
-// tile, 4 x 4 outputs per thread, so a 256 x 256 tile takes 16 CTAs and the
-// grid is (pass_tiles, ceil(t/64)^2).  The CTA inverts its own tile id
-// (exact integer math on the triangle, one division on the grid), so any m
-// works, unlike the f32-only job_coord_f32 of the TPU kernel.  Every output
-// accumulates over k = 0 .. l_pad-1 in one sequential fmaf chain, so a
-// tile's bits do not depend on the pass it was launched in, and the scale
-// product and the epilogue run in registers before the single store.
+// Design, by operand type:
+//  * float32 (pcc_sgemm.cuh): 128 x 128 outputs per CTA of 256 threads, 8 x
+//    8 per thread as two float4 strips 64 apart on each axis, operands
+//    copied by 4-byte cp.async straight into a 4-stage k-major ring of
+//    16-sample chunks (rows padded to 132 floats, so copies and reads are
+//    free of bank conflicts), one barrier per chunk; a 256 x 256 tile takes
+//    4 CTAs, and a CTA reads 32 FLOP per byte from L2.  Two CTAs an SM.
+//  * int8 (pcc_accum.cuh): 64 x 64 outputs per CTA of 256 threads, 4 x 4
+//    per thread, packed 4-sample words staged through registers, __dp4a.
+// The grid is (pass_tiles, blocks per tile, replicas).  The CTA inverts its
+// own tile id (exact integer math on the triangle, one division on the
+// grid), so any m works, unlike the f32-only job_coord_f32 of the TPU
+// kernel.  Every float32 output accumulates over k = 0 .. l_pad-1 in one
+// sequential fmaf chain from +0 whatever the block shape (the 64 x 64 block
+// of the float32 top-k select runs the same chain), so a tile's bits do not
+// depend on the pass it was launched in or on the kernel that made it, and
+// the scale product and the epilogue run in registers before the single
+// store.
+
+#include <type_traits>
 
 #include "pcc_accum.cuh"
+#include "pcc_sgemm.cuh"
 
 namespace {
 
 using namespace pcc;
 
+// The CTA's tile coordinate: slot blockIdx.x holds tile min(j_start +
+// blockIdx.x, total - 1).
+__device__ __forceinline__ void locate(long long j_start, int m,
+                                       int grid_cols, int* yt, int* xt) {
+  long long jt = j_start + (long long)blockIdx.x;
+  const long long total = tile_total(m, grid_cols);
+  if (jt > total - 1) jt = total - 1;
+  tile_coord(m, grid_cols, jt, yt, xt);
+}
+
 // REPLICA instantiations offset v, scol and out by the replica blockIdx.z;
-// the others compile without it.
+// the others compile without it.  int8: the 64 x 64 __dp4a block of
+// pcc_accum.cuh.
 template <typename T, bool SCALED, bool REPLICA>
 __global__ void __launch_bounds__(THREADS)
 pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
@@ -78,12 +101,8 @@ pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
     if (SCALED) scol += r * (size_t)s_rstride;
     out += r * gridDim.x * (size_t)t * t;
   }
-
-  long long jt = j_start + (long long)blockIdx.x;
-  const long long total = tile_total(m, grid_cols);
-  if (jt > total - 1) jt = total - 1;
   int yt, xt;
-  tile_coord(m, grid_cols, jt, &yt, &xt);
+  locate(j_start, m, grid_cols, &yt, &xt);
 
   const int r_in = (blockIdx.y / nb) * BM;  // CTA's first row inside the tile
   const int c_in = (blockIdx.y % nb) * BM;  // CTA's first column
@@ -111,15 +130,88 @@ pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
   }
 }
 
+// float32: the 128 x 128 cp.async block of pcc_sgemm.cuh.  A thread's 8 x 8
+// outputs are two strips of 4 rows by two strips of 4 columns; each strip
+// of a row is one float4 store when t % 4 == 0 (16-byte aligned rows) and
+// lies inside the tile, else up to 4 scalar stores.
+template <bool SCALED, bool REPLICA>
+__global__ void __launch_bounds__(sgemm::THREADS, 2)
+pcc_tiles_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                     const float* __restrict__ srow,
+                     const float* __restrict__ scol, float* __restrict__ out,
+                     long long j_start, int m, int grid_cols, int t,
+                     int l_pad, int nb, long long v_rstride,
+                     long long s_rstride, int has_div, float recip,
+                     int has_clip, float lo, float hi) {
+  extern __shared__ __align__(16) float smem[];
+
+  if (REPLICA) {
+    const size_t r = blockIdx.z;
+    v += r * (size_t)v_rstride;
+    if (SCALED) scol += r * (size_t)s_rstride;
+    out += r * gridDim.x * (size_t)t * t;
+  }
+  int yt, xt;
+  locate(j_start, m, grid_cols, &yt, &xt);
+
+  const int r_in = (blockIdx.y / nb) * sgemm::BLOCK;
+  const int c_in = (blockIdx.y % nb) * sgemm::BLOCK;
+  float acc[sgemm::TM][sgemm::TM];
+  sgemm::accumulate_block(u + ((size_t)yt * t + r_in) * l_pad,
+                          v + ((size_t)xt * t + c_in) * l_pad, t - r_in,
+                          t - c_in, l_pad, smem, acc);
+
+  const int ty = sgemm::ty_of(threadIdx.x), tx = sgemm::tx_of(threadIdx.x);
+  const bool vec = t % 4 == 0;
+  float* tile = out + (size_t)blockIdx.x * t * t;
+#pragma unroll
+  for (int i = 0; i < sgemm::TM; ++i) {
+    const int rr = r_in + sgemm::strip(ty, i);
+    if (rr >= t) continue;
+    const float sr = SCALED ? srow[(size_t)yt * t + rr] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = c_in + sgemm::strip(tx, 4 * h);
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = finalize<SCALED>(
+            acc[i][4 * h + e], sr,
+            SCALED && c0 + e < t ? scol[(size_t)xt * t + c0 + e] : 0.f,
+            has_div, recip, has_clip, lo, hi);
+      float* dst = tile + (size_t)rr * t + c0;
+      if (vec && c0 + 3 < t) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + e < t) dst[e] = o[e];
+      }
+    }
+  }
+}
+
 template <typename T, bool SCALED, bool REPLICA>
-void enqueue(dim3 grid, cudaStream_t stream, const T* u, const T* v,
-             const float* srow, const float* scol, float* out,
-             long long j_start, int m, int grid_cols, int t, int l_pad,
-             int nb, long long v_rstride, long long s_rstride, int has_div,
-             float recip, int has_clip, float lo, float hi) {
-  pcc_tiles_kernel<T, SCALED, REPLICA><<<grid, THREADS, 0, stream>>>(
-      u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, v_rstride,
-      s_rstride, has_div, recip, has_clip, lo, hi);
+int enqueue(dim3 grid, cudaStream_t stream, const T* u, const T* v,
+            const float* srow, const float* scol, float* out,
+            long long j_start, int m, int grid_cols, int t, int l_pad,
+            int nb, long long v_rstride, long long s_rstride, int has_div,
+            float recip, int has_clip, float lo, float hi) {
+  if constexpr (std::is_same<T, float>::value) {
+    auto kernel = pcc_tiles_f32_kernel<SCALED, REPLICA>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sgemm::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, sgemm::THREADS, sgemm::SMEM_BYTES, stream>>>(
+        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb,
+        v_rstride, s_rstride, has_div, recip, has_clip, lo, hi);
+  } else {
+    pcc_tiles_kernel<T, SCALED, REPLICA><<<grid, THREADS, 0, stream>>>(
+        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb,
+        v_rstride, s_rstride, has_div, recip, has_clip, lo, hi);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -132,29 +224,33 @@ int launch(const T* u, const T* v, const float* srow, const float* scol,
       j_start < 0 || (srow == nullptr) != (scol == nullptr) ||
       replicas < 0 || replicas > 65535 || v_rstride < 0 || s_rstride < 0)
     return (int)cudaErrorInvalidValue;
-  const int nb = (t + BM - 1) / BM;
+  // rows (== columns) of a CTA's block: 128 for float32, 64 for int8
+  const int block = std::is_same<T, float>::value ? sgemm::BLOCK : BM;
+  const int nb = (t + block - 1) / block;
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb),
                   (unsigned)(replicas > 0 ? replicas : 1));
   const cudaStream_t s = (cudaStream_t)stream;
   const bool scaled = srow != nullptr;
   if (scaled && replicas > 0)
-    enqueue<T, true, true>(grid, s, u, v, srow, scol, out, j_start, m,
-                           grid_cols, t, l_pad, nb, v_rstride, s_rstride,
-                           has_div, recip, has_clip, lo, hi);
-  else if (scaled)
-    enqueue<T, true, false>(grid, s, u, v, srow, scol, out, j_start, m,
-                            grid_cols, t, l_pad, nb, v_rstride, s_rstride,
-                            has_div, recip, has_clip, lo, hi);
-  else if (replicas > 0)
-    enqueue<T, false, true>(grid, s, u, v, srow, scol, out, j_start, m,
-                            grid_cols, t, l_pad, nb, v_rstride, s_rstride,
-                            has_div, recip, has_clip, lo, hi);
-  else
-    enqueue<T, false, false>(grid, s, u, v, srow, scol, out, j_start, m,
-                             grid_cols, t, l_pad, nb, v_rstride, s_rstride,
-                             has_div, recip, has_clip, lo, hi);
-  return (int)cudaGetLastError();
+    return enqueue<T, true, true>(grid, s, u, v, srow, scol, out, j_start, m,
+                                  grid_cols, t, l_pad, nb, v_rstride,
+                                  s_rstride, has_div, recip, has_clip, lo,
+                                  hi);
+  if (scaled)
+    return enqueue<T, true, false>(grid, s, u, v, srow, scol, out, j_start,
+                                   m, grid_cols, t, l_pad, nb, v_rstride,
+                                   s_rstride, has_div, recip, has_clip, lo,
+                                   hi);
+  if (replicas > 0)
+    return enqueue<T, false, true>(grid, s, u, v, srow, scol, out, j_start,
+                                   m, grid_cols, t, l_pad, nb, v_rstride,
+                                   s_rstride, has_div, recip, has_clip, lo,
+                                   hi);
+  return enqueue<T, false, false>(grid, s, u, v, srow, scol, out, j_start, m,
+                                  grid_cols, t, l_pad, nb, v_rstride,
+                                  s_rstride, has_div, recip, has_clip, lo,
+                                  hi);
 }
 
 }  // namespace

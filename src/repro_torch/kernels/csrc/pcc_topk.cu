@@ -28,10 +28,10 @@
 //      wgmma steps) on a 128 x 128 block, cut into four 64 x 64 blocks.
 //      The CTA's finished block goes to shared memory and each row of a
 //      64 x 64 block (and, off the diagonal, each of its columns) selects
-//      its top-min(kk, 64) by exact rank counting.  The partial lists go to
-//      a pass scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) entries
-//      per side: 160 KB per 256 x 256 tile at kk = 10, against the 256 KB
-//      tile.
+//      its top-min(kk, 64) (below): by warp extraction while that is at
+//      most 32, else by rank counting.  The partial lists go to a pass
+//      scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) entries per
+//      side: 160 KB per 256 x 256 tile at kk = 10, against the 256 KB tile.
 //   2. pcc_topk_merge: one warp per output row merges the partial lists of
 //      the pass's tiles of its row block, found in closed form from the
 //      pass's tile-id range (no host index), 32 candidates at a time:
@@ -45,10 +45,14 @@
 // 1.61e12 FLOP, >= 24 ms at 67 TFLOP/s, for the Table II pass; bf16, >= 1.6
 // ms at 989 TFLOP/s, on the tensor cores; int8 is bound by the int8
 // tensor-core peak, which the SIMT dp4a chain does not use).  The merge
-// kernel reads float32 values whatever the operands.  The selection adds
-// O(64) comparisons per candidate in the CTA (about 2 x 64^3 per 64 x 64
-// block against 2 x 64^2 x l_pad FLOP) and the merge reads the scratch
-// once (~0.4 GB at Table II, ~0.12 ms at 3.35 TB/s).
+// kernel reads float32 values whatever the operands.  The selection is
+// not in the bound, and its cost is what this design keeps down: at kc
+// entries a line, extraction is kc rounds, each a warp reduction, a ballot
+// and a few selects for the line's 64 candidates, with no branch or memory
+// access inside a round (rank counting, kept for kc > 32, takes 64
+// comparisons a candidate whatever kc); the bf16 select spreads it over all
+// 12 of its warps.  The merge reads the scratch once (~0.4 GB at Table II,
+// ~0.12 ms at 3.35 TB/s).
 
 #include <stdio.h>
 
@@ -65,81 +69,177 @@ constexpr int MERGE_WARPS = 8;    // output rows per merge CTA
 // error codes beside cudaError_t: a tensor map cuTensorMapEncodeTiled refused
 constexpr int ERR_MAP = -1000;
 
-// The selection of one finished 64 x 64 block val (row stride LD) at
-// (r_in, c_in) of tile (yt, xt) in pass slot `slot`, by 256 threads (tid)
-// with the barrier sync() over them: each row's top-kc, and off the
-// diagonal of a triangle each column's, into the pass scratch.  key is a
-// 64 x 65 scratch of shared memory; the block's values must be complete
-// when the threads arrive (the first sync orders them).
-template <int LD, typename Sync>
-__device__ __forceinline__ void select_block(
-    const float* val, float (&key)[BM][BM + 1], int tid, Sync sync,
-    long long slot, int yt, int xt, int r_in, int c_in, int t, int nb,
-    int kc, int n_cols_valid, int symmetric, int grid_cols,
-    float* __restrict__ prv, int* __restrict__ prc, float* __restrict__ pcv,
-    int* __restrict__ pcc_) {
-  // Thread -> one line (row or column) of the block and 16 of its 64
-  // candidates.  A candidate's rank is the number of candidates of its line
-  // that precede it under (key desc, index asc); inside a block the global
-  // column grows with the index and masked keys (-1) sort last, so this is
-  // the canonical order, and ranks are unique.
-  const int line = tid >> 2;
-  const int q0 = (tid & 3) * (BM / 4);
-  const size_t per = (size_t)nb * kc;
-  const int rb = r_in / BM, cb = c_in / BM;
+// The selection.  A line is a row of a finished 64 x 64 block (its
+// candidates the block's columns) or, off the diagonal of a triangle, a
+// column (its candidates the rows); each line's top-kc under the canonical
+// order (|v| desc, then index asc; masked candidates, columns past t or
+// n_cols_valid and self-pairs, last) goes to slots 0 .. kc-1 of its
+// partial list in the pass scratch, a masked entry as value 0, column -1.
+// Two routes by kc, each exact, so the scratch holds the same entries in
+// the same slots either way:
+//   * kc <= KC_EXTRACT, extraction (extract_lines): one warp holds a line,
+//     lane l the candidates q = 2l and 2l + 1 as keys __float_as_uint(|v|)
+//     + 1, 0 when masked.  Non-negative floats order as their bits, and
+//     lane l's indices are all below lane l + 1's, so the key order with
+//     the lowest lane first among equal keys is the canonical order.  Each
+//     lane orders its pair; then each of kc rounds takes the line's next
+//     entry: a warp max of the lanes' first keys (__reduce_max_sync), the
+//     lowest lane holding it (a ballot), which moves on to its second
+//     candidate; lane r keeps round r's entry, and the kc entries are
+//     stored side by side at the end.  Work in proportion to kc, no
+//     branches and no memory traffic inside the rounds; a warp holds LINES
+//     lines and runs each round as sweeps over them, so their reductions
+//     issue back to back.
+//   * larger kc, rank counting (rank_lines): 4 threads a line, each
+//     candidate's slot is the number of candidates of its line that
+//     precede it; 64 comparisons a candidate, whatever kc.
+// Keys of NaN values sort first on the first route; NaN tiles are outside
+// the contract of both.
+constexpr int SEL_WARPS = THREADS / 32;      // warps of a 64 x 64 block
+constexpr int LINES = BM / SEL_WARPS;        // lines a warp holds, per side
+constexpr int KC_EXTRACT = 32;
+static_assert(KC_EXTRACT <= 32, "lane r keeps entry r of its lines");
+// lines per sweep in the SIMT selects, whose other CTAs on the SM hide
+// latency (and whose int8 instantiation stays at 70 registers: 74 with
+// sweeps of 8, at the same time); the bf16 select sweeps all LINES
+constexpr int SIMT_SWEEP = 4;
 
-  // rows: line = row of the block, candidates = its columns
-  sync();
-  const long long grow = (long long)yt * t + r_in + line;
-  const long long gcol0 = (long long)xt * t + c_in;
-  for (int q = q0; q < q0 + BM / 4; ++q) {
-    const long long gc = gcol0 + q;
-    const bool ok = c_in + q < t && gc < n_cols_valid &&
-                    !(symmetric && gc == grow);
-    key[line][q] = ok ? fabsf(val[line * LD + q]) : -1.f;
+// One side of a finished block: line j at line_in + j of the tile,
+// candidate q at cand_in + q of the tile and at global column gcand0 + q,
+// read at val[j * line_step + q * cand_step]; self-pairs (gcand0 + q ==
+// gline0 + j) masked when `self`.  Line j's entries go to
+// part_v/part_c[((slot * t + line_in + j) * per + blk * kc + rank].
+struct Side {
+  const float* val;
+  int line_step, cand_step;
+  int line_in, cand_in;
+  long long gline0, gcand0;
+  bool self;
+  int blk;
+  float* part_v;
+  int* part_c;
+};
+
+// The rows (candidates: columns x*t + c) and the columns (off-diagonal
+// triangle tiles; candidates: rows y*t + r) of the 64 x 64 block val at
+// (r_in, c_in) of tile (yt, xt).
+template <int LD>
+__device__ __forceinline__ Side row_side(const float* val, int yt, int xt,
+                                         int r_in, int c_in, int t,
+                                         int symmetric, float* prv,
+                                         int* prc) {
+  return {val, LD, 1, r_in, c_in, (long long)yt * t + r_in,
+          (long long)xt * t + c_in, symmetric != 0, c_in / BM, prv, prc};
+}
+template <int LD>
+__device__ __forceinline__ Side col_side(const float* val, int yt, int xt,
+                                         int r_in, int c_in, int t,
+                                         float* pcv, int* pcc_) {
+  return {val, 1, LD, c_in, r_in, (long long)xt * t + c_in,
+          (long long)yt * t + r_in, false, r_in / BM, pcv, pcc_};
+}
+
+// Extraction: lines g + SEL_WARPS * i, i < LINES, of side `sd`, by one
+// warp (lane).  A round's winner is the lowest lane holding the warp's
+// largest key, so it is known to the whole warp; lane r keeps the
+// candidate of round r and, after the last round, lanes 0 .. kc-1 store
+// their entries side by side.
+template <int SWEEP>
+__device__ __forceinline__ void extract_lines(const Side& sd, int g,
+                                              int lane, long long slot,
+                                              int t, size_t per, int kc,
+                                              int n_cols_valid) {
+  static_assert(LINES % SWEEP == 0, "sweeps cover the lines");
+  unsigned hi[LINES], lo[LINES];   // keys of the lane's next, then last
+  unsigned sec[LINES];   // bit l: lane l's next candidate is 2 l + 1
+  int mine[LINES];       // candidate of entry `lane`, -1 if masked
+#pragma unroll
+  for (int i = 0; i < LINES; ++i) {
+    const int line = g + SEL_WARPS * i;
+    unsigned key[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int q = 2 * lane + s;
+      const long long gc = sd.gcand0 + q;
+      const bool ok = sd.cand_in + q < t && gc < n_cols_valid &&
+                      !(sd.self && gc == sd.gline0 + line);
+      const float v = sd.val[line * sd.line_step + q * sd.cand_step];
+      key[s] = ok ? __float_as_uint(fabsf(v)) + 1u : 0u;
+    }
+    const bool second = key[1] > key[0];
+    hi[i] = second ? key[1] : key[0];
+    lo[i] = second ? key[0] : key[1];
+    sec[i] = __ballot_sync(0xffffffffu, second);
+    mine[i] = -1;
   }
-  sync();
-  if (r_in + line < t) {
-    const size_t base = ((size_t)slot * t + r_in + line) * per +
-                        (size_t)cb * kc;
-    for (int q = q0; q < q0 + BM / 4; ++q) {
-      const float kq = key[line][q];
-      int rank = 0;
-      for (int o = 0; o < BM; ++o) {
-        const float ko = key[line][o];
-        rank += (ko > kq) || (ko == kq && o < q);
-      }
-      if (rank < kc) {
-        prv[base + rank] = kq >= 0.f ? val[line * LD + q] : 0.f;
-        prc[base + rank] = kq >= 0.f ? (int)(gcol0 + q) : -1;
+  for (int r = 0; r < kc; ++r) {
+#pragma unroll
+    for (int i0 = 0; i0 < LINES; i0 += SWEEP) {
+      unsigned best[SWEEP], tied[SWEEP];
+#pragma unroll
+      for (int i = 0; i < SWEEP; ++i)
+        best[i] = __reduce_max_sync(0xffffffffu, hi[i0 + i]);
+#pragma unroll
+      for (int i = 0; i < SWEEP; ++i)
+        tied[i] = __ballot_sync(0xffffffffu, hi[i0 + i] == best[i]);
+#pragma unroll
+      for (int i = 0; i < SWEEP; ++i) {
+        const int w = __ffs(tied[i]) - 1;          // the same in every lane
+        const int q = 2 * w + (int)((sec[i0 + i] >> w) & 1u);
+        mine[i0 + i] = lane == r ? (best[i] ? q : -1) : mine[i0 + i];
+        hi[i0 + i] = lane == w ? lo[i0 + i] : hi[i0 + i];
+        lo[i0 + i] = lane == w ? 0u : lo[i0 + i];
+        sec[i0 + i] ^= 1u << w;
       }
     }
   }
-  if (grid_cols > 0 || yt == xt) return;   // uniform: no mirrored state
-  sync();
+  if (lane >= kc) return;
+  const size_t base =
+      ((size_t)slot * t + sd.line_in + g) * per + (size_t)sd.blk * kc + lane;
+#pragma unroll
+  for (int i = 0; i < LINES; ++i) {
+    const int line = g + SEL_WARPS * i;
+    if (sd.line_in + line >= t) continue;
+    const int q = mine[i];
+    const size_t idx = base + (size_t)i * SEL_WARPS * per;
+    sd.part_v[idx] =
+        q >= 0 ? sd.val[line * sd.line_step + q * sd.cand_step] : 0.f;
+    sd.part_c[idx] = q >= 0 ? (int)(sd.gcand0 + q) : -1;
+  }
+}
 
-  // columns (off-diagonal triangle tiles): line = column of the block,
-  // candidates = its rows, global column y*t + row
-  const long long grow0 = (long long)yt * t + r_in;
+// Rank counting: all 64 lines of side `sd`, by 256 threads (tid) with the
+// barrier sync() over them; key is a 64 x 65 scratch of shared memory.
+template <typename Sync>
+__device__ __forceinline__ void rank_lines(const Side& sd,
+                                           float (&key)[BM][BM + 1], int tid,
+                                           Sync sync, long long slot, int t,
+                                           size_t per, int kc,
+                                           int n_cols_valid) {
+  const int line = tid >> 2;
+  const int q0 = (tid & 3) * (BM / 4);
+  const float* vl = sd.val + line * sd.line_step;
+  sync();   // the previous side's ranks have read key
   for (int q = q0; q < q0 + BM / 4; ++q) {
-    const bool ok = r_in + q < t && grow0 + q < n_cols_valid;
-    key[line][q] = ok ? fabsf(val[q * LD + line]) : -1.f;
+    const long long gc = sd.gcand0 + q;
+    const bool ok = sd.cand_in + q < t && gc < n_cols_valid &&
+                    !(sd.self && gc == sd.gline0 + line);
+    key[line][q] = ok ? fabsf(vl[q * sd.cand_step]) : -1.f;
   }
   sync();
-  if (c_in + line < t) {
-    const size_t base = ((size_t)slot * t + c_in + line) * per +
-                        (size_t)rb * kc;
-    for (int q = q0; q < q0 + BM / 4; ++q) {
-      const float kq = key[line][q];
-      int rank = 0;
-      for (int o = 0; o < BM; ++o) {
-        const float ko = key[line][o];
-        rank += (ko > kq) || (ko == kq && o < q);
-      }
-      if (rank < kc) {
-        pcv[base + rank] = kq >= 0.f ? val[q * LD + line] : 0.f;
-        pcc_[base + rank] = kq >= 0.f ? (int)(grow0 + q) : -1;
-      }
+  if (sd.line_in + line >= t) return;
+  const size_t base =
+      ((size_t)slot * t + sd.line_in + line) * per + (size_t)sd.blk * kc;
+  for (int q = q0; q < q0 + BM / 4; ++q) {
+    const float kq = key[line][q];
+    int rank = 0;
+    for (int o = 0; o < BM; ++o) {
+      const float ko = key[line][o];
+      rank += (ko > kq) || (ko == kq && o < q);
+    }
+    if (rank < kc) {
+      sd.part_v[base + rank] = kq >= 0.f ? vl[q * sd.cand_step] : 0.f;
+      sd.part_c[base + rank] = kq >= 0.f ? (int)(sd.gcand0 + q) : -1;
     }
   }
 }
@@ -157,7 +257,7 @@ pcc_topk_select_kernel(const T* __restrict__ u,
                        float lo, float hi) {
   __shared__ __align__(16) Stage st;
   __shared__ float val[BM][BM + 1];   // the finished block
-  __shared__ float key[BM][BM + 1];   // |v| of a candidate, -1 if masked
+  __shared__ float key[BM][BM + 1];   // rank counting: |v|, -1 if masked
 
   const long long jt_raw = j_start + (long long)blockIdx.x;
   if (jt_raw >= dev_hi) return;       // uniform over the CTA
@@ -186,20 +286,40 @@ pcc_topk_select_kernel(const T* __restrict__ u,
         val[ty * TM + i][tx * TM + j] =
             epilogue(acc[i][j], has_div, recip, has_clip, lo, hi);
   }
-  select_block<BM + 1>(&val[0][0], key, tid, [] { __syncthreads(); },
-                       blockIdx.x, yt, xt, r_in, c_in, t, nb, kc,
-                       n_cols_valid, symmetric, grid_cols, prv, prc, pcv,
-                       pcc_);
+  __syncthreads();
+  const size_t per = (size_t)nb * kc;
+  const Side rows = row_side<BM + 1>(&val[0][0], yt, xt, r_in, c_in, t,
+                                     symmetric, prv, prc);
+  const Side cols = col_side<BM + 1>(&val[0][0], yt, xt, r_in, c_in, t,
+                                     pcv, pcc_);
+  const bool mirror = grid_cols == 0 && yt != xt;   // uniform
+  if (kc <= KC_EXTRACT) {
+    extract_lines<SIMT_SWEEP>(rows, tid / 32, tid % 32, blockIdx.x, t, per,
+                              kc, n_cols_valid);
+    if (mirror)
+      extract_lines<SIMT_SWEEP>(cols, tid / 32, tid % 32, blockIdx.x, t,
+                                per, kc, n_cols_valid);
+  } else {
+    auto sync = [] { __syncthreads(); };
+    rank_lines(rows, key, tid, sync, blockIdx.x, t, per, kc, n_cols_valid);
+    if (mirror)
+      rank_lines(cols, key, tid, sync, blockIdx.x, t, per, kc,
+                 n_cols_valid);
+  }
 }
 
 // Select (bf16): one CTA per 128 x 128 block of each valid tile, computed
 // by the tensor-core mainloop of pcc_tiles (pcc_mma.cuh, the same stages
 // and steps, so the values are bitwise pcc_tiles'), then selected as the
 // four 64 x 64 blocks of the SIMT kernel, into the same scratch.  The ring
-// is reused for the finished block once both warpgroups are done with it.
+// is reused for the finished block once both consumer warpgroups are done
+// with it.  Extraction runs on all SEL_ALL warps, the producer warpgroup's
+// too (it has issued its loads by then), one (side, 64 x 64 block, line
+// group) unit at a time; rank counting on the two consumer warpgroups.
 constexpr int SEL_STAGES = 4;
 constexpr int SEL_LD = mma::BLOCK + 1;
 constexpr int SEL_SMEM = SEL_STAGES * mma::STAGE_BYTES + 1024;
+constexpr int SEL_ALL = mma::THREADS / 32;
 static_assert(mma::BLOCK * SEL_LD * 4 + BM * (BM + 1) * 4 <=
                   SEL_STAGES * mma::STAGE_BYTES,
               "the finished block and the keys fit in the ring");
@@ -228,6 +348,7 @@ pcc_topk_select_sm90(const __grid_constant__ CUtensorMap ta,
   tile_coord(m, grid_cols, jt, &yt, &xt);
   const int r_blk = (blockIdx.y / nb_mma) * mma::BLOCK;
   const int c_blk = (blockIdx.y % nb_mma) * mma::BLOCK;
+  const bool extract = kc <= KC_EXTRACT;   // uniform
 
   const int warp = threadIdx.x / 32;
   if (threadIdx.x == 0) {
@@ -239,42 +360,67 @@ pcc_topk_select_sm90(const __grid_constant__ CUtensorMap ta,
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  float* val = reinterpret_cast<float*>(slots);
+  auto& key = *reinterpret_cast<float(*)[BM][BM + 1]>(
+      val + mma::BLOCK * SEL_LD);
+  auto sync = [] { sm90::bar_sync(1, mma::CONSUMERS); };
   if (warp >= mma::CONSUMERS / 32) {
     if (threadIdx.x == mma::CONSUMERS) {
       int it = 0;
       mma::load_block<T, SEL_STAGES>(&ta, &tb, ring, slots, it, nk,
                                      yt * t + r_blk, xt * t + c_blk, 0);
     }
-    return;
+    __syncwarp();
+    if (!extract) return;
+  } else {
+    const int wg = warp / 4;
+    const int lane = threadIdx.x % 128;
+    float acc[mma::ACC];
+    int it = 0;
+    mma::mma_block<T, SEL_STAGES>(acc, ring, sm90::smem_u32(slots), it, nk,
+                                  wg);
+    sync();   // both warpgroups' products have read the ring
+    const int row0 = 64 * wg + 16 * (lane / 32) + (lane % 32) / 4;
+    const int col0 = 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < mma::BLOCK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        val[(row0 + 8 * (e >> 1)) * SEL_LD + 8 * j + col0 + (e & 1)] =
+            epilogue(acc[4 * j + e], has_div, recip, has_clip, lo, hi);
   }
 
-  const int tid = threadIdx.x;
-  const int wg = warp / 4;
-  const int lane = tid % 128;
-  float acc[mma::ACC];
-  int it = 0;
-  mma::mma_block<T, SEL_STAGES>(acc, ring, sm90::smem_u32(slots), it, nk, wg);
-  auto sync = [] { sm90::bar_sync(1, mma::CONSUMERS); };
-  sync();   // both warpgroups' products have read the ring
-
-  float* val = reinterpret_cast<float*>(slots);
-  auto& key = *reinterpret_cast<float(*)[BM][BM + 1]>(
-      val + mma::BLOCK * SEL_LD);
-  const int row0 = 64 * wg + 16 * (lane / 32) + (lane % 32) / 4;
-  const int col0 = 2 * (lane % 4);
-#pragma unroll
-  for (int j = 0; j < mma::BLOCK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      val[(row0 + 8 * (e >> 1)) * SEL_LD + 8 * j + col0 + (e & 1)] =
-          epilogue(acc[4 * j + e], has_div, recip, has_clip, lo, hi);
+  const size_t per = (size_t)nb * kc;
+  const bool mirror = grid_cols == 0 && yt != xt;
+  auto side_of = [&](int sb, bool cols) {
+    const int r_in = r_blk + BM * (sb >> 1), c_in = c_blk + BM * (sb & 1);
+    const float* vb = val + BM * (sb >> 1) * SEL_LD + BM * (sb & 1);
+    return cols ? col_side<SEL_LD>(vb, yt, xt, r_in, c_in, t, pcv, pcc_)
+                : row_side<SEL_LD>(vb, yt, xt, r_in, c_in, t, symmetric,
+                                   prv, prc);
+  };
+  auto inside = [&](int sb) {
+    return r_blk + BM * (sb >> 1) < t && c_blk + BM * (sb & 1) < t;
+  };
+  if (extract) {
+    sm90::bar_sync(2, mma::THREADS);   // the finished block is complete
+    const int units = (mirror ? 2 : 1) * 4 * SEL_WARPS;
+    for (int u = warp; u < units; u += SEL_ALL) {
+      const int sb = (u / SEL_WARPS) % 4;
+      if (!inside(sb)) continue;   // uniform over the warp
+      extract_lines<LINES>(side_of(sb, u >= 4 * SEL_WARPS), u % SEL_WARPS,
+                           threadIdx.x % 32, blockIdx.x, t, per, kc,
+                           n_cols_valid);
+    }
+    return;
+  }
   for (int sb = 0; sb < 4; ++sb) {
-    const int r_off = BM * (sb >> 1), c_off = BM * (sb & 1);
-    if (r_blk + r_off >= t || c_blk + c_off >= t) continue;   // uniform
-    select_block<SEL_LD>(val + r_off * SEL_LD + c_off, key, tid, sync,
-                         blockIdx.x, yt, xt, r_blk + r_off, c_blk + c_off,
-                         t, nb, kc, n_cols_valid, symmetric, grid_cols, prv,
-                         prc, pcv, pcc_);
+    if (!inside(sb)) continue;   // uniform over the CTA
+    rank_lines(side_of(sb, false), key, threadIdx.x, sync, blockIdx.x, t,
+               per, kc, n_cols_valid);
+    if (mirror)
+      rank_lines(side_of(sb, true), key, threadIdx.x, sync, blockIdx.x, t,
+                 per, kc, n_cols_valid);
   }
 }
 

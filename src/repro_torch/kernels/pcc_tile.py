@@ -58,8 +58,9 @@ from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 
 DEFAULT_TILE = 256
 DEFAULT_LBLK = 512
-# The CUDA kernels' CTA block and the top-k state capacity they take
-# (csrc/pcc_accum.cuh BM, csrc/pcc_topk.cu KK_MAX).
+# The top-k select's block, whose lines' partial lists its scratch holds,
+# and the top-k state capacity the kernels take (csrc/pcc_accum.cuh BM,
+# csrc/pcc_topk.cu KK_MAX).
 CTA_BLOCK = 64
 KK_MAX = 256
 # Operand dtypes the tile kernel takes -> suffix of its C entry points; the

@@ -21,7 +21,8 @@ from repro_torch.kernels.narrow_gate import (FAULT_SHARE, gate_share,
                                              planted_fault_shares)
 from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
                                           pcc_tiles_plain, pcc_topk_tiles,
-                                          pcc_topk_tiles_plain)
+                                          pcc_topk_tiles_plain,
+                                          topk_fold_plain)
 
 # same products, two float32 summation orders, l <= 300: the reference's
 # own Pearson bound
@@ -147,50 +148,100 @@ def check_topk_state(got, want, dense, t, tol):
     return int(differ.sum())
 
 
+def _dense_from_tiles(tiles, m, t, n_rows, n_cols, gc, device):
+    """The (n_rows, n_cols) padded matrix that the tiles of ids 0 ..
+    total-1 cut up; the triangle mirrored."""
+    ids = np.arange(tiles.shape[0])
+    ys, xs = (grid_job_coord_batch(m, gc, ids) if gc
+              else job_coord_batch(m, ids))
+    r = torch.zeros(n_rows, n_cols, device=device)
+    r.view(m, t, -1, t)[torch.as_tensor(ys, device=device), :,
+                        torch.as_tensor(xs, device=device), :] = tiles
+    if not gc:
+        r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(), r, r.T)
+    return r
+
+
+def _topk_operands(dtype, ties, n, n_cols, l, t, l_blk, device, grid):
+    """(u, v) for the top-k kernel tests: Pearson operands (float32, or
+    bf16 widened from them), Kendall-like int8 signs, or, with `ties`,
+    small integer samples taken as they are, whose products are exact in
+    any order, so |v| ties exactly and with both signs."""
+    def one(rows, seed):
+        if ties:
+            rng = np.random.default_rng(seed)
+            x = torch.from_numpy(rng.integers(-2, 3, size=(rows, l)).astype(
+                np.float32)).to(device)
+            x = x.to(torch.int8 if dtype == "int8" else getattr(torch, dtype))
+            return pad_operands(x, t, l_blk)
+        if dtype == "int8":
+            return pad_operands(_signs(rows, l, device, seed), t, l_blk)
+        return _operand(rows, l, t, l_blk, device, seed).to(
+            getattr(torch, dtype))
+    u = one(n, 0)
+    return u, (one(n_cols, 1) if grid else u)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("grid", [False, True])
-@pytest.mark.parametrize("kk", [1, 10, 64])
-@pytest.mark.parametrize("n,n_cols,l,t,l_blk,j_start,pass_tiles,short", [
-    (70, 45, 29, 8, 8, 0, 200, 0),    # whole workload, one pass
-    (70, 45, 29, 8, 8, 7, 11, 3),     # mid range, dev_hi below the end
-    (300, 170, 300, 64, 64, 2, 9, 0),
-    (600, 330, 300, 256, 512, 1, 5, 1),
+@pytest.mark.parametrize("kk", [1, 10, 64, 65, 256])
+@pytest.mark.parametrize("n,n_cols,l,t,l_blk,j_start,pass_tiles,short,ties", [
+    (70, 45, 29, 8, 8, 0, 200, 0, False),    # whole workload, one pass
+    (70, 45, 29, 8, 8, 7, 11, 3, False),     # mid range, dev_hi below end
+    (300, 170, 300, 64, 64, 2, 9, 0, False),
+    (600, 330, 300, 256, 512, 1, 5, 1, False),
+    (300, 170, 40, 64, 8, 0, 200, 0, True),  # exact ties of both signs
+    (400, 300, 24, 96, 8, 1, 50, 2, True),   # ties, t past one 64 block
 ])
-def test_topk_kernel_matches_plain(cuda, grid, kk, n, n_cols, l, t, l_blk,
-                                   j_start, pass_tiles, short):
-    u = _operand(n, l, t, l_blk, cuda)
-    v = _operand(n_cols, l, t, l_blk, cuda, seed=1) if grid else u
+def test_topk_kernel_matches_plain(cuda, dtype, grid, kk, n, n_cols, l, t,
+                                   l_blk, j_start, pass_tiles, short, ties):
+    """The float32, int8 and bf16 selects (and the merge) against the plain
+    version, for kk below and above the 64-entry partial lists (kc capped
+    at 64): the state is bitwise the plain ranking of pcc_tiles' own tiles
+    (so its values are those tiles' bits and its order canonical), and
+    within ATOL of the plain version's state (float32), or bitwise it
+    (int8, and exact ties in every dtype)."""
+    u, v = _topk_operands(dtype, ties, n, n_cols, l, t, l_blk, cuda, grid)
     m = u.shape[0] // t
     gc = v.shape[0] // t if grid else None
     total = m * gc if grid else m * (m + 1) // 2
     pass_tiles = min(pass_tiles, total - j_start)
     dev_hi = j_start + pass_tiles - short
-    spec = EpilogueSpec(clip=(-1.0, 1.0))
+    spec = (EpilogueSpec(div=3.0) if ties
+            else EpilogueSpec(clip=(-1.0, 1.0)))
     kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, kk=kk,
               n_cols_valid=n_cols if grid else n, symmetric_problem=not grid,
               epilogue=spec, v_pad=v if grid else None, grid_cols=gc)
     before = dict(pcc_topk_tiles.launches)
+    before_dtype = dict(pcc_topk_tiles.select_by_dtype)
     got = pcc_topk_tiles(u, j_start, dev_hi, **kw)
     want = pcc_topk_tiles_plain(u, j_start, dev_hi, **kw)
     torch.cuda.synchronize()
     assert pcc_topk_tiles.launches == {k: c + 1 for k, c in before.items()}
+    assert pcc_topk_tiles.select_by_dtype[dtype] == before_dtype[dtype] + 1
     assert len(got) == (2 if grid else 4)
-    dense = _dense(u, v, t, gc, spec)
-    for side in range(len(got) // 2):
-        check_topk_state(got[2 * side:2 * side + 2],
-                         want[2 * side:2 * side + 2],
-                         dense if side == 0 else dense.T, t, ATOL)
+    # the plain ranking of the kernel's own tiles, bit for bit
+    tiles = pcc_tiles(u, j_start, t=t, l_blk=l_blk,
+                      pass_tiles=dev_hi - j_start, epilogue=spec,
+                      v_pad=v if grid else None, grid_cols=gc)
+    fold = topk_fold_plain(tiles, j_start, m=m, t=t, kk=kk,
+                           n_cols_valid=kw["n_cols_valid"],
+                           symmetric_problem=not grid, grid_cols=gc,
+                           device=cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, fold))
+    if ties or dtype == "int8":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    elif dtype == "float32":
+        dense = _dense(u, v, t, gc, spec)
+        for side in range(len(got) // 2):
+            check_topk_state(got[2 * side:2 * side + 2],
+                             want[2 * side:2 * side + 2],
+                             dense if side == 0 else dense.T, t, ATOL)
     # the kernel's values are bitwise those of pcc_tiles for the same tiles
     tiles = pcc_tiles(u, 0, t=t, l_blk=l_blk, pass_tiles=total,
                       epilogue=spec, v_pad=v if grid else None, grid_cols=gc)
-    ids = np.arange(total)
-    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
-              else job_coord_batch(m, ids))
-    r = torch.zeros(u.shape[0], v.shape[0], device=cuda)
-    r.view(m, t, -1, t)[torch.as_tensor(ys, device=cuda), :,
-                        torch.as_tensor(xs, device=cuda), :] = tiles
-    if not grid:
-        r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(), r, r.T)
+    r = _dense_from_tiles(tiles, m, t, u.shape[0], v.shape[0], gc, cuda)
     for side in range(len(got) // 2):
         vals, cols = got[2 * side], got[2 * side + 1]
         ok = cols >= 0
@@ -198,6 +249,66 @@ def test_topk_kernel_matches_plain(cuda, grid, kk, n, n_cols, l, t, l_blk,
                 .view(-1, t, 1).expand_as(cols))
         ref = (r if side == 0 else r.T)[rows[ok], cols[ok].long()]
         assert torch.equal(vals[ok], ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,l,t,l_blk", [
+    (300, 50, 96, 5),     # t below one 128-row block, l_pad 50
+    (260, 90, 130, 6),    # t two rows past a block, l_pad 90
+    (300, 70, 200, 10),   # l_pad 70
+    (129, 33, 129, 3),    # odd t (scalar stores), odd l_pad
+])
+def test_f32_ragged_tiles_and_unaligned_samples(cuda, n, l, t, l_blk):
+    """The float32 kernel's 128 x 128 blocks on t not a multiple of 128,
+    and sample axes whose rows break 16-byte strides (its 4-byte copies
+    take them as they are): triangle, triangle with a second operand, grid
+    and replica tiles within ATOL of plain, bitwise across pass splits and
+    against 2-D launches; the float32 select's values (its 64 x 64 blocks)
+    bitwise these tiles."""
+    u = _operand(n, l, t, l_blk, cuda)
+    u2 = _operand(n, l, t, l_blk, cuda, seed=2)
+    v = _operand(n // 2 + 3, l, t, l_blk, cuda, seed=1)
+    assert u.shape[1] % 4      # rows of l_pad * 4 bytes, not 16-aligned
+    m = u.shape[0] // t
+    spec = EpilogueSpec(div=3.0, clip=(-1.0, 1.0))
+    for gc, vv in ((None, None), (None, u2), (v.shape[0] // t, v)):
+        total = m * gc if gc else m * (m + 1) // 2
+        kw = dict(t=t, l_blk=l_blk, epilogue=spec, v_pad=vv, grid_cols=gc)
+        before = pcc_tiles.launches_by_dtype["float32"]
+        got = pcc_tiles(u, 0, pass_tiles=total, **kw)
+        want = pcc_tiles_plain(u, 0, pass_tiles=total, **kw)
+        torch.cuda.synchronize()
+        assert pcc_tiles.launches_by_dtype["float32"] == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        parts = torch.cat([pcc_tiles(u, j, pass_tiles=min(2, total - j),
+                                     **kw) for j in range(0, total, 2)])
+        assert torch.equal(got, parts)
+        if vv is u2:
+            continue                   # the select takes no second operand
+        cols = (v if gc else u).shape[0]
+        tk = pcc_topk_tiles(u, 0, total, pass_tiles=total, kk=5,
+                            n_cols_valid=cols, symmetric_problem=gc is None,
+                            **kw)
+        r = _dense_from_tiles(got, m, t, u.shape[0], cols, gc, cuda)
+        for side in range(len(tk) // 2):
+            vals, cc = tk[2 * side], tk[2 * side + 1]
+            ok = cc >= 0
+            rows = (torch.arange(vals.shape[0] * t, device=cuda)
+                    .view(-1, t, 1).expand_as(cc))
+            assert torch.equal(vals[ok], (r if side == 0 else r.T)[
+                rows[ok], cc[ok].long()])
+    # replica stacks on the grid and on the triangle
+    for gc, stack in ((v.shape[0] // t, torch.stack([v, v.flip(0)])),
+                      (None, torch.stack([u2, u, u2]))):
+        kw = dict(t=t, l_blk=l_blk, pass_tiles=3, epilogue=spec,
+                  grid_cols=gc)
+        got = pcc_tiles(u, 1, v_pad=stack, **kw)
+        want = pcc_tiles_plain(u, 1, v_pad=stack, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        for r_ in range(stack.shape[0]):
+            assert torch.equal(got[r_], pcc_tiles(u, 1, v_pad=stack[r_],
+                                                  **kw))
 
 
 @pytest.mark.gpu

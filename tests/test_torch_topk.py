@@ -178,6 +178,48 @@ def test_topk_plain_matches_interpret_pallas(grid, t, l_blk, j_start,
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("kk", [7, 65, 256])
+def test_topk_plain_matches_interpret_pallas_on_exact_ties(grid, kk):
+    """Small integer samples, taken as the operands themselves: every
+    product is exact in any order, so |v| ties exactly and with both signs
+    all over each row, and the plain version's state (the order the CUDA
+    select must reproduce slot for slot) equals the reference's bit for
+    bit, for kk below and above the kernel's 64-entry partial lists."""
+    rng = np.random.default_rng(kk + grid)
+    t, l_blk, n, n_cols = 16, 4, 150, 90
+    u = rng.integers(-2, 3, size=(160, 12)).astype(np.float32)
+    u[n:] = 0.0
+    v = rng.integers(-2, 3, size=(96, 12)).astype(np.float32) if grid else None
+    if grid:
+        v[n_cols:] = 0.0
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=total, kk=kk,
+              n_cols_valid=n_cols if grid else n, symmetric_problem=not grid,
+              grid_cols=gc)
+    want = ref_topk_tiles(jnp.asarray(u), 0, total, interpret=True,
+                          v_pad=None if v is None else jnp.asarray(v), **kw)
+    got = pcc_topk_tiles_plain(torch.from_numpy(u), 0, total,
+                               v_pad=None if v is None
+                               else torch.from_numpy(v), **kw)
+    assert len(got) == len(want) == (2 if grid else 4)
+    for ours, theirs in zip(got, want):
+        theirs = np.asarray(theirs)
+        assert ours.numpy().tobytes() == theirs.astype(
+            ours.numpy().dtype).tobytes()
+    vals, cols = got[0], got[1]
+    held = cols >= 0
+    # row block 0 ranks every column: kk entries, or all its candidates
+    assert int(held[0].sum(dim=-1).min()) == min(
+        kk, n_cols if grid else n - 1)
+    # ties of both signs do occur among the entries held
+    a = vals[held].abs()
+    assert a.unique().numel() < a.numel() // 4
+    assert bool((vals[held] > 0).any()) and bool((vals[held] < 0).any())
+
+
 def test_topk_wrapper_checks_its_arguments():
     u = torch.zeros(32, 8)
     kw = dict(t=8, l_blk=8, pass_tiles=3, n_cols_valid=30)
