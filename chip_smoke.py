@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel from the sources in the checkout (nvcc, one
      process per source, all started together) and print ptxas' report
-     (registers, spills: the tensor-core tile kernels, the float32 tile
-     kernel and the three top-k selects may not spill), and
-     check that the SIMT tile library exports no bf16 / fp8 entry point;
+     (registers, spills: the tensor-core tile kernels, int8 included, the
+     float32 tile kernel, the float32 flash kernel and the three top-k
+     selects may not spill), and check that the SIMT tile library exports
+     no bf16 / fp8 / int8 entry point;
   2. hold each kernel against its plain PyTorch version on the card, at
      small ragged shapes and at the main path's full shape;
   3. drive the main path, corr(x) at the paper's Table II shape (SEEK
@@ -111,9 +112,10 @@ Phases, each fatal on failure:
      mha_plain (all at 4,096, the first and last 512 at 32,768), float32
      within 1e-5, bf16 / fp16 within the row-scaled gate, which must also
      fail the kernel's output with its rows past 3S/4 halved and with one
-     key block of v zeroed; each kernel timed with its
-     bound, TFLOP/s and share of the bf16 bound, its plain version and
-     scaled_dot_product_attention, in one run on one card;
+     key block of v zeroed; each kernel timed with its bound, TFLOP/s
+     and share of the bound of its pipes (FP32 for float32, bf16 for bf16
+     / fp16), its plain version and scaled_dot_product_attention, in one
+     run on one card;
  20. multi-pass top-k at Table II (300-tile passes): DeviceTopKSink(10) and
      TopKSink(10) end to end against the sum and the larger of their
      kernels' and their sinks' times.  With --overlap-only SRC the script
@@ -530,10 +532,18 @@ def main(argv) -> int:
     # -- 1. build -----------------------------------------------------------
     def watched(entry):
         """A readable name for the kernels redesigned on this path (the
-        float32 tile kernel's four instantiations, the three selects), None
-        for the others; `entry` is ptxas' "Compiling entry function" line."""
+        float32 tile kernel's four instantiations, the three selects, the
+        float32 flash kernel's five head tiles, the int8 tensor-core tile
+        kernel's two), None for the others; `entry` is ptxas' "Compiling
+        entry function" line."""
         if entry is None:
             return None
+        if "flash_fwdILi" in entry:
+            dp = entry.split("flash_fwdILi", 1)[1].split("E", 1)[0]
+            return f"flash_fwd<{dp}>"
+        if "pcc_tiles_sm90IaLb" in entry:   # int8_t is mangled "a"
+            flag = entry.split("pcc_tiles_sm90IaLb", 1)[1][0]
+            return f"pcc_tiles_sm90<int8_t, scaled={flag}>"
         if "pcc_tiles_f32_kernel" in entry:
             flags = entry.split("pcc_tiles_f32_kernel", 1)[1][:12]
             return (f"pcc_tiles_f32_kernel<scaled={flags[3]}, "
@@ -562,8 +572,8 @@ def main(argv) -> int:
                 report[watched(entry)] = int(regs)
             if "spill stores" in line:
                 print(f"  {name}: {line.strip()}")
-                # the tensor-core kernels, the float32 tile kernel and the
-                # selects may not spill
+                # the tensor-core kernels, the float32 tile and flash
+                # kernels and the selects may not spill
                 new = name == "pcc_tile_sm90" or watched(entry)
                 if new and not line.strip().startswith(
                         "0 bytes stack frame, 0 bytes spill stores, "
@@ -572,16 +582,6 @@ def main(argv) -> int:
                                          f"spills: {line.strip()}")
     print("  registers, no spills: " + "; ".join(
         f"{k} {v}" for k, v in sorted(report.items())))
-    if len(report) != 7:
-        raise AssertionError(f"ptxas reported {sorted(report)}: expected "
-                             f"the 4 float32 tile and the 3 select kernels")
-    simt = _build.load("pcc_tile")
-    gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2")]
-    if any(hasattr(simt, fn) for fn in gone):
-        raise AssertionError(f"the SIMT tile library still exports one of "
-                             f"{gone}")
-    print(f"  the SIMT tile library exports none of {gone}: bf16 and fp8 "
-          f"tiles run only on pcc_tile_sm90.cu")
     if overlap_only:
         x_dev = torch.from_numpy(artificial(ExpressionSpec(
             n=N_SEEK, l=L_SEEK, seed=0))).to(dev)
@@ -590,6 +590,19 @@ def main(argv) -> int:
         print(f"script time {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"overlap": res, "src": str(src), "card": card}))
         return 0
+    # (this tree's kernels: --overlap-only may build an earlier tree's)
+    if len(report) != 14:
+        raise AssertionError(
+            f"ptxas reported {sorted(report)}: expected the 4 float32 "
+            f"tile, the 3 select, the 5 float32 flash and the 2 int8 "
+            f"tensor-core tile kernels")
+    simt = _build.load("pcc_tile")
+    gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
+    if any(hasattr(simt, fn) for fn in gone):
+        raise AssertionError(f"the SIMT tile library still exports one "
+                             f"of {gone}")
+    print(f"  the SIMT tile library exports none of {gone}: bf16, fp8 "
+          f"and int8 tiles run only on pcc_tile_sm90.cu")
 
     # -- 2. kernel against plain --------------------------------------------
     def operand(x: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
@@ -2267,6 +2280,7 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     q8_ms = (time.perf_counter() - t1) * 1e3
     check_sig_launches("int8-quantized, B=200", q_plan, "int8")
+    q8_launches = pcc_tiles.replica_launches
     if not torch.equal(rq8, corr(x_tf, compute_dtype=torch.int8)):
         raise AssertionError("int8 significance r is not corr(x)'s bits")
     check_p("int8-quantized", pq8, 200, True)
@@ -2281,11 +2295,30 @@ def main(argv) -> int:
         raise AssertionError("scaled int8 replica kernel != plain at the "
                              "headline shape")
     q8k_ms, _ = event_ms(lambda: pcc_tiles(uq8.data, 0, **qkw), 3)
-    del sq, uq8
+    q8p_ms, _ = event_ms(lambda: pcc_tiles_plain(uq8.data, 0, **qkw), 1)
+    reps_q = sq.data.shape[0]
+    st_q = sq.data.reshape(-1, sq.data.shape[-1]).T.contiguous()
+    sc_q = uq8.scale[:, None] * sq.scale.reshape(1, -1)
+
+    def lib_q8():
+        return torch._int_mm(uq8.data, st_q) * sc_q
+    q8l_ms = event_ms(lib_q8, 3)[0]
+    q8_ops = 2 * L_SEEK * q_plan.t ** 2 * tiles_sig * reps_q
+    q8_bound = narrow_bound(
+        q8_ops, uq8.data.numel() + sq.data.numel() + 4 * (
+            uq8.scale.numel() + sq.scale.numel())
+        + reps_q * tiles_sig * q_plan.t ** 2 * 4, INT8_OPS)
+    rep_modes["int8"] = dict(launches=q8_launches, ms=q8k_ms, plain=q8p_ms,
+                             lib=q8l_ms, bound=q8_bound, err=0.0)
+    del sq, uq8, st_q, sc_q
     print(f"  int8-quantized headline, B=200: corr {q8_ms:.3f} ms (one run);"
           f" r bitwise corr(x, compute_dtype=int8); scaled int8 replica "
-          f"kernel (64 replicas, expanded scales) bitwise plain, "
-          f"{q8k_ms:.3f} ms {tag}")
+          f"kernel ({reps_q} replicas x {tiles_sig} tiles, expanded scales) "
+          f"bitwise plain, {q8k_ms:.3f} ms, {q8_ops / q8k_ms / 1e9:.1f} T "
+          f"ops/s, {100 * q8_bound[0] / q8k_ms:.1f} % of the bound "
+          f"{q8_bound[0]:.3f} ms by {q8_bound[1]}; plain {q8p_ms:.3f} ms; "
+          f"library torch._int_mm(u, stack rows.T) * (s s^T) "
+          f"{q8l_ms:.3f} ms {tag}")
 
     # -- 19. flash attention -------------------------------------------------
     from repro_torch.kernels import flash_attention as fmod
@@ -2523,12 +2556,15 @@ def main(argv) -> int:
             a_bound = narrow_bound(
                 4 * d_ * pairs,
                 (2 * qd.numel() + 2 * kd.numel()) * qd.element_size(), peak)
-            bf16_ms = 4 * d_ * pairs / BF16_FLOPS * 1e3
+            # the share of the operation bound of the kernel's own pipes:
+            # FP32 for float32 (SIMT), bf16 for bf16 / fp16 (tensor cores)
+            op_ms = 4 * d_ * pairs / peak * 1e3
+            pipes = "FP32" if dt == torch.float32 else "bf16"
             print(f"  {dname} flash_attention: {k_ms:.3f} ms (runs "
                   f"{[round(v, 3) for v in k_all]}), "
                   f"{4 * d_ * pairs / k_ms / 1e9:.1f} TFLOP/s, "
-                  f"{100 * bf16_ms / k_ms:.1f} % of the bf16 bound "
-                  f"({bf16_ms:.3f} ms); bound {a_bound[0]:.3f} ms by "
+                  f"{100 * op_ms / k_ms:.1f} % of the {pipes} bound "
+                  f"({op_ms:.3f} ms); bound {a_bound[0]:.3f} ms by "
                   f"{a_bound[1]} (at {peak / 1e12:g} TFLOP/s); plain "
                   f"{'' if chunk is None else f'(rows in chunks of {chunk}) '}"
                   f"{p_ms:.3f} ms; library "
@@ -2558,8 +2594,7 @@ def main(argv) -> int:
         f = full[dname]
         narrow_records += [
             {"name": f"pcc_tiles ({short})", "route": "cuda",
-             "source": source + ("pcc_tile_sm90.cu" if short == "bf16"
-                                 else "pcc_tile.cu"),
+             "source": source + "pcc_tile_sm90.cu",
              "replaces": "src/repro/kernels/pcc_tile.py:299",
              "launches": tiles_l, "max_abs_err": narrow_err[dname],
              "ms": f["ms"], "plain_ms": f["plain"], "bound_ms": f["bound"][0],
@@ -2604,7 +2639,7 @@ def main(argv) -> int:
            "bound_by": quant[key]["bound"][1],
            "library_ms": quant[key]["lib"]}
           for name, key, src_ in (
-              ("pcc_tiles (scaled int8)", "int8", "pcc_tile.cu"),
+              ("pcc_tiles (scaled int8)", "int8", "pcc_tile_sm90.cu"),
               ("pcc_tiles (scaled fp8 e4m3)", "float8_e4m3fn",
                "pcc_tile_sm90.cu"),
               ("pcc_tiles (scaled fp8 e5m2)", "float8_e5m2",
@@ -2622,17 +2657,20 @@ def main(argv) -> int:
            "replaces": "src/repro/kernels/pcc_tile.py:299",
            "launches": rep_modes[key]["launches"],
            "max_abs_err": max(rep_modes[key]["err"],
-                              rep_narrow[key][0]),
+                              rep_narrow.get(key, (0.0, 0.0))[0]),
            "ms": rep_modes[key]["ms"], "plain_ms": rep_modes[key]["plain"],
            "bound_ms": rep_modes[key]["bound"][0],
            "bound_by": rep_modes[key]["bound"][1],
            "library_ms": rep_modes[key]["lib"]}
           for name, key in (("pcc_tiles (replica bf16)", "bfloat16"),
                             ("pcc_tiles (replica fp8 e4m3)",
-                             "float8_e4m3fn"))],
+                             "float8_e4m3fn"),
+                            ("pcc_tiles (replica scaled int8)", "int8"))],
         *flash_rows,
     ]}
-    # the header holding each pcc kernel's mainloop, beside its source
+    # the header holding each pcc kernel's mainloop, beside its source: the
+    # tiles' by their file, the selects' by their dtype (bf16 on the
+    # tensor-core mainloop, float32 and int8 on the SIMT 64 x 64 block)
     mainloops = {"pcc_tile.cu": "pcc_sgemm.cuh",
                  "pcc_tile_sm90.cu": "pcc_mma.cuh"}
     for rec in record["kernels"]:
@@ -2640,10 +2678,8 @@ def main(argv) -> int:
             rec["mainloop"] = source + ("pcc_mma.cuh" if "bf16" in rec["name"]
                                         else "pcc_accum.cuh")
         elif rec["name"].startswith("pcc_tiles"):
-            file_ = rec["source"].rsplit("/", 1)[1]
-            int8 = "int8" in rec["name"]
-            rec["mainloop"] = source + ("pcc_accum.cuh" if int8
-                                        else mainloops[file_])
+            rec["mainloop"] = source + mainloops[
+                rec["source"].rsplit("/", 1)[1]]
     print(f"script time {time.perf_counter() - t_script:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

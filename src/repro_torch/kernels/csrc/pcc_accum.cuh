@@ -2,15 +2,15 @@
 // and what every tile kernel shares: tile-id inversion, the scale product
 // and the epilogue.
 //
-// Who runs the 64 x 64 blocks: the int8 tiles of pcc_tile.cu and the
-// float32 and int8 selects of pcc_topk.cu.  The float32 tiles of
-// pcc_tile.cu run the 128 x 128 cp.async mainloop of pcc_sgemm.cuh, and
-// bf16 / fp8 operands the tensor cores (pcc_mma.cuh).  Every float32
-// output, in either block shape, is one sequential fmaf chain over k = 0 ..
-// l_pad-1 from +0, then the EpilogueSpec (multiply by the host-rounded
-// float32 reciprocal, then clip) in registers, so a finished value of the
-// float32 select is bitwise the value pcc_tiles writes for the same tile
-// and epilogue; int8 sums are exact, so their values agree in any block.
+// Who runs the 64 x 64 blocks: the float32 and int8 selects of
+// pcc_topk.cu.  The float32 tiles of pcc_tile.cu run the 128 x 128
+// cp.async mainloop of pcc_sgemm.cuh, and bf16 / fp8 / int8 tiles the
+// tensor cores (pcc_mma.cuh).  Every float32 output, in either block shape,
+// is one sequential fmaf chain over k = 0 .. l_pad-1 from +0, then the
+// EpilogueSpec (multiply by the host-rounded float32 reciprocal, then clip)
+// in registers, so a finished value of the float32 select is bitwise the
+// value pcc_tiles writes for the same tile and epilogue; int8 sums are
+// exact, so their values agree in any block and on the tensor cores.
 //
 // Tile ids: the triangle (grid_cols == 0) numbers the upper triangle of the
 // m x m tile grid row-major (paper Eq. 9) and is inverted with exact integer

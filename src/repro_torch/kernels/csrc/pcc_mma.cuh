@@ -1,5 +1,5 @@
-// The tensor-core tile accumulation shared by pcc_tile_sm90.cu (bf16 and
-// fp8 tiles) and the bf16 select kernel of pcc_topk.cu (sm_90a).
+// The tensor-core tile accumulation shared by pcc_tile_sm90.cu (bf16, fp8
+// and int8 tiles) and the bf16 select kernel of pcc_topk.cu (sm_90a).
 //
 // A work item is a 128 x 128 block of one (t, t) tile of U V^T: rows
 // a_row .. a_row + 127 of U against rows b_row .. b_row + 127 of V (of
@@ -10,12 +10,13 @@
 // block against all 128 columns (wgmma m64n128).
 //
 // Staging: each stage of the ring holds one 128-byte swizzle row per block
-// row of A and of B (64 bf16 or 128 fp8 samples: 16 KB each), loaded by TMA
-// from 3-D tensor maps over (planes, rows, l_pad); rows past the array and
-// samples past l_pad read as zero, so ragged tiles and sample axes need no
-// masks here (rows past the tile's edge are computed and never stored).
+// row of A and of B (64 bf16 or 128 fp8 / int8 samples: 16 KB each), loaded
+// by TMA from 3-D tensor maps over (planes, rows, l_pad); rows past the
+// array and samples past l_pad read as zero, so ragged tiles and sample
+// axes need no masks here (rows past the tile's edge are computed and never
+// stored).
 // A stage is four wgmma steps of 32 bytes of depth: k16 for bf16, k32 for
-// fp8.
+// fp8 and int8.
 //
 // Accumulation.  Every output (i, j) of a block is the same sequence of
 // instructions whatever the kernel, the tile's place in the pass, the
@@ -32,11 +33,20 @@
 //   * bf16: one accumulator over the whole axis, the next stage's steps
 //     issued before the last ones finish (its sums keep float32's bits,
 //     so it needs no promotion).
-// Against the plain version (float32 block products) the result moves by
-// the tensor cores' own rounding; the gate that holds it is
+//   * int8: the same single accumulator, in int32 (wgmma s32.s8.s8).
+//     Integer sums are exact in any order while they stay inside int32
+//     (the wrapper keeps l_pad <= INT8_MAX_L_PAD, so l_pad * 128^2 < 2^31),
+//     so there is nothing to promote: the finished sum is converted to
+//     float once (acc_value), as the int8 select's SIMT block does
+//     (pcc_accum.cuh), and the tiles are bitwise the plain version's and
+//     the select's values.
+// Against the plain version (float32 block products) bf16 and fp8 results
+// move by the tensor cores' own rounding; the gate that holds them is
 // kernels/narrow_gate.py.
 
 #pragma once
+
+#include <type_traits>
 
 #include "pcc_accum.cuh"
 #include "sm90.cuh"
@@ -56,8 +66,14 @@ constexpr int STEPS = 4;                    // wgmma steps per stage
 template <typename T>
 struct Operand {
   static constexpr int SAMPLES = ROW_BYTES / (int)sizeof(T);  // per stage
-  static constexpr bool PROMOTE = sizeof(T) == 1;
+  static constexpr bool INT = std::is_same<T, int8_t>::value;
+  static constexpr bool PROMOTE = sizeof(T) == 1 && !INT;      // fp8
+  using Acc = typename std::conditional<INT, int, float>::type;
 };
+
+// A finished accumulator as float32: int32 sums rounded once.
+__device__ __forceinline__ float acc_value(float x) { return x; }
+__device__ __forceinline__ float acc_value(int x) { return __int2float_rn(x); }
 
 // Stages over a sample axis of l_pad.
 template <typename T>
@@ -86,8 +102,8 @@ __device__ __forceinline__ void load_block(const CUtensorMap* ta,
 
 // The four wgmma steps of ring slot `it` for warpgroup wg into d; step 0
 // overwrites d when `first`.
-template <typename T, int STAGES>
-__device__ __forceinline__ void issue_stage(float (&d)[ACC], uint32_t slots,
+template <typename T, int STAGES, typename A>
+__device__ __forceinline__ void issue_stage(A (&d)[ACC], uint32_t slots,
                                             int it, int wg, bool first) {
   const uint32_t a = slots + (it % STAGES) * STAGE_BYTES + wg * 64 * ROW_BYTES;
   const uint32_t b = slots + (it % STAGES) * STAGE_BYTES + BOX_BYTES;
@@ -103,12 +119,11 @@ __device__ __forceinline__ void issue_stage(float (&d)[ACC], uint32_t slots,
 // from ring index `it` on (advanced past them).  Thread layout of acc: the
 // m64n128 accumulator (sm90.cuh).
 template <typename T, int STAGES>
-__device__ __forceinline__ void mma_block(float (&acc)[ACC],
-                                          const sm90::Ring<STAGES>& ring,
-                                          uint32_t slots, int& it, int nk,
-                                          int wg) {
+__device__ __forceinline__ void mma_block(
+    typename Operand<T>::Acc (&acc)[ACC], const sm90::Ring<STAGES>& ring,
+    uint32_t slots, int& it, int nk, int wg) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < ACC; ++i) acc[i] = 0;
   if constexpr (Operand<T>::PROMOTE) {
     float part[ACC];
 #pragma unroll

@@ -36,6 +36,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace pcc {
 namespace sgemm {
 
@@ -55,28 +57,6 @@ constexpr int GROUPS = BK / 8;
 static_assert(BLOCK == 128 && THREADS == 256 && BK % 8 == 0 &&
                   ROWS * GROUPS * THREADS == BLOCK * BK,
               "the copy and read maps below assume this shape");
-
-// 4-byte copies: the second zero-fills (src-size 0) when `in` is false.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Thread tid's output rows (i) and columns (j) inside the block, i, j in
 // 0 .. TM-1: warps tile the block 4 (rows) x 2 (columns), lanes 4 x 8.

@@ -1,9 +1,10 @@
-// All-pairs correlation tiles for NVIDIA Hopper (sm_90a).
+// All-pairs correlation tiles for NVIDIA Hopper (sm_90a), float32 operands
+// on the SIMT pipes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_tiles (body
-// _kernel) in every mode, with the fused EpilogueSpec, for float32 and int8
-// operands (entry points pcc_tiles_f32 / _i8; the operand modes of _kernel,
-// pcc_tile.py:136-149); bfloat16 and fp8 operands take the tensor-core
+// _kernel) in every mode, with the fused EpilogueSpec, for float32 operands
+// (entry point pcc_tiles_f32); bfloat16, fp8 and int8 operands (the other
+// operand modes of _kernel, pcc_tile.py:136-149) take the tensor-core
 // kernel of pcc_tile_sm90.cu.  Both tile-id families:
 //   * the triangle (index maps _row_map/_col_map, grid_cols == 0): tiles of
 //     U V^T over the upper triangle of the m x m tile grid (paper Eq. 9),
@@ -14,11 +15,11 @@
 //     columns from the second operand V (the X-vs-Y workload).
 // Output slot i of a launch holds tile jt = min(j_start + i, total - 1);
 // U = u_pad (n_pad, l_pad) and V = v_pad (grid_cols * t or n_pad rows,
-// l_pad) are row-major, both of one operand type; the output is float32.
-// Quantized operands (row_scale/col_scale, pcc_tile.py:152-165) bring
-// per-row float32 scales srow (U's rows) and scol (V's rows): the finished
-// value is multiplied by srow[y] * scol[x], the product first, before the
-// epilogue; both are null for unscaled launches.
+// l_pad) are row-major float32; so is the output.
+// Per-row scales (row_scale/col_scale, pcc_tile.py:152-165), srow (U's
+// rows) and scol (V's rows): the finished value is multiplied by
+// srow[y] * scol[x], the product first, before the epilogue; both are null
+// for unscaled launches.
 // The replica axis (significance runs, _kernel's `replica` branches and the
 // _rep_* index maps, pcc_tile.py:230-291): replicas > 0 makes V a stack of
 // R column operands, replica r at v + r * v_rstride with its scales at
@@ -38,31 +39,23 @@
 // paper's Table II shape (n = 17,555, l = 5,072, t = 256: 2,415 tiles) one
 // pass is 2 * 5,072 * 256^2 * 2,415 = 1.61e12 FLOP, so >= 24 ms, against
 // ~1 GB of operand plus tile bytes (~0.3 ms at 3.35 TB/s): compute-bound by
-// ~80x.  int8 operands take __dp4a (4 products per instruction) into int32;
-// their bound is the int8 tensor-core peak (1,979 TOP/s), which this SIMT
-// kernel does not reach.  The scale product is one multiply per output,
-// after the accumulation.
+// ~80x.  The scale product is one multiply per output, after the
+// accumulation.
 //
-// Design, by operand type:
-//  * float32 (pcc_sgemm.cuh): 128 x 128 outputs per CTA of 256 threads, 8 x
-//    8 per thread as two float4 strips 64 apart on each axis, operands
-//    copied by 4-byte cp.async straight into a 4-stage k-major ring of
-//    16-sample chunks (rows padded to 132 floats, so copies and reads are
-//    free of bank conflicts), one barrier per chunk; a 256 x 256 tile takes
-//    4 CTAs, and a CTA reads 32 FLOP per byte from L2.  Two CTAs an SM.
-//  * int8 (pcc_accum.cuh): 64 x 64 outputs per CTA of 256 threads, 4 x 4
-//    per thread, packed 4-sample words staged through registers, __dp4a.
-// The grid is (pass_tiles, blocks per tile, replicas).  The CTA inverts its
-// own tile id (exact integer math on the triangle, one division on the
-// grid), so any m works, unlike the f32-only job_coord_f32 of the TPU
-// kernel.  Every float32 output accumulates over k = 0 .. l_pad-1 in one
-// sequential fmaf chain from +0 whatever the block shape (the 64 x 64 block
-// of the float32 top-k select runs the same chain), so a tile's bits do not
-// depend on the pass it was launched in or on the kernel that made it, and
-// the scale product and the epilogue run in registers before the single
-// store.
-
-#include <type_traits>
+// Design (pcc_sgemm.cuh): 128 x 128 outputs per CTA of 256 threads, 8 x 8
+// per thread as two float4 strips 64 apart on each axis, operands copied by
+// 4-byte cp.async straight into a 4-stage k-major ring of 16-sample chunks
+// (rows padded to 132 floats, so copies and reads are free of bank
+// conflicts), one barrier per chunk; a 256 x 256 tile takes 4 CTAs, and a
+// CTA reads 32 FLOP per byte from L2.  Two CTAs an SM.  The grid is
+// (pass_tiles, blocks per tile, replicas).  The CTA inverts its own tile id
+// (exact integer math on the triangle, one division on the grid), so any m
+// works, unlike the f32-only job_coord_f32 of the TPU kernel.  Every
+// output accumulates over k = 0 .. l_pad-1 in one sequential fmaf chain
+// from +0 whatever the block shape (the 64 x 64 block of the float32 top-k
+// select runs the same chain), so a tile's bits do not depend on the pass
+// it was launched in or on the kernel that made it, and the scale product
+// and the epilogue run in registers before the single store.
 
 #include "pcc_accum.cuh"
 #include "pcc_sgemm.cuh"
@@ -82,58 +75,11 @@ __device__ __forceinline__ void locate(long long j_start, int m,
 }
 
 // REPLICA instantiations offset v, scol and out by the replica blockIdx.z;
-// the others compile without it.  int8: the 64 x 64 __dp4a block of
-// pcc_accum.cuh.
-template <typename T, bool SCALED, bool REPLICA>
-__global__ void __launch_bounds__(THREADS)
-pcc_tiles_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                 const float* __restrict__ srow,
-                 const float* __restrict__ scol, float* __restrict__ out,
-                 long long j_start, int m, int grid_cols, int t, int l_pad,
-                 int nb, long long v_rstride, long long s_rstride,
-                 int has_div, float recip, int has_clip, float lo,
-                 float hi) {
-  __shared__ __align__(16) Stage st;
-
-  if (REPLICA) {
-    const size_t r = blockIdx.z;
-    v += r * (size_t)v_rstride;
-    if (SCALED) scol += r * (size_t)s_rstride;
-    out += r * gridDim.x * (size_t)t * t;
-  }
-  int yt, xt;
-  locate(j_start, m, grid_cols, &yt, &xt);
-
-  const int r_in = (blockIdx.y / nb) * BM;  // CTA's first row inside the tile
-  const int c_in = (blockIdx.y % nb) * BM;  // CTA's first column
-  float acc[TM][TM];
-  accumulate_block(u + ((size_t)yt * t + r_in) * l_pad,
-                   v + ((size_t)xt * t + c_in) * l_pad, t - r_in, t - c_in,
-                   l_pad, st, acc);
-
-  const int tx = threadIdx.x % (BM / TM);
-  const int ty = threadIdx.x / (BM / TM);
-  float* tile = out + (size_t)blockIdx.x * t * t;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int rr = r_in + ty * TM + i;
-    if (rr >= t) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int cc = c_in + tx * TM + j;
-      if (cc >= t) continue;
-      tile[(size_t)rr * t + cc] = finalize<SCALED>(
-          acc[i][j], SCALED ? srow[(size_t)yt * t + rr] : 0.f,
-          SCALED ? scol[(size_t)xt * t + cc] : 0.f, has_div, recip, has_clip,
-          lo, hi);
-    }
-  }
-}
-
-// float32: the 128 x 128 cp.async block of pcc_sgemm.cuh.  A thread's 8 x 8
-// outputs are two strips of 4 rows by two strips of 4 columns; each strip
-// of a row is one float4 store when t % 4 == 0 (16-byte aligned rows) and
-// lies inside the tile, else up to 4 scalar stores.
+// the others compile without it.  The 128 x 128 cp.async block of
+// pcc_sgemm.cuh: a thread's 8 x 8 outputs are two strips of 4 rows by two
+// strips of 4 columns; each strip of a row is one float4 store when
+// t % 4 == 0 (16-byte aligned rows) and lies inside the tile, else up to 4
+// scalar stores.
 template <bool SCALED, bool REPLICA>
 __global__ void __launch_bounds__(sgemm::THREADS, 2)
 pcc_tiles_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
@@ -191,87 +137,53 @@ pcc_tiles_f32_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-template <typename T, bool SCALED, bool REPLICA>
-int enqueue(dim3 grid, cudaStream_t stream, const T* u, const T* v,
-            const float* srow, const float* scol, float* out,
-            long long j_start, int m, int grid_cols, int t, int l_pad,
-            int nb, long long v_rstride, long long s_rstride, int has_div,
-            float recip, int has_clip, float lo, float hi) {
-  if constexpr (std::is_same<T, float>::value) {
-    auto kernel = pcc_tiles_f32_kernel<SCALED, REPLICA>;
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        sgemm::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<grid, sgemm::THREADS, sgemm::SMEM_BYTES, stream>>>(
-        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb,
-        v_rstride, s_rstride, has_div, recip, has_clip, lo, hi);
-  } else {
-    pcc_tiles_kernel<T, SCALED, REPLICA><<<grid, THREADS, 0, stream>>>(
-        u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb,
-        v_rstride, s_rstride, has_div, recip, has_clip, lo, hi);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const T* u, const T* v, const float* srow, const float* scol,
-           float* out, long long j_start, int pass_tiles, int m,
-           int grid_cols, int t, int l_pad, int replicas,
+int launch(const float* u, const float* v, const float* srow,
+           const float* scol, float* out, long long j_start, int pass_tiles,
+           int m, int grid_cols, int t, int l_pad, int replicas,
            long long v_rstride, long long s_rstride, int has_div,
            float recip, int has_clip, float lo, float hi, void* stream) {
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
       j_start < 0 || (srow == nullptr) != (scol == nullptr) ||
       replicas < 0 || replicas > 65535 || v_rstride < 0 || s_rstride < 0)
     return (int)cudaErrorInvalidValue;
-  // rows (== columns) of a CTA's block: 128 for float32, 64 for int8
-  const int block = std::is_same<T, float>::value ? sgemm::BLOCK : BM;
-  const int nb = (t + block - 1) / block;
+  const int nb = (t + sgemm::BLOCK - 1) / sgemm::BLOCK;
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb),
                   (unsigned)(replicas > 0 ? replicas : 1));
-  const cudaStream_t s = (cudaStream_t)stream;
   const bool scaled = srow != nullptr;
-  if (scaled && replicas > 0)
-    return enqueue<T, true, true>(grid, s, u, v, srow, scol, out, j_start, m,
-                                  grid_cols, t, l_pad, nb, v_rstride,
-                                  s_rstride, has_div, recip, has_clip, lo,
-                                  hi);
-  if (scaled)
-    return enqueue<T, true, false>(grid, s, u, v, srow, scol, out, j_start,
-                                   m, grid_cols, t, l_pad, nb, v_rstride,
-                                   s_rstride, has_div, recip, has_clip, lo,
-                                   hi);
-  if (replicas > 0)
-    return enqueue<T, false, true>(grid, s, u, v, srow, scol, out, j_start,
-                                   m, grid_cols, t, l_pad, nb, v_rstride,
-                                   s_rstride, has_div, recip, has_clip, lo,
-                                   hi);
-  return enqueue<T, false, false>(grid, s, u, v, srow, scol, out, j_start, m,
-                                  grid_cols, t, l_pad, nb, v_rstride,
-                                  s_rstride, has_div, recip, has_clip, lo,
-                                  hi);
+  const auto kernel =
+      scaled ? (replicas > 0 ? pcc_tiles_f32_kernel<true, true>
+                             : pcc_tiles_f32_kernel<true, false>)
+             : (replicas > 0 ? pcc_tiles_f32_kernel<false, true>
+                             : pcc_tiles_f32_kernel<false, false>);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sgemm::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, sgemm::THREADS, sgemm::SMEM_BYTES, (cudaStream_t)stream>>>(
+      u, v, srow, scol, out, j_start, m, grid_cols, t, l_pad, nb, v_rstride,
+      s_rstride, has_div, recip, has_clip, lo, hi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// grid_cols == 0 selects the triangle (v is u, or a second operand of u's
-// shape); srow and scol are both null (unscaled) or both given; replicas == 0
-// is a 2-D launch, replicas > 0 a replica stack (strides in elements).
-#define PCC_TILES_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const T* u, const T* v, const float* srow,              \
-                      const float* scol, float* out, long long j_start,       \
-                      int pass_tiles, int m, int grid_cols, int t, int l_pad, \
-                      int replicas, long long v_rstride, long long s_rstride, \
-                      int has_div, float recip, int has_clip, float lo,       \
-                      float hi, void* stream) {                               \
-    return launch<T>(u, v, srow, scol, out, j_start, pass_tiles, m,           \
-                     grid_cols, t, l_pad, replicas, v_rstride, s_rstride,     \
-                     has_div, recip, has_clip, lo, hi, stream);               \
-  }
-
-PCC_TILES_ENTRY(pcc_tiles_f32, float)
-PCC_TILES_ENTRY(pcc_tiles_i8, int8_t)
+// u, v: float32 operands.  grid_cols == 0 selects the triangle (v is u,
+// or a second operand of u's shape); srow and scol are both null
+// (unscaled) or both given; replicas == 0 is a 2-D launch, replicas > 0 a
+// replica stack (strides in elements).  Returns the launch's cudaError_t.
+extern "C" int pcc_tiles_f32(const float* u, const float* v,
+                             const float* srow, const float* scol,
+                             float* out, long long j_start, int pass_tiles,
+                             int m, int grid_cols, int t, int l_pad,
+                             int replicas, long long v_rstride,
+                             long long s_rstride, int has_div, float recip,
+                             int has_clip, float lo, float hi,
+                             void* stream) {
+  return launch(u, v, srow, scol, out, j_start, pass_tiles, m, grid_cols, t,
+                l_pad, replicas, v_rstride, s_rstride, has_div, recip,
+                has_clip, lo, hi, stream);
+}
 
 extern "C" const char* pcc_tile_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -1,9 +1,9 @@
 // All-pairs correlation tiles on Hopper's tensor cores (sm_90a): bfloat16,
-// float8_e4m3fn and float8_e5m2 operands, float32 tiles.
+// float8_e4m3fn, float8_e5m2 and int8 operands, float32 tiles.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/pcc_tile.py:299
-// pcc_tiles (body _kernel, :103) for its bf16 and fp8 operands in every
-// mode; float32 and int8 stay on the SIMT kernel of pcc_tile.cu.  The
+// pcc_tiles (body _kernel, :103) for its bf16, fp8 and int8 operands in
+// every mode; float32 stays on the SIMT kernel of pcc_tile.cu.  The
 // modes and the launch contract are those of pcc_tile.cu:
 //   * the triangle (grid_cols == 0): tile ids invert to upper-triangle
 //     coordinates with tile_coord's exact integer math (pcc_accum.cuh),
@@ -18,12 +18,13 @@
 // Output slot i holds tile min(j_start + i, total - 1).
 //
 // What bounds it: 2 l t^2 operations a tile at the tensor-core peak of the
-// operand type (989 TFLOP/s bf16, 1,979 fp8, H100 SXM at 700 W).  At the
-// paper's Table II shape (n = 17,555, l = 5,072, t = 256, 2,415 tiles) a
-// pass is 1.61e12 operations, >= 1.62 ms in bf16 and >= 0.81 ms in fp8,
-// against 633 MB of float32 tiles written (0.19 ms at 3.35 TB/s): bound by
-// operations.  The SIMT kernel this replaces widened the operands to
-// float32 and reached 3 % (bf16) and 1.4 % (fp8) of these bounds.
+// operand type (989 TFLOP/s bf16, 1,979 fp8 and int8, H100 SXM at 700 W).
+// At the paper's Table II shape (n = 17,555, l = 5,072, t = 256, 2,415
+// tiles) a pass is 1.61e12 operations, >= 1.62 ms in bf16 and >= 0.81 ms in
+// fp8 or int8, against 633 MB of float32 tiles written (0.19 ms at
+// 3.35 TB/s): bound by operations.  The SIMT kernels this replaces widened
+// bf16 and fp8 to float32 and reached 3 % (bf16) and 1.4 % (fp8) of these
+// bounds, and ran int8 through __dp4a at 5 %.
 //
 // Design (the mainloop is pcc_mma.cuh, shared with the bf16 top-k select):
 //  * Work: a work item is one 128 x 128 block of one tile of one replica;
@@ -38,16 +39,18 @@
 //    last products and its epilogue; it gives its registers to the
 //    consumers (setmaxnreg 40 / 232).
 //  * Products: two consumer warpgroups, 64 rows each, wgmma m64n128 (k16
-//    bf16, k32 fp8) from shared memory; fp8 promotes its partial sums into
-//    float32 registers every 128 samples (pcc_mma.cuh).
+//    bf16, k32 fp8 and int8) from shared memory; fp8 promotes its partial
+//    sums into float32 registers every 128 samples, int8 keeps one exact
+//    int32 sum over the whole sample axis, converted to float32 once, so
+//    its tiles are bitwise the plain version's (pcc_mma.cuh).
 //  * Epilogue: the scale product and the EpilogueSpec in registers, then
 //    the float32 values straight from the accumulator layout to the tile,
 //    8 bytes a thread (4 threads fill a 32-byte sector of a row), rows and
 //    columns past t masked.  The stores are not waited on, so they overlap
 //    the next item's products.
 // TMA needs 16-byte row strides and bases: l_pad a multiple of 8 (bf16) or
-// 16 (fp8) and v_rstride likewise; the wrapper zero-pads the sample axis
-// otherwise (zero samples add exactly zero).
+// 16 (fp8, int8) and v_rstride likewise; the wrapper zero-pads the sample
+// axis otherwise (zero samples add exactly zero).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -147,7 +150,7 @@ pcc_tiles_sm90(const __grid_constant__ CUtensorMap ta,
   const int col0 = 2 * (lane % 4);
   const uint32_t slot_addr = sm90::smem_u32(slots);
   const bool pairs = t % 2 == 0;   // 8-byte aligned column pairs
-  float acc[ACC];
+  typename mma::Operand<T>::Acc acc[ACC];
   int it = 0;
   for (long long w = blockIdx.x; w < items; w += gridDim.x) {
     const Item i = item_of(w, nb, pass_tiles, j_start, m, grid_cols);
@@ -166,13 +169,13 @@ pcc_tiles_sm90(const __grid_constant__ CUtensorMap ta,
       for (int j = 0; j < BLOCK / 8; ++j) {
         const int cc = i.c_in + 8 * j + col0;
         if (cc >= t) break;
-        const float v0 = finalize<SCALED>(acc[4 * j + 2 * h], sr,
-                                          SCALED ? sc[cc] : 0.f, has_div,
-                                          recip, has_clip, lo, hi);
+        const float v0 = finalize<SCALED>(
+            mma::acc_value(acc[4 * j + 2 * h]), sr, SCALED ? sc[cc] : 0.f,
+            has_div, recip, has_clip, lo, hi);
         if (cc + 1 < t) {
-          const float v1 = finalize<SCALED>(acc[4 * j + 2 * h + 1], sr,
-                                            SCALED ? sc[cc + 1] : 0.f,
-                                            has_div, recip, has_clip, lo, hi);
+          const float v1 = finalize<SCALED>(
+              mma::acc_value(acc[4 * j + 2 * h + 1]), sr,
+              SCALED ? sc[cc + 1] : 0.f, has_div, recip, has_clip, lo, hi);
           if (pairs) {
             *reinterpret_cast<float2*>(orow + cc) = make_float2(v0, v1);
           } else {
@@ -272,6 +275,7 @@ int launch(const T* u, const T* v, const float* srow, const float* scol,
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_bf16, __nv_bfloat16)
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_e4m3, __nv_fp8_e4m3)
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_e5m2, __nv_fp8_e5m2)
+PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_i8, int8_t)
 
 extern "C" const char* pcc_tile_sm90_error_string(int err) {
   static thread_local char buf[96];

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: TMA
 // tensor maps and loads, mbarriers and their rings, wgmma shared-memory
 // descriptors and the wgmma instructions (bf16 / fp16 k16, fp8 e4m3 / e5m2
-// k32) with their fence / commit / wait.
+// and int8 k32) with their fence / commit / wait.
 //
 // Layout these helpers assume.  A tile of 16-bit values with a head (or
 // depth) dimension DP is kept in shared memory as DP / 64 panels (8-bit
@@ -15,8 +15,8 @@
 //   * K-major operand (rows = M or N, depth contiguous: Q and K of
 //     attention, both operands of the correlation tiles): descriptor at
 //     panel + 32 kk bytes for depth step kk (16 values of 16 bits, or 32 of
-//     8 bits), SBO = 1024 (eight rows), LBO unused.  fp8 wgmma takes only
-//     K-major operands.
+//     8 bits), SBO = 1024 (eight rows), LBO unused.  fp8 and int8 wgmma
+//     take only K-major operands.
 //   * MN-major operand (rows = depth, N contiguous: V of attention, where
 //     the product runs over keys): descriptor at panel 0 + 2048 kk bytes for
 //     the 16-key step kk, SBO = 1024 (eight keys), LBO = the panel stride
@@ -116,6 +116,11 @@ struct MapType<__nv_fp8_e4m3> {
 };
 template <>
 struct MapType<__nv_fp8_e5m2> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+// int8 moves as bytes too; wgmma reads it as s8.
+template <>
+struct MapType<int8_t> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
 
@@ -260,6 +265,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // Register lists of an m64nN float32 accumulator d[0 .. N/2 - 1].
 #define SM90_D32                                                           \
@@ -356,6 +366,26 @@ SM90_WGMMA_F8(128, __nv_fp8_e5m2, "e5m2", SM90_D64, SM90_F64(0), "%64, %65",
               "%66")
 
 #undef SM90_WGMMA_F8
+
+// int8: k32, both operands K-major from shared memory, int32 accumulators
+// (s32 sums of s8 products: exact while they stay inside int32).
+#define SM90_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define SM90_R16(i) SM90_R4(i), SM90_R4(i + 4), SM90_R4(i + 8), SM90_R4(i + 12)
+#define SM90_R64(i) SM90_R16(i), SM90_R16(i + 16), SM90_R16(i + 32), \
+                    SM90_R16(i + 48)
+
+template <>
+struct Wgmma<128, int8_t> {
+  static constexpr int K = 32;
+  __device__ __forceinline__ static void ss(int* d, uint64_t a, uint64_t b,
+                                            int acc) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64
+                 ", %64, %65, p;\n}\n"
+                 : SM90_R64(0)
+                 : "l"(a), "l"(b), "r"(acc));
+  }
+};
 
 // Two float32 values as one 32-bit pair of T, the first in the low half.
 __device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16) {

@@ -4,15 +4,16 @@ versions.
 Port of ``repro/kernels/pcc_tile.py`` in every mode, the replica axis of
 significance runs included, with float32, bfloat16, int8 or fp8
 (``float8_e4m3fn``, ``float8_e5m2``) operands (both operands of one
-dtype).  float32 operands take IEEE float32 FMA chains and int8 operands
-int32 sums converted to float32 once (the SIMT kernel,
-kernels/csrc/pcc_tile.cu); bfloat16 and fp8 operands take the tensor cores
-(kernels/csrc/pcc_tile_sm90.cu: wgmma with float32 accumulation, fp8
-partial sums promoted to float32 every 128 samples), whose tiles lie
-within the narrow gate of the plain version's (kernels/narrow_gate.py),
-not bitwise on them.  Quantized operands (core/quantize.py) bring per-row
-scales: the finished tile is multiplied by the scale product
-``row_scale[y] * col_scale[x]`` before the epilogue.
+dtype).  float32 operands take IEEE float32 FMA chains (the SIMT kernel,
+kernels/csrc/pcc_tile.cu); bfloat16, fp8 and int8 operands take the tensor
+cores (kernels/csrc/pcc_tile_sm90.cu: wgmma with float32 accumulation, fp8
+partial sums promoted to float32 every 128 samples, int8 one exact int32
+sum converted to float32 once).  int8 tiles are bitwise the plain
+version's; bfloat16 and fp8 tiles lie within the narrow gate of the plain
+version's (kernels/narrow_gate.py), not bitwise on them.  Quantized
+operands (core/quantize.py) bring per-row scales: the finished tile is
+multiplied by the scale product ``row_scale[y] * col_scale[x]`` before the
+epilogue.
 
 ``pcc_tiles`` (Pallas body ``_kernel``): ``pass_tiles`` consecutive (t, t)
 tiles from the runtime tile id ``j_start``.  On the triangle (``grid_cols``
@@ -70,9 +71,11 @@ OPERAND_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.float8_e5m2: "e5m2"}
 TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
-# Operand dtypes of the tensor-core kernels (csrc/pcc_tile_sm90.cu, the bf16
-# select of csrc/pcc_topk.cu); the others take the SIMT kernels.
-SM90_DTYPES = (torch.bfloat16,) + _FP8
+# Operand dtypes of the tensor-core tile kernel (csrc/pcc_tile_sm90.cu) and
+# of the tensor-core select (the bf16 select of csrc/pcc_topk.cu); the
+# others take the SIMT kernels.
+SM90_DTYPES = (torch.bfloat16, torch.int8) + _FP8
+SELECT_SM90_DTYPES = (torch.bfloat16,)
 # TMA reads rows whose byte stride and base are multiples of this.
 TMA_ALIGN = 16
 # int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
@@ -249,11 +252,21 @@ def tma_operand(x: torch.Tensor, l_blk: int) -> torch.Tensor:
     return out
 
 
-def _kernel_operands(u_pad: torch.Tensor, v: torch.Tensor, l_blk: int):
+def tile_kernel(dtype: torch.dtype) -> Tuple[str, str]:
+    """(kernel library, C entry point) of :func:`pcc_tiles` for operands of
+    `dtype`: pcc_tile / pcc_tiles_f32 (SIMT) for float32, pcc_tile_sm90 /
+    pcc_tiles_sm90_{bf16,e4m3,e5m2,i8} (tensor cores) for the others."""
+    if dtype in SM90_DTYPES:
+        return "pcc_tile_sm90", "pcc_tiles_sm90_" + OPERAND_DTYPES[dtype]
+    return "pcc_tile", "pcc_tiles_" + OPERAND_DTYPES[dtype]
+
+
+def _kernel_operands(u_pad: torch.Tensor, v: torch.Tensor, l_blk: int,
+                     sm90_dtypes=SM90_DTYPES):
     """(u, v) as the CUDA kernel of their dtype reads them: through
-    :func:`tma_operand` for the tensor-core kernels, as they are for the
-    SIMT ones; v stays u where it is u (the triangle)."""
-    if u_pad.dtype not in SM90_DTYPES:
+    :func:`tma_operand` for the tensor-core kernels (`sm90_dtypes`), as
+    they are for the SIMT ones; v stays u where it is u (the triangle)."""
+    if u_pad.dtype not in sm90_dtypes:
         return u_pad, v
     u_k = tma_operand(u_pad, l_blk)
     return u_k, (u_k if v is u_pad else tma_operand(v, l_blk))
@@ -305,7 +318,7 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
     from repro_torch.kernels import _build
 
     u_k, v_k = _kernel_operands(u_pad, v, l_blk)
-    name = "pcc_tile_sm90" if u_pad.dtype in SM90_DTYPES else "pcc_tile"
+    name, entry = tile_kernel(u_pad.dtype)
     lib = _build.load(name)
     spec = epilogue if epilogue is not None else EpilogueSpec()
     out = torch.empty((replicas, pass_tiles, t, t) if replicas
@@ -316,10 +329,7 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
     s_rstride = col_scale.stride(0) if replicas and scaled else 0
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
-        # pcc_tiles_f32 / _i8, pcc_tiles_sm90_bf16 / _e4m3 / _e5m2
-        fn = getattr(lib, name.replace("pcc_tile", "pcc_tiles") + "_"
-                     + OPERAND_DTYPES[u_pad.dtype])
-        err = fn(
+        err = getattr(lib, entry)(
             ctypes.c_void_p(u_k.data_ptr()), ctypes.c_void_p(v_k.data_ptr()),
             *_ptrs([row_scale, col_scale] if scaled else [], 2),
             ctypes.c_void_p(out.data_ptr()), j_start, pass_tiles, m,
@@ -509,7 +519,8 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) (value, column)
     pairs per side (rows; columns too on the triangle).  bf16 operands take
     the tensor-core mainloop of the bf16 tiles, so the values are bitwise
-    :func:`pcc_tiles`'."""
+    :func:`pcc_tiles`'; int8 operands keep the SIMT ``__dp4a`` block, whose
+    exact int32 sums are the tensor-core tiles' bits too."""
     m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                               grid_cols, kk, dev_hi, n_cols_valid)
     if u_pad.device.type != "cuda":
@@ -525,7 +536,7 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     for _side in range(1 if grid_cols is not None else 2):
         scratch += [torch.empty(part, dtype=torch.float32, device=dev),
                     torch.empty(part, dtype=torch.int32, device=dev)]
-    u_k, v_k = _kernel_operands(u_pad, v, l_blk)
+    u_k, v_k = _kernel_operands(u_pad, v, l_blk, SELECT_SM90_DTYPES)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         fn = getattr(lib, "pcc_topk_select_" + OPERAND_DTYPES[u_pad.dtype])
@@ -656,8 +667,10 @@ def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
 
 
 __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
-           "OPERAND_DTYPES", "TOPK_DTYPES", "SM90_DTYPES", "TMA_ALIGN",
+           "OPERAND_DTYPES", "TOPK_DTYPES", "SM90_DTYPES",
+           "SELECT_SM90_DTYPES", "TMA_ALIGN",
            "INT8_MAX_L_PAD", "MAX_REPLICAS", "dtype_name", "tma_operand",
+           "tile_kernel",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
            "topk_fold_plain", "topk_scratch_bytes"]

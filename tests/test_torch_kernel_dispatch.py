@@ -1,0 +1,86 @@
+"""Which CUDA kernel and entry point each operand dtype of pcc_tiles and
+pcc_topk_tiles reaches, the operands the wrappers hand them, and the
+kernel libraries' C interfaces against their sources, on the CPU (the
+launches themselves need an NVIDIA GPU: tests/test_torch_kernels_gpu.py).
+
+int8 tiles run on the tensor-core library (pcc_tile_sm90.cu) and read
+their operands through TMA, so the tile wrapper pads int8 rows to 16
+bytes; the int8 top-k select stays on the SIMT block of pcc_topk.cu and
+takes its operands as they are.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.pcc_tile import (OPERAND_DTYPES, SELECT_SM90_DTYPES,
+                                          SM90_DTYPES, TMA_ALIGN, TOPK_DTYPES,
+                                          _kernel_operands, tile_kernel)
+
+CSRC = Path(_build.__file__).resolve().parent / "csrc"
+
+
+@pytest.mark.parametrize("dtype,library,entry", [
+    (torch.float32, "pcc_tile", "pcc_tiles_f32"),
+    (torch.bfloat16, "pcc_tile_sm90", "pcc_tiles_sm90_bf16"),
+    (torch.int8, "pcc_tile_sm90", "pcc_tiles_sm90_i8"),
+    (torch.float8_e4m3fn, "pcc_tile_sm90", "pcc_tiles_sm90_e4m3"),
+    (torch.float8_e5m2, "pcc_tile_sm90", "pcc_tiles_sm90_e5m2"),
+])
+def test_tile_kernel_by_dtype(dtype, library, entry):
+    assert tile_kernel(dtype) == (library, entry)
+    assert entry in _build.SIGNATURES[library]
+    assert (dtype in SM90_DTYPES) == (library == "pcc_tile_sm90")
+
+
+def test_simt_tile_library_keeps_float32_only():
+    assert sorted(_build.SIGNATURES["pcc_tile"]) == [
+        "pcc_tile_error_string", "pcc_tiles_f32"]
+    assert not re.search(r"\bpcc_tiles_i8\b",
+                         (CSRC / "pcc_tile.cu").read_text())
+
+
+@pytest.mark.parametrize("dtype", TOPK_DTYPES)
+def test_topk_select_entry_by_dtype(dtype):
+    """Every top-k dtype has its select entry point; only bf16 selects on
+    the tensor-core mainloop, so only bf16 operands are padded for TMA."""
+    assert f"pcc_topk_select_{OPERAND_DTYPES[dtype]}" in \
+        _build.SIGNATURES["pcc_topk"]
+    assert (dtype in SELECT_SM90_DTYPES) == (dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signatures_name_functions_of_their_source(name):
+    """Each C function bound for a library is defined by its source (an
+    extern "C" definition or an entry macro's first argument)."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for fn in _build.SIGNATURES[name]:
+        assert re.search(rf"\b{fn}\s*\(", src) or \
+            re.search(rf"_ENTRY\(\s*{fn}\s*,", src), fn
+
+
+@pytest.mark.parametrize("width,l_blk", [(20, 4), (29, 29), (32, 8),
+                                         (2016, 2016), (136, 8)])
+def test_int8_operands_padded_for_the_tiles_not_the_select(width, l_blk):
+    rng = np.random.default_rng(width)
+    u = torch.from_numpy(rng.integers(-128, 128, size=(16, width),
+                                      dtype=np.int8))
+    v = torch.from_numpy(rng.integers(-128, 128, size=(24, width),
+                                      dtype=np.int8))
+    per = TMA_ALIGN // u.element_size()
+    for col in (u, v):   # the triangle (v is u) and a second operand
+        tu, tv = _kernel_operands(u, col, l_blk)
+        su, sv = _kernel_operands(u, col, l_blk, SELECT_SM90_DTYPES)
+        assert su is u and sv is col
+        assert (tv is tu) == (col is u)
+        for got, x in ((tu, u), (tv, col)):
+            if width % per == 0:
+                assert got is x
+                continue
+            assert got.shape[1] % per == 0 and got.shape[1] % l_blk == 0
+            assert torch.equal(got[:, :width], x)
+            assert bool((got[:, width:] == 0).all())

@@ -395,6 +395,86 @@ def test_int8_kernel_bitwise_equals_plain(cuda, grid, n, width, t, l_blk,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["triangle", "grid", "pair", "scaled",
+                                  "replica"])
+@pytest.mark.parametrize("n,width,t,l_blk,j_start,pass_tiles", [
+    (37, 200, 8, 100, 0, 15),     # l_pad 200, padded to 400 for TMA
+    (300, 136, 96, 8, 1, 5),      # l_pad 136, padded to 144: 2 stages
+    (130, 2016, 128, 2016, 2, 4),  # Kendall's pair columns, unpadded
+])
+def test_int8_tensor_core_tiles_bitwise_plain(cuda, mode, n, width, t, l_blk,
+                                              j_start, pass_tiles):
+    """int8 tiles run on the tensor cores (one int32 sum over the sample
+    axis, converted once) and stay bitwise the plain version's in every
+    mode, with sample axes that are not a multiple of the kernel's
+    128-sample stage; the int8 select's values are those tiles' bits."""
+    u = pad_operands(_signs(n, width, cuda), t, l_blk)
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles,
+              epilogue=EpilogueSpec(div=float(width), clip=(-1.0, 1.0)))
+    if mode == "grid":
+        kw.update(v_pad=pad_operands(_signs(170, width, cuda, seed=1), t,
+                                     l_blk), grid_cols=-(-170 // t))
+    elif mode == "pair":
+        kw["v_pad"] = pad_operands(_signs(n, width, cuda, seed=1), t, l_blk)
+    elif mode == "scaled":
+        scale = torch.rand(u.shape[0], device=cuda) + 0.5
+        kw.update(row_scale=scale, col_scale=scale.flip(0).contiguous())
+    elif mode == "replica":
+        kw["v_pad"] = torch.stack([pad_operands(
+            _signs(n, width, cuda, seed=s), t, l_blk) for s in (1, 2, 3)])
+    before = dict(pcc_tiles.launches_by_dtype)
+    got = pcc_tiles(u, j_start, **kw)
+    want = pcc_tiles_plain(u, j_start, **kw)
+    torch.cuda.synchronize()
+    assert pcc_tiles.launches_by_dtype["int8"] == before["int8"] + 1
+    assert torch.equal(got, want)
+    if mode in ("triangle", "grid"):
+        grid = mode == "grid"
+        m, gc = u.shape[0] // t, kw.get("grid_cols")
+        total = m * gc if grid else m * (m + 1) // 2
+        kw_all = {**kw, "pass_tiles": total}
+        state = pcc_topk_tiles(u, 0, total, kk=10,
+                               n_cols_valid=170 if grid else n,
+                               symmetric_problem=not grid, **kw_all)
+        tiles = pcc_tiles(u, 0, **kw_all)
+        ids = np.arange(total)
+        ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+                  else job_coord_batch(m, ids))
+        cols_pad = kw["v_pad"].shape[0] if grid else u.shape[0]
+        r = torch.zeros(u.shape[0], cols_pad, device=cuda)
+        r.view(m, t, -1, t)[torch.as_tensor(ys, device=cuda), :,
+                            torch.as_tensor(xs, device=cuda), :] = tiles
+        if not grid:
+            r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(), r,
+                            r.T)
+        for side in range(len(state) // 2):
+            vals, cols = state[2 * side], state[2 * side + 1]
+            ok = cols >= 0
+            rows = (torch.arange(vals.shape[0] * t, device=cuda)
+                    .view(-1, t, 1).expand_as(cols))
+            ref = (r if side == 0 else r.T)[rows[ok], cols[ok].long()]
+            assert torch.equal(vals[ok], ref)
+
+
+@pytest.mark.gpu
+def test_int8_tiles_at_the_int32_edge(cuda):
+    """Rows of -128 and 127 over l_pad = 131,056 <= INT8_MAX_L_PAD: the
+    largest sums, 131,056 x 16,384 = 2,147,221,504, stay inside int32 and
+    match the plain version's float64 sums rounded once."""
+    from repro_torch.kernels.pcc_tile import INT8_MAX_L_PAD
+    width = 131_056
+    assert width <= INT8_MAX_L_PAD
+    u = torch.full((64, width), -128, dtype=torch.int8, device=cuda)
+    u[1::2] = 127
+    u[5, :7] = 0
+    got = pcc_tiles(u, 0, t=32, l_blk=16, pass_tiles=3)
+    want = pcc_tiles_plain(u, 0, t=32, l_blk=16, pass_tiles=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got[0, 0, 0]) == float(np.float32(width * 16_384))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 @pytest.mark.parametrize("grid", [False, True])
 def test_narrow_topk_values_are_pcc_tiles_bits(cuda, dtype, grid):
@@ -586,12 +666,12 @@ def test_narrow_ragged_tiles_and_unaligned_samples(cuda, dtype, n, l, t,
 
 @pytest.mark.gpu
 def test_narrow_tiles_run_only_on_the_tensor_core_kernel(cuda):
-    """The SIMT tile library keeps float32 and int8 only; bf16 and fp8 tiles
+    """The SIMT tile library keeps float32 only; bf16, fp8 and int8 tiles
     launch the tensor-core library's entry points."""
     from repro_torch.kernels import _build
     simt = _build.load("pcc_tile")
-    assert hasattr(simt, "pcc_tiles_f32") and hasattr(simt, "pcc_tiles_i8")
-    for sfx in ("bf16", "e4m3", "e5m2"):
+    assert hasattr(simt, "pcc_tiles_f32")
+    for sfx in ("bf16", "e4m3", "e5m2", "i8"):
         assert not hasattr(simt, f"pcc_tiles_{sfx}")
         assert hasattr(_build.load("pcc_tile_sm90"), f"pcc_tiles_sm90_{sfx}")
 
@@ -912,6 +992,41 @@ def test_flash_kernel_matches_plain(cuda, b, h, hkv, s, d, window):
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
     _check_narrow_flash(cuda, b, h, hkv, s, d, window, blk)
+
+
+# The float32 kernel's blocks: 64 keys a step, 64 query rows a CTA (32 at
+# D = 256); S below, at and one past each.
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 32])
+@pytest.mark.parametrize("d", [8, 16, 64, 100, 128, 256])
+@pytest.mark.parametrize("s", [31, 32, 33, 63, 64, 65, 127, 128, 129])
+def test_flash_f32_ragged_rows_and_head_dims(cuda, s, d, window):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _flash_inputs(1, 4, 2, s, d, cuda, seed=s * 1000 + d)
+    before = flash_attention.launches_by_dtype["float32"]
+    got = flash_attention(q, k, v, window=window, blk_q=16, blk_k=16)
+    want = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_dtype["float32"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    shape for shape in FLASH_SHAPES
+    if (shape[3], shape[5]) in {(32, 16), (96, 80), (40, 32)}])
+def test_flash_f32_keeps_the_windows_the_reference_drops(cuda, b, h, hkv, s,
+                                                          d, window):
+    """The reference kernel computes full causal attention at these
+    windows; the float32 kernel keeps the window, as the oracle mha_ref
+    (mha_plain) does, within the reference's 2e-6."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_plain)
+    q, k, v = _flash_inputs(b, h, hkv, s, d, cuda)
+    got = flash_attention(q, k, v, window=window, blk_q=16, blk_k=16)
+    want = mha_plain(q, k, v, window=window)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
 
 
 @pytest.mark.gpu

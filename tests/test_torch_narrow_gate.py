@@ -1,6 +1,7 @@
 """The narrow gate (kernels/narrow_gate.py), which holds the
 tensor-core tiles of bf16 and fp8 operands against the plain version, and
-the wrapper's sample-axis padding for TMA (tma_operand), on the CPU.
+the wrapper's sample-axis padding for TMA (tma_operand, for the bf16, fp8
+and int8 operands of the tensor-core kernel), on the CPU.
 
 - The gate accepts the plain version summed the way the tensor-core kernel
   sums, in float32 chunks of 128 samples (fp8's promotion interval) added
@@ -33,6 +34,8 @@ from repro_torch.kernels.pcc_tile import (TMA_ALIGN, EpilogueSpec,
                                           pcc_tiles_plain, tma_operand)
 
 DTYPES = ["bfloat16", "float8_e4m3fn", "float8_e5m2"]
+# the operand types the tensor-core tile kernel reads through TMA
+TMA_DTYPES = DTYPES + ["int8"]
 # n, l, t, l_blk, j_start, pass_tiles: ragged n and l, a tile narrower than
 # the kernel's 128-row block, sample axes shorter and longer than a chunk
 SHAPES = [(37, 29, 8, 8, 0, 15), (60, 300, 16, 20, 2, 9),
@@ -40,7 +43,8 @@ SHAPES = [(37, 29, 8, 8, 0, 15), (60, 300, 16, 20, 2, 9),
 
 
 def _operand(n, l, t, l_blk, dtype, seed):
-    """A Pearson operand of `dtype`: bf16 (no scales) or fp8-quantized."""
+    """A Pearson operand of `dtype`: bf16 (no scales) or fp8- or
+    int8-quantized."""
     rng = np.random.default_rng(seed)
     u = transform(torch.from_numpy(rng.standard_normal((n, l)).astype(
         np.float32)))
@@ -160,9 +164,9 @@ def test_gate_unit():
     assert np.isnan(gate_share(z + float("nan"), z, z + 1.0))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", TMA_DTYPES)
 @pytest.mark.parametrize("l,l_blk", [(20, 4), (29, 29), (36, 12), (90, 6),
-                                     (300, 100)])
+                                     (300, 100), (32, 8), (64, 64)])
 def test_tma_padding_leaves_plain_tiles_bitwise(dtype, l, l_blk):
     t, n = 8, 37
     u, su = _operand(n, l, t, l_blk, dtype, 0)
