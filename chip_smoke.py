@@ -7,9 +7,9 @@ Phases, each fatal on failure:
   1. build every CUDA kernel from the sources in the checkout (nvcc, one
      process per source, all started together) and print ptxas' report
      (registers, spills: the tensor-core tile kernels, int8 included, the
-     float32 tile kernel, the float32 flash kernel and the three top-k
-     selects may not spill), and check that the SIMT tile library exports
-     no bf16 / fp8 / int8 entry point;
+     float32 tile kernel, the float32 flash kernel, the three top-k
+     selects and the two merge instantiations may not spill), and check
+     that the SIMT tile library exports no bf16 / fp8 / int8 entry point;
   2. hold each kernel against its plain PyTorch version on the card, at
      small ragged shapes and at the main path's full shape;
   3. drive the main path, corr(x) at the paper's Table II shape (SEEK
@@ -37,10 +37,13 @@ Phases, each fatal on failure:
      (bit-identical to TopKSink(10)), launch counts, times, peak memory;
   9. hold the top-k kernels against their plain version on the passes the
      driven paths launch (Table II one pass and 300-tile passes, the
-     rectangular grid; phase 7 does the same for its n = 64,000 pass), then
-     time them (select, merge, both), their plain version and a library
-     yardstick at the Table II shape, and the grid mode of pcc_tiles at the
-     rectangular shape, each with its bound;
+     rectangular grid; phase 7 does the same for its n = 64,000 pass) and
+     the merge kernel alone bitwise against topk_merge_plain on the select
+     kernel's scratch (Table II one pass, the grid), then time them
+     (select, merge, both), their plain version and a library yardstick at
+     the Table II shape, the merge and torch.topk of its scratch at the
+     grid shape, and the grid mode of pcc_tiles at the rectangular shape,
+     each with its bound;
  10. the bf16 and int8 operand modes of both kernels at phase 2's shapes,
      triangle and grid: bf16 tiles (the tensor-core kernel) within the
      narrow gate of the plain version (kernels/narrow_gate.py),
@@ -124,8 +127,8 @@ Phases, each fatal on failure:
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero before printing
-any result.
+package src/repro_torch beside it (a copy of the script alone: it says
+where it looked), the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -496,6 +499,11 @@ def main(argv) -> int:
         return 2
     src = (Path(argv[1]) if overlap_only
            else Path(__file__).resolve().parent / "src")
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no package at {(src / 'repro_torch').resolve()}"
+              f": run the script from a checkout of the repository",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(src.resolve()))
     import torch
 
@@ -514,8 +522,8 @@ def main(argv) -> int:
     from repro_torch.kernels.narrow_gate import gate_share, narrow_gate
     from repro_torch.kernels.pcc_tile import (
         EpilogueSpec, pcc_tiles, pcc_tiles_plain, pcc_topk_tiles,
-        pcc_topk_tiles_plain, topk_fold_plain, topk_merge, topk_scratch_bytes,
-        topk_select)
+        pcc_topk_tiles_plain, topk_fold_plain, topk_merge, topk_merge_plain,
+        topk_scratch_bytes, topk_select)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -533,9 +541,9 @@ def main(argv) -> int:
     def watched(entry):
         """A readable name for the kernels redesigned on this path (the
         float32 tile kernel's four instantiations, the three selects, the
-        float32 flash kernel's five head tiles, the int8 tensor-core tile
-        kernel's two), None for the others; `entry` is ptxas' "Compiling
-        entry function" line."""
+        merge kernel's two, the float32 flash kernel's five head tiles,
+        the int8 tensor-core tile kernel's two), None for the others;
+        `entry` is ptxas' "Compiling entry function" line."""
         if entry is None:
             return None
         if "flash_fwdILi" in entry:
@@ -551,9 +559,14 @@ def main(argv) -> int:
         if "pcc_topk_select_kernel" in entry:
             arg = entry.split("pcc_topk_select_kernel", 1)[1][:2]
             return "pcc_topk_select_kernel<%s>" % (
-                "float" if arg == "If" else "int8_t")
+                "int8_t" if arg == "Ia" else arg)
+        if "pcc_topk_select_f32_kernel" in entry:
+            return "pcc_topk_select_f32_kernel"
         if "pcc_topk_select_sm90" in entry:
             return "pcc_topk_select_sm90<bf16>"
+        if "pcc_topk_merge_kernelILi" in entry:
+            kw = entry.split("pcc_topk_merge_kernelILi", 1)[1].split("E")[0]
+            return f"pcc_topk_merge_kernel<{kw}>"
         return None
 
     report = {}
@@ -573,7 +586,7 @@ def main(argv) -> int:
             if "spill stores" in line:
                 print(f"  {name}: {line.strip()}")
                 # the tensor-core kernels, the float32 tile and flash
-                # kernels and the selects may not spill
+                # kernels, the selects and the merge may not spill
                 new = name == "pcc_tile_sm90" or watched(entry)
                 if new and not line.strip().startswith(
                         "0 bytes stack frame, 0 bytes spill stores, "
@@ -591,11 +604,11 @@ def main(argv) -> int:
         print(json.dumps({"overlap": res, "src": str(src), "card": card}))
         return 0
     # (this tree's kernels: --overlap-only may build an earlier tree's)
-    if len(report) != 14:
+    if len(report) != 16:
         raise AssertionError(
             f"ptxas reported {sorted(report)}: expected the 4 float32 "
-            f"tile, the 3 select, the 5 float32 flash and the 2 int8 "
-            f"tensor-core tile kernels")
+            f"tile, the 3 select (float32, int8, bf16), the 2 merge, the 5 "
+            f"float32 flash and the 2 int8 tensor-core tile kernels")
     simt = _build.load("pcc_tile")
     gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
     if any(hasattr(simt, fn) for fn in gone):
@@ -1065,6 +1078,7 @@ def main(argv) -> int:
     rtk = corr(x_tf, x_dev, sink=DeviceTopKSink(K_TOP))
     torch.cuda.synchronize()
     check_launches(f"DeviceTopKSink({K_TOP})", 0, rplan.n_pass)
+    grid_topk_launches = pcc_topk_tiles.launches["merge"]
     same_topk(rtk, corr(x_tf, x_dev, sink=TopKSink(K_TOP)), "rectangular")
     err, ties = check_rows_topk(rtk, rows_tf, ux64, uy64, K_TOP, False,
                                 TOL_F64, "rectangular top-k")
@@ -1106,14 +1120,68 @@ def main(argv) -> int:
         topk_err = max(topk_err, err)
         print(f"  {label}: max|kernel - plain| = {err:.3e}, {ties} near-tie "
               f"column swaps")
+    def merge_vs_plain(scratch, n_tiles, mkw, label):
+        """The merge kernel on a select kernel's scratch of one whole pass
+        from tile 0, bitwise topk_merge_plain's state on it; returns (max
+        |kernel - plain| over the values, entries held, the bytes the merge
+        must move: each list's head value, each held entry's value and
+        column, the state written)."""
+        got = topk_merge(scratch, 0, n_tiles, **mkw)
+        want = topk_merge_plain(scratch, 0, n_tiles, **mkw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"{label}: the merge kernel's state is "
+                                     f"not topk_merge_plain's bits")
+        err = max(amax((got[i] - want[i]).abs())
+                  for i in range(0, len(got), 2))
+        held = sum(int((got[i] >= 0).sum()) for i in range(1, len(got), 2))
+        m_, t_, kk_ = got[0].shape
+        ids = np.arange(n_tiles)
+        ys, xs = (divmod(ids, mkw["grid_cols"]) if mkw.get("grid_cols")
+                  else job_coord_batch(m_, ids))
+        lists = (n_tiles + (0 if mkw.get("grid_cols") else
+                            int((ys != xs).sum()))) * t_ * -(-t_ // 64)
+        need = 4 * lists + 8 * held + len(got) // 2 * m_ * t_ * kk_ * 8
+        print(f"  merge kernel vs topk_merge_plain, {label}: bitwise "
+              f"({held} entries held, {lists} lists)")
+        return err, held, need
+
     kw = dict(t=plan.t, l_blk=plan.l_blk, pass_tiles=total, kk=K_TOP,
               n_cols_valid=N_SEEK, symmetric_problem=True, epilogue=spec)
     sel_ms, sel_all = event_ms(lambda: topk_select(u_seek, 0, total, **kw), 5)
     scratch = topk_select(u_seek, 0, total, **kw)
+    mkw = dict(m=plan.m, t=plan.t, pass_tiles=total, kk=K_TOP)
+    merge_err, _, merge_need = merge_vs_plain(scratch, total, mkw,
+                                              "Table II one pass")
     merge_ms, merge_all = event_ms(lambda: topk_merge(
-        scratch, 0, total, m=plan.m, t=plan.t, pass_tiles=total, kk=K_TOP),
-        5)
+        scratch, 0, total, **mkw), 5)
+    merge_plain_ms, merge_plain_all = event_ms(lambda: topk_merge_plain(
+        scratch, 0, total, **mkw), 3)
     del scratch
+    # the grid pass: the merge, and one library call ranking the same
+    # candidates (|v| of each row's lists side by side, no columns and no
+    # canonical tie order)
+    g_gc = rplan.workload.grid_cols
+    gtk = dict(t=rplan.t, l_blk=rplan.l_blk, pass_tiles=rtotal, kk=K_TOP,
+               n_cols_valid=N_SEEK, symmetric_problem=False,
+               epilogue=rplan.epilogue_spec, v_pad=v_sk, grid_cols=g_gc)
+    g_scr = topk_select(u_tf, 0, rtotal, **gtk)
+    g_mkw = dict(m=rplan.m, t=rplan.t, pass_tiles=rtotal, kk=K_TOP,
+                 grid_cols=g_gc)
+    g_merge_err, _, g_merge_need = merge_vs_plain(g_scr, rtotal, g_mkw,
+                                                  "grid one pass")
+    merge_err = max(merge_err, g_merge_err)
+    g_merge_ms, g_merge_all = event_ms(lambda: topk_merge(
+        g_scr, 0, rtotal, **g_mkw), 5)
+    g_merge_plain_ms, _ = event_ms(lambda: topk_merge_plain(
+        g_scr, 0, rtotal, **g_mkw), 3)
+    g_keys = (g_scr[0].view(rplan.m, g_gc, rplan.t, -1).abs()
+              .permute(0, 2, 1, 3).reshape(rplan.m * rplan.t, -1))
+    g_lib_ms, g_lib_all = event_ms(
+        lambda: torch.topk(g_keys, K_TOP, dim=1), 5)
+    g_merge_bound, g_merge_by = bound(0, g_merge_need)
+    del g_scr, g_keys
     both_ms, both_all = event_ms(
         lambda: pcc_topk_tiles(u_seek, 0, total, **kw), 5)
     ptk_ms, ptk_all = event_ms(
@@ -1128,7 +1196,7 @@ def main(argv) -> int:
         torch.matmul(u_seek, u_seek.T).abs(), K_TOP, dim=1), 3)
     state_b = 4 * plan.m * plan.t * K_TOP * 4
     sel_bound, sel_by = bound(flop, u_seek.numel() * 4 + scratch_b)
-    merge_bound, merge_by = bound(0, scratch_b + state_b)
+    merge_bound, merge_by = bound(0, merge_need)
     both_bound, both_by = bound(flop, u_seek.numel() * 4 + state_b)
     print(f"top-k times at Table II shape, one pass, kk={K_TOP} {tag}:")
     print(f"  select kernel: {sel_ms:.3f} ms (runs "
@@ -1136,7 +1204,19 @@ def main(argv) -> int:
           f"{sel_by}")
     print(f"  merge kernel: {merge_ms:.3f} ms (runs "
           f"{[round(v, 3) for v in merge_all]}), bound {merge_bound:.3f} ms "
-          f"by {merge_by} ({scratch_b + state_b:.4g} B)")
+          f"by {merge_by} ({merge_need:.4g} B it must move: list heads, "
+          f"held entries, state; the whole scratch and state would be "
+          f"{scratch_b + state_b:.4g} B, "
+          f"{(scratch_b + state_b) / HBM_BYTES_S * 1e3:.3f} ms); "
+          f"topk_merge_plain on its scratch: {merge_plain_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in merge_plain_all]})")
+    print(f"  grid pass ({rplan.m} x {g_gc} tiles): merge kernel "
+          f"{g_merge_ms:.3f} ms (runs {[round(v, 3) for v in g_merge_all]}),"
+          f" bound {g_merge_bound:.3f} ms by {g_merge_by} ({g_merge_need:.4g}"
+          f" B); topk_merge_plain {g_merge_plain_ms:.3f} ms; library "
+          f"torch.topk(|scratch values| per row, {K_TOP}), no "
+          f"columns, no canonical tie order: {g_lib_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in g_lib_all]})")
     print(f"  pcc_topk_tiles (both): {both_ms:.3f} ms (runs "
           f"{[round(v, 3) for v in both_all]}), bound {both_bound:.3f} ms by "
           f"{both_by}")
@@ -2627,9 +2707,17 @@ def main(argv) -> int:
         {"name": "pcc_topk_merge", "route": "cuda",
          "source": source + "pcc_topk.cu",
          "replaces": "src/repro/kernels/pcc_tile.py:612",
-         "launches": topk_launches["merge"], "max_abs_err": topk_err,
-         "ms": merge_ms, "plain_ms": fold_ms, "bound_ms": merge_bound,
+         "launches": topk_launches["merge"], "max_abs_err": merge_err,
+         "ms": merge_ms, "plain_ms": merge_plain_ms,
+         "bound_ms": merge_bound,
          "bound_by": merge_by, "library_ms": None},
+        {"name": "pcc_topk_merge (grid)", "route": "cuda",
+         "source": source + "pcc_topk.cu",
+         "replaces": "src/repro/kernels/pcc_tile.py:612",
+         "launches": grid_topk_launches, "max_abs_err": merge_err,
+         "ms": g_merge_ms, "plain_ms": g_merge_plain_ms,
+         "bound_ms": g_merge_bound, "bound_by": g_merge_by,
+         "library_ms": g_lib_ms},
         *narrow_records,
         *[{"name": name, "route": "cuda", "source": source + src_,
            "replaces": "src/repro/kernels/pcc_tile.py:299",
@@ -2669,14 +2757,17 @@ def main(argv) -> int:
         *flash_rows,
     ]}
     # the header holding each pcc kernel's mainloop, beside its source: the
-    # tiles' by their file, the selects' by their dtype (bf16 on the
-    # tensor-core mainloop, float32 and int8 on the SIMT 64 x 64 block)
+    # tiles' by their file, the selects' by their dtype (float32 on the
+    # SGEMM mainloop, bf16 on the tensor-core one, int8 on the SIMT 64 x 64
+    # block)
     mainloops = {"pcc_tile.cu": "pcc_sgemm.cuh",
                  "pcc_tile_sm90.cu": "pcc_mma.cuh"}
     for rec in record["kernels"]:
         if rec["name"].startswith("pcc_topk_select"):
-            rec["mainloop"] = source + ("pcc_mma.cuh" if "bf16" in rec["name"]
-                                        else "pcc_accum.cuh")
+            rec["mainloop"] = source + (
+                "pcc_mma.cuh" if "bf16" in rec["name"] else
+                "pcc_accum.cuh" if "int8" in rec["name"] else
+                "pcc_sgemm.cuh")
         elif rec["name"].startswith("pcc_tiles"):
             rec["mainloop"] = source + mainloops[
                 rec["source"].rsplit("/", 1)[1]]

@@ -1,16 +1,14 @@
-// The SIMT 64 x 64 tile accumulation (float32 and int8 operands; sm_90a)
-// and what every tile kernel shares: tile-id inversion, the scale product
-// and the epilogue.
+// The SIMT 64 x 64 int8 tile accumulation (sm_90a) and what every tile
+// kernel shares: tile-id inversion, the scale product and the epilogue.
 //
-// Who runs the 64 x 64 blocks: the float32 and int8 selects of
-// pcc_topk.cu.  The float32 tiles of pcc_tile.cu run the 128 x 128
-// cp.async mainloop of pcc_sgemm.cuh, and bf16 / fp8 / int8 tiles the
-// tensor cores (pcc_mma.cuh).  Every float32 output, in either block shape,
-// is one sequential fmaf chain over k = 0 .. l_pad-1 from +0, then the
-// EpilogueSpec (multiply by the host-rounded float32 reciprocal, then clip)
-// in registers, so a finished value of the float32 select is bitwise the
-// value pcc_tiles writes for the same tile and epilogue; int8 sums are
-// exact, so their values agree in any block and on the tensor cores.
+// Who runs the 64 x 64 block: the int8 select of pcc_topk.cu.  The float32
+// tiles and the float32 select run the 128 x 128 cp.async mainloop of
+// pcc_sgemm.cuh, bf16 / fp8 / int8 tiles and the bf16 select the tensor
+// cores (pcc_mma.cuh).  int8 sums are exact, so their values agree in any
+// block and on the tensor cores; every float32 output is one sequential
+// fmaf chain (pcc_sgemm.cuh), then the EpilogueSpec (multiply by the
+// host-rounded float32 reciprocal, then clip) in registers, the same
+// routine in every kernel.
 //
 // Tile ids: the triangle (grid_cols == 0) numbers the upper triangle of the
 // m x m tile grid row-major (paper Eq. 9) and is inverted with exact integer
@@ -18,22 +16,16 @@
 // job_coord_batch); the rectangular grid (grid_cols > 0) numbers the
 // m x grid_cols grid row-major, y = jt / grid_cols, x = jt % grid_cols.
 //
-// Operands are staged through shared memory in BK = 16-wide sample chunks,
-// stored k-major (As[k][row]) so each thread reads its 4 rows and 4 columns
-// as two float4 loads per k; the next chunk's global loads are issued into
-// registers before the current chunk's FMAs (register double buffering).
-// Rows past the tile's edge (t not a multiple of 64) and samples past l_pad
-// read as zero.
-//
-// One routine per operand type:
-//   float          the fmaf chain above;
-//   int8_t         packed 4 samples to a 32-bit word (BK words = 64 samples
-//                  per chunk, the same Stage reinterpreted as int), summed
-//                  with __dp4a into int32, converted to float once at the
-//                  end.  Integer sums are exact in any order (the wrapper
-//                  keeps l_pad * 128^2 below 2^31), and the conversion
-//                  equals the reference's per-block float32 sums whenever
-//                  |partial sums| < 2^24 (always, for Kendall pair signs).
+// The int8 block: operands packed 4 samples to a 32-bit word (BK words = 64
+// samples per chunk), staged through shared memory k-major (As[k][row]) so
+// each thread reads its 4 rows and 4 columns as two int4 loads per word;
+// the next chunk's global loads are issued into registers before the
+// current chunk's __dp4a (register double buffering).  Sums are int32,
+// converted to float once at the end.  Integer sums are exact in any order
+// (the wrapper keeps l_pad * 128^2 below 2^31), and the conversion equals
+// the reference's per-block float32 sums whenever |partial sums| < 2^24
+// (always, for Kendall pair signs).  Rows past the tile's edge (t not a
+// multiple of 64) and samples past l_pad read as zero.
 
 #pragma once
 
@@ -52,10 +44,9 @@ constexpr int LOADS = BM * BK / THREADS;         // 4 elements per operand
 constexpr int PAD = 4;          // keeps rows 16-byte aligned, cuts conflicts
 constexpr int KPW = 4;          // int8 samples packed into one 32-bit word
 
-// One chunk of both operands, k-major: float samples, or packed int8 words.
+// One chunk of both operands, k-major, as packed int8 words.
 struct Stage {
-  union Plane {
-    float f[BK][BM + PAD];
+  struct Plane {
     int i[BK][BM + PAD];
   } a, b;
 };
@@ -96,64 +87,6 @@ __device__ __forceinline__ void tile_coord(int m, int grid_cols, long long jt,
   }
 }
 
-// acc = the (64, 64) block a_base[0:64] . b_base[0:64]^T over l_pad samples,
-// rows a_rows.. and b_rows.. of the block reading as zero.  Thread (ty, tx)
-// holds rows ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3 (int8_t has its own
-// overload below).
-__device__ __forceinline__ void accumulate_block(
-    const float* __restrict__ a_base, const float* __restrict__ b_base,
-    int a_rows,
-    int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % (BM / TM);
-  const int ty = tid / (BM / TM);
-
-  // Global -> register staging: element e of this thread is row idx / BK,
-  // sample idx % BK of the chunk, so 16 neighbouring threads read 16
-  // contiguous elements of one row.
-  float a_ld[LOADS], b_ld[LOADS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int e = 0; e < LOADS; ++e) {
-      const int idx = tid + e * THREADS;
-      const int row = idx / BK;
-      const int k = k0 + idx % BK;
-      const bool kin = k < l_pad;
-      a_ld[e] = (kin && row < a_rows) ? a_base[(size_t)row * l_pad + k] : 0.f;
-      b_ld[e] = (kin && row < b_rows) ? b_base[(size_t)row * l_pad + k] : 0.f;
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < l_pad; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < LOADS; ++e) {
-      const int idx = tid + e * THREADS;
-      st.a.f[idx % BK][idx / BK] = a_ld[e];
-      st.b.f[idx % BK][idx / BK] = b_ld[e];
-    }
-    __syncthreads();
-    if (k0 + BK < l_pad) fetch(k0 + BK);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&st.a.f[k][ty * TM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&st.b.f[k][tx * TM]);
-      const float a[TM] = {av.x, av.y, av.z, av.w};
-      const float b[TM] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 // Samples k .. k+3 of an int8 row as one word, byte j = sample k + j (the
 // order __dp4a pairs bytes in); samples past l_pad read as zero.  `vec`:
 // the row and l_pad are 4-byte aligned, so k < l_pad implies the whole word
@@ -168,8 +101,11 @@ __device__ __forceinline__ int load_word(const int8_t* __restrict__ row,
   return (int)w;
 }
 
-// The int8 block: chunks of BK words (BK * KPW = 64 samples), one __dp4a
-// per (row, column, word) into int32, converted to float once.
+// acc = the (64, 64) block a_base[0:64] . b_base[0:64]^T over l_pad int8
+// samples, rows a_rows.. and b_rows.. of the block reading as zero, in
+// chunks of BK words (BK * KPW = 64 samples), one __dp4a per (row, column,
+// word) into int32, converted to float once.  Thread (ty, tx) holds rows
+// ty*4 .. ty*4+3 and columns tx*4 .. tx*4+3.
 __device__ __forceinline__ void accumulate_block(
     const int8_t* __restrict__ a_base, const int8_t* __restrict__ b_base,
     int a_rows, int b_rows, int l_pad, Stage& st, float (&acc)[TM][TM]) {

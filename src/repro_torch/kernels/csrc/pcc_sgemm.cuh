@@ -8,8 +8,8 @@
 //  * 128 x 128 outputs per CTA of 256 threads, 8 x 8 per thread read as two
 //    float4 strips 64 apart on each axis: per sample a warp issues 4
 //    shared-memory loads (one wavefront each) for 64 FMAs a thread, and a
-//    CTA reads 1 KB from L2 per 32 KFLOP (32 FLOP/B, twice the 64 x 64
-//    block of pcc_accum.cuh).
+//    CTA reads 1 KB from L2 per 32 KFLOP (32 FLOP/B, twice a 64 x 64
+//    block's).
 //  * A ring of STAGES chunks of BK samples, filled straight from global
 //    memory by 4-byte cp.async (no register staging), with one barrier per
 //    chunk: the loads of chunk c + STAGES - 1 are issued right after the
@@ -24,10 +24,10 @@
 //    itself (src-size 0): no masks in the FMAs.
 //
 // The invariant every bitwise check of the repository rests on: each
-// output is one sequential fmaf chain over k = 0 .. l_pad-1 from +0, the
-// same chain as pcc_accum.cuh's 64 x 64 block (which the float32 top-k
-// select still runs), so tiles do not depend on the block shape, the pass
-// or the launch.  Zero-filled samples past l_pad add +0 to a sum that is
+// output is one sequential fmaf chain over k = 0 .. l_pad-1 from +0, and
+// the float32 tiles (pcc_tile.cu) and the float32 top-k select
+// (pcc_topk.cu) both run this routine, so tiles do not depend on the pass,
+// the launch or the kernel that made them.  Zero-filled samples past l_pad add +0 to a sum that is
 // never -0, so they change no bit.  No split-K and no reordered sums.
 
 #pragma once

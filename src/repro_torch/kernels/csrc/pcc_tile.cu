@@ -52,10 +52,10 @@
 // (exact integer math on the triangle, one division on the grid), so any m
 // works, unlike the f32-only job_coord_f32 of the TPU kernel.  Every
 // output accumulates over k = 0 .. l_pad-1 in one sequential fmaf chain
-// from +0 whatever the block shape (the 64 x 64 block of the float32 top-k
-// select runs the same chain), so a tile's bits do not depend on the pass
-// it was launched in or on the kernel that made it, and the scale product
-// and the epilogue run in registers before the single store.
+// from +0 (the float32 top-k select runs the same mainloop), so a tile's
+// bits do not depend on the pass it was launched in or on the kernel that
+// made it, and the scale product and the epilogue run in registers before
+// the single store.
 
 #include "pcc_accum.cuh"
 #include "pcc_sgemm.cuh"

@@ -22,22 +22,37 @@
 // run in no order, so no state block is ever read-modified-written by two
 // CTAs.  Two kernels instead:
 //   1. pcc_topk_select: the tile accumulation of pcc_tiles, so the values
-//      are bitwise pcc_tiles': for float32 and int8 the SIMT fmaf / dp4a
-//      chain of pcc_accum.cuh on a 64 x 64 block; for bf16 the tensor-core
+//      are bitwise pcc_tiles': for float32 the 128 x 128 SGEMM mainloop of
+//      the float32 tiles (pcc_sgemm.cuh), for bf16 the tensor-core
 //      mainloop of pcc_tile_sm90.cu (pcc_mma.cuh, the same stages and
-//      wgmma steps) on a 128 x 128 block, cut into four 64 x 64 blocks.
-//      The CTA's finished block goes to shared memory and each row of a
-//      64 x 64 block (and, off the diagonal, each of its columns) selects
-//      its top-min(kk, 64) (below): by warp extraction while that is at
-//      most 32, else by rank counting.  The partial lists go to a pass
-//      scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) entries per
-//      side: 160 KB per 256 x 256 tile at kk = 10, against the 256 KB tile.
-//   2. pcc_topk_merge: one warp per output row merges the partial lists of
-//      the pass's tiles of its row block, found in closed form from the
-//      pass's tile-id range (no host index), 32 candidates at a time:
-//      candidates that cannot enter the held top-kk are dropped, the rest
-//      are bitonic-sorted in registers and merged by rank into the state
-//      held in shared memory.
+//      wgmma steps), each on a 128 x 128 block cut into four 64 x 64
+//      quarters; for int8 the SIMT __dp4a chain of pcc_accum.cuh on a
+//      64 x 64 block (exact int32 sums, the tensor-core tiles' bits).  The
+//      CTA's finished block goes to shared memory and each row of a 64 x 64
+//      block (and, off the diagonal, each of its columns) selects its
+//      top-min(kk, 64) (below): by warp extraction while that is at most
+//      32, else by rank counting.  The partial lists go to a pass scratch
+//      of (pass_tiles, t, ceil(t/64), min(kk, 64)) entries per side: 160 KB
+//      per 256 x 256 tile at kk = 10, against the 256 KB tile.
+//   2. pcc_topk_merge: one warp per output row (both sides of it on the
+//      triangle, so every warp merges the same number of tiles) merges the
+//      partial lists of the pass's tiles of its row block, found in closed
+//      form from the pass's tile-id range (no host index).  Each partial
+//      list is in canonical order, so its head decides it: the warp reads
+//      the heads of 32 lists at a time (the next 32 in flight meanwhile),
+//      and walks only the lists whose head precedes the held kk-th entry,
+//      entry by entry until one does not; each entry that passes is
+//      inserted into the held state, kept in registers (lane i holds
+//      entries i, i + 32, ...).  The heads lie 4 * kc bytes apart, so
+//      reading them touches most sectors of the value array, ~0.1 ms at
+//      Table II whatever the warps do; the rest is the walks, which the
+//      design keeps few and off the loads' path: the lanes whose heads
+//      pass load their lists' first WALK entries together, once a step,
+//      and a walk reads them by shuffle; and while a row's state is empty,
+//      only the lists whose head is among the step's kk largest are walked
+//      (the kk-th head bounds the final kk-th entry from below).  Two or
+//      four heads a lane a step, more loads in flight, were slower on the
+//      H100; scripts/merge_ablation.py times the other choices.
 // The canonical order is total over a row's unique columns, so any merge
 // order gives the reference's set and order.
 //
@@ -50,14 +65,17 @@
 // entries a line, extraction is kc rounds, each a warp reduction, a ballot
 // and a few selects for the line's 64 candidates, with no branch or memory
 // access inside a round (rank counting, kept for kc > 32, takes 64
-// comparisons a candidate whatever kc); the bf16 select spreads it over all
-// 12 of its warps.  The merge reads the scratch once (~0.4 GB at Table II,
-// ~0.12 ms at 3.35 TB/s).
+// comparisons a candidate whatever kc); the 128 x 128 selects spread it
+// over all their warps.  The merge must read every list's head (4 bytes;
+// at Table II 4.9 M lists, 20 MB, though the card moves 32-byte sectors:
+// 156 MB, >= 0.047 ms) and the entries that enter the state; reading the
+// whole scratch would be ~0.4 GB (~0.12 ms at 3.35 TB/s).
 
 #include <stdio.h>
 
 #include "pcc_accum.cuh"
 #include "pcc_mma.cuh"
+#include "pcc_sgemm.cuh"
 
 namespace {
 
@@ -66,6 +84,7 @@ using namespace pcc;
 constexpr int KC_MAX = BM;        // partial list length per CTA row/column
 constexpr int KK_MAX = 256;       // state capacity cap (the wrapper checks)
 constexpr int MERGE_WARPS = 8;    // output rows per merge CTA
+static_assert(KK_MAX % 32 == 0, "the merge holds KK_MAX / 32 entries a lane");
 // error codes beside cudaError_t: a tensor map cuTensorMapEncodeTiled refused
 constexpr int ERR_MAP = -1000;
 
@@ -99,9 +118,9 @@ constexpr int SEL_WARPS = THREADS / 32;      // warps of a 64 x 64 block
 constexpr int LINES = BM / SEL_WARPS;        // lines a warp holds, per side
 constexpr int KC_EXTRACT = 32;
 static_assert(KC_EXTRACT <= 32, "lane r keeps entry r of its lines");
-// lines per sweep in the SIMT selects, whose other CTAs on the SM hide
-// latency (and whose int8 instantiation stays at 70 registers: 74 with
-// sweeps of 8, at the same time); the bf16 select sweeps all LINES
+// lines per sweep in the int8 select, whose other CTAs on the SM hide
+// latency (and which stays at 70 registers: 74 with sweeps of 8, at the
+// same time); the 128 x 128 selects sweep all LINES
 constexpr int SIMT_SWEEP = 4;
 
 // One side of a finished block: line j at line_in + j of the tile,
@@ -244,7 +263,7 @@ __device__ __forceinline__ void rank_lines(const Side& sd,
   }
 }
 
-// Select (float32, int8): one CTA per 64 x 64 block of each valid tile.
+// Select (int8): one CTA per 64 x 64 block of each valid tile.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 pcc_topk_select_kernel(const T* __restrict__ u,
@@ -308,16 +327,113 @@ pcc_topk_select_kernel(const T* __restrict__ u,
   }
 }
 
+// The selection of a finished 128 x 128 block: val (row stride SEL_LD) at
+// (r_blk, c_blk) of tile (yt, xt), written to the scratch of slot
+// blockIdx.x as the four 64 x 64 blocks of the int8 select.  Quarters past
+// t are skipped; the column side runs only off the diagonal of a triangle
+// (`mirror`).  kc <= KC_EXTRACT: extraction by warps warp, warp + n_warps,
+// ..., one (side, quarter, line group) unit at a time; else rank counting
+// by the 256 threads that call it (barrier sync()) in the key scratch.
+constexpr int SEL_LD = 128 + 1;
+static_assert(mma::BLOCK == 128 && sgemm::BLOCK == 128,
+              "both selects cut 128 x 128 blocks into 64 x 64 quarters");
+
+template <typename Sync>
+__device__ __forceinline__ void select_quarters(
+    const float* val, float (&key)[BM][BM + 1], Sync sync, int warp,
+    int n_warps, int yt, int xt, int r_blk, int c_blk, int t, int nb,
+    int kc, int n_cols_valid, int symmetric, bool mirror, float* prv,
+    int* prc, float* pcv, int* pcc_) {
+  const size_t per = (size_t)nb * kc;
+  auto side_of = [&](int sb, bool cols) {
+    const int r_in = r_blk + BM * (sb >> 1), c_in = c_blk + BM * (sb & 1);
+    const float* vb = val + BM * (sb >> 1) * SEL_LD + BM * (sb & 1);
+    return cols ? col_side<SEL_LD>(vb, yt, xt, r_in, c_in, t, pcv, pcc_)
+                : row_side<SEL_LD>(vb, yt, xt, r_in, c_in, t, symmetric,
+                                   prv, prc);
+  };
+  auto inside = [&](int sb) {
+    return r_blk + BM * (sb >> 1) < t && c_blk + BM * (sb & 1) < t;
+  };
+  if (kc <= KC_EXTRACT) {
+    const int units = (mirror ? 2 : 1) * 4 * SEL_WARPS;
+    for (int u = warp; u < units; u += n_warps) {
+      const int sb = (u / SEL_WARPS) % 4;
+      if (!inside(sb)) continue;   // uniform over the warp
+      extract_lines<LINES>(side_of(sb, u >= 4 * SEL_WARPS), u % SEL_WARPS,
+                           threadIdx.x % 32, blockIdx.x, t, per, kc,
+                           n_cols_valid);
+    }
+    return;
+  }
+  for (int sb = 0; sb < 4; ++sb) {
+    if (!inside(sb)) continue;   // uniform over the CTA
+    rank_lines(side_of(sb, false), key, threadIdx.x, sync, blockIdx.x, t,
+               per, kc, n_cols_valid);
+    if (mirror)
+      rank_lines(side_of(sb, true), key, threadIdx.x, sync, blockIdx.x, t,
+                 per, kc, n_cols_valid);
+  }
+}
+
+// Select (float32): one CTA per 128 x 128 block of each valid tile, computed
+// by the mainloop of the float32 tiles (sgemm::accumulate_block, the same
+// fmaf chains, so the values are bitwise pcc_tiles'), two CTAs an SM.  Once
+// every thread is past the mainloop, its ring takes the finished block
+// (66,048 B at the row stride SEL_LD) and, behind it, the key scratch of
+// rank counting; then all 8 warps select the four quarters.
+constexpr int F32_SMEM = (sgemm::BLOCK * SEL_LD + BM * (BM + 1)) * 4;
+static_assert(F32_SMEM >= sgemm::SMEM_BYTES, "the ring fits too");
+
+__global__ void __launch_bounds__(sgemm::THREADS, 2)
+pcc_topk_select_f32_kernel(const float* __restrict__ u,
+                           const float* __restrict__ v,
+                           float* __restrict__ prv, int* __restrict__ prc,
+                           float* __restrict__ pcv, int* __restrict__ pcc_,
+                           long long j_start, long long dev_hi, int m,
+                           int grid_cols, int t, int l_pad, int nb,
+                           int nb128, int kc, int n_cols_valid,
+                           int symmetric, int has_div, float recip,
+                           int has_clip, float lo, float hi) {
+  extern __shared__ __align__(16) float smem[];
+  const long long jt_raw = j_start + (long long)blockIdx.x;
+  if (jt_raw >= dev_hi) return;       // uniform over the CTA
+  const long long total = tile_total(m, grid_cols);
+  const long long jt = jt_raw < total ? jt_raw : total - 1;
+  int yt, xt;
+  tile_coord(m, grid_cols, jt, &yt, &xt);
+  const int r_blk = (blockIdx.y / nb128) * sgemm::BLOCK;
+  const int c_blk = (blockIdx.y % nb128) * sgemm::BLOCK;
+
+  float acc[sgemm::TM][sgemm::TM];
+  sgemm::accumulate_block(u + ((size_t)yt * t + r_blk) * l_pad,
+                          v + ((size_t)xt * t + c_blk) * l_pad, t - r_blk,
+                          t - c_blk, l_pad, smem, acc);
+  __syncthreads();   // every thread is done reading the ring
+  const int ty = sgemm::ty_of(threadIdx.x), tx = sgemm::tx_of(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < sgemm::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < sgemm::TM; ++j)
+      smem[sgemm::strip(ty, i) * SEL_LD + sgemm::strip(tx, j)] =
+          epilogue(acc[i][j], has_div, recip, has_clip, lo, hi);
+  __syncthreads();
+  auto& key = *reinterpret_cast<float(*)[BM][BM + 1]>(
+      smem + sgemm::BLOCK * SEL_LD);
+  select_quarters(smem, key, [] { __syncthreads(); }, threadIdx.x / 32,
+                  sgemm::THREADS / 32, yt, xt, r_blk, c_blk, t, nb, kc,
+                  n_cols_valid, symmetric, grid_cols == 0 && yt != xt, prv,
+                  prc, pcv, pcc_);
+}
+
 // Select (bf16): one CTA per 128 x 128 block of each valid tile, computed
 // by the tensor-core mainloop of pcc_tiles (pcc_mma.cuh, the same stages
 // and steps, so the values are bitwise pcc_tiles'), then selected as the
-// four 64 x 64 blocks of the SIMT kernel, into the same scratch.  The ring
-// is reused for the finished block once both consumer warpgroups are done
-// with it.  Extraction runs on all SEL_ALL warps, the producer warpgroup's
-// too (it has issued its loads by then), one (side, 64 x 64 block, line
-// group) unit at a time; rank counting on the two consumer warpgroups.
+// four quarters.  The ring is reused for the finished block once both
+// consumer warpgroups are done with it.  Extraction runs on all SEL_ALL
+// warps, the producer warpgroup's too (it has issued its loads by then);
+// rank counting on the two consumer warpgroups.
 constexpr int SEL_STAGES = 4;
-constexpr int SEL_LD = mma::BLOCK + 1;
 constexpr int SEL_SMEM = SEL_STAGES * mma::STAGE_BYTES + 1024;
 constexpr int SEL_ALL = mma::THREADS / 32;
 static_assert(mma::BLOCK * SEL_LD * 4 + BM * (BM + 1) * 4 <=
@@ -389,39 +505,11 @@ pcc_topk_select_sm90(const __grid_constant__ CUtensorMap ta,
         val[(row0 + 8 * (e >> 1)) * SEL_LD + 8 * j + col0 + (e & 1)] =
             epilogue(acc[4 * j + e], has_div, recip, has_clip, lo, hi);
   }
-
-  const size_t per = (size_t)nb * kc;
-  const bool mirror = grid_cols == 0 && yt != xt;
-  auto side_of = [&](int sb, bool cols) {
-    const int r_in = r_blk + BM * (sb >> 1), c_in = c_blk + BM * (sb & 1);
-    const float* vb = val + BM * (sb >> 1) * SEL_LD + BM * (sb & 1);
-    return cols ? col_side<SEL_LD>(vb, yt, xt, r_in, c_in, t, pcv, pcc_)
-                : row_side<SEL_LD>(vb, yt, xt, r_in, c_in, t, symmetric,
-                                   prv, prc);
-  };
-  auto inside = [&](int sb) {
-    return r_blk + BM * (sb >> 1) < t && c_blk + BM * (sb & 1) < t;
-  };
-  if (extract) {
+  if (extract)
     sm90::bar_sync(2, mma::THREADS);   // the finished block is complete
-    const int units = (mirror ? 2 : 1) * 4 * SEL_WARPS;
-    for (int u = warp; u < units; u += SEL_ALL) {
-      const int sb = (u / SEL_WARPS) % 4;
-      if (!inside(sb)) continue;   // uniform over the warp
-      extract_lines<LINES>(side_of(sb, u >= 4 * SEL_WARPS), u % SEL_WARPS,
-                           threadIdx.x % 32, blockIdx.x, t, per, kc,
-                           n_cols_valid);
-    }
-    return;
-  }
-  for (int sb = 0; sb < 4; ++sb) {
-    if (!inside(sb)) continue;   // uniform over the CTA
-    rank_lines(side_of(sb, false), key, threadIdx.x, sync, blockIdx.x, t,
-               per, kc, n_cols_valid);
-    if (mirror)
-      rank_lines(side_of(sb, true), key, threadIdx.x, sync, blockIdx.x, t,
-                 per, kc, n_cols_valid);
-  }
+  select_quarters(val, key, sync, warp, SEL_ALL, yt, xt, r_blk, c_blk, t,
+                  nb, kc, n_cols_valid, symmetric,
+                  grid_cols == 0 && yt != xt, prv, prc, pcv, pcc_);
 }
 
 // id of the triangle tile (y, Y)
@@ -430,25 +518,206 @@ __device__ __forceinline__ long long mirror_id(long long m, long long Y,
   return tri_before(m, y) + Y - y;
 }
 
-// a precedes b in the canonical order (both valid)
-__device__ __forceinline__ bool precedes(float va, int ca, float vb, int cb) {
-  const float ka = fabsf(va), kb = fabsf(vb);
-  return ka > kb || (ka == kb && ca < cb);
+// The merge's order key of an entry: |v|'s bits (non-negative floats order
+// as their bits), then the complement of the column, so a larger key comes
+// first in the canonical order.  A masked entry (value 0, column -1) has
+// key 0, below every valid one (whose low word is >= 2^31).
+__device__ __forceinline__ unsigned long long merge_key(float v, int c) {
+  return ((unsigned long long)__float_as_uint(fabsf(v)) << 32) |
+         (unsigned)~c;
 }
 
-// first i in [0, n) whose entry does not precede (v, c)
-__device__ __forceinline__ int count_preceding(const float* sv, const int* sc,
-                                               int n, float v, int c) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (precedes(sv[mid], sc[mid], v, c)) lo = mid + 1; else hi = mid;
+constexpr unsigned FULL = 0xffffffffu;
+// entries of a passing list that its lane loads for the walk
+constexpr int WALK = 4;
+
+// A row's held state: entry i = 32 w + lane in key[w] / val[w], keys
+// descending; empty entries have key 0 and value 0 (so column ~0 = -1).
+template <int KW>
+struct Held {
+  unsigned long long key[KW];
+  float val[KW];
+};
+
+// Put (k, v) at its rank among the held entries, each entry behind it
+// moving up one; entries pushed past KW * 32 are dropped.
+template <int KW>
+__device__ __forceinline__ void insert(Held<KW>& h, unsigned long long k,
+                                       float v, int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 0; w < KW; ++w)
+    pos += __popc(__ballot_sync(FULL, h.key[w] > k));
+#pragma unroll
+  for (int w = KW - 1; w >= 0; --w) {   // key[w - 1] is still the old one
+    unsigned long long pk = __shfl_up_sync(FULL, h.key[w], 1);
+    float pv = __shfl_up_sync(FULL, h.val[w], 1);
+    if (w > 0) {
+      const unsigned long long ck = __shfl_sync(FULL, h.key[w - 1], 31);
+      const float cv = __shfl_sync(FULL, h.val[w - 1], 31);
+      if (lane == 0) {
+        pk = ck;
+        pv = cv;
+      }
+    }
+    const int i = 32 * w + lane;
+    h.key[w] = i == pos ? k : (i > pos ? pk : h.key[w]);
+    h.val[w] = i == pos ? v : (i > pos ? pv : h.val[w]);
   }
-  return lo;
 }
 
-// Merge: one warp per output row r of row block blockIdx.x; blockIdx.z
-// selects the row state (0) or the mirrored column state (1).
+// Key of held entry i (the same in every lane).  Each row is shuffled and
+// the row picked after: picking among the rows' registers first compiled
+// to an indexed load, which put the state in local memory (a stack frame).
+template <int KW>
+__device__ __forceinline__ unsigned long long held_key(const Held<KW>& h,
+                                                       int i) {
+  unsigned long long k = 0;
+#pragma unroll
+  for (int w = 0; w < KW; ++w) {
+    const unsigned long long x = __shfl_sync(FULL, h.key[w], i % 32);
+    k = w == i / 32 ? x : k;
+  }
+  return k;
+}
+
+// Merge into one output row (ov, oc: its kk entries) the lists of n_src
+// tiles of the pass: tile s is at slot slot0 + s, or, for the mirrored
+// column state, at the slot of tile (y_lo + s, Y).  Its lists sit at
+// ((slot * t + r) * nb + b) * kc, b < nb, each in canonical order with its
+// masked entries last.  thr is the held kk-th key once kk entries are held
+// (0 before: any valid entry passes); an entry enters iff its key exceeds
+// thr.
+template <int KW>
+__device__ __forceinline__ void merge_row(
+    const float* __restrict__ pv, const int* __restrict__ pc,
+    float* __restrict__ ov, int* __restrict__ oc, bool mirror, int n_src,
+    long long slot0, long long y_lo, int m, int Y, long long j_start, int t,
+    int r, int nb, int kc, int kk, int lane) {
+  Held<KW> h;
+#pragma unroll
+  for (int w = 0; w < KW; ++w) {
+    h.key[w] = 0;
+    h.val[w] = 0.f;
+  }
+  int held = 0;
+  unsigned long long thr = 0;
+  // Insert, in order, the entries of a passing list that precede the held
+  // kk-th entry, up to the first that does not (every later entry of the
+  // list follows it); returns whether the next entry may still enter.
+  auto take = [&](float v, int c) {
+    const unsigned long long k = merge_key(v, c);
+    if (k <= thr) return false;
+    insert(h, k, v, lane);
+    if (held < kk) ++held;
+    if (held == kk) thr = held_key(h, kk - 1);
+    return true;
+  };
+  const int per = nb * kc;
+  const int n_lists = n_src * nb;
+  // lane's list L = 32 c + lane of step c is block b of tile s; L, s and b
+  // move on by 32 lists a step, without a division
+  const int ds = 32 / nb, db = 32 % nb;
+  int s = lane / nb, b = lane % nb, L = lane;
+  size_t idx = 0;
+  float head = 0.f;
+  auto fetch = [&]() {
+    if (L < n_lists) {
+      long long slot = slot0 + s;
+      if (mirror) slot = mirror_id(m, Y, y_lo + s) - j_start;
+      idx = ((size_t)slot * t + r) * per + (size_t)b * kc;
+      head = pv[idx];
+    }
+    L += 32;
+    s += ds;
+    b += db;
+    if (b >= nb) {
+      b -= nb;
+      ++s;
+    }
+  };
+  fetch();
+  for (int c0 = 0; c0 < n_lists; c0 += 32) {
+    const bool ok = c0 + lane < n_lists;
+    const size_t cur = idx;
+    const float cur_v = head;
+    fetch();   // the next step's heads load while this step is decided
+    const unsigned hb = __float_as_uint(fabsf(cur_v));
+    // While the state is empty, the kk-th largest |v| among this step's
+    // heads (those above 0, surely valid) bounds the final kk-th entry
+    // from below, so lists whose head is under it are skipped unwalked.
+    unsigned floor_hb = 0;
+    if (held == 0 && kk <= 32) {   // uniform
+      unsigned x = ok ? hb : 0u;
+      if (__popc(__ballot_sync(FULL, x > 0)) >= kk) {
+        for (int i = 1; i < kk; ++i) {
+          const unsigned top = __reduce_max_sync(FULL, x);
+          const int at = __ffs(__ballot_sync(FULL, x == top)) - 1;
+          x = lane == at ? 0u : x;
+        }
+        floor_hb = __reduce_max_sync(FULL, x);
+      }
+    }
+    // a head with |v| above the threshold's is valid (masked entries are
+    // 0); at equal |v| its column decides
+    const unsigned th = (unsigned)(thr >> 32);
+    const bool pass =
+        ok && hb >= floor_hb &&
+        (hb > th || (hb == th && merge_key(cur_v, pc[cur]) > thr));
+    // the lanes whose heads pass load their lists' first WALK entries, all
+    // at once, so the walks below wait on no load until entry WALK
+    float lv[WALK];
+    int lc[WALK];
+#pragma unroll
+    for (int e = 0; e < WALK; ++e) {
+      lv[e] = e == 0 ? cur_v : (pass && e < kc ? pv[cur + e] : 0.f);
+      lc[e] = pass && e < kc ? pc[cur + e] : -1;
+    }
+    unsigned lists = __ballot_sync(FULL, pass);
+    while (lists) {   // uniform
+      const int src = __ffs(lists) - 1;
+      lists &= lists - 1;
+      bool more = true;
+#pragma unroll
+      for (int e = 0; e < WALK; ++e)
+        if (more && e < kc)
+          more = take(__shfl_sync(FULL, lv[e], src),
+                      __shfl_sync(FULL, lc[e], src));
+      if (!more || kc <= WALK) continue;
+      // the rest of the list, entries WALK .. kc-1 (kc <= 64)
+      const size_t at =
+          __shfl_sync(FULL, (unsigned long long)cur, src) + WALK;
+      const int rest = kc - WALK;
+      float va = 0.f, vb = 0.f;
+      int ca = -1, cb = -1;
+      if (lane < rest) {
+        va = pv[at + lane];
+        ca = pc[at + lane];
+      }
+      if (lane + 32 < rest) {
+        vb = pv[at + lane + 32];
+        cb = pc[at + lane + 32];
+      }
+      for (int q = 0; q < rest && more; ++q)
+        more = take(__shfl_sync(FULL, q < 32 ? va : vb, q & 31),
+                    __shfl_sync(FULL, q < 32 ? ca : cb, q & 31));
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < KW; ++w) {
+    const int i = 32 * w + lane;
+    if (i < kk) {
+      ov[i] = h.val[w];
+      oc[i] = (int)~(unsigned)h.key[w];
+    }
+  }
+}
+
+// Merge: one warp per output row r of row block Y: the row state from the
+// tiles (Y, x) of the pass and, on the triangle, the mirrored column state
+// from the tiles (y, Y), y < Y, so that each warp merges the lists of the
+// same number of tiles (m, over a whole triangle).  KW * 32 >= kk.
+template <int KW>
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
 pcc_topk_merge_kernel(const float* __restrict__ prv,
                       const int* __restrict__ prc,
@@ -458,127 +727,48 @@ pcc_topk_merge_kernel(const float* __restrict__ prv,
                       int* __restrict__ cc, long long j_start,
                       long long hi_eff, int m, int grid_cols, int t, int nb,
                       int kc, int kk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.y * MERGE_WARPS + warp;
-  if (r >= t) return;                 // whole warp; no block barrier below
-  const int Y = blockIdx.x;
-  const bool mirror = blockIdx.z == 1;
-
-  float* sv = reinterpret_cast<float*>(smem) + (size_t)warp * (4 * kk + 64);
-  int* sc = reinterpret_cast<int*>(sv + kk);
-  float* nv = sv + 2 * kk;
-  int* nc = reinterpret_cast<int*>(sv + 3 * kk);
-  float* chv = sv + 4 * kk;
-  int* chc = reinterpret_cast<int*>(sv + 4 * kk + 32);
-
-  // This pass's tiles feeding row block Y, as slot = first + step(s).
+  const int lane = threadIdx.x & 31;
+  const long long g =
+      (long long)blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
+  if (g >= (long long)m * t) return;   // whole warp
+  const int Y = (int)(g / t), r = (int)(g % t);
   const long long mm = m;
-  long long n_src = 0, y_lo = 0, slot0 = 0;
-  if (!mirror) {
-    const long long id_lo = grid_cols > 0 ? (long long)Y * grid_cols
-                                          : tri_before(mm, Y);
-    const long long id_hi = grid_cols > 0 ? id_lo + grid_cols
-                                          : id_lo + (mm - Y);
-    const long long lo = id_lo > j_start ? id_lo : j_start;
-    const long long hi = id_hi < hi_eff ? id_hi : hi_eff;
-    n_src = hi > lo ? hi - lo : 0;
-    slot0 = lo - j_start;
-  } else {
-    // tiles (y, Y), y < Y: mirror_id grows with y
-    auto first_at_least = [&](long long bound) {
-      long long a = 0, b = Y;
-      while (a < b) {
-        const long long mid = (a + b) >> 1;
-        if (mirror_id(mm, Y, mid) < bound) a = mid + 1; else b = mid;
-      }
-      return a;
-    };
-    y_lo = first_at_least(j_start);
-    n_src = first_at_least(hi_eff) - y_lo;
-  }
-  const float* pv = mirror ? pcv : prv;
-  const int* pc = mirror ? pcc_ : prc;
-  const long long per = (long long)nb * kc;
-  const long long n_cand = n_src * per;
+  const size_t out = ((size_t)Y * t + r) * kk;
 
-  int held = 0;
-  for (long long base = 0; base < n_cand; base += 32) {
-    const long long q = base + lane;
-    float cv_ = 0.f;
-    int cc_ = -1;
-    if (q < n_cand) {
-      const long long s = q / per, e = q % per;
-      const long long slot =
-          mirror ? mirror_id(mm, Y, y_lo + s) - j_start : slot0 + s;
-      const size_t idx = ((size_t)slot * t + r) * per + e;
-      cv_ = pv[idx];
-      cc_ = pc[idx];
-    }
-    bool ok = cc_ >= 0;
-    if (ok && held == kk) ok = precedes(cv_, cc_, sv[kk - 1], sc[kk - 1]);
-    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
-    if (ballot == 0) continue;
-    // bitonic sort of the 32 lanes: valid first, then canonical order
-#pragma unroll
-    for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        const float pv_ = __shfl_xor_sync(0xffffffffu, cv_, stride);
-        const int pc_ = __shfl_xor_sync(0xffffffffu, cc_, stride);
-        const bool pok = __shfl_xor_sync(0xffffffffu, (int)ok, stride);
-        const bool first = ((lane & stride) == 0) == ((lane & size) == 0);
-        const bool partner_first = pok && (!ok || precedes(pv_, pc_, cv_, cc_));
-        const bool mine_first = ok && (!pok || precedes(cv_, cc_, pv_, pc_));
-        if (first ? partner_first : mine_first) {
-          cv_ = pv_;
-          cc_ = pc_;
-          ok = pok;
-        }
-      }
-    }
-    const int n_new = __popc(ballot);
-    chv[lane] = cv_;
-    chc[lane] = cc_;
-    __syncwarp();
-    if (lane < n_new) {
-      const int pos = lane + count_preceding(sv, sc, held, cv_, cc_);
-      if (pos < kk) {
-        nv[pos] = cv_;
-        nc[pos] = cc_;
-      }
-    }
-    for (int i = lane; i < held; i += 32) {
-      const int pos = i + count_preceding(chv, chc, n_new, sv[i], sc[i]);
-      if (pos < kk) {
-        nv[pos] = sv[i];
-        nc[pos] = sc[i];
-      }
-    }
-    __syncwarp();
-    held = held + n_new < kk ? held + n_new : kk;
-    for (int i = lane; i < held; i += 32) {
-      sv[i] = nv[i];
-      sc[i] = nc[i];
-    }
-    __syncwarp();
-  }
+  // this pass's tiles (Y, x): consecutive slots
+  const long long id_lo = grid_cols > 0 ? (long long)Y * grid_cols
+                                        : tri_before(mm, Y);
+  const long long id_hi = grid_cols > 0 ? id_lo + grid_cols
+                                        : id_lo + (mm - Y);
+  const long long lo = id_lo > j_start ? id_lo : j_start;
+  const long long hi = id_hi < hi_eff ? id_hi : hi_eff;
+  merge_row<KW>(prv, prc, rv + out, rc + out, false,
+                hi > lo ? (int)(hi - lo) : 0, lo - j_start, 0, m, Y, j_start,
+                t, r, nb, kc, kk, lane);
+  if (grid_cols > 0) return;
 
-  float* ov = (mirror ? cv : rv) + ((size_t)Y * t + r) * kk;
-  int* oc = (mirror ? cc : rc) + ((size_t)Y * t + r) * kk;
-  for (int i = lane; i < kk; i += 32) {
-    ov[i] = i < held ? sv[i] : 0.f;
-    oc[i] = i < held ? sc[i] : -1;
-  }
+  // tiles (y, Y), y < Y: mirror_id grows with y
+  auto first_at_least = [&](long long bound) {
+    long long a = 0, b = Y;
+    while (a < b) {
+      const long long mid = (a + b) >> 1;
+      if (mirror_id(mm, Y, mid) < bound) a = mid + 1; else b = mid;
+    }
+    return a;
+  };
+  const long long y_lo = first_at_least(j_start);
+  merge_row<KW>(pcv, pcc_, cv + out, cc + out, true,
+                (int)(first_at_least(hi_eff) - y_lo), 0, y_lo, m, Y,
+                j_start, t, r, nb, kc, kk, lane);
 }
 
-template <typename T>
-int launch_select(const T* u, const T* v, float* prv, int* prc, float* pcv,
-                  int* pcc_, long long j_start, long long dev_hi,
-                  int pass_tiles, int m, int grid_cols, int t, int l_pad,
-                  int kk, int n_cols_valid, int symmetric, int has_div,
-                  float recip, int has_clip, float lo, float hi,
-                  void* stream) {
+// int8: the SIMT 64 x 64 select.
+int launch_select_i8(const int8_t* u, const int8_t* v, float* prv, int* prc,
+                     float* pcv, int* pcc_, long long j_start,
+                     long long dev_hi, int pass_tiles, int m, int grid_cols,
+                     int t, int l_pad, int kk, int n_cols_valid,
+                     int symmetric, int has_div, float recip, int has_clip,
+                     float lo, float hi, void* stream) {
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
       j_start < 0 || kk <= 0 || kk > KK_MAX)
     return (int)cudaErrorInvalidValue;
@@ -586,9 +776,35 @@ int launch_select(const T* u, const T* v, float* prv, int* prc, float* pcv,
   if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
   const int kc = kk < KC_MAX ? kk : KC_MAX;
   const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb));
-  pcc_topk_select_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  pcc_topk_select_kernel<int8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       u, v, prv, prc, pcv, pcc_, j_start, dev_hi, m, grid_cols, t, l_pad, nb,
       kc, n_cols_valid, symmetric, has_div, recip, has_clip, lo, hi);
+  return (int)cudaGetLastError();
+}
+
+// float32: the select on the SGEMM mainloop.
+int launch_select_f32(const float* u, const float* v, float* prv, int* prc,
+                      float* pcv, int* pcc_, long long j_start,
+                      long long dev_hi, int pass_tiles, int m, int grid_cols,
+                      int t, int l_pad, int kk, int n_cols_valid,
+                      int symmetric, int has_div, float recip, int has_clip,
+                      float lo, float hi, void* stream) {
+  if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
+      j_start < 0 || kk <= 0 || kk > KK_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int nb = (t + BM - 1) / BM;
+  const int nb128 = (t + sgemm::BLOCK - 1) / sgemm::BLOCK;
+  if ((long long)nb128 * nb128 > 65535) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      pcc_topk_select_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F32_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int kc = kk < KC_MAX ? kk : KC_MAX;
+  const dim3 grid((unsigned)pass_tiles, (unsigned)(nb128 * nb128));
+  pcc_topk_select_f32_kernel<<<grid, sgemm::THREADS, F32_SMEM,
+                               (cudaStream_t)stream>>>(
+      u, v, prv, prc, pcv, pcc_, j_start, dev_hi, m, grid_cols, t, l_pad, nb,
+      nb128, kc, n_cols_valid, symmetric, has_div, recip, has_clip, lo, hi);
   return (int)cudaGetLastError();
 }
 
@@ -652,9 +868,9 @@ int launch_select_sm90(const __nv_bfloat16* u, const __nv_bfloat16* v,
                   recip, has_clip, lo, hi, stream);                           \
   }
 
-PCC_TOPK_SELECT_ENTRY(pcc_topk_select_f32, float, launch_select<float>)
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_f32, float, launch_select_f32)
 PCC_TOPK_SELECT_ENTRY(pcc_topk_select_bf16, __nv_bfloat16, launch_select_sm90)
-PCC_TOPK_SELECT_ENTRY(pcc_topk_select_i8, int8_t, launch_select<int8_t>)
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_i8, int8_t, launch_select_i8)
 
 // Kernel 2.  hi_eff = min(j_start + pass_tiles, dev_hi); cv/cc (and
 // pcv/pcc) are unused on the grid.
@@ -668,11 +884,11 @@ extern "C" int pcc_topk_merge(const float* prv, const int* prc,
     return (int)cudaErrorInvalidValue;
   const int nb = (t + BM - 1) / BM;
   const int kc = kk < KC_MAX ? kk : KC_MAX;
-  const dim3 grid((unsigned)m, (unsigned)((t + MERGE_WARPS - 1) / MERGE_WARPS),
-                  grid_cols > 0 ? 1u : 2u);
-  const size_t smem = (size_t)MERGE_WARPS * (4 * kk + 64) * sizeof(float);
-  pcc_topk_merge_kernel<<<grid, MERGE_WARPS * 32, smem,
-                          (cudaStream_t)stream>>>(
+  const long long blocks = ((long long)m * t + MERGE_WARPS - 1) / MERGE_WARPS;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const auto kernel = kk <= 32 ? pcc_topk_merge_kernel<1>
+                               : pcc_topk_merge_kernel<KK_MAX / 32>;
+  kernel<<<(unsigned)blocks, MERGE_WARPS * 32, 0, (cudaStream_t)stream>>>(
       prv, prc, pcv, pcc_, rv, rc, cv, cc, j_start, hi_eff, m, grid_cols, t,
       nb, kc, kk);
   return (int)cudaGetLastError();

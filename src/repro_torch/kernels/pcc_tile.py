@@ -514,18 +514,23 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
                 epilogue: Optional[EpilogueSpec] = None,
                 v_pad: Optional[torch.Tensor] = None,
                 grid_cols: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
-    """Launch the first CUDA kernel of :func:`pcc_topk_tiles` (CUDA tensors
-    only): each tile line's top-min(kk, 64) per 64-wide block, into a pass
-    scratch of (pass_tiles, t, ceil(t/64), min(kk, 64)) (value, column)
-    pairs per side (rows; columns too on the triangle).  bf16 operands take
-    the tensor-core mainloop of the bf16 tiles, so the values are bitwise
-    :func:`pcc_tiles`'; int8 operands keep the SIMT ``__dp4a`` block, whose
-    exact int32 sums are the tensor-core tiles' bits too."""
+    """The first CUDA kernel of :func:`pcc_topk_tiles`: each tile line's
+    top-min(kk, 64) per 64-wide block, into a pass scratch of (pass_tiles,
+    t, ceil(t/64), min(kk, 64)) (value, column) pairs per side (rows;
+    columns too on the triangle).  float32 operands take the SGEMM mainloop
+    of the float32 tiles and bf16 operands the tensor-core mainloop of the
+    bf16 tiles, so the values are bitwise :func:`pcc_tiles`'; int8
+    operands keep the SIMT ``__dp4a`` block, whose exact int32 sums are the
+    tensor-core tiles' bits too.  A CPU tensor runs
+    :func:`topk_select_plain`."""
     m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                               grid_cols, kk, dev_hi, n_cols_valid)
-    if u_pad.device.type != "cuda":
-        raise ValueError("topk_select launches the CUDA kernel; CPU tensors "
-                         "take pcc_topk_tiles_plain")
+    if u_pad.device.type == "cpu":
+        return topk_select_plain(
+            u_pad, j_start, dev_hi, t=t, l_blk=l_blk, pass_tiles=pass_tiles,
+            kk=kk, n_cols_valid=n_cols_valid,
+            symmetric_problem=symmetric_problem, epilogue=epilogue,
+            v_pad=v_pad, grid_cols=grid_cols)
     from repro_torch.kernels import _build
 
     lib = _build.load("pcc_topk")
@@ -554,9 +559,13 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
 def topk_merge(scratch: Tuple[torch.Tensor, ...], j_start: int, dev_hi: int,
                *, m: int, t: int, pass_tiles: int, kk: int,
                grid_cols: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
-    """Launch the second CUDA kernel of :func:`pcc_topk_tiles`: merge the
-    pass scratch of :func:`topk_select` into the (m, t, kk) state
-    outputs."""
+    """The second CUDA kernel of :func:`pcc_topk_tiles`: merge the pass
+    scratch of :func:`topk_select` into the (m, t, kk) state outputs.  A
+    scratch on the CPU runs :func:`topk_merge_plain`."""
+    if scratch[0].device.type == "cpu":
+        return topk_merge_plain(scratch, j_start, dev_hi, m=m, t=t,
+                                pass_tiles=pass_tiles, kk=kk,
+                                grid_cols=grid_cols)
     from repro_torch.kernels import _build
 
     lib = _build.load("pcc_topk")
@@ -666,6 +675,102 @@ def topk_fold_plain(tiles: Optional[torch.Tensor], j_start: int, *, m: int,
     return tuple(x for pair in state for x in pair)
 
 
+def _block_lists(vals: torch.Tensor, cols: torch.Tensor,
+                 kc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n, t, t) line values and their candidates' columns (-1 masked) ->
+    each line's top-kc per 64-candidate block, (n, t, nb, kc) each, the
+    candidates past t masked."""
+    n, t, _ = vals.shape
+    nb = -(-t // CTA_BLOCK)
+    pad = nb * CTA_BLOCK - t
+    vals = torch.nn.functional.pad(vals, (0, pad))
+    cols = torch.nn.functional.pad(cols, (0, pad), value=-1)
+    lv, lc = _topk_select(vals.reshape(-1, CTA_BLOCK),
+                          cols.reshape(-1, CTA_BLOCK), kc)
+    return lv.view(n, t, nb, kc), lc.view(n, t, nb, kc)
+
+
+def topk_select_plain(u_pad: torch.Tensor, j_start: int, dev_hi: int, *,
+                      t: int, l_blk: int, pass_tiles: int, kk: int,
+                      n_cols_valid: int, symmetric_problem: bool,
+                      epilogue: Optional[EpilogueSpec] = None,
+                      v_pad: Optional[torch.Tensor] = None,
+                      grid_cols: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`topk_select`, on any device: the
+    same pass scratch, from :func:`pcc_tiles_plain`'s tiles.  Each list
+    (slot, line, 64-wide block) holds its line's top-min(kk, 64) of that
+    block in canonical order, masked entries (value 0, column -1) last.
+    Lists the merge never reads (slots at or past dev_hi; the column side
+    of diagonal tiles) hold masked entries only; the kernel leaves them
+    unwritten."""
+    j_start, dev_hi = int(j_start), int(dev_hi)
+    m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
+                              grid_cols, kk, dev_hi, n_cols_valid)
+    dev = u_pad.device
+    kc = min(kk, CTA_BLOCK)
+    part = (pass_tiles, t, -(-t // CTA_BLOCK), kc)
+    sides = [[torch.zeros(part, dtype=torch.float32, device=dev),
+              torch.full(part, -1, dtype=torch.int32, device=dev)]
+             for _ in range(1 if grid_cols is not None else 2)]
+    n_valid = min(pass_tiles, dev_hi - j_start)
+    if n_valid <= 0:
+        return tuple(x for side in sides for x in side)
+    tiles = pcc_tiles_plain(u_pad, j_start, t=t, l_blk=l_blk,
+                            pass_tiles=n_valid, epilogue=epilogue,
+                            v_pad=v_pad, grid_cols=grid_cols)
+    ys, xs = _coords(m, grid_cols, j_start + np.arange(n_valid))
+    ys = torch.as_tensor(ys, device=dev)[:, None, None]
+    xs = torch.as_tensor(xs, device=dev)[:, None, None]
+    span = torch.arange(t, device=dev)
+    # rows: line r of tile (y, x), candidates x*t + c
+    cand = xs * t + span
+    bad = cand >= n_cols_valid
+    if symmetric_problem:
+        bad = bad | (cand == ys * t + span[:, None])
+    sides[0][0][:n_valid], sides[0][1][:n_valid] = _block_lists(
+        tiles, torch.where(bad, -1, cand).expand(-1, t, -1), kc)
+    if grid_cols is None:
+        # columns: line c of off-diagonal tile (y, x), candidates y*t + r
+        cand = ys * t + span
+        bad = (cand >= n_cols_valid) | (ys == xs)
+        sides[1][0][:n_valid], sides[1][1][:n_valid] = _block_lists(
+            tiles.transpose(1, 2), torch.where(bad, -1, cand).expand(
+                -1, t, -1), kc)
+    return tuple(x for side in sides for x in side)
+
+
+def topk_merge_plain(scratch: Tuple[torch.Tensor, ...], j_start: int,
+                     dev_hi: int, *, m: int, t: int, pass_tiles: int,
+                     kk: int, grid_cols: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`topk_merge`, on any device: each
+    output row takes the top-kk under the canonical order of the lists
+    that the pass's valid slots hold for it (row block y: the tiles (y, x);
+    its mirrored column state: the off-diagonal tiles (x, y)), empty slots
+    value 0 and column -1.  Only the values and columns of the scratch are
+    moved, so the state is bitwise whatever merges the same lists."""
+    j_start, dev_hi = int(j_start), int(dev_hi)
+    dev = scratch[0].device
+    state = []
+    n_valid = min(pass_tiles, dev_hi - j_start)
+    ys, xs = _coords(m, grid_cols, j_start + np.arange(max(n_valid, 0)))
+    for side in range(len(scratch) // 2):
+        pv, pc = scratch[2 * side], scratch[2 * side + 1]
+        vals = torch.zeros((m, t, kk), dtype=torch.float32, device=dev)
+        cols = torch.full((m, t, kk), -1, dtype=torch.int32, device=dev)
+        owner = ys if side == 0 else xs
+        read = np.ones(len(ys), bool) if side == 0 else ys != xs
+        for y in np.unique(owner[read]):
+            sel = torch.as_tensor(np.nonzero(read & (owner == y))[0],
+                                  device=dev)
+            vals[y], cols[y] = _topk_select(
+                pv[sel].transpose(0, 1).reshape(t, -1),
+                pc[sel].transpose(0, 1).reshape(t, -1), kk)
+        state += [vals, cols]
+    return tuple(state)
+
+
 __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
            "OPERAND_DTYPES", "TOPK_DTYPES", "SM90_DTYPES",
            "SELECT_SM90_DTYPES", "TMA_ALIGN",
@@ -673,4 +778,5 @@ __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
            "tile_kernel",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
-           "topk_fold_plain", "topk_scratch_bytes"]
+           "topk_select_plain", "topk_merge_plain", "topk_fold_plain",
+           "topk_scratch_bytes"]

@@ -6,7 +6,11 @@ launches themselves need an NVIDIA GPU: tests/test_torch_kernels_gpu.py).
 int8 tiles run on the tensor-core library (pcc_tile_sm90.cu) and read
 their operands through TMA, so the tile wrapper pads int8 rows to 16
 bytes; the int8 top-k select stays on the SIMT block of pcc_topk.cu and
-takes its operands as they are.
+takes its operands as they are.  Each top-k select runs the mainloop of
+the tiles of its dtype where they must agree bit for bit: float32 the
+SGEMM mainloop of pcc_sgemm.cuh, bf16 the tensor-core one of pcc_mma.cuh;
+int8 the __dp4a block of pcc_accum.cuh (exact sums, so the tensor-core
+tiles' bits too), which has no float32 routine left.
 """
 
 import re
@@ -44,13 +48,61 @@ def test_simt_tile_library_keeps_float32_only():
                          (CSRC / "pcc_tile.cu").read_text())
 
 
+# select entry point -> (its launcher, the kernel it launches, the
+# accumulation routine that kernel calls)
+SELECT_ROUTES = {
+    torch.float32: ("launch_select_f32", "pcc_topk_select_f32_kernel",
+                    "sgemm::accumulate_block"),
+    torch.bfloat16: ("launch_select_sm90", "pcc_topk_select_sm90<T>",
+                     "mma::mma_block"),
+    torch.int8: ("launch_select_i8", "pcc_topk_select_kernel<int8_t>",
+                 "accumulate_block"),
+}
+
+
+def _function_body(src, head):
+    """The text of the function defined at the first `head` in `src`, from
+    its opening brace to the matching closing one."""
+    start = src.index("{", src.index(head))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(f"unbalanced braces after {head!r}")
+
+
 @pytest.mark.parametrize("dtype", TOPK_DTYPES)
 def test_topk_select_entry_by_dtype(dtype):
-    """Every top-k dtype has its select entry point; only bf16 selects on
-    the tensor-core mainloop, so only bf16 operands are padded for TMA."""
-    assert f"pcc_topk_select_{OPERAND_DTYPES[dtype]}" in \
-        _build.SIGNATURES["pcc_topk"]
+    """Every top-k dtype has its select entry point, bound for its library,
+    whose launcher launches its kernel, which accumulates on the mainloop
+    of that dtype's tiles: float32 on pcc_sgemm.cuh (the 128 x 128 SGEMM of
+    the float32 tiles), bf16 on pcc_mma.cuh, int8 on pcc_accum.cuh's int8
+    block.  Only bf16 selects through TMA, so only bf16 operands are
+    padded for it."""
+    entry = f"pcc_topk_select_{OPERAND_DTYPES[dtype]}"
+    assert entry in _build.SIGNATURES["pcc_topk"]
     assert (dtype in SELECT_SM90_DTYPES) == (dtype == torch.bfloat16)
+    src = (CSRC / "pcc_topk.cu").read_text()
+    launcher, kernel, mainloop = SELECT_ROUTES[dtype]
+    assert re.search(rf"_ENTRY\(\s*{entry}\s*,[^)]*\b{launcher}\)", src)
+    assert kernel + "<<<" in _function_body(src, f"int {launcher}(")
+    name = kernel.split("<")[0]
+    body = _function_body(src, f"\n{name}(")
+    assert re.search(rf"(?<![:\w]){re.escape(mainloop)}[<(]", body), (
+        kernel, mainloop)
+
+
+def test_float32_select_left_the_64_block():
+    """pcc_accum.cuh keeps only the int8 block: no float32 routine is left
+    for a select to fall back on."""
+    src = (CSRC / "pcc_accum.cuh").read_text()
+    heads = re.findall(r"void accumulate_block\(\s*const (\w+)", src)
+    assert heads == ["int8_t"]
+    topk = (CSRC / "pcc_topk.cu").read_text()
+    assert '#include "pcc_sgemm.cuh"' in topk
+    assert "sgemm::accumulate_block(" in _function_body(
+        topk, "\npcc_topk_select_f32_kernel(")
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))

@@ -22,7 +22,9 @@ from repro_torch.kernels.narrow_gate import (FAULT_SHARE, gate_share,
 from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
                                           pcc_tiles_plain, pcc_topk_tiles,
                                           pcc_topk_tiles_plain,
-                                          topk_fold_plain)
+                                          topk_fold_plain, topk_merge,
+                                          topk_merge_plain, topk_select,
+                                          topk_select_plain)
 
 # same products, two float32 summation orders, l <= 300: the reference's
 # own Pearson bound
@@ -185,7 +187,7 @@ def _topk_operands(dtype, ties, n, n_cols, l, t, l_blk, device, grid):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("grid", [False, True])
-@pytest.mark.parametrize("kk", [1, 10, 64, 65, 256])
+@pytest.mark.parametrize("kk", [1, 10, 32, 33, 64, 65, 256])
 @pytest.mark.parametrize("n,n_cols,l,t,l_blk,j_start,pass_tiles,short,ties", [
     (70, 45, 29, 8, 8, 0, 200, 0, False),    # whole workload, one pass
     (70, 45, 29, 8, 8, 7, 11, 3, False),     # mid range, dev_hi below end
@@ -193,15 +195,22 @@ def _topk_operands(dtype, ties, n, n_cols, l, t, l_blk, device, grid):
     (600, 330, 300, 256, 512, 1, 5, 1, False),
     (300, 170, 40, 64, 8, 0, 200, 0, True),  # exact ties of both signs
     (400, 300, 24, 96, 8, 1, 50, 2, True),   # ties, t past one 64 block
+    # t = 128 and 192: 128-blocks partly past the tile (t = 192), the
+    # valid rows and columns cut inside a 64-block
+    (700, 450, 40, 128, 8, 0, 200, 0, False),
+    (500, 333, 50, 192, 16, 1, 200, 1, True),
+    # 125 row blocks: each row merges many chunks of lists once full
+    (2000, 1500, 24, 16, 8, 0, 20_000, 0, False),
 ])
 def test_topk_kernel_matches_plain(cuda, dtype, grid, kk, n, n_cols, l, t,
                                    l_blk, j_start, pass_tiles, short, ties):
     """The float32, int8 and bf16 selects (and the merge) against the plain
     version, for kk below and above the 64-entry partial lists (kc capped
-    at 64): the state is bitwise the plain ranking of pcc_tiles' own tiles
-    (so its values are those tiles' bits and its order canonical), and
-    within ATOL of the plain version's state (float32), or bitwise it
-    (int8, and exact ties in every dtype)."""
+    at 64) and on both sides of the select's extraction / rank-counting
+    edge (kc 32 / 33): the state is bitwise the plain ranking of
+    pcc_tiles' own tiles (so its values are those tiles' bits and its
+    order canonical), and within ATOL of the plain version's state
+    (float32), or bitwise it (int8, and exact ties in every dtype)."""
     u, v = _topk_operands(dtype, ties, n, n_cols, l, t, l_blk, cuda, grid)
     m = u.shape[0] // t
     gc = v.shape[0] // t if grid else None
@@ -251,6 +260,112 @@ def test_topk_kernel_matches_plain(cuda, dtype, grid, kk, n, n_cols, l, t,
         assert torch.equal(vals[ok], ref)
 
 
+def _tie_operands(data, n, n_cols, t, width, seed, device, grid):
+    """Operands whose tiles are exact in every order: small integers
+    ("ties": |v| ties exactly, with both signs), or +-1 over one sample
+    ("equal": every |v| is 1, so the columns alone order a row); rows past
+    n and n_cols are zero."""
+    rng = np.random.default_rng(seed)
+    def one(rows, valid):
+        pad = -(-rows // t) * t
+        if data == "equal":
+            x = 2.0 * rng.integers(0, 2, size=(pad, width)) - 1.0
+        else:
+            x = rng.integers(-2, 3, size=(pad, width)).astype(np.float64)
+        x[valid:] = 0.0
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+    u = one(n, n)
+    return u, (one(n_cols, n_cols) if grid else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("kk", [1, 10, 32, 33, 64, 65, 256])
+@pytest.mark.parametrize("data", ["ties", "equal"])
+def test_topk_merge_kernel_bitwise_plain_merge(cuda, grid, kk, data):
+    """The merge kernel alone against topk_merge_plain on the same pass
+    scratch (the select's plain version, on the card), bit for bit:
+    exact ties of both signs, every |v| equal, masked entries (t = 40
+    leaves 24 of each list's 64 candidates masked, and the valid rows and
+    columns end inside a tile), kk from 1 to 256, a whole pass and a pass
+    inside the tile range with dev_hi short of its end."""
+    t, width = 40, (12 if data == "ties" else 1)
+    n, n_cols = 1_000, 700
+    u, v = _tie_operands(data, n, n_cols, t, width, kk, cuda, grid)
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    empty = False
+    for j0, pt, short in ((0, total, 0), (total // 3, total // 2, 5)):
+        dev_hi = j0 + pt - short
+        kw = dict(t=t, l_blk=width if data == "equal" else 4, pass_tiles=pt,
+                  kk=kk, n_cols_valid=n_cols if grid else n,
+                  symmetric_problem=not grid, epilogue=EpilogueSpec(div=3.0),
+                  v_pad=v, grid_cols=gc)
+        scratch = topk_select_plain(u, j0, dev_hi, **kw)
+        mkw = dict(m=m, t=t, pass_tiles=pt, kk=kk, grid_cols=gc)
+        before = pcc_topk_tiles.launches["merge"]
+        got = topk_merge(scratch, j0, dev_hi, **mkw)
+        want = topk_merge_plain(scratch, j0, dev_hi, **mkw)
+        torch.cuda.synchronize()
+        assert pcc_topk_tiles.launches["merge"] == before + 1
+        assert len(got) == len(want) == (2 if grid else 4)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        held = got[1] >= 0
+        assert bool(held.any())
+        empty |= bool((~held).any())
+        if data == "equal":      # the data rows' entries: +-1 / 3 each
+            vals = got[0].reshape(-1, kk)[:n]
+            rows_held = held.reshape(-1, kk)[:n]
+            assert bool((vals[rows_held].abs()
+                         == float(np.float32(1) / np.float32(3))).all())
+    assert empty              # rows short of kk entries, or of any tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("kk", [1, 10, 32, 33, 64, 65])
+def test_topk_select_kernel_scratch_bitwise_plain(cuda, dtype, grid, kk):
+    """Each select kernel's pass scratch, list for list, against
+    topk_select_plain's on exact tiles: every list the merge reads (the
+    valid slots' rows; on the triangle, the off-diagonal slots' columns)
+    holds the same entries in the same slots, by extraction (kc <= 32) and
+    by rank counting (kc > 32), with t = 192 (the 128-blocks' second half
+    past the tile) and the valid rows and columns cut inside a 64-block."""
+    t, n, n_cols = 192, 500, 333
+    u, v = _tie_operands("ties", n, n_cols, t, 16, kk + 7, cuda, grid)
+    cast = torch.int8 if dtype == "int8" else getattr(torch, dtype)
+    u = u.to(cast)
+    v = v.to(cast) if grid else None
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    j0, pt = 1, total - 1
+    dev_hi = total - 1
+    kw = dict(t=t, l_blk=16, pass_tiles=pt, kk=kk,
+              n_cols_valid=n_cols if grid else n, symmetric_problem=not grid,
+              epilogue=EpilogueSpec(div=3.0), v_pad=v, grid_cols=gc)
+    before = pcc_topk_tiles.select_by_dtype[dtype]
+    got = topk_select(u, j0, dev_hi, **kw)
+    want = topk_select_plain(u, j0, dev_hi, **kw)
+    torch.cuda.synchronize()
+    assert pcc_topk_tiles.select_by_dtype[dtype] == before + 1
+    n_valid = dev_hi - j0
+    ids = j0 + np.arange(n_valid)
+    ys, xs = (np.divmod(ids, gc) if grid else job_coord_batch(m, ids))
+    read = [torch.ones(n_valid, dtype=torch.bool, device=cuda),
+            torch.as_tensor(ys != xs, device=cuda)]
+    for side in range(len(got) // 2):
+        for a, b in zip(got[2 * side:2 * side + 2],
+                        want[2 * side:2 * side + 2]):
+            a, b = a[:n_valid][read[side]], b[:n_valid][read[side]]
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert bool((got[1][:n_valid] >= 0).any())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,l,t,l_blk", [
     (300, 50, 96, 5),     # t below one 128-row block, l_pad 50
@@ -263,7 +378,7 @@ def test_f32_ragged_tiles_and_unaligned_samples(cuda, n, l, t, l_blk):
     and sample axes whose rows break 16-byte strides (its 4-byte copies
     take them as they are): triangle, triangle with a second operand, grid
     and replica tiles within ATOL of plain, bitwise across pass splits and
-    against 2-D launches; the float32 select's values (its 64 x 64 blocks)
+    against 2-D launches; the float32 select's values (its 128 x 128 blocks)
     bitwise these tiles."""
     u = _operand(n, l, t, l_blk, cuda)
     u2 = _operand(n, l, t, l_blk, cuda, seed=2)

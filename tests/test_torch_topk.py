@@ -1,5 +1,6 @@
 """Port parity of the per-row top-k path: the canonical merge, the top-k
-kernel's plain version, TopKSink and DeviceTopKSink, against ``repro``.
+kernel's plain version (whole, and as its two kernels' plain versions,
+select then merge), TopKSink and DeviceTopKSink, against ``repro``.
 
 Tolerances: values within 3e-6, the reference's own Pearson parity bound
 (tests/test_distributed.py; both compute in float32 in different orders).
@@ -22,10 +23,15 @@ from repro.kernels.pcc_tile import pcc_topk_tiles as ref_topk_tiles
 from repro_torch import convert
 from repro_torch.core.allpairs import execute_plan
 from repro_torch.core.api import corr
+from repro_torch.core.mapping import job_coord_batch
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.sinks import DeviceTopKSink, TopKSink, topk_merge_rows
-from repro_torch.kernels.pcc_tile import (KK_MAX, pcc_topk_tiles,
-                                          pcc_topk_tiles_plain)
+from repro_torch.kernels.pcc_tile import (CTA_BLOCK, KK_MAX, EpilogueSpec,
+                                          pcc_tiles_plain, pcc_topk_tiles,
+                                          pcc_topk_tiles_plain,
+                                          topk_fold_plain, topk_merge,
+                                          topk_merge_plain, topk_select,
+                                          topk_select_plain)
 
 ATOL = 3e-6
 GAP = 1e-4
@@ -218,6 +224,207 @@ def test_topk_plain_matches_interpret_pallas_on_exact_ties(grid, kk):
     a = vals[held].abs()
     assert a.unique().numel() < a.numel() // 4
     assert bool((vals[held] > 0).any()) and bool((vals[held] < 0).any())
+
+
+# -- the two kernels' plain versions: select to scratch, merge to state ------
+
+PLAIN_SHAPES = [  # t, l_blk, j_start, pass_tiles, short, kk
+    (8, 8, 0, 10 ** 6, 0, 4),     # the whole workload in one launch
+    (8, 8, 3, 5, 0, 3),           # j_start > 0, mid range
+    (8, 8, 2, 6, 2, 6),           # dev_hi below the launch's end
+    (16, 16, 0, 10 ** 6, 0, 40),  # kk above every row's valid partners
+    (16, 8, 1, 4, 1, 2),          # clamped slots past the end
+]
+
+
+def _port_operands(grid, t, l_blk, ties=False, seed=0, n=N, n_cols=N_COLS):
+    """Prepared operands and epilogue of the module's data, or, with
+    `ties`, n and n_cols rows of small integer samples taken as they are
+    (exact products, so |v| ties exactly and with both signs)."""
+    if ties:
+        rng = np.random.default_rng(seed)
+        n_pad, c_pad = -(-n // t) * t, -(-n_cols // t) * t
+        u = rng.integers(-2, 3, size=(n_pad, 16)).astype(np.float32)
+        u[n:] = 0.0
+        v = rng.integers(-2, 3, size=(c_pad, 16)).astype(np.float32)
+        v[n_cols:] = 0.0
+        u, v = torch.from_numpy(u), torch.from_numpy(v)
+        return u, (v if grid else None), EpilogueSpec(div=3.0)
+    x, y = _data()
+    plan = ExecutionPlan.create(N, L, n_cols=N_COLS if grid else None, t=t,
+                                l_blk=l_blk)
+    if grid:
+        u, v = plan.prepare_pair(torch.from_numpy(x), torch.from_numpy(y))
+    else:
+        u, v = plan.prepare(torch.from_numpy(x)), None
+    return u, v, plan.epilogue_spec
+
+
+def _plain_args(u, v, grid, t, l_blk, j_start, pass_tiles, short, kk, spec):
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    pass_tiles = min(pass_tiles, total - j_start + (2 if short else 0))
+    dev_hi = min(total, j_start + pass_tiles - short)
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pass_tiles, kk=kk,
+              n_cols_valid=N_COLS if grid else N, symmetric_problem=not grid,
+              epilogue=spec, v_pad=v, grid_cols=gc)
+    return m, gc, dev_hi, kw
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("t,l_blk,j_start,pass_tiles,short,kk", PLAIN_SHAPES)
+def test_plain_select_then_merge_equals_fold(grid, ties, t, l_blk, j_start,
+                                            pass_tiles, short, kk):
+    """The select kernel's plain version to the pass scratch, then the merge
+    kernel's plain version, gives the state of ranking the whole tiles
+    (topk_fold_plain, so pcc_topk_tiles_plain, which the reference holds
+    above) bit for bit: each 64-wide block's top-min(kk, 64) holds every
+    candidate of the row's top-kk."""
+    u, v, spec = _port_operands(grid, t, l_blk, ties)
+    m, gc, dev_hi, kw = _plain_args(u, v, grid, t, l_blk, j_start,
+                                    pass_tiles, short, kk, spec)
+    scratch = topk_select_plain(u, j_start, dev_hi, **kw)
+    got = topk_merge_plain(scratch, j_start, dev_hi, m=m, t=t,
+                           pass_tiles=kw["pass_tiles"], kk=kk, grid_cols=gc)
+    n_valid = dev_hi - j_start
+    tiles = pcc_tiles_plain(u, j_start, t=t, l_blk=l_blk,
+                            pass_tiles=n_valid, epilogue=spec, v_pad=v,
+                            grid_cols=gc) if n_valid > 0 else None
+    fold = topk_fold_plain(tiles, j_start, m=m, t=t, kk=kk,
+                           n_cols_valid=kw["n_cols_valid"],
+                           symmetric_problem=not grid, grid_cols=gc,
+                           device="cpu")
+    _same_bits(got, fold)
+    _same_bits(got, pcc_topk_tiles_plain(u, j_start, dev_hi, **kw))
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("t,kk", [(8, 3), (16, 40), (96, 70), (70, 1)])
+def test_plain_select_scratch_contract(grid, t, kk):
+    """The scratch every select fills, slot for slot: per side (pass_tiles,
+    t, ceil(t/64), min(kk, 64)); each list is its line's top of one 64-wide
+    block of candidates in canonical order (|v| descending, column
+    ascending), masked entries (value 0, column -1) last; valid columns lie
+    in the list's block of the tile and are never the row itself; the
+    lists the merge does not read are masked."""
+    n, n_cols = 10 * t - 3, 7 * t + 5     # both cut inside a block
+    u, v, spec = _port_operands(grid, t, 4, ties=True, seed=t + kk, n=n,
+                                n_cols=n_cols)
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    dev_hi = total - 1
+    kw = dict(t=t, l_blk=4, pass_tiles=total, kk=kk,
+              n_cols_valid=n_cols if grid else n, symmetric_problem=not grid,
+              epilogue=spec, v_pad=v, grid_cols=gc)
+    scratch = topk_select_plain(u, 0, dev_hi, **kw)
+    nb, kc = -(-t // CTA_BLOCK), min(kk, CTA_BLOCK)
+    assert len(scratch) == (2 if grid else 4)
+    assert all(x.shape == (total, t, nb, kc) for x in scratch)
+    ids = np.arange(total)
+    ys, xs = np.divmod(ids, gc) if grid else job_coord_batch(m, ids)
+    for side in range(len(scratch) // 2):
+        vals, cols = scratch[2 * side].numpy(), scratch[2 * side + 1].numpy()
+        ok = cols >= 0
+        assert (vals[~ok] == 0).all()
+        # valid entries first, then canonical order within the valid ones
+        assert (ok[..., 1:] <= ok[..., :-1]).all()
+        a = np.abs(vals)
+        later = ok[..., 1:]
+        assert (a[..., 1:][later] <= a[..., :-1][later]).all()
+        tie = later & (a[..., 1:] == a[..., :-1])
+        assert (cols[..., 1:][tie] > cols[..., :-1][tie]).all()
+        line_blk = (ys if side == 1 else xs)[:, None, None, None] * t
+        blk = np.arange(nb)[None, None, :, None] * CTA_BLOCK
+        rel = cols - line_blk - blk
+        assert ((rel >= 0) & (rel < CTA_BLOCK))[ok].all()
+        if side == 0 and not grid:
+            own = ys[:, None, None, None] * t + np.arange(t)[None, :, None,
+                                                             None]
+            assert (cols != own)[ok].all()
+        assert not ok[dev_hi:].any()           # slots past dev_hi
+        if side == 1:
+            assert not ok[ys == xs].any()      # diagonal tiles' columns
+        assert ok[:dev_hi].any()
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("kk", [1, 7, 33, 70])
+@pytest.mark.parametrize("data", ["ties", "equal"])
+def test_plain_merge_is_the_canonical_merge(grid, kk, data):
+    """topk_merge_plain against the sinks' canonical merge
+    (topk_merge_rows, bitwise the reference's) fed every valid scratch
+    entry of each output row, on scratch with exact ties of both signs
+    ("ties"), or with every |v| equal ("equal": +-1 samples over one
+    sample, so the columns alone order them), and masked entries."""
+    t = 16
+    rng = np.random.default_rng(kk + 2 * grid)
+    rows, cols_ = -(-N // t) * t, -(-N_COLS // t) * t
+    width = 12 if data == "ties" else 1
+    lo, hi = (-2, 3) if data == "ties" else (0, 2)
+    def draw(r, n):
+        x = rng.integers(lo, hi, size=(r, width)).astype(np.float32)
+        x = 2 * x - 1 if data == "equal" else x
+        x[n:] = 0.0
+        return torch.from_numpy(x)
+    u = draw(rows, N)
+    v = draw(cols_, N_COLS) if grid else None
+    m = rows // t
+    gc = cols_ // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    j0, pt = 1, total - 1
+    kw = dict(t=t, l_blk=width if data == "equal" else 4, pass_tiles=pt,
+              kk=kk, n_cols_valid=N_COLS if grid else N,
+              symmetric_problem=not grid, v_pad=v, grid_cols=gc)
+    scratch = topk_select_plain(u, j0, total, **kw)
+    got = topk_merge_plain(scratch, j0, total, m=m, t=t, pass_tiles=pt,
+                           kk=kk, grid_cols=gc)
+    ids = j0 + np.arange(pt)
+    ys, xs = np.divmod(ids, gc) if grid else job_coord_batch(m, ids)
+    for side in range(len(scratch) // 2):
+        pv = scratch[2 * side].numpy()
+        pc = scratch[2 * side + 1].numpy()
+        owner = ys if side == 0 else xs
+        slot, line, b, e = np.nonzero(pc >= 0)
+        r_ids = owner[slot] * t + line
+        vals = np.zeros((rows, kk), np.float32)
+        idx = np.full((rows, kk), -1, np.int64)
+        topk_merge_rows(vals, idx, r_ids, pc[slot, line, b, e].astype(
+            np.int64), pv[slot, line, b, e], kk)
+        assert got[2 * side].numpy().reshape(rows, kk).tobytes() == \
+            vals.tobytes()
+        np.testing.assert_array_equal(
+            got[2 * side + 1].numpy().reshape(rows, kk), idx)
+    # the candidates of the data rows are what the data promises
+    vals = scratch[0][scratch[1] >= 0]
+    vals = vals[vals != 0] if data == "equal" else vals   # padding rows
+    a = vals.abs()
+    assert a.unique().numel() == 1 if data == "equal" else \
+        a.unique().numel() < a.numel()     # exact ties
+    assert bool((vals < 0).any()) and bool((vals > 0).any())
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_topk_kernel_wrappers_run_plain_on_cpu(grid):
+    """On CPU tensors the select and merge wrappers run their plain
+    versions, and the two give pcc_topk_tiles' state."""
+    u, v, spec = _port_operands(grid, 8, 8)
+    m, gc, dev_hi, kw = _plain_args(u, v, grid, 8, 8, 2, 9, 1, 5, spec)
+    scratch = topk_select(u, 2, dev_hi, **kw)
+    _same_bits(scratch, topk_select_plain(u, 2, dev_hi, **kw))
+    mkw = dict(m=m, t=8, pass_tiles=kw["pass_tiles"], kk=5, grid_cols=gc)
+    got = topk_merge(scratch, 2, dev_hi, **mkw)
+    _same_bits(got, topk_merge_plain(scratch, 2, dev_hi, **mkw))
+    _same_bits(got, pcc_topk_tiles(u, 2, dev_hi, **kw))
 
 
 def test_topk_wrapper_checks_its_arguments():
