@@ -123,7 +123,17 @@ Phases, each fatal on failure:
      TopKSink(10) end to end against the sum and the larger of their
      kernels' and their sinks' times.  With --overlap-only SRC the script
      runs the build and this phase alone on the package under SRC (another
-     tree of this repository), for a before / after comparison.
+     tree of this repository), for a before / after comparison;
+ 21. the checkpointed host output at Table II in 300-tile passes (9):
+     corr(x, sink=HostSink(path=...)) into a 1.23 GB np.memmap in a
+     temporary directory (deleted after): pcc_tiles launches (9, float32),
+     the result bitwise DenseSink's .cpu() and exactly symmetric, its time
+     against HostSink() without a file and DenseSink plus .cpu(), and per
+     pass the host's copy wait, tile write and commit beside the kernels';
+     a run stopped once pass 4 is committed, then corr(x,
+     resume_from=path): exactly 4 more launches (passes 5-8) and the same
+     bits; bytes flipped inside pass 2's committed tiles, then a resume:
+     the schedule reruns pass 2 alone (one launch) and the bits come back.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -489,6 +499,170 @@ def overlap_runs(x_dev, k_top, split):
     return out
 
 
+def host_sink_runs(x_dev, split, stop=4, bad=2):
+    """Phase 21: HostSink(path=) and corr(resume_from=) at Table II in
+    `split`-tile passes, every check fatal; returns the times (ms)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core.allpairs import launch_tiles
+    from repro_torch.core.api import corr
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.core.sinks import HostSink
+    from repro_torch.kernels.pcc_tile import pcc_tiles
+
+    plan = ExecutionPlan.create(N_SEEK, L_SEEK, max_tiles_per_pass=split)
+
+    def clock(ms, key, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        ms[key].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    class Timed(HostSink):
+        """Host clock around each pass's consume (copy wait and tile
+        write), tile write and commit."""
+
+        def open(self, plan_, device):
+            super().open(plan_, device)
+            self.ms = {"consume": [], "write": [], "commit": []}
+
+        def consume(self, ids, tiles, ready=None):
+            clock(self.ms, "consume", super().consume, ids, tiles, ready)
+
+        def _place(self, ids, vals):
+            clock(self.ms, "write", super()._place, ids, vals)
+
+        def pass_complete(self, k):
+            clock(self.ms, "commit", super().pass_complete, k)
+
+    class StopAfter(HostSink):
+        """Stops the run once pass `stop` is committed."""
+
+        def pass_complete(self, k):
+            super().pass_complete(k)
+            if k == stop:
+                raise RuntimeError(f"stopped after pass {k}")
+
+    class Probe(HostSink):
+        """Keeps the resume schedule it read from its checkpoint."""
+
+        def open(self, plan_, device):
+            super().open(plan_, device)
+            self.schedule = (self.resume_pass(), sorted(self.skip_passes()))
+
+    def counted(fn):
+        """fn()'s result and the pcc_tiles launches it made, the counts
+        set to 0 just before."""
+        pcc_tiles.launches = 0
+        for d in pcc_tiles.launches_by_dtype:
+            pcc_tiles.launches_by_dtype[d] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        if pcc_tiles.launches_by_dtype["float32"] != pcc_tiles.launches:
+            raise AssertionError("HostSink run launched another kernel")
+        return out, pcc_tiles.launches
+
+    def same_bits(a, b, label):
+        if a.shape != b.shape or not np.array_equal(
+                np.ascontiguousarray(a).view(np.uint32),
+                np.ascontiguousarray(b).view(np.uint32)):
+            raise AssertionError(f"{label}: not DenseSink's bits")
+
+    dense = corr(x_dev, max_tiles_per_pass=split).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="hostsink_") as tmp:
+        path = os.path.join(tmp, "r.mm")
+        sink = Timed(path=path)
+        t1 = time.perf_counter()
+        got, n_launch = counted(lambda: corr(x_dev, sink=sink,
+                                             max_tiles_per_pass=split))
+        host_ms_path = (time.perf_counter() - t1) * 1e3
+        if n_launch != plan.n_pass:
+            raise AssertionError(f"HostSink run: {n_launch} launches, "
+                                 f"{plan.n_pass} passes")
+        same_bits(got, dense, "HostSink(path)")
+        if not np.array_equal(got, got.T):
+            raise AssertionError("HostSink result is not exactly symmetric")
+        del got
+        mem_ms, mem_all = host_ms(lambda: corr(
+            x_dev, sink=HostSink(), max_tiles_per_pass=split), 2)
+        dense_ms, dense_all = host_ms(lambda: corr(
+            x_dev, max_tiles_per_pass=split).cpu(), 3)
+        u = plan.prepare(x_dev)
+        kern_ms, _ = event_ms(lambda: [
+            launch_tiles(plan, u, plan.pass_offset(k), n)
+            for k, n in enumerate(plan.launch_sizes)], 3)
+        del u
+        ms = sink.ms
+        wait = [c - w for c, w in zip(ms["consume"], ms["write"])]
+        print(f"  HostSink(path=...), {plan.n_pass} passes of <= {split} "
+              f"tiles into a {plan.n_pad}^2 float32 memmap "
+              f"({plan.n_pad ** 2 * 4 / 1e9:.3f} GB): corr {host_ms_path:.3f}"
+              f" ms, pcc_tiles launches {n_launch} (float32); bitwise "
+              f"DenseSink's .cpu(), exactly symmetric")
+        print(f"  HostSink() without a file: {mem_ms:.3f} ms (runs "
+              f"{[round(v, 3) for v in mem_all]}); DenseSink + .cpu(): "
+              f"{dense_ms:.3f} ms (runs {[round(v, 3) for v in dense_all]})")
+        print(f"  per pass, ms: kernels {kern_ms / plan.n_pass:.3f} "
+              f"(sum {kern_ms:.3f}, CUDA events); copy wait "
+              f"{[round(v, 3) for v in wait]}; tile write "
+              f"{[round(v, 3) for v in ms['write']]}; commit (CRC32, "
+              f"flush, sidecar) {[round(v, 3) for v in ms['commit']]}")
+        # a run stopped once pass `stop` is committed, then resumed
+        path2 = os.path.join(tmp, "s.mm")
+        try:
+            corr(x_dev, sink=StopAfter(path=path2), max_tiles_per_pass=split)
+        except RuntimeError as e:
+            if f"after pass {stop}" not in str(e):
+                raise
+        else:
+            raise AssertionError("the stopping sink did not stop")
+        with open(path2 + ".progress.json") as f:
+            if json.load(f)["completed"] != stop:
+                raise AssertionError("the stopped run's watermark")
+        t1 = time.perf_counter()
+        got, n_resume = counted(lambda: corr(
+            x_dev, resume_from=path2, max_tiles_per_pass=split))
+        resume_ms = (time.perf_counter() - t1) * 1e3
+        if n_resume != plan.n_pass - stop - 1:
+            raise AssertionError(f"resume after pass {stop}: {n_resume} "
+                                 f"launches")
+        same_bits(got, dense, f"resumed after pass {stop}")
+        del got
+        os.remove(path2)
+        print(f"  stopped once pass {stop} was committed, then corr(x, "
+              f"resume_from=path): {n_resume} pcc_tiles launches (passes "
+              f"{stop + 1}-{plan.n_pass - 1}), {resume_ms:.3f} ms, "
+              f"DenseSink's bits")
+        # bytes flipped inside a committed pass's tiles, then a resume
+        ids = plan.pass_ids(bad)
+        ys, xs = plan.workload.job_coord_batch(ids[len(ids) // 2:][:1])
+        r0, c0 = int(ys[0]) * plan.t, int(xs[0]) * plan.t
+        mm = np.memmap(path, dtype=np.float32, mode="r+",
+                       shape=(plan.n_pad, plan.n_pad))
+        mm[r0 + 5, c0:c0 + 16] = -mm[r0 + 5, c0:c0 + 16] - 1.0
+        mm.flush()
+        del mm
+        probe = Probe(path=path)
+        got, n_fix = counted(lambda: corr(x_dev, resume_from=path,
+                                          sink=probe,
+                                          max_tiles_per_pass=split))
+        if probe.schedule != (bad, list(range(bad + 1, plan.n_pass))) or \
+                n_fix != 1:
+            raise AssertionError(f"corrupt pass {bad}: schedule "
+                                 f"{probe.schedule}, {n_fix} launches")
+        same_bits(got, dense, f"pass {bad} recomputed")
+        del got
+        print(f"  bytes flipped in pass {bad}'s tile ({ys[0]}, {xs[0]}), "
+              f"then a resume: schedule {probe.schedule} (first pass, "
+              f"passes skipped), {n_fix} pcc_tiles launch, DenseSink's "
+              f"bits again")
+    return dict(corr_ms=host_ms_path, memory_ms=mem_ms, dense_cpu_ms=dense_ms,
+                kernels_ms=kern_ms, copy_wait_ms=wait, write_ms=ms["write"],
+                commit_ms=ms["commit"], resume_ms=resume_ms)
+
+
 def main(argv) -> int:
     t_script = time.perf_counter()
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
@@ -556,14 +730,11 @@ def main(argv) -> int:
             flags = entry.split("pcc_tiles_f32_kernel", 1)[1][:12]
             return (f"pcc_tiles_f32_kernel<scaled={flags[3]}, "
                     f"replica={flags[7]}>")
-        if "pcc_topk_select_kernel" in entry:
-            arg = entry.split("pcc_topk_select_kernel", 1)[1][:2]
-            return "pcc_topk_select_kernel<%s>" % (
-                "int8_t" if arg == "Ia" else arg)
         if "pcc_topk_select_f32_kernel" in entry:
             return "pcc_topk_select_f32_kernel"
-        if "pcc_topk_select_sm90" in entry:
-            return "pcc_topk_select_sm90<bf16>"
+        if "pcc_topk_select_sm90" in entry:   # int8_t is mangled "a"
+            return "pcc_topk_select_sm90<%s>" % (
+                "int8_t" if "pcc_topk_select_sm90IaE" in entry else "bf16")
         if "pcc_topk_merge_kernelILi" in entry:
             kw = entry.split("pcc_topk_merge_kernelILi", 1)[1].split("E")[0]
             return f"pcc_topk_merge_kernel<{kw}>"
@@ -607,8 +778,9 @@ def main(argv) -> int:
     if len(report) != 16:
         raise AssertionError(
             f"ptxas reported {sorted(report)}: expected the 4 float32 "
-            f"tile, the 3 select (float32, int8, bf16), the 2 merge, the 5 "
-            f"float32 flash and the 2 int8 tensor-core tile kernels")
+            f"tile, the 3 select (float32; int8 and bf16 on the tensor "
+            f"cores), the 2 merge, the 5 float32 flash and the 2 int8 "
+            f"tensor-core tile kernels")
     simt = _build.load("pcc_tile")
     gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
     if any(hasattr(simt, fn) for fn in gone):
@@ -2666,6 +2838,10 @@ def main(argv) -> int:
     print(f"multi-pass top-k at Table II, {SPLIT}-tile passes {tag}:")
     overlap_runs(x_dev, K_TOP, SPLIT)
 
+    # -- 21. HostSink: a checkpointed host result, stopped and resumed -------
+    print(f"HostSink at Table II, {SPLIT}-tile passes {tag}:")
+    print(json.dumps({"host_sink": host_sink_runs(x_dev, SPLIT)}))
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
@@ -2758,16 +2934,14 @@ def main(argv) -> int:
     ]}
     # the header holding each pcc kernel's mainloop, beside its source: the
     # tiles' by their file, the selects' by their dtype (float32 on the
-    # SGEMM mainloop, bf16 on the tensor-core one, int8 on the SIMT 64 x 64
-    # block)
+    # SGEMM mainloop, bf16 and int8 on the tensor-core one)
     mainloops = {"pcc_tile.cu": "pcc_sgemm.cuh",
                  "pcc_tile_sm90.cu": "pcc_mma.cuh"}
     for rec in record["kernels"]:
         if rec["name"].startswith("pcc_topk_select"):
             rec["mainloop"] = source + (
-                "pcc_mma.cuh" if "bf16" in rec["name"] else
-                "pcc_accum.cuh" if "int8" in rec["name"] else
-                "pcc_sgemm.cuh")
+                "pcc_mma.cuh" if "bf16" in rec["name"] or "int8" in
+                rec["name"] else "pcc_sgemm.cuh")
         elif rec["name"].startswith("pcc_tiles"):
             rec["mainloop"] = source + mainloops[
                 rec["source"].rsplit("/", 1)[1]]

@@ -18,7 +18,7 @@ computing pass k+1.
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Callable, FrozenSet, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,16 +90,22 @@ def _ready_event(device: torch.device):
 
 
 def _local_launches(plan: ExecutionPlan, u_pad, v_pad=None,
+                    start_pass: int = 0, skip: FrozenSet[int] = frozenset(),
                     state_k: Optional[int] = None) -> Iterator[PassItem]:
     """Single-device pass launches: consecutive spans of the tile-id range,
     each kernel sized to its actual tile count (every slot is valid).
-    state_k switches to the device top-k epilogue: the buffer becomes the
-    kernel's per-row state tuple instead of tiles.  Each item carries the
-    event recorded after its launch (None on the CPU)."""
+    start_pass skips the passes a checkpoint already holds without
+    computing them; `skip` drops individual later passes (a resume whose
+    held passes are not a prefix, e.g. a corrupt region dropped).  state_k
+    switches to the device top-k epilogue: the buffer becomes the kernel's
+    per-row state tuple instead of tiles.  Each item carries the event
+    recorded after its launch (None on the CPU)."""
     device = operand_data(u_pad).device
     for k, launch in enumerate(plan.launch_sizes):
+        if k < start_pass or k in skip:
+            continue
         lo = plan.pass_offset(k)
-        ids = np.arange(lo, lo + launch, dtype=np.int64)
+        ids = plan.pass_ids(k)
         if state_k is not None:
             buf = launch_topk_tiles(plan, u_pad, lo, plan.total_tiles,
                                     launch, state_k, v=v_pad)
@@ -110,16 +116,18 @@ def _local_launches(plan: ExecutionPlan, u_pad, v_pad=None,
         yield k, ids, buf, _ready_event(device)
 
 
-def _stream(plan: ExecutionPlan, u_pad, v_pad=None,
+def _stream(plan: ExecutionPlan, u_pad, v_pad=None, start_pass: int = 0,
+            skip: FrozenSet[int] = frozenset(),
             state_k: Optional[int] = None) -> Iterator[PassItem]:
     """Double-buffered pass stream of (k, ids, tiles or state, ready):
     launches pass k+1 before yielding pass k, so the sink's work on pass k
     overlaps it.  u_pad and v_pad are prepared operands (tensors or
     quantized :class:`Operand`s); on a triangular plan v_pad may be a
     second operand of u_pad's shape (the masked measures' cross
-    components)."""
+    components).  start_pass and skip: see :func:`_local_launches`."""
     pending = None
-    for item in _local_launches(plan, u_pad, v_pad, state_k):
+    for item in _local_launches(plan, u_pad, v_pad, start_pass, skip,
+                                state_k):
         if pending is not None:
             yield pending
         pending = item
@@ -127,14 +135,29 @@ def _stream(plan: ExecutionPlan, u_pad, v_pad=None,
         yield pending
 
 
+MakeStream = Callable[[int, FrozenSet[int]], Iterator[PassItem]]
+
+
 def run_sink(plan: ExecutionPlan, sink: Optional[TileSink],
-             device: torch.device, stream) -> object:
-    """Open the sink (DenseSink by default), drain the pass stream into
-    it, and return its result."""
+             device: torch.device, make_stream: MakeStream) -> object:
+    """The one sink-driving loop behind every entry point: open the sink
+    (DenseSink by default), read its resume schedule, drain the pass
+    stream that ``make_stream(start_pass, skip)`` builds into it,
+    committing each pass, and return its result.
+
+    A sink that persists progress (HostSink with a memmap path) reports
+    the first pass to run in ``resume_pass()`` and the later passes it
+    already holds in ``skip_passes()``, which are never launched, and
+    commits each pass in ``pass_complete(k)`` once it has consumed it.
+    Duck-typed sinks without these hooks run every pass."""
     snk = sink if sink is not None else DenseSink()
     snk.open(plan, device)
-    for _k, ids, buf, ready in stream:
+    k0 = getattr(snk, "resume_pass", lambda: 0)()
+    skip = getattr(snk, "skip_passes", set)()
+    pass_complete = getattr(snk, "pass_complete", lambda k: None)
+    for k, ids, buf, ready in make_stream(k0, frozenset(skip)):
         snk.consume(ids, buf, ready)
+        pass_complete(k)
     return snk.result()
 
 
@@ -179,8 +202,10 @@ def execute_plan(plan: ExecutionPlan, u_pad, v_pad=None, *,
         if scale is not None and tuple(scale.shape) != (rows,):
             raise ValueError(f"{name} scales {tuple(scale.shape)} do not "
                              f"match its {rows} rows")
+    state_k = _sink_state_k(sink)
     return run_sink(plan, sink, operand_data(u_pad).device,
-                    _stream(plan, u_pad, v_pad, _sink_state_k(sink)))
+                    lambda k0, skip: _stream(plan, u_pad, v_pad, k0, skip,
+                                             state_k))
 
 
 def _sink_state_k(sink: Optional[TileSink]) -> Optional[int]:

@@ -4,8 +4,9 @@ Port of ``repro/core/api.py`` for one device: symmetric all-pairs
 similarity of one (n, l) operand and the rectangular X-vs-Y workload,
 under every inner-product measure, with float32, bfloat16, int8 or fp8
 stored operands (int8 on non-Kendall measures and fp8 quantized with
-per-row scales), pairwise-complete masked runs (``where=``) and
-permutation / bootstrap p-values (``pvalues=``).  A frozen
+per-row scales), pairwise-complete masked runs (``where=``),
+permutation / bootstrap p-values (``pvalues=``) and resumable host output
+(``sink=HostSink(path=)``, ``resume_from=``).  A frozen
 :class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
 onto plan -> executor -> sink.  The reference's other knobs raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
@@ -23,12 +24,11 @@ from repro_torch.core.allpairs import _stream, execute_plan, resolve_device, \
     run_sink
 from repro_torch.core.plan import ExecutionPlan, pad_operands
 from repro_torch.core.significance import PermutationSpec, run_significance
-from repro_torch.core.sinks import TileSink
+from repro_torch.core.sinks import HostSink, TileSink
 from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
-    "resume_from": "slice 4 (HostSink checkpoints)",
     "recovery": "slice 10 (recovery)",
     "mesh": "slice 11 (multi-GPU)",
     "shard_u": "slice 11 (multi-GPU)",
@@ -166,7 +166,10 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
              kernel multiplies each tile by the scale product).
     sink:    output handling; the default DenseSink returns the (n, n)
              float32 matrix on `device`, exactly symmetric (or the
-             (n, n_cols) cross matrix when y is given).  TopKSink(k) and
+             (n, n_cols) cross matrix when y is given).  HostSink()
+             returns the same matrix as a host numpy array (HostSink(out=)
+             a caller array, HostSink(path=) an np.memmap committed pass
+             by pass, resumable).  TopKSink(k) and
              DeviceTopKSink(k) keep each row's k strongest partners, the
              latter through the top-k kernel (not for masked or quantized
              runs).
@@ -179,19 +182,34 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
              bootstrap) p-values over spec.iterations null replicas, in
              the output layout of spec.sink (default dense).  Not with
              where=.
+    resume_from: the memmap path of an interrupted HostSink(path=) run
+             with the same plan: the default sink becomes
+             HostSink(path=resume_from, resume=True), which runs only the
+             passes its checkpoint does not hold (and the regions whose
+             CRC no longer matches); a HostSink of that path is switched
+             to resume, any other sink refused.  Checkpoints of the
+             reference package resume here and the other way round.
     device:  None means "cuda", which raises on a machine without a card;
              pass device="cpu" to run the kernels' plain versions.
-    mesh, shard_u, resume_from and recovery are the reference's and raise
+    mesh, shard_u and recovery are the reference's and raise
     NotImplementedError here.
     """
     given = {"mesh": mesh is not None, "shard_u": bool(shard_u),
-             "resume_from": resume_from is not None,
              "recovery": recovery is not None}
     for name, on in given.items():
         if on:
             raise NotImplementedError(
                 f"corr({name}=...) is not ported yet: ROADMAP "
                 f"{_LATER_SLICES[name]}")
+    if resume_from is not None:
+        if sink is None:
+            sink = HostSink(path=resume_from, resume=True)
+        elif isinstance(sink, HostSink) and sink._path == resume_from:
+            sink._resume = True
+        else:
+            raise ValueError(
+                "resume_from requires the default HostSink or a HostSink "
+                "whose path matches resume_from")
     problem = PairwiseProblem.create(x, y, measure=measure, where=where,
                                      device=device)
     if problem.masked:
@@ -268,23 +286,23 @@ def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
     pad_y = (pad_x if ops_y is ops_x
              else {k: pad_operands(v, t, l_blk) for k, v in ops_y.items()})
     sink_plan = masked_sink_plan(plan, mm, clip)
-    streams = []
-    for comp in mm.components:
-        rk, ck = measures.MASKED_COMPONENT_OPERANDS[comp]
-        same = pad_y is pad_x and rk == ck
-        streams.append(_stream(plan, pad_x[rk],
-                               None if same else pad_y[ck]))
 
-    def combined():
+    def combined(k0, skip):
         # The combine queues on the compute stream behind the next pass's
         # launches, so the sink waits on everything queued (ready None).
+        streams = []
+        for comp in mm.components:
+            rk, ck = measures.MASKED_COMPONENT_OPERANDS[comp]
+            same = pad_y is pad_x and rk == ck
+            streams.append(_stream(plan, pad_x[rk],
+                                   None if same else pad_y[ck], k0, skip))
         for items in zip(*streams):
             k, ids, _, _ = items[0]
             parts = {c: buf for c, (_, _, buf, _) in zip(mm.components,
                                                          items)}
             yield k, ids, mm.combine(parts), None
 
-    return run_sink(sink_plan, sink, problem.x.device, combined())
+    return run_sink(sink_plan, sink, problem.x.device, combined)
 
 
 __all__ = ["PairwiseProblem", "corr", "masked_sink_plan"]

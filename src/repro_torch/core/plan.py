@@ -19,6 +19,7 @@ import dataclasses
 import functools
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -220,6 +221,31 @@ class ExecutionPlan:
     def pass_offset(self, k: int) -> int:
         """Tile id at which pass k starts."""
         return k * self.max_tiles_per_pass
+
+    def pass_ids(self, k: int) -> np.ndarray:
+        """The tile ids pass k launches (every slot valid on one device)."""
+        lo = self.pass_offset(k)
+        return np.arange(lo, lo + self.launch_sizes[k], dtype=np.int64)
+
+    def coverage_schedule(self, covered: np.ndarray):
+        """Resume schedule from a tile-coverage bitmap: ``(k0, skip)``, as
+        the reference's ``ExecutionPlan.coverage_schedule``.
+
+        `covered` is a bool bitmap over the tile ids (True: the tile's
+        output is already held durably).  k0 is the first pass whose tiles
+        are not all covered; `skip` holds the later passes that are, which
+        the executor must not launch.  A kill-and-resume leaves a prefix
+        (skip empty); a corrupt region dropped from a checkpoint leaves a
+        hole, whose pass alone reruns."""
+        covered = np.asarray(covered, bool)
+        if covered.shape != (self.total_tiles,):
+            raise ValueError(
+                f"coverage bitmap shape {covered.shape} != "
+                f"(total_tiles={self.total_tiles},)")
+        full = [bool(covered[self.pass_ids(k)].all())
+                for k in range(self.n_pass)]
+        k0 = full.index(False) if False in full else self.n_pass
+        return k0, {k for k in range(k0 + 1, self.n_pass) if full[k]}
 
     @property
     def replica_chunk_sizes(self) -> Tuple[int, ...]:

@@ -1,11 +1,14 @@
 """Tile sinks: what becomes of the executor's per-pass tile stream.
 
-Port of ``TileSink``, ``DenseSink``, ``TopKSink``, ``DeviceTopKSink``,
-``ExceedanceSink`` and ``topk_merge_rows`` of ``repro/core/sinks.py``.
-Contract:
+Port of ``TileSink``, ``DenseSink``, ``HostSink``, ``TopKSink``,
+``DeviceTopKSink``, ``ExceedanceSink`` and ``topk_merge_rows`` of
+``repro/core/sinks.py``.  Contract:
 ``open(plan, device)`` once, ``consume(ids, tiles[, ready])`` per pass with
 the pass's unique global tile ids while the next pass is already launched
-(double buffering), ``result()`` to close the run.  Tiles arrive with the
+(double buffering), ``pass_complete(k)`` once pass k is consumed (durable
+sinks commit there; ``resume_pass()`` / ``skip_passes()`` tell the
+executor which passes a checkpoint already holds), ``result()`` to close
+the run.  Tiles arrive with the
 measure's epilogue applied; bounded measures are clipped in the kernel
 (fused) or by the sink (unfused) — clipping is idempotent, so both agree
 bit for bit.
@@ -20,6 +23,10 @@ k + 1.  On the CPU there is no event and no stream.
 
   DenseSink       the (n, n) matrix (mirrored) or the (n_rows, n_cols)
                   cross matrix of a rectangular run, on the device.
+  HostSink        the same matrix on the host: a caller array, a new
+                  ndarray, or an np.memmap at `path` whose passes are
+                  committed crash-atomically and resumed
+                  (``corr(resume_from=path)``).
   TopKSink        the k strongest-|r| partners of every row, O(n_rows * k)
                   host state, fed by the tile stream.
   DeviceTopKSink  the same result fed by the top-k kernel's per-pass state
@@ -37,6 +44,9 @@ from __future__ import annotations
 
 import abc
 import contextlib
+import json
+import os
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -123,6 +133,26 @@ class TileSink(abc.ABC):
         """Called once before the first pass; allocate state here."""
         self.plan = plan
 
+    def resume_pass(self) -> int:
+        """First pass the executor should run: 0 unless the sink recovered
+        persisted progress in open() (HostSink checkpoints); passes below
+        it are never launched."""
+        return 0
+
+    def skip_passes(self) -> set:
+        """Passes at or past resume_pass() that the executor must not
+        launch: empty unless the recovered coverage is not a prefix of
+        passes (a corrupt region dropped from a checkpoint)."""
+        return set()
+
+    def covered(self) -> Optional[np.ndarray]:
+        """Bool bitmap over tile ids whose output this sink already holds
+        durably, or None for sinks without recoverable coverage."""
+        return None
+
+    def pass_complete(self, k: int) -> None:
+        """Pass k's tiles have been consumed; durable sinks commit here."""
+
     @abc.abstractmethod
     def consume(self, ids: np.ndarray, tiles: torch.Tensor,
                 ready=None) -> None:
@@ -200,6 +230,291 @@ class DenseSink(TileSink):
         meas = self.plan.measure
         if not self.plan.fused and self.plan.clip and meas.clip is not None:
             r.clamp_(*meas.clip)
+        return r
+
+
+def _tile_runs(ys: np.ndarray, xs: np.ndarray):
+    """(start, stop) of the maximal runs of a tile batch that lie side by
+    side in one tile row (the same y, consecutive x): each run is one
+    rectangle of the matrix."""
+    cut = np.nonzero((np.diff(ys) != 0) | (np.diff(xs) != 1))[0] + 1
+    return zip(np.concatenate([[0], cut]).tolist(),
+               np.concatenate([cut, [len(ys)]]).tolist())
+
+
+def place_tiles_host(r: np.ndarray, tiles: np.ndarray, ys: np.ndarray,
+                     xs: np.ndarray, t: int, mirror: bool = True) -> None:
+    """Write a batch of (t, t) tiles (and, for symmetric workloads, the
+    transposes of the off-diagonal ones) into the host matrix r in place;
+    plain arrays and np.memmap alike.  The reference's fancy-index
+    assignment, written as one slice assignment per run of tiles side by
+    side in a tile row (a pass of consecutive ids is a few such runs), so
+    the host copies rows instead of gathering single elements.
+    mirror=False for rectangular workloads, whose grid has no transpose
+    twin."""
+    for a, b in _tile_runs(ys, xs):
+        y, x0 = int(ys[a]), int(xs[a])
+        x1 = x0 + b - a
+        r[y * t:(y + 1) * t, x0 * t:x1 * t] = \
+            tiles[a:b].transpose(1, 0, 2).reshape(t, -1)
+        if mirror:
+            a0 = a + int(x0 == y)          # a diagonal tile has no twin
+            if a0 < b:
+                r[(x1 - (b - a0)) * t:x1 * t, y * t:(y + 1) * t] = \
+                    tiles[a0:b].transpose(0, 2, 1).reshape(-1, t)
+
+
+def _id_intervals(ids: np.ndarray) -> List[List[int]]:
+    """A sorted unique id array as half-open ``[lo, hi)`` runs: the
+    sidecar's encoding of tile regions (global ids, not pass indices)."""
+    if ids.size == 0:
+        return []
+    breaks = np.nonzero(np.diff(ids) != 1)[0]
+    starts = np.concatenate([[0], breaks + 1])
+    ends = np.concatenate([breaks, [ids.size - 1]])
+    return [[int(ids[s]), int(ids[e]) + 1] for s, e in zip(starts, ends)]
+
+
+def _ids_from_intervals(ivs) -> np.ndarray:
+    parts = [np.arange(int(lo), int(hi), dtype=np.int64) for lo, hi in ivs]
+    return np.concatenate(parts) if parts else np.empty(0, np.int64)
+
+
+class HostSink(TileSink):
+    """Assemble tiles (and, for symmetric workloads, their mirrors) into a
+    host matrix: a caller array `out`, an np.memmap at `path`, or a new
+    ndarray.  Device memory stays bounded by one pass; the whole result
+    lives on the host or on disk, so it may exceed the card's memory.
+
+    Each pass's tiles reach the host through :class:`PassStream`: the copy
+    runs on the side stream behind that pass's own event, and ``consume``
+    waits on that copy alone, so the next pass's kernel, already queued,
+    runs while the host writes this one.
+
+    Checkpoint and resume, the reference's version-2 sidecar, so either
+    package resumes the other's checkpoint.  With a memmap `path`, every
+    completed pass is committed durably and crash-atomically: the memmap
+    is flushed, then ``<path>.progress.json`` is written to a temporary
+    file, fsynced, renamed into place and the directory fsynced (a crash
+    at any instant leaves the old or the new sidecar, never a truncated
+    one).  The sidecar holds the plan spec (``ExecutionPlan.spec_dict()``),
+    the last completed pass and one coverage entry per commit: the tile-id
+    intervals it committed and a CRC32 of their tile regions.
+    ``HostSink(path=..., resume=True)`` (or ``corr(..., resume_from=path)``)
+    refuses a spec that differs from the run's, re-verifies every entry's
+    CRC against the memmap, drops corrupt regions (they are recomputed,
+    never trusted) and tells the executor which passes to run: completed
+    passes are never launched again, and a run killed mid-pass reruns only
+    that pass.
+
+    Not ported yet (ROADMAP A5): the reference's fault-injection sites
+    (``sink_write``, ``sink_flush``, ``sink_commit``, from
+    ``runtime/faults.py``) and ``rebind`` to an elastically repartitioned
+    plan, which need the recovery runtime.
+    """
+
+    SIDECAR_VERSION = 2
+
+    def __init__(self, out: Optional[np.ndarray] = None,
+                 path: Optional[str] = None, resume: bool = False):
+        if out is not None and path is not None:
+            raise ValueError("pass either a preallocated `out` or a memmap "
+                             "`path`, not both")
+        if resume and path is None:
+            raise ValueError("resume=True requires a memmap `path` (the "
+                             "progress sidecar lives next to it)")
+        self._out = out
+        self._path = path
+        self._resume = resume
+
+    @property
+    def progress_path(self) -> Optional[str]:
+        return None if self._path is None else self._path + ".progress.json"
+
+    # -- sidecar integrity ---------------------------------------------------
+
+    def _crc_of_ids(self, ids: np.ndarray) -> int:
+        """CRC32 over the tile regions of `ids` in the order given
+        (ascending), each tile's t x t block row-major: the reference's
+        bytes, read run by run.  Mirrors are derived writes and are left
+        out: recomputing a dropped region rewrites both."""
+        ids = np.asarray(ids, np.int64)
+        if ids.size == 0:
+            return 0
+        ys, xs = self.plan.workload.job_coord_batch(ids)
+        t = self.plan.t
+        crc = 0
+        for a, b in _tile_runs(ys, xs):
+            y, x0 = int(ys[a]), int(xs[a])
+            block = self.r[y * t:(y + 1) * t, x0 * t:(x0 + b - a) * t]
+            tiles = block.reshape(t, b - a, t).transpose(1, 0, 2)
+            crc = zlib.crc32(np.ascontiguousarray(tiles, np.float32), crc)
+        return crc & 0xFFFFFFFF
+
+    def _write_progress(self, completed: int) -> None:
+        # the data is flushed before the watermark advances: a crash between
+        # the two leaves a pass marked incomplete (rerun), never a pass
+        # marked complete with unflushed tiles
+        if hasattr(self.r, "flush"):
+            self.r.flush()
+        tmp = self.progress_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"version": self.SIDECAR_VERSION,
+                       "spec": self.plan.spec_dict(),
+                       "completed": completed,
+                       "entries": self._entries}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.progress_path)
+        self._fsync_dir()
+
+    def _fsync_dir(self) -> None:
+        # persist the rename itself, where the filesystem allows a
+        # directory fsync
+        d = os.path.dirname(os.path.abspath(self.progress_path))
+        try:
+            fd = os.open(d, os.O_RDONLY)
+        except OSError:
+            return
+        try:
+            os.fsync(fd)
+        except OSError:
+            pass
+        finally:
+            os.close(fd)
+
+    def _load_sidecar(self) -> dict:
+        try:
+            with open(self.progress_path) as f:
+                state = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            raise ValueError(
+                f"cannot resume from {self._path!r}: progress sidecar "
+                f"unreadable ({e}).  The sidecar commit is atomic, so a "
+                f"crash cannot truncate it: it is missing or was modified "
+                f"outside the engine.  Delete {self.progress_path!r} and "
+                f"the memmap to restart from scratch.") from None
+        bad = None
+        if not isinstance(state, dict):
+            bad = f"expected a JSON object, got {type(state).__name__}"
+        elif not isinstance(state.get("spec"), dict):
+            bad = "missing plan spec"
+        elif not isinstance(state.get("completed"), int):
+            bad = "missing completed-pass watermark"
+        elif not isinstance(state.get("entries", []), list) or any(
+                not isinstance(e, dict) for e in state.get("entries", [])):
+            bad = "malformed coverage entries"
+        if bad is not None:
+            raise ValueError(
+                f"cannot resume from {self._path!r}: progress sidecar "
+                f"garbled ({bad}).  Delete {self.progress_path!r} and the "
+                f"memmap to restart from scratch.")
+        return state
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        self._side = PassStream(device)
+        shape = (plan.n_pad, plan.col_pad)
+        self._completed = -1
+        self._skip: set = set()
+        self._entries: List[dict] = []
+        self._pending: List[np.ndarray] = []
+        self._covered = np.zeros(plan.total_tiles, bool)
+        if self._out is not None:
+            if self._out.shape != shape:
+                raise ValueError(
+                    f"out shape {self._out.shape} != padded {shape}")
+            self.r = self._out
+        elif self._path is not None:
+            if self._resume:
+                self._open_resume(shape)
+            else:
+                # "w+" truncates and extends the file: it reads as zeros
+                self.r = np.memmap(self._path, dtype=np.float32, mode="w+",
+                                   shape=shape)
+                self._write_progress(-1)
+        else:
+            self.r = np.zeros(shape, np.float32)
+
+    def _open_resume(self, shape) -> None:
+        state = self._load_sidecar()
+        spec = self.plan.spec_dict()
+        if state["spec"] != spec:
+            raise ValueError(
+                f"cannot resume from {self._path!r}: persisted plan "
+                f"spec {state['spec']} does not match the requested run "
+                f"{spec}")
+        self.r = np.memmap(self._path, dtype=np.float32, mode="r+",
+                           shape=shape)
+        # a version-1 sidecar (no coverage entries, no CRCs; neither
+        # package writes one any more) holds nothing trusted: every pass
+        # reruns
+        dropped = 0
+        for e in state.get("entries", []):
+            ids = _ids_from_intervals(e.get("iv", []))
+            if ids.size and (ids[0] < 0
+                             or ids[-1] >= self.plan.total_tiles):
+                dropped += 1
+                continue
+            if int(e.get("crc", -1)) != self._crc_of_ids(ids):
+                dropped += 1  # a corrupt region: recompute it
+                continue
+            self._covered[ids] = True
+            self._entries.append(e)
+        k0, self._skip = self.plan.coverage_schedule(self._covered)
+        self._completed = k0 - 1
+        if dropped:
+            # prune the corrupt entries durably, so a crash now never
+            # trusts a known-bad region again
+            self._write_progress(self._completed)
+
+    # -- executor contract ---------------------------------------------------
+
+    def resume_pass(self) -> int:
+        return self._completed + 1
+
+    def skip_passes(self) -> set:
+        return set(self._skip)
+
+    def covered(self) -> np.ndarray:
+        return self._covered.copy()
+
+    def _commit_pending(self) -> None:
+        if not self._pending:
+            return
+        ids = np.unique(np.concatenate(self._pending))
+        self._pending = []
+        self._covered[ids] = True
+        if self._path is not None:
+            self._entries.append({"iv": _id_intervals(ids),
+                                  "crc": self._crc_of_ids(ids)})
+
+    def pass_complete(self, k: int) -> None:
+        self._completed = k
+        self._commit_pending()
+        if self._path is not None:
+            self._write_progress(k)
+
+    def _place(self, ids: np.ndarray, vals: np.ndarray) -> None:
+        if ids.size == 0:
+            return
+        ys, xs = self.plan.workload.job_coord_batch(ids)
+        place_tiles_host(self.r, vals, ys, xs, self.plan.t,
+                         mirror=self.plan.workload.needs_symmetrize)
+
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
+        ids = np.asarray(ids, dtype=np.int64)
+        with self._side.pass_of(ready, tiles):
+            vals, = self._side.to_host(tiles)
+        self._place(ids, vals)
+        self._pending.append(ids)
+
+    def result(self) -> np.ndarray:
+        r = self.r[:self.plan.n_rows, :self.plan.n_cols]
+        meas = self.plan.measure
+        if self.plan.clip and meas.clip is not None:
+            np.clip(r, meas.clip[0], meas.clip[1], out=r)
         return r
 
 
@@ -495,6 +810,6 @@ class ExceedanceSink(TileSink):
         return self._inner.result()
 
 
-__all__ = ["PassStream", "TileSink", "DenseSink", "TopKSink",
-           "DeviceTopKSink", "ExceedanceSink", "scatter_tiles_at", "symmetrize",
-           "topk_merge_rows"]
+__all__ = ["PassStream", "TileSink", "DenseSink", "HostSink", "TopKSink",
+           "DeviceTopKSink", "ExceedanceSink", "place_tiles_host",
+           "scatter_tiles_at", "symmetrize", "topk_merge_rows"]

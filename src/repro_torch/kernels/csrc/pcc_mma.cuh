@@ -1,5 +1,6 @@
 // The tensor-core tile accumulation shared by pcc_tile_sm90.cu (bf16, fp8
-// and int8 tiles) and the bf16 select kernel of pcc_topk.cu (sm_90a).
+// and int8 tiles) and the bf16 and int8 select kernels of pcc_topk.cu
+// (sm_90a).
 //
 // A work item is a 128 x 128 block of one (t, t) tile of U V^T: rows
 // a_row .. a_row + 127 of U against rows b_row .. b_row + 127 of V (of
@@ -37,9 +38,9 @@
 //     Integer sums are exact in any order while they stay inside int32
 //     (the wrapper keeps l_pad <= INT8_MAX_L_PAD, so l_pad * 128^2 < 2^31),
 //     so there is nothing to promote: the finished sum is converted to
-//     float once (acc_value), as the int8 select's SIMT block does
-//     (pcc_accum.cuh), and the tiles are bitwise the plain version's and
-//     the select's values.
+//     float once (acc_value), in the tiles and in the int8 select alike,
+//     so the tiles are bitwise the plain version's and the select's
+//     values.
 // Against the plain version (float32 block products) bf16 and fp8 results
 // move by the tensor cores' own rounding; the gate that holds them is
 // kernels/narrow_gate.py.

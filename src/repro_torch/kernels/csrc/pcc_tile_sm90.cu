@@ -24,7 +24,7 @@
 // fp8 or int8, against 633 MB of float32 tiles written (0.19 ms at
 // 3.35 TB/s): bound by operations.  The SIMT kernels this replaces widened
 // bf16 and fp8 to float32 and reached 3 % (bf16) and 1.4 % (fp8) of these
-// bounds, and ran int8 through __dp4a at 5 %.
+// bounds, and int8 5 % (4-way integer dot products on the SIMT pipes).
 //
 // Design (the mainloop is pcc_mma.cuh, shared with the bf16 top-k select):
 //  * Work: a work item is one 128 x 128 block of one tile of one replica;

@@ -23,13 +23,12 @@
 // CTAs.  Two kernels instead:
 //   1. pcc_topk_select: the tile accumulation of pcc_tiles, so the values
 //      are bitwise pcc_tiles': for float32 the 128 x 128 SGEMM mainloop of
-//      the float32 tiles (pcc_sgemm.cuh), for bf16 the tensor-core
-//      mainloop of pcc_tile_sm90.cu (pcc_mma.cuh, the same stages and
-//      wgmma steps), each on a 128 x 128 block cut into four 64 x 64
-//      quarters; for int8 the SIMT __dp4a chain of pcc_accum.cuh on a
-//      64 x 64 block (exact int32 sums, the tensor-core tiles' bits).  The
+//      the float32 tiles (pcc_sgemm.cuh), for bf16 and int8 the
+//      tensor-core mainloop of pcc_tile_sm90.cu (pcc_mma.cuh, the same
+//      stages and wgmma steps; int8 one exact int32 sum, converted once),
+//      each on a 128 x 128 block cut into four 64 x 64 quarters.  The
 //      CTA's finished block goes to shared memory and each row of a 64 x 64
-//      block (and, off the diagonal, each of its columns) selects its
+//      quarter (and, off the diagonal, each of its columns) selects its
 //      top-min(kk, 64) (below): by warp extraction while that is at most
 //      32, else by rank counting.  The partial lists go to a pass scratch
 //      of (pass_tiles, t, ceil(t/64), min(kk, 64)) entries per side: 160 KB
@@ -58,9 +57,10 @@
 //
 // What bounds it: the same work as pcc_tiles (2 l t^2 per tile; in float32
 // 1.61e12 FLOP, >= 24 ms at 67 TFLOP/s, for the Table II pass; bf16, >= 1.6
-// ms at 989 TFLOP/s, on the tensor cores; int8 is bound by the int8
-// tensor-core peak, which the SIMT dp4a chain does not use).  The merge
-// kernel reads float32 values whatever the operands.  The selection is
+// ms at 989 TFLOP/s, on the tensor cores; int8, 2 x 2,016 x 256^2 ops a
+// tile of int8 Kendall over 64 samples, >= 0.32 ms a Table II pass at
+// 1,979 TOP/s).  The merge kernel reads float32 values whatever the
+// operands.  The selection is
 // not in the bound, and its cost is what this design keeps down: at kc
 // entries a line, extraction is kc rounds, each a warp reduction, a ballot
 // and a few selects for the line's 64 candidates, with no branch or memory
@@ -81,7 +81,9 @@ namespace {
 
 using namespace pcc;
 
-constexpr int KC_MAX = BM;        // partial list length per CTA row/column
+constexpr int BM = 64;            // a quarter of a 128 x 128 block: lists
+                                  // are per line and 64-candidate quarter
+constexpr int KC_MAX = BM;        // partial list length per quarter line
 constexpr int KK_MAX = 256;       // state capacity cap (the wrapper checks)
 constexpr int MERGE_WARPS = 8;    // output rows per merge CTA
 static_assert(KK_MAX % 32 == 0, "the merge holds KK_MAX / 32 entries a lane");
@@ -107,21 +109,18 @@ constexpr int ERR_MAP = -1000;
 //     candidate; lane r keeps round r's entry, and the kc entries are
 //     stored side by side at the end.  Work in proportion to kc, no
 //     branches and no memory traffic inside the rounds; a warp holds LINES
-//     lines and runs each round as sweeps over them, so their reductions
+//     lines and runs each round over all of them, so their reductions
 //     issue back to back.
 //   * larger kc, rank counting (rank_lines): 4 threads a line, each
 //     candidate's slot is the number of candidates of its line that
 //     precede it; 64 comparisons a candidate, whatever kc.
 // Keys of NaN values sort first on the first route; NaN tiles are outside
 // the contract of both.
-constexpr int SEL_WARPS = THREADS / 32;      // warps of a 64 x 64 block
+constexpr int SEL_WARPS = 8;                 // warps sharing a quarter side
 constexpr int LINES = BM / SEL_WARPS;        // lines a warp holds, per side
+constexpr int RANK_THREADS = 4 * BM;         // rank counting: 4 a line
 constexpr int KC_EXTRACT = 32;
 static_assert(KC_EXTRACT <= 32, "lane r keeps entry r of its lines");
-// lines per sweep in the int8 select, whose other CTAs on the SM hide
-// latency (and which stays at 70 registers: 74 with sweeps of 8, at the
-// same time); the 128 x 128 selects sweep all LINES
-constexpr int SIMT_SWEEP = 4;
 
 // One side of a finished block: line j at line_in + j of the tile,
 // candidate q at cand_in + q of the tile and at global column gcand0 + q,
@@ -163,12 +162,10 @@ __device__ __forceinline__ Side col_side(const float* val, int yt, int xt,
 // largest key, so it is known to the whole warp; lane r keeps the
 // candidate of round r and, after the last round, lanes 0 .. kc-1 store
 // their entries side by side.
-template <int SWEEP>
 __device__ __forceinline__ void extract_lines(const Side& sd, int g,
                                               int lane, long long slot,
                                               int t, size_t per, int kc,
                                               int n_cols_valid) {
-  static_assert(LINES % SWEEP == 0, "sweeps cover the lines");
   unsigned hi[LINES], lo[LINES];   // keys of the lane's next, then last
   unsigned sec[LINES];   // bit l: lane l's next candidate is 2 l + 1
   int mine[LINES];       // candidate of entry `lane`, -1 if masked
@@ -192,24 +189,21 @@ __device__ __forceinline__ void extract_lines(const Side& sd, int g,
     mine[i] = -1;
   }
   for (int r = 0; r < kc; ++r) {
+    unsigned best[LINES], tied[LINES];
 #pragma unroll
-    for (int i0 = 0; i0 < LINES; i0 += SWEEP) {
-      unsigned best[SWEEP], tied[SWEEP];
+    for (int i = 0; i < LINES; ++i)
+      best[i] = __reduce_max_sync(0xffffffffu, hi[i]);
 #pragma unroll
-      for (int i = 0; i < SWEEP; ++i)
-        best[i] = __reduce_max_sync(0xffffffffu, hi[i0 + i]);
+    for (int i = 0; i < LINES; ++i)
+      tied[i] = __ballot_sync(0xffffffffu, hi[i] == best[i]);
 #pragma unroll
-      for (int i = 0; i < SWEEP; ++i)
-        tied[i] = __ballot_sync(0xffffffffu, hi[i0 + i] == best[i]);
-#pragma unroll
-      for (int i = 0; i < SWEEP; ++i) {
-        const int w = __ffs(tied[i]) - 1;          // the same in every lane
-        const int q = 2 * w + (int)((sec[i0 + i] >> w) & 1u);
-        mine[i0 + i] = lane == r ? (best[i] ? q : -1) : mine[i0 + i];
-        hi[i0 + i] = lane == w ? lo[i0 + i] : hi[i0 + i];
-        lo[i0 + i] = lane == w ? 0u : lo[i0 + i];
-        sec[i0 + i] ^= 1u << w;
-      }
+    for (int i = 0; i < LINES; ++i) {
+      const int w = __ffs(tied[i]) - 1;            // the same in every lane
+      const int q = 2 * w + (int)((sec[i] >> w) & 1u);
+      mine[i] = lane == r ? (best[i] ? q : -1) : mine[i];
+      hi[i] = lane == w ? lo[i] : hi[i];
+      lo[i] = lane == w ? 0u : lo[i];
+      sec[i] ^= 1u << w;
     }
   }
   if (lane >= kc) return;
@@ -227,8 +221,9 @@ __device__ __forceinline__ void extract_lines(const Side& sd, int g,
   }
 }
 
-// Rank counting: all 64 lines of side `sd`, by 256 threads (tid) with the
-// barrier sync() over them; key is a 64 x 65 scratch of shared memory.
+// Rank counting: all 64 lines of side `sd`, by RANK_THREADS threads (tid)
+// with the barrier sync() over them; key is a 64 x 65 scratch of shared
+// memory.
 template <typename Sync>
 __device__ __forceinline__ void rank_lines(const Side& sd,
                                            float (&key)[BM][BM + 1], int tid,
@@ -263,77 +258,13 @@ __device__ __forceinline__ void rank_lines(const Side& sd,
   }
 }
 
-// Select (int8): one CTA per 64 x 64 block of each valid tile.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pcc_topk_select_kernel(const T* __restrict__ u,
-                       const T* __restrict__ v, float* __restrict__ prv,
-                       int* __restrict__ prc, float* __restrict__ pcv,
-                       int* __restrict__ pcc_, long long j_start,
-                       long long dev_hi, int m, int grid_cols, int t,
-                       int l_pad, int nb, int kc, int n_cols_valid,
-                       int symmetric, int has_div, float recip, int has_clip,
-                       float lo, float hi) {
-  __shared__ __align__(16) Stage st;
-  __shared__ float val[BM][BM + 1];   // the finished block
-  __shared__ float key[BM][BM + 1];   // rank counting: |v|, -1 if masked
-
-  const long long jt_raw = j_start + (long long)blockIdx.x;
-  if (jt_raw >= dev_hi) return;       // uniform over the CTA
-  const long long total = tile_total(m, grid_cols);
-  const long long jt = jt_raw < total ? jt_raw : total - 1;
-  int yt, xt;
-  tile_coord(m, grid_cols, jt, &yt, &xt);
-
-  // rb and cb as names: with (blockIdx.y / nb) * BM written inline, nvcc
-  // gave the int8 instantiation 128 registers, not 72 (two CTAs an SM
-  // instead of three, ~10 % slower)
-  const int rb = blockIdx.y / nb, cb = blockIdx.y % nb;
-  const int r_in = rb * BM, c_in = cb * BM;
-  float acc[TM][TM];
-  accumulate_block(u + ((size_t)yt * t + r_in) * l_pad,
-                   v + ((size_t)xt * t + c_in) * l_pad, t - r_in, t - c_in,
-                   l_pad, st, acc);
-
-  const int tid = threadIdx.x;
-  {
-    const int tx = tid % (BM / TM), ty = tid / (BM / TM);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TM; ++j)
-        val[ty * TM + i][tx * TM + j] =
-            epilogue(acc[i][j], has_div, recip, has_clip, lo, hi);
-  }
-  __syncthreads();
-  const size_t per = (size_t)nb * kc;
-  const Side rows = row_side<BM + 1>(&val[0][0], yt, xt, r_in, c_in, t,
-                                     symmetric, prv, prc);
-  const Side cols = col_side<BM + 1>(&val[0][0], yt, xt, r_in, c_in, t,
-                                     pcv, pcc_);
-  const bool mirror = grid_cols == 0 && yt != xt;   // uniform
-  if (kc <= KC_EXTRACT) {
-    extract_lines<SIMT_SWEEP>(rows, tid / 32, tid % 32, blockIdx.x, t, per,
-                              kc, n_cols_valid);
-    if (mirror)
-      extract_lines<SIMT_SWEEP>(cols, tid / 32, tid % 32, blockIdx.x, t,
-                                per, kc, n_cols_valid);
-  } else {
-    auto sync = [] { __syncthreads(); };
-    rank_lines(rows, key, tid, sync, blockIdx.x, t, per, kc, n_cols_valid);
-    if (mirror)
-      rank_lines(cols, key, tid, sync, blockIdx.x, t, per, kc,
-                 n_cols_valid);
-  }
-}
-
 // The selection of a finished 128 x 128 block: val (row stride SEL_LD) at
 // (r_blk, c_blk) of tile (yt, xt), written to the scratch of slot
-// blockIdx.x as the four 64 x 64 blocks of the int8 select.  Quarters past
-// t are skipped; the column side runs only off the diagonal of a triangle
-// (`mirror`).  kc <= KC_EXTRACT: extraction by warps warp, warp + n_warps,
-// ..., one (side, quarter, line group) unit at a time; else rank counting
-// by the 256 threads that call it (barrier sync()) in the key scratch.
+// blockIdx.x as four 64 x 64 quarters.  Quarters past t are skipped; the
+// column side runs only off the diagonal of a triangle (`mirror`).
+// kc <= KC_EXTRACT: extraction by warps warp, warp + n_warps, ..., one
+// (side, quarter, line group) unit at a time; else rank counting by the
+// RANK_THREADS threads that call it (barrier sync()) in the key scratch.
 constexpr int SEL_LD = 128 + 1;
 static_assert(mma::BLOCK == 128 && sgemm::BLOCK == 128,
               "both selects cut 128 x 128 blocks into 64 x 64 quarters");
@@ -360,9 +291,8 @@ __device__ __forceinline__ void select_quarters(
     for (int u = warp; u < units; u += n_warps) {
       const int sb = (u / SEL_WARPS) % 4;
       if (!inside(sb)) continue;   // uniform over the warp
-      extract_lines<LINES>(side_of(sb, u >= 4 * SEL_WARPS), u % SEL_WARPS,
-                           threadIdx.x % 32, blockIdx.x, t, per, kc,
-                           n_cols_valid);
+      extract_lines(side_of(sb, u >= 4 * SEL_WARPS), u % SEL_WARPS,
+                    threadIdx.x % 32, blockIdx.x, t, per, kc, n_cols_valid);
     }
     return;
   }
@@ -384,6 +314,7 @@ __device__ __forceinline__ void select_quarters(
 // rank counting; then all 8 warps select the four quarters.
 constexpr int F32_SMEM = (sgemm::BLOCK * SEL_LD + BM * (BM + 1)) * 4;
 static_assert(F32_SMEM >= sgemm::SMEM_BYTES, "the ring fits too");
+static_assert(sgemm::THREADS == RANK_THREADS, "all threads rank");
 
 __global__ void __launch_bounds__(sgemm::THREADS, 2)
 pcc_topk_select_f32_kernel(const float* __restrict__ u,
@@ -426,10 +357,11 @@ pcc_topk_select_f32_kernel(const float* __restrict__ u,
                   prc, pcv, pcc_);
 }
 
-// Select (bf16): one CTA per 128 x 128 block of each valid tile, computed
-// by the tensor-core mainloop of pcc_tiles (pcc_mma.cuh, the same stages
-// and steps, so the values are bitwise pcc_tiles'), then selected as the
-// four quarters.  The ring is reused for the finished block once both
+// Select (bf16, int8): one CTA per 128 x 128 block of each valid tile,
+// computed by the tensor-core mainloop of pcc_tiles (pcc_mma.cuh, the same
+// stages and steps, so the values are bitwise pcc_tiles'; int8's int32 sum
+// is converted once, by acc_value, before the epilogue), then selected as
+// the four quarters.  The ring is reused for the finished block once both
 // consumer warpgroups are done with it.  Extraction runs on all SEL_ALL
 // warps, the producer warpgroup's too (it has issued its loads by then);
 // rank counting on the two consumer warpgroups.
@@ -439,6 +371,7 @@ constexpr int SEL_ALL = mma::THREADS / 32;
 static_assert(mma::BLOCK * SEL_LD * 4 + BM * (BM + 1) * 4 <=
                   SEL_STAGES * mma::STAGE_BYTES,
               "the finished block and the keys fit in the ring");
+static_assert(mma::CONSUMERS == RANK_THREADS, "the consumers rank");
 
 template <typename T>
 __global__ void __launch_bounds__(mma::THREADS, 1)
@@ -491,7 +424,7 @@ pcc_topk_select_sm90(const __grid_constant__ CUtensorMap ta,
   } else {
     const int wg = warp / 4;
     const int lane = threadIdx.x % 128;
-    float acc[mma::ACC];
+    typename mma::Operand<T>::Acc acc[mma::ACC];
     int it = 0;
     mma::mma_block<T, SEL_STAGES>(acc, ring, sm90::smem_u32(slots), it, nk,
                                   wg);
@@ -503,7 +436,8 @@ pcc_topk_select_sm90(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         val[(row0 + 8 * (e >> 1)) * SEL_LD + 8 * j + col0 + (e & 1)] =
-            epilogue(acc[4 * j + e], has_div, recip, has_clip, lo, hi);
+            epilogue(mma::acc_value(acc[4 * j + e]), has_div, recip,
+                     has_clip, lo, hi);
   }
   if (extract)
     sm90::bar_sync(2, mma::THREADS);   // the finished block is complete
@@ -762,26 +696,6 @@ pcc_topk_merge_kernel(const float* __restrict__ prv,
                 j_start, t, r, nb, kc, kk, lane);
 }
 
-// int8: the SIMT 64 x 64 select.
-int launch_select_i8(const int8_t* u, const int8_t* v, float* prv, int* prc,
-                     float* pcv, int* pcc_, long long j_start,
-                     long long dev_hi, int pass_tiles, int m, int grid_cols,
-                     int t, int l_pad, int kk, int n_cols_valid,
-                     int symmetric, int has_div, float recip, int has_clip,
-                     float lo, float hi, void* stream) {
-  if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
-      j_start < 0 || kk <= 0 || kk > KK_MAX)
-    return (int)cudaErrorInvalidValue;
-  const int nb = (t + BM - 1) / BM;
-  if ((long long)nb * nb > 65535) return (int)cudaErrorInvalidValue;
-  const int kc = kk < KC_MAX ? kk : KC_MAX;
-  const dim3 grid((unsigned)pass_tiles, (unsigned)(nb * nb));
-  pcc_topk_select_kernel<int8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      u, v, prv, prc, pcv, pcc_, j_start, dev_hi, m, grid_cols, t, l_pad, nb,
-      kc, n_cols_valid, symmetric, has_div, recip, has_clip, lo, hi);
-  return (int)cudaGetLastError();
-}
-
 // float32: the select on the SGEMM mainloop.
 int launch_select_f32(const float* u, const float* v, float* prv, int* prc,
                       float* pcv, int* pcc_, long long j_start,
@@ -808,16 +722,17 @@ int launch_select_f32(const float* u, const float* v, float* prv, int* prc,
   return (int)cudaGetLastError();
 }
 
-// bf16: the tensor-core select.  Its operands meet TMA's alignment (l_pad
-// a multiple of 8, 16-byte bases; the wrapper pads otherwise).
-int launch_select_sm90(const __nv_bfloat16* u, const __nv_bfloat16* v,
-                       float* prv, int* prc, float* pcv, int* pcc_,
-                       long long j_start, long long dev_hi, int pass_tiles,
-                       int m, int grid_cols, int t, int l_pad, int kk,
+// bf16 and int8: the tensor-core select.  Its operands meet TMA's
+// alignment (16-byte rows: l_pad a multiple of 8 bf16 or 16 int8 samples,
+// and 16-byte bases; the wrapper pads otherwise).
+template <typename T>
+int launch_select_sm90(const T* u, const T* v, float* prv, int* prc,
+                       float* pcv, int* pcc_, long long j_start,
+                       long long dev_hi, int pass_tiles, int m,
+                       int grid_cols, int t, int l_pad, int kk,
                        int n_cols_valid, int symmetric, int has_div,
                        float recip, int has_clip, float lo, float hi,
                        void* stream) {
-  using T = __nv_bfloat16;
   if (pass_tiles <= 0 || m <= 0 || grid_cols < 0 || t <= 0 || l_pad <= 0 ||
       j_start < 0 || kk <= 0 || kk > KK_MAX)
     return (int)cudaErrorInvalidValue;
@@ -870,7 +785,7 @@ int launch_select_sm90(const __nv_bfloat16* u, const __nv_bfloat16* v,
 
 PCC_TOPK_SELECT_ENTRY(pcc_topk_select_f32, float, launch_select_f32)
 PCC_TOPK_SELECT_ENTRY(pcc_topk_select_bf16, __nv_bfloat16, launch_select_sm90)
-PCC_TOPK_SELECT_ENTRY(pcc_topk_select_i8, int8_t, launch_select_i8)
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_i8, int8_t, launch_select_sm90)
 
 // Kernel 2.  hi_eff = min(j_start + pass_tiles, dev_hi); cv/cc (and
 // pcv/pcc) are unused on the grid.

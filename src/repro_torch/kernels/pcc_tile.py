@@ -59,9 +59,9 @@ from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 
 DEFAULT_TILE = 256
 DEFAULT_LBLK = 512
-# The top-k select's block, whose lines' partial lists its scratch holds,
-# and the top-k state capacity the kernels take (csrc/pcc_accum.cuh BM,
-# csrc/pcc_topk.cu KK_MAX).
+# The top-k select's quarter block, whose lines' partial lists its scratch
+# holds, and the top-k state capacity the kernels take (csrc/pcc_topk.cu
+# BM, KK_MAX).
 CTA_BLOCK = 64
 KK_MAX = 256
 # Operand dtypes the tile kernel takes -> suffix of its C entry points; the
@@ -72,10 +72,10 @@ OPERAND_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
 TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 # Operand dtypes of the tensor-core tile kernel (csrc/pcc_tile_sm90.cu) and
-# of the tensor-core select (the bf16 select of csrc/pcc_topk.cu); the
-# others take the SIMT kernels.
+# of the tensor-core select (the bf16 and int8 selects of
+# csrc/pcc_topk.cu); float32 takes the SIMT kernels.
 SM90_DTYPES = (torch.bfloat16, torch.int8) + _FP8
-SELECT_SM90_DTYPES = (torch.bfloat16,)
+SELECT_SM90_DTYPES = (torch.bfloat16, torch.int8)
 # TMA reads rows whose byte stride and base are multiples of this.
 TMA_ALIGN = 16
 # int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
@@ -518,11 +518,10 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     top-min(kk, 64) per 64-wide block, into a pass scratch of (pass_tiles,
     t, ceil(t/64), min(kk, 64)) (value, column) pairs per side (rows;
     columns too on the triangle).  float32 operands take the SGEMM mainloop
-    of the float32 tiles and bf16 operands the tensor-core mainloop of the
-    bf16 tiles, so the values are bitwise :func:`pcc_tiles`'; int8
-    operands keep the SIMT ``__dp4a`` block, whose exact int32 sums are the
-    tensor-core tiles' bits too.  A CPU tensor runs
-    :func:`topk_select_plain`."""
+    of the float32 tiles; bf16 and int8 operands the tensor-core mainloop
+    of their tiles (csrc/pcc_mma.cuh), read through :func:`tma_operand`
+    (int8's exact int32 sums converted once), so the values are bitwise
+    :func:`pcc_tiles`'.  A CPU tensor runs :func:`topk_select_plain`."""
     m, total, v = _check_topk(u_pad, j_start, t, l_blk, pass_tiles, v_pad,
                               grid_cols, kk, dev_hi, n_cols_valid)
     if u_pad.device.type == "cpu":

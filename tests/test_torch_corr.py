@@ -245,6 +245,13 @@ def test_unported_corr_options_name_their_slice(kw):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL)
         return
+    if "resume_from" in kw:
+        # ported (slice 4): both packages refuse a path with no checkpoint
+        for run in (lambda: corr(x, device="cpu", **kw),
+                    lambda: ref_corr(jnp.asarray(x), **kw)):
+            with pytest.raises(ValueError, match="sidecar unreadable"):
+                run()
+        return
     if set(kw) <= {"where", "compute_dtype"}:
         # ported: masked runs (slice 5) and fp8 operands (slice 6) match
         # the reference

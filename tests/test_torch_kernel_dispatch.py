@@ -3,14 +3,12 @@ pcc_topk_tiles reaches, the operands the wrappers hand them, and the
 kernel libraries' C interfaces against their sources, on the CPU (the
 launches themselves need an NVIDIA GPU: tests/test_torch_kernels_gpu.py).
 
-int8 tiles run on the tensor-core library (pcc_tile_sm90.cu) and read
-their operands through TMA, so the tile wrapper pads int8 rows to 16
-bytes; the int8 top-k select stays on the SIMT block of pcc_topk.cu and
-takes its operands as they are.  Each top-k select runs the mainloop of
-the tiles of its dtype where they must agree bit for bit: float32 the
-SGEMM mainloop of pcc_sgemm.cuh, bf16 the tensor-core one of pcc_mma.cuh;
-int8 the __dp4a block of pcc_accum.cuh (exact sums, so the tensor-core
-tiles' bits too), which has no float32 routine left.
+int8 tiles and the int8 top-k select run on the tensor cores and read
+their operands through TMA, so both wrappers pad int8 rows to 16 bytes.
+Each top-k select runs the mainloop of the tiles of its dtype, so they
+agree bit for bit: float32 the SGEMM mainloop of pcc_sgemm.cuh, bf16 and
+int8 the tensor-core one of pcc_mma.cuh.  pcc_accum.cuh keeps no
+accumulation routine of its own, and no source keeps a __dp4a chain.
 """
 
 import re
@@ -55,8 +53,8 @@ SELECT_ROUTES = {
                     "sgemm::accumulate_block"),
     torch.bfloat16: ("launch_select_sm90", "pcc_topk_select_sm90<T>",
                      "mma::mma_block"),
-    torch.int8: ("launch_select_i8", "pcc_topk_select_kernel<int8_t>",
-                 "accumulate_block"),
+    torch.int8: ("launch_select_sm90", "pcc_topk_select_sm90<T>",
+                 "mma::mma_block"),
 }
 
 
@@ -77,12 +75,12 @@ def test_topk_select_entry_by_dtype(dtype):
     """Every top-k dtype has its select entry point, bound for its library,
     whose launcher launches its kernel, which accumulates on the mainloop
     of that dtype's tiles: float32 on pcc_sgemm.cuh (the 128 x 128 SGEMM of
-    the float32 tiles), bf16 on pcc_mma.cuh, int8 on pcc_accum.cuh's int8
-    block.  Only bf16 selects through TMA, so only bf16 operands are
-    padded for it."""
+    the float32 tiles), bf16 and int8 on pcc_mma.cuh.  bf16 and int8
+    select through TMA, so their operands are padded for it; float32's
+    are not."""
     entry = f"pcc_topk_select_{OPERAND_DTYPES[dtype]}"
     assert entry in _build.SIGNATURES["pcc_topk"]
-    assert (dtype in SELECT_SM90_DTYPES) == (dtype == torch.bfloat16)
+    assert (dtype in SELECT_SM90_DTYPES) == (dtype != torch.float32)
     src = (CSRC / "pcc_topk.cu").read_text()
     launcher, kernel, mainloop = SELECT_ROUTES[dtype]
     assert re.search(rf"_ENTRY\(\s*{entry}\s*,[^)]*\b{launcher}\)", src)
@@ -94,15 +92,18 @@ def test_topk_select_entry_by_dtype(dtype):
 
 
 def test_float32_select_left_the_64_block():
-    """pcc_accum.cuh keeps only the int8 block: no float32 routine is left
-    for a select to fall back on."""
+    """pcc_accum.cuh keeps no accumulation routine (the 64 x 64 SIMT block
+    is gone for every dtype), and no kernel source keeps a __dp4a chain: no
+    select has a slower path to fall back on."""
     src = (CSRC / "pcc_accum.cuh").read_text()
-    heads = re.findall(r"void accumulate_block\(\s*const (\w+)", src)
-    assert heads == ["int8_t"]
+    assert not re.findall(r"void accumulate_block\(", src)
+    for path in sorted(CSRC.glob("*.cu*")):
+        assert "__dp4a" not in path.read_text(), path.name
     topk = (CSRC / "pcc_topk.cu").read_text()
     assert '#include "pcc_sgemm.cuh"' in topk
     assert "sgemm::accumulate_block(" in _function_body(
         topk, "\npcc_topk_select_f32_kernel(")
+    assert not re.search(r"(?<![:\w])accumulate_block\(", topk)
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
@@ -118,6 +119,9 @@ def test_signatures_name_functions_of_their_source(name):
 @pytest.mark.parametrize("width,l_blk", [(20, 4), (29, 29), (32, 8),
                                          (2016, 2016), (136, 8)])
 def test_int8_operands_padded_for_the_tiles_not_the_select(width, l_blk):
+    """int8 operands reach the tile kernel and the top-k select alike: as
+    they are when their rows are 16-byte aligned, else zero-padded copies
+    whose sample axis is a multiple of 16 and of l_blk."""
     rng = np.random.default_rng(width)
     u = torch.from_numpy(rng.integers(-128, 128, size=(16, width),
                                       dtype=np.int8))
@@ -127,9 +131,8 @@ def test_int8_operands_padded_for_the_tiles_not_the_select(width, l_blk):
     for col in (u, v):   # the triangle (v is u) and a second operand
         tu, tv = _kernel_operands(u, col, l_blk)
         su, sv = _kernel_operands(u, col, l_blk, SELECT_SM90_DTYPES)
-        assert su is u and sv is col
-        assert (tv is tu) == (col is u)
-        for got, x in ((tu, u), (tv, col)):
+        assert (tv is tu) == (col is u) and (sv is su) == (col is u)
+        for got, x in ((tu, u), (tv, col), (su, u), (sv, col)):
             if width % per == 0:
                 assert got is x
                 continue

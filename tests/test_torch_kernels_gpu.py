@@ -637,6 +637,65 @@ def test_narrow_topk_values_are_pcc_tiles_bits(cuda, dtype, grid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("n,n_cols,width,t,l_blk,kk", [
+    (300, 170, 29, 64, 29, 10),     # l_pad 29: a zero-padded copy for TMA
+    (300, 170, 48, 64, 16, 33),     # kk 33: rank counting, not extraction
+    (333, 250, 40, 72, 8, 10),      # t = 72: blocks and quarters past t
+])
+def test_int8_select_on_the_tensor_cores(cuda, grid, n, n_cols, width, t,
+                                         l_blk, kk):
+    """The int8 select on the tensor-core mainloop of the int8 tiles: its
+    pass scratch bitwise topk_select_plain's list for list, its values
+    bitwise pcc_tiles' tiles, and the merged state bitwise the plain
+    version's, with an unaligned sample axis (the wrapper's padded copy),
+    the rank-counting route and a ragged t."""
+    u = pad_operands(_signs(n, width, cuda), t, l_blk)
+    v = pad_operands(_signs(n_cols, width, cuda, seed=1), t, l_blk)
+    assert (u.shape[1] % 16 == 0) == (width % 16 == 0)
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    j0, dev_hi = 1, total - 2
+    pt = total - j0
+    spec = EpilogueSpec(div=float(width), clip=(-1.0, 1.0))
+    kw = dict(t=t, l_blk=l_blk, pass_tiles=pt, kk=kk,
+              n_cols_valid=n_cols if grid else n, symmetric_problem=not grid,
+              epilogue=spec, v_pad=v if grid else None, grid_cols=gc)
+    before = pcc_topk_tiles.select_by_dtype["int8"]
+    got = topk_select(u, j0, dev_hi, **kw)
+    want = topk_select_plain(u, j0, dev_hi, **kw)
+    torch.cuda.synchronize()
+    assert pcc_topk_tiles.select_by_dtype["int8"] == before + 1
+    n_valid = dev_hi - j0
+    ids = j0 + np.arange(n_valid)
+    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+              else job_coord_batch(m, ids))
+    read = [torch.ones(n_valid, dtype=torch.bool, device=cuda),
+            torch.as_tensor(ys != xs, device=cuda)]
+    for side in range(len(got) // 2):
+        for a, b in zip(got[2 * side:2 * side + 2],
+                        want[2 * side:2 * side + 2]):
+            a, b = a[:n_valid][read[side]], b[:n_valid][read[side]]
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # values: the tiles' bits at the listed columns
+    tiles = pcc_tiles(u, j0, t=t, l_blk=l_blk, pass_tiles=n_valid,
+                      epilogue=spec, v_pad=v if grid else None, grid_cols=gc)
+    vals, cols = got[0][:n_valid], got[1][:n_valid]
+    ok = cols >= 0
+    assert bool(ok.any())
+    slot = (torch.arange(n_valid, device=cuda).view(-1, 1, 1, 1)
+            .expand_as(cols))
+    line = torch.arange(t, device=cuda).view(1, -1, 1, 1).expand_as(cols)
+    xs_t = torch.as_tensor(xs, device=cuda).view(-1, 1, 1, 1).expand_as(cols)
+    ref = tiles[slot[ok], line[ok], cols[ok].long() - xs_t[ok] * t]
+    assert torch.equal(vals[ok], ref)
+    state = pcc_topk_tiles(u, j0, dev_hi, **kw)
+    plain = pcc_topk_tiles_plain(u, j0, dev_hi, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(state, plain))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("measure,dtype", [
     ("spearman", None), ("covariance", None), ("kendall", "int8"),
     ("pearson", "bfloat16"), ("kendall_tau_b", "bfloat16")])
