@@ -133,7 +133,21 @@ Phases, each fatal on failure:
      a run stopped once pass 4 is committed, then corr(x,
      resume_from=path): exactly 4 more launches (passes 5-8) and the same
      bits; bytes flipped inside pass 2's committed tiles, then a resume:
-     the schedule reruns pass 2 alone (one launch) and the bits come back.
+     the schedule reruns pass 2 alone (one launch) and the bits come back;
+ 22. streaming reductions and the transform cache at Table II, every check
+     exact: EdgeCountSink(0.05, labels from seed 3, 10 groups) in one pass
+     and in 300-tile passes (9), its edges, degrees and intra-group edges
+     equal to the counts taken on the card from DenseSink's matrix
+     (diagonal excluded), time and peak memory beside DenseSink's; a
+     ReductionSink row max of |r| (host numpy callback, 9 passes) bitwise
+     the row max of DenseSink's off-diagonal |r|; RowBlockSink over phase
+     8's TF rows against the Table II rows, ranges [0, 500), [500, 1,100)
+     and [1,100, 1,639), each bitwise DenseSink's cross rows;
+     assemble_from_stream over stream_tiles(x, max_tiles_per_pass=300)
+     bitwise DenseSink's .cpu(); Spearman corr twice on one card tensor
+     (a cache miss, then a hit with the same bits) and after an in-place
+     change (a miss, the bits of an uncached run); each run's float32
+     pcc_tiles launches counted, no plain version; times.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -207,6 +221,13 @@ TOL_Q_INT8 = 8e-3
 TOL_Q_FP8 = 5e-2
 K_TOP = 10                         # examples/coexpression_network.py --topk 10
 N_TF = 1_639                       # human TFs (Lambert et al., Cell 2018)
+# Phase 22: EdgeCountSink's threshold (about 3.5 sd of |r| over l = 5,072
+# uniform samples, ~1 / sqrt(l) = 0.014: some 10^5 of the 154 M pairs),
+# its labels (EDGE_MODULES groups drawn from seed EDGE_LABEL_SEED) and the
+# RowBlockSink ranges over the TF rows, straddling 256-row tile edges.
+EDGE_THRESHOLD = 0.05
+EDGE_MODULES, EDGE_LABEL_SEED = 10, 3
+ROW_BLOCKS = [(0, 500), (500, 1_100), (1_100, 1_639)]
 N_64K, L_64K = 64_000, 5_000       # paper Table I, configs ARTIFICIAL_64K
 CHECK_ROWS = 16
 # Significance (phase 18): B permutations (paper SSIV: >= 1,000), key 0.
@@ -661,6 +682,206 @@ def host_sink_runs(x_dev, split, stop=4, bad=2):
     return dict(corr_ms=host_ms_path, memory_ms=mem_ms, dense_cpu_ms=dense_ms,
                 kernels_ms=kern_ms, copy_wait_ms=wait, write_ms=ms["write"],
                 commit_ms=ms["commit"], resume_ms=resume_ms)
+
+
+def streaming_runs(x_dev, x_tf, split, reset, check, tag):
+    """Phase 22: EdgeCountSink, ReductionSink, RowBlockSink, stream_tiles +
+    assemble_from_stream and the transform cache at Table II, every check
+    fatal and exact; `reset` / `check` are the launch counters' reset and
+    check (float32 pcc_tiles only, no plain version).  Returns the times
+    (ms) and peak memories (GB)."""
+    import torch
+    from repro_torch.core.allpairs import assemble_from_stream, stream_tiles
+    from repro_torch.core.api import (clear_prepared_cache, corr,
+                                      prepared_cache_stats)
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.core.sinks import (EdgeCountSink, ReductionSink,
+                                        RowBlockSink)
+
+    n = x_dev.shape[0]
+    plan = ExecutionPlan.create(n, x_dev.shape[1])
+    splan = ExecutionPlan.create(n, x_dev.shape[1], max_tiles_per_pass=split)
+    labels = np.random.default_rng(EDGE_LABEL_SEED).integers(
+        0, EDGE_MODULES, n)
+    out = {}
+
+    def run(label, fn, passes):
+        """fn() with the launch counts set to 0 just before and checked
+        just after: `passes` float32 pcc_tiles launches, nothing else."""
+        reset()
+        res = fn()
+        torch.cuda.synchronize()
+        check(label, passes, 0)
+        return res
+
+    def peak_run(fn, reps=3):
+        """Median host time of fn() (after a warm-up) and the peak memory
+        above what was held before it, in ms and GB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, runs = host_ms(fn, reps)
+        return ms, runs, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def same_bits(a, b, label):
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{label}: not DenseSink's bits")
+
+    # counts taken on the card from DenseSink's matrix, diagonal excluded
+    dense = run("DenseSink, one pass", lambda: corr(x_dev), 1)
+    thr = torch.tensor(EDGE_THRESHOLD, dtype=torch.float32, device=dense.device)
+    lab = torch.as_tensor(labels, device=dense.device)
+    deg = torch.zeros(n, dtype=torch.int64, device=dense.device)
+    hits = intra2 = 0
+    for r0 in range(0, n, 2048):
+        r1 = min(n, r0 + 2048)
+        adj = dense[r0:r1].abs() >= thr
+        adj[torch.arange(r1 - r0, device=dense.device),
+            torch.arange(r0, r1, device=dense.device)] = False
+        deg[r0:r1] = adj.sum(1)
+        hits += int(adj.sum())
+        intra2 += int((adj & (lab[r0:r1, None] == lab[None, :])).sum())
+    want = {"edges": hits // 2, "degrees": deg.cpu().numpy(),
+            "intra_edges": intra2 // 2}
+    print(f"  DenseSink's matrix, |r| >= {EDGE_THRESHOLD} off the diagonal "
+          f"(float32 compare, on the card): {want['edges']} edges, "
+          f"{want['intra_edges']} within {EDGE_MODULES} label groups "
+          f"(labels from seed {EDGE_LABEL_SEED}), mean degree "
+          f"{want['degrees'].mean():.3f}")
+    if hits % 2 or intra2 % 2 or want["edges"] < 1:
+        raise AssertionError("DenseSink's adjacency is not symmetric")
+
+    def edges(mtp):
+        return corr(x_dev, sink=EdgeCountSink(EDGE_THRESHOLD, labels=labels),
+                    max_tiles_per_pass=mtp)
+
+    for mtp, p_ in ((None, plan), (split, splan)):
+        got = run(f"EdgeCountSink, {p_.n_pass} pass(es)",
+                  lambda: edges(mtp), p_.n_pass)
+        if not (got["edges"] == want["edges"]
+                and got["intra_edges"] == want["intra_edges"]
+                and got["inter_edges"] == got["edges"] - got["intra_edges"]
+                and got["degrees"].dtype == np.int64
+                and np.array_equal(got["degrees"], want["degrees"])):
+            raise AssertionError(f"EdgeCountSink in {p_.n_pass} pass(es): "
+                                 f"counts differ from DenseSink's matrix")
+        ms, runs, peak = peak_run(lambda: edges(mtp))
+        key = "edge_count_1pass" if mtp is None else "edge_count_split"
+        out[key + "_ms"], out[key + "_peak_gb"] = ms, peak
+        print(f"  EdgeCountSink({EDGE_THRESHOLD}, labels=...), {p_.n_pass} "
+              f"pass(es): {got['edges']} edges, {got['intra_edges']} intra, "
+              f"degrees equal: DenseSink's counts exactly; corr {ms:.3f} ms "
+              f"(runs {[round(v, 3) for v in runs]}), peak {peak:.3f} GB "
+              f"above held {tag}")
+    del dense
+    ms, runs, peak = peak_run(lambda: corr(x_dev))
+    out["dense_ms"], out["dense_peak_gb"] = ms, peak
+    print(f"  DenseSink for comparison: corr {ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in runs]}), peak {peak:.3f} GB above held")
+
+    # ReductionSink: a host numpy row max of off-diagonal |r|
+    def row_max(state, ids, tiles, ys, xs, plan_):
+        t, nn = plan_.t, plan_.n
+        a = np.abs(tiles)
+        diag = np.nonzero(ys == xs)[0]
+        a[diag[:, None], np.arange(t), np.arange(t)] = -1.0
+        edge = nn - (plan_.m - 1) * t          # valid width of the last block
+        a[xs == plan_.m - 1, :, edge:] = -1.0
+        a[ys == plan_.m - 1, edge:, :] = -1.0
+        span = np.arange(t)
+        for v, rb in ((a.max(2), ys), (a.max(1), xs)):
+            rows = (rb[:, None] * t + span).ravel()
+            ok = rows < nn
+            np.maximum.at(state, rows[ok], v.ravel()[ok])
+        return state
+
+    def reduce():
+        return corr(x_dev, sink=ReductionSink(row_max, np.full(
+            n, -1.0, np.float32)), max_tiles_per_pass=split)
+
+    got = run(f"ReductionSink, {splan.n_pass} passes", reduce, splan.n_pass)
+    dense = corr(x_dev)
+    dense.abs_().fill_diagonal_(-1.0)
+    want_max = dense.max(1).values.cpu().numpy()
+    del dense
+    same_bits(got, want_max, "ReductionSink row max")
+    ms, runs = host_ms(reduce, 2)
+    out["reduction_ms"] = ms
+    print(f"  ReductionSink(row max of |r|, host numpy), {splan.n_pass} "
+          f"passes: bitwise the row max of DenseSink's off-diagonal |r| "
+          f"(min {float(got.min()):.6f}, max {float(got.max()):.6f}); corr "
+          f"{ms:.3f} ms (runs {[round(v, 3) for v in runs]})")
+
+    # RowBlockSink: TF rows x Table II, three ranges across tile edges
+    cross = corr(x_tf, x_dev).cpu().numpy()
+    rplan = ExecutionPlan.create(x_tf.shape[0], x_tf.shape[1], n_cols=n)
+    got = run("RowBlockSink", lambda: corr(
+        x_tf, x_dev, sink=RowBlockSink(ROW_BLOCKS)), rplan.n_pass)
+    for (lo, hi), g in zip(ROW_BLOCKS, got):
+        same_bits(g, cross[lo:hi], f"RowBlockSink rows [{lo}, {hi})")
+    del got, cross
+    ms, runs = host_ms(lambda: corr(x_tf, x_dev,
+                                    sink=RowBlockSink(ROW_BLOCKS)), 3)
+    out["row_block_ms"] = ms
+    print(f"  RowBlockSink({ROW_BLOCKS}), {x_tf.shape[0]} x {n}, "
+          f"{rplan.n_pass} pass: each range bitwise DenseSink's rows; corr "
+          f"{ms:.3f} ms (runs {[round(v, 3) for v in runs]})")
+
+    # the raw stream, assembled on the host
+    def assembled():
+        return assemble_from_stream(n, splan.t, splan.m, stream_tiles(
+            x_dev, max_tiles_per_pass=split))
+
+    got = run(f"stream_tiles + assemble_from_stream, {splan.n_pass} passes",
+              assembled, splan.n_pass)
+    same_bits(got, corr(x_dev).cpu().numpy(), "assemble_from_stream")
+    del got
+    ms, runs = host_ms(assembled, 2)
+    out["assemble_ms"] = ms
+    print(f"  assemble_from_stream(stream_tiles(x, max_tiles_per_pass="
+          f"{split})): {splan.n_pass} launches, bitwise DenseSink's .cpu(); "
+          f"{ms:.3f} ms (runs {[round(v, 3) for v in runs]})")
+
+    # the transform cache: Spearman on one card tensor, then changed in
+    # place (on a copy of x, so that x stays as the earlier phases had it)
+    x_c = x_dev.clone()
+    clear_prepared_cache()
+
+    def spearman(label):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = run(label, lambda: corr(x_c, measure="spearman"), 1)
+        return r, (time.perf_counter() - t1) * 1e3, prepared_cache_stats()
+
+    first, ms1, st1 = spearman("Spearman, first call")
+    second, ms2, st2 = spearman("Spearman, repeat call")
+    if (st1["misses"], st1["hits"]) != (1, 0) or \
+            (st2["misses"], st2["hits"]) != (1, 1):
+        raise AssertionError(f"transform cache: {st1} then {st2}")
+    if not torch.equal(first, second):
+        raise AssertionError("the cached Spearman run differs")
+    del second
+    noise = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        x_c.shape[1]).astype(np.float32)).to(x_c.device)
+    x_c[0] += noise
+    changed, ms3, st3 = spearman("Spearman, after an in-place change")
+    if (st3["misses"], st3["hits"]) != (2, 1):
+        raise AssertionError(f"in-place change: cache {st3}, not a miss")
+    clear_prepared_cache()
+    fresh = corr(x_c, measure="spearman")
+    if not torch.equal(changed, fresh) or torch.equal(changed, first):
+        raise AssertionError("the changed tensor's run is not its uncached "
+                             "result")
+    del first, changed, fresh, x_c
+    clear_prepared_cache()
+    out.update(spearman_first_ms=ms1, spearman_hit_ms=ms2,
+               spearman_changed_ms=ms3)
+    print(f"  Spearman corr on one card tensor: first {ms1:.3f} ms (a miss: "
+          f"the rank transform), repeat {ms2:.3f} ms (a hit, bitwise the "
+          f"first), after x[0] += noise in place {ms3:.3f} ms (a miss, "
+          f"bitwise clear_prepared_cache() + corr); one launch each")
+    return out
 
 
 def main(argv) -> int:
@@ -2841,6 +3062,11 @@ def main(argv) -> int:
     # -- 21. HostSink: a checkpointed host result, stopped and resumed -------
     print(f"HostSink at Table II, {SPLIT}-tile passes {tag}:")
     print(json.dumps({"host_sink": host_sink_runs(x_dev, SPLIT)}))
+
+    # -- 22. streaming reductions and the transform cache ---------------------
+    print(f"streaming reductions and the transform cache at Table II {tag}:")
+    print(json.dumps({"streaming": streaming_runs(
+        x_dev, x_tf, SPLIT, reset_counts, check_launches, tag)}))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []

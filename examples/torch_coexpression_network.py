@@ -1,0 +1,114 @@
+"""Gene co-expression network construction with the PyTorch port (the
+paper's target application, SSI/SSV): expression matrix -> all-pairs
+similarity -> thresholded network -> module recovery.
+
+    PYTHONPATH=src python examples/torch_coexpression_network.py \
+        [--device cpu] [--n 400] [--l 200] [--measure spearman] [--topk 10]
+
+The counterpart of examples/coexpression_network.py for ``repro_torch``.
+Two streaming modes, both through ``corr()``: the default
+thresholded-edge-count mode (EdgeCountSink: edges, degrees and intra- /
+inter-module tallies counted on the device, O(n) state) and ``--topk K``
+kNN mode (TopKSink: each gene's K strongest |r| partners, O(n K) state).
+Neither holds the n x n matrix: device memory is bounded by
+max_tiles_per_pass * t * t whatever n is.
+
+The data has planted co-expression modules (``coexpressed``), so the
+network's recovery of them is scored (precision / recall of intra-module
+edges) from the streamed tallies alone.  ``--device`` defaults to ``cuda``
+(it raises without a card); ``--device cpu`` runs the kernels' plain
+versions.
+"""
+
+import argparse
+
+import numpy as np
+
+from repro_torch.core.api import corr
+from repro_torch.core.sinks import EdgeCountSink, TopKSink
+from repro_torch.data.expression import ExpressionSpec, coexpressed
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--n", type=int, default=300)
+    ap.add_argument("--l", type=int, default=200)
+    ap.add_argument("--modules", type=int, default=10)
+    ap.add_argument("--threshold", type=float, default=0.5)
+    ap.add_argument("--max-tiles-per-pass", type=int, default=16,
+                    help="device output-memory bound: tiles per executor "
+                         "pass (the run never holds more than this many "
+                         "t x t tiles on the device)")
+    ap.add_argument("--measure", default="pearson",
+                    choices=["pearson", "spearman", "cosine"],
+                    help="similarity measure; bounded measures only, so the "
+                         "|r| >= threshold edge rule stays meaningful")
+    ap.add_argument("--topk", type=int, default=0, metavar="K",
+                    help="k-nearest-neighbour mode: keep each gene's K "
+                         "strongest |r| partners (O(n*K) state via "
+                         "TopKSink) and score module recovery on the kNN "
+                         "graph")
+    args = ap.parse_args()
+
+    spec = ExpressionSpec(n=args.n, l=args.l, seed=1,
+                          planted_modules=args.modules, module_strength=0.8)
+    x = coexpressed(spec)
+    # ground-truth module labels (the same generator stream)
+    rng = np.random.default_rng(spec.seed)
+    _ = rng.standard_normal((spec.n, spec.l))
+    module = rng.integers(0, spec.planted_modules, size=spec.n)
+
+    t = 32
+    if args.topk:
+        # kNN mode: tiles stream into an O(n*K) per-row top-k merge
+        top = corr(x, t=t, l_blk=64, measure=args.measure,
+                   max_tiles_per_pass=args.max_tiles_per_pass,
+                   sink=TopKSink(args.topk), device=args.device)
+        idx, vals = top["indices"], top["values"]
+        valid = idx >= 0
+        same = module[np.arange(spec.n)[:, None]] == module[
+            np.where(valid, idx, 0)]
+        intra = int((same & valid).sum())
+        total = int(valid.sum())
+        precision = intra / max(total, 1)
+        print(f"n={args.n} genes, l={args.l} samples, {args.modules} "
+              f"planted modules, measure={args.measure}, k={args.topk}, "
+              f"device={args.device}")
+        print(f"kNN edges={total}  mean_|r|@k="
+              f"{np.abs(vals[valid]).mean():.3f}  "
+              f"state=O(n*k)={spec.n}x{args.topk}")
+        print(f"module recovery (kNN): precision={precision:.3f}")
+        assert precision > 0.9, "top-k partners should stay intra-module"
+        print("OK — kNN co-expression graph recovers planted structure "
+              "(streamed, no n x n matrix materialised)")
+        return
+
+    # the tiles reduce pass by pass into O(n) device state
+    stats = corr(x, t=t, l_blk=64, measure=args.measure,
+                 max_tiles_per_pass=args.max_tiles_per_pass,
+                 sink=EdgeCountSink(args.threshold, labels=module),
+                 device=args.device)
+    edges = stats["edges"]
+    tp = stats["intra_edges"]
+    fp = stats["inter_edges"]
+    # same-module pairs from the labels alone (O(n) host work)
+    sizes = np.bincount(module, minlength=args.modules)
+    same_pairs = int((sizes * (sizes - 1) // 2).sum())
+    fn = same_pairs - tp
+    precision = tp / max(tp + fp, 1)
+    recall = tp / max(tp + fn, 1)
+    degrees = stats["degrees"]
+    print(f"n={args.n} genes, l={args.l} samples, {args.modules} planted "
+          f"modules, measure={args.measure}, device={args.device}")
+    print(f"edges={edges}  mean_degree={degrees.mean():.1f}  "
+          f"device_output_bound={args.max_tiles_per_pass}x{t}x{t} tiles")
+    print(f"module recovery: precision={precision:.3f} recall={recall:.3f}")
+    assert precision > 0.9, "planted modules should dominate the network"
+    print("OK — co-expression network recovers planted structure "
+          "(streamed, no n x n matrix materialised)")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,19 +14,28 @@ carries the CUDA event recorded right after its launch; the sink waits on
 that event alone (its device work and host copies go to a side stream,
 core/sinks.PassStream), so while the host merges pass k the card is already
 computing pass k+1.
+
+Beside the executor: the raw pass stream (:func:`stream_tiles`), its host
+assembly (:func:`assemble_from_stream`) and the reference's deprecated
+drivers (``allpairs_pcc``, ``allpairs_pcc_streamed`` and their
+``allpairs_similarity*`` aliases), each a thin wrapper over ``corr`` or
+the stream.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, FrozenSet, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import measures
+from repro_torch.core.mapping import job_coord_batch
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.quantize import Operand, operand_data, operand_parts
-from repro_torch.core.sinks import DenseSink, TileSink
+from repro_torch.core.sinks import (DenseSink, PassStream, TileSink,
+                                    place_tiles_host)
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
                                           pcc_tiles, pcc_topk_tiles)
 
@@ -243,5 +252,162 @@ def allpairs(x, *, measure: measures.MeasureLike = "pearson",
                 device=device)
 
 
+def stream_tiles(x, *, t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
+                 measure: measures.MeasureLike = "pearson", mesh=None,
+                 shard_u: bool = False,
+                 max_tiles_per_pass: Optional[int] = None, clip: bool = True,
+                 fuse_epilogue: bool = True, compute_dtype=None,
+                 plan: Optional[ExecutionPlan] = None,
+                 device=None) -> Iterator[Tuple[np.ndarray, torch.Tensor]]:
+    """Yield (tile_ids, tiles) per pass as (host ids, device buffer): the
+    raw executor stream of a symmetric run, double-buffered (pass k + 1 is
+    launched before pass k is yielded).  Tiles carry the measure's epilogue
+    (fused in the kernel by default); ids are unique, valid and in pass
+    order.  x is a numpy array or tensor, moved to ``device`` (None means
+    "cuda").  Pass ``plan=`` to reuse a built ExecutionPlan: its geometry
+    must match x, and per-call keywords that conflict with it are refused
+    (default-valued ones cannot be told from unset, so only non-default
+    conflicts are seen).  ``mesh`` / ``shard_u`` are the reference's and
+    raise NotImplementedError (ROADMAP slice 11 (multi-GPU))."""
+    for _k, ids, buf, _ready in _symmetric_stream(
+            x, t=t, l_blk=l_blk, measure=measure, mesh=mesh, shard_u=shard_u,
+            max_tiles_per_pass=max_tiles_per_pass, clip=clip,
+            fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
+            plan=plan, device=device):
+        yield ids, buf
+
+
+def _symmetric_stream(x, *, t, l_blk, measure, mesh, shard_u,
+                      max_tiles_per_pass, clip, fuse_epilogue, compute_dtype,
+                      plan, device) -> Iterator[PassItem]:
+    """:func:`stream_tiles`' pass items, each with its ready event."""
+    if mesh is not None or shard_u:
+        raise NotImplementedError(
+            f"stream_tiles({'mesh' if mesh is not None else 'shard_u'}=...)"
+            f" is not ported yet: ROADMAP slice 11 (multi-GPU)")
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    if plan is None:
+        plan = ExecutionPlan.create(
+            x.shape[0], x.shape[1], t=t, l_blk=l_blk, measure=measure,
+            max_tiles_per_pass=max_tiles_per_pass, clip=clip,
+            fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype)
+    else:
+        if t != DEFAULT_TILE and t != plan.t:
+            raise ValueError(f"t={t} conflicts with plan.t={plan.t}")
+        if l_blk != DEFAULT_LBLK and l_blk != plan.l_blk:
+            raise ValueError(
+                f"l_blk={l_blk} conflicts with plan.l_blk={plan.l_blk}")
+        req = measures.get(measure)
+        resolved = measures.resolve_tile_kernel(
+            req, l=plan.l, compute_dtype=plan.compute_dtype,
+            replicas=plan.replicas)
+        if (measure != "pearson" and req is not plan.measure
+                and resolved is not plan.measure):
+            raise ValueError(
+                f"measure={req.name!r} conflicts with "
+                f"plan.measure={plan.measure.name!r}")
+    if not plan.workload.needs_symmetrize:
+        raise ValueError("stream_tiles streams a symmetric plan; a "
+                         "rectangular one runs through corr(x, y, sink=...)")
+    yield from _stream(plan, plan.prepare(x))
+
+
+def assemble_from_stream(n: int, t: int, m: int,
+                         stream: Iterator[Tuple[np.ndarray, object]],
+                         out: Optional[np.ndarray] = None,
+                         measure: measures.MeasureLike = "pearson",
+                         ) -> np.ndarray:
+    """Assemble a streamed tile sequence of a symmetric run into the full
+    (n, n) host matrix.
+
+    The tiles already carry the measure's epilogue; assembly mirrors
+    (``place_tiles_host``, rows written as slices of tile runs) and, for
+    bounded measures, clips.  Tiles may be host arrays or tensors (copied
+    to the host).  ``out`` is an optional (m t, m t) float32 array to
+    assemble into.  (The sink spelling is ``corr(x, sink=HostSink())``,
+    which fuses streaming and assembly.)
+
+    CAUTION: ``measure`` must match the one the stream was produced with:
+    the stream is just arrays and cannot be checked.  The default assumes
+    Pearson; assembling another measure's stream without repeating
+    ``measure=`` applies Pearson's [-1, 1] clip, truncating unbounded
+    measures such as covariance.
+    """
+    meas = measures.get(measure)
+    n_pad = m * t
+    r = out if out is not None else np.zeros((n_pad, n_pad), np.float32)
+    for ids, tiles in stream:
+        ys, xs = job_coord_batch(m, np.asarray(ids))
+        if isinstance(tiles, torch.Tensor):
+            tiles = tiles.cpu().numpy()
+        place_tiles_host(r, np.asarray(tiles), ys, xs, t)
+    r = r[:n, :n]
+    if meas.clip is not None:
+        np.clip(r, meas.clip[0], meas.clip[1], out=r)
+    return r
+
+
+def warn_deprecated_driver(name: str, replacement: str) -> None:
+    """One DeprecationWarning per legacy-driver call, naming corr().
+
+    stacklevel=3 points at the user's call site (user -> wrapper -> here);
+    the wrapped corr() / stream_tiles() never warn again, so each call
+    warns exactly once."""
+    warnings.warn(
+        f"{name} is deprecated; use repro_torch.core.api.corr("
+        f"{replacement}) — outputs are bit-identical through the unified "
+        f"executor", DeprecationWarning, stacklevel=3)
+
+
+def allpairs_pcc(x, *, t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
+                 max_tiles_per_pass: Optional[int] = None, clip: bool = True,
+                 measure: measures.MeasureLike = "pearson",
+                 fuse_epilogue: bool = True, compute_dtype=None,
+                 device=None) -> torch.Tensor:
+    """All-pairs similarity through the triangular tile kernel: the (n, n)
+    matrix on the device.  Deprecated spelling of ``corr(x, ...)``,
+    bit-identical."""
+    warn_deprecated_driver("allpairs_pcc", "x, measure=...")
+    return allpairs(x, measure=measure, t=t, l_blk=l_blk,
+                    max_tiles_per_pass=max_tiles_per_pass, clip=clip,
+                    fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
+                    device=device)
+
+
+def allpairs_pcc_streamed(x, *, t: int = DEFAULT_TILE,
+                          l_blk: int = DEFAULT_LBLK,
+                          max_tiles_per_pass: int = 1024,
+                          measure: measures.MeasureLike = "pearson",
+                          fuse_epilogue: bool = True, compute_dtype=None,
+                          device=None
+                          ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Memory-bounded streaming (paper Alg. 2, double buffered): yields
+    (tile_ids, tiles) per pass as host numpy arrays while the next pass is
+    already launched.  Deprecated spelling of ``stream_tiles(x, ...)`` with
+    a host copy; new code passes a TileSink to ``corr``."""
+    warn_deprecated_driver("allpairs_pcc_streamed", "x, sink=HostSink(...)")
+    side = None
+    for _k, ids, buf, ready in _symmetric_stream(
+            x, t=t, l_blk=l_blk, measure=measure, mesh=None, shard_u=False,
+            max_tiles_per_pass=max_tiles_per_pass, clip=True,
+            fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
+            plan=None, device=device):
+        # the copy waits on this pass alone; the next is already launched
+        side = side or PassStream(buf.device)
+        with side.pass_of(ready, buf):
+            host, = side.to_host(buf)
+        yield ids, host
+
+
+# Measure-agnostic aliases: the `_pcc` names are kept from the reference,
+# but the drivers serve every registered measure.
+allpairs_similarity = allpairs_pcc
+allpairs_similarity_streamed = allpairs_pcc_streamed
+
+
 __all__ = ["launch_tiles", "launch_topk_tiles", "run_sink", "execute_plan",
-           "allpairs", "resolve_device"]
+           "allpairs", "resolve_device", "stream_tiles",
+           "assemble_from_stream", "warn_deprecated_driver", "allpairs_pcc",
+           "allpairs_pcc_streamed", "allpairs_similarity",
+           "allpairs_similarity_streamed"]

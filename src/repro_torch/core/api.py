@@ -8,24 +8,29 @@ per-row scales), pairwise-complete masked runs (``where=``),
 permutation / bootstrap p-values (``pvalues=``) and resumable host output
 (``sink=HostSink(path=)``, ``resume_from=``).  A frozen
 :class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
-onto plan -> executor -> sink.  The reference's other knobs raise
+onto plan -> executor -> sink, preparing every unmasked operand through the
+process-wide :class:`TransformCache`.  The reference's other knobs raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import weakref
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import measures
 from repro_torch.core.allpairs import _stream, execute_plan, resolve_device, \
     run_sink
+from repro_torch.core.lru import LruStatsCache
 from repro_torch.core.plan import ExecutionPlan, pad_operands
+from repro_torch.core.quantize import operand_data
 from repro_torch.core.significance import PermutationSpec, run_significance
 from repro_torch.core.sinks import HostSink, TileSink
-from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
+from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE, \
+    dtype_name
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
@@ -33,6 +38,118 @@ _LATER_SLICES = {
     "mesh": "slice 11 (multi-GPU)",
     "shard_u": "slice 11 (multi-GPU)",
 }
+
+
+class TransformCache(LruStatsCache):
+    """Memoises prepared operands (row transform, narrowing or
+    quantization, padding) per operand tensor.
+
+    The measure's row transform is the only per-operand device work of a
+    run (epilogues fuse into the kernel); re-running it for an operand the
+    process has already prepared is waste.  ``corr()`` routes every
+    unmasked operand through the process-wide instance.
+
+    Keys are the operand's identity and its in-place version counter
+    (``x._version``), plus the transform's parameters: measure, compute
+    dtype (a ``torch.dtype`` and its name are one key), tile alignment.
+    A torch tensor, unlike a jax array, can change in place: the version
+    counter makes a changed tensor miss, and the entry of its older
+    version is dropped.  Writes that bypass torch do not move the counter
+    (through a numpy view of a CPU tensor, ``torch.from_numpy``'s array,
+    or DLPack): call :func:`clear_prepared_cache` after them.
+
+    Only tensors the caller handed over are cached, and an entry holds
+    only a weak reference to its operand: when the caller drops the
+    tensor, its entry evicts itself (weakref death callback), so the cache
+    never extends an operand's lifetime, and a recycled ``id()`` cannot
+    alias a dead entry (an identity check on lookup guards the race).  A
+    prepared value that shares the operand's storage (an identity
+    transform with no padding) is not cached: it would keep the operand
+    alive, and costs nothing to rebuild.  Host numpy inputs, which convert
+    to a fresh tensor per call, bypass the cache
+    (``prepared_operand(cacheable=False)``).
+
+    Bounded LRU; thread-safe.
+    """
+
+    def __init__(self, capacity: int = 8):
+        super().__init__(capacity)
+
+    @staticmethod
+    def _key(x: torch.Tensor, measure: measures.Measure, compute_dtype,
+             t: int, l_blk: int) -> tuple:
+        cd = None if compute_dtype is None else dtype_name(compute_dtype)
+        return (id(x), x._version, id(measure), cd, int(t), int(l_blk))
+
+    def prepared(self, x: torch.Tensor, measure: measures.Measure,
+                 compute_dtype, t: int, l_blk: int, build: Callable):
+        """The prepared operand (a tensor or a quantized ``Operand``) for
+        (x, measure, compute_dtype, t, l_blk), built by ``build()`` on a
+        miss.  Non-tensor operands are built uncached."""
+        if not isinstance(x, torch.Tensor):
+            return build()
+        key = self._key(x, measure, compute_dtype, t, l_blk)
+        entry = self._lookup(key)
+        if entry is not None and entry[0]() is x and entry[1] is measure:
+            return entry[2]
+        # build outside the lock: transforms queue device work
+        value = build()
+        data = operand_data(value)
+        if data.untyped_storage().data_ptr() == \
+                x.untyped_storage().data_ptr():
+            return value
+        ref = weakref.ref(x, lambda _, k=key: self._evict(k))
+        with self._lock:
+            stale = [k for k in self._entries
+                     if k[0] == key[0] and k[2:] == key[2:] and k != key]
+        for k in stale:
+            self._evict(k)
+        self._insert(key, (ref, measure, value))
+        return value
+
+
+_PREPARED = TransformCache()
+
+
+def prepared_operand(plan: ExecutionPlan, x: torch.Tensor, *,
+                     cache: Optional[TransformCache] = None,
+                     expect_rows: Optional[int] = None,
+                     cacheable: bool = True):
+    """``plan.prepare(x)`` through a transform cache (default: the
+    process-wide one ``corr()`` uses).  expect_rows overrides the row-count
+    check for rectangular column operands (the prepared operand depends
+    only on the measure, dtype and alignment, so entries are shared across
+    workload shapes).  cacheable=False skips the cache: ``corr()`` passes
+    it for operands it had to convert or move (host numpy, another
+    device), which are a fresh tensor every call."""
+    rows = plan.n_rows if expect_rows is None else expect_rows
+    if tuple(x.shape) != (rows, plan.l):
+        raise ValueError(
+            f"operand shape {tuple(x.shape)} does not match plan "
+            f"(rows={rows}, l={plan.l})")
+    if not cacheable:
+        return plan._prepare_one(x)
+    c = cache if cache is not None else _PREPARED
+    return c.prepared(x, plan.measure, plan.compute_dtype, plan.t,
+                      plan.l_blk, build=lambda: plan._prepare_one(x))
+
+
+def clear_prepared_cache() -> None:
+    """Drop every cached prepared operand (tests; memory pressure)."""
+    _PREPARED.clear()
+
+
+def prepared_cache_stats() -> dict:
+    return _PREPARED.stats()
+
+
+def _on_device(a, dev: torch.device) -> torch.Tensor:
+    """a as a tensor on dev: the caller's own object when it already lies
+    there (so the transform cache can recognise it), else a new tensor."""
+    if isinstance(a, torch.Tensor) and a.device.type == dev.type and \
+            dev.index in (None, a.device.index):
+        return a
+    return torch.as_tensor(a, device=dev)
 
 
 def _as_mask(mask, data: torch.Tensor, side: str) -> torch.Tensor:
@@ -80,18 +197,19 @@ class PairwiseProblem:
     @classmethod
     def create(cls, x, y=None, *, measure: measures.MeasureLike = "pearson",
                where=None, device=None) -> "PairwiseProblem":
-        """x and y may be numpy arrays or tensors; they move to `device`.
+        """x and y may be numpy arrays or tensors; they move to `device`
+        (a tensor already there is kept as the same object).
 
         where: None (unmasked), "nan" (validity from NaNs), a boolean array
         or tensor masking x (symmetric problems), or an (x_mask, y_mask)
         tuple for rectangular ones (either None to infer from NaNs).
         """
         dev = resolve_device(device)
-        x = torch.as_tensor(x, device=dev)
+        x = _on_device(x, dev)
         if x.ndim != 2:
             raise ValueError(f"x must be (n, l), got shape {tuple(x.shape)}")
         if y is not None:
-            y = torch.as_tensor(y, device=dev)
+            y = _on_device(y, dev)
             if y.ndim != 2 or y.shape[1] != x.shape[1]:
                 raise ValueError(f"y must be (n_cols, l={x.shape[1]}), got "
                                  f"shape {tuple(y.shape)}")
@@ -172,7 +290,17 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
              by pass, resumable).  TopKSink(k) and
              DeviceTopKSink(k) keep each row's k strongest partners, the
              latter through the top-k kernel (not for masked or quantized
-             runs).
+             runs).  EdgeCountSink(threshold, labels=) counts the
+             thresholded network's edges and degrees on the device (O(n)
+             state, symmetric runs); ReductionSink(fn, init) folds the
+             tile stream through a host callback; RowBlockSink(bounds)
+             lands row ranges of a rectangular run in their own host
+             arrays.
+    x and y given as tensors on `device` have their prepared operands
+             cached (TransformCache, keyed by the tensor and its in-place
+             version): a repeat call skips the row transform.  After
+             changing such a tensor behind torch's back (a numpy view),
+             call clear_prepared_cache().
     t / l_blk / max_tiles_per_pass / clip / fuse_epilogue keep their
              ExecutionPlan semantics; the result does not depend on
              max_tiles_per_pass or fuse_epilogue, bit for bit.
@@ -233,13 +361,18 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
         fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
         replicas=0 if pvalues is None else pvalues.iterations,
         replica_chunk=None if pvalues is None else pvalues.chunk)
+    # the transform cache: repeat calls on the same tensor run the row
+    # transform once.  problem.x is the caller's object only when it was a
+    # tensor on the device; a converted or moved operand is a fresh tensor
+    # per call and is not cached.
+    u_pad = prepared_operand(plan, problem.x, cacheable=problem.x is x)
     if problem.symmetric:
-        u_pad = plan.prepare(problem.x)
         if pvalues is not None:
             return run_significance(plan, pvalues, u_pad, columns=problem.x,
                                     sink=sink)
         return execute_plan(plan, u_pad, sink=sink, device=problem.x.device)
-    u_pad, v_pad = plan.prepare_pair(problem.x, problem.y)
+    v_pad = prepared_operand(plan, problem.y, expect_rows=problem.n_cols,
+                             cacheable=problem.y is y)
     if pvalues is not None:
         return run_significance(plan, pvalues, u_pad, columns=problem.y,
                                 v_pad=v_pad, sink=sink)
@@ -305,4 +438,6 @@ def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
     return run_sink(sink_plan, sink, problem.x.device, combined)
 
 
-__all__ = ["PairwiseProblem", "corr", "masked_sink_plan"]
+__all__ = ["PairwiseProblem", "corr", "masked_sink_plan", "TransformCache",
+           "prepared_operand", "prepared_cache_stats",
+           "clear_prepared_cache"]

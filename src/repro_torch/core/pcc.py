@@ -3,9 +3,12 @@
 Port of ``repro/core/pcc.py``:
 
 * ``pearson_literal`` — Eq. (1), the per-pair formula in float64 (the role
-  of the paper's ALGLIB sequential baseline).
+  of the paper's ALGLIB sequential baseline); ``pearson_pair_literal`` for
+  one pair.
 * ``transform``       — Eq. (4): X_i -> U_i = (X_i - mean) / ||X_i - mean||_2.
-* ``pearson_gemm``    — Eq. (5): R = U U^T, the dense oracle.
+* ``pearson_gemm``    — Eq. (5): R = U U^T, the dense oracle;
+  ``pearson_from_u`` for a transformed U.
+* ``flops_allpairs``  — the paper's SSIII-E cost model.
 
 The production triangular path is core/allpairs.py + kernels/pcc_tile.py.
 """
@@ -38,6 +41,17 @@ def transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     return u.to(dtype or x.dtype)
 
 
+def pearson_pair_literal(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Eq. (1) verbatim for a single pair (the ALGLIB role), float64."""
+    u = u.to(torch.float64)
+    v = v.to(torch.float64)
+    du = u - u.mean()
+    dv = v - v.mean()
+    num = (du * dv).sum()
+    den = torch.sqrt((du * du).sum() * (dv * dv).sum())
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+
+
 def pearson_literal(x: torch.Tensor) -> torch.Tensor:
     """All-pairs Eq. (1) in float64, per-pair statistics recomputed."""
     x = x.to(torch.float64)
@@ -54,4 +68,17 @@ def pearson_gemm(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(u @ u.T, -1.0, 1.0)
 
 
-__all__ = ["transform", "pearson_literal", "pearson_gemm"]
+def pearson_from_u(u: torch.Tensor) -> torch.Tensor:
+    """R = U U^T for a transformed U (Eq. 5), clipped to [-1, 1]."""
+    return torch.clamp(u @ u.T, -1.0, 1.0)
+
+
+def flops_allpairs(n: int, l: int) -> int:
+    """Paper SSIII-E cost model: 5 l n (transform) + l n (n + 1) / 2 unit
+    FMA operations.  In FLOPs (multiply and add counted apart) the product
+    part is ~ l n (n + 1)."""
+    return 5 * l * n + l * n * (n + 1) // 2
+
+
+__all__ = ["transform", "pearson_pair_literal", "pearson_literal",
+           "pearson_gemm", "pearson_from_u", "flops_allpairs"]

@@ -1,15 +1,15 @@
 """Tile sinks: what becomes of the executor's per-pass tile stream.
 
-Port of ``TileSink``, ``DenseSink``, ``HostSink``, ``TopKSink``,
-``DeviceTopKSink``, ``ExceedanceSink`` and ``topk_merge_rows`` of
-``repro/core/sinks.py``.  Contract:
-``open(plan, device)`` once, ``consume(ids, tiles[, ready])`` per pass with
-the pass's unique global tile ids while the next pass is already launched
-(double buffering), ``pass_complete(k)`` once pass k is consumed (durable
-sinks commit there; ``resume_pass()`` / ``skip_passes()`` tell the
-executor which passes a checkpoint already holds), ``result()`` to close
-the run.  Tiles arrive with the
-measure's epilogue applied; bounded measures are clipped in the kernel
+Port of ``TileSink``, ``DenseSink``, ``HostSink``, ``ReductionSink``,
+``EdgeCountSink``, ``RowBlockSink``, ``TopKSink``, ``DeviceTopKSink``,
+``ExceedanceSink`` and ``topk_merge_rows`` of ``repro/core/sinks.py``.
+Contract: ``open(plan, device)`` once, ``consume(ids, tiles[, ready])``
+per pass with the pass's unique global tile ids while the next pass is
+already launched (double buffering), ``pass_complete(k)`` once pass k is
+consumed (durable sinks commit there; ``resume_pass()`` /
+``skip_passes()`` tell the executor which passes a checkpoint already
+holds), ``result()`` to close the run.  Tiles arrive with the measure's
+epilogue applied; bounded measures are clipped in the kernel
 (fused) or by the sink (unfused) — clipping is idempotent, so both agree
 bit for bit.
 
@@ -27,6 +27,12 @@ k + 1.  On the CPU there is no event and no stream.
                   ndarray, or an np.memmap at `path` whose passes are
                   committed crash-atomically and resumed
                   (``corr(resume_from=path)``).
+  ReductionSink   a caller's fold over the tile stream (host numpy
+                  tiles), state whatever the fold returns.
+  EdgeCountSink   the thresholded network's edge count, degrees and
+                  intra-label edges, counted on the device: O(n) state.
+  RowBlockSink    row ranges of a rectangular run, each in its own host
+                  array (the serving batcher's scatter).
   TopKSink        the k strongest-|r| partners of every row, O(n_rows * k)
                   host state, fed by the tile stream.
   DeviceTopKSink  the same result fed by the top-k kernel's per-pass state
@@ -44,10 +50,11 @@ from __future__ import annotations
 
 import abc
 import contextlib
+import copy
 import json
 import os
 import zlib
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +64,9 @@ from repro_torch.core.plan import ExecutionPlan, needs_row_scales
 # Rows per band of the in-place mirror: bounds the temporary of a diagonal
 # block at _BAND^2 floats.
 _BAND = 2048
+# Tiles per chunk of EdgeCountSink's device count: bounds its boolean and
+# |r| temporaries at _EDGE_CHUNK * t^2 elements (34 MB of |r| at t = 256).
+_EDGE_CHUNK = 128
 
 
 class PassStream:
@@ -518,6 +528,190 @@ class HostSink(TileSink):
         return r
 
 
+class ReductionSink(TileSink):
+    """Fold the tile stream through ``fn(state, ids, tiles, ys, xs, plan)``.
+
+    The callback gets what the reference's gets: ``tiles`` as host numpy
+    (copied through :class:`PassStream`, behind the pass's own event),
+    (ys, xs) the tile coordinates of the batched bijection, so one callback
+    runs under both packages.  State is whatever the callback returns,
+    typically O(n) or O(1).
+
+    ``init`` is the initial state, deep-copied at every open() (a fold that
+    mutates its state in place cannot leak into the next run of a reused
+    sink), or a zero-argument factory called per open().
+    """
+
+    def __init__(self, fn: Callable, init):
+        self._fn = fn
+        self._init = init
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        self._side = PassStream(device)
+        self.state = (self._init() if callable(self._init)
+                      else copy.deepcopy(self._init))
+
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
+        ys, xs = self.plan.workload.job_coord_batch(np.asarray(ids))
+        with self._side.pass_of(ready, tiles):
+            vals, = self._side.to_host(tiles)
+        self.state = self._fn(self.state, ids, vals, ys, xs, self.plan)
+
+    def result(self):
+        return self.state
+
+
+class EdgeCountSink(TileSink):
+    """Streaming thresholded-graph reduction: count the edges |r| >=
+    threshold without the matrix.
+
+    State is O(n) on the device: the unordered edge count, per-node
+    degrees (int64) and, with per-node integer ``labels``, the intra-label
+    edge count (precision of planted-module recovery is intra / (intra +
+    inter)).  Each unordered pair is counted once, through the strict-upper
+    predicate row < col over the triangle's tiles; padding rows and columns
+    (>= n) are masked out.  Counts are integer sums, exact in any order, so
+    they equal the reference's host ``np.add.at`` counts, which would copy
+    every pass to the host.  |r| compares with the threshold in float32,
+    as numpy 2 compares a float32 array with a Python float.  The counts
+    reach the host once, in result().
+    """
+
+    def __init__(self, threshold: float,
+                 labels: Optional[np.ndarray] = None):
+        self.threshold = float(threshold)
+        self._labels = None if labels is None else np.asarray(labels)
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        if not plan.symmetric_problem:
+            raise ValueError(
+                "EdgeCountSink counts unordered pairs of one variable set — "
+                "it requires a symmetric problem (corr(x) or masked "
+                "corr(x, where=...)), not a rectangular X-vs-Y run")
+        if self._labels is not None and self._labels.shape != (plan.n,):
+            raise ValueError(
+                f"labels shape {self._labels.shape} != (n={plan.n},)")
+        self._side = PassStream(device)
+        self._thr = torch.tensor(self.threshold, dtype=torch.float32,
+                                 device=device)
+        self._edges = torch.zeros((), dtype=torch.int64, device=device)
+        # padded, so padding rows index in range (their counts are 0)
+        self._degrees = torch.zeros(plan.n_pad, dtype=torch.int64,
+                                    device=device)
+        self._intra = None
+        self._lab = None
+        if self._labels is not None:
+            lab = np.full(plan.n_pad, -1, np.int64)
+            lab[:plan.n] = self._labels
+            self._lab = torch.from_numpy(lab).to(device)
+            self._intra = torch.zeros((), dtype=torch.int64, device=device)
+
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
+        plan = self.plan
+        t, n = plan.t, plan.n
+        ys, xs = plan.workload.job_coord_batch(np.asarray(ids))
+        with self._side.pass_of(ready, tiles):
+            span = torch.arange(t, device=tiles.device)
+            rows_all = self._side.to_card(ys)[:, None] * t + span   # (P, t)
+            cols_all = self._side.to_card(xs)[:, None] * t + span   # (P, t)
+            for c0 in range(0, tiles.shape[0], _EDGE_CHUNK):
+                c1 = min(tiles.shape[0], c0 + _EDGE_CHUNK)
+                rows, cols = rows_all[c0:c1], cols_all[c0:c1]
+                r3, c3 = rows[:, :, None], cols[:, None, :]
+                count = ((tiles[c0:c1].abs() >= self._thr)
+                         & (r3 < c3) & (c3 < n))          # r < c < n
+                self._edges += count.sum()
+                self._degrees.index_add_(0, rows.reshape(-1),
+                                         count.sum(2).reshape(-1))
+                self._degrees.index_add_(0, cols.reshape(-1),
+                                         count.sum(1).reshape(-1))
+                if self._lab is not None:
+                    same = self._lab[rows][:, :, None] == \
+                        self._lab[cols][:, None, :]
+                    self._intra += (count & same).sum()
+
+    def result(self) -> dict:
+        self._side.join()
+        out = {"edges": int(self._edges.item()),
+               "degrees": self._degrees[:self.plan.n].cpu().numpy()}
+        if self._lab is not None:
+            intra = int(self._intra.item())
+            out["intra_edges"] = intra
+            out["inter_edges"] = out["edges"] - intra
+        return out
+
+
+class RowBlockSink(TileSink):
+    """Land a grid workload's tiles directly in independent per-range host
+    arrays: the serving batcher's scatter.
+
+    One coalesced launch computes the stacked probe rows of several
+    requests against the corpus; this sink writes each request's rows into
+    its own (hi - lo, n_cols) array as the tiles stream past, so no
+    (rows, n_cols) intermediate exists and each result's lifetime is its
+    own.  ``bounds`` are half-open global row ranges [(lo, hi), ...]; they
+    may straddle tile edges, and rows outside every range are discarded.
+    Each pass's tiles reach the host through :class:`PassStream`, and the
+    rows of every run of tiles side by side in a tile row are written as
+    slices (not the reference's element-wise fancy index): the same
+    values, without gathering single elements.
+    """
+
+    def __init__(self, bounds):
+        self._bounds = [(int(lo), int(hi)) for lo, hi in bounds]
+        for lo, hi in self._bounds:
+            if lo < 0 or hi < lo:
+                raise ValueError(f"bad row range [{lo}, {hi})")
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        if plan.workload.needs_symmetrize:
+            raise ValueError(
+                "RowBlockSink assembles grid workloads (rectangular "
+                "X-vs-Y); symmetric triangular runs mirror tiles across "
+                "segments — use HostSink/DenseSink there")
+        for lo, hi in self._bounds:
+            if hi > plan.n_rows:
+                raise ValueError(
+                    f"row range [{lo}, {hi}) exceeds plan rows "
+                    f"{plan.n_rows}")
+        self._side = PassStream(device)
+        # padded column width: tiles write whole (t, t) blocks; result()
+        # crops to the true column count
+        self._outs = [np.zeros((hi - lo, plan.col_pad), np.float32)
+                      for lo, hi in self._bounds]
+
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
+        t = self.plan.t
+        ys, xs = self.plan.workload.job_coord_batch(np.asarray(ids))
+        with self._side.pass_of(ready, tiles):
+            vals, = self._side.to_host(tiles)
+        for a, b in _tile_runs(ys, xs):
+            y0 = int(ys[a]) * t
+            c0, c1 = int(xs[a]) * t, (int(xs[a]) + b - a) * t
+            block = None
+            for (lo, hi), out in zip(self._bounds, self._outs):
+                r0, r1 = max(lo, y0), min(hi, y0 + t)
+                if r0 >= r1:
+                    continue
+                if block is None:     # the run as one (t, (b - a) t) block
+                    block = vals[a:b].transpose(1, 0, 2).reshape(t, -1)
+                out[r0 - lo:r1 - lo, c0:c1] = block[r0 - y0:r1 - y0]
+
+    def result(self) -> list:
+        meas = self.plan.measure
+        outs = [o[:, :self.plan.n_cols] for o in self._outs]
+        if self.plan.clip and meas.clip is not None:
+            for o in outs:
+                np.clip(o, meas.clip[0], meas.clip[1], out=o)
+        return outs
+
+
 def topk_merge_rows(vals: np.ndarray, idx: np.ndarray, r_ids: np.ndarray,
                     c_ids: np.ndarray, v: np.ndarray, k: int,
                     dedup: bool = False) -> None:
@@ -745,9 +939,9 @@ class ExceedanceSink(TileSink):
     The significance executor accumulates, per pass, an int32 count tile
     buffer ``#{b : |R_b| >= |R_obs|}`` on the device, chunk by chunk of
     replicas.  This sink receives it once per pass, applies the add-one
-    estimator p = (1 + count) / (1 + B) in float32 on the device (B is
-    ``plan.replicas``), and delegates the p-value tiles to ``inner``
-    (default DenseSink; TopKSink too).
+    estimator p = (1 + count) / (1 + B) in float32 on the device (B from
+    ``iterations`` when given, else ``plan.replicas``), and delegates the
+    p-value tiles to ``inner`` (default DenseSink; every other sink too).
 
     Symmetric workloads: a replica's diagonal tile is not symmetric (entry
     (i, j) compares <U_i, pi(U_j)>, entry (j, i) <U_j, pi(U_i)>).  The
@@ -757,19 +951,26 @@ class ExceedanceSink(TileSink):
 
     open() expects the p-value plan of the executor, whose measure names
     the base measure, method, B and the null's fingerprint.  The checkpoint
-    hooks (resume_pass, skip_passes, pass_complete) pass through to the
-    inner sink where it has them.
+    hooks (resume_pass, skip_passes, covered, pass_complete) pass through
+    to the inner sink where it has them; ``rebind`` comes with the recovery
+    runtime (ROADMAP A5).
     """
 
-    def __init__(self, inner: Optional[TileSink] = None):
+    def __init__(self, inner: Optional[TileSink] = None,
+                 iterations: Optional[int] = None):
         self._inner = inner if inner is not None else DenseSink()
+        self._iterations = iterations
 
     def open(self, plan: ExecutionPlan, device: torch.device) -> None:
         super().open(plan, device)
-        if plan.replicas <= 0:
+        b = (self._iterations if self._iterations is not None
+             else plan.replicas)
+        if b <= 0:
             raise ValueError(
                 "ExceedanceSink needs the replica count: open it with a "
-                "significance plan (ExecutionPlan.create(replicas=B))")
+                "significance plan (ExecutionPlan.create(replicas=B)) or "
+                "pass iterations= explicitly")
+        self.iterations = int(b)
         self._inner.open(plan, device)
 
     def resume_pass(self) -> int:
@@ -778,6 +979,9 @@ class ExceedanceSink(TileSink):
     def skip_passes(self) -> set:
         return getattr(self._inner, "skip_passes", set)()
 
+    def covered(self):
+        return getattr(self._inner, "covered", lambda: None)()
+
     def pass_complete(self, k: int) -> None:
         getattr(self._inner, "pass_complete", lambda _k: None)(k)
 
@@ -785,7 +989,7 @@ class ExceedanceSink(TileSink):
         """p-value tiles of one pass's (P, t, t) int32 counts, on their
         device; the division is by a float32 tensor (a host scalar divisor
         becomes a reciprocal multiply on the card)."""
-        den = torch.tensor(1.0 + self.plan.replicas, dtype=torch.float32,
+        den = torch.tensor(1.0 + self.iterations, dtype=torch.float32,
                            device=counts.device)
         p = (1.0 + counts.to(torch.float32)) / den
         if self.plan.workload.needs_symmetrize:
@@ -810,6 +1014,7 @@ class ExceedanceSink(TileSink):
         return self._inner.result()
 
 
-__all__ = ["PassStream", "TileSink", "DenseSink", "HostSink", "TopKSink",
-           "DeviceTopKSink", "ExceedanceSink", "place_tiles_host",
-           "scatter_tiles_at", "symmetrize", "topk_merge_rows"]
+__all__ = ["PassStream", "TileSink", "DenseSink", "HostSink", "ReductionSink",
+           "EdgeCountSink", "RowBlockSink", "TopKSink", "DeviceTopKSink",
+           "ExceedanceSink", "place_tiles_host", "scatter_tiles_at",
+           "symmetrize", "topk_merge_rows"]

@@ -1,0 +1,44 @@
+"""The port's examples (examples/torch_*.py) run end to end on the CPU, each
+at its default small size in its own process, and keep their reference's
+assertions (module-recovery precision > 0.9, the planted pair the most
+significant).  Without ``--device cpu`` each one asks for the card."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(*args):
+    # one intra-op thread: the examples are small, and the suite's other
+    # workers share the cores
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("script,extra,expect", [
+    ("torch_quickstart.py", [], "raw stream bitwise: True"),
+    ("torch_coexpression_network.py", [], "OK — co-expression network"),
+    ("torch_coexpression_network.py", ["--topk", "10"],
+     "module recovery (kNN)"),
+    ("torch_permutation_test.py", [], "OK"),
+])
+def test_example_runs_on_cpu(script, extra, expect):
+    out = _run(f"examples/{script}", "--device", "cpu", *extra)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert expect in out.stdout
+
+
+def test_examples_import_no_jax():
+    for path in sorted((ROOT / "examples").glob("torch_*.py")):
+        src = path.read_text()
+        assert "import jax" not in src and "from repro." not in src \
+            and "import repro\n" not in src, path.name

@@ -15,7 +15,11 @@ from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 from repro_torch.core.pcc import transform
 from repro_torch.core.plan import pad_operands, pad_scales
 from repro_torch.core.quantize import quantize_rows
-from repro_torch.core.sinks import DeviceTopKSink, TopKSink
+from repro_torch.core.allpairs import assemble_from_stream, stream_tiles
+from repro_torch.core.api import clear_prepared_cache, prepared_cache_stats
+from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.sinks import (DeviceTopKSink, EdgeCountSink,
+                                    ReductionSink, RowBlockSink, TopKSink)
 from repro_torch.kernels.narrow_gate import (FAULT_SHARE, gate_share,
                                              narrow_gate,
                                              planted_fault_shares)
@@ -1082,6 +1086,106 @@ def test_multipass_sinks_bitwise_equal_one_pass_on_card(cuda, rect):
         ref = corr(x, y, sink=TopKSink(10), **kw)
         assert one["values"].tobytes() == ref["values"].tobytes()
         assert np.array_equal(one["indices"], ref["indices"])
+
+
+
+# -- streaming reductions and the transform cache ----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("labelled", [False, True])
+def test_edge_count_on_card_equals_cpu_on_the_same_tiles(cuda, labelled):
+    """EdgeCountSink counting on the card equals the same sink on the CPU
+    fed the same tiles (a threshold at a value the tiles hold included),
+    and the end-to-end run equals the dense adjacency."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((300, 70)).astype(np.float32)
+    labels = np.arange(300) % 7 if labelled else None
+    kw = dict(t=32, l_blk=32, max_tiles_per_pass=7)
+    plan = ExecutionPlan.create(300, 70, **kw)
+    passes = [(ids, buf) for ids, buf in stream_tiles(x, device=cuda,
+                                                      **kw)]
+    vals = torch.cat([b.reshape(-1) for _, b in passes]).abs()
+    for thr in (0.2, float(vals.sort().values[-500])):
+        on_card, on_cpu = (EdgeCountSink(thr, labels=labels)
+                           for _ in range(2))
+        on_card.open(plan, cuda)
+        on_cpu.open(plan, torch.device("cpu"))
+        for ids, buf in passes:
+            on_card.consume(ids, buf)
+            on_cpu.consume(ids, buf.cpu())
+        got, want = on_card.result(), on_cpu.result()
+        assert got["edges"] == want["edges"] > 0
+        assert np.array_equal(got["degrees"], want["degrees"])
+        assert got.get("intra_edges") == want.get("intra_edges")
+    dense = corr(x, device=cuda, **kw).cpu().numpy()
+    adj = (np.abs(dense) >= np.float32(0.2)) & ~np.eye(300, dtype=bool)
+    run = corr(x, device=cuda, sink=EdgeCountSink(0.2, labels=labels), **kw)
+    assert run["edges"] == int(adj.sum()) // 2
+    assert np.array_equal(run["degrees"], adj.sum(1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mtp", [None, 5])
+def test_row_block_sink_on_card_is_dense_sink(cuda, mtp):
+    """Ragged row ranges (straddling tile edges, overlapping) of a
+    RowBlockSink are bitwise DenseSink's rows, and the stream assembled on
+    the host and a ReductionSink row max are DenseSink's bits."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((150, 70)).astype(np.float32)
+    y = rng.standard_normal((230, 70)).astype(np.float32)
+    kw = dict(t=32, l_blk=32, max_tiles_per_pass=mtp, device=cuda)
+    bounds = [(0, 31), (31, 33), (33, 100), (100, 150), (10, 140)]
+    dense = corr(x, y, **kw).cpu().numpy()
+    got = corr(x, y, sink=RowBlockSink(bounds), **kw)
+    for (lo, hi), g in zip(bounds, got):
+        assert g.tobytes() == dense[lo:hi].tobytes()
+    sym = corr(x, **kw).cpu().numpy()
+    plan = ExecutionPlan.create(150, 70, t=32)
+    assembled = assemble_from_stream(150, 32, plan.m, stream_tiles(
+        x, t=32, l_blk=32, max_tiles_per_pass=mtp, device=cuda))
+    assert assembled.tobytes() == sym.tobytes()
+
+    def row_max(state, ids, tiles, ys, xs, plan_):
+        t, n = plan_.t, plan_.n
+        span = np.arange(t)
+        for v, rb, cb in ((tiles, ys, xs),
+                          (np.transpose(tiles, (0, 2, 1)), xs, ys)):
+            rows = (rb[:, None] * t + span)[:, :, None]
+            cols = (cb[:, None] * t + span)[:, None, :]
+            ok = (rows < n) & (cols < n) & (rows != cols)
+            r = np.broadcast_to(rows, v.shape)
+            np.maximum.at(state, r[ok], np.abs(v)[ok])
+        return state
+
+    got_max = corr(x, sink=ReductionSink(row_max, np.full(150, -1.0,
+                                                          np.float32)),
+                   **kw)
+    np.fill_diagonal(sym, 0.0)
+    assert got_max.tobytes() == np.abs(sym).max(1).tobytes()
+
+
+@pytest.mark.gpu
+def test_transform_cache_on_card(cuda):
+    """A repeat corr on the same card tensor hits the cache and is bitwise
+    the first; an in-place change misses and gives the uncached bits."""
+    clear_prepared_cache()
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((300, 70)).astype(np.float32)
+                         ).to(cuda)
+    kw = dict(t=32, l_blk=32, measure="spearman", device=cuda)
+    first = corr(x, **kw)
+    second = corr(x, **kw)
+    stats = prepared_cache_stats()
+    assert (stats["misses"], stats["hits"]) == (1, 1)
+    assert torch.equal(first, second)
+    x[0] += torch.from_numpy(rng.standard_normal(70).astype(np.float32)
+                             ).to(cuda)
+    changed = corr(x, **kw)
+    assert prepared_cache_stats()["misses"] == 2
+    clear_prepared_cache()
+    assert torch.equal(changed, corr(x, **kw))
+    assert not torch.equal(changed, first)
+    clear_prepared_cache()
 
 
 # -- flash attention ---------------------------------------------------------
