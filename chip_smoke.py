@@ -147,7 +147,26 @@ Phases, each fatal on failure:
      bitwise DenseSink's .cpu(); Spearman corr twice on one card tensor
      (a cache miss, then a hit with the same bits) and after an in-place
      change (a miss, the bits of an uncached run); each run's float32
-     pcc_tiles launches counted, no plain version; times.
+     pcc_tiles launches counted, no plain version; times;
+ 23. merge-sort Kendall at the paper's sample count (kendall_merge_tiles,
+     csrc/kendall_merge.cu): the kernel bitwise its plain version at phase
+     2's shapes (l in 96 / 97 / 130 / 257; normal and floor(8 u) rows with
+     a constant row, a run of l - 1 and padding rows; triangle and grid;
+     tau-a and tau-b) and on three full-width tiles of the TF triangle at
+     l = 5,072 (the first, a diagonal, the last) and one of floor(8 u)
+     rows (seed 4) in tau-b; then corr over phase 8's 1,639 TF rows in
+     tau-a, tau-b, tau-b of the floor(8 u) rows, TopKSink(10) (the dense
+     result's canonical top-k) and 5-tile passes (the same bits), and TF
+     x Table II (483 grid tiles): merge launches counted, no pcc kernel
+     and no plain version, exact symmetry, 8 rows x 64 columns against a
+     float64 direct count (tau-a) or scipy (tau-b) within 1e-6; the Table
+     II triangle once if the grid run extrapolates to under 60 s; the
+     crossover of the float32 and int8 sign-GEMMs and the merge path over
+     the TF rows at l in 64 / 96 / 128 / 256 / 512 / 1,024; the kernel's
+     time at the TF triangle against its bound (l_p2 log2 l_p2 compares a
+     pair merge at 64 x 132 lanes x the SM clock, or bytes at 3.35 TB/s),
+     its plain version on one tile, and torch._int_mm on the int8 pair signs
+     (whose C - D must give the same tau-a bits).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -884,6 +903,417 @@ def streaming_runs(x_dev, x_tf, split, reset, check, tag):
     return out
 
 
+def sm_clock_mhz():
+    """(current, maximum) SM clock in MHz, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+    cur, top = (float(v) for v in out.split(","))
+    return cur, top
+
+
+def kendall_runs(x_dev, x_tf, reset, tag):
+    """Phase 23: merge-sort Kendall at the paper's sample count, every
+    check fatal.  `reset` sets the pcc kernels' launch counts to 0.  Returns
+    the kernel record and the times (ms)."""
+    import scipy.stats
+    import torch
+    from repro_torch.core import measures
+    from repro_torch.core.api import clear_prepared_cache, corr
+    from repro_torch.core.mapping import job_coord_batch, job_id
+    from repro_torch.core.plan import ExecutionPlan, pad_operands
+    from repro_torch.core.sinks import TopKSink
+    from repro_torch.data.expression import ExpressionSpec, artificial
+    from repro_torch.kernels import kendall_merge as kmm
+    from repro_torch.kernels.kendall_merge import (kendall_merge_tiles,
+                                                   rank_structure)
+    from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
+                                              pcc_topk_tiles)
+
+    dev = x_dev.device
+    l = x_dev.shape[1]
+    n0 = l * (l - 1) // 2
+    plain = kmm.kendall_merge_tiles_plain
+    plain_calls = [0]
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return plain(*args, **kwargs)
+
+    # the wrapper reaches its plain version only through this name: any
+    # call during the driven runs is counted (and must not happen)
+    kmm.kendall_merge_tiles_plain = counted_plain
+    out = {}
+    max_err = 0.0
+
+    def same(got, want, label):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: kernel != plain (max |d| "
+                                 f"{err:.3e})")
+
+    def operand(x, t, l_blk):
+        return pad_operands(measures.kendall_rank_transform(x), t, l_blk)
+
+    def rows_of(n, lk, kind, seed):
+        """Normal or floor(8 u) rows on the card; row 1 constant, row 4 one
+        value in all but its last sample."""
+        r = np.random.default_rng(seed)
+        x = (r.standard_normal((n, lk)) if kind == "float"
+             else np.floor(8 * r.random((n, lk)))).astype(np.float32)
+        x[1] = 2.5
+        x[4, :-1] = -1.0
+        return torch.from_numpy(x).to(dev)
+
+    # -- 23.1 kernel against plain, bitwise ---------------------------------
+    small = [  # phase 2's (n, t, l_blk, j_start, pass_tiles)
+        (37, 8, 8, 0, 15), (37, 8, 8, 12, 3), (37, 8, 8, 13, 6),
+        (300, 96, 64, 1, 5), (130, 16, 64, 0, 45), (600, 256, 512, 0, 6),
+        (600, 256, 512, 4, 5)]
+    checked = 0
+    for i, (n, t, l_blk, j0, tiles) in enumerate(small):
+        lk = (96, 97, 130, 257)[i % 4]
+        for kind in ("float", "ties"):
+            u = operand(rows_of(n, lk, kind, i), t, l_blk)
+            v = operand(rows_of(n // 2 + 7, lk, kind, 50 + i), t, l_blk)
+            for grid in (False, True):
+                for tau_b in (False, True):
+                    spec = EpilogueSpec(div=None if tau_b else
+                                        float(lk * (lk - 1) // 2),
+                                        clip=(-1.0, 1.0))
+                    kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
+                              epilogue=spec, v_pad=v if grid else None,
+                              grid_cols=v.shape[0] // t if grid else None,
+                              l=lk, tau_b=tau_b)
+                    same(kendall_merge_tiles(u, j0, **kw), plain(u, j0, **kw),
+                         f"n={n} l={lk} t={t} j0={j0} tiles={tiles} {kind} "
+                         f"grid={grid} tau_b={tau_b}")
+                    checked += 1
+    print(f"  kernel vs plain at phase 2's shapes, l in 96 / 97 / 130 / 257, "
+          f"float and floor(8 u) rows with a constant row, a run of l - 1 "
+          f"and padding rows, triangle and grid, tau-a and tau-b: "
+          f"{checked} launches bitwise")
+    n_tf = x_tf.shape[0]
+    tplan = ExecutionPlan.create(n_tf, l, measure="kendall")
+    if tplan.measure is not measures.KENDALL_MERGE:
+        raise AssertionError(f"kendall at l={l} planned {tplan.measure.name}")
+    u_tf = tplan.prepare(x_tf)
+    x_ties = torch.floor(8 * torch.from_numpy(artificial(ExpressionSpec(
+        n=n_tf, l=l, seed=4))).to(dev))
+    u_ties = tplan.prepare(x_ties)
+    m = tplan.m
+    full = [(0, u_tf, False), (job_id(m, m // 2, m // 2), u_tf, False),
+            (tplan.total_tiles - 1, u_tf, False), (0, u_ties, True)]
+    plain_ms = None
+    for j0, u, tau_b in full:
+        kw = dict(t=tplan.t, l_blk=tplan.l_blk, pass_tiles=1, l=l,
+                  epilogue=tplan.epilogue_spec if not tau_b else
+                  EpilogueSpec(clip=(-1.0, 1.0)), tau_b=tau_b)
+        got = kendall_merge_tiles(u, j0, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = plain(u, j0, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        plain_ms = plain_ms or ms
+        y, x = job_coord_batch(m, np.array([j0]))
+        same(got, want, f"full-width tile {j0} ({int(y[0])}, {int(x[0])})")
+        print(f"  full width l={l}: tile {j0} = ({int(y[0])}, {int(x[0])}) "
+              f"of the TF triangle, {'floor(8 u) rows, tau-b' if tau_b else 'tau-a'}: "
+              f"bitwise plain (plain {ms:.1f} ms)")
+    tile_ms, tile_all = event_ms(lambda: kendall_merge_tiles(
+        u_tf, 0, t=tplan.t, pass_tiles=1, l=l,
+        epilogue=tplan.epilogue_spec), 3)
+
+    # -- 23.2 the slice end to end at l = 5,072 -----------------------------
+    def run(label, fn, want, mode):
+        """fn() with every launch count set to 0 just before and read just
+        after: `want` merge launches of `mode`, no pcc kernel, no plain
+        version.  Returns the result and its host time (ms)."""
+        reset()
+        kendall_merge_tiles.launches = 0
+        kendall_merge_tiles.launches_by_mode = {"tau_a": 0, "tau_b": 0}
+        plain_calls[0] = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = (kendall_merge_tiles.launches,
+               dict(kendall_merge_tiles.launches_by_mode),
+               pcc_tiles.launches, dict(pcc_topk_tiles.launches),
+               plain_calls[0])
+        other = "tau_b" if mode == "tau_a" else "tau_a"
+        print(f"  {label}: {ms:.3f} ms; kendall_merge_tiles launches "
+              f"{got[1]}, pcc_tiles {got[2]}, pcc_topk_tiles {got[3]}, "
+              f"plain calls {got[4]}")
+        if got != (want, {mode: want, other: 0}, 0,
+                   {"select": 0, "merge": 0}, 0):
+            raise AssertionError(f"{label}: did not run through the merge "
+                                 f"kernel alone, {want} launch(es)")
+        return res, ms
+
+    def symmetric(r, n, label):
+        if r.shape != (n, n) or r.device.type != "cuda" or \
+                not bool(torch.isfinite(r).all()) or not torch.equal(r, r.T):
+            raise AssertionError(f"{label}: bad result, or not exactly "
+                                 f"symmetric")
+
+    rng = np.random.default_rng(23)
+    rows8 = np.sort(rng.choice(n_tf, 8, replace=False))
+    cols64 = np.sort(rng.choice(n_tf, 64, replace=False))
+    ia, ib = (torch.as_tensor(a, device=dev) for a in np.triu_indices(l, 1))
+
+    def tau_a64(x, rows, cols):
+        """float64 tau-a of rows x cols by a direct count of concordant
+        and discordant sample pairs (phase 13's method)."""
+        xr = x[torch.as_tensor(rows, device=dev)].double()
+        sr = torch.sign(xr[:, ia] - xr[:, ib])
+        want = torch.empty((len(rows), len(cols)), dtype=torch.float64,
+                           device=dev)
+        for j, c in enumerate(cols):
+            xc = x[int(c)].double()
+            want[:, j] = (sr * torch.sign(xc[ia] - xc[ib])).sum(1) / n0
+        return want
+
+    def sampled_err(r, x, label):
+        err = float((r[rows8][:, cols64].double()
+                     - tau_a64(x, rows8, cols64)).abs().max())
+        print(f"  {label}: 8 rows x 64 columns against a float64 direct "
+              f"count, max |d| = {err:.3e} (tol {TOL_KENDALL:g})")
+        if not err <= TOL_KENDALL:
+            raise AssertionError(f"{label}: disagrees with the direct count")
+        return err
+
+    def scipy_err(r, x, label):
+        xh = x.cpu().numpy()
+        rh = r[torch.as_tensor(rows8, device=dev)].cpu().numpy()
+        err = 0.0
+        for a, i in enumerate(rows8):
+            for c in cols64:
+                want = scipy.stats.kendalltau(xh[i], xh[c],
+                                              variant="b").statistic
+                want = 0.0 if np.isnan(want) else want
+                err = max(err, abs(float(rh[a, c]) - want))
+        print(f"  {label}: 8 rows x 64 columns against "
+              f"scipy.stats.kendalltau(variant='b'), max |d| = {err:.3e} "
+              f"(tol {TOL_KENDALL:g})")
+        if not err <= TOL_KENDALL:
+            raise AssertionError(f"{label}: disagrees with scipy")
+
+    clear_prepared_cache()
+    print(f"  corr over the {n_tf} TF rows at l={l}: {tplan.total_tiles} "
+          f"tiles, {tplan.n_pass} pass")
+    ra, out["tf_tau_a_ms"] = run("corr(x_tf, measure='kendall')",
+                                 lambda: corr(x_tf, measure="kendall"),
+                                 tplan.n_pass, "tau_a")
+    main_launches = kendall_merge_tiles.launches
+    symmetric(ra, n_tf, "TF tau-a")
+    sampled_err(ra, x_tf, "TF tau-a")
+    rb, out["tf_tau_b_ms"] = run("corr(x_tf, measure='kendall_tau_b')",
+                                 lambda: corr(x_tf, measure="kendall_tau_b"),
+                                 tplan.n_pass, "tau_b")
+    symmetric(rb, n_tf, "TF tau-b")
+    scipy_err(rb, x_tf, "TF tau-b")
+    rt, out["tf_ties_tau_b_ms"] = run(
+        "corr(floor(8 u), measure='kendall_tau_b')",
+        lambda: corr(x_ties, measure="kendall_tau_b"), tplan.n_pass, "tau_b")
+    symmetric(rt, n_tf, "floor(8 u) tau-b")
+    scipy_err(rt, x_ties, "floor(8 u) tau-b")
+    del rb, rt
+    tk, out["tf_topk_ms"] = run(
+        f"corr(x_tf, measure='kendall', sink=TopKSink({K_TOP}))",
+        lambda: corr(x_tf, measure="kendall", sink=TopKSink(K_TOP)),
+        tplan.n_pass, "tau_a")
+    key = ra[torch.as_tensor(rows8, device=dev)].abs()
+    key[torch.arange(8), torch.as_tensor(rows8, device=dev)] = -1.0
+    want_c = torch.sort(key, dim=1, descending=True,
+                        stable=True).indices[:, :K_TOP]
+    got_c = torch.as_tensor(tk["indices"][rows8], device=dev).long()
+    got_v = torch.as_tensor(tk["values"][rows8], device=dev)
+    if not torch.equal(got_c, want_c) or not torch.equal(
+            got_v, torch.take_along_dim(
+                ra[torch.as_tensor(rows8, device=dev)], want_c, dim=1)):
+        raise AssertionError("TopKSink over merge tiles is not the dense "
+                             "result's canonical top-k")
+    print(f"  TopKSink({K_TOP}): 8 rows' lists the dense tau-a's canonical "
+          f"top-{K_TOP} (|v| descending, then column), values bitwise")
+    r5, out["tf_5tile_ms"] = run(
+        "corr(x_tf, measure='kendall', max_tiles_per_pass=5)",
+        lambda: corr(x_tf, measure="kendall", max_tiles_per_pass=5),
+        -(-tplan.total_tiles // 5), "tau_a")
+    if not torch.equal(r5, ra):
+        raise AssertionError("5-tile passes changed tau-a's bits")
+    print("  5-tile passes: bitwise the one-pass result")
+    del r5
+    gplan = ExecutionPlan.create(n_tf, l, n_cols=x_dev.shape[0],
+                                 measure="kendall")
+    rg, out["grid_ms"] = run(
+        f"corr(x_tf, x, measure='kendall'), {gplan.total_tiles} grid tiles",
+        lambda: corr(x_tf, x_dev, measure="kendall"), gplan.n_pass, "tau_a")
+    grid_launches = kendall_merge_tiles.launches
+    if rg.shape != (n_tf, x_dev.shape[0]) or not bool(torch.isfinite(rg).all()):
+        raise AssertionError("bad TF x Table II Kendall result")
+    cols_g = np.sort(rng.choice(x_dev.shape[0], 64, replace=False))
+    err = float((rg[rows8][:, cols_g].double()
+                 - tau_a64(torch.cat([x_tf, x_dev]), rows8,
+                           cols_g + n_tf)).abs().max())
+    print(f"  TF x Table II: 8 rows x 64 columns against a float64 direct "
+          f"count, max |d| = {err:.3e} (tol {TOL_KENDALL:g})")
+    if not err <= TOL_KENDALL:
+        raise AssertionError("TF x Table II Kendall disagrees with the count")
+    del rg
+
+    # -- 23.3 the Table II triangle, if the grid says it fits ---------------
+    splan = ExecutionPlan.create(x_dev.shape[0], l, measure="kendall")
+    extra = out["grid_ms"] * splan.total_tiles / gplan.total_tiles / 1e3
+    print(f"  Table II triangle: {splan.total_tiles} tiles, extrapolated "
+          f"from the grid run {extra:.1f} s")
+    if extra < 60.0:
+        rs, out["table2_ms"] = run(
+            "corr(x, measure='kendall') at Table II",
+            lambda: corr(x_dev, measure="kendall"), splan.n_pass, "tau_a")
+        symmetric(rs, x_dev.shape[0], "Table II tau-a")
+        sampled_err(rs, x_dev, "Table II tau-a")
+        del rs
+    else:
+        out["table2_ms"] = None
+        print("  Table II triangle not run: over 60 s")
+    clear_prepared_cache()
+
+    # -- 23.4 crossover: sign-GEMM (float32, int8) against the merge --------
+    variants = {"kendall_sign_gemm": dict(measure="kendall_sign_gemm"),
+                "kendall int8": dict(measure="kendall",
+                                     compute_dtype=torch.int8),
+                "kendall_merge": dict(measure="kendall_merge")}
+    cross = {name: {} for name in variants}
+    for lc in (64, 96, 128, 256, 512, 1024):
+        xs = x_tf[:, :lc].contiguous()
+        line = []
+        for name, kw in variants.items():
+            def call():
+                clear_prepared_cache()
+                return corr(xs, **kw)
+            try:
+                ms, _ = host_ms(call, 3)
+            except ValueError as exc:
+                ms = None
+                line.append(f"{name} refused ({exc})")
+            else:
+                line.append(f"{name} {ms:.3f}")
+            cross[name][lc] = ms
+        print(f"  crossover, TF rows at l={lc} (corr with its transform, "
+              f"median of 3, ms): " + "; ".join(line))
+    clear_prepared_cache()
+
+    def crossover(a, b):
+        """The smallest l from which b is faster than a at every measured l
+        after it (None: never)."""
+        ls = sorted(l_ for l_ in cross[a] if cross[a][l_] is not None
+                    and cross[b][l_] is not None)
+        won = [cross[b][l_] < cross[a][l_] for l_ in ls]
+        for i, l_ in enumerate(ls):
+            if all(won[i:]):
+                return l_
+        return None
+
+    out["crossover"] = {f"{a} -> {b}": crossover(a, b) for a, b in (
+        ("kendall_sign_gemm", "kendall_merge"),
+        ("kendall int8", "kendall_merge"),
+        ("kendall_sign_gemm", "kendall int8"))}
+    out["crossover_ms"] = cross
+    print(f"  crossover (smallest measured l from which the second is "
+          f"faster): {out['crossover']} [KENDALL_MERGE_CROSSOVER_L stays "
+          f"{measures.KENDALL_MERGE_CROSSOVER_L}, the reference's]")
+
+    # -- 23.5 times and bound ------------------------------------------------
+    pass_ms, pass_all = event_ms(lambda: kendall_merge_tiles(
+        u_tf, 0, t=tplan.t, pass_tiles=tplan.total_tiles, l=l,
+        epilogue=tplan.epilogue_spec), 3)
+    prep_ms, _ = event_ms(lambda: rank_structure(u_tf[:, :l]), 3)
+    cur, top = sm_clock_mhz()
+    int_ops_s = 64 * 132 * top * 1e6
+    # the least compares this run's data needs: a sort of the l keys of
+    # each pair of non-constant rows (l log2 l), and before it, for a row
+    # with ties, the sort of each of its tie runs (c log2 c a run of c);
+    # a pair with a constant side is 0 by Knight's identity and needs none
+    st = rank_structure(u_tf[:, :l])
+    nonconst = (st.ties < n0).double()
+    run_len = torch.zeros(st.runs.shape, dtype=torch.float64,
+                          device=dev).scatter_add_(
+        1, st.runs.long(), torch.ones_like(st.runs, dtype=torch.float64))
+    run_sort = (run_len * torch.log2(run_len.clamp(min=1.0))).sum(1)
+    weight = nonconst * (l * np.log2(l) + run_sort)
+    ys, xs_ = job_coord_batch(m, np.arange(tplan.total_tiles))
+    wr = weight.view(m, tplan.t).sum(1).cpu().numpy()
+    nc = nonconst.view(m, tplan.t).sum(1).cpu().numpy()
+    ops = float(sum(wr[y] * nc[x] for y, x in zip(ys, xs_)))
+    pairs = float(sum(nc[y] * nc[x] for y, x in zip(ys, xs_)))
+    tied_rows = int(((st.ties > 0) & (st.ties < n0)).sum())
+    nbytes = u_tf.numel() * 4 + tplan.total_tiles * tplan.t ** 2 * 4
+    bound = (ops / int_ops_s * 1e3, "operations")
+    if nbytes / HBM_BYTES_S * 1e3 > bound[0]:
+        bound = (nbytes / HBM_BYTES_S * 1e3, "bytes")
+    del st
+
+    # library yardstick: one torch._int_mm on the int8 pair signs of the
+    # TF rows (C(l, 2) columns), built outside the timed window
+    lib_ms = None
+    try:
+        n8 = -(-n_tf // 8) * 8
+        signs = torch.zeros((n8, n0), dtype=torch.int8, device=dev)
+        for r0 in range(0, n_tf, 32):
+            xr = x_tf[r0:r0 + 32]
+            signs[r0:r0 + xr.shape[0]] = torch.sign(
+                xr[:, ia] - xr[:, ib]).to(torch.int8)
+        cmd = torch._int_mm(signs, signs.t())
+        torch.cuda.synchronize()
+        # the library's exact C - D of every TF pair, through the same
+        # epilogue: the merge kernel's tau-a, bit for bit
+        if not torch.equal(tplan.epilogue_spec.apply(
+                cmd[:n_tf, :n_tf].to(torch.float32)), ra):
+            raise AssertionError("the merge kernel's tau-a differs from "
+                                 "torch._int_mm's C - D on the pair signs")
+        print("  torch._int_mm's C - D of all TF pairs, through the same "
+              "epilogue: bitwise the merge kernel's tau-a")
+        lib_ms, lib_all = event_ms(lambda: torch._int_mm(signs, signs.t()),
+                                   3)
+        print(f"  library yardstick torch._int_mm on the int8 pair signs "
+              f"({n8} x {n0}, {signs.numel() / 1e9:.1f} GB): {lib_ms:.3f} ms "
+              f"(runs {[round(v, 3) for v in lib_all]})")
+        del signs, cmd
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+        print(f"  library yardstick: none (torch._int_mm: "
+              f"{str(exc).splitlines()[0]})")
+    torch.cuda.empty_cache()
+    out.update(pass_ms=pass_ms, tile_ms=tile_ms, plain_tile_ms=plain_ms,
+               prep_ms=prep_ms, bound_ms=bound[0], library_ms=lib_ms)
+    print(f"  kendall_merge_tiles at the TF triangle ({tplan.total_tiles} "
+          f"tiles, one launch): {pass_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in pass_all]}; the rank structures, made "
+          f"once per operand, {prep_ms:.3f} ms more); one tile {tile_ms:.3f} ms, its plain version "
+          f"{plain_ms:.3f} ms; bound {bound[0]:.3f} ms ({bound[1]}: "
+          f"{pairs:.6g} pairs of non-constant rows x {l} x log2 {l}, plus "
+          f"the tie-run sorts of {tied_rows} rows with ties = {ops:.6g} "
+          f"compares at 64 x 132 x {top:.0f} MHz = {int_ops_s:.4g}/s; "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; SM clock now {cur:.0f} MHz) "
+          f"{tag}")
+    kmm.kendall_merge_tiles_plain = plain
+    record = {"name": "kendall_merge_tiles", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kendall_merge.cu",
+              "replaces": "src/repro/kernels/kendall_merge.py:125",
+              "launches": main_launches, "max_abs_err": max_err,
+              "ms": pass_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+              "bound_by": bound[1], "library_ms": lib_ms,
+              "plain_ms_covers": "one of the launch's tiles",
+              "grid_launches": grid_launches}
+    return record, out
+
+
 def main(argv) -> int:
     t_script = time.perf_counter()
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
@@ -937,7 +1367,8 @@ def main(argv) -> int:
         """A readable name for the kernels redesigned on this path (the
         float32 tile kernel's four instantiations, the three selects, the
         merge kernel's two, the float32 flash kernel's five head tiles,
-        the int8 tensor-core tile kernel's two), None for the others;
+        the int8 tensor-core tile kernel's two) and the merge-sort Kendall
+        kernel's two, None for the others;
         `entry` is ptxas' "Compiling entry function" line."""
         if entry is None:
             return None
@@ -959,6 +1390,9 @@ def main(argv) -> int:
         if "pcc_topk_merge_kernelILi" in entry:
             kw = entry.split("pcc_topk_merge_kernelILi", 1)[1].split("E")[0]
             return f"pcc_topk_merge_kernel<{kw}>"
+        if "kendall_merge_kernelILb" in entry:
+            flag = entry.split("kendall_merge_kernelILb", 1)[1][0]
+            return f"kendall_merge_kernel<tau_b={flag}>"
         return None
 
     report = {}
@@ -996,12 +1430,12 @@ def main(argv) -> int:
         print(json.dumps({"overlap": res, "src": str(src), "card": card}))
         return 0
     # (this tree's kernels: --overlap-only may build an earlier tree's)
-    if len(report) != 16:
+    if len(report) != 18:
         raise AssertionError(
             f"ptxas reported {sorted(report)}: expected the 4 float32 "
             f"tile, the 3 select (float32; int8 and bf16 on the tensor "
-            f"cores), the 2 merge, the 5 float32 flash and the 2 int8 "
-            f"tensor-core tile kernels")
+            f"cores), the 2 merge, the 5 float32 flash, the 2 int8 "
+            f"tensor-core tile and the 2 kendall_merge kernels")
     simt = _build.load("pcc_tile")
     gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
     if any(hasattr(simt, fn) for fn in gone):
@@ -3068,6 +3502,12 @@ def main(argv) -> int:
     print(json.dumps({"streaming": streaming_runs(
         x_dev, x_tf, SPLIT, reset_counts, check_launches, tag)}))
 
+    # -- 23. merge-sort Kendall at the paper's sample count --------------------
+    print(f"merge-sort Kendall at l = {L_SEEK} {tag}:")
+    kendall_record, kendall_times = kendall_runs(x_dev, x_tf, reset_counts,
+                                                 tag)
+    print(json.dumps({"kendall": kendall_times}))
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
@@ -3157,6 +3597,7 @@ def main(argv) -> int:
                              "float8_e4m3fn"),
                             ("pcc_tiles (replica scaled int8)", "int8"))],
         *flash_rows,
+        kendall_record,
     ]}
     # the header holding each pcc kernel's mainloop, beside its source: the
     # tiles' by their file, the selects' by their dtype (float32 on the

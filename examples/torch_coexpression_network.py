@@ -4,6 +4,7 @@ similarity -> thresholded network -> module recovery.
 
     PYTHONPATH=src python examples/torch_coexpression_network.py \
         [--device cpu] [--n 400] [--l 200] [--measure spearman] [--topk 10]
+        [--measure kendall --threshold 0.3]
 
 The counterpart of examples/coexpression_network.py for ``repro_torch``.
 Two streaming modes, both through ``corr()``: the default
@@ -42,9 +43,14 @@ def main() -> None:
                          "pass (the run never holds more than this many "
                          "t x t tiles on the device)")
     ap.add_argument("--measure", default="pearson",
-                    choices=["pearson", "spearman", "cosine"],
+                    choices=["pearson", "spearman", "cosine", "kendall",
+                             "kendall_tau_b"],
                     help="similarity measure; bounded measures only, so the "
-                         "|r| >= threshold edge rule stays meaningful")
+                         "|r| >= threshold edge rule stays meaningful "
+                         "(Kendall's tau runs below r on the same data: "
+                         "about (2 / pi) arcsin(r), so pass a lower "
+                         "--threshold; at l >= 96 it takes the merge-sort "
+                         "kernel)")
     ap.add_argument("--topk", type=int, default=0, metavar="K",
                     help="k-nearest-neighbour mode: keep each gene's K "
                          "strongest |r| partners (O(n*K) state via "

@@ -22,7 +22,9 @@ from repro_torch.core.quantize import Operand
 
 # spec_dict fields that select modes later slices bring, with the values
 # the port runs so far (any replica count: significance plans)
-_PORTED = {"tile_kernel": (None,), "symmetric_grid": (False,),
+_PORTED = {"tile_kernel": (None, "kendall_merge_tile_kernel",
+                           "kendall_tau_b_merge_tile_kernel"),
+           "symmetric_grid": (False,),
            "compute_dtype": (None, "bfloat16", "int8", "float8_e4m3fn",
                              "float8_e5m2"),
            "p": (1,)}
@@ -37,7 +39,8 @@ _VIEWED = {"bfloat16": (np.uint16, torch.bfloat16),
 def plan_from_reference(spec: dict) -> ExecutionPlan:
     """The port's ExecutionPlan for a reference plan's ``spec_dict()``
     (triangular or rectangular grid; float32, bf16, int8 or fp8 operands,
-    quantized where the reference quantizes; a masked run's sink plan,
+    quantized where the reference quantizes; a merge-sort Kendall plan,
+    whose tile kernel is named by its ``__name__``; a masked run's sink plan,
     whose measure is a pairwise-complete name such as "pearson_complete";
     a significance plan with its replica count, whose replica_chunk, absent
     from the spec, takes the default).  The reference's permutation indices

@@ -46,9 +46,16 @@ def launch_tiles(plan: ExecutionPlan, u, j0: int, launch: int,
     (v is the column operand of a rectangular plan, or a same-shape second
     operand on the triangle).  Unwraps quantized :class:`Operand`s and
     threads their per-row scales to the kernel: the row scales from u, the
-    column scales from v, or from u when there is no v."""
+    column scales from v, or from u when there is no v.  A measure with a
+    custom ``tile_kernel`` (merge-sort Kendall) launches it instead, with
+    the true sample count ``plan.l`` added to the shared signature."""
     u_data, u_scale = operand_parts(u)
     v_data, v_scale = operand_parts(v) if v is not None else (None, None)
+    if plan.measure.tile_kernel is not None:
+        return plan.measure.tile_kernel(
+            u_data, j0, t=plan.t, l_blk=plan.l_blk, pass_tiles=launch,
+            epilogue=plan.epilogue_spec, v_pad=v_data,
+            grid_cols=plan.workload.grid_cols, l=plan.l)
     row_scale = col_scale = None
     if u_scale is not None:
         row_scale = u_scale
@@ -69,14 +76,16 @@ def launch_topk_tiles(plan: ExecutionPlan, u, j0: int, dev_hi: int,
     (kernels/pcc_tile.pcc_topk_tiles): one pass's tiles are computed and
     folded into per-row top-k state on the card, so only O(n * kk) state
     leaves it.  j0 is the raw pass start and dev_hi the exclusive tile
-    bound, the kernel's validity guard.  Quantized operands are refused:
-    the scale product is not fused into the top-k kernel."""
+    bound, the kernel's validity guard.  Quantized operands and custom tile
+    kernels are refused: neither the scale product nor another kernel is
+    fused into the top-k kernel."""
     u_data, u_scale = operand_parts(u)
     v_data, _ = operand_parts(v) if v is not None else (None, None)
-    if u_scale is not None:
+    if u_scale is not None or plan.measure.tile_kernel is not None:
         raise ValueError(
-            "device top-k epilogue supports unscaled operands only (no "
-            "quantized scales): DeviceTopKSink.open validates this")
+            "device top-k epilogue supports the plain GEMM kernel only "
+            "(no quantized scales, no custom tile kernels): "
+            "DeviceTopKSink.open validates this")
     return pcc_topk_tiles(u_data, j0, dev_hi, t=plan.t, l_blk=plan.l_blk,
                           pass_tiles=launch, kk=kk,
                           n_cols_valid=plan.n_cols,

@@ -2,7 +2,8 @@
 
 Port of ``repro/core/api.py`` for one device: symmetric all-pairs
 similarity of one (n, l) operand and the rectangular X-vs-Y workload,
-under every inner-product measure, with float32, bfloat16, int8 or fp8
+under every inner-product measure and merge-sort Kendall at l >= 96
+(its own tile kernel), with float32, bfloat16, int8 or fp8
 stored operands (int8 on non-Kendall measures and fp8 quantized with
 per-row scales), pairwise-complete masked runs (``where=``),
 permutation / bootstrap p-values (``pvalues=``) and resumable host output
@@ -50,7 +51,9 @@ class TransformCache(LruStatsCache):
     unmasked operand through the process-wide instance.
 
     Keys are the operand's identity and its in-place version counter
-    (``x._version``), plus the transform's parameters: measure, compute
+    (``x._version``), plus the transform's parameters: the plan's resolved
+    measure (kendall at l >= 96 with no compute_dtype is KENDALL_MERGE,
+    whose operand is ranks; with int8 it stays KENDALL, pair signs), compute
     dtype (a ``torch.dtype`` and its name are one key), tile alignment.
     A torch tensor, unlike a jax array, can change in place: the version
     counter makes a changed tensor miss, and the entry of its older
@@ -262,10 +265,14 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
     measure: a registered name or Measure (core/measures.py): "pearson"
              ("pcc"), "spearman", "cosine", "covariance" ("cov"), "dot",
              "kendall" ("kendall_tau_a"), "kendall_tau_b" ("kendall_b"),
-             "kendall_sign_gemm", "kendall_tau_b_sign_gemm", or one added
-             with measures.register.  kendall / kendall_tau_b at l >= 96
-             without compute_dtype take the reference's merge-sort kernel
-             and raise NotImplementedError (ROADMAP slice 7).
+             "kendall_sign_gemm", "kendall_tau_b_sign_gemm",
+             "kendall_merge", "kendall_tau_b_merge", or one added with
+             measures.register.  kendall / kendall_tau_b at l >= 96
+             without compute_dtype or pvalues take the merge-sort kernel
+             (kernels/kendall_merge.py: the (n, l) ranks as operand,
+             Knight's O(l log l) count per pair, tau-a bitwise the
+             sign-GEMM's; on the card l <= 16,384); DeviceTopKSink refuses
+             it, TopKSink and the other sinks take its tiles.
     where:   pairwise-complete scoring of missing data: "nan" takes
              validity from NaNs; a boolean array or tensor masks x
              (symmetric problems); an (x_mask, y_mask) tuple masks both

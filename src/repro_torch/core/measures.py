@@ -14,15 +14,21 @@ elementwise epilogue around the shared tile kernel:
   kendall        sign(X[a] - X[b]) over pairs a < b     v / C(l, 2)     [-1,1]
   kendall_tau_b  pair signs scaled per row by           identity        [-1,1]
                  1/sqrt(#non-tied pairs)
+  kendall_merge  fractional ranks; Knight's count in    v / C(l, 2)     [-1,1]
+                 the tile kernel
+  kendall_tau_b_merge  the same, tau-b scales in it     identity        [-1,1]
   dot            identity                               identity        none
 
 Kendall's pair-sign rows are exactly +/-1/0 (``exact_int8``), so they may
-be stored as int8 operands.  Pearson, cosine and covariance also have
+be stored as int8 operands.  The pair-sign operand grows as l^2, so from
+l = KENDALL_MERGE_CROSSOVER_L (96) on, without a compute_dtype or a
+replica axis, :func:`resolve_tile_kernel` swaps kendall / kendall_tau_b
+for their merge-sort variants (``kendall_merge``, ``kendall_tau_b_merge``):
+the operand is the (n, l) ranks and a custom tile kernel
+(kernels/kendall_merge.py) counts C - D per pair in O(l log l), tau-a
+bitwise the sign-GEMM's.  Pearson, cosine and covariance also have
 pairwise-complete variants for missing data (:class:`MaskedMeasure`,
-``corr(..., where=)``).  The reference's merge-sort Kendall variants
-(``kendall_merge``, ``kendall_tau_b_merge``, and the substitution
-:func:`resolve_tile_kernel` makes at l >= 96) are ROADMAP slice 7 and
-raise ``NotImplementedError`` here; nothing computes in their place.
+``corr(..., where=)``).
 """
 
 from __future__ import annotations
@@ -30,15 +36,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import pcc
+from repro_torch.kernels.kendall_merge import (
+    KENDALL_MERGE_CROSSOVER_L, kendall_merge_tile_kernel,
+    kendall_tau_b_merge_tile_kernel)
 from repro_torch.kernels.pcc_tile import EpilogueSpec
-
-# The reference's sample count at and above which kendall / kendall_tau_b
-# switch to the merge-sort tile kernel (repro/kernels/kendall_merge.py).
-KENDALL_MERGE_CROSSOVER_L = 96
-_MERGE_SLICE = "the merge-sort Kendall kernel is ROADMAP slice 7"
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -105,6 +110,14 @@ def pair_sign_transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     return torch.sign(xa[:, ia] - xa[:, ib]).to(dtype or x.dtype)
 
 
+def kendall_rank_transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    """Merge-sort Kendall row transform: the fractional ranks, (n, l).  The
+    tile kernel (kernels/kendall_merge.py) counts C - D from them directly,
+    so the pair axis never materialises; ranks keep each row's order and
+    tie structure, which is all Kendall depends on."""
+    return rank_rows(x).to(dtype or _acc_dtype(x))
+
+
 def pair_sign_tie_scaled_transform(x: torch.Tensor, *,
                                    dtype=None) -> torch.Tensor:
     """Kendall tau-b row transform: pair signs scaled per row by
@@ -167,9 +180,10 @@ class Measure:
                   significance run builds its permutation replicas by
                   gathering columns of the prepared operand
                   (core/significance.replica_operand).
-    tile_kernel:  None rides the shared tile kernel.  The reference's
-                  merge-sort Kendall sets a custom per-tile kernel; that is
-                  slice 7, so no port measure sets it yet.
+    tile_kernel:  None rides the shared tile kernel; a callable with the
+                  launch signature of ``pcc_tiles`` plus the true sample
+                  count ``l`` replaces it (the merge-sort Kendall kernels,
+                  kernels/kendall_merge.py).
     """
 
     name: str
@@ -218,11 +232,25 @@ KENDALL = Measure("kendall", pair_sign_transform, _kendall_epilogue,
 KENDALL_B = Measure("kendall_tau_b", pair_sign_tie_scaled_transform, None,
                     (-1.0, 1.0))
 DOT = Measure("dot", identity_transform, None, None, permute_gather=True)
+# Merge-sort Kendall: the ranks as operand, Knight's O(l log l) count per
+# pair in the tile kernel; tau-a bitwise KENDALL's sign-GEMM (the same
+# integer C - D, the same EpilogueSpec).  resolve_tile_kernel substitutes
+# them for KENDALL / KENDALL_B from the crossover on; naming them forces
+# the merge path at any l.
+KENDALL_MERGE = Measure(
+    "kendall_merge", kendall_rank_transform, _kendall_epilogue, (-1.0, 1.0),
+    epilogue_div=_kendall_div, tile_kernel=kendall_merge_tile_kernel)
+KENDALL_B_MERGE = Measure(
+    "kendall_tau_b_merge", kendall_rank_transform, None, (-1.0, 1.0),
+    tile_kernel=kendall_tau_b_merge_tile_kernel)
 # Distinct objects that pin the sign-GEMM path at any l: the merge
 # substitution is by identity (`meas is KENDALL`), so these never switch.
 KENDALL_SIGN = dataclasses.replace(KENDALL, name="kendall_sign_gemm")
 KENDALL_B_SIGN = dataclasses.replace(KENDALL_B,
                                      name="kendall_tau_b_sign_gemm")
+# The merge variants compute their sign-GEMM twins' statistic, so the
+# twin's dense inner product is their oracle (dense_reference).
+_DENSE_TWIN = {id(KENDALL_MERGE): KENDALL, id(KENDALL_B_MERGE): KENDALL_B}
 
 _REGISTRY: Dict[str, Measure] = {
     "pearson": PEARSON,
@@ -235,12 +263,12 @@ _REGISTRY: Dict[str, Measure] = {
     "kendall_tau_a": KENDALL,
     "kendall_tau_b": KENDALL_B,
     "kendall_b": KENDALL_B,
+    "kendall_merge": KENDALL_MERGE,
+    "kendall_tau_b_merge": KENDALL_B_MERGE,
     "kendall_sign_gemm": KENDALL_SIGN,
     "kendall_tau_b_sign_gemm": KENDALL_B_SIGN,
     "dot": DOT,
 }
-# reference measures whose tile kernel is not ported yet
-_MERGE_NAMES = ("kendall_merge", "kendall_tau_b_merge")
 
 MeasureLike = Union[str, Measure]
 
@@ -249,8 +277,6 @@ def get(measure: MeasureLike) -> Measure:
     """Resolve a measure name (or pass a Measure through)."""
     if isinstance(measure, Measure):
         return measure
-    if measure in _MERGE_NAMES:
-        raise NotImplementedError(f"measure {measure!r}: {_MERGE_SLICE}")
     try:
         return _REGISTRY[measure]
     except KeyError:
@@ -285,21 +311,22 @@ def resolve_tile_kernel(meas: Measure, *, l: int, compute_dtype=None,
                         replicas: int = 0) -> Measure:
     """The reference's Kendall auto-dispatch, at plan creation.
 
-    At l >= KENDALL_MERGE_CROSSOVER_L, with no compute_dtype and no replica
-    axis, the reference substitutes the canonical KENDALL / KENDALL_B (by
-    identity) with its merge-sort variants.  That kernel is slice 7, so the
-    port raises there; every other measure passes through.
+    At l >= KENDALL_MERGE_CROSSOVER_L the canonical KENDALL / KENDALL_B
+    become KENDALL_MERGE / KENDALL_B_MERGE, whose operand is O(l) where the
+    pair signs are O(l^2).  The substitution is by identity, so named
+    variants (KENDALL_SIGN, KENDALL_MERGE, clones) pass through, and only
+    where the merge kernel applies: no compute_dtype (ranks must keep their
+    ties; int8 asks for the exact sign-GEMM operand) and no replica axis
+    (significance runs ride the sign-GEMM's).
     """
     if compute_dtype is not None or replicas:
         return meas
     if l < KENDALL_MERGE_CROSSOVER_L:
         return meas
-    if meas is KENDALL or meas is KENDALL_B:
-        raise NotImplementedError(
-            f"measure {meas.name!r} at l={l} >= {KENDALL_MERGE_CROSSOVER_L} "
-            f"takes the reference's merge-sort path; {_MERGE_SLICE} (pass "
-            f"compute_dtype='int8' or measure='kendall_sign_gemm' for the "
-            f"sign-GEMM)")
+    if meas is KENDALL:
+        return KENDALL_MERGE
+    if meas is KENDALL_B:
+        return KENDALL_B_MERGE
     return meas
 
 
@@ -309,7 +336,8 @@ def resolve_tile_kernel(meas: Measure, *, l: int, compute_dtype=None,
 def dense_reference(x: torch.Tensor, measure: MeasureLike = "pearson", *,
                     clip: bool = True) -> torch.Tensor:
     """Full (n, n) similarity via dense U U^T: the oracle of the tiled
-    paths for any measure."""
+    paths for any inner-product measure (the merge-sort Kendall variants
+    answer through their sign-GEMM twins)."""
     return dense_reference_pair(x, x, measure, clip=clip)
 
 
@@ -319,6 +347,12 @@ def dense_reference_pair(x: torch.Tensor, y: torch.Tensor,
     """Rectangular (n_rows, n_cols) cross-similarity via dense U V^T; the
     row transforms are per-row maps, so x and y transform independently."""
     meas = get(measure)
+    meas = _DENSE_TWIN.get(id(meas), meas)
+    if meas.tile_kernel is not None:
+        raise ValueError(
+            f"measure {meas.name!r} is not an inner product of its "
+            f"transform output (custom tile kernel): use corr() or, for "
+            f"kendall, the kendall_tau_a_literal oracle")
     l = x.shape[1]
     if y.shape[1] != l:
         raise ValueError(f"sample counts differ: x has l={l}, y has "
@@ -462,14 +496,30 @@ def masked_dense_reference(x: torch.Tensor, mask_x: torch.Tensor,
     return r
 
 
+def kendall_tau_a_literal(x) -> np.ndarray:
+    """O(n^2 l^2) literal Kendall tau-a (float64, host numpy): (concordant
+    - discordant) / C(l, 2), ties counting 0.  The (n, l, l) sign tensor
+    counts each unordered sample pair twice, hence the / 2."""
+    xn = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                    np.float64)
+    n, l = xn.shape
+    if l < 2:
+        raise ValueError(f"kendall needs at least 2 samples, got l={l}")
+    s = np.sign(xn[:, :, None] - xn[:, None, :])
+    g = np.einsum("iab,jab->ij", s, s) / 2.0
+    return g / (l * (l - 1) // 2)
+
+
 __all__ = ["Measure", "MeasureLike", "MaskedMeasure", "MASKED_PEARSON",
            "MASKED_COSINE", "MASKED_COVARIANCE",
            "MASKED_COMPONENT_OPERANDS", "MASKED_NAMES", "get_masked", "masked_operands",
            "masked_dense_reference", "PEARSON", "SPEARMAN", "COSINE",
            "COVARIANCE", "KENDALL", "KENDALL_B", "DOT", "KENDALL_SIGN",
-           "KENDALL_B_SIGN", "KENDALL_MERGE_CROSSOVER_L", "get", "register",
+           "KENDALL_B_SIGN", "KENDALL_MERGE", "KENDALL_B_MERGE",
+           "KENDALL_MERGE_CROSSOVER_L", "get", "register",
            "available", "resolve_fusion", "resolve_tile_kernel",
            "rank_rows", "spearman_transform", "l2_normalize_rows",
-           "center_rows", "pair_sign_transform",
+           "center_rows", "pair_sign_transform", "kendall_rank_transform",
            "pair_sign_tie_scaled_transform", "identity_transform",
-           "dense_reference", "dense_reference_pair"]
+           "dense_reference", "dense_reference_pair",
+           "kendall_tau_a_literal"]

@@ -129,16 +129,24 @@ class ExecutionPlan:
         replicas > 0 adds a significance run's replica axis: B null
         replicas, launched replica_chunk (default DEFAULT_REPLICA_CHUNK) at a
         time; Kendall then keeps its sign-GEMM at any l, as in the
-        reference.
+        reference.  Without either, kendall / kendall_tau_b at l >= 96 take
+        the merge-sort tile kernel (measures.resolve_tile_kernel).
         """
         meas = measures.get(measure)
         cd = resolve_compute_dtype(meas, compute_dtype)
         meas = measures.resolve_tile_kernel(meas, l=l, compute_dtype=cd,
                                             replicas=replicas)
         if meas.tile_kernel is not None:
-            raise NotImplementedError(
-                f"measure {meas.name!r} has a custom tile kernel; custom "
-                f"tile kernels come with ROADMAP slice 7")
+            if cd is not None:
+                raise ValueError(
+                    f"measure {meas.name!r} computes on exact fractional "
+                    f"ranks; compute_dtype narrowing would corrupt their "
+                    f"tie structure (use measure='kendall_sign_gemm' for "
+                    f"the int8 sign-GEMM path)")
+            if replicas:
+                raise ValueError(
+                    f"measure {meas.name!r} has no replica mode; "
+                    f"significance runs use the sign-GEMM kendall path")
         tile = tiling.TilePlan.create(n, l, t)
         tile_c = (None if n_cols is None
                   else tiling.TilePlan.create(n_cols, l, t))
@@ -258,14 +266,16 @@ class ExecutionPlan:
 
     def spec_dict(self) -> dict:
         """JSON-serialisable identity of this plan, key for key the
-        reference's ``ExecutionPlan.spec_dict()``; the fields of modes
-        later slices bring hold their single-device values.  replica_chunk
+        reference's ``ExecutionPlan.spec_dict()`` (a custom tile kernel by
+        its ``__name__``); the fields of modes later slices bring hold
+        their single-device values.  replica_chunk
         stays out, as in the reference: p-values do not depend on it."""
         return {
             "n_rows": self.n_rows, "n_cols": self.n_cols, "l": self.l,
             "t": self.t, "l_blk": self.l_blk,
             "measure": self.measure.name,
-            "tile_kernel": None,
+            "tile_kernel": (None if self.measure.tile_kernel is None
+                            else self.measure.tile_kernel.__name__),
             "workload": type(self.workload).__name__,
             "symmetric_grid": False,
             "compute_dtype": (None if self.compute_dtype is None

@@ -879,11 +879,12 @@ class DeviceTopKSink(TopKSink):
     def supports(plan: ExecutionPlan) -> bool:
         """Whether this plan can take the device-side top-k path (the
         predicate ``open()`` enforces): a fused plan of unscaled float32,
-        bfloat16 or int8 operands.  Quantized operands (int8 with row scales
-        on non-exact_int8 measures, fp8) cannot: the scale product is not
-        fused into the top-k kernel."""
-        return (plan.fused and getattr(plan.measure, "tile_kernel", None)
-                is None and not plan.replicas
+        bfloat16 or int8 operands on the shared tile kernel.  Quantized
+        operands (int8 with row scales on non-exact_int8 measures, fp8) and
+        custom tile kernels (merge-sort Kendall) cannot: neither the scale
+        product nor another kernel is fused into the top-k kernel."""
+        return (plan.fused and plan.measure.tile_kernel is None
+                and not plan.replicas
                 and not needs_row_scales(plan.measure, plan.compute_dtype))
 
     def open(self, plan: ExecutionPlan, device: torch.device) -> None:
@@ -893,7 +894,7 @@ class DeviceTopKSink(TopKSink):
                 "DeviceTopKSink needs the fused epilogue: the in-kernel "
                 "merge ranks *finalised* values (post div/clip), so an "
                 "unfused plan would rank unscaled accumulator sums")
-        if getattr(plan.measure, "tile_kernel", None) is not None:
+        if plan.measure.tile_kernel is not None:
             raise ValueError(
                 f"DeviceTopKSink cannot run measure {plan.measure.name!r}: "
                 f"custom tile kernels bypass the top-k epilogue — use "

@@ -7,6 +7,8 @@
   flash_attention.py  causal / sliding-window GQA flash attention: the
                       wrapper, its plain version, the mha_ref oracle and
                       grid_savings
+  kendall_merge.py    merge-sort Kendall tiles (Knight's count): the
+                      wrapper, its plain version, the rank structures
   ops.py              the public wrappers flash_mha and pcc_tiles
   csrc/pcc_accum.cuh  the SIMT 64 x 64 accumulation of the float32 and
                       int8 selects, tile ids, scales and the epilogue
@@ -26,6 +28,9 @@
                       the SIMT pipes (sm_90a)
   csrc/flash_attention_sm90.cu  the flash-attention forward kernel, bf16
                       and fp16 on the tensor cores: wgmma, TMA (sm_90a)
+  csrc/kendall_merge.cu  merge-sort Kendall: a CTA per tile row, a
+                      merge-path merge sort per pair in shared memory
+                      (sm_90a)
   csrc/sm90.cuh       Hopper helpers: TMA tensor maps, mbarrier rings,
                       wgmma (bf16, fp16, fp8, int8)
   _build.py           nvcc build at first use, ctypes binding

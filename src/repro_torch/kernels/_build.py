@@ -75,6 +75,14 @@ SIGNATURES = {
         **{f"flash_attention_sm90_{s}": _FLASH for s in ("bf16", "f16")},
         "flash_attention_sm90_error_string": (ctypes.c_char_p, [_I]),
     },
+    "kendall_merge": {
+        # (order, runs, ties_r, scale_r, codes, ties_c, scale_c, out,
+        #  j_start, pass_tiles, m, grid_cols, t, l, tau_b, *epilogue,
+        #  stream) -> cudaError_t
+        "kendall_merge_tiles_launch": (_I, [_P] * 8 + [_LL] + [_I] * 6
+                                       + [*_EPI, _P]),
+        "kendall_merge_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

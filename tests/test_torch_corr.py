@@ -274,8 +274,12 @@ def test_measures_of_later_slices_raise():
     assert measures.resolve_fusion(measures.PEARSON, False, 29) == (None,
                                                                      False)
     assert PairwiseProblem.create(_x(4, 3), device="cpu").symmetric
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        corr(_x(37, 29), measure="kendall_merge", device="cpu")
+    # merge-sort Kendall (slice 7) is ported: bitwise the reference's
+    np.testing.assert_array_equal(
+        corr(_x(37, 29), measure="kendall_merge", t=8, l_blk=8,
+             device="cpu").numpy(),
+        np.asarray(ref_corr(jnp.asarray(_x(37, 29)), measure="kendall_merge",
+                            t=8, l_blk=8)))
     with pytest.raises(ValueError):
         measures.get("nope")
     with pytest.raises(ValueError):

@@ -29,6 +29,12 @@ def _run(*args):
     ("torch_coexpression_network.py", [], "OK — co-expression network"),
     ("torch_coexpression_network.py", ["--topk", "10"],
      "module recovery (kNN)"),
+    # merge-sort Kendall (l = 200 >= 96), tau-a thresholded and tau-b kNN
+    ("torch_coexpression_network.py",
+     ["--measure", "kendall", "--threshold", "0.3"],
+     "OK — co-expression network"),
+    ("torch_coexpression_network.py",
+     ["--measure", "kendall_tau_b", "--topk", "10"], "module recovery (kNN)"),
     ("torch_permutation_test.py", [], "OK"),
 ])
 def test_example_runs_on_cpu(script, extra, expect):

@@ -1355,3 +1355,110 @@ def test_flash_on_card_never_runs_plain(cuda, monkeypatch):
     with pytest.raises(ValueError):
         ops.flash_mha(*_flash_inputs(1, 4, 2, 80, 32, cuda), window=24,
                       blk=16)
+
+
+# -- merge-sort Kendall (kernels/kendall_merge.py, csrc/kendall_merge.cu) ---
+
+def _kendall_rows(n, l, kind, seed):
+    """(n, l) float32 rows: normal ("float") or integer levels floor(8 u)
+    ("ties", ~12 % of a row a value); row 1 constant (one run as long as
+    the row), row 4 one value but in its last sample."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, l)) if kind == "float"
+         else np.floor(8 * rng.random((n, l)))).astype(np.float32)
+    x[1] = 2.5
+    if n > 4:
+        x[4, :-1] = -1.0
+    return torch.from_numpy(x)
+
+
+def _kendall_operand(x, t, device):
+    from repro_torch.core.measures import kendall_rank_transform
+    return pad_operands(kendall_rank_transform(x.to(device)), t, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float", "ties"])
+@pytest.mark.parametrize("tau_b", [False, True])
+@pytest.mark.parametrize("n,n_cols,l,t,j_start,pass_tiles", [
+    (13, None, 2, 4, 0, 10),       # l = 2: one merge level
+    (37, None, 96, 8, 0, 15),      # every tile; padding rows
+    (37, None, 97, 8, 13, 6),      # ids past the end clamp
+    (29, 21, 130, 16, 0, 4),       # the grid
+    (21, None, 257, 8, 1, 5),      # two outputs a thread a level
+    (10, 19, 1100, 8, 0, 3),       # eight a thread
+    (8, None, 5072, 8, 0, 1),      # the paper's sample count
+])
+def test_kendall_merge_kernel_matches_plain(cuda, kind, tau_b, n, n_cols,
+                                            l, t, j_start, pass_tiles):
+    from repro_torch.kernels.kendall_merge import (
+        kendall_merge_tiles, kendall_merge_tiles_plain)
+    u = _kendall_operand(_kendall_rows(n, l, kind, n + l), t, cuda)
+    v = gc = None
+    if n_cols is not None:
+        v = _kendall_operand(_kendall_rows(n_cols, l, kind, l), t, cuda)
+        gc = v.shape[0] // t
+    div = None if tau_b else float(l * (l - 1) // 2)
+    for spec in (None, EpilogueSpec(div=div, clip=(-1.0, 1.0))):
+        kw = dict(t=t, l_blk=8, pass_tiles=pass_tiles, epilogue=spec,
+                  v_pad=v, grid_cols=gc, l=l, tau_b=tau_b)
+        before = kendall_merge_tiles.launches
+        got = kendall_merge_tiles(u, j_start, **kw)
+        want = kendall_merge_tiles_plain(u, j_start, **kw)
+        torch.cuda.synchronize()
+        assert kendall_merge_tiles.launches == before + 1
+        assert got.device.type == "cuda"
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kendall_merge_kernel_at_and_above_its_shared_memory_limit(cuda):
+    from repro_torch.kernels.kendall_merge import (
+        MAX_KERNEL_L, kendall_merge_tiles, kendall_merge_tiles_plain)
+    x = _kendall_rows(8, MAX_KERNEL_L + 1, "ties", 3)
+    u = _kendall_operand(x, 8, cuda)
+    kw = dict(t=8, l_blk=8, pass_tiles=1, l=MAX_KERNEL_L)
+    got = kendall_merge_tiles(u, 0, **kw)
+    assert torch.equal(got, kendall_merge_tiles_plain(u, 0, **kw))
+    with pytest.raises(ValueError, match=f"l <= {MAX_KERNEL_L}"):
+        kendall_merge_tiles(u, 0, **{**kw, "l": MAX_KERNEL_L + 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("measure", ["kendall", "kendall_tau_b"])
+def test_kendall_corr_on_card_runs_the_merge_kernel(cuda, measure):
+    """corr at l >= 96 on the card: the merge kernel's launches, no
+    pcc_tiles launch, and the bits of the CPU run (the plain version),
+    tau-b too: its per-row scales come from the host's correctly rounded
+    float32 sqrt and division on either device (tau_b_scale)."""
+    from repro_torch.kernels.kendall_merge import kendall_merge_tiles
+    x = _kendall_rows(300, 200, "ties", 5)
+    y = _kendall_rows(70, 200, "float", 6)
+    for yy in (None, y):
+        kw = dict(measure=measure, t=64, l_blk=64, max_tiles_per_pass=4)
+        a0, p0 = kendall_merge_tiles.launches, pcc_tiles.launches
+        got = corr(x.to(cuda), None if yy is None else yy.to(cuda), **kw)
+        torch.cuda.synchronize()
+        assert kendall_merge_tiles.launches > a0
+        assert pcc_tiles.launches == p0
+        want = corr(x, yy, device="cpu", **kw)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_kendall_tau_b_scale_same_bits_on_card_and_cpu(cuda):
+    """The tau-b scales of every tie count up to n0 at l = 5,072: the same
+    bits from card and CPU ties, each the correctly rounded float32
+    1/sqrt(n0 - ties) (torch.sqrt on the CPU is not; the card's is)."""
+    from repro_torch.kernels.kendall_merge import tau_b_scale
+    l = 5072
+    n0 = l * (l - 1) // 2
+    ties = torch.arange(0, n0 + 1, dtype=torch.int32)
+    host = tau_b_scale(ties, l)
+    card = tau_b_scale(ties.to(cuda), l)
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), host)
+    nz = (n0 - ties[:-1]).double()
+    torch_card = 1.0 / torch.sqrt(nz.to(cuda).float())
+    assert torch.equal(torch_card.cpu(), host[:-1])
+    assert host[-1] == 0.0

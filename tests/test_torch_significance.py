@@ -461,8 +461,12 @@ def test_spec_dict_and_convert_match_reference_with_replicas():
     kr = RefPlan.create(10, 100, measure="kendall", replicas=3)
     assert kp.spec_dict() == kr.spec_dict()
     assert kp.measure is measures.KENDALL
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ExecutionPlan.create(10, 100, measure="kendall")
+    # without replicas the same call takes the merge-sort kernel, as in
+    # the reference
+    mp = ExecutionPlan.create(10, 100, measure="kendall")
+    assert mp.measure is measures.KENDALL_MERGE
+    assert mp.spec_dict() == RefPlan.create(10, 100,
+                                            measure="kendall").spec_dict()
     with pytest.raises(ValueError, match="replicas"):
         ExecutionPlan.create(N, L, replicas=-1)
     with pytest.raises(ValueError, match="replica_chunk"):
