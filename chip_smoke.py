@@ -176,7 +176,10 @@ where it looked), the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import ctypes
+import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -925,8 +928,12 @@ def kendall_runs(x_dev, x_tf, reset, tag):
     from repro_torch.core.plan import ExecutionPlan, pad_operands
     from repro_torch.core.sinks import TopKSink
     from repro_torch.data.expression import ExpressionSpec, artificial
+    from repro_torch.kernels import _build
     from repro_torch.kernels import kendall_merge as kmm
-    from repro_torch.kernels.kendall_merge import (kendall_merge_tiles,
+    from repro_torch.kernels.kendall_merge import (KERNEL_GEOMETRY,
+                                                   MAX_KERNEL_L,
+                                                   SHORT_RUN_MAX,
+                                                   kendall_merge_tiles,
                                                    rank_structure)
     from repro_torch.kernels.pcc_tile import (EpilogueSpec, pcc_tiles,
                                               pcc_topk_tiles)
@@ -934,6 +941,8 @@ def kendall_runs(x_dev, x_tf, reset, tag):
     dev = x_dev.device
     l = x_dev.shape[1]
     n0 = l * (l - 1) // 2
+    kernel_names = [f"<{p_}, {e}, {g}>" for p_, es, g in KERNEL_GEOMETRY
+                    for e in es]
     plain = kmm.kendall_merge_tiles_plain
     plain_calls = [0]
 
@@ -960,43 +969,94 @@ def kendall_runs(x_dev, x_tf, reset, tag):
         return pad_operands(measures.kendall_rank_transform(x), t, l_blk)
 
     def rows_of(n, lk, kind, seed):
-        """Normal or floor(8 u) rows on the card; row 1 constant, row 4 one
-        value in all but its last sample."""
+        """Normal ("float", "narrow") or floor(8 u) ("ties") rows on the
+        card: row 1 constant, row 0 one tied pair (its only tie); above l =
+        33 row 5 a run of exactly SHORT_RUN_MAX; "float" and "ties" also row
+        4 one value in all but its last sample and row 6 a run of
+        SHORT_RUN_MAX + 1 (the kernel's uint32 keys and two sorts),
+        "narrow" neither (uint16 keys, one sort a pair)."""
         r = np.random.default_rng(seed)
-        x = (r.standard_normal((n, lk)) if kind == "float"
+        x = (r.standard_normal((n, lk)) if kind != "ties"
              else np.floor(8 * r.random((n, lk)))).astype(np.float32)
         x[1] = 2.5
-        x[4, :-1] = -1.0
+        if kind != "ties":
+            x[0, 1] = x[0, 0]
+        if kind != "narrow":
+            x[4, :-1] = -1.0
+        if lk > SHORT_RUN_MAX + 1:
+            x[5] = r.standard_normal(lk)
+            x[5, :SHORT_RUN_MAX] = 7.0
+            if kind != "narrow":
+                x[6] = r.standard_normal(lk)
+                x[6, :SHORT_RUN_MAX + 1] = 7.0
         return torch.from_numpy(x).to(dev)
+
+    def bitwise(n, t, l_blk, j0, tiles, lk, seed, kinds, combos):
+        """Kernel against plain at one shape, every kind, each (grid,
+        tau_b) of `combos`; returns the launches checked."""
+        done = 0
+        for kind in kinds:
+            u = operand(rows_of(n, lk, kind, seed), t, l_blk)
+            v = operand(rows_of(n // 2 + 7, lk, kind, 50 + seed), t, l_blk)
+            if kind == "narrow" and rank_structure(u[:, :lk].float()).wide:
+                raise AssertionError(f"l={lk}: narrow rows took uint32 keys")
+            for grid, tau_b in combos:
+                spec = EpilogueSpec(div=None if tau_b else
+                                    float(lk * (lk - 1) // 2),
+                                    clip=(-1.0, 1.0))
+                kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
+                          epilogue=spec, v_pad=v if grid else None,
+                          grid_cols=v.shape[0] // t if grid else None,
+                          l=lk, tau_b=tau_b)
+                same(kendall_merge_tiles(u, j0, **kw), plain(u, j0, **kw),
+                     f"n={n} l={lk} t={t} j0={j0} tiles={tiles} {kind} "
+                     f"grid={grid} tau_b={tau_b}")
+                done += 1
+        return done
 
     # -- 23.1 kernel against plain, bitwise ---------------------------------
     small = [  # phase 2's (n, t, l_blk, j_start, pass_tiles)
         (37, 8, 8, 0, 15), (37, 8, 8, 12, 3), (37, 8, 8, 13, 6),
         (300, 96, 64, 1, 5), (130, 16, 64, 0, 45), (600, 256, 512, 0, 6),
         (600, 256, 512, 4, 5)]
+    kinds = ("float", "ties", "narrow")
+    every = [(g, b) for g in (False, True) for b in (False, True)]
     checked = 0
     for i, (n, t, l_blk, j0, tiles) in enumerate(small):
-        lk = (96, 97, 130, 257)[i % 4]
-        for kind in ("float", "ties"):
-            u = operand(rows_of(n, lk, kind, i), t, l_blk)
-            v = operand(rows_of(n // 2 + 7, lk, kind, 50 + i), t, l_blk)
-            for grid in (False, True):
-                for tau_b in (False, True):
-                    spec = EpilogueSpec(div=None if tau_b else
-                                        float(lk * (lk - 1) // 2),
-                                        clip=(-1.0, 1.0))
-                    kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
-                              epilogue=spec, v_pad=v if grid else None,
-                              grid_cols=v.shape[0] // t if grid else None,
-                              l=lk, tau_b=tau_b)
-                    same(kendall_merge_tiles(u, j0, **kw), plain(u, j0, **kw),
-                         f"n={n} l={lk} t={t} j0={j0} tiles={tiles} {kind} "
-                         f"grid={grid} tau_b={tau_b}")
-                    checked += 1
+        checked += bitwise(n, t, l_blk, j0, tiles, (96, 97, 130, 257)[i % 4],
+                           i, kinds, every)
     print(f"  kernel vs plain at phase 2's shapes, l in 96 / 97 / 130 / 257, "
-          f"float and floor(8 u) rows with a constant row, a run of l - 1 "
-          f"and padding rows, triangle and grid, tau-a and tau-b: "
+          f"float, floor(8 u) and narrow rows (a constant row, one tied "
+          f"pair, runs of {SHORT_RUN_MAX} and {SHORT_RUN_MAX + 1} and of "
+          f"l - 1, padding rows), triangle and grid, tau-a and tau-b: "
           f"{checked} launches bitwise")
+    # every instantiation's E at the top of its range and one past it (the
+    # next E's first), the warp-a-pair limit, the smallest l and the largest
+    edges = {2, 31, 32, 33, MAX_KERNEL_L}
+    for p_, es, _ in KERNEL_GEOMETRY:
+        edges |= {p_ * e for e in es} | {p_ * e + 1 for e in es}
+    edges = sorted(lk for lk in edges if lk <= MAX_KERNEL_L)
+    full_combos = {2, 33, 1_024, 1_025, MAX_KERNEL_L}
+    before = checked
+    for i, lk in enumerate(edges):
+        checked += bitwise(24, 8, 8, i % 3, 3, lk, 100 + i, kinds,
+                           every if lk in full_combos else [every[i % 4]])
+    # the triangle with a second operand of the same shape: its diagonal
+    # tiles count both halves (the rows' own triangle mirrors them)
+    for lk in (96, 1_100, 5_072):
+        u = operand(rows_of(37, lk, "float", 200 + lk), 8, 8)
+        v = operand(rows_of(37, lk, "float", 201 + lk), 8, 8)
+        for tau_b in (False, True):
+            kw = dict(t=8, l_blk=8, pass_tiles=15, v_pad=v, l=lk,
+                      tau_b=tau_b)
+            same(kendall_merge_tiles(u, 0, **kw), plain(u, 0, **kw),
+                 f"triangle with a second operand, l={lk} tau_b={tau_b}")
+            checked += 1
+    print(f"  kernel vs plain at l = {edges[0]} .. {edges[-1]} "
+          f"({len(edges)} edges of the {len(kernel_names)} instantiations "
+          f"<P, E, groups> {kernel_names[0]} .. {kernel_names[-1]}), three "
+          f"kinds of rows, and the triangle with a second operand at l = "
+          f"96 / 1,100 / 5,072: {checked - before} launches bitwise")
     n_tf = x_tf.shape[0]
     tplan = ExecutionPlan.create(n_tf, l, measure="kendall")
     if tplan.measure is not measures.KENDALL_MERGE:
@@ -1290,8 +1350,22 @@ def kendall_runs(x_dev, x_tf, reset, tag):
         print(f"  library yardstick: none (torch._int_mm: "
               f"{str(exc).splitlines()[0]})")
     torch.cuda.empty_cache()
+    lib = _build.load("kendall_merge")
+    occupancy = kendall_occupancy(lib, KERNEL_GEOMETRY, tplan.t)
+    main_occ = {}
+    for u, data in ((u_tf, "TF rows"), (u_ties, "floor(8 u) rows")):
+        wide = rank_structure(u[:, :l]).wide
+        o = main_occ[data] = kendall_launch_shape(lib, l, tplan.t, wide)
+        print(f"  at l={l} ({data}, {'uint32' if wide else 'uint16'} "
+              f"keys): P {o['p']}, E {o['e']}, {o['groups']} group(s) a "
+              f"CTA, {o['code_buffers']} code buffer(s), {o['smem']} bytes "
+              f"of dynamic shared memory, {o['regs']} registers, "
+              f"{o['ctas_per_sm']} CTAs an SM")
     out.update(pass_ms=pass_ms, tile_ms=tile_ms, plain_tile_ms=plain_ms,
-               prep_ms=prep_ms, bound_ms=bound[0], library_ms=lib_ms)
+               prep_ms=prep_ms, bound_ms=bound[0], library_ms=lib_ms,
+               occupancy={f"<{p_}, {e}> {'u32' if w else 'u16'}":
+                          [o["ctas_per_sm"], o["regs"], o["smem"]]
+                          for (p_, e, w), o in occupancy.items()})
     print(f"  kendall_merge_tiles at the TF triangle ({tplan.total_tiles} "
           f"tiles, one launch): {pass_ms:.3f} ms (runs "
           f"{[round(v, 3) for v in pass_all]}; the rank structures, made "
@@ -1310,20 +1384,150 @@ def kendall_runs(x_dev, x_tf, reset, tag):
               "ms": pass_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
               "bound_by": bound[1], "library_ms": lib_ms,
               "plain_ms_covers": "one of the launch's tiles",
-              "grid_launches": grid_launches}
+              "grid_launches": grid_launches,
+              "ctas_per_sm": main_occ["TF rows"]["ctas_per_sm"]}
     return record, out
+
+
+def kendall_launch_shape(lib, l, t, wide):
+    """The kendall_merge launch at l with tiles of t and uint16 or uint32
+    (wide) keys, as the kernel library reports it: its geometry, code
+    buffers, dynamic and static shared memory, registers and CTAs an SM by
+    the occupancy calculator."""
+    buf = (ctypes.c_int * 8)()
+    err = lib.kendall_merge_occupancy(l, t, int(wide), buf)
+    if err != 0:
+        raise AssertionError(f"kendall_merge_occupancy({l}, {t}, {wide}): "
+                             f"{lib.kendall_merge_error_string(err).decode()}")
+    o = dict(zip(("p", "e", "groups", "code_buffers", "smem", "ctas_per_sm",
+                  "regs", "static_smem"), list(buf)))
+    if o["ctas_per_sm"] < 1:
+        raise AssertionError(f"kendall_merge at l={l}: {o}")
+    return o
+
+
+def kendall_occupancy(lib, geometry, t):
+    """Each kendall_merge instantiation's launch at l = P E, tiles of t,
+    uint16 and uint32 keys (kendall_launch_shape): {(P, E, wide): dict}.
+    Prints one line per instantiation."""
+    out = {}
+    for p, es, _ in geometry:
+        for e in es:
+            line = []
+            for wide in (False, True):
+                o = kendall_launch_shape(lib, p * e, t, wide)
+                if (o["p"], o["e"]) != (p, e):
+                    raise AssertionError(f"kendall_merge <{p}, {e}>: {o}")
+                out[(p, e, wide)] = o
+                line.append(f"{'uint32' if wide else 'uint16'} keys "
+                            f"{o['smem']} + {o['static_smem']} bytes, "
+                            f"{o['code_buffers']} code buffer(s), "
+                            f"{o['ctas_per_sm']} CTAs an SM")
+            print(f"  kendall_merge_kernel<{p}, {e}, {o['groups']}> "
+                  f"(l <= {p * e}): {o['regs']} registers; "
+                  + "; ".join(line))
+    return out
+
+
+def kendall_ab_runs(parent_src, card):
+    """The merge-sort Kendall kernel of the tree under parent_src (its
+    kernels/kendall_merge.py, built by its own kernels/_build.py into its
+    own tree) and this tree's, in turns (parent, change, change, parent),
+    CUDA events, median of 3 each: the TF triangle at l = 5,072 in tau-a
+    and floor(8 u) rows in tau-b (one launch of 28 tiles each), and the TF
+    rows cut to l = 96, 256, 512 and 1,024 in tau-a.  The two agree bitwise.
+    Returns {case: {"parent": [ms, ms], "change": [ms, ms]}}."""
+    import torch
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.data.expression import ExpressionSpec, artificial
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kendall_merge import kendall_merge_tiles
+    from repro_torch.kernels.pcc_tile import EpilogueSpec
+
+    def by_path(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    kernels = parent_src / "repro_torch" / "kernels"
+    old_build = by_path("parent_build", kernels / "_build.py")
+    old_km = by_path("parent_kendall_merge", kernels / "kendall_merge.py")
+    t0 = time.perf_counter()
+    old_build.build_all(["kendall_merge"])
+    print(f"  parent kendall_merge built in {time.perf_counter() - t0:.1f} s")
+    this_load = _build.load
+
+    def parent(u, **kw):
+        # the parent's wrapper looks _build.load up at each call
+        _build.load = old_build.load
+        try:
+            return old_km.kendall_merge_tiles(u, 0, **kw)
+        finally:
+            _build.load = this_load
+
+    def change(u, **kw):
+        return kendall_merge_tiles(u, 0, **kw)
+
+    dev = torch.device("cuda")
+    x_tf = torch.from_numpy(artificial(ExpressionSpec(
+        n=N_TF, l=L_SEEK, seed=1))).to(dev)
+    x_ties = torch.floor(8 * torch.from_numpy(artificial(ExpressionSpec(
+        n=N_TF, l=L_SEEK, seed=4))).to(dev))
+    cases = []
+    for label, x, lk, tau_b in (
+            (f"TF tau-a, l={L_SEEK}", x_tf, L_SEEK, False),
+            (f"floor(8 u) tau-b, l={L_SEEK}", x_ties, L_SEEK, True),
+            ("TF tau-a, l=96", x_tf[:, :96].contiguous(), 96, False),
+            ("TF tau-a, l=256", x_tf[:, :256].contiguous(), 256, False),
+            ("TF tau-a, l=512", x_tf[:, :512].contiguous(), 512, False),
+            ("TF tau-a, l=1024", x_tf[:, :1024].contiguous(), 1024, False)):
+        plan = ExecutionPlan.create(N_TF, lk, measure="kendall")
+        u = plan.prepare(x)
+        kw = dict(t=plan.t, pass_tiles=plan.total_tiles, l=lk, tau_b=tau_b,
+                  epilogue=EpilogueSpec(clip=(-1.0, 1.0)) if tau_b
+                  else plan.epilogue_spec)
+        cases.append((label, u, kw))
+    out = {}
+    for label, u, kw in cases:
+        want = parent(u, **kw)
+        got = change(u, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: this tree's kernel differs from "
+                                 f"the parent's")
+        times = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            fn = parent if who == "parent" else change
+            ms, _ = event_ms(lambda: fn(u, **kw), 3)
+            times[who].append(ms)
+        out[label] = times
+        print(f"  {label} ({kw['pass_tiles']} tiles, one launch): parent "
+              f"{times['parent'][0]:.3f} / {times['parent'][1]:.3f} ms, "
+              f"change {times['change'][0]:.3f} / {times['change'][1]:.3f} "
+              f"ms (parent, change, change, parent; bitwise equal) [{card}]")
+    return out
 
 
 def main(argv) -> int:
     t_script = time.perf_counter()
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
     # earlier tree of this repository, for a before / after comparison)
+    # --kendall-ab SRC: the build and the merge-sort Kendall kernel of an
+    # earlier tree under SRC against this tree's, in turns
     overlap_only = argv[:1] == ["--overlap-only"]
-    if overlap_only and len(argv) != 2:
-        print("usage: chip_smoke.py [--overlap-only SRC]", file=sys.stderr)
+    kendall_ab = argv[:1] == ["--kendall-ab"]
+    if (overlap_only or kendall_ab) and len(argv) != 2:
+        print("usage: chip_smoke.py [--overlap-only SRC | --kendall-ab SRC]",
+              file=sys.stderr)
         return 2
     src = (Path(argv[1]) if overlap_only
            else Path(__file__).resolve().parent / "src")
+    src_ab = Path(argv[1]).resolve() if kendall_ab else None
+    if kendall_ab and not (src_ab / "repro_torch").is_dir():
+        print(f"chip_smoke: no package at {src_ab / 'repro_torch'}",
+              file=sys.stderr)
+        return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: no package at {(src / 'repro_torch').resolve()}"
               f": run the script from a checkout of the repository",
@@ -1344,6 +1548,7 @@ def main(argv) -> int:
     from repro_torch.core.sinks import DeviceTopKSink, TopKSink
     from repro_torch.kernels import _build
     from repro_torch.kernels import pcc_tile as kmod
+    from repro_torch.kernels.kendall_merge import KERNEL_GEOMETRY
     from repro_torch.kernels.narrow_gate import gate_share, narrow_gate
     from repro_torch.kernels.pcc_tile import (
         EpilogueSpec, pcc_tiles, pcc_tiles_plain, pcc_topk_tiles,
@@ -1368,7 +1573,8 @@ def main(argv) -> int:
         float32 tile kernel's four instantiations, the three selects, the
         merge kernel's two, the float32 flash kernel's five head tiles,
         the int8 tensor-core tile kernel's two) and the merge-sort Kendall
-        kernel's two, None for the others;
+        kernel's (one per group size and keys a thread, KERNEL_GEOMETRY),
+        None for the others;
         `entry` is ptxas' "Compiling entry function" line."""
         if entry is None:
             return None
@@ -1390,9 +1596,10 @@ def main(argv) -> int:
         if "pcc_topk_merge_kernelILi" in entry:
             kw = entry.split("pcc_topk_merge_kernelILi", 1)[1].split("E")[0]
             return f"pcc_topk_merge_kernel<{kw}>"
-        if "kendall_merge_kernelILb" in entry:
-            flag = entry.split("kendall_merge_kernelILb", 1)[1][0]
-            return f"kendall_merge_kernel<tau_b={flag}>"
+        if "kendall_merge_kernelILi" in entry:
+            p, e, g = re.findall(r"Li(\d+)E", entry.split(
+                "kendall_merge_kernel", 1)[1])[:3]
+            return f"kendall_merge_kernel<{p}, {e}, {g}>"
         return None
 
     report = {}
@@ -1430,12 +1637,24 @@ def main(argv) -> int:
         print(json.dumps({"overlap": res, "src": str(src), "card": card}))
         return 0
     # (this tree's kernels: --overlap-only may build an earlier tree's)
-    if len(report) != 18:
+    kendall_kernels = {f"kendall_merge_kernel<{p}, {e}, {g}>"
+                       for p, es, g in KERNEL_GEOMETRY for e in es}
+    if len(report) != 16 + len(kendall_kernels) or \
+            not kendall_kernels <= set(report):
         raise AssertionError(
             f"ptxas reported {sorted(report)}: expected the 4 float32 "
             f"tile, the 3 select (float32; int8 and bf16 on the tensor "
             f"cores), the 2 merge, the 5 float32 flash, the 2 int8 "
-            f"tensor-core tile and the 2 kendall_merge kernels")
+            f"tensor-core tile and the {len(kendall_kernels)} "
+            f"kendall_merge kernels")
+    if kendall_ab:
+        print(f"merge-sort Kendall, parent {src_ab} and this tree in turns "
+              f"[{card}]:")
+        print(json.dumps({"kendall_ab": kendall_ab_runs(src_ab, card)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     simt = _build.load("pcc_tile")
     gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
     if any(hasattr(simt, fn) for fn in gone):

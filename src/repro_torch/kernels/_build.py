@@ -76,11 +76,13 @@ SIGNATURES = {
         "flash_attention_sm90_error_string": (ctypes.c_char_p, [_I]),
     },
     "kendall_merge": {
-        # (order, runs, ties_r, scale_r, codes, ties_c, scale_c, out,
-        #  j_start, pass_tiles, m, grid_cols, t, l, tau_b, *epilogue,
-        #  stream) -> cudaError_t
-        "kendall_merge_tiles_launch": (_I, [_P] * 8 + [_LL] + [_I] * 6
+        # (order, runs, longest, ties_r, scale_r, codes, ties_c, scale_c,
+        #  out, j_start, pass_tiles, m, grid_cols, t, l, ld, tau_b, wide,
+        #  symmetric, *epilogue, stream) -> cudaError_t
+        "kendall_merge_tiles_launch": (_I, [_P] * 9 + [_LL] + [_I] * 9
                                        + [*_EPI, _P]),
+        # (l, t, wide, int out[8]) -> cudaError_t
+        "kendall_merge_occupancy": (_I, [_I, _I, _I, _P]),
         "kendall_merge_error_string": (ctypes.c_char_p, [_I]),
     },
 }

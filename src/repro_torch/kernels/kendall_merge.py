@@ -21,21 +21,29 @@ for a constant row; then the fused :class:`EpilogueSpec` runs.
 The per-row work, O(n l log l) once per operand, is torch code shared by
 the kernel and the plain version (:func:`rank_structure`): each row's
 stable order by value, the run index of each sorted position, each value's
-dense rank (its code), the row's tie pairs, and for tau-b its scale
-(:func:`tau_b_scale`).  It is made once per operand and kept beside it
-while the operand lives unchanged, so the passes of a run share it.  The
-kernel and the plain version start from the same integers and scales, and
-tau-b agrees bitwise by construction, on the card and on the CPU alike.  The per-pair O(l log l) count is the kernel's
-(kernels/csrc/kendall_merge.cu): for pair (i, j) it gathers the column's
-codes in row i's order, sorts them within each tie run of row i (the
-lexsort), counts n3 from the runs of equal (x, y) and S by a bottom-up
-merge sort over the next power of two, tail padded with sentinels.
+dense rank (its code), the row's tie pairs and longest tie run, the same
+rows as int16 for the kernel, and for tau-b its scale (:func:`tau_b_scale`).
+It is made once per operand and kept beside it while the operand lives
+unchanged, so the passes of a run share it.  The kernel and the plain
+version start from the same integers and scales, and tau-b agrees bitwise
+by construction, on the card and on the CPU alike.  The per-pair
+O(l log l) count is the kernel's (kernels/csrc/kendall_merge.cu): for
+pair (i, j) it lays the column's codes q out in row i's order; the lexsort
+only reorders q inside row i's tie runs, so S = inv(q) - I_w with I_w the
+inversions of q inside those runs, and n3 the equal q inside them.  A row
+whose longest run is at most :data:`SHORT_RUN_MAX` takes I_w and n3 by
+direct compares and sorts q once; a row with a longer run sorts the
+lexsort's keys first, then q.  Each sort: a group of P threads, E keys a
+thread (:func:`kernel_geometry`), sorted in registers, then merge-path
+levels in shared memory; a warp a pair at l <= 1,024.  The plain version
+keeps the reference's arithmetic: the lexsort and merge levels over the
+next power of two, tail padded with sentinels.
 
 Dispatch is by the operand's device: a CUDA tensor launches the kernel or
 raises; a CPU tensor runs :func:`kendall_merge_tiles_plain`.  The kernel
-keeps a row's order and two key buffers of the next power of two of l in
-shared memory, so it takes l <= :data:`MAX_KERNEL_L`; above that it raises
-ValueError (the plain version has no such limit).
+keeps codes, order and runs as uint16, so it takes l <=
+:data:`MAX_KERNEL_L`; above that it raises ValueError (the plain version
+has no such limit).
 """
 
 from __future__ import annotations
@@ -57,24 +65,39 @@ from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
 # kendall / kendall_tau_b for the merge-sort variants
 # (core/measures.resolve_tile_kernel).
 KENDALL_MERGE_CROSSOVER_L = 96
-# The kernel's shared memory holds two uint32 key buffers of the next power
-# of two of l (one pad word every 32) and the row's order and run index as
-# uint16: 200,716 bytes at 16,384, under the 232,448 a block may take.
+# The kernel keeps codes, order and run indices as uint16 (values < l) and,
+# at l = 16,384 with uint32 keys, 202,784 bytes of shared memory, under the
+# 232,448 a block may take.
 MAX_KERNEL_L = 16_384
+# The longest tie run of a row whose I_w and n3 the kernel takes by direct
+# compares (one sort a pair); a row with a longer run sorts twice
+# (csrc/kendall_merge.cu SHORT_RUN_MAX).
+SHORT_RUN_MAX = 32
+# The kernel's instantiations: (group threads P, the E a thread may hold,
+# groups a CTA).  A launch takes the first P and the smallest E with
+# P * E >= l (csrc/kendall_merge.cu WARP_E / CTA256_E / CTA512_E).
+KERNEL_GEOMETRY = ((32, (2, 3, 4, 6, 8, 12, 16, 24, 32), 8),
+                   (256, (6, 8, 10, 12, 16, 20, 24), 1),
+                   (512, (16, 20, 24, 28, 32), 1))
 # Bytes one chunk of the plain version's (rows, cols, l_p2) int64 keys may
 # take.
 PLAIN_CHUNK_BYTES = 1 << 28
 
 
-def _run_pair_count(new_run: torch.Tensor) -> torch.Tensor:
-    """Sum of C(c, 2) over the maximal runs of each sorted sequence, given
-    its new-run mask (..., l): each element's offset into its run (idx -
-    run_start, by a cummax of run-start indices) telescopes to the per-run
-    pair counts.  int32."""
+def _run_offsets(new_run: torch.Tensor) -> torch.Tensor:
+    """Each element's offset into its maximal run (idx - run_start, by a
+    cummax of run-start indices), given the new-run mask (..., l) of sorted
+    sequences."""
     l = new_run.shape[-1]
     idx = torch.arange(l, device=new_run.device)
-    start = torch.cummax(torch.where(new_run, idx, 0), dim=-1).values
-    return (idx - start).sum(-1).to(torch.int32)
+    return idx - torch.cummax(torch.where(new_run, idx, 0), dim=-1).values
+
+
+def _run_pair_count(new_run: torch.Tensor) -> torch.Tensor:
+    """Sum of C(c, 2) over the maximal runs of each sorted sequence, given
+    its new-run mask (..., l): the offsets into the runs telescope to the
+    per-run pair counts.  int32."""
+    return _run_offsets(new_run).sum(-1).to(torch.int32)
 
 
 def _new_runs(s: torch.Tensor) -> torch.Tensor:
@@ -85,6 +108,23 @@ def _new_runs(s: torch.Tensor) -> torch.Tensor:
     return new
 
 
+def narrow_stride(l: int) -> int:
+    """Row stride of the kernel's int16 structures: l rounded up to 8, so
+    every row starts 16-byte aligned for cp.async."""
+    return -(-l // 8) * 8
+
+
+def kernel_geometry(l: int) -> Tuple[int, int, int]:
+    """(P, E, groups) of the kernel launch at l: the first group size P and
+    the smallest instantiated E with P * E >= l (csrc/kendall_merge.cu
+    geometry).  ValueError above MAX_KERNEL_L."""
+    for p, es, groups in KERNEL_GEOMETRY:
+        for e in es:
+            if p * e >= l:
+                return p, e, groups
+    raise ValueError(f"no kendall_merge instantiation covers l={l}")
+
+
 def row_tie_pairs(u: torch.Tensor) -> torch.Tensor:
     """Per-row tie-pair counts of an (n, l) rank operand: sum of C(c, 2)
     over each row's runs of equal values (Knight's n1 / n2).  int32 (n,)."""
@@ -93,16 +133,31 @@ def row_tie_pairs(u: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class RankStructure:
-    """What the per-pair count needs of each row of an (n, l) operand, all
-    int32: ``order`` its stable argsort, ``runs`` the run index of each
-    sorted position (0, 1, ... : equal values share one), ``codes`` each
-    value's dense rank (order and ties kept, in [0, l)), ``ties`` its tie
-    pairs (n,)."""
+    """What the per-pair count needs of each row of an (n, l) operand:
+    ``order`` its stable argsort, ``runs`` the run index of each sorted
+    position (0, 1, ... : equal values share one), ``codes`` each value's
+    dense rank (order and ties kept, in [0, l)), all int32 (n, l);
+    ``ties`` its tie pairs and ``longest`` its longest tie run (n,) int32;
+    ``wide``: some non-constant row's longest run exceeds SHORT_RUN_MAX (the
+    kernel's uint32 keys).  For the kernel, at l <= MAX_KERNEL_L,
+    ``order16`` / ``runs16`` / ``codes16``: the same as int16 rows of
+    stride :func:`narrow_stride` (zero tail); else None."""
 
     order: torch.Tensor
     runs: torch.Tensor
     codes: torch.Tensor
     ties: torch.Tensor
+    longest: torch.Tensor
+    wide: bool
+    order16: Optional[torch.Tensor]
+    runs16: Optional[torch.Tensor]
+    codes16: Optional[torch.Tensor]
+
+
+def _narrow_rows(x: torch.Tensor) -> torch.Tensor:
+    """int16 copy of the (n, l) rows x, padded with zeros to the stride."""
+    l = x.shape[1]
+    return F.pad(x.to(torch.int16), (0, narrow_stride(l) - l)).contiguous()
 
 
 def rank_structure(u_l: torch.Tensor) -> RankStructure:
@@ -111,10 +166,19 @@ def rank_structure(u_l: torch.Tensor) -> RankStructure:
     new = _new_runs(s)
     runs = torch.cumsum(new, dim=1) - 1
     codes = torch.empty_like(runs).scatter_(1, order, runs)
+    l = u_l.shape[1]
+    offsets = _run_offsets(new)
+    ties = offsets.sum(-1).to(torch.int32)
+    longest = (offsets.amax(-1) + 1).to(torch.int32)
+    # a constant row skips the count, whatever its run
+    wide = bool(((longest > SHORT_RUN_MAX)
+                 & (ties < l * (l - 1) // 2)).any())
+    narrow = ((_narrow_rows(order), _narrow_rows(runs), _narrow_rows(codes))
+              if l <= MAX_KERNEL_L else (None, None, None))
     return RankStructure(order.to(torch.int32).contiguous(),
                          runs.to(torch.int32).contiguous(),
-                         codes.to(torch.int32).contiguous(),
-                         _run_pair_count(new))
+                         codes.to(torch.int32).contiguous(), ties, longest,
+                         wide, *narrow)
 
 
 def tau_b_scale(ties: torch.Tensor, l: int) -> torch.Tensor:
@@ -238,8 +302,7 @@ def kendall_merge_tiles(u_pad: torch.Tensor, j_start: int, *,
     if l > MAX_KERNEL_L:
         raise ValueError(
             f"the kendall_merge kernel takes l <= {MAX_KERNEL_L} samples "
-            f"(its shared memory holds two key buffers of the next power of "
-            f"two of l), got l={l}")
+            f"(uint16 codes and its shared memory), got l={l}")
     from repro_torch.kernels import _build
 
     rows, cols, s_r, s_c = _structures(u_pad, v, l, tau_b)
@@ -254,9 +317,10 @@ def kendall_merge_tiles(u_pad: torch.Tensor, j_start: int, *,
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
         err = lib.kendall_merge_tiles_launch(
-            ptr(rows.order), ptr(rows.runs), ptr(rows.ties), ptr(s_r),
-            ptr(cols.codes), ptr(cols.ties), ptr(s_c), ptr(out),
-            j_start, pass_tiles, m, grid_cols or 0, t, l, int(tau_b),
+            ptr(rows.order16), ptr(rows.runs16), ptr(rows.longest),
+            ptr(rows.ties), ptr(s_r), ptr(cols.codes16), ptr(cols.ties),
+            ptr(s_c), ptr(out), j_start, pass_tiles, m, grid_cols or 0, t, l,
+            narrow_stride(l), int(tau_b), int(rows.wide), int(cols is rows),
             *spec.kernel_args(), ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.kendall_merge_error_string(err).decode()
@@ -362,7 +426,9 @@ def kendall_tau_b_merge_tile_kernel(u_pad, j_start, **kw):
     return kendall_merge_tiles(u_pad, j_start, tau_b=True, **kw)
 
 
-__all__ = ["KENDALL_MERGE_CROSSOVER_L", "MAX_KERNEL_L", "RankStructure",
-           "kendall_merge_tile_kernel", "kendall_merge_tiles",
-           "kendall_merge_tiles_plain", "kendall_tau_b_merge_tile_kernel",
-           "rank_structure", "row_tie_pairs", "tau_b_scale"]
+__all__ = ["KENDALL_MERGE_CROSSOVER_L", "KERNEL_GEOMETRY", "MAX_KERNEL_L",
+           "RankStructure", "SHORT_RUN_MAX", "kendall_merge_tile_kernel",
+           "kendall_merge_tiles", "kendall_merge_tiles_plain",
+           "kendall_tau_b_merge_tile_kernel", "kernel_geometry",
+           "narrow_stride", "rank_structure", "row_tie_pairs",
+           "tau_b_scale"]

@@ -15,6 +15,8 @@ absolute.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -565,3 +567,204 @@ def test_rank_structure_made_once_per_operand(monkeypatch):
             torch.from_numpy(_ties(20, l, seed=21))), T, LBLK), 0,
         v_pad=v, grid_cols=2, **kw))
     assert len(made) == 4
+
+
+# ---------------------------------------------------------------------------
+# What the redesigned kernel computes (csrc/kendall_merge.cu), in plain
+# torch on the CPU: one sort a pair, the launch geometry, the rank
+# structure's new fields and the sort's count itself
+# ---------------------------------------------------------------------------
+
+
+def _tied_rows(kind, n, l, seed):
+    """Seeded rows with ties: integer levels (few long runs), a few tied
+    pairs among normals (runs of 2), or a mix of one long run and
+    singletons."""
+    rng = np.random.default_rng(seed)
+    if kind == "levels":
+        return rng.integers(0, rng.integers(2, 9), (n, l)).astype(np.float32)
+    x = rng.standard_normal((n, l)).astype(np.float32)
+    if kind == "pairs":
+        for row in x:
+            a = rng.choice(l, 2 * max(1, l // 20), replace=False)
+            row[a[1::2]] = row[a[::2]]
+    else:  # "long": one run of a random length, the rest distinct
+        for row in x:
+            row[rng.choice(l, rng.integers(2, l + 1), replace=False)] = 3.5
+    return x
+
+
+def _one_sort_terms(x, y):
+    """Knight's (n3, S) of rows x and y written out as the kernel's one-sort
+    path counts them: q = y's dense codes in x's stable order, S = inv(q) -
+    I_w with I_w the strict inversions of q inside x's tie runs, n3 the
+    pairs of equal q inside them; every count by direct compares."""
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    order = torch.sort(xt, stable=True).indices
+    runs = torch.unique_consecutive(xt[order], return_inverse=True)[1]
+    q = torch.unique(yt, return_inverse=True)[1][order]
+    later = torch.triu(torch.ones(len(q), len(q), dtype=torch.bool), 1)
+    greater = later & (q[:, None] > q[None, :])
+    same_run = runs[:, None] == runs[None, :]
+    inv = int(greater.sum())
+    i_w = int((greater & same_run).sum())
+    n3 = int((later & same_run & (q[:, None] == q[None, :])).sum())
+    return n3, inv - i_w
+
+
+def _two_sort_terms(x, y):
+    """The same as the kernel's long-run path counts them: sort the keys
+    (run, q) (the lexsort; n3 from runs of equal keys), then S = the strict
+    inversions of q in that order."""
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    order = torch.sort(xt, stable=True).indices
+    runs = torch.unique_consecutive(xt[order], return_inverse=True)[1]
+    q = torch.unique(yt, return_inverse=True)[1][order]
+    key = torch.sort(runs * len(q) + q).values
+    n3 = int(kendall_merge._run_pair_count(kendall_merge._new_runs(key)))
+    qs = key % len(q)
+    later = torch.triu(torch.ones(len(q), len(q), dtype=torch.bool), 1)
+    return n3, int((later & (qs[:, None] > qs[None, :])).sum())
+
+
+@pytest.mark.parametrize("path", ["one_sort", "two_sorts"])
+@pytest.mark.parametrize("kind", ["levels", "pairs", "long"])
+def test_kernel_pair_terms_match_reference(path, kind):
+    """S = inv(q) - I_w and n3 by runs (one sort), and the lexsort's two
+    sorts, both equal the reference's _pair_terms on every pair of seeded
+    tied rows (tied columns too)."""
+    terms = _one_sort_terms if path == "one_sort" else _two_sort_terms
+    for l in (2, 7, 40, 97):
+        x = _tied_rows(kind, 5, l, seed=l)
+        y = _tied_rows("levels" if kind == "long" else kind, 5, l,
+                       seed=l + 1)
+        for i in range(5):
+            for j in range(5):
+                n3, s = ref_km._pair_terms(jnp.asarray(x[i]),
+                                           jnp.asarray(y[j]), l)
+                assert terms(x[i], y[j]) == (int(n3), int(s))
+
+
+def test_kernel_geometry_covers_every_l():
+    """For every l the kernel takes, the chosen (P, E) covers l with the
+    smallest E of the first group size that can; the tables match the CUDA
+    source's, and l past MAX_KERNEL_L has no instantiation."""
+    geometry = kendall_merge.KERNEL_GEOMETRY
+    for l in range(2, kendall_merge.MAX_KERNEL_L + 1):
+        p, e, groups = kendall_merge.kernel_geometry(l)
+        k = [row[0] for row in geometry].index(p)
+        es = geometry[k][1]
+        assert p * e >= l and groups == geometry[k][2]
+        assert e == es[0] or p * es[es.index(e) - 1] < l
+        assert k == 0 or geometry[k - 1][0] * geometry[k - 1][1][-1] < l
+    assert geometry[-1][0] * geometry[-1][1][-1] == kendall_merge.MAX_KERNEL_L
+    with pytest.raises(ValueError):
+        kendall_merge.kernel_geometry(kendall_merge.MAX_KERNEL_L + 1)
+    src = (Path(kendall_merge.__file__).parent / "csrc" /
+           "kendall_merge.cu").read_text()
+    for (p, es, groups), name in zip(geometry, ("WARP_E", "CTA256_E",
+                                                "CTA512_E")):
+        table = re.search(rf"constexpr int {name}\[\] = \{{([^}}]*)\}}", src)
+        assert tuple(int(v) for v in table.group(1).split(",")) == es
+        assert f"return {{{p}, e, {groups}}}" in src
+        for e in es:
+            assert f"KM_CASE({p}, {e}, {groups})" in src
+    assert (f"constexpr int SHORT_RUN_MAX = {kendall_merge.SHORT_RUN_MAX};"
+            in src)
+    assert f"constexpr int MAX_L = {kendall_merge.MAX_KERNEL_L};" in src
+
+
+@pytest.mark.parametrize("l", [2, 45, 100, 130])
+def test_rank_structure_longest_runs_and_int16_rows(l):
+    """``longest`` is each row's longest run of equal values by a direct
+    count, ``wide`` whether a non-constant row's exceeds SHORT_RUN_MAX, and
+    the int16 rows are order / runs / codes padded with zeros to a stride
+    that is a multiple of 8."""
+    r = kendall_merge.SHORT_RUN_MAX
+    x = _tied_rows("pairs", 6, l, seed=l)
+    x[0] = 1.0                                   # constant: never wide
+    if l > r + 1:
+        x[1, :r] = 9.0                           # exactly SHORT_RUN_MAX
+    st = kendall_merge.rank_structure(torch.from_numpy(x))
+    want = []
+    for row in np.sort(x, axis=1):
+        bounds = np.flatnonzero(np.diff(row) != 0)
+        want.append(int(np.diff(np.r_[-1, bounds, l - 1]).max()))
+    assert st.longest.tolist() == want and st.longest.dtype == torch.int32
+    assert not st.wide
+    if l > r + 1:
+        x[2, :r + 1] = 9.0                       # one longer: two sorts
+        assert kendall_merge.rank_structure(torch.from_numpy(x)).wide
+    ld = kendall_merge.narrow_stride(l)
+    assert ld % 8 == 0 and l <= ld < l + 8
+    for wide, narrow in ((st.order, st.order16), (st.runs, st.runs16),
+                         (st.codes, st.codes16)):
+        assert narrow.dtype == torch.int16 and narrow.shape == (6, ld)
+        assert torch.equal(narrow[:, :l].int(), wide)
+        assert not narrow[:, l:].any()
+
+
+def test_rank_structure_has_no_int16_rows_past_the_kernel():
+    l = kendall_merge.MAX_KERNEL_L + 1
+    x = np.stack([np.random.default_rng(5).permutation(l),
+                  np.arange(l) // 3]).astype(np.float32)
+    st = kendall_merge.rank_structure(torch.from_numpy(x))
+    assert st.order16 is None and st.runs16 is None and st.codes16 is None
+    assert st.longest.tolist() == [1, 3]
+
+
+def _kernel_sort_count(keys, p, e, sentinel):
+    """The kernel's count of one group, thread by thread: P threads of E
+    keys (the P E - l tail sentinels); each sorts its E keys by odd-even
+    transposition counting swaps, then log2(P) merge-path levels, each
+    thread's co-rank by binary search and E outputs merged ties-left,
+    adding the left keys still waiting for each right key taken."""
+    a = list(keys) + [sentinel] * (p * e - len(keys))
+    inv = 0
+    for g in range(p):
+        v = a[g * e:(g + 1) * e]
+        for r in range(e):
+            for x in range(r & 1, e - 1, 2):
+                if v[x] > v[x + 1]:
+                    v[x], v[x + 1] = v[x + 1], v[x]
+                    inv += 1
+        a[g * e:(g + 1) * e] = v
+    for k in range(p.bit_length() - 1):
+        blk, out = e << k, [None] * (p * e)
+        for g in range(p):
+            base = (g >> (k + 1) << (k + 1)) * e
+            d = (g & ((2 << k) - 1)) * e
+            left, right = a[base:base + blk], a[base + blk:base + 2 * blk]
+            lo, hi = max(0, d - blk), min(d, blk)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if left[mid] <= right[d - mid - 1]:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i, j = lo, d - lo
+            for s in range(e):
+                if j >= blk or (i < blk and left[i] <= right[j]):
+                    out[base + d + s] = left[i]
+                    i += 1
+                else:
+                    out[base + d + s] = right[j]
+                    inv += blk - i
+                    j += 1
+        a = out
+    assert a[:len(keys)] == sorted(keys)
+    return inv
+
+
+@pytest.mark.parametrize("p,e", [(32, 2), (32, 3), (32, 12), (256, 6)])
+def test_kernel_sort_count_is_the_strict_inversion_count(p, e):
+    """Leaf swaps plus merge levels count exactly the strict inversions of
+    keys with ties, at every length up to P E and at its edges: the
+    sentinel tail never counts."""
+    rng = np.random.default_rng(p * e)
+    lengths = {1, 2, e, e + 1, p * e // 2 + 1, p * e - 1, p * e}
+    for l in sorted(lengths):
+        for levels in (3, l + 1):
+            keys = rng.integers(0, levels, l)
+            want = int(np.triu(keys[:, None] > keys[None, :], 1).sum())
+            assert _kernel_sort_count(keys.tolist(), p, e, 0xFFFF) == want

@@ -1360,15 +1360,29 @@ def test_flash_on_card_never_runs_plain(cuda, monkeypatch):
 # -- merge-sort Kendall (kernels/kendall_merge.py, csrc/kendall_merge.cu) ---
 
 def _kendall_rows(n, l, kind, seed):
-    """(n, l) float32 rows: normal ("float") or integer levels floor(8 u)
-    ("ties", ~12 % of a row a value); row 1 constant (one run as long as
-    the row), row 4 one value but in its last sample."""
+    """(n, l) float32 rows: normal ("float", "narrow") or integer levels
+    floor(8 u) ("ties", ~12 % of a row a value); row 1 constant (one run as
+    long as the row); row 0 one tied pair, its only tie; above l = 33, row 5
+    a run of exactly SHORT_RUN_MAX samples; "float" and "ties" also row 4
+    one value but in its last sample (a run of l - 1) and, above 33, row 6
+    a run of SHORT_RUN_MAX + 1, so a launch takes the kernel's uint32 keys
+    and its two-sort path; "narrow" has neither, so its launches keep
+    uint16 keys and one sort a pair."""
+    from repro_torch.kernels.kendall_merge import SHORT_RUN_MAX as r
     rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((n, l)) if kind == "float"
+    x = (rng.standard_normal((n, l)) if kind != "ties"
          else np.floor(8 * rng.random((n, l)))).astype(np.float32)
     x[1] = 2.5
-    if n > 4:
+    if kind != "ties":
+        x[0, 1] = x[0, 0]
+    if n > 4 and kind != "narrow":
         x[4, :-1] = -1.0
+    if n > 6 and l > r + 1:
+        x[5] = rng.standard_normal(l)
+        x[5, :r] = 7.0
+        if kind != "narrow":
+            x[6] = rng.standard_normal(l)
+            x[6, :r + 1] = 7.0
     return torch.from_numpy(x)
 
 
@@ -1377,27 +1391,56 @@ def _kendall_operand(x, t, device):
     return pad_operands(kendall_rank_transform(x.to(device)), t, 8)
 
 
+def _kendall_shapes():
+    """(n, n_cols, l, t, j_start, pass_tiles): l at the top of every E
+    instantiation of the kernel and one past it (the next E's first), l =
+    2, 31, 32, 33, the paper's 5,072 and 16,384 (MAX_KERNEL_L); the triangle
+    and the grid in turn, ids past the end at some."""
+    from repro_torch.kernels.kendall_merge import KERNEL_GEOMETRY
+    ls = {2, 31, 32, 33, 5072}
+    for p, es, _ in KERNEL_GEOMETRY:
+        for e in es:
+            ls |= {p * e, min(p * e + 1, 16_384)}
+    shapes = []
+    for i, l in enumerate(sorted(ls)):
+        t = 4 if l > 6_144 else 8
+        shapes.append((9 + i % 5, (7 + i % 3) if i % 2 else None, l, t,
+                       i % 4, 3))
+    return shapes
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["float", "ties"])
+@pytest.mark.parametrize("kind", ["float", "ties", "narrow"])
 @pytest.mark.parametrize("tau_b", [False, True])
 @pytest.mark.parametrize("n,n_cols,l,t,j_start,pass_tiles", [
-    (13, None, 2, 4, 0, 10),       # l = 2: one merge level
+    (13, None, 2, 4, 0, 10),       # l = 2
     (37, None, 96, 8, 0, 15),      # every tile; padding rows
     (37, None, 97, 8, 13, 6),      # ids past the end clamp
     (29, 21, 130, 16, 0, 4),       # the grid
-    (21, None, 257, 8, 1, 5),      # two outputs a thread a level
-    (10, 19, 1100, 8, 0, 3),       # eight a thread
+    (21, None, 257, 8, 1, 5),
+    (10, 19, 1100, 8, 0, 3),
     (8, None, 5072, 8, 0, 1),      # the paper's sample count
+    *_kendall_shapes(),
 ])
 def test_kendall_merge_kernel_matches_plain(cuda, kind, tau_b, n, n_cols,
                                             l, t, j_start, pass_tiles):
     from repro_torch.kernels.kendall_merge import (
-        kendall_merge_tiles, kendall_merge_tiles_plain)
+        SHORT_RUN_MAX, kendall_merge_tiles, kendall_merge_tiles_plain,
+        rank_structure)
     u = _kendall_operand(_kendall_rows(n, l, kind, n + l), t, cuda)
     v = gc = None
     if n_cols is not None:
         v = _kendall_operand(_kendall_rows(n_cols, l, kind, l), t, cuda)
         gc = v.shape[0] // t
+    # the launch's key width: uint32 when a non-constant row of the row
+    # operand has a run longer than SHORT_RUN_MAX (rows 4 and 6)
+    st = rank_structure(u[:, :l].float())
+    if kind == "narrow":
+        assert not st.wide
+    elif l > SHORT_RUN_MAX + 1:
+        assert st.wide
+    if l > SHORT_RUN_MAX + 1:
+        assert int(st.longest[5]) == SHORT_RUN_MAX
     div = None if tau_b else float(l * (l - 1) // 2)
     for spec in (None, EpilogueSpec(div=div, clip=(-1.0, 1.0))):
         kw = dict(t=t, l_blk=8, pass_tiles=pass_tiles, epilogue=spec,
@@ -1409,6 +1452,32 @@ def test_kendall_merge_kernel_matches_plain(cuda, kind, tau_b, n, n_cols,
         assert kendall_merge_tiles.launches == before + 1
         assert got.device.type == "cuda"
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float", "ties", "narrow"])
+@pytest.mark.parametrize("l", [96, 1100, 5072])
+def test_kendall_merge_kernel_diagonal_tiles(cuda, kind, l):
+    """Every diagonal tile of the triangle: with the rows as their own
+    columns the kernel counts each pair once and writes it to both cells;
+    with a second operand of the same shape it counts both.  Bitwise the
+    plain version either way, tau-a and tau-b, and exactly symmetric."""
+    from repro_torch.kernels.kendall_merge import (
+        kendall_merge_tiles, kendall_merge_tiles_plain)
+    u = _kendall_operand(_kendall_rows(37, l, kind, l), 8, cuda)
+    v = _kendall_operand(_kendall_rows(37, l, kind, l + 1), 8, cuda)
+    diagonal = [0, 5, 9, 12, 14]        # m = 5 tiles of 8 rows
+    for tau_b in (False, True):
+        for second in (None, v):
+            kw = dict(t=8, l_blk=8, pass_tiles=15, v_pad=second, l=l,
+                      tau_b=tau_b)
+            got = kendall_merge_tiles(u, 0, **kw)
+            want = kendall_merge_tiles_plain(u, 0, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            if second is None:
+                d = got[diagonal]
+                assert torch.equal(d, d.transpose(1, 2))
 
 
 @pytest.mark.gpu
