@@ -177,7 +177,6 @@ where it looked), the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import ctypes
-import importlib.util
 import json
 import re
 import statistics
@@ -930,8 +929,7 @@ def kendall_runs(x_dev, x_tf, reset, tag):
     from repro_torch.data.expression import ExpressionSpec, artificial
     from repro_torch.kernels import _build
     from repro_torch.kernels import kendall_merge as kmm
-    from repro_torch.kernels.kendall_merge import (KERNEL_GEOMETRY,
-                                                   MAX_KERNEL_L,
+    from repro_torch.kernels.kendall_merge import (MAX_KERNEL_L,
                                                    SHORT_RUN_MAX,
                                                    kendall_merge_tiles,
                                                    rank_structure)
@@ -941,8 +939,9 @@ def kendall_runs(x_dev, x_tf, reset, tag):
     dev = x_dev.device
     l = x_dev.shape[1]
     n0 = l * (l - 1) // 2
-    kernel_names = [f"<{p_}, {e}, {g}>" for p_, es, g in KERNEL_GEOMETRY
-                    for e in es]
+    lib = _build.load("kendall_merge")
+    shapes = kendall_instantiations(lib)
+    kernel_names = [f"<{p_}, {e}, {g}>" for p_, e, g in shapes]
     plain = kmm.kendall_merge_tiles_plain
     plain_calls = [0]
 
@@ -1033,8 +1032,8 @@ def kendall_runs(x_dev, x_tf, reset, tag):
     # every instantiation's E at the top of its range and one past it (the
     # next E's first), the warp-a-pair limit, the smallest l and the largest
     edges = {2, 31, 32, 33, MAX_KERNEL_L}
-    for p_, es, _ in KERNEL_GEOMETRY:
-        edges |= {p_ * e for e in es} | {p_ * e + 1 for e in es}
+    for p_, e, _ in shapes:
+        edges |= {p_ * e, p_ * e + 1}
     edges = sorted(lk for lk in edges if lk <= MAX_KERNEL_L)
     full_combos = {2, 33, 1_024, 1_025, MAX_KERNEL_L}
     before = checked
@@ -1090,25 +1089,33 @@ def kendall_runs(x_dev, x_tf, reset, tag):
         epilogue=tplan.epilogue_spec), 3)
 
     # -- 23.2 the slice end to end at l = 5,072 -----------------------------
+    out["peak_gb"] = {}
+
     def run(label, fn, want, mode):
         """fn() with every launch count set to 0 just before and read just
         after: `want` merge launches of `mode`, no pcc kernel, no plain
-        version.  Returns the result and its host time (ms)."""
+        version.  Returns the result and its host time (ms); keeps its peak
+        device memory above what was held before it in out["peak_gb"]."""
         reset()
         kendall_merge_tiles.launches = 0
         kendall_merge_tiles.launches_by_mode = {"tau_a": 0, "tau_b": 0}
         plain_calls[0] = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t1 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        out["peak_gb"][label] = peak
         got = (kendall_merge_tiles.launches,
                dict(kendall_merge_tiles.launches_by_mode),
                pcc_tiles.launches, dict(pcc_topk_tiles.launches),
                plain_calls[0])
         other = "tau_b" if mode == "tau_a" else "tau_a"
-        print(f"  {label}: {ms:.3f} ms; kendall_merge_tiles launches "
+        print(f"  {label}: {ms:.3f} ms, peak {peak:.3f} GB above the "
+              f"{held / 1e9:.3f} held; kendall_merge_tiles launches "
               f"{got[1]}, pcc_tiles {got[2]}, pcc_topk_tiles {got[3]}, "
               f"plain calls {got[4]}")
         if got != (want, {mode: want, other: 0}, 0,
@@ -1298,22 +1305,34 @@ def kendall_runs(x_dev, x_tf, reset, tag):
     cur, top = sm_clock_mhz()
     int_ops_s = 64 * 132 * top * 1e6
     # the least compares this run's data needs: a sort of the l keys of
-    # each pair of non-constant rows (l log2 l), and before it, for a row
-    # with ties, the sort of each of its tie runs (c log2 c a run of c);
-    # a pair with a constant side is 0 by Knight's identity and needs none
+    # each pair of distinct non-constant rows (l log2 l), and before it, for
+    # a row with ties, the sort of each of its tie runs (c log2 c a run of
+    # c); a pair with a constant side is 0 by Knight's identity and needs
+    # none.  A diagonal tile holds each of its pairs twice (and each row
+    # with itself): there each pair i < j counts once, with the cheaper of
+    # the two rows' tie-run sorts.
     st = rank_structure(u_tf[:, :l])
-    nonconst = (st.ties < n0).double()
-    run_len = torch.zeros(st.runs.shape, dtype=torch.float64,
+    runs = st.runs[:, :l].long()
+    run_len = torch.zeros(runs.shape, dtype=torch.float64,
                           device=dev).scatter_add_(
-        1, st.runs.long(), torch.ones_like(st.runs, dtype=torch.float64))
+        1, runs, torch.ones_like(runs, dtype=torch.float64))
     run_sort = (run_len * torch.log2(run_len.clamp(min=1.0))).sum(1)
-    weight = nonconst * (l * np.log2(l) + run_sort)
+    nc = (st.ties < n0).double().view(m, tplan.t)
+    cost = (l * np.log2(l) + run_sort).view(m, tplan.t)
     ys, xs_ = job_coord_batch(m, np.arange(tplan.total_tiles))
-    wr = weight.view(m, tplan.t).sum(1).cpu().numpy()
-    nc = nonconst.view(m, tplan.t).sum(1).cpu().numpy()
-    ops = float(sum(wr[y] * nc[x] for y, x in zip(ys, xs_)))
-    pairs = float(sum(nc[y] * nc[x] for y, x in zip(ys, xs_)))
+    ops = pairs = 0.0
+    for y, x in zip(ys.tolist(), xs_.tolist()):
+        if y != x:
+            ops += float((cost[y] * nc[y]).sum() * nc[x].sum())
+            pairs += float(nc[y].sum() * nc[x].sum())
+        else:
+            both = torch.triu(nc[y][:, None] * nc[y][None, :], 1)
+            ops += float((both * torch.minimum(cost[y][:, None],
+                                               cost[y][None, :])).sum())
+            pairs += float(both.sum())
     tied_rows = int(((st.ties > 0) & (st.ties < n0)).sum())
+    st_bytes = sum(a.numel() * a.element_size() for a in (
+        st.order, st.runs, st.codes, st.ties, st.longest))
     nbytes = u_tf.numel() * 4 + tplan.total_tiles * tplan.t ** 2 * 4
     bound = (ops / int_ops_s * 1e3, "operations")
     if nbytes / HBM_BYTES_S * 1e3 > bound[0]:
@@ -1350,8 +1369,7 @@ def kendall_runs(x_dev, x_tf, reset, tag):
         print(f"  library yardstick: none (torch._int_mm: "
               f"{str(exc).splitlines()[0]})")
     torch.cuda.empty_cache()
-    lib = _build.load("kendall_merge")
-    occupancy = kendall_occupancy(lib, KERNEL_GEOMETRY, tplan.t)
+    occupancy = kendall_occupancy(lib, shapes, tplan.t)
     main_occ = {}
     for u, data in ((u_tf, "TF rows"), (u_ties, "floor(8 u) rows")):
         wide = rank_structure(u[:, :l]).wide
@@ -1362,16 +1380,19 @@ def kendall_runs(x_dev, x_tf, reset, tag):
               f"of dynamic shared memory, {o['regs']} registers, "
               f"{o['ctas_per_sm']} CTAs an SM")
     out.update(pass_ms=pass_ms, tile_ms=tile_ms, plain_tile_ms=plain_ms,
-               prep_ms=prep_ms, bound_ms=bound[0], library_ms=lib_ms,
+               prep_ms=prep_ms, structure_mb=st_bytes / 1e6,
+               bound_ms=bound[0], library_ms=lib_ms,
                occupancy={f"<{p_}, {e}> {'u32' if w else 'u16'}":
                           [o["ctas_per_sm"], o["regs"], o["smem"]]
                           for (p_, e, w), o in occupancy.items()})
     print(f"  kendall_merge_tiles at the TF triangle ({tplan.total_tiles} "
           f"tiles, one launch): {pass_ms:.3f} ms (runs "
           f"{[round(v, 3) for v in pass_all]}; the rank structures, made "
-          f"once per operand, {prep_ms:.3f} ms more); one tile {tile_ms:.3f} ms, its plain version "
+          f"once per operand, {prep_ms:.3f} ms more, {st_bytes / 1e6:.1f} "
+          f"MB kept); one tile {tile_ms:.3f} ms, its plain version "
           f"{plain_ms:.3f} ms; bound {bound[0]:.3f} ms ({bound[1]}: "
-          f"{pairs:.6g} pairs of non-constant rows x {l} x log2 {l}, plus "
+          f"{pairs:.6g} pairs of distinct non-constant rows, each once, x "
+          f"{l} x log2 {l}, plus "
           f"the tie-run sorts of {tied_rows} rows with ties = {ops:.6g} "
           f"compares at 64 x 132 x {top:.0f} MHz = {int_ops_s:.4g}/s; "
           f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; SM clock now {cur:.0f} MHz) "
@@ -1406,106 +1427,34 @@ def kendall_launch_shape(lib, l, t, wide):
     return o
 
 
-def kendall_occupancy(lib, geometry, t):
+def kendall_instantiations(lib):
+    """The kendall_merge kernel's instantiations [(P, E, groups), ...], in
+    the order a launch tries them, as its library lists them."""
+    buf = (ctypes.c_int * 192)()
+    n = lib.kendall_merge_instantiations(buf, 64)
+    if not 0 < n <= 64:
+        raise AssertionError(f"kendall_merge_instantiations: {n}")
+    return [tuple(buf[3 * k:3 * k + 3]) for k in range(n)]
+
+
+def kendall_occupancy(lib, shapes, t):
     """Each kendall_merge instantiation's launch at l = P E, tiles of t,
     uint16 and uint32 keys (kendall_launch_shape): {(P, E, wide): dict}.
     Prints one line per instantiation."""
     out = {}
-    for p, es, _ in geometry:
-        for e in es:
-            line = []
-            for wide in (False, True):
-                o = kendall_launch_shape(lib, p * e, t, wide)
-                if (o["p"], o["e"]) != (p, e):
-                    raise AssertionError(f"kendall_merge <{p}, {e}>: {o}")
-                out[(p, e, wide)] = o
-                line.append(f"{'uint32' if wide else 'uint16'} keys "
-                            f"{o['smem']} + {o['static_smem']} bytes, "
-                            f"{o['code_buffers']} code buffer(s), "
-                            f"{o['ctas_per_sm']} CTAs an SM")
-            print(f"  kendall_merge_kernel<{p}, {e}, {o['groups']}> "
-                  f"(l <= {p * e}): {o['regs']} registers; "
-                  + "; ".join(line))
-    return out
-
-
-def kendall_ab_runs(parent_src, card):
-    """The merge-sort Kendall kernel of the tree under parent_src (its
-    kernels/kendall_merge.py, built by its own kernels/_build.py into its
-    own tree) and this tree's, in turns (parent, change, change, parent),
-    CUDA events, median of 3 each: the TF triangle at l = 5,072 in tau-a
-    and floor(8 u) rows in tau-b (one launch of 28 tiles each), and the TF
-    rows cut to l = 96, 256, 512 and 1,024 in tau-a.  The two agree bitwise.
-    Returns {case: {"parent": [ms, ms], "change": [ms, ms]}}."""
-    import torch
-    from repro_torch.core.plan import ExecutionPlan
-    from repro_torch.data.expression import ExpressionSpec, artificial
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.kendall_merge import kendall_merge_tiles
-    from repro_torch.kernels.pcc_tile import EpilogueSpec
-
-    def by_path(name, path):
-        spec = importlib.util.spec_from_file_location(name, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
-
-    kernels = parent_src / "repro_torch" / "kernels"
-    old_build = by_path("parent_build", kernels / "_build.py")
-    old_km = by_path("parent_kendall_merge", kernels / "kendall_merge.py")
-    t0 = time.perf_counter()
-    old_build.build_all(["kendall_merge"])
-    print(f"  parent kendall_merge built in {time.perf_counter() - t0:.1f} s")
-    this_load = _build.load
-
-    def parent(u, **kw):
-        # the parent's wrapper looks _build.load up at each call
-        _build.load = old_build.load
-        try:
-            return old_km.kendall_merge_tiles(u, 0, **kw)
-        finally:
-            _build.load = this_load
-
-    def change(u, **kw):
-        return kendall_merge_tiles(u, 0, **kw)
-
-    dev = torch.device("cuda")
-    x_tf = torch.from_numpy(artificial(ExpressionSpec(
-        n=N_TF, l=L_SEEK, seed=1))).to(dev)
-    x_ties = torch.floor(8 * torch.from_numpy(artificial(ExpressionSpec(
-        n=N_TF, l=L_SEEK, seed=4))).to(dev))
-    cases = []
-    for label, x, lk, tau_b in (
-            (f"TF tau-a, l={L_SEEK}", x_tf, L_SEEK, False),
-            (f"floor(8 u) tau-b, l={L_SEEK}", x_ties, L_SEEK, True),
-            ("TF tau-a, l=96", x_tf[:, :96].contiguous(), 96, False),
-            ("TF tau-a, l=256", x_tf[:, :256].contiguous(), 256, False),
-            ("TF tau-a, l=512", x_tf[:, :512].contiguous(), 512, False),
-            ("TF tau-a, l=1024", x_tf[:, :1024].contiguous(), 1024, False)):
-        plan = ExecutionPlan.create(N_TF, lk, measure="kendall")
-        u = plan.prepare(x)
-        kw = dict(t=plan.t, pass_tiles=plan.total_tiles, l=lk, tau_b=tau_b,
-                  epilogue=EpilogueSpec(clip=(-1.0, 1.0)) if tau_b
-                  else plan.epilogue_spec)
-        cases.append((label, u, kw))
-    out = {}
-    for label, u, kw in cases:
-        want = parent(u, **kw)
-        got = change(u, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{label}: this tree's kernel differs from "
-                                 f"the parent's")
-        times = {"parent": [], "change": []}
-        for who in ("parent", "change", "change", "parent"):
-            fn = parent if who == "parent" else change
-            ms, _ = event_ms(lambda: fn(u, **kw), 3)
-            times[who].append(ms)
-        out[label] = times
-        print(f"  {label} ({kw['pass_tiles']} tiles, one launch): parent "
-              f"{times['parent'][0]:.3f} / {times['parent'][1]:.3f} ms, "
-              f"change {times['change'][0]:.3f} / {times['change'][1]:.3f} "
-              f"ms (parent, change, change, parent; bitwise equal) [{card}]")
+    for p, e, groups in shapes:
+        line = []
+        for wide in (False, True):
+            o = kendall_launch_shape(lib, p * e, t, wide)
+            if (o["p"], o["e"], o["groups"]) != (p, e, groups):
+                raise AssertionError(f"kendall_merge <{p}, {e}>: {o}")
+            out[(p, e, wide)] = o
+            line.append(f"{'uint32' if wide else 'uint16'} keys "
+                        f"{o['smem']} + {o['static_smem']} bytes, "
+                        f"{o['code_buffers']} code buffer(s), "
+                        f"{o['ctas_per_sm']} CTAs an SM")
+        print(f"  kendall_merge_kernel<{p}, {e}, {groups}> "
+              f"(l <= {p * e}): {o['regs']} registers; " + "; ".join(line))
     return out
 
 
@@ -1513,21 +1462,12 @@ def main(argv) -> int:
     t_script = time.perf_counter()
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
     # earlier tree of this repository, for a before / after comparison)
-    # --kendall-ab SRC: the build and the merge-sort Kendall kernel of an
-    # earlier tree under SRC against this tree's, in turns
     overlap_only = argv[:1] == ["--overlap-only"]
-    kendall_ab = argv[:1] == ["--kendall-ab"]
-    if (overlap_only or kendall_ab) and len(argv) != 2:
-        print("usage: chip_smoke.py [--overlap-only SRC | --kendall-ab SRC]",
-              file=sys.stderr)
+    if overlap_only and len(argv) != 2:
+        print("usage: chip_smoke.py [--overlap-only SRC]", file=sys.stderr)
         return 2
     src = (Path(argv[1]) if overlap_only
            else Path(__file__).resolve().parent / "src")
-    src_ab = Path(argv[1]).resolve() if kendall_ab else None
-    if kendall_ab and not (src_ab / "repro_torch").is_dir():
-        print(f"chip_smoke: no package at {src_ab / 'repro_torch'}",
-              file=sys.stderr)
-        return 2
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: no package at {(src / 'repro_torch').resolve()}"
               f": run the script from a checkout of the repository",
@@ -1548,7 +1488,6 @@ def main(argv) -> int:
     from repro_torch.core.sinks import DeviceTopKSink, TopKSink
     from repro_torch.kernels import _build
     from repro_torch.kernels import pcc_tile as kmod
-    from repro_torch.kernels.kendall_merge import KERNEL_GEOMETRY
     from repro_torch.kernels.narrow_gate import gate_share, narrow_gate
     from repro_torch.kernels.pcc_tile import (
         EpilogueSpec, pcc_tiles, pcc_tiles_plain, pcc_topk_tiles,
@@ -1573,7 +1512,7 @@ def main(argv) -> int:
         float32 tile kernel's four instantiations, the three selects, the
         merge kernel's two, the float32 flash kernel's five head tiles,
         the int8 tensor-core tile kernel's two) and the merge-sort Kendall
-        kernel's (one per group size and keys a thread, KERNEL_GEOMETRY),
+        kernel's (one per instantiation <P, E, groups>),
         None for the others;
         `entry` is ptxas' "Compiling entry function" line."""
         if entry is None:
@@ -1637,8 +1576,8 @@ def main(argv) -> int:
         print(json.dumps({"overlap": res, "src": str(src), "card": card}))
         return 0
     # (this tree's kernels: --overlap-only may build an earlier tree's)
-    kendall_kernels = {f"kendall_merge_kernel<{p}, {e}, {g}>"
-                       for p, es, g in KERNEL_GEOMETRY for e in es}
+    kendall_kernels = {f"kendall_merge_kernel<{p}, {e}, {g}>" for p, e, g
+                       in kendall_instantiations(_build.load("kendall_merge"))}
     if len(report) != 16 + len(kendall_kernels) or \
             not kendall_kernels <= set(report):
         raise AssertionError(
@@ -1647,14 +1586,6 @@ def main(argv) -> int:
             f"cores), the 2 merge, the 5 float32 flash, the 2 int8 "
             f"tensor-core tile and the {len(kendall_kernels)} "
             f"kendall_merge kernels")
-    if kendall_ab:
-        print(f"merge-sort Kendall, parent {src_ab} and this tree in turns "
-              f"[{card}]:")
-        print(json.dumps({"kendall_ab": kendall_ab_runs(src_ab, card)}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
     simt = _build.load("pcc_tile")
     gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
     if any(hasattr(simt, fn) for fn in gone):

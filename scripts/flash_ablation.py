@@ -24,15 +24,11 @@ build: ms (both runs), TFLOP/s and the share of the FP32 bound.
 
 from __future__ import annotations
 
-import importlib.util
-import shutil
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+from ablation_common import ROOT, build, card, event_ms, run_with
+
 FP32_FLOPS = 67e12   # H100 SXM, 700 W: the FP32 (SIMT) peak
 TOL = 1e-5           # chip_smoke.py's TOL_ATTN
 CASES = [  # name, B, H, Hkv, D, window, S (chip_smoke.py FLASH_CASES)
@@ -54,67 +50,17 @@ VARIANTS = {
 }
 
 
-def builder(name: str, subs):
-    """The _build module of a copy of the kernels' sources with `subs`
-    applied to flash_attention.cu; it builds into its own directory."""
-    d = KERNELS / "_build" / "ablation" / name.replace(" ", "_")
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(KERNELS / "csrc", d / "csrc")
-    src = (d / "csrc" / "flash_attention.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace is not in "
-                               f"flash_attention.cu once: {old!r}")
-        src = src.replace(old, new)
-    (d / "csrc" / "flash_attention.cu").write_text(src)
-    shutil.copy(KERNELS / "_build.py", d / "_build.py")
-    spec = importlib.util.spec_from_file_location(f"ablation_{d.name}",
-                                                  d / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("flash_ablation: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fmod
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    mods = {name: builder(name, subs) for name, subs in VARIANTS.items()}
-    started = {name: m._start("flash_attention") for name, m in mods.items()}
-    for name, (proc, so, log) in started.items():
-        if proc is not None:
-            mods[name]._finish("flash_attention", proc, so, log)
-
-    def run_with(name, fn):
-        saved = _build.load
-        _build.load = mods[name].load
-        try:
-            return fn()
-        finally:
-            _build.load = saved
-
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+    print(card())
+    mods = build("flash_attention", "flash_attention", VARIANTS)
 
     order = list(mods) + list(reversed(mods))
     for case, b, h, hkv, d, w, s in CASES:
@@ -130,14 +76,14 @@ def main() -> int:
             return fmod.flash_attention(q, k, v, window=w)
         want = fmod.flash_attention_plain(q, k, v, window=w,
                                           chunk=None if s <= 4_096 else 2_048)
-        err = float((run_with("as is", run) - want).abs().max())
+        err = float((run_with(mods["as is"], run) - want).abs().max())
         if not err <= TOL:
             raise AssertionError(f"{case}: kernel disagrees with plain "
                                  f"({err:.3e})")
         del want
         times = {name: [] for name in mods}
         for name in order:
-            times[name].append(run_with(name, lambda: event_ms(
+            times[name].append(run_with(mods[name], lambda: event_ms(
                 run, 5 if s <= 4_096 else 2)))
         for name, ts in times.items():
             ms = statistics.mean(ts)

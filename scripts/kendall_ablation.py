@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Where the merge-sort Kendall kernel's time goes, on one NVIDIA GPU.
+"""Where the merge-sort Kendall kernel's time goes, and how it compares with
+another tree's, on one NVIDIA GPU.
 
-    python3 scripts/kendall_ablation.py        # from the repository root
+    python3 scripts/kendall_ablation.py [--parent OTHER/src]
+                                        # from the repository root
 
 Builds src/repro_torch/kernels/csrc/kendall_merge.cu as it is and in
-variants that each leave one part of the work out (text replaced in a
-copy of the source, built beside the package's own libraries under
-kernels/_build/ablation/), then times every build on the TF triangle of
-chip_smoke.py (1,639 rows at l = 5,072, 28 tiles in one launch: normal
-rows in tau-a, uint16 keys and one sort a pair; floor(8 u) rows in tau-b,
-uint32 keys and two sorts), in the order A B .. B A, with CUDA events.
-A left-out variant's outputs are wrong by design; the kernel as it is and
-the alternatives below are held against this tree's plain version on one
-tile (bitwise).  The difference
+variants that each leave one part of the work out (ablation_common.py),
+then times every build on the TF triangle of chip_smoke.py (1,639 rows at
+l = 5,072, 28 tiles in one launch: normal rows in tau-a, uint16 keys and
+one sort a pair; floor(8 u) rows in tau-b, uint32 keys and two sorts), in
+the order A B .. B A, with CUDA events.  A left-out variant's outputs are
+wrong by design; the kernel as it is and the alternatives below are held
+against this tree's plain version on one tile (bitwise).  The difference
 between the kernel's time and a variant's is what the left-out part
 costs there:
 
@@ -31,23 +31,32 @@ and an alternative, right but built otherwise:
     four-ctas   a register budget for four CTAs an SM at P = 256 (64
                 registers), the code buffers cut to what lets four fit
 
+With --parent, the kernel of the tree whose package is under OTHER/src
+(its kernels/kendall_merge.py, built by its own kernels/_build.py into its
+own tree) and this tree's, in turns (parent, change, change, parent),
+median of 3 each: the two cases above, then the TF rows cut to l = 96,
+256, 512 and 1,024 in tau-a; the two agree bitwise.  For each, the device
+memory of each tree's first call from a fresh operand: its peak and what
+it keeps (the rank structures, cached beside the operand) above what was
+held before, the output excluded.
+
 Prints the card's name and power limit, then one line per case and
-build: ms (both runs) and the share of the phase-23 compare bound.
+build: ms (both runs), and for TF tau-a the share of the phase-23.5
+bound; then the --parent lines.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+from ablation_common import ROOT, build, card, event_ms, load_path, run_with
+
 N_TF, L = 1_639, 5_072       # chip_smoke.py N_TF, L_SEEK
-BOUND_MS = 5.767             # phase 23.5's compare bound at the TF triangle
+# phase 23.5's compare bound at the TF triangle (tau-a) at a 1,980 MHz SM
+# clock: each pair of distinct non-constant rows once
+BOUND_MS = 5.010
 VARIANTS = {
     "as is": [],
     "no-gather": [("      v[e] = k < l ? code_s[ord_s[k]] : SENT16;\n",
@@ -85,103 +94,126 @@ VARIANTS = {
 ALTERNATIVES = ("as is", "four-ctas")
 
 
-def builder(name: str, subs):
-    """The _build module of a copy of the kernels' sources with `subs`
-    applied to kendall_merge.cu; it builds into its own directory."""
-    d = KERNELS / "_build" / "ablation" / name.replace(" ", "_")
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(KERNELS / "csrc", d / "csrc")
-    src = (d / "csrc" / "kendall_merge.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace is not in "
-                               f"kendall_merge.cu once: {old!r}")
-        src = src.replace(old, new)
-    (d / "csrc" / "kendall_merge.cu").write_text(src)
-    shutil.copy(KERNELS / "_build.py", d / "_build.py")
-    spec = importlib.util.spec_from_file_location(f"ablation_{d.name}",
-                                                  d / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def main() -> int:
+def cases(x_tf, x_ties, ls=()):
+    """(label, operand, launch keywords): the TF triangle in tau-a, the
+    floor(8 u) rows in tau-b, each in one launch of every tile, then the TF
+    rows cut to each l of `ls` in tau-a."""
     import torch
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels.pcc_tile import EpilogueSpec
+    out = []
+    for label, x, lk, tau_b in (
+            (f"TF tau-a, l={L}", x_tf, L, False),
+            (f"floor(8 u) tau-b, l={L}", x_ties, L, True),
+            *((f"TF tau-a, l={lk}", x_tf[:, :lk].contiguous(), lk, False)
+              for lk in ls)):
+        plan = ExecutionPlan.create(N_TF, lk, measure="kendall")
+        kw = dict(t=plan.t, pass_tiles=plan.total_tiles, l=lk, tau_b=tau_b,
+                  epilogue=EpilogueSpec(clip=(-1.0, 1.0)) if tau_b
+                  else plan.epilogue_spec)
+        out.append((label, plan.prepare(x), kw))
+    torch.cuda.synchronize()
+    return out
+
+
+def ablation(x_tf, x_ties):
+    """Every variant of this tree's kernel in turns on the two cases."""
+    import torch
+    from repro_torch.kernels import kendall_merge as km
+    mods = build("kendall_merge", "kendall_merge", VARIANTS)
+    order = list(mods) + list(reversed(mods))
+    for label, u, kw in cases(x_tf, x_ties):
+        want = km.kendall_merge_tiles_plain(u, 0, **{**kw, "pass_tiles": 1})
+        for name in ALTERNATIVES:
+            got = run_with(mods[name], lambda: km.kendall_merge_tiles(
+                u, 0, **{**kw, "pass_tiles": 1}))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label} [{name}]: kernel differs "
+                                     f"from plain")
+        times = {name: [] for name in mods}
+        for name in order:
+            times[name].append(run_with(mods[name], lambda: event_ms(
+                lambda: km.kendall_merge_tiles(u, 0, **kw), 3)))
+        for name, ts in times.items():
+            share = (f", {100 * BOUND_MS / statistics.mean(ts):.2f} % of "
+                     f"the {BOUND_MS} ms bound" if "tau-a" in label else "")
+            print(f"{label} [{name}]: {ts[0]:.3f} / {ts[1]:.3f} ms{share}")
+
+
+def against_parent(parent_src: Path, x_tf, x_ties, where: str):
+    """The kernel of the tree under parent_src and this tree's in turns,
+    bitwise equal, with each one's memory on a fresh operand."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kendall_merge import kendall_merge_tiles
+
+    kernels = parent_src / "repro_torch" / "kernels"
+    old_build = load_path("parent_build", kernels / "_build.py")
+    old_km = load_path("parent_kendall_merge", kernels / "kendall_merge.py")
+    old_build.build_all(["kendall_merge"])
+    _build.build_all(["kendall_merge"])
+    fns = {"parent": lambda u, kw: run_with(
+               old_build, lambda: old_km.kendall_merge_tiles(u, 0, **kw)),
+           "change": lambda u, kw: kendall_merge_tiles(u, 0, **kw)}
+    print(f"merge-sort Kendall, parent {parent_src} and this tree in turns "
+          f"[{where}]:")
+    for label, u, kw in cases(x_tf, x_ties, ls=(96, 256, 512, 1024)):
+        res, mem = {}, {}
+        for who, fn in fns.items():
+            fresh = u.clone()       # no rank structure cached yet
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            res[who] = fn(fresh, kw)
+            torch.cuda.synchronize()
+            out_b = res[who].numel() * 4
+            mem[who] = ((torch.cuda.max_memory_allocated() - held) / 1e6,
+                        (torch.cuda.memory_allocated() - held - out_b) / 1e6)
+            del fresh
+        if not torch.equal(res["parent"], res["change"]):
+            raise AssertionError(f"{label}: this tree's kernel differs from "
+                                 f"the parent's")
+        del res
+        times = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            times[who].append(event_ms(lambda: fns[who](u, kw), 3))
+        print(f"  {label} ({kw['pass_tiles']} tiles, one launch): parent "
+              f"{times['parent'][0]:.3f} / {times['parent'][1]:.3f} ms, "
+              f"change {times['change'][0]:.3f} / {times['change'][1]:.3f} "
+              f"ms (bitwise equal); first call's peak / kept MB: parent "
+              f"{mem['parent'][0]:.1f} / {mem['parent'][1]:.1f}, change "
+              f"{mem['change'][0]:.1f} / {mem['change'][1]:.1f}")
+
+
+def main(argv) -> int:
+    import torch
+    if argv[:1] not in ([], ["--parent"]) or len(argv) not in (0, 2):
+        print("usage: kendall_ablation.py [--parent OTHER/src]",
+              file=sys.stderr)
+        return 2
+    parent = Path(argv[1]).resolve() if argv else None
+    if parent is not None and not (parent / "repro_torch").is_dir():
+        print(f"kendall_ablation: no package at {parent / 'repro_torch'}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("kendall_ablation: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.plan import ExecutionPlan
     from repro_torch.data.expression import ExpressionSpec, artificial
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import kendall_merge as km
-    from repro_torch.kernels.pcc_tile import EpilogueSpec
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    mods = {name: builder(name, subs) for name, subs in VARIANTS.items()}
-    started = {name: m._start("kendall_merge") for name, m in mods.items()}
-    for name, (proc, so, log) in started.items():
-        if proc is not None:
-            mods[name]._finish("kendall_merge", proc, so, log)
-
-    def run_with(name, fn):
-        saved = _build.load
-        _build.load = mods[name].load
-        try:
-            return fn()
-        finally:
-            _build.load = saved
-
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
+    where = card()
+    print(where)
     dev = torch.device("cuda")
     x_tf = torch.from_numpy(artificial(ExpressionSpec(
         n=N_TF, l=L, seed=1))).to(dev)
     x_ties = torch.floor(8 * torch.from_numpy(artificial(ExpressionSpec(
         n=N_TF, l=L, seed=4))).to(dev))
-    plan = ExecutionPlan.create(N_TF, L, measure="kendall")
-    order = list(mods) + list(reversed(mods))
-    for case, x, tau_b in (("TF tau-a", x_tf, False),
-                           ("floor(8 u) tau-b", x_ties, True)):
-        u = plan.prepare(x)
-        kw = dict(t=plan.t, l=L, tau_b=tau_b,
-                  epilogue=EpilogueSpec(clip=(-1.0, 1.0)) if tau_b
-                  else plan.epilogue_spec)
-        want = km.kendall_merge_tiles_plain(u, 0, pass_tiles=1, **kw)
-        for name in ALTERNATIVES:
-            got = run_with(name, lambda: km.kendall_merge_tiles(
-                u, 0, pass_tiles=1, **kw))
-            if not torch.equal(got, want):
-                raise AssertionError(f"{case} [{name}]: kernel differs "
-                                     f"from plain")
-
-        def run():
-            return km.kendall_merge_tiles(u, 0, pass_tiles=plan.total_tiles,
-                                          **kw)
-        times = {name: [] for name in mods}
-        for name in order:
-            times[name].append(run_with(name, lambda: event_ms(run, 3)))
-        for name, ts in times.items():
-            ms = statistics.mean(ts)
-            print(f"{case} [{name}]: {ts[0]:.3f} / {ts[1]:.3f} ms, "
-                  f"{100 * BOUND_MS / ms:.2f} % of the {BOUND_MS} ms bound")
+    ablation(x_tf, x_ties)
+    if parent is not None:
+        against_parent(parent, x_tf, x_ties, where)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -25,15 +25,11 @@ build's median ms over its runs.
 
 from __future__ import annotations
 
-import importlib.util
-import shutil
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+from ablation_common import ROOT, build, card, event_ms, run_with
+
 N_SEEK, L_SEEK, N_TF = 17_555, 5_072, 1_639   # chip_smoke.py's shapes
 RUNS = 7
 VARIANTS = {
@@ -47,27 +43,6 @@ VARIANTS = {
 }
 
 
-def builder(name: str, subs):
-    """The _build module of a copy of the kernels' sources with `subs`
-    applied to pcc_topk.cu; it builds into its own directory."""
-    d = KERNELS / "_build" / "ablation" / ("merge_" + name.replace(" ", "_"))
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(KERNELS / "csrc", d / "csrc")
-    src = (d / "csrc" / "pcc_topk.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace is not in "
-                               f"pcc_topk.cu once: {old!r}")
-        src = src.replace(old, new)
-    (d / "csrc" / "pcc_topk.cu").write_text(src)
-    shutil.copy(KERNELS / "_build.py", d / "_build.py")
-    spec = importlib.util.spec_from_file_location(f"ablation_{d.name}",
-                                                  d / "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -76,36 +51,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.data.expression import ExpressionSpec, artificial
-    from repro_torch.kernels import _build
     from repro_torch.kernels.pcc_tile import (topk_merge, topk_merge_plain,
                                               topk_select)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    mods = {name: builder(name, subs) for name, subs in VARIANTS.items()}
-    started = {name: m._start("pcc_topk") for name, m in mods.items()}
-    for name, (proc, so, log) in started.items():
-        if proc is not None:
-            mods[name]._finish("pcc_topk", proc, so, log)
-
-    def run_with(name, fn):
-        saved = _build.load
-        _build.load = mods[name].load
-        try:
-            return fn()
-        finally:
-            _build.load = saved
-
-    def event_ms(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
+    print(card())
+    mods = build("pcc_topk", "pcc_topk", VARIANTS)
 
     x = torch.from_numpy(artificial(ExpressionSpec(
         n=N_SEEK, l=L_SEEK, seed=0))).cuda()
@@ -136,7 +87,7 @@ def main() -> int:
         def run():
             return topk_merge(scratch, 0, n_tiles, pass_tiles=n_tiles, **mkw)
         for name in mods:
-            got = run_with(name, run)
+            got = run_with(mods[name], run)
             torch.cuda.synchronize()
             if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                        for a, b in zip(got, want)):
@@ -145,7 +96,8 @@ def main() -> int:
         times = {name: [] for name in mods}
         for _ in range(RUNS):
             for name in order:
-                times[name].append(run_with(name, lambda: event_ms(run)))
+                times[name].append(run_with(mods[name], lambda: event_ms(
+                    run, 1, warm=False)))
         print(f"{label}: " + "; ".join(
             f"{name} {statistics.median(ts):.4f} ms"
             for name, ts in times.items()) + " (each bitwise plain)")

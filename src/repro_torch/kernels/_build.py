@@ -83,6 +83,8 @@ SIGNATURES = {
                                        + [*_EPI, _P]),
         # (l, t, wide, int out[8]) -> cudaError_t
         "kendall_merge_occupancy": (_I, [_I, _I, _I, _P]),
+        # (int out[3 * cap], cap) -> the number of instantiations
+        "kendall_merge_instantiations": (_I, [_P, _I]),
         "kendall_merge_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -37,9 +37,11 @@
 //
 // What bounds it: the count is integer compares and shared-memory traffic,
 // no floating point.  The least work the data needs is a sort of the l
-// keys of each pair of non-constant rows, l log2(l) compares, plus for a
-// row with ties the sort of each of its tie runs (c log2(c) a run of c),
-// over the card's 32-bit integer rate (64 lanes an SM, 132 SMs); its bytes
+// keys of each pair of distinct non-constant rows, l log2(l) compares,
+// counted once where a pair sits twice in a diagonal tile, plus the sort
+// of each tie run of the row whose order is taken (c log2(c) a run of c;
+// on a diagonal tile the cheaper row's), over the card's 32-bit integer
+// rate (64 lanes an SM, 132 SMs); its bytes
 // (ranks in once, tiles out once) are ~1,000x fewer at l = 5,072.
 //
 // Design: a group of P threads sorts a pair, E = the keys a thread holds (a
@@ -76,11 +78,14 @@
 // 63,104 bytes of shared memory with the prefetch buffer; a launch whose
 // rows have a run longer than SHORT_RUN_MAX keeps uint32 keys, 73,440 bytes
 // with one code buffer.  At l = 16,384 with uint32 keys the codes share the
-// second key buffer (no prefetch): 202,784 bytes.  On the H100 the merge
-// levels take most of the time, about 10 ms each at the TF triangle, then
-// the co-rank searches and the leaf (scripts/kendall_ablation.py).
-// kendall_merge_occupancy reports the shape, shared memory, registers and
-// CTAs an SM of a launch.
+// second key buffer (no prefetch): 202,784 bytes.  On the H100 the TF
+// triangle (1,639 rows, l = 5,072, tau-a) takes about 87 ms; leaving out
+// one part at a time saves about 27 ms for the three CTA-level merge
+// levels, 16 for the co-rank searches, 10 for the leaf and 4 for the
+// merge stores; the five warp-level levels were not measured apart
+// (scripts/kendall_ablation.py).  kendall_merge_instantiations lists the
+// instantiations; kendall_merge_occupancy reports the shape, shared
+// memory, registers and CTAs an SM of a launch.
 
 #include "cp_async.cuh"
 #include "pcc_accum.cuh"
@@ -92,11 +97,6 @@ using namespace pcc;
 // the longest tie run of a row on the one-sort path (kernels/
 // kendall_merge.py SHORT_RUN_MAX)
 constexpr int SHORT_RUN_MAX = 32;
-// the instantiated E of each group size (kernels/kendall_merge.py
-// KERNEL_GEOMETRY): the smallest that covers l is taken
-constexpr int WARP_E[] = {2, 3, 4, 6, 8, 12, 16, 24, 32};
-constexpr int CTA256_E[] = {6, 8, 10, 12, 16, 20, 24};
-constexpr int CTA512_E[] = {16, 20, 24, 28, 32};
 constexpr int MAX_L = 16384;
 // dynamic shared memory a CTA may take, the static `red` sums kept aside;
 // an SM's shared memory
@@ -547,15 +547,27 @@ struct Shape {
   int p, e, groups;
 };
 
-// The group size and keys a thread for l (kernels/kendall_merge.py
-// kernel_geometry); {0, 0, 0} above MAX_L.
+// Every instantiation (P, E, groups), in the order geometry() tries them:
+// a warp a pair, eight a CTA, up to l = 1,024; then a CTA of 256 threads,
+// then of 512 a pair.
+#define KM_SHAPES(X)                                                      \
+  X(32, 2, 8) X(32, 3, 8) X(32, 4, 8) X(32, 6, 8) X(32, 8, 8)             \
+  X(32, 12, 8) X(32, 16, 8) X(32, 24, 8) X(32, 32, 8)                     \
+  X(256, 6, 1) X(256, 8, 1) X(256, 10, 1) X(256, 12, 1) X(256, 16, 1)     \
+  X(256, 20, 1) X(256, 24, 1)                                             \
+  X(512, 16, 1) X(512, 20, 1) X(512, 24, 1) X(512, 28, 1) X(512, 32, 1)
+#define KM_SHAPE(P, E, G) {P, E, G},
+constexpr Shape SHAPES[] = {KM_SHAPES(KM_SHAPE)};
+#undef KM_SHAPE
+constexpr int N_SHAPES = sizeof(SHAPES) / sizeof(SHAPES[0]);
+static_assert(SHAPES[N_SHAPES - 1].p * SHAPES[N_SHAPES - 1].e == MAX_L,
+              "the last instantiation must cover MAX_L");
+
+// The launch at l: the first instantiation with P E >= l, so the smallest
+// E of the smallest group that covers l; {0, 0, 0} above MAX_L.
 Shape geometry(int l) {
-  for (int e : WARP_E)
-    if (32 * e >= l) return {32, e, 8};
-  for (int e : CTA256_E)
-    if (256 * e >= l) return {256, e, 1};
-  for (int e : CTA512_E)
-    if (512 * e >= l) return {512, e, 1};
+  for (const Shape& s : SHAPES)
+    if (s.p * s.e >= l) return s;
   return {0, 0, 0};
 }
 
@@ -603,14 +615,7 @@ Kernel pick() {
 Kernel kernel_of(Shape s) {
 #define KM_CASE(P, E, G) \
   if (s.p == P && s.e == E) return pick<P, E, G>();
-  KM_CASE(32, 2, 8) KM_CASE(32, 3, 8) KM_CASE(32, 4, 8) KM_CASE(32, 6, 8)
-  KM_CASE(32, 8, 8) KM_CASE(32, 12, 8) KM_CASE(32, 16, 8)
-  KM_CASE(32, 24, 8) KM_CASE(32, 32, 8)
-  KM_CASE(256, 6, 1) KM_CASE(256, 8, 1) KM_CASE(256, 10, 1)
-  KM_CASE(256, 12, 1) KM_CASE(256, 16, 1) KM_CASE(256, 20, 1)
-  KM_CASE(256, 24, 1)
-  KM_CASE(512, 16, 1) KM_CASE(512, 20, 1) KM_CASE(512, 24, 1)
-  KM_CASE(512, 28, 1) KM_CASE(512, 32, 1)
+  KM_SHAPES(KM_CASE)
 #undef KM_CASE
   return nullptr;
 }
@@ -688,6 +693,18 @@ extern "C" int kendall_merge_occupancy(int l, int t, int wide, int* out) {
   out[6] = attr.numRegs;
   out[7] = (int)attr.sharedSizeBytes;
   return 0;
+}
+
+// The kernel's instantiations: out[3 k], out[3 k + 1], out[3 k + 2] = P, E
+// and groups of the k-th, in the order a launch tries them, for the first
+// `cap`.  Returns how many there are.
+extern "C" int kendall_merge_instantiations(int* out, int cap) {
+  for (int k = 0; k < N_SHAPES && k < cap; ++k) {
+    out[3 * k] = SHAPES[k].p;
+    out[3 * k + 1] = SHAPES[k].e;
+    out[3 * k + 2] = SHAPES[k].groups;
+  }
+  return N_SHAPES;
 }
 
 extern "C" const char* kendall_merge_error_string(int err) {

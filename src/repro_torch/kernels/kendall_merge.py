@@ -21,8 +21,9 @@ for a constant row; then the fused :class:`EpilogueSpec` runs.
 The per-row work, O(n l log l) once per operand, is torch code shared by
 the kernel and the plain version (:func:`rank_structure`): each row's
 stable order by value, the run index of each sorted position, each value's
-dense rank (its code), the row's tie pairs and longest tie run, the same
-rows as int16 for the kernel, and for tau-b its scale (:func:`tau_b_scale`).
+dense rank (its code), kept as int16 rows where the kernel takes l, the
+row's tie pairs and longest tie run, and for tau-b its scale
+(:func:`tau_b_scale`).
 It is made once per operand and kept beside it while the operand lives
 unchanged, so the passes of a run share it.  The kernel and the plain
 version start from the same integers and scales, and tau-b agrees bitwise
@@ -34,10 +35,11 @@ inversions of q inside those runs, and n3 the equal q inside them.  A row
 whose longest run is at most :data:`SHORT_RUN_MAX` takes I_w and n3 by
 direct compares and sorts q once; a row with a longer run sorts the
 lexsort's keys first, then q.  Each sort: a group of P threads, E keys a
-thread (:func:`kernel_geometry`), sorted in registers, then merge-path
-levels in shared memory; a warp a pair at l <= 1,024.  The plain version
-keeps the reference's arithmetic: the lexsort and merge levels over the
-next power of two, tail padded with sentinels.
+thread (P E >= l, the smallest of the kernel's instantiations that
+covers l), sorted in registers, then merge-path levels in shared memory;
+a warp a pair at l <= 1,024.  The plain version keeps the reference's
+arithmetic: the lexsort and merge levels over the next power of two, tail
+padded with sentinels.
 
 Dispatch is by the operand's device: a CUDA tensor launches the kernel or
 raises; a CPU tensor runs :func:`kendall_merge_tiles_plain`.  The kernel
@@ -67,18 +69,12 @@ from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
 KENDALL_MERGE_CROSSOVER_L = 96
 # The kernel keeps codes, order and run indices as uint16 (values < l) and,
 # at l = 16,384 with uint32 keys, 202,784 bytes of shared memory, under the
-# 232,448 a block may take.
+# 232,448 a block may take (csrc/kendall_merge.cu MAX_L).
 MAX_KERNEL_L = 16_384
 # The longest tie run of a row whose I_w and n3 the kernel takes by direct
 # compares (one sort a pair); a row with a longer run sorts twice
 # (csrc/kendall_merge.cu SHORT_RUN_MAX).
 SHORT_RUN_MAX = 32
-# The kernel's instantiations: (group threads P, the E a thread may hold,
-# groups a CTA).  A launch takes the first P and the smallest E with
-# P * E >= l (csrc/kendall_merge.cu WARP_E / CTA256_E / CTA512_E).
-KERNEL_GEOMETRY = ((32, (2, 3, 4, 6, 8, 12, 16, 24, 32), 8),
-                   (256, (6, 8, 10, 12, 16, 20, 24), 1),
-                   (512, (16, 20, 24, 28, 32), 1))
 # Bytes one chunk of the plain version's (rows, cols, l_p2) int64 keys may
 # take.
 PLAIN_CHUNK_BYTES = 1 << 28
@@ -114,17 +110,6 @@ def narrow_stride(l: int) -> int:
     return -(-l // 8) * 8
 
 
-def kernel_geometry(l: int) -> Tuple[int, int, int]:
-    """(P, E, groups) of the kernel launch at l: the first group size P and
-    the smallest instantiated E with P * E >= l (csrc/kendall_merge.cu
-    geometry).  ValueError above MAX_KERNEL_L."""
-    for p, es, groups in KERNEL_GEOMETRY:
-        for e in es:
-            if p * e >= l:
-                return p, e, groups
-    raise ValueError(f"no kendall_merge instantiation covers l={l}")
-
-
 def row_tie_pairs(u: torch.Tensor) -> torch.Tensor:
     """Per-row tie-pair counts of an (n, l) rank operand: sum of C(c, 2)
     over each row's runs of equal values (Knight's n1 / n2).  int32 (n,)."""
@@ -136,12 +121,12 @@ class RankStructure:
     """What the per-pair count needs of each row of an (n, l) operand:
     ``order`` its stable argsort, ``runs`` the run index of each sorted
     position (0, 1, ... : equal values share one), ``codes`` each value's
-    dense rank (order and ties kept, in [0, l)), all int32 (n, l);
-    ``ties`` its tie pairs and ``longest`` its longest tie run (n,) int32;
-    ``wide``: some non-constant row's longest run exceeds SHORT_RUN_MAX (the
-    kernel's uint32 keys).  For the kernel, at l <= MAX_KERNEL_L,
-    ``order16`` / ``runs16`` / ``codes16``: the same as int16 rows of
-    stride :func:`narrow_stride` (zero tail); else None."""
+    dense rank (order and ties kept, in [0, l)); one copy each, the one the
+    kernel reads where it takes l (l <= MAX_KERNEL_L: int16 rows of stride
+    :func:`narrow_stride`, zero tail), else int32 (n, l); their first l
+    columns are the data.  ``ties`` its tie pairs and ``longest`` its
+    longest tie run (n,) int32; ``wide``: some non-constant row's longest
+    run exceeds SHORT_RUN_MAX (the kernel's uint32 keys)."""
 
     order: torch.Tensor
     runs: torch.Tensor
@@ -149,9 +134,6 @@ class RankStructure:
     ties: torch.Tensor
     longest: torch.Tensor
     wide: bool
-    order16: Optional[torch.Tensor]
-    runs16: Optional[torch.Tensor]
-    codes16: Optional[torch.Tensor]
 
 
 def _narrow_rows(x: torch.Tensor) -> torch.Tensor:
@@ -173,12 +155,10 @@ def rank_structure(u_l: torch.Tensor) -> RankStructure:
     # a constant row skips the count, whatever its run
     wide = bool(((longest > SHORT_RUN_MAX)
                  & (ties < l * (l - 1) // 2)).any())
-    narrow = ((_narrow_rows(order), _narrow_rows(runs), _narrow_rows(codes))
-              if l <= MAX_KERNEL_L else (None, None, None))
-    return RankStructure(order.to(torch.int32).contiguous(),
-                         runs.to(torch.int32).contiguous(),
-                         codes.to(torch.int32).contiguous(), ties, longest,
-                         wide, *narrow)
+    keep = (_narrow_rows if l <= MAX_KERNEL_L
+            else lambda x: x.to(torch.int32).contiguous())
+    return RankStructure(keep(order), keep(runs), keep(codes), ties,
+                         longest, wide)
 
 
 def tau_b_scale(ties: torch.Tensor, l: int) -> torch.Tensor:
@@ -317,8 +297,8 @@ def kendall_merge_tiles(u_pad: torch.Tensor, j_start: int, *,
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream(u_pad.device).cuda_stream
         err = lib.kendall_merge_tiles_launch(
-            ptr(rows.order16), ptr(rows.runs16), ptr(rows.longest),
-            ptr(rows.ties), ptr(s_r), ptr(cols.codes16), ptr(cols.ties),
+            ptr(rows.order), ptr(rows.runs), ptr(rows.longest),
+            ptr(rows.ties), ptr(s_r), ptr(cols.codes), ptr(cols.ties),
             ptr(s_c), ptr(out), j_start, pass_tiles, m, grid_cols or 0, t, l,
             narrow_stride(l), int(tau_b), int(rows.wide), int(cols is rows),
             *spec.kernel_args(), ctypes.c_void_p(stream))
@@ -363,9 +343,9 @@ def _pair_terms(rows: RankStructure, cols: RankStructure,
     columns `ci` (C,) of `cols`: the column's codes gathered in the row's
     order, sorted by (row run, code) (the lexsort by (x, y)), n3 from the
     runs of equal keys and S by merge levels.  int64 (R, C)."""
-    order = rows.order[ri].long()
-    runs = rows.runs[ri].long()
-    codes = cols.codes[ci].long()
+    order = rows.order[ri, :l].long()
+    runs = rows.runs[ri, :l].long()
+    codes = cols.codes[ci, :l].long()
     n_r, n_c = order.shape[0], codes.shape[0]
     q = torch.gather(codes[None].expand(n_r, n_c, l), 2,
                      order[:, None, :].expand(n_r, n_c, l))
@@ -426,9 +406,8 @@ def kendall_tau_b_merge_tile_kernel(u_pad, j_start, **kw):
     return kendall_merge_tiles(u_pad, j_start, tau_b=True, **kw)
 
 
-__all__ = ["KENDALL_MERGE_CROSSOVER_L", "KERNEL_GEOMETRY", "MAX_KERNEL_L",
-           "RankStructure", "SHORT_RUN_MAX", "kendall_merge_tile_kernel",
+__all__ = ["KENDALL_MERGE_CROSSOVER_L", "MAX_KERNEL_L", "RankStructure",
+           "SHORT_RUN_MAX", "kendall_merge_tile_kernel",
            "kendall_merge_tiles", "kendall_merge_tiles_plain",
-           "kendall_tau_b_merge_tile_kernel", "kernel_geometry",
-           "narrow_stride", "rank_structure", "row_tie_pairs",
-           "tau_b_scale"]
+           "kendall_tau_b_merge_tile_kernel", "narrow_stride",
+           "rank_structure", "row_tie_pairs", "tau_b_scale"]

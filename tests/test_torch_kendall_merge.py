@@ -15,7 +15,6 @@ absolute.
 """
 
 import dataclasses
-import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -645,41 +644,34 @@ def test_kernel_pair_terms_match_reference(path, kind):
                 assert terms(x[i], y[j]) == (int(n3), int(s))
 
 
-def test_kernel_geometry_covers_every_l():
-    """For every l the kernel takes, the chosen (P, E) covers l with the
-    smallest E of the first group size that can; the tables match the CUDA
-    source's, and l past MAX_KERNEL_L has no instantiation."""
-    geometry = kendall_merge.KERNEL_GEOMETRY
-    for l in range(2, kendall_merge.MAX_KERNEL_L + 1):
-        p, e, groups = kendall_merge.kernel_geometry(l)
-        k = [row[0] for row in geometry].index(p)
-        es = geometry[k][1]
-        assert p * e >= l and groups == geometry[k][2]
-        assert e == es[0] or p * es[es.index(e) - 1] < l
-        assert k == 0 or geometry[k - 1][0] * geometry[k - 1][1][-1] < l
-    assert geometry[-1][0] * geometry[-1][1][-1] == kendall_merge.MAX_KERNEL_L
-    with pytest.raises(ValueError):
-        kendall_merge.kernel_geometry(kendall_merge.MAX_KERNEL_L + 1)
+def test_kernel_constants_match_the_cuda_source():
+    """The wrapper's SHORT_RUN_MAX (which rows take uint32 keys) and
+    MAX_KERNEL_L (where it raises) are the kernel's own."""
     src = (Path(kendall_merge.__file__).parent / "csrc" /
            "kendall_merge.cu").read_text()
-    for (p, es, groups), name in zip(geometry, ("WARP_E", "CTA256_E",
-                                                "CTA512_E")):
-        table = re.search(rf"constexpr int {name}\[\] = \{{([^}}]*)\}}", src)
-        assert tuple(int(v) for v in table.group(1).split(",")) == es
-        assert f"return {{{p}, e, {groups}}}" in src
-        for e in es:
-            assert f"KM_CASE({p}, {e}, {groups})" in src
     assert (f"constexpr int SHORT_RUN_MAX = {kendall_merge.SHORT_RUN_MAX};"
             in src)
     assert f"constexpr int MAX_L = {kendall_merge.MAX_KERNEL_L};" in src
+
+
+def _direct_structure(x):
+    """order, runs and codes of the rows x (n, l), int32, each row by
+    numpy: its stable argsort, the run index of each sorted position and
+    each value's dense rank."""
+    order = np.argsort(x, axis=1, kind="stable")
+    runs = np.stack([np.unique(row, return_inverse=True)[1][o]
+                     for row, o in zip(x, order)])
+    codes = np.stack([np.unique(row, return_inverse=True)[1] for row in x])
+    return [torch.from_numpy(a.astype(np.int32)) for a in (order, runs,
+                                                          codes)]
 
 
 @pytest.mark.parametrize("l", [2, 45, 100, 130])
 def test_rank_structure_longest_runs_and_int16_rows(l):
     """``longest`` is each row's longest run of equal values by a direct
     count, ``wide`` whether a non-constant row's exceeds SHORT_RUN_MAX, and
-    the int16 rows are order / runs / codes padded with zeros to a stride
-    that is a multiple of 8."""
+    order / runs / codes are kept once, as int16 rows padded with zeros to
+    a stride that is a multiple of 8, equal to a direct count."""
     r = kendall_merge.SHORT_RUN_MAX
     x = _tied_rows("pairs", 6, l, seed=l)
     x[0] = 1.0                                   # constant: never wide
@@ -692,25 +684,44 @@ def test_rank_structure_longest_runs_and_int16_rows(l):
         want.append(int(np.diff(np.r_[-1, bounds, l - 1]).max()))
     assert st.longest.tolist() == want and st.longest.dtype == torch.int32
     assert not st.wide
+    ld = kendall_merge.narrow_stride(l)
+    assert ld % 8 == 0 and l <= ld < l + 8
+    for got, direct in zip((st.order, st.runs, st.codes),
+                           _direct_structure(x)):
+        assert got.dtype == torch.int16 and got.shape == (6, ld)
+        assert torch.equal(got[:, :l].int(), direct)
+        assert not got[:, l:].any()
     if l > r + 1:
         x[2, :r + 1] = 9.0                       # one longer: two sorts
         assert kendall_merge.rank_structure(torch.from_numpy(x)).wide
-    ld = kendall_merge.narrow_stride(l)
-    assert ld % 8 == 0 and l <= ld < l + 8
-    for wide, narrow in ((st.order, st.order16), (st.runs, st.runs16),
-                         (st.codes, st.codes16)):
-        assert narrow.dtype == torch.int16 and narrow.shape == (6, ld)
-        assert torch.equal(narrow[:, :l].int(), wide)
-        assert not narrow[:, l:].any()
 
 
 def test_rank_structure_has_no_int16_rows_past_the_kernel():
+    """Past MAX_KERNEL_L the one copy is int32 (n, l), a direct count."""
     l = kendall_merge.MAX_KERNEL_L + 1
     x = np.stack([np.random.default_rng(5).permutation(l),
                   np.arange(l) // 3]).astype(np.float32)
     st = kendall_merge.rank_structure(torch.from_numpy(x))
-    assert st.order16 is None and st.runs16 is None and st.codes16 is None
+    for got, direct in zip((st.order, st.runs, st.codes),
+                           _direct_structure(x)):
+        assert got.dtype == torch.int32 and torch.equal(got, direct)
     assert st.longest.tolist() == [1, 3]
+
+
+@pytest.mark.parametrize("l", [7, 130])
+def test_plain_pair_terms_read_either_row_layout(l):
+    """The plain version's Knight's terms are the same whether the rank
+    structure keeps int16 rows of the kernel's stride (l <= MAX_KERNEL_L)
+    or int32 rows of l (above it)."""
+    x = _tied_rows("levels", 6, l, seed=3 * l)
+    st = kendall_merge.rank_structure(torch.from_numpy(x))
+    wide = dataclasses.replace(
+        st, **{f: getattr(st, f)[:, :l].int().contiguous()
+               for f in ("order", "runs", "codes")})
+    ri, ci = torch.arange(6), torch.arange(6)
+    for a, b in zip(kendall_merge._pair_terms(st, st, ri, ci, l),
+                    kendall_merge._pair_terms(wide, wide, ri, ci, l)):
+        assert torch.equal(a, b)
 
 
 def _kernel_sort_count(keys, p, e, sentinel):

@@ -1391,22 +1391,45 @@ def _kendall_operand(x, t, device):
     return pad_operands(kendall_rank_transform(x.to(device)), t, 8)
 
 
+# P E of every instantiation of the kendall_merge kernel, in its order
+# (csrc/kendall_merge.cu KM_SHAPES; test_kendall_tops_are_the_instantiations
+# holds this against the library's list)
+KENDALL_TOPS = (64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 2560,
+                3072, 4096, 5120, 6144, 8192, 10240, 12288, 14336, 16384)
+
+
 def _kendall_shapes():
     """(n, n_cols, l, t, j_start, pass_tiles): l at the top of every E
     instantiation of the kernel and one past it (the next E's first), l =
     2, 31, 32, 33, the paper's 5,072 and 16,384 (MAX_KERNEL_L); the triangle
     and the grid in turn, ids past the end at some."""
-    from repro_torch.kernels.kendall_merge import KERNEL_GEOMETRY
     ls = {2, 31, 32, 33, 5072}
-    for p, es, _ in KERNEL_GEOMETRY:
-        for e in es:
-            ls |= {p * e, min(p * e + 1, 16_384)}
+    for top in KENDALL_TOPS:
+        ls |= {top, min(top + 1, 16_384)}
     shapes = []
     for i, l in enumerate(sorted(ls)):
         t = 4 if l > 6_144 else 8
         shapes.append((9 + i % 5, (7 + i % 3) if i % 2 else None, l, t,
                        i % 4, 3))
     return shapes
+
+
+@pytest.mark.gpu
+def test_kendall_tops_are_the_instantiations(cuda):
+    """KENDALL_TOPS, the edges the kernel tests take, are the P E of the
+    kernel's instantiations as its library lists them, and a launch at each
+    takes that instantiation."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("kendall_merge")
+    buf = (ctypes.c_int * 192)()
+    n = lib.kendall_merge_instantiations(buf, 64)
+    shapes = [tuple(buf[3 * k:3 * k + 3]) for k in range(n)]
+    assert tuple(p * e for p, e, _ in shapes) == KENDALL_TOPS
+    out = (ctypes.c_int * 8)()
+    for p, e, groups in shapes:
+        assert lib.kendall_merge_occupancy(p * e, 8, 0, out) == 0
+        assert tuple(out[:3]) == (p, e, groups) and out[5] >= 1
 
 
 @pytest.mark.gpu
