@@ -6,10 +6,11 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel from the sources in the checkout (nvcc, one
      process per source, all started together) and print ptxas' report
-     (registers, spills: the tensor-core tile kernels, int8 included, the
-     float32 tile kernel, the float32 flash kernel, the three top-k
-     selects and the two merge instantiations may not spill), and check
-     that the SIMT tile library exports no bf16 / fp8 / int8 entry point;
+     (registers, spills: the tensor-core tile kernels, int8 and fp16
+     included, the float32 tile kernel, the float32 flash kernel, the four
+     top-k selects and the two merge instantiations may not spill), and
+     check that the SIMT tile library exports no bf16 / fp16 / fp8 / int8
+     entry point;
   2. hold each kernel against its plain PyTorch version on the card, at
      small ragged shapes and at the main path's full shape;
   3. drive the main path, corr(x) at the paper's Table II shape (SEEK
@@ -44,9 +45,10 @@ Phases, each fatal on failure:
      the Table II shape, the merge and torch.topk of its scratch at the
      grid shape, and the grid mode of pcc_tiles at the rectangular shape,
      each with its bound;
- 10. the bf16 and int8 operand modes of both kernels at phase 2's shapes,
-     triangle and grid: bf16 tiles (the tensor-core kernel) within the
-     narrow gate of the plain version (kernels/narrow_gate.py),
+ 10. the bf16, fp16 and int8 operand modes of both kernels at phase 2's
+     shapes, triangle and grid: bf16 and fp16 tiles (the tensor-core
+     kernel) within the narrow gate of the plain version
+     (kernels/narrow_gate.py),
      which refuses two planted faults (a 128-sample chunk of U zeroed, or
      counted twice) by at least 10x, int8 tiles (Kendall pair signs) and
      int8 top-k states bitwise the plain version's, top-k values bitwise
@@ -56,14 +58,20 @@ Phases, each fatal on failure:
      bit-identical to TopKSink(10); times, and the rank transform alone;
  12. bf16 Pearson at Table II, dense and DeviceTopKSink(10): the bf16
      kernels' launches, 16 rows against float64 within the reference's bf16
-     bound, top-k bit-identical to TopKSink(10); times, peak memory;
+     bound, top-k bit-identical to TopKSink(10); times, peak memory; then
+     its fp16 twin (the fp16 kernels' launches, 16 rows against float64
+     within 2^-10 + 1e-5, argued from fp16's unit roundoff 2^-11);
  13. int8 Kendall tau-a over the 17,555 Table II genes and their first 64
      samples (below the reference's 96-sample merge crossover): the int8
-     kernels' launches, bitwise the float32 sign-GEMM, 16 rows against a
-     float64 direct count, top-k bit-identical to TopKSink(10); times;
- 14. the bf16 and int8 kernels at those shapes against their plain versions
-     (bf16 within the narrow gate, the planted faults refused), timed with
-     their bounds and a library yardstick each;
+     kernels' launches, bitwise the float32 sign-GEMM and the int16 run
+     (compute_dtype=torch.int16, whose signs run the int8 kernel), 16 rows
+     against a float64 direct count, top-k bit-identical to TopKSink(10);
+     times;
+ 14. the bf16, fp16 and int8 kernels at those shapes against their plain
+     versions (bf16 and fp16 within the narrow gate, the planted faults
+     refused), timed with their bounds (989 TFLOP/s bf16 and fp16, 1,979
+     TOP/s int8) and a library yardstick each (torch.matmul in the operand
+     type, torch._int_mm);
  15. the scaled (int8, fp8 e4m3 and e5m2) and triangle second-operand modes
      of pcc_tiles at phase 2's shapes, triangle and grid: scaled int8 tiles
      bitwise the plain version's, fp8 tiles within the narrow gate of it
@@ -166,7 +174,24 @@ Phases, each fatal on failure:
      time at the TF triangle against its bound (l_p2 log2 l_p2 compares a
      pair merge at 64 x 132 lanes x the SM clock, or bytes at 3.35 TB/s),
      its plain version on one tile, and torch._int_mm on the int8 pair signs
-     (whose C - D must give the same tau-a bits).
+     (whose C - D must give the same tau-a bits);
+ 24. the serving layer (repro_torch.serving) on the Table II corpus at
+     t = 256, l_blk = 512: a CorrServer(max_wait_s=0.02) takes 6 client
+     threads x 4 queries of 1-64 of phase 8's TF rows (row draws seed 1),
+     half dense, half top-10; every answer bitwise standalone corr(probes,
+     corpus) or corr(..., sink=TopKSink(10)); the float32 tiles and select
+     launched, no plain version, fewer launches than requests, one corpus
+     transform, a plan-cache hit on a repeat shape, queue and service ms;
+     a Spearman query (a second corpus transform) and a kendall_merge
+     query of 16 TF rows (its kernel launched), both bitwise standalone;
+     significance of 16 TF rows at B = 32 in chunks of 16 (key 0), (r, p)
+     bitwise corr(pvalues=), a repeat served from the cached null state
+     with no stack built, peak memory; a LiveIndex over the corpus and a
+     watch of 8 TF rows (top-10): an append of 64 rows (seed 5) launches
+     only the 64 x 17,555 grid and the 64-row triangle (and the watch's
+     8 x 64 grid), the index bitwise a cold corr of 17,619 rows, the
+     watch bitwise its cold top-k; an update of 32 rows (seed 6) within
+     DRIFT_TOL of cold; the phase's seconds.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -207,6 +232,14 @@ TOL_BF16 = 3e-2
 # int8 Kendall against a float64 direct count: integer counts, one float32
 # division, so only the division's rounding remains.
 TOL_KENDALL = 1e-6
+# fp16 operands against float64: each stored operand entry is the float32
+# transform rounded to fp16, a relative error <= 2^-11 (fp16's unit
+# roundoff; below fp16's normal range, 2^-14, an absolute one <= 2^-25).
+# A Pearson value sum u_i v_i over unit rows then moves by at most
+# 2 * 2^-11 * sum |u_i v_i| <= 2^-10 (Cauchy-Schwarz), plus at most
+# 2 * 2^-25 * sqrt(l) (~4e-6 at l = 5,072) from subnormal entries, plus
+# the float32 sums' TOL_F64.
+TOL_F16 = 2.0 ** -10 + 2 * 2.0 ** -25 * L_SEEK ** 0.5 + TOL_F64
 L_KENDALL = 64      # below the reference's 96-sample merge crossover
 # Card peaks for the narrow modes' bounds (H100 SXM data sheet, dense, at
 # 700 W): bf16 tensor cores, int8 tensor cores.
@@ -251,6 +284,16 @@ EDGE_MODULES, EDGE_LABEL_SEED = 10, 3
 ROW_BLOCKS = [(0, 500), (500, 1_100), (1_100, 1_639)]
 N_64K, L_64K = 64_000, 5_000       # paper Table I, configs ARTIFICIAL_64K
 CHECK_ROWS = 16
+# Phase 24, serving: SERVE_CLIENTS client threads x SERVE_QUERIES queries of
+# 1-SERVE_MAX_ROWS TF probe rows each (row draws seed 1), half dense, half
+# top-K_TOP; the batching window; significance of SERVE_SIG_ROWS TF rows at
+# B = SERVE_B in chunks of SERVE_CHUNK (key 0); a LiveIndex delta of
+# SERVE_APPEND appended rows (seed 5) and SERVE_UPDATE updated rows (seed
+# 6), and a watch of SERVE_WATCH TF rows.
+SERVE_CLIENTS, SERVE_QUERIES, SERVE_MAX_ROWS = 6, 4, 64
+SERVE_WAIT_S = 0.02
+SERVE_SIG_ROWS, SERVE_B, SERVE_CHUNK = 16, 32, 16
+SERVE_APPEND, SERVE_UPDATE, SERVE_WATCH = 64, 32, 8
 # Significance (phase 18): B permutations (paper SSIV: >= 1,000), key 0.
 B_SIG = 1_000
 SIG_ROWS = 8
@@ -915,6 +958,306 @@ def sm_clock_mhz():
     return cur, top
 
 
+def serving_runs(x_dev, x_tf, reset, plain_calls, tag):
+    """Phase 24: the serving layer (repro_torch.serving) at full width on
+    the Table II corpus, every check fatal.  `reset` sets the kernels'
+    launch counts to 0; `plain_calls` counts the plain versions' calls.
+    Returns the times (ms), counts and peak memories (GB)."""
+    import threading
+
+    import torch
+    import repro_torch.core.allpairs as allpairs_mod
+    import repro_torch.serving.corpus as corpus_mod
+    from repro_torch.core.api import corr
+    from repro_torch.core.significance import PermutationSpec
+    from repro_torch.core.sinks import TopKSink
+    from repro_torch.data.expression import ExpressionSpec, artificial
+    from repro_torch.kernels.kendall_merge import kendall_merge_tiles
+    from repro_torch.kernels.pcc_tile import pcc_tiles, pcc_topk_tiles
+    from repro_torch.serving import DRIFT_TOL, CorrServer, LiveIndex
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def same_dense(got, want, label):
+        want = want.cpu().numpy()
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"{label}: not standalone corr's bits")
+
+    def same_top(got, want, label):
+        if not (np.array_equal(got["indices"], want["indices"]) and
+                got["values"].tobytes() == want["values"].tobytes()):
+            raise AssertionError(f"{label}: not standalone corr's top-k")
+
+    def no_plain(label):
+        if any(plain_calls.values()):
+            raise AssertionError(f"{label}: a plain version ran "
+                                 f"({plain_calls})")
+
+    rng = np.random.default_rng(1)
+    n_tf = x_tf.shape[0]
+    work = [[(np.sort(rng.choice(n_tf, int(rng.integers(
+        1, SERVE_MAX_ROWS + 1)), replace=False)), (c + q) % 2 == 1)
+        for q in range(SERVE_QUERIES)] for c in range(SERVE_CLIENTS)]
+    requests = SERVE_CLIENTS * SERVE_QUERIES
+    srv = CorrServer(x_dev, max_wait_s=SERVE_WAIT_S)
+    li = None
+    orig_launch = allpairs_mod.launch_tiles
+    orig_replica = corpus_mod.replica_operand
+    try:
+        if srv.corpus.device.type != "cuda":
+            raise AssertionError("the served corpus is not on the card")
+        # -- concurrent dense and top-k queries --------------------------------
+        answers = [[None] * SERVE_QUERIES for _ in range(SERVE_CLIENTS)]
+        errors = []
+
+        def client(c):
+            try:
+                for q, (idx, topk) in enumerate(work[c]):
+                    probes = x_tf[torch.as_tensor(idx, device=x_tf.device)]
+                    answers[c][q] = (probes, topk, srv.query(
+                        probes, k=K_TOP if topk else None, timeout=120))
+            except BaseException as e:   # noqa: BLE001 — raised below
+                errors.append(e)
+
+        reset()
+        kendall0 = kendall_merge_tiles.launches
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        burst_ms = (time.perf_counter() - t0) * 1e3
+        if errors:
+            raise errors[0]
+        torch.cuda.synchronize()
+        tiles_by = dict(pcc_tiles.launches_by_dtype)
+        select_by = dict(pcc_topk_tiles.select_by_dtype)
+        launches = pcc_tiles.launches + pcc_topk_tiles.launches["select"]
+        stats = srv.stats()
+        print(f"  {requests} queries from {SERVE_CLIENTS} threads "
+              f"({SERVE_QUERIES} each, 1-{SERVE_MAX_ROWS} TF rows, half "
+              f"top-{K_TOP}) in {burst_ms:.1f} ms: {stats['batches']} "
+              f"batches, pcc_tiles {tiles_by}, pcc_topk_tiles "
+              f"{dict(pcc_topk_tiles.launches)} select {select_by}, plain "
+              f"calls {plain_calls}; plan cache {stats['plan_cache']}; "
+              f"corpus transforms {stats['corpus']['misses']}, hits "
+              f"{stats['corpus']['hits']}")
+        no_plain("served queries")
+        if set(k for k, v in tiles_by.items() if v) != {"float32"} or \
+                set(k for k, v in select_by.items() if v) != {"float32"} or \
+                kendall_merge_tiles.launches != kendall0:
+            raise AssertionError("served queries ran other kernels than "
+                                 "the float32 tiles and select")
+        if not 0 < launches < requests or \
+                stats["requests"] != requests or \
+                not stats["batches"] < requests:
+            raise AssertionError(f"{launches} launches and "
+                                 f"{stats['batches']} batches for {requests} "
+                                 f"requests: nothing coalesced")
+        if stats["corpus"]["misses"] != 1:
+            raise AssertionError("the corpus was transformed more than once")
+        queue = [a[2].stats["queue_s"] * 1e3 for row in answers for a in row]
+        service = [a[2].stats["service_s"] * 1e3 for row in answers
+                   for a in row]
+        for row in answers:
+            for probes, topk, res in row:
+                if topk:
+                    same_top(res.value, corr(probes, x_dev,
+                                             sink=TopKSink(K_TOP)), "top-k")
+                else:
+                    same_dense(res.value, corr(probes, x_dev), "dense")
+        print(f"  every answer bitwise standalone corr(probes, corpus) "
+              f"(dense) or corr(..., sink=TopKSink({K_TOP})); queue ms "
+              f"median {statistics.median(queue):.3f} max {max(queue):.3f},"
+              f" service ms median {statistics.median(service):.3f} max "
+              f"{max(service):.3f}; {requests / stats['batches']:.2f} "
+              f"requests a batch, {requests / launches:.2f} a launch, mean "
+              f"occupancy {stats['mean_batch_occupancy']:.3f}")
+        # a repeat shape hits the plan cache (the first repeat may be the
+        # first batch of its bucket; the second is not)
+        probes0, topk0, _ = answers[0][0]
+        for _ in range(2):
+            again = srv.query(probes0, k=K_TOP if topk0 else None,
+                              timeout=60)
+        if not again.stats["plan_cache_hit"]:
+            raise AssertionError("a repeat shape missed the plan cache")
+        out.update(requests=requests, batches=stats["batches"],
+                   launches=launches, burst_ms=burst_ms,
+                   queue_ms_median=statistics.median(queue),
+                   queue_ms_max=max(queue),
+                   service_ms_median=statistics.median(service),
+                   service_ms_max=max(service),
+                   plan_cache=stats["plan_cache"])
+
+        # -- a Spearman query: a second corpus transform -----------------------
+        p16 = x_tf[:SERVE_SIG_ROWS]
+        reset()
+        sp = srv.query(p16, measure="spearman", timeout=120)
+        torch.cuda.synchronize()
+        no_plain("Spearman query")
+        same_dense(sp.value, corr(p16, x_dev, measure="spearman"),
+                   "Spearman")
+        if srv.stats()["corpus"]["misses"] != 2:
+            raise AssertionError("Spearman did not make one more transform")
+        print(f"  Spearman query of {SERVE_SIG_ROWS} TF rows: bitwise "
+              f"standalone corr, corpus transforms 2, pcc_tiles "
+              f"{dict(pcc_tiles.launches_by_dtype)}")
+
+        # -- a merge-sort Kendall query ---------------------------------------
+        k0 = kendall_merge_tiles.launches
+        t0 = time.perf_counter()
+        km = srv.query(p16, measure="kendall_merge", timeout=300)
+        km_ms = (time.perf_counter() - t0) * 1e3
+        served_k = kendall_merge_tiles.launches - k0
+        same_dense(km.value, corr(p16, x_dev, measure="kendall_merge"),
+                   "kendall_merge")
+        no_plain("kendall_merge query")
+        if served_k < 1:
+            raise AssertionError("the Kendall query skipped kendall_merge")
+        print(f"  kendall_merge query of {SERVE_SIG_ROWS} TF rows: "
+              f"{served_k} kendall_merge_tiles launch(es), bitwise "
+              f"standalone corr, {km_ms:.3f} ms served")
+        out.update(kendall_ms=km_ms, kendall_launches=served_k)
+
+        # -- significance on the cached null state ------------------------------
+        builds = [0]
+
+        def counting_replica(*a, **kw):
+            builds[0] += 1
+            return orig_replica(*a, **kw)
+
+        corpus_mod.replica_operand = counting_replica
+        spec = PermutationSpec(SERVE_B, chunk=SERVE_CHUNK, key=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        sig = srv.significance(p16, pvalues=spec)
+        torch.cuda.synchronize()
+        sig_ms = (time.perf_counter() - t0) * 1e3
+        sig_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        rep_launches = pcc_tiles.replica_launches
+        no_plain("significance")
+        r_, p_ = sig.value
+        r_w, p_w = corr(p16, x_dev, pvalues=PermutationSpec(
+            SERVE_B, chunk=SERVE_CHUNK, key=0))
+        if not (torch.equal(r_, r_w) and torch.equal(p_, p_w)):
+            raise AssertionError("served significance is not corr's bits")
+        built = builds[0]
+        t0 = time.perf_counter()
+        sig2 = srv.significance(p16, pvalues=spec)
+        torch.cuda.synchronize()
+        sig2_ms = (time.perf_counter() - t0) * 1e3
+        if not sig2.stats["null_state_hit"] or builds[0] != built or \
+                not (torch.equal(sig2.value[0], r_w)
+                     and torch.equal(sig2.value[1], p_w)):
+            raise AssertionError("the repeat significance query rebuilt "
+                                 "its null state or changed its bits")
+        print(f"  significance of {SERVE_SIG_ROWS} TF rows, B = {SERVE_B}, "
+              f"chunk {SERVE_CHUNK}: (r, p) bitwise corr(pvalues=), "
+              f"{rep_launches} replica launches, {built} stack builds, "
+              f"{sig_ms:.3f} ms, peak {sig_peak:.3f} GB above the "
+              f"{base / 1e9:.3f} GB held; again: null_state_hit, no build, "
+              f"{sig2_ms:.3f} ms; cached null chunks "
+              f"{srv.corpus.stats()['null_chunks']}")
+        out.update(significance_ms=sig_ms, significance_again_ms=sig2_ms,
+                   significance_peak_gb=sig_peak, stack_builds=built)
+        corpus_mod.replica_operand = orig_replica
+
+        # -- LiveIndex and a watch under an append and an update ---------------
+        t0 = time.perf_counter()
+        li = LiveIndex(srv.corpus, measure="pearson")
+        build_ms = (time.perf_counter() - t0) * 1e3
+        w_rows = x_tf[:SERVE_WATCH]
+        watch = srv.watch(w_rows, K_TOP)
+        same_top(watch.current(), corr(w_rows, x_dev, sink=TopKSink(K_TOP)),
+                 "watch, initial")
+        seen = []
+
+        def spy(plan, u, j0, launch, v=None):
+            seen.append((type(plan.workload).__name__,
+                         plan.workload.job_count,
+                         threading.current_thread().name))
+            return orig_launch(plan, u, j0, launch, v=v)
+
+        allpairs_mod.launch_tiles = spy
+        new = torch.from_numpy(artificial(ExpressionSpec(
+            n=SERVE_APPEND, l=x_dev.shape[1], seed=5))).to(x_dev.device)
+        reset()
+        t0 = time.perf_counter()
+        srv.corpus.append(new)
+        torch.cuda.synchronize()
+        append_ms = (time.perf_counter() - t0) * 1e3
+        srv.flush_watches(timeout=120)
+        no_plain("append")
+        n0, t = x_dev.shape[0], srv.batcher.t
+        main = [(k, j) for k, j, th in seen if th != "corr-server-dispatch"]
+        disp = [(k, j) for k, j, th in seen if th == "corr-server-dispatch"]
+        want_main = [("GridWorkload", -(-SERVE_APPEND // t) * -(-n0 // t)),
+                     ("TriangularWorkload", 1)]
+        if main != want_main or disp != [("GridWorkload", 1)]:
+            raise AssertionError(f"append launched {main} (LiveIndex) and "
+                                 f"{disp} (watch)")
+        cold = corr(srv.corpus.x)
+        live = li.result()
+        if live["r"].tobytes() != cold.cpu().numpy().tobytes():
+            raise AssertionError("the appended LiveIndex is not a cold "
+                                 "corr's bits")
+        same_top(watch.current(), corr(w_rows, srv.corpus.x,
+                                       sink=TopKSink(K_TOP)), "watch, append")
+        del cold, live
+        print(f"  LiveIndex over {n0} rows built in {build_ms:.1f} ms; an "
+              f"append of {SERVE_APPEND} rows launched {main} "
+              f"({append_ms:.1f} ms with the merge into the host matrix) "
+              f"and the watch {disp}; the index bitwise a cold corr of "
+              f"{srv.corpus.n} rows, the watch bitwise its cold top-k")
+        upd = np.sort(np.random.default_rng(6).choice(
+            srv.corpus.n, SERVE_UPDATE, replace=False))
+        rows = torch.from_numpy(artificial(ExpressionSpec(
+            n=SERVE_UPDATE, l=x_dev.shape[1], seed=6))).to(x_dev.device)
+        seen.clear()
+        t0 = time.perf_counter()
+        srv.corpus.update(upd, rows)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) * 1e3
+        srv.flush_watches(timeout=120)
+        no_plain("update")
+        upd_launches = [(k, j) for k, j, _ in seen]
+        cold = corr(srv.corpus.x).cpu().numpy()
+        drift = float(np.abs(li.result()["r"] - cold).max())
+        del cold
+        cold_w = corr(w_rows, srv.corpus.x, sink=TopKSink(K_TOP))
+        cur = watch.current()
+        w_drift = float(np.abs(cur["values"] - cold_w["values"]).max())
+        if not (drift <= DRIFT_TOL and w_drift <= DRIFT_TOL and
+                np.array_equal(cur["indices"], cold_w["indices"])):
+            raise AssertionError(f"update drifted {drift:.3e} (index), "
+                                 f"{w_drift:.3e} (watch) past DRIFT_TOL or "
+                                 f"moved the watch's top-k")
+        print(f"  an update of {SERVE_UPDATE} rows ({update_ms:.1f} ms; "
+              f"launches {upd_launches}, the index's and the watch's): the "
+              f"index within "
+              f"{drift:.3e} of a cold corr, the watch's top-k indices equal, "
+              f"values within {w_drift:.3e} (DRIFT_TOL {DRIFT_TOL:g}); "
+              f"watch revalidations {watch.revalidations}")
+        out.update(live_build_ms=build_ms, append_ms=append_ms,
+                   update_ms=update_ms, update_drift=drift,
+                   watch_drift=w_drift)
+    finally:
+        allpairs_mod.launch_tiles = orig_launch
+        corpus_mod.replica_operand = orig_replica
+        if li is not None:
+            li.close()
+        srv.close(timeout=300)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 24 took {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def kendall_runs(x_dev, x_tf, reset, tag):
     """Phase 23: merge-sort Kendall at the paper's sample count, every
     check fatal.  `reset` sets the pcc kernels' launch counts to 0.  Returns
@@ -1509,10 +1852,10 @@ def main(argv) -> int:
     # -- 1. build -----------------------------------------------------------
     def watched(entry):
         """A readable name for the kernels redesigned on this path (the
-        float32 tile kernel's four instantiations, the three selects, the
+        float32 tile kernel's four instantiations, the four selects, the
         merge kernel's two, the float32 flash kernel's five head tiles,
-        the int8 tensor-core tile kernel's two) and the merge-sort Kendall
-        kernel's (one per instantiation <P, E, groups>),
+        the int8 and float16 tensor-core tile kernels' two each) and the
+        merge-sort Kendall kernel's (one per instantiation <P, E, groups>),
         None for the others;
         `entry` is ptxas' "Compiling entry function" line."""
         if entry is None:
@@ -1520,18 +1863,22 @@ def main(argv) -> int:
         if "flash_fwdILi" in entry:
             dp = entry.split("flash_fwdILi", 1)[1].split("E", 1)[0]
             return f"flash_fwd<{dp}>"
-        if "pcc_tiles_sm90IaLb" in entry:   # int8_t is mangled "a"
-            flag = entry.split("pcc_tiles_sm90IaLb", 1)[1][0]
-            return f"pcc_tiles_sm90<int8_t, scaled={flag}>"
+        # int8_t is mangled "a", __half "6__half"
+        for mangled, name in (("IaLb", "int8_t"), ("I6__halfLb", "__half")):
+            if "pcc_tiles_sm90" + mangled in entry:
+                flag = entry.split("pcc_tiles_sm90" + mangled, 1)[1][0]
+                return f"pcc_tiles_sm90<{name}, scaled={flag}>"
         if "pcc_tiles_f32_kernel" in entry:
             flags = entry.split("pcc_tiles_f32_kernel", 1)[1][:12]
             return (f"pcc_tiles_f32_kernel<scaled={flags[3]}, "
                     f"replica={flags[7]}>")
         if "pcc_topk_select_f32_kernel" in entry:
             return "pcc_topk_select_f32_kernel"
-        if "pcc_topk_select_sm90" in entry:   # int8_t is mangled "a"
+        if "pcc_topk_select_sm90" in entry:
             return "pcc_topk_select_sm90<%s>" % (
-                "int8_t" if "pcc_topk_select_sm90IaE" in entry else "bf16")
+                "int8_t" if "pcc_topk_select_sm90IaE" in entry else
+                "__half" if "pcc_topk_select_sm90I6__halfE" in entry
+                else "bf16")
         if "pcc_topk_merge_kernelILi" in entry:
             kw = entry.split("pcc_topk_merge_kernelILi", 1)[1].split("E")[0]
             return f"pcc_topk_merge_kernel<{kw}>"
@@ -1578,21 +1925,21 @@ def main(argv) -> int:
     # (this tree's kernels: --overlap-only may build an earlier tree's)
     kendall_kernels = {f"kendall_merge_kernel<{p}, {e}, {g}>" for p, e, g
                        in kendall_instantiations(_build.load("kendall_merge"))}
-    if len(report) != 16 + len(kendall_kernels) or \
+    if len(report) != 19 + len(kendall_kernels) or \
             not kendall_kernels <= set(report):
         raise AssertionError(
             f"ptxas reported {sorted(report)}: expected the 4 float32 "
-            f"tile, the 3 select (float32; int8 and bf16 on the tensor "
-            f"cores), the 2 merge, the 5 float32 flash, the 2 int8 "
-            f"tensor-core tile and the {len(kendall_kernels)} "
+            f"tile, the 4 select (float32; int8, bf16 and fp16 on the "
+            f"tensor cores), the 2 merge, the 5 float32 flash, the 2 int8 "
+            f"and 2 fp16 tensor-core tile and the {len(kendall_kernels)} "
             f"kendall_merge kernels")
     simt = _build.load("pcc_tile")
-    gone = [f"pcc_tiles_{s}" for s in ("bf16", "e4m3", "e5m2", "i8")]
+    gone = [f"pcc_tiles_{s}" for s in ("bf16", "f16", "e4m3", "e5m2", "i8")]
     if any(hasattr(simt, fn) for fn in gone):
         raise AssertionError(f"the SIMT tile library still exports one "
                              f"of {gone}")
-    print(f"  the SIMT tile library exports none of {gone}: bf16, fp8 "
-          f"and int8 tiles run only on pcc_tile_sm90.cu")
+    print(f"  the SIMT tile library exports none of {gone}: bf16, fp16, "
+          f"fp8 and int8 tiles run only on pcc_tile_sm90.cu")
 
     # -- 2. kernel against plain --------------------------------------------
     def operand(x: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
@@ -2236,12 +2583,12 @@ def main(argv) -> int:
         return pad_operands(measures.pair_sign_transform(
             x[:, :L_KENDALL], dtype=torch.int8), t, l_blk)
 
-    print("bf16 / int8 kernels at the phase 2 shapes: bf16 within the narrow "
-          "gate of the plain version (the planted faults refused), int8 "
-          "(Kendall signs) bitwise the plain version, top-k values bitwise "
-          "pcc_tiles':")
-    narrow_err = {"bfloat16": 0.0, "int8": 0.0}
-    narrow_share = {"bfloat16": 0.0}
+    print("bf16 / fp16 / int8 kernels at the phase 2 shapes: bf16 and fp16 "
+          "within the narrow gate of the plain version (the planted faults "
+          "refused), int8 (Kendall signs) bitwise the plain version, top-k "
+          "values bitwise pcc_tiles':")
+    narrow_err = {"bfloat16": 0.0, "float16": 0.0, "int8": 0.0}
+    narrow_share = {"bfloat16": 0.0, "float16": 0.0}
     fault_min = {}
     narrow_ties = 0
     for n, l, t, l_blk, j0, tiles in small:
@@ -2252,6 +2599,8 @@ def main(argv) -> int:
             np.float32)).to(dev)
         ops = {"bfloat16": (operand(xs_, t, l_blk).to(torch.bfloat16),
                             operand(ys_, t, l_blk).to(torch.bfloat16)),
+               "float16": (operand(xs_, t, l_blk).to(torch.float16),
+                           operand(ys_, t, l_blk).to(torch.float16)),
                "int8": (kendall_operand(xs_, t, l_blk),
                         kendall_operand(ys_, t, l_blk))}
         for dname, (u, v) in ops.items():
@@ -2267,7 +2616,7 @@ def main(argv) -> int:
                 for spec in epilogues.values():
                     kw = dict(t=t, l_blk=l_blk, pass_tiles=tiles,
                               epilogue=spec, v_pad=vv, grid_cols=gc)
-                    if dname == "bfloat16":
+                    if dname in narrow_share:
                         got, share, err, gmax, fault = narrow_readings(
                             u, j0, kw, label, faults=spec is None)
                         narrow_share[dname] = max(narrow_share[dname], share)
@@ -2302,7 +2651,7 @@ def main(argv) -> int:
                                              f"state != plain")
                     for side in range(len(got) // 2):
                         pair = got[2 * side:2 * side + 2]
-                        if dname == "bfloat16":
+                        if dname in narrow_share:
                             cols_op = (v if grid else u).double()
                             err, ties = check_topk_state(
                                 pair, want[2 * side:2 * side + 2],
@@ -2320,15 +2669,16 @@ def main(argv) -> int:
                             raise AssertionError(f"{label} kk={kk}: top-k "
                                                  f"values are not pcc_tiles' "
                                                  f"bits")
-    print(f"  {len(small)} shapes x (bf16, int8) x (triangle, grid): all "
-          f"bitwise checks hold; bf16 at most "
-          f"{narrow_share['bfloat16']:.4g} of the narrow gate, max|kernel - "
-          f"plain| {narrow_err['bfloat16']:.3e}, planted faults refused at "
-          f">= {fault_min[('bfloat16', 'chunk zeroed')]:.4g} (chunk zeroed) "
-          f"and {fault_min[('bfloat16', 'chunk twice')]:.4g} (chunk twice) "
-          f"of it; int8 {narrow_err['int8']:.3e}; bf16 top-k values within "
-          f"{TOL_SMALL:g} + the gate of float64, near-tie column swaps "
-          f"{narrow_ties}; int8 top-k states equal to plain")
+    print(f"  {len(small)} shapes x (bf16, fp16, int8) x (triangle, grid): "
+          f"all bitwise checks hold; " + "; ".join(
+              f"{d} at most {narrow_share[d]:.4g} of the narrow gate, "
+              f"max|kernel - plain| {narrow_err[d]:.3e}, planted faults "
+              f"refused at >= {fault_min[(d, 'chunk zeroed')]:.4g} (chunk "
+              f"zeroed) and {fault_min[(d, 'chunk twice')]:.4g} (chunk "
+              f"twice) of it" for d in narrow_share)
+          + f"; int8 {narrow_err['int8']:.3e}; bf16 / fp16 top-k values "
+          f"within {TOL_SMALL:g} + the gate of float64, near-tie column "
+          f"swaps {narrow_ties}; int8 top-k states equal to plain")
 
     def rows_err(r, ref64, rows):
         return float((r[rows].double() - ref64).abs().max())
@@ -2418,6 +2768,52 @@ def main(argv) -> int:
           f"{[round(v, 3) for v in bftk_all]}), peak {bftk_peak:.3f} GB above "
           f"the {base_mem / 1e9:.3f} GB held {tag}")
 
+    # -- 12'. fp16 Pearson at Table II: the bf16 run's twin -------------------
+    fplan = ExecutionPlan.create(N_SEEK, L_SEEK, compute_dtype=torch.float16)
+    u_f16 = fplan.prepare(x_dev)
+    print(f"fp16 Pearson: corr(x, compute_dtype=torch.float16) at "
+          f"n={N_SEEK} l={L_SEEK}: operand {u_f16.numel() * 2 / 1e6:.1f} MB")
+    reset_counts()
+    rf16 = corr(x_dev, compute_dtype=torch.float16)
+    torch.cuda.synchronize()
+    check_launches("dense", fplan.n_pass, 0, "float16")
+    f16_tiles_launches = pcc_tiles.launches_by_dtype["float16"]
+    if not bool(torch.isfinite(rf16).all()) or not torch.equal(rf16,
+                                                                rf16.T):
+        raise AssertionError("bad fp16 result")
+    u64 = pcc.transform(x_dev.double())
+    err_f16 = rows_err(rf16, torch.clamp(u64[rows16] @ u64.T, -1.0, 1.0),
+                       rows16)
+    print(f"  {CHECK_ROWS} rows vs float64 Pearson: max|d| = {err_f16:.3e} "
+          f"(tol {TOL_F16:.4g}: 2^-10 from fp16's unit roundoff, "
+          f"subnormals, float32 sums)")
+    if not err_f16 <= TOL_F16:
+        raise AssertionError("fp16 corr disagrees with float64")
+    del u64, rf16
+    reset_counts()
+    res_f16 = corr(x_dev, compute_dtype=torch.float16,
+                   sink=DeviceTopKSink(K_TOP))
+    torch.cuda.synchronize()
+    check_launches(f"DeviceTopKSink({K_TOP})", 0, fplan.n_pass, "float16")
+    f16_select_launches = pcc_topk_tiles.select_by_dtype["float16"]
+    same_topk(res_f16, corr(x_dev, compute_dtype=torch.float16,
+                            sink=TopKSink(K_TOP)), "fp16")
+    print(f"  DeviceTopKSink({K_TOP}) bit-identical to TopKSink({K_TOP}) "
+          f"in fp16")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    f16_ms, f16_all = host_ms(lambda: corr(
+        x_dev, compute_dtype=torch.float16), 3)
+    f16_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    f16tk_ms, f16tk_all = host_ms(lambda: corr(
+        x_dev, compute_dtype=torch.float16, sink=DeviceTopKSink(K_TOP)), 3)
+    f16tk_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"  dense {f16_ms:.3f} ms (runs {[round(v, 3) for v in f16_all]}), "
+          f"peak {f16_peak:.3f} GB; top-k {f16tk_ms:.3f} ms (runs "
+          f"{[round(v, 3) for v in f16tk_all]}), peak {f16tk_peak:.3f} GB "
+          f"above the {base_mem / 1e9:.3f} GB held {tag}")
+
     # -- 13. int8 Kendall tau-a, n = 17,555 genes x l = 64 samples ------------
     x_k = x_dev[:, :L_KENDALL].contiguous()
     kplan = ExecutionPlan.create(N_SEEK, L_KENDALL, measure="kendall",
@@ -2435,6 +2831,17 @@ def main(argv) -> int:
     rk32 = corr(x_k, measure="kendall")
     if not torch.equal(rk8, rk32):
         raise AssertionError("int8 Kendall != float32 sign-GEMM")
+    # int16 stores the same exact signs; they run the int8 kernel narrowed
+    reset_counts()
+    rk16 = corr(x_k, measure="kendall", compute_dtype=torch.int16)
+    torch.cuda.synchronize()
+    check_launches("int16 signs (narrowed to int8)", kplan.n_pass, 0,
+                   "int8")
+    if not torch.equal(rk16, rk8):
+        raise AssertionError("int16 Kendall != int8 Kendall")
+    print("  compute_dtype=torch.int16: the int8 kernel on the narrowed "
+          "signs, bitwise the int8 run")
+    del rk16
     ia, ib = np.triu_indices(L_KENDALL, 1)
     xk64 = x_k.double()
     sgn = torch.sign(xk64[:, ia] - xk64[:, ib])
@@ -2477,9 +2884,9 @@ def main(argv) -> int:
           f"(runs {[round(v, 3) for v in k32_all]}); int8 top-k "
           f"{k8tk_ms:.3f} ms (runs {[round(v, 3) for v in k8tk_all]}) {tag}")
 
-    # -- 14. the bf16 and int8 kernel modes at those shapes -------------------
+    # -- 14. the bf16, fp16 and int8 kernel modes at those shapes -------------
     # Bounds: operations at the tensor-core peak of the operand type (989
-    # TFLOP/s bf16, 1,979 TOP/s int8), bytes at 3.35 TB/s (each operand byte
+    # TFLOP/s bf16 and fp16, 1,979 TOP/s int8), bytes at 3.35 TB/s (each operand byte
     # read once, each output byte written once); the larger one bounds.
     def narrow_bound(ops_, nbytes, peak):
         o_ms = ops_ / peak * 1e3
@@ -2490,16 +2897,18 @@ def main(argv) -> int:
     full = {}
     for dname, u, p_, width, peak in [
             ("bfloat16", u_bf, bplan, L_SEEK, BF16_FLOPS),
+            ("float16", u_f16, fplan, L_SEEK, BF16_FLOPS),
             ("int8", u_k, kplan, n_pairs, INT8_OPS)]:
         tot = p_.total_tiles
         spec_ = p_.epilogue_spec
         kw = dict(t=p_.t, l_blk=p_.l_blk, pass_tiles=tot, epilogue=spec_)
-        if dname == "bfloat16":
+        short = {"bfloat16": "bf16", "float16": "fp16"}.get(dname, dname)
+        if dname != "int8":
             got, share, err, slack, fault = narrow_readings(
-                u, 0, kw, "bf16 at the full shape")
+                u, 0, kw, f"{short} at the full shape")
             narrow_share[dname] = max(narrow_share[dname], share)
-            print(f"  bf16 tiles at the full pass: {share:.4g} of the narrow "
-                  f"gate (max|kernel - plain| {err:.3e}, largest gate "
+            print(f"  {short} tiles at the full pass: {share:.4g} of the "
+                  f"narrow gate (max|kernel - plain| {err:.3e}, largest gate "
                   f"{slack:.3e}); planted faults refused at "
                   + ", ".join(f"{f:.4g} ({k})" for k, f in fault.items())
                   + " of it")
@@ -2526,8 +2935,8 @@ def main(argv) -> int:
                                      kk=K_TOP, n_cols_valid=N_SEEK,
                                      spec=spec_, tol=TOL_FULL + slack)
             err = max(err, e2)
-            print(f"  bf16 top-k vs plain at the full pass: max|kernel - "
-                  f"plain| = {e2:.3e}, {ties} near-tie column swaps")
+            print(f"  {short} top-k vs plain at the full pass: max|kernel "
+                  f"- plain| = {e2:.3e}, {ties} near-tie column swaps")
         narrow_err[dname] = max(narrow_err[dname], err)
         ops_ = 2 * width * p_.t ** 2 * tot
         op_b = u.numel() * u.element_size()
@@ -2539,7 +2948,7 @@ def main(argv) -> int:
             lib_label = "torch._int_mm(u, u.T) (int32 out)"
         else:
             mm, ut = torch.matmul, u.T
-            lib_label = "torch.matmul(u, u.T) (bf16 out)"
+            lib_label = f"torch.matmul(u, u.T) ({short} out)"
         l_ms, _ = event_ms(lambda: mm(u, ut), 5)
         t_bound = narrow_bound(ops_, op_b + tot * p_.t ** 2 * 4, peak)
         s_ms, s_all = event_ms(lambda: topk_select(u, 0, tot, **tkw), 5)
@@ -2552,7 +2961,7 @@ def main(argv) -> int:
         full[dname] = dict(ms=k_ms, plain=p_ms, lib=l_ms, bound=t_bound,
                            sel=s_ms, sel_plain=sp_ms_, sel_lib=sl_ms,
                            sel_bound=s_bound)
-        if dname == "bfloat16":
+        if dname != "int8":
             full[dname]["fault"] = full_fault
         print(f"{dname} kernels, one pass of {tot} tiles over {tuple(u.shape)} "
               f"({width} real columns) {tag}:")
@@ -3658,10 +4067,18 @@ def main(argv) -> int:
                                                  tag)
     print(json.dumps({"kendall": kendall_times}))
 
+    # -- 24. the serving layer at full width -----------------------------------
+    print(f"serving (CorrServer, LiveIndex, watch) on the Table II corpus "
+          f"{tag}:")
+    print(json.dumps({"serving": serving_runs(x_dev, x_tf, reset_counts,
+                                              plain_calls, tag)}))
+    torch.cuda.empty_cache()
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
             ("bfloat16", "bf16", bf_tiles_launches, bf_select_launches),
+            ("float16", "fp16", f16_tiles_launches, f16_select_launches),
             ("int8", "int8", k_tiles_launches, k_select_launches)]:
         f = full[dname]
         narrow_records += [
@@ -3757,8 +4174,8 @@ def main(argv) -> int:
     for rec in record["kernels"]:
         if rec["name"].startswith("pcc_topk_select"):
             rec["mainloop"] = source + (
-                "pcc_mma.cuh" if "bf16" in rec["name"] or "int8" in
-                rec["name"] else "pcc_sgemm.cuh")
+                "pcc_mma.cuh" if any(d in rec["name"] for d in (
+                    "bf16", "fp16", "int8")) else "pcc_sgemm.cuh")
         elif rec["name"].startswith("pcc_tiles"):
             rec["mainloop"] = source + mainloops[
                 rec["source"].rsplit("/", 1)[1]]

@@ -25,8 +25,8 @@ from repro_torch.core.quantize import Operand
 _PORTED = {"tile_kernel": (None, "kendall_merge_tile_kernel",
                            "kendall_tau_b_merge_tile_kernel"),
            "symmetric_grid": (False,),
-           "compute_dtype": (None, "bfloat16", "int8", "float8_e4m3fn",
-                             "float8_e5m2"),
+           "compute_dtype": (None, "bfloat16", "float16", "int8", "int16",
+                             "float8_e4m3fn", "float8_e5m2"),
            "p": (1,)}
 _WORKLOADS = ("TriangularWorkload", "GridWorkload")
 # numpy (ml_dtypes) narrow floats torch.from_numpy refuses: carried over as
@@ -38,8 +38,9 @@ _VIEWED = {"bfloat16": (np.uint16, torch.bfloat16),
 
 def plan_from_reference(spec: dict) -> ExecutionPlan:
     """The port's ExecutionPlan for a reference plan's ``spec_dict()``
-    (triangular or rectangular grid; float32, bf16, int8 or fp8 operands,
-    quantized where the reference quantizes; a merge-sort Kendall plan,
+    (triangular or rectangular grid; float32, bf16, fp16, int8, int16 or fp8
+    operands, quantized where the reference quantizes; a merge-sort Kendall
+    plan,
     whose tile kernel is named by its ``__name__``; a masked run's sink plan,
     whose measure is a pairwise-complete name such as "pearson_complete";
     a significance plan with its replica count, whose replica_chunk, absent
@@ -88,8 +89,8 @@ def plan_from_reference(spec: dict) -> ExecutionPlan:
 def operand_from_reference(u_pad, device=None):
     """The reference's prepared (n_pad, l_pad) operand — the row operand,
     or a rectangular plan's column operand v_pad — on `device` (None means
-    "cuda"), of the same type: a contiguous float32, int8, bfloat16 or fp8
-    tensor, or, for the reference's quantized ``Operand`` (anything with
+    "cuda"), of the same type: a contiguous float32, float16, int8, int16,
+    bfloat16 or fp8 tensor, or, for the reference's quantized ``Operand`` (anything with
     ``data`` and ``scale``), the port's :class:`Operand` of that data and
     its float32 scales.  numpy holds bfloat16 and fp8 as ``ml_dtypes``
     arrays, which ``torch.from_numpy`` refuses, so their bit patterns are
@@ -104,15 +105,15 @@ def operand_from_reference(u_pad, device=None):
     u = np.array(u_pad, order="C")
     if u.ndim != 2:
         raise ValueError(f"expected a 2-D operand, got shape {u.shape}")
-    if u.dtype in (np.float32, np.int8):
+    if u.dtype in (np.float32, np.float16, np.int8, np.int16):
         t = torch.from_numpy(u)
     elif u.dtype.name in _VIEWED and \
             u.dtype.itemsize == np.dtype(_VIEWED[u.dtype.name][0]).itemsize:
         bits, dtype = _VIEWED[u.dtype.name]
         t = torch.from_numpy(u.view(bits)).view(dtype)
     else:
-        raise ValueError(f"expected a float32, bfloat16, int8 or fp8 "
-                         f"operand, got {u.dtype}")
+        raise ValueError(f"expected a float32, float16, bfloat16, int8, "
+                         f"int16 or fp8 operand, got {u.dtype}")
     return t.to(resolve_device(device))
 
 

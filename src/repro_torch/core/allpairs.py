@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core import measures
 from repro_torch.core.mapping import job_coord_batch
-from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.plan import ExecutionPlan, launch_operand
 from repro_torch.core.quantize import Operand, operand_data, operand_parts
 from repro_torch.core.sinks import (DenseSink, PassStream, TileSink,
                                     place_tiles_host)
@@ -221,6 +221,9 @@ def execute_plan(plan: ExecutionPlan, u_pad, v_pad=None, *,
             raise ValueError(f"{name} scales {tuple(scale.shape)} do not "
                              f"match its {rows} rows")
     state_k = _sink_state_k(sink)
+    # int16 operands (exact +/-1/0 signs) run the int8 kernels
+    u_pad = launch_operand(u_pad)
+    v_pad = None if v_pad is None else launch_operand(v_pad)
     return run_sink(plan, sink, operand_data(u_pad).device,
                     lambda k0, skip: _stream(plan, u_pad, v_pad, k0, skip,
                                              state_k))

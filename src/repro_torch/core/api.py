@@ -72,6 +72,14 @@ class TransformCache(LruStatsCache):
     to a fresh tensor per call, bypass the cache
     (``prepared_operand(cacheable=False)``).
 
+    Inference tensors (made under ``torch.inference_mode()``) have no
+    version counter, so an in-place change to one could not be seen: their
+    operands are built uncached, as non-tensor operands are, never keyed
+    by ``id`` alone.  A multi-pass merge-sort Kendall run on such a tensor
+    then also rebuilds its rank structures at each launch
+    (kernels/kendall_merge.py keys them by the same counter; about 2.2 ms
+    a launch at 1,639 x 5,072 on an H100).
+
     Bounded LRU; thread-safe.
     """
 
@@ -88,8 +96,9 @@ class TransformCache(LruStatsCache):
                  compute_dtype, t: int, l_blk: int, build: Callable):
         """The prepared operand (a tensor or a quantized ``Operand``) for
         (x, measure, compute_dtype, t, l_blk), built by ``build()`` on a
-        miss.  Non-tensor operands are built uncached."""
-        if not isinstance(x, torch.Tensor):
+        miss.  Non-tensor operands and inference tensors are built
+        uncached."""
+        if not isinstance(x, torch.Tensor) or x.is_inference():
             return build()
         key = self._key(x, measure, compute_dtype, t, l_blk)
         entry = self._lookup(key)

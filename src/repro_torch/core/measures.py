@@ -137,6 +137,59 @@ def identity_transform(x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     return x.to(dtype or x.dtype)
 
 
+# -- moment-form transforms (live corpora, serving/live.py) ----------------------
+# A transform whose only per-row statistics are the row mean and the
+# centered sum of squares M2 = sum((x - mean)^2) rebuilds any single row's
+# output from (raw row, mean, M2): append / update of d rows of a live
+# corpus then costs O(d l) instead of a full re-transform.  The rank
+# transforms (spearman, kendall*) have none.  The arithmetic follows the
+# full transforms (the same centering, the same zero-row convention), so a
+# freshly seeded row of pearson or covariance is bitwise its cold
+# transform; rows maintained through delta merges carry the float drift a
+# live corpus's drift budget bounds.
+
+
+def pearson_from_moments(x: torch.Tensor, mean: torch.Tensor,
+                         m2: torch.Tensor, l: int, *,
+                         dtype=None) -> torch.Tensor:
+    """Eq. 4 from per-row moments: U_i = (X_i - mean_i) / sqrt(M2_i), rows
+    with sqrt(M2_i) == 0 mapped to zeros (pcc.transform's convention)."""
+    acc = _acc_dtype(x)
+    xa = x.to(acc)
+    norm = torch.sqrt(torch.clamp(m2.to(acc), min=0.0))[:, None]
+    centered = xa - mean.to(acc)[:, None]
+    live = norm > 0
+    u = torch.where(live, centered / torch.where(live, norm, 1.0), 0.0)
+    return u.to(dtype or x.dtype)
+
+
+def cosine_from_moments(x: torch.Tensor, mean: torch.Tensor,
+                        m2: torch.Tensor, l: int, *,
+                        dtype=None) -> torch.Tensor:
+    """L2 normalisation from moments: ||X_i||^2 = M2_i + l mean_i^2."""
+    acc = _acc_dtype(x)
+    xa = x.to(acc)
+    mu = mean.to(acc)
+    sumsq = m2.to(acc) + l * (mu * mu)
+    norm = torch.sqrt(torch.clamp(sumsq, min=0.0))[:, None]
+    u = torch.where(norm > 0, xa / torch.where(norm > 0, norm, 1.0), 0.0)
+    return u.to(dtype or x.dtype)
+
+
+def covariance_from_moments(x: torch.Tensor, mean: torch.Tensor,
+                            m2: torch.Tensor, l: int, *,
+                            dtype=None) -> torch.Tensor:
+    """Centering from moments: U_i = X_i - mean_i (M2 unused)."""
+    acc = _acc_dtype(x)
+    return (x.to(acc) - mean.to(acc)[:, None]).to(dtype or x.dtype)
+
+
+def dot_from_moments(x: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor,
+                     l: int, *, dtype=None) -> torch.Tensor:
+    """Identity (the dot measure has no per-row statistics)."""
+    return x.to(dtype or x.dtype)
+
+
 # -- epilogues ------------------------------------------------------------------
 # Built-in epilogues are static divisions; fused (EpilogueSpec in the kernel)
 # and unfused (EpilogueSpec.apply on the pass stream) share one reciprocal
@@ -184,6 +237,11 @@ class Measure:
                   launch signature of ``pcc_tiles`` plus the true sample
                   count ``l`` replaces it (the merge-sort Kendall kernels,
                   kernels/kendall_merge.py).
+    from_moments: ``(x_rows, mean, m2, l, dtype=)`` rebuilds transformed
+                  rows from raw rows and their running moments: the
+                  incremental seam of live corpora (serving/live.py).
+                  None: the transform has no moment form (rank measures),
+                  so a mutated corpus re-transforms exactly.
     """
 
     name: str
@@ -194,6 +252,13 @@ class Measure:
     exact_int8: bool = False
     permute_gather: bool = False
     tile_kernel: Optional[Callable[..., torch.Tensor]] = None
+    from_moments: Optional[Callable[..., torch.Tensor]] = None
+
+    @property
+    def incremental(self) -> bool:
+        """Whether a live corpus can maintain this measure's prepared
+        operand from running per-row moments (O(delta l) append / update)."""
+        return self.from_moments is not None and self.tile_kernel is None
 
     @property
     def fusable(self) -> bool:
@@ -220,18 +285,20 @@ class Measure:
 
 
 PEARSON = Measure("pearson", pcc.transform, None, (-1.0, 1.0),
-                  permute_gather=True)
+                  permute_gather=True, from_moments=pearson_from_moments)
 SPEARMAN = Measure("spearman", spearman_transform, None, (-1.0, 1.0),
                    permute_gather=True)
 COSINE = Measure("cosine", l2_normalize_rows, None, (-1.0, 1.0),
-                 permute_gather=True)
+                 permute_gather=True, from_moments=cosine_from_moments)
 COVARIANCE = Measure("covariance", center_rows, _cov_epilogue, None,
-                     epilogue_div=_cov_div, permute_gather=True)
+                     epilogue_div=_cov_div, permute_gather=True,
+                     from_moments=covariance_from_moments)
 KENDALL = Measure("kendall", pair_sign_transform, _kendall_epilogue,
                   (-1.0, 1.0), epilogue_div=_kendall_div, exact_int8=True)
 KENDALL_B = Measure("kendall_tau_b", pair_sign_tie_scaled_transform, None,
                     (-1.0, 1.0))
-DOT = Measure("dot", identity_transform, None, None, permute_gather=True)
+DOT = Measure("dot", identity_transform, None, None, permute_gather=True,
+              from_moments=dot_from_moments)
 # Merge-sort Kendall: the ranks as operand, Knight's O(l log l) count per
 # pair in the tile kernel; tau-a bitwise KENDALL's sign-GEMM (the same
 # integer C - D, the same EpilogueSpec).  resolve_tile_kernel substitutes
@@ -521,5 +588,7 @@ __all__ = ["Measure", "MeasureLike", "MaskedMeasure", "MASKED_PEARSON",
            "rank_rows", "spearman_transform", "l2_normalize_rows",
            "center_rows", "pair_sign_transform", "kendall_rank_transform",
            "pair_sign_tie_scaled_transform", "identity_transform",
+           "pearson_from_moments", "cosine_from_moments",
+           "covariance_from_moments", "dot_from_moments",
            "dense_reference", "dense_reference_pair",
            "kendall_tau_a_literal"]

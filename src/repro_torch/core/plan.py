@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import mapping, measures, quantize, tiling
-from repro_torch.core.quantize import Operand
+from repro_torch.core.quantize import Operand, operand_data
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
                                           EpilogueSpec, dtype_name)
 
@@ -121,11 +121,14 @@ class ExecutionPlan:
         ceil(n/t) x ceil(n_cols/t) tile grid of an X-vs-Y product, and the
         executor takes a second operand holding the n_cols variables.
         compute_dtype narrows the stored operands after the float32
-        transform: torch.bfloat16 / "bfloat16" for any measure; torch.int8 /
-        "int8" stores exact_int8 measures' values (Kendall's pair signs) as
-        they are and quantizes every other measure's rows with absmax
-        scales, as torch.float8_e4m3fn / torch.float8_e5m2 do for every
-        measure (:func:`needs_row_scales`).
+        transform: torch.bfloat16 / "bfloat16" or torch.float16 /
+        "float16" for any measure; torch.int8 / "int8" stores exact_int8
+        measures' values (Kendall's pair signs) as they are and quantizes
+        every other measure's rows with absmax scales, as
+        torch.float8_e4m3fn / torch.float8_e5m2 do for every measure
+        (:func:`needs_row_scales`); torch.int16 / "int16" stores exact_int8
+        measures' values only (the kernels take them narrowed to int8,
+        :func:`launch_operand`).
         replicas > 0 adds a significance run's replica axis: B null
         replicas, launched replica_chunk (default DEFAULT_REPLICA_CHUNK) at a
         time; Kendall then keeps its sign-GEMM at any l, as in the
@@ -180,16 +183,8 @@ class ExecutionPlan:
         return needs_row_scales(self.measure, self.compute_dtype)
 
     def _prepare_one(self, x: torch.Tensor):
-        """The reference's ``prepare_operand_raw``: transform at float32,
-        then quantize with row scales, narrow, or keep float32; zero-pad."""
-        u = self.measure.transform(x, dtype=torch.float32)
-        if self.scaled:
-            q, scale = quantize.quantize_rows(u, self.compute_dtype)
-            return Operand(pad_operands(q, self.t, self.l_blk),
-                           pad_scales(scale, self.t))
-        if self.compute_dtype is not None:
-            u = u.to(self.compute_dtype)
-        return pad_operands(u, self.t, self.l_blk)
+        return prepare_operand_raw(x, self.measure, self.compute_dtype,
+                                   self.t, self.l_blk)
 
     def prepare(self, x: torch.Tensor):
         """Row-transform x at >= float32, narrow to the compute dtype (the
@@ -215,6 +210,45 @@ class ExecutionPlan:
             raise ValueError(f"y shape {tuple(y.shape)} does not match plan "
                              f"(n_cols={self.n_cols}, l={self.l})")
         return self._prepare_one(x), self._prepare_one(y)
+
+    def prepare_rows(self, x):
+        """Prepare a row slab of at most ``n_rows`` rows: the serving seam
+        (serving/batcher.py).  A plan built for a row count bucketed up to
+        a tile multiple serves any probe slab with rows <= n_rows: the slab
+        is transformed and narrowed exactly as by :meth:`prepare`, then
+        zero-padded to the plan's ``n_pad`` rows.  Zero rows are inert and
+        a row's tile values do not depend on the other rows.
+
+        ``x`` may also be a sequence of slabs (the requests of one batch):
+        each is transformed on its own, at the shape a standalone
+        ``corr(slab, ...)`` transforms, and the prepared rows are stacked.
+        On the card a row reduction's order can depend on how many rows
+        the tensor holds (PyTorch sizes its reduction blocks by them), so
+        this keeps each request's rows bitwise what ``corr`` prepares."""
+        slabs = list(x) if isinstance(x, (list, tuple)) else [x]
+        for s in slabs:
+            if s.ndim != 2 or s.shape[1] != self.l:
+                raise ValueError(
+                    f"x shape {tuple(s.shape)} does not match plan sample "
+                    f"count (l={self.l})")
+        rows = sum(s.shape[0] for s in slabs)
+        if rows > self.n_rows:
+            raise ValueError(
+                f"x has {rows} rows, more than the plan's bucketed row "
+                f"count {self.n_rows}")
+        parts = [self._prepare_one(s) for s in slabs]
+        if len(parts) == 1:
+            u = parts[0]
+            if operand_data(u).shape[0] < self.n_pad:
+                u = take_operand_rows(u, slice(0, rows), self.n_pad)
+            return u
+        datas = [quantize.operand_parts(p)[0][:s.shape[0]]
+                 for p, s in zip(parts, slabs)]
+        data = F.pad(torch.cat(datas), (0, 0, 0, self.n_pad - rows))
+        if not self.scaled:
+            return data
+        scales = [p.scale[:s.shape[0]] for p, s in zip(parts, slabs)]
+        return Operand(data, F.pad(torch.cat(scales), (0, self.n_pad - rows)))
 
     @property
     def n_pass(self) -> int:
@@ -292,7 +326,8 @@ class ExecutionPlan:
 
 
 # compute dtypes the port stores operands in, by the reference's names
-_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8,
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                   "int8": torch.int8, "int16": torch.int16,
                    "float8_e4m3fn": torch.float8_e4m3fn,
                    "float8_e5m2": torch.float8_e5m2}
 
@@ -304,7 +339,11 @@ def resolve_compute_dtype(meas: measures.Measure,
 
     An fp8 type this torch cannot hold raises ValueError, as the reference
     does: support is probed (:func:`quantize.fp8_supported`), never
-    assumed.  float16 and integer types other than int8 are not ported.
+    assumed.  int16 stores only an exact_int8 measure's values (Kendall's
+    +/-1/0 pair signs); every other measure would need a per-row int16
+    quantization scale, which neither package has (the reference fails
+    with ``KeyError: 'int16'`` in ``quantize.QMAX``), so it raises
+    ValueError here.  Other types are not ported.
     """
     if compute_dtype is None:
         return None
@@ -318,20 +357,81 @@ def resolve_compute_dtype(meas: measures.Measure,
         raise NotImplementedError(
             f"compute_dtype={name} is not ported; the port stores operands "
             f"as {tuple(_COMPUTE_DTYPES)} only (None keeps float32)")
+    if name == "int16" and not meas.exact_int8:
+        raise ValueError(
+            f"compute_dtype=int16 with measure {meas.name!r}: its transform "
+            f"is not exactly integer-valued, so storing it as int16 needs a "
+            f"per-row quantization scale, and there is no int16 scale "
+            f"(quantize.QMAX holds {tuple(quantize.QMAX)}); use int8, or "
+            f"int16 on an exact_int8 measure (kendall's pair signs)")
     return _COMPUTE_DTYPES[name]
 
 
 def needs_row_scales(measure: measures.Measure, compute_dtype) -> bool:
     """Whether (measure, compute_dtype) takes the quantized path (per-row
     absmax scales, dequantized in the kernel) rather than a plain cast:
-    every fp8 type, and int8 on measures whose transform is not exactly
-    integer-valued.  exact_int8 measures keep their unscaled int8."""
+    every fp8 type, and integer types on measures whose transform is not
+    exactly integer-valued.  exact_int8 measures keep their unscaled
+    integers."""
     if compute_dtype is None:
         return False
     name = dtype_name(compute_dtype)
     if quantize.is_fp8(name):
         return True
-    return name == "int8" and not measure.exact_int8
+    return name in ("int8", "int16") and not measure.exact_int8
+
+
+def prepare_operand_raw(x: torch.Tensor, measure: measures.Measure,
+                        compute_dtype, t: int, l_blk: int):
+    """The one operand-preparation pipeline (the reference's
+    ``prepare_operand_raw``): the row transform at float32, then per-row
+    quantization (:func:`needs_row_scales`: an :class:`Operand` of padded
+    data and padded scales), a cast to the stored type, or float32 kept;
+    zero-padded to kernel alignment.  ``ExecutionPlan.prepare*`` and the
+    serving layer's CorpusHandle both call it, so a served answer is
+    bitwise what ``corr()`` prepares."""
+    cd = None if compute_dtype is None else _COMPUTE_DTYPES.get(
+        dtype_name(compute_dtype), compute_dtype)
+    u = measure.transform(x, dtype=torch.float32)
+    if needs_row_scales(measure, cd):
+        q, scale = quantize.quantize_rows(u, cd)
+        return Operand(pad_operands(q, t, l_blk), pad_scales(scale, t))
+    if cd is not None:
+        u = u.to(cd)
+    return pad_operands(u, t, l_blk)
+
+
+def take_operand_rows(u, rows, n_pad: int):
+    """Rows of a prepared (padded) operand, re-padded with zero rows to
+    ``n_pad``: ``rows`` is a slice or an integer index tensor over its rows.
+    The delta-plan seam of live corpora (serving/live.py): an append
+    launches only the new-vs-old grid and the new-vs-new triangle, both on
+    the new rows' prepared slab.  A quantized :class:`Operand` selects and
+    pads its data and its scales alike (zero rows, zero scales: inert)."""
+    data, scale = quantize.operand_parts(u)
+    data = data[rows]
+    short = n_pad - data.shape[0]
+    if short < 0:
+        raise ValueError(
+            f"selected {data.shape[0]} rows, more than n_pad={n_pad}")
+    data = F.pad(data, (0, 0, 0, short)) if short else data.contiguous()
+    if scale is None:
+        return data
+    scale = scale[rows]
+    scale = F.pad(scale, (0, short)) if short else scale.contiguous()
+    return Operand(data, scale)
+
+
+def launch_operand(u):
+    """The operand as the tile kernels take it: an int16 operand (an
+    exact_int8 measure's +/-1/0 values, the only int16 a plan stores) is
+    narrowed to int8, exactly, so it runs the int8 kernels and gives the
+    bits of the reference's int32 sums; every other operand is itself."""
+    data, scale = quantize.operand_parts(u)
+    if data.dtype != torch.int16:
+        return u
+    return data.to(torch.int8) if scale is None else Operand(
+        data.to(torch.int8), scale)
 
 
 def pad_scales(scale: torch.Tensor, t: int) -> torch.Tensor:
@@ -355,5 +455,7 @@ def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
     return F.pad(u, (0, l_pad - l, 0, n_pad - n))
 
 
-__all__ = ["DEFAULT_REPLICA_CHUNK", "ExecutionPlan", "needs_row_scales",
-           "pad_operands", "pad_scales", "resolve_compute_dtype"]
+__all__ = ["DEFAULT_REPLICA_CHUNK", "ExecutionPlan", "Operand",
+           "launch_operand", "needs_row_scales", "pad_operands",
+           "pad_scales", "prepare_operand_raw", "resolve_compute_dtype",
+           "take_operand_rows"]

@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import measures, quantize
-from repro_torch.core.plan import ExecutionPlan, needs_row_scales
+from repro_torch.core.plan import ExecutionPlan, launch_operand, \
+    needs_row_scales
 from repro_torch.core.quantize import Operand, operand_parts
 from repro_torch.core.sinks import DenseSink, ExceedanceSink, TileSink
 from repro_torch.kernels.pcc_tile import pcc_tiles
@@ -270,9 +271,10 @@ def run_significance(
             f"ExecutionPlan.create(replicas=spec.iterations, ...)")
     indices = iteration_indices(spec, plan.l)
     cols_prepared = u_pad if v_pad is None else v_pad
-    u_data, u_scale = operand_parts(u_pad)
-    v_data, v_scale = (operand_parts(v_pad) if v_pad is not None
-                       else (None, None))
+    # int16 operands (exact +/-1/0 signs) run the int8 kernels
+    u_data, u_scale = operand_parts(launch_operand(u_pad))
+    v_data, v_scale = (operand_parts(launch_operand(v_pad))
+                       if v_pad is not None else (None, None))
     cs_obs = u_scale if v_pad is None else v_scale
     if (u_scale is None) != (cs_obs is None):
         raise ValueError("quantized row operand paired with an unquantized "
@@ -281,7 +283,7 @@ def run_significance(
     device = u_data.device
 
     def rep_parts(reps):
-        rep_data, rep_scale = operand_parts(reps)
+        rep_data, rep_scale = operand_parts(launch_operand(reps))
         if (u_scale is None) != (rep_scale is None):
             raise ValueError(
                 f"replica stack quantization does not match the row "

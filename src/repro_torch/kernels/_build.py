@@ -33,11 +33,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _EPI = [_I, _F, _I, _F, _F]
 # operand dtype suffixes of the entry points (kernels/pcc_tile.py
 # OPERAND_DTYPES): the SIMT tile kernel takes float32, the tensor-core one
-# bfloat16, float8_e4m3fn, float8_e5m2 and int8; the top-k select float32,
-# bfloat16 and int8
+# bfloat16, float16, float8_e4m3fn, float8_e5m2 and int8; the top-k select
+# float32, bfloat16, float16 and int8
 _SIMT_SUFFIXES = ("f32",)
-_SM90_SUFFIXES = ("bf16", "e4m3", "e5m2", "i8")
-_SELECT_SUFFIXES = ("f32", "bf16", "i8")
+_SM90_SUFFIXES = ("bf16", "f16", "e4m3", "e5m2", "i8")
+_SELECT_SUFFIXES = ("f32", "bf16", "f16", "i8")
 # (u, v, srow, scol, out, j_start, pass_tiles, m, grid_cols, t, l_pad,
 #  replicas, v_rstride, s_rstride, *epilogue, stream) -> cudaError_t
 _TILES = (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _LL,

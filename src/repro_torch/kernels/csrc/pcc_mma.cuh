@@ -1,6 +1,6 @@
-// The tensor-core tile accumulation shared by pcc_tile_sm90.cu (bf16, fp8
-// and int8 tiles) and the bf16 and int8 select kernels of pcc_topk.cu
-// (sm_90a).
+// The tensor-core tile accumulation shared by pcc_tile_sm90.cu (bf16, fp16,
+// fp8 and int8 tiles) and the bf16, fp16 and int8 select kernels of
+// pcc_topk.cu (sm_90a).
 //
 // A work item is a 128 x 128 block of one (t, t) tile of U V^T: rows
 // a_row .. a_row + 127 of U against rows b_row .. b_row + 127 of V (of
@@ -11,13 +11,13 @@
 // block against all 128 columns (wgmma m64n128).
 //
 // Staging: each stage of the ring holds one 128-byte swizzle row per block
-// row of A and of B (64 bf16 or 128 fp8 / int8 samples: 16 KB each), loaded
-// by TMA from 3-D tensor maps over (planes, rows, l_pad); rows past the
+// row of A and of B (64 bf16 / fp16 or 128 fp8 / int8 samples: 16 KB each),
+// loaded by TMA from 3-D tensor maps over (planes, rows, l_pad); rows past the
 // array and samples past l_pad read as zero, so ragged tiles and sample
 // axes need no masks here (rows past the tile's edge are computed and never
 // stored).
-// A stage is four wgmma steps of 32 bytes of depth: k16 for bf16, k32 for
-// fp8 and int8.
+// A stage is four wgmma steps of 32 bytes of depth: k16 for bf16 and fp16,
+// k32 for fp8 and int8.
 //
 // Accumulation.  Every output (i, j) of a block is the same sequence of
 // instructions whatever the kernel, the tile's place in the pass, the
@@ -31,8 +31,8 @@
 //     samples, as CUTLASS's sm90 fp8 mainloop does without "fast
 //     accumulation", and as the reference adds one block product at a time
 //     (src/repro/kernels/pcc_tile.py:129-146).
-//   * bf16: one accumulator over the whole axis, the next stage's steps
-//     issued before the last ones finish (its sums keep float32's bits,
+//   * bf16 and fp16: one accumulator over the whole axis, the next stage's
+//     steps issued before the last ones finish (its sums keep float32's bits,
 //     so it needs no promotion).
 //   * int8: the same single accumulator, in int32 (wgmma s32.s8.s8).
 //     Integer sums are exact in any order while they stay inside int32
@@ -41,8 +41,8 @@
 //     float once (acc_value), in the tiles and in the int8 select alike,
 //     so the tiles are bitwise the plain version's and the select's
 //     values.
-// Against the plain version (float32 block products) bf16 and fp8 results
-// move by the tensor cores' own rounding; the gate that holds them is
+// Against the plain version (float32 block products) bf16, fp16 and fp8
+// results move by the tensor cores' own rounding; the gate that holds them is
 // kernels/narrow_gate.py.
 
 #pragma once

@@ -1,8 +1,8 @@
 // All-pairs correlation tiles on Hopper's tensor cores (sm_90a): bfloat16,
-// float8_e4m3fn, float8_e5m2 and int8 operands, float32 tiles.
+// float16, float8_e4m3fn, float8_e5m2 and int8 operands, float32 tiles.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/pcc_tile.py:299
-// pcc_tiles (body _kernel, :103) for its bf16, fp8 and int8 operands in
+// pcc_tiles (body _kernel, :103) for its bf16, fp16, fp8 and int8 operands in
 // every mode; float32 stays on the SIMT kernel of pcc_tile.cu.  The
 // modes and the launch contract are those of pcc_tile.cu:
 //   * the triangle (grid_cols == 0): tile ids invert to upper-triangle
@@ -39,7 +39,7 @@
 //    last products and its epilogue; it gives its registers to the
 //    consumers (setmaxnreg 40 / 232).
 //  * Products: two consumer warpgroups, 64 rows each, wgmma m64n128 (k16
-//    bf16, k32 fp8 and int8) from shared memory; fp8 promotes its partial
+//    bf16 and fp16, k32 fp8 and int8) from shared memory; fp8 promotes its partial
 //    sums into float32 registers every 128 samples, int8 keeps one exact
 //    int32 sum over the whole sample axis, converted to float32 once, so
 //    its tiles are bitwise the plain version's (pcc_mma.cuh).
@@ -48,7 +48,7 @@
 //    8 bytes a thread (4 threads fill a 32-byte sector of a row), rows and
 //    columns past t masked.  The stores are not waited on, so they overlap
 //    the next item's products.
-// TMA needs 16-byte row strides and bases: l_pad a multiple of 8 (bf16) or
+// TMA needs 16-byte row strides and bases: l_pad a multiple of 8 (bf16, fp16) or
 // 16 (fp8, int8) and v_rstride likewise; the wrapper zero-pads the sample
 // axis otherwise (zero samples add exactly zero).
 
@@ -273,6 +273,7 @@ int launch(const T* u, const T* v, const float* srow, const float* scol,
   }
 
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_bf16, __nv_bfloat16)
+PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_f16, __half)
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_e4m3, __nv_fp8_e4m3)
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_e5m2, __nv_fp8_e5m2)
 PCC_TILES_SM90_ENTRY(pcc_tiles_sm90_i8, int8_t)

@@ -1,9 +1,10 @@
 // Per-row top-k of all-pairs correlation tiles for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/pcc_tile.py::pcc_topk_tiles
-// (bodies _topk_kernel and _topk_select) with float32, bfloat16 or int8
-// operands (select entry points pcc_topk_select_f32 / _bf16 / _i8; the
-// accumulation _topk_kernel shares with _kernel, pcc_tile.py:550-559),
+// (bodies _topk_kernel and _topk_select) with float32, bfloat16, float16 or
+// int8 operands (select entry points pcc_topk_select_f32 / _bf16 / _f16 /
+// _i8; the accumulation _topk_kernel shares with _kernel,
+// pcc_tile.py:550-559),
 // triangle and rectangular grid.  A launch covers the tiles jt = min(j_start + i,
 // total - 1), i < pass_tiles, of which only slots with j_start + i < dev_hi
 // count.  Each finished (t, t) tile is folded into per-row top-kk state
@@ -23,7 +24,7 @@
 // CTAs.  Two kernels instead:
 //   1. pcc_topk_select: the tile accumulation of pcc_tiles, so the values
 //      are bitwise pcc_tiles': for float32 the 128 x 128 SGEMM mainloop of
-//      the float32 tiles (pcc_sgemm.cuh), for bf16 and int8 the
+//      the float32 tiles (pcc_sgemm.cuh), for bf16, fp16 and int8 the
 //      tensor-core mainloop of pcc_tile_sm90.cu (pcc_mma.cuh, the same
 //      stages and wgmma steps; int8 one exact int32 sum, converted once),
 //      each on a 128 x 128 block cut into four 64 x 64 quarters.  The
@@ -357,7 +358,7 @@ pcc_topk_select_f32_kernel(const float* __restrict__ u,
                   prc, pcv, pcc_);
 }
 
-// Select (bf16, int8): one CTA per 128 x 128 block of each valid tile,
+// Select (bf16, fp16, int8): one CTA per 128 x 128 block of each valid tile,
 // computed by the tensor-core mainloop of pcc_tiles (pcc_mma.cuh, the same
 // stages and steps, so the values are bitwise pcc_tiles'; int8's int32 sum
 // is converted once, by acc_value, before the epilogue), then selected as
@@ -722,8 +723,8 @@ int launch_select_f32(const float* u, const float* v, float* prv, int* prc,
   return (int)cudaGetLastError();
 }
 
-// bf16 and int8: the tensor-core select.  Its operands meet TMA's
-// alignment (16-byte rows: l_pad a multiple of 8 bf16 or 16 int8 samples,
+// bf16, fp16 and int8: the tensor-core select.  Its operands meet TMA's
+// alignment (16-byte rows: l_pad a multiple of 8 bf16 / fp16 or 16 int8 samples,
 // and 16-byte bases; the wrapper pads otherwise).
 template <typename T>
 int launch_select_sm90(const T* u, const T* v, float* prv, int* prc,
@@ -785,6 +786,7 @@ int launch_select_sm90(const T* u, const T* v, float* prv, int* prc,
 
 PCC_TOPK_SELECT_ENTRY(pcc_topk_select_f32, float, launch_select_f32)
 PCC_TOPK_SELECT_ENTRY(pcc_topk_select_bf16, __nv_bfloat16, launch_select_sm90)
+PCC_TOPK_SELECT_ENTRY(pcc_topk_select_f16, __half, launch_select_sm90)
 PCC_TOPK_SELECT_ENTRY(pcc_topk_select_i8, int8_t, launch_select_sm90)
 
 // Kernel 2.  hi_eff = min(j_start + pass_tiles, dev_hi); cv/cc (and

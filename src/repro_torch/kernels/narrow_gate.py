@@ -1,5 +1,5 @@
-"""The narrow gate: how far the tensor-core tiles of bfloat16 and fp8
-operands (kernels/csrc/pcc_tile_sm90.cu) may lie from the plain version's,
+"""The narrow gate: how far the tensor-core tiles of bfloat16, float16 and
+fp8 operands (kernels/csrc/pcc_tile_sm90.cu) may lie from the plain version's,
 and the two planted faults it is shown to refuse.
 
 The tensor cores sum the same exact products as the plain version in
@@ -29,9 +29,15 @@ from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
 
 # The gate's constants per tensor-core operand dtype: c, the multiple of
 # 2^-24 sqrt(l_pad) for the float32 sums of both sides, and a, the multiple
-# of 2^-13 for fp8's 13-bit sums between promotions.
-NARROW_GATE = {"bfloat16": (16.0, 0.0), "float8_e4m3fn": (16.0, 16.0),
-               "float8_e5m2": (16.0, 16.0)}
+# of 2^-13 for fp8's 13-bit sums between promotions.  float16 is argued as
+# bfloat16 is: its unit roundoff 2^-11 (bf16: 2^-8) is spent when the
+# operands are stored, and both sides read the same stored codes; the
+# product of two 11-bit significands has at most 22 bits, so it is exact
+# in float32 on both sides, and the sums are float32 on both (wgmma
+# f32.f16.f16).  What remains is the float32 sum walk, c = 16, and no
+# 2^-13 term, a = 0.
+NARROW_GATE = {"bfloat16": (16.0, 0.0), "float16": (16.0, 0.0),
+               "float8_e4m3fn": (16.0, 16.0), "float8_e5m2": (16.0, 16.0)}
 # The planted faults: a chunk of samples as long as the fp8 kernel's
 # promotion interval, and how far outside the gate each must read.
 FAULT_CHUNK = 128
@@ -53,8 +59,8 @@ def narrow_gate(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
                 grid_cols: Optional[int] = None,
                 row_scale: Optional[torch.Tensor] = None,
                 col_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per output of :func:`pcc_tiles` on these arguments (bfloat16 or fp8
-    operands), the bound on its distance from :func:`pcc_tiles_plain`'s:
+    """Per output of :func:`pcc_tiles` on these arguments (bfloat16, float16
+    or fp8 operands), the bound on its distance from :func:`pcc_tiles_plain`'s:
 
         |kernel - plain| <= (c * 2^-24 * sqrt(l_pad) + a * 2^-13) * G,
         G = |s_row| |s_col| (|A| |B|^T)[i, j] / |div|,
@@ -68,8 +74,8 @@ def narrow_gate(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
     adders.  The second is fp8's: the tensor cores keep 13 fraction bits in
     the sums between the kernel's promotions (every 128 samples, four k32
     steps), so each chunk's partial moves by up to a few 2^-13 of its share
-    of G whatever l_pad, and a = 16 (NARROW_GATE; 0 for bf16, whose sums
-    keep float32's bits)."""
+    of G whatever l_pad, and a = 16 (NARROW_GATE; 0 for bf16 and fp16,
+    whose sums keep float32's bits)."""
     mag = (lambda x: None if x is None else x.float().abs())
     spec = epilogue if epilogue is not None else EpilogueSpec()
     div = None if spec.div is None else abs(spec.div)

@@ -2,15 +2,16 @@
 versions.
 
 Port of ``repro/kernels/pcc_tile.py`` in every mode, the replica axis of
-significance runs included, with float32, bfloat16, int8 or fp8
+significance runs included, with float32, bfloat16, float16, int8 or fp8
 (``float8_e4m3fn``, ``float8_e5m2``) operands (both operands of one
 dtype).  float32 operands take IEEE float32 FMA chains (the SIMT kernel,
-kernels/csrc/pcc_tile.cu); bfloat16, fp8 and int8 operands take the tensor
-cores (kernels/csrc/pcc_tile_sm90.cu: wgmma with float32 accumulation, fp8
-partial sums promoted to float32 every 128 samples, int8 one exact int32
-sum converted to float32 once).  int8 tiles are bitwise the plain
-version's; bfloat16 and fp8 tiles lie within the narrow gate of the plain
-version's (kernels/narrow_gate.py), not bitwise on them.  Quantized
+kernels/csrc/pcc_tile.cu); bfloat16, float16, fp8 and int8 operands take
+the tensor cores (kernels/csrc/pcc_tile_sm90.cu: wgmma with float32
+accumulation, fp8 partial sums promoted to float32 every 128 samples, int8
+one exact int32 sum converted to float32 once).  int8 tiles are bitwise
+the plain version's; bfloat16, float16 and fp8 tiles lie within the narrow
+gate of the plain version's (kernels/narrow_gate.py), not bitwise on
+them.  Quantized
 operands (core/quantize.py) bring per-row scales: the finished tile is
 multiplied by the scale product ``row_scale[y] * col_scale[x]`` before the
 epilogue.
@@ -34,7 +35,7 @@ bit, returned as (R, pass_tiles, t, t).
 same tiles, folded into per-row (value, column) top-kk state under the
 canonical order (|v| descending, then column ascending) instead of being
 returned; triangles also rank the transposed off-diagonal tiles into a
-mirrored column state.  It takes unscaled float32, bfloat16 or int8
+mirrored column state.  It takes unscaled float32, bfloat16, float16 or int8
 operands, and no second operand on the triangle.
 
 Dispatch is by the operand's device: a CUDA tensor launches the CUDA kernels
@@ -67,15 +68,15 @@ KK_MAX = 256
 # Operand dtypes the tile kernel takes -> suffix of its C entry points; the
 # top-k kernel takes the first three.
 OPERAND_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
-                  torch.int8: "i8", torch.float8_e4m3fn: "e4m3",
-                  torch.float8_e5m2: "e5m2"}
-TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+                  torch.float16: "f16", torch.int8: "i8",
+                  torch.float8_e4m3fn: "e4m3", torch.float8_e5m2: "e5m2"}
+TOPK_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 # Operand dtypes of the tensor-core tile kernel (csrc/pcc_tile_sm90.cu) and
-# of the tensor-core select (the bf16 and int8 selects of
+# of the tensor-core select (the bf16, fp16 and int8 selects of
 # csrc/pcc_topk.cu); float32 takes the SIMT kernels.
-SM90_DTYPES = (torch.bfloat16, torch.int8) + _FP8
-SELECT_SM90_DTYPES = (torch.bfloat16, torch.int8)
+SM90_DTYPES = (torch.bfloat16, torch.float16, torch.int8) + _FP8
+SELECT_SM90_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
 # TMA reads rows whose byte stride and base are multiples of this.
 TMA_ALIGN = 16
 # int8 sums of l_pad products of magnitude <= 128^2 stay inside int32.
@@ -146,8 +147,9 @@ def _check(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
     if u_pad.device.type not in ("cuda", "cpu"):
         raise ValueError(f"u_pad on unsupported device {u_pad.device}")
     if u_pad.dtype not in OPERAND_DTYPES:
-        raise ValueError(f"u_pad must be float32, bfloat16 or int8, or "
-                         f"float8_e4m3fn / float8_e5m2, got {u_pad.dtype}")
+        raise ValueError(f"u_pad must be float32, bfloat16, float16 or "
+                         f"int8, or float8_e4m3fn / float8_e5m2, got "
+                         f"{u_pad.dtype}")
     if not u_pad.is_contiguous():
         raise ValueError("u_pad must be contiguous")
     n_pad, l_pad = u_pad.shape
@@ -255,7 +257,7 @@ def tma_operand(x: torch.Tensor, l_blk: int) -> torch.Tensor:
 def tile_kernel(dtype: torch.dtype) -> Tuple[str, str]:
     """(kernel library, C entry point) of :func:`pcc_tiles` for operands of
     `dtype`: pcc_tile / pcc_tiles_f32 (SIMT) for float32, pcc_tile_sm90 /
-    pcc_tiles_sm90_{bf16,e4m3,e5m2,i8} (tensor cores) for the others."""
+    pcc_tiles_sm90_{bf16,f16,e4m3,e5m2,i8} (tensor cores) for the others."""
     if dtype in SM90_DTYPES:
         return "pcc_tile_sm90", "pcc_tiles_sm90_" + OPERAND_DTYPES[dtype]
     return "pcc_tile", "pcc_tiles_" + OPERAND_DTYPES[dtype]
@@ -283,7 +285,7 @@ def pcc_tiles(u_pad: torch.Tensor, j_start: int, *, t: int = DEFAULT_TILE,
 
     u_pad: (n_pad, l_pad) transformed variables (Eq. 4), zero-padded so
            n_pad % t == 0 and l_pad % l_blk == 0, contiguous; float32,
-           bfloat16, int8 (l_pad <= INT8_MAX_L_PAD), float8_e4m3fn or
+           bfloat16, float16, int8 (l_pad <= INT8_MAX_L_PAD), float8_e4m3fn or
            float8_e5m2.
     epilogue: optional EpilogueSpec applied before the store.
     v_pad / grid_cols: grid_cols=None runs the triangle, columns from U or
@@ -373,7 +375,7 @@ def pcc_tiles_plain(u_pad: torch.Tensor, j_start: int, *,
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (the default) so the
     products stay IEEE float32.
 
-    bfloat16 and fp8 operands widen to float32 first (exactly).  int8
+    bfloat16, float16 and fp8 operands widen to float32 first (exactly).  int8
     operands widen to float64, where every integer sum up to 2^53 is exact
     in any order, and round once to float32: bitwise the kernel's int32 sum
     converted.  Scales multiply as ``tile * (row_scale[y] * col_scale[x])``
@@ -434,9 +436,10 @@ def _check_topk(u_pad: torch.Tensor, j_start: int, t: int, l_blk: int,
         raise ValueError("pcc_topk_tiles takes no replica stack: "
                          "significance runs rank p-values through TopKSink")
     if u_pad.dtype not in TOPK_DTYPES:
-        raise ValueError(f"pcc_topk_tiles takes float32, bfloat16 or int8 "
-                         f"operands, got {u_pad.dtype} (fp8 operands carry "
-                         f"row scales, which the top-k kernel does not take)")
+        raise ValueError(f"pcc_topk_tiles takes float32, bfloat16, float16 "
+                         f"or int8 operands, got {u_pad.dtype} (fp8 operands "
+                         f"carry row scales, which the top-k kernel does not "
+                         f"take)")
     if grid_cols is None and v_pad is not None:
         raise NotImplementedError(
             "pcc_topk_tiles takes no second operand on the triangle: the "
@@ -518,7 +521,7 @@ def topk_select(u_pad: torch.Tensor, j_start: int, dev_hi: int, *, t: int,
     top-min(kk, 64) per 64-wide block, into a pass scratch of (pass_tiles,
     t, ceil(t/64), min(kk, 64)) (value, column) pairs per side (rows;
     columns too on the triangle).  float32 operands take the SGEMM mainloop
-    of the float32 tiles; bf16 and int8 operands the tensor-core mainloop
+    of the float32 tiles; bf16, fp16 and int8 operands the tensor-core mainloop
     of their tiles (csrc/pcc_mma.cuh), read through :func:`tma_operand`
     (int8's exact int32 sums converted once), so the values are bitwise
     :func:`pcc_tiles`'.  A CPU tensor runs :func:`topk_select_plain`."""

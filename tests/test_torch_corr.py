@@ -160,6 +160,13 @@ def test_convert_refuses_modes_of_later_slices():
     assert plan.spec_dict() == sig and plan.replicas == 8
     for key, value in [("compute_dtype", "float16"), ("p", 4),
                        ("symmetric_grid", True)]:
+        if (key, value) == ("compute_dtype", "float16"):
+            # float16 operands are ported: the spec converts, key for key
+            f16 = {**spec, key: value}
+            plan = convert.plan_from_reference(f16)
+            assert plan.spec_dict() == f16
+            assert plan.compute_dtype == torch.float16
+            continue
         with pytest.raises(NotImplementedError):
             convert.plan_from_reference({**spec, key: value})
     with pytest.raises(ValueError):

@@ -1,7 +1,8 @@
 """The port's examples (examples/torch_*.py) run end to end on the CPU, each
 at its default small size in its own process, and keep their reference's
 assertions (module-recovery precision > 0.9, the planted pair the most
-significant).  Without ``--device cpu`` each one asks for the card."""
+significant, served answers bitwise standalone corr(), standing results
+matching a cold corr()).  Without ``--device cpu`` each one asks for the card."""
 
 import os
 import subprocess
@@ -36,6 +37,8 @@ def _run(*args):
     ("torch_coexpression_network.py",
      ["--measure", "kendall_tau_b", "--topk", "10"], "module recovery (kNN)"),
     ("torch_permutation_test.py", [], "OK"),
+    ("torch_corr_server.py", [], "OK — served answers bit-identical"),
+    ("torch_live_index.py", [], "OK — all standing results matched"),
 ])
 def test_example_runs_on_cpu(script, extra, expect):
     out = _run(f"examples/{script}", "--device", "cpu", *extra)

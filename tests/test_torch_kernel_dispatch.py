@@ -29,6 +29,7 @@ CSRC = Path(_build.__file__).resolve().parent / "csrc"
 @pytest.mark.parametrize("dtype,library,entry", [
     (torch.float32, "pcc_tile", "pcc_tiles_f32"),
     (torch.bfloat16, "pcc_tile_sm90", "pcc_tiles_sm90_bf16"),
+    (torch.float16, "pcc_tile_sm90", "pcc_tiles_sm90_f16"),
     (torch.int8, "pcc_tile_sm90", "pcc_tiles_sm90_i8"),
     (torch.float8_e4m3fn, "pcc_tile_sm90", "pcc_tiles_sm90_e4m3"),
     (torch.float8_e5m2, "pcc_tile_sm90", "pcc_tiles_sm90_e5m2"),
@@ -53,6 +54,8 @@ SELECT_ROUTES = {
                     "sgemm::accumulate_block"),
     torch.bfloat16: ("launch_select_sm90", "pcc_topk_select_sm90<T>",
                      "mma::mma_block"),
+    torch.float16: ("launch_select_sm90", "pcc_topk_select_sm90<T>",
+                    "mma::mma_block"),
     torch.int8: ("launch_select_sm90", "pcc_topk_select_sm90<T>",
                  "mma::mma_block"),
 }
@@ -75,8 +78,8 @@ def test_topk_select_entry_by_dtype(dtype):
     """Every top-k dtype has its select entry point, bound for its library,
     whose launcher launches its kernel, which accumulates on the mainloop
     of that dtype's tiles: float32 on pcc_sgemm.cuh (the 128 x 128 SGEMM of
-    the float32 tiles), bf16 and int8 on pcc_mma.cuh.  bf16 and int8
-    select through TMA, so their operands are padded for it; float32's
+    the float32 tiles), bf16, fp16 and int8 on pcc_mma.cuh.  bf16, fp16 and
+    int8 select through TMA, so their operands are padded for it; float32's
     are not."""
     entry = f"pcc_topk_select_{OPERAND_DTYPES[dtype]}"
     assert entry in _build.SIGNATURES["pcc_topk"]

@@ -849,7 +849,7 @@ def test_narrow_tiles_run_only_on_the_tensor_core_kernel(cuda):
     from repro_torch.kernels import _build
     simt = _build.load("pcc_tile")
     assert hasattr(simt, "pcc_tiles_f32")
-    for sfx in ("bf16", "e4m3", "e5m2", "i8"):
+    for sfx in ("bf16", "f16", "e4m3", "e5m2", "i8"):
         assert not hasattr(simt, f"pcc_tiles_{sfx}")
         assert hasattr(_build.load("pcc_tile_sm90"), f"pcc_tiles_sm90_{sfx}")
 
@@ -1554,3 +1554,161 @@ def test_kendall_tau_b_scale_same_bits_on_card_and_cpu(cuda):
     torch_card = 1.0 / torch.sqrt(nz.to(cuda).float())
     assert torch.equal(torch_card.cpu(), host[:-1])
     assert host[-1] == 0.0
+
+
+# -- float16 and int16 operands, inference tensors, serving ------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("n,l,t,l_blk,kk", [
+    (300, 120, 64, 64, 10),
+    (260, 90, 130, 6, 33),     # t past a block, l_pad 90 (a padded copy)
+    (600, 1000, 256, 512, 10),
+])
+def test_f16_kernels_within_the_narrow_gate(cuda, grid, n, l, t, l_blk, kk):
+    """float16 tiles (pcc_tiles_sm90_f16) within the narrow gate of the
+    plain version, the planted faults refused by FAULT_SHARE, split-
+    invariant bitwise; the float16 select's (pcc_topk_select_f16) values
+    bitwise the tiles'; each counted under float16."""
+    u = _operand(n, l, t, l_blk, cuda).half()
+    v = _operand(n // 2 + 3, l, t, l_blk, cuda, seed=1).half() if grid \
+        else None
+    m = u.shape[0] // t
+    gc = v.shape[0] // t if grid else None
+    total = m * gc if grid else m * (m + 1) // 2
+    spec = EpilogueSpec(div=3.0, clip=(-1.0, 1.0))
+    kw = dict(t=t, l_blk=l_blk, epilogue=spec, v_pad=v, grid_cols=gc)
+    before = pcc_tiles.launches_by_dtype["float16"]
+    got = _within_narrow_gate(u, 0, {**kw, "pass_tiles": total})
+    assert pcc_tiles.launches_by_dtype["float16"] > before
+    parts = torch.cat([pcc_tiles(u, j, pass_tiles=min(3, total - j), **kw)
+                       for j in range(0, total, 3)])
+    assert torch.equal(got, parts)
+    sel0 = pcc_topk_tiles.select_by_dtype["float16"]
+    tk = pcc_topk_tiles(u, 0, total, pass_tiles=total, kk=kk,
+                        n_cols_valid=(v if grid else u).shape[0],
+                        symmetric_problem=not grid, **kw)
+    assert pcc_topk_tiles.select_by_dtype["float16"] == sel0 + 1
+    ids = np.arange(total)
+    ys, xs = (grid_job_coord_batch(m, gc, ids) if grid
+              else job_coord_batch(m, ids))
+    r = torch.zeros(u.shape[0], (v if grid else u).shape[0], device=cuda)
+    r.view(m, t, -1, t)[torch.as_tensor(ys, device=cuda), :,
+                        torch.as_tensor(xs, device=cuda), :] = got
+    if not grid:
+        r = torch.where(torch.ones_like(r, dtype=torch.bool).triu(), r, r.T)
+    for side in range(len(tk) // 2):
+        vals, cols = tk[2 * side], tk[2 * side + 1]
+        ok = cols >= 0
+        rows = (torch.arange(vals.shape[0] * t, device=cuda)
+                .view(-1, t, 1).expand_as(cols))
+        assert torch.equal(vals[ok], (r if side == 0 else r.T)[
+            rows[ok], cols[ok].long()])
+
+
+@pytest.mark.gpu
+def test_f16_corr_on_card_runs_the_f16_kernels(cuda):
+    """corr(compute_dtype=float16) on the card: only the float16 kernels
+    launch, the result lies within the narrow gate's scale of the CPU run
+    (the plain version), and DeviceTopKSink is bitwise TopKSink."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((300, 200)).astype(np.float32))
+    kw = dict(t=64, l_blk=64, max_tiles_per_pass=5, compute_dtype="float16")
+    t0 = dict(pcc_tiles.launches_by_dtype)
+    got = corr(x.to(cuda), **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - t0[k] for k, v in pcc_tiles.launches_by_dtype.items()
+                if v != t0[k]}
+    assert set(launched) == {"float16"}
+    want = corr(x, device="cpu", **kw)
+    # |kernel - plain| <= 16 * 2^-24 * sqrt(l_pad) * G, G <= 1 for Pearson
+    assert float((got.cpu() - want).abs().max()) <= 16 * 2.0 ** -24 * 16
+    dev = corr(x.to(cuda), sink=DeviceTopKSink(7), **kw)
+    host = corr(x.to(cuda), sink=TopKSink(7), **kw)
+    np.testing.assert_array_equal(dev["indices"], host["indices"])
+    np.testing.assert_array_equal(dev["values"], host["values"])
+
+
+@pytest.mark.gpu
+def test_int16_kendall_on_card_is_the_int8_run(cuda):
+    """int16 Kendall signs run the int8 kernels (narrowed exactly): bitwise
+    the int8 run and the CPU run, on the tiles and the top-k."""
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (300, 40)).astype(np.float32))
+    kw = dict(measure="kendall", t=64, l_blk=64)
+    i8 = pcc_tiles.launches_by_dtype["int8"]
+    got = corr(x.to(cuda), compute_dtype="int16", **kw)
+    torch.cuda.synchronize()
+    assert pcc_tiles.launches_by_dtype["int8"] == i8 + 1
+    assert torch.equal(got, corr(x.to(cuda), compute_dtype="int8", **kw))
+    assert torch.equal(got.cpu(), corr(x, compute_dtype="int16",
+                                       device="cpu", **kw))
+    a = corr(x.to(cuda), compute_dtype="int16", sink=DeviceTopKSink(5), **kw)
+    b = corr(x.to(cuda), compute_dtype="int8", sink=DeviceTopKSink(5), **kw)
+    np.testing.assert_array_equal(a["indices"], b["indices"])
+    np.testing.assert_array_equal(a["values"], b["values"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("measure", ["pearson", "kendall"])
+def test_inference_tensor_on_card_runs_uncached(cuda, measure):
+    """A card tensor made under torch.inference_mode(): corr gives the bits
+    of a normal tensor of the same values and leaves no cache entry (l =
+    120: kendall takes the merge kernel, 4-tile passes)."""
+    clear_prepared_cache()
+    a = np.random.default_rng(33).standard_normal((300, 120)).astype(
+        np.float32)
+    kw = dict(t=64, l_blk=64, max_tiles_per_pass=4, measure=measure)
+    with torch.inference_mode():
+        xi = torch.from_numpy(a).to(cuda)
+        inside = corr(xi, **kw)
+    outside = corr(xi, **kw)
+    assert prepared_cache_stats()["size"] == 0
+    want = corr(torch.from_numpy(a).to(cuda), **kw)
+    assert torch.equal(inside, want) and torch.equal(outside, want)
+    clear_prepared_cache()
+
+
+@pytest.mark.gpu
+def test_served_query_bitwise_corr_on_card(cuda):
+    """A CorrServer on the card: coalesced dense and top-k answers are
+    bitwise standalone corr(probes, corpus) on the card, through the
+    kernels (launches < requests), one corpus transform."""
+    import threading
+
+    from repro_torch.serving import CorrServer
+    rng = np.random.default_rng(34)
+    corpus = rng.random((700, 300), dtype=np.float32)
+    probes = [rng.random((m, 300), dtype=np.float32) for m in (1, 7, 64, 30)]
+    kw = dict(t=64, l_blk=64)
+    p0 = pcc_tiles.launches
+    s0 = pcc_topk_tiles.launches["select"]
+    with CorrServer(corpus, max_wait_s=0.2, device=cuda, **kw) as srv:
+        futs = [None] * 8
+
+        def go(i):
+            futs[i] = srv.submit(probes[i % 4], k=None if i < 4 else 10)
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        res = [f.result(timeout=60) for f in futs]
+        stats = srv.stats()
+        x = srv.corpus.x
+    for i, r in enumerate(res):
+        p = probes[i % 4]
+        if i < 4:
+            want = corr(torch.from_numpy(p).to(cuda), x, **kw).cpu().numpy()
+            np.testing.assert_array_equal(r.value, want)
+        else:
+            want = corr(torch.from_numpy(p).to(cuda), x, sink=TopKSink(10),
+                        **kw)
+            np.testing.assert_array_equal(r.value["indices"],
+                                          want["indices"])
+            np.testing.assert_array_equal(r.value["values"], want["values"])
+    assert stats["batches"] < 8 and stats["corpus"]["misses"] == 1
+    assert pcc_tiles.launches > p0
+    assert pcc_topk_tiles.launches["select"] > s0

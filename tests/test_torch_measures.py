@@ -265,14 +265,16 @@ def test_kendall_at_crossover_takes_the_sign_gemm_where_the_reference_does():
 
 
 def test_unported_compute_dtypes_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ExecutionPlan.create(20, 12, measure="pearson",
-                             compute_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ExecutionPlan.create(20, 12, measure="kendall",
-                             compute_dtype="int16")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ExecutionPlan.create(20, 12, compute_dtype=torch.float32)
+    # float16 (any measure) and int16 (exact_int8 measures) are ported
+    assert ExecutionPlan.create(20, 12, measure="pearson",
+                                compute_dtype=torch.float16
+                                ).compute_dtype == torch.float16
+    assert ExecutionPlan.create(20, 12, measure="kendall",
+                                compute_dtype="int16"
+                                ).compute_dtype == torch.int16
+    for dtype in (torch.float32, torch.float64, torch.int32):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ExecutionPlan.create(20, 12, compute_dtype=dtype)
 
 
 # -- custom measures -------------------------------------------------------------

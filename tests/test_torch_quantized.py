@@ -257,7 +257,7 @@ def test_scaled_wrapper_checks_its_scales():
         pcc_tiles(u, 0, v_pad=torch.zeros(24, 8, dtype=torch.int8),
                   grid_cols=3, row_scale=s, col_scale=s, **kw)
     with pytest.raises(ValueError, match="float8"):
-        pcc_tiles(u.to(torch.float16), 0, **kw)
+        pcc_tiles(u.to(torch.float64), 0, **kw)
 
 
 # -- corr ----------------------------------------------------------------------
@@ -420,5 +420,5 @@ def test_execute_plan_checks_quantized_operands():
                                      compute_dtype="int8")
         launch_tiles(rplan, u, 0, 2, u.data)
     with pytest.raises(ValueError, match="fp8"):
-        convert.operand_from_reference(np.zeros((8, 8), np.float16),
+        convert.operand_from_reference(np.zeros((8, 8), np.float64),
                                        device="cpu")

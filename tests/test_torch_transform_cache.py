@@ -266,3 +266,32 @@ def test_masked_runs_and_shared_storage_are_uncached():
     np.testing.assert_allclose(
         r.numpy(), np.asarray(ref_measures.dense_reference(
             jnp.asarray(x.numpy()), "dot")), atol=1e-5)
+
+
+@pytest.mark.parametrize("measure,l", [("pearson", 29), ("kendall", 29),
+                                       ("kendall", 100)])
+@pytest.mark.parametrize("in_mode", [True, False])
+def test_inference_tensors_run_uncached_with_the_same_bits(measure, l,
+                                                           in_mode):
+    """A tensor made under torch.inference_mode() has no version counter:
+    corr builds its operand uncached (no entry), inside the mode and after
+    it, and gives the bits of a normal tensor of the same values (kendall
+    at l = 100 takes the merge-sort kernel, whose rank structures are
+    rebuilt at each of the 4-tile passes)."""
+    a = _x(37, l, seed=30)
+    with torch.inference_mode():
+        xi = torch.from_numpy(a.copy())
+        if in_mode:
+            got = corr(xi, measure=measure, **KW)
+            again = corr(xi, measure=measure, **KW)
+    if not in_mode:
+        got = corr(xi, measure=measure, **KW)
+        again = corr(xi, measure=measure, **KW)
+    assert xi.is_inference()
+    assert api.prepared_cache_stats() == {
+        "hits": 0, "misses": 0, "size": 0, "capacity": 8}
+    want = corr(torch.from_numpy(a.copy()), measure=measure, **KW)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    cache = TransformCache()
+    cache.prepared(xi, measures.get(measure), None, T, LBLK, build=_zeros)
+    assert len(cache) == 0 and cache.misses == 0
