@@ -191,7 +191,35 @@ Phases, each fatal on failure:
      only the 64 x 17,555 grid and the 64-row triangle (and the watch's
      8 x 64 grid), the index bitwise a cold corr of 17,619 rows, the
      watch bitwise its cold top-k; an update of 32 rows (seed 6) within
-     DRIFT_TOL of cold; the phase's seconds.
+     DRIFT_TOL of cold; the phase's seconds;
+ 25. recovery (corr(recovery=RetryPolicy(sleep=no-op)), every check
+     fatal, every fault at an exact arrival of its site, each run's
+     plan.fired and policy.log printed, the float32 tile, select and
+     Kendall launches counted and no plain version allowed): Table II in
+     300-tile passes under two transient faults and an out-of-memory
+     error at pass launches 2, 3 and 6, dense and DeviceTopKSink(10):
+     the log retry, retry, shrink_pass 150, 18 launches, bitwise the
+     fault-free runs; a real torch.cuda.OutOfMemoryError: the one-pass
+     HostSink() run under an allocator cap (set_per_process_memory_
+     fraction, after ballast fills the free blocks of held segments) of
+     what is reserved plus the midpoint of the one-pass and 603-tile
+     peaks, at least one real error classified oom, bitwise the uncapped
+     run, the cap restored in any case; the 1,639 x 17,555 grid in 60-tile
+     passes into HostSink(path=) under a partial write, an I/O error and
+     a crash: the crash propagates, corr(resume_from=) launches exactly
+     the passes the sidecar lacks, bitwise DenseSink's grid;
+     ShardedHostSink at Table II over 3 simulated hosts in 300-tile
+     passes, host 1 crashed at its third manifest commit and resumed
+     (exactly the passes its manifest lacks), assemble and
+     open_manifest(...).rows(0, 1,639) bitwise DenseSink's .cpu();
+     kendall_merge over the TF rows in 5-tile passes under one transient
+     fault, bitwise; TF significance at B = 32 (chunk 16, key 0) with p
+     over HostSink(path=), crashed at a commit and resumed: replicas
+     launched only for the passes the sidecar lacks, p bitwise; a
+     LiveIndex(recovery=) append of 64 rows under one transient fault,
+     bitwise a cold corr of 17,619 rows; Table II dense in 300-tile passes
+     with and without recovery= (median of 3 each, printed, not gated);
+     the phase's seconds.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -294,6 +322,40 @@ SERVE_CLIENTS, SERVE_QUERIES, SERVE_MAX_ROWS = 6, 4, 64
 SERVE_WAIT_S = 0.02
 SERVE_SIG_ROWS, SERVE_B, SERVE_CHUNK = 16, 32, 16
 SERVE_APPEND, SERVE_UPDATE, SERVE_WATCH = 64, 32, 8
+# Phase 25, recovery (each fault at an exact arrival of its site, counted
+# as runtime/faults.py counts them):
+# - Table II in REC_SPLIT-tile passes (9) under REC_FAULTS: transient faults
+#   at the second and third pass launches (the second arrives while pass 0
+#   is launched and not yet consumed, the double buffer; the third is pass
+#   0's relaunch), then an out-of-memory error at the sixth (pass 2's
+#   launch; passes 0 and 1 launched, pass 0 consumed): retry, retry, halve
+#   to REC_SPLIT // 2;
+# - a real out-of-memory error: the one-pass HostSink() run (2,415 tiles, a
+#   633 MB pass buffer) under a cap halfway between its peak and that of
+#   REC_OOM_SPLIT-tile passes (a quarter of the tiles, two buffers live):
+#   1,207-tile passes (two 316 MB buffers) exceed it too, 603 fit;
+# - the X-vs-Y grid (483 tiles) in REC_GRID_SPLIT-tile passes (9) into
+#   HostSink(path=) under REC_GRID_FAULTS: a partial write at pass 2's
+#   write, an I/O error at the fifth flush (pass 3's commit; open flushes
+#   first), a crash at the eighth commit (open commits first, pass 3's
+#   commit fell to the I/O error: pass 7's), so passes 7 and 8 remain;
+# - ShardedHostSink over REC_HOSTS hosts, host REC_CRASH_HOST crashing at
+#   its sink_commit arrival REC_CRASH_AT (open commits first, then one a
+#   pass: the crash kills its second pass's manifest);
+# - merge-sort Kendall and significance in REC_KENDALL_SPLIT-tile passes of
+#   the TF triangle (28 tiles: 6 passes), the significance crash at
+#   sink_commit REC_SIG_CRASH_AT (once passes 0 and 1 are committed).
+REC_SPLIT = 300
+REC_FAULTS = (("pass_launch", "transient", (2, 3)),
+              ("pass_launch", "oom", (6,)))
+REC_OOM_SPLIT = 603
+REC_GRID_SPLIT = 60
+REC_GRID_FAULTS = (("sink_write", "partial_write", (3,)),
+                   ("sink_flush", "io", (5,)),
+                   ("sink_commit", "crash", (8,)))
+REC_HOSTS, REC_CRASH_HOST, REC_CRASH_AT = 3, 1, 3
+REC_KENDALL_SPLIT = 5
+REC_SIG_CRASH_AT = 4
 # Significance (phase 18): B permutations (paper SSIV: >= 1,000), key 0.
 B_SIG = 1_000
 SIG_ROWS = 8
@@ -1255,6 +1317,390 @@ def serving_runs(x_dev, x_tf, reset, plain_calls, tag):
         srv.close(timeout=300)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 24 took {out['seconds']:.1f} s {tag}")
+    return out
+
+
+def recovery_runs(x_dev, x_tf, reset, plain_calls, tag):
+    """Phase 25: recovery on the card (corr(recovery=), the executor's and
+    the sinks' fault sites, HostSink checkpoints, ShardedHostSink,
+    LiveIndex(recovery=)), every check fatal.  `reset` sets the pcc
+    kernels' launch counts and `plain_calls` to 0.  Returns the times (ms),
+    counts and peaks (GB)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core.api import corr
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.core.significance import PermutationSpec
+    from repro_torch.core.sinks import (DeviceTopKSink, HostSink,
+                                        ShardedHostSink, assemble,
+                                        open_manifest)
+    from repro_torch.data.expression import ExpressionSpec, artificial
+    from repro_torch.kernels import kendall_merge as kmm
+    from repro_torch.kernels.pcc_tile import pcc_tiles, pcc_topk_tiles
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.faults import (CrashFault, FaultPlan, FaultSpec,
+                                            RetryPolicy)
+    from repro_torch.serving import CorpusHandle, LiveIndex
+
+    t_phase = time.perf_counter()
+    out = {}
+    kendall_plain = kmm.kendall_merge_tiles_plain
+    kendall_plain_calls = [0]
+    k_base = [kmm.kendall_merge_tiles.launches]
+
+    def counted_kendall_plain(*args, **kwargs):
+        kendall_plain_calls[0] += 1
+        return kendall_plain(*args, **kwargs)
+
+    def policy():
+        return RetryPolicy(sleep=lambda s: None)
+
+    def fresh_counts():
+        reset()
+        k_base[0] = kmm.kendall_merge_tiles.launches
+
+    def launched(label):
+        """The kernels' launches since fresh_counts(); no plain version may
+        have run."""
+        torch.cuda.synchronize()
+        if any(plain_calls.values()) or kendall_plain_calls[0]:
+            raise AssertionError(f"{label}: a plain version ran "
+                                 f"({plain_calls}, kendall "
+                                 f"{kendall_plain_calls[0]})")
+        return {"pcc_tiles": pcc_tiles.launches,
+                "select": pcc_topk_tiles.launches["select"],
+                "merge": pcc_topk_tiles.launches["merge"],
+                "kendall_merge": kmm.kendall_merge_tiles.launches - k_base[0]}
+
+    def same_bits(a, b, label):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else b
+        if a.shape != b.shape or not np.array_equal(
+                np.ascontiguousarray(a).view(np.uint32),
+                np.ascontiguousarray(b).view(np.uint32)):
+            raise AssertionError(f"{label}: not the fault-free run's bits")
+
+    def actions(pol):
+        return [e["action"] for e in pol.log]
+
+    def shown(pol):
+        return [{k: v for k, v in e.items() if k != "error"} for e in pol.log]
+
+    def crashes(label, fn):
+        try:
+            fn()
+        except CrashFault:
+            return
+        raise AssertionError(f"{label}: the crash did not propagate")
+
+    kmm.kendall_merge_tiles_plain = counted_kendall_plain
+    orig_classify = faults.classify_failure
+    try:
+        # -- 25.1 injected faults at Table II ----------------------------------
+        kw = dict(max_tiles_per_pass=REC_SPLIT)
+        plan = ExecutionPlan.create(N_SEEK, L_SEEK, **kw)
+        half = ExecutionPlan.create(N_SEEK, L_SEEK,
+                                    max_tiles_per_pass=REC_SPLIT // 2)
+        # launched: pass 0 (arrival 1), passes 0 and 1 (arrivals 4, 5), then
+        # every pass of the halved plan but the two that pass 0 covers
+        want_launches = 3 + half.n_pass - 2
+        for name, sink in (("dense", None),
+                           (f"DeviceTopKSink({K_TOP})", DeviceTopKSink)):
+            clean = corr(x_dev, sink=None if sink is None else sink(K_TOP),
+                         **kw)
+            fp = FaultPlan([FaultSpec(*s) for s in REC_FAULTS])
+            pol = policy()
+            fresh_counts()
+            t1 = time.perf_counter()
+            with fp.armed():
+                got = corr(x_dev, sink=None if sink is None else sink(K_TOP),
+                           recovery=pol, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            n = launched(f"25.1 {name}")
+            print(f"  25.1 {name} at Table II, {plan.n_pass} passes of <= "
+                  f"{REC_SPLIT}, faults {REC_FAULTS}: fired {fp.fired}; log "
+                  f"{shown(pol)}; launches {n}; {ms:.1f} ms {tag}")
+            key = "pcc_tiles" if sink is None else "select"
+            if actions(pol) != ["retry", "retry", "shrink_pass"] or \
+                    pol.log[-1]["max_tiles_per_pass"] != REC_SPLIT // 2 or \
+                    n[key] != want_launches:
+                raise AssertionError(f"25.1 {name}: log {shown(pol)}, "
+                                     f"{n[key]} launches (want "
+                                     f"{want_launches})")
+            if sink is None:
+                same_bits(got, clean, "25.1 dense")
+            elif not (np.array_equal(got["indices"], clean["indices"]) and
+                      got["values"].tobytes() == clean["values"].tobytes()):
+                raise AssertionError(f"25.1 {name}: not the fault-free "
+                                     f"top-k")
+            out["faults_dense_ms" if sink is None else "faults_topk_ms"] = ms
+            del clean, got
+        out["faults_launches"] = want_launches
+
+        # -- 25.2 a real out-of-memory error -----------------------------------
+        def host_peak(mtp):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r = corr(x_dev, sink=HostSink(), max_tiles_per_pass=mtp)
+            torch.cuda.synchronize()
+            return r, torch.cuda.max_memory_allocated() - base
+
+        host_one, peak_one = host_peak(None)
+        peak_split = host_peak(REC_OOM_SPLIT)[1]
+        torch.cuda.empty_cache()
+        # the cap counts the allocator's segments, not its blocks: a pass
+        # buffer that fits a free block of a segment already held would
+        # never meet it.  Ballast takes every free large block (> 1 MiB)
+        # first, so each pass buffer needs a new segment.
+        ballast = [torch.empty(b["size"], dtype=torch.uint8,
+                               device=x_dev.device)
+                   for b in sorted((b for seg in torch.cuda.memory_snapshot()
+                                    if seg["segment_type"] == "large"
+                                    for b in seg["blocks"]
+                                    if b["state"] == "inactive"
+                                    and b["size"] > 2 ** 20),
+                                   key=lambda b: -b["size"])]
+        ballast_gb = sum(b.numel() for b in ballast) / 1e9
+        reserved = torch.cuda.memory_reserved()
+        cap = reserved + (peak_one + peak_split) // 2
+        total = torch.cuda.get_device_properties(0).total_memory
+        seen = []
+
+        def recording(exc):
+            kind = orig_classify(exc)
+            seen.append((type(exc).__name__, kind,
+                         str(exc).split("\n")[0][:120]))
+            return kind
+
+        faults.classify_failure = recording
+        pol = policy()
+        fresh_counts()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            t1 = time.perf_counter()
+            got = corr(x_dev, sink=HostSink(), recovery=pol)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            faults.classify_failure = orig_classify
+            del ballast
+        n = launched("25.2")
+        real = [e for e in seen
+                if e[0] == "OutOfMemoryError" and e[1] == "oom"]
+        print(f"  25.2 HostSink() at Table II, peak above held: one pass "
+              f"{peak_one / 1e9:.3f} GB, {REC_OOM_SPLIT}-tile passes "
+              f"{peak_split / 1e9:.3f} GB; cap {cap / 1e9:.3f} GB "
+              f"({reserved / 1e9:.3f} reserved, {ballast_gb:.3f} of it "
+              f"ballast, + the midpoint); failures "
+              f"{seen}; log {shown(pol)}; launches {n}; {ms:.1f} ms {tag}")
+        if not real or any(e["kind"] != "oom" for e in pol.log):
+            raise AssertionError(f"25.2: no real torch.cuda.OutOfMemoryError "
+                                 f"recovered ({seen}, {pol.log})")
+        same_bits(got, host_one, "25.2 capped HostSink()")
+        out.update(oom_peak_one_gb=peak_one / 1e9,
+                   oom_peak_split_gb=peak_split / 1e9, oom_cap_gb=cap / 1e9,
+                   oom_log=shown(pol), oom_ms=ms)
+        del host_one, got
+
+        with tempfile.TemporaryDirectory(prefix="recovery_") as tmp:
+            # -- 25.3 a checkpoint under faults on the X-vs-Y grid ------------
+            gkw = dict(max_tiles_per_pass=REC_GRID_SPLIT)
+            gplan = ExecutionPlan.create(N_TF, L_SEEK, n_cols=N_SEEK, **gkw)
+            grid = corr(x_tf, x_dev, **gkw).cpu().numpy()
+            path = os.path.join(tmp, "grid.mm")
+            fp = FaultPlan([FaultSpec(*s) for s in REC_GRID_FAULTS])
+            pol = policy()
+            fresh_counts()
+            with fp.armed():
+                crashes("25.3", lambda: corr(
+                    x_tf, x_dev, sink=HostSink(path=path), recovery=pol,
+                    **gkw))
+            n_crash = launched("25.3 crashed")["pcc_tiles"]
+            with open(path + ".progress.json") as f:
+                done = json.load(f)["completed"]
+            fresh_counts()
+            t1 = time.perf_counter()
+            got = corr(x_tf, x_dev, resume_from=path, recovery=policy(),
+                       **gkw)
+            ms = (time.perf_counter() - t1) * 1e3
+            n = launched("25.3 resumed")["pcc_tiles"]
+            print(f"  25.3 HostSink(path=) on the {N_TF} x {N_SEEK} grid, "
+                  f"{gplan.n_pass} passes of <= {REC_GRID_SPLIT} "
+                  f"({gplan.n_pad * gplan.col_pad * 4 / 1e6:.1f} MB memmap), "
+                  f"faults {REC_GRID_FAULTS}: fired {fp.fired}; log "
+                  f"{shown(pol)}; {n_crash} launches, sidecar completed "
+                  f"{done}; resume_from: {n} launches, {ms:.1f} ms {tag}")
+            if actions(pol) != ["retry", "retry", "raise"] or \
+                    n != gplan.n_pass - done - 1:
+                raise AssertionError(f"25.3: log {shown(pol)}, the resume "
+                                     f"launched {n} after pass {done}")
+            same_bits(got, grid, "25.3 resumed grid")
+            out.update(grid_completed=done, grid_resume_launches=n,
+                       grid_resume_ms=ms)
+            del grid, got
+
+            # -- 25.4 ShardedHostSink at Table II, REC_HOSTS hosts -------------
+            dense = corr(x_dev, **kw).cpu().numpy()
+            d = os.path.join(tmp, "shards")
+
+            def shard(h, resume=False, **extra):
+                return corr(x_dev, sink=ShardedHostSink(
+                    d, host=h, n_hosts=REC_HOSTS, resume=resume), **extra,
+                    **kw)
+
+            host_launches = []
+            for h in range(REC_HOSTS):
+                fresh_counts()
+                if h != REC_CRASH_HOST:
+                    r = shard(h)
+                    host_launches.append(launched("25.4")["pcc_tiles"])
+                    if not r["complete"]:
+                        raise AssertionError(f"25.4: host {h} incomplete")
+                    continue
+                fp = FaultPlan([FaultSpec("sink_commit", "crash",
+                                          (REC_CRASH_AT,))])
+                with fp.armed():
+                    crashes("25.4", lambda: shard(h, recovery=policy()))
+                crashed = launched("25.4 crashed")["pcc_tiles"]
+                probe = ShardedHostSink(d, host=h, n_hosts=REC_HOSTS,
+                                        resume=True)
+                probe.open(plan, x_dev.device)
+                k0, skip = plan.coverage_schedule(probe.covered())
+                lacks = [k for k in range(k0, plan.n_pass) if k not in skip]
+                fresh_counts()
+                r = shard(h, resume=True)
+                resumed = launched("25.4 resumed")["pcc_tiles"]
+                if resumed != len(lacks) or not r["complete"]:
+                    raise AssertionError(f"25.4: the resume launched "
+                                         f"{resumed}, the manifest lacks "
+                                         f"passes {lacks}")
+                host_launches.append((crashed, resumed))
+            ranges = [plan.host_tile_range(h, REC_HOSTS)
+                      for h in range(REC_HOSTS)]
+            files_mb = sum(os.path.getsize(os.path.join(d, f))
+                           for f in os.listdir(d)) / 1e6
+            t1 = time.perf_counter()
+            whole = assemble(d)
+            ms = (time.perf_counter() - t1) * 1e3
+            same_bits(whole, dense, "25.4 assemble")
+            del whole
+            same_bits(open_manifest(d).rows(0, N_TF), dense[:N_TF],
+                      "25.4 open_manifest rows")
+            print(f"  25.4 ShardedHostSink at Table II, {REC_HOSTS} hosts, "
+                  f"ranges {ranges}, launches per host {host_launches} (host "
+                  f"{REC_CRASH_HOST} crashed at sink_commit {REC_CRASH_AT}, "
+                  f"then resumed: the passes its manifest lacked, {lacks}); "
+                  f"{files_mb:.1f} MB of files; assemble {ms:.1f} ms, "
+                  f"bitwise DenseSink's .cpu(), rows 0-{N_TF} too {tag}")
+            out.update(shard_launches=host_launches, shard_mb=files_mb,
+                       assemble_ms=ms)
+            del dense
+
+            # -- 25.5 Kendall and significance ---------------------------------
+            kkw = dict(measure="kendall_merge",
+                       max_tiles_per_pass=REC_KENDALL_SPLIT)
+            kplan = ExecutionPlan.create(N_TF, L_SEEK, **kkw)
+            clean = corr(x_tf, **kkw)
+            fp = FaultPlan([FaultSpec("pass_launch", "transient", (2,))])
+            pol = policy()
+            fresh_counts()
+            with fp.armed():
+                got = corr(x_tf, recovery=pol, **kkw)
+            n = launched("25.5 kendall")
+            print(f"  25.5 kendall_merge over the TF rows, {kplan.n_pass} "
+                  f"passes of <= {REC_KENDALL_SPLIT}: fired {fp.fired}; log "
+                  f"{shown(pol)}; launches {n} {tag}")
+            if actions(pol) != ["retry"] or n["pcc_tiles"] or \
+                    n["kendall_merge"] != kplan.n_pass + 1:
+                raise AssertionError(f"25.5 kendall: {shown(pol)}, {n}")
+            same_bits(got, clean, "25.5 kendall_merge")
+            del clean, got
+            skw = dict(max_tiles_per_pass=REC_KENDALL_SPLIT)
+            splan = ExecutionPlan.create(N_TF, L_SEEK, **skw)
+
+            def spec(sink=None):
+                return PermutationSpec(SERVE_B, key=0, chunk=SERVE_CHUNK,
+                                       sink=sink)
+
+            p_clean = corr(x_tf, pvalues=spec(), **skw)[1].cpu().numpy()
+            ppath = os.path.join(tmp, "p.mm")
+            fp = FaultPlan([FaultSpec("sink_commit", "crash",
+                                      (REC_SIG_CRASH_AT,))])
+            with fp.armed():
+                crashes("25.5 significance", lambda: corr(
+                    x_tf, pvalues=spec(HostSink(path=ppath)), **skw))
+            with open(ppath + ".progress.json") as f:
+                pdone = json.load(f)["completed"]
+            fresh_counts()
+            p_res = corr(x_tf, pvalues=spec(HostSink(path=ppath,
+                                                     resume=True)), **skw)[1]
+            n = launched("25.5 significance")["pcc_tiles"]
+            reps = pcc_tiles.replica_launches
+            want_reps = (splan.n_pass - pdone - 1) * -(-SERVE_B //
+                                                       SERVE_CHUNK)
+            print(f"  25.5 significance of the TF rows at B = {SERVE_B}, "
+                  f"chunk {SERVE_CHUNK}, {splan.n_pass} passes, p over "
+                  f"HostSink(path=): crashed at sink_commit "
+                  f"{REC_SIG_CRASH_AT} (completed {pdone}), resumed: {n} "
+                  f"launches, {reps} of them replica launches (the passes "
+                  f"the sidecar lacked); p bitwise the uninterrupted run's "
+                  f"{tag}")
+            if reps != want_reps or n != splan.n_pass + reps:
+                raise AssertionError(f"25.5: {n} launches, {reps} replica "
+                                     f"launches, want {want_reps}")
+            same_bits(p_res, p_clean, "25.5 resumed p")
+            out.update(sig_completed=pdone, sig_replica_launches=reps)
+            del p_clean, p_res
+
+        # -- 25.6 LiveIndex(recovery=) on the Table II corpus ---------------------
+        handle = CorpusHandle(x_dev)
+        li = LiveIndex(handle, measure="pearson", recovery=policy())
+        try:
+            new = torch.from_numpy(artificial(ExpressionSpec(
+                n=SERVE_APPEND, l=x_dev.shape[1], seed=5))).to(x_dev.device)
+            fp = FaultPlan([FaultSpec("pass_launch", "transient", (1,))])
+            fresh_counts()
+            t1 = time.perf_counter()
+            with fp.armed():
+                handle.append(new)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            n = launched("25.6")
+            same_bits(li.result()["r"], corr(handle.x), "25.6 LiveIndex")
+            print(f"  25.6 LiveIndex(recovery=) on the Table II corpus, an "
+                  f"append of {SERVE_APPEND} rows: fired {fp.fired}; log "
+                  f"{shown(li.recovery)}; launches {n} (the grid, then the "
+                  f"triangle); {ms:.1f} ms; bitwise a cold corr of "
+                  f"{handle.n} rows {tag}")
+            if fp.fired != [("pass_launch", 1, "transient")] or \
+                    actions(li.recovery) != ["retry"] or \
+                    n["pcc_tiles"] != 2:
+                raise AssertionError(f"25.6: {fp.fired}, {li.recovery.log}, "
+                                     f"{n}")
+            out["live_append_ms"] = ms
+        finally:
+            li.close()
+
+        # -- 25.7 recovery armed, no faults ----------------------------------------
+        dense_ms, dense_all = host_ms(lambda: corr(x_dev, **kw), 3)
+        armed_ms, armed_all = host_ms(lambda: corr(
+            x_dev, recovery=policy(), **kw), 3)
+        print(f"  25.7 Table II dense corr, {plan.n_pass} passes: "
+              f"{dense_ms:.3f} ms (runs {[round(v, 3) for v in dense_all]}); "
+              f"with recovery=RetryPolicy() and no fault {armed_ms:.3f} ms "
+              f"(runs {[round(v, 3) for v in armed_all]}) {tag}")
+        out.update(dense_ms=dense_ms, armed_ms=armed_ms)
+    finally:
+        kmm.kendall_merge_tiles_plain = kendall_plain
+        faults.classify_failure = orig_classify
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 25 took {out['seconds']:.1f} s {tag}")
     return out
 
 
@@ -4073,6 +4519,12 @@ def main(argv) -> int:
     print(json.dumps({"serving": serving_runs(x_dev, x_tf, reset_counts,
                                               plain_calls, tag)}))
     torch.cuda.empty_cache()
+
+    # -- 25. recovery on the card ----------------------------------------------
+    print(f"recovery (corr(recovery=), checkpoints and shards under faults, "
+          f"a real out-of-memory error) at Table II {tag}:")
+    print(json.dumps({"recovery": recovery_runs(x_dev, x_tf, reset_counts,
+                                                plain_calls, tag)}))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []

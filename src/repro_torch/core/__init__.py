@@ -10,9 +10,11 @@ executor -> sink.
             masked (pairwise-complete) measures
   quantize  per-row absmax int8 / fp8 quantization and the Operand record
   plan      ExecutionPlan: every static decision of a run
-  allpairs  the double-buffered pass executor, stream_tiles,
+  allpairs  the double-buffered pass executor and its self-healing loop
+            (execute_plan(recovery=RetryPolicy())), stream_tiles,
             assemble_from_stream and the deprecated drivers
-  sinks     DenseSink, HostSink, ReductionSink, EdgeCountSink,
+  sinks     DenseSink, HostSink, ShardedHostSink (with ShardedMatrix,
+            open_manifest and assemble), ReductionSink, EdgeCountSink,
             RowBlockSink, TopKSink, DeviceTopKSink, ExceedanceSink and the
             canonical top-k merge
   lru       the bounded LRU with hit / miss counters behind the caches
@@ -21,7 +23,8 @@ executor -> sink.
   permutation   the deprecated permutation_pvalues wrapper
 
 The public names below are the reference's ``repro.core`` exports that the
-port has (the sharded drivers wait for ROADMAP slice 11), resolved on first
+port has (the mesh drivers of ``core/distributed.py`` wait for ROADMAP
+slice 11), resolved on first
 use: the kernel modules import ``core.mapping``, so importing every module
 here would import them in a cycle.
 """

@@ -15,6 +15,13 @@ that event alone (its device work and host copies go to a side stream,
 core/sinks.PassStream), so while the host merges pass k the card is already
 computing pass k+1.
 
+``execute_plan(recovery=RetryPolicy())`` arms the self-healing loop
+(:func:`_execute_recovering`): transient failures retry in place, an
+out-of-memory error halves the pass, a lost device goes to the policy's
+resolver (one device has no survivor: fatal by default), and every
+attempt resumes from the tiles the sink already holds, so a recovered
+result is bitwise a fault-free run.
+
 Beside the executor: the raw pass stream (:func:`stream_tiles`), its host
 assembly (:func:`assemble_from_stream`) and the reference's deprecated
 drivers (``allpairs_pcc``, ``allpairs_pcc_streamed`` and their
@@ -24,6 +31,7 @@ the stream.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Callable, FrozenSet, Iterator, Optional, Tuple
 
@@ -38,6 +46,7 @@ from repro_torch.core.sinks import (DenseSink, PassStream, TileSink,
                                     place_tiles_host)
 from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
                                           pcc_tiles, pcc_topk_tiles)
+from repro_torch.runtime import faults
 
 
 def launch_tiles(plan: ExecutionPlan, u, j0: int, launch: int,
@@ -117,11 +126,13 @@ def _local_launches(plan: ExecutionPlan, u_pad, v_pad=None,
     held passes are not a prefix, e.g. a corrupt region dropped).  state_k
     switches to the device top-k epilogue: the buffer becomes the kernel's
     per-row state tuple instead of tiles.  Each item carries the event
-    recorded after its launch (None on the CPU)."""
+    recorded after its launch (None on the CPU).  Each launched pass
+    first passes the ``pass_launch`` fault site, as the reference's do."""
     device = operand_data(u_pad).device
     for k, launch in enumerate(plan.launch_sizes):
         if k < start_pass or k in skip:
             continue
+        faults.check("pass_launch")
         lo = plan.pass_offset(k)
         ids = plan.pass_ids(k)
         if state_k is not None:
@@ -176,18 +187,26 @@ def run_sink(plan: ExecutionPlan, sink: Optional[TileSink],
     for k, ids, buf, ready in make_stream(k0, frozenset(skip)):
         snk.consume(ids, buf, ready)
         pass_complete(k)
+        # let go of pass k before pass k + 2 is launched: two pass buffers
+        # live (the double buffer), not three
+        del buf
     return snk.result()
 
 
 def execute_plan(plan: ExecutionPlan, u_pad, v_pad=None, *,
-                 sink: Optional[TileSink] = None, device=None):
+                 sink: Optional[TileSink] = None, device=None,
+                 recovery: Optional[faults.RetryPolicy] = None):
     """Run a prepared plan end to end on the device that holds ``u_pad``
     (and ``v_pad``, the column operand a rectangular plan needs).  Operands
     are tensors, or :class:`Operand`s of data and per-row scales when the
     plan quantizes (``plan.scaled``).
 
     ``device`` (None means "cuda") must match the operands' device; it is
-    explicit so a CPU run is always asked for.
+    explicit so a CPU run is always asked for.  ``recovery=RetryPolicy()``
+    arms the self-healing loop (:func:`_execute_recovering`): transient
+    failures retry in place, out-of-memory errors halve the pass, device
+    loss goes to the policy's resolver, and the run resumes from the tiles
+    the sink already holds, bitwise an uninterrupted run.
     """
     dev = resolve_device(device)
     l_pad = plan.l_pad
@@ -224,6 +243,10 @@ def execute_plan(plan: ExecutionPlan, u_pad, v_pad=None, *,
     # int16 operands (exact +/-1/0 signs) run the int8 kernels
     u_pad = launch_operand(u_pad)
     v_pad = None if v_pad is None else launch_operand(v_pad)
+    if recovery is not None:
+        return _execute_recovering(plan, u_pad, v_pad, sink=sink,
+                                   device=operand_data(u_pad).device,
+                                   policy=recovery)
     return run_sink(plan, sink, operand_data(u_pad).device,
                     lambda k0, skip: _stream(plan, u_pad, v_pad, k0, skip,
                                              state_k))
@@ -235,6 +258,135 @@ def _sink_state_k(sink: Optional[TileSink]) -> Optional[int]:
     if sink is not None and getattr(sink, "wants_device_state", False):
         return int(sink.k)
     return None
+
+
+def _default_shrink(mesh, plan: ExecutionPlan, exc: BaseException):
+    """Default device-loss resolution.  The reference drops the lost device
+    and repartitions onto the survivors; a run on one device (``mesh``
+    None, the only kind this package has until ROADMAP A6) has none, so
+    the loss propagates, as the reference's local run does."""
+    del mesh, plan
+    raise exc
+
+
+def _consume_attempt(snk, stream, covered: np.ndarray, merge_dedups: bool,
+                     pass_complete, landed: list) -> None:
+    """Drain one attempt's pass stream into the sink, handing it only the
+    tiles `covered` lacks, mark each landed pass covered and count it in
+    ``landed[0]``.  A helper of its own so that its pass buffers die with
+    its frame when an attempt fails."""
+    for k, ids, buf, ready in stream:
+        fresh = ~covered[ids]
+        if merge_dedups:
+            # a state tuple cannot be cut by tile id; the sink's canonical
+            # merge drops the exact duplicates a rerun pass re-delivers
+            if fresh.any():
+                snk.consume(ids, buf, ready)
+        elif fresh.all():
+            snk.consume(ids, buf, ready)
+        elif fresh.any():
+            # cut on the device, queued on the current stream after the
+            # launches so far: the sink waits on everything queued
+            sel = torch.as_tensor(np.nonzero(fresh)[0], device=buf.device)
+            snk.consume(ids[fresh], buf[sel], None)
+        covered[ids] = True
+        pass_complete(k)
+        landed[0] += 1
+        del buf   # two pass buffers live, as in run_sink
+
+
+def _execute_recovering(plan: ExecutionPlan, u_pad, v_pad, *,
+                        sink: Optional[TileSink], device: torch.device,
+                        policy: faults.RetryPolicy):
+    """The self-healing executor loop, the reference's.
+
+    Progress is a host-side coverage bitmap over tile ids (not pass
+    indices), seeded from the sink's own coverage (``covered()``).  Each
+    attempt derives its pass schedule from it (``plan.coverage_schedule``),
+    streams the remaining passes and hands the sink only the tiles it
+    lacks, so sinks whose merge is not idempotent (TopKSink candidates,
+    EdgeCountSink counts) stay exact when a rerun pass overlaps tiles that
+    already landed.
+
+    Failures, by ``faults.classify_failure``:
+      transient    retry in place after the policy's backoff; the retry
+                   budget refills whenever a pass lands
+      oom          halve max_tiles_per_pass (never below 1), rebind the
+                   sink, retry
+      device_loss  ``policy.on_device_loss`` (default: fatal on one device,
+                   :func:`_default_shrink`), rebind, continue
+      crash/fatal  propagate: a simulated process death is recovered by a
+                   restart with ``resume_from=``, never in-process; a
+                   kernel that fails to build or launch is never retried
+                   on a plain version.
+
+    On the card: the pass stream is closed before the next attempt, so the
+    pass it launched but had not yielded is freed before a smaller pass is
+    tried; the side-stream work of passes already consumed stays queued.
+    """
+    snk = sink if sink is not None else DenseSink()
+    snk.open(plan, device)
+    covered = getattr(snk, "covered", lambda: None)()
+    if covered is None or np.shape(covered) != (plan.total_tiles,):
+        covered = np.zeros(plan.total_tiles, bool)
+    else:
+        covered = np.asarray(covered, bool).copy()
+    pass_complete = getattr(snk, "pass_complete", lambda k: None)
+    state_k = _sink_state_k(snk)
+    merge_dedups = getattr(snk, "merge_dedups", False)
+    failures = 0
+    while not covered.all():
+        k0, skip = plan.coverage_schedule(covered)
+        if k0 >= plan.n_pass:
+            break
+        stream = _stream(plan, u_pad, v_pad, k0, frozenset(skip), state_k)
+        landed = [0]
+        try:
+            _consume_attempt(snk, stream, covered, merge_dedups,
+                             pass_complete, landed)
+        except BaseException as exc:
+            stream.close()
+            if landed[0]:
+                failures = 0  # forward progress refills the retry budget
+            kind = faults.classify_failure(exc)
+            if kind == "transient":
+                failures += 1
+                if failures > policy.max_retries:
+                    policy.log.append({"kind": kind, "action": "give_up",
+                                       "attempt": failures})
+                    raise
+                policy.log.append({"kind": kind, "action": "retry",
+                                   "attempt": failures, "error": str(exc)})
+                policy.sleep(policy.backoff(failures - 1))
+                continue
+            if kind == "oom" and policy.shrink_pass_on_oom:
+                if plan.max_tiles_per_pass <= 1:
+                    policy.log.append({"kind": kind, "action": "give_up",
+                                       "max_tiles_per_pass": 1})
+                    raise
+                plan = dataclasses.replace(
+                    plan,
+                    max_tiles_per_pass=max(1, plan.max_tiles_per_pass // 2))
+                policy.log.append(
+                    {"kind": kind, "action": "shrink_pass",
+                     "max_tiles_per_pass": plan.max_tiles_per_pass})
+                getattr(snk, "rebind", lambda _p: None)(plan)
+                continue
+            if kind == "device_loss" and policy.shrink_on_device_loss:
+                resolver = policy.on_device_loss or _default_shrink
+                mesh, plan = resolver(None, plan, exc)
+                if mesh is not None:
+                    raise NotImplementedError(
+                        "on_device_loss returned a mesh: running on one is "
+                        "not ported yet: ROADMAP slice 11 (multi-GPU)")
+                policy.log.append({"kind": kind, "action": "shrink_mesh",
+                                   "p": 1, "error": str(exc)})
+                getattr(snk, "rebind", lambda _p: None)(plan)
+                continue
+            policy.log.append({"kind": kind, "action": "raise",
+                               "error": str(exc)})
+            raise
+    return snk.result()
 
 
 def resolve_device(device) -> torch.device:

@@ -6,8 +6,9 @@ under every inner-product measure and merge-sort Kendall at l >= 96
 (its own tile kernel), with float32, bfloat16, int8 or fp8
 stored operands (int8 on non-Kendall measures and fp8 quantized with
 per-row scales), pairwise-complete masked runs (``where=``),
-permutation / bootstrap p-values (``pvalues=``) and resumable host output
-(``sink=HostSink(path=)``, ``resume_from=``).  A frozen
+permutation / bootstrap p-values (``pvalues=``), resumable host output
+(``sink=HostSink(path=)``, ``resume_from=``) and self-healing execution
+(``recovery=RetryPolicy()``).  A frozen
 :class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
 onto plan -> executor -> sink, preparing every unmasked operand through the
 process-wide :class:`TransformCache`.  The reference's other knobs raise
@@ -35,7 +36,6 @@ from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE, \
 
 # keyword of the reference's corr() -> ROADMAP slice that ports it
 _LATER_SLICES = {
-    "recovery": "slice 10 (recovery)",
     "mesh": "slice 11 (multi-GPU)",
     "shard_u": "slice 11 (multi-GPU)",
 }
@@ -333,13 +333,22 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
              CRC no longer matches); a HostSink of that path is switched
              to resume, any other sink refused.  Checkpoints of the
              reference package resume here and the other way round.
+    recovery: a RetryPolicy (runtime/faults.py) arms the self-healing
+             executor: transient failures retry in place with backoff, an
+             out-of-memory error (injected, or torch.cuda's) halves the
+             pass, a lost device goes to policy.on_device_loss (one device
+             has no survivor: by default the loss propagates), and every
+             attempt resumes from the tiles the sink holds; the recovered
+             result is bitwise a fault-free run.  Crashes propagate (restart
+             with resume_from=), and so does any other error: a kernel that
+             fails to build or launch is never retried on a plain version.
+             Not with where= or pvalues=, which drive their own pass loops.
     device:  None means "cuda", which raises on a machine without a card;
              pass device="cpu" to run the kernels' plain versions.
-    mesh, shard_u and recovery are the reference's and raise
-    NotImplementedError here.
+    mesh and shard_u are the reference's and raise NotImplementedError
+    here.
     """
-    given = {"mesh": mesh is not None, "shard_u": bool(shard_u),
-             "recovery": recovery is not None}
+    given = {"mesh": mesh is not None, "shard_u": bool(shard_u)}
     for name, on in given.items():
         if on:
             raise NotImplementedError(
@@ -356,6 +365,12 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
                 "whose path matches resume_from")
     problem = PairwiseProblem.create(x, y, measure=measure, where=where,
                                      device=device)
+    if recovery is not None and (problem.masked or pvalues is not None):
+        raise ValueError(
+            "recovery= is supported for plain runs only (masked and "
+            "pvalues workloads drive their own multi-stream pass loops); "
+            "run those under a FaultPlan with resume_from= restart "
+            "recovery instead")
     if problem.masked:
         if pvalues is not None:
             raise ValueError(
@@ -386,14 +401,15 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
         if pvalues is not None:
             return run_significance(plan, pvalues, u_pad, columns=problem.x,
                                     sink=sink)
-        return execute_plan(plan, u_pad, sink=sink, device=problem.x.device)
+        return execute_plan(plan, u_pad, sink=sink, device=problem.x.device,
+                            recovery=recovery)
     v_pad = prepared_operand(plan, problem.y, expect_rows=problem.n_cols,
                              cacheable=problem.y is y)
     if pvalues is not None:
         return run_significance(plan, pvalues, u_pad, columns=problem.y,
                                 v_pad=v_pad, sink=sink)
     return execute_plan(plan, u_pad, v_pad, sink=sink,
-                        device=problem.x.device)
+                        device=problem.x.device, recovery=recovery)
 
 
 def masked_sink_plan(plan: ExecutionPlan, mm: measures.MaskedMeasure,

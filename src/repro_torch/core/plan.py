@@ -6,7 +6,11 @@ fusion, the stored operand type (``compute_dtype``), padding, the workload
 given ``n_cols``), the pass split (paper Alg. 2, C4) and a significance
 run's replica axis (``replicas``, ``replica_chunk``) are decided here,
 host-side in exact ints; the executor (core/allpairs.py) and the sinks
-(core/sinks.py) consume the plan.
+(core/sinks.py) consume the plan.  The reference's distribution methods
+come in their one-device form: ``pass_selection`` (every slot valid) and
+``host_tile_range`` (the tile ids split between the hosts of a sharded
+output); plans over p > 1 devices and ``repartition`` come with ROADMAP
+A6.
 
 The defaults t = 256 and l_blk = 512 are the reference's, so tile ids,
 launch sizes and :meth:`ExecutionPlan.spec_dict` match its plans key for
@@ -32,6 +36,12 @@ from repro_torch.kernels.pcc_tile import (DEFAULT_LBLK, DEFAULT_TILE,
 # replica_chunk=None): bounds the stacked column operand at 64 x operand, as
 # the legacy permutation_pvalues chunk default does.
 DEFAULT_REPLICA_CHUNK = 64
+
+
+def tiles_per_device(total: int, p: int) -> int:
+    """ceil(T / p): the uniform per-device (or per-host) tile count (paper
+    SSIII-D)."""
+    return -(-total // p)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,6 +279,24 @@ class ExecutionPlan:
         lo = self.pass_offset(k)
         return np.arange(lo, lo + self.launch_sizes[k], dtype=np.int64)
 
+    def pass_selection(self, k: int) -> Tuple[np.ndarray, None]:
+        """``(ids, sel)`` of pass k, the reference's signature: on one
+        device every launched slot is a valid tile, so ids is
+        :meth:`pass_ids` and sel (the reference's index of the valid slots
+        of a mesh pass) is None."""
+        return self.pass_ids(k), None
+
+    def host_tile_range(self, host: int, n_hosts: int) -> Tuple[int, int]:
+        """Contiguous tile-id range [lo, hi) whose output host `host` of
+        an n_hosts-process run persists (core/sinks.ShardedHostSink).  One
+        device: the tile ids split by the ceil partition the reference's
+        device split uses (its p == 1 branch)."""
+        if not 0 <= host < n_hosts:
+            raise ValueError(f"host {host} out of range for {n_hosts} hosts")
+        tph = tiles_per_device(self.total_tiles, n_hosts)
+        lo = min(host * tph, self.total_tiles)
+        return lo, min(lo + tph, self.total_tiles)
+
     def coverage_schedule(self, covered: np.ndarray):
         """Resume schedule from a tile-coverage bitmap: ``(k0, skip)``, as
         the reference's ``ExecutionPlan.coverage_schedule``.
@@ -458,4 +486,4 @@ def pad_operands(u: torch.Tensor, t: int, l_blk: int) -> torch.Tensor:
 __all__ = ["DEFAULT_REPLICA_CHUNK", "ExecutionPlan", "Operand",
            "launch_operand", "needs_row_scales", "pad_operands",
            "pad_scales", "prepare_operand_raw", "resolve_compute_dtype",
-           "take_operand_rows"]
+           "take_operand_rows", "tiles_per_device"]

@@ -52,6 +52,7 @@ from repro_torch.core.plan import ExecutionPlan, launch_operand, \
 from repro_torch.core.quantize import Operand, operand_parts
 from repro_torch.core.sinks import DenseSink, ExceedanceSink, TileSink
 from repro_torch.kernels.pcc_tile import pcc_tiles
+from repro_torch.runtime import faults
 
 KeyLike = Union[int, torch.Generator]
 
@@ -259,6 +260,10 @@ def run_significance(
     Per pass: one raw launch gives r (bitwise what ``corr`` computes) and
     the observed |values|; one replica launch per chunk gives the null
     tiles, compared replica by replica into int32 counts on the device.
+    Each launched pass first passes the ``pass_launch`` fault site
+    (runtime/faults.py), as the reference's does; a crashed run restarts
+    with resumable sinks (``HostSink(path=, resume=True)``), whose held
+    passes are not launched for their leg.
     """
     if mesh is not None or shard_u:
         raise NotImplementedError(
@@ -338,6 +343,7 @@ def run_significance(
         need_p = k >= k0_p and k not in skip_p
         if not (need_r or need_p):
             continue
+        faults.check("pass_launch")
         tiles = plan.launch_sizes[k]
         j0 = plan.pass_offset(k)
         raw = launch(j0, tiles, v_data, cs_obs)

@@ -1,14 +1,18 @@
 """Tile sinks: what becomes of the executor's per-pass tile stream.
 
-Port of ``TileSink``, ``DenseSink``, ``HostSink``, ``ReductionSink``,
-``EdgeCountSink``, ``RowBlockSink``, ``TopKSink``, ``DeviceTopKSink``,
-``ExceedanceSink`` and ``topk_merge_rows`` of ``repro/core/sinks.py``.
+Port of ``TileSink``, ``DenseSink``, ``HostSink``, ``ShardedHostSink``
+(with ``ShardedMatrix``, ``open_manifest`` and ``assemble``),
+``ReductionSink``, ``EdgeCountSink``, ``RowBlockSink``, ``TopKSink``,
+``DeviceTopKSink``, ``ExceedanceSink`` and ``topk_merge_rows`` of
+``repro/core/sinks.py``.
 Contract: ``open(plan, device)`` once, ``consume(ids, tiles[, ready])``
 per pass with the pass's unique global tile ids while the next pass is
 already launched (double buffering), ``pass_complete(k)`` once pass k is
 consumed (durable sinks commit there; ``resume_pass()`` /
 ``skip_passes()`` tell the executor which passes a checkpoint already
-holds), ``result()`` to close the run.  Tiles arrive with the measure's
+holds; ``covered()`` reports the tile ids it holds durably and
+``rebind(plan)`` adopts a re-split plan, both for the recovering
+executor), ``result()`` to close the run.  Tiles arrive with the measure's
 epilogue applied; bounded measures are clipped in the kernel
 (fused) or by the sink (unfused) — clipping is idempotent, so both agree
 bit for bit.
@@ -27,6 +31,9 @@ k + 1.  On the CPU there is no event and no stream.
                   ndarray, or an np.memmap at `path` whose passes are
                   committed crash-atomically and resumed
                   (``corr(resume_from=path)``).
+  ShardedHostSink one host's tile-id range of the result as chunk files
+                  and a manifest, crash-safe and resumable; ``assemble``
+                  / ``open_manifest`` read a directory of shards back.
   ReductionSink   a caller's fold over the tile stream (host numpy
                   tiles), state whatever the fold returns.
   EdgeCountSink   the thresholded network's edge count, degrees and
@@ -59,7 +66,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import mapping
 from repro_torch.core.plan import ExecutionPlan, needs_row_scales
+from repro_torch.runtime import faults
 
 # Rows per band of the in-place mirror: bounds the temporary of a diagonal
 # block at _BAND^2 floats.
@@ -159,6 +168,14 @@ class TileSink(abc.ABC):
         """Bool bitmap over tile ids whose output this sink already holds
         durably, or None for sinks without recoverable coverage."""
         return None
+
+    def rebind(self, new_plan: ExecutionPlan) -> None:
+        """Adopt a re-split plan mid-run (the same geometry, measure and
+        workload; only the pass split changed, after an out-of-memory
+        error or a device loss).  Durable sinks re-commit their progress
+        under the new spec at once, so a crash after the change resumes
+        against the plan that will run."""
+        self.plan = new_plan
 
     def pass_complete(self, k: int) -> None:
         """Pass k's tiles have been consumed; durable sinks commit here."""
@@ -290,6 +307,26 @@ def _ids_from_intervals(ivs) -> np.ndarray:
     return np.concatenate(parts) if parts else np.empty(0, np.int64)
 
 
+def _chunk_crc(tiles: np.ndarray) -> int:
+    """CRC32 of a chunk's float32 tile bytes, C order."""
+    return zlib.crc32(np.ascontiguousarray(tiles, np.float32)) & 0xFFFFFFFF
+
+
+def _fsync_dir(d: str) -> None:
+    """Persist a rename in directory `d`, where the filesystem allows a
+    directory fsync."""
+    try:
+        fd = os.open(d, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
 class HostSink(TileSink):
     """Assemble tiles (and, for symmetric workloads, their mirrors) into a
     host matrix: a caller array `out`, an np.memmap at `path`, or a new
@@ -315,12 +352,17 @@ class HostSink(TileSink):
     CRC against the memmap, drops corrupt regions (they are recomputed,
     never trusted) and tells the executor which passes to run: completed
     passes are never launched again, and a run killed mid-pass reruns only
-    that pass.
+    that pass.  A version-1 sidecar (no coverage entries) is trusted for
+    its completed-pass prefix, as the reference trusts it, and upgraded to
+    version 2 with one verified entry.  Entries are keyed by tile ids, not
+    pass indices, so a checkpoint taken before a re-split (``rebind``)
+    resumes under the new plan.
 
-    Not ported yet (ROADMAP A5): the reference's fault-injection sites
-    (``sink_write``, ``sink_flush``, ``sink_commit``, from
-    ``runtime/faults.py``) and ``rebind`` to an elastically repartitioned
-    plan, which need the recovery runtime.
+    Fault sites (runtime/faults.py), the reference's: ``sink_write`` (the
+    tile write, after the host copy; a partial write lands a prefix of the
+    batch and leaves the pass uncommitted), ``sink_flush`` (before the
+    memmap flush) and ``sink_commit`` (between the temporary sidecar's
+    fsync and its rename: a crash there leaves the previous sidecar).
     """
 
     SIDECAR_VERSION = 2
@@ -365,6 +407,7 @@ class HostSink(TileSink):
         # the data is flushed before the watermark advances: a crash between
         # the two leaves a pass marked incomplete (rerun), never a pass
         # marked complete with unflushed tiles
+        faults.check("sink_flush")
         if hasattr(self.r, "flush"):
             self.r.flush()
         tmp = self.progress_path + ".tmp"
@@ -375,23 +418,11 @@ class HostSink(TileSink):
                        "entries": self._entries}, f)
             f.flush()
             os.fsync(f.fileno())
+        # a fault here is a crash after the temporary write and before the
+        # commit: the previous sidecar stays whole and resumable
+        faults.check("sink_commit")
         os.replace(tmp, self.progress_path)
-        self._fsync_dir()
-
-    def _fsync_dir(self) -> None:
-        # persist the rename itself, where the filesystem allows a
-        # directory fsync
-        d = os.path.dirname(os.path.abspath(self.progress_path))
-        try:
-            fd = os.open(d, os.O_RDONLY)
-        except OSError:
-            return
-        try:
-            os.fsync(fd)
-        except OSError:
-            pass
-        finally:
-            os.close(fd)
+        _fsync_dir(os.path.dirname(os.path.abspath(self.progress_path)))
 
     def _load_sidecar(self) -> dict:
         try:
@@ -456,11 +487,20 @@ class HostSink(TileSink):
                 f"{spec}")
         self.r = np.memmap(self._path, dtype=np.float32, mode="r+",
                            shape=shape)
-        # a version-1 sidecar (no coverage entries, no CRCs; neither
-        # package writes one any more) holds nothing trusted: every pass
-        # reruns
+        v1 = state.get("version", 1) < 2
+        if v1:
+            # a version-1 sidecar (no CRCs): trust its completed-pass
+            # prefix, its own semantics, as one entry verified from here on
+            parts = [self.plan.pass_selection(k)[0]
+                     for k in range(int(state["completed"]) + 1)]
+            ids = (np.unique(np.concatenate(parts)) if parts
+                   else np.empty(0, np.int64))
+            entries = [{"iv": _id_intervals(ids),
+                        "crc": self._crc_of_ids(ids)}]
+        else:
+            entries = state.get("entries", [])
         dropped = 0
-        for e in state.get("entries", []):
+        for e in entries:
             ids = _ids_from_intervals(e.get("iv", []))
             if ids.size and (ids[0] < 0
                              or ids[-1] >= self.plan.total_tiles):
@@ -473,9 +513,9 @@ class HostSink(TileSink):
             self._entries.append(e)
         k0, self._skip = self.plan.coverage_schedule(self._covered)
         self._completed = k0 - 1
-        if dropped:
-            # prune the corrupt entries durably, so a crash now never
-            # trusts a known-bad region again
+        if dropped or v1:
+            # prune the corrupt entries (and upgrade a version 1) durably,
+            # so a crash now never trusts a known-bad region again
             self._write_progress(self._completed)
 
     # -- executor contract ---------------------------------------------------
@@ -488,6 +528,19 @@ class HostSink(TileSink):
 
     def covered(self) -> np.ndarray:
         return self._covered.copy()
+
+    def rebind(self, new_plan: ExecutionPlan) -> None:
+        """Adopt a re-split plan mid-run: the tiles consumed and not yet
+        committed are committed first (their bytes are in ``self.r``; the
+        flush makes them durable before the sidecar moves), then the
+        schedule is derived anew and the sidecar rewritten under the new
+        spec."""
+        self.plan = new_plan
+        self._commit_pending()
+        k0, self._skip = new_plan.coverage_schedule(self._covered)
+        self._completed = k0 - 1
+        if self._path is not None:
+            self._write_progress(self._completed)
 
     def _commit_pending(self) -> None:
         if not self._pending:
@@ -517,6 +570,15 @@ class HostSink(TileSink):
         ids = np.asarray(ids, dtype=np.int64)
         with self._side.pass_of(ready, tiles):
             vals, = self._side.to_host(tiles)
+        fault = faults.poll("sink_write")
+        if isinstance(fault, faults.PartialWriteFault):
+            # a prefix lands, then the write fails: the pass is never
+            # committed, so the partial region stays uncovered (rerun)
+            cut = int(len(ids) * fault.fraction)
+            self._place(ids[:cut], vals[:cut])
+            raise fault
+        if fault is not None:
+            raise fault
         self._place(ids, vals)
         self._pending.append(ids)
 
@@ -526,6 +588,389 @@ class HostSink(TileSink):
         if self.plan.clip and meas.clip is not None:
             np.clip(r, meas.clip[0], meas.clip[1], out=r)
         return r
+
+
+class ShardedHostSink(TileSink):
+    """Multi-host output sharding: each host persists only its disjoint
+    tile-id range of the result, as chunk ``.npy`` files and a JSON
+    manifest, so no host holds or writes more than its 1/n_hosts slice of
+    the n x n result (CoMet's disjoint per-node output shards,
+    arXiv:1705.08213).
+
+    Ownership is ``plan.host_tile_range(host, n_hosts)``, frozen at
+    ``open()``: a re-split mid-run (``rebind``) keeps it, or two hosts
+    could claim one tile.  On one device the hosts are simulated by running
+    the same plan once per host: each runs only the passes that hold its
+    tiles (the others' tiles report as covered), and a pass across a range
+    boundary runs on both hosts.
+
+    Durability extends HostSink's sidecar: every completed pass commits
+    one chunk file (its owned tiles in ascending id order, ``np.save`` to a
+    temporary name, fsynced, renamed) and rewrites the host's manifest
+    ``manifest.h<host>.json`` atomically, with the plan spec, the frozen
+    range and one ``{file, iv, crc}`` entry a chunk (CRC32 of the chunk's
+    tile bytes).  ``resume=True`` checks the spec's content part
+    (:meth:`content_spec`: the pass split may differ), re-verifies every
+    chunk's CRC, drops and recomputes corrupt chunks, and reports the
+    resume schedule through the coverage contract, so kill-and-resume and
+    ``recovery=RetryPolicy()`` compose as for HostSink.  File names and
+    JSON keys are the reference's: a shard written by either package
+    resumes and assembles in the other.
+
+    Each pass's owned tiles reach the host through :class:`PassStream`,
+    behind the pass's own event.  Fault sites: ``sink_write`` (staging the
+    tiles; partial writes), ``sink_flush`` (the chunk write),
+    ``sink_commit`` (before the manifest's rename).  :func:`open_manifest`
+    and :func:`assemble` read the shards back, by row range or whole.
+    """
+
+    MANIFEST_VERSION = 1
+
+    # a re-split changes the pass split without changing a bit of the
+    # output, so shard identity (resume, agreement of manifests) ignores it
+    _DISTRIBUTION_KEYS = frozenset({"p", "max_tiles_per_pass", "n_pass"})
+
+    @classmethod
+    def content_spec(cls, spec: dict) -> dict:
+        """The output-identity part of a plan's spec_dict."""
+        return {k: v for k, v in spec.items()
+                if k not in cls._DISTRIBUTION_KEYS}
+
+    def __init__(self, dir: str, host: int = 0, n_hosts: int = 1,
+                 resume: bool = False):
+        if n_hosts <= 0:
+            raise ValueError(f"n_hosts must be positive, got {n_hosts}")
+        if not 0 <= host < n_hosts:
+            raise ValueError(f"host {host} out of range for {n_hosts} hosts")
+        self._dir = dir
+        self._host = int(host)
+        self._n_hosts = int(n_hosts)
+        self._resume = resume
+
+    @property
+    def manifest_path(self) -> str:
+        return os.path.join(self._dir, f"manifest.h{self._host}.json")
+
+    def open(self, plan: ExecutionPlan, device: torch.device) -> None:
+        super().open(plan, device)
+        self._side = PassStream(device)
+        os.makedirs(self._dir, exist_ok=True)
+        self._chunks: List[dict] = []
+        self._pending: List[tuple] = []
+        self._covered = np.zeros(plan.total_tiles, bool)
+        if self._resume:
+            self._open_resume()
+        else:
+            self._lo, self._hi = plan.host_tile_range(self._host,
+                                                      self._n_hosts)
+            self._mark_foreign()
+            self._write_manifest()
+        k0, self._skip = plan.coverage_schedule(self._covered)
+        self._completed = k0 - 1
+
+    def _mark_foreign(self) -> None:
+        # the other hosts' tiles are theirs: reported covered, so this
+        # host's executor runs its own passes only
+        self._covered[:self._lo] = True
+        self._covered[self._hi:] = True
+
+    def _write_manifest(self) -> None:
+        meas = self.plan.measure
+        clip = (list(meas.clip)
+                if self.plan.clip and meas.clip is not None else None)
+        doc = {"version": self.MANIFEST_VERSION,
+               "spec": self.plan.spec_dict(),
+               "host": self._host, "n_hosts": self._n_hosts,
+               "range": [int(self._lo), int(self._hi)],
+               "clip_range": clip,
+               "chunks": self._chunks}
+        tmp = self.manifest_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+            f.flush()
+            os.fsync(f.fileno())
+        faults.check("sink_commit")
+        os.replace(tmp, self.manifest_path)
+        _fsync_dir(self._dir)
+
+    def _open_resume(self) -> None:
+        try:
+            with open(self.manifest_path) as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            raise ValueError(
+                f"cannot resume shard: manifest {self.manifest_path!r} "
+                f"unreadable ({e}).  The manifest commit is atomic; delete "
+                f"the shard directory to restart this host from scratch."
+            ) from None
+        spec = self.plan.spec_dict()
+        if self.content_spec(doc.get("spec") or {}) != self.content_spec(spec):
+            raise ValueError(
+                f"cannot resume shard {self.manifest_path!r}: persisted "
+                f"plan spec {doc.get('spec')} does not match the requested "
+                f"run {spec}")
+        if (doc.get("host"), doc.get("n_hosts")) != (self._host,
+                                                     self._n_hosts):
+            raise ValueError(
+                f"cannot resume shard {self.manifest_path!r}: it belongs "
+                f"to host {doc.get('host')}/{doc.get('n_hosts')}, not "
+                f"{self._host}/{self._n_hosts}")
+        self._lo, self._hi = (int(v) for v in doc["range"])
+        self._mark_foreign()
+        dropped = 0
+        for e in doc.get("chunks", []):
+            ids = _ids_from_intervals(e.get("iv", []))
+            path = os.path.join(self._dir, e.get("file", ""))
+            try:
+                tiles = np.load(path)
+            except (OSError, ValueError):
+                dropped += 1
+                continue
+            if (tiles.shape != (ids.size, self.plan.t, self.plan.t)
+                    or int(e.get("crc", -1)) != _chunk_crc(tiles)):
+                dropped += 1  # a corrupt chunk: recompute it, never trust it
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+                continue
+            self._covered[ids] = True
+            self._chunks.append(e)
+        if dropped:
+            # prune durably, so a crash now never trusts a known-bad chunk
+            self._write_manifest()
+
+    # -- executor contract ---------------------------------------------------
+
+    def resume_pass(self) -> int:
+        return self._completed + 1
+
+    def skip_passes(self) -> set:
+        return set(self._skip)
+
+    def covered(self) -> np.ndarray:
+        return self._covered.copy()
+
+    def rebind(self, new_plan: ExecutionPlan) -> None:
+        """Adopt a re-split plan: ownership stays frozen, the schedule is
+        derived anew and the manifest re-committed under the new spec."""
+        self.plan = new_plan
+        self._commit_pending()
+        k0, self._skip = new_plan.coverage_schedule(self._covered)
+        self._completed = k0 - 1
+        self._write_manifest()
+
+    def _commit_pending(self) -> None:
+        if not self._pending:
+            return
+        ids = np.concatenate([p[0] for p in self._pending])
+        tiles = np.concatenate([p[1] for p in self._pending])
+        # ascending and each tile once: a partial write's staged prefix and
+        # its rerun carry the same tiles
+        ids, first = np.unique(ids, return_index=True)
+        tiles = np.ascontiguousarray(tiles[first], dtype=np.float32)
+        fresh = ~self._covered[ids]
+        if not fresh.all():
+            ids, tiles = ids[fresh], tiles[fresh]
+        if ids.size == 0:
+            self._pending = []
+            return
+        name = f"chunk-{int(ids[0]):010d}-{int(ids[-1]):010d}.npy"
+        faults.check("sink_flush")
+        tmp = os.path.join(self._dir, name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.save(f, tiles)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(self._dir, name))
+        # cleared only once written: the executor counts a consumed pass as
+        # covered, so tiles whose chunk write failed go with the next one
+        self._pending = []
+        self._covered[ids] = True
+        self._chunks.append({"file": name, "iv": _id_intervals(ids),
+                             "crc": _chunk_crc(tiles)})
+
+    def pass_complete(self, k: int) -> None:
+        self._completed = k
+        self._commit_pending()
+        self._write_manifest()
+
+    def consume(self, ids: np.ndarray, tiles: torch.Tensor,
+                ready=None) -> None:
+        ids = np.asarray(ids, dtype=np.int64)
+        # a pass's ids ascend, so the owned ones are one slice of it
+        a, b = (int(i) for i in np.searchsorted(ids, [self._lo, self._hi]))
+        if a == b:
+            return
+        with self._side.pass_of(ready, tiles):
+            vals, = self._side.to_host(tiles[a:b])
+        fault = faults.poll("sink_write")
+        if isinstance(fault, faults.PartialWriteFault):
+            cut = int((b - a) * fault.fraction)
+            self._pending.append((ids[a:a + cut], vals[:cut]))
+            raise fault
+        if fault is not None:
+            raise fault
+        self._pending.append((ids[a:b], vals))
+
+    def result(self) -> dict:
+        own = int(self._covered[self._lo:self._hi].sum())
+        return {"dir": self._dir, "manifest": self.manifest_path,
+                "host": self._host, "n_hosts": self._n_hosts,
+                "range": (self._lo, self._hi), "tiles": own,
+                "complete": own == self._hi - self._lo}
+
+
+def _put_block(out: np.ndarray, lo: int, r0: int, c0: int, rows: int,
+               build: Callable[[], np.ndarray]) -> None:
+    """Write the `rows`-row block ``build()`` whose first element sits at
+    (r0, c0) of the result into ``out``, which holds result rows [lo, lo +
+    len(out)), cropped to those rows and to out's columns; a block that
+    misses the rows is never built."""
+    a, b = max(lo, r0), min(lo + out.shape[0], r0 + rows)
+    if a >= b or c0 >= out.shape[1]:
+        return
+    blk = build()
+    w = min(out.shape[1] - c0, blk.shape[1])
+    out[a - lo:b - lo, c0:c0 + w] = blk[a - r0:b - r0, :w]
+
+
+class ShardedMatrix:
+    """Lazy reader over a ShardedHostSink output directory.
+
+    Checks that every host's manifest describes the same run (the content
+    part of the spec), verifies each chunk's CRC as it is read (a corrupt
+    chunk is refused with an error naming the file, never filled with
+    zeros), and assembles the whole (n_rows, n_cols) matrix or any row
+    range, holding no more than the requested rows and one chunk.  The
+    reference's result, written a run of side-by-side tiles at a time
+    (:func:`place_tiles_host`'s slices) instead of element by element.
+    """
+
+    def __init__(self, manifests: List[dict], dir: str):
+        if not manifests:
+            raise ValueError(f"no manifest.h*.json found in {dir!r}")
+        self._dir = dir
+        spec0 = manifests[0]["spec"]
+        for d in manifests[1:]:
+            if (ShardedHostSink.content_spec(d["spec"])
+                    != ShardedHostSink.content_spec(spec0)):
+                raise ValueError(
+                    f"shard manifests disagree on the plan spec "
+                    f"({dir!r}): {spec0} vs {d['spec']}: these shards "
+                    f"come from different runs")
+        self.spec = spec0
+        self.n_rows = int(spec0["n_rows"])
+        self.n_cols = int(spec0["n_cols"])
+        self.t = int(spec0["t"])
+        self.total_tiles = int(spec0["total_tiles"])
+        self.symmetric = spec0["workload"] == "TriangularWorkload"
+        self.clip_range = manifests[0].get("clip_range")
+        self.hosts = sorted(int(d["host"]) for d in manifests)
+        self.ranges = {int(d["host"]): tuple(int(v) for v in d["range"])
+                       for d in manifests}
+        self._m = -(-self.n_rows // self.t)
+        self._mc = -(-self.n_cols // self.t)
+        self._chunks = []
+        for d in manifests:
+            for e in d.get("chunks", []):
+                ids = _ids_from_intervals(e.get("iv", []))
+                self._chunks.append(
+                    (os.path.join(dir, e["file"]), ids, int(e["crc"])))
+
+    def _coords(self, ids: np.ndarray):
+        if self.symmetric:
+            return mapping.job_coord_batch(self._m, ids)
+        return ids // self._mc, ids % self._mc
+
+    def _load(self, path: str, ids: np.ndarray, crc: int) -> np.ndarray:
+        try:
+            tiles = np.load(path)
+        except (OSError, ValueError) as e:
+            raise ValueError(
+                f"shard chunk {path!r} unreadable ({e}): re-run the "
+                f"owning host with resume=True to recompute it") from None
+        if (tiles.shape != (ids.size, self.t, self.t)
+                or _chunk_crc(tiles) != crc):
+            raise ValueError(
+                f"shard chunk {path!r} fails its manifest CRC: refusing "
+                f"corrupt data; re-run the owning host with resume=True to "
+                f"recompute exactly this chunk")
+        return np.ascontiguousarray(tiles, np.float32)
+
+    def _check_complete(self, need: np.ndarray) -> None:
+        have = np.zeros(self.total_tiles, bool)
+        for _, ids, _ in self._chunks:
+            have[ids] = True
+        missing = need & ~have
+        if missing.any():
+            ivs = _id_intervals(np.nonzero(missing)[0].astype(np.int64))
+            raise ValueError(
+                f"shards in {self._dir!r} are incomplete for the requested "
+                f"rows: missing tile ids {ivs[:5]}"
+                f"{'...' if len(ivs) > 5 else ''}")
+
+    def rows(self, lo: int, hi: int) -> np.ndarray:
+        """Rows [lo, hi) of the result: the only state built is the
+        (hi - lo, n_cols) output and one chunk at a time."""
+        if not 0 <= lo <= hi <= self.n_rows:
+            raise ValueError(f"row range [{lo}, {hi}) outside "
+                             f"[0, {self.n_rows})")
+        t = self.t
+        ys_all, xs_all = self._coords(np.arange(self.total_tiles,
+                                                dtype=np.int64))
+        hit = (ys_all * t < hi) & (ys_all * t + t > lo)
+        if self.symmetric:
+            hit |= (xs_all * t < hi) & (xs_all * t + t > lo)
+        self._check_complete(hit)
+        out = np.zeros((hi - lo, self.n_cols), np.float32)
+        for path, ids, crc in self._chunks:
+            if not hit[ids].any():
+                continue
+            tiles = self._load(path, ids, crc)
+            ys, xs = self._coords(ids)
+            for a, b in _tile_runs(ys, xs):
+                y, x0 = int(ys[a]), int(xs[a])
+                x1 = x0 + b - a
+                # the run as one (t, (b - a) t) block at (y t, x0 t) ...
+                _put_block(out, lo, y * t, x0 * t, t,
+                           lambda a=a, b=b: tiles[a:b].transpose(1, 0, 2)
+                           .reshape(t, -1))
+                # ... and on the triangle its off-diagonal tiles' mirrors,
+                # one ((b - a0) t, t) block at (x t, y t)
+                a0 = a + int(x0 == y)
+                if self.symmetric and a0 < b:
+                    _put_block(out, lo, (x1 - (b - a0)) * t, y * t,
+                               (b - a0) * t, lambda a0=a0, b=b: tiles[a0:b]
+                               .transpose(0, 2, 1).reshape(-1, t))
+        if self.clip_range is not None:
+            np.clip(out, self.clip_range[0], self.clip_range[1], out=out)
+        return out
+
+    def full(self) -> np.ndarray:
+        """The complete (n_rows, n_cols) matrix: bitwise a one-host
+        DenseSink / HostSink run of the same plan."""
+        return self.rows(0, self.n_rows)
+
+
+def open_manifest(dir: str) -> ShardedMatrix:
+    """Open a ShardedHostSink output directory for (lazy) reading."""
+    manifests = []
+    try:
+        names = sorted(os.listdir(dir))
+    except OSError as e:
+        raise ValueError(f"cannot open shard directory {dir!r}: {e}") \
+            from None
+    for name in names:
+        if name.startswith("manifest.h") and name.endswith(".json"):
+            with open(os.path.join(dir, name)) as f:
+                manifests.append(json.load(f))
+    return ShardedMatrix(manifests, dir)
+
+
+def assemble(dir: str) -> np.ndarray:
+    """The full matrix from a complete set of host shards."""
+    return open_manifest(dir).full()
 
 
 class ReductionSink(TileSink):
@@ -952,9 +1397,8 @@ class ExceedanceSink(TileSink):
 
     open() expects the p-value plan of the executor, whose measure names
     the base measure, method, B and the null's fingerprint.  The checkpoint
-    hooks (resume_pass, skip_passes, covered, pass_complete) pass through
-    to the inner sink where it has them; ``rebind`` comes with the recovery
-    runtime (ROADMAP A5).
+    hooks (resume_pass, skip_passes, covered, rebind, pass_complete) pass
+    through to the inner sink where it has them.
     """
 
     def __init__(self, inner: Optional[TileSink] = None,
@@ -982,6 +1426,10 @@ class ExceedanceSink(TileSink):
 
     def covered(self):
         return getattr(self._inner, "covered", lambda: None)()
+
+    def rebind(self, new_plan: ExecutionPlan) -> None:
+        self.plan = new_plan
+        getattr(self._inner, "rebind", lambda _p: None)(new_plan)
 
     def pass_complete(self, k: int) -> None:
         getattr(self._inner, "pass_complete", lambda _k: None)(k)
@@ -1015,7 +1463,9 @@ class ExceedanceSink(TileSink):
         return self._inner.result()
 
 
-__all__ = ["PassStream", "TileSink", "DenseSink", "HostSink", "ReductionSink",
+__all__ = ["PassStream", "TileSink", "DenseSink", "HostSink",
+           "ShardedHostSink", "ShardedMatrix", "open_manifest", "assemble",
+           "ReductionSink",
            "EdgeCountSink", "RowBlockSink", "TopKSink", "DeviceTopKSink",
            "ExceedanceSink", "place_tiles_host", "scatter_tiles_at",
            "symmetrize", "topk_merge_rows"]

@@ -44,6 +44,28 @@ def contiguous_ranges(total: int, p: int) -> List[Tuple[int, int]]:
             for i in range(p)]
 
 
+def balanced_counts(total: int, p: int) -> List[Tuple[int, int]]:
+    """The remainder spread one tile a PE instead of PE 0..k taking whole
+    ceil chunks and the tail PEs nothing: counts differ by at most one.
+    Returned as [lo, hi) ranges."""
+    if p <= 0:
+        raise ValueError("p must be positive")
+    base, rem = divmod(total, p)
+    out, lo = [], 0
+    for i in range(p):
+        hi = lo + base + (1 if i < rem else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def strided_ids(total: int, p: int, i: int) -> range:
+    """Round-robin assignment, Alg. 1's thread-group pattern (J_t = start +
+    gid; J_t += numGroups): per-pass counts of the PEs stay within one of
+    each other when passes cut the range."""
+    return range(i, total, p)
+
+
 def passes(lo: int, hi: int, max_tiles_per_pass: int) -> Iterator[Tuple[int, int]]:
     """Split [lo, hi) into consecutive passes of at most max_tiles_per_pass
     tiles (paper Alg. 2's J_start/J_end loop)."""
@@ -77,5 +99,6 @@ def band_tile_coord(m: int, w_tiles: int, jt: int) -> Tuple[int, int]:
     return mapping.band_job_coord(m, w_tiles, jt)
 
 
-__all__ = ["TilePlan", "contiguous_ranges", "passes", "pass_launch_sizes",
+__all__ = ["TilePlan", "contiguous_ranges", "balanced_counts",
+           "strided_ids", "passes", "pass_launch_sizes",
            "band_tile_count", "band_tile_coord"]

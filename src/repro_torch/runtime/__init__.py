@@ -1,12 +1,14 @@
-"""repro_torch.runtime — fault injection and the failure taxonomy.
+"""repro_torch.runtime — fault injection, the failure taxonomy, elastic
+re-partitioning.
 
-Port of the part of ``repro.runtime`` the serving layer needs so far:
-``faults`` (FaultPlan, classify_failure, RetryPolicy).  Elastic
-re-meshing, stragglers and the train loop come with recovery and the
-multi-GPU slices (ROADMAP A5, A6).
+Port of the one-device part of ``repro.runtime``: ``faults`` (FaultPlan,
+classify_failure, RetryPolicy; the recovering executor and the sinks
+check its sites) and ``elastic`` (replan_pcc, host_shard_plan).  The
+mesh side of ``elastic`` comes with the multi-GPU slice (ROADMAP A6);
+stragglers and the train loop with the LM side.
 """
 
-_SUBMODULES = ("faults",)
+_SUBMODULES = ("faults", "elastic")
 
 __all__ = list(_SUBMODULES)
 

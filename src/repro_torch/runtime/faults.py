@@ -7,25 +7,28 @@ testable:
    named failure points ("sites"):
 
      ``pass_launch``      kernel launches of one executor pass
+                          (core/allpairs.py, core/significance.py)
      ``sink_write``       a tile write into a sink's storage (partial
-                          writes: some tiles land, then the fault raises)
+                          writes: some tiles land, then the fault raises;
+                          core/sinks.py HostSink, ShardedHostSink)
      ``sink_flush``       the durable flush of written tiles
-     ``sink_commit``      the checkpoint sidecar commit
+     ``sink_commit``      the checkpoint commit (before the atomic rename)
      ``server_dispatch``  one coalesced batch dispatch (serving/server.py)
 
    each raising a typed :class:`InjectedFault` at exact per-site *arrival
-   counts*, so a test replays a precise sequence ("the second dispatch
+   counts*, so a test replays a precise sequence ("the second pass launch
    raises a transient error"), and :meth:`FaultPlan.scenario` draws
-   reproducible random chaos from a seed.  Of these, the port checks only
-   ``server_dispatch`` so far; the executor's and the sinks' sites come
-   with recovery (ROADMAP A5).
+   reproducible random chaos from a seed.  Every site sits where the
+   reference's does, so equal plans fire on equal arrivals in both
+   packages.
 
 2. The **failure taxonomy** (:func:`classify_failure`) and the
    :class:`RetryPolicy` that a recovering caller acts on:
 
      transient    retry in place with exponential backoff
      oom          shrink the pass (halve max_tiles_per_pass) and retry
-     device_loss  continue on the surviving devices
+     device_loss  continue on the survivors (``on_device_loss``; one
+                  device has none, so by default the loss propagates)
      crash        a simulated process death (CrashFault): never handled
                   in-process; recovery is restart + ``resume_from=``
      fatal        everything else: real bugs propagate
@@ -320,9 +323,9 @@ def classify_failure(exc: BaseException) -> str:
 
 @dataclasses.dataclass
 class RetryPolicy:
-    """What a recovering caller does per taxonomy class (the reference's
-    ``execute_plan(recovery=...)``; the port's executor takes it with
-    ROADMAP A5).
+    """What a recovering caller does per taxonomy class
+    (``core/allpairs.execute_plan(recovery=...)``, ``corr(recovery=)``,
+    ``LiveIndex(recovery=)``; the degrading CorrServer).
 
     max_retries:     transient failures tolerated without forward progress
                      (the budget refills whenever a pass lands).

@@ -14,7 +14,8 @@ plan construction, per-launch overhead) spread over many requests:
   live.py        running per-row moments, IncrementalOperand (O(delta l)
                  transform maintenance), LiveIndex (a standing all-pairs
                  result kept current by delta plans: the d-vs-n grid and
-                 the d-vs-d triangle, never the full triangle).
+                 the d-vs-d triangle, never the full triangle; with
+                 ``recovery=RetryPolicy()`` every launch self-heals).
   plan_cache.py  ProblemSpec / PlanCache: frozen plans keyed on bucketed
                  specs.
   batcher.py     Query / QueryBatcher: concurrent queries coalesced into

@@ -30,8 +30,9 @@ serving layer:
 
 Device work (the transforms, the delta launches) runs on the mutating
 thread, on its current CUDA stream; the corpus serialises mutations.
-``LiveIndex(recovery=)`` and ``mesh=`` are the reference's and raise here
-(ROADMAP slices 10 and 11).
+``LiveIndex(recovery=RetryPolicy())`` arms the self-healing executor for
+every launch of the index (the build and each delta's grid and triangle),
+as in the reference; ``mesh=`` raises here (ROADMAP slice 11).
 """
 
 from __future__ import annotations
@@ -283,7 +284,8 @@ class LiveIndex:
                  re-merges the revised values everywhere else.
 
     Delta plans ride the shared :class:`PlanCache` through tile-bucketed
-    specs.  ``result()`` copies name the generation they reflect.
+    specs; ``recovery=`` arms the self-healing executor for each launch.
+    ``result()`` copies name the generation they reflect.
     Revalidation runs synchronously on the mutating thread, so once
     ``corpus.append(...)`` returns the index is current.
     """
@@ -294,10 +296,6 @@ class LiveIndex:
                  max_tiles_per_pass: Optional[int] = None, clip: bool = True,
                  fuse_epilogue: bool = True, mesh=None, recovery=None,
                  device=None):
-        if recovery is not None:
-            raise NotImplementedError(
-                "LiveIndex(recovery=...) is not ported yet: ROADMAP slice "
-                "10 (recovery)")
         if not hasattr(corpus, "subscribe"):
             from repro_torch.serving.corpus import CorpusHandle
             corpus = CorpusHandle(corpus, device=device)
@@ -312,6 +310,7 @@ class LiveIndex:
         self.clip = clip
         self.fuse_epilogue = fuse_epilogue
         self.mesh = mesh
+        self.recovery = recovery
         self._spec(1, None)     # a mesh raises here, before any launch
         self._lock = threading.Lock()
         self.deltas_applied = 0
@@ -343,7 +342,7 @@ class LiveIndex:
             plan.n_pad)
         v_cols = take_operand_rows(u, slice(0, plan.col_pad), plan.col_pad)
         out = execute_plan(plan, u_rows, v_cols, sink=DenseSink(),
-                           device=dev)
+                           device=dev, recovery=self.recovery)
         return host_array(out)[: len(rows)]
 
     # -- full (re)build --------------------------------------------------------------
@@ -354,10 +353,12 @@ class LiveIndex:
         u = self._operand()
         dev = operand_data(u).device
         if self.k is None:
-            self._r = host_array(execute_plan(plan, u, sink=DenseSink(),
-                                         device=dev))
+            self._r = host_array(execute_plan(
+                plan, u, sink=DenseSink(), device=dev,
+                recovery=self.recovery))
         else:
-            top = execute_plan(plan, u, sink=TopKSink(self.k), device=dev)
+            top = execute_plan(plan, u, sink=TopKSink(self.k), device=dev,
+                               recovery=self.recovery)
             self._vals = np.array(top["values"], dtype=np.float32)
             self._idx = np.array(top["indices"], dtype=np.int64)
         self._generation = self.corpus.generation
@@ -395,7 +396,8 @@ class LiveIndex:
         plan_t, _ = self.plan_cache.get(self._spec(d, None))
         u_d = take_operand_rows(u, slice(n0, n1), plan_t.n_pad)
         tt = host_array(execute_plan(plan_t, u_d, sink=DenseSink(),
-                                device=operand_data(u).device))
+                                     device=operand_data(u).device,
+                                     recovery=self.recovery))
         if self.k is None:
             r = np.zeros((n1, n1), np.float32)
             r[:n0, :n0] = self._r

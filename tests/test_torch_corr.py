@@ -259,6 +259,27 @@ def test_unported_corr_options_name_their_slice(kw):
             with pytest.raises(ValueError, match="sidecar unreadable"):
                 run()
         return
+    if "recovery" in kw:
+        # ported (slice 10): a recovering run under the same transient
+        # fault fires it in both packages and matches the reference
+        from repro.runtime import faults as ref_faults
+        from repro_torch.runtime import faults
+        kw3 = dict(t=8, l_blk=8, max_tiles_per_pass=4)
+        want_fp = ref_faults.FaultPlan.single("pass_launch", "transient",
+                                              at=2)
+        with want_fp.armed():
+            want = ref_corr(jnp.asarray(x), recovery=ref_faults.RetryPolicy(
+                sleep=lambda s: None), **kw3)
+        got_fp = faults.FaultPlan.single("pass_launch", "transient", at=2)
+        with got_fp.armed():
+            got = corr(x, device="cpu", recovery=faults.RetryPolicy(
+                sleep=lambda s: None), **kw3)
+        assert got_fp.fired == want_fp.fired == [
+            ("pass_launch", 2, "transient")]
+        assert torch.equal(got, corr(x, device="cpu", **kw3))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+        return
     if set(kw) <= {"where", "compute_dtype"}:
         # ported: masked runs (slice 5) and fp8 operands (slice 6) match
         # the reference

@@ -310,23 +310,42 @@ def test_spec_dicts_agree_across_packages():
 
 
 def test_version_1_sidecar_resumes_and_is_upgraded(tmp_path, monkeypatch):
-    """A sidecar of the first format (no coverage entries, no CRCs) holds
-    nothing the port trusts: every pass reruns, the result is the
-    uninterrupted run's, and the sidecar is rewritten as version 2."""
+    """A sidecar of the first format (a completed-pass watermark, no
+    coverage entries, no CRCs): both packages trust its prefix, launch the
+    same passes (the rest), give the uninterrupted result and rewrite it as
+    version 2 with one verified entry for the prefix."""
     x = _x(N, L, seed=10)
     path = str(tmp_path / "v.mm")
     with pytest.raises(RuntimeError):
         _port(x, sink=_StopAfter(path, 1))
-    side = tmp_path / "v.mm.progress.json"
-    prog = json.loads(side.read_text())
-    side.write_text(json.dumps({"version": 1, "spec": prog["spec"],
-                                "completed": 1}))
+    prog = json.loads((tmp_path / "v.mm.progress.json").read_text())
+    data = (tmp_path / "v.mm").read_bytes()
+    v1 = json.dumps({"version": 1, "spec": prog["spec"], "completed": 1})
+    paths = {}
+    for who in ("port", "reference"):
+        paths[who] = str(tmp_path / f"{who}.mm")
+        (tmp_path / f"{who}.mm").write_bytes(data)
+        (tmp_path / f"{who}.mm.progress.json").write_text(v1)
     spy = _Spy(monkeypatch)
-    got = _port(x, resume_from=path)
-    assert spy.starts == [0, 4, 8, 12]
+    seen = []
+    real = ref_ap.pcc_tiles
+
+    def ref_spy(u, j0, **k):
+        seen.append(int(j0))
+        return real(u, j0, **k)
+
+    monkeypatch.setattr(ref_ap, "pcc_tiles", ref_spy)
+    got = _port(x, resume_from=paths["port"])
+    want = np.asarray(ref_corr(jnp.asarray(x), resume_from=paths["reference"],
+                               **KW))
+    assert spy.starts == seen == [8, 12]
     np.testing.assert_array_equal(got, _port(x))
-    prog = json.loads(side.read_text())
-    assert prog["version"] == 2 and len(prog["entries"]) == 4
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    for who in ("port", "reference"):
+        prog = json.loads((tmp_path / f"{who}.mm.progress.json").read_text())
+        assert prog["version"] == 2 and prog["completed"] == 3
+        assert [e["iv"] for e in prog["entries"]] == [[[0, 8]], [[8, 12]],
+                                                      [[12, 15]]]
 
 
 @pytest.mark.parametrize("seed", range(4))

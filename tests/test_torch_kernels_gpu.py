@@ -1712,3 +1712,84 @@ def test_served_query_bitwise_corr_on_card(cuda):
     assert stats["batches"] < 8 and stats["corpus"]["misses"] == 1
     assert pcc_tiles.launches > p0
     assert pcc_topk_tiles.launches["select"] > s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [None, 150])
+def test_recovery_on_card_injected_transient_and_oom_bitwise(cuda, n_cols):
+    """corr(recovery=) on the card under a transient fault twice and an
+    out-of-memory error at the pass launch: the log reads retry, retry,
+    shrink_pass, the kernels ran (never a plain version), and the dense
+    and DeviceTopKSink(10) results are bitwise the fault-free runs."""
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec, RetryPolicy
+    rng = np.random.default_rng(35)
+    x = torch.from_numpy(rng.random((600, 300), dtype=np.float32)).to(cuda)
+    y = (None if n_cols is None else torch.from_numpy(
+        rng.random((n_cols, 300), dtype=np.float32)).to(cuda))
+    kw = dict(t=96, l_blk=64, max_tiles_per_pass=6)
+    for sink in (None, DeviceTopKSink):
+        base = corr(x, y, sink=None if sink is None else sink(10), **kw)
+        plan = FaultPlan([FaultSpec("pass_launch", "transient", (2, 3)),
+                          FaultSpec("pass_launch", "oom", (6,))])
+        pol = RetryPolicy(sleep=lambda s: None)
+        p0 = pcc_tiles.launches
+        s0 = pcc_topk_tiles.launches["select"]
+        with plan.armed():
+            got = corr(x, y, sink=None if sink is None else sink(10),
+                       recovery=pol, **kw)
+        torch.cuda.synchronize()
+        assert [e["action"] for e in pol.log] == ["retry", "retry",
+                                                  "shrink_pass"]
+        assert pol.log[-1]["max_tiles_per_pass"] == 3
+        if sink is None:
+            assert pcc_tiles.launches > p0
+            assert got.device == x.device and torch.equal(got, base)
+        else:
+            assert pcc_topk_tiles.launches["select"] > s0
+            np.testing.assert_array_equal(got["indices"], base["indices"])
+            assert got["values"].tobytes() == base["values"].tobytes()
+
+
+@pytest.mark.gpu
+def test_partial_write_and_crash_on_card_bitwise(cuda, tmp_path):
+    """HostSink(path=) on the card: a partial write is retried, a crash at
+    the sidecar commit propagates, and corr(resume_from=) launches only the
+    passes the sidecar lacks; the result is bitwise DenseSink's .cpu()."""
+    from repro_torch.core.sinks import HostSink
+    from repro_torch.runtime.faults import (CrashFault, FaultPlan,
+                                            FaultSpec, RetryPolicy)
+    rng = np.random.default_rng(36)
+    x = torch.from_numpy(rng.random((600, 300), dtype=np.float32)).to(cuda)
+    kw = dict(t=96, l_blk=64, max_tiles_per_pass=6)   # 28 tiles, 5 passes
+    want = corr(x, **kw).cpu().numpy()
+    path = str(tmp_path / "r.mm")
+    # sink_commit: 1 open, then passes 0, 1, ...: the crash kills pass 3's
+    plan = FaultPlan([FaultSpec("sink_write", "partial_write", (2,), 0.5),
+                      FaultSpec("sink_commit", "crash", (5,))])
+    pol = RetryPolicy(sleep=lambda s: None)
+    with plan.armed(), pytest.raises(CrashFault):
+        corr(x, sink=HostSink(path=path), recovery=pol, **kw)
+    assert [e["action"] for e in pol.log] == ["retry", "raise"]
+    p0 = pcc_tiles.launches
+    got = corr(x, resume_from=path, **kw)
+    assert pcc_tiles.launches - p0 == 2     # passes 3 and 4
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_sharded_host_sink_on_card_assembles_bitwise(cuda, tmp_path):
+    """Three simulated hosts' ShardedHostSink shards on the card assemble
+    bitwise DenseSink's .cpu(); rows read lazily the same."""
+    from repro_torch.core.sinks import ShardedHostSink, assemble, \
+        open_manifest
+    rng = np.random.default_rng(37)
+    x = torch.from_numpy(rng.random((600, 300), dtype=np.float32)).to(cuda)
+    kw = dict(t=96, l_blk=64, max_tiles_per_pass=6)
+    want = corr(x, **kw).cpu().numpy()
+    d = str(tmp_path)
+    for h in range(3):
+        r = corr(x, sink=ShardedHostSink(d, host=h, n_hosts=3), **kw)
+        assert r["complete"]
+    np.testing.assert_array_equal(assemble(d), want)
+    np.testing.assert_array_equal(open_manifest(d).rows(100, 250),
+                                  want[100:250])

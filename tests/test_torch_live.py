@@ -268,27 +268,32 @@ def test_live_index_topk_matches_cold_over_cycles():
 
 
 def test_live_index_delta_recovery_composes():
-    """The reference composes recovery= with the delta passes; the port's
-    recovery is ROADMAP slice 10, and LiveIndex(recovery=) refuses by
-    name without touching the corpus."""
+    """recovery= composes with the delta passes in both packages: the
+    transient fault at the append's first launch fires in each, is retried,
+    and the index is bitwise a cold corr of the grown corpus (and within
+    3e-6 of the reference's)."""
     from repro.runtime.faults import FaultPlan as RefFaultPlan
     from repro.runtime.faults import RetryPolicy as RefRetryPolicy
+    from repro_torch.runtime.faults import FaultPlan, RetryPolicy
     rh = RefCorpusHandle(jnp.asarray(_x(16, 12, seed=16)), t=8, l_blk=8)
-    rli = RefLiveIndex(rh, measure="pearson",
-                       recovery=RefRetryPolicy(sleep=lambda s: None),
+    ref_pol = RefRetryPolicy(sleep=lambda s: None)
+    rli = RefLiveIndex(rh, measure="pearson", recovery=ref_pol,
                        max_tiles_per_pass=2)
-    plan = RefFaultPlan.single("pass_launch", "transient", at=1)
-    with plan.armed():
+    ref_plan = RefFaultPlan.single("pass_launch", "transient", at=1)
+    with ref_plan.armed():
         rh.append(jnp.asarray(_x(5, 12, seed=17)))
-    assert plan.fired == [("pass_launch", 1, "transient")]
-    from repro_torch.runtime.faults import RetryPolicy
     h = CorpusHandle(_x(16, 12, seed=16), **KW)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        LiveIndex(h, measure="pearson", recovery=RetryPolicy())
-    assert h.stats()["subscribers"] == 0
-    h.append(_x(5, 12, seed=17))
-    np.testing.assert_allclose(corr(h.x, **KW).numpy(), rli.result()["r"],
-                               rtol=0, atol=3e-6)
+    pol = RetryPolicy(sleep=lambda s: None)
+    li = LiveIndex(h, measure="pearson", recovery=pol, max_tiles_per_pass=2)
+    plan = FaultPlan.single("pass_launch", "transient", at=1)
+    with plan.armed():
+        h.append(_x(5, 12, seed=17))
+    assert plan.fired == ref_plan.fired == [("pass_launch", 1, "transient")]
+    assert pol.log == ref_pol.log
+    assert [e["action"] for e in pol.log] == ["retry"]
+    got = li.result()["r"]
+    assert np.array_equal(got, corr(h.x, **KW).numpy())
+    np.testing.assert_allclose(got, rli.result()["r"], rtol=0, atol=3e-6)
 
 
 def test_live_index_rebuild_matches_cold():
