@@ -219,7 +219,24 @@ Phases, each fatal on failure:
      LiveIndex(recovery=) append of 64 rows under one transient fault,
      bitwise a cold corr of 17,619 rows; Table II dense in 300-tile passes
      with and without recovery= (median of 3 each, printed, not gated);
-     the phase's seconds.
+     the phase's seconds;
+ 26. the mesh (corr(x, mesh=make_mesh((p,), ("d",), devices=...)), one
+     process driving every rank): p = the card count over distinct cards
+     (peer access printed) when there are two or more, else p = 4 logical
+     ranks on cuda:0, printed as such.  At Table II, every result bitwise
+     the one-device run, each mesh run's float32 tile, select and Kendall
+     launches counted from 0 (one a rank with tiles in a pass, and one
+     merge a side a pass folding DeviceTopKSink's rank states; no plain
+     version), wall ms beside the one-device run's and peak memory per
+     device: dense in one pass and in 300-tile passes, shard_u=True,
+     DeviceTopKSink(10), the 1,639 x 17,555 grid dense and DeviceTopKSink
+     (10), bf16 Pearson and int8 Kendall (64 samples), the TF kendall_merge
+     triangle, TF significance at B = 32, ShardedHostSink over 2 hosts (one
+     crashed at a manifest commit and resumed, assembled), recovery= with
+     a device_loss at pass 1's launch of 300-tile passes (p -> p - 1), a
+     CorrServer(mesh=) answering TF queries (bitwise standalone corr, one
+     host occupancy a rank).  With logical ranks the wall times show the
+     mesh machinery's cost on one card, not scaling.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -356,6 +373,21 @@ REC_GRID_FAULTS = (("sink_write", "partial_write", (3,)),
 REC_HOSTS, REC_CRASH_HOST, REC_CRASH_AT = 3, 1, 3
 REC_KENDALL_SPLIT = 5
 REC_SIG_CRASH_AT = 4
+# Phase 26, the mesh (launch/mesh.py): one rank a card when there are two
+# or more, else MESH_LOGICAL logical ranks on cuda:0; 2-host ShardedHostSink
+# with host MESH_CRASH_HOST crashing at its sink_commit arrival
+# MESH_CRASH_AT (open commits first: its second pass's manifest); a
+# device_loss at pass_launch arrival MESH_LOSS_AT (pass 1's launch, while
+# pass 0 is launched and not consumed); MESH_QUERIES TF queries of 1-64
+# rows (row draws seed 7) served over the mesh; significance at B =
+# MESH_B, chunks of MESH_CHUNK (key 0); wall times the median of
+# MESH_REPS runs after a warm-up.
+MESH_LOGICAL = 4
+MESH_CRASH_HOST, MESH_CRASH_AT = 1, 3
+MESH_LOSS_AT = 2
+MESH_QUERIES = 6
+MESH_B, MESH_CHUNK = 32, 16
+MESH_REPS = 3
 # Significance (phase 18): B permutations (paper SSIV: >= 1,000), key 0.
 B_SIG = 1_000
 SIG_ROWS = 8
@@ -590,9 +622,9 @@ def overlap_runs(x_dev, k_top, split):
     """Multi-pass top-k at Table II (`split`-tile passes): each top-k sink's
     corr end to end (median of 3), against the sum and the larger of its
     passes' kernels (CUDA events, back to back) and its sink's work per pass
-    (consume() between two synchronisations: device pre-selection, copies,
-    host merge).  The sinks' copies overlap the next pass's kernel only if
-    they wait on their own pass."""
+    (consume() and pass_complete(), each between two synchronisations:
+    device pre-selection, copies, host merge).  The sinks' copies overlap
+    the next pass's kernel only if they wait on their own pass."""
     import torch
     from repro_torch.core.allpairs import launch_tiles, launch_topk_tiles
     from repro_torch.core.api import corr
@@ -618,12 +650,18 @@ def overlap_runs(x_dev, k_top, split):
                 super().__init__(k)
                 self.ms = []
 
-            def consume(self, ids, buf, *ready):
+            def timed(self, fn, *args):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                super().consume(ids, buf, *ready)
+                fn(*args)
                 torch.cuda.synchronize()
                 self.ms.append((time.perf_counter() - t1) * 1e3)
+
+            def consume(self, ids, buf, *ready):
+                self.timed(super().consume, ids, buf, *ready)
+
+            def pass_complete(self, k):
+                self.timed(super().pass_complete, k)
 
         wall, walls = host_ms(lambda: corr(x_dev, sink=cls(k_top),
                                            max_tiles_per_pass=split), 3)
@@ -1704,6 +1742,314 @@ def recovery_runs(x_dev, x_tf, reset, plain_calls, tag):
     return out
 
 
+def mesh_runs(x_dev, x_tf, reset, plain_calls, tag):
+    """Phase 26: the mesh at full width, every check fatal.  `reset` sets
+    the pcc kernels' launch counts and `plain_calls` to 0.  Returns the
+    mesh's layout and, per case, the wall times (ms) of the mesh and the
+    one-device runs, the mesh run's launches and its peak memory per
+    device (GB)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core.api import corr
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.core.significance import PermutationSpec
+    from repro_torch.core.sinks import DeviceTopKSink, ShardedHostSink, \
+        TopKSink, assemble
+    from repro_torch.kernels import kendall_merge as kmm
+    from repro_torch.kernels.pcc_tile import pcc_tiles, pcc_topk_tiles
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.runtime.faults import CrashFault, FaultPlan, RetryPolicy
+    from repro_torch.serving import CorrServer
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        devices = [torch.device("cuda", i) for i in range(n_cards)]
+        peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+                for i in range(n_cards) for j in range(n_cards) if i != j}
+        layout = f"{n_cards} cards, one rank each"
+        print(f"  26: {layout}; can_device_access_peer {peer}")
+    else:
+        devices = [torch.device("cuda", 0)] * MESH_LOGICAL
+        peer = None
+        layout = f"{MESH_LOGICAL} logical ranks on cuda:0 (one card)"
+        print(f"  26: {layout}: the wall times below show the mesh "
+              f"machinery's cost on one card, not scaling; no speed-up "
+              f"is claimed")
+    mesh = make_mesh((len(devices),), ("d",), devices=devices)
+    p = mesh.size
+    print(f"  {describe(mesh)}")
+    out = {"layout": layout, "p": p, "peer_access": peer}
+    kendall_plain = kmm.kendall_merge_tiles_plain
+    kendall_plain_calls = [0]
+    k_base = [0]
+
+    def counted_kendall_plain(*args, **kwargs):
+        kendall_plain_calls[0] += 1
+        return kendall_plain(*args, **kwargs)
+
+    def sync():
+        for d in mesh.distinct_devices:
+            torch.cuda.synchronize(d)
+
+    def fresh_counts():
+        reset()
+        kendall_plain_calls[0] = 0
+        k_base[0] = kmm.kendall_merge_tiles.launches
+
+    def launched(label):
+        sync()
+        if any(plain_calls.values()) or kendall_plain_calls[0]:
+            raise AssertionError(f"{label}: a plain version ran "
+                                 f"({plain_calls}, kendall "
+                                 f"{kendall_plain_calls[0]})")
+        return {"pcc_tiles": pcc_tiles.launches,
+                "replica": pcc_tiles.replica_launches,
+                "select": pcc_topk_tiles.launches["select"],
+                "merge": pcc_topk_tiles.launches["merge"],
+                "kendall_merge": kmm.kendall_merge_tiles.launches - k_base[0],
+                "by_dtype": {k: v for k, v in
+                             pcc_tiles.launches_by_dtype.items() if v}}
+
+    def rank_launches(plan):
+        """One launch a rank with tiles in a pass."""
+        return sum(1 for k in range(plan.n_pass)
+                   for _, c in plan.rank_slots(k) if c)
+
+    def folds(plan):
+        """DeviceTopKSink's folds of the rank states: one merge a side
+        (rows; on the triangle also the mirrored columns) a pass of two or
+        more pieces."""
+        sides = 1 if plan.workload.grid_cols is not None else 2
+        return sides * sum(1 for k in range(plan.n_pass)
+                           if sum(1 for _, c in plan.rank_slots(k) if c) > 1)
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu().numpy()
+        if isinstance(a, (tuple, list)):
+            return [host(v) for v in a]
+        if isinstance(a, dict):
+            return {k: host(v) for k, v in a.items()
+                    if k in ("indices", "values")}
+        return np.asarray(a)
+
+    def same_bits(a, b, label):
+        a, b = host(a), host(b)
+        if isinstance(a, dict):
+            a, b = [a["indices"], a["values"]], [b["indices"], b["values"]]
+        if not isinstance(a, list):
+            a, b = [a], [b]
+        for x, y in zip(a, b):
+            x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+            if x.shape != y.shape or x.dtype != y.dtype or \
+                    x.tobytes() != y.tobytes():
+                raise AssertionError(f"{label}: the mesh run is not the "
+                                     f"one-device run's bits")
+
+    def case(label, mesh_fn, one_fn, want):
+        """Run mesh_fn with the counts from 0, check its launches against
+        `want` (key -> count), its bits against one_fn's, then time both
+        (host clock, synchronized)."""
+        sync()
+        base = {}
+        for d in mesh.distinct_devices:
+            torch.cuda.reset_peak_memory_stats(d)
+            base[d] = torch.cuda.memory_allocated(d)
+        fresh_counts()
+        got = mesh_fn()
+        n = launched(label)
+        peak = {str(d): round((torch.cuda.max_memory_allocated(d)
+                               - base[d]) / 1e9, 3)
+                for d in mesh.distinct_devices}
+        bad = {k: (n[k], v) for k, v in want.items() if n[k] != v}
+        if bad:
+            raise AssertionError(f"{label}: launches (got, want) {bad}")
+        same_bits(got, one_fn(), label)
+        del got
+        mesh_ms, mesh_all = host_ms(mesh_fn, MESH_REPS)
+        one_ms, one_all = host_ms(one_fn, MESH_REPS)
+        print(f"  {label}: bitwise the one-device run; launches {n}; "
+              f"mesh {mesh_ms:.3f} ms (runs "
+              f"{[round(v, 3) for v in mesh_all]}), one device "
+              f"{one_ms:.3f} ms (runs {[round(v, 3) for v in one_all]}); "
+              f"peak GB per device {peak} {tag}")
+        out[label] = {"mesh_ms": mesh_ms, "one_ms": one_ms,
+                      "launches": n, "peak_gb": peak}
+
+    kmm.kendall_merge_tiles_plain = counted_kendall_plain
+    try:
+        one = ExecutionPlan.create(N_SEEK, L_SEEK, p=p)
+        split = ExecutionPlan.create(N_SEEK, L_SEEK, p=p,
+                                     max_tiles_per_pass=SPLIT)
+        print(f"  Table II over {p} ranks: per rank "
+              f"{[hi - lo for lo, hi in one.device_ranges]} tiles; "
+              f"{SPLIT}-tile passes {split.launch_sizes}")
+        # -- 26.1 dense, one pass and SPLIT-tile passes; shard_u -----------
+        case("dense, one pass", lambda: corr(x_dev, mesh=mesh),
+             lambda: corr(x_dev), {"pcc_tiles": rank_launches(one)})
+        case(f"dense, {SPLIT}-tile passes",
+             lambda: corr(x_dev, mesh=mesh, max_tiles_per_pass=SPLIT),
+             lambda: corr(x_dev, max_tiles_per_pass=SPLIT),
+             {"pcc_tiles": rank_launches(split)})
+        case(f"shard_u=True, {SPLIT}-tile passes",
+             lambda: corr(x_dev, mesh=mesh, shard_u=True,
+                          max_tiles_per_pass=SPLIT),
+             lambda: corr(x_dev, max_tiles_per_pass=SPLIT),
+             {"pcc_tiles": rank_launches(split)})
+        # -- 26.2 top-k ---------------------------------------------------
+        case(f"DeviceTopKSink({K_TOP})",
+             lambda: corr(x_dev, mesh=mesh, sink=DeviceTopKSink(K_TOP)),
+             lambda: corr(x_dev, sink=DeviceTopKSink(K_TOP)),
+             {"select": rank_launches(one),
+              "merge": rank_launches(one) + folds(one), "pcc_tiles": 0})
+        # -- 26.3 the X-vs-Y grid ----------------------------------------
+        grid = ExecutionPlan.create(N_TF, L_SEEK, n_cols=N_SEEK, p=p)
+        print(f"  {N_TF} x {N_SEEK} grid: {grid.total_tiles} tiles, per "
+              f"rank {[hi - lo for lo, hi in grid.device_ranges]}")
+        case("grid dense", lambda: corr(x_tf, x_dev, mesh=mesh),
+             lambda: corr(x_tf, x_dev), {"pcc_tiles": rank_launches(grid)})
+        case(f"grid DeviceTopKSink({K_TOP})",
+             lambda: corr(x_tf, x_dev, mesh=mesh,
+                          sink=DeviceTopKSink(K_TOP)),
+             lambda: corr(x_tf, x_dev, sink=DeviceTopKSink(K_TOP)),
+             {"select": rank_launches(grid),
+              "merge": rank_launches(grid) + folds(grid)})
+        # -- 26.4 narrow operands -------------------------------------------
+        case("bf16 Pearson dense",
+             lambda: corr(x_dev, mesh=mesh, compute_dtype=torch.bfloat16),
+             lambda: corr(x_dev, compute_dtype=torch.bfloat16),
+             {"pcc_tiles": rank_launches(one)})
+        x_k = x_dev[:, :L_KENDALL].contiguous()
+        kplan = ExecutionPlan.create(N_SEEK, L_KENDALL, measure="kendall",
+                                     compute_dtype=torch.int8, p=p)
+        case(f"int8 Kendall dense ({L_KENDALL} samples)",
+             lambda: corr(x_k, mesh=mesh, measure="kendall",
+                          compute_dtype=torch.int8),
+             lambda: corr(x_k, measure="kendall", compute_dtype=torch.int8),
+             {"pcc_tiles": rank_launches(kplan)})
+        if out[f"int8 Kendall dense ({L_KENDALL} samples)"]["launches"][
+                "by_dtype"] != {"int8": rank_launches(kplan)}:
+            raise AssertionError("int8 Kendall did not run the int8 kernel")
+        # -- 26.5 merge-sort Kendall over the TF rows -----------------------
+        tfk = ExecutionPlan.create(N_TF, L_SEEK, measure="kendall", p=p)
+        case("TF kendall_merge triangle",
+             lambda: corr(x_tf, mesh=mesh, measure="kendall"),
+             lambda: corr(x_tf, measure="kendall"),
+             {"kendall_merge": rank_launches(tfk), "pcc_tiles": 0})
+        # -- 26.6 significance ------------------------------------------------
+        spec = PermutationSpec(MESH_B, key=0, chunk=MESH_CHUNK)
+        tfs = ExecutionPlan.create(N_TF, L_SEEK, p=p, replicas=MESH_B,
+                                   replica_chunk=MESH_CHUNK)
+        chunks = len(tfs.replica_chunk_sizes)
+        case(f"TF significance, B = {MESH_B}",
+             lambda: corr(x_tf, mesh=mesh, pvalues=spec),
+             lambda: corr(x_tf, pvalues=spec),
+             {"pcc_tiles": (1 + chunks) * rank_launches(tfs),
+              "replica": chunks * rank_launches(tfs)})
+        # -- 26.7 ShardedHostSink, two hosts, one crashed and resumed --------
+        n_hosts = 2 if p % 2 == 0 else p
+        dense = corr(x_dev, max_tiles_per_pass=SPLIT).cpu().numpy()
+        with tempfile.TemporaryDirectory() as d:
+            fresh_counts()
+            t1 = time.perf_counter()
+            for h in range(n_hosts):
+                snk = ShardedHostSink(d, host=h, n_hosts=n_hosts)
+                if h == MESH_CRASH_HOST:
+                    try:
+                        with FaultPlan.single("sink_commit", "crash",
+                                              at=MESH_CRASH_AT).armed():
+                            corr(x_dev, mesh=mesh, sink=snk,
+                                 max_tiles_per_pass=SPLIT)
+                    except CrashFault:
+                        pass
+                    else:
+                        raise AssertionError("26.7: the crash did not "
+                                             "propagate")
+                    snk = ShardedHostSink(d, host=h, n_hosts=n_hosts,
+                                          resume=True)
+                res = corr(x_dev, mesh=mesh, sink=snk,
+                           max_tiles_per_pass=SPLIT)
+                if not res["complete"] or res["range"] != \
+                        split.host_tile_range(h, n_hosts):
+                    raise AssertionError(f"26.7: host {h}: {res}")
+            n = launched("26.7")
+            ms = (time.perf_counter() - t1) * 1e3
+            same_bits(assemble(d), dense, "26.7 assemble")
+        print(f"  ShardedHostSink over {n_hosts} hosts of {p} ranks, host "
+              f"{MESH_CRASH_HOST} crashed at manifest commit "
+              f"{MESH_CRASH_AT} and resumed: assemble bitwise DenseSink's "
+              f".cpu(); launches {n}; {ms:.1f} ms {tag}")
+        out["sharded"] = {"ms": ms, "launches": n, "hosts": n_hosts}
+        del dense
+        # -- 26.8 recovery: a lost device shrinks the mesh -------------------
+        pol = RetryPolicy(sleep=lambda s: None)
+        fp = FaultPlan.single("pass_launch", "device_loss", at=MESH_LOSS_AT)
+        fresh_counts()
+        t1 = time.perf_counter()
+        with fp.armed():
+            got = corr(x_dev, mesh=mesh, recovery=pol,
+                       max_tiles_per_pass=SPLIT)
+        n = launched("26.8")
+        ms = (time.perf_counter() - t1) * 1e3
+        log = [{k: v for k, v in e.items() if k != "error"}
+               for e in pol.log]
+        if fp.fired != [("pass_launch", MESH_LOSS_AT, "device_loss")] or \
+                [(e["action"], e["p"]) for e in log] != \
+                [("shrink_mesh", p - 1)]:
+            raise AssertionError(f"26.8: {fp.fired}, {log}")
+        same_bits(got, corr(x_dev, max_tiles_per_pass=SPLIT), "26.8")
+        del got
+        print(f"  recovery=: device_loss at pass_launch {MESH_LOSS_AT}, log "
+              f"{log}, bitwise the fault-free run; launches {n}; "
+              f"{ms:.1f} ms {tag}")
+        out["device_loss"] = {"ms": ms, "launches": n, "log": log}
+        # -- 26.9 serving over the mesh --------------------------------------
+        rng = np.random.default_rng(7)
+        sizes = rng.integers(1, 65, MESH_QUERIES)
+        fresh_counts()
+        t1 = time.perf_counter()
+        with CorrServer(x_dev, max_wait_s=SERVE_WAIT_S, mesh=mesh) as srv:
+            futs = []
+            for i, m in enumerate(sizes):
+                rows = np.sort(rng.choice(N_TF, int(m), replace=False))
+                q = x_tf[torch.as_tensor(rows, device=x_tf.device)]
+                k = K_TOP if i % 2 else None
+                futs.append((q, k, srv.submit(q, k=k)))
+            answers = [(q, k, f.result(timeout=120)) for q, k, f in futs]
+            stats = srv.stats()
+        ms = (time.perf_counter() - t1) * 1e3
+        n = launched("26.9")
+        if n["pcc_tiles"] + n["select"] == 0:
+            raise AssertionError("26.9: no kernel launched")
+        for i, (q, k, a) in enumerate(answers):
+            if k is None:
+                want = corr(q, x_dev, mesh=mesh)
+                same_bits(a.value, want, f"26.9 query {i}")
+                same_bits(a.value, corr(q, x_dev), f"26.9 query {i}")
+            else:
+                same_bits(a.value, corr(q, x_dev, mesh=mesh,
+                                        sink=TopKSink(k)), f"26.9 query {i}")
+        ho = stats["host_occupancy"]
+        if ho is None or len(ho) != p:
+            raise AssertionError(f"26.9: host_occupancy {ho}")
+        print(f"  CorrServer(mesh=): {MESH_QUERIES} TF queries of "
+              f"{sizes.tolist()} rows, half top-{K_TOP}, every answer "
+              f"bitwise standalone corr; launches {n}; "
+              f"{stats['batches']} batches; host_occupancy "
+              f"{[round(v, 4) for v in ho]}; {ms:.1f} ms {tag}")
+        out["serving"] = {"ms": ms, "launches": n, "host_occupancy": ho,
+                          "batches": stats["batches"]}
+    finally:
+        kmm.kendall_merge_tiles_plain = kendall_plain
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 26 took {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def kendall_runs(x_dev, x_tf, reset, tag):
     """Phase 23: merge-sort Kendall at the paper's sample count, every
     check fatal.  `reset` sets the pcc kernels' launch counts to 0.  Returns
@@ -2252,7 +2598,7 @@ def main(argv) -> int:
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
     # earlier tree of this repository, for a before / after comparison)
     overlap_only = argv[:1] == ["--overlap-only"]
-    if overlap_only and len(argv) != 2:
+    if (overlap_only and len(argv) != 2) or (argv and not overlap_only):
         print("usage: chip_smoke.py [--overlap-only SRC]", file=sys.stderr)
         return 2
     src = (Path(argv[1]) if overlap_only
@@ -2360,6 +2706,35 @@ def main(argv) -> int:
                                          f"spills: {line.strip()}")
     print("  registers, no spills: " + "; ".join(
         f"{k} {v}" for k, v in sorted(report.items())))
+    # the plain versions' calls are counted from here on (phases 6-26
+    # require none), the kernels' launches set to 0 by reset_counts()
+    plain_calls = {"pcc_tiles_plain": 0, "pcc_topk_tiles_plain": 0}
+
+    def counted(name):
+        fn = getattr(kmod, name)
+
+        def wrapper(*args, **kwargs):
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        setattr(kmod, name, wrapper)
+
+    for name in plain_calls:
+        counted(name)
+
+    def reset_counts():
+        pcc_tiles.launches = 0
+        pcc_tiles.scaled_launches = 0
+        pcc_tiles.triangle_pair_launches = 0
+        pcc_tiles.replica_launches = 0
+        pcc_tiles.replicas_launched = 0
+        pcc_topk_tiles.launches = {"select": 0, "merge": 0}
+        pcc_tiles.launches_by_dtype = {k: 0 for k in
+                                       pcc_tiles.launches_by_dtype}
+        pcc_topk_tiles.select_by_dtype = {k: 0 for k in
+                                          pcc_topk_tiles.select_by_dtype}
+        for name in plain_calls:
+            plain_calls[name] = 0
+
     if overlap_only:
         x_dev = torch.from_numpy(artificial(ExpressionSpec(
             n=N_SEEK, l=L_SEEK, seed=0))).to(dev)
@@ -2624,33 +2999,6 @@ def main(argv) -> int:
           f"top-k values bitwise equal to pcc_tiles")
 
     # -- 6. symmetric top-k at Table II --------------------------------------
-    plain_calls = {"pcc_tiles_plain": 0, "pcc_topk_tiles_plain": 0}
-
-    def counted(name):
-        fn = getattr(kmod, name)
-
-        def wrapper(*args, **kwargs):
-            plain_calls[name] += 1
-            return fn(*args, **kwargs)
-        setattr(kmod, name, wrapper)
-
-    for name in plain_calls:
-        counted(name)
-
-    def reset_counts():
-        pcc_tiles.launches = 0
-        pcc_tiles.scaled_launches = 0
-        pcc_tiles.triangle_pair_launches = 0
-        pcc_tiles.replica_launches = 0
-        pcc_tiles.replicas_launched = 0
-        pcc_topk_tiles.launches = {"select": 0, "merge": 0}
-        pcc_tiles.launches_by_dtype = {k: 0 for k in
-                                       pcc_tiles.launches_by_dtype}
-        pcc_topk_tiles.select_by_dtype = {k: 0 for k in
-                                          pcc_topk_tiles.select_by_dtype}
-        for name in plain_calls:
-            plain_calls[name] = 0
-
     def check_launches(label, want_tiles, want_topk, dtype="float32"):
         """Since reset_counts(), the CUDA kernels of operand type `dtype`
         ran as planned, no kernel of another type ran, and no plain
@@ -2713,16 +3061,18 @@ def main(argv) -> int:
 
     class TimedDeviceTopKSink(DeviceTopKSink):
         """Times the host merge of each pass's state (after the device has
-        delivered it)."""
+        delivered it), which runs once the pass is complete."""
 
         def __init__(self, k):
             super().__init__(k)
             self.merge_ms = []
 
-        def consume(self, ids, state, *ready):
+        def _merge_pending(self):
+            if not self._pending:
+                return
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            super().consume(ids, state, *ready)
+            super()._merge_pending()
             self.merge_ms.append((time.perf_counter() - t1) * 1e3)
 
     print(f"symmetric top-k: corr(x, sink=DeviceTopKSink({K_TOP})) at "
@@ -2771,8 +3121,8 @@ def main(argv) -> int:
           f"held (dense corr: {peak_gb:.3f} GB); pass scratch "
           f"{scratch_b} B ({scratch_b / total:.0f} B per tile, tile "
           f"{plan.t * plan.t * 4} B)")
-    print(f"  host merge (DeviceTopKSink.consume) per pass: one pass "
-          f"{[round(v, 3) for v in merge_pass[None]]} ms; {SPLIT}-tile "
+    print(f"  host merge (DeviceTopKSink, at pass_complete) per pass: one "
+          f"pass {[round(v, 3) for v in merge_pass[None]]} ms; {SPLIT}-tile "
           f"passes {[round(v, 3) for v in merge_pass[SPLIT]]} ms")
 
     # -- 7. symmetric top-k at n = 64,000 ------------------------------------
@@ -4525,6 +4875,12 @@ def main(argv) -> int:
           f"a real out-of-memory error) at Table II {tag}:")
     print(json.dumps({"recovery": recovery_runs(x_dev, x_tf, reset_counts,
                                                 plain_calls, tag)}))
+
+    # -- 26. the mesh ----------------------------------------------------------
+    print(f"the mesh (corr(mesh=), one process driving every rank) at "
+          f"Table II {tag}:")
+    print(json.dumps({"mesh": mesh_runs(x_dev, x_tf, reset_counts,
+                                        plain_calls, tag)}))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []

@@ -10,9 +10,11 @@ executor -> sink.
             masked (pairwise-complete) measures
   quantize  per-row absmax int8 / fp8 quantization and the Operand record
   plan      ExecutionPlan: every static decision of a run
-  allpairs  the double-buffered pass executor and its self-healing loop
+  allpairs  the double-buffered pass executor, on one device or over a
+            mesh (execute_plan(mesh=), MeshRun), its self-healing loop
             (execute_plan(recovery=RetryPolicy())), stream_tiles,
             assemble_from_stream and the deprecated drivers
+  distributed  the deprecated mesh drivers allpairs_pcc_sharded{,_u}
   sinks     DenseSink, HostSink, ShardedHostSink (with ShardedMatrix,
             open_manifest and assemble), ReductionSink, EdgeCountSink,
             RowBlockSink, TopKSink, DeviceTopKSink, ExceedanceSink and the
@@ -22,16 +24,15 @@ executor -> sink.
             (corr(pvalues=PermutationSpec(...)))
   permutation   the deprecated permutation_pvalues wrapper
 
-The public names below are the reference's ``repro.core`` exports that the
-port has (the mesh drivers of ``core/distributed.py`` wait for ROADMAP
-slice 11), resolved on first
-use: the kernel modules import ``core.mapping``, so importing every module
-here would import them in a cycle.
+The public names below are the reference's ``repro.core`` exports,
+resolved on first use: the kernel modules import ``core.mapping``, so
+importing every module here would import them in a cycle.
 """
 
 import importlib
 
-_SUBMODULES = ("allpairs", "api", "lru", "mapping", "measures", "pcc",
+_SUBMODULES = ("allpairs", "api", "distributed", "lru", "mapping",
+               "measures", "pcc",
                "permutation", "plan", "quantize", "significance", "sinks",
                "tiling")
 
@@ -51,6 +52,8 @@ _EXPORTS = {
     "allpairs_similarity": ("allpairs", "allpairs_similarity"),
     "allpairs_similarity_streamed": ("allpairs",
                                      "allpairs_similarity_streamed"),
+    "allpairs_pcc_sharded": ("distributed", "allpairs_pcc_sharded"),
+    "allpairs_pcc_sharded_u": ("distributed", "allpairs_pcc_sharded_u"),
     "ExecutionPlan": ("plan", "ExecutionPlan"),
     "PermutationSpec": ("significance", "PermutationSpec"),
     "dense_significance_reference": ("significance",

@@ -1,7 +1,8 @@
 """`corr()`: the problem-centric facade.
 
-Port of ``repro/core/api.py`` for one device: symmetric all-pairs
-similarity of one (n, l) operand and the rectangular X-vs-Y workload,
+Port of ``repro/core/api.py``: symmetric all-pairs similarity of one
+(n, l) operand and the rectangular X-vs-Y workload, on one device or over
+a mesh of ranks (``mesh=``, ``shard_u=``),
 under every inner-product measure and merge-sort Kendall at l >= 96
 (its own tile kernel), with float32, bfloat16, int8 or fp8
 stored operands (int8 on non-Kendall measures and fp8 quantized with
@@ -11,8 +12,7 @@ permutation / bootstrap p-values (``pvalues=``), resumable host output
 (``recovery=RetryPolicy()``).  A frozen
 :class:`PairwiseProblem` captures what is asked; :func:`corr` resolves it
 onto plan -> executor -> sink, preparing every unmasked operand through the
-process-wide :class:`TransformCache`.  The reference's other knobs raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+process-wide :class:`TransformCache`.
 """
 
 from __future__ import annotations
@@ -24,21 +24,15 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import measures
-from repro_torch.core.allpairs import _stream, execute_plan, resolve_device, \
-    run_sink
+from repro_torch.core.allpairs import _stream, check_mesh, execute_plan, \
+    resolve_device, run_sink
 from repro_torch.core.lru import LruStatsCache
 from repro_torch.core.plan import ExecutionPlan, pad_operands
 from repro_torch.core.quantize import operand_data
 from repro_torch.core.significance import PermutationSpec, run_significance
-from repro_torch.core.sinks import HostSink, TileSink
+from repro_torch.core.sinks import HostSink, TileSink, after
 from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE, \
     dtype_name
-
-# keyword of the reference's corr() -> ROADMAP slice that ports it
-_LATER_SLICES = {
-    "mesh": "slice 11 (multi-GPU)",
-    "shard_u": "slice 11 (multi-GPU)",
-}
 
 
 class TransformCache(LruStatsCache):
@@ -336,24 +330,33 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
     recovery: a RetryPolicy (runtime/faults.py) arms the self-healing
              executor: transient failures retry in place with backoff, an
              out-of-memory error (injected, or torch.cuda's) halves the
-             pass, a lost device goes to policy.on_device_loss (one device
-             has no survivor: by default the loss propagates), and every
+             pass, a lost device goes to policy.on_device_loss (by
+             default a mesh drops a device and repartitions onto the
+             survivors; one device has none, so the loss propagates), and
+             every
              attempt resumes from the tiles the sink holds; the recovered
              result is bitwise a fault-free run.  Crashes propagate (restart
              with resume_from=), and so does any other error: a kernel that
              fails to build or launch is never retried on a plain version.
              Not with where= or pvalues=, which drive their own pass loops.
     device:  None means "cuda", which raises on a machine without a card;
-             pass device="cpu" to run the kernels' plain versions.
-    mesh and shard_u are the reference's and raise NotImplementedError
-    here.
+             pass device="cpu" to run the kernels' plain versions.  With a
+             mesh, None means the mesh's first device, and any other
+             device raises ValueError.
+    mesh:    a launch.mesh.Mesh (make_mesh((p,), ("d",), devices=...)):
+             its p ranks split the tile ids (paper SSIII-D), each launching
+             its own tiles on a CUDA stream of its device; one process
+             drives them all, the sink takes each pass rank by rank, and
+             the result lies on the mesh's first device, bitwise the
+             one-device run.  A lost device (recovery=) shrinks the mesh.
+    shard_u: with a mesh, row-shard the operand over the ranks and gather
+             it onto each device once a pass (symmetric runs, not with
+             DeviceTopKSink or where=), as the reference's; without a mesh
+             it changes nothing, as in the reference.
     """
-    given = {"mesh": mesh is not None, "shard_u": bool(shard_u)}
-    for name, on in given.items():
-        if on:
-            raise NotImplementedError(
-                f"corr({name}=...) is not ported yet: ROADMAP "
-                f"{_LATER_SLICES[name]}")
+    first = check_mesh(mesh, device)
+    if first is not None:
+        device = first
     if resume_from is not None:
         if sink is None:
             sink = HostSink(path=resume_from, resume=True)
@@ -382,12 +385,17 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
                 "compute_dtype narrowing is not supported with where= "
                 "(component GEMMs accumulate counts and sums that must "
                 "stay exact f32)")
-        return _run_masked(problem, sink=sink, t=t, l_blk=l_blk,
+        if shard_u:
+            raise ValueError("shard_u is not supported with where= (the "
+                             "component GEMMs are rectangular workloads)")
+        return _run_masked(problem, sink=sink, mesh=mesh, t=t, l_blk=l_blk,
                            max_tiles_per_pass=max_tiles_per_pass, clip=clip)
+    shard_u = bool(shard_u) and mesh is not None
+    p = 1 if mesh is None else mesh.size
     plan = ExecutionPlan.create(
         problem.n_rows, problem.l,
         n_cols=None if problem.symmetric else problem.n_cols, t=t,
-        l_blk=l_blk, measure=problem.measure,
+        l_blk=l_blk, measure=problem.measure, p=p,
         max_tiles_per_pass=max_tiles_per_pass, clip=clip,
         fuse_epilogue=fuse_epilogue, compute_dtype=compute_dtype,
         replicas=0 if pvalues is None else pvalues.iterations,
@@ -400,16 +408,18 @@ def corr(x, y=None, *, measure: measures.MeasureLike = "pearson",
     if problem.symmetric:
         if pvalues is not None:
             return run_significance(plan, pvalues, u_pad, columns=problem.x,
-                                    sink=sink)
+                                    sink=sink, mesh=mesh, shard_u=shard_u)
         return execute_plan(plan, u_pad, sink=sink, device=problem.x.device,
-                            recovery=recovery)
+                            mesh=mesh, shard_u=shard_u, recovery=recovery)
     v_pad = prepared_operand(plan, problem.y, expect_rows=problem.n_cols,
                              cacheable=problem.y is y)
     if pvalues is not None:
         return run_significance(plan, pvalues, u_pad, columns=problem.y,
-                                v_pad=v_pad, sink=sink)
+                                v_pad=v_pad, sink=sink, mesh=mesh,
+                                shard_u=shard_u)
     return execute_plan(plan, u_pad, v_pad, sink=sink,
-                        device=problem.x.device, recovery=recovery)
+                        device=problem.x.device, mesh=mesh, shard_u=shard_u,
+                        recovery=recovery)
 
 
 def masked_sink_plan(plan: ExecutionPlan, mm: measures.MaskedMeasure,
@@ -423,7 +433,7 @@ def masked_sink_plan(plan: ExecutionPlan, mm: measures.MaskedMeasure,
                                clip=clip)
 
 
-def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
+def _run_masked(problem: PairwiseProblem, *, sink, mesh, t, l_blk,
                 max_tiles_per_pass, clip):
     """Masked execution: one stream of pass launches per component
     product, combined elementwise pass by pass on the device.
@@ -436,7 +446,8 @@ def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
     qy(i, j) = qx(j, i)) that ride the triangle with a same-shape second
     operand, and every combine uses them only through commutative products,
     so the combined tile at (x, y) is the transpose of the one at (y, x) and
-    the sink's mirror completes the matrix.
+    the sink's mirror completes the matrix.  Over a mesh the components'
+    pieces line up rank by rank and combine on each rank's device.
     """
     mm = measures.get_masked(problem.measure)
     ops_x = measures.masked_operands(problem.x, problem.mask_x)
@@ -445,27 +456,34 @@ def _run_masked(problem: PairwiseProblem, *, sink, t, l_blk,
     plan = ExecutionPlan.create(
         problem.n_rows, problem.l,
         n_cols=None if problem.symmetric else problem.n_cols, t=t,
-        l_blk=l_blk, measure="dot", max_tiles_per_pass=max_tiles_per_pass,
-        clip=False)
+        l_blk=l_blk, measure="dot", p=1 if mesh is None else mesh.size,
+        max_tiles_per_pass=max_tiles_per_pass, clip=False)
     pad_x = {k: pad_operands(v, t, l_blk) for k, v in ops_x.items()}
     pad_y = (pad_x if ops_y is ops_x
              else {k: pad_operands(v, t, l_blk) for k, v in ops_y.items()})
     sink_plan = masked_sink_plan(plan, mm, clip)
 
     def combined(k0, skip):
-        # The combine queues on the compute stream behind the next pass's
-        # launches, so the sink waits on everything queued (ready None).
+        # The combine queues on the current stream of each piece's device,
+        # after the components' launches, so the sink waits on everything
+        # queued there (ready None).
         streams = []
         for comp in mm.components:
             rk, ck = measures.MASKED_COMPONENT_OPERANDS[comp]
             same = pad_y is pad_x and rk == ck
             streams.append(_stream(plan, pad_x[rk],
-                                   None if same else pad_y[ck], k0, skip))
+                                   None if same else pad_y[ck], k0, skip,
+                                   mesh=mesh))
         for items in zip(*streams):
-            k, ids, _, _ = items[0]
-            parts = {c: buf for c, (_, _, buf, _) in zip(mm.components,
-                                                         items)}
-            yield k, ids, mm.combine(parts), None
+            k = items[0][0]
+            pieces = []
+            for rank_pieces in zip(*(its for _, its in items)):
+                for _, buf, ready in rank_pieces:
+                    after(ready, buf)
+                parts = {c: buf for c, (_, buf, _) in zip(mm.components,
+                                                          rank_pieces)}
+                pieces.append((rank_pieces[0][0], mm.combine(parts), None))
+            yield k, pieces
 
     return run_sink(sink_plan, sink, problem.x.device, combined)
 

@@ -1,16 +1,16 @@
 """ExecutionPlan: every static decision of an all-pairs run, computed once.
 
-Port of ``repro/core/plan.py`` for one device: measure resolution, epilogue
-fusion, the stored operand type (``compute_dtype``), padding, the workload
-(the symmetric triangle, or the rectangular X-vs-Y grid when ``create`` is
-given ``n_cols``), the pass split (paper Alg. 2, C4) and a significance
-run's replica axis (``replicas``, ``replica_chunk``) are decided here,
-host-side in exact ints; the executor (core/allpairs.py) and the sinks
-(core/sinks.py) consume the plan.  The reference's distribution methods
-come in their one-device form: ``pass_selection`` (every slot valid) and
-``host_tile_range`` (the tile ids split between the hosts of a sharded
-output); plans over p > 1 devices and ``repartition`` come with ROADMAP
-A6.
+Port of ``repro/core/plan.py``: measure resolution, epilogue fusion, the
+stored operand type (``compute_dtype``), padding, the workload (the
+symmetric triangle, or the rectangular X-vs-Y grid when ``create`` is
+given ``n_cols``), the distribution over p mesh ranks (paper SSIII-D: rank
+r owns the contiguous tile ids [r ceil(T/p), (r + 1) ceil(T/p))), the pass
+split of each rank's range (paper Alg. 2, C4) and a significance run's
+replica axis (``replicas``, ``replica_chunk``) are decided here, host-side
+in exact ints; the executor (core/allpairs.py) and the sinks
+(core/sinks.py) consume the plan.  Elastic re-partitioning after a device
+loss is ``plan.repartition(new_p)`` (runtime/elastic.py): ownership is a
+pure function of (total, p, rank), so nothing else in the plan changes.
 
 The defaults t = 256 and l_blk = 512 are the reference's, so tile ids,
 launch sizes and :meth:`ExecutionPlan.spec_dict` match its plans key for
@@ -46,7 +46,8 @@ def tiles_per_device(total: int, p: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """All static decisions of one single-device run."""
+    """All static decisions of one run over p mesh ranks (p = 1: one
+    device)."""
 
     measure: measures.Measure
     tile: tiling.TilePlan
@@ -54,8 +55,8 @@ class ExecutionPlan:
     clip: bool
     fused: bool                          # epilogue runs inside the kernel
     epilogue_spec: Optional[EpilogueSpec]
-    per_dev: int                         # tiles of the one device (p = 1)
-    max_tiles_per_pass: int              # pass bound (C4)
+    per_dev: int                         # ceil(total_tiles / p)
+    max_tiles_per_pass: int              # per-rank pass bound (C4)
     workload: Union[mapping.TriangularWorkload, mapping.GridWorkload]
     tile_c: Optional[tiling.TilePlan] = None  # column operand (rectangular)
     compute_dtype: Optional[torch.dtype] = None  # stored operand type
@@ -63,6 +64,7 @@ class ExecutionPlan:
     # replicas per kernel launch; replicas == 0 is a plain run.
     replicas: int = 0
     replica_chunk: int = 0
+    p: int = 1                           # mesh ranks (1: one device)
 
     @property
     def n(self) -> int:
@@ -119,13 +121,18 @@ class ExecutionPlan:
     @classmethod
     def create(cls, n: int, l: int, *, n_cols: Optional[int] = None,
                t: int = DEFAULT_TILE, l_blk: int = DEFAULT_LBLK,
-               measure: measures.MeasureLike = "pearson",
+               measure: measures.MeasureLike = "pearson", p: int = 1,
                max_tiles_per_pass: Optional[int] = None,
                clip: bool = True,
                fuse_epilogue: bool = True,
                compute_dtype=None, replicas: int = 0,
                replica_chunk: Optional[int] = None) -> "ExecutionPlan":
-        """Resolve measure, fusion, operand type, padding and the pass split.
+        """Resolve measure, fusion, operand type, padding, the ranks' tile
+        ranges and the pass split.
+
+        p is the number of mesh ranks (launch/mesh.Mesh.size): each owns
+        ceil(T / p) consecutive tile ids and splits them into passes of
+        at most max_tiles_per_pass.
 
         n_cols selects the rectangular workload: jobs cover the whole
         ceil(n/t) x ceil(n_cols/t) tile grid of an X-vs-Y product, and the
@@ -163,13 +170,15 @@ class ExecutionPlan:
         tile = tiling.TilePlan.create(n, l, t)
         tile_c = (None if n_cols is None
                   else tiling.TilePlan.create(n_cols, l, t))
+        if p <= 0:
+            raise ValueError(f"p must be positive, got {p}")
         if l_blk <= 0:
             raise ValueError(f"l_blk must be positive, got {l_blk}")
         workload = (mapping.TriangularWorkload(tile.m) if tile_c is None
                     else mapping.GridWorkload(tile.m, tile_c.m))
         spec, fused = measures.resolve_fusion(meas, fuse_epilogue, tile.l,
                                               clip=clip)
-        per_dev = workload.job_count
+        per_dev = tiles_per_device(workload.job_count, p)
         if max_tiles_per_pass is not None and max_tiles_per_pass <= 0:
             raise ValueError(
                 f"max_tiles_per_pass must be positive, got {max_tiles_per_pass}")
@@ -184,7 +193,8 @@ class ExecutionPlan:
         return cls(measure=meas, tile=tile, l_blk=l_blk, clip=clip,
                    fused=fused, epilogue_spec=spec, per_dev=per_dev,
                    max_tiles_per_pass=mtp, workload=workload, tile_c=tile_c,
-                   compute_dtype=cd, replicas=replicas, replica_chunk=rc)
+                   compute_dtype=cd, replicas=replicas, replica_chunk=rc,
+                   p=p)
 
     @property
     def scaled(self) -> bool:
@@ -260,42 +270,109 @@ class ExecutionPlan:
         scales = [p.scale[:s.shape[0]] for p, s in zip(parts, slabs)]
         return Operand(data, F.pad(torch.cat(scales), (0, self.n_pad - rows)))
 
+    # -- distribution (paper SSIII-D, C5) ------------------------------------
+
+    def device_range(self, rank: int) -> Tuple[int, int]:
+        """Contiguous tile-id range [lo, hi) owned by flat mesh rank
+        `rank`."""
+        lo = min(rank * self.per_dev, self.total_tiles)
+        return lo, min(lo + self.per_dev, self.total_tiles)
+
+    @property
+    def device_ranges(self) -> Tuple[Tuple[int, int], ...]:
+        return tuple(self.device_range(r) for r in range(self.p))
+
+    def host_tile_range(self, host: int, n_hosts: int) -> Tuple[int, int]:
+        """Contiguous tile-id range [lo, hi) whose output host `host` of
+        an n_hosts-process run persists (core/sinks.ShardedHostSink).
+
+        n_hosts must divide p: a host keeps the union of its ranks' ranges,
+        the reference's forced ownership.  A one-device plan (p == 1, the
+        host simulation) splits the tile ids by the ceil partition the
+        device split uses."""
+        if not 0 <= host < n_hosts:
+            raise ValueError(f"host {host} out of range for {n_hosts} hosts")
+        if n_hosts == 1:
+            return 0, self.total_tiles
+        if self.p % n_hosts == 0:
+            rph = self.p // n_hosts
+            return (self.device_range(host * rph)[0],
+                    self.device_range((host + 1) * rph - 1)[1])
+        if self.p == 1:
+            tph = tiles_per_device(self.total_tiles, n_hosts)
+            lo = min(host * tph, self.total_tiles)
+            return lo, min(lo + tph, self.total_tiles)
+        raise ValueError(
+            f"n_hosts={n_hosts} must divide the mesh size p={self.p} "
+            f"(each host persists the tiles its local devices compute)")
+
+    def repartition(self, new_p: int) -> "ExecutionPlan":
+        """The plan re-sliced for `new_p` ranks (elastic re-meshing): only
+        p, per_dev and the pass bound (re-clamped to the new per-rank
+        count) change."""
+        if new_p <= 0:
+            raise ValueError(f"new_p must be positive, got {new_p}")
+        per_dev = tiles_per_device(self.total_tiles, new_p)
+        return dataclasses.replace(
+            self, p=new_p, per_dev=per_dev,
+            max_tiles_per_pass=min(self.max_tiles_per_pass, per_dev))
+
+    # -- pass partitioning (paper Alg. 2, C4) --------------------------------
+
     @property
     def n_pass(self) -> int:
         return -(-self.per_dev // self.max_tiles_per_pass)
 
     @property
     def launch_sizes(self) -> Tuple[int, ...]:
-        """Kernel launch size of each pass: max_tiles_per_pass, then the
-        actual remainder."""
+        """Per-rank launch size of each pass: max_tiles_per_pass, then the
+        remainder of the per-rank range."""
         return tiling.pass_launch_sizes(self.per_dev, self.max_tiles_per_pass)
 
     def pass_offset(self, k: int) -> int:
-        """Tile id at which pass k starts."""
+        """Rank-local tile offset at which pass k starts."""
         return k * self.max_tiles_per_pass
 
+    def rank_slots(self, k: int) -> Tuple[Tuple[int, int], ...]:
+        """(start, count) of every rank in pass k: rank r launches the tile
+        ids [start, start + count) of its own range, count <= the pass's
+        launch size (0 past the end of the workload)."""
+        launch, off = self.launch_sizes[k], self.pass_offset(k)
+        out = []
+        for r in range(self.p):
+            lo, hi = self.device_range(r)
+            out.append((lo + off, int(np.clip(hi - lo - off, 0, launch))))
+        return tuple(out)
+
+    def pass_selection(self, k: int) -> Tuple[np.ndarray,
+                                               Optional[np.ndarray]]:
+        """``(ids, sel)`` of pass k across the mesh, the reference's: ids
+        the valid tile ids in rank order; sel the index of those tiles in
+        the reference's (p * launch, t, t) clamped pass output, or None
+        when every slot is valid.  The port's executor launches only valid
+        slots, so it reads ids alone."""
+        launch = self.launch_sizes[k]
+        ids, sel = [], []
+        for r, (start, count) in enumerate(self.rank_slots(k)):
+            ids.append(np.arange(start, start + count, dtype=np.int64))
+            sel.append(np.arange(r * launch, r * launch + count,
+                                 dtype=np.int64))
+        ids = np.concatenate(ids)
+        return ids, (None if ids.size == self.p * launch
+                     else np.concatenate(sel))
+
     def pass_ids(self, k: int) -> np.ndarray:
-        """The tile ids pass k launches (every slot valid on one device)."""
-        lo = self.pass_offset(k)
-        return np.arange(lo, lo + self.launch_sizes[k], dtype=np.int64)
+        """The valid tile ids pass k launches, over all ranks."""
+        return self.pass_selection(k)[0]
 
-    def pass_selection(self, k: int) -> Tuple[np.ndarray, None]:
-        """``(ids, sel)`` of pass k, the reference's signature: on one
-        device every launched slot is a valid tile, so ids is
-        :meth:`pass_ids` and sel (the reference's index of the valid slots
-        of a mesh pass) is None."""
-        return self.pass_ids(k), None
-
-    def host_tile_range(self, host: int, n_hosts: int) -> Tuple[int, int]:
-        """Contiguous tile-id range [lo, hi) whose output host `host` of
-        an n_hosts-process run persists (core/sinks.ShardedHostSink).  One
-        device: the tile ids split by the ceil partition the reference's
-        device split uses (its p == 1 branch)."""
-        if not 0 <= host < n_hosts:
-            raise ValueError(f"host {host} out of range for {n_hosts} hosts")
-        tph = tiles_per_device(self.total_tiles, n_hosts)
-        lo = min(host * tph, self.total_tiles)
-        return lo, min(lo + tph, self.total_tiles)
+    def pass_padded_ids(self, k: int) -> np.ndarray:
+        """The reference's clamped tile id of every slot of pass k's
+        (p * launch) output: slot i of rank r holds tile
+        min(r per_dev + off + i, total - 1)."""
+        launch, off = self.launch_sizes[k], self.pass_offset(k)
+        base = (np.arange(self.p, dtype=np.int64)[:, None] * self.per_dev
+                + off + np.arange(launch, dtype=np.int64)[None, :])
+        return np.minimum(base.reshape(-1), self.total_tiles - 1)
 
     def coverage_schedule(self, covered: np.ndarray):
         """Resume schedule from a tile-coverage bitmap: ``(k0, skip)``, as
@@ -329,8 +406,8 @@ class ExecutionPlan:
     def spec_dict(self) -> dict:
         """JSON-serialisable identity of this plan, key for key the
         reference's ``ExecutionPlan.spec_dict()`` (a custom tile kernel by
-        its ``__name__``); the fields of modes later slices bring hold
-        their single-device values.  replica_chunk
+        its ``__name__``; ``symmetric_grid``, a mode the port does not
+        have, holds False).  replica_chunk
         stays out, as in the reference: p-values do not depend on it."""
         return {
             "n_rows": self.n_rows, "n_cols": self.n_cols, "l": self.l,
@@ -343,7 +420,7 @@ class ExecutionPlan:
             "compute_dtype": (None if self.compute_dtype is None
                               else dtype_name(self.compute_dtype)),
             "clip": self.clip, "fused": self.fused,
-            "p": 1, "max_tiles_per_pass": self.max_tiles_per_pass,
+            "p": self.p, "max_tiles_per_pass": self.max_tiles_per_pass,
             "total_tiles": self.total_tiles, "n_pass": self.n_pass,
             "replicas": self.replicas,
         }

@@ -1,6 +1,7 @@
 """Permutation and bootstrap significance: ``corr(x, pvalues=...)``.
 
-Port of ``repro/core/significance.py`` for one device.  The paper motivates
+Port of ``repro/core/significance.py``, on one device or over a mesh.  The
+paper motivates
 LightPCC with permutation testing (SSIV: >= 1,000 iterations per dataset):
 
     r, p = corr(x, pvalues=PermutationSpec(iterations=1000, key=0))
@@ -35,6 +36,12 @@ int32 on the device, pass by pass, and stream through an ExceedanceSink
 into any inner sink.  Peak device memory beyond the operands is one pass's
 observed tiles and counts plus one replica chunk's stack and its
 (R, pass_tiles, t, t) output.
+
+Mesh.  Over a mesh (``mesh=``) every rank launches its own tiles of a pass
+on its stream (core/allpairs.MeshRun): the observed launch, then the
+replica chunks, each stack built once a pass and copied to each device;
+r and the counts reach the sinks as per-rank pieces.  p is bitwise the
+one-device run's.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import measures, quantize
+from repro_torch.core.allpairs import MeshRun, _ready_event, check_mesh
 from repro_torch.core.plan import ExecutionPlan, launch_operand, \
     needs_row_scales
 from repro_torch.core.quantize import Operand, operand_parts
@@ -263,12 +271,11 @@ def run_significance(
     Each launched pass first passes the ``pass_launch`` fault site
     (runtime/faults.py), as the reference's does; a crashed run restarts
     with resumable sinks (``HostSink(path=, resume=True)``), whose held
-    passes are not launched for their leg.
+    passes are not launched for their leg.  Over a mesh (its size
+    ``plan.p``; shard_u row-shards U over it) each rank launches its own
+    tiles of every pass.
     """
-    if mesh is not None or shard_u:
-        raise NotImplementedError(
-            "significance on a mesh (mesh=, shard_u=) is not ported yet: "
-            "ROADMAP slice 11 (multi-GPU)")
+    check_mesh(mesh)
     if plan.replicas != spec.iterations:
         raise ValueError(
             f"plan.replicas={plan.replicas} does not match "
@@ -278,14 +285,16 @@ def run_significance(
     cols_prepared = u_pad if v_pad is None else v_pad
     # int16 operands (exact +/-1/0 signs) run the int8 kernels
     u_data, u_scale = operand_parts(launch_operand(u_pad))
-    v_data, v_scale = (operand_parts(launch_operand(v_pad))
-                       if v_pad is not None else (None, None))
-    cs_obs = u_scale if v_pad is None else v_scale
-    if (u_scale is None) != (cs_obs is None):
+    v_scale = (operand_parts(launch_operand(v_pad))[1]
+               if v_pad is not None else None)
+    if v_pad is not None and (u_scale is None) != (v_scale is None):
         raise ValueError("quantized row operand paired with an unquantized "
                          "column operand: both sides must be prepared by "
                          "the same plan")
     device = u_data.device
+    # one rank on u's device without a mesh
+    run = MeshRun(plan, mesh, launch_operand(u_pad),
+                  None if v_pad is None else launch_operand(v_pad), shard_u)
 
     def rep_parts(reps):
         rep_data, rep_scale = operand_parts(launch_operand(reps))
@@ -309,19 +318,15 @@ def run_significance(
         chunks.append(indices[lo:lo + rc])
         lo += rc
 
-    def launch(j0, tiles, v, col_scale):
-        return pcc_tiles(u_data, j0, t=plan.t, l_blk=plan.l_blk,
+    def launch(u, j0, tiles, v, col_scale):
+        u_d, u_s = operand_parts(u)
+        return pcc_tiles(u_d, j0, t=plan.t, l_blk=plan.l_blk,
                          pass_tiles=tiles, epilogue=None, v_pad=v,
                          grid_cols=plan.workload.grid_cols,
-                         row_scale=u_scale, col_scale=col_scale)
+                         row_scale=u_s, col_scale=col_scale)
 
-    def add_chunk(ci, j0, tiles, abs_obs, counts):
-        """counts += this chunk's exceedances.  The stack is dropped once
-        the launch is queued (the stream orders its reuse) and the replica
-        tiles on return, so one chunk's buffers are live at a time."""
-        rep_data, rep_scale = rep_parts(replica_source(ci, chunks[ci]))
-        rep = launch(j0, tiles, rep_data, rep_scale)
-        del rep_data, rep_scale
+    def count(rep, abs_obs, counts):
+        """counts += one chunk's exceedances, replica by replica."""
         for r in range(rep.shape[0]):
             counts += _cmp_vals(plan, rep[r]) >= abs_obs
 
@@ -344,21 +349,73 @@ def run_significance(
         if not (need_r or need_p):
             continue
         faults.check("pass_launch")
-        tiles = plan.launch_sizes[k]
-        j0 = plan.pass_offset(k)
-        raw = launch(j0, tiles, v_data, cs_obs)
-        ids = np.arange(j0, j0 + tiles, dtype=np.int64)
-        if need_r:
-            r_sink.consume(ids, _obs_tiles(plan, raw))
-            r_done(k)
-        if need_p:
-            abs_obs = _cmp_vals(plan, raw)
-            counts = torch.zeros(raw.shape, dtype=torch.int32, device=device)
-            for ci in range(len(chunks)):
-                add_chunk(ci, j0, tiles, abs_obs, counts)
-            p_sink.consume(ids, counts)
-            p_sink.pass_complete(k)
+        _significance_pass(plan, run, k, need_r, need_p, launch, count,
+                           chunks, rep_parts, replica_source, r_sink, r_done,
+                           p_sink)
     return r_sink.result(), p_sink.result()
+
+
+def _significance_pass(plan: ExecutionPlan, run: MeshRun, k: int,
+                       need_r: bool, need_p: bool, launch, count, chunks,
+                       rep_parts, replica_source, r_sink, r_done,
+                       p_sink) -> None:
+    """Pass k of a significance run: each rank's observed launch, its r
+    piece handed on at once (pass k of r committed after the last), then,
+    chunk by chunk (one stack built, copied to each device), each rank's
+    replica launch, the stack dropped, each rank's comparisons into its
+    counts, and its count piece (pass k of p committed)."""
+    run.next_pass()
+    slots = list(run.slots(k))
+    cmp_, counts = {}, {}
+    for r, d, start, n_tiles in slots:
+        with run.on_rank(r) as (u, v):
+            # symmetric runs reuse the row scales for the columns
+            v_d, v_s = (operand_parts(v) if v is not None
+                        else (None, operand_parts(u)[1]))
+            raw = launch(u, start, n_tiles, v_d, v_s)
+            obs = _obs_tiles(plan, raw) if need_r else None
+            ready = _ready_event(d)
+        if need_r:
+            # before the comparison values are made, so the sink's work
+            # on the piece is queued early and can end, freeing it, before
+            # the replica stack and tiles (the pass's peak) are allocated
+            r_sink.consume(np.arange(start, start + n_tiles,
+                                     dtype=np.int64), obs, ready)
+        del obs
+        if need_p:
+            with run.on_rank(r):
+                cmp_[r] = _cmp_vals(plan, raw)
+                counts[r] = torch.zeros(raw.shape, dtype=torch.int32,
+                                        device=d)
+    if need_r:
+        r_done(k)
+    if not need_p:
+        return
+    for ci in range(len(chunks)):
+        rep_data, rep_scale = rep_parts(replica_source(ci, chunks[ci]))
+        on = {d: tuple(None if a is None else a.to(d)
+                       for a in (rep_data, rep_scale))
+              for d in run.devices}
+        del rep_data, rep_scale
+        reps = {}
+        for r, d, start, n_tiles in slots:
+            with run.on_rank(r, *(a for a in on[d] if a is not None)) \
+                    as (u, _v):
+                reps[r] = launch(u, start, n_tiles, *on[d])
+        # the stacks go once their launches are queued (the streams order
+        # their reuse), before the comparisons' temporaries are made: no
+        # local names a stack, so one chunk's is live at a time and not
+        # beside those temporaries
+        del on
+        for r, _d, _start, _n in slots:
+            with run.on_rank(r):
+                count(reps.pop(r), cmp_[r], counts[r])
+    for r, d, start, n_tiles in slots:
+        with run.on_rank(r):
+            ready = _ready_event(d)
+        p_sink.consume(np.arange(start, start + n_tiles, dtype=np.int64),
+                       counts.pop(r), ready)
+    p_sink.pass_complete(k)
 
 
 def dense_significance_reference(x, y=None, *,

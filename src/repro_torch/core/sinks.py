@@ -6,9 +6,10 @@ Port of ``TileSink``, ``DenseSink``, ``HostSink``, ``ShardedHostSink``
 ``DeviceTopKSink``, ``ExceedanceSink`` and ``topk_merge_rows`` of
 ``repro/core/sinks.py``.
 Contract: ``open(plan, device)`` once, ``consume(ids, tiles[, ready])``
-per pass with the pass's unique global tile ids while the next pass is
-already launched (double buffering), ``pass_complete(k)`` once pass k is
-consumed (durable sinks commit there; ``resume_pass()`` /
+per piece of a pass (the whole pass on one device; one piece per rank over
+a mesh, each on its rank's device) with the piece's unique global tile ids
+while the next pass is already launched (double buffering),
+``pass_complete(k)`` once every piece of pass k is consumed (durable sinks commit there; ``resume_pass()`` /
 ``skip_passes()`` tell the executor which passes a checkpoint already
 holds; ``covered()`` reports the tile ids it holds durably and
 ``rebind(plan)`` adopts a re-split plan, both for the recovering
@@ -48,6 +49,11 @@ k + 1.  On the CPU there is no event and no stream.
   ExceedanceSink  a significance run's p-value leg: per-pass null
                   exceedance counts -> p-value tiles -> an inner sink.
 
+Over a mesh a sink's device state (DenseSink's matrix, EdgeCountSink's
+counts) lies on the mesh's first device, and a piece from another card
+reaches it through ``PassStream.fetch``; host sinks copy each piece to the
+host from its own card.
+
 Unlike the reference's functional scatter and ``where``-mirror, DenseSink
 scatters and mirrors in place on its padded device matrix: no second and
 third (n_pad, n_pad) buffer, which keeps n = 64K inside 80 GB.
@@ -68,6 +74,7 @@ import torch
 
 from repro_torch.core import mapping
 from repro_torch.core.plan import ExecutionPlan, needs_row_scales
+from repro_torch.kernels.pcc_tile import topk_fold_states
 from repro_torch.runtime import faults
 
 # Rows per band of the in-place mirror: bounds the temporary of a diagonal
@@ -79,61 +86,92 @@ _EDGE_CHUNK = 128
 
 
 class PassStream:
-    """Where a sink's work on one pass runs.
+    """Where a sink's work on one pass piece runs.
 
-    On the card: a side stream that waits on the pass's ``ready`` event
-    (recorded after its launch), so the sink's device work and copies queue
-    behind that pass alone and not behind the next pass's kernel on the
-    compute stream.  Host arrays reach the card as non-blocking copies from
-    pinned memory, and results reach the host through pinned buffers, the
-    host waiting on those copies only.  Every pass buffer used on the side
-    stream is kept alive for it (``record_stream``); :meth:`join` orders the
-    compute stream after the side stream's work.  On the CPU every method
-    is the plain operation.
+    On the card: a side stream of the piece's device that waits on the
+    piece's ``ready`` event (recorded after its launch), so the sink's
+    device work and copies queue behind that piece alone and not behind
+    the next pass's kernels.  Host arrays reach the card as non-blocking
+    copies from pinned memory, and results reach the host through pinned
+    buffers, the host waiting on those copies only.  Every pass buffer used
+    on a side stream is kept alive for it (``record_stream``); :meth:`join`
+    orders the sink's own device's current stream after its side stream.
+    A piece computed on another card of a mesh reaches the sink's own card
+    through :meth:`fetch`.  On the CPU every method is the plain operation.
     """
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        self._streams = {}
+        self.stream = self._side(device)
+
+    def _side(self, dev: torch.device):
+        """The side stream on `dev` (made on first use), None on the CPU."""
+        if dev.type != "cuda":
+            return None
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        return stream
 
     @contextlib.contextmanager
     def pass_of(self, ready, *bufs: torch.Tensor):
-        """Run the block on the side stream, after ``ready`` (an event, or
-        None for everything queued so far on the current stream)."""
-        if self.stream is None:
+        """Run the block on the side stream of the device holding `bufs`
+        (the sink's own without bufs), after ``ready`` (an event, or None
+        for everything queued so far on that device's current stream)."""
+        dev = bufs[0].device if bufs else self.device
+        stream = self._side(dev)
+        if stream is None:
             yield
             return
         if ready is None:
             ready = torch.cuda.Event()
-            ready.record()
-        self.stream.wait_event(ready)
+            ready.record(torch.cuda.current_stream(dev))
+        stream.wait_event(ready)
         for buf in bufs:
-            buf.record_stream(self.stream)
-        with torch.cuda.stream(self.stream):
+            buf.record_stream(stream)
+        with torch.cuda.stream(stream):
             yield
 
+    def fetch(self, buf: torch.Tensor, ready):
+        """``(buf, ready)`` for a piece on the sink's own device: as given
+        when it lies there; from another card, a copy queued after
+        ``ready`` on the side streams of both cards (peer to peer where the
+        cards allow it), with the event that follows the copy; a host
+        tensor, copied.  A failed copy raises."""
+        if buf.device == self.device:
+            return buf, ready
+        if buf.device.type != "cuda" or self.stream is None:
+            return buf.to(self.device), None
+        with self.pass_of(ready, buf), torch.cuda.stream(self.stream):
+            out = buf.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return out, done
+
     def to_card(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device, copied without blocking the host
-        (inside :meth:`pass_of`)."""
+        """A host array on the sink's device, copied without blocking the
+        host (inside :meth:`pass_of` of that device)."""
         host = torch.from_numpy(np.ascontiguousarray(a))
         if self.stream is None:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
     def to_host(self, *tensors: torch.Tensor) -> List[np.ndarray]:
-        """The tensors as numpy arrays: on the card, copies on the side
-        stream into pinned buffers, and the host waits for those alone."""
-        if self.stream is None:
+        """The tensors (on one device) as numpy arrays: on the card, copies
+        on that device's side stream into pinned buffers, and the host
+        waits for those alone."""
+        stream = self._side(tensors[0].device)
+        if stream is None:
             return [t.numpy() for t in tensors]
         outs = []
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(stream):
             for t in tensors:
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 host.copy_(t, non_blocking=True)
                 outs.append(host)
             done = torch.cuda.Event()
-            done.record(self.stream)
+            done.record(stream)
         done.synchronize()
         return [h.numpy() for h in outs]
 
@@ -141,6 +179,18 @@ class PassStream:
         """Order the current stream after the side stream's work."""
         if self.stream is not None:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+
+def after(ready, *bufs: torch.Tensor) -> None:
+    """Order the current stream of the device holding `bufs` after
+    ``ready`` (a piece's event; None: nothing to wait for), and keep the
+    bufs alive for it: work queued there next reads the piece."""
+    if ready is None or bufs[0].device.type != "cuda":
+        return
+    stream = torch.cuda.current_stream(bufs[0].device)
+    stream.wait_event(ready)
+    for buf in bufs:
+        buf.record_stream(stream)
 
 
 class TileSink(abc.ABC):
@@ -183,9 +233,23 @@ class TileSink(abc.ABC):
     @abc.abstractmethod
     def consume(self, ids: np.ndarray, tiles: torch.Tensor,
                 ready=None) -> None:
-        """One pass's tiles: ids (P,) unique global tile ids, tiles
-        (P, t, t) (epilogue applied; clipped iff fused); ready the CUDA
-        event recorded after the pass's launch, or None."""
+        """One piece of a pass (the whole pass on one device, one rank's
+        part of it on a mesh): ids (P,) unique global tile ids, ascending;
+        tiles (P, t, t) on any device of the run (epilogue applied;
+        clipped iff fused); ready the CUDA event recorded after the
+        piece's launch, or None."""
+
+    def consume_clamped(self, padded_ids: np.ndarray, sel: np.ndarray,
+                        ids: np.ndarray, tiles: torch.Tensor) -> None:
+        """The reference's mesh pass with clamped tail slots: `sel` indexes
+        the valid slots of the (p * launch, t, t) buffer, whose ids are
+        `ids`.  Filtered on the host, then consumed.  The port's executor
+        launches only valid slots and never calls this; it is kept for
+        the sink contract."""
+        del padded_ids
+        host = tiles.cpu().numpy() if isinstance(tiles, torch.Tensor) \
+            else np.asarray(tiles)
+        self.consume(ids, torch.from_numpy(host[np.asarray(sel)]))
 
     @abc.abstractmethod
     def result(self):
@@ -241,6 +305,7 @@ class DenseSink(TileSink):
     def consume(self, ids: np.ndarray, tiles: torch.Tensor,
                 ready=None) -> None:
         ys, xs = self.plan.workload.job_coord_batch(np.asarray(ids))
+        tiles, ready = self._side.fetch(tiles, ready)
         with self._side.pass_of(ready, tiles):
             scatter_tiles_at(self.r_pad, tiles, self._side.to_card(ys),
                              self._side.to_card(xs), self.plan.t)
@@ -597,12 +662,15 @@ class ShardedHostSink(TileSink):
     the n x n result (CoMet's disjoint per-node output shards,
     arXiv:1705.08213).
 
-    Ownership is ``plan.host_tile_range(host, n_hosts)``, frozen at
-    ``open()``: a re-split mid-run (``rebind``) keeps it, or two hosts
-    could claim one tile.  On one device the hosts are simulated by running
-    the same plan once per host: each runs only the passes that hold its
-    tiles (the others' tiles report as covered), and a pass across a range
-    boundary runs on both hosts.
+    Ownership is ``plan.host_tile_range(host, n_hosts)``: over a mesh of
+    p ranks (n_hosts dividing p), the union of the host's p / n_hosts
+    ranks' ranges; on one device, the ceil split of the tile ids.  It is
+    frozen at ``open()``: a re-split mid-run (``rebind``, after an
+    out-of-memory error or a mesh shrink) keeps it, or two hosts could
+    claim one tile.  The hosts are simulated by running the same plan once
+    per host: each runs only the passes that hold its tiles (the others'
+    tiles report as covered), and a pass across a range boundary runs on
+    both hosts.
 
     Durability extends HostSink's sidecar: every completed pass commits
     one chunk file (its owned tiles in ascending id order, ``np.save`` to a
@@ -1059,6 +1127,7 @@ class EdgeCountSink(TileSink):
         plan = self.plan
         t, n = plan.t, plan.n
         ys, xs = plan.workload.job_coord_batch(np.asarray(ids))
+        tiles, ready = self._side.fetch(tiles, ready)
         with self._side.pass_of(ready, tiles):
             span = torch.arange(t, device=tiles.device)
             rows_all = self._side.to_card(ys)[:, None] * t + span   # (P, t)
@@ -1272,6 +1341,7 @@ class TopKSink(TileSink):
             off = np.nonzero(ys != xs)[0]
             sides.append((off, xs[off], ys[off], False))
         picked = []
+        tiles, ready = self._side.fetch(tiles, ready)
         with self._side.pass_of(ready, tiles):
             span = torch.arange(t, device=tiles.device)
             for sel, by, bx, self_mask in sides:
@@ -1315,6 +1385,11 @@ class DeviceTopKSink(TopKSink):
     The kernel's tile values are bitwise those of the tile kernel, and its
     selection follows the canonical order, so result() is bit-identical to
     plain TopKSink(k) on the same plan.
+
+    Over a mesh a pass comes as one state a rank: each is brought to the
+    sink's device as it arrives, and once the pass is complete the merge
+    kernel folds them into one (kernels/pcc_tile.topk_fold_states), so the
+    host merges one state a pass whatever the mesh's size.
     """
 
     wants_device_state = True
@@ -1352,17 +1427,50 @@ class DeviceTopKSink(TopKSink):
                 "DeviceTopKSink does not support quantized scaled operands "
                 "— the dequant outer product is not fused into the top-k "
                 "merge; use TopKSink")
+        self._pending = []
 
     def consume(self, ids: np.ndarray, state, ready=None) -> None:
-        """One pass's state: (row_vals, row_cols[, col_vals, col_cols]),
-        each (m, t, kk).  `ids` is the pass's valid tile set, unused for
-        content (the kernel's validity guard already excluded clamped
-        slots)."""
+        """One piece's state: (row_vals, row_cols[, col_vals, col_cols]),
+        each (m, t, kk), brought to the sink's device and held until the
+        pass is complete.  `ids` is the piece's valid tile set, unused for
+        content (the kernel's validity guard already excluded the slots
+        past the rank's range)."""
         del ids
+        self._pending.append([self._side.fetch(a, ready) for a in state])
+
+    def pass_complete(self, k: int) -> None:
+        self._merge_pending()
+
+    def rebind(self, new_plan: ExecutionPlan) -> None:
+        self._merge_pending()
+        super().rebind(new_plan)
+
+    def result(self) -> dict:
+        self._merge_pending()
+        return super().result()
+
+    def _merge_pending(self) -> None:
+        """Merge the held states into the host state: one as it is, several
+        folded on the sink's device first (their candidates are disjoint:
+        each holds the tiles of its own rank)."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        bufs = [a for piece in pending for a, _ in piece]
+        events = [ev for piece in pending for _, ev in piece]
+        with self._side.pass_of(events[0], *bufs):
+            for ev in events[1:]:
+                after(ev, bufs[0])
+            state = [a for a, _ in pending[0]]
+            if len(pending) > 1:
+                state = []
+                for side in range(len(pending[0]) // 2):
+                    state += topk_fold_states(
+                        [(piece[2 * side][0], piece[2 * side + 1][0])
+                         for piece in pending])
+            host = self._side.to_host(*state)
         plan = self.plan
         t, n_r = plan.t, plan.n_rows
-        with self._side.pass_of(ready, *state):
-            host = self._side.to_host(*state)
         for sv, sc in zip(host[0::2], host[1::2]):
             sv = sv.reshape(-1, t, sv.shape[-1])
             sc = sc.reshape(sv.shape)
@@ -1455,15 +1563,16 @@ class ExceedanceSink(TileSink):
 
     def consume(self, ids: np.ndarray, counts: torch.Tensor,
                 ready=None) -> None:
-        # the p-values queue on the current stream, behind the pass, and
+        # the p-values queue on the current stream, behind the piece, and
         # the inner sink waits on everything queued (ready None)
+        after(ready, counts)
         self._inner.consume(ids, self._pvalues(ids, counts))
 
     def result(self):
         return self._inner.result()
 
 
-__all__ = ["PassStream", "TileSink", "DenseSink", "HostSink",
+__all__ = ["PassStream", "after", "TileSink", "DenseSink", "HostSink",
            "ShardedHostSink", "ShardedMatrix", "open_manifest", "assemble",
            "ReductionSink",
            "EdgeCountSink", "RowBlockSink", "TopKSink", "DeviceTopKSink",

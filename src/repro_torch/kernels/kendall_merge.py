@@ -406,6 +406,16 @@ def kendall_tau_b_merge_tile_kernel(u_pad, j_start, **kw):
     return kendall_merge_tiles(u_pad, j_start, tau_b=True, **kw)
 
 
+# The executor's seam for state kept beside an operand: over a mesh
+# (core/allpairs._launches) the rank structures are made on each
+# device's current stream before the ranks' streams, which share them,
+# launch.
+kendall_merge_tile_kernel.prepare_operands = \
+    lambda u, v, l: _structures(u, u if v is None else v, l, False)
+kendall_tau_b_merge_tile_kernel.prepare_operands = \
+    lambda u, v, l: _structures(u, u if v is None else v, l, True)
+
+
 __all__ = ["KENDALL_MERGE_CROSSOVER_L", "MAX_KERNEL_L", "RankStructure",
            "SHORT_RUN_MAX", "kendall_merge_tile_kernel",
            "kendall_merge_tiles", "kendall_merge_tiles_plain",

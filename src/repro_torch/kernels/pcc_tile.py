@@ -51,10 +51,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.mapping import grid_job_coord_batch, job_coord_batch
 
@@ -587,6 +588,37 @@ def topk_merge(scratch: Tuple[torch.Tensor, ...], j_start: int, dev_hi: int,
     return tuple(state)
 
 
+def topk_fold_states(states: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold several (values, columns) states of one side, each (m, t, kk)
+    on one device in canonical order (a mesh's rank states of one pass),
+    into one, by :func:`topk_merge`: each state row is cut into lists of
+    min(kk, 64) entries, a row's lists from every state are laid out as
+    the pass scratch of a grid of ceil(lists / ceil(t / 64)) tiles a row
+    block (masked lists pad the last), and the merge takes each row's
+    top-kk of them all.  The states' candidates must be disjoint (tiles of
+    different ranks), as the merge keeps duplicates.  Returns (values,
+    columns), (m, t, kk), bitwise any canonical merge of the same
+    candidates."""
+    vals = torch.stack([v for v, _ in states], dim=2)      # (m, t, S, kk)
+    cols = torch.stack([c for _, c in states], dim=2)
+    m, t, n_states, kk = vals.shape
+    kc = min(kk, CTA_BLOCK)
+    nb = -(-t // CTA_BLOCK)
+    lists = n_states * -(-kk // kc)
+    q = -(-lists // nb)                                     # slots a block
+    pad = (0, -(-kk // kc) * kc - kk)
+    vals = F.pad(vals, pad).reshape(m, t, lists, kc)
+    cols = F.pad(cols, pad, value=-1).reshape(m, t, lists, kc)
+    pad = (0, 0, 0, q * nb - lists)
+    scratch = tuple(
+        F.pad(a, pad, value=fill).reshape(m, t, q, nb, kc)
+        .transpose(1, 2).reshape(m * q, t, nb, kc).contiguous()
+        for a, fill in ((vals, 0.0), (cols, -1)))
+    return topk_merge(scratch, 0, m * q, m=m, t=t, pass_tiles=m * q, kk=kk,
+                      grid_cols=q)
+
+
 def _topk_select(cand_v: torch.Tensor, cand_c: torch.Tensor,
                  kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rows of (t, c) candidates -> (t, kk) top-kk under the canonical
@@ -781,4 +813,4 @@ __all__ = ["DEFAULT_TILE", "DEFAULT_LBLK", "CTA_BLOCK", "KK_MAX",
            "EpilogueSpec", "pcc_tiles", "pcc_tiles_plain", "pcc_topk_tiles",
            "pcc_topk_tiles_plain", "topk_select", "topk_merge",
            "topk_select_plain", "topk_merge_plain", "topk_fold_plain",
-           "topk_scratch_bytes"]
+           "topk_fold_states", "topk_scratch_bytes"]

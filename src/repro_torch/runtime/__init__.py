@@ -1,11 +1,12 @@
 """repro_torch.runtime — fault injection, the failure taxonomy, elastic
 re-partitioning.
 
-Port of the one-device part of ``repro.runtime``: ``faults`` (FaultPlan,
+Port of the all-pairs part of ``repro.runtime``: ``faults`` (FaultPlan,
 classify_failure, RetryPolicy; the recovering executor and the sinks
-check its sites) and ``elastic`` (replan_pcc, host_shard_plan).  The
-mesh side of ``elastic`` comes with the multi-GPU slice (ROADMAP A6);
-stragglers and the train loop with the LM side.
+check its sites) and ``elastic`` (ElasticPlan, shrink_data_axis,
+build_mesh, shrink_mesh, replan_execution, elastic_pcc_plan, replan_pcc,
+host_shard_plan).  Stragglers and the train loop come with the LM side
+(ROADMAP slice 12b).
 """
 
 _SUBMODULES = ("faults", "elastic")

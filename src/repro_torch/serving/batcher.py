@@ -27,7 +27,9 @@ launches:
      where it supports the plan, else :class:`~repro_torch.core.sinks.
      TopKSink`: the reference's policy; both give the same bits.
 
-Results are bitwise per-request ``corr(probes, corpus, ...)`` calls.
+Results are bitwise per-request ``corr(probes, corpus, ...)`` calls.  With
+``mesh=`` every launch runs over the mesh (the corpus on its first
+device), and each launch reports its per-rank tile occupancy.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import measures
-from repro_torch.core.allpairs import execute_plan
+from repro_torch.core.allpairs import check_mesh, execute_plan
 from repro_torch.core.sinks import DeviceTopKSink, RowBlockSink, TopKSink
 from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE
 from repro_torch.serving.corpus import CorpusHandle, as_corpus
@@ -102,8 +104,9 @@ class BatchInfo:
     rows_bucket: int        # padded launch rows (tile multiple)
     plan_cache_hit: bool
     passes: int
-    # per-rank tile occupancy of a mesh launch (the reference's); None on
-    # one device, the only layout the port runs so far
+    # per-rank tile occupancy of a mesh launch: element r is rank r's
+    # assigned tiles / per-rank capacity (the trailing ranks of a ceil
+    # partition idle below 1.0); None without a mesh
     host_occupancy: Optional[tuple] = None
 
     @property
@@ -118,7 +121,9 @@ class QueryBatcher:
     The synchronous core of the serving layer: :class:`CorrServer` owns the
     queueing and wait policy and calls ``execute()`` from its dispatcher
     thread; direct callers can use it as a batch API.  ``device`` places a
-    corpus given as an array (None means "cuda"); a handle keeps its own.
+    corpus given as an array (None means "cuda", or the mesh's first
+    device); a handle keeps its own, which must be the mesh's first device
+    when ``mesh`` is given.
     """
 
     def __init__(self, corpus, *,
@@ -129,8 +134,11 @@ class QueryBatcher:
                  fuse_epilogue: bool = True,
                  max_tiles_per_pass: Optional[int] = None,
                  mesh=None, device=None):
-        self.corpus: CorpusHandle = as_corpus(corpus, t=t, l_blk=l_blk,
-                                              device=device)
+        first = check_mesh(mesh, device)
+        self.corpus: CorpusHandle = as_corpus(
+            corpus, t=t, l_blk=l_blk, device=device if first is None
+            else first)
+        check_mesh(mesh, self.corpus.device)
         self.measure = measures.get(measure)
         self.plan_cache = plan_cache if plan_cache is not None else PlanCache()
         self.t = int(t)
@@ -140,7 +148,6 @@ class QueryBatcher:
         self.fuse_epilogue = fuse_epilogue
         self.max_tiles_per_pass = max_tiles_per_pass
         self.mesh = mesh
-        self._spec(1, self.measure)     # a mesh raises here
 
     # -- internals -----------------------------------------------------------------
 
@@ -174,16 +181,22 @@ class QueryBatcher:
             kmax = max(q.k for q in group)
             sink = (DeviceTopKSink(kmax) if DeviceTopKSink.supports(plan)
                     else TopKSink(kmax))
-            top = execute_plan(plan, u_pad, v_pad, sink=sink, device=dev)
+            top = execute_plan(plan, u_pad, v_pad, sink=sink, device=dev,
+                               mesh=self.mesh)
             outs = [{"indices": top["indices"][lo:hi, : q.k].copy(),
                      "values": top["values"][lo:hi, : q.k].copy()}
                     for (lo, hi), q in zip(bounds, group)]
         else:
             outs = execute_plan(plan, u_pad, v_pad,
-                                sink=RowBlockSink(bounds), device=dev)
+                                sink=RowBlockSink(bounds), device=dev,
+                                mesh=self.mesh)
+        host_occ = None
+        if self.mesh is not None:
+            host_occ = tuple((hi - lo) / plan.per_dev
+                             for lo, hi in plan.device_ranges)
         info = BatchInfo(requests=len(group), rows=rows,
                          rows_bucket=plan.n_rows, plan_cache_hit=hit,
-                         passes=plan.n_pass)
+                         passes=plan.n_pass, host_occupancy=host_occ)
         return outs, info
 
     # -- public --------------------------------------------------------------------

@@ -32,7 +32,8 @@ Device work (the transforms, the delta launches) runs on the mutating
 thread, on its current CUDA stream; the corpus serialises mutations.
 ``LiveIndex(recovery=RetryPolicy())`` arms the self-healing executor for
 every launch of the index (the build and each delta's grid and triangle),
-as in the reference; ``mesh=`` raises here (ROADMAP slice 11).
+as in the reference; ``mesh=`` runs them over a mesh (the corpus on its
+first device).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import measures
-from repro_torch.core.allpairs import execute_plan
+from repro_torch.core.allpairs import check_mesh, execute_plan
 from repro_torch.core.plan import needs_row_scales, prepare_operand_raw, \
     take_operand_rows
 from repro_torch.core.quantize import operand_data
@@ -296,9 +297,12 @@ class LiveIndex:
                  max_tiles_per_pass: Optional[int] = None, clip: bool = True,
                  fuse_epilogue: bool = True, mesh=None, recovery=None,
                  device=None):
+        first = check_mesh(mesh, device)
         if not hasattr(corpus, "subscribe"):
             from repro_torch.serving.corpus import CorpusHandle
-            corpus = CorpusHandle(corpus, device=device)
+            corpus = CorpusHandle(
+                corpus, device=device if first is None else first)
+        check_mesh(mesh, corpus.device)
         if k is not None and k <= 0:
             raise ValueError(f"k must be positive, got {k}")
         self.corpus = corpus
@@ -311,7 +315,6 @@ class LiveIndex:
         self.fuse_epilogue = fuse_epilogue
         self.mesh = mesh
         self.recovery = recovery
-        self._spec(1, None)     # a mesh raises here, before any launch
         self._lock = threading.Lock()
         self.deltas_applied = 0
         self.rebuilds = 0
@@ -342,7 +345,8 @@ class LiveIndex:
             plan.n_pad)
         v_cols = take_operand_rows(u, slice(0, plan.col_pad), plan.col_pad)
         out = execute_plan(plan, u_rows, v_cols, sink=DenseSink(),
-                           device=dev, recovery=self.recovery)
+                           device=dev, mesh=self.mesh,
+                           recovery=self.recovery)
         return host_array(out)[: len(rows)]
 
     # -- full (re)build --------------------------------------------------------------
@@ -354,11 +358,11 @@ class LiveIndex:
         dev = operand_data(u).device
         if self.k is None:
             self._r = host_array(execute_plan(
-                plan, u, sink=DenseSink(), device=dev,
+                plan, u, sink=DenseSink(), device=dev, mesh=self.mesh,
                 recovery=self.recovery))
         else:
             top = execute_plan(plan, u, sink=TopKSink(self.k), device=dev,
-                               recovery=self.recovery)
+                               mesh=self.mesh, recovery=self.recovery)
             self._vals = np.array(top["values"], dtype=np.float32)
             self._idx = np.array(top["indices"], dtype=np.int64)
         self._generation = self.corpus.generation
@@ -397,7 +401,7 @@ class LiveIndex:
         u_d = take_operand_rows(u, slice(n0, n1), plan_t.n_pad)
         tt = host_array(execute_plan(plan_t, u_d, sink=DenseSink(),
                                      device=operand_data(u).device,
-                                     recovery=self.recovery))
+                                     mesh=self.mesh, recovery=self.recovery))
         if self.k is None:
             r = np.zeros((n1, n1), np.float32)
             r[:n0, :n0] = self._r

@@ -16,8 +16,8 @@ down:
 The CUDA kernels take every shape at run time (nothing is traced or
 compiled per shape), so what the cache saves here is plan construction;
 it also keeps the reference's hit / miss counters, which the server
-reports per request.  A mesh is not ported: ``mesh=`` raises, naming
-ROADMAP slice 11 (multi-GPU).
+reports per request.  A mesh is part of the key (:func:`mesh_key`), and
+its size is the plan's p.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from repro_torch.core.lru import LruStatsCache
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.kernels.pcc_tile import DEFAULT_LBLK, DEFAULT_TILE, \
     dtype_name
+from repro_torch.launch.mesh import Mesh
 
 
 def bucket_rows(rows: int, t: int) -> int:
@@ -41,13 +42,17 @@ def bucket_rows(rows: int, t: int) -> int:
 
 
 def mesh_key(mesh) -> Optional[tuple]:
-    """The hashable identity of a device mesh for spec keying: None for
-    mesh=None, the only mesh the port runs so far."""
+    """The hashable identity of a device mesh for spec keying: its axes
+    and sizes plus the device of each flat rank, so two meshes over
+    different devices never share a plan even when their shapes agree
+    (None for mesh=None).  Anything but a launch.mesh.Mesh raises
+    TypeError."""
     if mesh is None:
         return None
-    raise NotImplementedError(
-        "serving on a device mesh (mesh=...) is not ported yet: ROADMAP "
-        "slice 11 (multi-GPU)")
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+    return (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.ranks))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +85,7 @@ class ProblemSpec:
     clip: bool = True
     fuse_epilogue: bool = True
     max_tiles_per_pass: Optional[int] = None
-    mesh: Optional[tuple] = None   # mesh_key(mesh); None only, so far
+    mesh: Optional[tuple] = None   # mesh_key(mesh) or None
 
     @classmethod
     def for_query(cls, n_probes: int, corpus_n: Optional[int], l: int, *,
@@ -102,12 +107,17 @@ class ProblemSpec:
                    max_tiles_per_pass=max_tiles_per_pass,
                    mesh=mesh_key(mesh))
 
+    @property
+    def p(self) -> int:
+        """The plan's rank count: the mesh's size, 1 without a mesh."""
+        return 1 if self.mesh is None else len(self.mesh[1])
+
     def build(self) -> ExecutionPlan:
         """The ExecutionPlan this spec describes."""
         return ExecutionPlan.create(
             self.rows, self.l, n_cols=self.cols, t=self.t, l_blk=self.l_blk,
             measure=(self.measure_ref if self.measure_ref is not None
-                     else self.measure),
+                     else self.measure), p=self.p,
             max_tiles_per_pass=self.max_tiles_per_pass, clip=self.clip,
             fuse_epilogue=self.fuse_epilogue,
             compute_dtype=self.compute_dtype)

@@ -210,7 +210,8 @@ class WatchHandle:
         # slice, then pad: the tail of a live operand holds real appended
         # rows, so delta columns re-pad with zeros
         v = take_operand_rows(v_full, col_sel, plan.col_pad)
-        r = execute_plan(plan, u, v, sink=DenseSink(), device=dev)
+        r = execute_plan(plan, u, v, sink=DenseSink(), device=dev,
+                         mesh=b.mesh)
         return host_array(r)[:m]
 
     # -- revalidation ----------------------------------------------------------------
@@ -313,9 +314,11 @@ class CorrServer:
                     successful dispatch closes it.
     device:         where a corpus given as an array lives (None means
                     "cuda"; tests pass "cpu"); a CorpusHandle keeps its own.
+    mesh:           a launch.mesh.Mesh every launch runs over (the corpora
+                    on its first device); stats()["host_occupancy"] then
+                    holds each rank's mean tile occupancy.
     The other keywords keep their ``corr()`` meaning and fix the serving
-    configuration of every registered corpus.  ``mesh=`` raises
-    (ROADMAP slice 11).
+    configuration of every registered corpus.
     """
 
     def __init__(self, corpus, *,
@@ -369,6 +372,8 @@ class CorrServer:
         self._requests = 0
         self._rows = 0
         self._occupancy_sum = 0.0
+        self._host_occ_sums: Optional[List[float]] = None
+        self._host_occ_batches = 0
         # degradation state (all under _cv): consecutive failed dispatches
         # drive the breaker; the counters feed stats()["faults"]
         self._consecutive_failures = 0
@@ -555,6 +560,7 @@ class CorrServer:
         plan = ExecutionPlan.create(
             probes.shape[0], b.corpus.l, n_cols=b.corpus.n,
             t=b.t, l_blk=b.l_blk, measure=meas,
+            p=1 if b.mesh is None else b.mesh.size,
             max_tiles_per_pass=b.max_tiles_per_pass, clip=b.clip,
             fuse_epilogue=b.fuse_epilogue, compute_dtype=b.compute_dtype,
             replicas=pvalues.iterations, replica_chunk=pvalues.chunk)
@@ -563,6 +569,7 @@ class CorrServer:
         r, pv = run_significance(
             plan, pvalues, plan.prepare(probes), columns=b.corpus.x,
             v_pad=b.corpus.operand(plan.measure, plan.compute_dtype),
+            mesh=b.mesh,
             replica_source=b.corpus.replica_source_for(plan, pvalues))
         stats = {
             "service_s": time.monotonic() - t_start,
@@ -740,6 +747,7 @@ class CorrServer:
             self._rows += sum(p.query.m for p in batch)
             self._occupancy_sum += sum(i.occupancy for i in infos
                                        ) / max(len(infos), 1)
+            self._accum_host_occ(infos)
         for p, value, info in zip(batch, results, infos):
             p.future.set_result(ServedResult(
                 value=value,
@@ -764,18 +772,35 @@ class CorrServer:
             self._requests += 1
             self._rows += p.query.m
             self._occupancy_sum += info.occupancy
+            self._accum_host_occ(infos)
         p.future.set_result(ServedResult(
             value=results[0],
             stats=self._stats_of(p, info, batcher, t_start, t_done)))
 
     # -- lifecycle / observability ------------------------------------------------------
 
+    def _accum_host_occ(self, infos) -> None:
+        """Fold each mesh launch's per-rank tile occupancy into the running
+        per-rank sums (called with _cv held).  Requests of one launch share
+        its BatchInfo, so each launch counts once."""
+        for info in {id(i): i for i in infos}.values():
+            ho = info.host_occupancy
+            if ho is None:
+                continue
+            if (self._host_occ_sums is None
+                    or len(self._host_occ_sums) != len(ho)):
+                self._host_occ_sums = [0.0] * len(ho)
+                self._host_occ_batches = 0
+            self._host_occ_sums = [a + b for a, b in
+                                   zip(self._host_occ_sums, ho)]
+            self._host_occ_batches += 1
+
     def stats(self) -> dict:
         """Server counters and the plan- and transform-cache views.
         ``corpora`` maps every corpus id to its handle's stats; ``corpus``
         is the default corpus's; ``watches`` sums standing-query activity;
-        ``host_occupancy`` (the reference's per-host mesh occupancy) is
-        None on one device."""
+        ``host_occupancy`` is each mesh rank's mean tile occupancy over the
+        mesh launches (None without a mesh, or before its first launch)."""
         with self._cv:
             batches = self._batches
             watches = list(self._watches)
@@ -786,7 +811,10 @@ class CorrServer:
                 "rows": self._rows,
                 "mean_batch_occupancy": (self._occupancy_sum / batches
                                          if batches else 0.0),
-                "host_occupancy": None,
+                "host_occupancy": (
+                    None if not self._host_occ_batches else
+                    [v / self._host_occ_batches
+                     for v in self._host_occ_sums]),
                 "queued": len(self._queue),
                 "faults": {
                     **self._fault_counts,

@@ -34,6 +34,7 @@ from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.significance import PermutationSpec
 from repro_torch.data import expression
 from repro_torch.kernels.pcc_tile import pcc_tiles
+from repro_torch.launch.mesh import make_mesh
 
 ATOL = 3e-6
 REPO = Path(__file__).resolve().parents[1]
@@ -289,8 +290,25 @@ def test_unported_corr_options_name_their_slice(kw):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        corr(x, device="cpu", **kw)
+    kw3 = dict(t=8, l_blk=8, max_tiles_per_pass=4, device="cpu")
+    alone = corr(x, **kw3)
+    if "mesh" in kw:
+        # ported (slice 18): a mesh is a launch.mesh.Mesh, anything else is
+        # refused; a 4-rank mesh gives the one-device bits and the
+        # reference's values
+        with pytest.raises(TypeError, match="Mesh"):
+            corr(x, device="cpu", **kw)
+        mesh = make_mesh((4,), ("d",), devices=["cpu"] * 4)
+        got = corr(x, mesh=mesh, **kw3)
+        want = ref_corr(jnp.asarray(x), t=8, l_blk=8)
+    else:
+        # ported (slice 18): shard_u without a mesh changes nothing, as in
+        # the reference
+        got = corr(x, **kw3, **kw)
+        want = ref_corr(jnp.asarray(x), t=8, l_blk=8, **kw)
+    assert torch.equal(got, alone)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
 
 
 def test_measures_of_later_slices_raise():

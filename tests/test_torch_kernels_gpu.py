@@ -329,6 +329,35 @@ def test_topk_merge_kernel_bitwise_plain_merge(cuda, grid, kk, data):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kk", [1, 10, 70])
+@pytest.mark.parametrize("n_states", [2, 4])
+def test_topk_fold_states_kernel_bitwise_plain(cuda, kk, n_states):
+    """The merge kernel folding rank states (a mesh's DeviceTopKSink) is
+    bitwise its plain version on the same states."""
+    from repro_torch.kernels.pcc_tile import topk_fold_states
+
+    rng = np.random.default_rng(kk + n_states)
+    m, t = 5, 256
+    states = []
+    for s in range(n_states):
+        v = torch.from_numpy(
+            (rng.integers(-8, 9, (m * t, kk)) / 8).astype(np.float32))
+        c = torch.from_numpy(
+            (s + n_states * np.arange(kk))[None].repeat(m * t, 0)
+            .astype(np.int32))
+        key = torch.where(c < 0, -torch.inf, v.abs())
+        order = torch.argsort(-key, dim=1, stable=True)
+        v, c = v.gather(1, order), c.gather(1, order)
+        c[:, kk - kk // 3:] = -1     # masked entries last
+        v[c < 0] = 0.0
+        states.append((v.reshape(m, t, kk), c.reshape(m, t, kk)))
+    want = topk_fold_states(states)
+    got = topk_fold_states([(a.to(cuda), b.to(cuda)) for a, b in states])
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("grid", [False, True])
 @pytest.mark.parametrize("kk", [1, 10, 32, 33, 64, 65])
@@ -1793,3 +1822,111 @@ def test_sharded_host_sink_on_card_assembles_bitwise(cuda, tmp_path):
     np.testing.assert_array_equal(assemble(d), want)
     np.testing.assert_array_equal(open_manifest(d).rows(100, 250),
                                   want[100:250])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense", "split", "shard_u", "topk",
+                                  "grid", "masked", "pvalues"])
+def test_two_rank_mesh_on_one_card_is_the_one_device_run(cuda, case):
+    """A mesh of 2 logical ranks on cuda:0 (two streams, per-rank pieces,
+    the sinks on their side streams): bitwise the one-device run, through
+    the CUDA kernels."""
+    from repro_torch.core.significance import PermutationSpec
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(38)
+    x = torch.from_numpy(rng.random((600, 300), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((250, 300), dtype=np.float32)).to(cuda)
+    mesh = make_mesh((2,), ("d",), devices=["cuda:0"] * 2)
+    kw = dict(t=96, l_blk=64)                       # 28 tiles
+    if case == "split":
+        kw["max_tiles_per_pass"] = 5
+    args, extra = (x,), {}
+    if case == "shard_u":
+        extra = dict(shard_u=True, max_tiles_per_pass=5)
+    elif case == "topk":
+        kw["max_tiles_per_pass"] = 5
+    elif case == "grid":
+        args = (x, y)
+    elif case == "masked":
+        x[3, :7] = float("nan")
+        extra = dict(where="nan", max_tiles_per_pass=5)
+    elif case == "pvalues":
+        extra = dict(pvalues=PermutationSpec(16, key=0, chunk=6),
+                     max_tiles_per_pass=5)
+    p0, s0 = pcc_tiles.launches, pcc_topk_tiles.launches["select"]
+    if case == "topk":
+        got = corr(x, mesh=mesh, sink=DeviceTopKSink(10), **kw)
+        plan = ExecutionPlan.create(600, 300, p=2, **kw)
+        # one select a rank with tiles in a pass
+        assert pcc_topk_tiles.launches["select"] - s0 == sum(
+            1 for k in range(plan.n_pass) for _, c in plan.rank_slots(k) if c)
+        want = corr(x, sink=DeviceTopKSink(10), **kw)
+        np.testing.assert_array_equal(got["indices"], want["indices"])
+        assert got["values"].tobytes() == want["values"].tobytes()
+        return
+    got = corr(*args, mesh=mesh, **kw, **extra)
+    n_launch = pcc_tiles.launches - p0
+    extra.pop("shard_u", None)
+    want = corr(*args, **kw, **extra)
+    torch.cuda.synchronize()
+    assert n_launch > 0
+    if case == "pvalues":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert got.device == x.device and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense", "shard_u", "topk", "grid",
+                                  "pvalues", "sharded", "device_loss"])
+def test_mesh_over_distinct_cards_is_the_one_device_run(cuda, case,
+                                                        tmp_path):
+    """A mesh with one rank a card (peer copies into the first card's
+    DenseSink, host copies from each card): bitwise the one-device run.
+    Needs two or more cards."""
+    from repro_torch.core.significance import PermutationSpec
+    from repro_torch.core.sinks import ShardedHostSink, assemble
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.faults import FaultPlan, RetryPolicy
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    rng = np.random.default_rng(39)
+    x = torch.from_numpy(rng.random((600, 300), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((250, 300), dtype=np.float32)).to(cuda)
+    mesh = make_mesh((torch.cuda.device_count(),), ("d",))
+    kw = dict(t=96, l_blk=64, max_tiles_per_pass=3)
+    if case == "topk":
+        got = corr(x, mesh=mesh, sink=DeviceTopKSink(10), **kw)
+        want = corr(x, sink=DeviceTopKSink(10), **kw)
+        np.testing.assert_array_equal(got["indices"], want["indices"])
+        assert got["values"].tobytes() == want["values"].tobytes()
+        return
+    if case == "sharded":
+        d = str(tmp_path)
+        for h in range(2 if mesh.size % 2 == 0 else mesh.size):
+            n_hosts = 2 if mesh.size % 2 == 0 else mesh.size
+            r = corr(x, mesh=mesh, sink=ShardedHostSink(
+                d, host=h, n_hosts=n_hosts), **kw)
+            assert r["complete"]
+        np.testing.assert_array_equal(assemble(d), corr(x, **kw).cpu())
+        return
+    if case == "device_loss":
+        pol = RetryPolicy(sleep=lambda s: None)
+        with FaultPlan.single("pass_launch", "device_loss", at=2).armed():
+            got = corr(x, mesh=mesh, recovery=pol, **kw)
+        assert [e["p"] for e in pol.log] == [mesh.size - 1]
+        assert torch.equal(got, corr(x, **kw))
+        return
+    args = (x, y) if case == "grid" else (x,)
+    extra = {}
+    if case == "shard_u":
+        extra = dict(shard_u=True)
+    elif case == "pvalues":
+        extra = dict(pvalues=PermutationSpec(16, key=0, chunk=6))
+    got = corr(*args, mesh=mesh, **kw, **extra)
+    extra.pop("shard_u", None)
+    want = corr(*args, **kw, **extra)
+    if case == "pvalues":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert got.device == x.device and torch.equal(got, want)

@@ -35,6 +35,7 @@ from repro_torch.core import api, measures
 from repro_torch.core.api import corr
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.sinks import RowBlockSink, TopKSink
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serving import (CorpusHandle, CorrServer, PlanCache,
                                  ProblemSpec, Query, QueryBatcher,
                                  bucket_rows)
@@ -156,9 +157,9 @@ def test_plan_cache_misses_on_spec_change(delta):
 
 
 def test_plan_cache_misses_on_mesh_change():
-    """A mesh is another key in the reference; the port runs no mesh yet
-    and refuses one by name (ROADMAP slice 11), before any plan is
-    built."""
+    """A mesh is another key, as in the reference: its shape and the
+    device of each rank; its size is the plan's p.  Anything but a
+    launch.mesh.Mesh is refused before any plan is built."""
     import jax
     rpc = RefPlanCache()
     rpc.get(_ref_spec())
@@ -166,10 +167,22 @@ def test_plan_cache_misses_on_mesh_change():
     assert not hit
     pc = PlanCache()
     pc.get(_spec())
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    m4 = make_mesh((4,), ("d",), devices=["cpu"] * 4)
+    plan, hit = pc.get(_spec(mesh=m4))
+    assert not hit and plan.p == _spec(mesh=m4).p == 4
+    assert _spec().p == 1
+    assert plan.spec_dict() == RefPlan.create(
+        T, 12, n_cols=40, t=T, l_blk=LBLK, p=4, interpret=True).spec_dict()
+    _, hit = pc.get(_spec(mesh=make_mesh((4,), ("d",), devices=["cpu"] * 4)))
+    assert hit
+    _, hit = pc.get(_spec(mesh=make_mesh((2, 2), ("a", "b"),
+                                         devices=["cpu"] * 4)))
+    assert not hit
+    assert pc.stats()["misses"] == 3
+    with pytest.raises(TypeError, match="Mesh"):
         pc.get(_spec(mesh=object()))
-    assert pc.stats()["misses"] == 1
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    assert pc.stats()["misses"] == 3
+    with pytest.raises(TypeError, match="Mesh"):
         CorrServer(_x(16, 12), mesh=object(), **KW)
 
 

@@ -50,6 +50,7 @@ from repro_torch.core.sinks import (DenseSink, DeviceTopKSink,
                                     ExceedanceSink, TopKSink)
 from repro_torch.kernels.pcc_tile import (MAX_REPLICAS, pcc_tiles,
                                           pcc_tiles_plain)
+from repro_torch.launch.mesh import make_mesh
 
 ATOL = 3e-6
 BF16_ATOL = 1e-5
@@ -496,9 +497,19 @@ def test_where_with_pvalues_raises_and_mesh_names_its_slice():
         corr(x, where="nan", pvalues=spec, device="cpu")
     plan = ExecutionPlan.create(8, 12, t=T, l_blk=LBLK, replicas=4)
     u = plan.prepare(torch.from_numpy(np.nan_to_num(x)))
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # ported (slice 18): a mesh is a launch.mesh.Mesh of plan.p ranks, and
+    # a mesh run is bitwise the one-device run
+    with pytest.raises(TypeError, match="Mesh"):
         significance.run_significance(plan, spec, u, columns=u,
                                       mesh=object())
+    mesh = make_mesh((2,), ("d",), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="does not match the mesh"):
+        significance.run_significance(plan, spec, u, columns=u, mesh=mesh)
+    xs = np.nan_to_num(x)
+    r2, p2 = corr(xs, pvalues=spec, mesh=mesh, t=T, l_blk=LBLK,
+                  device="cpu")
+    r1, p1 = corr(xs, pvalues=spec, t=T, l_blk=LBLK, device="cpu")
+    assert torch.equal(r2, r1) and torch.equal(p2, p1)
     with pytest.raises(ValueError, match="replicas"):
         significance.run_significance(
             ExecutionPlan.create(8, 12, t=T, l_blk=LBLK, replicas=5), spec,

@@ -28,6 +28,7 @@ from repro_torch.core.allpairs import (allpairs_pcc, allpairs_pcc_streamed,
 from repro_torch.core.api import corr
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.data import expression
+from repro_torch.launch.mesh import make_mesh
 
 ATOL = 3e-6
 KW = dict(t=8, l_blk=8)
@@ -109,9 +110,21 @@ def test_stream_tiles_rejects_conflicting_plan():
     chunks = list(stream_tiles(x, measure="pcc", plan=plan2, device="cpu",
                                **KW))
     assert [len(i) for i, _ in chunks] == [1, 1, 1]
-    for kw in ({"mesh": object()}, {"shard_u": True}):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            list(stream_tiles(x, device="cpu", **kw))
+    # a mesh is a launch.mesh.Mesh; shard_u without one changes nothing
+    # (as in the reference), and a 4-rank mesh streams each rank's piece
+    with pytest.raises(TypeError, match="Mesh"):
+        list(stream_tiles(x, device="cpu", mesh=object()))
+    alone = list(stream_tiles(x, device="cpu", plan=plan2))
+    for got, want in zip(list(stream_tiles(x, device="cpu", plan=plan2,
+                                           shard_u=True)), alone):
+        np.testing.assert_array_equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    mesh = make_mesh((4,), ("d",), devices=["cpu"] * 4)
+    pieces = list(stream_tiles(x, device="cpu", mesh=mesh, shard_u=True,
+                               t=8, l_blk=8))
+    assert [len(i) for i, _ in pieces] == [1, 1, 1]
+    assert torch.equal(torch.cat([t for _, t in pieces]),
+                       torch.cat([t for _, t in alone]))
 
 
 def _one_warning(fn):

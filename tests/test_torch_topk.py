@@ -29,7 +29,8 @@ from repro_torch.core.sinks import DeviceTopKSink, TopKSink, topk_merge_rows
 from repro_torch.kernels.pcc_tile import (CTA_BLOCK, KK_MAX, EpilogueSpec,
                                           pcc_tiles_plain, pcc_topk_tiles,
                                           pcc_topk_tiles_plain,
-                                          topk_fold_plain, topk_merge,
+                                          topk_fold_plain,
+                                          topk_fold_states, topk_merge,
                                           topk_merge_plain, topk_select,
                                           topk_select_plain)
 
@@ -411,6 +412,48 @@ def test_plain_merge_is_the_canonical_merge(grid, kk, data):
     assert a.unique().numel() == 1 if data == "equal" else \
         a.unique().numel() < a.numel()     # exact ties
     assert bool((vals < 0).any()) and bool((vals > 0).any())
+
+
+def fold_case(m, t, kk, n_states, seed):
+    """n_states (values, columns) states of (m, t, kk), each a row's
+    canonical top-kk of candidates with columns of its own (ties of |v|
+    across states and signs), and every candidate as (rows, cols, vals)."""
+    rng = np.random.default_rng(seed)
+    rows_n = m * t
+    states, cands = [], ([], [], [])
+    for s in range(n_states):
+        n_c = int(rng.integers(0, 2 * kk + 2))
+        r_ids = np.repeat(np.arange(rows_n), n_c)
+        c_ids = np.tile(s + n_states * np.arange(n_c), rows_n)
+        v = (rng.integers(-4, 5, r_ids.size) / 4).astype(np.float32)
+        vals = np.zeros((rows_n, kk), np.float32)
+        idx = np.full((rows_n, kk), -1, np.int64)
+        topk_merge_rows(vals, idx, r_ids, c_ids, v, kk)
+        states.append((torch.from_numpy(vals.reshape(m, t, kk)),
+                       torch.from_numpy(idx.astype(np.int32)
+                                        .reshape(m, t, kk))))
+        for out, a in zip(cands, (r_ids, c_ids, v)):
+            out.append(a)
+    return states, [np.concatenate(a) for a in cands]
+
+
+@pytest.mark.parametrize("t", [8, 16, 128])
+@pytest.mark.parametrize("kk", [1, 7, 33, 70])
+@pytest.mark.parametrize("n_states", [2, 3, 5])
+def test_fold_states_is_the_canonical_merge(t, kk, n_states):
+    """topk_fold_states (on the CPU: the merge's plain version over the
+    states laid out as a pass scratch) is the canonical merge of every
+    candidate the states saw: folding a mesh's rank states on the card
+    and merging the result on the host is bitwise merging each state."""
+    m = 3
+    states, (r_ids, c_ids, v) = fold_case(m, t, kk, n_states,
+                                          seed=t + kk + n_states)
+    got_v, got_c = topk_fold_states(states)
+    vals = np.zeros((m * t, kk), np.float32)
+    idx = np.full((m * t, kk), -1, np.int64)
+    topk_merge_rows(vals, idx, r_ids, c_ids, v, kk)
+    assert got_v.numpy().reshape(m * t, kk).tobytes() == vals.tobytes()
+    np.testing.assert_array_equal(got_c.numpy().reshape(m * t, kk), idx)
 
 
 @pytest.mark.parametrize("grid", [False, True])
