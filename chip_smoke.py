@@ -236,7 +236,27 @@ Phases, each fatal on failure:
      a device_loss at pass 1's launch of 300-tile passes (p -> p - 1), a
      CorrServer(mesh=) answering TF queries (bitwise standalone corr, one
      host occupancy a rank).  With logical ranks the wall times show the
-     mesh machinery's cost on one card, not scaling.
+     mesh machinery's cost on one card, not scaling;
+ 27. LM serving (repro_torch.launch.serve and repro_torch.models): hymba-
+     1.5b, then llama3.2-3b, FULL configs at full width and depth,
+     parameters from torch.Generator seed 0 on the card, one model held at
+     a time: (a) serve() at its defaults (batch 4, prompt 64, 32 tokens),
+     after a warm-up run: prefill ms, decode ms a step, tok/s, exactly one
+     bf16 flash launch a layer in its prefill and none in decode; (b) one
+     prefill of 4,096 tokens (seed 2), past hymba's window of 1,024: one
+     bf16 flash launch a layer, the right window at each, no plain route
+     and no plain flash version, every run's cache holding the prompt's
+     last keys at their slots, a decode step launching no flash kernel,
+     ms (median of 3) and peak, and one layer's attention / SSM / MLP ms;
+     (c) every layer's flash output against the plain route on its inputs
+     (bf16 within phase 19's row-scaled gate), the last-token logits of
+     the flash and plain routes held against the float32 plain route
+     (LM_BF16_RATIO), and in float32 at 1,024 tokens (each layer within
+     TOL_ATTN, the logits within TOL_LM_LOGITS_F32); (d) decode after a
+     prefill of S - 1 against the full forward (float32 within the
+     reference's 2e-2; bf16 against the float32 plain route); (e) llama at
+     32,768 tokens: ms, peak, launches.  A record row a window class of
+     each LM prefill (kernel, plain and library ms, bound, launches).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -249,6 +269,7 @@ from __future__ import annotations
 import ctypes
 import json
 import re
+from math import gcd
 import statistics
 import subprocess
 import sys
@@ -450,6 +471,40 @@ TOL_ATTN = 1e-5
 ATTN_WHOLE = 4_096
 ATTN_CHUNK = 2_048
 ATTN_ROWS = 512
+
+# LM serving (phase 27): hymba-1.5b, then llama3.2-3b, FULL (full width and
+# depth; parameters from torch.Generator seed 0 on the card), one model held
+# at a time.  (a) launch.serve's defaults; (b)-(d) one prompt of LM_PROMPT
+# tokens (seed 2), past hymba's window of 1,024; the float32 route check at
+# LM_F32_PROMPT tokens; (e) llama3.2-3b at LM_LONG tokens (prefill_32k).
+LM_ARCHS = ("hymba-1.5b", "llama3.2-3b")
+LM_BATCH, LM_SERVE_PROMPT, LM_GEN = 4, 64, 32
+LM_PROMPT = 4_096
+LM_F32_PROMPT = 1_024
+LM_LONG = 32_768
+# Every layer's flash output against the plain route (the reference's
+# sdpa / _chunked_sdpa) on the same rotated q, k, v: float32 within phase
+# 19's full-shape TOL_ATTN (the plain route scales the logits after the
+# dot, the kernel q before it: a few ulps of a logit, ~1e-6 of an output
+# row of |v| < 6, where the reference's 2e-6 is for its small test shapes);
+# bf16 within phase 19's row-scaled gate (NARROW_ULP, NARROW_ROW).
+# Last-token logits in bf16: a random model of 28-32 layers amplifies bf16
+# roundings (2^-9 of each activation) from layer to layer, so the two
+# routes' logits differ by much more than one rounding.  Both are held
+# against the float32 truth (the plain route with float32 activations on
+# the same parameters): the flash route's logits, and decode's after a
+# prefill of S - 1, may be at most LM_BF16_RATIO times as far from it as
+# the plain bf16 route's.  The kernel adds one rounding of P per layer (at
+# most u / sqrt(3) of the row rms) to the route's own roundings of every
+# matmul output, so its distance stays within a small factor of the plain
+# route's; 3 leaves room for the spread of that amplification.
+LM_BF16_RATIO = 3.0
+# float32 logits of the two routes, relative to max |logit|: per layer
+# <= TOL_ATTN (1e-5 of outputs ~1), amplified as bf16 noise is (2^-9 grows
+# to ~4.5e-2 of max |logit| over hymba's 32 layers on an H100, phase 27
+# (c), ~20x): ~2e-4, under 1e-3.
+TOL_LM_LOGITS_F32 = 1e-3
+TOL_LM_DECODE = 2e-2
 
 
 def gpu_info() -> str:
@@ -2048,6 +2103,442 @@ def mesh_runs(x_dev, x_tf, reset, plain_calls, tag):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 26 took {out['seconds']:.1f} s {tag}")
     return out
+
+
+def lm_runs(dev, tag, library_attn):
+    """Phase 27, LM serving on the card (see LM_ARCHS): returns the flash
+    rows of the kernels record (the LM prefills' launches) and the
+    phase's numbers."""
+    import torch
+
+    from repro_torch.configs import get_config, override
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch.serve import serve, summary
+    from repro_torch.models import layers, ssm, steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import layer_runs
+
+    t_phase = time.perf_counter()
+    flash_route, plain_route = layers._flash_route, layers._plain_route
+    calls = {"plain_route": 0, "flash_attention_plain": 0}
+    records, recording = [], [0]   # keep up to recording[0] layers
+
+    def counted_plain_route(*args, **kwargs):
+        calls["plain_route"] += 1
+        return plain_route(*args, **kwargs)
+
+    def counted_flash_plain(*args, **kwargs):
+        calls["flash_attention_plain"] += 1
+        return flash_attention_plain(*args, **kwargs)
+
+    def recorded_flash_route(cfg_, q, k, v, window):
+        out = flash_route(cfg_, q, k, v, window)
+        if len(records) < recording[0]:
+            records.append((q, k, v, window, out))
+        return out
+
+    def plain_instead(cfg_, q, k, v, window):
+        """The attention route replaced by its plain version: the
+        reference's sdpa / _chunked_sdpa at positions 0..S-1."""
+        pos = torch.arange(q.shape[1], device=q.device)[None, :].expand(
+            q.shape[0], -1)
+        return plain_route(cfg_, q, k, v, pos, window)
+
+    def reset():
+        flash_attention.launches = 0
+        flash_attention.launches_by_dtype = {
+            k: 0 for k in flash_attention.launches_by_dtype}
+        for k in calls:
+            calls[k] = 0
+
+    def peak(fn):
+        """fn()'s result, its host-clock ms to a synchronised card, and its
+        peak device memory above what was allocated before it, in GB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        return out, ms, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+    def timed(fn, reps):
+        """(median ms, all ms, largest peak GB) of `reps` runs of fn(),
+        each result dropped before the next."""
+        def drop():     # the result is freed on return
+            fn()
+        times, peaks = [], []
+        for _ in range(reps):
+            _, ms, gb = peak(drop)
+            times.append(ms)
+            peaks.append(gb)
+        return statistics.median(times), times, max(peaks)
+
+    def route_check(cfg_, what):
+        """Every recorded layer's flash output against the plain route on
+        its inputs: (max |flash - plain|, largest share of the bf16 gate or
+        None for float32)."""
+        err = share = 0.0
+        for q, k, v, window, out in records:
+            pos = torch.arange(q.shape[1], device=dev)[None, :].expand(
+                q.shape[0], -1)
+            want = plain_route(cfg_, q, k, v, pos, window)
+            g4 = out.reshape(q.shape).transpose(1, 2).double()
+            w4 = want.reshape(q.shape).transpose(1, 2).double()
+            diff = (g4 - w4).abs()
+            err = max(err, amax(diff))
+            if out.dtype != torch.float32:
+                rms = w4.square().mean(-1, keepdim=True).sqrt()
+                gate = torch.minimum(
+                    NARROW_ULP["bfloat16"] * w4.abs()
+                    + NARROW_ROW["bfloat16"] * rms,
+                    TOL_ATTN_NARROW * (1 + w4.abs()))
+                share = max(share, amax(diff / gate))
+            del want, g4, w4, diff
+        if records[0][4].dtype == torch.float32:
+            if not err <= TOL_ATTN:
+                raise AssertionError(f"{what}: a layer's flash output is "
+                                     f"{err:.3e} from the plain route")
+            return err, None
+        if not share <= 1:
+            raise AssertionError(f"{what}: a layer's flash output is outside "
+                                 f"the bf16 gate ({share:.3f} of it)")
+        return err, share
+
+    def flash_row(arch, q, k, v, window, launches, label):
+        """One kernels-record row: the flash kernel at one layer's recorded
+        inputs, its plain version, the library call and the bound."""
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        b_, h_, s_, d_ = qt.shape
+        w_ = window or None
+        # the wrapper's blk only validates the window (layers._flash_route)
+        blk = {"blk_q": layers.FLASH_BLK, "blk_k": layers.FLASH_BLK} \
+            if w_ is None else {"blk_q": gcd(w_, layers.FLASH_BLK),
+                                "blk_k": gcd(w_, layers.FLASH_BLK)}
+        chunk = None if s_ <= ATTN_WHOLE else ATTN_CHUNK
+        out = flash_attention(qt, kt, vt, window=w_, **blk)
+        want = flash_attention_plain(qt, kt, vt, window=w_, chunk=chunk)
+        err = amax((out.float() - want.float()).abs())
+        del want
+        reps = 5 if s_ <= ATTN_WHOLE else 3
+        k_ms = event_ms(lambda: flash_attention(qt, kt, vt, window=w_,
+                                                **blk), reps)[0]
+        p_ms = event_ms(lambda: flash_attention_plain(
+            qt, kt, vt, window=w_, chunk=chunk), 3 if chunk is None else 1)[0]
+        l_ms, l_label = library_attn(qt, kt, vt, w_, out, reps)
+        pairs = b_ * h_ * (s_ * (s_ + 1) // 2 if w_ is None or w_ >= s_
+                           else w_ * (w_ + 1) // 2 + (s_ - w_) * w_)
+        peak_ops = FP32_FLOPS if qt.dtype == torch.float32 else BF16_FLOPS
+        o_ms = 4 * d_ * pairs / peak_ops * 1e3
+        b_ms = (2 * qt.numel() + 2 * kt.numel()) * qt.element_size() \
+            / HBM_BYTES_S * 1e3
+        dname = "bf16" if qt.dtype == torch.bfloat16 else "float32"
+        print(f"    flash_attention at {label} ({dname}): {k_ms:.3f} ms, "
+              f"bound {max(o_ms, b_ms):.3f} ms, plain {p_ms:.3f} ms, "
+              f"library {'not measured' if l_ms is None else f'{l_ms:.3f}'}"
+              f" ({l_label}); max|kernel - plain| {err:.3e}; {launches} "
+              f"launches in the prefill {tag}")
+        return {"name": f"flash_attention (LM prefill, {arch} {label}, "
+                        f"{dname})",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention"
+                          f"{'' if qt.dtype == torch.float32 else '_sm90'}"
+                          ".cu",
+                "replaces": "src/repro/kernels/flash_attention.py:118",
+                "launches": launches, "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": max(o_ms, b_ms),
+                "bound_by": "operations" if o_ms >= b_ms else "bytes",
+                "library_ms": l_ms}
+
+    def class_rows(arch, cfg_, s_):
+        """A row for the first recorded layer of each window class, its
+        launches those of the class's layers in one prefill."""
+        rows, seen = [], set()
+        for q, k, v, window, _ in records:
+            if window in seen:
+                continue
+            seen.add(window)
+            label = f"S={s_} " + (f"window {window}" if window
+                                  else "causal")
+            rows.append(flash_row(arch, q, k, v, window,
+                                  cfg_.layer_windows().count(window),
+                                  label))
+        return rows
+
+    rows, out = [], {}
+    layers._flash_route = recorded_flash_route
+    layers._plain_route = counted_plain_route
+    fmod.flash_attention_plain = counted_flash_plain
+    try:
+        for arch in LM_ARCHS:
+            cfg = get_config(arch)
+            res = {}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            params = build_model(cfg).init(
+                torch.Generator(device=dev).manual_seed(0), device=dev)
+            torch.cuda.synchronize()
+            n_params = sum(p.numel() for p in params.parameters())
+            res["params"] = n_params
+            res["params_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+            print(f"  {arch} FULL: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, H {cfg.n_heads}, Hkv {cfg.n_kv_heads}, "
+                  f"hd {cfg.hd}, windows {sorted(set(cfg.layer_windows()))}"
+                  f"; {n_params:,} parameters, {res['params_gb']:.3f} GB "
+                  f"float32 drawn in {time.perf_counter() - t0:.1f} s; "
+                  f"{cfg.dtype} activations {tag}")
+            n_attn = cfg.n_layers
+
+            # (a) the entry point's defaults
+            serve(cfg, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT,
+                  gen=LM_GEN, device=dev, params=params)   # warm-up
+            reset()
+            sv, _, sv_peak = peak(lambda: serve(
+                cfg, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT, gen=LM_GEN,
+                device=dev, params=params))
+            lb = dict(flash_attention.launches_by_dtype)
+            if lb["bfloat16"] != n_attn or sum(lb.values()) != n_attn or \
+                    any(calls.values()):
+                raise AssertionError(f"{arch} serve: flash launches {lb}, "
+                                     f"plain calls {calls}: want {n_attn} "
+                                     f"bf16 launches (its prefill), none "
+                                     f"in decode, no plain version")
+            if tuple(sv["tokens"].shape) != (LM_BATCH, LM_GEN) or \
+                    not bool(torch.isfinite(sv["first_logits"]).all()):
+                raise AssertionError(f"{arch} serve: bad output")
+            res["serve"] = {"prefill_ms": sv["prefill_s"] * 1e3,
+                            "decode_ms_per_step": sv["decode_s"] * 1e3
+                            / (LM_GEN - 1), "tok_s": sv["tok_s"],
+                            "peak_gb": sv_peak}
+            print(f"  (a) launch.serve batch {LM_BATCH}, prompt "
+                  f"{LM_SERVE_PROMPT}, gen {LM_GEN} (after a warm-up run): "
+                  f"{summary(sv)}; prefill {sv['prefill_s'] * 1e3:.3f} ms, "
+                  f"decode {res['serve']['decode_ms_per_step']:.3f} ms a "
+                  f"step, {sv['tok_s']:.1f} tok/s; flash launches {lb}; "
+                  f"peak {sv_peak:.3f} GB above held {tag}")
+
+            # (b) the windowed prefill at LM_PROMPT tokens
+            g = torch.Generator(device=dev).manual_seed(2)
+            toks = torch.randint(0, cfg.vocab, (1, LM_PROMPT), generator=g,
+                                 device=dev)
+            prefill = steps.make_prefill_step(
+                cfg, cache_capacity=LM_PROMPT + LM_GEN)
+            decode = steps.make_decode_step(cfg)
+            reset()
+            records.clear()
+            recording[0] = n_attn
+            logits_f, cache = prefill(params, tokens=toks)
+            torch.cuda.synchronize()
+            recording[0] = 0
+            lb = dict(flash_attention.launches_by_dtype)
+            if lb["bfloat16"] != n_attn or sum(lb.values()) != n_attn or \
+                    any(calls.values()) or len(records) != n_attn:
+                raise AssertionError(f"{arch} prefill {LM_PROMPT}: flash "
+                                     f"launches {lb}, plain calls {calls}")
+            if [r[3] for r in records] != list(cfg.layer_windows()):
+                raise AssertionError(f"{arch}: the layers' windows reached "
+                                     f"the kernel wrong")
+            if not bool(torch.isfinite(logits_f).all()):
+                raise AssertionError(f"{arch}: non-finite prefill logits")
+            # the cache holds the prompt's last positions at slot p % cap
+            for run_idx, (w, start, cnt) in enumerate(layer_runs(cfg)):
+                k_rec = records[start][1]                  # (1, S, Hkv, hd)
+                kc = cache[run_idx]["k"][0]                # (1, Hkv, cap, hd)
+                cap = kc.shape[2]
+                take = min(LM_PROMPT, cap)
+                p_ = torch.arange(LM_PROMPT - take, LM_PROMPT, device=dev)
+                slots = p_ % cap if w > 0 else p_
+                if not torch.equal(kc[:, :, slots],
+                                   k_rec[:, LM_PROMPT - take:]
+                                   .transpose(1, 2)):
+                    raise AssertionError(f"{arch} run {run_idx}: the cache "
+                                         f"does not hold the prompt's last "
+                                         f"{take} keys at their slots")
+            before = dict(flash_attention.launches_by_dtype)
+            step_logits, _ = decode(params, token=toks[:, -1:], cache=cache,
+                                    cache_index=LM_PROMPT)
+            torch.cuda.synchronize()
+            if dict(flash_attention.launches_by_dtype) != before or \
+                    not bool(torch.isfinite(step_logits).all()):
+                raise AssertionError(f"{arch}: decode launched the flash "
+                                     f"kernel or gave non-finite logits")
+            del cache, step_logits
+            pre_ms, pre_all, pb = timed(lambda: prefill(params, tokens=toks),
+                                        3)
+            res["prefill_4k"] = {"ms": pre_ms, "runs": pre_all,
+                                 "peak_gb": pb, "launches": lb["bfloat16"]}
+            print(f"  (b) prefill batch 1, prompt {LM_PROMPT}: "
+                  f"{pre_ms:.3f} ms (runs {[round(t, 3) for t in pre_all]})"
+                  f", flash launches {lb} (one a layer), plain calls "
+                  f"{calls}, the ring and full caches hold the prompt's "
+                  f"last keys at their slots, a decode step launches no "
+                  f"flash kernel; peak {pb:.3f} GB above held {tag}")
+            rows += class_rows(arch, cfg, LM_PROMPT)
+            # where one layer's prefill time goes: layer 1 (hymba: a
+            # window layer) on a normed embedding of the prompt
+            blk = params.blocks[1]
+            h = layers.rms_norm(params.embed[toks].to(cfg.activation_dtype()),
+                                blk.ln1, cfg.norm_eps)
+            w1 = cfg.layer_window(1)
+            parts = {"attention": lambda: layers.attention_apply(
+                cfg, blk.attn, h, None, w1),
+                "mlp": lambda: layers.mlp_apply(cfg, blk.mlp, h)}
+            if hasattr(blk, "ssm"):
+                parts["ssm"] = lambda: ssm.ssm_apply(cfg, blk.ssm, h)
+            res["layer_ms"] = {k: event_ms(fn, 3)[0]
+                               for k, fn in parts.items()}
+            del h
+            print(f"    one layer at prompt {LM_PROMPT} (layer 1, window "
+                  f"{w1}), CUDA events: " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in res["layer_ms"].items())
+                  + f" (x {cfg.n_layers} layers) {tag}")
+
+            # (c) the route check, bf16 at LM_PROMPT, against the float32
+            # truth: the plain route with float32 activations
+            err_l, share_l = route_check(cfg, f"{arch} bf16")
+            records.clear()
+            cfg32 = override(cfg, dtype="float32")
+            layers._flash_route = plain_instead
+            (logits_p, _), _, pc_gb = peak(lambda: steps.make_prefill_step(
+                cfg)(params, tokens=toks))
+            (logits_t, _), _, pt_gb = peak(lambda: steps.make_prefill_step(
+                cfg32)(params, tokens=toks))
+            layers._flash_route = recorded_flash_route
+            scale = amax(logits_t.abs())
+            e_flash = amax((logits_f - logits_t).abs())
+            e_plain = amax((logits_p - logits_t).abs())
+            err_c = amax((logits_f - logits_p).abs())
+            del logits_p
+
+            # (d) decode consistency at full width, bf16
+            _, cache_d = prefill(params, tokens=toks[:, :-1])
+            before = dict(flash_attention.launches_by_dtype)
+            (logits_d, _), _, pd_gb = peak(lambda: decode(
+                params, token=toks[:, -1:], cache=cache_d,
+                cache_index=LM_PROMPT - 1))
+            if dict(flash_attention.launches_by_dtype) != before:
+                raise AssertionError(f"{arch}: decode launched flash")
+            err_d = amax((logits_d - logits_f).abs())
+            e_dec = amax((logits_d - logits_t).abs())
+            del cache_d, logits_d, logits_t
+            res["route_bf16"] = {
+                "layer_err": err_l, "layer_share": share_l,
+                "logits_flash_vs_plain": err_c, "flash_vs_f32": e_flash,
+                "plain_vs_f32": e_plain, "decode_vs_f32": e_dec,
+                "decode_vs_forward": err_d, "logits_max_f32": scale}
+            print(f"  (c) bf16, every layer's flash output vs the plain "
+                  f"route on its inputs: max|diff| {err_l:.3e}, "
+                  f"{share_l:.3f} of the row-scaled gate; last-token logits "
+                  f"(max |logit| {scale:.3e} in float32) from the float32 "
+                  f"plain route: flash route {e_flash:.3e}, plain route "
+                  f"{e_plain:.3e} (gate {LM_BF16_RATIO:g}x that: "
+                  f"{e_flash / e_plain:.3f}x); flash vs plain route "
+                  f"{err_c:.3e}; peak above held: plain route {pc_gb:.3f} "
+                  f"GB, float32 plain route {pt_gb:.3f} GB {tag}")
+            print(f"  (d) bf16, decode after a prefill of {LM_PROMPT - 1}: "
+                  f"from the float32 plain route {e_dec:.3e} "
+                  f"({e_dec / e_plain:.3f}x the plain route's, gate "
+                  f"{LM_BF16_RATIO:g}x), from the full forward's bf16 "
+                  f"logits {err_d:.3e}; the step's peak above held (the "
+                  f"cache of {LM_PROMPT - 1} tokens held) {pd_gb:.3f} GB "
+                  f"{tag}")
+            if not (e_flash <= LM_BF16_RATIO * e_plain
+                    and e_dec <= LM_BF16_RATIO * e_plain):
+                raise AssertionError(f"{arch}: bf16 logits further from "
+                                     f"float32 than {LM_BF16_RATIO:g}x the "
+                                     f"plain route's")
+
+            # (c) and (d) in float32 at LM_F32_PROMPT
+            t32 = toks[:, :LM_F32_PROMPT]
+            prefill32 = steps.make_prefill_step(
+                cfg32, cache_capacity=LM_F32_PROMPT + LM_GEN)
+            reset()
+            recording[0] = n_attn
+            logits32, _ = prefill32(params, tokens=t32)
+            recording[0] = 0
+            lb32 = dict(flash_attention.launches_by_dtype)
+            if lb32["float32"] != n_attn or sum(lb32.values()) != n_attn or \
+                    any(calls.values()):
+                raise AssertionError(f"{arch} float32 prefill: flash "
+                                     f"launches {lb32}, plain calls {calls}")
+            err32_l, _ = route_check(cfg32, f"{arch} float32")
+            rows += class_rows(arch, cfg32, LM_F32_PROMPT)
+            records.clear()
+            layers._flash_route = plain_instead
+            logits32_p, _ = prefill32(params, tokens=t32)
+            layers._flash_route = recorded_flash_route
+            scale32 = amax(logits32_p.abs())
+            err32_c = amax((logits32 - logits32_p).abs())
+            _, cache32 = prefill32(params, tokens=t32[:, :-1])
+            logits32_d, _ = steps.make_decode_step(cfg32)(
+                params, token=t32[:, -1:], cache=cache32,
+                cache_index=LM_F32_PROMPT - 1)
+            err32_d = amax((logits32_d - logits32).abs())
+            del cache32, logits32_d, logits32_p, logits32
+            res["route_f32"] = {"layer_err": err32_l, "logits_err": err32_c,
+                                "logits_max": scale32,
+                                "decode_vs_forward": err32_d}
+            print(f"  (c) float32 at prompt {LM_F32_PROMPT}: every layer's "
+                  f"flash output vs the plain route: max|diff| "
+                  f"{err32_l:.3e} (tol {TOL_ATTN:g}); last-token logits "
+                  f"flash vs plain route: max|diff| {err32_c:.3e} (max "
+                  f"|logit| {scale32:.3e}; tol {TOL_LM_LOGITS_F32:g} of "
+                  f"it) {tag}")
+            print(f"  (d) float32, decode after a prefill of "
+                  f"{LM_F32_PROMPT - 1} vs the full forward's last logits: "
+                  f"{err32_d:.3e} (tol {TOL_LM_DECODE:g}) {tag}")
+            if not err32_c <= TOL_LM_LOGITS_F32 * scale32:
+                raise AssertionError(f"{arch}: float32 logits of the two "
+                                     f"routes disagree")
+            if not err32_d <= TOL_LM_DECODE:
+                raise AssertionError(f"{arch}: decode disagrees with the "
+                                     f"full forward")
+
+            # (e) a long prefill, llama3.2-3b only
+            if arch == "llama3.2-3b":
+                toks_l = torch.randint(0, cfg.vocab, (1, LM_LONG),
+                                       generator=g, device=dev)
+                prefill_l = steps.make_prefill_step(
+                    cfg, cache_capacity=LM_LONG + LM_GEN)
+                reset()
+                recording[0] = 1
+                (logits_l, cache_l), first_ms, _ = peak(
+                    lambda: prefill_l(params, tokens=toks_l))
+                recording[0] = 0
+                lb = dict(flash_attention.launches_by_dtype)
+                if lb["bfloat16"] != n_attn or sum(lb.values()) != n_attn \
+                        or any(calls.values()) or \
+                        not bool(torch.isfinite(logits_l).all()):
+                    raise AssertionError(f"{arch} prefill {LM_LONG}: flash "
+                                         f"launches {lb}, plain calls "
+                                         f"{calls}")
+                del cache_l, logits_l
+                long_ms, long_all, pl = timed(
+                    lambda: prefill_l(params, tokens=toks_l), 2)
+                res["prefill_32k"] = {"ms": long_ms, "runs": long_all,
+                                      "first_ms": first_ms, "peak_gb": pl}
+                print(f"  (e) prefill batch 1, prompt {LM_LONG}: "
+                      f"{long_ms:.3f} ms (runs "
+                      f"{[round(t, 3) for t in long_all]}; first run, one "
+                      f"layer's inputs kept, {first_ms:.3f} ms), flash "
+                      f"launches {lb}, peak {pl:.3f} GB above held {tag}")
+                rows += class_rows(arch, cfg, LM_LONG)
+                records.clear()
+            out[arch] = res
+            del params, logits_f
+            torch.cuda.empty_cache()
+    finally:
+        layers._flash_route, layers._plain_route = flash_route, plain_route
+        fmod.flash_attention_plain = flash_attention_plain
+        records.clear()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 27 took {out['seconds']:.1f} s {tag}")
+    return rows, out
 
 
 def kendall_runs(x_dev, x_tf, reset, tag):
@@ -4882,6 +5373,13 @@ def main(argv) -> int:
     print(json.dumps({"mesh": mesh_runs(x_dev, x_tf, reset_counts,
                                         plain_calls, tag)}))
 
+    # -- 27. LM serving at full width ------------------------------------------
+    torch.cuda.empty_cache()
+    print(f"LM serving (launch.serve, prefill on the flash kernel) at full "
+          f"width: {', '.join(LM_ARCHS)} {tag}:")
+    lm_rows, lm_out = lm_runs(dev, tag, library_attn)
+    print(json.dumps({"lm": lm_out}))
+
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
     for dname, short, tiles_l, sel_l in [
@@ -4972,6 +5470,7 @@ def main(argv) -> int:
                              "float8_e4m3fn"),
                             ("pcc_tiles (replica scaled int8)", "int8"))],
         *flash_rows,
+        *lm_rows,
         kendall_record,
     ]}
     # the header holding each pcc kernel's mainloop, beside its source: the

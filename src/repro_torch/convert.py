@@ -1,12 +1,13 @@
 """State carried across from the reference package.
 
-The system has no weights: a run's state is its plan and its prepared
-operand.  ``plan_from_reference`` rebuilds the port's plan from a reference
-``ExecutionPlan.spec_dict()`` (a plain dict, as the reference writes it into
-its checkpoint sidecars); ``operand_from_reference`` takes the reference's
-prepared operand: an array (``np.asarray(plan.prepare(x))``) or its
-quantized ``Operand`` of data and per-row scales.  Both packages then
-compute the same tiles from the same operand.
+The all-pairs engine has no weights: a run's state is its plan and its
+prepared operand.  ``plan_from_reference`` rebuilds the port's plan from a
+reference ``ExecutionPlan.spec_dict()`` (a plain dict, as the reference
+writes it into its checkpoint sidecars); ``operand_from_reference`` takes
+the reference's prepared operand: an array (``np.asarray(plan.prepare(x))``)
+or its quantized ``Operand`` of data and per-row scales.  Both packages
+then compute the same tiles from the same operand.  On the LM side,
+``lm_params_from_reference`` carries a reference model's parameters over.
 """
 
 from __future__ import annotations
@@ -117,4 +118,62 @@ def operand_from_reference(u_pad, device=None):
     return t.to(resolve_device(device))
 
 
-__all__ = ["plan_from_reference", "operand_from_reference"]
+def lm_params_from_reference(cfg, params, device=None):
+    """The port's parameters (a ``models.transformer.DecoderLM`` on
+    `device`, None meaning "cuda") for the reference's parameter pytree of
+    the same config: nested dicts of float32 arrays, the blocks' leaves
+    stacked (L, ...), as ``np.asarray`` of each leaf of ``model.init(key)``
+    gives them.  Raises ValueError when a leaf is missing, left over, of
+    another shape, or not float32."""
+    # the LM side loads on demand
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import DecoderLM
+
+    want = dict(build_model(cfg).init_shapes().named_parameters())
+    flat = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, sub in node.items():
+                walk(sub, path + (str(key),))
+        else:
+            flat["/".join(path)] = np.asarray(node)
+    walk(params, ())
+    dev = resolve_device(device)
+    tensors = {"blocks": [{} for _ in range(cfg.n_layers)]}
+    expected = set()
+    for name, shape_like in want.items():
+        shape = tuple(shape_like.shape)
+        parts = name.split(".")
+        if parts[0] == "blocks":    # blocks.<i>.<sub>[.<leaf>]
+            if parts[1] != "0":
+                continue
+            key, shape = "/".join(["blocks"] + parts[2:]), \
+                (cfg.n_layers,) + shape
+        else:
+            key = name
+        expected.add(key)
+        if key not in flat:
+            raise ValueError(f"the reference parameters lack {key}")
+        arr = flat[key]
+        if arr.shape != shape or arr.dtype != np.float32:
+            raise ValueError(f"{key}: expected float32 {shape}, got "
+                             f"{arr.dtype} {arr.shape}")
+        t = torch.from_numpy(np.array(arr, order="C")).to(dev)
+        if parts[0] != "blocks":
+            tensors[key] = t
+            continue
+        for i in range(cfg.n_layers):
+            node = tensors["blocks"][i]
+            for part in parts[2:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = t[i]
+    extra = sorted(set(flat) - expected)
+    if extra:
+        raise ValueError(f"reference parameters the port does not have: "
+                         f"{extra}")
+    return DecoderLM(cfg, tensors)
+
+
+__all__ = ["plan_from_reference", "operand_from_reference",
+           "lm_params_from_reference"]

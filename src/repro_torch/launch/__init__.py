@@ -1,5 +1,6 @@
-"""Launchers of the port: the device mesh (``launch.mesh``).
+"""Launchers of the port: the device mesh (``launch.mesh``) and LM serving
+(``launch.serve``).
 
-The reference's production mesh, dry run, roofline and train / serve
-launchers belong to the LM side (ROADMAP slice 12b).
+The reference's sharded serving, train launcher, dry run and roofline wait
+for later parts of ROADMAP slice 12b.
 """

@@ -1,0 +1,379 @@
+"""Model building blocks: norms, RoPE, GQA / sliding-window attention, MLPs.
+
+Port of ``repro/models/layers.py`` (MoE and cross-attention wait for later
+slices, ROADMAP A).  The same convention:
+  init_*(gen, cfg, device) -> param dict for ONE layer
+  *_apply(cfg, p, x, ...) -> output(s)
+where ``p`` is any mapping of names to tensors (a dict, or the
+``nn.ParameterDict`` of a block in ``transformer.py``).
+
+Dtypes: params live in float32; activations are in ``cfg.dtype`` and each
+weight is cast at its use (``p.to(x.dtype)``); softmax / normalization
+statistics accumulate in float32.
+
+Prefill self-attention dispatches by device, as every kernel wrapper of the
+port does: on a CUDA tensor it runs the hand-written flash kernel
+(``kernels.ops.flash_mha``), which raises if it cannot build or launch; on
+a CPU tensor it runs the reference's plain ``sdpa`` / ``_chunked_sdpa``.
+Decode attention (one query against a ring buffer) is plain tensor code on
+both devices, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+# the largest flash block; the wrapper's blk only validates the window
+FLASH_BLK = 128
+
+
+def dense_init(gen: Optional[torch.Generator], shape, device=None,
+               scale: float = 0.02) -> Tensor:
+    """Normal(0, scale^2) float32 from `gen` (on the generator's device),
+    or shapes only on the meta device."""
+    device = torch.device(device) if device is not None else gen.device
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=gen, device=device) * scale
+
+
+def _device(gen, device) -> torch.device:
+    return torch.device(device) if device is not None else gen.device
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: Tensor, w: Tensor, eps: float) -> Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard / half / m-rope)
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions: Tensor, n_freq: int, theta: float) -> Tensor:
+    """positions (..., S) -> angles (..., S, n_freq), float32."""
+    exps = torch.arange(n_freq, dtype=torch.float32,
+                        device=positions.device) / n_freq
+    freqs = 1.0 / (theta ** exps)
+    return positions.float()[..., None] * freqs
+
+
+def _rotate(x: Tensor, angles: Tensor) -> Tensor:
+    """x (..., S, H, 2*n_freq) rotated pairwise by angles (..., S, n_freq)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def apply_rope(cfg: ModelConfig, x: Tensor, positions: Tensor) -> Tensor:
+    """x: (B, S, Hx, hd).  positions: (B, S) int, or (B, 3, S) for m-rope.
+
+    standard: rotate all hd dims.  half: rotate the first hd/2 dims only
+    (ChatGLM 2d-RoPE).  mrope: three position streams rotate disjoint
+    frequency sections (Qwen2-VL M-RoPE).
+    """
+    hd = x.shape[-1]
+    dt = x.dtype
+    if cfg.rope == "none":
+        return x
+    if cfg.rope == "standard":
+        ang = _rope_angles(positions, hd // 2, cfg.rope_theta)
+        return _rotate(x, ang).to(dt)
+    if cfg.rope == "half":
+        half = hd // 2
+        ang = _rope_angles(positions, half // 2, cfg.rope_theta)
+        rotated = _rotate(x[..., :half], ang)
+        return torch.cat([rotated, x[..., half:].float()], dim=-1).to(dt)
+    if cfg.rope == "mrope":
+        # positions (B, 3, S); sections partition the hd/2 frequency axis
+        sections = cfg.mrope_sections
+        n_freq = hd // 2
+        if sum(sections) != n_freq:
+            raise ValueError(f"mrope sections {sections} != hd/2 = {n_freq}")
+        angs = []
+        for comp in range(len(sections)):
+            freqs_idx = torch.arange(sum(sections[:comp]),
+                                     sum(sections[:comp + 1]),
+                                     device=x.device)
+            freqs = 1.0 / (cfg.rope_theta ** (freqs_idx.float() / n_freq))
+            pos = positions[:, comp, :].float()
+            angs.append(pos[..., None] * freqs)
+        ang = torch.cat(angs, dim=-1)  # (B, S, n_freq)
+        return _rotate(x, ang).to(dt)
+    raise ValueError(f"unknown rope mode {cfg.rope}")
+
+
+def default_positions(batch: int, seq: int, offset=0, device=None) -> Tensor:
+    return torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
+        + offset
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + optional sliding window)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: ModelConfig, device=None) -> dict:
+    hd, h, hkv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    dev = _device(gen, device)
+    p = {
+        "wq": dense_init(gen, (d, h * hd), dev),
+        "wk": dense_init(gen, (d, hkv * hd), dev),
+        "wv": dense_init(gen, (d, hkv * hd), dev),
+        "wo": dense_init(gen, (h * hd, d), dev,
+                         scale=0.02 / max(cfg.n_layers, 1) ** 0.5),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", h * hd), ("bk", hkv * hd),
+                            ("bv", hkv * hd)):
+            p[name] = torch.zeros((width,), device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), device=dev)
+        p["k_norm"] = torch.ones((hd,), device=dev)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, p: Mapping[str, Tensor], xq: Tensor,
+                 xkv: Tensor):
+    b, sq, _ = xq.shape
+    skv = xkv.shape[1]
+    hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = xq @ p["wq"].to(xq.dtype)
+    k = xkv @ p["wk"].to(xkv.dtype)
+    v = xkv @ p["wv"].to(xkv.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(b, sq, h, hd)
+    k = k.reshape(b, skv, hkv, hd)
+    v = v.reshape(b, skv, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor, *,
+         q_pos: Tensor, k_pos: Tensor, window: int, causal: bool,
+         k_valid: Optional[Tensor] = None) -> Tensor:
+    """Grouped-head attention.  q (B,Sq,H,hd); k,v (B,Sk,Hkv,hd).
+
+    window: 0 = unlimited.  q_pos (B,Sq) / k_pos (B,Sk) are absolute token
+    positions (mask built from them, so ring-buffer caches just pass the
+    right positions).  k_valid (B,Sk) masks dead cache slots.  Query head h
+    reads KV head h // (H / Hkv); the logits are divided by sqrt(hd) after
+    the dot, as in the reference.
+    """
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, sq, hkv, rep, hd)
+    logits = torch.einsum("bqgrh,bkgh->bgrqk", qg.float(), k.float()) \
+        / math.sqrt(hd)
+    mask = torch.ones((b, sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window > 0:
+        mask &= k_pos[:, None, :] > q_pos[:, :, None] - window
+    if k_valid is not None:
+        mask &= k_valid[:, None, :]
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgh->bqgrh", probs, v.float())
+    return out.reshape(b, sq, h * hd).to(q.dtype)
+
+
+def _plain_route(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                 pos: Tensor, window: int) -> Tensor:
+    """The reference's self-attention: q-chunked when cfg.attn_chunk > 0
+    divides S, else one sdpa.  q (B,S,H,hd); k,v (B,S,Hkv,hd); pos (B,S).
+    Returns (B, S, H*hd)."""
+    c = cfg.attn_chunk
+    s = q.shape[1]
+    if c > 0 and s > c and s % c == 0:
+        return _chunked_sdpa(cfg, q, k, v, pos, window, c)
+    return sdpa(cfg, q, k, v, q_pos=pos, k_pos=pos, window=window,
+                causal=True)
+
+
+def _flash_route(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                 window: int) -> Tensor:
+    """Causal / sliding-window self-attention through the hand-written
+    flash kernel at positions 0..S-1: one launch.  q (B,S,H,hd); k,v
+    (B,S,Hkv,hd).  Returns (B, S, H*hd) in q's dtype.  The wrapper's blk
+    only validates the window: the largest power of two up to FLASH_BLK
+    that divides it."""
+    b, s, h, hd = q.shape
+    blk = math.gcd(window, FLASH_BLK) if window > 0 else FLASH_BLK
+    out = ops.flash_mha(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2),
+                        window=window if window > 0 else None, blk=blk)
+    return out.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def self_attention(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                   positions: Optional[Tensor], window: int) -> Tensor:
+    """Prefill self-attention of rotated q (B,S,H,hd) against k, v
+    (B,S,Hkv,hd), dispatched by device: the flash kernel on the card, the
+    plain route on the CPU.  positions: None means 0..S-1; explicit
+    positions (B,S) run on the CPU only."""
+    if q.device.type == "cuda":
+        if positions is not None:
+            raise NotImplementedError(
+                "explicit positions on the card: the flash kernel runs at "
+                "positions 0..S-1; position streams come with the VLM "
+                "(ROADMAP slice 12b part 3)")
+        return _flash_route(cfg, q, k, v, window)
+    if positions is None:
+        positions = default_positions(q.shape[0], q.shape[1],
+                                      device=q.device).expand(q.shape[0], -1)
+    return _plain_route(cfg, q, k, v, positions, window)
+
+
+def attention_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
+                    positions: Optional[Tensor], window: int):
+    """Full-sequence self-attention (train/prefill).  positions: (B, S),
+    (B, 3, S) for m-rope, or None for 0..S-1.  Returns (out (B,S,D),
+    (k, v) rotated, (B,S,Hkv,hd)).
+
+    cfg.attn_chunk > 0 selects the reference's q-chunked path on the CPU;
+    on the card the flash kernel takes every layer whole.
+    """
+    b, s = x.shape[0], x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x, x)
+    rope_pos = positions if positions is not None else \
+        default_positions(b, s, device=x.device).expand(b, -1)
+    q = apply_rope(cfg, q, rope_pos)
+    k = apply_rope(cfg, k, rope_pos)
+    pos1d = None
+    if positions is not None:
+        pos1d = positions[:, 0, :] if positions.ndim == 3 else positions
+    out = self_attention(cfg, q, k, v, pos1d, window)
+    return out @ p["wo"].to(out.dtype), (k, v)
+
+
+def _chunked_sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                  pos: Tensor, window: int, c: int) -> Tensor:
+    """A loop over query chunks of size c.  Static-window layers (cfg.window
+    > 0 uniformly) additionally slice keys to a (c + window) band.
+
+    attn_impl == "causal_sliced": chunk i's keys are sliced to the causal
+    prefix [0, (i+1)*c): attention FLOPs drop from S^2 to the triangle
+    S(S+c)/2, the paper's C1 insight in static shapes.
+    """
+    b, s, h, hd = q.shape
+    nc = s // c
+    band = (cfg.window > 0 and not cfg.global_layers
+            and not cfg.global_layer_stride and cfg.window + c < s)
+    kw = cfg.window + c if band else None
+    outs = []
+    for i in range(nc):
+        qi, pi = q[:, i * c:(i + 1) * c], pos[:, i * c:(i + 1) * c]
+        if cfg.attn_impl == "causal_sliced" and not band:
+            hi = (i + 1) * c
+            kk, vv, kp = k[:, :hi], v[:, :hi], pos[:, :hi].expand(b, hi)
+        elif band:
+            start = min(max(i * c - cfg.window, 0), s - kw)
+            kk, vv = k[:, start:start + kw], v[:, start:start + kw]
+            kp = (start + torch.arange(kw, device=q.device))[None, :] \
+                .expand(b, kw)
+        else:
+            kk, vv, kp = k, v, pos[:, :s].expand(b, s)
+        outs.append(sdpa(cfg, qi, kk, vv, q_pos=pi, k_pos=kp, window=window,
+                         causal=True))
+    return torch.cat(outs, dim=1).reshape(b, s, h * hd)
+
+
+def attention_decode(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
+                     positions: Optional[Tensor], window: int,
+                     k_cache: Tensor, v_cache: Tensor,
+                     cache_index: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """Single-token decode against a (B, Hkv, cap, hd) cache.
+
+    Full-attention layers use cap = max context (slot = position); SWA
+    layers use cap = window (ring buffer, slot = position % cap).  Either
+    way absolute slot positions are reconstructed in closed form, so masking
+    is uniform.  The caches are written in place (the reference donates
+    them) and returned.
+    """
+    b = x.shape[0]
+    cap = k_cache.shape[2]
+    q, k, v = _project_qkv(cfg, p, x, x)  # sq = 1
+    t = int(cache_index)  # number of tokens already cached
+    rope_pos = positions if (positions is not None and positions.ndim == 3) \
+        else torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+    q = apply_rope(cfg, q, rope_pos)
+    k = apply_rope(cfg, k, rope_pos)
+    slot = t % cap
+    k_cache[:, :, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, :, slot] = v[:, 0].to(v_cache.dtype)
+    # absolute position of each slot s given t+1 total tokens written:
+    #   p(s) = t - ((t - s) mod cap)   (newest written at slot t%cap holds t)
+    s_idx = torch.arange(cap, dtype=torch.int64, device=x.device)
+    slot_pos = t - torch.remainder(t - s_idx, cap)
+    valid = slot_pos >= 0
+    q_pos = torch.full((b, 1), t, dtype=torch.int64, device=x.device)
+    k_pos = slot_pos[None, :].expand(b, cap)
+    k_valid = valid[None, :].expand(b, cap)
+    kc = k_cache.transpose(1, 2)  # (B, cap, Hkv, hd)
+    vc = v_cache.transpose(1, 2)
+    out = sdpa(cfg, q, kc, vc, q_pos=q_pos, k_pos=k_pos, window=window,
+               causal=True, k_valid=k_valid)
+    return out @ p["wo"].to(out.dtype), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg: ModelConfig, device=None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dev = _device(gen, device)
+    p = {"w1": dense_init(gen, (d, f), dev),
+         "w2": dense_init(gen, (f, d), dev,
+                          scale=0.02 / max(cfg.n_layers, 1) ** 0.5)}
+    if cfg.activation == "swiglu":
+        p["w3"] = dense_init(gen, (d, f), dev)
+    return p
+
+
+def mlp_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor) -> Tensor:
+    h = x @ p["w1"].to(x.dtype)
+    if cfg.activation == "swiglu":
+        g = x @ p["w3"].to(x.dtype)
+        h = F.silu(h.float()).to(x.dtype) * g
+    elif cfg.activation == "squared_relu":
+        r = torch.clamp_min(h, 0)
+        h = r * r
+    elif cfg.activation == "gelu":
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown activation {cfg.activation}")
+    return h @ p["w2"].to(x.dtype)
+
+
+__all__ = [
+    "dense_init", "rms_norm", "apply_rope", "default_positions",
+    "init_attention", "attention_apply", "attention_decode", "sdpa",
+    "self_attention", "init_mlp", "mlp_apply",
+]

@@ -1,0 +1,63 @@
+"""Model registry: build a family-dispatched Model facade from a config.
+
+Port of ``repro/models/registry.py`` for the decoder-only dense, SSM and
+hybrid families.  MoE, encoder-decoder and embedding-input (VLM) configs
+raise ``NotImplementedError`` naming their ROADMAP slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.models import steps, transformer
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device=None) -> transformer.DecoderLM:
+        """Parameters drawn from `generator` (default: seed 0 on `device`,
+        itself "cuda" by default) onto its device."""
+        if generator is None:
+            generator = torch.Generator(
+                device=device if device is not None else "cuda")
+            generator.manual_seed(0)
+        return transformer.init_params(generator, self.cfg, device)
+
+    def init_shapes(self) -> transformer.DecoderLM:
+        """The parameters on the meta device: shapes, no allocation."""
+        return transformer.init_params(None, self.cfg, "meta")
+
+    def init_cache(self, batch: int, capacity: int, device=None):
+        return steps.init_cache(self.cfg, batch, capacity, device=device)
+
+    def forward(self, params, **kw):
+        return transformer.forward(self.cfg, params, **kw)
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.init_shapes().parameters())
+
+    def active_param_count(self) -> int:
+        """Params touched per token: all of them without MoE."""
+        return self.param_count()
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    cfg.validate()
+    for flag, slice_ in ((cfg.uses_moe, "part 2 (MoE)"),
+                         (cfg.enc_dec, "part 4 (encoder-decoder)"),
+                         (cfg.embed_inputs, "part 3 (the VLM: embedding "
+                                            "inputs, mrope streams)")):
+        if flag:
+            raise NotImplementedError(
+                f"{cfg.arch}: not ported yet, ROADMAP slice 12b {slice_}")
+    return Model(cfg)
+
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,303 @@
+"""Decoder-only LM trunk, with layers grouped into runs of equal window.
+
+Port of ``repro/models/transformer.py`` (MoE blocks and the sharding
+``policy=`` wait for later slices, ROADMAP A).  Layers are grouped into
+maximal *runs* of consecutive layers sharing an attention-window class (full
+vs SWA): hymba's {global, swa, ..., global} pattern yields 5 runs, uniform
+archs 1.  The parameters are ``nn.Module``s, one ``Block`` a layer; a loop
+over layers replaces the reference's ``lax.scan``.  Decode caches keep the
+reference's layout, one dict a run: ``k`` and ``v`` of shape (cnt, B, Hkv,
+cap, hd), SWA runs with window-bounded ring buffers, and the SSM state
+``ssm_h`` (cnt, B, d_inner, state) / ``conv`` (cnt, B, d_conv - 1,
+d_inner).  Decode writes them in place (the reference donates them).
+"""
+
+from __future__ import annotations
+
+from typing import List, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+
+
+def layer_runs(cfg: ModelConfig) -> Tuple[Tuple[int, int, int], ...]:
+    """Maximal runs of consecutive layers with equal window.
+    Returns ((window, start, count), ...)."""
+    ws = cfg.layer_windows() if cfg.family != "ssm" else (0,) * cfg.n_layers
+    runs: List[Tuple[int, int, int]] = []
+    for i, w in enumerate(ws):
+        if runs and runs[-1][0] == w:
+            w0, s0, c0 = runs[-1]
+            runs[-1] = (w0, s0, c0 + 1)
+        else:
+            runs.append((w, i, 1))
+    return tuple(runs)
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return cfg.family != "ssm"
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family == "ssm" or cfg.hybrid
+
+
+def _has_mlp(cfg: ModelConfig) -> bool:
+    return cfg.family != "ssm"
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def _frozen(t: Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _pdict(tensors: Mapping[str, Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(v) for k, v in tensors.items()})
+
+
+class Block(nn.Module):
+    """One decoder layer's parameters: ``ln1``, and ``attn`` / ``ssm`` /
+    ``ln2`` + ``mlp`` as the family has them, each sub-layer an
+    ``nn.ParameterDict`` under the reference's leaf names."""
+
+    def __init__(self, cfg: ModelConfig, tensors: Mapping):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _frozen(tensors["ln1"])
+        for name in ("attn", "ssm", "mlp"):
+            if name in tensors:
+                setattr(self, name, _pdict(tensors[name]))
+        if "ln2" in tensors:
+            self.ln2 = _frozen(tensors["ln2"])
+
+    def forward(self, x: Tensor, positions: Optional[Tensor], window: int,
+                return_cache: bool = False):
+        return block_apply(self.cfg, self, x, positions, window,
+                           return_cache)
+
+
+class DecoderLM(nn.Module):
+    """The whole decoder-only LM's parameters: ``embed`` (V, D), ``blocks``,
+    ``final_norm``, and ``lm_head`` (D, V) unless the embeddings are tied.
+    ``forward`` / ``decode`` below run it."""
+
+    def __init__(self, cfg: ModelConfig, tensors: Mapping):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _frozen(tensors["embed"])
+        self.blocks = nn.ModuleList(Block(cfg, t) for t in tensors["blocks"])
+        self.final_norm = _frozen(tensors["final_norm"])
+        if "lm_head" in tensors:
+            self.lm_head = _frozen(tensors["lm_head"])
+
+
+def init_block(gen, cfg: ModelConfig, device=None) -> dict:
+    dev = L._device(gen, device)
+    p: dict = {"ln1": torch.ones((cfg.d_model,), device=dev)}
+    if _has_attn(cfg):
+        p["attn"] = L.init_attention(gen, cfg, dev)
+    if _has_ssm(cfg):
+        p["ssm"] = S.init_ssm(gen, cfg, dev)
+    if _has_mlp(cfg):
+        p["ln2"] = torch.ones((cfg.d_model,), device=dev)
+        p["mlp"] = L.init_mlp(gen, cfg, dev)
+    return p
+
+
+def init_params(gen, cfg: ModelConfig, device=None) -> DecoderLM:
+    """Random parameters from the torch.Generator `gen` (on its device, or
+    `device`), or shapes only when `device` is "meta".  Not the reference's
+    jax.random draws: parity runs carry the reference's parameters over
+    (``convert.lm_params_from_reference``)."""
+    dev = L._device(gen, device)
+    tensors = {
+        "blocks": [init_block(gen, cfg, dev) for _ in range(cfg.n_layers)],
+        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dev),
+        "final_norm": torch.ones((cfg.d_model,), device=dev),
+    }
+    if not cfg.tie_embeddings:
+        tensors["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dev)
+    return DecoderLM(cfg, tensors)
+
+
+# ---------------------------------------------------------------------------
+# block application (single layer)
+# ---------------------------------------------------------------------------
+
+
+def block_apply(cfg: ModelConfig, p: Block, x: Tensor,
+                positions: Optional[Tensor], window: int,
+                return_cache: bool = False):
+    """One decoder layer, full-sequence.  Returns (x, aux, cache_piece|None).
+    cache_piece holds raw per-layer state: kv (B,S,Hkv,hd) and/or ssm state.
+    aux is the MoE loss, 0.0 here (MoE waits for a later slice)."""
+    aux = 0.0
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    delta = torch.zeros_like(x)
+    piece: dict = {}
+    if _has_attn(cfg):
+        attn_out, kv = L.attention_apply(cfg, p.attn, h, positions, window)
+        delta = delta + attn_out
+        if return_cache:
+            piece["k"], piece["v"] = kv
+    if _has_ssm(cfg):
+        ssm_out, (h_last, conv_tail) = S.ssm_apply(cfg, p.ssm, h)
+        delta = delta + ssm_out
+        if return_cache:
+            piece["ssm_h"], piece["conv"] = h_last, conv_tail
+    x = x + delta
+    if _has_mlp(cfg):
+        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+        x = x + L.mlp_apply(cfg, p.mlp, h2)
+    return x, aux, (piece if return_cache else None)
+
+
+def block_decode(cfg: ModelConfig, p: Block, x: Tensor, positions,
+                 window: int, block_cache: dict, cache_index: int):
+    """One decoder layer, single token.  Returns (x, new_block_cache)."""
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    delta = torch.zeros_like(x)
+    new_cache = dict(block_cache)
+    if _has_attn(cfg):
+        attn_out, k_c, v_c = L.attention_decode(
+            cfg, p.attn, h, positions, window,
+            block_cache["k"], block_cache["v"], cache_index)
+        new_cache["k"], new_cache["v"] = k_c, v_c
+        delta = delta + attn_out
+    if _has_ssm(cfg):
+        ssm_out, h_s, conv_c = S.ssm_decode(
+            cfg, p.ssm, h, block_cache["ssm_h"], block_cache["conv"])
+        new_cache["ssm_h"], new_cache["conv"] = h_s, conv_c
+        delta = delta + ssm_out
+    x = x + delta
+    if _has_mlp(cfg):
+        h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
+        x = x + L.mlp_apply(cfg, p.mlp, h2)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# trunk forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params: DecoderLM, *, tokens: Tensor,
+            positions: Optional[Tensor] = None,
+            cache_capacity: Optional[int] = None):
+    """Full-sequence forward of tokens (B, S).  Returns (hidden, aux,
+    caches).
+
+    `caches` is a per-run list of decode caches (or None) when
+    cache_capacity is given (prefill).  The returned hidden state is
+    post-final-norm; callers project to logits.  positions None means
+    0..S-1 (the only positions the card's flash route takes).  The
+    reference's `embeds=` input comes with the VLM (ROADMAP slice 12b).
+    """
+    # gathering rows, then casting: the bits of casting the whole table
+    x = params.embed[tokens].to(cfg.activation_dtype())
+    b, s = tokens.shape
+
+    total_aux = 0.0
+    caches = [] if cache_capacity is not None else None
+    for (w, start, cnt) in layer_runs(cfg):
+        run_cache = None
+        if caches is not None:
+            run_cache = _init_run_cache(cfg, w, cnt, b, cache_capacity,
+                                        x.device)
+            caches.append(run_cache)
+        for i in range(cnt):
+            x, a, piece = params.blocks[start + i](
+                x, positions, w, return_cache=run_cache is not None)
+            total_aux = total_aux + a
+            if run_cache is not None:
+                _prefill_cache(cfg, run_cache, i, piece, w, s)
+
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x, total_aux, caches
+
+
+def _prefill_cache(cfg: ModelConfig, cache: dict, i: int, piece: dict,
+                   window: int, s: int) -> None:
+    """Write layer i's prefill state into its run's decode cache: the last
+    min(s, cap) positions, at slot position % cap in an SWA ring, at slots
+    0.. in a full-context cache."""
+    if "k" in piece:
+        cap = cache["k"].shape[3]
+        take = min(s, cap)
+        slots = (torch.arange(s - take, s) % cap) if window > 0 else \
+            torch.arange(take)
+        slots = slots.to(cache["k"].device)
+        for name in ("k", "v"):  # (B, S, Hkv, hd) -> (B, Hkv, cap, hd)
+            src = piece[name][:, s - take:].transpose(1, 2)
+            cache[name][i].index_copy_(2, slots, src.to(cache[name].dtype))
+    if "ssm_h" in piece:
+        cache["ssm_h"][i] = piece["ssm_h"]
+        cache["conv"][i] = piece["conv"].to(cache["conv"].dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _init_run_cache(cfg: ModelConfig, w: int, cnt: int, batch: int,
+                    capacity: int, device) -> dict:
+    c: dict = {}
+    dt = cfg.activation_dtype()
+    if _has_attn(cfg):
+        cap = min(w, capacity) if w > 0 else capacity
+        shape = (cnt, batch, cfg.n_kv_heads, cap, cfg.hd)
+        c["k"] = torch.zeros(shape, dtype=dt, device=device)
+        c["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if _has_ssm(cfg):
+        c["ssm_h"] = torch.zeros((cnt, batch, cfg.d_inner, cfg.ssm_state),
+                                 device=device)
+        c["conv"] = torch.zeros((cnt, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=dt, device=device)
+    return c
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device=None) -> list:
+    """Zeroed per-run decode caches; SWA runs get window-sized ring buffers."""
+    return [_init_run_cache(cfg, w, cnt, batch, capacity, device)
+            for (w, start, cnt) in layer_runs(cfg)]
+
+
+def decode(cfg: ModelConfig, params: DecoderLM, cache: list, token: Tensor,
+           cache_index: int, positions: Optional[Tensor] = None):
+    """One decode step.  token (B, 1) -> (logits (B, 1, V), cache), the
+    cache written in place."""
+    x = params.embed[token].to(cfg.activation_dtype())
+    for run_idx, (w, start, cnt) in enumerate(layer_runs(cfg)):
+        run_cache = cache[run_idx]
+        for i in range(cnt):
+            bc = {name: t[i] for name, t in run_cache.items()}
+            x, nc = block_decode(cfg, params.blocks[start + i], x, positions,
+                                 w, bc, cache_index)
+            for name in ("ssm_h", "conv"):   # the rest was written in place
+                if name in nc:
+                    run_cache[name][i] = nc[name]
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return project_logits(cfg, params, x), cache
+
+
+def project_logits(cfg: ModelConfig, params: DecoderLM, x: Tensor) -> Tensor:
+    head = (params.embed.T if cfg.tie_embeddings
+            else params.lm_head).to(x.dtype)
+    return (x @ head).to(getattr(torch, cfg.logits_dtype))
+
+
+__all__ = ["layer_runs", "init_params", "init_block", "forward", "decode",
+           "init_cache", "project_logits", "block_apply", "block_decode",
+           "Block", "DecoderLM"]

@@ -1,0 +1,148 @@
+"""Shared runs of the LM parity tests (tests/test_torch_lm_*.py): one SMOKE
+config through the reference's jitted prefill and decode steps and through
+the port's, on the same parameters (the reference's, carried over by
+``convert.lm_params_from_reference``) and the same prompts (numpy seed 1).
+
+Each side runs once per (arch, dtype) in a test process: a prefill of
+PROMPT tokens for BATCH rows into caches of PROMPT + STEPS slots, then STEPS
+greedy decode steps fed the reference's tokens, so both sides see the same
+inputs at every step.  hymba SMOKE's window is 32 and its ssm_chunk 16:
+PROMPT = 48 crosses the window (the ring holds the last 32 positions) and
+three chunks, and the decode steps wrap the ring.
+
+Tolerances: float32 configs, every logit and cache tensor within 1e-5 of
+the reference's largest |value| of that tensor (TOL_F32: the same float32
+terms added in other orders, a few ulps after the layers); bf16 configs,
+every logit and cache element within the reference's own 2e-2
+(tests/test_models.py, TOL_BF16).  The greedy tokens agree wherever the
+reference's top-2 margin exceeds twice the tolerance.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import steps as ref_steps
+from repro.models.registry import build_model as ref_build_model
+from repro_torch.configs import get_config
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.models import steps
+
+PROMPT, BATCH, STEPS = 48, 2, 6
+TOL_F32 = 1e-5
+TOL_BF16 = 2e-2
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def configs(arch, dtype=None):
+    ref, port = ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    if dtype is not None:
+        ref = dataclasses.replace(ref, dtype=dtype)
+        port = dataclasses.replace(port, dtype=dtype)
+    return ref, port
+
+
+@functools.lru_cache(maxsize=None)
+def reference_run(arch, dtype=None):
+    """The reference's params (numpy), prompts, and per step (the prefill
+    first) the logits and caches as float32 numpy, the token fed next."""
+    rcfg, _ = configs(arch, dtype)
+    params = ref_build_model(rcfg).init(jax.random.PRNGKey(0))
+    toks = np.random.default_rng(1).integers(
+        0, rcfg.vocab, (BATCH, PROMPT)).astype(np.int32)
+    prefill = jax.jit(ref_steps.make_prefill_step(
+        rcfg, cache_capacity=PROMPT + STEPS))
+    decode = jax.jit(ref_steps.make_decode_step(rcfg))
+    logits, cache = prefill(params, tokens=jnp.asarray(toks))
+    runs = []
+    for t in range(STEPS + 1):
+        tok = np.asarray(jnp.argmax(logits[:, -1], -1)[:, None], np.int32)
+        runs.append({"logits": _np(logits),
+                     "cache": [{k: _np(v) for k, v in c.items()}
+                               for c in cache],
+                     "next": tok})
+        if t < STEPS:
+            logits, cache = decode(params, token=jnp.asarray(tok),
+                                   cache=cache,
+                                   cache_index=jnp.int32(PROMPT + t))
+    return jax.tree.map(np.asarray, params), toks, runs
+
+
+@functools.lru_cache(maxsize=None)
+def port_run(arch, dtype=None):
+    """The port's steps on the reference's params and inputs, as
+    reference_run gives them."""
+    _, cfg = configs(arch, dtype)
+    params, toks, ref_runs = reference_run(arch, dtype)
+    model = lm_params_from_reference(cfg, params, device="cpu")
+    prefill = steps.make_prefill_step(cfg, cache_capacity=PROMPT + STEPS)
+    decode = steps.make_decode_step(cfg)
+    logits, cache = prefill(model, tokens=torch.from_numpy(toks).long())
+    runs = []
+    for t in range(STEPS + 1):
+        runs.append({"logits": logits.float().numpy(),
+                     "cache": [{k: v.float().numpy().copy()
+                                for k, v in c.items()} for c in cache]})
+        if t < STEPS:
+            tok = torch.tensor(ref_runs[t]["next"], dtype=torch.long)
+            logits, cache = decode(model, token=tok, cache=cache,
+                                   cache_index=PROMPT + t)
+    return runs
+
+
+def within(want, got, rel=None, atol=None):
+    """max |got - want|, and whether it is within `rel` of max |want| or
+    `atol`."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    bound = rel * max(float(np.abs(want).max()), 1e-30) if rel else atol
+    return err, err <= bound
+
+
+def _check(want, got, dtype, what):
+    if dtype is None:
+        err, ok = within(want, got, rel=TOL_F32)
+    else:
+        err, ok = within(want, got, atol=TOL_BF16)
+    assert ok, f"{what}: max |port - reference| = {err:.3e}"
+
+
+def check_prefill(arch, dtype):
+    _, _, ref = reference_run(arch, dtype)
+    got = port_run(arch, dtype)
+    _check(ref[0]["logits"], got[0]["logits"], dtype, "prefill logits")
+    assert len(got[0]["cache"]) == len(ref[0]["cache"])
+    for i, (rc, pc) in enumerate(zip(ref[0]["cache"], got[0]["cache"])):
+        assert sorted(rc) == sorted(pc)
+        for name in rc:
+            _check(rc[name], pc[name], dtype,
+                   f"prefill cache run {i} {name}")
+
+
+def check_decode(arch, dtype):
+    _, _, ref = reference_run(arch, dtype)
+    got = port_run(arch, dtype)
+    tol = TOL_F32 if dtype is None else TOL_BF16
+    for t in range(1, STEPS + 1):
+        _check(ref[t]["logits"], got[t]["logits"], dtype,
+               f"decode step {t} logits")
+        for i, (rc, pc) in enumerate(zip(ref[t]["cache"], got[t]["cache"])):
+            for name in rc:
+                _check(rc[name], pc[name], dtype,
+                       f"decode step {t} cache run {i} {name}")
+    for t in range(STEPS + 1):
+        want = ref[t]["logits"][:, -1]
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        scale = np.abs(want).max() if dtype is None else 1.0
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * tol * scale
+        port_tok = got[t]["logits"][:, -1].argmax(-1)
+        np.testing.assert_array_equal(port_tok[clear],
+                                      ref[t]["next"][clear, 0])

@@ -2,7 +2,7 @@
 at its default small size in its own process, and keep their reference's
 assertions (module-recovery precision > 0.9, the planted pair the most
 significant, served answers bitwise standalone corr(), standing results
-matching a cold corr()).  Without ``--device cpu`` each one asks for the card."""
+matching a cold corr(), a decoded batch of the expected shape).  Without ``--device cpu`` each one asks for the card."""
 
 import os
 import subprocess
@@ -39,6 +39,9 @@ def _run(*args):
     ("torch_permutation_test.py", [], "OK"),
     ("torch_corr_server.py", [], "OK — served answers bit-identical"),
     ("torch_live_index.py", [], "OK — all standing results matched"),
+    # the LM side: hymba-1.5b's smoke config, prefill + greedy decode
+    ("torch_serve_lm.py", [],
+     "arch=hymba-1.5b-smoke batch=4 prefill(48 tok)="),
 ])
 def test_example_runs_on_cpu(script, extra, expect):
     out = _run(f"examples/{script}", "--device", "cpu", *extra)

@@ -1386,6 +1386,131 @@ def test_flash_on_card_never_runs_plain(cuda, monkeypatch):
                       blk=16)
 
 
+# -- the LM side's prefill attention on the flash kernel (models/layers.py) --
+
+def _lm_attention_inputs(cfg, s, device, dtype, seed=3):
+    """Rotated-attention inputs at a config's head shapes: q (1, S, H, hd),
+    k and v (1, S, Hkv, hd), standard normal."""
+    rng = np.random.default_rng(seed)
+    shapes = ((1, s, cfg.n_heads, cfg.hd), (1, s, cfg.n_kv_heads, cfg.hd),
+              (1, s, cfg.n_kv_heads, cfg.hd))
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(device=device, dtype=dtype) for sh in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,s", [(0, 80), (32, 80), (32, 29)])
+def test_lm_flash_route_matches_the_plain_route(cuda, dtype, window, s):
+    """hymba SMOKE's heads (H 4, Hkv 2, hd 32): the flash route (one launch,
+    blk dividing the window 32) against the reference's plain route on the
+    same rotated q, k, v."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers
+
+    cfg = get_config("hymba-1.5b", smoke=True)
+    q, k, v = _lm_attention_inputs(cfg, s, cuda, dtype)
+    name = str(dtype).removeprefix("torch.")
+    before = flash_attention.launches_by_dtype[name]
+    got = layers.self_attention(cfg, q, k, v, None, window)
+    assert flash_attention.launches_by_dtype[name] == before + 1
+    pos = torch.arange(s, device=cuda)[None, :]
+    want = layers._plain_route(cfg, q, k, v, pos, window)
+    assert got.shape == want.shape == (1, s, cfg.n_heads * cfg.hd)
+    assert got.dtype == dtype
+    b_, h_, hd_ = 1, cfg.n_heads, cfg.hd
+    g4, w4 = got.reshape(b_, s, h_, hd_), want.reshape(b_, s, h_, hd_)
+    if dtype == torch.float32:
+        torch.testing.assert_close(g4, w4, rtol=0, atol=2e-6)
+    else:
+        assert _narrow_gate_share(g4.transpose(1, 2),
+                                  w4.transpose(1, 2)) <= 1
+
+
+@pytest.mark.gpu
+def test_lm_explicit_positions_refused_on_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    q, k, v = _lm_attention_inputs(cfg, 16, cuda, torch.float32)
+    with pytest.raises(NotImplementedError, match="VLM"):
+        layers.self_attention(cfg, q, k, v,
+                              torch.arange(16, device=cuda)[None, :], 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [("hymba-1.5b", "float32"),
+                                        ("hymba-1.5b", "bfloat16"),
+                                        ("llama3.2-3b", "bfloat16")])
+def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
+                                                        arch, dtype):
+    """A SMOKE prefill (S = 48, across hymba's window 32) on the card: one
+    flash launch per attention layer, none of the plain route or the
+    wrapper's plain version; every layer's flash output against the plain
+    route on the same inputs (float32 within 2e-6, bf16 within the
+    row-scaled gate); the last logits against a prefill through the plain
+    route (float32 within 1e-4 of the largest |logit|, bf16 within the
+    reference's 2e-2), and one decode step launching no flash kernel."""
+    from repro_torch.configs import get_config, override
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models import layers, steps
+    from repro_torch.models.registry import build_model
+
+    cfg = override(get_config(arch, smoke=True), dtype=dtype)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 48))).to(cuda)
+    plain_route, flash_route = layers._plain_route, layers._flash_route
+    records = []
+
+    def recording(cfg_, q, k, v, window):
+        out = flash_route(cfg_, q, k, v, window)
+        records.append((q, k, v, window, out))
+        return out
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's prefill reached a plain version")
+
+    monkeypatch.setattr(layers, "_flash_route", recording)
+    monkeypatch.setattr(layers, "_plain_route", refuse)
+    monkeypatch.setattr(fmod, "flash_attention_plain", refuse)
+    before = dict(fmod.flash_attention.launches_by_dtype)
+    logits, cache = steps.make_prefill_step(cfg, cache_capacity=56)(
+        params, tokens=toks)
+    torch.cuda.synchronize()
+    after = dict(fmod.flash_attention.launches_by_dtype)
+    assert after[dtype] - before[dtype] == cfg.n_layers == len(records)
+    assert sum(after.values()) - sum(before.values()) == cfg.n_layers
+    assert [r[3] for r in records] == [w for w in cfg.layer_windows()]
+    steps.make_decode_step(cfg)(params, token=toks[:, -1:], cache=cache,
+                                cache_index=48)
+    assert dict(fmod.flash_attention.launches_by_dtype) == after
+    monkeypatch.setattr(layers, "_plain_route", plain_route)
+    pos = torch.arange(48, device=cuda)[None, :].expand(2, -1)
+    for q, k, v, window, out in records:
+        want = plain_route(cfg, q, k, v, pos, window)
+        g4 = out.reshape(2, 48, cfg.n_heads, cfg.hd).transpose(1, 2)
+        w4 = want.reshape(2, 48, cfg.n_heads, cfg.hd).transpose(1, 2)
+        if dtype == "float32":
+            torch.testing.assert_close(g4, w4, rtol=0, atol=2e-6)
+        else:
+            assert _narrow_gate_share(g4, w4) <= 1
+    monkeypatch.setattr(
+        layers, "_flash_route",
+        lambda cfg_, q, k, v, window: plain_route(cfg_, q, k, v, pos,
+                                                  window))
+    want, _ = steps.make_prefill_step(cfg, cache_capacity=56)(
+        params, tokens=toks)
+    err = float((logits - want).abs().max())
+    if dtype == "float32":
+        assert err <= 1e-4 * float(want.abs().max())
+    else:
+        assert err <= 2e-2
+
+
 # -- merge-sort Kendall (kernels/kendall_merge.py, csrc/kendall_merge.cu) ---
 
 def _kendall_rows(n, l, kind, seed):
