@@ -255,8 +255,22 @@ Phases, each fatal on failure:
      TOL_ATTN, the logits within TOL_LM_LOGITS_F32); (d) decode after a
      prefill of S - 1 against the full forward (float32 within the
      reference's 2e-2; bf16 against the float32 plain route); (e) llama at
-     32,768 tokens: ms, peak, launches.  A record row a window class of
-     each LM prefill (kernel, plain and library ms, bound, launches).
+     32,768 tokens: ms, peak, launches.  Then the MoE configs at full
+     width and cut depth (LM_MOE: qwen3-moe-30b-a3b at 24 of 48 layers,
+     mixtral-8x22b at 4 of 56): (a) as above, with the share of routed
+     assignments dropped in prefill and in decode at the config's
+     capacity factor; (b) one prompt of 4,096 (qwen3) or 8,192 tokens
+     (mixtral, past its window of 4,096): one bf16 flash launch a layer,
+     no plain call, none in decode, two prefills bitwise equal, ms, peak,
+     drops by layer (and of the same prompt in float32), and layer 1's
+     attention / MoE / expert weight cast ms; (c)
+     every layer's flash output against the plain route (bf16 gate); layer
+     0's routing on LM_MOE_ROUTE_TOKENS tokens on the card bitwise the
+     CPU's, its float32 output within TOL_MOE; (d) float32 at capacity
+     factor E / k (nothing drops): every layer within TOL_ATTN, decode
+     after a prefill of 1,023 against the full forward.  A record row a
+     window class of each LM prefill (kernel, plain and library ms, bound,
+     launches).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -505,6 +519,25 @@ LM_BF16_RATIO = 3.0
 # (c), ~20x): ~2e-4, under 1e-3.
 TOL_LM_LOGITS_F32 = 1e-3
 TOL_LM_DECODE = 2e-2
+# Phase 27, MoE (name, layers kept, (b) prompt): full width, depth cut to
+# fit one card with float32 parameters (the reference draws them float32
+# whatever param_dtype says: qwen3's 48 layers are 122 GB, mixtral's 56 are
+# 564 GB), ~62 GB and ~42 GB; mixtral's prompt runs past its window of
+# 4,096, so its layers take the band.  The routing check: one layer on
+# LM_MOE_ROUTE_TOKENS standard normal tokens (numpy seed 3), on the card
+# and on the CPU, the float32 outputs within TOL_MOE of the CPU's largest
+# |value| (the same float32 products summed in other orders, as the CPU
+# tests' 1e-5 against the reference).
+LM_MOE = (("qwen3-moe-30b-a3b", 24, 4_096), ("mixtral-8x22b", 4, 8_192))
+LM_MOE_ROUTE_TOKENS = 256
+TOL_MOE = 1e-5
+# Phase 27's float32 route check: each layer's flash output within
+# TOL_ATTN of the plain route's, or TOL_ATTN of the layer's largest |output|
+# where that exceeds 1 (the CPU tests' 1e-5 of the largest value).
+# TOL_ATTN was argued for standard normal v, |v| < 6 and outputs ~1; a
+# row's float32 sum over up to 1,024 keys errs in proportion to the v it
+# adds, and mixtral's v (d_model 6,144 at weight scale 0.02: sd ~1.6)
+# reach ~8 (absolute reading 1.454e-5 on an H100).
 
 
 def gpu_info() -> str:
@@ -2152,6 +2185,7 @@ def lm_runs(dev, tag, library_attn):
             k: 0 for k in flash_attention.launches_by_dtype}
         for k in calls:
             calls[k] = 0
+        routed.clear()
 
     def peak(fn):
         """fn()'s result, its host-clock ms to a synchronised card, and its
@@ -2179,8 +2213,10 @@ def lm_runs(dev, tag, library_attn):
 
     def route_check(cfg_, what):
         """Every recorded layer's flash output against the plain route on
-        its inputs: (max |flash - plain|, largest share of the bf16 gate or
-        None for float32)."""
+        its inputs: (max |flash - plain|, the largest share of the gate).
+        bf16: the row-scaled narrow gate.  float32: TOL_ATTN x max(1, the
+        layer's largest |output|), which is TOL_ATTN itself for a layer
+        whose outputs stay within 1."""
         err = share = 0.0
         for q, k, v, window, out in records:
             pos = torch.arange(q.shape[1], device=dev)[None, :].expand(
@@ -2190,7 +2226,10 @@ def lm_runs(dev, tag, library_attn):
             w4 = want.reshape(q.shape).transpose(1, 2).double()
             diff = (g4 - w4).abs()
             err = max(err, amax(diff))
-            if out.dtype != torch.float32:
+            if out.dtype == torch.float32:
+                share = max(share, amax(diff) / (
+                    TOL_ATTN * max(1.0, amax(w4.abs()))))
+            else:
                 rms = w4.square().mean(-1, keepdim=True).sqrt()
                 gate = torch.minimum(
                     NARROW_ULP["bfloat16"] * w4.abs()
@@ -2198,14 +2237,10 @@ def lm_runs(dev, tag, library_attn):
                     TOL_ATTN_NARROW * (1 + w4.abs()))
                 share = max(share, amax(diff / gate))
             del want, g4, w4, diff
-        if records[0][4].dtype == torch.float32:
-            if not err <= TOL_ATTN:
-                raise AssertionError(f"{what}: a layer's flash output is "
-                                     f"{err:.3e} from the plain route")
-            return err, None
         if not share <= 1:
-            raise AssertionError(f"{what}: a layer's flash output is outside "
-                                 f"the bf16 gate ({share:.3f} of it)")
+            raise AssertionError(f"{what}: a layer's flash output is "
+                                 f"{err:.3e} from the plain route, "
+                                 f"{share:.3f} of its gate")
         return err, share
 
     def flash_row(arch, q, k, v, window, launches, label):
@@ -2268,83 +2303,326 @@ def lm_runs(dev, tag, library_attn):
                                   label))
         return rows
 
+    moe_route = layers.moe_route
+    routed = []      # (assignments kept, assignments) a moe_route call
+
+    def recorded_route(cfg_, router, x, cap):
+        """moe_route, its keep mask kept on the card (read after the run:
+        no host sync inside a timed region)."""
+        res = moe_route(cfg_, router, x, cap)
+        routed.append(res[3])
+        return res
+
+    def dropped(calls_):
+        """The share of routed assignments dropped over `calls_`."""
+        kept = sum(int(c.sum()) for c in calls_)
+        return 1 - kept / max(sum(c.numel() for c in calls_), 1)
+
+    def by_layer(calls_):
+        return [round(dropped([c]), 4) for c in calls_]
+
+    def prefill_checked(arch, cfg_, params, toks, capacity):
+        """A prefill of `toks` into caches of `capacity` slots, every
+        layer's flash inputs recorded: one flash launch a layer in the
+        activations' dtype, no plain call, the layers' windows, finite
+        logits.  Returns (logits, caches, launches)."""
+        n_attn = cfg_.n_layers
+        dname = str(cfg_.activation_dtype()).removeprefix("torch.")
+        reset()
+        records.clear()
+        recording[0] = n_attn
+        logits, cache = steps.make_prefill_step(
+            cfg_, cache_capacity=capacity)(params, tokens=toks)
+        torch.cuda.synchronize()
+        recording[0] = 0
+        lb = dict(flash_attention.launches_by_dtype)
+        if lb[dname] != n_attn or sum(lb.values()) != n_attn or \
+                any(calls.values()) or len(records) != n_attn:
+            raise AssertionError(f"{arch} {dname} prefill {toks.shape[1]}: "
+                                 f"flash launches {lb}, plain calls {calls}")
+        if [r[3] for r in records] != list(cfg_.layer_windows()):
+            raise AssertionError(f"{arch}: the layers' windows reached the "
+                                 f"kernel wrong")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: non-finite prefill logits")
+        return logits, cache, lb
+
+    def decode_checked(arch, cfg_, params, toks, cache):
+        """One decode step after the prefill of `toks`: it launches no
+        flash kernel and gives finite logits."""
+        before = dict(flash_attention.launches_by_dtype)
+        step_logits, _ = steps.make_decode_step(cfg_)(
+            params, token=toks[:, -1:], cache=cache,
+            cache_index=toks.shape[1])
+        torch.cuda.synchronize()
+        if dict(flash_attention.launches_by_dtype) != before or \
+                not bool(torch.isfinite(step_logits).all()):
+            raise AssertionError(f"{arch}: decode launched the flash kernel "
+                                 f"or gave non-finite logits")
+
+    def decode_vs_forward(cfg_, params, toks, logits):
+        """max |last logits of decode after a prefill of S - 1 - the full
+        forward's `logits`|."""
+        _, cache = steps.make_prefill_step(
+            cfg_, cache_capacity=toks.shape[1] + LM_GEN)(
+                params, tokens=toks[:, :-1])
+        step_logits, _ = steps.make_decode_step(cfg_)(
+            params, token=toks[:, -1:], cache=cache,
+            cache_index=toks.shape[1] - 1)
+        return amax((step_logits - logits).abs())
+
+    def draw(cfg_):
+        """Parameters from torch.Generator seed 0 on the card: (params,
+        their count and GB, seconds)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = build_model(cfg_).init(
+            torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        return params, {
+            "params": sum(p.numel() for p in params.parameters()),
+            "params_gb": (torch.cuda.memory_allocated() - base) / 1e9}, \
+            time.perf_counter() - t0
+
+    def serve_checked(arch, cfg_, params):
+        """(a) serve() at its defaults after a warm-up run: exactly one bf16
+        flash launch a layer in its prefill, none in decode, no plain
+        version, tokens of the right shape, finite logits.  Returns (its
+        numbers, the launches, the result)."""
+        n_attn = cfg_.n_layers
+        serve(cfg_, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT, gen=LM_GEN,
+              device=dev, params=params)   # warm-up
+        reset()
+        sv, _, sv_peak = peak(lambda: serve(
+            cfg_, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT, gen=LM_GEN,
+            device=dev, params=params))
+        lb = dict(flash_attention.launches_by_dtype)
+        if lb["bfloat16"] != n_attn or sum(lb.values()) != n_attn or \
+                any(calls.values()):
+            raise AssertionError(f"{arch} serve: flash launches {lb}, plain "
+                                 f"calls {calls}: want {n_attn} bf16 "
+                                 f"launches (its prefill), none in decode, "
+                                 f"no plain version")
+        if tuple(sv["tokens"].shape) != (LM_BATCH, LM_GEN) or \
+                not bool(torch.isfinite(sv["first_logits"]).all()):
+            raise AssertionError(f"{arch} serve: bad output")
+        return {"prefill_ms": sv["prefill_s"] * 1e3,
+                "decode_ms_per_step": sv["decode_s"] * 1e3 / (LM_GEN - 1),
+                "tok_s": sv["tok_s"], "peak_gb": sv_peak}, lb, sv
+
+    def moe_arch(arch, n_layers, prompt):
+        """Phase 27 for a MoE config at full width and `n_layers` layers:
+        serve, a prefill of `prompt` tokens (launches, windows, the route
+        gates, bitwise repeat, ms, one layer's parts), the full-width
+        routing on the card against the CPU, drop shares, decode against
+        the full forward in float32 where nothing drops.  Returns its flash
+        rows and numbers."""
+        cfg = override(get_config(arch), n_layers=n_layers)
+        mrows = []
+        params, res, draw_s = draw(cfg)
+        print(f"  {arch} FULL width, {n_layers} of "
+              f"{get_config(arch).n_layers} layers: d_model {cfg.d_model}, "
+              f"H {cfg.n_heads}, Hkv {cfg.n_kv_heads}, hd {cfg.hd}, "
+              f"windows {sorted(set(cfg.layer_windows()))}, {cfg.n_experts}"
+              f" experts of d_ff {cfg.moe_d_ff}, top-{cfg.top_k}, capacity "
+              f"factor {cfg.capacity_factor:g}, {cfg.moe_impl}; "
+              f"{res['params']:,} parameters, {res['params_gb']:.3f} GB "
+              f"float32 drawn in {draw_s:.1f} s; {cfg.dtype} activations "
+              f"{tag}")
+
+        # (a) the entry point's defaults, drop shares at the config's factor
+        res["serve"], lb, sv = serve_checked(arch, cfg, params)
+        if len(routed) != n_layers * LM_GEN:
+            raise AssertionError(f"{arch} serve: {len(routed)} MoE calls")
+        drop_pre, drop_dec = dropped(routed[:n_layers]), \
+            dropped(routed[n_layers:])
+        res["serve"].update(dropped_prefill=drop_pre,
+                            dropped_decode=drop_dec)
+        print(f"  (a) launch.serve batch {LM_BATCH}, prompt "
+              f"{LM_SERVE_PROMPT}, gen {LM_GEN} (after a warm-up run): "
+              f"{summary(sv)}; prefill {sv['prefill_s'] * 1e3:.3f} ms, "
+              f"decode {res['serve']['decode_ms_per_step']:.3f} ms a step, "
+              f"{sv['tok_s']:.1f} tok/s; flash launches {lb}; assignments "
+              f"dropped at capacity factor {cfg.capacity_factor:g}: prefill "
+              f"{drop_pre:.4f} (capacity "
+              f"{layers.moe_capacity(cfg, LM_BATCH * LM_SERVE_PROMPT)}), "
+              f"decode {drop_dec:.4f} (capacity "
+              f"{layers.moe_capacity(cfg, LM_BATCH)}); peak "
+              f"{res['serve']['peak_gb']:.3f} GB above held {tag}")
+
+        # (b) one prompt: launches, windows, bitwise repeat, ms
+        g = torch.Generator(device=dev).manual_seed(2)
+        toks = torch.randint(0, cfg.vocab, (1, prompt), generator=g,
+                             device=dev)
+        logits_f, cache, lb = prefill_checked(arch, cfg, params, toks,
+                                              prompt + LM_GEN)
+        drop_b, drop_layers = dropped(routed), by_layer(routed)
+        prefill = steps.make_prefill_step(cfg,
+                                          cache_capacity=prompt + LM_GEN)
+        logits_2, cache_2 = prefill(params, tokens=toks)
+        same = torch.equal(logits_f, logits_2) and all(
+            torch.equal(c1[n], c2[n]) for c1, c2 in zip(cache, cache_2)
+            for n in c1)
+        del logits_2, cache_2
+        if not same:
+            raise AssertionError(f"{arch}: two prefills on the card differ")
+        decode_checked(arch, cfg, params, toks, cache)
+        del cache
+        pre_ms, pre_all, pb = timed(lambda: prefill(params, tokens=toks), 3)
+        res["prefill"] = {"tokens": prompt, "ms": pre_ms, "runs": pre_all,
+                          "peak_gb": pb, "launches": lb["bfloat16"],
+                          "dropped": drop_b, "dropped_by_layer": drop_layers,
+                          "bitwise_repeat": same}
+        print(f"  (b) prefill batch 1, prompt {prompt}: {pre_ms:.3f} ms "
+              f"(runs {[round(t, 3) for t in pre_all]}), flash launches "
+              f"{lb} (one a layer), plain calls {calls}, a decode step "
+              f"launches no flash kernel; two prefills give the same bits "
+              f"(logits and caches); assignments dropped {drop_b:.4f} "
+              f"(capacity {layers.moe_capacity(cfg, prompt)}; by layer "
+              f"{drop_layers}); peak {pb:.3f} GB above held {tag}")
+        mrows += class_rows(arch, cfg, prompt)
+        err_l, share_l = route_check(cfg, f"{arch} bf16")
+        # the same prompt in float32 at the config's own capacity factor:
+        # are the drops the bf16 activations'?
+        prefill_checked(arch, override(cfg, dtype="float32"), params, toks,
+                        prompt)
+        records.clear()
+        res["prefill"].update(dropped_f32=dropped(routed),
+                              dropped_f32_by_layer=by_layer(routed))
+        print(f"  (b) the same prompt in float32 (capacity factor "
+              f"{cfg.capacity_factor:g}): assignments dropped "
+              f"{res['prefill']['dropped_f32']:.4f}; by layer "
+              f"{res['prefill']['dropped_f32_by_layer']} {tag}")
+        res["route_bf16"] = {"layer_err": err_l, "layer_share": share_l}
+        print(f"  (c) bf16, every layer's flash output vs the plain route on "
+              f"its inputs: max|diff| {err_l:.3e}, {share_l:.3f} of the "
+              f"row-scaled gate {tag}")
+        # where one layer's prefill time goes: layer 1 on a normed
+        # embedding of the prompt
+        blk = params.blocks[1]
+        h = layers.rms_norm(params.embed[toks].to(cfg.activation_dtype()),
+                            blk.ln1, cfg.norm_eps)
+        w1 = cfg.layer_window(1)
+        cap_b = layers.moe_capacity(cfg, prompt)
+        xe = torch.zeros((cfg.n_experts, cap_b, cfg.d_model),
+                         dtype=h.dtype, device=dev)
+        parts = {"attention": lambda: layers.attention_apply(
+            cfg, blk.attn, h, None, w1),
+            "moe": lambda: layers.moe_apply(cfg, blk.moe, h),
+            "routing": lambda: moe_route(cfg, blk.moe["router"], h, cap_b),
+            "expert FFN": lambda: layers._expert_ffn(cfg, blk.moe, xe),
+            "expert weight casts": lambda: [
+                blk.moe[w].to(h.dtype) for w in ("w1", "w2", "w3")]}
+        res["layer_ms"] = {k: event_ms(fn, 3)[0] for k, fn in parts.items()}
+        del h, xe
+        print(f"    one layer at prompt {prompt} (layer 1), CUDA events: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                          res["layer_ms"].items())
+              + f" (the MoE holds routing, dispatch, the expert FFN with its "
+              f"weight casts and the combine; x {n_layers} layers) {tag}")
+
+        # the routing of one full-width MoE layer, card against CPU
+        blk = params.blocks[0]
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (1, LM_MOE_ROUTE_TOKENS, cfg.d_model)).astype(np.float32))
+        p_cpu = {k: v.cpu() for k, v in blk.moe.items()}
+        cap = layers.moe_capacity(cfg, LM_MOE_ROUTE_TOKENS)
+        r_cpu = moe_route(cfg, p_cpu["router"], x, cap)
+        r_dev = moe_route(cfg, blk.moe["router"], x.to(dev), cap)
+        route_same = {n: torch.equal(r_dev[i].cpu(), r_cpu[i]) for i, n in
+                      ((0, "dest"), (1, "st"), (3, "keep"), (5, "flat_e"))}
+        top = torch.sort(r_cpu[4], dim=-1, descending=True).values
+        margin = amax(-(top[..., cfg.top_k - 1] - top[..., cfg.top_k]))
+        cfg32 = override(cfg, dtype="float32")
+        t1 = time.perf_counter()
+        o_cpu, _ = layers.moe_apply(cfg32, p_cpu, x)
+        cpu_s = time.perf_counter() - t1
+        o_dev, _ = layers.moe_apply(cfg32, blk.moe, x.to(dev))
+        err_r = amax((o_dev.cpu() - o_cpu).abs())
+        scale_r = amax(o_cpu.abs())
+        del p_cpu, o_cpu, o_dev
+        res["routing_vs_cpu"] = {"tokens": LM_MOE_ROUTE_TOKENS,
+                                 "capacity": cap, "bitwise": route_same,
+                                 "kept": int(r_cpu[3].sum()),
+                                 "min_kth_gap": -margin,
+                                 "out_err": err_r, "out_max": scale_r}
+        print(f"  routing of layer 0 at full width on {LM_MOE_ROUTE_TOKENS} "
+              f"tokens (capacity {cap}), card vs CPU: bitwise {route_same}; "
+              f"{int(r_cpu[3].sum())} of {r_cpu[3].numel()} assignments "
+              f"kept; smallest gap of the k-th to the next probability "
+              f"{-margin:.3e}; float32 output max|card - CPU| {err_r:.3e} "
+              f"(tol {TOL_MOE:g} of {scale_r:.3e}; the CPU took {cpu_s:.1f}"
+              f" s) {tag}")
+        if not all(route_same.values()):
+            raise AssertionError(f"{arch}: the card routes otherwise than "
+                                 f"the CPU: {route_same}")
+        if not err_r <= TOL_MOE * scale_r:
+            raise AssertionError(f"{arch}: the MoE layer's float32 output "
+                                 f"on the card is {err_r:.3e} from the CPU")
+
+        # (d) float32, nothing dropped: decode against the full forward
+        cfg32 = override(cfg, dtype="float32",
+                         capacity_factor=cfg.n_experts / cfg.top_k)
+        t32 = toks[:, :LM_F32_PROMPT]
+        logits32, _, _ = prefill_checked(arch, cfg32, params, t32,
+                                         LM_F32_PROMPT + LM_GEN)
+        err32_l, share32 = route_check(cfg32, f"{arch} float32")
+        mrows += class_rows(arch, cfg32, LM_F32_PROMPT)
+        records.clear()
+        err32_d = decode_vs_forward(cfg32, params, t32, logits32)
+        drop32 = dropped(routed)
+        del logits32
+        res["f32"] = {"layer_err": err32_l, "layer_share": share32,
+                      "decode_vs_forward": err32_d, "dropped": drop32}
+        print(f"  (d) float32 at capacity factor E / k = "
+              f"{cfg32.capacity_factor:g}, prompt {LM_F32_PROMPT}: every "
+              f"layer's flash output vs the plain route max|diff| "
+              f"{err32_l:.3e}, {share32:.3f} of the gate (TOL_ATTN x "
+              f"max(1, the layer's max |output|)); decode after a prefill of "
+              f"{LM_F32_PROMPT - 1} vs the full forward's last logits "
+              f"{err32_d:.3e} (tol {TOL_LM_DECODE:g}); assignments dropped "
+              f"{drop32:.4f} {tag}")
+        if drop32 != 0 or not err32_d <= TOL_LM_DECODE:
+            raise AssertionError(f"{arch}: decode disagrees with the full "
+                                 f"forward, or assignments dropped")
+        del params, logits_f
+        torch.cuda.empty_cache()
+        return mrows, res
+
     rows, out = [], {}
     layers._flash_route = recorded_flash_route
     layers._plain_route = counted_plain_route
+    layers.moe_route = recorded_route
     fmod.flash_attention_plain = counted_flash_plain
     try:
         for arch in LM_ARCHS:
             cfg = get_config(arch)
-            res = {}
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
-            params = build_model(cfg).init(
-                torch.Generator(device=dev).manual_seed(0), device=dev)
-            torch.cuda.synchronize()
-            n_params = sum(p.numel() for p in params.parameters())
-            res["params"] = n_params
-            res["params_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+            params, res, draw_s = draw(cfg)
             print(f"  {arch} FULL: {cfg.n_layers} layers, d_model "
                   f"{cfg.d_model}, H {cfg.n_heads}, Hkv {cfg.n_kv_heads}, "
                   f"hd {cfg.hd}, windows {sorted(set(cfg.layer_windows()))}"
-                  f"; {n_params:,} parameters, {res['params_gb']:.3f} GB "
-                  f"float32 drawn in {time.perf_counter() - t0:.1f} s; "
-                  f"{cfg.dtype} activations {tag}")
+                  f"; {res['params']:,} parameters, {res['params_gb']:.3f} "
+                  f"GB float32 drawn in {draw_s:.1f} s; {cfg.dtype} "
+                  f"activations {tag}")
             n_attn = cfg.n_layers
 
             # (a) the entry point's defaults
-            serve(cfg, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT,
-                  gen=LM_GEN, device=dev, params=params)   # warm-up
-            reset()
-            sv, _, sv_peak = peak(lambda: serve(
-                cfg, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT, gen=LM_GEN,
-                device=dev, params=params))
-            lb = dict(flash_attention.launches_by_dtype)
-            if lb["bfloat16"] != n_attn or sum(lb.values()) != n_attn or \
-                    any(calls.values()):
-                raise AssertionError(f"{arch} serve: flash launches {lb}, "
-                                     f"plain calls {calls}: want {n_attn} "
-                                     f"bf16 launches (its prefill), none "
-                                     f"in decode, no plain version")
-            if tuple(sv["tokens"].shape) != (LM_BATCH, LM_GEN) or \
-                    not bool(torch.isfinite(sv["first_logits"]).all()):
-                raise AssertionError(f"{arch} serve: bad output")
-            res["serve"] = {"prefill_ms": sv["prefill_s"] * 1e3,
-                            "decode_ms_per_step": sv["decode_s"] * 1e3
-                            / (LM_GEN - 1), "tok_s": sv["tok_s"],
-                            "peak_gb": sv_peak}
+            res["serve"], lb, sv = serve_checked(arch, cfg, params)
             print(f"  (a) launch.serve batch {LM_BATCH}, prompt "
                   f"{LM_SERVE_PROMPT}, gen {LM_GEN} (after a warm-up run): "
                   f"{summary(sv)}; prefill {sv['prefill_s'] * 1e3:.3f} ms, "
                   f"decode {res['serve']['decode_ms_per_step']:.3f} ms a "
                   f"step, {sv['tok_s']:.1f} tok/s; flash launches {lb}; "
-                  f"peak {sv_peak:.3f} GB above held {tag}")
+                  f"peak {res['serve']['peak_gb']:.3f} GB above held {tag}")
 
             # (b) the windowed prefill at LM_PROMPT tokens
             g = torch.Generator(device=dev).manual_seed(2)
             toks = torch.randint(0, cfg.vocab, (1, LM_PROMPT), generator=g,
                                  device=dev)
-            prefill = steps.make_prefill_step(
-                cfg, cache_capacity=LM_PROMPT + LM_GEN)
-            decode = steps.make_decode_step(cfg)
-            reset()
-            records.clear()
-            recording[0] = n_attn
-            logits_f, cache = prefill(params, tokens=toks)
-            torch.cuda.synchronize()
-            recording[0] = 0
-            lb = dict(flash_attention.launches_by_dtype)
-            if lb["bfloat16"] != n_attn or sum(lb.values()) != n_attn or \
-                    any(calls.values()) or len(records) != n_attn:
-                raise AssertionError(f"{arch} prefill {LM_PROMPT}: flash "
-                                     f"launches {lb}, plain calls {calls}")
-            if [r[3] for r in records] != list(cfg.layer_windows()):
-                raise AssertionError(f"{arch}: the layers' windows reached "
-                                     f"the kernel wrong")
-            if not bool(torch.isfinite(logits_f).all()):
-                raise AssertionError(f"{arch}: non-finite prefill logits")
+            logits_f, cache, lb = prefill_checked(arch, cfg, params, toks,
+                                                  LM_PROMPT + LM_GEN)
             # the cache holds the prompt's last positions at slot p % cap
             for run_idx, (w, start, cnt) in enumerate(layer_runs(cfg)):
                 k_rec = records[start][1]                  # (1, S, Hkv, hd)
@@ -2359,15 +2637,10 @@ def lm_runs(dev, tag, library_attn):
                     raise AssertionError(f"{arch} run {run_idx}: the cache "
                                          f"does not hold the prompt's last "
                                          f"{take} keys at their slots")
-            before = dict(flash_attention.launches_by_dtype)
-            step_logits, _ = decode(params, token=toks[:, -1:], cache=cache,
-                                    cache_index=LM_PROMPT)
-            torch.cuda.synchronize()
-            if dict(flash_attention.launches_by_dtype) != before or \
-                    not bool(torch.isfinite(step_logits).all()):
-                raise AssertionError(f"{arch}: decode launched the flash "
-                                     f"kernel or gave non-finite logits")
-            del cache, step_logits
+            decode_checked(arch, cfg, params, toks, cache)
+            del cache
+            prefill = steps.make_prefill_step(
+                cfg, cache_capacity=LM_PROMPT + LM_GEN)
             pre_ms, pre_all, pb = timed(lambda: prefill(params, tokens=toks),
                                         3)
             res["prefill_4k"] = {"ms": pre_ms, "runs": pre_all,
@@ -2418,8 +2691,8 @@ def lm_runs(dev, tag, library_attn):
             # (d) decode consistency at full width, bf16
             _, cache_d = prefill(params, tokens=toks[:, :-1])
             before = dict(flash_attention.launches_by_dtype)
-            (logits_d, _), _, pd_gb = peak(lambda: decode(
-                params, token=toks[:, -1:], cache=cache_d,
+            (logits_d, _), _, pd_gb = peak(lambda: steps.make_decode_step(
+                cfg)(params, token=toks[:, -1:], cache=cache_d,
                 cache_index=LM_PROMPT - 1))
             if dict(flash_attention.launches_by_dtype) != before:
                 raise AssertionError(f"{arch}: decode launched flash")
@@ -2455,37 +2728,26 @@ def lm_runs(dev, tag, library_attn):
 
             # (c) and (d) in float32 at LM_F32_PROMPT
             t32 = toks[:, :LM_F32_PROMPT]
-            prefill32 = steps.make_prefill_step(
-                cfg32, cache_capacity=LM_F32_PROMPT + LM_GEN)
-            reset()
-            recording[0] = n_attn
-            logits32, _ = prefill32(params, tokens=t32)
-            recording[0] = 0
-            lb32 = dict(flash_attention.launches_by_dtype)
-            if lb32["float32"] != n_attn or sum(lb32.values()) != n_attn or \
-                    any(calls.values()):
-                raise AssertionError(f"{arch} float32 prefill: flash "
-                                     f"launches {lb32}, plain calls {calls}")
-            err32_l, _ = route_check(cfg32, f"{arch} float32")
+            logits32, _, _ = prefill_checked(arch, cfg32, params, t32,
+                                             LM_F32_PROMPT + LM_GEN)
+            err32_l, share32 = route_check(cfg32, f"{arch} float32")
             rows += class_rows(arch, cfg32, LM_F32_PROMPT)
             records.clear()
             layers._flash_route = plain_instead
-            logits32_p, _ = prefill32(params, tokens=t32)
+            logits32_p, _ = steps.make_prefill_step(cfg32)(params,
+                                                           tokens=t32)
             layers._flash_route = recorded_flash_route
             scale32 = amax(logits32_p.abs())
             err32_c = amax((logits32 - logits32_p).abs())
-            _, cache32 = prefill32(params, tokens=t32[:, :-1])
-            logits32_d, _ = steps.make_decode_step(cfg32)(
-                params, token=t32[:, -1:], cache=cache32,
-                cache_index=LM_F32_PROMPT - 1)
-            err32_d = amax((logits32_d - logits32).abs())
-            del cache32, logits32_d, logits32_p, logits32
-            res["route_f32"] = {"layer_err": err32_l, "logits_err": err32_c,
-                                "logits_max": scale32,
+            err32_d = decode_vs_forward(cfg32, params, t32, logits32)
+            del logits32_p, logits32
+            res["route_f32"] = {"layer_err": err32_l, "layer_share": share32,
+                                "logits_err": err32_c, "logits_max": scale32,
                                 "decode_vs_forward": err32_d}
             print(f"  (c) float32 at prompt {LM_F32_PROMPT}: every layer's "
                   f"flash output vs the plain route: max|diff| "
-                  f"{err32_l:.3e} (tol {TOL_ATTN:g}); last-token logits "
+                  f"{err32_l:.3e}, {share32:.3f} of the gate (TOL_ATTN x "
+                  f"max(1, the layer's max |output|)); last-token logits "
                   f"flash vs plain route: max|diff| {err32_c:.3e} (max "
                   f"|logit| {scale32:.3e}; tol {TOL_LM_LOGITS_F32:g} of "
                   f"it) {tag}")
@@ -2532,8 +2794,12 @@ def lm_runs(dev, tag, library_attn):
             out[arch] = res
             del params, logits_f
             torch.cuda.empty_cache()
+        for arch, n_layers, prompt in LM_MOE:
+            mrows, out[arch] = moe_arch(arch, n_layers, prompt)
+            rows += mrows
     finally:
         layers._flash_route, layers._plain_route = flash_route, plain_route
+        layers.moe_route = moe_route
         fmod.flash_attention_plain = flash_attention_plain
         records.clear()
     out["seconds"] = time.perf_counter() - t_phase
@@ -5376,7 +5642,8 @@ def main(argv) -> int:
     # -- 27. LM serving at full width ------------------------------------------
     torch.cuda.empty_cache()
     print(f"LM serving (launch.serve, prefill on the flash kernel) at full "
-          f"width: {', '.join(LM_ARCHS)} {tag}:")
+          f"width: {', '.join(LM_ARCHS + tuple(m[0] for m in LM_MOE))} "
+          f"{tag}:")
     lm_rows, lm_out = lm_runs(dev, tag, library_attn)
     print(json.dumps({"lm": lm_out}))
 

@@ -22,11 +22,11 @@ ARCHS: Dict[str, str] = {
     "chatglm3-6b": "chatglm3_6b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "hymba-1.5b": "hymba_1_5b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 # arch id -> the ROADMAP slice that ports what it needs
 LATER: Dict[str, str] = {
-    "qwen3-moe-30b-a3b": "slice 12b part 2 (MoE)",
-    "mixtral-8x22b": "slice 12b part 2 (MoE)",
     "qwen2-vl-72b": "slice 12b part 3 (the VLM: mrope inputs, "
                     "embed_inputs)",
     "seamless-m4t-medium": "slice 12b part 4 (encoder-decoder)",

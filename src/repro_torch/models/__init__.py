@@ -1,13 +1,13 @@
 """The LM side of the port: decoder-only prefill and decode.
 
   config.py       ModelConfig + shape cells
-  layers.py       norms / RoPE variants / GQA+SWA attention / MLPs
+  layers.py       norms / RoPE variants / GQA+SWA attention / MLPs / MoE
   ssm.py          mamba-1 chunked selective scan + O(1) decode
   transformer.py  decoder-only trunk (run-grouped loop over layers)
   steps.py        prefill / decode step builders
   registry.py     build_model(cfg) facade
 
-Port of ``repro/models`` for the dense, SSM and hybrid families; MoE, the
+Port of ``repro/models`` for the dense, MoE, SSM and hybrid families; the
 VLM, encoder-decoder, sharding and training are later slices (ROADMAP A).
 """
 

@@ -1,7 +1,8 @@
-"""Model building blocks: norms, RoPE, GQA / sliding-window attention, MLPs.
+"""Model building blocks: norms, RoPE, GQA / sliding-window attention, MLPs,
+sort-based capacity-routed MoE.
 
-Port of ``repro/models/layers.py`` (MoE and cross-attention wait for later
-slices, ROADMAP A).  The same convention:
+Port of ``repro/models/layers.py`` (cross-attention waits for a later
+slice, ROADMAP A).  The same convention:
   init_*(gen, cfg, device) -> param dict for ONE layer
   *_apply(cfg, p, x, ...) -> output(s)
 where ``p`` is any mapping of names to tensors (a dict, or the
@@ -16,7 +17,8 @@ port does: on a CUDA tensor it runs the hand-written flash kernel
 (``kernels.ops.flash_mha``), which raises if it cannot build or launch; on
 a CPU tensor it runs the reference's plain ``sdpa`` / ``_chunked_sdpa``.
 Decode attention (one query against a ring buffer) is plain tensor code on
-both devices, as in the reference.
+both devices, as in the reference.  So is the MoE layer: the reference
+routes, dispatches and combines in plain XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -372,8 +374,143 @@ def mlp_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor) -> Tensor:
     return h @ p["w2"].to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# MoE (sort-based capacity routing; no one-hot dispatch einsum)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen, cfg: ModelConfig, device=None) -> dict:
+    d, fm, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dev = _device(gen, device)
+    p = {"router": dense_init(gen, (d, e), dev),
+         "w1": dense_init(gen, (e, d, fm), dev),
+         "w2": dense_init(gen, (e, fm, d), dev,
+                          scale=0.02 / max(cfg.n_layers, 1) ** 0.5)}
+    if cfg.activation == "swiglu":
+        p["w3"] = dense_init(gen, (e, d, fm), dev)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots an expert has for a routing group of `tokens` tokens, in the
+    reference's Python arithmetic."""
+    return max(1, int(cfg.capacity_factor * tokens * cfg.top_k
+                      / cfg.n_experts))
+
+
+def moe_route(cfg: ModelConfig, router: Tensor, x: Tensor, cap: int):
+    """Token-choice top-k routing of R independent groups of N tokens,
+    x (R, N, D), into `cap` slots an expert.  Returns
+      dest (R, N*k)   buffer row of each sorted assignment, E*cap if dropped
+      st, sw (R, N*k) its token and normalised weight
+      keep (R, N*k)   whether it got a slot
+      probs (R, N, E) the router's softmax (float32)
+      flat_e (R, N*k) the chosen experts in token order.
+    The reference's route_one: the router logits are a float32 product;
+    the k largest probabilities by a stable descending sort (jax.lax.top_k's
+    rule: the lower expert first on equal values); assignments stably
+    sorted by expert; an assignment's slot is its rank in its expert's run
+    (searchsorted, left); over-capacity ones go to the scratch row E*cap.
+    Indices are int64 (the reference's int32 values)."""
+    r, n, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :k], top_i[..., :k]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_i.reshape(r, n * k)
+    flat_t = torch.arange(n, device=x.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    st = flat_t[order]
+    sw = torch.gather(top_p.reshape(r, n * k), 1, order)
+    experts = torch.arange(e, device=x.device).expand(r, e).contiguous()
+    group_start = torch.searchsorted(se, experts, side="left")
+    pos = torch.arange(n * k, device=x.device) \
+        - torch.gather(group_start, 1, se)
+    keep = pos < cap
+    dest = torch.where(keep, se * cap + pos, e * cap)
+    return dest, st, sw, keep, probs, flat_e
+
+
+def _expert_ffn(cfg: ModelConfig, p: Mapping[str, Tensor],
+                xe: Tensor) -> Tensor:
+    """The experts' FFN on (E, C, D) buffers: the reference's
+    'ecd,edf->ecf' einsums as batched matmuls, each weight cast to the
+    activations' dtype at its use."""
+    dt = xe.dtype
+    h = torch.bmm(xe, p["w1"].to(dt))
+    if cfg.activation == "swiglu":
+        g = torch.bmm(xe, p["w3"].to(dt))
+        h = F.silu(h.float()).to(dt) * g
+    elif cfg.activation == "squared_relu":
+        r = torch.clamp_min(h, 0)
+        h = r * r
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(dt)
+    return torch.bmm(h, p["w2"].to(dt))
+
+
+def _moe_groups(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
+                cap: int) -> Tuple[Tensor, Tensor]:
+    """Route, dispatch, run the experts and combine R groups x (R, N, D).
+    Returns (out (R, N, D), Switch-style aux loss)."""
+    r, n, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dest, st, sw, keep, probs, flat_e = moe_route(cfg, p["router"], x, cap)
+    rows = torch.arange(r, device=x.device)[:, None]
+    # dispatch: one scatter into (R, E*cap + 1, D); dropped assignments
+    # land on each group's scratch row, which is discarded
+    buf = x.new_zeros((r, e * cap + 1, d))
+    buf[rows, dest] = x[rows, st]
+    xe = buf[:, :e * cap].reshape(r, e, cap, d).transpose(0, 1)
+    ye = _expert_ffn(cfg, p, xe.reshape(e, r * cap, d))
+    ye = ye.reshape(e, r, cap, d).transpose(0, 1).reshape(r, e * cap, d)
+    # combine without atomics: each token's k assignments, in sorted
+    # (expert-ascending) order as the reference's scatter-add visits them,
+    # gathered once as (R, N, k, D) rows and summed over k
+    by_token = torch.argsort(st, dim=-1, stable=True)
+    dest, sw, keep = (torch.gather(a, 1, by_token) for a in (dest, sw, keep))
+    y = ye[rows, dest.clamp(max=e * cap - 1)]
+    y = y.masked_fill(~keep[..., None], 0) * sw[..., None].to(y.dtype)
+    out = y.reshape(r, n, k, d).sum(2)
+    me = probs.mean(dim=(0, 1))
+    # an exact integer count, without bincount's host sync on CUDA
+    flat = flat_e.reshape(-1)
+    ce = flat.new_zeros(e).scatter_add_(0, flat, torch.ones_like(flat)) \
+        .float() / (r * n * k)
+    aux = e * torch.sum(me * ce) * cfg.router_aux_weight
+    return out, aux
+
+
+def moe_apply(cfg: ModelConfig, p: Mapping[str, Tensor],
+              x: Tensor) -> Tuple[Tensor, Tensor]:
+    if cfg.moe_impl == "per_example":
+        return moe_apply_per_example(cfg, p, x)
+    return moe_apply_global(cfg, p, x)
+
+
+def moe_apply_global(cfg: ModelConfig, p: Mapping[str, Tensor],
+                     x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Token-choice top-k MoE with sort-based dispatch over all B*S tokens
+    as one group: capacity C = cf * B*S * k / E, over-capacity assignments
+    dropped.  Returns (out (B, S, D), aux_loss)."""
+    b, s, d = x.shape
+    out, aux = _moe_groups(cfg, p, x.reshape(1, b * s, d),
+                           moe_capacity(cfg, b * s))
+    return out.reshape(b, s, d), aux
+
+
+def moe_apply_per_example(cfg: ModelConfig, p: Mapping[str, Tensor],
+                          x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-example (batch-local) routing: each batch row is its own group
+    (the reference's vmap of route_one), capacity C = cf * S * k / E."""
+    return _moe_groups(cfg, p, x, moe_capacity(cfg, x.shape[1]))
+
+
 __all__ = [
     "dense_init", "rms_norm", "apply_rope", "default_positions",
     "init_attention", "attention_apply", "attention_decode", "sdpa",
-    "self_attention", "init_mlp", "mlp_apply",
+    "self_attention", "init_mlp", "mlp_apply", "init_moe", "moe_capacity",
+    "moe_route", "moe_apply", "moe_apply_global", "moe_apply_per_example",
 ]

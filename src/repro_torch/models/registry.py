@@ -1,7 +1,7 @@
 """Model registry: build a family-dispatched Model facade from a config.
 
-Port of ``repro/models/registry.py`` for the decoder-only dense, SSM and
-hybrid families.  MoE, encoder-decoder and embedding-input (VLM) configs
+Port of ``repro/models/registry.py`` for the decoder-only dense, MoE, SSM
+and hybrid families.  Encoder-decoder and embedding-input (VLM) configs
 raise ``NotImplementedError`` naming their ROADMAP slice.
 """
 
@@ -44,14 +44,23 @@ class Model:
         return sum(p.numel() for p in self.init_shapes().parameters())
 
     def active_param_count(self) -> int:
-        """Params touched per token: all of them without MoE."""
-        return self.param_count()
+        """MoE: params touched per token (experts scaled by top_k / E)."""
+        cfg = self.cfg
+        if not cfg.uses_moe:
+            return self.param_count()
+        total = 0
+        for name, p in self.init_shapes().named_parameters():
+            parts = name.split(".")
+            n = p.numel()
+            if "moe" in parts and parts[-1] in ("w1", "w2", "w3"):
+                n = n * cfg.top_k // max(cfg.n_experts, 1)
+            total += n
+        return total
 
 
 def build_model(cfg: ModelConfig) -> Model:
     cfg.validate()
-    for flag, slice_ in ((cfg.uses_moe, "part 2 (MoE)"),
-                         (cfg.enc_dec, "part 4 (encoder-decoder)"),
+    for flag, slice_ in ((cfg.enc_dec, "part 4 (encoder-decoder)"),
                          (cfg.embed_inputs, "part 3 (the VLM: embedding "
                                             "inputs, mrope streams)")):
         if flag:

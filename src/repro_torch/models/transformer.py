@@ -1,7 +1,7 @@
 """Decoder-only LM trunk, with layers grouped into runs of equal window.
 
-Port of ``repro/models/transformer.py`` (MoE blocks and the sharding
-``policy=`` wait for later slices, ROADMAP A).  Layers are grouped into
+Port of ``repro/models/transformer.py`` (the sharding ``policy=`` waits
+for a later slice, ROADMAP A).  Layers are grouped into
 maximal *runs* of consecutive layers sharing an attention-window class (full
 vs SWA): hymba's {global, swa, ..., global} pattern yields 5 runs, uniform
 archs 1.  The parameters are ``nn.Module``s, one ``Block`` a layer; a loop
@@ -67,23 +67,19 @@ def _pdict(tensors: Mapping[str, Tensor]) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One decoder layer's parameters: ``ln1``, and ``attn`` / ``ssm`` /
-    ``ln2`` + ``mlp`` as the family has them, each sub-layer an
-    ``nn.ParameterDict`` under the reference's leaf names."""
+    ``ln2`` + ``mlp`` or ``moe`` as the family has them, each sub-layer an
+    ``nn.ParameterDict`` under the reference's leaf names.  It holds no
+    config: ``block_apply`` / ``block_decode`` run it under the caller's,
+    as the reference's steps pass theirs."""
 
-    def __init__(self, cfg: ModelConfig, tensors: Mapping):
+    def __init__(self, tensors: Mapping):
         super().__init__()
-        self.cfg = cfg
         self.ln1 = _frozen(tensors["ln1"])
-        for name in ("attn", "ssm", "mlp"):
+        for name in ("attn", "ssm", "mlp", "moe"):
             if name in tensors:
                 setattr(self, name, _pdict(tensors[name]))
         if "ln2" in tensors:
             self.ln2 = _frozen(tensors["ln2"])
-
-    def forward(self, x: Tensor, positions: Optional[Tensor], window: int,
-                return_cache: bool = False):
-        return block_apply(self.cfg, self, x, positions, window,
-                           return_cache)
 
 
 class DecoderLM(nn.Module):
@@ -95,7 +91,7 @@ class DecoderLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = _frozen(tensors["embed"])
-        self.blocks = nn.ModuleList(Block(cfg, t) for t in tensors["blocks"])
+        self.blocks = nn.ModuleList(Block(t) for t in tensors["blocks"])
         self.final_norm = _frozen(tensors["final_norm"])
         if "lm_head" in tensors:
             self.lm_head = _frozen(tensors["lm_head"])
@@ -110,7 +106,10 @@ def init_block(gen, cfg: ModelConfig, device=None) -> dict:
         p["ssm"] = S.init_ssm(gen, cfg, dev)
     if _has_mlp(cfg):
         p["ln2"] = torch.ones((cfg.d_model,), device=dev)
-        p["mlp"] = L.init_mlp(gen, cfg, dev)
+        if cfg.uses_moe:
+            p["moe"] = L.init_moe(gen, cfg, dev)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, dev)
     return p
 
 
@@ -140,7 +139,7 @@ def block_apply(cfg: ModelConfig, p: Block, x: Tensor,
                 return_cache: bool = False):
     """One decoder layer, full-sequence.  Returns (x, aux, cache_piece|None).
     cache_piece holds raw per-layer state: kv (B,S,Hkv,hd) and/or ssm state.
-    aux is the MoE loss, 0.0 here (MoE waits for a later slice)."""
+    aux is the MoE layer's load-balance loss, 0.0 without MoE."""
     aux = 0.0
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
     delta = torch.zeros_like(x)
@@ -158,7 +157,11 @@ def block_apply(cfg: ModelConfig, p: Block, x: Tensor,
     x = x + delta
     if _has_mlp(cfg):
         h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
-        x = x + L.mlp_apply(cfg, p.mlp, h2)
+        if cfg.uses_moe:
+            mo, aux = L.moe_apply(cfg, p.moe, h2)
+            x = x + mo
+        else:
+            x = x + L.mlp_apply(cfg, p.mlp, h2)
     return x, aux, (piece if return_cache else None)
 
 
@@ -182,7 +185,11 @@ def block_decode(cfg: ModelConfig, p: Block, x: Tensor, positions,
     x = x + delta
     if _has_mlp(cfg):
         h2 = L.rms_norm(x, p.ln2, cfg.norm_eps)
-        x = x + L.mlp_apply(cfg, p.mlp, h2)
+        if cfg.uses_moe:   # the B one-token rows routed as the reference does
+            mo, _ = L.moe_apply(cfg, p.moe, h2)
+            x = x + mo
+        else:
+            x = x + L.mlp_apply(cfg, p.mlp, h2)
     return x, new_cache
 
 
@@ -216,8 +223,9 @@ def forward(cfg: ModelConfig, params: DecoderLM, *, tokens: Tensor,
                                         x.device)
             caches.append(run_cache)
         for i in range(cnt):
-            x, a, piece = params.blocks[start + i](
-                x, positions, w, return_cache=run_cache is not None)
+            x, a, piece = block_apply(
+                cfg, params.blocks[start + i], x, positions, w,
+                return_cache=run_cache is not None)
             total_aux = total_aux + a
             if run_cache is not None:
                 _prefill_cache(cfg, run_cache, i, piece, w, s)

@@ -146,3 +146,31 @@ def check_decode(arch, dtype):
         port_tok = got[t]["logits"][:, -1].argmax(-1)
         np.testing.assert_array_equal(port_tok[clear],
                                       ref[t]["next"][clear, 0])
+
+
+def reference_routing(cfg, p, x):
+    """dest, keep and top_i of the reference's routing, restated from
+    repro/models/layers.py:423-438 (global: one group of all B*S tokens)
+    and its route_one (per_example: a group a batch row), in JAX, with
+    leading group axes as moe_route returns them."""
+    e, k = cfg.n_experts, cfg.top_k
+
+    def route(xg, cap):
+        logits = xg.astype(jnp.float32) @ p["router"].astype(jnp.float32)
+        top_i = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k)[1]
+        flat_e = top_i.reshape(-1)
+        order = jnp.argsort(flat_e, stable=True)
+        se = flat_e[order]
+        group_start = jnp.searchsorted(se, jnp.arange(e, dtype=se.dtype))
+        pos = jnp.arange(flat_e.shape[0], dtype=jnp.int32) - group_start[se]
+        keep = pos < cap
+        return jnp.where(keep, se * cap + pos, e * cap), keep, top_i
+
+    b, s, d = x.shape
+    if cfg.moe_impl == "per_example":
+        cap = max(1, int(cfg.capacity_factor * s * k / e))
+        out = jax.vmap(lambda xg: route(xg, cap))(jnp.asarray(x))
+    else:
+        cap = max(1, int(cfg.capacity_factor * b * s * k / e))
+        out = [a[None] for a in route(jnp.asarray(x).reshape(b * s, d), cap)]
+    return [np.asarray(a) for a in out]

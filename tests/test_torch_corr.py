@@ -356,7 +356,9 @@ def test_port_sources_import_neither_jax_nor_repro():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core.api, repro_torch.convert, "
             "repro_torch.models.registry, repro_torch.configs, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, "
+            "repro_torch.configs.qwen3_moe_30b_a3b, "
+            "repro_torch.configs.mixtral_8x22b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -1511,6 +1511,98 @@ def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
         assert err <= 2e-2
 
 
+# -- the MoE layer on the card (models/layers.py moe_route / moe_apply) ----
+
+def _moe_layer(arch, seed, impl="global_sort", cf=None):
+    """A SMOKE config's MoE layer (parameters drawn on the CPU, seed) and
+    (3, 40, D) standard normal inputs, float32, on the CPU."""
+    from repro_torch.configs import get_config, override
+    from repro_torch.models import layers
+
+    cfg = get_config(arch, smoke=True)
+    cfg = override(cfg, moe_impl=impl, capacity_factor=cf or
+                   cfg.capacity_factor)
+    p = layers.init_moe(torch.Generator().manual_seed(seed), cfg, "cpu")
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (3, 40, cfg.d_model)).astype(np.float32))
+    return cfg, p, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("impl", ["global_sort", "per_example"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b"])
+def test_lm_moe_routing_on_card_is_the_cpu_routing(cuda, arch, impl, seed):
+    """The router logits are an IEEE float32 product (no TF32): the card
+    routes the same inputs as the CPU does, bitwise (chosen experts,
+    buffer rows, keep), at capacity factor 0.5 (some dropped); the
+    float32 output within 1e-5 of the CPU's largest |value|."""
+    from repro_torch.models import layers
+
+    cfg, p, x = _moe_layer(arch, seed, impl, cf=0.5)
+    b, s, d = x.shape
+    cap = layers.moe_capacity(cfg, s if impl == "per_example" else b * s)
+    groups = x if impl == "per_example" else x.reshape(1, b * s, d)
+    want = layers.moe_route(cfg, p["router"], groups, cap)
+    got = layers.moe_route(cfg, p["router"].to(cuda), groups.to(cuda), cap)
+    for i, name in ((0, "dest"), (1, "st"), (3, "keep"), (5, "flat_e")):
+        assert torch.equal(got[i].cpu(), want[i]), name
+    assert not bool(want[3].all())
+    out_c, aux_c = layers.moe_apply(cfg, p, x)
+    out_g, aux_g = layers.moe_apply(
+        cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+    err = float((out_g.cpu() - out_c).abs().max())
+    assert err <= 1e-5 * float(out_c.abs().max())
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b"])
+def test_lm_moe_combine_is_bitwise_repeatable(cuda, arch, dtype):
+    """No float atomics: the combine gathers each token's k rows and sums
+    them in a fixed order, so two calls on the card give the same bits."""
+    from repro_torch.models import layers
+
+    cfg, p, x = _moe_layer(arch, 4)
+    p = {k: v.to(cuda) for k, v in p.items()}
+    x = x.to(cuda, dtype)
+    first, aux1 = layers.moe_apply(cfg, p, x)
+    second, aux2 = layers.moe_apply(cfg, p, x)
+    assert first.dtype == dtype
+    assert torch.equal(first, second) and torch.equal(aux1, aux2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,window", [("qwen3-moe-30b-a3b", 0),
+                                         ("mixtral-8x22b", 32)])
+def test_lm_moe_flash_route_matches_the_plain_route(cuda, arch, window,
+                                                    dtype):
+    """The flash route at qwen3-moe SMOKE's heads (H 4, Hkv 2, hd 32,
+    causal) and mixtral SMOKE's (window 32), S = 80: one launch, against
+    the plain route on the same rotated q, k, v."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers
+
+    cfg = get_config(arch, smoke=True)
+    assert cfg.window == window
+    q, k, v = _lm_attention_inputs(cfg, 80, cuda, dtype)
+    name = str(dtype).removeprefix("torch.")
+    before = flash_attention.launches_by_dtype[name]
+    got = layers.self_attention(cfg, q, k, v, None, window)
+    assert flash_attention.launches_by_dtype[name] == before + 1
+    pos = torch.arange(80, device=cuda)[None, :]
+    want = layers._plain_route(cfg, q, k, v, pos, window)
+    g4 = got.reshape(1, 80, cfg.n_heads, cfg.hd).transpose(1, 2)
+    w4 = want.reshape(1, 80, cfg.n_heads, cfg.hd).transpose(1, 2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(g4, w4, rtol=0, atol=2e-6)
+    else:
+        assert _narrow_gate_share(g4, w4) <= 1
+
+
 # -- merge-sort Kendall (kernels/kendall_merge.py, csrc/kendall_merge.cu) ---
 
 def _kendall_rows(n, l, kind, seed):
