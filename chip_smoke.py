@@ -538,6 +538,24 @@ TOL_MOE = 1e-5
 # row's float32 sum over up to 1,024 keys errs in proportion to the v it
 # adds, and mixtral's v (d_model 6,144 at weight scale 0.02: sd ~1.6)
 # reach ~8 (absolute reading 1.454e-5 on an H100).
+# Phase 27, the last two families (name, layers kept or None for all):
+# qwen2-vl-72b at full width, depth cut to 12 of 80 layers to hold float32
+# parameters on one card (80 layers are 281 GB), ~52 GB; the VLM prefills
+# embeddings (torch.Generator seed 2) with broadcast 0..S-1 m-rope streams,
+# as the reference's launcher passes them.  seamless-m4t-medium FULL (12
+# encoder + 12 decoder layers), 3.5 GB; (b) encodes LM_PROMPT source
+# frames and prefills LM_PROMPT target tokens.  The VLM witness (d): layer
+# 0's attention on a prompt of LM_PROMPT positions laid out as Qwen2-VL's
+# M-RoPE does (arXiv:2409.12191 SS2.1): LM_IMAGE_AT text positions, one
+# LM_IMAGE_GRID x LM_IMAGE_GRID image block of patches sharing t, its h and
+# w the grid coordinates offset by LM_IMAGE_AT, then text from
+# LM_IMAGE_AT + LM_IMAGE_GRID.  Float32 on the card against the CPU within
+# TOL_WITNESS of the CPU's largest |value| (the same float32 products
+# summed in other orders, as the CPU tests' 1e-5 against the reference);
+# the index-masked output must differ from it by more than that.
+LM_FAMILIES = (("qwen2-vl-72b", 12), ("seamless-m4t-medium", None))
+LM_IMAGE_AT, LM_IMAGE_GRID = 1_024, 32
+TOL_WITNESS = 1e-5
 
 
 def gpu_info() -> str:
@@ -2156,7 +2174,20 @@ def lm_runs(dev, tag, library_attn):
     t_phase = time.perf_counter()
     flash_route, plain_route = layers._flash_route, layers._plain_route
     calls = {"plain_route": 0, "flash_attention_plain": 0}
+    # the plain attention of the encoder and the cross-attention, counted
+    # apart: an encoder-decoder's prefill runs both by design
+    enc_attn, cross_attn = layers.encoder_attention_apply, \
+        layers.cross_attention_apply
+    bidir = {"encoder": 0, "cross": 0}
     records, recording = [], [0]   # keep up to recording[0] layers
+
+    def counted_encoder(*args, **kwargs):
+        bidir["encoder"] += 1
+        return enc_attn(*args, **kwargs)
+
+    def counted_cross(*args, **kwargs):
+        bidir["cross"] += 1
+        return cross_attn(*args, **kwargs)
 
     def counted_plain_route(*args, **kwargs):
         calls["plain_route"] += 1
@@ -2185,6 +2216,8 @@ def lm_runs(dev, tag, library_attn):
             k: 0 for k in flash_attention.launches_by_dtype}
         for k in calls:
             calls[k] = 0
+        for k in bidir:
+            bidir[k] = 0
         routed.clear()
 
     def peak(fn):
@@ -2321,25 +2354,27 @@ def lm_runs(dev, tag, library_attn):
     def by_layer(calls_):
         return [round(dropped([c]), 4) for c in calls_]
 
-    def prefill_checked(arch, cfg_, params, toks, capacity):
-        """A prefill of `toks` into caches of `capacity` slots, every
-        layer's flash inputs recorded: one flash launch a layer in the
-        activations' dtype, no plain call, the layers' windows, finite
-        logits.  Returns (logits, caches, launches)."""
+    def prefill_checked(arch, cfg_, params, toks, capacity, inputs=None):
+        """A prefill of `toks` (or of `inputs`, the prefill's keywords) into
+        caches of `capacity` slots, every layer's flash inputs recorded: one
+        flash launch a (decoder) layer in the activations' dtype, no plain
+        call, the layers' windows, finite logits.  Returns (logits, caches,
+        launches)."""
         n_attn = cfg_.n_layers
         dname = str(cfg_.activation_dtype()).removeprefix("torch.")
+        inputs = inputs or {"tokens": toks}
         reset()
         records.clear()
         recording[0] = n_attn
         logits, cache = steps.make_prefill_step(
-            cfg_, cache_capacity=capacity)(params, tokens=toks)
+            cfg_, cache_capacity=capacity)(params, **inputs)
         torch.cuda.synchronize()
         recording[0] = 0
         lb = dict(flash_attention.launches_by_dtype)
         if lb[dname] != n_attn or sum(lb.values()) != n_attn or \
                 any(calls.values()) or len(records) != n_attn:
-            raise AssertionError(f"{arch} {dname} prefill {toks.shape[1]}: "
-                                 f"flash launches {lb}, plain calls {calls}")
+            raise AssertionError(f"{arch} {dname} prefill: flash launches "
+                                 f"{lb}, plain calls {calls}")
         if [r[3] for r in records] != list(cfg_.layer_windows()):
             raise AssertionError(f"{arch}: the layers' windows reached the "
                                  f"kernel wrong")
@@ -2591,10 +2626,280 @@ def lm_runs(dev, tag, library_attn):
         torch.cuda.empty_cache()
         return mrows, res
 
+    def family_inputs(cfg_, s_, batch, gen_):
+        """A prefill's inputs of `s_` positions at `batch` rows and a
+        decode step's m-rope keywords: the VLM's embeddings (bf16 normal
+        draws) with broadcast 0..S-1 streams, the encoder-decoder's source
+        frames and target tokens."""
+        toks = torch.randint(0, cfg_.vocab, (batch, s_), generator=gen_,
+                             device=dev)
+        frames = torch.randn((batch, s_, cfg_.d_model), generator=gen_,
+                             device=dev).to(cfg_.activation_dtype())
+        if cfg_.enc_dec:
+            return {"src": frames, "tokens": toks}, {}
+        pos = torch.arange(s_, dtype=torch.int32, device=dev).expand(
+            batch, 3, s_)
+        return {"embeds": frames, "positions": pos}, {
+            "positions": torch.full((batch, 3, 1), s_, dtype=torch.int32,
+                                    device=dev)}
+
+    def family_decode_vs_forward(cfg_, params, inputs, logits):
+        """max |last logits of decode after a prefill of S - 1 - the full
+        forward's `logits`|: the encoder-decoder decodes the last target
+        token over the same source; the VLM the embedding of a token whose
+        table row replaces the last embedding in the full forward."""
+        s_ = inputs["tokens" if cfg_.enc_dec else "embeds"].shape[1]
+        if cfg_.enc_dec:
+            short = {"src": inputs["src"],
+                     "tokens": inputs["tokens"][:, :-1]}
+            tok, dkw = inputs["tokens"][:, -1:], {}
+            full = logits
+        else:
+            tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
+            embeds = inputs["embeds"].clone()
+            embeds[:, -1] = params.embed[tok[:, 0]].to(embeds.dtype)
+            whole = dict(inputs, embeds=embeds)
+            full, _ = steps.make_prefill_step(cfg_)(params, **whole)
+            short = {"embeds": embeds[:, :-1],
+                     "positions": inputs["positions"][:, :, :-1]}
+            dkw = {"positions": inputs["positions"][:, :, -1:]}
+        _, cache = steps.make_prefill_step(
+            cfg_, cache_capacity=s_ + LM_GEN)(params, **short)
+        step_logits, _ = steps.make_decode_step(cfg_)(
+            params, token=tok, cache=cache, cache_index=s_ - 1, **dkw)
+        return amax((step_logits - full).abs())
+
+    def vlm_witness(cfg, params):
+        """(d): layer 0's attention in float32 on an image prompt, on the
+        card (the mask decided as transformer.forward decides it: the plain
+        route) against the CPU, and against the card's index mask."""
+        cfg32 = override(cfg, dtype="float32")
+        a_, g_ = LM_IMAGE_AT, LM_IMAGE_GRID
+        grid = torch.arange(g_ * g_)
+        text = torch.arange(a_ + g_, a_ + g_ + LM_PROMPT - a_ - g_ * g_)
+        t = torch.cat([torch.arange(a_), torch.full((g_ * g_,), a_), text])
+        h = torch.cat([torch.arange(a_), a_ + grid // g_, text])
+        w = torch.cat([torch.arange(a_), a_ + grid % g_, text])
+        pos = torch.stack([t, h, w]).to(torch.int32)[None]   # (1, 3, S)
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (1, LM_PROMPT, cfg.d_model)).astype(np.float32))
+        blk = params.blocks[0]
+        p_cpu = {k: v.cpu() for k, v in blk.attn.items()}
+        h_cpu = layers.rms_norm(x, blk.ln1.cpu(), cfg.norm_eps)
+        h_dev, pos_dev = h_cpu.to(dev), pos.to(dev)
+        reset()
+        launched = sum(flash_attention.launches_by_dtype.values())
+        index = layers.index_stream(pos_dev)   # transformer.forward's ask
+        got, _ = layers.attention_apply(cfg32, blk.attn, h_dev, pos_dev, 0,
+                                        index_mask=index)
+        torch.cuda.synchronize()
+        routes = {"plain": calls["plain_route"],
+                  "flash": sum(flash_attention.launches_by_dtype.values())
+                  - launched}
+        t1 = time.perf_counter()
+        want, _ = layers.attention_apply(cfg32, p_cpu, h_cpu, pos, 0)
+        cpu_s = time.perf_counter() - t1
+        by_index, _ = layers.attention_apply(cfg32, blk.attn, h_dev, pos_dev,
+                                             0, index_mask=True)
+        scale = amax(want.abs())
+        err = amax((got.cpu() - want).abs())
+        err_index = amax((by_index.cpu() - want).abs())
+        del p_cpu, h_dev, got, by_index
+        return {"index_stream": index, "routes": routes, "err": err,
+                "err_index_mask": err_index, "out_max": scale,
+                "cpu_s": cpu_s, "tol": TOL_WITNESS * scale}
+
+    def family_arch(arch, n_layers):
+        """Phase 27 for the VLM or the encoder-decoder at full width and
+        `n_layers` layers (None: all): serve, a prefill of LM_PROMPT
+        positions (launches, plain calls, ms, one layer's parts), the route
+        checks in bf16 and float32, the VLM witness, a decode step at
+        batch LM_BATCH.  Returns its flash rows and numbers."""
+        full = get_config(arch)
+        cfg = full if n_layers is None else override(full, n_layers=n_layers)
+        frows = []
+        params, res, draw_s = draw(cfg)
+        depth = (f"{cfg.n_layers} of {full.n_layers} layers" if n_layers
+                 else f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder "
+                      f"layers")
+        print(f"  {arch} FULL width, {depth}: d_model {cfg.d_model}, H "
+              f"{cfg.n_heads}, Hkv {cfg.n_kv_heads}, hd {cfg.hd}, d_ff "
+              f"{cfg.d_ff}, rope {cfg.rope}; {res['params']:,} parameters, "
+              f"{res['params_gb']:.3f} GB float32 drawn in {draw_s:.1f} s; "
+              f"{cfg.dtype} activations {tag}")
+
+        # (a) the entry point's defaults
+        res["serve"], lb, sv = serve_checked(arch, cfg, params)
+        res["serve"]["bidirectional_calls"] = dict(bidir)
+        print(f"  (a) launch.serve batch {LM_BATCH}, prompt "
+              f"{LM_SERVE_PROMPT}, gen {LM_GEN} (after a warm-up run): "
+              f"{summary(sv)}; prefill {sv['prefill_s'] * 1e3:.3f} ms, "
+              f"decode {res['serve']['decode_ms_per_step']:.3f} ms a step, "
+              f"{sv['tok_s']:.1f} tok/s; flash launches {lb}; plain encoder "
+              f"/ cross-attention calls {bidir}; peak "
+              f"{res['serve']['peak_gb']:.3f} GB above held {tag}")
+        if cfg.enc_dec and bidir != {"encoder": cfg.enc_layers,
+                                     "cross": cfg.n_layers * LM_GEN}:
+            raise AssertionError(f"{arch} serve: plain calls {bidir}")
+
+        # (b) one prompt of LM_PROMPT positions at batch 1
+        g = torch.Generator(device=dev).manual_seed(2)
+        inputs, _ = family_inputs(cfg, LM_PROMPT, 1, g)
+        logits_f, cache, lb = prefill_checked(arch, cfg, params, None,
+                                              LM_PROMPT + LM_GEN, inputs)
+        want_bidir = {"encoder": cfg.enc_layers if cfg.enc_dec else 0,
+                      "cross": cfg.n_layers if cfg.enc_dec else 0}
+        if bidir != want_bidir:
+            raise AssertionError(f"{arch}: plain calls {bidir}, want "
+                                 f"{want_bidir}")
+        res["prefill"] = {"positions": LM_PROMPT, "launches": lb["bfloat16"],
+                          "plain_route": calls["plain_route"],
+                          "flash_attention_plain":
+                              calls["flash_attention_plain"],
+                          "bidirectional_calls": dict(bidir)}
+        del cache
+        prefill = steps.make_prefill_step(cfg,
+                                          cache_capacity=LM_PROMPT + LM_GEN)
+        pre_ms, pre_all, pb = timed(lambda: prefill(params, **inputs), 3)
+        res["prefill"].update(ms=pre_ms, runs=pre_all, peak_gb=pb)
+        what = "source frames and target tokens" if cfg.enc_dec else \
+            "embeddings, broadcast 0..S-1 streams"
+        print(f"  (b) prefill batch 1, {LM_PROMPT} positions ({what}): "
+              f"{pre_ms:.3f} ms (runs {[round(t, 3) for t in pre_all]}), "
+              f"flash launches {lb} (one a decoder layer), plain route calls "
+              f"{calls['plain_route']}, the kernel's plain version "
+              f"{calls['flash_attention_plain']}, plain encoder / cross-"
+              f"attention calls {res['prefill']['bidirectional_calls']}; "
+              f"peak {pb:.3f} GB above held {tag}")
+        frows += class_rows(arch, cfg, LM_PROMPT)
+        # where one layer's prefill time goes (layer 1)
+        blk = params.blocks[1]
+        x = inputs["tokens" if cfg.enc_dec else "embeds"]
+        if cfg.enc_dec:
+            x = params.embed[x].to(cfg.activation_dtype())
+        h = layers.rms_norm(x, blk.ln1, cfg.norm_eps)
+        pos = inputs.get("positions")   # the VLM's index streams
+        parts = {"attention": lambda: layers.attention_apply(
+            cfg, blk.attn, h, pos, 0, index_mask=True),
+            "mlp": lambda: layers.mlp_apply(cfg, blk.mlp, h)}
+        if cfg.enc_dec:
+            e_blk = params.enc_blocks[1]
+            e_h = layers.rms_norm(inputs["src"], e_blk.ln1, cfg.norm_eps)
+            e_pos = torch.arange(LM_PROMPT, device=dev)[None, :]
+            ek, ev = layers.cross_kv(cfg, blk.xattn, e_h)
+            parts.update({
+                "encoder attention": lambda: enc_attn(cfg, e_blk.attn, e_h,
+                                                      e_pos),
+                "cross K/V": lambda: layers.cross_kv(cfg, blk.xattn, e_h),
+                "cross-attention": lambda: cross_attn(cfg, blk.xattn, h, ek,
+                                                      ev)})
+        res["layer_ms"] = {k: event_ms(fn, 3)[0] for k, fn in parts.items()}
+        if cfg.enc_dec:
+            lm = res["layer_ms"]
+            res["bidirectional_share"] = (
+                cfg.enc_layers * lm["encoder attention"] + cfg.n_layers * (
+                    lm["cross K/V"] + lm["cross-attention"])) / pre_ms
+        del h, parts
+        print(f"    one layer at {LM_PROMPT} positions (layer 1), CUDA "
+              f"events: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                      res["layer_ms"].items())
+              + (f"; encoder attention x {cfg.enc_layers} and cross K/V + "
+                 f"cross-attention x {cfg.n_layers} (plain route) are "
+                 f"{100 * res['bidirectional_share']:.1f} % of the prefill"
+                 if cfg.enc_dec else f" (x {cfg.n_layers} layers)")
+              + f" {tag}")
+
+        # (c) the route checks: bf16 at LM_PROMPT, float32 at LM_F32_PROMPT
+        err_l, share_l = route_check(cfg, f"{arch} bf16")
+        records.clear()
+        cfg32 = override(cfg, dtype="float32")
+        in32 = {k: (v[..., :LM_F32_PROMPT] if k == "positions"
+                    else v[:, :LM_F32_PROMPT]) for k, v in inputs.items()}
+        in32 = {k: v.float() if v.is_floating_point() else v
+                for k, v in in32.items()}
+        logits32, _, _ = prefill_checked(arch, cfg32, params, None,
+                                         LM_F32_PROMPT + LM_GEN, in32)
+        err32_l, share32 = route_check(cfg32, f"{arch} float32")
+        frows += class_rows(arch, cfg32, LM_F32_PROMPT)
+        records.clear()
+        err32_d = family_decode_vs_forward(cfg32, params, in32, logits32)
+        del logits32
+        res["route"] = {"bf16_layer_err": err_l, "bf16_layer_share": share_l,
+                        "f32_layer_err": err32_l, "f32_layer_share": share32,
+                        "f32_decode_vs_forward": err32_d}
+        print(f"  (c) every layer's flash output vs the plain route on its "
+              f"inputs: bf16 at {LM_PROMPT} max|diff| {err_l:.3e}, "
+              f"{share_l:.3f} of the row-scaled gate; float32 at "
+              f"{LM_F32_PROMPT} max|diff| {err32_l:.3e}, {share32:.3f} of "
+              f"the gate (TOL_ATTN x max(1, the layer's max |output|)); "
+              f"float32 decode after a prefill of {LM_F32_PROMPT - 1} vs the "
+              f"full forward's last logits {err32_d:.3e} (tol "
+              f"{TOL_LM_DECODE:g}) {tag}")
+        if not err32_d <= TOL_LM_DECODE:
+            raise AssertionError(f"{arch}: decode disagrees with the full "
+                                 f"forward")
+
+        # (d) the VLM witness: an image block takes the plain route
+        if cfg.rope == "mrope":
+            wit = vlm_witness(cfg, params)
+            res["witness"] = wit
+            print(f"  (d) layer 0's attention, float32, {LM_PROMPT} "
+                  f"positions with a {LM_IMAGE_GRID} x {LM_IMAGE_GRID} image "
+                  f"block at t = {LM_IMAGE_AT}: index stream "
+                  f"{wit['index_stream']}, routes {wit['routes']}; card vs "
+                  f"CPU max|diff| {wit['err']:.3e} (tol {wit['tol']:.3e}, "
+                  f"{TOL_WITNESS:g} of max |out| {wit['out_max']:.3e}; the "
+                  f"CPU took {wit['cpu_s']:.1f} s); the index mask's output "
+                  f"is {wit['err_index_mask']:.3e} from the CPU's {tag}")
+            if wit["index_stream"] or wit["routes"] != {"plain": 1,
+                                                        "flash": 0}:
+                raise AssertionError(f"{arch}: the image prompt took the "
+                                     f"flash route: {wit}")
+            if not (wit["err"] <= wit["tol"] < wit["err_index_mask"]):
+                raise AssertionError(f"{arch}: the witness does not hold: "
+                                     f"{wit}")
+
+        # (e) a decode step at batch LM_BATCH after a prompt of
+        # LM_SERVE_PROMPT
+        inputs_e, dkw = family_inputs(cfg, LM_SERVE_PROMPT, LM_BATCH, g)
+        logits_e, cache = steps.make_prefill_step(
+            cfg, cache_capacity=LM_SERVE_PROMPT + 8)(params, **inputs_e)
+        tok = torch.argmax(logits_e[:, -1], dim=-1)[:, None]
+        decode = steps.make_decode_step(cfg)
+        reset()
+        dec_ms = []
+        for i in range(4):
+            if "positions" in dkw:
+                dkw = {"positions": torch.full(
+                    (LM_BATCH, 3, 1), LM_SERVE_PROMPT + i, dtype=torch.int32,
+                    device=dev)}
+            (step_logits, cache), ms, _ = peak(lambda: decode(
+                params, token=tok, cache=cache,
+                cache_index=LM_SERVE_PROMPT + i, **dkw))
+            tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
+            dec_ms.append(ms)
+        if sum(flash_attention.launches_by_dtype.values()) or \
+                not bool(torch.isfinite(step_logits).all()) or \
+                bidir["cross"] != (4 * cfg.n_layers if cfg.enc_dec else 0):
+            raise AssertionError(f"{arch} decode: flash launched, plain "
+                                 f"calls {bidir}, or non-finite logits")
+        res["decode"] = {"batch": LM_BATCH, "ms": statistics.median(
+            dec_ms[1:]), "runs": dec_ms}
+        print(f"  (e) decode a step at batch {LM_BATCH} after a prompt of "
+              f"{LM_SERVE_PROMPT}: {res['decode']['ms']:.3f} ms (steps "
+              f"{[round(t, 3) for t in dec_ms]}, the first a warm-up); no "
+              f"flash launch; cross-attention calls {bidir['cross']} (cross "
+              f"K/V recomputed from enc_out each step) {tag}")
+        del params, logits_f, cache, logits_e, step_logits
+        torch.cuda.empty_cache()
+        return frows, res
+
     rows, out = [], {}
     layers._flash_route = recorded_flash_route
     layers._plain_route = counted_plain_route
     layers.moe_route = recorded_route
+    layers.encoder_attention_apply = counted_encoder
+    layers.cross_attention_apply = counted_cross
     fmod.flash_attention_plain = counted_flash_plain
     try:
         for arch in LM_ARCHS:
@@ -2797,9 +3102,14 @@ def lm_runs(dev, tag, library_attn):
         for arch, n_layers, prompt in LM_MOE:
             mrows, out[arch] = moe_arch(arch, n_layers, prompt)
             rows += mrows
+        for arch, n_layers in LM_FAMILIES:
+            frows, out[arch] = family_arch(arch, n_layers)
+            rows += frows
     finally:
         layers._flash_route, layers._plain_route = flash_route, plain_route
         layers.moe_route = moe_route
+        layers.encoder_attention_apply = enc_attn
+        layers.cross_attention_apply = cross_attn
         fmod.flash_attention_plain = flash_attention_plain
         records.clear()
     out["seconds"] = time.perf_counter() - t_phase
@@ -5641,9 +5951,10 @@ def main(argv) -> int:
 
     # -- 27. LM serving at full width ------------------------------------------
     torch.cuda.empty_cache()
+    lm_names = LM_ARCHS + tuple(m[0] for m in LM_MOE) + \
+        tuple(f[0] for f in LM_FAMILIES)
     print(f"LM serving (launch.serve, prefill on the flash kernel) at full "
-          f"width: {', '.join(LM_ARCHS + tuple(m[0] for m in LM_MOE))} "
-          f"{tag}:")
+          f"width: {', '.join(lm_names)} {tag}:")
     lm_rows, lm_out = lm_runs(dev, tag, library_attn)
     print(json.dumps({"lm": lm_out}))
 

@@ -5,9 +5,13 @@ then decode with the per-run KV caches (ring buffers for SWA layers).
         [--device cpu]
 
 The counterpart of examples/serve_lm.py for ``repro_torch``, with its
-defaults (the arch's smoke config).  ``--device`` defaults to ``cuda``
-(prefill attention on the hand-written flash kernel; it raises without a
-card); ``--device cpu`` runs the plain versions.
+defaults (the arch's smoke config).  Every arch of the registry serves:
+``--arch qwen2-vl-72b`` prefills embeddings with broadcast m-rope streams,
+``--arch seamless-m4t-medium`` encodes source frames and decodes target
+tokens against the encoder's output.  ``--device`` defaults to ``cuda``
+(decoder prefill self-attention on the hand-written flash kernel; the
+encoder's attention and cross-attention on the plain route; it raises
+without a card); ``--device cpu`` runs the plain versions.
 """
 
 import argparse

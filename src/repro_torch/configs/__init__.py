@@ -1,9 +1,8 @@
 """Configurations: the paper's datasets (``lightpcc``) and the LM
 architectures, resolved by ``--arch <id>`` for launchers and tests.
 
-Port of ``repro/configs/__init__.py``.  The registry names every
-architecture of the reference; those whose modules the port does not run
-yet raise ``NotImplementedError`` naming their ROADMAP slice.
+Port of ``repro/configs/__init__.py``: the registry names every
+architecture of the reference, and the port runs each of them.
 """
 
 from __future__ import annotations
@@ -14,22 +13,18 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-# arch id -> module name, the architectures the port runs
+# arch id -> module name, in the reference's order
 ARCHS: Dict[str, str] = {
     "llama3.2-3b": "llama3_2_3b",
     "nemotron-4-340b": "nemotron_4_340b",
     "starcoder2-3b": "starcoder2_3b",
     "chatglm3-6b": "chatglm3_6b",
-    "falcon-mamba-7b": "falcon_mamba_7b",
-    "hymba-1.5b": "hymba_1_5b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mixtral-8x22b": "mixtral_8x22b",
-}
-# arch id -> the ROADMAP slice that ports what it needs
-LATER: Dict[str, str] = {
-    "qwen2-vl-72b": "slice 12b part 3 (the VLM: mrope inputs, "
-                    "embed_inputs)",
-    "seamless-m4t-medium": "slice 12b part 4 (encoder-decoder)",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 
@@ -39,9 +34,6 @@ def list_archs() -> List[str]:
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in LATER:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP {LATER[arch]}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
@@ -57,4 +49,4 @@ def override(cfg: ModelConfig, **kw) -> ModelConfig:
     return new
 
 
-__all__ = ["ARCHS", "LATER", "list_archs", "get_config", "override"]
+__all__ = ["ARCHS", "list_archs", "get_config", "override"]

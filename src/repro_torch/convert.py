@@ -119,17 +119,21 @@ def operand_from_reference(u_pad, device=None):
 
 
 def lm_params_from_reference(cfg, params, device=None):
-    """The port's parameters (a ``models.transformer.DecoderLM`` on
-    `device`, None meaning "cuda") for the reference's parameter pytree of
-    the same config: nested dicts of float32 arrays, the blocks' leaves
-    stacked (L, ...), as ``np.asarray`` of each leaf of ``model.init(key)``
-    gives them.  Raises ValueError when a leaf is missing, left over, of
-    another shape, or not float32."""
+    """The port's parameters (a ``models.transformer.DecoderLM``, or a
+    ``models.encdec.EncDecLM`` for an encoder-decoder config, on `device`,
+    None meaning "cuda") for the reference's parameter pytree of the same
+    config: nested dicts of float32 arrays, the layers' leaves stacked
+    (L, ...) under ``blocks`` (and ``enc_blocks``, stacked ``enc_layers``),
+    as ``np.asarray`` of each leaf of ``model.init(key)`` gives them.
+    Raises ValueError when a leaf is missing, left over, of another shape,
+    or not float32."""
     # the LM side loads on demand
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import DecoderLM
 
     want = dict(build_model(cfg).init_shapes().named_parameters())
+    depth = {"blocks": cfg.n_layers, "enc_blocks": cfg.enc_layers}
     flat = {}
 
     def walk(node, path):
@@ -140,16 +144,17 @@ def lm_params_from_reference(cfg, params, device=None):
             flat["/".join(path)] = np.asarray(node)
     walk(params, ())
     dev = resolve_device(device)
-    tensors = {"blocks": [{} for _ in range(cfg.n_layers)]}
+    tensors = {name: [{} for _ in range(n)] for name, n in depth.items()}
     expected = set()
     for name, shape_like in want.items():
         shape = tuple(shape_like.shape)
         parts = name.split(".")
-        if parts[0] == "blocks":    # blocks.<i>.<sub>[.<leaf>]
+        stack = parts[0] in depth   # <stack>.<i>.<sub>[.<leaf>]
+        if stack:
             if parts[1] != "0":
                 continue
-            key, shape = "/".join(["blocks"] + parts[2:]), \
-                (cfg.n_layers,) + shape
+            key, shape = "/".join([parts[0]] + parts[2:]), \
+                (depth[parts[0]],) + shape
         else:
             key = name
         expected.add(key)
@@ -160,11 +165,10 @@ def lm_params_from_reference(cfg, params, device=None):
             raise ValueError(f"{key}: expected float32 {shape}, got "
                              f"{arr.dtype} {arr.shape}")
         t = torch.from_numpy(np.array(arr, order="C")).to(dev)
-        if parts[0] != "blocks":
+        if not stack:
             tensors[key] = t
             continue
-        for i in range(cfg.n_layers):
-            node = tensors["blocks"][i]
+        for i, node in enumerate(tensors[parts[0]]):
             for part in parts[2:-1]:
                 node = node.setdefault(part, {})
             node[parts[-1]] = t[i]
@@ -172,7 +176,7 @@ def lm_params_from_reference(cfg, params, device=None):
     if extra:
         raise ValueError(f"reference parameters the port does not have: "
                          f"{extra}")
-    return DecoderLM(cfg, tensors)
+    return (EncDecLM if cfg.enc_dec else DecoderLM)(cfg, tensors)
 
 
 __all__ = ["plan_from_reference", "operand_from_reference",

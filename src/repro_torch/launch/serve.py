@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         [--smoke] --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-Port of ``repro/launch/serve.py`` for the decoder-only families.  It runs on
-``cuda`` (prefill attention on the hand-written flash kernel) and raises
-without a card unless ``--device cpu`` is given.  Parameters are random,
-from a seeded ``torch.Generator``; the prompts are the reference's (numpy
-seed 0).  The sharded path (``--model-axis``) waits for the sharding slice
-(ROADMAP A).
+Port of ``repro/launch/serve.py`` for every LM family.  It runs on
+``cuda`` (decoder prefill self-attention on the hand-written flash kernel)
+and raises without a card unless ``--device cpu`` is given.  Parameters are
+random, from a seeded ``torch.Generator``; the inputs are the reference's
+draws (numpy seed 0): the prompts, then an encoder-decoder's source frames
+or the VLM's embeddings (B, P, D), with broadcast 0..P-1 m-rope streams
+and (B, 3, 1) streams at P + t in decode.  The sharded path
+(``--model-axis``) waits for the sharding slice (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -34,9 +36,10 @@ def _sync(dev: torch.device) -> None:
 
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
           gen: int = 32, device=None, params=None, seed: int = 0) -> dict:
-    """Prefill `batch` prompts of `prompt_len` tokens, then decode `gen` - 1
-    greedy steps.  `params` defaults to a model drawn from
-    ``torch.Generator`` seed `seed` on the device.  Returns the times (host
+    """Prefill `batch` prompts of `prompt_len` tokens (or embeddings, or
+    source frames and target tokens), then decode `gen` - 1 greedy steps.
+    `params` defaults to a model drawn from ``torch.Generator`` seed `seed`
+    on the device.  Returns the times (host
     clock to a synchronised card), the tokens (batch, gen) and the first
     step's logits."""
     dev = resolve_device(device)
@@ -50,10 +53,23 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (batch, prompt_len), dtype=np.int32)).long().to(dev)
+    dt = cfg.activation_dtype()
+    kw = {"tokens": prompts}
+    if cfg.enc_dec or cfg.embed_inputs:
+        frames = torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model))).to(dt).to(dev)
+        if cfg.enc_dec:
+            kw["src"] = frames
+        else:
+            kw = {"embeds": frames}
+            if cfg.rope == "mrope":
+                kw["positions"] = torch.arange(
+                    prompt_len, dtype=torch.int32, device=dev).expand(
+                        batch, 3, prompt_len)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens=prompts)
+    logits, cache = prefill(params, **kw)
     _sync(dev)
     t_pre = time.perf_counter() - t0
 
@@ -62,8 +78,12 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     out = [tok]
     t0 = time.perf_counter()
     for t in range(gen - 1):
+        dkw = {}
+        if cfg.rope == "mrope":
+            dkw["positions"] = torch.full((batch, 3, 1), prompt_len + t,
+                                          dtype=torch.int32, device=dev)
         logits, cache = decode(params, token=tok, cache=cache,
-                               cache_index=prompt_len + t)
+                               cache_index=prompt_len + t, **dkw)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out.append(tok)
     _sync(dev)

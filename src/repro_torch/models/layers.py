@@ -1,8 +1,7 @@
-"""Model building blocks: norms, RoPE, GQA / sliding-window attention, MLPs,
-sort-based capacity-routed MoE.
+"""Model building blocks: norms, RoPE, GQA / sliding-window attention,
+cross-attention, MLPs, sort-based capacity-routed MoE.
 
-Port of ``repro/models/layers.py`` (cross-attention waits for a later
-slice, ROADMAP A).  The same convention:
+Port of ``repro/models/layers.py``.  The same convention:
   init_*(gen, cfg, device) -> param dict for ONE layer
   *_apply(cfg, p, x, ...) -> output(s)
 where ``p`` is any mapping of names to tensors (a dict, or the
@@ -16,9 +15,15 @@ Prefill self-attention dispatches by device, as every kernel wrapper of the
 port does: on a CUDA tensor it runs the hand-written flash kernel
 (``kernels.ops.flash_mha``), which raises if it cannot build or launch; on
 a CPU tensor it runs the reference's plain ``sdpa`` / ``_chunked_sdpa``.
-Decode attention (one query against a ring buffer) is plain tensor code on
-both devices, as in the reference.  So is the MoE layer: the reference
-routes, dispatches and combines in plain XLA, outside any Pallas kernel.
+The flash kernel masks by index 0..S-1, so the card takes it only where
+the mask's position stream is that index (``index_stream``, asked once a
+prefill by ``transformer.forward``); other streams, such as an image's
+patches sharing one temporal position, take the plain route on the card
+too.  Decode attention (one query against a ring buffer), the encoder's
+bidirectional attention and cross-attention are plain tensor code on both
+devices, as in the reference, where no Pallas kernel computes them.  So is
+the MoE layer: the reference routes, dispatches and combines in plain XLA,
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -132,7 +137,10 @@ def default_positions(batch: int, seq: int, offset=0, device=None) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg: ModelConfig, device=None) -> dict:
+def init_attention(gen, cfg: ModelConfig, device=None,
+                   cross: bool = False) -> dict:
+    """One attention layer's projections; a cross-attention layer
+    (``cross``) has no biases."""
     hd, h, hkv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     dev = _device(gen, device)
     p = {
@@ -142,7 +150,7 @@ def init_attention(gen, cfg: ModelConfig, device=None) -> dict:
         "wo": dense_init(gen, (h * hd, d), dev,
                          scale=0.02 / max(cfg.n_layers, 1) ** 0.5),
     }
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         for name, width in (("bq", h * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
             p[name] = torch.zeros((width,), device=dev)
@@ -231,33 +239,46 @@ def _flash_route(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
     return out.transpose(1, 2).reshape(b, s, h * hd)
 
 
+def index_stream(positions: Optional[Tensor]) -> bool:
+    """Whether the attention mask's position stream (the temporal stream
+    positions[:, 0, :] of (B, 3, S) m-rope streams, or (B, S) positions) is
+    0..S-1 in every row, so that the flash kernel's index mask is the
+    reference's.  None is the index.  One comparison and one host sync:
+    ``transformer.forward`` asks once a prefill, not once a layer."""
+    if positions is None:
+        return True
+    stream = positions[:, 0, :] if positions.ndim == 3 else positions
+    index = torch.arange(stream.shape[-1], dtype=stream.dtype,
+                         device=stream.device)
+    return torch.equal(stream, index.expand_as(stream))
+
+
 def self_attention(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
                    positions: Optional[Tensor], window: int) -> Tensor:
     """Prefill self-attention of rotated q (B,S,H,hd) against k, v
-    (B,S,Hkv,hd), dispatched by device: the flash kernel on the card, the
-    plain route on the CPU.  positions: None means 0..S-1; explicit
-    positions (B,S) run on the CPU only."""
-    if q.device.type == "cuda":
-        if positions is not None:
-            raise NotImplementedError(
-                "explicit positions on the card: the flash kernel runs at "
-                "positions 0..S-1; position streams come with the VLM "
-                "(ROADMAP slice 12b part 3)")
-        return _flash_route(cfg, q, k, v, window)
+    (B,S,Hkv,hd).  positions None masks by index 0..S-1: the flash kernel
+    on the card, the plain route on the CPU.  Explicit positions (B,S)
+    mask by that stream: the plain route on both devices."""
     if positions is None:
+        if q.device.type == "cuda":
+            return _flash_route(cfg, q, k, v, window)
         positions = default_positions(q.shape[0], q.shape[1],
                                       device=q.device).expand(q.shape[0], -1)
     return _plain_route(cfg, q, k, v, positions, window)
 
 
 def attention_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
-                    positions: Optional[Tensor], window: int):
+                    positions: Optional[Tensor], window: int,
+                    index_mask: bool = False):
     """Full-sequence self-attention (train/prefill).  positions: (B, S),
-    (B, 3, S) for m-rope, or None for 0..S-1.  Returns (out (B,S,D),
-    (k, v) rotated, (B,S,Hkv,hd)).
+    (B, 3, S) for m-rope, or None for 0..S-1; they always rotate q and k.
+    The mask takes their (temporal) stream, or the index 0..S-1 when
+    positions is None or the caller has found the stream to be the index
+    (``index_mask``, from ``index_stream``).  Returns (out (B,S,D), (k, v)
+    rotated, (B,S,Hkv,hd)).
 
-    cfg.attn_chunk > 0 selects the reference's q-chunked path on the CPU;
-    on the card the flash kernel takes every layer whole.
+    cfg.attn_chunk > 0 selects the reference's q-chunked path on the plain
+    route; on the card the flash kernel takes an index-masked layer whole.
     """
     b, s = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(cfg, p, x, x)
@@ -266,10 +287,37 @@ def attention_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
     q = apply_rope(cfg, q, rope_pos)
     k = apply_rope(cfg, k, rope_pos)
     pos1d = None
-    if positions is not None:
+    if positions is not None and not index_mask:
         pos1d = positions[:, 0, :] if positions.ndim == 3 else positions
     out = self_attention(cfg, q, k, v, pos1d, window)
     return out @ p["wo"].to(out.dtype), (k, v)
+
+
+def encoder_attention_apply(cfg: ModelConfig, p: Mapping[str, Tensor],
+                            x: Tensor, positions: Tensor) -> Tensor:
+    """The encoder's bidirectional self-attention
+    (``repro/models/encdec.py`` ``_enc_block_apply``): q, k rotated at
+    positions (B, S), no causal mask, q-chunked when cfg.attn_chunk > 0
+    divides S.  Plain tensor code on both devices.  Returns (B, S, D)."""
+    q, k, v = _project_qkv(cfg, p, x, x)
+    q = apply_rope(cfg, q, positions)
+    k = apply_rope(cfg, k, positions)
+    out = _bidirectional_sdpa(cfg, q, k, v, positions, positions)
+    return out @ p["wo"].to(out.dtype)
+
+
+def _bidirectional_sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                        q_pos: Tensor, k_pos: Tensor) -> Tensor:
+    """sdpa with no causal mask, q-chunked when cfg.attn_chunk > 0 divides
+    S_q (the reference's scan over query chunks)."""
+    s, c = q.shape[1], cfg.attn_chunk
+    if c > 0 and s > c and s % c == 0:
+        return torch.cat([sdpa(cfg, q[:, i:i + c], k, v,
+                               q_pos=q_pos[:, i:i + c], k_pos=k_pos,
+                               window=0, causal=False)
+                          for i in range(0, s, c)], dim=1)
+    return sdpa(cfg, q, k, v, q_pos=q_pos, k_pos=k_pos, window=0,
+                causal=False)
 
 
 def _chunked_sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
@@ -340,6 +388,36 @@ def attention_decode(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
     out = sdpa(cfg, q, kc, vc, q_pos=q_pos, k_pos=k_pos, window=window,
                causal=True, k_valid=k_valid)
     return out @ p["wo"].to(out.dtype), k_cache, v_cache
+
+
+def cross_attention_apply(cfg: ModelConfig, p: Mapping[str, Tensor],
+                          x: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Cross-attention of x (B, S_q, D) against precomputed encoder K/V
+    (B, S_enc, Hkv, hd): every position 0, no causal mask, q-chunked like
+    self-attention when cfg.attn_chunk > 0 divides S_q.  Plain tensor code
+    on both devices.  Returns (B, S_q, D)."""
+    b, sq, _ = x.shape
+    hd, h = cfg.hd, cfg.n_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, h, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    q_pos = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = _bidirectional_sdpa(cfg, q, k, v, q_pos, k_pos)
+    return out @ p["wo"].to(out.dtype)
+
+
+def cross_kv(cfg: ModelConfig, p: Mapping[str, Tensor],
+             enc_out: Tensor) -> Tuple[Tensor, Tensor]:
+    """A cross-attention layer's K and V (B, S_enc, Hkv, hd) of the
+    encoder's output."""
+    b, sk, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, sk, hkv, hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, sk, hkv, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +589,8 @@ def moe_apply_per_example(cfg: ModelConfig, p: Mapping[str, Tensor],
 __all__ = [
     "dense_init", "rms_norm", "apply_rope", "default_positions",
     "init_attention", "attention_apply", "attention_decode", "sdpa",
-    "self_attention", "init_mlp", "mlp_apply", "init_moe", "moe_capacity",
-    "moe_route", "moe_apply", "moe_apply_global", "moe_apply_per_example",
+    "self_attention", "index_stream", "encoder_attention_apply",
+    "cross_attention_apply", "cross_kv", "init_mlp", "mlp_apply", "init_moe",
+    "moe_capacity", "moe_route", "moe_apply", "moe_apply_global",
+    "moe_apply_per_example",
 ]

@@ -1,8 +1,8 @@
 """Model registry: build a family-dispatched Model facade from a config.
 
-Port of ``repro/models/registry.py`` for the decoder-only dense, MoE, SSM
-and hybrid families.  Encoder-decoder and embedding-input (VLM) configs
-raise ``NotImplementedError`` naming their ROADMAP slice.
+Port of ``repro/models/registry.py``: decoder-only configs (dense, MoE,
+SSM, hybrid, the VLM) build ``transformer.DecoderLM``s, encoder-decoder
+configs ``encdec.EncDecLM``s.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import steps, transformer
+from repro_torch.models import encdec, steps, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -20,25 +20,30 @@ from repro_torch.models.config import ModelConfig
 class Model:
     cfg: ModelConfig
 
+    @property
+    def trunk(self):
+        """The family's module: ``encdec`` or ``transformer``."""
+        return encdec if self.cfg.enc_dec else transformer
+
     def init(self, generator: Optional[torch.Generator] = None,
-             device=None) -> transformer.DecoderLM:
+             device=None):
         """Parameters drawn from `generator` (default: seed 0 on `device`,
         itself "cuda" by default) onto its device."""
         if generator is None:
             generator = torch.Generator(
                 device=device if device is not None else "cuda")
             generator.manual_seed(0)
-        return transformer.init_params(generator, self.cfg, device)
+        return self.trunk.init_params(generator, self.cfg, device)
 
-    def init_shapes(self) -> transformer.DecoderLM:
+    def init_shapes(self):
         """The parameters on the meta device: shapes, no allocation."""
-        return transformer.init_params(None, self.cfg, "meta")
+        return self.trunk.init_params(None, self.cfg, "meta")
 
     def init_cache(self, batch: int, capacity: int, device=None):
         return steps.init_cache(self.cfg, batch, capacity, device=device)
 
     def forward(self, params, **kw):
-        return transformer.forward(self.cfg, params, **kw)
+        return self.trunk.forward(self.cfg, params, **kw)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.init_shapes().parameters())
@@ -60,12 +65,6 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     cfg.validate()
-    for flag, slice_ in ((cfg.enc_dec, "part 4 (encoder-decoder)"),
-                         (cfg.embed_inputs, "part 3 (the VLM: embedding "
-                                            "inputs, mrope streams)")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.arch}: not ported yet, ROADMAP slice 12b {slice_}")
     return Model(cfg)
 
 

@@ -66,20 +66,22 @@ def _pdict(tensors: Mapping[str, Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer's parameters: ``ln1``, and ``attn`` / ``ssm`` /
-    ``ln2`` + ``mlp`` or ``moe`` as the family has them, each sub-layer an
-    ``nn.ParameterDict`` under the reference's leaf names.  It holds no
-    config: ``block_apply`` / ``block_decode`` run it under the caller's,
-    as the reference's steps pass theirs."""
+    """One layer's parameters: ``ln1``, and ``attn`` / ``ssm`` / ``ln2`` +
+    ``mlp`` or ``moe`` as the family has them (an encoder-decoder's decoder
+    layers add ``lnx`` + ``xattn``), each sub-layer an ``nn.ParameterDict``
+    under the reference's leaf names.  It holds no config: ``block_apply``
+    / ``block_decode`` run it under the caller's, as the reference's steps
+    pass theirs."""
 
     def __init__(self, tensors: Mapping):
         super().__init__()
         self.ln1 = _frozen(tensors["ln1"])
-        for name in ("attn", "ssm", "mlp", "moe"):
+        for name in ("attn", "xattn", "ssm", "mlp", "moe"):
             if name in tensors:
                 setattr(self, name, _pdict(tensors[name]))
-        if "ln2" in tensors:
-            self.ln2 = _frozen(tensors["ln2"])
+        for name in ("ln2", "lnx"):
+            if name in tensors:
+                setattr(self, name, _frozen(tensors[name]))
 
 
 class DecoderLM(nn.Module):
@@ -136,16 +138,18 @@ def init_params(gen, cfg: ModelConfig, device=None) -> DecoderLM:
 
 def block_apply(cfg: ModelConfig, p: Block, x: Tensor,
                 positions: Optional[Tensor], window: int,
-                return_cache: bool = False):
+                return_cache: bool = False, index_mask: bool = False):
     """One decoder layer, full-sequence.  Returns (x, aux, cache_piece|None).
     cache_piece holds raw per-layer state: kv (B,S,Hkv,hd) and/or ssm state.
-    aux is the MoE layer's load-balance loss, 0.0 without MoE."""
+    aux is the MoE layer's load-balance loss, 0.0 without MoE.  index_mask:
+    the mask's position stream is 0..S-1 (``L.attention_apply``)."""
     aux = 0.0
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
     delta = torch.zeros_like(x)
     piece: dict = {}
     if _has_attn(cfg):
-        attn_out, kv = L.attention_apply(cfg, p.attn, h, positions, window)
+        attn_out, kv = L.attention_apply(cfg, p.attn, h, positions, window,
+                                         index_mask=index_mask)
         delta = delta + attn_out
         if return_cache:
             piece["k"], piece["v"] = kv
@@ -198,21 +202,29 @@ def block_decode(cfg: ModelConfig, p: Block, x: Tensor, positions,
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg: ModelConfig, params: DecoderLM, *, tokens: Tensor,
+def forward(cfg: ModelConfig, params: DecoderLM, *,
+            tokens: Optional[Tensor] = None,
+            embeds: Optional[Tensor] = None,
             positions: Optional[Tensor] = None,
             cache_capacity: Optional[int] = None):
-    """Full-sequence forward of tokens (B, S).  Returns (hidden, aux,
-    caches).
+    """Full-sequence forward of tokens (B, S) or embeddings (B, S, D) (the
+    VLM's stub frontend).  Returns (hidden, aux, caches).
 
     `caches` is a per-run list of decode caches (or None) when
     cache_capacity is given (prefill).  The returned hidden state is
-    post-final-norm; callers project to logits.  positions None means
-    0..S-1 (the only positions the card's flash route takes).  The
-    reference's `embeds=` input comes with the VLM (ROADMAP slice 12b).
+    post-final-norm; callers project to logits.  positions: (B, S), the
+    (B, 3, S) m-rope streams, or None for 0..S-1.  Whether the mask's
+    stream is 0..S-1, which lets the card's flash kernel take every
+    attention layer, is decided here once (``L.index_stream``).
     """
-    # gathering rows, then casting: the bits of casting the whole table
-    x = params.embed[tokens].to(cfg.activation_dtype())
-    b, s = tokens.shape
+    if embeds is not None:
+        x = embeds.to(cfg.activation_dtype())
+        b, s = x.shape[0], x.shape[1]
+    else:
+        # gathering rows, then casting: the bits of casting the whole table
+        x = params.embed[tokens].to(cfg.activation_dtype())
+        b, s = tokens.shape
+    index_mask = L.index_stream(positions)
 
     total_aux = 0.0
     caches = [] if cache_capacity is not None else None
@@ -225,7 +237,7 @@ def forward(cfg: ModelConfig, params: DecoderLM, *, tokens: Tensor,
         for i in range(cnt):
             x, a, piece = block_apply(
                 cfg, params.blocks[start + i], x, positions, w,
-                return_cache=run_cache is not None)
+                return_cache=run_cache is not None, index_mask=index_mask)
             total_aux = total_aux + a
             if run_cache is not None:
                 _prefill_cache(cfg, run_cache, i, piece, w, s)

@@ -42,6 +42,11 @@ def _run(*args):
     # the LM side: hymba-1.5b's smoke config, prefill + greedy decode
     ("torch_serve_lm.py", [],
      "arch=hymba-1.5b-smoke batch=4 prefill(48 tok)="),
+    # the VLM (embeddings, m-rope streams) and the encoder-decoder
+    ("torch_serve_lm.py", ["--arch", "qwen2-vl-72b"],
+     "arch=qwen2-vl-72b-smoke batch=4 prefill(48 tok)="),
+    ("torch_serve_lm.py", ["--arch", "seamless-m4t-medium"],
+     "arch=seamless-m4t-medium-smoke batch=4 prefill(48 tok)="),
 ])
 def test_example_runs_on_cpu(script, extra, expect):
     out = _run(f"examples/{script}", "--device", "cpu", *extra)

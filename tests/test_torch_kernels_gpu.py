@@ -1428,28 +1428,127 @@ def test_lm_flash_route_matches_the_plain_route(cuda, dtype, window, s):
                                   w4.transpose(1, 2)) <= 1
 
 
-@pytest.mark.gpu
-def test_lm_explicit_positions_refused_on_card(cuda):
-    from repro_torch.configs import get_config
-    from repro_torch.models import layers
+def _lm_smoke_batch(cfg, device, stream="arange", s=48, b=2):
+    """A SMOKE config's prefill inputs (numpy seed 1) on `device` and the
+    decode step's m-rope positions: tokens; the VLM's embeddings with m-rope
+    streams ("arange": broadcast 0..S-1; "image": a 4 x 4 image block of
+    patches sharing t = 8 after 8 text positions, text after it from 12);
+    the encoder-decoder's source frames and target tokens."""
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(device)
+    if not (cfg.enc_dec or cfg.embed_inputs):
+        return {"tokens": toks}, {}
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)).to(
+            device=device, dtype=cfg.activation_dtype())
+    if cfg.enc_dec:
+        return {"src": frames, "tokens": toks}, {}
+    if stream == "image":
+        grid = np.arange(16)
+        t = np.r_[np.arange(8), np.full(16, 8), np.arange(12, 12 + s - 24)]
+        h = np.r_[np.arange(8), 8 + grid // 4, t[24:]]
+        w = np.r_[np.arange(8), 8 + grid % 4, t[24:]]
+        pos, nxt = np.stack([t, h, w]), int(t[-1]) + 1
+    else:
+        pos, nxt = np.tile(np.arange(s), (3, 1)), s
+    pos = torch.from_numpy(pos.astype(np.int32)).to(device).expand(b, 3, s)
+    return {"embeds": frames, "positions": pos}, {
+        "positions": torch.full((b, 3, 1), nxt, dtype=torch.int32,
+                                device=device)}
 
-    cfg = get_config("llama3.2-3b", smoke=True)
-    q, k, v = _lm_attention_inputs(cfg, 16, cuda, torch.float32)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        layers.self_attention(cfg, q, k, v,
-                              torch.arange(16, device=cuda)[None, :], 0)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_index_streams_take_the_flash_kernel(cuda, monkeypatch, dtype):
+    """The VLM with broadcast 0..S-1 m-rope streams on the card: the mask
+    decision (one a prefill) finds the index, so every layer launches the
+    flash kernel once and the plain route never runs."""
+    from repro_torch.configs import get_config, override
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models import layers, steps
+    from repro_torch.models.registry import build_model
+
+    cfg = override(get_config("qwen2-vl-72b", smoke=True), dtype=dtype)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    batch, _ = _lm_smoke_batch(cfg, cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an index stream reached the plain route")
+
+    monkeypatch.setattr(layers, "_plain_route", refuse)
+    before = dict(fmod.flash_attention.launches_by_dtype)
+    logits, _ = steps.make_prefill_step(cfg)(params, **batch)
+    torch.cuda.synchronize()
+    after = dict(fmod.flash_attention.launches_by_dtype)
+    assert after[dtype] - before[dtype] == cfg.n_layers
+    assert sum(after.values()) - sum(before.values()) == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_lm_image_stream_takes_the_plain_route_on_card(cuda, monkeypatch):
+    """The VLM with an image block (patches sharing t) on the card: no
+    flash launch, the plain route once a layer, masked by the temporal
+    stream; the float32 prefill's logits and caches and a decode step's
+    logits within 1e-5 of the CPU's largest |value| (the same float32
+    terms in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models import layers, steps
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("qwen2-vl-72b", smoke=True)    # float32
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    batch, dkw = _lm_smoke_batch(cfg, "cpu", stream="image")
+    plain_route, routed = layers._plain_route, []
+
+    def counting(*args, **kwargs):
+        routed.append(args[1].device.type)
+        return plain_route(*args, **kwargs)
+
+    monkeypatch.setattr(layers, "_plain_route", counting)
+    prefill = steps.make_prefill_step(cfg, cache_capacity=56)
+    decode = steps.make_decode_step(cfg)
+    want, cache_c = prefill(params, **batch)
+    tok = want[:, -1].argmax(-1)[:, None]
+    want_d, _ = decode(params, token=tok, cache=cache_c, cache_index=48,
+                       **dkw)
+    routed.clear()
+    params = params.to(cuda)
+    on = {k: v.to(cuda) for k, v in batch.items()}
+    before = dict(fmod.flash_attention.launches_by_dtype)
+    got, cache = prefill(params, **on)
+    torch.cuda.synchronize()
+    assert dict(fmod.flash_attention.launches_by_dtype) == before
+    assert routed == ["cuda"] * cfg.n_layers
+    got_d, _ = decode(params, token=tok.to(cuda), cache=cache,
+                      cache_index=48,
+                      **{k: v.to(cuda) for k, v in dkw.items()})
+    for w, g in [(want, got), (want_d, got_d)] + [
+            (cache_c[0][n], cache[0][n]) for n in ("k", "v")]:
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), err
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,dtype", [("hymba-1.5b", "float32"),
                                         ("hymba-1.5b", "bfloat16"),
-                                        ("llama3.2-3b", "bfloat16")])
+                                        ("llama3.2-3b", "bfloat16"),
+                                        ("qwen2-vl-72b", "float32"),
+                                        ("qwen2-vl-72b", "bfloat16"),
+                                        ("seamless-m4t-medium", "float32"),
+                                        ("seamless-m4t-medium",
+                                         "bfloat16")])
 def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
                                                         arch, dtype):
-    """A SMOKE prefill (S = 48, across hymba's window 32) on the card: one
-    flash launch per attention layer, none of the plain route or the
-    wrapper's plain version; every layer's flash output against the plain
-    route on the same inputs (float32 within 2e-6, bf16 within the
+    """A SMOKE prefill (S = 48, across hymba's window 32; the VLM from
+    embeddings with broadcast 0..S-1 m-rope streams; the encoder-decoder
+    from source frames, its decoder's self-attention) on the card: one
+    flash launch per (decoder) attention layer, none of the plain route or
+    the wrapper's plain version; every layer's flash output against the
+    plain route on the same inputs (float32 within 2e-6, bf16 within the
     row-scaled gate); the last logits against a prefill through the plain
     route (float32 within 1e-4 of the largest |logit|, bf16 within the
     reference's 2e-2), and one decode step launching no flash kernel."""
@@ -1461,8 +1560,11 @@ def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
     cfg = override(get_config(arch, smoke=True), dtype=dtype)
     params = build_model(cfg).init(
         torch.Generator(device=cuda).manual_seed(0), device=cuda)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 48))).to(cuda)
+    batch, dkw = _lm_smoke_batch(cfg, cuda)
+    toks = batch.get("tokens")
+    if toks is None:   # the VLM's decode tokens
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 48))).to(cuda)
     plain_route, flash_route = layers._plain_route, layers._flash_route
     records = []
 
@@ -1479,14 +1581,14 @@ def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
     monkeypatch.setattr(fmod, "flash_attention_plain", refuse)
     before = dict(fmod.flash_attention.launches_by_dtype)
     logits, cache = steps.make_prefill_step(cfg, cache_capacity=56)(
-        params, tokens=toks)
+        params, **batch)
     torch.cuda.synchronize()
     after = dict(fmod.flash_attention.launches_by_dtype)
     assert after[dtype] - before[dtype] == cfg.n_layers == len(records)
     assert sum(after.values()) - sum(before.values()) == cfg.n_layers
     assert [r[3] for r in records] == [w for w in cfg.layer_windows()]
     steps.make_decode_step(cfg)(params, token=toks[:, -1:], cache=cache,
-                                cache_index=48)
+                                cache_index=48, **dkw)
     assert dict(fmod.flash_attention.launches_by_dtype) == after
     monkeypatch.setattr(layers, "_plain_route", plain_route)
     pos = torch.arange(48, device=cuda)[None, :].expand(2, -1)
@@ -1503,7 +1605,7 @@ def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
         lambda cfg_, q, k, v, window: plain_route(cfg_, q, k, v, pos,
                                                   window))
     want, _ = steps.make_prefill_step(cfg, cache_capacity=56)(
-        params, tokens=toks)
+        params, **batch)
     err = float((logits - want).abs().max())
     if dtype == "float32":
         assert err <= 1e-4 * float(want.abs().max())

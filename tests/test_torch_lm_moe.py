@@ -208,7 +208,8 @@ def _bf16_runs(arch):
     reference steps, port steps), a step (the prefill first) holding its
     logits and caches as float32 numpy and its MoE calls."""
     rcfg, cfg = lm_configs(arch, "bfloat16")
-    params, toks, _ = reference_run(arch, "bfloat16")
+    params, batch, _ = reference_run(arch, "bfloat16")
+    toks = batch["tokens"]
     ref_moe, calls, ref = RL.moe_apply, [], []
 
     def ref_spy(c, p, x):
