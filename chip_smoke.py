@@ -271,6 +271,31 @@ Phases, each fatal on failure:
      after a prefill of 1,023 against the full forward.  A record row a
      window class of each LM prefill (kernel, plain and library ms, bound,
      launches).
+ 28. LM training (models/steps.make_train_step, optim/adamw.py,
+     runtime/train_loop.TrainLoop; no kernel: training attention takes the
+     plain route, the flash kernel having no backward): (a) llama3.2-3b
+     FULL (28 layers, 3.21 B float32 parameters and two float32 moments,
+     bf16 activations) at launch/train.py's defaults, global batch 8 x
+     256, three steps on one batch: every loss and gradient norm finite,
+     the third loss below 1.05 x the first, every gradient leaf finite,
+     every attention leaf's non-zero, no flash launch; the first (cold)
+     step's ms and the warm steps' median, forward + backward and the
+     AdamW update timed apart by CUDA events, peak memory above the
+     parameters; (b) llama3.2-3b and
+     qwen3-moe-30b-a3b SMOKE in float32, card against CPU: the loss and
+     every gradient leaf within 1e-5 (of the leaf's largest |g|), the MoE
+     routing equal, AdamW fed the CPU's gradients within 1e-6 of each
+     leaf's largest value; (c) the TrainLoop at full width and 2 layers
+     over mesh ["cuda:0"], pjit, 6 steps, checkpoints every 3, a failure
+     injected at step 4: step 4 re-runs, the losses after the restore
+     within 1e-6 relative of an uninterrupted run's, the checkpoint's MB,
+     save, write, restore and resume ms (the directory removed after),
+     the recovering run's peak memory within half the parameters and
+     moments of the uninterrupted run's; (d) dp_compressed over
+     ["cuda:0"] * 2 at SMOKE, 4 steps: the replicas bitwise equal, the
+     loss falling; (e) launch/train.py's main at SMOKE on its default
+     device: every leaf on the card, the loss falling; the phase's
+     seconds.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -282,6 +307,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 from math import gcd
 import statistics
@@ -556,6 +582,28 @@ TOL_MOE = 1e-5
 LM_FAMILIES = (("qwen2-vl-72b", 12), ("seamless-m4t-medium", None))
 LM_IMAGE_AT, LM_IMAGE_GRID = 1_024, 32
 TOL_WITNESS = 1e-5
+# Phase 28, LM training: llama3.2-3b FULL (28 layers, 3.21 B parameters:
+# float32 parameters, gradients and two float32 moments, ~51.4 GB) at
+# launch/train.py's defaults, global batch 8 x sequence 256, three steps
+# of make_train_step on one batch (the third loss below 1.05 x the first,
+# as tests/test_arch_smoke.py:69 asks).  (b) card against CPU at SMOKE in
+# float32, the CPU tests' tolerances: the loss and each gradient leaf
+# within 1e-5 (of the leaf's largest |g|), AdamW fed the CPU's gradients
+# within 1e-6 of each leaf's largest value (the same float32 arithmetic;
+# sums in other orders).  (c) the TrainLoop at full width, depth cut to 2
+# layers (~7.2 GB a checkpoint: parameters and two moments), a failure
+# injected at step 4 of 6 with checkpoints every 3: the steps after the
+# restore within TOL_RESUME relative of an uninterrupted run's (the card's
+# backward sums in an order that may change from run to run).  (d)
+# dp_compressed over two logical ranks on the card.  (e) launch/train.py's
+# main at SMOKE, CLI_STEPS steps, on its default device.
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 3
+TRAIN_SMOKE = ("llama3.2-3b", "qwen3-moe-30b-a3b")
+TOL_TRAIN, TOL_TRAIN_ADAM, TOL_RESUME = 1e-5, 1e-6, 1e-6
+LOOP_LAYERS, LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 2, 6, 3, 4
+DP_RANKS, DP_STEPS = 2, 4
+CLI_STEPS = 3
 
 
 def gpu_info() -> str:
@@ -3115,6 +3163,375 @@ def lm_runs(dev, tag, library_attn):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 27 took {out['seconds']:.1f} s {tag}")
     return rows, out
+
+
+def train_runs(dev, tag):
+    """Phase 28, LM training on the card (see TRAIN_ARCH): the train step
+    at full width and depth, card against CPU at SMOKE, the fault-tolerant
+    loop with a checkpoint restore, dp_compressed over logical ranks, and
+    the launcher on its default device.
+    Returns the phase's numbers; any failed check raises."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_config, override
+    from repro_torch.data.synthetic import TokenStreamSpec, batch_at
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers, steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import (FailureInjected, LoopConfig,
+                                                TrainLoop)
+    from repro_torch.tree import named_leaves
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def gb(n_bytes):
+        return n_bytes / 1e9
+
+    # -- (a) the train step at full width and depth ---------------------------
+    cfg = get_config(TRAIN_ARCH)
+    # tests/test_arch_smoke.py's optimizer: the warmup of 100 steps
+    opt = adamw.AdamWConfig(total_steps=10, moment_dtype=cfg.opt_state_dtype)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                  dev, trainable=True)
+    names = [n for n, _ in named_leaves(model)]
+    n_params = sum(p.numel() for p in model.parameters())
+    state = adamw.init(opt, model)
+    param_gb = gb(sum(p.numel() * p.element_size()
+                      for p in model.parameters()))
+    opt_gb = gb(sum(t.numel() * t.element_size()
+                    for t in state["m"] + state["v"]))
+    batch = batch_at(TokenStreamSpec(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH), 0)
+    step = steps.make_train_step(cfg, opt, device=dev)
+    real_update = steps.adamw.update
+    marks, checks = [], []
+
+    def timed_update(opt_cfg, grads, st, params):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()              # forward + backward done
+        # every gradient leaf finite, every attention leaf's non-zero
+        finite = torch.stack([torch.isfinite(g).all() for g in grads])
+        amax = torch.stack([g.detach().abs().max() for g in grads])
+        checks.append((finite, amax))
+        events[1].record()
+        res = real_update(opt_cfg, grads, st, params)
+        events[2].record()
+        marks[-1] += tuple(events)
+        return res
+
+    steps.adamw.update = timed_update
+    flash_attention.launches = 0
+    losses, norms = [], []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            marks.append((start,))
+            _, state, m = step(model, state, **batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+    finally:
+        steps.adamw.update = real_update
+    peak_above = gb(torch.cuda.max_memory_allocated() - held) - param_gb
+    flash_launches = flash_attention.launches
+    # the step without the phase's own checks of the gradients; the first
+    # step is cold (the process's first backward), the medians are of the
+    # warm steps after it
+    fwd_bwd = [s.elapsed_time(g) for s, g, _, _ in marks]
+    upd = [b.elapsed_time(e) for _, _, b, e in marks]
+    total = [a + b for a, b in zip(fwd_bwd, upd)]
+    warm = {k: statistics.median(v[1:]) for k, v in
+            (("step", total), ("fwd_bwd", fwd_bwd), ("adamw", upd))}
+    attn = [i for i, n in enumerate(names) if ".attn." in n]
+    out["step"] = {
+        "arch": cfg.arch, "layers": cfg.n_layers, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+        "grad_norms": norms, "cold_step_ms": total[0],
+        "warm_step_ms": warm["step"], "step_runs": total,
+        "warm_fwd_bwd_ms": warm["fwd_bwd"], "fwd_bwd_runs": fwd_bwd,
+        "warm_adamw_ms": warm["adamw"], "adamw_runs": upd,
+        "param_gb": param_gb, "moment_gb": opt_gb,
+        "peak_above_params_gb": peak_above,
+        "peak_above_params_and_moments_gb": peak_above - opt_gb,
+        "flash_launches": flash_launches,
+        "attention_leaves": len(attn)}
+    print(f"  (a) {cfg.arch} FULL ({cfg.n_layers} layers, {n_params:,} "
+          f"parameters, {param_gb:.3f} GB + moments {opt_gb:.3f} GB, float32"
+          f"; {cfg.dtype} activations), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: first (cold) step {total[0]:.3f} ms, warm steps' "
+          f"median {warm['step']:.3f} (runs {[round(t, 3) for t in total]})"
+          f", forward + backward {warm['fwd_bwd']:.3f} (runs "
+          f"{[round(t, 3) for t in fwd_bwd]}), AdamW {warm['adamw']:.3f} "
+          f"(runs {[round(t, 3) for t in upd]}); losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; peak {peak_above:.3f} GB above "
+          f"the parameters ({peak_above - opt_gb:.3f} above parameters and "
+          f"moments); flash launches {flash_launches} {tag}")
+    for i, (finite, amax) in enumerate(checks):
+        bad = [names[j] for j in torch.nonzero(~finite).flatten().tolist()]
+        if bad:
+            raise RuntimeError(f"step {i}: non-finite gradients in {bad[:4]}")
+        zero = [names[j] for j in attn if float(amax[j]) == 0.0]
+        if zero:
+            raise RuntimeError(f"step {i}: zero attention gradients in "
+                               f"{zero[:4]}")
+    if not all(np.isfinite(losses + norms)):
+        raise RuntimeError(f"non-finite loss or norm: {losses} {norms}")
+    if not losses[-1] < 1.05 * losses[0]:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    if flash_launches:
+        raise RuntimeError(f"{flash_launches} flash launches under autograd")
+    print(f"      every gradient leaf finite in every step, each of the "
+          f"{len(attn)} attention leaves' non-zero; the third loss below "
+          f"1.05 x the first")
+    del model, state, step, checks
+    torch.cuda.empty_cache()
+
+    # -- (b) card against CPU at SMOKE ---------------------------------------
+    out["smoke"] = {}
+    for arch in TRAIN_SMOKE:
+        scfg = get_config(arch, smoke=True)
+        cpu_model = build_model(scfg).init(torch.Generator().manual_seed(0),
+                                           "cpu", trainable=True)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        sbatch = batch_at(TokenStreamSpec(vocab=scfg.vocab, seq_len=48,
+                                          global_batch=2, seed=1), 0)
+        routes = {"cpu": [], "cuda": []}
+        side = ["cpu"]
+        route = layers.moe_route
+
+        def spy(c, router, x, cap):
+            res = route(c, router, x, cap)
+            routes[side[0]].append(res[5].cpu())
+            return res
+        layers.moe_route = spy
+        try:
+            m_cpu, g_cpu = steps.grads_of(scfg, cpu_model,
+                                          steps.as_batch(sbatch, "cpu"))
+            side[0] = "cuda"
+            m_card, g_card = steps.grads_of(scfg, card_model,
+                                            steps.as_batch(sbatch, dev))
+        finally:
+            layers.moe_route = route
+        if len(routes["cpu"]) != len(routes["cuda"]) or not all(
+                torch.equal(a, b) for a, b in zip(routes["cpu"],
+                                                  routes["cuda"])):
+            raise RuntimeError(f"{arch}: the card routes otherwise")
+        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / \
+            abs(float(m_cpu["loss"]))
+        shares = [float((gd.cpu() - gc).abs().max())
+                  / max(float(gc.abs().max()), 1e-30)
+                  for gc, gd in zip(g_cpu, g_card)]
+        sopt = adamw.AdamWConfig(peak_lr=1e-2, warmup_steps=1,
+                                 total_steps=10)
+        s_cpu, s_card = adamw.init(sopt, cpu_model), adamw.init(sopt,
+                                                                card_model)
+        adamw.update(sopt, g_cpu, s_cpu, cpu_model)
+        adamw.update(sopt, [g.to(dev) for g in g_cpu], s_card, card_model)
+        upd_shares = [float((b.detach().cpu() - a.detach()).abs().max())
+                      / max(float(a.detach().abs().max()), 1e-30)
+                      for a, b in zip(cpu_model.parameters(),
+                                      card_model.parameters())]
+        if loss_err > TOL_TRAIN or max(shares) > TOL_TRAIN or \
+                max(upd_shares) > TOL_TRAIN_ADAM:
+            raise RuntimeError(f"{arch}: card vs CPU loss {loss_err:.3e}, "
+                               f"gradients {max(shares):.3e}, AdamW "
+                               f"{max(upd_shares):.3e}")
+        out["smoke"][arch] = {"loss_rel": loss_err,
+                              "grad_share": max(shares),
+                              "adamw_share": max(upd_shares),
+                              "moe_calls": len(routes["cuda"])}
+        print(f"  (b) {scfg.arch} float32, card vs CPU: loss {loss_err:.3e} "
+              f"relative, gradients {max(shares):.3e} of each leaf's max "
+              f"(tol {TOL_TRAIN}), AdamW fed the CPU's gradients "
+              f"{max(upd_shares):.3e} (tol {TOL_TRAIN_ADAM}), MoE calls "
+              f"{len(routes['cuda'])} routed alike {tag}")
+
+    # -- (c) the fault-tolerant loop at full width ----------------------------
+    lcfg = override(cfg, n_layers=LOOP_LAYERS)
+    spec = TokenStreamSpec(vocab=lcfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH)
+    lopt = adamw.AdamWConfig(total_steps=LOOP_STEPS)
+    mesh = make_mesh((1, 1), ("data", "model"), devices=[str(dev)])
+    times = {"save_call": [], "write": [], "restore": [], "recover": []}
+    real_save = ckpt_io.save
+
+    def timed_save(*a, **k):
+        t1 = time.perf_counter()
+        path = real_save(*a, **k)
+        times["write"].append((time.perf_counter() - t1) * 1e3)
+        return path
+
+    class TimedLoop(TrainLoop):
+        def _save(self, s):
+            t1 = time.perf_counter()
+            super()._save(s)
+            times["save_call"].append((time.perf_counter() - t1) * 1e3)
+
+        def _restore(self):
+            t1 = time.perf_counter()
+            s = super()._restore()
+            torch.cuda.synchronize()
+            times["restore"].append((time.perf_counter() - t1) * 1e3)
+            return s
+
+        def _recover(self, e):
+            t1 = time.perf_counter()
+            super()._recover(e)
+            times["recover"].append((time.perf_counter() - t1) * 1e3)
+
+    fired = []
+
+    def hook(s):
+        if s == LOOP_FAIL_AT and not fired:
+            fired.append(s)
+            raise FailureInjected("injected")
+
+    root = tempfile.mkdtemp(prefix="repro_torch_phase28_")
+    ckpt_io.save = timed_save
+    peaks = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        clean = TrainLoop(lcfg, lopt, LoopConfig(
+            total_steps=LOOP_STEPS, ckpt_every=LOOP_STEPS,
+            ckpt_dir=os.path.join(root, "clean")), mesh, data_spec=spec)
+        clean.run()
+        peaks["clean"] = torch.cuda.max_memory_allocated()
+        clean_losses = {m["step"]: m["loss"] for m in clean.metrics_log}
+        state_bytes = sum(t.numel() * t.element_size() for t in
+                          list(clean.params.parameters())
+                          + clean.opt_state["m"] + clean.opt_state["v"])
+        del clean
+        torch.cuda.empty_cache()
+        for k in times:
+            times[k].clear()
+        torch.cuda.reset_peak_memory_stats()
+        loop = TimedLoop(lcfg, lopt, LoopConfig(
+            total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY,
+            ckpt_dir=os.path.join(root, "failing")), mesh, data_spec=spec,
+            failure_hook=hook)
+        loop.run()
+        peaks["failing"] = torch.cuda.max_memory_allocated()
+        step_dir = os.path.join(root, "failing",
+                                f"step_{LOOP_CKPT_EVERY:08d}")
+        ckpt_mb = sum(os.path.getsize(os.path.join(step_dir, f))
+                      for f in os.listdir(step_dir)) / 1e6
+    finally:
+        ckpt_io.save = real_save
+        shutil.rmtree(root, ignore_errors=True)
+    seen = [m["step"] for m in loop.metrics_log]
+    if not fired or seen.count(LOOP_FAIL_AT) != 1 or seen != list(
+            range(LOOP_STEPS)):
+        raise RuntimeError(f"the loop ran steps {seen} (failure at "
+                           f"{LOOP_FAIL_AT}, checkpoints every "
+                           f"{LOOP_CKPT_EVERY})")
+    diffs = {m["step"]: abs(m["loss"] - clean_losses[m["step"]])
+             / abs(clean_losses[m["step"]]) for m in loop.metrics_log}
+    after = max(diffs[s] for s in range(LOOP_FAIL_AT, LOOP_STEPS))
+    if after > TOL_RESUME:
+        raise RuntimeError(f"losses after the restore differ from the "
+                           f"uninterrupted run's by {after:.3e} relative")
+    # a recovery that drew a second model and moments before dropping the
+    # first would add all of state_bytes to the uninterrupted run's peak
+    peak_extra = peaks["failing"] - peaks["clean"]
+    if peak_extra > state_bytes / 2:
+        raise RuntimeError(f"the recovering run peaks {gb(peak_extra):.3f} "
+                           f"GB above the uninterrupted run (parameters and "
+                           f"moments {gb(state_bytes):.3f} GB)")
+    lparams = sum(p.numel() for p in loop.params.parameters())
+    # the failure to the loop ready again: recover, then restore
+    resume_ms = times["recover"][0] + times["restore"][-1]
+    out["loop"] = {"layers": LOOP_LAYERS, "params": lparams,
+                   "steps": seen, "loss_diff_after_restore": after,
+                   "ckpt_mb": ckpt_mb, "save_call_ms": times["save_call"],
+                   "write_ms": times["write"], "restore_ms": times["restore"],
+                   "recover_ms": times["recover"], "resume_ms": resume_ms,
+                   "write_mb_s": [ckpt_mb / (t / 1e3) for t in times["write"]],
+                   "peak_clean_gb": gb(peaks["clean"]),
+                   "peak_recovering_gb": gb(peaks["failing"]),
+                   "state_gb": gb(state_bytes),
+                   "losses": [m["loss"] for m in loop.metrics_log]}
+    print(f"  (c) TrainLoop pjit on {mesh}, {lcfg.arch} at {LOOP_LAYERS} "
+          f"layers ({lparams:,} parameters), {LOOP_STEPS} steps, "
+          f"checkpoints every {LOOP_CKPT_EVERY}, failure at "
+          f"{LOOP_FAIL_AT}: steps {seen}, largest loss difference from the "
+          f"uninterrupted run after the restore {after:.3e} relative (tol "
+          f"{TOL_RESUME}); a checkpoint {ckpt_mb:.1f} MB, save call (host "
+          f"copy) {[round(t, 1) for t in times['save_call']]} ms, writes "
+          f"{[round(t, 1) for t in times['write']]} ms "
+          f"({[round(ckpt_mb / (t / 1e3), 1) for t in times['write']]} "
+          f"MB/s, warm page cache), restore (read, copy to the card) "
+          f"{[round(t, 1) for t in times['restore']]} ms, recover "
+          f"{[round(t, 1) for t in times['recover']]} ms, resume "
+          f"{resume_ms:.1f} ms; peak {gb(peaks['failing']):.3f} GB through "
+          f"the recovery against {gb(peaks['clean']):.3f} uninterrupted "
+          f"(parameters and moments {gb(state_bytes):.3f}) {tag}")
+    del loop
+    torch.cuda.empty_cache()
+
+    # -- (d) dp_compressed over logical ranks on one card ----------------------
+    dcfg = get_config(TRAIN_ARCH, smoke=True)
+    root = tempfile.mkdtemp(prefix="repro_torch_phase28_dp_")
+    try:
+        dp = TrainLoop(dcfg, adamw.AdamWConfig(total_steps=DP_STEPS,
+                                               warmup_steps=1),
+                       LoopConfig(total_steps=DP_STEPS, ckpt_every=DP_STEPS,
+                                  ckpt_dir=root, mode="dp_compressed"),
+                       make_mesh((DP_RANKS, 1), ("data", "model"),
+                                 devices=[str(dev)] * DP_RANKS),
+                       data_spec=TokenStreamSpec(vocab=dcfg.vocab,
+                                                 seq_len=64,
+                                                 global_batch=8))
+        dp.run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    dlosses = [m["loss"] for m in dp.metrics_log]
+    equal = all(torch.equal(a, b) for r in dp.replicas[1:]
+                for a, b in zip(dp.replicas[0].parameters(), r.parameters()))
+    if not equal or not dlosses[-1] < dlosses[0]:
+        raise RuntimeError(f"dp_compressed: replicas equal {equal}, losses "
+                           f"{dlosses}")
+    out["dp_compressed"] = {"ranks": DP_RANKS, "losses": dlosses}
+    print(f"  (d) dp_compressed over {DP_RANKS} logical ranks on {dev}, "
+          f"{dcfg.arch}: losses {[round(x, 4) for x in dlosses]}, replicas "
+          f"bitwise equal {tag}")
+
+    # -- (e) the launcher as a user calls it, on its default device --------------
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(CLI_STEPS)]
+    root = tempfile.mkdtemp(prefix="repro_torch_phase28_cli_")
+    try:
+        cli = train_cli.main(argv + ["--ckpt-dir", root])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    closses = [m["loss"] for m in cli.metrics_log]
+    places = {p.device.type for p in cli.params.parameters()}
+    if places != {"cuda"} or not np.isfinite(closses).all() or \
+            not closses[-1] < closses[0]:
+        raise RuntimeError(f"launch.train on {places}: losses {closses}")
+    out["cli"] = {"argv": argv, "mesh": dict(cli.mesh.shape),
+                  "losses": closses}
+    print(f"  (e) python -m repro_torch.launch.train {' '.join(argv)} (its "
+          f"default device, global batch 8 x 256): mesh "
+          f"{dict(cli.mesh.shape)} on cuda, losses "
+          f"{[round(x, 4) for x in closses]} {tag}")
+    del cli
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 28 took {out['seconds']:.1f} s {tag}")
+    return out
 
 
 def kendall_runs(x_dev, x_tf, reset, tag):
@@ -5957,6 +6374,12 @@ def main(argv) -> int:
           f"width: {', '.join(lm_names)} {tag}:")
     lm_rows, lm_out = lm_runs(dev, tag, library_attn)
     print(json.dumps({"lm": lm_out}))
+
+    # -- 28. LM training at full width -----------------------------------------
+    torch.cuda.empty_cache()
+    print(f"LM training (make_train_step, AdamW, TrainLoop with checkpoints) "
+          f"at full width: {TRAIN_ARCH} {tag}:")
+    print(json.dumps({"train": train_runs(dev, tag)}))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []

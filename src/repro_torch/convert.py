@@ -118,7 +118,8 @@ def operand_from_reference(u_pad, device=None):
     return t.to(resolve_device(device))
 
 
-def lm_params_from_reference(cfg, params, device=None):
+def lm_params_from_reference(cfg, params, device=None,
+                             trainable: bool = False):
     """The port's parameters (a ``models.transformer.DecoderLM``, or a
     ``models.encdec.EncDecLM`` for an encoder-decoder config, on `device`,
     None meaning "cuda") for the reference's parameter pytree of the same
@@ -126,7 +127,8 @@ def lm_params_from_reference(cfg, params, device=None):
     (L, ...) under ``blocks`` (and ``enc_blocks``, stacked ``enc_layers``),
     as ``np.asarray`` of each leaf of ``model.init(key)`` gives them.
     Raises ValueError when a leaf is missing, left over, of another shape,
-    or not float32."""
+    or not float32.  ``trainable`` leaves require grad (training); serving
+    holds frozen ones."""
     # the LM side loads on demand
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.registry import build_model
@@ -176,7 +178,7 @@ def lm_params_from_reference(cfg, params, device=None):
     if extra:
         raise ValueError(f"reference parameters the port does not have: "
                          f"{extra}")
-    return (EncDecLM if cfg.enc_dec else DecoderLM)(cfg, tensors)
+    return (EncDecLM if cfg.enc_dec else DecoderLM)(cfg, tensors, trainable)
 
 
 __all__ = ["plan_from_reference", "operand_from_reference",

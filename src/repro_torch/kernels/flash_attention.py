@@ -110,7 +110,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 / fp16), and S need not be a multiple of any block.
     ``flash_attention.launches`` counts the CUDA kernels' launches,
     ``flash_attention.launches_by_dtype`` per dtype.
+
+    The kernels have no backward (neither has the reference's), so inputs
+    that autograd records raise ValueError on both devices rather than
+    hand back an output cut from the graph: training attention takes the
+    plain route (``models/layers.self_attention``).
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash attention has no backward: call it under "
+            "torch.no_grad() or on tensors that do not require grad")
     _check(q, k, v, window, blk_q, blk_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window)

@@ -31,7 +31,9 @@ def pcc_tiles(u_pad: torch.Tensor, j_start, *, t: int = DEFAULT_TILE,
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: Optional[int] = None, blk: int = 128) -> torch.Tensor:
     """Causal / sliding-window GQA flash attention
-    (kernels/flash_attention.py).  q: (B, H, S, D); k, v: (B, Hkv, S, D)."""
+    (kernels/flash_attention.py).  q: (B, H, S, D); k, v: (B, Hkv, S, D).
+    Inputs that require grad (with grad enabled) raise ValueError: the
+    kernel has no backward."""
     return flash_attention(q, k, v, window=window, blk_q=blk, blk_k=blk)
 
 

@@ -10,7 +10,8 @@ random, from a seeded ``torch.Generator``; the inputs are the reference's
 draws (numpy seed 0): the prompts, then an encoder-decoder's source frames
 or the VLM's embeddings (B, P, D), with broadcast 0..P-1 m-rope streams
 and (B, 3, 1) streams at P + t in decode.  The sharded path
-(``--model-axis``) waits for the sharding slice (ROADMAP A).
+(``--model-axis``) is ROADMAP A part 5: ``models/sharding.py`` computes
+its specs, and nothing executes them yet.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""The LM side of the port: decoder-only prefill and decode.
+"""The LM side of the port: training, prefill and decode.
 
   config.py       ModelConfig + shape cells
   layers.py       norms / RoPE variants / GQA+SWA attention / MLPs / MoE
   ssm.py          mamba-1 chunked selective scan + O(1) decode
   transformer.py  decoder-only trunk (run-grouped loop over layers)
-  steps.py        prefill / decode step builders
+  encdec.py       encoder-decoder trunk
+  sharding.py     ShardingPolicy: the reference's specs over a port Mesh
+  steps.py        train / prefill / decode step builders
   registry.py     build_model(cfg) facade
 
-Port of ``repro/models`` for the dense, MoE, SSM and hybrid families; the
-VLM, encoder-decoder, sharding and training are later slices (ROADMAP A).
+Port of ``repro/models`` for every family (dense, MoE, SSM, hybrid, the
+VLM and the encoder-decoder).  Executing a placement over a model axis or
+FSDP is ROADMAP A part 5.
 """
 
 from repro_torch.models.config import SHAPES, ModelConfig

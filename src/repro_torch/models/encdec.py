@@ -13,6 +13,9 @@ On the card the decoder's prefill self-attention runs the hand-written
 flash kernel (positions 0..S-1, one launch a layer); the encoder's
 attention and cross-attention are bidirectional, which the causal kernel
 does not compute, and run the reference's plain ``sdpa`` on both devices.
+Under autograd (training) every attention takes the plain route, and each
+encoder and decoder layer is recomputed in the backward pass unless
+cfg.remat is "none", as the reference checkpoints its scan bodies.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (Block, _frozen, _prefill_cache,
+from repro_torch.models.transformer import (Block, _param, _prefill_cache,
                                             init_block, project_logits)
 
 Tensor = torch.Tensor
@@ -35,20 +38,23 @@ class EncDecLM(nn.Module):
     (``ln1``, ``attn``, ``ln2``, ``mlp``), ``enc_norm``, ``blocks`` (the
     decoder layers, with ``lnx`` + ``xattn``), ``final_norm``, ``lm_head``
     (D, V) unless the embeddings are tied, and ``src_embed`` (V, D) unless
-    the source is embeddings.  ``forward`` / ``decode`` below run it."""
+    the source is embeddings.  ``forward`` / ``decode`` below run it;
+    ``trainable`` leaves require grad."""
 
-    def __init__(self, cfg: ModelConfig, tensors: Mapping):
+    def __init__(self, cfg: ModelConfig, tensors: Mapping,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = _frozen(tensors["embed"])
-        self.enc_blocks = nn.ModuleList(Block(t)
+        self.embed = _param(tensors["embed"], trainable)
+        self.enc_blocks = nn.ModuleList(Block(t, trainable)
                                         for t in tensors["enc_blocks"])
-        self.enc_norm = _frozen(tensors["enc_norm"])
-        self.blocks = nn.ModuleList(Block(t) for t in tensors["blocks"])
-        self.final_norm = _frozen(tensors["final_norm"])
+        self.enc_norm = _param(tensors["enc_norm"], trainable)
+        self.blocks = nn.ModuleList(Block(t, trainable)
+                                    for t in tensors["blocks"])
+        self.final_norm = _param(tensors["final_norm"], trainable)
         for name in ("lm_head", "src_embed"):
             if name in tensors:
-                setattr(self, name, _frozen(tensors[name]))
+                setattr(self, name, _param(tensors[name], trainable))
 
 
 def init_enc_block(gen, cfg: ModelConfig, device=None) -> dict:
@@ -67,10 +73,12 @@ def init_dec_block(gen, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
-def init_params(gen, cfg: ModelConfig, device=None) -> EncDecLM:
+def init_params(gen, cfg: ModelConfig, device=None,
+                trainable: bool = False) -> EncDecLM:
     """Random parameters from the torch.Generator `gen` (on its device, or
-    `device`), or shapes only when `device` is "meta"; parity runs carry
-    the reference's over (``convert.lm_params_from_reference``)."""
+    `device`), or shapes only when `device` is "meta"; ``trainable`` leaves
+    require grad.  Parity runs carry the reference's over
+    (``convert.lm_params_from_reference``)."""
     dev = L._device(gen, device)
     tensors = {
         "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dev),
@@ -86,7 +94,7 @@ def init_params(gen, cfg: ModelConfig, device=None) -> EncDecLM:
     if not cfg.embed_inputs:
         tensors["src_embed"] = L.dense_init(gen, (cfg.vocab, cfg.d_model),
                                             dev)
-    return EncDecLM(cfg, tensors)
+    return EncDecLM(cfg, tensors, trainable)
 
 
 def _enc_block_apply(cfg: ModelConfig, p: Block, x: Tensor,
@@ -105,7 +113,7 @@ def encode(cfg: ModelConfig, params: EncDecLM, src: Tensor) -> Tensor:
     b, s = x.shape[0], x.shape[1]
     positions = L.default_positions(b, s, device=x.device).expand(b, s)
     for blk in params.enc_blocks:
-        x = _enc_block_apply(cfg, blk, x, positions)
+        x = L.remat(cfg, _enc_block_apply, cfg, blk, x, positions)
     return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -138,7 +146,7 @@ def forward(cfg: ModelConfig, params: EncDecLM, *, src: Tensor,
                            device=x.device)
         cache["enc_out"] = enc_out
     for i, blk in enumerate(params.blocks):
-        x, (k, v) = _dec_block_apply(cfg, blk, x, enc_out)
+        x, (k, v) = L.remat(cfg, _dec_block_apply, cfg, blk, x, enc_out)
         if cache is not None:
             _prefill_cache(cfg, cache, i, {"k": k, "v": v}, 0, s)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)

@@ -19,11 +19,13 @@ The flash kernel masks by index 0..S-1, so the card takes it only where
 the mask's position stream is that index (``index_stream``, asked once a
 prefill by ``transformer.forward``); other streams, such as an image's
 patches sharing one temporal position, take the plain route on the card
-too.  Decode attention (one query against a ring buffer), the encoder's
-bidirectional attention and cross-attention are plain tensor code on both
-devices, as in the reference, where no Pallas kernel computes them.  So is
-the MoE layer: the reference routes, dispatches and combines in plain XLA,
-outside any Pallas kernel.
+too.  So does attention under autograd (training): the kernel has no
+backward, as the reference's has none, and the reference trains on XLA
+attention.  Decode attention (one query against a ring buffer), the
+encoder's bidirectional attention and cross-attention are plain tensor
+code on both devices, as in the reference, where no Pallas kernel
+computes them.  So is the MoE layer: the reference routes, dispatches and
+combines in plain XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -54,6 +57,17 @@ def dense_init(gen: Optional[torch.Generator], shape, device=None,
 
 def _device(gen, device) -> torch.device:
     return torch.device(device) if device is not None else gen.device
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), recomputed in the backward pass when cfg.remat is not
+    "none" and autograd records (``torch.utils.checkpoint``, non-reentrant),
+    where the reference wraps the same body in ``jax.checkpoint``: each
+    layer, each q-chunk of attention, each SSM chunk, each loss chunk."""
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -253,14 +267,20 @@ def index_stream(positions: Optional[Tensor]) -> bool:
     return torch.equal(stream, index.expand_as(stream))
 
 
+def records_grad(*tensors: Tensor) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def self_attention(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
                    positions: Optional[Tensor], window: int) -> Tensor:
     """Prefill self-attention of rotated q (B,S,H,hd) against k, v
     (B,S,Hkv,hd).  positions None masks by index 0..S-1: the flash kernel
-    on the card, the plain route on the CPU.  Explicit positions (B,S)
-    mask by that stream: the plain route on both devices."""
+    on the card, the plain route on the CPU and under autograd (the
+    kernel has no backward).  Explicit positions (B,S) mask by that
+    stream: the plain route on both devices."""
     if positions is None:
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" and not records_grad(q, k, v):
             return _flash_route(cfg, q, k, v, window)
         positions = default_positions(q.shape[0], q.shape[1],
                                       device=q.device).expand(q.shape[0], -1)
@@ -312,9 +332,10 @@ def _bidirectional_sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
     S_q (the reference's scan over query chunks)."""
     s, c = q.shape[1], cfg.attn_chunk
     if c > 0 and s > c and s % c == 0:
-        return torch.cat([sdpa(cfg, q[:, i:i + c], k, v,
-                               q_pos=q_pos[:, i:i + c], k_pos=k_pos,
-                               window=0, causal=False)
+        def chunk(qi, pi):
+            return sdpa(cfg, qi, k, v, q_pos=pi, k_pos=k_pos, window=0,
+                        causal=False)
+        return torch.cat([remat(cfg, chunk, q[:, i:i + c], q_pos[:, i:i + c])
                           for i in range(0, s, c)], dim=1)
     return sdpa(cfg, q, k, v, q_pos=q_pos, k_pos=k_pos, window=0,
                 causal=False)
@@ -334,10 +355,16 @@ def _chunked_sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
     band = (cfg.window > 0 and not cfg.global_layers
             and not cfg.global_layer_stride and cfg.window + c < s)
     kw = cfg.window + c if band else None
+    sliced = cfg.attn_impl == "causal_sliced" and not band
+
+    def chunk(qi, pi, kk, vv, kp):
+        return sdpa(cfg, qi, kk, vv, q_pos=pi, k_pos=kp, window=window,
+                    causal=True)
+
     outs = []
     for i in range(nc):
         qi, pi = q[:, i * c:(i + 1) * c], pos[:, i * c:(i + 1) * c]
-        if cfg.attn_impl == "causal_sliced" and not band:
+        if sliced:
             hi = (i + 1) * c
             kk, vv, kp = k[:, :hi], v[:, :hi], pos[:, :hi].expand(b, hi)
         elif band:
@@ -347,8 +374,10 @@ def _chunked_sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
                 .expand(b, kw)
         else:
             kk, vv, kp = k, v, pos[:, :s].expand(b, s)
-        outs.append(sdpa(cfg, qi, kk, vv, q_pos=pi, k_pos=kp, window=window,
-                         causal=True))
+        # the reference's unrolled causal_sliced loop has no jax.checkpoint;
+        # its scan body has
+        outs.append(chunk(qi, pi, kk, vv, kp) if sliced else
+                    remat(cfg, chunk, qi, pi, kk, vv, kp))
     return torch.cat(outs, dim=1).reshape(b, s, h * hd)
 
 
@@ -476,6 +505,19 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
                       / cfg.n_experts))
 
 
+def moe_choose(cfg: ModelConfig, router: Tensor, x: Tensor):
+    """Each token's k experts: (probs (R, N, E) the router's float32
+    softmax, top_p (R, N, k) the chosen ones' probabilities normalised to
+    sum 1, top_i (R, N, k) the experts, the larger first, the lower expert
+    first on equal values)."""
+    k = cfg.top_k
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :k], top_i[..., :k]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return probs, top_p, top_i
+
+
 def moe_route(cfg: ModelConfig, router: Tensor, x: Tensor, cap: int):
     """Token-choice top-k routing of R independent groups of N tokens,
     x (R, N, D), into `cap` slots an expert.  Returns
@@ -492,10 +534,7 @@ def moe_route(cfg: ModelConfig, router: Tensor, x: Tensor, cap: int):
     Indices are int64 (the reference's int32 values)."""
     r, n, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(x.float() @ router.float(), dim=-1)
-    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_i = top_p[..., :k], top_i[..., :k]
-    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    probs, top_p, top_i = moe_choose(cfg, router, x)
     flat_e = top_i.reshape(r, n * k)
     flat_t = torch.arange(n, device=x.device).repeat_interleave(k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -587,10 +626,11 @@ def moe_apply_per_example(cfg: ModelConfig, p: Mapping[str, Tensor],
 
 
 __all__ = [
-    "dense_init", "rms_norm", "apply_rope", "default_positions",
+    "dense_init", "remat", "records_grad", "rms_norm", "apply_rope",
+    "default_positions",
     "init_attention", "attention_apply", "attention_decode", "sdpa",
     "self_attention", "index_stream", "encoder_attention_apply",
     "cross_attention_apply", "cross_kv", "init_mlp", "mlp_apply", "init_moe",
-    "moe_capacity", "moe_route", "moe_apply", "moe_apply_global",
+    "moe_capacity", "moe_choose", "moe_route", "moe_apply", "moe_apply_global",
     "moe_apply_per_example",
 ]

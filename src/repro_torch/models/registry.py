@@ -26,14 +26,16 @@ class Model:
         return encdec if self.cfg.enc_dec else transformer
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device=None):
+             device=None, trainable: bool = False):
         """Parameters drawn from `generator` (default: seed 0 on `device`,
-        itself "cuda" by default) onto its device."""
+        itself "cuda" by default) onto its device; ``trainable`` leaves
+        require grad."""
         if generator is None:
             generator = torch.Generator(
                 device=device if device is not None else "cuda")
             generator.manual_seed(0)
-        return self.trunk.init_params(generator, self.cfg, device)
+        return self.trunk.init_params(generator, self.cfg, device,
+                                      trainable)
 
     def init_shapes(self):
         """The parameters on the meta device: shapes, no allocation."""

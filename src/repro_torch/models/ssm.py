@@ -6,7 +6,9 @@ the (B, d_inner, state) boundary state, and each chunk runs a log-depth
 scan that materialises (B, Q, d_inner, state) transiently.  torch has no
 ``associative_scan``, so the chunk's scan is a Hillis-Steele doubling scan
 on (a, b) pairs with the reference's operator: log2(Q) rounds of
-elementwise products, not a loop over tokens.  A ragged sequence (S not a
+elementwise products, not a loop over tokens.  Under autograd each chunk
+is recomputed in the backward pass unless cfg.remat is "none", as the
+reference checkpoints its chunk body.  A ragged sequence (S not a
 multiple of the chunk) runs as one chunk, as in the reference.
 
 Decode is the O(1) recurrence h' = exp(dt*A) h + dt*B*x with a (d_conv-1)
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _device, dense_init
+from repro_torch.models.layers import _device, dense_init, remat
 
 Tensor = torch.Tensor
 
@@ -104,16 +106,19 @@ def ssm_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
         q = s  # ragged seq (tests): fall back to a single chunk
     xcf = xc.float()
     h = h0 if h0 is not None else torch.zeros((b, di, n), device=x.device)
-    ys = []
-    for c0 in range(0, s, q):
-        xck, dtk = xcf[:, c0:c0 + q], dt[:, c0:c0 + q]   # (B, Q, di)
-        bmk, cmk = bm[:, c0:c0 + q], cm[:, c0:c0 + q]    # (B, Q, n)
+
+    def chunk_body(h, xck, dtk, bmk, cmk):  # (B, Q, di) / (B, Q, n)
         da = torch.exp(dtk[..., None] * a)               # (B, Q, di, n)
         db = dtk[..., None] * bmk[:, :, None, :] * xck[..., None]
         a_cum, b_cum = _doubling_scan(da, db)
         hk = a_cum * h[:, None] + b_cum                  # (B, Q, di, n)
-        ys.append(torch.einsum("bqdn,bqn->bqd", hk, cmk))
-        h = hk[:, -1]
+        return hk[:, -1], torch.einsum("bqdn,bqn->bqd", hk, cmk)
+
+    ys = []
+    for c0 in range(0, s, q):
+        h, yk = remat(cfg, chunk_body, h, xcf[:, c0:c0 + q],
+                      dt[:, c0:c0 + q], bm[:, c0:c0 + q], cm[:, c0:c0 + q])
+        ys.append(yk)
     y = torch.cat(ys, dim=1)
     y = y + xcf * p["D"]
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -1,7 +1,8 @@
 """Decoder-only LM trunk, with layers grouped into runs of equal window.
 
-Port of ``repro/models/transformer.py`` (the sharding ``policy=`` waits
-for a later slice, ROADMAP A).  Layers are grouped into
+Port of ``repro/models/transformer.py`` (the sharding ``policy=``'s
+constraints are the identity in one process: ``models/sharding.py``, so
+``forward`` takes none).  Layers are grouped into
 maximal *runs* of consecutive layers sharing an attention-window class (full
 vs SWA): hymba's {global, swa, ..., global} pattern yields 5 runs, uniform
 archs 1.  The parameters are ``nn.Module``s, one ``Block`` a layer; a loop
@@ -57,12 +58,15 @@ def _has_mlp(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _frozen(t: Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: Tensor, trainable: bool = False) -> nn.Parameter:
+    """A leaf: frozen for serving, or requiring grad for training."""
+    return nn.Parameter(t, requires_grad=trainable)
 
 
-def _pdict(tensors: Mapping[str, Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(v) for k, v in tensors.items()})
+def _pdict(tensors: Mapping[str, Tensor],
+           trainable: bool = False) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _param(v, trainable)
+                             for k, v in tensors.items()})
 
 
 class Block(nn.Module):
@@ -71,32 +75,35 @@ class Block(nn.Module):
     layers add ``lnx`` + ``xattn``), each sub-layer an ``nn.ParameterDict``
     under the reference's leaf names.  It holds no config: ``block_apply``
     / ``block_decode`` run it under the caller's, as the reference's steps
-    pass theirs."""
+    pass theirs.  ``trainable`` leaves require grad."""
 
-    def __init__(self, tensors: Mapping):
+    def __init__(self, tensors: Mapping, trainable: bool = False):
         super().__init__()
-        self.ln1 = _frozen(tensors["ln1"])
+        self.ln1 = _param(tensors["ln1"], trainable)
         for name in ("attn", "xattn", "ssm", "mlp", "moe"):
             if name in tensors:
-                setattr(self, name, _pdict(tensors[name]))
+                setattr(self, name, _pdict(tensors[name], trainable))
         for name in ("ln2", "lnx"):
             if name in tensors:
-                setattr(self, name, _frozen(tensors[name]))
+                setattr(self, name, _param(tensors[name], trainable))
 
 
 class DecoderLM(nn.Module):
     """The whole decoder-only LM's parameters: ``embed`` (V, D), ``blocks``,
     ``final_norm``, and ``lm_head`` (D, V) unless the embeddings are tied.
-    ``forward`` / ``decode`` below run it."""
+    ``forward`` / ``decode`` below run it.  Serving holds frozen leaves;
+    ``trainable`` ones require grad (``models/steps.make_train_step``)."""
 
-    def __init__(self, cfg: ModelConfig, tensors: Mapping):
+    def __init__(self, cfg: ModelConfig, tensors: Mapping,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed = _frozen(tensors["embed"])
-        self.blocks = nn.ModuleList(Block(t) for t in tensors["blocks"])
-        self.final_norm = _frozen(tensors["final_norm"])
+        self.embed = _param(tensors["embed"], trainable)
+        self.blocks = nn.ModuleList(Block(t, trainable)
+                                    for t in tensors["blocks"])
+        self.final_norm = _param(tensors["final_norm"], trainable)
         if "lm_head" in tensors:
-            self.lm_head = _frozen(tensors["lm_head"])
+            self.lm_head = _param(tensors["lm_head"], trainable)
 
 
 def init_block(gen, cfg: ModelConfig, device=None) -> dict:
@@ -115,10 +122,12 @@ def init_block(gen, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
-def init_params(gen, cfg: ModelConfig, device=None) -> DecoderLM:
+def init_params(gen, cfg: ModelConfig, device=None,
+                trainable: bool = False) -> DecoderLM:
     """Random parameters from the torch.Generator `gen` (on its device, or
-    `device`), or shapes only when `device` is "meta".  Not the reference's
-    jax.random draws: parity runs carry the reference's parameters over
+    `device`), or shapes only when `device` is "meta"; ``trainable`` leaves
+    require grad.  Not the reference's jax.random draws: parity runs carry
+    the reference's parameters over
     (``convert.lm_params_from_reference``)."""
     dev = L._device(gen, device)
     tensors = {
@@ -128,7 +137,7 @@ def init_params(gen, cfg: ModelConfig, device=None) -> DecoderLM:
     }
     if not cfg.tie_embeddings:
         tensors["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dev)
-    return DecoderLM(cfg, tensors)
+    return DecoderLM(cfg, tensors, trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +224,10 @@ def forward(cfg: ModelConfig, params: DecoderLM, *,
     post-final-norm; callers project to logits.  positions: (B, S), the
     (B, 3, S) m-rope streams, or None for 0..S-1.  Whether the mask's
     stream is 0..S-1, which lets the card's flash kernel take every
-    attention layer, is decided here once (``L.index_stream``).
+    attention layer, is decided here once (``L.index_stream``).  Under
+    autograd each layer is recomputed in the backward pass unless
+    cfg.remat is "none" (``L.remat``, the reference's jax.checkpoint of
+    its scan body).
     """
     if embeds is not None:
         x = embeds.to(cfg.activation_dtype())
@@ -235,9 +247,9 @@ def forward(cfg: ModelConfig, params: DecoderLM, *,
                                         x.device)
             caches.append(run_cache)
         for i in range(cnt):
-            x, a, piece = block_apply(
-                cfg, params.blocks[start + i], x, positions, w,
-                return_cache=run_cache is not None, index_mask=index_mask)
+            x, a, piece = L.remat(
+                cfg, block_apply, cfg, params.blocks[start + i], x,
+                positions, w, run_cache is not None, index_mask)
             total_aux = total_aux + a
             if run_cache is not None:
                 _prefill_cache(cfg, run_cache, i, piece, w, s)

@@ -2,7 +2,8 @@
 at its default small size in its own process, and keep their reference's
 assertions (module-recovery precision > 0.9, the planted pair the most
 significant, served answers bitwise standalone corr(), standing results
-matching a cold corr(), a decoded batch of the expected shape).  Without ``--device cpu`` each one asks for the card."""
+matching a cold corr(), a decoded batch of the expected shape, a falling
+training loss).  Without ``--device cpu`` each one asks for the card."""
 
 import os
 import subprocess
@@ -52,6 +53,16 @@ def test_example_runs_on_cpu(script, extra, expect):
     out = _run(f"examples/{script}", "--device", "cpu", *extra)
     assert out.returncode == 0, out.stderr[-2000:]
     assert expect in out.stdout
+
+
+def test_train_example_runs_on_cpu(tmp_path):
+    """examples/torch_train_lm.py at its tiny preset, a few steps: the
+    loss falls (the example asserts it)."""
+    out = _run("examples/torch_train_lm.py", "--device", "cpu", "--steps",
+               "30", "--seq", "64", "--ckpt-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "steps=30 loss" in out.stdout and "OK" in out.stdout
+    assert os.listdir(tmp_path)      # it checkpointed (step 0)
 
 
 def test_examples_import_no_jax():

@@ -2249,3 +2249,119 @@ def test_mesh_over_distinct_cards_is_the_one_device_run(cuda, case,
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     else:
         assert got.device == x.device and torch.equal(got, want)
+
+
+# -- LM training on the card (models/steps.make_train_step) ------------------
+
+
+def _train_grads(cfg, model, batch):
+    from repro_torch.models import steps
+    from repro_torch.tree import named_leaves
+    metrics, grads = steps.grads_of(cfg, model, batch)
+    return metrics, dict(zip([n for n, _ in named_leaves(model)], grads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "hymba-1.5b",
+                                  "seamless-m4t-medium"])
+def test_lm_training_on_card_takes_the_plain_route(cuda, arch):
+    """A SMOKE training step's gradients on the card (float32, S = 48,
+    across hymba's window): no flash launch under autograd (the kernel has
+    no backward), every attention leaf's gradient non-zero and within 1e-5
+    of the CPU's largest |g| of that leaf, the loss within 1e-5; then a
+    no_grad prefill of the same model still launches the flash kernel once
+    a (decoder) attention layer, as serving does."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(arch, smoke=True)
+    cpu_model = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                      "cpu", trainable=True)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32)}
+    if cfg.enc_dec:
+        batch["src"] = rng.standard_normal((2, 48, cfg.d_model)).astype(
+            np.float32)
+    before = fmod.flash_attention.launches
+    m_card, g_card = _train_grads(cfg, card_model,
+                                  steps.as_batch(batch, cuda))
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches == before
+    m_cpu, g_cpu = _train_grads(cfg, cpu_model, steps.as_batch(batch, "cpu"))
+    assert float(m_card["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                  rel=1e-5)
+    attn = [n for n in g_cpu if ".attn." in n or ".xattn." in n]
+    assert attn
+    for name, want in g_cpu.items():
+        got = g_card[name].cpu()
+        scale = float(want.abs().max())
+        if name in attn:
+            assert float(got.abs().max()) > 0, name
+        assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-30), \
+            name
+    # serving is unchanged: a no_grad prefill launches the kernel
+    n_attn = cfg.n_layers
+    before = fmod.flash_attention.launches
+    prefill = steps.make_prefill_step(cfg, cache_capacity=64)
+    kw = {"tokens": torch.from_numpy(batch["tokens"]).long().to(cuda)}
+    if cfg.enc_dec:
+        kw["src"] = torch.from_numpy(batch["src"]).to(cuda)
+    prefill(card_model, **kw)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches == before + n_attn
+
+
+@pytest.mark.gpu
+def test_lm_flash_refuses_autograd_inputs_on_card(cuda):
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 4, 64, 32, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 64, 32, device=cuda)
+    v = torch.randn(1, 2, 64, 32, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_mha(q, k, v, blk=64)
+    with torch.no_grad():
+        assert ops.flash_mha(q, k, v, blk=64).shape == q.shape
+
+
+@pytest.mark.gpu
+def test_lm_train_step_and_adamw_on_card_match_the_cpu(cuda):
+    """make_train_step on the card for llama SMOKE: AdamW fed the CPU's
+    gradients gives the CPU's update within 1e-6 of each leaf's largest
+    value, and three steps on one batch lower the loss."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import named_leaves
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    opt = adamw.AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+    cpu_model = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                      "cpu", trainable=True)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32)}
+    _, grads = steps.grads_of(cfg, cpu_model, steps.as_batch(batch, "cpu"))
+    s_cpu, s_card = adamw.init(opt, cpu_model), adamw.init(opt, card_model)
+    adamw.update(opt, grads, s_cpu, cpu_model)
+    adamw.update(opt, [g.to(cuda) for g in grads], s_card, card_model)
+    for (name, a), (_, b) in zip(named_leaves(cpu_model),
+                                 named_leaves(card_model)):
+        scale = float(a.detach().abs().max())
+        assert float((b.detach().cpu() - a.detach()).abs().max()) <= \
+            1e-6 * scale, name
+    step = steps.make_train_step(cfg, opt, device=cuda)
+    losses = []
+    for _ in range(3):
+        _, s_card, m = step(card_model, s_card, **batch)
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] * 1.05
