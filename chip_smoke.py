@@ -296,6 +296,22 @@ Phases, each fatal on failure:
      loss falling; (e) launch/train.py's main at SMOKE on its default
      device: every leaf on the card, the loss falling; the phase's
      seconds.
+ 29. LM serving over a (data, model) mesh (models/parallel.py; alone:
+     --lm-mesh-only): a rank a card on two or more cards, else TP_RANKS
+     logical ranks on cuda:0.  (a) llama3.2-3b FULL at launch.serve's
+     defaults and a TP_PROMPT prefill, against one device on the same
+     parameters: flash launches layers x ranks at the head plan's shapes,
+     none on a plain version, the float32 runs within TOL_LM_LOGITS_F32,
+     bf16 within LM_BF16_RATIO of one device's distance from the float32
+     truth, greedy tokens agreeing (reported), the collectives' ms a
+     prefill and a decode step (CUDA events), each device's peak, and
+     (e) a decode step under torch.cuda.set_sync_debug_mode("error");
+     (b) hymba-1.5b FULL likewise (heads gathered to GQA groups, the
+     vocabulary over d_model, d_inner split); (c) qwen3-moe-30b-a3b at
+     TP_MOE_LAYERS layers, expert-parallel, the float32 prefill gated,
+     and on two or more cards all 48 layers (finite logits, peak a
+     card); (d) launch.serve --smoke --model-axis 4 over cuda:0 x 4 as a
+     subprocess.  A record row a tensor-parallel flash shape.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -604,6 +620,44 @@ TOL_TRAIN, TOL_TRAIN_ADAM, TOL_RESUME = 1e-5, 1e-6, 1e-6
 LOOP_LAYERS, LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 2, 6, 3, 4
 DP_RANKS, DP_STEPS = 2, 4
 CLI_STEPS = 3
+# Phase 29, LM serving over a model axis (models/parallel.py): a (1, p)
+# ("data", "model") mesh, one rank a card on two or more cards (p = the
+# cards, at most TP_RANKS), else TP_RANKS logical ranks on cuda:0, whose
+# times show the executor's cost, not scaling.  (a) llama3.2-3b FULL at
+# launch.serve's defaults and one prompt of TP_PROMPT tokens (seed 2); (b)
+# hymba-1.5b FULL at the defaults; (c) qwen3-moe-30b-a3b at full width,
+# expert-parallel, depth cut to TP_MOE_LAYERS against one device (float32
+# parameters: ~32 GB a copy), and on two or more cards all 48 layers
+# (122 GB) over the mesh.  The gates: the float32 runs (the same
+# parameters, float32 activations) of the mesh and of one device within
+# TOL_LM_LOGITS_F32 of max |logit| (phase 27's float32 bound: the two differ
+# by the order of the row-parallel layers' float32 sums, ~1e-7 a layer,
+# grown over the layers); the bf16 runs held as phase 27 holds its routes:
+# the mesh's last-token logits at most LM_BF16_RATIO times as far from the
+# float32 truth as one device's.  The mesh rounds each row-parallel sum
+# once, where a card's GEMM rounds its own; narrower GEMMs take other
+# cuBLAS tilings, so many outputs round to the other neighbour, and a
+# random model of 28-32 layers grows those ulps as it grows all bf16 noise
+# (the first call read the bf16 runs 3.98e-2 of max apart at llama's
+# serve): the bf16 runs differ from each other by about as much as each
+# differs from the truth, never by O(1) as a wrong head, expert or
+# partial would make them.  MoE in bf16: a flipped top-k choice moves a
+# token's output by O(1), so (c) holds float32 and reports bf16.
+TP_RANKS = 4
+TP_PROMPT = 4_096
+TP_MOE_ARCH, TP_MOE_LAYERS = "qwen3-moe-30b-a3b", 12
+# Phase 29's bf16 last-token logits.  The mesh's run differs from one
+# device's only where its row-parallel layers sum float32 partials in
+# another order, each sum rounded once to bf16 as one device rounds its
+# matmul, so both runs carry bf16 roundings of the same kind and number,
+# amplified alike over the layers (and a near-tie of the MoE router flips
+# as often on either).  The mesh's logits may be at most TP_BF16_RATIO
+# times as far from the float32 truth (the same parameters, float32
+# activations, one device) as one device's bf16 logits are.  Read before
+# this gate was set (NVIDIA H100 80GB HBM3, 700 W): 1.002-1.044x for
+# llama3.2-3b at the serving defaults and at 4,096 tokens and for
+# hymba-1.5b.
+TP_BF16_RATIO = 1.5
 
 
 def gpu_info() -> str:
@@ -770,6 +824,133 @@ def host_ms(fn, reps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
     return statistics.median(times), times
+
+
+def library_attn(q_, k_, v_, w_, out_, reps):
+    """(ms, label) of one PyTorch call that computes the same attention
+    (scaled_dot_product_attention; the port never calls it), or (None,
+    reason)."""
+    import torch
+    dev = q_.device
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if w_ is None:
+        kw, what = dict(is_causal=True), "is_causal=True"
+    else:
+        i = torch.arange(q_.shape[2], device=dev)
+        kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                  & (i[None, :] > i[:, None] - w_))
+        what = "attn_mask=<boolean band>"
+    tries = [(f"scaled_dot_product_attention({what}, enable_gqa=True)",
+              lambda: sdpa(q_, k_, v_, enable_gqa=True, **kw))]
+    rep = q_.shape[1] // k_.shape[1]
+    tries.append((f"scaled_dot_product_attention({what}) on k, v "
+                  f"expanded to H heads beforehand (not timed)",
+                  lambda: sdpa(q_, ke, ve, **kw)))
+    ke = ve = None
+    fails = []
+    for label, fn in tries:
+        try:
+            if "expanded" in label:
+                ke = k_.repeat_interleave(rep, dim=1)
+                ve = v_.repeat_interleave(rep, dim=1)
+            got = fn()
+            torch.cuda.synchronize()
+        except Exception as exc:   # backend-, version- and size-dependent
+            fails.append(f"{label}: {str(exc).splitlines()[0][:160]}")
+            torch.cuda.empty_cache()
+            continue
+        diff = amax((got.float() - out_.float()).abs())
+        del got
+        ms = event_ms(fn, reps)[0]
+        return ms, (f"{label}, max|library - kernel| {diff:.3e}"
+                    + "".join(f"; refused first: {f}" for f in fails))
+    return None, "none: " + "; ".join(fails)
+
+
+def flash_record(arch, q, k, v, window, launches, label, tag):
+    """One kernels-record row: the flash kernel at one layer's recorded
+    inputs (q, k, v (B, S, H, D) as the layers hand them over), its plain
+    version, the library call and the bound (phases 27 and 29)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models import layers
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    b_, h_, s_, d_ = qt.shape
+    w_ = window or None
+    # the wrapper's blk only validates the window (layers._flash_route)
+    blk = {"blk_q": layers.FLASH_BLK, "blk_k": layers.FLASH_BLK} \
+        if w_ is None else {"blk_q": gcd(w_, layers.FLASH_BLK),
+                            "blk_k": gcd(w_, layers.FLASH_BLK)}
+    chunk = None if s_ <= ATTN_WHOLE else ATTN_CHUNK
+    out = flash_attention(qt, kt, vt, window=w_, **blk)
+    want = flash_attention_plain(qt, kt, vt, window=w_, chunk=chunk)
+    err = amax((out.float() - want.float()).abs())
+    del want
+    reps = 5 if s_ <= ATTN_WHOLE else 3
+    k_ms = event_ms(lambda: flash_attention(qt, kt, vt, window=w_,
+                                            **blk), reps)[0]
+    p_ms = event_ms(lambda: flash_attention_plain(
+        qt, kt, vt, window=w_, chunk=chunk), 3 if chunk is None else 1)[0]
+    l_ms, l_label = library_attn(qt, kt, vt, w_, out, reps)
+    pairs = b_ * h_ * (s_ * (s_ + 1) // 2 if w_ is None or w_ >= s_
+                       else w_ * (w_ + 1) // 2 + (s_ - w_) * w_)
+    peak_ops = FP32_FLOPS if qt.dtype == torch.float32 else BF16_FLOPS
+    o_ms = 4 * d_ * pairs / peak_ops * 1e3
+    b_ms = (2 * qt.numel() + 2 * kt.numel()) * qt.element_size() \
+        / HBM_BYTES_S * 1e3
+    dname = "bf16" if qt.dtype == torch.bfloat16 else "float32"
+    print(f"    flash_attention at {label} ({dname}): {k_ms:.3f} ms, "
+          f"bound {max(o_ms, b_ms):.3f} ms, plain {p_ms:.3f} ms, "
+          f"library {'not measured' if l_ms is None else f'{l_ms:.3f}'}"
+          f" ({l_label}); max|kernel - plain| {err:.3e}; {launches} "
+          f"launches in the prefill {tag}")
+    return {"name": f"flash_attention (LM prefill, {arch} {label}, "
+                    f"{dname})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention"
+                      f"{'' if qt.dtype == torch.float32 else '_sm90'}"
+                      ".cu",
+            "replaces": "src/repro/kernels/flash_attention.py:118",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(o_ms, b_ms),
+            "bound_by": "operations" if o_ms >= b_ms else "bytes",
+            "library_ms": l_ms}
+
+
+def route_gate(records, plain_route, cfg_, what):
+    """Every recorded layer's flash output (q, k, v, window, out) against
+    the plain route on its inputs: (max |flash - plain|, the largest share
+    of the gate), raising above it (phases 27 and 29).  bf16: the
+    row-scaled narrow gate.  float32: TOL_ATTN x max(1, the layer's largest
+    |output|), which is TOL_ATTN itself for a layer whose outputs stay
+    within 1."""
+    import torch
+    err = share = 0.0
+    for q, k, v, window, out in records:
+        pos = torch.arange(q.shape[1], device=q.device)[None, :].expand(
+            q.shape[0], -1)
+        want = plain_route(cfg_, q, k, v, pos, window)
+        g4 = out.reshape(q.shape).transpose(1, 2).double()
+        w4 = want.reshape(q.shape).transpose(1, 2).double()
+        diff = (g4 - w4).abs()
+        err = max(err, amax(diff))
+        if out.dtype == torch.float32:
+            share = max(share, amax(diff) / (
+                TOL_ATTN * max(1.0, amax(w4.abs()))))
+        else:
+            rms = w4.square().mean(-1, keepdim=True).sqrt()
+            gate = torch.minimum(
+                NARROW_ULP["bfloat16"] * w4.abs()
+                + NARROW_ROW["bfloat16"] * rms,
+                TOL_ATTN_NARROW * (1 + w4.abs()))
+            share = max(share, amax(diff / gate))
+        del want, g4, w4, diff
+    if not share <= 1:
+        raise AssertionError(f"{what}: a layer's flash output is "
+                             f"{err:.3e} from the plain route, "
+                             f"{share:.3f} of its gate")
+    return err, share
 
 
 def overlap_runs(x_dev, k_top, split):
@@ -2204,7 +2385,7 @@ def mesh_runs(x_dev, x_tf, reset, plain_calls, tag):
     return out
 
 
-def lm_runs(dev, tag, library_attn):
+def lm_runs(dev, tag):
     """Phase 27, LM serving on the card (see LM_ARCHS): returns the flash
     rows of the kernels record (the LM prefills' launches) and the
     phase's numbers."""
@@ -2293,81 +2474,10 @@ def lm_runs(dev, tag, library_attn):
         return statistics.median(times), times, max(peaks)
 
     def route_check(cfg_, what):
-        """Every recorded layer's flash output against the plain route on
-        its inputs: (max |flash - plain|, the largest share of the gate).
-        bf16: the row-scaled narrow gate.  float32: TOL_ATTN x max(1, the
-        layer's largest |output|), which is TOL_ATTN itself for a layer
-        whose outputs stay within 1."""
-        err = share = 0.0
-        for q, k, v, window, out in records:
-            pos = torch.arange(q.shape[1], device=dev)[None, :].expand(
-                q.shape[0], -1)
-            want = plain_route(cfg_, q, k, v, pos, window)
-            g4 = out.reshape(q.shape).transpose(1, 2).double()
-            w4 = want.reshape(q.shape).transpose(1, 2).double()
-            diff = (g4 - w4).abs()
-            err = max(err, amax(diff))
-            if out.dtype == torch.float32:
-                share = max(share, amax(diff) / (
-                    TOL_ATTN * max(1.0, amax(w4.abs()))))
-            else:
-                rms = w4.square().mean(-1, keepdim=True).sqrt()
-                gate = torch.minimum(
-                    NARROW_ULP["bfloat16"] * w4.abs()
-                    + NARROW_ROW["bfloat16"] * rms,
-                    TOL_ATTN_NARROW * (1 + w4.abs()))
-                share = max(share, amax(diff / gate))
-            del want, g4, w4, diff
-        if not share <= 1:
-            raise AssertionError(f"{what}: a layer's flash output is "
-                                 f"{err:.3e} from the plain route, "
-                                 f"{share:.3f} of its gate")
-        return err, share
+        return route_gate(records, plain_route, cfg_, what)
 
     def flash_row(arch, q, k, v, window, launches, label):
-        """One kernels-record row: the flash kernel at one layer's recorded
-        inputs, its plain version, the library call and the bound."""
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        b_, h_, s_, d_ = qt.shape
-        w_ = window or None
-        # the wrapper's blk only validates the window (layers._flash_route)
-        blk = {"blk_q": layers.FLASH_BLK, "blk_k": layers.FLASH_BLK} \
-            if w_ is None else {"blk_q": gcd(w_, layers.FLASH_BLK),
-                                "blk_k": gcd(w_, layers.FLASH_BLK)}
-        chunk = None if s_ <= ATTN_WHOLE else ATTN_CHUNK
-        out = flash_attention(qt, kt, vt, window=w_, **blk)
-        want = flash_attention_plain(qt, kt, vt, window=w_, chunk=chunk)
-        err = amax((out.float() - want.float()).abs())
-        del want
-        reps = 5 if s_ <= ATTN_WHOLE else 3
-        k_ms = event_ms(lambda: flash_attention(qt, kt, vt, window=w_,
-                                                **blk), reps)[0]
-        p_ms = event_ms(lambda: flash_attention_plain(
-            qt, kt, vt, window=w_, chunk=chunk), 3 if chunk is None else 1)[0]
-        l_ms, l_label = library_attn(qt, kt, vt, w_, out, reps)
-        pairs = b_ * h_ * (s_ * (s_ + 1) // 2 if w_ is None or w_ >= s_
-                           else w_ * (w_ + 1) // 2 + (s_ - w_) * w_)
-        peak_ops = FP32_FLOPS if qt.dtype == torch.float32 else BF16_FLOPS
-        o_ms = 4 * d_ * pairs / peak_ops * 1e3
-        b_ms = (2 * qt.numel() + 2 * kt.numel()) * qt.element_size() \
-            / HBM_BYTES_S * 1e3
-        dname = "bf16" if qt.dtype == torch.bfloat16 else "float32"
-        print(f"    flash_attention at {label} ({dname}): {k_ms:.3f} ms, "
-              f"bound {max(o_ms, b_ms):.3f} ms, plain {p_ms:.3f} ms, "
-              f"library {'not measured' if l_ms is None else f'{l_ms:.3f}'}"
-              f" ({l_label}); max|kernel - plain| {err:.3e}; {launches} "
-              f"launches in the prefill {tag}")
-        return {"name": f"flash_attention (LM prefill, {arch} {label}, "
-                        f"{dname})",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention"
-                          f"{'' if qt.dtype == torch.float32 else '_sm90'}"
-                          ".cu",
-                "replaces": "src/repro/kernels/flash_attention.py:118",
-                "launches": launches, "max_abs_err": err, "ms": k_ms,
-                "plain_ms": p_ms, "bound_ms": max(o_ms, b_ms),
-                "bound_by": "operations" if o_ms >= b_ms else "bytes",
-                "library_ms": l_ms}
+        return flash_record(arch, q, k, v, window, launches, label, tag)
 
     def class_rows(arch, cfg_, s_):
         """A row for the first recorded layer of each window class, its
@@ -3534,6 +3644,500 @@ def train_runs(dev, tag):
     return out
 
 
+def tp_layout():
+    """Phase 29's ranks: (cards, their devices, what they are)."""
+    import torch
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        return n_cards, [torch.device("cuda", i) for i in range(
+            min(TP_RANKS, n_cards))], \
+            f"{min(TP_RANKS, n_cards)} cards, one rank each"
+    return n_cards, [torch.device("cuda", 0)] * TP_RANKS, (
+        f"{TP_RANKS} logical ranks on cuda:0 (one card): the times show "
+        f"the executor's cost, not scaling; no speed-up is claimed")
+
+
+def tp_runs(tag):
+    """Phase 29, LM serving over a model axis (see TP_RANKS), every check
+    fatal.  Returns the flash rows of the kernels record (one rank's
+    inputs at each tensor-parallel shape) and the phase's numbers."""
+    import torch
+
+    from repro_torch.configs import get_config, override
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.launch.serve import serve, summary
+    from repro_torch.models import layers, steps
+    from repro_torch.models.registry import build_model
+
+    t_phase = time.perf_counter()
+    n_cards, ranks, layout = tp_layout()
+    p = len(ranks)
+    mesh = make_mesh((1, p), ("data", "model"), devices=ranks)
+    cards = list(dict.fromkeys(ranks))
+    dev0 = ranks[0]
+    print(f"  29: {layout}; {describe(mesh)}")
+    out = {"layout": layout, "p": p}
+    rows = []
+
+    flash_route, plain_route = layers._flash_route, layers._plain_route
+    plain = {"route": 0, "flash_attention_plain": 0}
+    shapes, first = {}, {}
+    records, keep, worst = [], [False], {}
+    flash_plain = fmod.flash_attention_plain
+
+    def recording(cfg_, q, k, v, window):
+        """The flash route, its calls counted by (dtype, B, H, Hkv, S, D,
+        window) and each shape's first inputs kept; in a gated run (keep)
+        every call's inputs and output."""
+        res = flash_route(cfg_, q, k, v, window)
+        key = (str(q.dtype).removeprefix("torch."), q.shape[0], q.shape[2],
+               k.shape[2], q.shape[1], q.shape[3], window)
+        shapes[key] = shapes.get(key, 0) + 1
+        first.setdefault(key, (q, k, v, window))
+        if keep[0]:
+            records.append((q, k, v, window, res))
+        return res
+
+    def gated(arch, cfg_, what, fn):
+        """fn()'s result, every flash launch in it (each rank's, each
+        layer's) held against the plain route on its inputs by phase 27's
+        gate (route_gate), fatal above it."""
+        records.clear()
+        keep[0] = True
+        try:
+            res = fn()
+        finally:
+            keep[0] = False
+        sync()
+        err, share = route_gate(records, plain_route, cfg_, f"{arch} {what}")
+        records.clear()
+        e0, s0 = worst.get(arch, (0.0, 0.0))
+        worst[arch] = (max(e0, err), max(s0, share))
+        return res
+
+    def counted_plain_route(*args, **kwargs):
+        plain["route"] += 1
+        return plain_route(*args, **kwargs)
+
+    def counted_flash_plain(*args, **kwargs):
+        plain["flash_attention_plain"] += 1
+        return flash_plain(*args, **kwargs)
+
+    def reset():
+        fmod.flash_attention.launches = 0
+        fmod.flash_attention.launches_by_dtype = {
+            k: 0 for k in fmod.flash_attention.launches_by_dtype}
+        shapes.clear()
+        first.clear()
+        records.clear()
+        for k in plain:
+            plain[k] = 0
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def peaks(fn):
+        """fn()'s result and each card's peak memory in it, GB."""
+        sync()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        res = fn()
+        sync()
+        return res, {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                     for d in cards}
+
+    def launched(arch, cfg_, what):
+        """Every prefill attention a flash launch a layer a rank, in the
+        activations' dtype, none on a plain version.  Returns the shapes."""
+        dname = cfg_.dtype
+        lb = dict(fmod.flash_attention.launches_by_dtype)
+        want = cfg_.n_layers * p
+        if lb[dname] != want or sum(lb.values()) != want or \
+                sum(shapes.values()) != want or any(plain.values()):
+            raise AssertionError(f"{arch} {what}: flash launches {lb}, "
+                                 f"shapes {shapes}, plain calls {plain}: "
+                                 f"want {cfg_.n_layers} layers x {p} ranks "
+                                 f"in {dname}, no plain version")
+        return dict(shapes)
+
+    def gate(arch, want, got, tol, what):
+        """max |got - want| / max |want| of float32 copies, fatal above
+        tol."""
+        w, g = want.float().to(dev0), got.float().to(dev0)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{arch} {what}: non-finite logits")
+        rel = amax((g - w).abs()) / max(amax(w.abs()), 1e-30)
+        if not rel <= tol:
+            raise AssertionError(f"{arch} {what}: the mesh's logits are "
+                                 f"{rel:.3e} of max |logit| from one "
+                                 f"device's, above {tol:g}")
+        return rel
+
+    def draw(cfg_, on_mesh):
+        """Parameters from torch.Generator seed 0 on the first rank's card,
+        on it alone or placed over the mesh: (params, seconds)."""
+        sync()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = build_model(cfg_).init(
+            torch.Generator(device=dev0).manual_seed(0), device=dev0,
+            mesh=mesh if on_mesh else None)
+        sync()
+        return params, time.perf_counter() - t0
+
+    def served(cfg_, params):
+        """serve() at its defaults after a warm-up of two tokens, whose
+        prefill is gated (the measured run keeps no inputs)."""
+        where = "over the mesh" if hasattr(params, "px") else "on one device"
+        gated(cfg_.arch, cfg_, f"serve warm-up {where}", lambda: serve(
+            cfg_, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT, gen=2,
+            params=params, device=dev0))
+        reset()
+        sv, pk = peaks(lambda: serve(cfg_, batch=LM_BATCH,
+                                     prompt_len=LM_SERVE_PROMPT, gen=LM_GEN,
+                                     params=params, device=dev0))
+        return sv, pk
+
+    def numbers(sv):
+        return {"prefill_ms": sv["prefill_s"] * 1e3,
+                "decode_ms_per_step": sv["decode_s"] * 1e3 / (LM_GEN - 1),
+                "tok_s": sv["tok_s"]}
+
+    def collectives(cfg_, sm, toks, cap):
+        """The collectives' ms (CUDA events around each) in one prefill of
+        toks and in one decode step after it."""
+        pre = steps.make_prefill_step(cfg_, cache_capacity=cap,
+                                      policy=sm.policy)
+        dec = steps.make_decode_step(cfg_, policy=sm.policy)
+        sm.px.timer = []
+        logits, cache = pre(sm, tokens=toks)
+        pre_ms, n_pre = sm.px.collective_ms(), len(sm.px.timer)
+        sm.px.timer = []
+        dec(sm, token=logits[:, -1].argmax(-1)[:, None], cache=cache,
+            cache_index=toks.shape[1])
+        dec_ms, n_dec = sm.px.collective_ms(), len(sm.px.timer)
+        sm.px.timer = None
+        return {"prefill_ms": pre_ms, "prefill_count": n_pre,
+                "decode_ms": dec_ms, "decode_count": n_dec}
+
+    def serve_prompts(cfg_):
+        """launch.serve's prompts (numpy seed 0), as serve() draws them."""
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg_.vocab, (LM_BATCH, LM_SERVE_PROMPT),
+            dtype=np.int32)).long().to(dev0)
+
+    def last_logits(cfg_, params, toks, policy=None):
+        """A prefill's last-token logits (B, V), float32, on dev0."""
+        logits, _ = steps.make_prefill_step(
+            cfg_, cache_capacity=toks.shape[1] + 1, policy=policy)(
+                params, tokens=toks)
+        return logits[:, -1].float().to(dev0)
+
+    def held(arch, truth, one, got, what):
+        """The mesh's bf16 logits no more than TP_BF16_RATIO times as far
+        from the float32 truth as one device's: (one device's distance,
+        the mesh's, the two runs' own), relative to max |truth|."""
+        scale = max(amax(truth.abs()), 1e-30)
+        one, got = one.float().to(dev0), got.float().to(dev0)
+        d_one = amax((one - truth).abs()) / scale
+        d_mesh = amax((got - truth).abs()) / scale
+        if not bool(torch.isfinite(got).all()) or \
+                not d_mesh <= TP_BF16_RATIO * d_one:
+            raise AssertionError(f"{arch} {what}: the mesh's bf16 logits are "
+                                 f"{d_mesh:.3e} of max from the float32 "
+                                 f"truth, one device's {d_one:.3e} (ratio "
+                                 f"{TP_BF16_RATIO:g})")
+        return d_one, d_mesh, amax((got - one).abs()) / scale
+
+    def flash_gate(arch):
+        err, share = worst[arch]
+        return (f"every gated run's flash launches against the plain route: "
+                f"max |err| {err:.3e}, {share:.3f} of the gate at most")
+
+    def agree(a, b):
+        return int((a["tokens"].to(dev0) == b["tokens"].to(dev0)).sum())
+
+    def tp_rows(arch, launches_by_key):
+        """A record row for each flash shape of the last run (its first
+        rank's first layer), its launches that shape's in the run."""
+        out_rows = []
+        for key, (q, k, v, window) in sorted(first.items(),
+                                            key=lambda kv: kv[0][-1]):
+            _, b_, h_, hkv_, s_, d_, w_ = key
+            out_rows.append(flash_record(
+                arch, q, k, v, window, launches_by_key[key],
+                f"S={s_} {f'window {w_}' if w_ else 'causal'}, tp {p} "
+                f"(a rank: H {h_}, Hkv {hkv_}, D {d_})", tag))
+        return out_rows
+
+    layers._flash_route = recording
+    layers._plain_route = counted_plain_route
+    fmod.flash_attention_plain = counted_flash_plain
+    try:
+        # -- (a) llama3.2-3b FULL ------------------------------------------
+        arch = "llama3.2-3b"
+        cfg = get_config(arch)
+        cfg32 = override(cfg, dtype="float32")
+        g = torch.Generator(device=dev0).manual_seed(2)
+        toks = torch.randint(0, cfg.vocab, (1, TP_PROMPT), generator=g,
+                             device=dev0)
+        sp = serve_prompts(cfg)
+        one, one_draw = draw(cfg, False)
+        one_sv, one_pk = served(cfg, one)
+        truth = last_logits(cfg32, one, sp)
+        one_long, truth_long = last_logits(cfg, one, toks), \
+            last_logits(cfg32, one, toks)
+        pre1 = steps.make_prefill_step(cfg, cache_capacity=TP_PROMPT + 1)
+        one_long_ms = host_ms(lambda: pre1(one, tokens=toks), 3)[0]
+        del one
+        sm, sm_draw = draw(cfg, True)
+        sv, pk = served(cfg, sm)
+        serve_shapes = launched(arch, cfg, "serve")
+        bf = held(arch, truth, one_sv["first_logits"][:, -1],
+                  sv["first_logits"][:, -1], "serve")
+        reset()
+        rel32 = gate(arch, truth, gated(arch, cfg32, "float32 prefill",
+                                        lambda: last_logits(
+                                            cfg32, sm, sp, sm.policy)),
+                     TOL_LM_LOGITS_F32, "float32 prefill")
+        launched(arch, cfg32, "float32 prefill")
+        pre = steps.make_prefill_step(cfg, cache_capacity=TP_PROMPT + 1,
+                                      policy=sm.policy)
+        reset()
+        long_logits = gated(arch, cfg, f"prefill of {TP_PROMPT}",
+                            lambda: last_logits(cfg, sm, toks, sm.policy))
+        long_shapes = launched(arch, cfg, f"prefill of {TP_PROMPT}")
+        plan = layers.head_plan(cfg, sm.px, "blocks/attn", True)
+        want_shapes = {}
+        for (q0, q1), (k0, k1) in zip(plan.q, plan.reads):
+            key = ("bfloat16", 1, q1 - q0, k1 - k0, TP_PROMPT, cfg.hd, 0)
+            want_shapes[key] = want_shapes.get(key, 0) + cfg.n_layers
+        if cfg.n_kv_heads % p == 0 and set(want_shapes) != {
+                ("bfloat16", 1, cfg.n_heads // p, cfg.n_kv_heads // p,
+                 TP_PROMPT, cfg.hd, 0)}:
+            raise AssertionError(f"{arch}: heads {plan} at {p} ranks")
+        if long_shapes != want_shapes:
+            raise AssertionError(f"{arch}: flash shapes {long_shapes}, want "
+                                 f"{want_shapes}")
+        bf_long = held(arch, truth_long, one_long, long_logits,
+                       f"prefill of {TP_PROMPT}")
+        rows += tp_rows(arch, long_shapes)
+        reset()
+        rel32_long = gate(arch, truth_long, gated(
+            arch, cfg32, f"float32 prefill of {TP_PROMPT}",
+            lambda: last_logits(cfg32, sm, toks, sm.policy)),
+            TOL_LM_LOGITS_F32, f"float32 prefill of {TP_PROMPT}")
+        launched(arch, cfg32, f"float32 prefill of {TP_PROMPT}")
+        (long_ms, long_all), long_pk = peaks(
+            lambda: host_ms(lambda: pre(sm, tokens=toks), 3))
+        coll = collectives(cfg, sm, toks, TP_PROMPT + 1)
+        coll_serve = collectives(cfg, sm, sp, LM_SERVE_PROMPT + 2)
+        # (e) a decode step may not wait on the host
+        logits, cache = steps.make_prefill_step(
+            cfg, cache_capacity=LM_SERVE_PROMPT + 1, policy=sm.policy)(
+                sm, tokens=sp)
+        decode = steps.make_decode_step(cfg, policy=sm.policy)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step_logits, _ = decode(sm, token=tok, cache=cache,
+                                    cache_index=LM_SERVE_PROMPT)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        if not bool(torch.isfinite(step_logits).all()):
+            raise AssertionError(f"{arch}: the checked decode step's logits "
+                                 f"are not finite")
+        del sm, cache, logits, step_logits
+        out[arch] = {
+            "one_device": dict(numbers(one_sv), draw_s=one_draw,
+                               peak_gb=one_pk, prefill_long_ms=one_long_ms),
+            "mesh": dict(numbers(sv), draw_s=sm_draw, peak_gb=pk,
+                         prefill_long_ms=long_ms,
+                         prefill_long_runs=long_all,
+                         prefill_long_peak_gb=long_pk),
+            "bf16_from_truth_one_mesh_apart": bf,
+            "bf16_long_from_truth_one_mesh_apart": bf_long,
+            "f32_rel": rel32, "f32_long_rel": rel32_long,
+            "greedy_agree": agree(one_sv, sv),
+            "greedy_tokens": LM_BATCH * LM_GEN,
+            "flash_vs_plain_err_share": worst[arch],
+            "collectives_long": coll, "collectives_serve": coll_serve,
+            "flash_serve": {str(k): v for k, v in serve_shapes.items()},
+            "flash_long": {str(k): v for k, v in long_shapes.items()}}
+        print(f"  (a) {arch} FULL over {p} ranks: {summary(sv)}; prefill "
+              f"{sv['prefill_s'] * 1e3:.3f} ms (one device "
+              f"{one_sv['prefill_s'] * 1e3:.3f}), decode "
+              f"{out[arch]['mesh']['decode_ms_per_step']:.3f} ms a step "
+              f"(one device {out[arch]['one_device']['decode_ms_per_step']:.3f}"
+              f"), {sv['tok_s']:.1f} tok/s; first logits from the float32 "
+              f"truth: one device {bf[0]:.3e}, mesh {bf[1]:.3e} of max (the "
+              f"two {bf[2]:.3e} apart); float32 mesh {rel32:.3e} from one "
+              f"device (gate {TOL_LM_LOGITS_F32:g}); greedy tokens agreeing "
+              f"{out[arch]['greedy_agree']} of {LM_BATCH * LM_GEN}; peak "
+              f"{pk} GB (one device {one_pk}); flash launches "
+              f"{serve_shapes} {tag}")
+        print(f"      prefill of {TP_PROMPT}: {long_ms:.3f} ms (one device "
+              f"{one_long_ms:.3f}); logits from the truth: one device "
+              f"{bf_long[0]:.3e}, mesh {bf_long[1]:.3e} ({bf_long[2]:.3e} "
+              f"apart), float32 mesh {rel32_long:.3e} from one device; "
+              f"flash launches {long_shapes}; collectives "
+              f"{coll['prefill_ms']:.3f} ms in {coll['prefill_count']} a "
+              f"prefill, {coll['decode_ms']:.3f} ms in "
+              f"{coll['decode_count']} a decode step (batch 1), "
+              f"{coll_serve['decode_ms']:.3f} ms a decode step at batch "
+              f"{LM_BATCH}; peak {long_pk} GB; a decode step under "
+              f"set_sync_debug_mode('error'); {flash_gate(arch)} {tag}")
+
+        # -- (b) hymba-1.5b FULL ---------------------------------------------
+        arch = "hymba-1.5b"
+        cfg = get_config(arch)
+        cfg32 = override(cfg, dtype="float32")
+        sp = serve_prompts(cfg)
+        one, _ = draw(cfg, False)
+        one_sv, one_pk = served(cfg, one)
+        truth = last_logits(cfg32, one, sp)
+        del one
+        sm, sm_draw = draw(cfg, True)
+        sv, pk = served(cfg, sm)
+        serve_shapes = launched(arch, cfg, "serve")
+        bf = held(arch, truth, one_sv["first_logits"][:, -1],
+                  sv["first_logits"][:, -1], "serve")
+        rows += tp_rows(arch, serve_shapes)
+        reset()
+        rel32 = gate(arch, truth, gated(arch, cfg32, "float32 prefill",
+                                        lambda: last_logits(
+                                            cfg32, sm, sp, sm.policy)),
+                     TOL_LM_LOGITS_F32, "float32 prefill")
+        launched(arch, cfg32, "float32 prefill")
+        coll = collectives(cfg, sm, sp, LM_SERVE_PROMPT + 2)
+        plan = layers.head_plan(cfg, sm.px, "blocks/attn", True)
+        del sm
+        out[arch] = {"one_device": dict(numbers(one_sv), peak_gb=one_pk),
+                     "mesh": dict(numbers(sv), draw_s=sm_draw, peak_gb=pk),
+                     "bf16_from_truth_one_mesh_apart": bf,
+                     "f32_rel": rel32,
+                     "greedy_agree": agree(one_sv, sv),
+                     "greedy_tokens": LM_BATCH * LM_GEN,
+                     "flash_vs_plain_err_share": worst[arch],
+                     "collectives_serve": coll,
+                     "heads": {"q": plan.q, "kv": plan.kv,
+                               "gather": plan.gather},
+                     "flash_serve": {str(k): v
+                                     for k, v in serve_shapes.items()}}
+        print(f"  (b) {arch} FULL over {p} ranks (H {cfg.n_heads}, Hkv "
+              f"{cfg.n_kv_heads}: query heads a rank {plan.q}, KV {plan.kv}"
+              f", gathered {plan.gather}; vocabulary {cfg.vocab} over "
+              f"d_model; d_inner {cfg.d_inner} over the ranks): "
+              f"{summary(sv)}; prefill {sv['prefill_s'] * 1e3:.3f} ms (one "
+              f"device {one_sv['prefill_s'] * 1e3:.3f}), decode "
+              f"{out[arch]['mesh']['decode_ms_per_step']:.3f} ms a step "
+              f"(one device {out[arch]['one_device']['decode_ms_per_step']:.3f}"
+              f"); first logits from the float32 truth: one device "
+              f"{bf[0]:.3e}, mesh {bf[1]:.3e} ({bf[2]:.3e} apart); float32 "
+              f"mesh {rel32:.3e} from one device; greedy tokens agreeing "
+              f"{out[arch]['greedy_agree']} of {LM_BATCH * LM_GEN}; "
+              f"collectives {coll['prefill_ms']:.3f} ms a prefill, "
+              f"{coll['decode_ms']:.3f} ms a decode step; peak {pk} GB; "
+              f"flash launches {serve_shapes}; {flash_gate(arch)} {tag}")
+
+        # -- (c) qwen3-moe-30b-a3b, expert parallel ---------------------------
+        arch = TP_MOE_ARCH
+        cfg = override(get_config(arch), n_layers=TP_MOE_LAYERS)
+        cfg32 = override(cfg, dtype="float32")
+        prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SERVE_PROMPT),
+                                generator=g, device=dev0)
+        one, _ = draw(cfg, False)
+        one_sv, one_pk = served(cfg, one)
+        one32, _ = steps.make_prefill_step(cfg32, cache_capacity=(
+            LM_SERVE_PROMPT + 1))(one, tokens=prompts)
+        truth = last_logits(cfg32, one, serve_prompts(cfg))
+        del one
+        sm, sm_draw = draw(cfg, True)
+        if sm.px.tp_dim("blocks/moe/w1") != 0:
+            raise AssertionError(f"{arch}: not expert parallel")
+        sv, pk = served(cfg, sm)
+        serve_shapes = launched(arch, cfg, "serve")
+        bf = held(arch, truth, one_sv["first_logits"][:, -1],
+                  sv["first_logits"][:, -1], "serve")
+        reset()
+        got32, _ = gated(arch, cfg32, "float32 prefill", lambda: (
+            steps.make_prefill_step(cfg32, cache_capacity=(
+                LM_SERVE_PROMPT + 1), policy=sm.policy)(sm, tokens=prompts)))
+        launched(arch, cfg32, "float32 prefill")
+        rel32 = gate(arch, one32, got32, TOL_LM_LOGITS_F32,
+                     "float32 prefill")
+        coll = collectives(cfg, sm, prompts, LM_SERVE_PROMPT + 2)
+        del sm
+        out[arch] = {"layers": TP_MOE_LAYERS,
+                     "experts_per_rank": cfg.n_experts // p,
+                     "one_device": dict(numbers(one_sv), peak_gb=one_pk),
+                     "mesh": dict(numbers(sv), draw_s=sm_draw, peak_gb=pk),
+                     "bf16_from_truth_one_mesh_apart": bf,
+                     "prefill_logits_rel_f32": rel32,
+                     "greedy_agree": agree(one_sv, sv),
+                     "greedy_tokens": LM_BATCH * LM_GEN,
+                     "flash_vs_plain_err_share": worst[arch],
+                     "collectives_serve": coll}
+        print(f"  (c) {arch} full width, {TP_MOE_LAYERS} of "
+              f"{get_config(arch).n_layers} layers, {cfg.n_experts // p} "
+              f"experts a rank: {summary(sv)}; prefill "
+              f"{sv['prefill_s'] * 1e3:.3f} ms (one device "
+              f"{one_sv['prefill_s'] * 1e3:.3f}), decode "
+              f"{out[arch]['mesh']['decode_ms_per_step']:.3f} ms a step "
+              f"(one device {out[arch]['one_device']['decode_ms_per_step']:.3f}"
+              f"); float32 prefill logits {rel32:.3e} of max from one "
+              f"device's (gate {TOL_LM_LOGITS_F32:g}); first logits from "
+              f"the float32 truth: one device {bf[0]:.3e}, mesh {bf[1]:.3e} "
+              f"({bf[2]:.3e} apart); greedy tokens agreeing "
+              f"{out[arch]['greedy_agree']} of {LM_BATCH * LM_GEN}; "
+              f"collectives {coll['prefill_ms']:.3f} ms a prefill, "
+              f"{coll['decode_ms']:.3f} ms a decode step; peak {pk} GB; "
+              f"{flash_gate(arch)} {tag}")
+        if n_cards >= 2:
+            full = get_config(arch)
+            sm, sm_draw = draw(full, True)
+            sv, pk = served(full, sm)
+            launched(arch, full, "serve, all layers")
+            if not bool(torch.isfinite(sv["first_logits"]).all()):
+                raise AssertionError(f"{arch}: non-finite logits at "
+                                     f"{full.n_layers} layers")
+            del sm
+            out[arch]["all_layers"] = dict(numbers(sv), draw_s=sm_draw,
+                                           peak_gb=pk)
+            out[arch]["flash_vs_plain_err_share"] = worst[arch]
+            print(f"      all {full.n_layers} layers over {p} cards: "
+                  f"{summary(sv)}; drawn and placed in {sm_draw:.1f} s; "
+                  f"peak per card {pk} GB; {flash_gate(arch)} {tag}")
+    finally:
+        layers._flash_route, layers._plain_route = flash_route, plain_route
+        fmod.flash_attention_plain = flash_plain
+
+    # -- (d) the launcher as a user runs it -----------------------------------
+    src = Path(__file__).resolve().parent / "src"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "llama3.2-3b", "--smoke", "--model-axis", "4", "--devices",
+           "cuda:0,cuda:0,cuda:0,cuda:0"]
+    env = dict(os.environ, PYTHONPATH=str(src))
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=300)
+    line = res.stdout.strip().splitlines()[-1:] or [""]
+    if res.returncode != 0 or not re.match(
+            r"^\S+: prefill=\d+ms decode \d+ steps=\d+ms \(\d+ tok/s\)$",
+            line[0]):
+        raise AssertionError(f"(d) {' '.join(cmd[1:])}: exit "
+                             f"{res.returncode}, {res.stdout[-500:]!r} "
+                             f"{res.stderr[-2000:]}")
+    out["cli"] = line[0]
+    print(f"  (d) python {' '.join(cmd[1:])}: {line[0]}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 29 took {out['seconds']:.1f} s {tag}")
+    return rows, out
+
+
 def kendall_runs(x_dev, x_tf, reset, tag):
     """Phase 23: merge-sort Kendall at the paper's sample count, every
     check fatal.  `reset` sets the pcc kernels' launch counts to 0.  Returns
@@ -4081,9 +4685,13 @@ def main(argv) -> int:
     t_script = time.perf_counter()
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
     # earlier tree of this repository, for a before / after comparison)
+    # --lm-mesh-only: the build and phase 29 alone (a call on several cards)
     overlap_only = argv[:1] == ["--overlap-only"]
-    if (overlap_only and len(argv) != 2) or (argv and not overlap_only):
-        print("usage: chip_smoke.py [--overlap-only SRC]", file=sys.stderr)
+    mesh_only = argv == ["--lm-mesh-only"]
+    if (overlap_only and len(argv) != 2) or \
+            (argv and not overlap_only and not mesh_only):
+        print("usage: chip_smoke.py [--overlap-only SRC | --lm-mesh-only]",
+              file=sys.stderr)
         return 2
     src = (Path(argv[1]) if overlap_only
            else Path(__file__).resolve().parent / "src")
@@ -4226,6 +4834,18 @@ def main(argv) -> int:
         res = overlap_runs(x_dev, K_TOP, SPLIT)
         print(f"script time {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"overlap": res, "src": str(src), "card": card}))
+        return 0
+    if mesh_only:
+        tag = f"[{card}]"
+        print(f"LM serving over a (data, model) mesh (models/parallel.py), "
+              f"flash on each rank's heads {tag}:")
+        tp_rows, tp_out = tp_runs(tag)
+        print(json.dumps({"tp": tp_out}, default=str))
+        print(f"script time {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"kernels": tp_rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     # (this tree's kernels: --overlap-only may build an earlier tree's)
     kendall_kernels = {f"kendall_merge_kernel<{p}, {e}, {g}>" for p, e, g
@@ -6159,44 +6779,6 @@ def main(argv) -> int:
           f"{small_narrow['float16'][0]:.3e}, at most "
           f"{small_narrow['float16'][1]:.3f} of the gate")
 
-    def library_attn(q_, k_, v_, w_, out_, reps):
-        """(ms, label) of one PyTorch call that computes the same attention
-        (scaled_dot_product_attention; the port never calls it), or (None,
-        reason)."""
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        if w_ is None:
-            kw, what = dict(is_causal=True), "is_causal=True"
-        else:
-            i = torch.arange(q_.shape[2], device=dev)
-            kw = dict(attn_mask=(i[None, :] <= i[:, None])
-                      & (i[None, :] > i[:, None] - w_))
-            what = "attn_mask=<boolean band>"
-        tries = [(f"scaled_dot_product_attention({what}, enable_gqa=True)",
-                  lambda: sdpa(q_, k_, v_, enable_gqa=True, **kw))]
-        rep = q_.shape[1] // k_.shape[1]
-        tries.append((f"scaled_dot_product_attention({what}) on k, v "
-                      f"expanded to H heads beforehand (not timed)",
-                      lambda: sdpa(q_, ke, ve, **kw)))
-        ke = ve = None
-        fails = []
-        for label, fn in tries:
-            try:
-                if "expanded" in label:
-                    ke = k_.repeat_interleave(rep, dim=1)
-                    ve = v_.repeat_interleave(rep, dim=1)
-                got = fn()
-                torch.cuda.synchronize()
-            except Exception as exc:   # backend-, version- and size-dependent
-                fails.append(f"{label}: {str(exc).splitlines()[0][:160]}")
-                torch.cuda.empty_cache()
-                continue
-            diff = amax((got.float() - out_.float()).abs())
-            del got
-            ms = event_ms(fn, reps)[0]
-            return ms, (f"{label}, max|library - kernel| {diff:.3e}"
-                        + "".join(f"; refused first: {f}" for f in fails))
-        return None, "none: " + "; ".join(fails)
-
     flash_rows = []
     dtype_tag = {"bfloat16": ", bf16", "float16": ", fp16"}
     for name, cfg, b_, h_, hkv_, d_, w_, s_ in FLASH_CASES:
@@ -6372,7 +6954,7 @@ def main(argv) -> int:
         tuple(f[0] for f in LM_FAMILIES)
     print(f"LM serving (launch.serve, prefill on the flash kernel) at full "
           f"width: {', '.join(lm_names)} {tag}:")
-    lm_rows, lm_out = lm_runs(dev, tag, library_attn)
+    lm_rows, lm_out = lm_runs(dev, tag)
     print(json.dumps({"lm": lm_out}))
 
     # -- 28. LM training at full width -----------------------------------------
@@ -6380,6 +6962,13 @@ def main(argv) -> int:
     print(f"LM training (make_train_step, AdamW, TrainLoop with checkpoints) "
           f"at full width: {TRAIN_ARCH} {tag}:")
     print(json.dumps({"train": train_runs(dev, tag)}))
+
+    # -- 29. LM serving over a model axis --------------------------------------
+    torch.cuda.empty_cache()
+    print(f"LM serving over a (data, model) mesh (models/parallel.py), "
+          f"flash on each rank's heads {tag}:")
+    tp_rows, tp_out = tp_runs(tag)
+    print(json.dumps({"tp": tp_out}, default=str))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []
@@ -6472,6 +7061,7 @@ def main(argv) -> int:
                             ("pcc_tiles (replica scaled int8)", "int8"))],
         *flash_rows,
         *lm_rows,
+        *tp_rows,
         kendall_record,
     ]}
     # the header holding each pcc kernel's mainloop, beside its source: the

@@ -119,7 +119,7 @@ def operand_from_reference(u_pad, device=None):
 
 
 def lm_params_from_reference(cfg, params, device=None,
-                             trainable: bool = False):
+                             trainable: bool = False, mesh=None):
     """The port's parameters (a ``models.transformer.DecoderLM``, or a
     ``models.encdec.EncDecLM`` for an encoder-decoder config, on `device`,
     None meaning "cuda") for the reference's parameter pytree of the same
@@ -128,7 +128,10 @@ def lm_params_from_reference(cfg, params, device=None,
     as ``np.asarray`` of each leaf of ``model.init(key)`` gives them.
     Raises ValueError when a leaf is missing, left over, of another shape,
     or not float32.  ``trainable`` leaves require grad (training); serving
-    holds frozen ones."""
+    holds frozen ones.  With a (data, model) ``mesh`` (in place of
+    `device`) each leaf is cut into the ranks' shards as
+    ``sharding.make_policy(cfg, mesh)`` places them: a
+    ``models.parallel.ShardedLM``."""
     # the LM side loads on demand
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.registry import build_model
@@ -145,7 +148,12 @@ def lm_params_from_reference(cfg, params, device=None,
         else:
             flat["/".join(path)] = np.asarray(node)
     walk(params, ())
-    dev = resolve_device(device)
+    place = None
+    if mesh is not None:
+        from repro_torch.models.parallel import Placement
+        from repro_torch.models.sharding import make_policy
+        place = Placement(cfg, make_policy(cfg, mesh))
+    dev = resolve_device(device) if place is None else torch.device("cpu")
     tensors = {name: [{} for _ in range(n)] for name, n in depth.items()}
     expected = set()
     for name, shape_like in want.items():
@@ -178,7 +186,13 @@ def lm_params_from_reference(cfg, params, device=None,
     if extra:
         raise ValueError(f"reference parameters the port does not have: "
                          f"{extra}")
-    return (EncDecLM if cfg.enc_dec else DecoderLM)(cfg, tensors, trainable)
+    cls = EncDecLM if cfg.enc_dec else DecoderLM
+    if place is None:
+        return cls(cfg, tensors, trainable)
+    placed = {name: ([place(name, t) for t in tree]
+                     if name in depth else place(name, tree))
+              for name, tree in tensors.items()}
+    return place.build(cls, cfg, placed, trainable)
 
 
 __all__ = ["plan_from_reference", "operand_from_reference",

@@ -15,7 +15,9 @@ attention and cross-attention are bidirectional, which the causal kernel
 does not compute, and run the reference's plain ``sdpa`` on both devices.
 Under autograd (training) every attention takes the plain route, and each
 encoder and decoder layer is recomputed in the backward pass unless
-cfg.remat is "none", as the reference checkpoints its scan bodies.
+cfg.remat is "none", as the reference checkpoints its scan bodies.  Over a
+mesh (a ``parallel.ShardedLM``) every attention runs on each rank's heads,
+the encoder's output whole on each model rank.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (Block, _param, _prefill_cache,
                                             init_block, project_logits)
@@ -74,26 +78,33 @@ def init_dec_block(gen, cfg: ModelConfig, device=None) -> dict:
 
 
 def init_params(gen, cfg: ModelConfig, device=None,
-                trainable: bool = False) -> EncDecLM:
+                trainable: bool = False, place=None) -> EncDecLM:
     """Random parameters from the torch.Generator `gen` (on its device, or
     `device`), or shapes only when `device` is "meta"; ``trainable`` leaves
     require grad.  Parity runs carry the reference's over
-    (``convert.lm_params_from_reference``)."""
+    (``convert.lm_params_from_reference``).  ``place`` cuts each layer
+    into its rank shards as it is drawn (``transformer.init_params``)."""
     dev = L._device(gen, device)
+    keep = place if place is not None else (lambda path, t: t)
     tensors = {
-        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dev),
-        "enc_blocks": [init_enc_block(gen, cfg, dev)
+        "embed": keep("embed", L.dense_init(gen, (cfg.vocab, cfg.d_model),
+                                            dev)),
+        "enc_blocks": [keep("enc_blocks", init_enc_block(gen, cfg, dev))
                        for _ in range(cfg.enc_layers)],
-        "enc_norm": torch.ones((cfg.d_model,), device=dev),
-        "blocks": [init_dec_block(gen, cfg, dev)
+        "enc_norm": keep("enc_norm", torch.ones((cfg.d_model,), device=dev)),
+        "blocks": [keep("blocks", init_dec_block(gen, cfg, dev))
                    for _ in range(cfg.n_layers)],
-        "final_norm": torch.ones((cfg.d_model,), device=dev),
+        "final_norm": keep("final_norm", torch.ones((cfg.d_model,),
+                                                    device=dev)),
     }
     if not cfg.tie_embeddings:
-        tensors["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dev)
+        tensors["lm_head"] = keep("lm_head", L.dense_init(
+            gen, (cfg.d_model, cfg.vocab), dev))
     if not cfg.embed_inputs:
-        tensors["src_embed"] = L.dense_init(gen, (cfg.vocab, cfg.d_model),
-                                            dev)
+        tensors["src_embed"] = keep("src_embed", L.dense_init(
+            gen, (cfg.vocab, cfg.d_model), dev))
+    if place is not None:
+        return place.build(EncDecLM, cfg, tensors, trainable)
     return EncDecLM(cfg, tensors, trainable)
 
 
@@ -185,5 +196,98 @@ def decode(cfg: ModelConfig, params: EncDecLM, cache: dict, token: Tensor,
     return project_logits(cfg, params, x), cache
 
 
+# ---------------------------------------------------------------------------
+# over a (data, model) mesh (models/parallel.py): one list entry a rank
+# ---------------------------------------------------------------------------
+
+
+def _add(sm, xs: list, outs: list) -> list:
+    return sm.px.map(torch.add, xs, P.combine(sm.px, outs, xs[0].dtype))
+
+
+def encode_tp(cfg: ModelConfig, sm, src: Tensor, split: bool) -> list:
+    """``encode`` over the mesh, each attention on its rank's heads (plain
+    on both devices): the encoder's output whole on each model rank, its
+    batch `split` over the data axes or not."""
+    px, dt = sm.px, cfg.activation_dtype()
+    if src.ndim == 2:
+        xs = T.embed_tp(cfg, sm, px.scatter(src, split), "src_embed")
+    else:
+        xs = px.scatter(src.to(dt), split)
+    pos = px.map(lambda x: L.default_positions(
+        x.shape[0], x.shape[1], device=x.device).expand(x.shape[0],
+                                                        x.shape[1]), xs)
+    for li in range(cfg.enc_layers):
+        blk = f"enc_blocks.{li}"
+        hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
+        xs = _add(sm, xs, [L.encoder_attention_apply_tp(
+            cfg, px, sm.parts(blk + ".attn"), hs, pos)])
+        h2 = T._norm_tp(cfg, sm, xs, blk + ".ln2")
+        xs = _add(sm, xs, [L.mlp_apply_tp(cfg, px, sm.parts(blk + ".mlp"), h2,
+                                          prefix="enc_blocks/mlp")])
+    return T._norm_tp(cfg, sm, xs, "enc_norm")
+
+
+def _cross_tp(cfg: ModelConfig, sm, blk: str, xs: list, enc: list) -> list:
+    """A decoder layer's cross-attention sub-layer over the mesh."""
+    px = sm.px
+    hx = T._norm_tp(cfg, sm, xs, blk + ".lnx")
+    ps = sm.parts(blk + ".xattn")
+    ek, ev = L.cross_kv_tp(cfg, px, ps, enc)
+    return _add(sm, xs, [L.cross_attention_apply_tp(cfg, px, ps, hx, ek, ev)])
+
+
+def forward_tp(cfg: ModelConfig, sm, split: bool, *, src: Tensor,
+               tokens: Tensor, cache_capacity: Optional[int] = None):
+    """``forward`` over the mesh: the decoder's self-attention on the flash
+    kernel a rank on the card.  Returns (each rank's hidden state, 0.0,
+    a ``parallel.ShardedCache`` or None)."""
+    px = sm.px
+    enc = encode_tp(cfg, sm, src, split)
+    xs = T.embed_tp(cfg, sm, px.scatter(tokens, split))
+    b, s = tokens.shape
+    caches = None
+    if cache_capacity is not None:
+        caches = px.new_caches(init_cache(cfg, b, cache_capacity,
+                                          src.shape[1], device="meta"))
+        for rc, e in zip(caches.ranks, enc):
+            rc["enc_out"] = e
+    nones = [None] * px.p
+    for li in range(cfg.n_layers):
+        blk = f"blocks.{li}"
+        hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
+        out, kv = L.attention_apply_tp(cfg, px, sm.parts(blk + ".attn"), hs,
+                                       nones, 0)
+        xs = _add(sm, xs, [out])
+        xs = _cross_tp(cfg, sm, blk, xs, enc)
+        xs, _ = T._ffn_tp(cfg, sm, blk, xs, split)
+        if caches is not None:
+            for rc, (k, v) in zip(caches.ranks, kv):
+                _prefill_cache(cfg, rc, li, {"k": k, "v": v}, 0, s)
+    return T._norm_tp(cfg, sm, xs, "final_norm"), 0.0, caches
+
+
+def decode_tp(cfg: ModelConfig, sm, split: bool, cache, token: Tensor,
+              cache_index: int, positions: Optional[Tensor] = None):
+    """``decode`` over the mesh: (logits (B, 1, V) on the first rank's
+    device, cache)."""
+    px = sm.px
+    xs = T.embed_tp(cfg, sm, px.scatter(token, split))
+    pos = px.scatter(positions, split)
+    enc = [rc["enc_out"] for rc in cache.ranks]
+    for li in range(cfg.n_layers):
+        blk = f"blocks.{li}"
+        hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
+        xs = _add(sm, xs, [L.attention_decode_tp(
+            cfg, px, sm.parts(blk + ".attn"), hs, pos, 0,
+            [rc["k"][li] for rc in cache.ranks],
+            [rc["v"][li] for rc in cache.ranks], cache_index)])
+        xs = _cross_tp(cfg, sm, blk, xs, enc)
+        xs, _ = T._ffn_tp(cfg, sm, blk, xs, split)
+    xs = T._norm_tp(cfg, sm, xs, "final_norm")
+    return T.project_logits_tp(cfg, sm, xs, split), cache
+
+
 __all__ = ["EncDecLM", "init_params", "init_enc_block", "init_dec_block",
-           "encode", "forward", "decode", "init_cache"]
+           "encode", "forward", "decode", "init_cache", "encode_tp",
+           "forward_tp", "decode_tp"]

@@ -26,10 +26,17 @@ encoder's bidirectional attention and cross-attention are plain tensor
 code on both devices, as in the reference, where no Pallas kernel
 computes them.  So is the MoE layer: the reference routes, dispatches and
 combines in plain XLA, outside any Pallas kernel.
+
+The ``*_tp`` forms run a layer over a (data, model) mesh
+(``models/parallel.py``): one list entry a rank, each rank's parameters
+its shards.  Attention is split by heads (``head_plan``): each rank's
+self-attention runs on its own heads, on the card one flash launch a rank
+a layer; the MLP by F; MoE experts expert-parallel, or by F.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Mapping, Optional, Tuple
 
@@ -39,6 +46,7 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.parallel import Out, mm32
 
 Tensor = torch.Tensor
 # the largest flash block; the wrapper's blk only validates the window
@@ -393,30 +401,50 @@ def attention_decode(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
     is uniform.  The caches are written in place (the reference donates
     them) and returned.
     """
-    b = x.shape[0]
-    cap = k_cache.shape[2]
     q, k, v = _project_qkv(cfg, p, x, x)  # sq = 1
     t = int(cache_index)  # number of tokens already cached
-    rope_pos = positions if (positions is not None and positions.ndim == 3) \
-        else torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+    rope_pos = _decode_rope_pos(positions, x.shape[0], t, x.device)
     q = apply_rope(cfg, q, rope_pos)
     k = apply_rope(cfg, k, rope_pos)
-    slot = t % cap
+    _write_slot(k_cache, v_cache, k, v, t)
+    out = _decode_sdpa(cfg, q, window, k_cache, v_cache, t)
+    return out @ p["wo"].to(out.dtype), k_cache, v_cache
+
+
+def _decode_rope_pos(positions: Optional[Tensor], b: int, t: int,
+                     device) -> Tensor:
+    """Decode's rotary positions: the (B, 3, 1) m-rope streams as given,
+    else position t."""
+    if positions is not None and positions.ndim == 3:
+        return positions
+    return torch.full((b, 1), t, dtype=torch.int32, device=device)
+
+
+def _write_slot(k_cache: Tensor, v_cache: Tensor, k: Tensor, v: Tensor,
+                t: int) -> None:
+    """Token t's k, v (B, 1, Hkv, hd) into slot t % cap of the caches."""
+    slot = t % k_cache.shape[2]
     k_cache[:, :, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[:, :, slot] = v[:, 0].to(v_cache.dtype)
-    # absolute position of each slot s given t+1 total tokens written:
-    #   p(s) = t - ((t - s) mod cap)   (newest written at slot t%cap holds t)
-    s_idx = torch.arange(cap, dtype=torch.int64, device=x.device)
+
+
+def _decode_sdpa(cfg: ModelConfig, q: Tensor, window: int, k_cache: Tensor,
+                 v_cache: Tensor, t: int) -> Tensor:
+    """q (B, 1, H, hd) at position t against the cache's slots, each at
+    its absolute position: with t+1 tokens written, slot s holds
+    p(s) = t - ((t - s) mod cap) (the newest, t, at slot t % cap); slots
+    with p(s) < 0 are dead.  Returns (B, 1, H*hd)."""
+    b, cap = q.shape[0], k_cache.shape[2]
+    s_idx = torch.arange(cap, dtype=torch.int64, device=q.device)
     slot_pos = t - torch.remainder(t - s_idx, cap)
     valid = slot_pos >= 0
-    q_pos = torch.full((b, 1), t, dtype=torch.int64, device=x.device)
+    q_pos = torch.full((b, 1), t, dtype=torch.int64, device=q.device)
     k_pos = slot_pos[None, :].expand(b, cap)
     k_valid = valid[None, :].expand(b, cap)
     kc = k_cache.transpose(1, 2)  # (B, cap, Hkv, hd)
     vc = v_cache.transpose(1, 2)
-    out = sdpa(cfg, q, kc, vc, q_pos=q_pos, k_pos=k_pos, window=window,
-               causal=True, k_valid=k_valid)
-    return out @ p["wo"].to(out.dtype), k_cache, v_cache
+    return sdpa(cfg, q, kc, vc, q_pos=q_pos, k_pos=k_pos, window=window,
+                causal=True, k_valid=k_valid)
 
 
 def cross_attention_apply(cfg: ModelConfig, p: Mapping[str, Tensor],
@@ -465,7 +493,11 @@ def init_mlp(gen, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
-def mlp_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor) -> Tensor:
+def mlp_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
+              partial: bool = False) -> Tensor:
+    """The MLP of x (B, S, D).  ``partial``: p holds a rank's columns of
+    w1 / w3 and rows of w2, and the result is the float32 partial
+    (``mm32``) of a row-parallel w2."""
     h = x @ p["w1"].to(x.dtype)
     if cfg.activation == "swiglu":
         g = x @ p["w3"].to(x.dtype)
@@ -478,7 +510,7 @@ def mlp_apply(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor) -> Tensor:
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(f"unknown activation {cfg.activation}")
-    return h @ p["w2"].to(x.dtype)
+    return mm32(h, p["w2"]) if partial else h @ p["w2"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -551,10 +583,12 @@ def moe_route(cfg: ModelConfig, router: Tensor, x: Tensor, cap: int):
 
 
 def _expert_ffn(cfg: ModelConfig, p: Mapping[str, Tensor],
-                xe: Tensor) -> Tensor:
+                xe: Tensor, partial: bool = False) -> Tensor:
     """The experts' FFN on (E, C, D) buffers: the reference's
     'ecd,edf->ecf' einsums as batched matmuls, each weight cast to the
-    activations' dtype at its use."""
+    activations' dtype at its use.  ``partial``: p holds a rank's F
+    columns of every expert, and the result is the float32 partial of a
+    row-parallel w2."""
     dt = xe.dtype
     h = torch.bmm(xe, p["w1"].to(dt))
     if cfg.activation == "swiglu":
@@ -565,23 +599,42 @@ def _expert_ffn(cfg: ModelConfig, p: Mapping[str, Tensor],
         h = r * r
     else:
         h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return torch.bmm(h, p["w2"].to(dt))
+    return mm32(h, p["w2"]) if partial else torch.bmm(h, p["w2"].to(dt))
 
 
 def _moe_groups(cfg: ModelConfig, p: Mapping[str, Tensor], x: Tensor,
                 cap: int) -> Tuple[Tensor, Tensor]:
     """Route, dispatch, run the experts and combine R groups x (R, N, D).
     Returns (out (R, N, D), Switch-style aux loss)."""
+    xe, state = _moe_dispatch(cfg, p["router"], x, cap)
+    return _moe_combine(cfg, _expert_ffn(cfg, p, xe), state)
+
+
+def _moe_dispatch(cfg: ModelConfig, router: Tensor, x: Tensor, cap: int):
+    """Route R groups x (R, N, D) and scatter their tokens into the
+    experts' buffers.  Returns (xe (E, R*cap, D), the routing state that
+    ``_moe_combine`` reads)."""
     r, n, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    dest, st, sw, keep, probs, flat_e = moe_route(cfg, p["router"], x, cap)
+    e = cfg.n_experts
+    dest, st, sw, keep, probs, flat_e = moe_route(cfg, router, x, cap)
     rows = torch.arange(r, device=x.device)[:, None]
     # dispatch: one scatter into (R, E*cap + 1, D); dropped assignments
     # land on each group's scratch row, which is discarded
     buf = x.new_zeros((r, e * cap + 1, d))
     buf[rows, dest] = x[rows, st]
     xe = buf[:, :e * cap].reshape(r, e, cap, d).transpose(0, 1)
-    ye = _expert_ffn(cfg, p, xe.reshape(e, r * cap, d))
+    return xe.reshape(e, r * cap, d), (dest, st, sw, keep, probs, flat_e,
+                                       (r, n, d, cap))
+
+
+def _moe_combine(cfg: ModelConfig, ye: Tensor, state) -> Tuple[Tensor,
+                                                                  Tensor]:
+    """The experts' outputs ye (E, R*cap, D) combined into each token's
+    weighted sum over its k assignments, and the aux loss: (out (R, N, D),
+    aux)."""
+    dest, st, sw, keep, probs, flat_e, (r, n, d, cap) = state
+    e, k = cfg.n_experts, cfg.top_k
+    rows = torch.arange(r, device=ye.device)[:, None]
     ye = ye.reshape(e, r, cap, d).transpose(0, 1).reshape(r, e * cap, d)
     # combine without atomics: each token's k assignments, in sorted
     # (expert-ascending) order as the reference's scatter-add visits them,
@@ -625,6 +678,282 @@ def moe_apply_per_example(cfg: ModelConfig, p: Mapping[str, Tensor],
     return _moe_groups(cfg, p, x, moe_capacity(cfg, x.shape[1]))
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel forms (models/parallel.py): one list entry a rank
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """Which heads each model index m computes in one attention layer.
+
+    ``rows[m]`` is (lo, hi), m's rows of wo in the flattened H*hd ((0,
+    H*hd) where wo is whole); ``q[m]`` the query heads covering them,
+    widened to whole GQA groups; ``reads[m]`` the KV heads those read;
+    ``kv[m]`` the KV heads m projects: its cache's heads in cached
+    self-attention (all of them where the cache is whole), else
+    ``reads[m]``.  ``gather[w]``: the
+    projection w's column shards do not hold every rank's heads, so they
+    are all-gathered first (the specs cut columns, not heads: hymba's 25
+    heads at tp 4, or wq cut while wk is whole)."""
+    q: tuple
+    kv: tuple
+    reads: tuple
+    rows: tuple
+    gather: dict
+    wo_split: bool
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def head_plan(cfg: ModelConfig, px, prefix: str, cached: bool) -> HeadPlan:
+    """The HeadPlan of the attention leaves under `prefix` ("blocks/attn",
+    "blocks/xattn", "enc_blocks/attn"), made once a placement."""
+    def make():
+        hd, h, hkv, tp = cfg.hd, cfg.n_heads, cfg.n_kv_heads, px.tp
+        rep = h // hkv
+        wo_split = px.tp_dim(f"{prefix}/wo") == 0
+        kv_split = cached and px.policy._div(hkv, tp)
+        q, kv, reads, rows = [], [], [], []
+        for m in range(tp):
+            lo, hi = ((m * h * hd // tp, (m + 1) * h * hd // tp)
+                      if wo_split else (0, h * hd))
+            h0 = lo // hd // rep * rep
+            h1 = _ceil(_ceil(hi, hd), rep) * rep
+            need = (h0 // rep, h1 // rep)
+            own = need
+            if cached:
+                own = ((m * hkv // tp, (m + 1) * hkv // tp) if kv_split
+                       else (0, hkv))
+                if not own[0] <= need[0] <= need[1] <= own[1]:
+                    raise AssertionError(f"{prefix}: rank {m} reads KV "
+                                         f"heads {need}, holds {own}")
+            q.append((h0, h1))
+            kv.append(own)
+            reads.append(need)
+            rows.append((lo, hi))
+
+        def gathered(w, ranges, width):
+            if px.tp_dim(f"{prefix}/{w}") != 1:
+                return False
+            cols = width // tp
+            return any(not (m * cols <= a * hd and b * hd <= (m + 1) * cols)
+                       for m, (a, b) in enumerate(ranges))
+        gather = {"wq": gathered("wq", q, h * hd),
+                  "wk": gathered("wk", kv, hkv * hd),
+                  "wv": gathered("wv", kv, hkv * hd)}
+        return HeadPlan(tuple(q), tuple(kv), tuple(reads), tuple(rows),
+                        gather, wo_split)
+    return px.cached_plan(("heads", prefix, cached), make)
+
+
+def _heads_tp(cfg: ModelConfig, px, plan: HeadPlan, prefix: str, ps, xs,
+              w: str, ranges, norm: Optional[str]) -> list:
+    """Every rank's heads ranges[m] of the projection x @ p[w] (+ its
+    bias), (B, S, n, hd), q / k-normed by p[norm]: each rank projects its
+    columns (all of them where w is whole), gathered over the model axis
+    where they do not hold its heads."""
+    hd = cfg.hd
+    ys = px.map(lambda x, wt: x @ wt.to(x.dtype), xs, [p[w] for p in ps])
+    b = "b" + w[1]
+    if b in ps[0]:
+        ys = px.map(lambda y, bt: y + bt.to(y.dtype), ys, [p[b] for p in ps])
+    split = px.tp_dim(f"{prefix}/{w}") == 1
+    if plan.gather[w]:
+        ys, split = px.all_gather(ys, -1), False
+    out = []
+    for r, y in enumerate(ys):
+        m = r % px.tp
+        a, e = ranges[m]
+        c0 = m * y.shape[-1] if split else 0
+        piece = y[..., a * hd - c0:e * hd - c0]
+        out.append(piece.reshape(*piece.shape[:-1], e - a, hd))
+    if norm is not None and cfg.qk_norm:
+        out = px.map(lambda t, n: rms_norm(t, n, cfg.norm_eps), out,
+                     [p[norm] for p in ps])
+    return out
+
+
+def _kv_reads(plan: HeadPlan, m: int) -> slice:
+    """The KV heads that rank m's queries read, within those it holds."""
+    k0 = plan.kv[m][0]
+    return slice(plan.reads[m][0] - k0, plan.reads[m][1] - k0)
+
+
+def _wo_tp(cfg: ModelConfig, px, plan: HeadPlan, ps, outs) -> Out:
+    """Each rank's attention output (B, S, n*hd) over its heads plan.q[m]
+    through its rows of wo: float32 partials where wo is row-split, the
+    whole output where it is whole."""
+    hd = cfg.hd
+    parts = []
+    for r, o in enumerate(outs):
+        m = r % px.tp
+        lo, hi = plan.rows[m]
+        base = plan.q[m][0] * hd
+        o = o[..., lo - base:hi - base]
+        wo = ps[r]["wo"]
+        parts.append(mm32(o, wo) if plan.wo_split else o @ wo.to(o.dtype))
+    return Out(parts, plan.wo_split)
+
+
+def _rope_positions(px, xs, positions) -> list:
+    """Each rank's rotary positions: its rows of `positions`, or 0..S-1."""
+    return list(positions) if positions[0] is not None else px.map(
+            lambda x: default_positions(x.shape[0], x.shape[1],
+                                        device=x.device).expand(
+                                            x.shape[0], -1), xs)
+
+
+def attention_apply_tp(cfg: ModelConfig, px, ps, xs, positions, window: int,
+                       index_mask: bool = False,
+                       prefix: str = "blocks/attn"):
+    """``attention_apply`` over the model axis: q, k, v column-parallel by
+    the specs, each rank's self-attention on its heads (the flash kernel
+    on the card: one launch a rank, at (B, n_q, S, hd) against (B, n_kv,
+    S, hd)), wo row-parallel.  positions: one (B, S) / (B, 3, S) a rank, or
+    Nones.  Returns (Out, each rank's rotated (k, v) of the KV heads it
+    holds, (B, S, n, hd))."""
+    plan = head_plan(cfg, px, prefix, cached=True)
+    q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
+    k = _heads_tp(cfg, px, plan, prefix, ps, xs, "wk", plan.kv, "k_norm")
+    v = _heads_tp(cfg, px, plan, prefix, ps, xs, "wv", plan.kv, None)
+    rope = _rope_positions(px, xs, positions)
+    q = px.map(lambda t, pos: apply_rope(cfg, t, pos), q, rope)
+    k = px.map(lambda t, pos: apply_rope(cfg, t, pos), k, rope)
+    outs = []
+    for r in range(px.p):
+        pos1d = positions[r]
+        if pos1d is not None:
+            pos1d = None if index_mask else \
+                (pos1d[:, 0, :] if pos1d.ndim == 3 else pos1d)
+        sl = _kv_reads(plan, r % px.tp)
+        outs.append(self_attention(cfg, q[r], k[r][:, :, sl], v[r][:, :, sl],
+                                   pos1d, window))
+    return _wo_tp(cfg, px, plan, ps, outs), list(zip(k, v))
+
+
+def attention_decode_tp(cfg: ModelConfig, px, ps, xs, positions,
+                        window: int, k_caches, v_caches, cache_index: int,
+                        prefix: str = "blocks/attn") -> Out:
+    """``attention_decode`` over the model axis: each rank writes the
+    token's k, v of the KV heads its cache holds, (B, n_kv, cap, hd), and
+    attends over those its query heads read."""
+    plan = head_plan(cfg, px, prefix, cached=True)
+    t = int(cache_index)
+    q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
+    k = _heads_tp(cfg, px, plan, prefix, ps, xs, "wk", plan.kv, "k_norm")
+    v = _heads_tp(cfg, px, plan, prefix, ps, xs, "wv", plan.kv, None)
+    rope = px.map(lambda x, pos: _decode_rope_pos(pos, x.shape[0], t,
+                                                  x.device), xs, positions)
+    q = px.map(lambda a, pos: apply_rope(cfg, a, pos), q, rope)
+    k = px.map(lambda a, pos: apply_rope(cfg, a, pos), k, rope)
+    outs = []
+    for r in range(px.p):
+        _write_slot(k_caches[r], v_caches[r], k[r], v[r], t)
+        sl = _kv_reads(plan, r % px.tp)
+        outs.append(_decode_sdpa(cfg, q[r], window, k_caches[r][:, sl],
+                                 v_caches[r][:, sl], t))
+    return _wo_tp(cfg, px, plan, ps, outs)
+
+
+def encoder_attention_apply_tp(cfg: ModelConfig, px, ps, xs, positions,
+                               prefix: str = "enc_blocks/attn") -> Out:
+    """``encoder_attention_apply`` over the model axis (plain on both
+    devices), each rank on its heads."""
+    plan = head_plan(cfg, px, prefix, cached=False)
+    q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
+    k = _heads_tp(cfg, px, plan, prefix, ps, xs, "wk", plan.kv, "k_norm")
+    v = _heads_tp(cfg, px, plan, prefix, ps, xs, "wv", plan.kv, None)
+    q = px.map(lambda a, pos: apply_rope(cfg, a, pos), q, positions)
+    k = px.map(lambda a, pos: apply_rope(cfg, a, pos), k, positions)
+    outs = [_bidirectional_sdpa(cfg, q[r], k[r], v[r], positions[r],
+                                positions[r]) for r in range(px.p)]
+    return _wo_tp(cfg, px, plan, ps, outs)
+
+
+def cross_kv_tp(cfg: ModelConfig, px, ps, enc_outs,
+                prefix: str = "blocks/xattn"):
+    """``cross_kv`` over the model axis: each rank's K and V (B, S_enc, n,
+    hd) of the heads its queries read."""
+    plan = head_plan(cfg, px, prefix, cached=False)
+    k = _heads_tp(cfg, px, plan, prefix, ps, enc_outs, "wk", plan.kv,
+                  "k_norm")
+    v = _heads_tp(cfg, px, plan, prefix, ps, enc_outs, "wv", plan.kv, None)
+    return k, v
+
+
+def cross_attention_apply_tp(cfg: ModelConfig, px, ps, xs, ks, vs,
+                             prefix: str = "blocks/xattn") -> Out:
+    """``cross_attention_apply`` over the model axis (plain on both
+    devices), each rank on its heads against ``cross_kv_tp``'s K, V."""
+    plan = head_plan(cfg, px, prefix, cached=False)
+    q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
+    outs = []
+    for r in range(px.p):
+        b, sq = q[r].shape[0], q[r].shape[1]
+        q_pos = torch.zeros((b, sq), dtype=torch.int32, device=q[r].device)
+        k_pos = torch.zeros((b, ks[r].shape[1]), dtype=torch.int32,
+                            device=q[r].device)
+        outs.append(_bidirectional_sdpa(cfg, q[r], ks[r], vs[r], q_pos,
+                                        k_pos))
+    return _wo_tp(cfg, px, plan, ps, outs)
+
+
+def mlp_apply_tp(cfg: ModelConfig, px, ps, xs,
+                 prefix: str = "blocks/mlp") -> Out:
+    """``mlp_apply`` over the model axis: w1 / w3 column-parallel, w2
+    row-parallel, where the specs split F; whole on every rank else."""
+    split = px.tp_dim(f"{prefix}/w2") == 0
+    return Out([mlp_apply(cfg, p, x, partial=split)
+                for p, x in zip(ps, xs)], split)
+
+
+def moe_apply_tp(cfg: ModelConfig, px, ps, xs, *, split: bool,
+                 prefix: str = "blocks/moe"):
+    """``moe_apply`` over the model axis.  The routing runs on every rank
+    on the replicated router, as on one device; global routing over a
+    batch `split` over data gathers the data ranks' tokens first, so that
+    capacity and drops are the global batch's.  The experts run
+    expert-parallel where the specs split E (each rank's experts' outputs
+    all-gathered, so the combine is the one-device combine's, bitwise),
+    intra-expert tensor-parallel where they split F (float32 partials,
+    all-reduced), or whole on every rank.  Returns (Out, aux)."""
+    gathered = cfg.moe_impl != "per_example" and split
+    xin = px.gather_data(xs) if gathered else xs
+    b, s, d = xin[0].shape
+    if cfg.moe_impl == "per_example":
+        groups, cap = xin, moe_capacity(cfg, s)
+    else:
+        groups = px.map(lambda x: x.reshape(1, b * s, d), xin)
+        cap = moe_capacity(cfg, b * s)
+    disp = px.map(lambda router, g: _moe_dispatch(cfg, router, g, cap),
+                  [p["router"] for p in ps], groups)
+    mode = px.tp_dim(f"{prefix}/w1")
+    if mode == 0:          # expert parallel
+        el = cfg.n_experts // px.tp
+        ye = px.all_gather(
+            [_expert_ffn(cfg, ps[r], disp[r][0][(r % px.tp) * el:
+                                                (r % px.tp + 1) * el])
+             for r in range(px.p)], 0)
+    elif mode == 2:        # intra-expert tensor parallel
+        ye = px.all_reduce([_expert_ffn(cfg, ps[r], disp[r][0], partial=True)
+                            for r in range(px.p)], xs[0].dtype)
+    else:
+        ye = [_expert_ffn(cfg, ps[r], disp[r][0]) for r in range(px.p)]
+    res = px.map(lambda y, st: _moe_combine(cfg, y, st), ye,
+                 [dd[1] for dd in disp])
+    outs = []
+    for r, (o, _) in enumerate(res):
+        o = o.reshape(b, s, d)
+        if gathered:
+            n = b // px.dp
+            o = o.narrow(0, (r // px.tp) * n, n)
+        outs.append(o)
+    return Out(outs, False), res[0][1]
+
+
 __all__ = [
     "dense_init", "remat", "records_grad", "rms_norm", "apply_rope",
     "default_positions",
@@ -632,5 +961,7 @@ __all__ = [
     "self_attention", "index_stream", "encoder_attention_apply",
     "cross_attention_apply", "cross_kv", "init_mlp", "mlp_apply", "init_moe",
     "moe_capacity", "moe_choose", "moe_route", "moe_apply", "moe_apply_global",
-    "moe_apply_per_example",
+    "moe_apply_per_example", "HeadPlan", "head_plan", "attention_apply_tp",
+    "attention_decode_tp", "encoder_attention_apply_tp", "cross_kv_tp",
+    "cross_attention_apply_tp", "mlp_apply_tp", "moe_apply_tp",
 ]

@@ -13,7 +13,10 @@ from typing import Optional
 import torch
 
 from repro_torch.models import encdec, steps, transformer
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.parallel import Placement
+from repro_torch.models.sharding import make_policy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,16 +29,28 @@ class Model:
         return encdec if self.cfg.enc_dec else transformer
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device=None, trainable: bool = False):
+             device=None, trainable: bool = False, mesh=None):
         """Parameters drawn from `generator` (default: seed 0 on `device`,
         itself "cuda" by default) onto its device; ``trainable`` leaves
-        require grad."""
+        require grad.  With a (data, model) ``mesh`` every leaf is drawn
+        whole on the first rank's device (the default generator's; the
+        same draws as the one-device init), cut into the ranks' shards as
+        ``sharding.make_policy(cfg, mesh)`` places them and freed: a
+        ``parallel.ShardedLM`` holding exactly the one-device model's
+        numbers."""
+        place = None
+        if mesh is not None:
+            place = Placement(self.cfg, make_policy(self.cfg, mesh))
+            device = place.devices[0]
         if generator is None:
             generator = torch.Generator(
                 device=device if device is not None else "cuda")
             generator.manual_seed(0)
+        if place is not None and mesh_device(generator.device) != device:
+            raise ValueError(f"the generator lies on {generator.device}, "
+                             f"the mesh's first rank on {device}")
         return self.trunk.init_params(generator, self.cfg, device,
-                                      trainable)
+                                      trainable, place=place)
 
     def init_shapes(self):
         """The parameters on the meta device: shapes, no allocation."""

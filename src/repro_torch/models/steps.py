@@ -14,9 +14,10 @@ Memory discipline, as in the reference:
 * every layer is recomputed in the backward pass (cfg.remat, ``L.remat``).
 
 Training attention takes the plain route on both devices (the flash
-kernel has no backward; ``models/layers.self_attention``).  The sharding
-``policy=`` of the reference's steps constrains activations that one
-process holds whole (``models/sharding.py``), so the steps take none.
+kernel has no backward; ``models/layers.self_attention``).  The serving
+steps take the reference's sharding ``policy=`` and run over its mesh
+(``models/parallel.py``); the training step takes none: training over a
+model axis is the next slice (``runtime/train_loop.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from repro_torch.core.allpairs import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.parallel import ShardedLM
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves
 
@@ -166,6 +168,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     dev = resolve_device(device)
 
     def step(params, opt_state, **batch):
+        if isinstance(params, ShardedLM):
+            raise NotImplementedError(
+                "training over a sharded placement is the training half of "
+                "ROADMAP A part 5; serving executes it")
         first = next(params.parameters())
         if first.device.type != dev.type:
             raise ValueError(f"the parameters lie on {first.device}, the "
@@ -180,39 +186,72 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return step
 
 
+def _placed(params, policy) -> None:
+    """Raises ValueError unless `params` are placed by `policy` (a
+    ``parallel.ShardedLM``) where a policy is given, and are one device's
+    where none is."""
+    if policy is None:
+        if isinstance(params, ShardedLM):
+            raise ValueError("placed parameters run in a step given the "
+                             "policy= that placed them")
+        return
+    if not isinstance(params, ShardedLM):
+        raise ValueError("a step with a sharding policy runs parameters "
+                         "placed by it: build_model(cfg).init(mesh=) or "
+                         "convert.lm_params_from_reference(mesh=)")
+    if params.policy != policy:
+        raise ValueError(f"the parameters are placed by {params.policy}, "
+                         f"the step's policy is {policy}")
+
+
 def make_prefill_step(cfg: ModelConfig,
-                      cache_capacity: Optional[int] = None):
+                      cache_capacity: Optional[int] = None, policy=None):
     """(params, **inputs) -> (last_logits (B, 1, V), cache).  Inputs:
     ``src`` and ``tokens`` for an encoder-decoder; else ``tokens`` or
-    ``embeds``, and ``positions``."""
+    ``embeds``, and ``positions``.  With the reference's ``policy=`` the
+    step runs over its mesh (``models/parallel.py``) on parameters placed
+    by it (a ``parallel.ShardedLM``), its batch split over the data axes
+    where it divides; the logits land on the first rank's device and the
+    cache is a ``parallel.ShardedCache``."""
+    trunk = encdec if cfg.enc_dec else transformer
 
     @torch.no_grad()
     def step(params, **batch):
+        _placed(params, policy)
         if cfg.enc_dec:
-            hidden, _, cache = encdec.forward(
-                cfg, params, src=batch["src"], tokens=batch["tokens"],
-                cache_capacity=cache_capacity)
+            ins = {"src": batch["src"], "tokens": batch["tokens"]}
         else:
-            hidden, _, cache = transformer.forward(
-                cfg, params, tokens=batch.get("tokens"),
-                embeds=batch.get("embeds"),
-                positions=batch.get("positions"),
-                cache_capacity=cache_capacity)
-        last = hidden[:, -1:, :]
-        return transformer.project_logits(cfg, params, last), cache
+            ins = {name: batch.get(name)
+                   for name in ("tokens", "embeds", "positions")}
+        if policy is None:
+            hidden, _, cache = trunk.forward(
+                cfg, params, cache_capacity=cache_capacity, **ins)
+            return transformer.project_logits(
+                cfg, params, hidden[:, -1:, :]), cache
+        first = ins["tokens"] if ins["tokens"] is not None else ins["embeds"]
+        split = params.px.batch_split(first.shape[0])
+        hidden, _, cache = trunk.forward_tp(
+            cfg, params, split, cache_capacity=cache_capacity, **ins)
+        return transformer.project_logits_tp(
+            cfg, params, [h[:, -1:, :] for h in hidden], split), cache
 
     return step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, policy=None):
     """(params, token, cache, cache_index) -> (logits, cache), the cache
-    written in place."""
+    written in place; over the policy's mesh as ``make_prefill_step``."""
+    trunk = encdec if cfg.enc_dec else transformer
 
     @torch.no_grad()
     def step(params, *, token, cache, cache_index, positions=None):
-        trunk = encdec if cfg.enc_dec else transformer
-        return trunk.decode(cfg, params, cache, token, cache_index,
-                            positions=positions)
+        _placed(params, policy)
+        if policy is None:
+            return trunk.decode(cfg, params, cache, token, cache_index,
+                                positions=positions)
+        return trunk.decode_tp(cfg, params,
+                               params.px.batch_split(token.shape[0]), cache,
+                               token, cache_index, positions=positions)
 
     return step
 

@@ -1,8 +1,10 @@
 """Decoder-only LM trunk, with layers grouped into runs of equal window.
 
-Port of ``repro/models/transformer.py`` (the sharding ``policy=``'s
-constraints are the identity in one process: ``models/sharding.py``, so
-``forward`` takes none).  Layers are grouped into
+Port of ``repro/models/transformer.py``.  ``forward_tp`` and
+``decode_tp`` run parameters placed over a mesh (a ``parallel.ShardedLM``)
+through the layers' tensor-parallel forms (``*_tp``), the batch split over
+data; the serving steps call them when given the reference's ``policy=``
+(``models/steps.py``).  Layers are grouped into
 maximal *runs* of consecutive layers sharing an attention-window class (full
 vs SWA): hymba's {global, swa, ..., global} pattern yields 5 runs, uniform
 archs 1.  The parameters are ``nn.Module``s, one ``Block`` a layer; a loop
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as P
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
@@ -123,20 +126,30 @@ def init_block(gen, cfg: ModelConfig, device=None) -> dict:
 
 
 def init_params(gen, cfg: ModelConfig, device=None,
-                trainable: bool = False) -> DecoderLM:
+                trainable: bool = False, place=None) -> DecoderLM:
     """Random parameters from the torch.Generator `gen` (on its device, or
     `device`), or shapes only when `device` is "meta"; ``trainable`` leaves
     require grad.  Not the reference's jax.random draws: parity runs carry
     the reference's parameters over
-    (``convert.lm_params_from_reference``)."""
+    (``convert.lm_params_from_reference``).  ``place``, a
+    ``parallel.Placement``, cuts each layer into its rank shards as soon
+    as it is drawn (the same draws, in the same order) and returns a
+    ``parallel.ShardedLM``: the whole model never sits on one device."""
     dev = L._device(gen, device)
+    keep = place if place is not None else (lambda path, t: t)
     tensors = {
-        "blocks": [init_block(gen, cfg, dev) for _ in range(cfg.n_layers)],
-        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dev),
-        "final_norm": torch.ones((cfg.d_model,), device=dev),
+        "blocks": [keep("blocks", init_block(gen, cfg, dev))
+                   for _ in range(cfg.n_layers)],
+        "embed": keep("embed", L.dense_init(gen, (cfg.vocab, cfg.d_model),
+                                            dev)),
+        "final_norm": keep("final_norm", torch.ones((cfg.d_model,),
+                                                    device=dev)),
     }
     if not cfg.tie_embeddings:
-        tensors["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dev)
+        tensors["lm_head"] = keep("lm_head", L.dense_init(
+            gen, (cfg.d_model, cfg.vocab), dev))
+    if place is not None:
+        return place.build(DecoderLM, cfg, tensors, trainable)
     return DecoderLM(cfg, tensors, trainable)
 
 
@@ -325,11 +338,187 @@ def decode(cfg: ModelConfig, params: DecoderLM, cache: list, token: Tensor,
 
 
 def project_logits(cfg: ModelConfig, params: DecoderLM, x: Tensor) -> Tensor:
+    """Logits (B, S, V) of hidden states x (B, S, D)."""
     head = (params.embed.T if cfg.tie_embeddings
             else params.lm_head).to(x.dtype)
     return (x @ head).to(getattr(torch, cfg.logits_dtype))
 
 
+# ---------------------------------------------------------------------------
+# over a (data, model) mesh (models/parallel.py): one list entry a rank;
+# `split` is whether the batch is split over the data axes
+# (``Placement.batch_split``), decided once a step
+# ---------------------------------------------------------------------------
+
+
+def embed_tp(cfg: ModelConfig, sm, ids: list, name: str = "embed") -> list:
+    """Each rank's embedding rows of its ids (B, S), in the activations'
+    dtype: vocab-parallel where the specs split V (each rank looks up its
+    rows, zeros for the others, all-reduced: exact), d_model-parallel where
+    they split D (all-gathered: exact), whole otherwise."""
+    px, dt = sm.px, cfg.activation_dtype()
+    tables = sm.parts(name)
+    dim = px.tp_dim(name)
+    if dim == 0:
+        parts = []
+        for r, (t, i) in enumerate(zip(tables, ids)):
+            n = t.shape[0]
+            local = i - (r % px.tp) * n
+            hit = (local >= 0) & (local < n)
+            rows = t[local.clamp(0, n - 1)]
+            parts.append(torch.where(hit[..., None], rows, 0.0))
+        return px.all_reduce(parts, dt)
+    rows = px.map(lambda t, i: t[i].to(dt), tables, ids)
+    return px.all_gather(rows, -1) if dim == 1 else rows
+
+
+def project_logits_tp(cfg: ModelConfig, sm, xs: list, split: bool) -> Tensor:
+    """``project_logits`` over the model axis: vocab-parallel where the
+    specs split V (each rank's logits all-gathered), row-parallel over D
+    where they split D (float32 partials all-reduced), whole otherwise;
+    the data groups' rows collected on the first rank's device."""
+    px, dt = sm.px, xs[0].dtype
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    heads = sm.parts(name)
+    if cfg.tie_embeddings:
+        heads = [h.T for h in heads]
+    dim = px.tp_dim(name)
+    vocab_dim, d_dim = (0, 1) if cfg.tie_embeddings else (1, 0)
+    out_dt = getattr(torch, cfg.logits_dtype)
+    if dim == d_dim:
+        parts = []
+        for r, (h, x) in enumerate(zip(heads, xs)):
+            w = h.shape[0]
+            m = r % px.tp
+            parts.append(P.mm32(x[..., m * w:(m + 1) * w], h))
+        logits = [t.to(out_dt) for t in px.all_reduce(parts, dt)]
+    else:
+        logits = px.map(lambda h, x: (x @ h.to(x.dtype)).to(out_dt),
+                        heads, xs)
+        if dim == vocab_dim:
+            logits = px.all_gather(logits, -1)
+    return px.collect(logits, split)
+
+
+def _norm_tp(cfg: ModelConfig, sm, xs: list, name: str) -> list:
+    return sm.px.map(lambda x, w: L.rms_norm(x, w, cfg.norm_eps), xs,
+                     sm.parts(name))
+
+
+def block_apply_tp(cfg: ModelConfig, sm, li: int, xs: list, positions: list,
+                   window: int, split: bool, index_mask: bool = False):
+    """``block_apply`` of layer li over the mesh.  A layer with attention
+    and an SSM sums their row-parallel partials before one all-reduce.
+    Returns (xs, aux, each rank's cache piece)."""
+    px, dt, blk = sm.px, xs[0].dtype, f"blocks.{li}"
+    hs = _norm_tp(cfg, sm, xs, blk + ".ln1")
+    outs, pieces, aux = [], [dict() for _ in range(px.p)], 0.0
+    if _has_attn(cfg):
+        out, kv = L.attention_apply_tp(cfg, px, sm.parts(blk + ".attn"), hs,
+                                       positions, window, index_mask)
+        outs.append(out)
+        for piece, (k, v) in zip(pieces, kv):
+            piece["k"], piece["v"] = k, v
+    if _has_ssm(cfg):
+        out, states = S.ssm_apply_tp(cfg, px, sm.parts(blk + ".ssm"), hs)
+        outs.append(out)
+        for piece, (h, tail) in zip(pieces, states):
+            piece["ssm_h"], piece["conv"] = h, tail
+    xs = px.map(torch.add, xs, P.combine(px, outs, dt))
+    if _has_mlp(cfg):
+        xs, aux = _ffn_tp(cfg, sm, blk, xs, split)
+    return xs, aux, pieces
+
+
+def _ffn_tp(cfg: ModelConfig, sm, blk: str, xs: list, split: bool):
+    """The MLP or MoE half of a layer over the mesh: (xs, aux)."""
+    px, aux = sm.px, 0.0
+    h2 = _norm_tp(cfg, sm, xs, blk + ".ln2")
+    if cfg.uses_moe:
+        out, aux = L.moe_apply_tp(cfg, px, sm.parts(blk + ".moe"), h2,
+                                  split=split)
+    else:
+        out = L.mlp_apply_tp(cfg, px, sm.parts(blk + ".mlp"), h2)
+    return px.map(torch.add, xs, P.combine(px, [out], xs[0].dtype)), aux
+
+
+def block_decode_tp(cfg: ModelConfig, sm, li: int, xs: list, positions: list,
+                    window: int, caches: list, cache_index: int,
+                    split: bool) -> list:
+    """``block_decode`` of layer li over the mesh, each rank's block cache
+    (views of its run's caches) written in place."""
+    px, blk = sm.px, f"blocks.{li}"
+    hs = _norm_tp(cfg, sm, xs, blk + ".ln1")
+    outs = []
+    if _has_attn(cfg):
+        outs.append(L.attention_decode_tp(
+            cfg, px, sm.parts(blk + ".attn"), hs, positions, window,
+            [c["k"] for c in caches], [c["v"] for c in caches], cache_index))
+    if _has_ssm(cfg):
+        out, h, conv = S.ssm_decode_tp(cfg, px, sm.parts(blk + ".ssm"), hs,
+                                       [c["ssm_h"] for c in caches],
+                                       [c["conv"] for c in caches])
+        outs.append(out)
+        for c, hh, cc in zip(caches, h, conv):
+            c["ssm_h"].copy_(hh)
+            c["conv"].copy_(cc)
+    xs = px.map(torch.add, xs, P.combine(px, outs, xs[0].dtype))
+    if _has_mlp(cfg):
+        xs, _ = _ffn_tp(cfg, sm, blk, xs, split)
+    return xs
+
+
+def forward_tp(cfg: ModelConfig, sm, split: bool, *,
+               tokens: Optional[Tensor] = None,
+               embeds: Optional[Tensor] = None,
+               positions: Optional[Tensor] = None,
+               cache_capacity: Optional[int] = None):
+    """``forward`` over the mesh of ``sm`` (a ``parallel.ShardedLM``);
+    returns (each rank's hidden state, aux, a ``parallel.ShardedCache`` or
+    None)."""
+    px = sm.px
+    index_mask = L.index_stream(positions)
+    if embeds is not None:
+        xs = px.scatter(embeds.to(cfg.activation_dtype()), split)
+        b, s = embeds.shape[0], embeds.shape[1]
+    else:
+        xs = embed_tp(cfg, sm, px.scatter(tokens, split))
+        b, s = tokens.shape
+    pos = px.scatter(positions, split)
+    caches = None
+    if cache_capacity is not None:
+        caches = px.new_caches(init_cache(cfg, b, cache_capacity, "meta"))
+    total_aux = 0.0
+    for run, (w, start, cnt) in enumerate(layer_runs(cfg)):
+        for i in range(cnt):
+            xs, a, pieces = block_apply_tp(cfg, sm, start + i, xs, pos, w,
+                                           split, index_mask)
+            total_aux = total_aux + a
+            if caches is not None:
+                for rc, piece in zip(caches.ranks, pieces):
+                    _prefill_cache(cfg, rc[run], i, piece, w, s)
+    return _norm_tp(cfg, sm, xs, "final_norm"), total_aux, caches
+
+
+def decode_tp(cfg: ModelConfig, sm, split: bool, cache, token: Tensor,
+              cache_index: int, positions: Optional[Tensor] = None):
+    """``decode`` over the mesh: (logits (B, 1, V) on the first rank's
+    device, cache)."""
+    px = sm.px
+    xs = embed_tp(cfg, sm, px.scatter(token, split))
+    pos = px.scatter(positions, split)
+    for run, (w, start, cnt) in enumerate(layer_runs(cfg)):
+        for i in range(cnt):
+            bcs = [{name: t[i] for name, t in rc[run].items()}
+                   for rc in cache.ranks]
+            xs = block_decode_tp(cfg, sm, start + i, xs, pos, w, bcs,
+                                 cache_index, split)
+    xs = _norm_tp(cfg, sm, xs, "final_norm")
+    return project_logits_tp(cfg, sm, xs, split), cache
+
+
 __all__ = ["layer_runs", "init_params", "init_block", "forward", "decode",
            "init_cache", "project_logits", "block_apply", "block_decode",
-           "Block", "DecoderLM"]
+           "forward_tp", "decode_tp", "project_logits_tp", "block_apply_tp",
+           "block_decode_tp", "embed_tp", "Block",
+           "DecoderLM"]

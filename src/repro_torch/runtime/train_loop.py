@@ -55,8 +55,9 @@ from repro_torch.optim.compression import compress_tree_psum
 from repro_torch.runtime import elastic, straggler
 from repro_torch.tree import named_leaves, scatter_tree, stacked_tree
 
-PART5 = ("executing a sharded placement (tensor parallelism or FSDP over "
-         "explicit devices) is ROADMAP A part 5")
+PART5 = ("training over a sharded placement (tensor parallelism or FSDP "
+         "over explicit devices) is the training half of ROADMAP A part 5; "
+         "serving executes such a placement (models/parallel.py)")
 
 
 class FailureInjected(RuntimeError):

@@ -81,9 +81,11 @@ def mrope_stream(blocks):
     return np.array([t, h, w], np.int32), nxt
 
 
-def configs(arch, dtype=None, chunk=None):
+def configs(arch, dtype=None, chunk=None, extra=()):
+    """The SMOKE configs of both packages, with `dtype`, attn_chunk `chunk`
+    and the (field, value) pairs `extra` replaced."""
     ref, port = ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
-    fields = {}
+    fields = dict(extra)
     if dtype is not None:
         fields["dtype"] = dtype
     if chunk is not None:
@@ -122,10 +124,10 @@ def inputs(cfg, stream=None):
 
 
 @functools.lru_cache(maxsize=None)
-def reference_run(arch, dtype=None, stream=None, chunk=None):
+def reference_run(arch, dtype=None, stream=None, chunk=None, extra=()):
     """The reference's params (numpy), inputs, and per step (the prefill
     first) the logits and caches as float32 numpy, the token fed next."""
-    rcfg, _ = configs(arch, dtype, chunk)
+    rcfg, _ = configs(arch, dtype, chunk, extra)
     params = ref_build_model(rcfg).init(jax.random.PRNGKey(0))
     batch, dec_pos = inputs(rcfg, stream)
     dt = rcfg.activation_dtype()

@@ -1613,6 +1613,55 @@ def test_lm_smoke_prefill_on_card_runs_the_flash_kernel(cuda, monkeypatch,
         assert err <= 2e-2
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [("llama3.2-3b", "float32"),
+                                        ("hymba-1.5b", "bfloat16"),
+                                        ("qwen3-moe-30b-a3b", "float32")])
+def test_lm_tensor_parallel_on_two_logical_ranks(cuda, arch, dtype):
+    """SMOKE prefill and decode over a (1, 2) mesh of two logical ranks on
+    cuda:0 (models/parallel.py) against the one-device run on the same
+    parameters: one flash launch a layer a rank in the prefill, the logits
+    within 1e-4 of the largest |logit| in float32 (float32 partials summed
+    in another order, then the layers) or the reference's 2e-2 in bf16, and
+    a decode step under ``torch.cuda.set_sync_debug_mode("error")``: the
+    executor never waits on the host."""
+    from repro_torch.configs import get_config, override
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import make_policy
+
+    cfg = override(get_config(arch, smoke=True), dtype=dtype)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+    policy = make_policy(cfg, mesh)
+    model = build_model(cfg)
+    one = model.init(torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    sm = model.init(torch.Generator(device=cuda).manual_seed(0), mesh=mesh)
+    batch, _ = _lm_smoke_batch(cfg, cuda)
+    want, cache1 = steps.make_prefill_step(cfg, cache_capacity=56)(
+        one, **batch)
+    before = fmod.flash_attention.launches
+    got, cache2 = steps.make_prefill_step(cfg, cache_capacity=56,
+                                          policy=policy)(sm, **batch)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches - before == 2 * cfg.n_layers
+    tol = 1e-4 * float(want.abs().max()) if dtype == "float32" else 2e-2
+    assert float((got - want).abs().max()) <= tol
+    tok = want[:, -1].argmax(-1)[:, None]
+    want, _ = steps.make_decode_step(cfg)(one, token=tok, cache=cache1,
+                                          cache_index=48)
+    decode = steps.make_decode_step(cfg, policy=policy)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = decode(sm, token=tok, cache=cache2, cache_index=48)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float((got - want).abs().max()) <= tol
+
+
 # -- the MoE layer on the card (models/layers.py moe_route / moe_apply) ----
 
 def _moe_layer(arch, seed, impl="global_sort", cf=None):
