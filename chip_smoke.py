@@ -312,6 +312,23 @@ Phases, each fatal on failure:
      and on two or more cards all 48 layers (finite logits, peak a
      card); (d) launch.serve --smoke --model-axis 4 over cuda:0 x 4 as a
      subprocess.  A record row a tensor-parallel flash shape.
+ 30. LM training over a (data, model) mesh (steps.make_train_step(
+     policy=), TrainLoop pjit; alone: --lm-train-mesh-only, which builds
+     no kernel): a rank a card on four cards, else logical ranks on
+     cuda:0.  (a) llama3.2-3b FULL over (1, 4), the TrainLoop at
+     launch.train's defaults for three steps beside one device's
+     make_train_step from the same draw: step ms, the collectives' ms,
+     each card's peak, the step-0 loss and gradient norm and the update
+     held against one device's (MESH_TOL, MESH_UPDATE_TOL,
+     MESH_LEAF_TOL, Adam's bound), the 38.5 GB step-0 checkpoint's
+     assembly, write and restore ms, two leaves held to the file; (a')
+     float32 SMOKE over (1, 4) and (2, 2), card vs CPU within 1e-5; (b)
+     mixtral-8x22b at full width, fsdp_tp over (2, 2), 1 layer against one
+     device (and 2 layers on four cards), each card's peak beside a
+     replica's state; (c) a (2, 2) loop losing two ranks, shrunk to (1,
+     2) and placed anew from the checkpoint: every step after the
+     restore bitwise a resumed (1, 2) loop's, in bf16.  No flash launch
+     in the phase.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -322,6 +339,7 @@ where it looked), the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -658,6 +676,57 @@ TP_MOE_ARCH, TP_MOE_LAYERS = "qwen3-moe-30b-a3b", 12
 # llama3.2-3b at the serving defaults and at 4,096 tokens and for
 # hymba-1.5b.
 TP_BF16_RATIO = 1.5
+# Phase 30, LM training over a (data, model) mesh (models/parallel.py,
+# steps.make_train_step(policy=), TrainLoop in pjit mode; alone:
+# --lm-train-mesh-only): one rank a card where four cards are visible,
+# else logical ranks on cuda:0.  (a) llama3.2-3b FULL over
+# MESH_TRAIN_SHAPE, the TrainLoop at launch.train's defaults (8 x 256,
+# its optimizer for TRAIN_STEPS steps), beside one device's
+# make_train_step from the same draw over the same batches; bf16
+# activations.  Gates: the step-0 loss and gradient norm (the same
+# parameters and batch) within MESH_TOL relative of one device's: the two
+# differ where a row-parallel layer sums float32 partials in another order
+# and rounds once to bf16 (an element off by at most one bf16 ulp, 2^-8
+# relative), and the loss, a mean over 2,048 tokens, and the norm, a sum
+# over 3.2 B squares, average such roundings far below one ulp, where a
+# wrong shard or a missing partial moves them by O(1).  The updates after
+# TRAIN_STEPS steps: Adam moves an element by at most lr a step, so every
+# element of the two runs lies within twice the summed lr (and decay) of
+# the other (fatal above), and the relative L2 distance between the two
+# runs' updates is at most MESH_UPDATE_TOL over the model and
+# MESH_LEAF_TOL for any leaf: Adam's first step is lr sign(g), which
+# bf16 noise flips only where |g| is below it (a flipped element moves 2
+# lr); a leaf whose gradient never reached its shards would not move (a
+# distance of 1).  The checkpoint (step 0, the reference's whole leaves:
+# 38.5 GB) assembled, written and restored into the shards, two leaves
+# held to the file.  (a') MESH_SMOKE, float32 SMOKE, card against CPU on
+# the same draw over the same mesh shape: the loss and every gradient leaf
+# within TOL_TRAIN.  (b) mixtral-8x22b at full width, fsdp_tp over (2, 2)
+# (experts 4 a rank, FSDP over data, the global batch routed in each data
+# group): MESH_MOE_LAYERS of 56 layers, the first held against one device
+# by (a)'s gates, the second (four cards only: no card holds one device's
+# 86 GB) finite; each card's peak beside a whole replica's state.  (c)
+# llama3.2-3b at full width, LOOP_LAYERS layers, fsdp_tp, bf16, the
+# TrainLoop over (2, 2) losing two ranks at LOOP_FAIL_AT: it shrinks to (1,
+# 2), the shards placed anew from the checkpoint, and every step after the
+# restore is bitwise a (1, 2) loop's resumed from the same checkpoint (a
+# mesh's backward runs on one thread, so its sums keep their order from
+# one run to the next, over cards too: steps.grads_of).
+MESH_TRAIN_SHAPE = (1, 4)
+MESH_SMOKE = (("llama3.2-3b", (1, 4)), ("qwen3-moe-30b-a3b", (2, 2)))
+MESH_MOE_ARCH = "mixtral-8x22b"
+MESH_MOE_LAYERS = ((1, True), (2, False))   # (layers, against one device)
+MESH_TOL = 2.0 ** -8
+# The update gates: the distance is about 2 sqrt(share of flipped
+# elements), so 0.2 over the model is 1 % of its elements flipped and 0.5
+# for a leaf 6 %, where a leaf that never moved reads 1 and one moved by
+# unrelated gradients ~1.4.  Read before these gates were set (NVIDIA H100
+# 80GB HBM3, 700 W, one card, 4 logical ranks): llama3.2-3b FULL 0.042
+# over the model, 0.057 its worst leaf; mixtral-8x22b (1 layer) 0.039,
+# 0.210 (its embedding, whose rows a batch of 2,048 tokens mostly leaves
+# without a gradient).
+MESH_UPDATE_TOL = 0.2
+MESH_LEAF_TOL = 0.5
 
 
 def gpu_info() -> str:
@@ -4138,6 +4207,447 @@ def tp_runs(tag):
     return rows, out
 
 
+def mesh_ranks(p):
+    """p ranks: one a card where p cards are visible, else p logical ranks
+    on cuda:0 (whose times show the executor's cost, not scaling)."""
+    import torch
+    if torch.cuda.device_count() >= p:
+        return [torch.device("cuda", i) for i in range(p)], \
+            f"{p} cards, one rank each"
+    return [torch.device("cuda", 0)] * p, f"{p} logical ranks on cuda:0"
+
+
+def train_mesh_runs(tag):
+    """Phase 30, LM training over a (data, model) mesh (see
+    MESH_TRAIN_SHAPE), every check fatal.  Returns the phase's numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config, override
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.data.synthetic import TokenStreamSpec, batch_at
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import (FailureInjected, LoopConfig,
+                                                TrainLoop)
+    from repro_torch.tree import named_leaves, stacked_tree
+
+    t_phase = time.perf_counter()
+    out = {}
+    dev0 = mesh_ranks(1)[0][0]
+    fmod.flash_attention.launches = 0
+
+    def gb(n_bytes):
+        return n_bytes / 1e9
+
+    def sync(devs):
+        for d in dict.fromkeys(devs):
+            torch.cuda.synchronize(d)
+
+    def reset_peaks(devs):
+        """Resets each card's peak; returns what each holds, GB."""
+        gc.collect()
+        sync(devs)
+        torch.cuda.empty_cache()
+        for d in dict.fromkeys(devs):
+            torch.cuda.reset_peak_memory_stats(d)
+        return {str(d): gb(torch.cuda.memory_allocated(d))
+                for d in dict.fromkeys(devs)}
+
+    def peaks(devs):
+        sync(devs)
+        return {str(d): gb(torch.cuda.max_memory_allocated(d))
+                for d in dict.fromkeys(devs)}
+
+    def train_opt(cfg_):
+        """launch.train's optimizer for --steps TRAIN_STEPS."""
+        return adamw.AdamWConfig(peak_lr=3e-4,
+                                 warmup_steps=max(TRAIN_STEPS // 20, 5),
+                                 total_steps=TRAIN_STEPS,
+                                 moment_dtype=cfg_.opt_state_dtype)
+
+    def draw(cfg_, mesh_=None):
+        """Trainable parameters from torch.Generator seed 0 on cuda:0, on
+        it alone or cut over `mesh_`: the same draws either way."""
+        torch.cuda.empty_cache()
+        return build_model(cfg_).init(
+            torch.Generator(device=dev0).manual_seed(0), dev0,
+            trainable=True, mesh=mesh_)
+
+    def run(cfg_, params, step, spec_):
+        """TRAIN_STEPS steps of `step` from adamw.init over batches 0..:
+        (losses, grad norms, host ms a step to a synchronised card)."""
+        opt = train_opt(cfg_)
+        state = adamw.init(opt, params)
+        devs = params.px.devices if hasattr(params, "px") else [dev0]
+        losses, norms, ms = [], [], []
+        for s in range(TRAIN_STEPS):
+            batch = batch_at(spec_, s)
+            sync(devs)
+            t1 = time.perf_counter()
+            _, state, m = step(params, state, **batch)
+            sync(devs)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        return losses, norms, ms
+
+    def one_device(cfg_, spec_):
+        """make_train_step on cuda:0: (losses, norms, ms, peak GB, the
+        final parameters on the host by name)."""
+        model = draw(cfg_)
+        reset_peaks([dev0])
+        res = run(cfg_, model, steps.make_train_step(
+            cfg_, train_opt(cfg_), device=dev0), spec_)
+        peak = peaks([dev0])[str(dev0)]
+        final = {n: p.detach().to("cpu") for n, p in named_leaves(model)}
+        del model
+        torch.cuda.empty_cache()
+        return res + (peak, final)
+
+    def held(arch, one, mesh_run, tol):
+        """The mesh's step-0 loss and gradient norm (the same parameters,
+        the same batch) within `tol` relative of one device's, every loss
+        and norm finite; fatal else."""
+        errs = [abs(m[0] - o[0]) / abs(o[0])
+                for m, o in zip(mesh_run[:2], one[:2])]
+        if not all(np.isfinite(mesh_run[0] + mesh_run[1])) or \
+                max(errs) > tol:
+            raise AssertionError(
+                f"{arch}: losses {mesh_run[0]} against one device's "
+                f"{one[0]}, grad norms {mesh_run[1]} against {one[1]}: step "
+                f"0 {errs[0]:.3e} / {errs[1]:.3e} relative, above {tol:g}")
+        return errs
+
+    def adam_bound(cfg_):
+        """Adam moves an element by at most lr_t a step (|mhat| <= sqrt(
+        vhat) where 1 - b1 <= sqrt(1 - b2), Kingma & Ba 2.1), plus the
+        decay's lr_t wd |p| (|p| < 1 here): two runs from one draw lie
+        at most twice the sum apart."""
+        opt = train_opt(cfg_)
+        lrs = [float(adamw.schedule(opt, torch.tensor(s + 1)))
+               for s in range(TRAIN_STEPS)]
+        return 2 * sum(lrs) * (1 + opt.weight_decay)
+
+    def updates_alike(cfg_, sm, final, what):
+        """The mesh's update against one device's from the same draw (seed
+        0, drawn again on cuda:0): the relative L2 distance between the
+        two updates, over the model and the worst leaf, and the largest
+        element difference against Adam's bound; fatal above the gates."""
+        init = draw(cfg_)
+        bound = adam_bound(cfg_)
+        worst, num, den, far = (0.0, None), 0.0, 0.0, 0.0
+        with torch.no_grad():
+            for name, p0 in named_leaves(init):
+                one_p = final[name].to(dev0)
+                diff = sm.whole(name, sm.copies, dev0) - one_p
+                n = float(diff.double().norm()) ** 2
+                dn = float((one_p - p0).double().norm()) ** 2
+                num, den = num + n, den + dn
+                far = max(far, amax(diff.abs()))
+                share = (n / max(dn, 1e-30)) ** 0.5
+                if share > worst[0]:
+                    worst = (share, name)
+        del init
+        torch.cuda.empty_cache()
+        total = (num / den) ** 0.5
+        if not (total <= MESH_UPDATE_TOL and worst[0] <= MESH_LEAF_TOL
+                and far <= bound):
+            raise AssertionError(
+                f"{what}: the mesh's update lies {total:.3e} of one "
+                f"device's from it (tol {MESH_UPDATE_TOL}), worst leaf "
+                f"{worst[1]} {worst[0]:.3e} (tol {MESH_LEAF_TOL}), largest "
+                f"element difference {far:.3e} (Adam's bound {bound:.3e})")
+        return {"update_distance": total, "worst_leaf": worst[1],
+                "worst_leaf_distance": worst[0], "max_abs_diff": far,
+                "adam_bound": bound}
+
+    def state_gb(cfg_):
+        """A whole replica's float32 parameters and gradients and its two
+        moments."""
+        n = sum(p.numel() for p in build_model(cfg_).init_shapes()
+                .parameters())
+        moment = getattr(torch, cfg_.opt_state_dtype).itemsize
+        return gb(n * (8 + 2 * moment))
+
+    # -- (a) llama3.2-3b FULL over (1, 4): the TrainLoop ---------------------
+    ranks, layout = mesh_ranks(int(np.prod(MESH_TRAIN_SHAPE)))
+    mesh = make_mesh(MESH_TRAIN_SHAPE, ("data", "model"), devices=ranks)
+    print(f"  30: {layout}; {describe(mesh)}")
+    out["layout"] = layout
+    cfg = get_config(TRAIN_ARCH)
+    spec = TokenStreamSpec(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH)
+    o_loss, o_norm, o_ms, o_peak, final = one_device(cfg, spec)
+    times = {"save_call": [], "write": [], "restore": []}
+    real_save = ckpt_io.save
+
+    def timed_save(*a, **k):
+        t1 = time.perf_counter()
+        path = real_save(*a, **k)
+        times["write"].append((time.perf_counter() - t1) * 1e3)
+        return path
+
+    class TimedLoop(TrainLoop):
+        def _save(self, s):
+            t1 = time.perf_counter()
+            super()._save(s)
+            times["save_call"].append((time.perf_counter() - t1) * 1e3)
+
+    root = tempfile.mkdtemp(prefix="repro_torch_phase30_")
+    ckpt_io.save = timed_save
+    norms = []
+    try:
+        loop = TimedLoop(cfg, train_opt(cfg), LoopConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+            ckpt_dir=root), mesh, data_spec=spec)
+        # the step-0 save written in the save call, not beside the next
+        # steps (whose times it would take)
+        loop.manager = CheckpointManager(root, async_save=False)
+        sm, real_step = loop.params, loop.step_fn
+
+        def step_fn(params, state, **batch):
+            res = real_step(params, state, **batch)
+            norms.append(res[2]["grad_norm"])
+            return res
+        loop.step_fn = step_fn
+        held_gb = reset_peaks(ranks)
+        sm.px.timer = []
+        loop.run()
+        coll_ms, n_spans = sm.px.collective_ms(), len(sm.px.timer)
+        sm.px.timer = None
+        peak = peaks(ranks)
+        m_loss = [m["loss"] for m in loop.metrics_log]
+        m_norm = [float(n) for n in norms]
+        m_ms = [m["time_s"] * 1e3 for m in loop.metrics_log]
+        errs = held(cfg.arch, (o_loss, o_norm), (m_loss, m_norm), MESH_TOL)
+        alike = updates_alike(cfg, sm, final, f"{cfg.arch} FULL")
+        del final
+        step_dir = os.path.join(root, "step_00000000")
+        ckpt_gb = gb(sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir)))
+        t1 = time.perf_counter()
+        loop._restore()
+        sync(ranks)
+        times["restore"].append((time.perf_counter() - t1) * 1e3)
+        # the restore cut the step-0 checkpoint into the shards: a leaf
+        # assembled from them is the file's
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            recs = {r["name"]: r for r in json.load(f)["leaves"]}
+        for name, key in (("embed", "params/embed"),
+                          ("blocks.0.attn.wq", "params/blocks/attn/wq")):
+            arr = np.load(os.path.join(step_dir, recs[key]["file"]))
+            got = sm.whole(name, sm.copies)
+            want = torch.from_numpy(arr if arr.ndim == got.ndim else arr[0])
+            if not torch.equal(got, want):
+                raise AssertionError(f"the restored {name} is not the "
+                                     f"checkpoint's")
+    finally:
+        ckpt_io.save = real_save
+        shutil.rmtree(root, ignore_errors=True)
+    n_params = sum(p.numel() for p in build_model(cfg).init_shapes()
+                   .parameters())
+    assemble_ms = times["save_call"][0] - times["write"][0]
+    out["a"] = {"arch": cfg.arch, "params": n_params,
+                "shape": MESH_TRAIN_SHAPE, "losses": m_loss,
+                "grad_norms": m_norm, "one_losses": o_loss,
+                "one_grad_norms": o_norm, "step0_rel": errs,
+                "step_ms": m_ms, "cold_step_ms": m_ms[0],
+                "warm_step_ms": statistics.median(m_ms[1:]),
+                "one_step_ms": o_ms, "collective_ms": coll_ms,
+                "collective_spans": n_spans, "peak_gb": peak,
+                "held_gb": held_gb, "one_peak_gb": o_peak, "ckpt_gb": ckpt_gb,
+                "assemble_ms": assemble_ms, **times, **alike}
+    print(f"  (a) {cfg.arch} FULL ({n_params:,} parameters, {cfg.dtype} "
+          f"activations) over {MESH_TRAIN_SHAPE}, TrainLoop pjit at "
+          f"launch.train's defaults ({TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_STEPS} steps): step ms {[round(t, 1) for t in m_ms]} "
+          f"(cold {m_ms[0]:.1f}, warm median "
+          f"{statistics.median(m_ms[1:]):.1f}; one device "
+          f"{[round(t, 1) for t in o_ms]}), collectives {coll_ms:.1f} ms in "
+          f"{n_spans} spans over the {TRAIN_STEPS} steps (forward and "
+          f"recomputed forward; the backward's copies untimed); losses "
+          f"{[round(x, 5) for x in m_loss]} (one device "
+          f"{[round(x, 5) for x in o_loss]}), grad norms "
+          f"{[round(x, 5) for x in m_norm]} ({[round(x, 5) for x in o_norm]}"
+          f"): step 0 {errs[0]:.2e} / {errs[1]:.2e} relative (tol "
+          f"{MESH_TOL:g}); the update {alike['update_distance']:.3e} of one "
+          f"device's from it (tol {MESH_UPDATE_TOL}), worst leaf "
+          f"{alike['worst_leaf']} {alike['worst_leaf_distance']:.3e} (tol "
+          f"{MESH_LEAF_TOL}), largest difference "
+          f"{alike['max_abs_diff']:.3e} (Adam's bound "
+          f"{alike['adam_bound']:.3e}); peak GB {peak}, held before the "
+          f"loop {held_gb} (one device {o_peak:.3f}); checkpoint "
+          f"{ckpt_gb:.2f} GB: assembled on the "
+          f"host in {assemble_ms:.1f} ms, written in "
+          f"{[round(t, 1) for t in times['write']]} ms, restore "
+          f"{[round(t, 1) for t in times['restore']]} ms (warm page cache) "
+          f"{tag}")
+    del loop, sm, step_fn, real_step
+    torch.cuda.empty_cache()
+
+    # -- (a') float32 SMOKE over the meshes: card against CPU ------------------
+    out["smoke"] = {}
+    for arch, shape in MESH_SMOKE:
+        scfg = get_config(arch, smoke=True)
+        src = build_model(scfg).init(torch.Generator().manual_seed(0), "cpu")
+        names = [n for n, _ in named_leaves(src)]
+        tree = stacked_tree(names, [p for _, p in named_leaves(src)])
+        card_ranks, _ = mesh_ranks(int(np.prod(shape)))
+        sbatch = batch_at(TokenStreamSpec(vocab=scfg.vocab, seq_len=48,
+                                          global_batch=4, seed=1), 0)
+        got = {}
+        for where, devs in (("cpu", ["cpu"] * len(card_ranks)),
+                            ("cuda", card_ranks)):
+            smesh = make_mesh(shape, ("data", "model"), devices=devs)
+            placed = lm_params_from_reference(scfg, tree, mesh=smesh,
+                                              trainable=True)
+            m, g = steps.grads_of(scfg, placed, steps.as_batch(
+                sbatch, placed.px.devices[0]))
+            g = placed.sum_copies(g)
+            got[where] = (float(m["loss"]), {n: placed.whole(n, g)
+                                             for n in names})
+        loss_err = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        share = max(float((got["cuda"][1][n] - got["cpu"][1][n]).abs().max())
+                    / max(float(got["cpu"][1][n].abs().max()), 1e-30)
+                    for n in names)
+        if loss_err > TOL_TRAIN or share > TOL_TRAIN:
+            raise AssertionError(f"{arch} over {shape}: card vs CPU loss "
+                                 f"{loss_err:.3e}, gradients {share:.3e} "
+                                 f"(tol {TOL_TRAIN})")
+        out["smoke"][arch] = {"shape": shape, "loss_rel": loss_err,
+                              "grad_share": share}
+        print(f"  (a') {arch} SMOKE float32 over {shape}, card vs CPU: loss "
+              f"{loss_err:.3e} relative, gradients {share:.3e} of each "
+              f"leaf's max (tol {TOL_TRAIN}) {tag}")
+
+    # -- (b) mixtral-8x22b at full width, cut in depth, FSDP over (2, 2) -----
+    ranks, layout = mesh_ranks(4)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=ranks)
+    out["b"] = []
+    for layers, one in MESH_MOE_LAYERS:
+        if not one and len(set(ranks)) < 4:
+            continue         # more than one card holds: four cards only
+        mcfg = override(get_config(MESH_MOE_ARCH), n_layers=layers)
+        mspec = TokenStreamSpec(vocab=mcfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+        o_run = one_device(mcfg, mspec) if one else None
+        sm = draw(mcfg, mesh)
+        if not (sm.px.dp == 2 and sm.px.tp_dim("blocks/moe/w1") == 0 and
+                any(dp is not None for _, dp in sm.px.splits.values())):
+            raise AssertionError(f"{mcfg.arch}: not FSDP over data with "
+                                 f"experts over model: {sm.px.splits}")
+        held_gb = reset_peaks(ranks)
+        m_run = run(mcfg, sm, steps.make_train_step(
+            mcfg, train_opt(mcfg), policy=sm.policy), mspec)
+        peak = peaks(ranks)
+        rec = {"layers": layers, "losses": m_run[0], "grad_norms": m_run[1],
+               "step_ms": m_run[2], "peak_gb": peak, "held_gb": held_gb,
+               "replica_state_gb": state_gb(mcfg)}
+        note = "no card holds one device's run"
+        if one:
+            rec["one_losses"], rec["one_grad_norms"] = o_run[0], o_run[1]
+            rec["one_step_ms"], rec["one_peak_gb"] = o_run[2], o_run[3]
+            rec["step0_rel"] = held(mcfg.arch, o_run, m_run, MESH_TOL)
+            rec.update(updates_alike(mcfg, sm, o_run[4],
+                                     f"{mcfg.arch} {layers} layers"))
+            note = (f"one device: losses {[round(x, 5) for x in o_run[0]]}, "
+                    f"norms {[round(x, 5) for x in o_run[1]]}, step 0 "
+                    f"{rec['step0_rel'][0]:.2e} / {rec['step0_rel'][1]:.2e} "
+                    f"relative (tol {MESH_TOL:g}), the update "
+                    f"{rec['update_distance']:.3e} of one device's from it, "
+                    f"worst leaf {rec['worst_leaf']} "
+                    f"{rec['worst_leaf_distance']:.3e}, largest difference "
+                    f"{rec['max_abs_diff']:.3e} (bound "
+                    f"{rec['adam_bound']:.3e}); one device's ms "
+                    f"{[round(t, 1) for t in o_run[2]]}, peak "
+                    f"{o_run[3]:.3f} GB")
+        elif not all(np.isfinite(m_run[0] + m_run[1])):
+            raise AssertionError(f"{mcfg.arch} {layers} layers: losses "
+                                 f"{m_run[0]}, norms {m_run[1]}")
+        out["b"].append(rec)
+        print(f"  (b) {mcfg.arch} full width, {layers} of 56 layers, "
+              f"fsdp_tp over (2, 2) ({layout}: experts 4 a rank, FSDP over "
+              f"data, the {TRAIN_BATCH} x {TRAIN_SEQ} batch routed whole in "
+              f"each data group), {TRAIN_STEPS} steps: ms "
+              f"{[round(t, 1) for t in m_run[2]]}, losses "
+              f"{[round(x, 5) for x in m_run[0]]}, norms "
+              f"{[round(x, 5) for x in m_run[1]]}; {note}; peak GB {peak} "
+              f"(the parameters held before the steps {held_gb}) against "
+              f"a whole replica's parameters, gradients and moments "
+              f"{rec['replica_state_gb']:.3f} {tag}")
+        del sm, o_run
+        torch.cuda.empty_cache()
+
+    # -- (c) a lost host on (2, 2): the loop shrinks to (1, 2) ----------------
+    ccfg = override(get_config(TRAIN_ARCH), n_layers=LOOP_LAYERS,
+                    param_sharding="fsdp_tp")
+    cspec = TokenStreamSpec(vocab=ccfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH)
+    copt = adamw.AdamWConfig(total_steps=LOOP_STEPS)
+    fired = []
+
+    def hook(s):
+        if s == LOOP_FAIL_AT and not fired:
+            fired.append(s)
+            raise FailureInjected("a host lost", lost_hosts=2)
+
+    root = tempfile.mkdtemp(prefix="repro_torch_phase30_elastic_")
+    try:
+        loop = TrainLoop(ccfg, copt, LoopConfig(
+            total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY,
+            ckpt_dir=root), mesh, data_spec=cspec, failure_hook=hook)
+        before = {t.data_ptr() for t in loop.params.parameters()}
+        t1 = time.perf_counter()
+        loop.run()
+        c_s = time.perf_counter() - t1
+        shrunk = tuple(loop.mesh.shape.values())
+        replaced = not ({t.data_ptr() for t in loop.params.parameters()}
+                        <= before)
+        got = {m["step"]: m["loss"] for m in loop.metrics_log}
+        del loop
+        torch.cuda.empty_cache()
+        # an uninterrupted (1, 2) loop from the same checkpoint
+        fresh = TrainLoop(ccfg, copt, LoopConfig(
+            total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY,
+            ckpt_dir=root), make_mesh((1, 2), ("data", "model"),
+                                      devices=ranks[:2]), data_spec=cspec)
+        fresh.run()
+        want = {m["step"]: m["loss"] for m in fresh.metrics_log}
+        del fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    after = sorted(want)
+    if not fired or shrunk != (1, 2) or not replaced or \
+            after != list(range(LOOP_CKPT_EVERY + 1, LOOP_STEPS)) or \
+            any(got[s] != want[s] for s in after):
+        raise AssertionError(
+            f"lost host: fired {fired}, mesh {shrunk}, shards placed anew "
+            f"{replaced}, steps after the restore {after}, losses {got} "
+            f"against {want} (each must be bitwise)")
+    out["c"] = {"mesh_after": shrunk, "steps": after, "losses": got,
+                "fresh": want, "seconds": c_s}
+    print(f"  (c) {ccfg.arch} full width, {LOOP_LAYERS} layers, fsdp_tp, "
+          f"{ccfg.dtype}, TrainLoop over (2, 2), two ranks lost at step "
+          f"{LOOP_FAIL_AT}: mesh {shrunk}, the shards placed anew from step "
+          f"{LOOP_CKPT_EVERY}'s checkpoint; steps {after} bitwise an "
+          f"uninterrupted (1, 2) loop's from it: losses "
+          f"{[got[s] for s in after]}; the loop {c_s:.1f} s {tag}")
+    if fmod.flash_attention.launches:
+        raise AssertionError(f"{fmod.flash_attention.launches} flash "
+                             f"launches under autograd")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 30 took {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def kendall_runs(x_dev, x_tf, reset, tag):
     """Phase 23: merge-sort Kendall at the paper's sample count, every
     check fatal.  `reset` sets the pcc kernels' launch counts to 0.  Returns
@@ -4686,12 +5196,14 @@ def main(argv) -> int:
     # --overlap-only SRC: phase 20 alone, on the package under SRC (an
     # earlier tree of this repository, for a before / after comparison)
     # --lm-mesh-only: the build and phase 29 alone (a call on several cards)
+    # --lm-train-mesh-only: phase 30 alone (it launches no kernel: no build)
     overlap_only = argv[:1] == ["--overlap-only"]
     mesh_only = argv == ["--lm-mesh-only"]
+    train_mesh_only = argv == ["--lm-train-mesh-only"]
     if (overlap_only and len(argv) != 2) or \
-            (argv and not overlap_only and not mesh_only):
-        print("usage: chip_smoke.py [--overlap-only SRC | --lm-mesh-only]",
-              file=sys.stderr)
+            (argv and not (overlap_only or mesh_only or train_mesh_only)):
+        print("usage: chip_smoke.py [--overlap-only SRC | --lm-mesh-only | "
+              "--lm-train-mesh-only]", file=sys.stderr)
         return 2
     src = (Path(argv[1]) if overlap_only
            else Path(__file__).resolve().parent / "src")
@@ -4732,6 +5244,18 @@ def main(argv) -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; allow_tf32=False (matmul, cudnn)")
+
+    if train_mesh_only:
+        tag = f"[{card}]"
+        print(f"LM training over a (data, model) mesh (make_train_step("
+              f"policy=), TrainLoop pjit) {tag}:")
+        print(json.dumps({"train_mesh": train_mesh_runs(tag)}, default=str))
+        print(f"script time {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"kernels": []}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 1. build -----------------------------------------------------------
     def watched(entry):
@@ -6969,6 +7493,12 @@ def main(argv) -> int:
           f"flash on each rank's heads {tag}:")
     tp_rows, tp_out = tp_runs(tag)
     print(json.dumps({"tp": tp_out}, default=str))
+
+    # -- 30. LM training over a mesh -------------------------------------------
+    torch.cuda.empty_cache()
+    print(f"LM training over a (data, model) mesh (make_train_step("
+          f"policy=), TrainLoop pjit) {tag}:")
+    print(json.dumps({"train_mesh": train_mesh_runs(tag)}, default=str))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []

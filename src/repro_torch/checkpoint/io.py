@@ -117,17 +117,22 @@ def restore(path: str, like: Any = None, device=None) -> Tuple[Any, dict]:
             raise ValueError(f"{path}: {name!r} is {tuple(t.shape)}, "
                              f"expected {want}")
         loaded[name] = place(t)
+    return _build(like, (), loaded), manifest["metadata"]
 
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v, prefix + (str(i),))
-                              for i, v in enumerate(node))
-        if node is None:
-            return None
-        return loaded["/".join(prefix)]
-    return build(like, ()), manifest["metadata"]
+
+def _build(node, prefix: tuple, loaded: dict):
+    """`node`'s structure with each leaf the loaded tensor of its path
+    (module-level: a nested function calling itself is a reference
+    cycle, which would hold every loaded leaf until a collection)."""
+    if isinstance(node, dict):
+        return {k: _build(v, prefix + (str(k),), loaded)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, prefix + (str(i),), loaded)
+                          for i, v in enumerate(node))
+    if node is None:
+        return None
+    return loaded["/".join(prefix)]
 
 
 def available_steps(root: str) -> list:

@@ -118,6 +118,17 @@ def operand_from_reference(u_pad, device=None):
     return t.to(resolve_device(device))
 
 
+def _flat(node, path: tuple):
+    """(path, leaf) of a nested dict's leaves (module-level: a nested
+    function calling itself is a reference cycle, which would hold what it
+    collected until a collection)."""
+    if isinstance(node, dict):
+        for key, sub in node.items():
+            yield from _flat(sub, path + (str(key),))
+    else:
+        yield path, node
+
+
 def lm_params_from_reference(cfg, params, device=None,
                              trainable: bool = False, mesh=None):
     """The port's parameters (a ``models.transformer.DecoderLM``, or a
@@ -139,15 +150,8 @@ def lm_params_from_reference(cfg, params, device=None,
 
     want = dict(build_model(cfg).init_shapes().named_parameters())
     depth = {"blocks": cfg.n_layers, "enc_blocks": cfg.enc_layers}
-    flat = {}
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key, sub in node.items():
-                walk(sub, path + (str(key),))
-        else:
-            flat["/".join(path)] = np.asarray(node)
-    walk(params, ())
+    flat = {"/".join(path): np.asarray(leaf)
+            for path, leaf in _flat(params, ())}
     place = None
     if mesh is not None:
         from repro_torch.models.parallel import Placement

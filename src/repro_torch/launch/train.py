@@ -2,15 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
         [--smoke] [--steps 100] [--global-batch 8] [--seq 256] \\
-        [--device cpu | --devices cuda:0,cuda:1] [--mode dp_compressed]
+        [--device cpu | --devices cuda:0,cuda:1] [--model-axis 16] \\
+        [--mode dp_compressed]
 
 Port of ``repro/launch/train.py``.  It runs the fault-tolerant
 ``TrainLoop`` (runtime/train_loop.py) on ``cuda`` (one card), or over the
 devices of ``--devices`` (a comma-separated list; names may repeat, as
-"cpu,cpu" for two data ranks on the CPU), and raises without a card unless
-the CPU is asked for.  Every device is a data rank: the mesh is
-``pick_mesh_shape``'s layout with a model axis of 1, since executing the
-reference's model axis (its default of 16) is ROADMAP A part 5.
+"cpu,cpu,cpu,cpu" for four ranks on the CPU), and raises without a card
+unless the CPU is asked for.  The mesh is ``pick_mesh_shape``'s (data,
+model) layout: a model axis of ``--model-axis`` (the reference's default
+of 16), halved until it divides the devices, over which the sharding
+policy places the parameters (models/parallel.py); the rest is data.
 """
 
 from __future__ import annotations
@@ -50,11 +52,14 @@ def main(argv=None) -> TrainLoop:
     ap.add_argument("--devices", default=None,
                     help="comma-separated devices of the mesh, e.g. "
                          "cuda:0,cuda:1 or cpu,cpu (overrides --device)")
+    ap.add_argument("--model-axis", type=int, default=16,
+                    help="the model axis's size, halved until it divides "
+                         "the devices (the rest is data)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     devices = (args.devices.split(",") if args.devices else [args.device])
-    shape = pick_mesh_shape(len(devices), model_axis=1)
+    shape = pick_mesh_shape(len(devices), model_axis=args.model_axis)
     mesh = make_mesh(shape, ("data", "model"), devices=devices)
     print(f"devices={len(devices)} mesh={shape} arch={cfg.arch}")
 

@@ -11,9 +11,8 @@
   registry.py     build_model(cfg) facade
 
 Port of ``repro/models`` for every family (dense, MoE, SSM, hybrid, the
-VLM and the encoder-decoder).  Serving executes a placement over a model
-axis and FSDP (``parallel.py``); training over one is the training half
-of ROADMAP A part 5.
+VLM and the encoder-decoder).  Serving and training execute a placement
+over a model axis and FSDP (``parallel.py``).
 """
 
 from repro_torch.models.config import SHAPES, ModelConfig

@@ -205,10 +205,23 @@ def _add(sm, xs: list, outs: list) -> list:
     return sm.px.map(torch.add, xs, P.combine(sm.px, outs, xs[0].dtype))
 
 
+def _enc_layer_tp(cfg: ModelConfig, sm, li: int, xs: list,
+                  pos: list) -> list:
+    """``_enc_block_apply`` of encoder layer li over the mesh."""
+    px, blk = sm.px, f"enc_blocks.{li}"
+    hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
+    xs = _add(sm, xs, [L.encoder_attention_apply_tp(
+        cfg, px, sm.parts(blk + ".attn"), hs, pos)])
+    h2 = T._norm_tp(cfg, sm, xs, blk + ".ln2")
+    return _add(sm, xs, [L.mlp_apply_tp(cfg, px, sm.parts(blk + ".mlp"), h2,
+                                        prefix="enc_blocks/mlp")])
+
+
 def encode_tp(cfg: ModelConfig, sm, src: Tensor, split: bool) -> list:
     """``encode`` over the mesh, each attention on its rank's heads (plain
     on both devices): the encoder's output whole on each model rank, its
-    batch `split` over the data axes or not."""
+    batch `split` over the data axes or not; each layer recomputed in the
+    backward pass as ``encode`` recomputes it."""
     px, dt = sm.px, cfg.activation_dtype()
     if src.ndim == 2:
         xs = T.embed_tp(cfg, sm, px.scatter(src, split), "src_embed")
@@ -218,13 +231,7 @@ def encode_tp(cfg: ModelConfig, sm, src: Tensor, split: bool) -> list:
         x.shape[0], x.shape[1], device=x.device).expand(x.shape[0],
                                                         x.shape[1]), xs)
     for li in range(cfg.enc_layers):
-        blk = f"enc_blocks.{li}"
-        hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
-        xs = _add(sm, xs, [L.encoder_attention_apply_tp(
-            cfg, px, sm.parts(blk + ".attn"), hs, pos)])
-        h2 = T._norm_tp(cfg, sm, xs, blk + ".ln2")
-        xs = _add(sm, xs, [L.mlp_apply_tp(cfg, px, sm.parts(blk + ".mlp"), h2,
-                                          prefix="enc_blocks/mlp")])
+        xs = P.remat(cfg, _enc_layer_tp, cfg, sm, li, xs, pos)
     return T._norm_tp(cfg, sm, xs, "enc_norm")
 
 
@@ -235,6 +242,19 @@ def _cross_tp(cfg: ModelConfig, sm, blk: str, xs: list, enc: list) -> list:
     ps = sm.parts(blk + ".xattn")
     ek, ev = L.cross_kv_tp(cfg, px, ps, enc)
     return _add(sm, xs, [L.cross_attention_apply_tp(cfg, px, ps, hx, ek, ev)])
+
+
+def _dec_layer_tp(cfg: ModelConfig, sm, li: int, xs: list, enc: list,
+                  split: bool):
+    """``_dec_block_apply`` of decoder layer li over the mesh: (xs, each
+    rank's (k, v))."""
+    px, blk = sm.px, f"blocks.{li}"
+    hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
+    out, kv = L.attention_apply_tp(cfg, px, sm.parts(blk + ".attn"), hs,
+                                   [None] * px.p, 0)
+    xs = _cross_tp(cfg, sm, blk, _add(sm, xs, [out]), enc)
+    xs, _ = T._ffn_tp(cfg, sm, blk, xs, split)
+    return xs, kv
 
 
 def forward_tp(cfg: ModelConfig, sm, split: bool, *, src: Tensor,
@@ -252,15 +272,8 @@ def forward_tp(cfg: ModelConfig, sm, split: bool, *, src: Tensor,
                                           src.shape[1], device="meta"))
         for rc, e in zip(caches.ranks, enc):
             rc["enc_out"] = e
-    nones = [None] * px.p
     for li in range(cfg.n_layers):
-        blk = f"blocks.{li}"
-        hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
-        out, kv = L.attention_apply_tp(cfg, px, sm.parts(blk + ".attn"), hs,
-                                       nones, 0)
-        xs = _add(sm, xs, [out])
-        xs = _cross_tp(cfg, sm, blk, xs, enc)
-        xs, _ = T._ffn_tp(cfg, sm, blk, xs, split)
+        xs, kv = P.remat(cfg, _dec_layer_tp, cfg, sm, li, xs, enc, split)
         if caches is not None:
             for rc, (k, v) in zip(caches.ranks, kv):
                 _prefill_cache(cfg, rc, li, {"k": k, "v": v}, 0, s)

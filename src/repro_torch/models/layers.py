@@ -644,13 +644,22 @@ def _moe_combine(cfg: ModelConfig, ye: Tensor, state) -> Tuple[Tensor,
     y = ye[rows, dest.clamp(max=e * cap - 1)]
     y = y.masked_fill(~keep[..., None], 0) * sw[..., None].to(y.dtype)
     out = y.reshape(r, n, k, d).sum(2)
-    me = probs.mean(dim=(0, 1))
+    return out, _moe_aux(cfg, *_moe_balance(cfg, state))
+
+
+def _moe_balance(cfg: ModelConfig, state) -> Tuple[Tensor, Tensor]:
+    """A routing state's mean router probabilities and share of the
+    assignments, (E,) each: the terms of the Switch-style aux loss."""
+    probs, flat_e, (r, n, _, _) = state[4], state[5], state[6]
     # an exact integer count, without bincount's host sync on CUDA
     flat = flat_e.reshape(-1)
-    ce = flat.new_zeros(e).scatter_add_(0, flat, torch.ones_like(flat)) \
-        .float() / (r * n * k)
-    aux = e * torch.sum(me * ce) * cfg.router_aux_weight
-    return out, aux
+    ce = flat.new_zeros(cfg.n_experts).scatter_add_(
+        0, flat, torch.ones_like(flat)).float() / (r * n * cfg.top_k)
+    return probs.mean(dim=(0, 1)), ce
+
+
+def _moe_aux(cfg: ModelConfig, me: Tensor, ce: Tensor) -> Tensor:
+    return cfg.n_experts * torch.sum(me * ce) * cfg.router_aux_weight
 
 
 def moe_apply(cfg: ModelConfig, p: Mapping[str, Tensor],
@@ -919,7 +928,8 @@ def moe_apply_tp(cfg: ModelConfig, px, ps, xs, *, split: bool,
     expert-parallel where the specs split E (each rank's experts' outputs
     all-gathered, so the combine is the one-device combine's, bitwise),
     intra-expert tensor-parallel where they split F (float32 partials,
-    all-reduced), or whole on every rank.  Returns (Out, aux)."""
+    all-reduced), or whole on every rank.  Returns (Out, aux), the aux
+    loss once for the whole batch."""
     gathered = cfg.moe_impl != "per_example" and split
     xin = px.gather_data(xs) if gathered else xs
     b, s, d = xin[0].shape
@@ -951,7 +961,15 @@ def moe_apply_tp(cfg: ModelConfig, px, ps, xs, *, split: bool,
             n = b // px.dp
             o = o.narrow(0, (r // px.tp) * n, n)
         outs.append(o)
-    return Out(outs, False), res[0][1]
+    aux = res[0][1]     # the global batch's where it was gathered
+    if split and not gathered:
+        # batch-local routing of a split batch: the aux loss's means are
+        # over every data group's rows (equal counts), as on one device
+        home = px.devices[0]
+        terms = [[t.to(home) for t in _moe_balance(cfg, disp[g * px.tp][1])]
+                 for g in range(px.dp)]
+        aux = _moe_aux(cfg, *(sum(ts) / px.dp for ts in zip(*terms)))
+    return Out(outs, False), aux
 
 
 __all__ = [

@@ -15,7 +15,7 @@ explicit devices, which may repeat; ``["cpu"] * p`` on the CPU).
   (``ShardingPolicy.params_specs``): a dimension named by an axis is split
   contiguously over that axis, in rank order, and None keeps it whole.  A
   leaf that the spec keeps whole is one tensor for the ranks of one
-  device.  One leaf departs from the spec's contiguous cut: an SSM's
+  card.  One leaf departs from the spec's contiguous cut: an SSM's
   ``in_proj`` (D, 2 di) holds ``[x | z]``, and each rank keeps its x
   columns and its z columns together (as many bytes a rank as the spec);
 * the collectives GSPMD would insert over the model axis of each data
@@ -33,6 +33,24 @@ card's stream behind an event of the destination's stream, and makes the
 destination's stream wait on an event after it, so the host never waits.
 Between ranks of one device a copy is the tensor itself.
 
+Training runs autograd through these copies, adds and concatenations:
+an all-reduce's backward hands every partial the summed gradient of the
+ranks' copies, an all-gather's a slice, and FSDP's gather at use gives
+each data rank's shard the sum of every data rank's use (a
+reduce-scatter).  A trainable placement holds one ``nn.Parameter`` a
+distinct shard on a card (``Placement.build``), shared by the ranks of
+that card that read it, so autograd sums their uses; the copies of a
+shard on other devices (a replicated leaf's on each card) each get their
+ranks' partial, which ``ShardedLM.sum_copies`` adds in copy order and
+hands back to every copy.  ``ShardedLM.shards`` lists each distinct shard
+once, for AdamW, the global norm and the checkpoint.  The backward runs
+on one thread (``steps.grads_of``), so that every gradient sum it forms
+runs in the same order in every run.
+
+Ranks on one card share a shard they read alike; ranks on the CPU each
+hold their own copy, standing in for ranks on distinct cards, so that
+the CPU runs the copies' path the cards run.
+
 Activations are lists with one tensor a rank; ranks of one device share a
 replicated activation, and :meth:`Placement.map` computes a rank-wise
 function once for them.  The layers' tensor-parallel forms live beside
@@ -45,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from functools import reduce
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -52,7 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import reference_path
+from repro_torch.tree import named_leaves, order_key, reference_path
 
 Tensor = torch.Tensor
 
@@ -62,25 +81,119 @@ _MM_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
 _BMM_DTYPE = "dtype" in torch.ops.aten.bmm.overloads()
 
 
+class _MM32(torch.autograd.Function):
+    """a @ b by the card's float32-output GEMM, differentiated as the
+    one-device layer's product: the backward narrows the float32 gradient
+    to the operands' dtype and runs the one-device products on it.  Where
+    the partial's float32 sum is rounded once to that dtype
+    (``Placement.all_reduce``, ``logits_tp``) the gradient reaching it is
+    such a value widened, and narrows exactly; where a float32 factor
+    scales the partial first (the MoE combine's router weights) it is
+    rounded, as the one-device product's gradient is."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if b.ndim == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        if b.ndim == 3:
+            return torch.bmm(g, b.transpose(1, 2)), \
+                torch.bmm(a.transpose(1, 2), g)
+        g2 = g.reshape(-1, g.shape[-1])
+        return (g2 @ b.T).reshape(a.shape), \
+            a.reshape(-1, a.shape[-1]).T @ g2
+
+
 def mm32(a: Tensor, b: Tensor) -> Tensor:
     """a @ b with a float32 result: a row-parallel partial.  b is cast to
     a's dtype first, as the one-device layer casts it, so both multiply
     the same operands; bf16 / fp16 products sum in float32 and are not
     rounded to the operands' dtype (``torch.mm(out_dtype=torch.float32)``
-    on the card where torch offers it, else the operands widened to
-    float32).  a (..., K), b (K, N), or batched a (E, M, K), b (E, K, N)."""
+    on the card where torch offers it, through :class:`_MM32` under
+    autograd too, else the operands widened to float32).  a (..., K), b
+    (K, N), or batched a (E, M, K), b (E, K, N)."""
     b = b.to(a.dtype)
     if a.dtype == torch.float32:
         return torch.bmm(a, b) if b.ndim == 3 else a @ b
+    if a.is_cuda and (_BMM_DTYPE if b.ndim == 3 else _MM_DTYPE):
+        return _MM32.apply(a, b)
     if b.ndim == 3:
-        if a.is_cuda and _BMM_DTYPE:
-            return torch.bmm(a, b, out_dtype=torch.float32)
         return torch.bmm(a.float(), b.float())
-    if a.is_cuda and _MM_DTYPE:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                       out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
+
+
+class _Recompute:
+    """A region of a mesh's forward whose saved tensors are dropped and made
+    again when the backward pass first asks for one (``remat``).  Its
+    saved tensors lie on several cards: the first unpack recomputes the
+    region for all, under a lock should autograd run the cards' nodes on
+    threads of their own (``torch.utils.checkpoint`` recomputes unlocked,
+    and two cards' threads asking at once break it; ``steps.grads_of``
+    runs a mesh's backward on one thread).  Each recomputed tensor is
+    handed out once; a later backward pass recomputes again."""
+
+    def __init__(self, fn, args):
+        self.fn, self.args = fn, args
+        self.meta: list = []          # (shape, dtype, device) a saved tensor
+        self.saved: Optional[list] = None
+        self.lock = threading.Lock()
+
+    def pack(self, t: Tensor) -> int:
+        self.meta.append((t.shape, t.dtype, t.device))
+        return len(self.meta) - 1
+
+    def unpack(self, i: int) -> Tensor:
+        with self.lock:
+            if self.saved is None or self.saved[i] is None:
+                saved: list = []
+                memo: dict = {}
+                with torch.enable_grad(), \
+                        torch.autograd.graph.saved_tensors_hooks(
+                            lambda t: saved.append(
+                                t.detach() if t.requires_grad else t),
+                            lambda _: None):
+                    self.fn(*_detached(self.args, memo))
+                if [(t.shape, t.dtype, t.device) for t in saved] != \
+                        self.meta:
+                    raise RuntimeError(
+                        f"the recompute saved {len(saved)} tensors, the "
+                        f"forward {len(self.meta)}, or other shapes")
+                self.saved = saved
+            t, self.saved[i] = self.saved[i], None
+            return t
+
+
+def _detached(node, memo: dict):
+    """`node` (tensors in lists and tuples) with each tensor detached once,
+    keeping whether it requires grad and which entries are one tensor."""
+    if isinstance(node, Tensor):
+        if id(node) not in memo:
+            memo[id(node)] = node.detach().requires_grad_(node.requires_grad)
+        return memo[id(node)]
+    if isinstance(node, (list, tuple)):
+        return type(node)(_detached(v, memo) for v in node)
+    return node
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``layers.remat`` for a region spanning the mesh's cards: fn(*args),
+    its saved tensors recomputed in the backward pass when cfg.remat is not
+    "none" and autograd records (:class:`_Recompute`).  The per-rank
+    regions inside it (attention's q-chunks, the SSM's chunks) keep
+    ``torch.utils.checkpoint``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    region = _Recompute(fn, args)
+    with torch.autograd.graph.saved_tensors_hooks(region.pack,
+                                                  region.unpack):
+        return fn(*args)
 
 
 def _split(spec, policy) -> Tuple[Optional[int], Optional[int]]:
@@ -118,11 +231,25 @@ def _pick(tree, r: int):
     return tree
 
 
+def _wrap(node, made: dict, trainable: bool):
+    """`node` (a placed tree) with each distinct tensor one
+    ``nn.Parameter`` (`made`: by the tensor's id).  Module-level: a nested
+    function that calls itself is a reference cycle, which would hold the
+    Parameters after their model is dropped, until the garbage collector
+    runs."""
+    if isinstance(node, _Ranked):
+        return _Ranked(made.setdefault(id(t), torch.nn.Parameter(
+            t, requires_grad=trainable)) for t in node)
+    if isinstance(node, dict):
+        return {k: _wrap(v, made, trainable) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_wrap(v, made, trainable) for v in node]
+    return node
+
+
 def _identity(a):
     """A key equal for two views of the same elements: a tensor's address,
-    shape, strides, dtype and device (ranks of one device share a
-    replicated leaf's storage through distinct ``nn.Parameter``s), any
-    other object's id."""
+    shape, strides, dtype and device, any other object's id."""
     if isinstance(a, Tensor):
         return (a.data_ptr(), tuple(a.shape), a.stride(), a.dtype, a.device)
     return id(a)
@@ -193,28 +320,49 @@ class Placement:
         size = t.shape[dim] // self.tp
         return t.narrow(dim, m * size, size)
 
+    def key(self, path: str, r: int) -> Tuple[int, int]:
+        """Which piece of a per-layer leaf rank r holds: (its data index,
+        its model index), -1 where the leaf is whole over that axis."""
+        tp_dim, dp_dim = self.splits[path]
+        d, m = divmod(r, self.tp)
+        return (d if dp_dim is not None else -1,
+                m if tp_dim is not None else -1)
+
+    def piece(self, path: str, t: Tensor, key: Tuple[int, int]) -> Tensor:
+        """The piece `key` (``key``) of a whole per-layer leaf `t`, in
+        place where it is a contiguous cut."""
+        tp_dim, dp_dim = self.splits[path]
+        d, m = key
+        if d >= 0:
+            size = t.shape[dp_dim] // self.dp
+            t = t.narrow(dp_dim, d * size, size)
+        if m >= 0:
+            t = self._tp_piece(path, t, tp_dim, m)
+        return t
+
     def cut(self, path: str, t: Tensor) -> _Ranked:
         """The rank shards of one per-layer leaf (reference path `path`),
-        each a new tensor on its rank's device; ranks of one device share a
-        shard that is the same slice."""
-        tp_dim, dp_dim = self.splits[path]
+        each a new tensor on its rank's device; ranks of one card share a
+        shard that is the same piece, ranks on the CPU do not (module
+        docstring)."""
         made: dict = {}
         out = _Ranked()
         for r, dev in enumerate(self.devices):
-            d, m = divmod(r, self.tp)
-            key = (dev, d if dp_dim is not None else -1,
-                   m if tp_dim is not None else -1)
-            if key not in made:
-                piece = t
-                if dp_dim is not None:
-                    size = piece.shape[dp_dim] // self.dp
-                    piece = piece.narrow(dp_dim, d * size, size)
-                if tp_dim is not None:
-                    piece = self._tp_piece(path, piece, tp_dim, m)
-                made[key] = torch.empty(piece.shape, dtype=piece.dtype,
-                                        device=dev).copy_(piece)
-            out.append(made[key])
+            key = self.key(path, r)
+            home = (dev if dev.type != "cpu" else r,) + key
+            if home not in made:
+                piece = self.piece(path, t, key)
+                made[home] = torch.empty(piece.shape, dtype=piece.dtype,
+                                         device=dev).copy_(piece)
+            out.append(made[home])
         return out
+
+    def whole(self, path: str, pieces: list, device="cpu") -> Tensor:
+        """One per-layer leaf of its rank pieces (``cut``'s inverse), on
+        `device`."""
+        tp_dim, dp_dim = self.splits[path]
+        return self._join(pieces, tp_dim, dp_dim, device,
+                          path.endswith("ssm/in_proj"))
 
     def __call__(self, prefix: str, tree):
         """A parameter (sub)tree at reference path `prefix` with each leaf
@@ -225,12 +373,11 @@ class Placement:
 
     def build(self, cls, cfg: ModelConfig, tensors: dict,
               trainable: bool = False) -> "ShardedLM":
-        """The ranks' modules of class `cls` from a placed tensor tree."""
-        if trainable:
-            raise NotImplementedError(
-                "training over a sharded placement is the training half "
-                "of ROADMAP A part 5; serving executes it")
-        return ShardedLM(self, [cls(cfg, _pick(tensors, r))
+        """The ranks' modules of class `cls` from a placed tensor tree: one
+        ``nn.Parameter`` a distinct shard, held by every rank that reads
+        it (requiring grad where `trainable`)."""
+        tensors = _wrap(tensors, {}, trainable)
+        return ShardedLM(self, [cls(cfg, _pick(tensors, r), trainable)
                                 for r in range(self.p)])
 
     # --- rank-wise compute and collectives ------------------------------------
@@ -348,7 +495,8 @@ class Placement:
 
     def collect(self, parts: list, split: bool) -> Tensor:
         """A batch-major result on the first rank's device: the data
-        groups' rows concatenated where its batch was `split`."""
+        groups' rows (each group's first rank's) concatenated where its
+        batch was `split`."""
         if not split:
             return parts[0]
         dev = self.devices[0]
@@ -381,13 +529,22 @@ class Placement:
     def unshard(self, pieces: list, spec, device="cpu") -> Tensor:
         """One tensor of the rank pieces of a leaf placed by `spec`
         (contiguous cuts), on `device`."""
-        tp_dim, dp_dim = _split(spec, self.policy)
+        return self._join(pieces, *_split(spec, self.policy), device)
+
+    def _join(self, pieces: list, tp_dim, dp_dim, device,
+              xz: bool = False) -> Tensor:
         rows = []
         for d in range(self.dp if dp_dim is not None else 1):
             g = [pieces[d * self.tp + m].to(device)
                  for m in range(self.tp if tp_dim is not None else 1)]
-            rows.append(torch.cat(g, tp_dim) if tp_dim is not None
-                        else g[0])
+            if tp_dim is None:
+                rows.append(g[0])
+            elif xz:        # each piece [x_m | z_m]: x columns, then z's
+                halves = [t.chunk(2, dim=1) for t in g]
+                rows.append(torch.cat([h[0] for h in halves]
+                                      + [h[1] for h in halves], 1))
+            else:
+                rows.append(torch.cat(g, tp_dim))
         return torch.cat(rows, dp_dim) if dp_dim is not None else rows[0]
 
 
@@ -413,11 +570,26 @@ class _AtUse(Mapping):
         return key in self.local
 
 
+@dataclasses.dataclass
+class Shard:
+    """One distinct piece of a leaf over the mesh: the leaf `name` (a port
+    name, "blocks.3.attn.wq"), which piece (``Placement.key``), and its
+    copies, one a card (a rank on the CPU) that reads it (``copies[i]`` an
+    ``nn.Parameter``, ``ranks[i]`` the ranks that read it)."""
+    name: str
+    key: Tuple[int, int]
+    copies: list
+    ranks: list
+
+
 class ShardedLM:
     """A model's parameters placed over a mesh: ``ranks[r]`` is rank r's
     module (a ``DecoderLM`` or ``EncDecLM``) holding its shards, ``px`` the
     :class:`Placement`.  The trunks' ``forward`` / ``decode`` run it
-    through the layers' tensor-parallel forms."""
+    through the layers' tensor-parallel forms.  ``shards`` lists each
+    distinct piece of each leaf once, in the reference's leaf order, and
+    ``copies`` their tensors, shard by shard: what AdamW, the global norm
+    and the checkpoint visit."""
 
     def __init__(self, placement: Placement, ranks: list):
         self.px, self.ranks = placement, ranks
@@ -426,10 +598,98 @@ class ShardedLM:
         self._fsdp = placement.dp > 1 and any(
             dp is not None for _, dp in placement.splits.values())
         self._parts: dict = {}
+        by: dict = {}
+        for r, module in enumerate(ranks):
+            for name, t in named_leaves(module):
+                key = placement.key(reference_path(name)[0], r)
+                sh = by.setdefault((name, key), Shard(name, key, [], []))
+                i = next((i for i, c in enumerate(sh.copies) if c is t),
+                         None)
+                if i is None:
+                    sh.copies.append(t)
+                    sh.ranks.append([r])
+                else:
+                    sh.ranks[i].append(r)
+        self.shards: List[Shard] = sorted(
+            by.values(), key=lambda sh: (order_key(sh.name), sh.key))
+        self.copies: List[Tensor] = [c for sh in self.shards
+                                     for c in sh.copies]
+        self._slot = {}        # (leaf name, rank) -> index in copies
+        i = 0
+        for sh in self.shards:
+            for rs in sh.ranks:
+                for r in rs:
+                    self._slot[sh.name, r] = i
+                i += 1
 
     @property
     def policy(self):
         return self.px.policy
+
+    # --- the distinct shards ----------------------------------------------
+
+    def named_copies(self) -> List[Tuple[str, Tensor]]:
+        """(leaf name, tensor) of every copy of every shard, in ``copies``
+        order."""
+        return [(sh.name, c) for sh in self.shards for c in sh.copies]
+
+    def parameters(self):
+        return iter(self.copies)
+
+    def firsts(self) -> List[int]:
+        """The index in ``copies`` of each shard's first copy."""
+        out, i = [], 0
+        for sh in self.shards:
+            out.append(i)
+            i += len(sh.copies)
+        return out
+
+    def sum_copies(self, grads: list) -> list:
+        """Gradients one a copy (``copies`` order), each copy's partial sum
+        of its shard's gradient, made each shard's whole gradient on every
+        copy: the copies' partials added in copy order on the first copy's
+        device, the float32 sum copied to the others, so that the copies of
+        a shard stay bitwise equal through the same update."""
+        out, i = list(grads), 0
+        for sh in self.shards:
+            n = len(sh.copies)
+            if n > 1:
+                dev = sh.copies[0].device
+                with self.px._span(dev):
+                    total = grads[i]
+                    for g in grads[i + 1:i + n]:
+                        total = total + g.to(dev)
+                    out[i:i + n] = [total] + [total.to(c.device)
+                                              for c in sh.copies[1:]]
+            i += n
+        return out
+
+    def whole(self, name: str, per_copy: list, device="cpu") -> Tensor:
+        """The whole leaf `name` of tensors one a copy (the parameters, a
+        moment: ``copies`` order), assembled on `device`."""
+        pieces = [per_copy[self._slot[name, r]] for r in range(self.px.p)]
+        return self.px.whole(reference_path(name)[0], pieces, device)
+
+    @torch.no_grad()
+    def load(self, name: str, whole: Tensor, per_copy: list) -> None:
+        """Writes the whole leaf `name` into its copies' tensors of
+        `per_copy` (``copies`` order), in place: the leaf copied once to
+        the first rank's device and cut there."""
+        path, i = reference_path(name)[0], 0
+        whole = whole.to(self.px.devices[0])
+        for sh in self.shards:
+            if sh.name == name:
+                piece = self.px.piece(path, whole, sh.key)
+                for t in per_copy[i:i + len(sh.copies)]:
+                    if t.shape != piece.shape or t.dtype != piece.dtype:
+                        raise ValueError(
+                            f"{name}: the leaf's piece is {piece.dtype} "
+                            f"{tuple(piece.shape)}, the shard {t.dtype} "
+                            f"{tuple(t.shape)}")
+                    t.copy_(piece)
+            i += len(sh.copies)
+
+    # --- reads --------------------------------------------------------------
 
     def leaf(self, r: int, name: str) -> Tensor:
         """Rank r's shard of the leaf `name` ("blocks.3.attn.wq") over the
@@ -504,5 +764,5 @@ def combine(px: Placement, outs: List[Out], dtype: torch.dtype) -> list:
     return total
 
 
-__all__ = ["Placement", "ShardedLM", "ShardedCache", "Out", "combine",
-           "mm32"]
+__all__ = ["Placement", "Shard", "ShardedLM", "ShardedCache", "Out",
+           "combine", "mm32", "remat"]

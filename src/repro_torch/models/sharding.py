@@ -16,14 +16,13 @@ name, or a tuple of axis names, canonicalised as ``PartitionSpec`` does
 (``spec``), so it equals the tuple of the reference's spec for the same
 leaf.  The specs are computed here and executed by ``models/parallel.py``
 (``build_model(cfg).init(mesh=)``, ``convert.lm_params_from_reference(
-mesh=)``, the serving steps' ``policy=``): each leaf is cut into its
-ranks' shards as ``params_specs`` says, matched to the port's per-layer
-leaves through ``tree.reference_path``, and the decode caches as
-``cache_specs`` says in heads mode (sequence-mode caches, which only the
-reference's dry run places, are not executed: every config's KV caches go
-by heads).  Training over such a placement is not ported yet
-(``runtime/train_loop.TrainLoop`` refuses a spec over an axis of size
-> 1).  ``constrain_residual`` / ``constrain_logits`` are the identity: the
+mesh=)``, the steps' ``policy=``, ``runtime/train_loop.TrainLoop`` in pjit
+mode): each leaf is cut into its ranks' shards as ``params_specs`` says,
+matched to the port's per-layer leaves through ``tree.reference_path``,
+and the decode caches as ``cache_specs`` says in heads mode
+(sequence-mode caches, which only the reference's dry run places, are not
+executed: every config's KV caches go by heads).
+``constrain_residual`` / ``constrain_logits`` are the identity: the
 executor keeps the residual stream whole on each model rank (its batch
 split over data) and gathers the logits whole, where the reference may
 shard them over the model axis (ROADMAP C).

@@ -14,10 +14,16 @@ Memory discipline, as in the reference:
 * every layer is recomputed in the backward pass (cfg.remat, ``L.remat``).
 
 Training attention takes the plain route on both devices (the flash
-kernel has no backward; ``models/layers.self_attention``).  The serving
-steps take the reference's sharding ``policy=`` and run over its mesh
-(``models/parallel.py``); the training step takes none: training over a
-model axis is the next slice (``runtime/train_loop.py``).
+kernel has no backward; ``models/layers.self_attention``).  Every step
+takes the reference's sharding ``policy=``, and given one runs over its
+mesh (``models/parallel.py``) on parameters placed by it, as the
+reference's jitted steps run over the policy's shardings: the batch split over data
+where it divides, the layers' tensor-parallel forms, the loss from each
+data group's logits (``transformer.logits_tp``), autograd through the
+collectives' copies and adds, each shard's copies' gradients summed
+(``ShardedLM.sum_copies``) and AdamW on the distinct shards.  The mesh's
+loss, gradients and update are the one-device step's up to the order of
+float32 sums, an order that is the same in every run (``grads_of``).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from repro_torch.core.allpairs import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.parallel import ShardedLM
+from repro_torch.models.parallel import ShardedLM, remat
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves
 
@@ -50,31 +56,40 @@ def as_batch(batch: dict, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _chunk(cfg: ModelConfig, s: int) -> int:
+    """Tokens a loss chunk: cfg.logits_chunk, unchunked when it is 0 or
+    does not divide S (ragged sequences in tests)."""
+    chunk = min(cfg.logits_chunk if cfg.logits_chunk > 0 else s, s)
+    return s if s % chunk else chunk
+
+
+def _token_sums(logits: Tensor, lc: Tensor):
+    """(sum of the token losses, count of the non-pad tokens) of float32
+    logits (B, C, V) against labels lc (B, C)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1,
+                       torch.clamp_min(lc, 0).long()[..., None])[..., 0]
+    valid = (lc >= 0).to(torch.float32)
+    return torch.sum((lse - lab) * valid), torch.sum(valid)
+
+
 def xent_sums(cfg: ModelConfig, params, hidden: Tensor,
               labels: Tensor):
     """(sum of the token losses, count of the non-pad tokens), float32, of
     next-token cross-entropy without materialising (B, S, V) logits.
 
     hidden: (B, S, D) post-final-norm.  labels: (B, S) (-1 = pad).  Chunks
-    along S (cfg.logits_chunk; unchunked when it does not divide S); each
-    chunk projects to logits, takes logsumexp and gathers the label logit,
-    and is recomputed in the backward pass unless cfg.remat is "none".
+    along S (``_chunk``); each chunk projects to logits, takes logsumexp
+    and gathers the label logit, and is recomputed in the backward pass
+    unless cfg.remat is "none".
     """
-    b, s, d = hidden.shape
+    s = hidden.shape[1]
     head = (params.embed.T if cfg.tie_embeddings
             else params.lm_head).to(hidden.dtype)
-    chunk = cfg.logits_chunk if cfg.logits_chunk > 0 else s
-    chunk = min(chunk, s)
-    if s % chunk:
-        chunk = s  # fall back to unchunked for ragged seqs (tests)
+    chunk = _chunk(cfg, s)
 
     def body(hc, lc):
-        logits = (hc @ head).to(torch.float32)            # (B, C, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1,
-                           torch.clamp_min(lc, 0).long()[..., None])[..., 0]
-        valid = (lc >= 0).to(torch.float32)
-        return torch.sum((lse - lab) * valid), torch.sum(valid)
+        return _token_sums((hc @ head).to(torch.float32), lc)
 
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -82,6 +97,35 @@ def xent_sums(cfg: ModelConfig, params, hidden: Tensor,
         t, c = L.remat(cfg, body, hidden[:, c0:c0 + chunk],
                        labels[:, c0:c0 + chunk])
         tot, cnt = tot + t, cnt + c
+    return tot, cnt
+
+
+def xent_sums_tp(cfg: ModelConfig, sm: ShardedLM, hidden: list,
+                 labels: list, split: bool):
+    """``xent_sums`` over the mesh of ``sm``: each data group's chunks
+    projected to logits on its first rank's device
+    (``transformer.logits_tp``), every chunk recomputed in the backward
+    pass as on one device, so no (B, S, V) tensor is ever whole; the
+    groups' sums added in group order on the first rank's device.
+    hidden and labels: one a rank."""
+    px = sm.px
+    home = px.devices[0]
+    s = labels[0].shape[1]
+    chunk = _chunk(cfg, s)
+
+    def body(d, hcs, lc):
+        return _token_sums(transformer.logits_tp(cfg, sm, hcs, d)
+                           .to(torch.float32), lc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=home)
+    cnt = torch.zeros((), dtype=torch.float32, device=home)
+    for d in range(px.dp if split else 1):
+        g = px.group(d)
+        for c0 in range(0, s, chunk):
+            t, c = remat(cfg, body, d,
+                         [hidden[r][:, c0:c0 + chunk] for r in g],
+                         labels[g[0]][:, c0:c0 + chunk])
+            tot, cnt = tot + t.to(home), cnt + c.to(home)
     return tot, cnt
 
 
@@ -93,33 +137,57 @@ def chunked_xent(cfg: ModelConfig, params, hidden: Tensor,
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def loss_fn(cfg: ModelConfig, params, batch: dict,
-            count: Optional[float] = None) -> tuple:
+def loss_fn(cfg: ModelConfig, params, batch: dict) -> tuple:
     """Forward + loss for one (micro-)batch of tensors.  Returns (loss,
-    metrics {"loss", "xent", "aux"}).  ``count`` divides the token losses'
-    sum in place of this batch's own count: a data rank's share of a
-    global token mean (``runtime/train_loop.py``)."""
+    metrics {"loss", "xent", "aux"}).  Over a mesh (`params` a
+    ``parallel.ShardedLM``) the batch is split over data where it divides
+    (it must, over more than one data group), the token losses of every
+    group summed over the batch's count, and the MoE aux loss counted
+    once: the metrics land on the first rank's device."""
+    trunk = encdec if cfg.enc_dec else transformer
     if cfg.enc_dec:
-        hidden, aux, _ = encdec.forward(cfg, params, src=batch["src"],
-                                        tokens=batch["tokens"])
+        ins = {"src": batch["src"], "tokens": batch["tokens"]}
     else:
-        hidden, aux, _ = transformer.forward(
-            cfg, params, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), positions=batch.get("positions"))
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
-    tot, cnt = xent_sums(cfg, params, hidden, batch["labels"])
-    xent = tot / (torch.clamp_min(cnt, 1.0) if count is None else count)
+        ins = {name: batch.get(name)
+               for name in ("tokens", "embeds", "positions")}
+    labels = batch["labels"]
+    if isinstance(params, ShardedLM):
+        px = params.px
+        split = px.batch_split(labels.shape[0])
+        if px.dp > 1 and not split:
+            raise ValueError(f"a batch of {labels.shape[0]} rows does not "
+                             f"split over {px.dp} data groups")
+        hidden, aux, _ = trunk.forward_tp(cfg, params, split, **ins)
+        tot, cnt = xent_sums_tp(cfg, params, hidden,
+                                px.scatter(labels, split), split)
+    else:
+        hidden, aux, _ = trunk.forward(cfg, params, **ins)
+        tot, cnt = xent_sums(cfg, params, hidden, labels)
+    # a zero from a fill, not a copy of the host's 0.0 (a sync on a card)
+    aux = torch.zeros((), dtype=torch.float32, device=tot.device) + aux
+    xent = tot / torch.clamp_min(cnt, 1.0)
     loss = xent + aux
     return loss, {"loss": loss, "xent": xent, "aux": aux}
 
 
-def grads_of(cfg: ModelConfig, params, batch: dict,
-             count: Optional[float] = None):
+def grads_of(cfg: ModelConfig, params, batch: dict):
     """(metrics, gradients in leaf order) of ``loss_fn``; a leaf the loss
-    does not reach gets zeros, as jax.grad gives it."""
-    flat = leaves(params)
-    loss, metrics = loss_fn(cfg, params, batch, count=count)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    does not reach gets zeros, as jax.grad gives it.  Over a mesh, one
+    gradient a copy of each shard (``ShardedLM.copies``), each the part
+    of its shard's gradient that the ranks reading that copy give.
+
+    A mesh's backward runs on this thread alone.  Autograd otherwise
+    runs a card's nodes on a thread of that card and adds the gradients
+    a tensor receives in the order they arrive, which over several cards
+    changes from one run to the next wherever three or more meet (a
+    replicated activation's copies, a leaf's uses in the loss chunks);
+    on one thread the nodes run in an order fixed by the graph, so every
+    sum does too."""
+    mesh = isinstance(params, ShardedLM)
+    flat = params.copies if mesh else leaves(params)
+    loss, metrics = loss_fn(cfg, params, batch)
+    with torch.autograd.set_multithreading_enabled(not mesh):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     return {k: v.detach() for k, v in metrics.items()}, grads
@@ -157,28 +225,35 @@ def accumulated_grads(cfg: ModelConfig, batch: dict, grads_fn):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    device=None):
+                    device=None, policy=None):
     """(params, opt_state, **batch) -> (params, opt_state, metrics).
 
     Runs on `device` (None means "cuda", which raises without a card):
     the batch's arrays move there, and the parameters (a trainable model,
-    ``init_params(..., trainable=True)``) must lie there.  cfg.grad_accum
-    micro-batches as ``accumulated_grads``.  The parameters and moments
-    are updated in place and returned."""
-    dev = resolve_device(device)
+    ``init_params(..., trainable=True)``) must lie there.  With the
+    reference's ``policy=`` it runs over the policy's mesh instead, on
+    parameters placed by it (``build_model(cfg).init(mesh=,
+    trainable=True)``, ``convert.lm_params_from_reference(mesh=,
+    trainable=True)``) and their ``adamw.init`` state, the batch first on
+    the first rank's device.  cfg.grad_accum micro-batches as
+    ``accumulated_grads``.  The parameters and moments are updated in
+    place and returned."""
+    dev = resolve_device(device) if policy is None else None
 
     def step(params, opt_state, **batch):
-        if isinstance(params, ShardedLM):
-            raise NotImplementedError(
-                "training over a sharded placement is the training half of "
-                "ROADMAP A part 5; serving executes it")
-        first = next(params.parameters())
-        if first.device.type != dev.type:
-            raise ValueError(f"the parameters lie on {first.device}, the "
-                             f"step runs on {dev}")
+        _placed(params, policy)
+        if policy is None:
+            home = next(params.parameters()).device
+            if home.type != dev.type:
+                raise ValueError(f"the parameters lie on {home}, the "
+                                 f"step runs on {dev}")
+        else:
+            home = params.px.devices[0]
         metrics, grads = accumulated_grads(
-            cfg, as_batch(batch, first.device),
+            cfg, as_batch(batch, home),
             lambda mb: grads_of(cfg, params, mb))
+        if policy is not None:
+            grads = params.sum_copies(grads)
         params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
                                              params)
         return params, opt_state, dict(metrics, **om)
@@ -265,7 +340,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
     return transformer.init_cache(cfg, batch, capacity, device=device)
 
 
-__all__ = ["xent_sums", "chunked_xent", "loss_fn", "grads_of",
+__all__ = ["xent_sums", "xent_sums_tp", "chunked_xent", "loss_fn",
+           "grads_of",
            "micro_batches", "accumulated_grads", "make_train_step",
            "make_prefill_step", "make_decode_step", "init_cache",
            "as_batch"]

@@ -62,7 +62,11 @@ def _has_mlp(cfg: ModelConfig) -> bool:
 
 
 def _param(t: Tensor, trainable: bool = False) -> nn.Parameter:
-    """A leaf: frozen for serving, or requiring grad for training."""
+    """A leaf: frozen for serving, or requiring grad for training; a
+    placed shard comes as the ``nn.Parameter`` its ranks share
+    (``parallel.Placement.build``)."""
+    if isinstance(t, nn.Parameter):
+        return t
     return nn.Parameter(t, requires_grad=trainable)
 
 
@@ -372,32 +376,47 @@ def embed_tp(cfg: ModelConfig, sm, ids: list, name: str = "embed") -> list:
     return px.all_gather(rows, -1) if dim == 1 else rows
 
 
-def project_logits_tp(cfg: ModelConfig, sm, xs: list, split: bool) -> Tensor:
-    """``project_logits`` over the model axis: vocab-parallel where the
-    specs split V (each rank's logits all-gathered), row-parallel over D
-    where they split D (float32 partials all-reduced), whole otherwise;
-    the data groups' rows collected on the first rank's device."""
+def logits_tp(cfg: ModelConfig, sm, xs: list, d: int) -> Tensor:
+    """``project_logits`` of data group d's hidden states `xs` (one a rank
+    of the group, by model index), in their dtype, on the group's first
+    rank's device: vocab-parallel where the specs split V (each rank's
+    columns, concatenated), row-parallel over D where they split D (float32
+    partials summed in rank order, rounded once), the whole head's
+    otherwise."""
     px, dt = sm.px, xs[0].dtype
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    heads = sm.parts(name)
+    g = px.group(d)
+    owner = px.devices[g[0]]
+    heads = [sm.leaf(r, name) for r in g]
     if cfg.tie_embeddings:
         heads = [h.T for h in heads]
     dim = px.tp_dim(name)
     vocab_dim, d_dim = (0, 1) if cfg.tie_embeddings else (1, 0)
-    out_dt = getattr(torch, cfg.logits_dtype)
     if dim == d_dim:
-        parts = []
-        for r, (h, x) in enumerate(zip(heads, xs)):
-            w = h.shape[0]
-            m = r % px.tp
-            parts.append(P.mm32(x[..., m * w:(m + 1) * w], h))
-        logits = [t.to(out_dt) for t in px.all_reduce(parts, dt)]
-    else:
-        logits = px.map(lambda h, x: (x @ h.to(x.dtype)).to(out_dt),
-                        heads, xs)
-        if dim == vocab_dim:
-            logits = px.all_gather(logits, -1)
-    return px.collect(logits, split)
+        w = heads[0].shape[0]
+        with px._span(owner):
+            total = None
+            for m, (h, x) in enumerate(zip(heads, xs)):
+                part = P.mm32(x[..., m * w:(m + 1) * w], h).to(owner)
+                total = part if total is None else total + part
+            return total.to(dt)
+    if dim == vocab_dim:
+        with px._span(owner):
+            return torch.cat([(x @ h.to(dt)).to(owner)
+                              for h, x in zip(heads, xs)], -1)
+    return xs[0] @ heads[0].to(dt)
+
+
+def project_logits_tp(cfg: ModelConfig, sm, xs: list, split: bool) -> Tensor:
+    """``project_logits`` over the mesh (``logits_tp`` a data group): the
+    data groups' rows collected on the first rank's device."""
+    px = sm.px
+    out_dt = getattr(torch, cfg.logits_dtype)
+    parts: list = [None] * px.p
+    for d in range(px.dp if split else 1):
+        parts[d * px.tp] = logits_tp(cfg, sm, [xs[r] for r in px.group(d)],
+                                     d).to(out_dt)
+    return px.collect(parts, split)
 
 
 def _norm_tp(cfg: ModelConfig, sm, xs: list, name: str) -> list:
@@ -475,7 +494,9 @@ def forward_tp(cfg: ModelConfig, sm, split: bool, *,
                cache_capacity: Optional[int] = None):
     """``forward`` over the mesh of ``sm`` (a ``parallel.ShardedLM``);
     returns (each rank's hidden state, aux, a ``parallel.ShardedCache`` or
-    None)."""
+    None).  Under autograd each layer over every rank is recomputed in the
+    backward pass unless cfg.remat is "none", its cross-card copies and
+    FSDP gathers issued again (``parallel.remat``)."""
     px = sm.px
     index_mask = L.index_stream(positions)
     if embeds is not None:
@@ -491,8 +512,8 @@ def forward_tp(cfg: ModelConfig, sm, split: bool, *,
     total_aux = 0.0
     for run, (w, start, cnt) in enumerate(layer_runs(cfg)):
         for i in range(cnt):
-            xs, a, pieces = block_apply_tp(cfg, sm, start + i, xs, pos, w,
-                                           split, index_mask)
+            xs, a, pieces = P.remat(cfg, block_apply_tp, cfg, sm, start + i,
+                                    xs, pos, w, split, index_mask)
             total_aux = total_aux + a
             if caches is not None:
                 for rc, piece in zip(caches.ranks, pieces):
@@ -519,6 +540,7 @@ def decode_tp(cfg: ModelConfig, sm, split: bool, cache, token: Tensor,
 
 __all__ = ["layer_runs", "init_params", "init_block", "forward", "decode",
            "init_cache", "project_logits", "block_apply", "block_decode",
-           "forward_tp", "decode_tp", "project_logits_tp", "block_apply_tp",
+           "forward_tp", "decode_tp", "project_logits_tp", "logits_tp",
+           "block_apply_tp",
            "block_decode_tp", "embed_tp", "Block",
            "DecoderLM"]

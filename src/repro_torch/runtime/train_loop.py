@@ -1,30 +1,36 @@
 """Fault-tolerant training loop.
 
 Port of ``repro/runtime/train_loop.py``.  Composes every substrate: config
--> model -> parameters and optimizer state on each data rank -> train
+-> model -> parameters and optimizer state placed over the mesh -> train
 step -> synthetic data stream -> checkpoint manager (async, atomic,
 retained) -> straggler monitor -> elastic re-mesh on injected failures.
 
 One process drives every rank of a ``("data", "model")`` mesh
 (launch/mesh.py), as the reference's single controller drives its
 devices.  Two execution modes:
-  * "pjit"          - the sharding policy's placement (models/sharding.py).
-                      Each leaf's spec is computed; one that names an axis
-                      of size > 1 (tensor parallelism, FSDP) raises
-                      NotImplementedError, since executing it is ROADMAP A
-                      part 5.  So the data axis runs: every data rank holds
-                      a replica, runs its rows of the global batch, and the
-                      loss is the global token mean (the sum of the ranks'
-                      token losses over the global count); the ranks'
-                      gradients are summed in rank order, every replica
-                      applies the same AdamW update and stays bitwise equal
-                      to the others.  An MoE config at data size > 1 raises:
-                      its capacity and aux loss span the global batch, so a
-                      split by rank would compute something else.
-  * "dp_compressed" - the reference's shard_map path: each rank's own step,
-                      then the int8 error-feedback all-reduce of the
-                      gradients (optim/compression.py), then the same AdamW
-                      update on every rank; the loss is the ranks' mean.
+  * "pjit"          - the sharding policy's placement (models/sharding.py),
+                      executed by models/parallel.py: each leaf cut into
+                      its shards (tensor parallelism over the model axis,
+                      expert parallelism, FSDP over data), the global batch
+                      split over the data groups, and
+                      ``steps.make_train_step(policy=)``: the loss is the
+                      global token mean (the groups' token losses over the
+                      global count, the MoE aux once), each shard's
+                      gradient summed over the ranks that read it, and
+                      AdamW on the distinct shards, every copy of a shard
+                      bitwise equal to the others.
+  * "dp_compressed" - the reference's shard_map path: parameters
+                      replicated over the model axis (each distinct device
+                      of a data row holds the row's replica), each row's
+                      own step on its first replica, then the int8
+                      error-feedback all-reduce of the gradients over the
+                      rows (optim/compression.py), then the same AdamW
+                      update on every replica; the loss is the rows' mean.
+
+Checkpoints keep the reference's layout of whole stacked leaves: pjit mode
+assembles each leaf from its shards, one at a time, on the first rank's
+device and copies it into the host tree, and a restore cuts the whole
+leaves into the current mesh's shards, which need not be the writer's.
 
 Failure handling contract: a step raising FailureInjected triggers a
 restore of the newest checkpoint; a failure that reports lost hosts first
@@ -48,16 +54,14 @@ from repro_torch.data.synthetic import TokenStreamSpec, batch_at
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import steps as model_steps
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.parallel import Placement, ShardedLM
 from repro_torch.models.registry import build_model
-from repro_torch.models.sharding import axes_of, make_policy
+from repro_torch.models.sharding import make_policy
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compress_tree_psum
 from repro_torch.runtime import elastic, straggler
-from repro_torch.tree import named_leaves, scatter_tree, stacked_tree
-
-PART5 = ("training over a sharded placement (tensor parallelism or FSDP "
-         "over explicit devices) is the training half of ROADMAP A part 5; "
-         "serving executes such a placement (models/parallel.py)")
+from repro_torch.tree import (lookup, named_leaves, reference_path,
+                              scatter_tree, stacked_tree)
 
 
 class FailureInjected(RuntimeError):
@@ -84,8 +88,11 @@ class LoopConfig:
 
 class TrainLoop:
     """The loop over `mesh` (axes ("data", "model"); None means one card,
-    which raises without one; ``make_mesh((d, 1), ("data", "model"),
-    devices=["cpu"] * d)`` runs d data ranks on the CPU)."""
+    which raises without one; ``make_mesh((d, m), ("data", "model"),
+    devices=["cpu"] * (d * m))`` runs d x m ranks on the CPU).  pjit mode
+    holds ``params`` (a ``parallel.ShardedLM``) and ``opt_state``;
+    dp_compressed holds ``replicas`` and ``opt_states``, ``params`` and
+    ``opt_state`` being the first's."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                  loop_cfg: LoopConfig, mesh: Optional[Mesh] = None,
@@ -111,6 +118,11 @@ class TrainLoop:
 
     def _build(self) -> None:
         self._place()
+        self.names = [name for name, _ in
+                      named_leaves(self.model.init_shapes())]
+        if self.loop.mode == "pjit":
+            self._init_placed()
+            return
         gen = torch.Generator(device=self.devices[0])
         gen.manual_seed(self.loop.seed)
         first = self.model.init(gen, self.devices[0], trainable=True)
@@ -118,118 +130,73 @@ class TrainLoop:
                                    for dev in self.devices[1:]]
         self.opt_states = [adamw.init(self.opt_cfg, p)
                            for p in self.replicas]
-        self.names = [name for name, _ in named_leaves(first)]
-        if self.loop.mode == "dp_compressed":
-            self.err_state = [[torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device)
-                               for _, p in named_leaves(r)]
-                              for r in self.replicas]
+        self.params, self.opt_state = first, self.opt_states[0]
+        self.err_state = [[torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device)
+                           for _, p in named_leaves(self.replicas[r])]
+                          for r in self.row_firsts]
+
+    def _init_placed(self) -> None:
+        """pjit mode: the parameters drawn from the seed (the one-device
+        draws) and cut over the mesh, zero moments, the step."""
+        gen = torch.Generator(device=self.mesh.ranks[0])
+        gen.manual_seed(self.loop.seed)
+        self.params = self.model.init(gen, trainable=True, mesh=self.mesh)
+        self.opt_state = adamw.init(self.opt_cfg, self.params)
+        self.step_fn = model_steps.make_train_step(self.cfg, self.opt_cfg,
+                                                   policy=self.policy)
 
     def _place(self) -> None:
-        """The model, the policy and the data ranks of `self.mesh`; raises
-        where this slice cannot run the policy's placement."""
+        """The model, the policy, and in dp_compressed mode the replicas'
+        devices (``devices``, ``row_of``, ``row_firsts``) of `self.mesh`."""
         cfg, mesh = self.cfg, self.mesh
         if tuple(mesh.axis_names) != ("data", "model"):
             raise ValueError(f"TrainLoop runs over a ('data', 'model') "
                              f"mesh, got axes {mesh.axis_names}")
         self.model = build_model(cfg)
         self.policy = make_policy(cfg, mesh)
-        sizes = mesh.shape
-        if self.loop.mode == "pjit":
-            specs = self.policy.params_specs(cfg, self.model.init_shapes())
-            for path, spec in specs.items():
-                wide = [a for a in axes_of(spec) if sizes[a] > 1]
-                if wide:
-                    raise NotImplementedError(
-                        f"{cfg.arch}: {path} is placed by spec {spec} over "
-                        f"{wide} of mesh {dict(sizes)}; {PART5}")
-            if cfg.uses_moe and sizes["data"] > 1:
-                raise NotImplementedError(
-                    f"{cfg.arch}: MoE in pjit mode at data size "
-                    f"{sizes['data']}: its capacity and aux loss span the "
-                    f"global batch, which no rank holds; use data size 1 "
-                    f"or mode 'dp_compressed'")
-        elif sizes["model"] > 1:
-            raise NotImplementedError(
-                f"dp_compressed over a model axis of size {sizes['model']}: "
-                f"{PART5}")
-        # the data ranks: one replica each
-        self.devices = [mesh.devices[i, 0] for i in range(sizes["data"])]
-        d = len(self.devices)
+        d = mesh.shape["data"]
+        if self.loop.mode == "dp_compressed":
+            # each distinct device of data row i holds row i's replica
+            self.devices, self.row_of, self.row_firsts = [], [], []
+            for i in range(d):
+                self.row_firsts.append(len(self.devices))
+                for dev in dict.fromkeys(mesh.devices[i]):
+                    self.devices.append(dev)
+                    self.row_of.append(i)
         rows = self.data_spec.global_batch
         per = d * (cfg.grad_accum if self.loop.mode == "pjit" else 1)
         if rows % per:
             raise ValueError(f"global batch {rows} does not split over {d} "
                              f"data ranks x {per // d} micro-batches")
 
-    @property
-    def params(self):
-        """Data rank 0's parameters (every replica holds the same bits)."""
-        return self.replicas[0]
-
-    @property
-    def opt_state(self):
-        return self.opt_states[0]
-
     # -- steps ---------------------------------------------------------------
 
-    def _rank_batch(self, batch: dict, r: int) -> dict:
-        n = batch["labels"].shape[0] // len(self.devices)
-        return model_steps.as_batch({k: v[r * n:(r + 1) * n]
+    def _rank_batch(self, batch: dict, i: int) -> dict:
+        """Data row i's rows of the batch, on its first replica's device."""
+        n = batch["labels"].shape[0] // len(self.row_firsts)
+        return model_steps.as_batch({k: v[i * n:(i + 1) * n]
                                      for k, v in batch.items()},
-                                    self.devices[r])
-
-    def _update_all(self, grads_by_rank) -> dict:
-        """The same AdamW update on every replica; rank 0's metrics."""
-        out = None
-        for r, params in enumerate(self.replicas):
-            _, self.opt_states[r], om = adamw.update(
-                self.opt_cfg, grads_by_rank[r], self.opt_states[r], params)
-            out = om if out is None else out
-        return out
-
-    def _pjit_step(self, batch: dict) -> dict:
-        """One step over the global batch: micro-batches as the reference's
-        scan runs them, each split over the data ranks."""
-        metrics, grads = model_steps.accumulated_grads(
-            self.cfg, batch, self._ranks_grads)
-        om = self._update_all([grads] + [[g.to(dev, copy=True) for g in grads]
-                                         for dev in self.devices[1:]])
-        return dict(metrics, **om)
-
-    def _ranks_grads(self, mb: dict):
-        """(metrics, gradients on rank 0's device) of one (micro-)batch over
-        the data ranks: each rank's token losses over the batch's global
-        count, summed in rank order."""
-        d, home = len(self.devices), self.devices[0]
-        # one rank divides by its own count, as the one-device step does
-        count = None if d == 1 else max(float((mb["labels"] >= 0).sum()), 1.0)
-        grads = metrics = None
-        for r in range(d):
-            m, g = model_steps.grads_of(self.cfg, self.replicas[r],
-                                        self._rank_batch(mb, r), count=count)
-            m = {k: v.to(home) for k, v in m.items()}
-            g = [x.to(home) for x in g]
-            if grads is None:
-                metrics, grads = m, g
-            else:
-                grads = [a + b for a, b in zip(grads, g)]
-                # the MoE aux (refused at d > 1) is 0: losses and xents add
-                metrics = {"loss": metrics["loss"] + m["loss"],
-                           "xent": metrics["xent"] + m["xent"],
-                           "aux": m["aux"]}
-        return metrics, grads
+                                    self.devices[self.row_firsts[i]])
 
     def _dp_step(self, batch: dict) -> dict:
-        """Each rank's own step, the compressed all-reduce, the update."""
+        """Each row's own step, the compressed all-reduce over the rows,
+        the same update on every replica."""
         metrics, grads = [], []
-        for r, params in enumerate(self.replicas):
-            m, g = model_steps.grads_of(self.cfg, params,
-                                        self._rank_batch(batch, r))
+        for i, r in enumerate(self.row_firsts):
+            m, g = model_steps.grads_of(self.cfg, self.replicas[r],
+                                        self._rank_batch(batch, i))
             metrics.append(m)
             grads.append(g)
         avgs, self.err_state = compress_tree_psum(grads, self.err_state)
-        om = self._update_all(avgs)
+        om = None
+        for r, params in enumerate(self.replicas):
+            dev, g = self.devices[r], avgs[self.row_of[r]]
+            if r != self.row_firsts[self.row_of[r]]:
+                g = [x.to(dev, copy=True) for x in g]
+            _, self.opt_states[r], m = adamw.update(
+                self.opt_cfg, g, self.opt_states[r], params)
+            om = om or m
         home = self.devices[0]
         loss = sum(m["loss"].to(home) for m in metrics) / len(metrics)
         return dict(metrics[0], **om, loss=loss)
@@ -237,14 +204,29 @@ class TrainLoop:
     # -- checkpoint -----------------------------------------------------------
 
     def _tree(self) -> dict:
-        """Rank 0's parameters and optimizer state as the reference's tree
-        {"params", "opt": {"m", "v", "step"}}, stacked, on the host."""
-        params = [p for _, p in named_leaves(self.params)]
+        """The parameters and optimizer state as the reference's tree
+        {"params", "opt": {"m", "v", "step"}}, stacked, on the host: in
+        pjit mode each leaf assembled from its shards on the first rank's
+        device, one at a time, and copied once into its place on the
+        host."""
         opt = self.opt_state
-        return {"params": stacked_tree(self.names, params),
-                "opt": {"m": stacked_tree(self.names, opt["m"]),
-                        "v": stacked_tree(self.names, opt["v"]),
-                        "step": opt["step"].detach().cpu()}}
+        if self.loop.mode == "pjit":
+            sm = self.params
+            home = sm.px.devices[0]
+
+            def stack(per_copy):
+                return stacked_tree(self.names, _Lazy(
+                    lambda i: sm.whole(self.names[i], per_copy, home),
+                    len(self.names)))
+            params, m, v = (stack(sm.copies), stack(opt["m"]),
+                            stack(opt["v"]))
+        else:
+            params = stacked_tree(self.names, [p for _, p in
+                                               named_leaves(self.params)])
+            m = stacked_tree(self.names, opt["m"])
+            v = stacked_tree(self.names, opt["v"])
+        return {"params": params, "opt": {"m": m, "v": v,
+                                          "step": opt["step"].detach().cpu()}}
 
     def _save(self, step: int) -> None:
         # the tree is fresh host copies, which the loop never changes
@@ -253,12 +235,25 @@ class TrainLoop:
                                     "data_seed": self.data_spec.seed})
 
     def _restore(self) -> int:
+        """The newest checkpoint written into the live state, in place: in
+        pjit mode each whole leaf cut into this mesh's shards."""
         self.manager.wait()
-        like = self._tree_shapes()
-        out = self.manager.restore_latest(like)
+        out = self.manager.restore_latest(self._tree_shapes())
         if out is None:
             return 0
         tree, meta, step = out
+        if self.loop.mode == "pjit":
+            sm, opt = self.params, self.opt_state
+            for name in self.names:
+                path, layer = reference_path(name)
+                for src, per_copy in ((tree["params"], sm.copies),
+                                      (tree["opt"]["m"], opt["m"]),
+                                      (tree["opt"]["v"], opt["v"])):
+                    whole = lookup(src, path)
+                    sm.load(name, whole if layer is None else whole[layer],
+                            per_copy)
+            opt["step"] = tree["opt"]["step"].to(opt["step"].device)
+            return step + 1
         for params, opt in zip(self.replicas, self.opt_states):
             scatter_tree(self.names, [p for _, p in named_leaves(params)],
                          tree["params"])
@@ -269,18 +264,22 @@ class TrainLoop:
 
     def _tree_shapes(self) -> dict:
         """The reference tree's leaves as meta tensors (shapes, dtypes)."""
-        def meta(ts):
-            return stacked_tree(self.names, [t.to("meta") for t in ts],
-                                device="meta")
-        opt = self.opt_state
-        return {"params": meta([p for _, p in named_leaves(self.params)]),
-                "opt": {"m": meta(opt["m"]), "v": meta(opt["v"]),
-                        "step": opt["step"].to("meta")}}
+        shapes = [p.shape for _, p in named_leaves(self.model.init_shapes())]
+
+        def meta(dtype):
+            return stacked_tree(self.names, [
+                torch.empty(s, dtype=dtype, device="meta") for s in shapes],
+                device="meta")
+        moment = getattr(torch, self.opt_cfg.moment_dtype)
+        return {"params": meta(torch.float32),
+                "opt": {"m": meta(moment), "v": meta(moment),
+                        "step": torch.empty((), dtype=torch.int32,
+                                            device="meta")}}
 
     # -- main loop ------------------------------------------------------------
 
     def _sync(self) -> None:
-        for dev in dict.fromkeys(self.devices):
+        for dev in self.mesh.distinct_devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -295,7 +294,8 @@ class TrainLoop:
                 if self.loop.mode == "dp_compressed":
                     metrics = self._dp_step(batch)
                 else:
-                    metrics = self._pjit_step(batch)
+                    self.params, self.opt_state, metrics = self.step_fn(
+                        self.params, self.opt_state, **batch)
                 self._sync()
                 self.timer.record(time.perf_counter() - t0)
                 self._monitor(step, metrics)
@@ -321,24 +321,54 @@ class TrainLoop:
 
     def _recover(self, e: FailureInjected) -> None:
         """Failure path: optionally shrink the data axis (the mesh's first
-        devices survive, and with them their replicas).  The reference
+        devices survive, and with them their ranks' state).  The reference
         draws a fresh model here, which its restore then replaces; the
-        port keeps the surviving replicas, and ``_restore`` writes the
-        newest checkpoint over their leaves in place, so a recovery holds
-        no second copy of the parameters and moments.  (Step 0 always
-        saves, so a restore finds a checkpoint once any step has run.)
+        port keeps the survivors' state where its shards keep their
+        shapes, and ``_restore`` writes the newest checkpoint over it in
+        place, so a recovery holds no second copy of the parameters and
+        moments.  Under FSDP the data shards grow as the data axis
+        shrinks: the old shards are dropped and the leaves placed anew on
+        the survivors, for ``_restore`` to fill.  (Step 0 always saves, so
+        a restore finds a checkpoint once any step has run.)
         dp_compressed's error feedback restarts at zero, as the
         reference's rebuild restarts it."""
         if e.lost_hosts > 0 and self.loop.mode == "pjit":
             plan = elastic.shrink_data_axis(self.mesh, e.lost_hosts)
             self.mesh = elastic.build_mesh(plan, devices=self.mesh.ranks)
+            old = self.params
             self._place()
-            del self.replicas[len(self.devices):]
-            del self.opt_states[len(self.devices):]
+            if any(dp is not None for _, dp in old.px.splits.values()):
+                del old
+                self.params = self.opt_state = None
+                self._init_placed()
+                return
+            kept = ShardedLM(Placement(self.cfg, self.policy),
+                             old.ranks[:self.mesh.size])
+            slot = {id(c): i for i, c in enumerate(old.copies)}
+            opt = self.opt_state
+            self.params, self.opt_state = kept, {
+                k: [opt[k][slot[id(c)]] for c in kept.copies]
+                for k in ("m", "v")}
+            self.opt_state["step"] = opt["step"]
+            self.step_fn = model_steps.make_train_step(
+                self.cfg, self.opt_cfg, policy=self.policy)
         if self.loop.mode == "dp_compressed":
             for errs in self.err_state:
                 for err in errs:
                     err.zero_()
+
+
+class _Lazy:
+    """A sequence whose item i is made by `fn(i)` when it is read."""
+
+    def __init__(self, fn, n: int):
+        self.fn, self.n = fn, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        return self.fn(i)
 
 
 __all__ = ["TrainLoop", "LoopConfig", "FailureInjected"]

@@ -47,7 +47,8 @@ def reference_ndim(name: str, leaf) -> int:
     return leaf.ndim + int(is_stacked(name))
 
 
-def _order_key(name: str):
+def order_key(name: str):
+    """The sort key of a port leaf name in the reference's leaf order."""
     path, layer = reference_path(name)
     return tuple(path.split("/")), -1 if layer is None else layer
 
@@ -59,21 +60,25 @@ def named_leaves(tree) -> List[Tuple[str, Any]]:
     "/"-joined keys, a list's by index."""
     if isinstance(tree, nn.Module):
         items = list(tree.named_parameters())
-        items.sort(key=lambda item: _order_key(item[0]))
+        items.sort(key=lambda item: order_key(item[0]))
         return items
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (str(key),))
-        elif isinstance(node, (list, tuple)):
-            for i, sub in enumerate(node):
-                walk(sub, path + (str(i),))
-        elif node is not None:
-            out.append(("/".join(path), node))
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, path: tuple, out: list) -> None:
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would hold `out` (gradients, a model's
+    # leaves) until the garbage collector runs
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], path + (str(key),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, sub in enumerate(node):
+            _walk(sub, path + (str(i),), out)
+    elif node is not None:
+        out.append(("/".join(path), node))
 
 
 def leaves(tree) -> List[Any]:
@@ -84,22 +89,26 @@ def stacked_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
                  device="cpu") -> Dict[str, Any]:
     """The reference's nested dict of the leaves `tensors` named `names`
     (port names, as ``named_leaves`` of a model gives them): a layer
-    stack's leaves stacked (L, ...) on `device`, the others copied there."""
+    stack's leaves stacked (L, ...) on `device`, the others copied there.
+    Each of `tensors` is read once, when it is copied (a sequence that
+    makes its items as they are read holds one at a time)."""
     groups: Dict[str, list] = {}
-    for name, t in zip(names, tensors):
+    for i, name in enumerate(names):
         path, layer = reference_path(name)
-        groups.setdefault(path, []).append((layer, t))
+        groups.setdefault(path, []).append((layer, i))
     tree: Dict[str, Any] = {}
     for path, members in groups.items():
         if members[0][0] is None:
-            value = members[0][1].detach().to(device, copy=True)
+            value = tensors[members[0][1]].detach().to(device, copy=True)
         else:
             members.sort(key=lambda m: m[0])
-            first = members[0][1]
-            value = torch.empty((len(members),) + tuple(first.shape),
-                                dtype=first.dtype, device=device)
-            for i, (_, t) in enumerate(members):
-                value[i].copy_(t.detach())
+            value = None
+            for k, (_, i) in enumerate(members):
+                t = tensors[i].detach()
+                if value is None:
+                    value = torch.empty((len(members),) + tuple(t.shape),
+                                        dtype=t.dtype, device=device)
+                value[k].copy_(t)
         node = tree
         parts = path.split("/")
         for part in parts[:-1]:
@@ -137,5 +146,6 @@ def scatter_tree(names: Sequence[str], tensors: Sequence[torch.Tensor],
 
 
 __all__ = ["STACKS", "reference_path", "is_stacked", "reference_ndim",
+           "order_key",
            "named_leaves", "leaves", "stacked_tree", "lookup",
            "scatter_tree"]

@@ -8,8 +8,10 @@ disk ('<V2', read back as '|V2'); the port reads it through the manifest's
 dtype, without ml_dtypes.
 """
 
+import gc
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -98,6 +100,22 @@ def test_restore_latest_empty(tmp_path, tree):
     mgr = CheckpointManager(str(tmp_path), async_save=False)
     assert mgr.restore_latest(like=tree) is None
     mgr.close()
+
+
+def test_restored_leaves_are_freed_without_gc(tmp_path, tree):
+    """A restored tree's leaves die with the tree, with the garbage
+    collector off: nothing of the restore (a nested function calling
+    itself) holds them in a reference cycle."""
+    path = io.save(str(tmp_path), 2, tree)
+    gc.collect()
+    gc.disable()
+    try:
+        got, _ = io.restore(path, like=tree)
+        refs = [weakref.ref(t) for t in _leaves(got)]
+        del got
+        assert refs and not any(r() is not None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_restore_by_name_checks_names_and_shapes(tmp_path, tree):

@@ -1662,6 +1662,104 @@ def test_lm_tensor_parallel_on_two_logical_ranks(cuda, arch, dtype):
     assert float((got - want).abs().max()) <= tol
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_training_over_two_logical_ranks(cuda, dtype):
+    """llama3.2-3b SMOKE trained over a (1, 2) mesh of two logical ranks
+    on cuda:0 (``make_train_step(policy=)``; the ranks share one
+    Parameter a shard) beside one device's step on the same parameters:
+    after a first step, a step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the mesh's forward,
+    backward through the collectives, the float32-output row-parallel
+    products' backward in bf16, and AdamW never wait on the host); the
+    losses within 1e-5 relative in float32, 2e-2 in bf16; no flash launch
+    (training attention is plain)."""
+    from repro_torch.configs import get_config, override
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.optim import adamw
+
+    cfg = override(get_config("llama3.2-3b", smoke=True), dtype=dtype)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+    model = build_model(cfg)
+    one = model.init(torch.Generator(device=cuda).manual_seed(0), cuda,
+                     trainable=True)
+    sm = model.init(torch.Generator(device=cuda).manual_seed(0), mesh=mesh,
+                    trainable=True)
+    assert any(sh.key != (-1, -1) for sh in sm.shards)
+    assert len(sm.copies) == len(sm.shards)   # one card: ranks share
+    assert sm.ranks[0].final_norm is sm.ranks[1].final_norm
+    opt = adamw.AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 48))).to(
+        cuda) for k in ("tokens", "labels")}
+    one_step = steps.make_train_step(cfg, opt, device=cuda)
+    mesh_step = steps.make_train_step(cfg, opt,
+                                      policy=make_policy(cfg, mesh))
+    s1, s2 = adamw.init(opt, one), adamw.init(opt, sm)
+    before = fmod.flash_attention.launches
+    _, s1, want = one_step(one, s1, **batch)
+    _, s2, got = mesh_step(sm, s2, **batch)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=tol)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, s2, got = mesh_step(sm, s2, **batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, s1, want = one_step(one, s1, **batch)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches == before
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=tol)
+    assert int(s2["step"]) == 2
+
+
+@pytest.mark.gpu
+def test_lm_training_over_distinct_cards_repeats_bitwise(cuda):
+    """llama3.2-3b SMOKE in bf16 trained three steps over one rank a card
+    ((2, 2) with FSDP over data on four cards, else (1, n)), twice from
+    the same draw: the losses, gradient norms, every copy of every shard
+    and its moments bitwise the same in both runs (the backward's sums
+    keep their order across cards).  Needs two or more cards."""
+    from repro_torch.configs import get_config, override
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    shape = (2, 2) if n == 4 else (1, n)
+    cfg = override(get_config("llama3.2-3b", smoke=True), dtype="bfloat16",
+                   param_sharding="fsdp_tp")
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=[f"cuda:{i}" for i in range(n)])
+    opt = adamw.AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
+             for k in ("tokens", "labels")}
+    runs = []
+    for _ in range(2):
+        sm = build_model(cfg).init(
+            torch.Generator(device=cuda).manual_seed(0), mesh=mesh,
+            trainable=True)
+        step = steps.make_train_step(cfg, opt, policy=sm.policy)
+        state = adamw.init(opt, sm)
+        metrics = []
+        for _ in range(3):
+            _, state, m = step(sm, state, **batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((metrics, [t.detach().cpu() for t in
+                               sm.copies + state["m"] + state["v"]]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
 # -- the MoE layer on the card (models/layers.py moe_route / moe_apply) ----
 
 def _moe_layer(arch, seed, impl="global_sort", cf=None):

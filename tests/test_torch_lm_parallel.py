@@ -263,17 +263,37 @@ def test_head_plans_cover_every_row_of_wo(arch, tp):
 
 
 def test_training_refuses_a_sharded_placement():
+    """Once refused, a trainable placement now trains: one
+    ``nn.Parameter`` requiring grad a copy of each shard, one copy a rank
+    on the CPU (as on distinct cards; logical ranks of one card share it,
+    a gpu test); the train step over the policy matches one device's step
+    (loss within 1e-5 relative), and a step without the policy refuses
+    the placed parameters."""
     from repro_torch.optim import adamw
     cfg = get_config("llama3.2-3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A part 5"):
-        build_model(cfg).init(torch.Generator().manual_seed(0),
-                              mesh=_mesh((1, 2)), trainable=True)
-    sm = build_model(cfg).init(torch.Generator().manual_seed(0),
-                               mesh=_mesh((1, 2)))
-    step = steps.make_train_step(cfg, adamw.AdamWConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A part 5"):
-        step(sm, None, tokens=np.zeros((2, 8), np.int32),
-             labels=np.zeros((2, 8), np.int32))
+    mesh = _mesh((1, 2))
+    sm = build_model(cfg).init(torch.Generator().manual_seed(0), mesh=mesh,
+                               trainable=True)
+    one = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu",
+                                trainable=True)
+    assert all(p.requires_grad for p in sm.parameters())
+    norm = [sh for sh in sm.shards if sh.name == "final_norm"]
+    assert len(norm) == 1 and norm[0].ranks == [[0], [1]]
+    assert norm[0].copies == [sm.ranks[0].final_norm,
+                              sm.ranks[1].final_norm]
+    assert sm.ranks[0].final_norm is not sm.ranks[1].final_norm
+    opt = adamw.AdamWConfig(total_steps=10)
+    batch = {"tokens": np.zeros((2, 8), np.int32),
+             "labels": np.ones((2, 8), np.int32)}
+    with pytest.raises(ValueError, match="policy= that placed them"):
+        steps.make_train_step(cfg, opt, device="cpu")(
+            sm, adamw.init(opt, sm), **batch)
+    _, _, got = steps.make_train_step(cfg, opt, policy=make_policy(
+        cfg, mesh))(sm, adamw.init(opt, sm), **batch)
+    _, _, want = steps.make_train_step(cfg, opt, device="cpu")(
+        one, adamw.init(opt, one), **batch)
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]),
+                                               rel=1e-5)
 
 
 @pytest.mark.parametrize("build", ["prefill", "decode"])

@@ -1,5 +1,6 @@
 """The port's sharding policy (models/sharding.py) against the
-reference's, and the train loop's refusals, on the CPU.
+reference's, and the train loop over the placements it once refused, on
+the CPU.
 
 For every architecture, FULL and SMOKE, at mesh shapes (1, 1), (2, 4),
 (4, 2) and (16, 16) over ("data", "model"): each parameter leaf's spec
@@ -126,27 +127,49 @@ def _loop(tmp_path, cfg, shape, mode="pjit"):
                                                      global_batch=8))
 
 
+def _losses(loop):
+    return [m["loss"] for m in loop.metrics_log]
+
+
 @pytest.mark.parametrize("shape,fields,what", [
     ((1, 2), {}, "model"),                            # tensor parallelism
     ((2, 1), {"param_sharding": "fsdp_tp"}, "data"),  # FSDP
 ])
 def test_train_loop_refuses_a_spec_over_a_wide_axis(tmp_path, shape,
                                                     fields, what):
+    """Once refused, a spec over an axis of size > 1 now trains: leaves
+    are cut over that axis, and the loop's losses are the one-rank loop's
+    within 1e-5 relative."""
     cfg = dataclasses.replace(_TINY, **fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP A part 5") as e:
-        _loop(tmp_path, cfg, shape)
-    assert f"['{what}']" in str(e.value)
-    # a model axis of size 1 and FSDP over one data rank are placements
-    # the loop runs
-    _loop(tmp_path, cfg, (1, 1))
+    loop = _loop(tmp_path / "mesh", cfg, shape)
+    specs = loop.policy.params_specs(cfg, loop.model.init_shapes())
+    assert any(what in axes_of(s) for s in specs.values())
+    assert any(sh.key != (-1, -1)
+               for sh in loop.params.shards), "nothing was cut"
+    loop.run()
+    one = _loop(tmp_path / "one", cfg, (1, 1))
+    one.run()
+    assert _losses(loop) == pytest.approx(_losses(one), rel=1e-5)
 
 
 def test_train_loop_refuses_moe_in_pjit_over_data_ranks(tmp_path):
+    """Once refused, MoE in pjit mode at data size 2 now trains: each data
+    group routes the global batch (capacity, drops and the aux loss of
+    the whole batch, the aux counted once), so the losses are the one-rank
+    loop's within 1e-5 relative; dp_compressed runs too."""
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b", smoke=True),
                               vocab=256)
-    with pytest.raises(NotImplementedError, match="MoE in pjit mode"):
-        _loop(tmp_path, cfg, (2, 1))
-    _loop(tmp_path, cfg, (1, 1))                      # one data rank
-    _loop(tmp_path, cfg, (2, 1), mode="dp_compressed")
-    with pytest.raises(NotImplementedError, match="ROADMAP A part 5"):
-        _loop(tmp_path, _TINY, (1, 2), mode="dp_compressed")
+    two = _loop(tmp_path / "two", cfg, (2, 1))
+    two.run()
+    one = _loop(tmp_path / "one", cfg, (1, 1))
+    one.run()
+    assert _losses(two) == pytest.approx(_losses(one), rel=1e-5)
+    assert all(float(m["aux"]) > 0 for m in [two.step_fn(
+        two.params, two.opt_state, **_batch(cfg))[2]])
+    _loop(tmp_path / "dp", cfg, (2, 1), mode="dp_compressed").run()
+
+
+def _batch(cfg):
+    rng = np.random.default_rng(0)
+    return {"tokens": rng.integers(0, cfg.vocab, (8, 16)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (8, 16)).astype(np.int32)}

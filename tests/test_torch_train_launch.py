@@ -1,7 +1,9 @@
 """The port's training launcher (launch/train.py) on the CPU.
 
-``main`` at SMOKE on one CPU rank and on two (``--devices cpu,cpu``), its
-refusal without a card, and ``pick_mesh_shape`` against the reference's.
+``main`` at SMOKE on one, two and four CPU ranks (``--devices cpu,cpu``):
+the reference's default layout, every rank on the model axis, and
+``--model-axis 1`` for data ranks; its refusal without a card, and
+``pick_mesh_shape`` against the reference's.
 """
 
 import os
@@ -27,24 +29,36 @@ def test_pick_mesh_shape_is_the_reference():
 
 @pytest.mark.parametrize("ranks", [1, 2, 4])
 def test_main_trains_on_the_cpu(tmp_path, capsys, ranks):
-    """Every device is a data rank: mesh (n, 1), where the reference's
-    layout would keep a model axis (4 devices: (1, 4)), which this slice
-    cannot execute."""
+    """The mesh is the reference's default layout, (1, n) for n <= 16
+    devices: every leaf the specs cut is cut over the model axis, and the
+    ranks train it."""
     where = (["--device", "cpu"] if ranks == 1
              else ["--devices", ",".join(["cpu"] * ranks)])
     loop = train.main(ARGS + where + ["--ckpt-dir", str(tmp_path)])
-    assert f"devices={ranks} mesh=({ranks}, 1)" in capsys.readouterr().out
-    assert dict(loop.mesh.shape) == {"data": ranks, "model": 1}
+    assert f"devices={ranks} mesh=(1, {ranks})" in capsys.readouterr().out
+    assert dict(loop.mesh.shape) == {"data": 1, "model": ranks}
     assert [m["step"] for m in loop.metrics_log] == [0, 1, 2]
     losses = [m["loss"] for m in loop.metrics_log]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    assert len(loop.replicas) == ranks
-    first = list(loop.replicas[0].parameters())
-    assert all(p.device.type == "cpu" for p in first)
-    for other in loop.replicas[1:]:
-        assert all(torch.equal(a, b)
-                   for a, b in zip(first, other.parameters()))
+    assert len(loop.params.ranks) == ranks
+    assert all(p.device.type == "cpu" for p in loop.params.parameters())
+    assert (len(loop.params.shards) > len(loop.names)) == (ranks > 1)
     assert os.path.isdir(tmp_path / "step_00000000")
+
+
+def test_main_takes_the_model_axis(tmp_path, capsys):
+    """Four CPU devices: (1, 4) by default, (4, 1) with --model-axis 1,
+    (2, 2) with --model-axis 2; two steps each."""
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--steps", "2",
+            "--global-batch", "4", "--seq", "16",
+            "--devices", "cpu,cpu,cpu,cpu"]
+    for extra, shape in (([], (1, 4)), (["--model-axis", "1"], (4, 1)),
+                         (["--model-axis", "2"], (2, 2))):
+        loop = train.main(argv + extra + ["--ckpt-dir",
+                                          str(tmp_path / str(shape))])
+        assert f"devices=4 mesh={shape}" in capsys.readouterr().out
+        assert tuple(loop.mesh.shape.values()) == shape
+        assert [m["step"] for m in loop.metrics_log] == [0, 1]
 
 
 def test_main_needs_a_card_by_default(tmp_path):

@@ -4,9 +4,12 @@ The reference's tiny config (tests/test_train_loop.py) over two logical
 data ranks on the CPU (``make_mesh((2, 1), ("data", "model"),
 devices=["cpu"] * 2)``), both modes: failure and recovery (the steps after
 a restore bitwise an uninterrupted run's), resume from a checkpoint by a
-new loop, every replica bitwise equal to the others, the pjit step over
-two ranks against the one-device step, a lost host shrinking the data
-axis, and the checkpoint's leaves named as the reference's tree.
+new loop, every copy of the state bitwise equal to the others, the pjit
+step over two ranks against the one-device step, a lost host shrinking the
+data axis, and the checkpoint's leaves named as the reference's tree.
+Each rank on the CPU holds its own copy of every shard, as ranks on
+distinct cards do, so that pjit mode sums the copies' gradients and keeps
+the copies equal.
 
 The tests run with one intra-op thread: with several, the CPU's parallel
 reductions in the backward pass may sum in another order from one call to
@@ -31,6 +34,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.runtime.train_loop import (FailureInjected, LoopConfig,
                                             TrainLoop)
+from repro_torch.tree import named_leaves
 
 FIELDS = dict(arch="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
               d_ff=128, vocab=256, dtype="float32")
@@ -66,6 +70,18 @@ def _losses(loop):
 
 
 def _replicas_equal(loop):
+    """Every copy of the state bitwise equal to its others: each shard's
+    copies and their moments in pjit mode, the replicas in
+    dp_compressed."""
+    if loop.loop.mode == "pjit":
+        sm, opt, i = loop.params, loop.opt_state, 0
+        assert len(sm.copies) > len(sm.shards) or sm.px.p == 1
+        for sh in sm.shards:
+            n = len(sh.copies)
+            for ts in (sm.copies, opt["m"], opt["v"]):
+                assert all(torch.equal(ts[i], t) for t in ts[i + 1:i + n])
+            i += n
+        return
     first = loop.replicas[0]
     for other in loop.replicas[1:]:
         for a, b in zip(first.parameters(), other.parameters()):
@@ -172,7 +188,7 @@ def test_pjit_over_two_ranks_is_the_one_device_step(tmp_path):
         assert float(m["loss"]) == one.metrics_log[s]["loss"]
         assert two.metrics_log[s]["loss"] == pytest.approx(
             float(m["loss"]), rel=1e-6 if s == 0 else 1e-5)
-    for a, b in zip(one.params.parameters(), model.parameters()):
+    for a, (_, b) in zip(one.params.parameters(), named_leaves(model)):
         assert torch.equal(a, b)
     _replicas_equal(two)
 
@@ -213,7 +229,7 @@ def test_lost_host_shrinks_the_data_axis(tmp_path, uninterrupted):
     loop.run()
     assert state["done"]
     assert dict(loop.mesh.shape) == {"data": 1, "model": 1}
-    assert len(loop.replicas) == 1
+    assert len(loop.params.ranks) == 1
     want = _losses(uninterrupted)
     got = _losses(loop)
     assert [m["step"] for m in loop.metrics_log] == list(range(7))
@@ -234,14 +250,23 @@ def test_recovery_overwrites_the_state_in_place(tmp_path, mode,
     loop = _loop(tmp_path, 6, mode=mode, hook=hook)
 
     def storage(lp):
-        opt = lp.opt_states[0]
-        return [t.data_ptr() for t in list(lp.replicas[0].parameters())
+        opt = lp.opt_state if mode == "pjit" else lp.opt_states[0]
+        params = lp.params if mode == "pjit" else lp.replicas[0]
+        return [t.data_ptr() for t in list(params.parameters())
                 + opt["m"] + opt["v"]]
     before = storage(loop)
     loop.run()
     assert state["done"]
-    assert storage(loop) == before
-    assert len(loop.replicas) == len(loop.opt_states) == 2 - lost_hosts
+    if mode == "pjit" and lost_hosts:
+        # the surviving rank keeps its own copies
+        assert set(storage(loop)) < set(before)
+        assert len(storage(loop)) == len(before) // 2
+    else:
+        assert storage(loop) == before
+    if mode == "pjit":
+        assert loop.mesh.size == 2 - lost_hosts
+    else:
+        assert len(loop.replicas) == len(loop.opt_states) == 2
     assert [m["step"] for m in loop.metrics_log] == list(range(6))
 
 
