@@ -329,6 +329,24 @@ Phases, each fatal on failure:
      2) and placed anew from the checkpoint: every step after the
      restore bitwise a resumed (1, 2) loop's, in bf16.  No flash launch
      in the phase.
+ 31. Sequence-mode KV caches over a model axis and the dry run
+     (models/parallel.py, launch/dryrun.py; alone: --lm-seq-only, which
+     builds no kernel): a rank a card on four cards, else SEQ_SHAPE
+     logical ranks on cuda:0.  (a) qwen2-vl-72b at full width, SEQ_LAYERS
+     of its 80 layers, float32 parameters, its FULL
+     kv_cache_shard="sequence" (each rank a quarter of the cache's
+     slots, every KV head; decode attends each rank's slice and combines
+     the partial softmaxes), batch 1, a SEQ_PROMPT-position prompt and
+     SEQ_STEPS decode steps fed one device's greedy tokens: the float32
+     run (float32 activations) within TOL_LM_LOGITS_F32 of max |logit| of
+     one device's at every step; the bf16 runs (bf16 activations) held
+     as phase 29 holds its bf16 runs (TP_BF16_RATIO); decode ms a step
+     beside the same run with kv_cache_shard="heads", each rank's cache
+     bytes, the collectives' ms a decode step.  (b) launch.dryrun's
+     argument bytes of (a)'s cell on the meta device, over (1, 1) on one
+     card and (1, 4) on four, within SEQ_BYTES_TOL of what the placed
+     parameters, caches and inputs hold on each card
+     (torch.cuda.memory_allocated).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it holds one JSON record per kernel.  Without a CUDA device, or without the
@@ -727,6 +745,23 @@ MESH_TOL = 2.0 ** -8
 # without a gradient).
 MESH_UPDATE_TOL = 0.2
 MESH_LEAF_TOL = 0.5
+# Phase 31, sequence-mode KV caches (kv_cache_shard="sequence": flash-
+# decoding over the model axis) and the dry run's bytes (alone:
+# --lm-seq-only).  qwen2-vl-72b, whose FULL config sets the mode (8 KV
+# heads, below the production model axis of 16), at full width and
+# SEQ_LAYERS layers, float32 parameters (~24 GB a copy), over SEQ_SHAPE:
+# the cache's SEQ_PROMPT + SEQ_STEPS slots split in four.  The float32
+# run differs from one device's by the order of float32 sums (the
+# row-parallel partials, the partial softmaxes' combine), so it is held
+# by TOL_LM_LOGITS_F32 of max |logit|; the bf16 runs by TP_BF16_RATIO of
+# one device's distance from the float32 truth.  The dry run's argument
+# bytes are exact sums of the placed tensors' sizes; the card's caching
+# allocator rounds each block up (to 512 bytes, or 2 MB segments for large
+# ones), which SEQ_BYTES_TOL covers.
+SEQ_ARCH, SEQ_LAYERS = "qwen2-vl-72b", 4
+SEQ_SHAPE = (1, 4)
+SEQ_PROMPT, SEQ_STEPS = 8_192, 32
+SEQ_BYTES_TOL = 0.01
 
 
 def gpu_info() -> str:
@@ -4648,6 +4683,202 @@ def train_mesh_runs(tag):
     return out
 
 
+def seq_runs(tag):
+    """Phase 31, sequence-mode KV caches over a model axis and the dry
+    run's bytes against the card (see SEQ_ARCH), every check fatal.
+    Returns the phase's numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, override
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+
+    t_phase = time.perf_counter()
+    p = SEQ_SHAPE[1]
+    ranks, layout = mesh_ranks(p)
+    mesh = make_mesh(SEQ_SHAPE, ("data", "model"), devices=ranks)
+    cards = list(dict.fromkeys(ranks))
+    dev0 = ranks[0]
+    print(f"  31: {layout}; {describe(mesh)}")
+    out = {"layout": layout}
+    cap = SEQ_PROMPT + SEQ_STEPS
+    full = get_config(SEQ_ARCH)
+    assert full.kv_cache_shard == "sequence", full.kv_cache_shard
+
+    def config(dtype, mode="sequence"):
+        return override(full, n_layers=SEQ_LAYERS, dtype=dtype,
+                        kv_cache_shard=mode)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, SEQ_PROMPT, full.d_model)).astype(np.float32))
+    pos = torch.arange(SEQ_PROMPT, dtype=torch.int32).expand(
+        1, 3, SEQ_PROMPT).contiguous()
+
+    def run(cfg_, on_mesh, feed=None):
+        """Prefill and SEQ_STEPS decode steps, fed `feed` (else greedy):
+        (logits a step on the host, the tokens fed, decode ms a step, the
+        placement or None, each rank's cache bytes)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev0).manual_seed(0)
+        model = build_model(cfg_)
+        policy = None
+        if on_mesh:
+            from repro_torch.models.sharding import make_policy
+            policy = make_policy(cfg_, mesh)
+            params = model.init(gen, mesh=mesh)
+        else:
+            params = model.init(gen, device=dev0)
+        dt = cfg_.activation_dtype()
+        prefill = steps.make_prefill_step(cfg_, cache_capacity=cap,
+                                          policy=policy)
+        decode = steps.make_decode_step(cfg_, policy=policy)
+        logits, cache = prefill(params, embeds=frames.to(dev0, dt),
+                                positions=pos.to(dev0))
+        got, fed, ms = [logits[:, -1].float().cpu()], [], []
+        px = params.px if on_mesh else None
+        for t in range(SEQ_STEPS):
+            tok = logits[:, -1].argmax(-1)[:, None] if feed is None \
+                else feed[t].to(dev0)
+            fed.append(tok.cpu())
+            dpos = torch.full((1, 3, 1), SEQ_PROMPT + t, dtype=torch.int32,
+                              device=dev0)
+            if px is not None and t == 1:
+                px.timer = []
+            sync()
+            t1 = time.perf_counter()
+            logits, cache = decode(params, token=tok, cache=cache,
+                                   cache_index=SEQ_PROMPT + t,
+                                   positions=dpos)
+            sync()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if px is not None and t == 1:
+                out.setdefault("collective_ms_a_step", {})[
+                    cfg_.dtype + "/" + cfg_.kv_cache_shard] = \
+                    px.collective_ms()
+                px.timer = None
+            got.append(logits[:, -1].float().cpu())
+        if on_mesh:
+            held = [sum(t.numel() * t.element_size()
+                        for c in rc for t in c.values())
+                    for rc in cache.ranks]
+            seq_split = [cache.by_positions(r) for r in range(len(cache.specs))]
+        else:
+            held = [sum(t.numel() * t.element_size()
+                        for c in cache for t in c.values())]
+            seq_split = None
+        del params, cache, logits
+        return torch.stack(got), fed, ms, held, seq_split
+
+    # -- (a) sequence-mode decode at full width -------------------------------
+    one32, feed, ms_one32, held_one, _ = run(config("float32"), False)
+    mesh32, _, ms_mesh32, held32, split32 = run(config("float32"), True,
+                                                feed)
+    assert all(split32), split32
+    scale = float(one32.abs().max())
+    err32 = float((mesh32 - one32).abs().max())
+    agree32 = int((mesh32.argmax(-1) == one32.argmax(-1)).sum())
+    print(f"  31(a) float32 {SEQ_ARCH} x {SEQ_LAYERS} layers, prompt "
+          f"{SEQ_PROMPT}, {SEQ_STEPS} steps: max |mesh - one| = "
+          f"{err32:.3e} of max |logit| {scale:.3e} (gate "
+          f"{TOL_LM_LOGITS_F32:g} relative); greedy agree {agree32}/"
+          f"{SEQ_STEPS + 1}")
+    if not err32 <= TOL_LM_LOGITS_F32 * scale:
+        raise SystemExit(f"phase 31: float32 sequence-mode logits "
+                         f"{err32:.3e} from one device's (max |logit| "
+                         f"{scale:.3e})")
+    one16, _, ms_one16, _, _ = run(config("bfloat16"), False, feed)
+    seq16, _, ms_seq, held_seq, split16 = run(config("bfloat16"), True, feed)
+    heads16, _, ms_heads, held_heads, split_h = run(
+        config("bfloat16", "heads"), True, feed)
+    assert all(split16) and not any(split_h), (split16, split_h)
+    d_one = float((one16 - one32).abs().max())
+    d_seq = float((seq16 - one32).abs().max())
+    d_heads = float((heads16 - one32).abs().max())
+    print(f"  31(a) bf16: max |run - float32 truth|: one device "
+          f"{d_one:.3e}, sequence mode {d_seq:.3e}, heads mode "
+          f"{d_heads:.3e} (gate {TP_BF16_RATIO} x one device's)")
+    for name, d in (("sequence", d_seq), ("heads", d_heads)):
+        if not d <= TP_BF16_RATIO * max(d_one, 1e-30):
+            raise SystemExit(f"phase 31: bf16 {name}-mode logits {d:.3e} "
+                             f"from the float32 truth, one device's "
+                             f"{d_one:.3e}")
+
+    def med(xs):
+        return statistics.median(xs[1:])
+    out.update({
+        "float32_err": err32, "float32_scale": scale,
+        "float32_greedy_agree": agree32,
+        "bf16_truth_dist": {"one": d_one, "sequence": d_seq,
+                            "heads": d_heads},
+        "decode_ms": {"float32_one": med(ms_one32),
+                      "float32_sequence": med(ms_mesh32),
+                      "bf16_one": med(ms_one16), "bf16_sequence": med(ms_seq),
+                      "bf16_heads": med(ms_heads)},
+        "cache_bytes_a_rank": {"one_device": held_one,
+                               "bf16_sequence": held_seq,
+                               "bf16_heads": held_heads},
+    })
+    print(f"  31(a) decode ms a step (median of steps 2..{SEQ_STEPS}): "
+          f"bf16 one device {med(ms_one16):.1f}, sequence mode "
+          f"{med(ms_seq):.1f}, heads mode {med(ms_heads):.1f}; float32 one "
+          f"device {med(ms_one32):.1f}, sequence {med(ms_mesh32):.1f}")
+    print(f"  31(a) cache bytes a rank: sequence {held_seq}, heads "
+          f"{held_heads}, one device {held_one}; collectives ms a decode "
+          f"step {out['collective_ms_a_step']}")
+
+    # -- (b) the dry run's argument bytes against the card --------------------
+    cfg16 = config("bfloat16")
+    checks = [((1, 1), [dev0])]
+    if len(cards) >= p:
+        checks.append((SEQ_SHAPE, cards[:p]))
+    out["dryrun_bytes"] = {}
+    for shape_, devs in checks:
+        n = int(np.prod(shape_))
+        meta = make_mesh(shape_, ("data", "model"), devices=["meta"] * n)
+        fn, args, kwargs, info = dryrun.build_cell(
+            SEQ_ARCH, "decode_32k", False,
+            cfg_transform=lambda c: dataclasses.replace(
+                c, n_layers=SEQ_LAYERS), mesh=meta, dims=(cap, 1, "decode"))
+        want = dryrun.argument_bytes(args, kwargs)
+        del fn, args, kwargs
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync()
+        base = {d: torch.cuda.memory_allocated(d) for d in devs}
+        card_mesh = make_mesh(shape_, ("data", "model"), devices=devs)
+        params = build_model(cfg16).init(
+            torch.Generator(device=devs[0]).manual_seed(0), mesh=card_mesh)
+        cache = params.px.new_caches(steps.init_cache(cfg16, 1, cap, "meta"))
+        inputs = [(torch.zeros((1, 1), dtype=torch.int32, device=d),
+                   torch.zeros((1, 3, 1), dtype=torch.int32, device=d))
+                  for d in devs]
+        sync()
+        got = {str(d): torch.cuda.memory_allocated(d) - base[d]
+               for d in devs}
+        del params, cache, inputs
+        worst = max(abs(v - want) / want for v in got.values())
+        out["dryrun_bytes"][str(shape_)] = {"predicted": want, "held": got,
+                                            "worst_rel": worst}
+        print(f"  31(b) {shape_}: dry run {want} bytes a device, the cards "
+              f"hold {got}: worst {worst:.3%} (gate {SEQ_BYTES_TOL:.0%})")
+        if not worst <= SEQ_BYTES_TOL:
+            raise SystemExit(f"phase 31: the dry run predicts {want} bytes "
+                             f"a device, the cards hold {got}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 31 took {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def kendall_runs(x_dev, x_tf, reset, tag):
     """Phase 23: merge-sort Kendall at the paper's sample count, every
     check fatal.  `reset` sets the pcc kernels' launch counts to 0.  Returns
@@ -5197,13 +5428,16 @@ def main(argv) -> int:
     # earlier tree of this repository, for a before / after comparison)
     # --lm-mesh-only: the build and phase 29 alone (a call on several cards)
     # --lm-train-mesh-only: phase 30 alone (it launches no kernel: no build)
+    # --lm-seq-only: phase 31 alone (no kernel of its own: no build)
     overlap_only = argv[:1] == ["--overlap-only"]
     mesh_only = argv == ["--lm-mesh-only"]
     train_mesh_only = argv == ["--lm-train-mesh-only"]
+    seq_only = argv == ["--lm-seq-only"]
     if (overlap_only and len(argv) != 2) or \
-            (argv and not (overlap_only or mesh_only or train_mesh_only)):
+            (argv and not (overlap_only or mesh_only or train_mesh_only
+                           or seq_only)):
         print("usage: chip_smoke.py [--overlap-only SRC | --lm-mesh-only | "
-              "--lm-train-mesh-only]", file=sys.stderr)
+              "--lm-train-mesh-only | --lm-seq-only]", file=sys.stderr)
         return 2
     src = (Path(argv[1]) if overlap_only
            else Path(__file__).resolve().parent / "src")
@@ -5245,11 +5479,17 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; allow_tf32=False (matmul, cudnn)")
 
-    if train_mesh_only:
+    if train_mesh_only or seq_only:
         tag = f"[{card}]"
-        print(f"LM training over a (data, model) mesh (make_train_step("
-              f"policy=), TrainLoop pjit) {tag}:")
-        print(json.dumps({"train_mesh": train_mesh_runs(tag)}, default=str))
+        if train_mesh_only:
+            print(f"LM training over a (data, model) mesh (make_train_step("
+                  f"policy=), TrainLoop pjit) {tag}:")
+            print(json.dumps({"train_mesh": train_mesh_runs(tag)},
+                             default=str))
+        else:
+            print(f"Sequence-mode KV caches over a model axis, and the dry "
+                  f"run against the card {tag}:")
+            print(json.dumps({"seq": seq_runs(tag)}, default=str))
         print(f"script time {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"kernels": []}))
         print(json.dumps({"ok": True, "device": {
@@ -7499,6 +7739,12 @@ def main(argv) -> int:
     print(f"LM training over a (data, model) mesh (make_train_step("
           f"policy=), TrainLoop pjit) {tag}:")
     print(json.dumps({"train_mesh": train_mesh_runs(tag)}, default=str))
+
+    # -- 31. sequence-mode KV caches, the dry run against the card -------------
+    torch.cuda.empty_cache()
+    print(f"Sequence-mode KV caches over a model axis, and the dry run "
+          f"against the card {tag}:")
+    print(json.dumps({"seq": seq_runs(tag)}, default=str))
 
     source = "src/repro_torch/kernels/csrc/"
     narrow_records = []

@@ -1,7 +1,7 @@
 """Launchers of the port: the device mesh (``launch.mesh``), LM serving
-(``launch.serve``) and LM training (``launch.train``: ``pick_mesh_shape``
-and ``main`` over ``runtime.train_loop.TrainLoop``).
-
-The reference's sharded serving (``--model-axis``), dry run, roofline,
-hill-climb and report (the XLA tooling) are ROADMAP A parts 5 and 7.
+(``launch.serve``), LM training (``launch.train``: ``pick_mesh_shape``
+and ``main`` over ``runtime.train_loop.TrainLoop``), and the tooling that
+runs on no device: the dry run over the production mesh on the meta
+device (``launch.dryrun``), the roofline (``launch.roofline``), its named
+experiments (``launch.hillclimb``) and the tables (``launch.report``).
 """

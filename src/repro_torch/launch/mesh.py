@@ -16,8 +16,10 @@ reference's tests force a host device count
 (``--xla_force_host_platform_device_count``), and runs every path of a
 mesh but the peer copies between cards.
 
-``make_production_mesh`` (a TPU v5e pod layout) belongs to the LM side
-(ROADMAP slice 12b).
+``make_production_mesh`` lays out the reference's production mesh, one
+pod of (16, 16) ``("data", "model")`` ranks or two of them (``("pod",
+"data", "model")``), as logical ranks on the meta device: the dry run
+(``launch/dryrun.py``) runs the steps over it, allocating nothing.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ def mesh_device(d) -> torch.device:
     """A mesh entry as a ``torch.device`` with its index: ``"cuda"`` is
     the current card.  A CUDA device on a machine without a card raises
     RuntimeError, one past the visible cards ValueError: a mesh never
-    falls back to the CPU."""
+    falls back to the CPU.  ``"meta"`` ranks hold shapes only (the dry
+    run's)."""
     dev = torch.device(d)
-    if dev.type == "cpu":
-        return torch.device("cpu")
+    if dev.type in ("cpu", "meta"):
+        return torch.device(dev.type)
     if dev.type != "cuda":
         raise ValueError(f"unsupported mesh device {dev}")
     if not torch.cuda.is_available():
@@ -122,11 +125,21 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return Mesh(arr.reshape(shape), axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as logical ranks on the meta device:
+    one pod = (16, 16) ``("data", "model")`` = 256 ranks; two pods = (2,
+    16, 16) ``("pod", "data", "model")`` = 512.  It runs no device: a
+    step over it composes shapes and allocates nothing (the dry run)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=["meta"] * int(np.prod(shape)))
+
+
 def describe(mesh: Mesh) -> str:
     dims = " x ".join(f"{n}={s}" for n, s in mesh.shape.items())
     devs = ", ".join(str(d) for d in mesh.distinct_devices)
     return f"Mesh({dims}; {mesh.size} ranks on {devs})"
 
 
-__all__ = ["Mesh", "describe", "make_mesh", "mesh_device",
-           "visible_devices"]
+__all__ = ["Mesh", "describe", "make_mesh", "make_production_mesh",
+           "mesh_device", "visible_devices"]

@@ -4,14 +4,15 @@ Port of ``repro/models/config.py``: ``ModelConfig`` with every field of the
 reference (the sharding and execution-policy fields included, so configs
 compare field by field), its derived properties, ``validate`` and the shape
 cells ``SHAPES``.  ``activation_dtype()`` gives a ``torch.dtype``.  The
-dry-run stand-ins ``input_specs`` / ``cache_specs`` belong to the XLA tooling
-and are not ported (ROADMAP A, slice 12b).
+dry-run stand-ins ``input_specs`` / ``cache_specs`` give tensors on the meta
+device (shapes and dtypes, no storage) where the reference gives
+``jax.ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -176,4 +177,63 @@ class ModelConfig:
                 raise ValueError(f"{self.arch}: unknown shape cell {s}")
 
 
-__all__ = ["ModelConfig", "SHAPES"]
+def input_specs(cfg: ModelConfig, shape: str,
+                batch_override: Optional[int] = None) -> dict:
+    """Meta-tensor stand-ins for every model input of a shape cell, under
+    the step functions' keyword names: no storage is allocated.  Decode's
+    ``cache`` is ``cache_specs``' structure and its ``cache_index`` a
+    0-dim int32 meta tensor, as the reference's scalar spec."""
+    if shape not in SHAPES:
+        raise ValueError(f"unknown shape {shape}")
+    if shape not in cfg.shapes:
+        raise ValueError(f"{cfg.arch} does not support {shape} "
+                         f"(see DESIGN.md SSArch-applicability)")
+    seq, batch, kind = SHAPES[shape]
+    return specs_at(cfg, seq, batch_override or batch, kind)
+
+
+def specs_at(cfg: ModelConfig, seq: int, batch: int, kind: str) -> dict:
+    """``input_specs`` of a cell given by its (seq, batch, kind) rather
+    than a name of ``SHAPES`` (a cut-down cell on the card)."""
+    i32 = torch.int32
+    dt = cfg.activation_dtype()
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    def tok(b, s):
+        return meta((b, s), i32)
+
+    specs: dict = {}
+    if kind in ("train", "prefill"):
+        if cfg.enc_dec:
+            specs["src"] = meta((batch, seq, cfg.d_model), dt) \
+                if cfg.embed_inputs else tok(batch, seq)
+            specs["tokens"] = tok(batch, seq)
+        elif cfg.embed_inputs:
+            specs["embeds"] = meta((batch, seq, cfg.d_model), dt)
+        else:
+            specs["tokens"] = tok(batch, seq)
+        if kind == "train":
+            specs["labels"] = tok(batch, seq)
+        if cfg.rope == "mrope":
+            specs["positions"] = meta((batch, 3, seq), i32)
+    else:  # decode: one new token against a cache of length seq
+        specs["token"] = tok(batch, 1)
+        specs["cache"] = cache_specs(cfg, batch, seq)
+        specs["cache_index"] = meta((), i32)
+        if cfg.rope == "mrope":
+            specs["positions"] = meta((batch, 3, 1), i32)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int):
+    """The decode cache's structure on the meta device: the model's own
+    ``steps.init_cache`` there, so the specs never drift from the real
+    cache layout (window-bounded rings for SWA layers, O(1) SSM state)."""
+    from repro_torch.models import steps  # lazy: config stays import-light
+    return steps.init_cache(cfg, batch, seq, device="meta")
+
+
+__all__ = ["ModelConfig", "SHAPES", "input_specs", "specs_at",
+           "cache_specs"]

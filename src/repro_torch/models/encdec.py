@@ -245,13 +245,14 @@ def _cross_tp(cfg: ModelConfig, sm, blk: str, xs: list, enc: list) -> list:
 
 
 def _dec_layer_tp(cfg: ModelConfig, sm, li: int, xs: list, enc: list,
-                  split: bool):
+                  split: bool, seq: bool = False):
     """``_dec_block_apply`` of decoder layer li over the mesh: (xs, each
-    rank's (k, v))."""
+    rank's (k, v)), every KV head where `seq` (a cache split by
+    positions)."""
     px, blk = sm.px, f"blocks.{li}"
     hs = T._norm_tp(cfg, sm, xs, blk + ".ln1")
     out, kv = L.attention_apply_tp(cfg, px, sm.parts(blk + ".attn"), hs,
-                                   [None] * px.p, 0)
+                                   [None] * px.p, 0, seq=seq)
     xs = _cross_tp(cfg, sm, blk, _add(sm, xs, [out]), enc)
     xs, _ = T._ffn_tp(cfg, sm, blk, xs, split)
     return xs, kv
@@ -272,11 +273,14 @@ def forward_tp(cfg: ModelConfig, sm, split: bool, *, src: Tensor,
                                           src.shape[1], device="meta"))
         for rc, e in zip(caches.ranks, enc):
             rc["enc_out"] = e
+    seq = caches is not None and caches.by_positions()
     for li in range(cfg.n_layers):
-        xs, kv = P.remat(cfg, _dec_layer_tp, cfg, sm, li, xs, enc, split)
+        xs, kv = P.remat(cfg, _dec_layer_tp, cfg, sm, li, xs, enc, split,
+                         seq)
         if caches is not None:
-            for rc, (k, v) in zip(caches.ranks, kv):
-                _prefill_cache(cfg, rc, li, {"k": k, "v": v}, 0, s)
+            for r, (rc, (k, v)) in enumerate(zip(caches.ranks, kv)):
+                _prefill_cache(cfg, rc, li, {"k": k, "v": v}, 0, s,
+                               (r % px.tp, px.tp) if seq else None)
     return T._norm_tp(cfg, sm, xs, "final_norm"), 0.0, caches
 
 
@@ -294,7 +298,8 @@ def decode_tp(cfg: ModelConfig, sm, split: bool, cache, token: Tensor,
         xs = _add(sm, xs, [L.attention_decode_tp(
             cfg, px, sm.parts(blk + ".attn"), hs, pos, 0,
             [rc["k"][li] for rc in cache.ranks],
-            [rc["v"][li] for rc in cache.ranks], cache_index)])
+            [rc["v"][li] for rc in cache.ranks], cache_index,
+            seq=cache.by_positions())])
         xs = _cross_tp(cfg, sm, blk, xs, enc)
         xs, _ = T._ffn_tp(cfg, sm, blk, xs, split)
     xs = T._norm_tp(cfg, sm, xs, "final_norm")

@@ -31,7 +31,11 @@ The ``*_tp`` forms run a layer over a (data, model) mesh
 (``models/parallel.py``): one list entry a rank, each rank's parameters
 its shards.  Attention is split by heads (``head_plan``): each rank's
 self-attention runs on its own heads, on the card one flash launch a rank
-a layer; the MLP by F; MoE experts expert-parallel, or by F.
+a layer; the MLP by F; MoE experts expert-parallel, or by F.  A KV cache
+split by positions (``kv_cache_shard="sequence"``) decodes as
+flash-decoding over the model axis: each rank attends every head over its
+slice of the cache's slots, and the partial softmaxes are combined
+(``attention_decode_tp``).
 """
 
 from __future__ import annotations
@@ -270,6 +274,8 @@ def index_stream(positions: Optional[Tensor]) -> bool:
     if positions is None:
         return True
     stream = positions[:, 0, :] if positions.ndim == 3 else positions
+    if stream.is_meta:     # no values: the general route, masked by stream
+        return False
     index = torch.arange(stream.shape[-1], dtype=stream.dtype,
                          device=stream.device)
     return torch.equal(stream, index.expand_as(stream))
@@ -700,8 +706,9 @@ class HeadPlan:
     H*hd) where wo is whole); ``q[m]`` the query heads covering them,
     widened to whole GQA groups; ``reads[m]`` the KV heads those read;
     ``kv[m]`` the KV heads m projects: its cache's heads in cached
-    self-attention (all of them where the cache is whole), else
-    ``reads[m]``.  ``gather[w]``: the
+    self-attention (all of them where the cache is whole or split by
+    positions), else ``reads[m]``; sequence-mode decode (``all_q``)
+    computes every query head on every rank.  ``gather[w]``: the
     projection w's column shards do not hold every rank's heads, so they
     are all-gathered first (the specs cut columns, not heads: hymba's 25
     heads at tp 4, or wq cut while wk is whole)."""
@@ -717,20 +724,23 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def head_plan(cfg: ModelConfig, px, prefix: str, cached: bool) -> HeadPlan:
+def head_plan(cfg: ModelConfig, px, prefix: str, cached: bool,
+              seq: bool = False, all_q: bool = False) -> HeadPlan:
     """The HeadPlan of the attention leaves under `prefix` ("blocks/attn",
-    "blocks/xattn", "enc_blocks/attn"), made once a placement."""
+    "blocks/xattn", "enc_blocks/attn"), made once a placement.  `seq`: the
+    cache is split by positions, so it holds every KV head; `all_q`: every
+    rank computes every query head (sequence-mode decode)."""
     def make():
         hd, h, hkv, tp = cfg.hd, cfg.n_heads, cfg.n_kv_heads, px.tp
         rep = h // hkv
         wo_split = px.tp_dim(f"{prefix}/wo") == 0
-        kv_split = cached and px.policy._div(hkv, tp)
+        kv_split = cached and not seq and px.policy._div(hkv, tp)
         q, kv, reads, rows = [], [], [], []
         for m in range(tp):
             lo, hi = ((m * h * hd // tp, (m + 1) * h * hd // tp)
                       if wo_split else (0, h * hd))
-            h0 = lo // hd // rep * rep
-            h1 = _ceil(_ceil(hi, hd), rep) * rep
+            h0 = 0 if all_q else lo // hd // rep * rep
+            h1 = h if all_q else _ceil(_ceil(hi, hd), rep) * rep
             need = (h0 // rep, h1 // rep)
             own = need
             if cached:
@@ -755,7 +765,7 @@ def head_plan(cfg: ModelConfig, px, prefix: str, cached: bool) -> HeadPlan:
                   "wv": gathered("wv", kv, hkv * hd)}
         return HeadPlan(tuple(q), tuple(kv), tuple(reads), tuple(rows),
                         gather, wo_split)
-    return px.cached_plan(("heads", prefix, cached), make)
+    return px.cached_plan(("heads", prefix, cached, seq, all_q), make)
 
 
 def _heads_tp(cfg: ModelConfig, px, plan: HeadPlan, prefix: str, ps, xs,
@@ -817,14 +827,15 @@ def _rope_positions(px, xs, positions) -> list:
 
 def attention_apply_tp(cfg: ModelConfig, px, ps, xs, positions, window: int,
                        index_mask: bool = False,
-                       prefix: str = "blocks/attn"):
+                       prefix: str = "blocks/attn", seq: bool = False):
     """``attention_apply`` over the model axis: q, k, v column-parallel by
     the specs, each rank's self-attention on its heads (the flash kernel
     on the card: one launch a rank, at (B, n_q, S, hd) against (B, n_kv,
     S, hd)), wo row-parallel.  positions: one (B, S) / (B, 3, S) a rank, or
     Nones.  Returns (Out, each rank's rotated (k, v) of the KV heads it
-    holds, (B, S, n, hd))."""
-    plan = head_plan(cfg, px, prefix, cached=True)
+    holds, (B, S, n, hd)): every KV head where `seq` (a cache split by
+    positions)."""
+    plan = head_plan(cfg, px, prefix, cached=True, seq=seq)
     q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
     k = _heads_tp(cfg, px, plan, prefix, ps, xs, "wk", plan.kv, "k_norm")
     v = _heads_tp(cfg, px, plan, prefix, ps, xs, "wv", plan.kv, None)
@@ -845,10 +856,14 @@ def attention_apply_tp(cfg: ModelConfig, px, ps, xs, positions, window: int,
 
 def attention_decode_tp(cfg: ModelConfig, px, ps, xs, positions,
                         window: int, k_caches, v_caches, cache_index: int,
-                        prefix: str = "blocks/attn") -> Out:
+                        prefix: str = "blocks/attn", seq: bool = False) -> Out:
     """``attention_decode`` over the model axis: each rank writes the
     token's k, v of the KV heads its cache holds, (B, n_kv, cap, hd), and
-    attends over those its query heads read."""
+    attends over those its query heads read.  Where `seq` the caches hold
+    every KV head and a slice of the slots each (``_decode_seq_tp``)."""
+    if seq:
+        return _decode_seq_tp(cfg, px, ps, xs, positions, window, k_caches,
+                              v_caches, int(cache_index), prefix)
     plan = head_plan(cfg, px, prefix, cached=True)
     t = int(cache_index)
     q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
@@ -865,6 +880,76 @@ def attention_decode_tp(cfg: ModelConfig, px, ps, xs, positions,
         outs.append(_decode_sdpa(cfg, q[r], window, k_caches[r][:, sl],
                                  v_caches[r][:, sl], t))
     return _wo_tp(cfg, px, plan, ps, outs)
+
+
+def _decode_seq_tp(cfg: ModelConfig, px, ps, xs, positions, window: int,
+                   k_caches, v_caches, t: int, prefix: str) -> Out:
+    """Flash-decoding over the model axis, for caches split by positions
+    (rank m holds slots [m n, (m + 1) n) of a cap of tp n, every KV head):
+    q, k and v are gathered to whole heads; the rank that owns slot t %
+    cap writes the token's k, v there; each rank attends every head over
+    its slice (``_decode_partial``); the partial (max, sum, unnormalised
+    out) triples are all-gathered over the model axis and combined in
+    float32, m = max_r m_r, out = sum_r e^(m_r - m) o_r / sum_r e^(m_r -
+    m) l_r; each rank keeps the heads covering its rows of wo."""
+    plan = head_plan(cfg, px, prefix, cached=True, seq=True, all_q=True)
+    q = _heads_tp(cfg, px, plan, prefix, ps, xs, "wq", plan.q, "q_norm")
+    k = _heads_tp(cfg, px, plan, prefix, ps, xs, "wk", plan.kv, "k_norm")
+    v = _heads_tp(cfg, px, plan, prefix, ps, xs, "wv", plan.kv, None)
+    rope = px.map(lambda x, pos: _decode_rope_pos(pos, x.shape[0], t,
+                                                  x.device), xs, positions)
+    q = px.map(lambda a, pos: apply_rope(cfg, a, pos), q, rope)
+    k = px.map(lambda a, pos: apply_rope(cfg, a, pos), k, rope)
+    n = k_caches[0].shape[2]
+    cap = n * px.tp
+    owner, slot = divmod(t % cap, n)
+    packed = []
+    for r in range(px.p):
+        m = r % px.tp
+        if m == owner:
+            k_caches[r][:, :, slot] = k[r][:, 0].to(k_caches[r].dtype)
+            v_caches[r][:, :, slot] = v[r][:, 0].to(v_caches[r].dtype)
+        o, l, mx = _decode_partial(cfg, q[r], window, k_caches[r],
+                                   v_caches[r], t, cap, m * n)
+        packed.append(torch.cat([o, l[..., None], mx[..., None]], -1)[None])
+    gathered = px.all_gather(packed, 0)      # (tp, B, 1, H, hd + 2)
+    hd, dt = cfg.hd, q[0].dtype
+
+    def merge(g):
+        o, l, mx = g[..., :hd], g[..., hd], g[..., hd + 1]
+        w = torch.exp(mx - mx.amax(0))
+        out = (w[..., None] * o).sum(0) / (w * l).sum(0)[..., None]
+        return out.reshape(*out.shape[:2], -1).to(dt)
+    return _wo_tp(cfg, px, plan, ps, px.map(merge, gathered))
+
+
+def _decode_partial(cfg: ModelConfig, q: Tensor, window: int,
+                    k_cache: Tensor, v_cache: Tensor, t: int, cap: int,
+                    lo: int):
+    """One rank's share of ``_decode_sdpa``: q (B, 1, H, hd) at position t
+    against the slots lo .. lo + n of a cache of `cap` slots, given as
+    k_cache / v_cache (B, Hkv, n, hd), each slot at its absolute position
+    (``_decode_sdpa``).  Returns the float32 unnormalised output (B, 1, H,
+    hd), the sum of the exponentials (B, 1, H) and the logits' max (B, 1,
+    H), masked slots at -1e30 (a rank without a live slot gives a max of
+    -1e30, whose weight in the combine is 0)."""
+    b, _, h, hd = q.shape
+    hkv, n = k_cache.shape[1], k_cache.shape[2]
+    rep = h // hkv
+    s_idx = lo + torch.arange(n, dtype=torch.int64, device=q.device)
+    slot_pos = t - torch.remainder(t - s_idx, cap)
+    live = slot_pos >= 0
+    if window > 0:
+        live &= slot_pos > t - window
+    qg = q.reshape(b, hkv, rep, hd)
+    logits = torch.einsum("bgrh,bgkh->bgrk", qg.float(), k_cache.float()) \
+        / math.sqrt(hd)
+    logits = logits.masked_fill(~live, -1e30)
+    mx = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - mx)
+    o = torch.einsum("bgrk,bgkh->bgrh", e, v_cache.float())
+    return (o.reshape(b, 1, h, hd), e.sum(-1).reshape(b, 1, h),
+            mx.reshape(b, 1, h))
 
 
 def encoder_attention_apply_tp(cfg: ModelConfig, px, ps, xs, positions,

@@ -28,6 +28,18 @@ explicit devices, which may repeat; ``["cpu"] * p`` on the CPU).
   after it (:class:`ShardedLM.parts`), and ``gather_data`` concatenates
   the data ranks' rows (the MoE layer's global routing).
 
+Each collective can be recorded: with ``Placement.recorder`` a list, every
+call appends one record (kind, dtype, one rank's operand dims, group) in
+the reference's HLO names, before the copies are deduplicated by device,
+and under autograd a hook on its output appends the backward's dual when
+the gradient passes (an all-gather's reduce-scatter, an all-reduce's
+all-reduce); ``runtime/hlo.collective_stats`` sums them.  With
+``Placement.meter`` set (the dry run's op counter, ``launch/dryrun.py``)
+:meth:`Placement.map` computes for every rank, as distinct cards would,
+the collectives' own copies and adds are not counted, and
+:meth:`Placement.weighted` counts a region as the work of the ranks
+whose result it is.
+
 A copy to another card is ``Tensor.to``: PyTorch queues it on the source
 card's stream behind an event of the destination's stream, and makes the
 destination's stream wait on an event after it, so the host never waits.
@@ -255,6 +267,16 @@ def _identity(a):
     return id(a)
 
 
+# torch dtypes by the reference's HLO names (runtime/hlo.py's table)
+_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16", torch.float64: "f64",
+               torch.int8: "s8", torch.uint8: "u8", torch.int16: "s16",
+               torch.int32: "s32", torch.int64: "s64", torch.bool: "pred",
+               torch.float8_e4m3fn: "f8e4m3fn", torch.float8_e5m2: "f8e5m2"}
+# the collective each one's backward runs
+_DUAL = {"all-gather": "reduce-scatter", "all-reduce": "all-reduce"}
+
+
 def _attr(module, name: str):
     return reduce(getattr, name.split("."), module)
 
@@ -287,6 +309,8 @@ class Placement:
             self.splits[path] = _split(s[1:] if "blocks" in path else s,
                                        policy)
         self.timer: Optional[list] = None
+        self.recorder: Optional[list] = None
+        self.meter = None
         self._plans: Dict[Any, Any] = {}
 
     # --- ranks --------------------------------------------------------------
@@ -384,8 +408,11 @@ class Placement:
 
     def map(self, fn, *lists) -> list:
         """[fn(*args of rank r)], computed once for ranks whose arguments
-        are the same elements (replicated values on one device).  fn must
-        be a pure function of its arguments."""
+        are the same elements (replicated values on one device), for each
+        rank under a ``meter``.  fn must be a pure function of its
+        arguments."""
+        if self.meter is not None:
+            return [fn(*args) for args in zip(*lists)]
         out, seen = [], {}
         for args in zip(*lists):
             key = tuple(_identity(a) for a in args)
@@ -393,6 +420,42 @@ class Placement:
                 seen[key] = fn(*args)
             out.append(seen[key])
         return out
+
+    def weighted(self, n: int):
+        """Counts the ops inside as the work of n ranks under a ``meter``
+        (a shard updated once for the ranks that read it)."""
+        return contextlib.nullcontext() if self.meter is None \
+            else self.meter.weighted(n)
+
+    def _quiet(self):
+        """Leaves a collective's own copies and adds out of the ``meter``'s
+        count: ``recorder`` accounts for them."""
+        return contextlib.nullcontext() if self.meter is None \
+            else self.meter.paused()
+
+    def group_name(self, data: bool = False, model: bool = False) -> str:
+        """The axes a collective runs over, comma-joined."""
+        return ",".join((tuple(self.policy.dp_axes) if data else ())
+                        + ((self.policy.tp_axis,) if model else ()))
+
+    def record(self, kind: str, operand: Tensor, group: str,
+               out: Optional[Tensor] = None) -> None:
+        """Appends one collective to ``recorder`` when it is a list: its
+        kind, `operand`'s dtype and dims (one rank's: the operand bytes a
+        device sends, the reference's definition) and the group's axes.
+        Under autograd a hook on `out` appends the backward's dual when
+        its gradient is computed."""
+        if self.recorder is None:
+            return
+        self._append(kind, operand, group)
+        if out is not None and out.requires_grad:
+            dual = _DUAL[kind]
+            out.register_hook(lambda g: self._append(dual, g, group))
+
+    def _append(self, kind: str, t: Tensor, group: str) -> None:
+        if self.recorder is not None:
+            self.recorder.append((kind, _HLO_DTYPES.get(t.dtype, "f32"),
+                                  ",".join(str(n) for n in t.shape), group))
 
     @contextlib.contextmanager
     def _span(self, dev: torch.device):
@@ -424,7 +487,7 @@ class Placement:
         for d in range(self.dp):
             g = self.group(d)
             owner = self.devices[g[0]]
-            with self._span(owner):
+            with self._span(owner), self._quiet():
                 total = parts[g[0]]
                 for r in g[1:]:
                     total = total + parts[r].to(owner)
@@ -435,6 +498,9 @@ class Placement:
                     if dev not in copies:
                         copies[dev] = total.to(dev)
                     out[r] = copies[dev]
+        if self.tp > 1:
+            self.record("all-reduce", parts[0], self.group_name(model=True),
+                        out[0])
         return out
 
     def all_gather(self, parts: list, dim: int) -> list:
@@ -443,7 +509,7 @@ class Placement:
         out: list = [None] * self.p
         for d in range(self.dp):
             g = self.group(d)
-            with self._span(self.devices[g[0]]):
+            with self._span(self.devices[g[0]]), self._quiet():
                 made: dict = {}
                 for r in g:
                     dev = self.devices[r]
@@ -452,6 +518,9 @@ class Placement:
                             [parts[q].to(dev) for q in g], dim) \
                             if self.tp > 1 else parts[r]
                     out[r] = made[dev]
+        if self.tp > 1:
+            self.record("all-gather", parts[0], self.group_name(model=True),
+                        out[0])
         return out
 
     def gather_data(self, parts: list, dim: int = 0) -> list:
@@ -465,9 +534,11 @@ class Placement:
             col = [parts[d * self.tp + r % self.tp] for d in range(self.dp)]
             key = (dev,) + tuple(id(t) for t in col)
             if key not in made:
-                with self._span(dev):
+                with self._span(dev), self._quiet():
                     made[key] = torch.cat([t.to(dev) for t in col], dim)
             out[r] = made[key]
+        self.record("all-gather", parts[0], self.group_name(data=True),
+                    out[0])
         return out
 
     # --- inputs and outputs ---------------------------------------------------
@@ -505,10 +576,12 @@ class Placement:
 
     def new_caches(self, cache_meta) -> "ShardedCache":
         """Zeroed decode caches placed as ``cache_specs`` places the
-        one-device structure `cache_meta` (meta tensors), KV heads over the
-        model axis: one cache structure a rank at its local shapes."""
-        cfg = dataclasses.replace(self.cfg, kv_cache_shard="heads")
-        specs = self.policy.cache_specs(cfg, cache_meta)
+        one-device structure `cache_meta` (meta tensors): KV heads over the
+        model axis, or with ``kv_cache_shard="sequence"`` the cache's slots
+        where the axis divides them (each rank a contiguous slice of
+        positions, every KV head); one cache structure a rank at its
+        local shapes."""
+        specs = self.policy.cache_specs(self.cfg, cache_meta)
 
         def walk(node, spec, r):
             if isinstance(node, dict):
@@ -614,6 +687,7 @@ class ShardedLM:
             by.values(), key=lambda sh: (order_key(sh.name), sh.key))
         self.copies: List[Tensor] = [c for sh in self.shards
                                      for c in sh.copies]
+        self._readers = [len(rs) for sh in self.shards for rs in sh.ranks]
         self._slot = {}        # (leaf name, rank) -> index in copies
         i = 0
         for sh in self.shards:
@@ -636,6 +710,10 @@ class ShardedLM:
     def parameters(self):
         return iter(self.copies)
 
+    def weighted(self, i: int):
+        """``Placement.weighted`` for copy i: the ranks that read it."""
+        return self.px.weighted(self._readers[i])
+
     def firsts(self) -> List[int]:
         """The index in ``copies`` of each shard's first copy."""
         out, i = [], 0
@@ -650,12 +728,18 @@ class ShardedLM:
         copy: the copies' partials added in copy order on the first copy's
         device, the float32 sum copied to the others, so that the copies of
         a shard stay bitwise equal through the same update."""
-        out, i = list(grads), 0
+        out, i, seen = list(grads), 0, set()
         for sh in self.shards:
             n = len(sh.copies)
+            d, m = sh.key
+            over = (d < 0 and self.px.dp > 1, m < 0 and self.px.tp > 1)
+            if any(over) and sh.name not in seen:   # one record a leaf
+                seen.add(sh.name)
+                self.px.record("all-reduce", grads[i],
+                               self.px.group_name(*over))
             if n > 1:
                 dev = sh.copies[0].device
-                with self.px._span(dev):
+                with self.px._span(dev), self.px._quiet():
                     total = grads[i]
                     for g in grads[i + 1:i + n]:
                         total = total + g.to(dev)
@@ -700,9 +784,12 @@ class ShardedLM:
         if dp_dim is None or px.dp == 1:
             return local
         m, dev = r % px.tp, px.devices[r]
-        with px._span(dev):
-            return torch.cat([_attr(self.ranks[d * px.tp + m], name).to(dev)
-                              for d in range(px.dp)], dp_dim)
+        with px._span(dev), px._quiet():
+            out = torch.cat([_attr(self.ranks[d * px.tp + m], name).to(dev)
+                             for d in range(px.dp)], dp_dim)
+        if r == 0:      # one record a use: rank 0's gather
+            px.record("all-gather", local, px.group_name(data=True), out)
+        return out
 
     def parts(self, name: str) -> list:
         """Every rank's `name`: a sub-layer (a mapping of its leaves) or a
@@ -723,10 +810,17 @@ class ShardedLM:
 class ShardedCache:
     """Decode caches over a mesh: ``ranks[r]`` is rank r's cache in the
     one-device structure at its local shapes, ``specs`` the specs of the
-    one-device structure (``ShardingPolicy.cache_specs``, heads mode)."""
+    one-device structure (``ShardingPolicy.cache_specs``)."""
     px: Placement
     ranks: list
     specs: Any
+
+    def by_positions(self, run: Optional[int] = None) -> bool:
+        """Whether the KV caches of a run (of the one dict of an
+        encoder-decoder's cache when None) are split over the model axis
+        by slots (sequence mode), not by heads."""
+        node = self.specs if run is None else self.specs[run]
+        return "k" in node and _split(node["k"], self.px.policy)[0] == 3
 
     def assemble(self, device="cpu"):
         """The one-device cache structure of the ranks' pieces."""

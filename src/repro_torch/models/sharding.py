@@ -19,9 +19,10 @@ leaf.  The specs are computed here and executed by ``models/parallel.py``
 mesh=)``, the steps' ``policy=``, ``runtime/train_loop.TrainLoop`` in pjit
 mode): each leaf is cut into its ranks' shards as ``params_specs`` says,
 matched to the port's per-layer leaves through ``tree.reference_path``,
-and the decode caches as ``cache_specs`` says in heads mode
-(sequence-mode caches, which only the reference's dry run places, are not
-executed: every config's KV caches go by heads).
+and the decode caches as ``cache_specs`` says: KV heads over the model
+axis, or with ``kv_cache_shard="sequence"`` the cache's slots
+(flash-decoding: ``layers.attention_decode_tp``), which the reference
+places only in its dry run and the port executes.
 ``constrain_residual`` / ``constrain_logits`` are the identity: the
 executor keeps the residual stream whole on each model rank (its batch
 split over data) and gathers the logits whole, where the reference may

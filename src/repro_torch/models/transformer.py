@@ -276,19 +276,31 @@ def forward(cfg: ModelConfig, params: DecoderLM, *,
 
 
 def _prefill_cache(cfg: ModelConfig, cache: dict, i: int, piece: dict,
-                   window: int, s: int) -> None:
+                   window: int, s: int, part=None) -> None:
     """Write layer i's prefill state into its run's decode cache: the last
     min(s, cap) positions, at slot position % cap in an SWA ring, at slots
-    0.. in a full-context cache."""
+    0.. in a full-context cache.  part = (m, tp): the cache holds slice m
+    of tp of the slots (sequence mode), and only the positions landing
+    there are written."""
     if "k" in piece:
-        cap = cache["k"].shape[3]
+        m, tp = part or (0, 1)
+        n = cache["k"].shape[3]
+        cap = n * tp
         take = min(s, cap)
         slots = (torch.arange(s - take, s) % cap) if window > 0 else \
             torch.arange(take)
-        slots = slots.to(cache["k"].device)
+        rows = torch.arange(s - take, s)
+        if part is not None:   # host index arithmetic: no device values
+            mine = (slots >= m * n) & (slots < (m + 1) * n)
+            slots, rows = slots[mine] - m * n, rows[mine]
+        dev = cache["k"].device
+        slots = slots.to(dev)
         for name in ("k", "v"):  # (B, S, Hkv, hd) -> (B, Hkv, cap, hd)
-            src = piece[name][:, s - take:].transpose(1, 2)
-            cache[name][i].index_copy_(2, slots, src.to(cache[name].dtype))
+            src = piece[name][:, s - take:] if part is None else \
+                piece[name].index_select(1, rows.to(dev))
+            cache[name][i].index_copy_(2, slots,
+                                       src.transpose(1, 2).to(
+                                           cache[name].dtype))
     if "ssm_h" in piece:
         cache["ssm_h"][i] = piece["ssm_h"]
         cache["conv"][i] = piece["conv"].to(cache["conv"].dtype)
@@ -392,18 +404,31 @@ def logits_tp(cfg: ModelConfig, sm, xs: list, d: int) -> Tensor:
         heads = [h.T for h in heads]
     dim = px.tp_dim(name)
     vocab_dim, d_dim = (0, 1) if cfg.tie_embeddings else (1, 0)
+    record = d == 0 and px.tp > 1    # one record a call: group 0's
     if dim == d_dim:
         w = heads[0].shape[0]
         with px._span(owner):
             total = None
             for m, (h, x) in enumerate(zip(heads, xs)):
-                part = P.mm32(x[..., m * w:(m + 1) * w], h).to(owner)
-                total = part if total is None else total + part
-            return total.to(dt)
+                part = P.mm32(x[..., m * w:(m + 1) * w], h)
+                with px._quiet():
+                    if total is None:
+                        operand = torch.empty_like(part, device="meta")
+                    part = part.to(owner)
+                    total = part if total is None else total + part
+            with px._quiet():
+                out = total.to(dt)
+        if record:
+            px.record("all-reduce", operand, px.group_name(model=True), out)
+        return out
     if dim == vocab_dim:
         with px._span(owner):
-            return torch.cat([(x @ h.to(dt)).to(owner)
-                              for h, x in zip(heads, xs)], -1)
+            parts = [x @ h.to(dt) for h, x in zip(heads, xs)]
+            with px._quiet():
+                out = torch.cat([part.to(owner) for part in parts], -1)
+        if record:
+            px.record("all-gather", parts[0], px.group_name(model=True), out)
+        return out
     return xs[0] @ heads[0].to(dt)
 
 
@@ -425,16 +450,19 @@ def _norm_tp(cfg: ModelConfig, sm, xs: list, name: str) -> list:
 
 
 def block_apply_tp(cfg: ModelConfig, sm, li: int, xs: list, positions: list,
-                   window: int, split: bool, index_mask: bool = False):
+                   window: int, split: bool, index_mask: bool = False,
+                   seq: bool = False):
     """``block_apply`` of layer li over the mesh.  A layer with attention
     and an SSM sums their row-parallel partials before one all-reduce.
-    Returns (xs, aux, each rank's cache piece)."""
+    `seq`: the layer's cache is split by positions, so each rank's piece
+    holds every KV head.  Returns (xs, aux, each rank's cache piece)."""
     px, dt, blk = sm.px, xs[0].dtype, f"blocks.{li}"
     hs = _norm_tp(cfg, sm, xs, blk + ".ln1")
     outs, pieces, aux = [], [dict() for _ in range(px.p)], 0.0
     if _has_attn(cfg):
         out, kv = L.attention_apply_tp(cfg, px, sm.parts(blk + ".attn"), hs,
-                                       positions, window, index_mask)
+                                       positions, window, index_mask,
+                                       seq=seq)
         outs.append(out)
         for piece, (k, v) in zip(pieces, kv):
             piece["k"], piece["v"] = k, v
@@ -463,16 +491,18 @@ def _ffn_tp(cfg: ModelConfig, sm, blk: str, xs: list, split: bool):
 
 def block_decode_tp(cfg: ModelConfig, sm, li: int, xs: list, positions: list,
                     window: int, caches: list, cache_index: int,
-                    split: bool) -> list:
+                    split: bool, seq: bool = False) -> list:
     """``block_decode`` of layer li over the mesh, each rank's block cache
-    (views of its run's caches) written in place."""
+    (views of its run's caches) written in place; `seq`: the KV caches
+    are split by positions."""
     px, blk = sm.px, f"blocks.{li}"
     hs = _norm_tp(cfg, sm, xs, blk + ".ln1")
     outs = []
     if _has_attn(cfg):
         outs.append(L.attention_decode_tp(
             cfg, px, sm.parts(blk + ".attn"), hs, positions, window,
-            [c["k"] for c in caches], [c["v"] for c in caches], cache_index))
+            [c["k"] for c in caches], [c["v"] for c in caches], cache_index,
+            seq=seq))
     if _has_ssm(cfg):
         out, h, conv = S.ssm_decode_tp(cfg, px, sm.parts(blk + ".ssm"), hs,
                                        [c["ssm_h"] for c in caches],
@@ -511,13 +541,15 @@ def forward_tp(cfg: ModelConfig, sm, split: bool, *,
         caches = px.new_caches(init_cache(cfg, b, cache_capacity, "meta"))
     total_aux = 0.0
     for run, (w, start, cnt) in enumerate(layer_runs(cfg)):
+        seq = caches is not None and caches.by_positions(run)
         for i in range(cnt):
             xs, a, pieces = P.remat(cfg, block_apply_tp, cfg, sm, start + i,
-                                    xs, pos, w, split, index_mask)
+                                    xs, pos, w, split, index_mask, seq)
             total_aux = total_aux + a
             if caches is not None:
-                for rc, piece in zip(caches.ranks, pieces):
-                    _prefill_cache(cfg, rc[run], i, piece, w, s)
+                for r, (rc, piece) in enumerate(zip(caches.ranks, pieces)):
+                    _prefill_cache(cfg, rc[run], i, piece, w, s,
+                                   (r % px.tp, px.tp) if seq else None)
     return _norm_tp(cfg, sm, xs, "final_norm"), total_aux, caches
 
 
@@ -529,11 +561,12 @@ def decode_tp(cfg: ModelConfig, sm, split: bool, cache, token: Tensor,
     xs = embed_tp(cfg, sm, px.scatter(token, split))
     pos = px.scatter(positions, split)
     for run, (w, start, cnt) in enumerate(layer_runs(cfg)):
+        seq = cache.by_positions(run)
         for i in range(cnt):
             bcs = [{name: t[i] for name, t in rc[run].items()}
                    for rc in cache.ranks]
             xs = block_decode_tp(cfg, sm, start + i, xs, pos, w, bcs,
-                                 cache_index, split)
+                                 cache_index, split, seq)
     xs = _norm_tp(cfg, sm, xs, "final_norm")
     return project_logits_tp(cfg, sm, xs, split), cache
 

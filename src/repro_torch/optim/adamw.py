@@ -32,6 +32,7 @@ the host once a step, the exact multiplier of ``add(alpha=-lr)``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -168,16 +169,20 @@ def update(cfg: AdamWConfig, grads, state: dict, params):
     c2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
     home = gnorm.device
     consts = {home: (scale, lr if placed else float(lr), c1, c2)}
-    for (name, p), g, m, v in zip(named, flat_g, state["m"], state["v"]):
+    for i, ((name, p), g, m, v) in enumerate(zip(named, flat_g, state["m"],
+                                                 state["v"])):
         if p.device not in consts:   # copied once a device
             consts[p.device] = tuple(t.to(p.device) if isinstance(
                 t, torch.Tensor) else t for t in consts[home])
         decay = reference_ndim(name, p) >= 2  # decoupled, matrices only
         pf, gf, mf, vf = (t.view(-1) for t in (p, g, m, v))
-        for lo in range(0, pf.numel(), CHUNK):  # elementwise: bounded temps
-            sl = slice(lo, lo + CHUNK)
-            _update_chunk(cfg, pf[sl], gf[sl], mf[sl], vf[sl],
-                          *consts[p.device], decay)
+        # a shard's update is the work of every rank that reads it (counted
+        # so by the dry run's meter; nothing otherwise)
+        with params.weighted(i) if placed else contextlib.nullcontext():
+            for lo in range(0, pf.numel(), CHUNK):  # bounded temporaries
+                sl = slice(lo, lo + CHUNK)
+                _update_chunk(cfg, pf[sl], gf[sl], mf[sl], vf[sl],
+                              *consts[p.device], decay)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

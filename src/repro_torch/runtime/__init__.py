@@ -5,13 +5,13 @@ Port of ``repro.runtime``: ``faults`` (FaultPlan, classify_failure,
 RetryPolicy; the recovering executor and the sinks check its sites),
 ``elastic`` (ElasticPlan, shrink_data_axis, build_mesh, shrink_mesh,
 replan_execution, elastic_pcc_plan, replan_pcc, host_shard_plan),
-``straggler`` and ``train_loop`` (TrainLoop, LoopConfig, FailureInjected).
-The XLA tooling (``hlo``) is not ported (ROADMAP A part 7).  Submodules
+``straggler``, ``train_loop`` (TrainLoop, LoopConfig, FailureInjected)
+and ``hlo`` (the collectives' accounting of the dry run).  Submodules
 and the train-loop names resolve lazily: the engine's hot paths import
 ``faults`` without the train loop's stack.
 """
 
-_SUBMODULES = ("faults", "elastic", "straggler", "train_loop")
+_SUBMODULES = ("faults", "elastic", "straggler", "train_loop", "hlo")
 _TRAIN_LOOP_NAMES = ("TrainLoop", "LoopConfig", "FailureInjected")
 
 __all__ = [*_SUBMODULES, *_TRAIN_LOOP_NAMES]

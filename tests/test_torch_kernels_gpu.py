@@ -2512,3 +2512,62 @@ def test_lm_train_step_and_adamw_on_card_match_the_cpu(cuda):
         _, s_card, m = step(card_model, s_card, **batch)
         losses.append(float(m["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0] * 1.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["nemotron-4-340b", "qwen2-vl-72b"])
+def test_sequence_cache_decode_on_card_matches_the_cpu(cuda, arch):
+    """kv_cache_shard="sequence" over a (1, 2) mesh of two logical ranks
+    on cuda:0 at float32 SMOKE (each rank half the cache's slots, decode
+    combining the ranks' partial softmaxes) against the same mesh of CPU
+    ranks on the same parameters: the prefill and 4 decode steps' logits
+    within 1e-5 of the largest |logit|, the assembled caches too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.tree import named_leaves, stacked_tree
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              kv_cache_shard="sequence")
+    one = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                device="cpu")
+    names, leaves = zip(*named_leaves(one))
+    tree = stacked_tree(names, leaves)
+
+    def as_numpy(node):
+        return {k: as_numpy(v) for k, v in node.items()} \
+            if isinstance(node, dict) else node.numpy()
+    params = as_numpy(tree)
+    runs, feed = [], []
+    for dev in ("cpu", "cuda:0"):
+        mesh = make_mesh((1, 2), ("data", "model"), devices=[dev] * 2)
+        policy = make_policy(cfg, mesh)
+        sm = lm_params_from_reference(cfg, params, mesh=mesh)
+        batch, dpos = _lm_smoke_batch(cfg, dev)
+        logits, cache = steps.make_prefill_step(
+            cfg, cache_capacity=56, policy=policy)(sm, **batch)
+        assert cache.by_positions(0)
+        decode = steps.make_decode_step(cfg, policy=policy)
+        got = [logits.float().cpu()]
+        for t in range(4):
+            if len(feed) == t:      # the CPU run's greedy tokens, fed to both
+                feed.append(got[-1][:, -1].argmax(-1)[:, None])
+            tok = feed[t].to(dev)
+            kw = {} if not dpos else {"positions": dpos["positions"] + t}
+            logits, cache = decode(sm, token=tok, cache=cache,
+                                   cache_index=48 + t, **kw)
+            got.append(logits.float().cpu())
+        runs.append((got, [{k: v.float().cpu() for k, v in c.items()}
+                           for c in cache.assemble()]))
+    (cpu, cpu_cache), (card, card_cache) = runs
+    for a, b in zip(cpu, card):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    for a, b in zip(cpu_cache, card_cache):
+        for k in a:
+            assert float((a[k] - b[k]).abs().max()) <= \
+                1e-5 * max(float(a[k].abs().max()), 1e-30)
